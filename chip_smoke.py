@@ -8,26 +8,38 @@ Phases, each printed on lines of its own; any failure raises and the
 script exits non-zero:
 
   1. device      the card's name and power limit (nvidia-smi); TF32 off
-  2. build       every kernel under src/repro_torch/kernels/csrc with nvcc
+  2. build       every kernel under src/repro_torch/kernels/csrc with nvcc,
+                 one nvcc per source, all started together
   3. kernel      each kernel against its plain PyTorch version at the
-                 main path's shapes (and small shapes), bf16 and fp32
+                 main path's shapes (and small shapes), bf16 and fp32; the
+                 dual-branch dispatcher's two-op route
   4. time        kernel, plain and bound times (median of 100 launches,
                  CUDA events, L2 flushed between launches)
-  5. tick        one packed tick of llama3.2-3b at full width (2 layers,
-                 fp32) on the card against the plain path on the CPU
+  5. tick        one packed tick, one padded C = 128 chunk tick and one
+                 dual-branch C == 1 tick of llama3.2-3b at full width (2
+                 layers, fp32) on the card against the plain path on the CPU
   6. engine      24 greedy requests through PagedEngine at full width and
                  depth (llama3.2-3b, 28 layers, bf16), with the kernels'
                  launch counters zeroed just before and read just after
   7. profile     where a tick's time goes: a second, smaller workload on
                  the same engine, timed plainly and under torch.profiler
+  8. dual engine the profile workload again through
+                 EngineConfig(dual_branch=True): the same token streams
+  9. padded      padded (B, C) generation at full width and depth: chunk
+                 prefill ticks, then 32 greedy C == 1 ticks sequentially and
+                 again under the dual-branch plan from the same cache
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
-outside a checkout, the script exits non-zero and prints no result.
-It imports nothing of JAX and nothing of the JAX package ``repro``.
+Every main-path run (6, 8 and each run of 9) zeroes all launch counters
+just before it and reads them just after.  The line before the last is a
+JSON object with one entry per kernel; the last line is {"ok": true,
+"device": {...}}.  Without a CUDA device, or outside a checkout, the script
+exits non-zero and prints no result.  It imports nothing of JAX and nothing
+of the JAX package ``repro``.
 """
 import json
+import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -44,6 +56,15 @@ SXM_BYTES_PER_S = 3.35e12
 PCIE_BYTES_PER_S = 2.0e12
 
 H, HKV, D, PAGE = 24, 8, 128, 16          # llama3.2-3b attention shapes
+
+#: bound on |logit| differences between sequential and dual-branch decode
+#: at llama3.2-3b in bf16 (padded generation phase).  Attention is the same
+#: kernel code on both routes; the FFN differs: the fused kernel keeps x @ wg,
+#: x @ wi and the activation in fp32 and rounds y once, where mlp_apply rounds
+#: each of them to bf16 (relative 2^-9 each).  Those differences enter the
+#: residual stream in each of 27 blocks and reach logits of order 1 through
+#: the final norm.
+DUAL_LOGIT_BOUND = 0.25
 
 
 def phase(name):
@@ -98,6 +119,87 @@ def attention_inputs(dtype, T, h, hkv, d, page, num_pages, seed):
             rnd(num_pages, page, hkv, d))
 
 
+def lane_tables(lens, *, page, tb, seed):
+    """Padded-layout block tables: lane b owns ceil(lens[b] / page) distinct
+    random pages (at most tb), the rest of its row is the scratch page 0.
+    Returns (CPU int32 (B, tb) tables, the pool size in pages)."""
+    need = [min(-(-int(n) // page), tb) for n in lens]
+    num_pages = sum(need) + 1
+    g = torch.Generator().manual_seed(seed)
+    perm = (torch.randperm(num_pages - 1, generator=g) + 1).to(torch.int32)
+    bt = torch.zeros((len(lens), tb), dtype=torch.int32)
+    used = 0
+    for b, n in enumerate(need):
+        bt[b, :n] = perm[used:used + n]
+        used += n
+    return bt, num_pages
+
+
+def cuda_i32(v):
+    return torch.tensor(v, dtype=torch.int32, device="cuda")
+
+
+def randn(g, dtype, *shape, std=1.0):
+    return (torch.randn(shape, generator=g, device="cuda") * std).to(dtype)
+
+
+def decode_inputs(dtype, seq_lens, h, hkv, d, page, tb, seed):
+    """(q, k_pages, v_pages, block_tables, seq_lens) on the card."""
+    bt, num_pages = lane_tables(seq_lens, page=page, tb=tb, seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (randn(g, dtype, len(seq_lens), h, d),
+            randn(g, dtype, num_pages, page, hkv, d),
+            randn(g, dtype, num_pages, page, hkv, d), bt.cuda(),
+            cuda_i32(seq_lens))
+
+
+def chunk_inputs(dtype, C, lanes, h, hkv, d, page, tb, seed):
+    """(q, k_pages, v_pages, block_tables, pos, n_valid) on the card for
+    ``lanes`` = [(pos, n_valid)]; each lane owns pages up to pos + C."""
+    bt, num_pages = lane_tables([p + C for p, _ in lanes], page=page, tb=tb,
+                                seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (randn(g, dtype, len(lanes), C, h, d),
+            randn(g, dtype, num_pages, page, hkv, d),
+            randn(g, dtype, num_pages, page, hkv, d), bt.cuda(),
+            cuda_i32([p for p, _ in lanes]), cuda_i32([n for _, n in lanes]))
+
+
+def ffn_inputs(g, dtype, kind, B, dm, f):
+    """x (B, dm) and dense-MLP weights at ``layers.dense_init``'s scales."""
+    ffn = {"wi": randn(g, dtype, dm, f, std=dm ** -0.5),
+           "wo": randn(g, dtype, f, dm, std=f ** -0.5)}
+    if kind != "gelu":
+        ffn["wg"] = randn(g, dtype, dm, f, std=dm ** -0.5)
+    return randn(g, dtype, B, dm), ffn
+
+
+def fused_inputs(dtype, kind, B, f, *, dm=3072, h=H, hkv=HKV, d=D,
+                 page=PAGE, tb=128, seq=1021, seed=0):
+    """Attention inputs of ``decode_inputs`` at ragged lengths up to
+    ``seq`` (one lane at 1) and an FFN (x, weights) for the fused kernel."""
+    seq_lens = [1] + [max(1, seq - seq // B * b) for b in range(B - 1)]
+    att = decode_inputs(dtype, seq_lens, h, hkv, d, page, tb, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    return att + ffn_inputs(g, dtype, kind, B, dm, f)
+
+
+def max_err(out, ref):
+    return (out.float() - ref.float()).abs().max().item()
+
+
+def bf16_ulp(ref):
+    """One bfloat16 ulp at the largest magnitude of ``ref``: 2^(e - 7) for
+    |ref| in [2^e, 2^(e+1))."""
+    top = max(ref.float().abs().max().item(), 2.0 ** -126)
+    return 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def require(ok, msg):
+    if not ok:
+        raise AssertionError(msg)
+
+
 # --------------------------------------------------------------------------- #
 # phases
 # --------------------------------------------------------------------------- #
@@ -126,9 +228,12 @@ def build_phase():
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})")
     for name, log in build.PTXAS_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        spill = [int(m) for m in re.findall(r"(\d+) bytes spill", log)]
+        smem = [int(m) for m in re.findall(r"(\d+) bytes smem", log)]
+        print(f"  {name}: {len(regs)} kernels, {min(regs)}..{max(regs)} "
+              f"registers, at most {max(smem)} bytes static shared memory, "
+              f"{sum(spill)} bytes spilled (ptxas -v)")
     sys.stdout.flush()
 
 
@@ -184,6 +289,147 @@ def kernel_phase():
     return errs[torch.bfloat16]
 
 
+#: (D, page, H, Hkv) small shapes: G = 3, 4, 3, 1, 8, 3, 2
+SMALL_SHAPES = ((64, 16, 6, 2), (32, 16, 8, 2), (128, 4, 12, 4),
+                (128, 8, 4, 4), (64, 4, 16, 2), (32, 8, 3, 1), (32, 4, 4, 2))
+#: the tolerances of the packed kernel, for the same attention block
+ATTN_TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: C = 128 and C = 1 chunks at the main shape (table width 128):
+#: [(pos, n_valid)] with n_valid 0, 1, < C and C, at pos 0 and > 0
+MAIN_CHUNKS = ((128, ((0, 128), (0, 0), (0, 1), (0, 57), (256, 128),
+                      (256, 0), (384, 1), (1000, 77))),
+               (1, ((0, 0), (0, 1), (5, 0), (5, 1), (PAGE - 1, 1),
+                    (PAGE, 1), (1000, 1), (128 * PAGE - 1, 1))))
+
+
+def report(label, err, tol):
+    print(f"  {label}: max_abs_err {err:.3e} (tol {tol:.3g})", flush=True)
+    require(err <= tol, f"{label}: kernel disagrees with its plain version: "
+            f"{err} > {tol}")
+    return err
+
+
+def padded_kernel_phase():
+    """The decode and chunk kernels against their plain versions on every
+    row (decode lanes have seq_len >= 1, where ref.py and the kernels
+    agree).  Returns the main shape's bf16 error per kernel."""
+    from repro_torch.kernels import paged_attention as PA
+    phase("kernel vs plain: paged_decode_attention, paged_chunk_attention")
+    tb = 128
+    dec = [(H, HKV, D, PAGE, tb, [1, PAGE, tb * PAGE, 1021, 500, 2 * PAGE,
+                                  1020, 777])]
+    chk = [(H, HKV, D, PAGE, tb, c, lanes) for c, lanes in MAIN_CHUNKS]
+    for d, page, h, hkv in SMALL_SHAPES:
+        dec.append((h, hkv, d, page, 12, [1, page, 12 * page, 3 * page + 1,
+                                          5]))
+        for c in (8, 1):
+            chk.append((h, hkv, d, page, 12, c,
+                        ((0, c), (0, 0), (3, 1), (5, max(c - 3, 0)),
+                         (9, 0), (2, c))))
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = ATTN_TOLS[dtype]
+        for i, (h, hkv, d, page, tbl, lens) in enumerate(dec):
+            args = decode_inputs(dtype, lens, h, hkv, d, page, tbl, seed=i)
+            out = PA.paged_decode_attention_cuda(*args)
+            ref = PA.paged_decode_attention_plain(
+                *(a.float() for a in args[:3]), *args[3:]).to(dtype)
+            torch.cuda.synchronize()
+            err = report(f"decode {str(dtype):14s} H={h} Hkv={hkv} D={d} "
+                         f"page={page} Tb={tbl} seq_lens={lens}",
+                         max_err(out, ref), tol)
+            if i == 0 and dtype == torch.bfloat16:
+                errs["paged_decode_attention"] = err
+        for i, (h, hkv, d, page, tbl, c, lanes) in enumerate(chk):
+            args = chunk_inputs(dtype, c, lanes, h, hkv, d, page, tbl,
+                                seed=100 + i)
+            out = PA.paged_chunk_attention_cuda(*args)
+            ref = PA.paged_chunk_attention_plain(
+                *(a.float() for a in args[:3]), *args[3:]).to(dtype)
+            torch.cuda.synchronize()
+            # rows with nothing visible (n_valid 0 at pos 0) are exact 0
+            dead = (args[4] + args[5] == 0)
+            require(not dead.any() or out[dead].abs().max().item() == 0.0,
+                    "chunk rows with no visible key are not 0")
+            err = report(f"chunk  {str(dtype):14s} H={h} Hkv={hkv} D={d} "
+                         f"page={page} C={c} (pos, n_valid)={list(lanes)}, "
+                         f"all rows", max_err(out, ref), tol)
+            if i == 0 and dtype == torch.bfloat16:
+                errs["paged_chunk_attention"] = err
+    return errs
+
+
+def fused_kernel_phase():
+    """The fused kernel against its plain version (the plain decode
+    attention, then ``mlp_apply``, computed in fp32 from the same inputs),
+    and the dispatcher's two routes.  Returns the main shape's bf16
+    error."""
+    from repro_torch.kernels import dual_branch as DB
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    phase("kernel vs plain: fused_dual_branch_decode")
+    # attn: the decode kernel's attention block -> ATTN_TOLS.
+    # y in fp32: both sides sum Dm and F products of order-1 values in fp32
+    # in another order (tiles of 64, then tile partials) -> 1e-4.
+    # y in bf16: kernel and plain version both compute in fp32 from the same
+    # bf16 inputs and round once, so they differ by at most one bf16 ulp at
+    # the largest |y|.
+    cases = [(kind, B, f, dict()) for kind in DB.KINDS for B in (3, 8)
+             for f in (8192, 8192 + 40)]             # + 40: a ragged tile
+    cases += [("swiglu", 2, 256, dict(dm=64, h=8, hkv=2, d=32, page=8, tb=4,
+                                      seq=29)),
+              ("gelu", 5, 98, dict(dm=100, h=6, hkv=2, d=64, page=4, tb=6,
+                                   seq=23)),          # element loads
+              ("geglu", 11, 200, dict(dm=136, h=4, hkv=4, d=128, page=16,
+                                      tb=3, seq=40))]  # two row groups
+    err_main = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (kind, B, f, kw) in enumerate(cases):
+            q, kp, vp, bt, sl, x, ffn = fused_inputs(dtype, kind, B, f,
+                                                     seed=200 + i, **kw)
+            attn, y = DB.fused_dual_branch_decode_cuda(q, kp, vp, bt, sl, x,
+                                                       ffn, kind=kind)
+            ra, ry = DB.fused_dual_branch_decode_plain(
+                q.float(), kp.float(), vp.float(), bt, sl, x.float(),
+                {k: w.float() for k, w in ffn.items()}, kind=kind)
+            torch.cuda.synchronize()
+            ry = ry.to(dtype)
+            tol_y = 1e-4 if dtype == torch.float32 else bf16_ulp(ry)
+            shape = (f"{str(dtype):14s} {kind} B={B} F={f} "
+                     f"Dm={x.shape[1]} H={q.shape[1]} Hkv={kp.shape[2]} "
+                     f"D={q.shape[2]}")
+            e_a = report(f"fused attn {shape}", max_err(attn, ra.to(dtype)),
+                         ATTN_TOLS[dtype])
+            e_y = report(f"fused ffn  {shape}", max_err(y, ry), tol_y)
+            if dtype == torch.bfloat16 and (kind, B, f) == ("swiglu", 8,
+                                                            8192):
+                err_main = max(e_a, e_y)
+    # the dispatcher: F % (Hkv * Tb) == 0 fuses; otherwise the decode kernel
+    # and mlp_apply (Hkv * Tb = 1024 here).  The two-op route's FFN is the
+    # one mlp_apply call, so it equals a second call on the same inputs.
+    for f, fused in ((8192, True), (8192 + 64, False)):
+        q, kp, vp, bt, sl, x, ffn = fused_inputs(torch.bfloat16, "swiglu", 8,
+                                                 f, seed=300)
+        ops.reset_launches()
+        attn, y = ops.dual_branch_decode(q, kp, vp, bt, sl, x[:, None], ffn,
+                                         kind="swiglu")
+        counts = ops.launch_counts()
+        ra, ry = DB.fused_dual_branch_decode_plain(
+            q.float(), kp.float(), vp.float(), bt, sl, x.float(),
+            {k: w.float() for k, w in ffn.items()})
+        ry = ry.to(x.dtype) if fused else L.mlp_apply(ffn, x[:, None])[:, 0]
+        torch.cuda.synchronize()
+        print(f"  dispatcher F={f}: launches {counts}")
+        require(counts["fused_dual_branch_decode"] == int(fused)
+                and counts["paged_decode_attention"] == int(not fused),
+                f"dual_branch_decode took the wrong route: {counts}")
+        report(f"dispatcher F={f} attn", max_err(attn, ra.to(q.dtype)),
+               ATTN_TOLS[torch.bfloat16])
+        report(f"dispatcher F={f} ffn", max_err(y[:, 0], ry),
+               bf16_ulp(ry) if fused else 0.0)
+    return err_main
+
+
 def _median_ms(fn, n=100, flush_bytes=256 << 20):
     """Median over n launches of one launch's CUDA-event time, with the L2
     cache flushed before each launch (the engine finds pages cold: every
@@ -203,26 +449,37 @@ def _median_ms(fn, n=100, flush_bytes=256 << 20):
     return statistics.median(times)
 
 
-def _bound_ms(q, kp, bt, tok_slot, tok_pos, bw):
+def _paged_bound_ms(q, kp, kv_rows, score_keys, index_numel, bw, *,
+                    extra_bytes=0, extra_flops=0):
     """Least time for the work: max(bytes / bandwidth, flops / peak).
-    Bytes: every slot's key rows up to its furthest token, K and V, read
-    once, plus q, the output and the index arrays; flops: 4 * H * D per
-    (token, visible key)."""
-    T, h, d = q.shape
-    hkv = kp.shape[2]
+    Bytes: ``kv_rows`` K and V rows (Hkv * D each) read once, q read and
+    the output written once, the int32 index arrays, plus ``extra_bytes``;
+    flops: 4 * H * D per (query row, visible key), plus ``extra_flops``."""
+    h, d = q.shape[-2:]
+    row = 2 * kp.shape[2] * d * kp.element_size()
+    nbytes = (kv_rows * row + 2 * q.numel() * q.element_size()
+              + 4 * index_numel + extra_bytes)
+    t_bytes = nbytes / bw
+    t_ops = (4 * h * d * score_keys + extra_flops) / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _bound_ms(q, kp, bt, tok_slot, tok_pos, bw):
+    """The packed kernel's bound: every slot's key rows up to its furthest
+    token, and each token's visible keys."""
     live = tok_pos >= 0
-    row = 2 * hkv * d * kp.element_size()
     furthest = {}
     for s, p in zip(tok_slot[live].tolist(), tok_pos[live].tolist()):
         furthest[s] = max(furthest.get(s, -1), p)
-    kv_bytes = sum(p + 1 for p in furthest.values()) * row
-    io_bytes = 2 * q.numel() * q.element_size() + 4 * (
-        bt.numel() + 2 * tok_slot.numel())
-    flops = 4 * h * d * int((tok_pos[live].long() + 1).sum())
-    t_bytes = (kv_bytes + io_bytes) / bw
-    t_ops = flops / PEAK_BF16_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return _paged_bound_ms(q, kp, sum(p + 1 for p in furthest.values()),
+                           int((tok_pos[live].long() + 1).sum()),
+                           bt.numel() + 2 * tok_slot.numel(), bw)
+
+
+def chunk_keys(pos, n_valid, c, tb):
+    """Keys visible to chunk row c of a lane at (pos, n_valid)."""
+    return max(0, min(min(pos + c, pos + n_valid - 1) + 1, tb * PAGE))
 
 
 def time_phase(bw):
@@ -253,13 +510,160 @@ def time_phase(bw):
     return rows
 
 
+def padded_time_phase(bw):
+    """Kernel, plain and bound times of the decode, chunk and fused kernels
+    at their main-path shapes (bf16, llama3.2-3b attention, table width
+    128); the fused kernel also beside its two-op route (decode kernel +
+    ``mlp_apply`` on cuBLAS)."""
+    from repro_torch.kernels import dual_branch as DB
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import layers as L
+    phase("kernel time: decode, chunk, fused dual-branch")
+    bf16, tb, rows = torch.bfloat16, 128, {}
+    lens = [1021] * 8
+    keys = sum(lens)
+    dec = decode_inputs(bf16, lens, H, HKV, D, PAGE, tb, seed=3)
+    lanes = [(256, n) for n in (128, 128, 44, 128, 100, 128, 0, 128)]
+    chk = chunk_inputs(bf16, 128, lanes, H, HKV, D, PAGE, tb, seed=4)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x, ffn = ffn_inputs(g, bf16, "swiglu", 8, 3072, 8192)
+    w_numel = sum(w.numel() for w in ffn.values())
+    cases = {
+        "paged_decode_attention": (
+            "decode tick: 8 lanes x 1021 keys",
+            lambda: PA.paged_decode_attention_cuda(*dec),
+            lambda: PA.paged_decode_attention_plain(*dec),
+            _paged_bound_ms(dec[0], dec[1], keys, keys,
+                            dec[3].numel() + 8, bw)),
+        "paged_chunk_attention": (
+            f"chunk tick: 8 lanes x C=128 at pos 256, n_valid "
+            f"{[n for _, n in lanes]}",
+            lambda: PA.paged_chunk_attention_cuda(*chk),
+            lambda: PA.paged_chunk_attention_plain(*chk),
+            _paged_bound_ms(
+                chk[0], chk[1],
+                sum(chunk_keys(p, n, 127, tb) for p, n in lanes),
+                sum(chunk_keys(p, n, c, tb) for p, n in lanes
+                    for c in range(128)), chk[3].numel() + 16, bw)),
+        "fused_dual_branch_decode": (
+            "dual decode tick: 8 lanes x 1021 keys || swiglu FFN Dm=3072 "
+            "F=8192",
+            lambda: DB.fused_dual_branch_decode_cuda(*dec, x, ffn),
+            lambda: DB.fused_dual_branch_decode_plain(*dec, x, ffn),
+            _paged_bound_ms(dec[0], dec[1], keys, keys,
+                            dec[3].numel() + 8, bw,
+                            extra_bytes=2 * (w_numel + 2 * x.numel()),
+                            extra_flops=2 * 8 * w_numel)),
+    }
+    for name, (shape, kernel, plain, (bound_ms, bound_by)) in cases.items():
+        row = dict(shape=shape + ", bf16, H=24 Hkv=8 D=128 page=16 Tb=128",
+                   ms=_median_ms(kernel), plain_ms=_median_ms(plain),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        extra = ""
+        if name == "fused_dual_branch_decode":
+            row["unfused_ms"] = _median_ms(lambda: (
+                PA.paged_decode_attention_cuda(*dec),
+                L.mlp_apply(ffn, x[:, None], "swiglu")))
+            # where its time goes: the same call with one key per lane
+            short = (*dec[:4], torch.ones_like(dec[4]))
+            ffn_ms = _median_ms(lambda: DB.fused_dual_branch_decode_cuda(
+                *short, x, ffn))
+            extra = (f" unfused_ms {row['unfused_ms']:.4f} (decode kernel + "
+                     f"mlp_apply); with 1 key per lane (FFN blocks alone) "
+                     f"{ffn_ms:.4f}")
+        rows[name] = row
+        print(f"  {name}, {row['shape']}: kernel_ms {row['ms']:.4f} "
+              f"plain_ms {row['plain_ms']:.4f} bound_ms {bound_ms:.4f} "
+              f"({bound_by}){extra} library_ms none (no single PyTorch call "
+              f"computes it)", flush=True)
+    return rows
+
+
+def random_history(cache, g):
+    """Fill every K/V pool and the per-slot a1_sig with N(0, 1)."""
+    for pools in (cache["block0"], cache["blocks"]):
+        for name in ("k", "v"):
+            pools[name].copy_(torch.randn(pools[name].shape, generator=g))
+    cache["a1_sig"].copy_(torch.randn(cache["a1_sig"].shape, generator=g))
+
+
 def tick_phase():
-    from repro_torch import interop
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
-    phase("one packed tick at full width: card (kernel) vs CPU (plain)")
     cfg = get_config("llama3.2-3b").replace(n_layers=2, dtype="float32")
+    params = M.init_params(cfg, seed=0, device="cpu")
+    packed_tick(cfg, params)
+    cuda = ops.CUDA
+    padded_tick(cfg, params, "chunk tick C=128", 128,
+                ((0, 128), (128, 128), (256, 37), (300, 0), (0, 1),
+                 (64, 128), (200, 90), (500, 128)), 40, False,
+                {"paged_chunk_attention": cuda})
+    counts = padded_tick(
+        cfg, params, "dual-branch decode tick C=1", 1,
+        ((0, 1), (15, 1), (16, 1), (300, 1), (511, 1), (100, 0), (200, 1),
+         (63, 1)), 64, True,
+        {"paged_decode_attention": cuda, "dual_branch_decode": cuda})
+    require(counts["fused_dual_branch_decode"] == 1
+            and counts["paged_decode_attention"] == 1,
+            f"dual tick did not run block 0 on the decode kernel and block "
+            f"1 on the fused kernel: {counts}")
+
+
+def padded_tick(cfg, params, label, C, lanes, tb, dual, want_paths):
+    """One padded (B, C) tick at per-lane (pos, n_valid) over a random
+    history: the card (kernels) against the CPU (plain versions).  Returns
+    the card run's launch counts."""
+    from repro_torch import interop
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    phase(f"one padded {label} at full width: card (kernel) vs CPU (plain)")
+    B = len(lanes)
+    bt, num_pages = lane_tables([p + C for p, _ in lanes], page=PAGE, tb=tb,
+                                seed=C)
+    g = torch.Generator().manual_seed(11 + C)
+    n_valid = torch.tensor([n for _, n in lanes], dtype=torch.int32)
+    batch = dict(tokens=torch.randint(0, cfg.vocab, (B, C), generator=g,
+                                      dtype=torch.int32),
+                 pos=torch.tensor([p for p, _ in lanes], dtype=torch.int32),
+                 n_valid=n_valid, block_tables=bt)
+    cache = M.init_paged_cache(cfg, num_pages, PAGE, B, "float32",
+                               device="cpu")
+    random_history(cache, g)
+    plan = ExecutionPlan.single_device("paged", dual_branch=dual)
+    gpu = {k: interop.tree_to(v, "cuda") for k, v in
+           (("params", params), ("cache", cache), ("batch", batch))}
+    ops.reset_dispatch_paths()
+    ops.reset_launches()
+    with torch.no_grad():
+        h_gpu, c_gpu = M.paged_decode_step(gpu["params"], cfg, gpu["batch"],
+                                           gpu["cache"], plan, want="hidden")
+        torch.cuda.synchronize()
+        paths, counts = ops.dispatch_paths(), ops.launch_counts()
+        h_cpu, c_cpu = M.paged_decode_step(params, cfg, batch, cache, plan,
+                                           want="hidden")
+    live = torch.arange(C)[None] < n_valid[:, None]               # (B, C)
+    dh = (h_gpu.cpu()[live] - h_cpu[live]).abs().max().item()
+    ds = (c_gpu["a1_sig"].cpu() - c_cpu["a1_sig"]).abs().max().item()
+    print(f"  (pos, n_valid) {list(lanes)}, Tb={tb}: hidden max |diff| "
+          f"{dh:.3e} (max |h| {h_cpu[live].abs().max().item():.3f}); a1_sig "
+          f"max |diff| {ds:.3e}; tol 1e-3 (fp32 on both sides, sums in "
+          f"another order, activations of order 1); card paths {paths}; "
+          f"launches {counts}", flush=True)
+    require(paths == want_paths, f"card tick paths {paths} != {want_paths}")
+    require(dh <= 1e-3 and ds <= 1e-3,
+            "card tick disagrees with the CPU plain path")
+    require(bool(torch.isfinite(h_gpu).all()),
+            "non-finite hidden states on the card")
+    return counts
+
+
+def packed_tick(cfg, params):
+    from repro_torch import interop
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    phase("one packed tick at full width: card (kernel) vs CPU (plain)")
     num_pages, tb = 512, 72
     bt, tok_slot, tok_pos, seg_last = mixed_tick(
         page=PAGE, num_pages=num_pages, tb=tb, seed=5)
@@ -268,13 +672,9 @@ def tick_phase():
                            dtype=torch.int32)
     batch = dict(tokens=tokens, tok_slot=tok_slot, tok_pos=tok_pos,
                  block_tables=bt, seg_last=seg_last)
-    params = M.init_params(cfg, seed=0, device="cpu")
     cache = M.init_paged_cache(cfg, num_pages, PAGE, seg_last.numel(),
                                "float32", device="cpu")
-    for pools in (cache["block0"], cache["blocks"]):    # the history
-        for name in ("k", "v"):
-            pools[name].copy_(torch.randn(pools[name].shape, generator=g))
-    cache["a1_sig"].copy_(torch.randn(cache["a1_sig"].shape, generator=g))
+    random_history(cache, g)
     gpu = {k: interop.tree_to(v, "cuda") for k, v in
            (("params", params), ("cache", cache), ("batch", batch))}
     ops.reset_dispatch_paths()
@@ -304,7 +704,7 @@ def tick_phase():
 def engine_phase():
     import numpy as np
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import ops, paged_attention as PA
+    from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.serve.scheduler import (EngineConfig, PagedEngine,
                                              ServeRequest)
@@ -341,13 +741,14 @@ def engine_phase():
     for r in reqs:
         engine.submit(r)
     torch.cuda.synchronize()
-    PA.reset_launches()
+    ops.reset_launches()
     ops.reset_dispatch_paths()
     t0 = time.perf_counter()
     done = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = PA.LAUNCHES
+    counts = ops.launch_counts()
+    launches = counts["paged_packed_attention"]
     paths = ops.dispatch_paths()
     st = engine.stats()
     gen = sum(len(r.generated) for r in done)
@@ -369,12 +770,15 @@ def engine_phase():
     if bool(torch.stack(nan_seen).any()):
         raise AssertionError("NaN logits")
     if launches != st["ticks"] * cfg.n_layers \
-            or st["packed_calls"] != st["ticks"]:
-        raise AssertionError("kernel launches != ticks x layers")
+            or st["packed_calls"] != st["ticks"] or sum(counts.values()) \
+            != launches:
+        raise AssertionError(f"kernel launches != ticks x layers: {counts}")
     if paths != {"paged_packed_attention": ops.CUDA}:
         raise AssertionError(f"engine did not run the kernel only: {paths}")
-    profile_phase(engine, cfg, rng)
-    return launches, dict(ticks=st["ticks"], tok_s=gen / wall, wall_s=wall)
+    prompts, streams = profile_phase(engine, cfg, rng)
+    dual_engine_phase(cfg, params, ecfg, prompts, streams)
+    return launches, dict(ticks=st["ticks"], tok_s=gen / wall,
+                          wall_s=wall), params
 
 
 def profile_phase(engine, cfg, rng):
@@ -390,6 +794,7 @@ def profile_phase(engine, cfg, rng):
     prompts = [rng.integers(0, cfg.vocab, 200) for _ in range(8)]
 
     def serve():
+        engine.finished.clear()
         for i, p in enumerate(prompts):
             engine.submit(ServeRequest(rid=100 + i, prompt=p, max_new=24))
         t0 = engine.ticks
@@ -397,12 +802,14 @@ def profile_phase(engine, cfg, rng):
         w0 = time.perf_counter()
         engine.run()
         torch.cuda.synchronize()
-        return (time.perf_counter() - w0) * 1e3, engine.ticks - t0
+        streams = {r.rid: list(map(int, r.generated))
+                   for r in engine.finished}
+        return (time.perf_counter() - w0) * 1e3, engine.ticks - t0, streams
 
-    wall_ms, ticks = serve()
+    wall_ms, ticks, streams = serve()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        prof_wall_ms, prof_ticks = serve()
+        prof_wall_ms, prof_ticks, _ = serve()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(ms for _, ms, _ in rows)
@@ -413,7 +820,7 @@ def profile_phase(engine, cfg, rng):
     if device_ms == 0.0 or prof_ticks != ticks:
         print("  device time: not measured (the profiler saw no CUDA "
               "kernels, or the two runs differ)")
-        return
+        return prompts, streams
     busy = device_ms / wall_ms
     print(f"  device kernel time {device_ms:.1f} ms ({device_ms / ticks:.2f} "
           f"ms/tick): busy share {busy:.3f}, idle share {1 - busy:.3f} of "
@@ -422,6 +829,181 @@ def profile_phase(engine, cfg, rng):
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"    {ms:9.2f} ms {n:6d} calls  {key[:90]}")
     sys.stdout.flush()
+    return prompts, streams
+
+
+def dual_engine_phase(cfg, params, ecfg, prompts, streams):
+    """The profile workload through a fresh engine with
+    ``EngineConfig(dual_branch=True)``.  The packed dual path runs the
+    sequential path's ops one after the other (same kernels, same
+    operands, same residual association), so its token streams must equal
+    the non-dual engine's, token for token."""
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import PagedEngine, ServeRequest
+    phase("dual engine: the profile workload with EngineConfig(dual_branch="
+          "True)")
+    engine = PagedEngine(cfg, params,
+                         dataclasses.replace(ecfg, dual_branch=True))
+    # warm-up request (allocator pools), outside the count and the wall
+    engine.submit(ServeRequest(rid=-1, prompt=prompts[0][:32], max_new=4))
+    engine.run()
+    engine.finished.clear()
+    engine.reset_stats()
+    for i, p in enumerate(prompts):
+        engine.submit(ServeRequest(rid=100 + i, prompt=p, max_new=24))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ops.reset_dispatch_paths()
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, paths = ops.launch_counts(), ops.dispatch_paths()
+    ticks = engine.stats()["ticks"]
+    got = {r.rid: list(map(int, r.generated)) for r in done}
+    same = sum(got[k] == v for k, v in streams.items())
+    print(f"  {ticks} ticks in {wall * 1e3:.1f} ms ({wall * 1e3 / ticks:.2f} "
+          f"ms/tick); streams equal to the non-dual "
+          f"engine's: {same}/{len(streams)}; launches {counts} (ticks x "
+          f"layers = {ticks * cfg.n_layers}); paths {paths}", flush=True)
+    require(got == streams, "dual engine streams differ from the non-dual "
+            "engine's")
+    require(counts["paged_packed_attention"] == ticks * cfg.n_layers
+            and sum(counts.values()) == ticks * cfg.n_layers,
+            f"dual engine launches != ticks x layers: {counts}")
+    require(paths == {"paged_packed_attention": ops.CUDA},
+            f"dual engine did not run the kernel only: {paths}")
+
+
+def padded_generation_phase(params):
+    """Padded (B, C) generation through ``paged_decode_step`` at llama3.2-3b
+    full width and depth (bf16, the engine phase's weights): chunk prefill
+    ticks (C = 128; lanes whose prompt has ended sit ticks out with
+    n_valid = 0), then 32 greedy C == 1 ticks sequentially, and the same
+    32 from the same prefilled cache under the dual-branch plan.  The
+    counters are zeroed just before and read just after each of the three
+    runs.  The decode runs go in turns, sequential, dual, dual, sequential,
+    each from its own copy of the prefilled cache.  Returns {kernel:
+    launches of the first run that drives it}."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.sampling import greedy
+    B, C, tb, n_new = 8, 128, 128, 32
+    cfg = get_config("llama3.2-3b")
+    L = cfg.n_layers
+    phase(f"padded generation: llama3.2-3b, {L} layers, bf16, {B} lanes, "
+          f"C={C} prefill, {n_new} greedy decode ticks, Tb={tb}")
+    rng = np.random.default_rng(3)
+    lens = rng.integers(300, 513, B)
+    require(lens.min() <= 3 * C < lens.max(),
+            "the draw should leave some lanes idle in the last prefill tick")
+    bt, num_pages = lane_tables(lens + n_new, page=PAGE, tb=tb, seed=9)
+    bt = bt.cuda()
+    prompts = rng.integers(0, cfg.vocab, (B, int(lens.max())))
+    cache = M.init_paged_cache(cfg, num_pages, PAGE, B, "bfloat16")
+    seq = ExecutionPlan.single_device("paged")
+    dual = seq.with_dual_branch()
+    dev = lambda a: torch.as_tensor(np.asarray(a, np.int32)).cuda()  # noqa: E731,E501
+
+    def run_counted(fn):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        ops.reset_dispatch_paths()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, ops.launch_counts(), \
+            ops.dispatch_paths()
+
+    def prefill():
+        first = torch.zeros((B,), dtype=torch.long, device="cuda")
+        ticks = 0
+        for t in range(0, int(lens.max()), C):
+            nv = np.clip(lens - t, 0, C)
+            tok = np.zeros((B, C), np.int64)
+            tok[:, :min(C, prompts.shape[1] - t)] = prompts[:, t:t + C]
+            batch = dict(tokens=dev(tok), pos=dev(np.minimum(t, lens)),
+                         n_valid=dev(nv), block_tables=bt)
+            h, _ = M.paged_decode_step(params, cfg, batch, cache, seq,
+                                       want="hidden")
+            ends = (nv > 0) & (lens <= t + C)       # prompt ends this tick
+            if ends.any():
+                idx = torch.as_tensor(np.nonzero(ends)[0]).cuda()
+                last = dev(lens[ends] - t - 1).long()
+                logits = M.lm_head(params, cfg, h[idx, last][:, None])
+                first[idx] = greedy(logits[:, 0]).long()
+            ticks += 1
+        return first, ticks
+
+    def decode(c, first, plan, n=n_new):
+        tok, out, first_logits = first.clone(), [], None
+        for i in range(n):
+            batch = dict(tokens=tok[:, None].int(), pos=dev(lens + i),
+                         n_valid=dev(np.ones(B)), block_tables=bt)
+            logits, _ = M.paged_decode_step(params, cfg, batch, c, plan)
+            if i == 0:
+                first_logits = logits[:, 0].float()
+            tok = greedy(logits[:, 0]).long()
+            out.append(tok)
+        return torch.stack(out, 1).cpu(), first_logits
+
+    with torch.no_grad():
+        (first, n_pre), pre_s, pre_counts, pre_paths = run_counted(prefill)
+        require(set(pre_paths.values()) == {ops.CUDA},
+                f"prefill took a non-kernel path: {pre_paths}")
+        require(pre_counts == {**{k: 0 for k in pre_counts},
+                               "paged_chunk_attention": n_pre * L},
+                f"prefill launches {pre_counts} != {n_pre} x {L} chunk")
+        print(f"  prompts {lens.tolist()}; prefill {n_pre} chunk ticks in "
+              f"{pre_s:.2f} s; launches {pre_counts}")
+        want = {"sequential": {"paged_decode_attention": n_new * L},
+                "dual": {"paged_decode_attention": n_new,
+                         "fused_dual_branch_decode": n_new * (L - 1)}}
+        copies = [{k: (v.clone() if torch.is_tensor(v) else
+                       {n: t.clone() for n, t in v.items()})
+                   for k, v in cache.items()} for _ in range(3)] + [cache]
+        # one tick of each plan first (allocations, GEMM heuristics): it
+        # writes the K/V that the timed run's first tick writes again
+        decode(copies[0], first, seq, n=1)
+        decode(copies[1], first, dual, n=1)
+        runs = {"sequential": [], "dual": []}
+        for name, c in zip(("sequential", "dual", "dual", "sequential"),
+                           copies):
+            (toks, lg), secs, counts, paths = run_counted(
+                lambda: decode(c, first, seq if name == "sequential"
+                               else dual))
+            print(f"  {name}: {n_new} ticks in {secs:.2f} s = "
+                  f"{secs / n_new * 1e3:.2f} ms/tick, "
+                  f"{B * n_new / secs:.1f} tok/s; launches {counts}",
+                  flush=True)
+            require(set(paths.values()) == {ops.CUDA},
+                    f"{name} run took a non-kernel path: {paths}")
+            require(counts == {**{k: 0 for k in counts}, **want[name]},
+                    f"{name} launches {counts} != {want[name]}")
+            require(bool(torch.isfinite(lg).all()), "non-finite logits")
+            runs[name].append((toks, lg, counts))
+    (toks_s, lg_s, seq_counts), (toks_s2, _, _) = runs["sequential"]
+    (toks_d, lg_d, dual_counts), (toks_d2, _, _) = runs["dual"]
+    diff = (lg_s - lg_d).abs().max().item()
+    common = [int((toks_s[b] == toks_d[b]).int().cumprod(0).sum())
+              for b in range(B)]
+    print(f"  first decode tick: max |logit diff| sequential vs dual "
+          f"{diff:.4f} (bound {DUAL_LOGIT_BOUND}; max |logit| "
+          f"{lg_s.abs().max().item():.3f}); common prefix of the greedy "
+          f"streams per lane {common} of {n_new}", flush=True)
+    require(diff <= DUAL_LOGIT_BOUND,
+            f"dual logits differ by {diff} > {DUAL_LOGIT_BOUND}")
+    # the fused kernel sums its partials in a fixed order: runs repeat
+    require(torch.equal(toks_s, toks_s2) and torch.equal(toks_d, toks_d2),
+            "a repeated decode run gave other tokens")
+    return {"paged_chunk_attention": pre_counts["paged_chunk_attention"],
+            "paged_decode_attention": seq_counts["paged_decode_attention"],
+            "fused_dual_branch_decode":
+                dual_counts["fused_dual_branch_decode"]}
 
 
 def main():
@@ -437,26 +1019,42 @@ def main():
     t_start = time.perf_counter()
     name, smi, bw = device_phase()
     build_phase()
-    err = kernel_phase()
+    errs = {"paged_packed_attention": kernel_phase(),
+            **padded_kernel_phase(),
+            "fused_dual_branch_decode": fused_kernel_phase()}
     times = time_phase(bw)
-    tick_phase()
-    launches, eng = engine_phase()
     main_shape = "mixed tick (256 prefill + 7 decode near 1024 + 9 pad)"
-    row = times[main_shape]
-    kernels = [{
-        "name": "paged_packed_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention.py:346",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        "library_ms": None,
-        "shape": main_shape + ", bf16, H=24 Hkv=8 D=128 page=16",
-    }]
+    times = {"paged_packed_attention": dict(
+        times[main_shape],
+        shape=main_shape + ", bf16, H=24 Hkv=8 D=128 page=16"),
+        **padded_time_phase(bw)}
+    tick_phase()
+    launches, eng, params = engine_phase()
+    launches = {"paged_packed_attention": launches,
+                **padded_generation_phase(params)}
+    src = "src/repro_torch/kernels/csrc/"
+    where = {
+        "paged_packed_attention": ("paged_attention.cu",
+                                   "src/repro/kernels/paged_attention.py:346"),
+        "paged_decode_attention": ("paged_attention.cu",
+                                   "src/repro/kernels/paged_attention.py:106"),
+        "paged_chunk_attention": ("paged_attention.cu",
+                                  "src/repro/kernels/paged_attention.py:222"),
+        "fused_dual_branch_decode": ("dual_branch.cu",
+                                     "src/repro/kernels/dual_branch.py:122"),
+    }
+    kernels = []
+    for kname, (source, replaces) in where.items():
+        row = times[kname]
+        entry = {"name": kname, "route": "cuda", "source": src + source,
+                 "replaces": replaces, "launches": launches[kname],
+                 "max_abs_err": errs[kname], "ms": row["ms"],
+                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"], "library_ms": None}
+        if "unfused_ms" in row:
+            entry["unfused_ms"] = row["unfused_ms"]
+        entry["shape"] = row["shape"]
+        kernels.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s; engine "
           f"{eng['tok_s']:.1f} tok/s over {eng['ticks']} ticks; card {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -67,6 +67,10 @@ class ExecutionPlan:
     def with_phase(self, phase) -> "ExecutionPlan":
         return dataclasses.replace(self, phase=Phase.coerce(phase))
 
+    def with_dual_branch(self, flag: bool = True) -> "ExecutionPlan":
+        """Same plan with MHA||MLP decode branch parallelism toggled."""
+        return dataclasses.replace(self, dual_branch=bool(flag))
+
     @property
     def full_sequence(self) -> bool:
         return self.phase in FULL_SEQUENCE_PHASES

@@ -9,8 +9,9 @@ the root of the checkout (``.gitignore`` lists ``build/``)::
          src/repro_torch/kernels/csrc/<name>.cu
 
 The library is loaded with ``ctypes``.  Its file name carries a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is.  ``build_all`` starts one ``nvcc`` per source, all at
+source, of every header it includes from ``csrc/`` (``#include "..."``,
+followed recursively) and of the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is.  ``build_all`` starts one ``nvcc`` per source, all at
 once.  Nothing here runs at import time: the kernel wrappers build on first
 launch, and a failed build raises.
 """
@@ -20,6 +21,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 from typing import Dict, List, Tuple
@@ -51,9 +53,29 @@ def find_nvcc() -> str:
         "toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def local_includes(src: pathlib.Path) -> List[pathlib.Path]:
+    """Every file ``src`` includes with ``#include "..."`` from its own
+    directory, recursively, in a fixed order."""
+    found: List[pathlib.Path] = []
+    todo = [src]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            path = src.parent / name.decode()
+            if path.exists() and path not in found:
+                found.append(path)
+                todo.append(path)
+    return sorted(found)
+
+
 def library_path(name: str) -> pathlib.Path:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes())
+    for inc in local_includes(src):
+        h.update(inc.name.encode() + b"\0" + inc.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 

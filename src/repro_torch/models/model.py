@@ -1,10 +1,12 @@
 """The dense FAL decoder on torch tensors: parameters, the paged KV cache
-and the token-packed paged tick.
+and the paged ticks.
 
-Port of the packed serving path of ``repro/models/model.py``:
+Port of the paged serving paths of ``repro/models/model.py``:
 ``_embed_tokens``, ``_logits`` / ``lm_head``, ``init_paged_cache``
-(``:957``), ``paged_decode_step`` -> ``_decoder_paged_packed`` (``:466``)
-and ``_decoder_layer_stack`` (``:280``), plus ``init_params`` for the dense
+(``:957``), ``paged_decode_step`` (``:979``) -> ``_decoder_paged_packed``
+(``:466``, the token-packed layout) or ``_decoder_paged_decode`` (``:388``,
+the padded (B, C) layout, sequential or dual-branch), and
+``_decoder_layer_stack`` (``:280``), plus ``init_params`` for the dense
 decoder.
 
 Parameters are a dict tree in the reference's layout, except that the
@@ -113,7 +115,7 @@ def lm_head(params, cfg, x):
 
 
 # ------------------------------------------------------------------------- #
-# paged cache and the packed tick
+# paged cache and the paged ticks
 # ------------------------------------------------------------------------- #
 def init_paged_cache(cfg, num_pages, page_size, slots, dtype="bfloat16",
                      kv_dtype="", device=None):
@@ -135,20 +137,66 @@ def init_paged_cache(cfg, num_pages, page_size, slots, dtype="bfloat16",
     }
 
 
-def _decoder_layer_stack(p, cfg, x, a1_sig, blocks_cache, *, block_tables,
-                         tok_slot, tok_pos):
+def _decoder_layer_stack(p, cfg, x, a1_sig, pos, blocks_cache, plan, *,
+                         block_tables, n_valid=None, tok_slot=None,
+                         tok_pos=None):
     """The post-block-0 layers as a Python loop (the reference scans).
     Layer i reads and writes the i-th slice of the stacked pools in place,
     where the reference concatenates per-layer caches."""
     for i, pb in enumerate(p["blocks"]):
         layer_cache = {"k": blocks_cache["k"][i], "v": blocks_cache["v"][i]}
-        x, _ = BL.block_apply(pb, cfg, x, a1_sig, cache=layer_cache,
-                              block_tables=block_tables, tok_slot=tok_slot,
+        x, _ = BL.block_apply(pb, cfg, x, a1_sig, plan=plan,
+                              cache=layer_cache, block_tables=block_tables,
+                              pos=pos, n_valid=n_valid, tok_slot=tok_slot,
                               tok_pos=tok_pos)
     return x
 
 
-def _decoder_paged_packed(p, cfg, batch, cache, want="logits"):
+def _decoder_paged_decode(p, cfg, batch, cache, plan, want="logits"):
+    """Padded chunked tick: tokens (B, C), pos (B,) per-lane first logical
+    position, n_valid (B,) valid tokens per lane (the rest go to the
+    scratch page), block_tables (B, T).  Returns (logits (B, C, V) or
+    hidden (B, C, D), cache updated in place).  C == 1 runs the decode
+    kernel, C > 1 the chunk kernel.
+
+    Under ``plan.dual_branch`` the blocks after block 0 run the MHA || MLP
+    dispatch, reading the per-slot first-attention signal refreshed by block
+    0 at the top of the tick; on a C == 1 tick each active lane reads this
+    tick's fresh export and each idle lane its cached one."""
+    tokens, pos = batch["tokens"], batch["pos"]
+    bt, n_valid = batch["block_tables"], batch["n_valid"]
+    C = tokens.shape[1]
+    positions = pos[:, None] + torch.arange(C, device=pos.device)[None]
+    x = _embed_tokens(p, cfg, tokens, positions)
+    x, a1_raw = BL.block_apply(p["block0"], cfg, x, None, is_block0=True,
+                               plan=plan, cache=cache["block0"],
+                               block_tables=bt, pos=pos, n_valid=n_valid)
+    a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
+
+    # stash each lane's export at its last valid position before the
+    # steady-state stack runs; lanes sitting this tick out (n_valid == 0)
+    # keep their cached signal
+    sig = a1_sig if a1_sig is not None else a1_raw               # (B, C, D)
+    last = (n_valid - 1).clamp(0, C - 1).long()
+    lanes = torch.arange(sig.shape[0], device=sig.device)
+    new_sig = sig[lanes, last].to(cache["a1_sig"].dtype)
+    active = (n_valid > 0)[:, None]
+    cache["a1_sig"] = torch.where(active, new_sig, cache["a1_sig"])
+
+    if plan.dual_branch and a1_sig is not None and C == 1:
+        # active lanes keep this tick's fresh activation-dtype export (the
+        # cache dtype would round it); idle lanes read their cached signal
+        a1_sig = torch.where(active, sig[:, 0],
+                             cache["a1_sig"].to(x.dtype))[:, None, :]
+
+    x = _decoder_layer_stack(p, cfg, x, a1_sig, pos, cache["blocks"], plan,
+                             block_tables=bt, n_valid=n_valid)
+    if want == "hidden":
+        return x, cache
+    return _logits(p, cfg, x), cache
+
+
+def _decoder_paged_packed(p, cfg, batch, cache, plan, want="logits"):
     """Token-packed ragged tick: tokens (T,), tok_slot (T,), tok_pos (T,)
     (-1 = padding), block_tables (S, Tb), seg_last (S,) index of each
     slot's last packed token (-1 = slot sat the tick out).  Returns
@@ -159,8 +207,9 @@ def _decoder_paged_packed(p, cfg, batch, cache, want="logits"):
     positions = tok_pos.clamp(min=0)[None]                      # (1, T)
     x = _embed_tokens(p, cfg, tokens[None], positions)
     x, a1_raw = BL.block_apply(p["block0"], cfg, x, None, is_block0=True,
-                               cache=cache["block0"], block_tables=bt,
-                               tok_slot=tok_slot, tok_pos=tok_pos)
+                               plan=plan, cache=cache["block0"],
+                               block_tables=bt, tok_slot=tok_slot,
+                               tok_pos=tok_pos)
     a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
 
     # refresh the per-slot FAL export from each active segment's LAST
@@ -170,7 +219,7 @@ def _decoder_paged_packed(p, cfg, batch, cache, want="logits"):
     new_sig = sig[0, seg_last.clamp(min=0).long()].to(cache["a1_sig"].dtype)
     cache["a1_sig"] = torch.where(active[:, None], new_sig, cache["a1_sig"])
 
-    x = _decoder_layer_stack(p, cfg, x, a1_sig, cache["blocks"],
+    x = _decoder_layer_stack(p, cfg, x, a1_sig, None, cache["blocks"], plan,
                              block_tables=bt, tok_slot=tok_slot,
                              tok_pos=tok_pos)
     if want == "hidden":
@@ -179,17 +228,18 @@ def _decoder_paged_packed(p, cfg, batch, cache, want="logits"):
 
 
 def paged_decode_step(params, cfg, batch, cache, plan=None, want="logits"):
-    """One token-packed paged tick -> (logits (1, T, V) or, with
-    ``want='hidden'``, hidden (1, T, D); cache).  The batch must carry
-    ``tok_slot`` (the padded chunk layout is not ported)."""
+    """One paged tick -> (logits or, with ``want='hidden'``, the pre-head
+    hidden states; cache updated in place) in either paged layout:
+
+      * token-packed (the serving engine's tick; the batch carries
+        ``tok_slot``): see ``_decoder_paged_packed``; (1, T, V) / (1, T, D);
+      * padded chunk (tokens (B, C) with per-lane ``pos`` / ``n_valid``):
+        see ``_decoder_paged_decode``; (B, C, V) / (B, C, D).
+
+    ``plan`` may carry ``dual_branch`` (fal / parallel / ablation2 only)."""
     check_supported(cfg)
     plan = ExecutionPlan.resolve(plan).with_phase(Phase.PAGED).validate(cfg)
-    if plan.dual_branch:
-        raise NotImplementedError(
-            "dual-branch (MHA||MLP) decode comes with the dual-branch slice "
-            "of the PyTorch port")
-    if "tok_slot" not in batch:
-        raise NotImplementedError(
-            "the padded (B, C) paged layout comes with the padded-harness "
-            "slice of the PyTorch port; pass a token-packed batch")
-    return _decoder_paged_packed(params, cfg, batch, cache, want=want)
+    if "tok_slot" in batch:
+        return _decoder_paged_packed(params, cfg, batch, cache, plan,
+                                     want=want)
+    return _decoder_paged_decode(params, cfg, batch, cache, plan, want=want)

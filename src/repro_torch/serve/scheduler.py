@@ -11,9 +11,13 @@ The engine's ``MetricsRegistry`` records TTFT, inter-token latency, queue
 wait, occupancy, page utilisation and preemptions; ``stats()`` summarises
 them.
 
-The prefix cache, self-speculative decoding, quantized KV pages,
-dual-branch decode and seeded sampling come in later slices of the port and
-raise ``NotImplementedError`` here.
+Dual-branch decode (``EngineConfig.dual_branch``) runs each block after
+block 0 as the MHA || MLP block (fal / parallel / ablation2 only).  On the
+packed tick it launches no kernel of its own: the two branches run the
+sequential path's ops, one after the other on one stream, so its token
+streams equal the non-dual engine's.  The prefix cache, self-speculative
+decoding, quantized KV pages and seeded sampling come in later slices of
+the port and raise ``NotImplementedError`` here.
 
 The engine runs on the card unless the caller passes ``device="cpu"``.
 ``engine_dispatch_ms`` times one model call from its start to the moment
@@ -168,8 +172,9 @@ class ServeRequest:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Paged-engine knobs.  The options after ``cache_dtype`` belong to
-    later slices of the port and must keep their defaults here."""
+    """Paged-engine knobs.  ``kv_dtype``, ``prefix_cache`` and
+    ``spec_tokens`` belong to later slices of the port and must keep their
+    defaults here."""
     page_size: int = 16
     num_pages: int = 64                # pool size incl. scratch page 0
     slots: int = 4                     # concurrent batch lanes
@@ -187,8 +192,8 @@ class EngineConfig:
     spec_tokens: int = 0
 
 
-_LATER = {"kv_dtype": "quantized-KV", "dual_branch": "dual-branch decode",
-          "prefix_cache": "prefix-cache", "spec_tokens": "speculative-decode"}
+_LATER = {"kv_dtype": "quantized-KV", "prefix_cache": "prefix-cache",
+          "spec_tokens": "speculative-decode"}
 
 
 class PagedEngine:
@@ -222,6 +227,8 @@ class PagedEngine:
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.plan = ExecutionPlan.resolve(plan).with_phase(Phase.PAGED)
+        if engine_cfg.dual_branch:
+            self.plan = self.plan.with_dual_branch()
         self.plan.validate(cfg)
         self.max_blocks = pages_needed(engine_cfg.max_seq,
                                        engine_cfg.page_size)

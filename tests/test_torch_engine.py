@@ -165,12 +165,37 @@ def test_engine_needs_a_device_here():
 
 
 @pytest.mark.parametrize("option,value", [
-    ("prefix_cache", True), ("spec_tokens", 4), ("kv_dtype", "int8"),
-    ("dual_branch", True)])
+    ("prefix_cache", True), ("spec_tokens", 4), ("kv_dtype", "int8")])
 def test_engine_later_slice_options_raise(option, value):
     _, _, tcfg, tparams = _models()
     with pytest.raises(NotImplementedError, match="later slice"):
         TS.PagedEngine(tcfg, tparams, TS.EngineConfig(**{option: value}),
+                       device="cpu")
+
+
+def test_engine_dual_branch_streams_match_reference_and_sequential():
+    """EngineConfig(dual_branch=True): the same greedy streams as the JAX
+    package's dual engine and as the port's own non-dual engine (the packed
+    dual path runs the sequential path's ops)."""
+    rng = np.random.default_rng(42)
+    prompts = [rng.integers(0, 512, 4 + i % 7) for i in range(6)]
+    kw = dict(page_size=8, num_pages=48, slots=4, prefill_chunk=8,
+              max_seq=128)
+    port, st = _compare(dict(kw, dual_branch=True), prompts, [8] * 6)
+    assert port.plan.dual_branch
+    _, _, tcfg, tparams = _models()
+    seq = TS.PagedEngine(tcfg, tparams, TS.EngineConfig(**kw), device="cpu")
+    assert _serve(seq, TS, prompts, [8] * 6) == {
+        r.rid: (list(map(int, r.generated)), r.truncated)
+        for r in port.finished}
+
+
+def test_engine_dual_branch_rejects_preln_like_reference():
+    rcfg, rparams, tcfg, tparams = _models("preln")
+    with pytest.raises(ValueError, match="must assemble MHA"):
+        RS.PagedEngine(rcfg, rparams, RS.EngineConfig(dual_branch=True))
+    with pytest.raises(ValueError, match="must assemble MHA"):
+        TS.PagedEngine(tcfg, tparams, TS.EngineConfig(dual_branch=True),
                        device="cpu")
 
 

@@ -5,6 +5,7 @@ CUDA kernel against the plain version."""
 import itertools
 import pathlib
 import re
+import shutil
 
 import numpy as np
 import pytest
@@ -79,13 +80,13 @@ def test_dispatch_records_executed_cpu_calls():
     ops.reset_dispatch_paths()
     name = "kernel_dispatch_total.paged_packed_attention.cpu-plain"
     before = metrics.default_registry().counter(name).value
-    launches = PA.LAUNCHES
+    launches = PA.LAUNCHES_PACKED
     args = _torch(_packed_case(4, 32, 2))
     for _ in range(3):
         ops.paged_packed_attention(*args)
     assert ops.dispatch_paths() == {"paged_packed_attention": ops.PLAIN}
     assert metrics.default_registry().counter(name).value == before + 3
-    assert PA.LAUNCHES == launches          # the plain version never counts
+    assert PA.LAUNCHES_PACKED == launches   # the plain version never counts
 
 
 def test_scale_pools_raise():
@@ -105,7 +106,8 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_build_recipe(monkeypatch):
-    assert set(p.stem for p in build.CSRC.glob("*.cu")) == {"paged_attention"}
+    assert set(p.stem for p in build.CSRC.glob("*.cu")) == {
+        "paged_attention", "dual_branch"}
     cmd = build.nvcc_command("nvcc", "paged_attention",
                              build.BUILD_DIR / "x.so")
     flags = " ".join(cmd)
@@ -119,6 +121,25 @@ def test_build_recipe(monkeypatch):
     monkeypatch.setattr(build.os.path, "exists", lambda _: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.find_nvcc()
+
+
+def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
+    """Editing a header under csrc/ changes the library path of every
+    source that includes it (so it is rebuilt), and of no other."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    names = ("paged_attention", "dual_branch")
+    header = csrc / "paged_common.cuh"
+    for name in names:
+        assert build.local_includes(csrc / f"{name}.cu") == [header]
+    before = {n: build.library_path(n) for n in names}
+    (csrc / "unused.cuh").write_text("// included by nothing\n")
+    assert {n: build.library_path(n) for n in names} == before
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: build.library_path(n) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    assert all(after[n].parent == build.BUILD_DIR for n in names)
 
 
 def test_port_imports_neither_jax_nor_repro():

@@ -60,7 +60,7 @@ def _filled_caches(rcfg, tcfg, rng, num_pages=12, page=4, slots=4):
     return rc, tc
 
 
-def _tick(arch, connection, want="hidden"):
+def _tick(arch, connection, want="hidden", plans=(None, None)):
     rcfg, tcfg = _configs(arch, connection)
     rng = np.random.default_rng(0)
     rparams = _init(jax.random.PRNGKey(1), rcfg)
@@ -70,10 +70,10 @@ def _tick(arch, connection, want="hidden"):
     batch = _packed_batch(rcfg, rng)
     r_out, r_cache = RM.paged_decode_step(
         rparams, rcfg, {k: jnp.asarray(v) for k, v in batch.items()}, rc,
-        want=want)
+        plans[0], want=want)
     t_out, t_cache = TM.paged_decode_step(
         tparams, tcfg, {k: torch.from_numpy(v) for k, v in batch.items()},
-        tc, want=want)
+        tc, plans[1], want=want)
     return batch, (np.asarray(r_out), r_cache), (t_out, t_cache)
 
 
@@ -193,6 +193,8 @@ def test_entry_points_need_a_device_here():
         TM.init_params(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TM.init_paged_cache(cfg, 8, 4, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.params_from_numpy({"embed": {"emb": np.zeros((4, 2))}}, cfg)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "gemma2-27b",
@@ -202,11 +204,27 @@ def test_later_slice_families_raise(arch):
         TM.init_params(get_config(arch).reduced(), device="cpu")
 
 
-def test_quantized_cache_and_dual_branch_raise():
+def test_quantized_cache_raises():
     cfg = get_config("llama3.2-3b").reduced()
     with pytest.raises(NotImplementedError, match="quantized-KV"):
         TM.init_paged_cache(cfg, 8, 4, 2, kv_dtype="int8", device="cpu")
-    from repro_torch.core.plan import ExecutionPlan
-    plan = ExecutionPlan.single_device("paged", dual_branch=True)
-    with pytest.raises(NotImplementedError, match="dual-branch"):
-        TM.paged_decode_step({}, cfg, {"tok_slot": None}, {}, plan)
+
+
+@pytest.mark.parametrize("connection", ["fal", "parallel", "ablation2"])
+def test_dual_branch_packed_tick_matches_reference_and_sequential(
+        connection):
+    """A dual-branch plan on the packed tick: the same hidden states as
+    the reference's dual packed tick, and bit for bit the port's own
+    sequential packed tick (op for op the same path)."""
+    from repro.core.plan import ExecutionPlan as RPlan
+    from repro_torch.core.plan import ExecutionPlan as TPlan
+    batch, (r_h, r_c), (t_h, t_c) = _tick(
+        "llama3.2-3b", connection,
+        plans=(RPlan.single_device("paged", dual_branch=True),
+               TPlan.single_device("paged", dual_branch=True)))
+    live = batch["tok_pos"] >= 0
+    _close(r_h[0, live], t_h[0, live])
+    _close(r_c["a1_sig"], t_c["a1_sig"])
+    _, _, (s_h, s_c) = _tick("llama3.2-3b", connection)
+    assert torch.equal(t_h, s_h)
+    assert torch.equal(t_c["a1_sig"], s_c["a1_sig"])
