@@ -12,12 +12,16 @@ script exits non-zero:
                  one nvcc per source, all started together
   3. kernel      each kernel against its plain PyTorch version at the
                  main path's shapes (and small shapes), bf16 and fp32; the
-                 dual-branch dispatcher's two-op route
+                 dual-branch dispatcher's two-op route; page_copy byte for
+                 byte; the int8 / fp8 scale variants of the three paged
+                 attention kernels
   4. time        kernel, plain and bound times (median of 100 launches,
-                 CUDA events, L2 flushed between launches)
-  5. tick        one packed tick, one padded C = 128 chunk tick and one
-                 dual-branch C == 1 tick of llama3.2-3b at full width (2
-                 layers, fp32) on the card against the plain path on the CPU
+                 CUDA events, L2 flushed between launches); one COW at
+                 llama3.2-3b beside index_copy_
+  5. tick        one packed tick (bf16, int8 and fp8 pages), one padded
+                 C = 128 chunk tick and one dual-branch C == 1 tick of
+                 llama3.2-3b at full width (2 layers, fp32) on the card
+                 against the plain path on the CPU
   6. engine      24 greedy requests through PagedEngine at full width and
                  depth (llama3.2-3b, 28 layers, bf16), with the kernels'
                  launch counters zeroed just before and read just after
@@ -25,11 +29,15 @@ script exits non-zero:
                  the same engine, timed plainly and under torch.profiler
   8. dual engine the profile workload again through
                  EngineConfig(dual_branch=True): the same token streams
-  9. padded      padded (B, C) generation at full width and depth: chunk
+  9. prefix      the repeated-prefix workload cold and hot through
+                 EngineConfig(prefix_cache=True), on bf16 and int8 pages
+ 10. quantized   the profile workload on int8 and on fp8 pages
+ 11. padded      padded (B, C) generation at full width and depth: chunk
                  prefill ticks, then 32 greedy C == 1 ticks sequentially and
-                 again under the dual-branch plan from the same cache
+                 again under the dual-branch plan from the same cache; then
+                 8 ticks each way on int8 and on fp8 pages
 
-Every main-path run (6, 8 and each run of 9) zeroes all launch counters
+Every main-path run (6, 8 and each run of 9 to 11) zeroes all launch counters
 just before it and reads them just after.  The line before the last is a
 JSON object with one entry per kernel; the last line is {"ok": true,
 "device": {...}}.  Without a CUDA device, or outside a checkout, the script
@@ -200,6 +208,16 @@ def require(ok, msg):
         raise AssertionError(msg)
 
 
+def common_prefix(a, b):
+    """Length of the common prefix of two token sequences."""
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
 # --------------------------------------------------------------------------- #
 # phases
 # --------------------------------------------------------------------------- #
@@ -232,8 +250,8 @@ def build_phase():
         spill = [int(m) for m in re.findall(r"(\d+) bytes spill", log)]
         smem = [int(m) for m in re.findall(r"(\d+) bytes smem", log)]
         print(f"  {name}: {len(regs)} kernels, {min(regs)}..{max(regs)} "
-              f"registers, at most {max(smem)} bytes static shared memory, "
-              f"{sum(spill)} bytes spilled (ptxas -v)")
+              f"registers, at most {max(smem, default=0)} bytes static "
+              f"shared memory, {sum(spill)} bytes spilled (ptxas -v)")
     sys.stdout.flush()
 
 
@@ -430,6 +448,163 @@ def fused_kernel_phase():
     return err_main
 
 
+#: quantized page storage the scale variants take, by EngineConfig.kv_dtype
+KV_NARROW = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+def quantize_pools(kp, vp, kv):
+    """fp32 pools (P, page, Hkv, D) -> (k, v, k_scale, v_scale) in the
+    engine's quantized page format (``attention._quant_rows``)."""
+    from repro_torch.models.attention import _quant_rows
+    dt = KV_NARROW[kv]
+    kq, ks = _quant_rows(kp.float(), dt)
+    vq, vs = _quant_rows(vp.float(), dt)
+    return kq.to(dt), vq.to(dt), ks.contiguous(), vs.contiguous()
+
+
+def scale_kernel_phase():
+    """The scale variants of the packed, decode and chunk kernels (int8 and
+    fp8 pools with fp32 row scales) against their plain versions on the
+    same bytes, at the main path's shapes and at small ones (D 32 and 64,
+    G 1..4, ragged lengths).  Returns {label: main-shape error in bf16}."""
+    from repro_torch.kernels import paged_attention as PA
+    phase("kernel vs plain: int8 / fp8 scale variants of the three paged "
+          "attention kernels")
+    # Kernel and plain version dequantize the same bytes with the same
+    # scales in fp32 (one product per element), then run the unquantized
+    # path's fp32 math: the tolerances of the bf16/fp32 kernels hold.
+    num_pages, tb = 1024, 128
+    packed = [("main", mixed_tick(page=PAGE, num_pages=num_pages, tb=tb),
+               H, HKV, D, PAGE, num_pages)]
+    for d, page, h, hkv in ((64, 16, 6, 2), (32, 8, 3, 1), (64, 4, 16, 4),
+                            (128, 8, 4, 4), (32, 4, 4, 2)):
+        packed.append((f"small{d}", mixed_tick(
+            page=page, num_pages=256, tb=96 // page * 4, n_prefill=37,
+            n_decode=3, decode_pos=90, n_pad=3, seed=d + page), h, hkv, d,
+            page, 256))
+    dec = [(H, HKV, D, PAGE, tb, [1, PAGE, tb * PAGE, 1021, 500, 2 * PAGE,
+                                  1020, 777])]
+    chk = [(H, HKV, D, PAGE, tb, c, lanes) for c, lanes in MAIN_CHUNKS]
+    for d, page, h, hkv in ((64, 16, 6, 2), (32, 8, 3, 1), (64, 4, 16, 4),
+                            (32, 4, 4, 2)):
+        dec.append((h, hkv, d, page, 12, [1, page, 12 * page, 3 * page + 1,
+                                          5]))
+        chk.append((h, hkv, d, page, 12, 8, ((0, 8), (0, 0), (3, 1), (5, 5),
+                                             (9, 0), (2, 8))))
+    errs = {}
+    for kv in KV_NARROW:
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = ATTN_TOLS[dtype]
+            for i, (tag, tick, h, hkv, d, page, npg) in enumerate(packed):
+                bt, tok_slot, tok_pos = (x.cuda() for x in tick[:3])
+                q, kp, vp = attention_inputs(torch.float32, tok_slot.numel(),
+                                             h, hkv, d, page, npg,
+                                             seed=40 + i)
+                kq, vq, ks, vs = quantize_pools(kp, vp, kv)
+                q = q.to(dtype)
+                out = PA.paged_packed_attention_cuda(
+                    q, kq, vq, bt, tok_slot, tok_pos, k_scale=ks, v_scale=vs)
+                ref = PA.paged_packed_attention_plain(
+                    q.float(), kq, vq, bt, tok_slot, tok_pos, k_scale=ks,
+                    v_scale=vs).to(dtype)
+                torch.cuda.synchronize()
+                live = tok_pos >= 0
+                require(out[~live].abs().max().item() == 0.0,
+                        "padding rows are not exactly 0")
+                err = report(f"packed.{kv} {str(dtype):14s} H={h} Hkv={hkv} "
+                             f"D={d} page={page} T={tok_slot.numel()}",
+                             max_err(out[live], ref[live]), tol)
+                if i == 0 and dtype == torch.bfloat16:
+                    errs[f"paged_packed_attention.{kv}"] = err
+            for i, (h, hkv, d, page, tbl, lens) in enumerate(dec):
+                q, kp, vp, bt, sl = decode_inputs(torch.float32, lens, h, hkv,
+                                                  d, page, tbl, seed=60 + i)
+                kq, vq, ks, vs = quantize_pools(kp, vp, kv)
+                q = q.to(dtype)
+                out = PA.paged_decode_attention_cuda(q, kq, vq, bt, sl,
+                                                     k_scale=ks, v_scale=vs)
+                ref = PA.paged_decode_attention_plain(
+                    q.float(), kq, vq, bt, sl, k_scale=ks,
+                    v_scale=vs).to(dtype)
+                torch.cuda.synchronize()
+                err = report(f"decode.{kv} {str(dtype):14s} H={h} Hkv={hkv} "
+                             f"D={d} page={page} seq_lens={lens}",
+                             max_err(out, ref), tol)
+                if i == 0 and dtype == torch.bfloat16:
+                    errs[f"paged_decode_attention.{kv}"] = err
+            for i, (h, hkv, d, page, tbl, c, lanes) in enumerate(chk):
+                q, kp, vp, bt, pos, nv = chunk_inputs(
+                    torch.float32, c, lanes, h, hkv, d, page, tbl,
+                    seed=80 + i)
+                kq, vq, ks, vs = quantize_pools(kp, vp, kv)
+                q = q.to(dtype)
+                out = PA.paged_chunk_attention_cuda(q, kq, vq, bt, pos, nv,
+                                                    k_scale=ks, v_scale=vs)
+                ref = PA.paged_chunk_attention_plain(
+                    q.float(), kq, vq, bt, pos, nv, k_scale=ks,
+                    v_scale=vs).to(dtype)
+                torch.cuda.synchronize()
+                err = report(f"chunk.{kv}  {str(dtype):14s} H={h} Hkv={hkv} "
+                             f"D={d} page={page} C={c} (pos, n_valid)="
+                             f"{list(lanes)}, all rows", max_err(out, ref),
+                             tol)
+                if i == 0 and dtype == torch.bfloat16:
+                    errs[f"paged_chunk_attention.{kv}"] = err
+    return errs
+
+
+def page_copy_phase():
+    """The page-copy kernel against its plain version on copies of the same
+    pool, byte for byte (``torch.equal`` on uint8 views): bf16, int8, fp8
+    and fp32 scale pools, the stacked (27, P, ...) view with per-layer
+    offsets, n = 1 and n = 64, repeated src, and a page whose byte size
+    takes the element path.  Returns 0.0, the error of a byte-exact copy."""
+    from repro_torch.kernels import paged_attention as PA
+    phase("kernel vs plain: page_copy (byte-exact)")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    P = 256
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(3))
+    perm = (perm + 1).tolist()
+    pairs = {"n=1": ([perm[0]], [perm[1]]),
+             "n=64": (perm[:64], perm[64:128]),
+             "n=8, repeated src": ([perm[0], perm[1]] * 4, perm[130:138])}
+    pools = {
+        "bf16 (P, 16, 8, 128)": randn(g, torch.bfloat16, P, PAGE, HKV, D),
+        "int8 (P, 16, 8, 128)": (randn(g, torch.float32, P, PAGE, HKV, D)
+                                 * 40).clamp(-127, 127).to(torch.int8),
+        "fp8 (P, 16, 8, 128)": randn(g, torch.float32, P, PAGE, HKV, D).to(
+            torch.float8_e4m3fn),
+        "fp32 scales (P, 16)": randn(g, torch.float32, P, PAGE),
+        "int8 (P, 3, 5) (element path)": (randn(g, torch.float32, P, 3, 5)
+                                          * 40).clamp(-127, 127).to(
+                                              torch.int8),
+    }
+    for name, pool in pools.items():
+        for label, (src, dst) in pairs.items():
+            a, b = pool.clone(), pool.clone()
+            PA.page_copy_cuda(a, src, dst)
+            PA.copy_pages_plain(b, src, dst)
+            torch.cuda.synchronize()
+            ok = torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+            print(f"  {name} {label}: byte-equal {ok}", flush=True)
+            require(ok, f"page_copy differs from its plain version: {name} "
+                    f"{label}")
+    stacked = randn(g, torch.bfloat16, 27, 64, PAGE, HKV, D)
+    src, dst = [5, 9], [17, 40]
+    a, b = stacked.clone(), stacked.clone()
+    flat = a.view((27 * 64,) + tuple(a.shape[2:]))
+    PA.page_copy_cuda(flat, [s + i * 64 for i in range(27) for s in src],
+                      [d + i * 64 for i in range(27) for d in dst])
+    b[:, dst] = b[:, src]
+    torch.cuda.synchronize()
+    ok = torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    print(f"  stacked bf16 (27, 64, 16, 8, 128) viewed as 1728 pages, "
+          f"pairs {list(zip(src, dst))} in every layer: byte-equal {ok}",
+          flush=True)
+    require(ok, "page_copy on the stacked view differs")
+    return 0.0
+
+
 def _median_ms(fn, n=100, flush_bytes=256 << 20):
     """Median over n launches of one launch's CUDA-event time, with the L2
     cache flushed before each launch (the engine finds pages cold: every
@@ -450,13 +625,14 @@ def _median_ms(fn, n=100, flush_bytes=256 << 20):
 
 
 def _paged_bound_ms(q, kp, kv_rows, score_keys, index_numel, bw, *,
-                    extra_bytes=0, extra_flops=0):
+                    extra_bytes=0, extra_flops=0, scale_rows=False):
     """Least time for the work: max(bytes / bandwidth, flops / peak).
-    Bytes: ``kv_rows`` K and V rows (Hkv * D each) read once, q read and
-    the output written once, the int32 index arrays, plus ``extra_bytes``;
-    flops: 4 * H * D per (query row, visible key), plus ``extra_flops``."""
+    Bytes: ``kv_rows`` K and V rows (Hkv * D each) read once, with their
+    two fp32 row scales when ``scale_rows``, q read and the output written
+    once, the int32 index arrays, plus ``extra_bytes``; flops: 4 * H * D
+    per (query row, visible key), plus ``extra_flops``."""
     h, d = q.shape[-2:]
-    row = 2 * kp.shape[2] * d * kp.element_size()
+    row = 2 * kp.shape[2] * d * kp.element_size() + (8 if scale_rows else 0)
     nbytes = (kv_rows * row + 2 * q.numel() * q.element_size()
               + 4 * index_numel + extra_bytes)
     t_bytes = nbytes / bw
@@ -465,7 +641,7 @@ def _paged_bound_ms(q, kp, kv_rows, score_keys, index_numel, bw, *,
                                        else "operations")
 
 
-def _bound_ms(q, kp, bt, tok_slot, tok_pos, bw):
+def _bound_ms(q, kp, bt, tok_slot, tok_pos, bw, scale_rows=False):
     """The packed kernel's bound: every slot's key rows up to its furthest
     token, and each token's visible keys."""
     live = tok_pos >= 0
@@ -474,7 +650,8 @@ def _bound_ms(q, kp, bt, tok_slot, tok_pos, bw):
         furthest[s] = max(furthest.get(s, -1), p)
     return _paged_bound_ms(q, kp, sum(p + 1 for p in furthest.values()),
                            int((tok_pos[live].long() + 1).sum()),
-                           bt.numel() + 2 * tok_slot.numel(), bw)
+                           bt.numel() + 2 * tok_slot.numel(), bw,
+                           scale_rows=scale_rows)
 
 
 def chunk_keys(pos, n_valid, c, tb):
@@ -579,11 +756,161 @@ def padded_time_phase(bw):
     return rows
 
 
+def scale_time_phase(bw):
+    """Kernel, plain and bound times of the six scale variants at the main
+    path's shapes (q in bf16, llama3.2-3b attention, page 16): the packed
+    kernel on the mixed tick, the decode kernel on 8 lanes x 1021 keys, the
+    chunk kernel on 8 lanes x C = 128 at pos 256.  The bound counts the
+    narrow K/V bytes plus the two fp32 scales of each key row."""
+    from repro_torch.kernels import paged_attention as PA
+    phase("kernel time: int8 / fp8 scale variants")
+    bf16, tb, rows = torch.bfloat16, 128, {}
+    tick = mixed_tick(page=PAGE, num_pages=1024, tb=tb)
+    bt_p, tok_slot, tok_pos = (x.cuda() for x in tick[:3])
+    qp, kp, vp = attention_inputs(torch.float32, tok_slot.numel(), H, HKV,
+                                  D, PAGE, 1024, seed=3)
+    lens = [1021] * 8
+    dec = decode_inputs(torch.float32, lens, H, HKV, D, PAGE, tb, seed=3)
+    lanes = [(256, n) for n in (128, 128, 44, 128, 100, 128, 0, 128)]
+    chk = chunk_inputs(torch.float32, 128, lanes, H, HKV, D, PAGE, tb,
+                       seed=4)
+    keys = sum(lens)
+    for kv in KV_NARROW:
+        pk = quantize_pools(kp, vp, kv)
+        dk = quantize_pools(dec[1], dec[2], kv)
+        ck = quantize_pools(chk[1], chk[2], kv)
+        sc = lambda t: dict(k_scale=t[2], v_scale=t[3])  # noqa: E731
+        q_p, q_d, q_c = qp.to(bf16), dec[0].to(bf16), chk[0].to(bf16)
+        cases = {
+            "paged_packed_attention": (
+                "mixed tick (256 prefill + 7 decode near 1024 + 9 pad)",
+                lambda: PA.paged_packed_attention_cuda(
+                    q_p, pk[0], pk[1], bt_p, tok_slot, tok_pos, **sc(pk)),
+                lambda: PA.paged_packed_attention_plain(
+                    q_p, pk[0], pk[1], bt_p, tok_slot, tok_pos, **sc(pk)),
+                _bound_ms(q_p, pk[0], bt_p, tok_slot, tok_pos, bw,
+                          scale_rows=True)),
+            "paged_decode_attention": (
+                "decode tick: 8 lanes x 1021 keys",
+                lambda: PA.paged_decode_attention_cuda(
+                    q_d, dk[0], dk[1], dec[3], dec[4], **sc(dk)),
+                lambda: PA.paged_decode_attention_plain(
+                    q_d, dk[0], dk[1], dec[3], dec[4], **sc(dk)),
+                _paged_bound_ms(q_d, dk[0], keys, keys, dec[3].numel() + 8,
+                                bw, scale_rows=True)),
+            "paged_chunk_attention": (
+                f"chunk tick: 8 lanes x C=128 at pos 256, n_valid "
+                f"{[n for _, n in lanes]}",
+                lambda: PA.paged_chunk_attention_cuda(
+                    q_c, ck[0], ck[1], *chk[3:], **sc(ck)),
+                lambda: PA.paged_chunk_attention_plain(
+                    q_c, ck[0], ck[1], *chk[3:], **sc(ck)),
+                _paged_bound_ms(
+                    q_c, ck[0],
+                    sum(chunk_keys(p, n, 127, tb) for p, n in lanes),
+                    sum(chunk_keys(p, n, c, tb) for p, n in lanes
+                        for c in range(128)), chk[3].numel() + 16, bw,
+                    scale_rows=True)),
+        }
+        for name, (shape, kernel, plain, (bound_ms, bound_by)) in \
+                cases.items():
+            label = f"{name}.{kv}"
+            row = dict(shape=f"{shape}, q bf16, {kv} pages + fp32 row "
+                       f"scales, H=24 Hkv=8 D=128 page=16 Tb=128",
+                       ms=_median_ms(kernel), plain_ms=_median_ms(plain),
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=None)
+            rows[label] = row
+            print(f"  {label}, {row['shape']}: kernel_ms {row['ms']:.4f} "
+                  f"plain_ms {row['plain_ms']:.4f} bound_ms {bound_ms:.4f} "
+                  f"({bound_by}) library_ms none (no single PyTorch call "
+                  f"computes it)", flush=True)
+    return rows
+
+
+def page_copy_time_phase(bw):
+    """Time of one copy-on-write at llama3.2-3b (one page across all 28
+    layers: block 0's pools and the stacked (27, P, ...) pools viewed as
+    flat pages; 4 pool leaves in bf16, 8 with int8 pages and their scales),
+    and of 64 pages: the kernel (one launch per leaf on page ids already on
+    the card), the PyTorch call ``pool.index_copy_(0, dst,
+    pool.index_select(0, src))`` per leaf on the same ids, the plain
+    version, and ``copy_paged_pages`` as the engine calls it (host page
+    lists, checked and uploaded per leaf: ``wrapper_ms``).  The bound is
+    2 x the bytes copied (read once, written once) at the card's memory
+    rate."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import model as M
+    phase("kernel time: page_copy (one COW at llama3.2-3b, and 64 pages)")
+    cfg = get_config("llama3.2-3b")
+    rows = {}
+    for kv in ("", "int8"):
+        P = 256
+        cache = M.init_paged_cache(cfg, P, PAGE, 8, "bfloat16", kv_dtype=kv)
+        leaves = []
+        for pool in cache["block0"].values():
+            leaves.append((pool, 1))
+        for pool in cache["blocks"].values():
+            L, P = pool.shape[:2]
+            leaves.append((pool.view((L * P,) + tuple(pool.shape[2:])), L))
+        for n in (1, 64):
+            src, dst = list(range(1, 1 + n)), list(range(100, 100 + n))
+            # (pool, its page ids) per leaf: the stacked leaves offset by
+            # layer, as copy_paged_pages does
+            pairs = [(pool, [s + i * P for i in range(layers) for s in src],
+                      [d + i * P for i in range(layers) for d in dst])
+                     for pool, layers in leaves]
+            nbytes = sum(len(s) * pool.numel() // pool.shape[0]
+                         * pool.element_size() for pool, s, _ in pairs)
+            ids = [torch.tensor([s, d], dtype=torch.int32, device="cuda")
+                   for _, s, d in pairs]
+            long_ids = [i.long() for i in ids]
+
+            def kernel():
+                for (pool, _, _), i in zip(pairs, ids):
+                    PA.page_copy_launch(pool, i)
+
+            def library():
+                for (pool, _, _), i in zip(pairs, long_ids):
+                    pool.index_copy_(0, i[1], pool.index_select(0, i[0]))
+
+            def plain():
+                for pool, s, d in pairs:
+                    PA.copy_pages_plain(pool, s, d)
+
+            label = (f"{'int8 pages + scales' if kv else 'bf16'}, {n} "
+                     f"page{'s' if n > 1 else ''} x 28 layers, "
+                     f"{len(leaves)} pool leaves")
+            row = dict(
+                shape=label, ms=_median_ms(kernel),
+                wrapper_ms=_median_ms(
+                    lambda: M.copy_paged_pages(cache, src, dst)),
+                plain_ms=_median_ms(plain), library_ms=_median_ms(library),
+                bound_ms=2 * nbytes / bw * 1e3, bound_by="bytes")
+            rows[label] = row
+            print(f"  {label}: {nbytes} bytes; kernel_ms {row['ms']:.4f} "
+                  f"({len(leaves)} launches) library_ms "
+                  f"{row['library_ms']:.4f} (index_copy_ + index_select per "
+                  f"leaf) bound_ms {row['bound_ms']:.4f} (bytes); "
+                  f"plain_ms {row['plain_ms']:.4f}; wrapper_ms "
+                  f"{row['wrapper_ms']:.4f} (copy_paged_pages from host "
+                  f"page lists)", flush=True)
+        del cache, leaves
+    return rows
+
+
 def random_history(cache, g):
-    """Fill every K/V pool and the per-slot a1_sig with N(0, 1)."""
+    """Fill every K/V pool and the per-slot a1_sig with N(0, 1); quantized
+    pools get the N(0, 1) rows' codes and row scales."""
+    from repro_torch.models.attention import _quant_rows
     for pools in (cache["block0"], cache["blocks"]):
         for name in ("k", "v"):
-            pools[name].copy_(torch.randn(pools[name].shape, generator=g))
+            x = torch.randn(pools[name].shape, generator=g)
+            if f"{name}_scale" in pools:
+                x, sc = _quant_rows(x, pools[name].dtype)
+                pools[f"{name}_scale"].copy_(sc)
+            pools[name].copy_(x.to(pools[name].dtype))
     cache["a1_sig"].copy_(torch.randn(cache["a1_sig"].shape, generator=g))
 
 
@@ -594,6 +921,8 @@ def tick_phase():
     cfg = get_config("llama3.2-3b").replace(n_layers=2, dtype="float32")
     params = M.init_params(cfg, seed=0, device="cpu")
     packed_tick(cfg, params)
+    for kv in KV_NARROW:
+        packed_tick(cfg, params, kv)
     cuda = ops.CUDA
     padded_tick(cfg, params, "chunk tick C=128", 128,
                 ((0, 128), (128, 128), (256, 37), (300, 0), (0, 1),
@@ -659,11 +988,22 @@ def padded_tick(cfg, params, label, C, lanes, tb, dual, want_paths):
     return counts
 
 
-def packed_tick(cfg, params):
+#: card vs CPU tolerance on a packed tick's hidden states and a1_sig: fp32
+#: on both sides, sums in another order, activations of order 1 -> 1e-3.
+#: On quantized pages the tick's new K/V rows are quantized on each side
+#: from its own fp32 projections, so a value within ~1e-6 of a rounding
+#: boundary can take the neighbouring code there: one step is 1/127 (int8)
+#: or one e4m3 ulp of the row's largest element, weighted by a softmax
+#: probability and the output projection -> 1e-2.
+TICK_TOLS = {"": 1e-3, "int8": 1e-2, "fp8": 1e-2}
+
+
+def packed_tick(cfg, params, kv=""):
     from repro_torch import interop
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
-    phase("one packed tick at full width: card (kernel) vs CPU (plain)")
+    phase(f"one packed tick at full width{', ' + kv + ' pages' if kv else ''}"
+          f": card (kernel) vs CPU (plain)")
     num_pages, tb = 512, 72
     bt, tok_slot, tok_pos, seg_last = mixed_tick(
         page=PAGE, num_pages=num_pages, tb=tb, seed=5)
@@ -673,7 +1013,7 @@ def packed_tick(cfg, params):
     batch = dict(tokens=tokens, tok_slot=tok_slot, tok_pos=tok_pos,
                  block_tables=bt, seg_last=seg_last)
     cache = M.init_paged_cache(cfg, num_pages, PAGE, seg_last.numel(),
-                               "float32", device="cpu")
+                               "float32", kv_dtype=kv, device="cpu")
     random_history(cache, g)
     gpu = {k: interop.tree_to(v, "cuda") for k, v in
            (("params", params), ("cache", cache), ("batch", batch))}
@@ -689,13 +1029,20 @@ def packed_tick(cfg, params):
     dh = (h_gpu[0, live.cuda()].cpu() - h_cpu[0, live]).abs().max().item()
     ds = (c_gpu["a1_sig"].cpu() - c_cpu["a1_sig"]).abs().max().item()
     scale = h_cpu[0, live].abs().max().item()
+    tol = TICK_TOLS[kv]
+    codes = ""
+    if kv:
+        diff = sum(int((c_gpu[part][n].cpu().view(torch.uint8)
+                        != c_cpu[part][n].view(torch.uint8)).sum())
+                   for part in ("block0", "blocks") for n in ("k", "v"))
+        codes = f"; K/V codes that differ card vs CPU: {diff}"
     print(f"  hidden max |diff| {dh:.3e} (max |h| {scale:.3f}); a1_sig max "
-          f"|diff| {ds:.3e}; tol 1e-3 (fp32 on both sides, sums in another "
-          f"order, activations of order 1); card path {paths_gpu}",
-          flush=True)
-    if paths_gpu != {"paged_packed_attention": ops.CUDA}:
+          f"|diff| {ds:.3e}; tol {tol:g} (TICK_TOLS){codes}; card path "
+          f"{paths_gpu}", flush=True)
+    site = "paged_packed_attention" + (f".{kv}" if kv else "")
+    if paths_gpu != {site: ops.CUDA}:
         raise AssertionError(f"card tick did not run the kernel: {paths_gpu}")
-    if not (dh <= 1e-3 and ds <= 1e-3):
+    if not (dh <= tol and ds <= tol):
         raise AssertionError("card tick disagrees with the CPU plain path")
     if not torch.isfinite(h_gpu).all():
         raise AssertionError("non-finite hidden states on the card")
@@ -775,10 +1122,16 @@ def engine_phase():
         raise AssertionError(f"kernel launches != ticks x layers: {counts}")
     if paths != {"paged_packed_attention": ops.CUDA}:
         raise AssertionError(f"engine did not run the kernel only: {paths}")
+    bf16_page = cfg.n_layers * 2 * PAGE * HKV * D * 2
+    print(f"  page_bytes {st['pages']['page_bytes']} (28 layers x K and V x "
+          f"16 x 8 x 128 bf16 = {bf16_page})", flush=True)
+    require(st["pages"]["page_bytes"] == bf16_page, "bf16 page_bytes")
     prompts, streams = profile_phase(engine, cfg, rng)
+    del engine
+    torch.cuda.empty_cache()
     dual_engine_phase(cfg, params, ecfg, prompts, streams)
     return launches, dict(ticks=st["ticks"], tok_s=gen / wall,
-                          wall_s=wall), params
+                          wall_s=wall), params, ecfg, prompts, streams
 
 
 def profile_phase(engine, cfg, rng):
@@ -876,27 +1229,275 @@ def dual_engine_phase(cfg, params, ecfg, prompts, streams):
             f"dual engine did not run the kernel only: {paths}")
 
 
-def padded_generation_phase(params):
+def prefix_workload(vocab, page, n_requests=16, seed=7, rate=1.0,
+                    sys_pages=4, tail_lo=8, tail_hi=17, full_every=5):
+    """The repeated-prefix workload of ``benchmarks/bench_serving.py:155``
+    (``_prefix_workload``, its defaults), rebuilt here: request 0 is a cold
+    donor (the system prompt + 12 tokens, 4 new) that finishes before
+    anyone else arrives; the rest arrive Poisson (1 per tick) after tick 16
+    with the system prompt + 8..16 tokens, every 5th repeating the system
+    prompt verbatim, and 8..16 new tokens each."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sysp = rng.integers(0, vocab, sys_pages * page)
+    work = [{"rid": 0, "arrival_tick": 0,
+             "prompt": np.concatenate([sysp, rng.integers(0, vocab, 12)]),
+             "max_new": 4}]
+    arrivals = 16 + np.cumsum(
+        rng.exponential(1.0 / rate, n_requests - 1)).astype(int)
+    for i in range(1, n_requests):
+        prompt = (sysp.copy() if i % full_every == 0 else
+                  np.concatenate([sysp, rng.integers(
+                      0, vocab, int(rng.integers(tail_lo, tail_hi)))]))
+        work.append({"rid": i, "arrival_tick": int(arrivals[i - 1]),
+                     "prompt": prompt,
+                     "max_new": int(rng.integers(8, 17))})
+    return work
+
+
+def drive(engine, work):
+    """Submit each request at its arrival tick and step the engine until
+    every request has finished (``bench_serving._drive``).  Returns the
+    wall seconds, the card synchronised at both ends."""
+    from repro_torch.serve.scheduler import ServeRequest
+    pending = list(work)
+    tick = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    busy = lambda: any(s is not None for s in engine.slots) \
+        or engine.queue  # noqa: E731
+    while pending or busy():
+        for w in list(pending):
+            if w["arrival_tick"] <= tick:
+                engine.submit(ServeRequest(rid=w["rid"], prompt=w["prompt"],
+                                           max_new=w["max_new"]))
+                pending.remove(w)
+        if busy():
+            engine.step()
+        tick += 1
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def first_token_probe(engine):
+    """Wrap the engine's step and token intake to keep, per request, the
+    logits its first token was sampled from (as fp32 on the host) and its
+    time to first token in ms."""
+    last, firsts = {}, {}
+    step, consume = engine.step_fn, engine._consume_one
+
+    def step_fn(*args):
+        logits, nxt, cache = step(*args)
+        last["logits"] = logits
+        return logits, nxt, cache
+
+    def consume_one(i, tok, now):
+        r = engine.slots[i]
+        if not r.generated:
+            firsts[r.rid] = (last["logits"][i].float().cpu(),
+                             (now - r.submit_time) * 1e3)
+        consume(i, tok, now)
+
+    engine.step_fn, engine._consume_one = step_fn, consume_one
+    return firsts
+
+
+def prefix_engine_phase(cfg, params, ecfg, kv=""):
+    """The repeated-prefix workload at llama3.2-3b full width and depth,
+    cold (no prefix cache) and hot (``prefix_cache=True``) on ``kv``
+    pages.  Hit rate, hot prefill tokens and COW copies are functions of
+    the prompts alone, and are gated exactly; the first-token logits of
+    every hit request must lie within DUAL_LOGIT_BOUND of the cold run's
+    (a hit skips prefill, so its tokens meet cuBLAS at other shapes).
+    Returns {kernel label: launches in the hot run}."""
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import PagedEngine, ServeRequest
+    L = cfg.n_layers
+    sfx = f".{kv}" if kv else ""
+    phase(f"prefix engine: llama3.2-3b, {L} layers, bf16, "
+          f"{kv + ' pages' if kv else 'bf16 pages'}, the repeated-prefix "
+          f"workload, cold then hot")
+    work = prefix_workload(cfg.vocab, ecfg.page_size)
+    out = {}
+    for name, on in (("cold", False), ("hot", True)):
+        engine = PagedEngine(cfg, params, dataclasses.replace(
+            ecfg, kv_dtype=kv, prefix_cache=on))
+        # warm-up request (allocator pools), outside the counts; its parked
+        # prefix is dropped so the tree starts empty
+        engine.submit(ServeRequest(rid=-1, prompt=work[0]["prompt"][::-1]
+                                   .copy(), max_new=4))
+        engine.run()
+        engine.finished.clear()
+        if on:
+            engine.pcache.clear()
+        engine.reset_stats()
+        firsts = first_token_probe(engine)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        ops.reset_dispatch_paths()
+        wall = drive(engine, work)
+        counts, paths, st = (ops.launch_counts(), ops.dispatch_paths(),
+                             engine.stats())
+        done = {r.rid: r for r in engine.finished}
+        require(len(done) == len(work) and not any(
+            r.truncated or len(r.generated) != w["max_new"]
+            for r, w in zip((done[w["rid"]] for w in work), work)),
+            f"{name} run: not every request finished")
+        want_paths = {"paged_packed_attention" + sfx: ops.CUDA}
+        if on:
+            want_paths["copy_pages"] = ops.CUDA
+        require(paths == want_paths, f"{name} run took {paths}")
+        require(counts["paged_packed_attention" + sfx] == st["ticks"] * L,
+                f"{name} run: packed launches {counts} != ticks x layers")
+        out[name] = dict(done=done, firsts=firsts, counts=counts, st=st,
+                         wall=wall, leaves=sum(len(engine.cache[p])
+                                               for p in ("block0",
+                                                         "blocks")))
+        del engine
+        torch.cuda.empty_cache()
+    hot, cold = out["hot"], out["cold"]
+    pst = hot["st"]["prefix"]
+    hits = [rid for rid, r in hot["done"].items() if r.prefix_hit_tokens]
+    diff = max((hot["firsts"][rid][0] - cold["firsts"][rid][0]).abs().max()
+               .item() for rid in hits)
+    same = sum(hot["done"][rid].generated == cold["done"][rid].generated
+               for rid in hot["done"])
+    common = [common_prefix(hot["done"][rid].generated,
+                            cold["done"][rid].generated)
+              / len(cold["done"][rid].generated) for rid in cold["done"]]
+    ttft = {k: statistics.median(out[k]["firsts"][rid][1] for rid in hits)
+            for k in ("hot", "cold")}
+    copies = hot["counts"]["page_copy"]
+    print(f"  hit rate {pst['hit_rate']:.4f} ({pst['hits']} hits, "
+          f"{pst['misses']} misses); prefill tokens hot "
+          f"{hot['st']['prefill_tokens']} vs cold "
+          f"{cold['st']['prefill_tokens']}; COW copies {pst['cow_copies']}, "
+          f"page_copy launches {copies} ({out['hot']['leaves']} pool "
+          f"leaves); a1_sig seeded {pst['a1_sig_seeded']}")
+    print(f"  hit requests' TTFT p50 hot {ttft['hot']:.2f} ms vs cold "
+          f"{ttft['cold']:.2f} ms; ticks hot {hot['st']['ticks']} vs cold "
+          f"{cold['st']['ticks']}; wall hot {hot['wall']:.2f} s vs cold "
+          f"{cold['wall']:.2f} s")
+    print(f"  first-token logits of the {len(hits)} hits, max |hot - cold| "
+          f"{diff:.4f} (bound {DUAL_LOGIT_BOUND}); streams equal hot vs "
+          f"cold {same}/{len(work)}; mean common-prefix fraction "
+          f"{statistics.mean(common):.3f}; launches {hot['counts']}",
+          flush=True)
+    require(pst["hit_rate"] > 0.9, f"hit rate {pst['hit_rate']} <= 0.9")
+    require(copies == pst["cow_copies"] * out["hot"]["leaves"]
+            and copies > 0, f"page_copy launches {copies} != COW copies "
+            f"{pst['cow_copies']} x {out['hot']['leaves']} leaves")
+    require(hot["st"]["prefill_tokens"] < cold["st"]["prefill_tokens"],
+            "the hot run prefilled no fewer tokens than the cold run")
+    require(diff <= DUAL_LOGIT_BOUND, f"hit logits differ from cold by "
+            f"{diff} > {DUAL_LOGIT_BOUND}")
+    return {"page_copy": copies,
+            "paged_packed_attention" + sfx:
+                hot["counts"]["paged_packed_attention" + sfx]}
+
+
+def quantized_engine_phase(cfg, params, ecfg, prompts, streams, kv):
+    """The profile workload (8 requests x 200 prompt tokens, 24 new) on
+    ``kv`` pages, twice through one engine (the repeat under
+    torch.profiler): the packed kernel's scale variant in every layer of
+    every tick, the engine's bytes per page, and the same tokens on the
+    repeat.  Reports how far the streams agree with
+    the bf16 engine's (not gated: random weights give near-ties).  Returns
+    the packed scale variant's launches in the first run."""
+    import dataclasses
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import PagedEngine, ServeRequest
+    L, site = cfg.n_layers, f"paged_packed_attention.{kv}"
+    phase(f"quantized engine: the profile workload with EngineConfig("
+          f"kv_dtype={kv!r})")
+    engine = PagedEngine(cfg, params, dataclasses.replace(ecfg, kv_dtype=kv))
+    engine.submit(ServeRequest(rid=-1, prompt=prompts[0][:32], max_new=4))
+    engine.run()
+    runs = []
+    for rep in range(2):
+        engine.finished.clear()
+        engine.reset_stats()
+        for i, p in enumerate(prompts):
+            engine.submit(ServeRequest(rid=100 + i, prompt=p, max_new=24))
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        ops.reset_dispatch_paths()
+        t0 = time.perf_counter()
+        if rep == 0:
+            engine.run()
+        else:     # the repeat under torch.profiler: where its time goes
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, paths = ops.launch_counts(), ops.dispatch_paths()
+        ticks = engine.stats()["ticks"]
+        got = {r.rid: list(map(int, r.generated)) for r in engine.finished}
+        require(paths == {site: ops.CUDA}, f"{kv} engine took {paths}")
+        require(counts[site] == ticks * L
+                and sum(counts.values()) == ticks * L,
+                f"{kv} engine launches {counts} != {ticks} x {L}")
+        runs.append((got, counts[site], ticks, wall))
+    page_bytes = engine.stats()["pages"]["page_bytes"]
+    (got, launches, ticks, wall), (again, _, _, _) = runs
+    common = [common_prefix(got[k], v) / len(v) for k, v in streams.items()]
+    print(f"  {ticks} ticks in {wall * 1e3:.1f} ms ({wall * 1e3 / ticks:.2f} "
+          f"ms/tick); {site} launches {launches} = {ticks} x {L}; "
+          f"page_bytes {page_bytes} (bf16 pages: {2 * L * PAGE * HKV * D * 2}"
+          f"); repeat gives the same tokens: {got == again}; common-prefix "
+          f"fraction with the bf16 engine's streams "
+          f"{statistics.mean(common):.3f} (per request "
+          f"{[round(c, 3) for c in common]})", flush=True)
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(ms for _, ms, _ in rows)
+    print(f"  repeat under torch.profiler: device kernel time "
+          f"{device_ms:.1f} ms = {device_ms / ticks:.2f} ms/tick (busy share "
+          f"of the first run's wall {device_ms / (wall * 1e3):.3f}); "
+          f"{sum(n for _, _, n in rows) / ticks:.0f} kernel launches per "
+          f"tick; the most device time:")
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:6]:
+        print(f"    {ms:9.2f} ms {n:6d} calls  {key[:90]}")
+    want_bytes = L * 2 * (PAGE * HKV * D + PAGE * 4)
+    require(page_bytes == want_bytes,
+            f"{kv} page_bytes {page_bytes} != {want_bytes}")
+    require(got == again, f"a repeated {kv} run gave other tokens")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def padded_generation_phase(params, kv="", n_new=32,
+                            order=("sequential", "dual", "dual",
+                                   "sequential")):
     """Padded (B, C) generation through ``paged_decode_step`` at llama3.2-3b
-    full width and depth (bf16, the engine phase's weights): chunk prefill
-    ticks (C = 128; lanes whose prompt has ended sit ticks out with
-    n_valid = 0), then 32 greedy C == 1 ticks sequentially, and the same
-    32 from the same prefilled cache under the dual-branch plan.  The
-    counters are zeroed just before and read just after each of the three
-    runs.  The decode runs go in turns, sequential, dual, dual, sequential,
-    each from its own copy of the prefilled cache.  Returns {kernel:
-    launches of the first run that drives it}."""
+    full width and depth (the engine phase's bf16 weights; bf16 pages, or
+    int8 / fp8 pages with row scales for ``kv``): chunk prefill ticks
+    (C = 128; lanes whose prompt has ended sit ticks out with n_valid = 0),
+    then ``n_new`` greedy C == 1 ticks sequentially, and the same from the
+    same prefilled cache under the dual-branch plan (on quantized pages its
+    blocks take the two-op route: the decode kernel's scale variant and
+    ``mlp_apply``, nothing fused).  The counters are zeroed just before and
+    read just after each run.  The decode runs go in turns as ``order``
+    says, each from its own copy of the prefilled cache.  Returns {kernel
+    label: launches of the first run that drives it}."""
     import numpy as np
     from repro_torch.configs.base import get_config
     from repro_torch.core.plan import ExecutionPlan
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.serve.sampling import greedy
-    B, C, tb, n_new = 8, 128, 128, 32
+    B, C, tb = 8, 128, 128
     cfg = get_config("llama3.2-3b")
     L = cfg.n_layers
-    phase(f"padded generation: llama3.2-3b, {L} layers, bf16, {B} lanes, "
-          f"C={C} prefill, {n_new} greedy decode ticks, Tb={tb}")
+    sfx = f".{kv}" if kv else ""
+    phase(f"padded generation: llama3.2-3b, {L} layers, bf16, "
+          f"{kv + ' pages' if kv else 'bf16 pages'}, {B} lanes, C={C} "
+          f"prefill, {n_new} greedy decode ticks, Tb={tb}")
     rng = np.random.default_rng(3)
     lens = rng.integers(300, 513, B)
     require(lens.min() <= 3 * C < lens.max(),
@@ -904,7 +1505,8 @@ def padded_generation_phase(params):
     bt, num_pages = lane_tables(lens + n_new, page=PAGE, tb=tb, seed=9)
     bt = bt.cuda()
     prompts = rng.integers(0, cfg.vocab, (B, int(lens.max())))
-    cache = M.init_paged_cache(cfg, num_pages, PAGE, B, "bfloat16")
+    cache = M.init_paged_cache(cfg, num_pages, PAGE, B, "bfloat16",
+                               kv_dtype=kv)
     seq = ExecutionPlan.single_device("paged")
     dual = seq.with_dual_branch()
     dev = lambda a: torch.as_tensor(np.asarray(a, np.int32)).cuda()  # noqa: E731,E501
@@ -956,23 +1558,24 @@ def padded_generation_phase(params):
         require(set(pre_paths.values()) == {ops.CUDA},
                 f"prefill took a non-kernel path: {pre_paths}")
         require(pre_counts == {**{k: 0 for k in pre_counts},
-                               "paged_chunk_attention": n_pre * L},
+                               "paged_chunk_attention" + sfx: n_pre * L},
                 f"prefill launches {pre_counts} != {n_pre} x {L} chunk")
         print(f"  prompts {lens.tolist()}; prefill {n_pre} chunk ticks in "
               f"{pre_s:.2f} s; launches {pre_counts}")
-        want = {"sequential": {"paged_decode_attention": n_new * L},
+        want = {"sequential": {"paged_decode_attention" + sfx: n_new * L},
                 "dual": {"paged_decode_attention": n_new,
                          "fused_dual_branch_decode": n_new * (L - 1)}}
+        if kv:
+            want["dual"] = want["sequential"]
         copies = [{k: (v.clone() if torch.is_tensor(v) else
                        {n: t.clone() for n, t in v.items()})
-                   for k, v in cache.items()} for _ in range(3)] + [cache]
+                   for k, v in cache.items()} for _ in order[1:]] + [cache]
         # one tick of each plan first (allocations, GEMM heuristics): it
         # writes the K/V that the timed run's first tick writes again
         decode(copies[0], first, seq, n=1)
         decode(copies[1], first, dual, n=1)
         runs = {"sequential": [], "dual": []}
-        for name, c in zip(("sequential", "dual", "dual", "sequential"),
-                           copies):
+        for name, c in zip(order, copies):
             (toks, lg), secs, counts, paths = run_counted(
                 lambda: decode(c, first, seq if name == "sequential"
                                else dual))
@@ -986,8 +1589,8 @@ def padded_generation_phase(params):
                     f"{name} launches {counts} != {want[name]}")
             require(bool(torch.isfinite(lg).all()), "non-finite logits")
             runs[name].append((toks, lg, counts))
-    (toks_s, lg_s, seq_counts), (toks_s2, _, _) = runs["sequential"]
-    (toks_d, lg_d, dual_counts), (toks_d2, _, _) = runs["dual"]
+    (toks_s, lg_s, seq_counts) = runs["sequential"][0]
+    (toks_d, lg_d, dual_counts) = runs["dual"][0]
     diff = (lg_s - lg_d).abs().max().item()
     common = [int((toks_s[b] == toks_d[b]).int().cumprod(0).sum())
               for b in range(B)]
@@ -998,12 +1601,14 @@ def padded_generation_phase(params):
     require(diff <= DUAL_LOGIT_BOUND,
             f"dual logits differ by {diff} > {DUAL_LOGIT_BOUND}")
     # the fused kernel sums its partials in a fixed order: runs repeat
-    require(torch.equal(toks_s, toks_s2) and torch.equal(toks_d, toks_d2),
-            "a repeated decode run gave other tokens")
-    return {"paged_chunk_attention": pre_counts["paged_chunk_attention"],
-            "paged_decode_attention": seq_counts["paged_decode_attention"],
-            "fused_dual_branch_decode":
-                dual_counts["fused_dual_branch_decode"]}
+    require(all(torch.equal(r[0], rs[0][0]) for rs in runs.values()
+                for r in rs), "a repeated decode run gave other tokens")
+    return {"paged_chunk_attention" + sfx:
+                pre_counts["paged_chunk_attention" + sfx],
+            "paged_decode_attention" + sfx:
+                seq_counts["paged_decode_attention" + sfx],
+            **({} if kv else {"fused_dual_branch_decode":
+                              dual_counts["fused_dual_branch_decode"]})}
 
 
 def main():
@@ -1021,38 +1626,63 @@ def main():
     build_phase()
     errs = {"paged_packed_attention": kernel_phase(),
             **padded_kernel_phase(),
-            "fused_dual_branch_decode": fused_kernel_phase()}
+            "fused_dual_branch_decode": fused_kernel_phase(),
+            "page_copy": page_copy_phase(),
+            **scale_kernel_phase()}
     times = time_phase(bw)
     main_shape = "mixed tick (256 prefill + 7 decode near 1024 + 9 pad)"
+    copy_times = page_copy_time_phase(bw)
     times = {"paged_packed_attention": dict(
         times[main_shape],
         shape=main_shape + ", bf16, H=24 Hkv=8 D=128 page=16"),
-        **padded_time_phase(bw)}
+        **padded_time_phase(bw), **scale_time_phase(bw),
+        "page_copy": dict(
+            copy_times["bf16, 1 page x 28 layers, 4 pool leaves"],
+            shape="one COW at llama3.2-3b: 1 page x 28 layers, 4 bf16 pool "
+                  "leaves (block 0 + the stacked 27-layer view, K and V)")}
     tick_phase()
-    launches, eng, params = engine_phase()
-    launches = {"paged_packed_attention": launches,
-                **padded_generation_phase(params)}
+    launches, eng, params, ecfg, prompts, streams = engine_phase()
+    from repro_torch.configs.base import get_config
+    cfg = get_config("llama3.2-3b")
+    launches = {"paged_packed_attention": launches}
+    prefix = prefix_engine_phase(cfg, params, ecfg)
+    launches["page_copy"] = prefix["page_copy"]
+    prefix_engine_phase(cfg, params, ecfg, "int8")
+    for kv in KV_NARROW:
+        launches[f"paged_packed_attention.{kv}"] = quantized_engine_phase(
+            cfg, params, ecfg, prompts, streams, kv)
+    launches.update(padded_generation_phase(params))
+    for kv in KV_NARROW:
+        launches.update(padded_generation_phase(
+            params, kv, n_new=8, order=("sequential", "dual")))
     src = "src/repro_torch/kernels/csrc/"
+    pa = "src/repro/kernels/paged_attention.py"
     where = {
-        "paged_packed_attention": ("paged_attention.cu",
-                                   "src/repro/kernels/paged_attention.py:346"),
-        "paged_decode_attention": ("paged_attention.cu",
-                                   "src/repro/kernels/paged_attention.py:106"),
-        "paged_chunk_attention": ("paged_attention.cu",
-                                  "src/repro/kernels/paged_attention.py:222"),
+        "paged_packed_attention": ("paged_attention.cu", f"{pa}:346"),
+        "paged_decode_attention": ("paged_attention.cu", f"{pa}:106"),
+        "paged_chunk_attention": ("paged_attention.cu", f"{pa}:222"),
         "fused_dual_branch_decode": ("dual_branch.cu",
                                      "src/repro/kernels/dual_branch.py:122"),
+        "page_copy": ("page_copy.cu", f"{pa}:420"),
     }
+    for kv in KV_NARROW:
+        for kname in ("paged_packed_attention", "paged_decode_attention",
+                      "paged_chunk_attention"):
+            where[f"{kname}.{kv}"] = where[kname]
     kernels = []
     for kname, (source, replaces) in where.items():
         row = times[kname]
+        require(launches[kname] > 0, f"{kname} was not launched on its "
+                f"main-path run")
         entry = {"name": kname, "route": "cuda", "source": src + source,
                  "replaces": replaces, "launches": launches[kname],
                  "max_abs_err": errs[kname], "ms": row["ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                 "bound_by": row["bound_by"], "library_ms": None}
-        if "unfused_ms" in row:
-            entry["unfused_ms"] = row["unfused_ms"]
+                 "bound_by": row["bound_by"],
+                 "library_ms": row.get("library_ms")}
+        for extra in ("unfused_ms", "wrapper_ms"):
+            if extra in row:
+                entry[extra] = row[extra]
         entry["shape"] = row["shape"]
         kernels.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s; engine "

@@ -9,6 +9,12 @@ biases stay fp32.  bfloat16 leaves come through fp32, because
 ``torch.from_numpy`` does not take ml_dtypes' bfloat16.  Like every entry
 point of the port, ``device=None`` means the card (``cuda``, which must
 exist); pass ``device="cpu"`` for the CPU.
+
+``cache_from_numpy(tree, device=None)`` takes the reference's paged cache
+with numpy leaves and returns the port's, leaf for leaf in the same dtype:
+the two caches share one layout (block 0's pools, the stacked pools of the
+other layers, ``a1_sig``).  int8 pools cross as they are; fp8 pools cross
+as the bytes of ml_dtypes' float8_e4m3fn, viewed as uint8.
 """
 from __future__ import annotations
 
@@ -59,6 +65,31 @@ def params_from_numpy(tree, cfg, device=None):
     out["blocks"] = [_convert(_unstack(stacked, i), dtype, device)
                      for i in range(n)]
     return out
+
+
+def _cache_leaf(a, device):
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(a.view(np.uint8).copy())
+        return t.view(torch.float8_e4m3fn).to(device)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def cache_from_numpy(tree, device=None):
+    """The reference's paged cache (numpy leaves) -> the port's, on
+    ``device`` (None: the card), every leaf in its own dtype."""
+    from repro_torch.models.model import resolve_device
+    device = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return _cache_leaf(t, device)
+
+    return conv(tree)
 
 
 def tree_to(tree, device):

@@ -282,8 +282,9 @@ dual_branch_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
   const int h = a % Hkv;
   const int n_keys = min(seq_lens[b], Tb * page);
   const size_t row = (size_t)b * H + (size_t)h * G;
-  attend_block<TQ, TKV, D>(q + row * D, kp, vp, bt + (size_t)b * Tb, n_keys,
-                           h, Hkv, G, page, scale, out + row * D, sm.attn);
+  attend_block<TQ, TKV, D>(q + row * D, kp, vp, nullptr, nullptr,
+                           bt + (size_t)b * Tb, n_keys, h, Hkv, G, page,
+                           scale, out + row * D, sm.attn);
 }
 
 // y[i] = sum over tiles, in tile order, of scratch[tile, i]; one rounding

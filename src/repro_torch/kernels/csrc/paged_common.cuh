@@ -10,6 +10,16 @@
 // n_keys <= 0 writes exact zeros.  Each layout only decides which query row
 // a block owns, which table row it reads and how many keys it sees.
 //
+// Quantized pages (int8 / fp8 e4m3, one byte per element) carry one fp32
+// scale per key row in (P, page) pools k_scale / v_scale, shared by the KV
+// heads.  A row is dequantized right after its load, as the Pallas
+// kernels' `k * ks[:, None]` does (paged_attention.py:75/90): K before the
+// scores, V before the P.V product; everything after is the unquantized
+// path's fp32 math.  Bytes bound these variants too, at half the bf16
+// bytes plus 8 per key row.  A lane loads 8 elements per key row in every
+// type (16 bytes in bf16, 8 in the narrow types): its query registers hold
+// G x 8 floats, so 16-byte narrow loads would double them.
+//
 // What bounds it on this card: bytes.  A block reads n_keys K rows and as
 // many V rows of D * sizeof(TKV) bytes and does 4 * G * D flops per key, so
 // at G = 3 it does about 6 flops per byte read, far below the ~295 flops per
@@ -30,8 +40,11 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace repro_paged {
 
@@ -49,6 +62,14 @@ template <>
 __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <>
+__device__ __forceinline__ float to_float<int8_t>(int8_t x) {
+  return static_cast<float>(x);
+}
+template <>
+__device__ __forceinline__ float to_float<__nv_fp8_e4m3>(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -63,6 +84,7 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 template <typename TKV, int D>
 struct AttnSmem {
   alignas(16) TKV v[kTile * D];
+  float vs[kTile];  // V row scales of the tile (quantized pages only)
   float p[kMaxG][kTile];
   float alpha[kMaxG];
   float l[kMaxG];
@@ -72,10 +94,16 @@ struct AttnSmem {
 template <typename TQ, typename TKV, int D>
 __device__ __forceinline__ void attend_block(
     const TQ* __restrict__ qrow, const TKV* __restrict__ kp,
-    const TKV* __restrict__ vp, const int* __restrict__ row_bt, int n_keys,
-    int h, int Hkv, int G, int page, float scale, TQ* __restrict__ o,
-    AttnSmem<TKV, D>& sm) {
-  constexpr int VEC = 16 / sizeof(TKV);  // elements per 16-byte load
+    const TKV* __restrict__ vp, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ row_bt,
+    int n_keys, int h, int Hkv, int G, int page, float scale,
+    TQ* __restrict__ o, AttnSmem<TKV, D>& sm) {
+  // one-byte pages are quantized and come with k_scale / v_scale; wider
+  // ones without
+  constexpr bool kScaled = sizeof(TKV) == 1;
+  constexpr int LOAD = kScaled ? 8 : 16;  // bytes per lane per key row
+  using Raw = typename std::conditional<LOAD == 16, uint4, uint2>::type;
+  constexpr int VEC = LOAD / sizeof(TKV);  // elements per load
   constexpr int LPR = D / VEC;           // lanes per key row
   constexpr int RPW = 32 / LPR;          // key rows per warp per pass
   constexpr int ROWS = kWarps * RPW;     // key rows per pass
@@ -123,20 +151,29 @@ __device__ __forceinline__ void attend_block(
       const int r = ps * ROWS + warp * RPW + row_in_warp;
       const int k = k0 + r;
       const bool live = k < n_keys;
-      uint4 kraw = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vraw = make_uint4(0u, 0u, 0u, 0u);
+      Raw kraw{};
+      Raw vraw{};
+      float ksc = 1.f, vsc = 0.f;
       if (live) {
         const int pg = row_bt[k / page];
-        const size_t off =
-            (((size_t)pg * page + (k % page)) * Hkv + h) * D + chunk * VEC;
-        kraw = *reinterpret_cast<const uint4*>(kp + off);
-        vraw = *reinterpret_cast<const uint4*>(vp + off);
+        const size_t prow = (size_t)pg * page + (k % page);
+        const size_t off = (prow * Hkv + h) * D + chunk * VEC;
+        kraw = *reinterpret_cast<const Raw*>(kp + off);
+        vraw = *reinterpret_cast<const Raw*>(vp + off);
+        if (kScaled) {
+          ksc = k_scale[prow];
+          vsc = v_scale[prow];
+        }
       }
-      *reinterpret_cast<uint4*>(&sm.v[r * D + chunk * VEC]) = vraw;
+      *reinterpret_cast<Raw*>(&sm.v[r * D + chunk * VEC]) = vraw;
+      if (kScaled && chunk == 0) sm.vs[r] = vsc;
       const TKV* kv = reinterpret_cast<const TKV*>(&kraw);
       float kf[VEC];
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) kf[i] = to_float<TKV>(kv[i]);
+      for (int i = 0; i < VEC; ++i) {
+        kf[i] = to_float<TKV>(kv[i]);
+        if (kScaled) kf[i] *= ksc;  // dequantize, then score
+      }
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
         if (g < G) {  // G is uniform over the block: no divergence
@@ -185,7 +222,8 @@ __device__ __forceinline__ void attend_block(
     for (int g = 0; g < kMaxG; ++g)
       if (g < G) acc[g] *= sm.alpha[g];
     for (int r = ks; r < kTile; r += KS) {
-      const float vv = to_float<TKV>(sm.v[r * D + d]);
+      float vv = to_float<TKV>(sm.v[r * D + d]);
+      if (kScaled) vv *= sm.vs[r];  // dequantize, then P.V
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g)
         if (g < G) acc[g] += sm.p[g][r] * vv;
@@ -224,6 +262,26 @@ int by_dtypes(int q_bf16, int kv_bf16, A... args) {
   if (q_bf16) return L<__nv_bfloat16, float>::run(args...);
   if (kv_bf16) return L<float, __nv_bfloat16>::run(args...);
   return L<float, float>::run(args...);
+}
+
+// Runs L<TQ, TKV>::run(args...) for q in bfloat16 (q_bf16 = 1) or fp32 and
+// the pages' storage kv_type: 0 fp32, 1 bfloat16, 2 int8, 3 fp8 e4m3 (the
+// last two with row scales).  Any other kv_type returns -1.
+template <template <typename, typename> class L, typename... A>
+int by_kv_types(int q_bf16, int kv_type, A... args) {
+  switch (kv_type) {
+    case 2:
+      return q_bf16 ? L<__nv_bfloat16, int8_t>::run(args...)
+                    : L<float, int8_t>::run(args...);
+    case 3:
+      return q_bf16 ? L<__nv_bfloat16, __nv_fp8_e4m3>::run(args...)
+                    : L<float, __nv_fp8_e4m3>::run(args...);
+    case 0:
+    case 1:
+      return by_dtypes<L>(q_bf16, kv_type, args...);
+    default:
+      return -1;
+  }
 }
 
 // Expands LAUNCH(32), LAUNCH(64) or LAUNCH(128) for the runtime head dim D;

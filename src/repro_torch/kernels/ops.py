@@ -7,6 +7,8 @@ dispatcher records, per call site and per EXECUTED call, which path ran:
 path follows the tensors' device; there is no fallback from one to the
 other.  ``dispatch_paths()`` holds the last path per site and the default
 metrics registry counts ``kernel_dispatch_total.<site>.<path>`` in calls.
+A paged call with scale pools records its site as ``<site>.int8`` /
+``<site>.fp8`` (the reference's ``ops._kv_variant``).
 """
 from __future__ import annotations
 
@@ -43,11 +45,9 @@ def reset_dispatch_paths():
 
 def launch_counts() -> dict:
     """{kernel: launches since the last ``reset_launches()``} for every
-    hand-written kernel of the port."""
-    return {"paged_packed_attention": _pa.LAUNCHES_PACKED,
-            "paged_decode_attention": _pa.LAUNCHES_DECODE,
-            "paged_chunk_attention": _pa.LAUNCHES_CHUNK,
-            "fused_dual_branch_decode": _db.LAUNCHES_FUSED}
+    hand-written kernel of the port, each scale variant under its own
+    ``<kernel>.int8`` / ``<kernel>.fp8`` label."""
+    return {**_pa.LAUNCHES, "fused_dual_branch_decode": _db.LAUNCHES_FUSED}
 
 
 def reset_launches():
@@ -62,8 +62,11 @@ def paged_packed_attention(q, k_pages, v_pages, block_tables, tok_slot,
     q (T, H, D), one flat token buffer where token t belongs to lane
     ``tok_slot[t]`` at logical position ``tok_pos[t]``, against
     (P, page, Hkv, D) pools addressed through per-slot (S, Tb) block
-    tables.  Padding tokens carry tok_pos == -1 and emit exactly 0."""
-    _record_dispatch("paged_packed_attention", q.device.type == "cuda")
+    tables.  Padding tokens carry tok_pos == -1 and emit exactly 0.
+    int8 / fp8 pools come with (P, page) fp32 ``k_scale`` / ``v_scale``
+    row scales (the scale variant of the kernel; likewise below)."""
+    _record_dispatch(_pa.kernel_label("paged_packed_attention", k_pages,
+                                      k_scale), q.device.type == "cuda")
     return _pa.paged_packed_attention(q, k_pages, v_pages, block_tables,
                                       tok_slot, tok_pos, k_scale=k_scale,
                                       v_scale=v_scale)
@@ -74,7 +77,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
     """Paged-KV decode attention: q (B, H, D), one query per lane, against
     (P, page, Hkv, D) pools addressed through (B, Tb) block tables; lane b
     sees gathered keys ``j < seq_lens[b]``."""
-    _record_dispatch("paged_decode_attention", q.device.type == "cuda")
+    _record_dispatch(_pa.kernel_label("paged_decode_attention", k_pages,
+                                      k_scale), q.device.type == "cuda")
     return _pa.paged_decode_attention(q, k_pages, v_pages, block_tables,
                                       seq_lens, k_scale=k_scale,
                                       v_scale=v_scale)
@@ -87,7 +91,8 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, pos, n_valid, *,
     lane valid, causal within the chunk) against (P, page, Hkv, D) pools
     addressed through (B, Tb) block tables.  Rows past ``n_valid`` are
     finite but meaningless and must not be read."""
-    _record_dispatch("paged_chunk_attention", q.device.type == "cuda")
+    _record_dispatch(_pa.kernel_label("paged_chunk_attention", k_pages,
+                                      k_scale), q.device.type == "cuda")
     return _pa.paged_chunk_attention(q, k_pages, v_pages, block_tables, pos,
                                      n_valid, k_scale=k_scale,
                                      v_scale=v_scale)
@@ -117,3 +122,14 @@ def dual_branch_decode(q, k_pages, v_pages, block_tables, seq_lens, mlp_in,
     attn = _pa.paged_decode_attention(q, k_pages, v_pages, block_tables,
                                       seq_lens)
     return attn, _layers.mlp_apply(ffn, mlp_in, kind)
+
+
+def copy_pages(pool, src, dst):
+    """Copy-on-write page copy: pool (P, page, ...) with the full rows at
+    pages ``src`` (n,) written over pages ``dst`` (n,), in place, as bytes
+    (any dtype: K/V pools, int8 / fp8 pools, their fp32 scale pools).
+    ``src`` / ``dst`` are host sequences of page ids; ``dst`` must be
+    distinct and disjoint from ``src`` (ValueError otherwise).  Returns the
+    pool."""
+    _record_dispatch("copy_pages", pool.device.type == "cuda")
+    return _pa.page_copy(pool, src, dst)

@@ -1,7 +1,8 @@
-"""Paged attention in the packed, decode and chunk layouts: the CUDA
-kernels' wrappers and their plain PyTorch versions.
+"""Paged attention in the packed, decode and chunk layouts, and the
+copy-on-write page copy: the CUDA kernels' wrappers and their plain PyTorch
+versions.
 
-Replaces three Pallas TPU kernels of ``repro/kernels/paged_attention.py``:
+Replaces four Pallas TPU kernels of ``repro/kernels/paged_attention.py``:
 
 * ``paged_packed_attention`` (``:346``, body ``_paged_packed_kernel``
   ``:292``): a flat (T,) token buffer, token t of slot ``tok_slot[t]`` at
@@ -12,21 +13,30 @@ Replaces three Pallas TPU kernels of ``repro/kernels/paged_attention.py``:
 * ``paged_chunk_attention`` (``:222``, body ``_paged_chunk_kernel``
   ``:161``): a (B, C) chunk per lane at ``pos``, causal in the chunk over
   the lane's live history ``j < pos + n_valid``; plain version ``ref.py:76``.
+* ``page_copy`` (``:420``): in place, the rows of pages ``src[i]`` over
+  pages ``dst[i]`` in one (P, page, ...) pool; plain version
+  ``ref.py:170``.
 
-The kernels are ``csrc/paged_attention.cu`` (CUDA C++ for ``sm_90a``), one
-source with three entry points over the shared attention block of
-``csrc/paged_common.cuh``.  What bounds them on an H100: bytes.  Each query
-row reads the K and V rows of its own pages up to its last visible key,
-once for all G query heads of a KV head, and does about 6 flops per byte at
-G = 3.  One thread block per (query row, KV head) holds the G query rows in
-registers, walks the pages in a loop with 16-byte vector loads and never
-touches a page past the last visible key (see the sources' headers).
+Each attention kernel also has its int8 / fp8 scale variant: quantized
+(P, page, Hkv, D) pools with (P, page) fp32 ``k_scale`` / ``v_scale`` row
+scales, dequantized where a row is loaded (the reference's ``_dequant``).
+
+The attention kernels are ``csrc/paged_attention.cu`` (CUDA C++ for
+``sm_90a``), one source with three entry points over the shared attention
+block of ``csrc/paged_common.cuh``; the page copy is ``csrc/page_copy.cu``.
+What bounds them on an H100: bytes.  Each query row reads the K and V rows
+of its own pages up to its last visible key, once for all G query heads of a
+KV head, and does about 6 flops per byte at G = 3 (12 on quantized pages).
+One thread block per (query row, KV head) holds the G query rows in
+registers, walks the pages in a loop with vector loads and never touches a
+page past the last visible key (see the sources' headers).
 
 Each public function runs the plain version for CPU tensors and the kernel
-for CUDA tensors; on a CUDA tensor it launches the kernel or raises.  Each
-kernel has its own launch counter (``LAUNCHES_PACKED``, ``LAUNCHES_DECODE``,
-``LAUNCHES_CHUNK``), raised by one where the wrapper launches it and
-nowhere else.
+for CUDA tensors; on a CUDA tensor it launches the kernel or raises.
+``LAUNCHES`` counts each kernel's launches under its label (the kernel's
+name, ``<name>.int8`` / ``<name>.fp8`` for the scale variants, and
+``page_copy``), raised by one where the wrapper launches it and nowhere
+else.
 """
 from __future__ import annotations
 
@@ -34,46 +44,75 @@ import ctypes
 
 import torch
 
-#: kernel launches since the last ``reset_launches()``, one per kernel
-LAUNCHES_PACKED = 0
-LAUNCHES_DECODE = 0
-LAUNCHES_CHUNK = 0
+ATTENTION_KERNELS = ("paged_packed_attention", "paged_decode_attention",
+                     "paged_chunk_attention")
+#: quantized page storage -> label suffix of the scale variants
+KV_VARIANTS = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
+#: kernel launches since the last ``reset_launches()``, by kernel label
+LAUNCHES = {}
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8
-_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+_Q_DTYPES = (torch.bfloat16, torch.float32)
+#: the kernels' ``kv_type`` codes (``csrc/paged_attention.cu``)
+_KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+             torch.float8_e4m3fn: 3}
+
+
+def kernel_label(kernel, k_pages, k_scale):
+    """``kernel`` for bf16 / fp32 pools, ``kernel.int8`` / ``kernel.fp8``
+    when scale pools come with quantized pages."""
+    if k_scale is None:
+        return kernel
+    name = KV_VARIANTS.get(k_pages.dtype, str(k_pages.dtype)[len("torch."):])
+    return f"{kernel}.{name}"
 
 
 def reset_launches():
-    global LAUNCHES_PACKED, LAUNCHES_DECODE, LAUNCHES_CHUNK
-    LAUNCHES_PACKED = LAUNCHES_DECODE = LAUNCHES_CHUNK = 0
+    LAUNCHES.clear()
+    for kernel in ATTENTION_KERNELS:
+        LAUNCHES[kernel] = 0
+        for suffix in KV_VARIANTS.values():
+            LAUNCHES[f"{kernel}.{suffix}"] = 0
+    LAUNCHES["page_copy"] = 0
+
+
+reset_launches()
 
 
 # --------------------------------------------------------------------------- #
 # plain versions
 # --------------------------------------------------------------------------- #
-def _gather(q, k_pages, v_pages, bt):
+def _gather(k_pages, v_pages, bt, k_scale=None, v_scale=None):
     """Per-row gathered pools (N, Sk, Hkv, D) in fp32 for table rows ``bt``
-    (N, Tb), and the scale."""
-    n = bt.shape[0]
-    Hkv, D = k_pages.shape[2], q.shape[-1]
-    k = k_pages[bt.long()].reshape(n, -1, Hkv, D).float()
-    v = v_pages[bt.long()].reshape(n, -1, Hkv, v_pages.shape[-1]).float()
-    return k, v
+    (N, Tb), each row times its (P, page) scale when scales are given
+    (``ref.py``'s ``_dequant``)."""
+    n, idx = bt.shape[0], bt.long()
+
+    def rows(pages, scales):
+        x = pages[idx].reshape((n, -1) + tuple(pages.shape[2:])).float()
+        if scales is None:
+            return x
+        return x * scales[idx].reshape(n, -1)[..., None, None].float()
+
+    return rows(k_pages, k_scale), rows(v_pages, v_scale)
 
 
 def paged_packed_attention_plain(q, k_pages, v_pages, block_tables, tok_slot,
-                                 tok_pos, *, scale=None):
+                                 tok_pos, *, scale=None, k_scale=None,
+                                 v_scale=None):
     """Gather-based packed paged attention (``ref.py:119``): q (T, H, D),
     pools (P, page, Hkv, D), block_tables (S, Tb), tok_slot/tok_pos (T,)
     -> (T, H, D) in q's dtype.  Token t sees the keys of its own slot's
     table at gathered index ``j <= tok_pos[t]``; ``tok_pos == -1`` rows
-    return 0."""
+    return 0.  Optional (P, page) ``k_scale`` / ``v_scale`` dequantize
+    int8 / fp8 pools row by row (likewise in the two functions below)."""
     T, H, D = q.shape
     Hkv = k_pages.shape[2]
     G = H // Hkv
     scale = D ** -0.5 if scale is None else scale
-    k, v = _gather(q, k_pages, v_pages, block_tables[tok_slot.long()])
+    k, v = _gather(k_pages, v_pages, block_tables[tok_slot.long()],
+                   k_scale, v_scale)
     qg = q.reshape(T, Hkv, G, D).float()
     s = torch.einsum("thgd,tkhd->thgk", qg, k) * scale
     k_pos = torch.arange(k.shape[1], device=q.device)[None]  # (1, Sk)
@@ -86,7 +125,7 @@ def paged_packed_attention_plain(q, k_pages, v_pages, block_tables, tok_slot,
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, block_tables, seq_lens,
-                                 *, scale=None):
+                                 *, scale=None, k_scale=None, v_scale=None):
     """Gather-based paged decode attention (``ref.py:45``): q (B, H, D),
     pools (P, page, Hkv, D), block_tables (B, Tb), seq_lens (B,) -> (B, H,
     D) in q's dtype.  Lane b sees gathered keys ``j < seq_lens[b]``.
@@ -100,7 +139,7 @@ def paged_decode_attention_plain(q, k_pages, v_pages, block_tables, seq_lens,
     Hkv = k_pages.shape[2]
     G = H // Hkv
     scale = D ** -0.5 if scale is None else scale
-    k, v = _gather(q, k_pages, v_pages, block_tables)
+    k, v = _gather(k_pages, v_pages, block_tables, k_scale, v_scale)
     qg = q.reshape(B, Hkv, G, D).float()
     s = torch.einsum("bhgd,bkhd->bhgk", qg, k) * scale
     mask = torch.arange(k.shape[1], device=q.device)[None] \
@@ -112,7 +151,8 @@ def paged_decode_attention_plain(q, k_pages, v_pages, block_tables, seq_lens,
 
 
 def paged_chunk_attention_plain(q, k_pages, v_pages, block_tables, pos,
-                                n_valid, *, scale=None):
+                                n_valid, *, scale=None, k_scale=None,
+                                v_scale=None):
     """Gather-based chunked paged attention (``ref.py:76``): q (B, C, H, D)
     at positions ``pos[b] + c``, pools (P, page, Hkv, D), block_tables (B,
     Tb), pos/n_valid (B,) -> (B, C, H, D) in q's dtype.  Row (b, c) sees
@@ -123,7 +163,7 @@ def paged_chunk_attention_plain(q, k_pages, v_pages, block_tables, pos,
     Hkv = k_pages.shape[2]
     G = H // Hkv
     scale = D ** -0.5 if scale is None else scale
-    k, v = _gather(q, k_pages, v_pages, block_tables)
+    k, v = _gather(k_pages, v_pages, block_tables, k_scale, v_scale)
     qg = q.reshape(B, C, Hkv, G, D).float()
     s = torch.einsum("bchgd,bkhd->bhgck", qg, k) * scale
     k_pos = torch.arange(k.shape[1], device=q.device)[None, None]  # (1,1,Sk)
@@ -145,13 +185,13 @@ def _lib():
     lib = build.load("paged_attention")
     if lib.paged_packed_attention.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        tail = [f, i, i, i, vp]            # scale, q_bf16, kv_bf16, dev, stream
+        tail = [f, i, i, i, vp]        # scale, q_bf16, kv_type, dev, stream
         lib.paged_packed_attention.argtypes = \
-            [vp] * 7 + [i] * 6 + tail      # ..., T, H, Hkv, D, page, Tb
+            [vp] * 9 + [i] * 6 + tail  # ..., T, H, Hkv, D, page, Tb
         lib.paged_decode_attention.argtypes = \
-            [vp] * 6 + [i] * 6 + tail      # ..., B, H, Hkv, D, page, Tb
+            [vp] * 8 + [i] * 6 + tail  # ..., B, H, Hkv, D, page, Tb
         lib.paged_chunk_attention.argtypes = \
-            [vp] * 7 + [i] * 7 + tail      # ..., B, C, H, Hkv, D, page, Tb
+            [vp] * 9 + [i] * 7 + tail  # ..., B, C, H, Hkv, D, page, Tb
         for fn in (lib.paged_packed_attention, lib.paged_decode_attention,
                    lib.paged_chunk_attention):
             fn.restype = i
@@ -160,33 +200,53 @@ def _lib():
     return lib
 
 
-def check_pools(kernel, q, k_pages, v_pages, index_tensors):
-    """Raise on anything a paged kernel does not take: q (..., H, D) and
-    pools (P, page, Hkv, D) in bfloat16 / float32 on one CUDA device,
-    contiguous, int32 index tensors, D in ``HEAD_DIMS``, 1 <= H / Hkv <=
-    ``MAX_GROUP``, 16-byte aligned pools."""
-    tensors = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
-               **index_tensors}
+def _check_device(kernel, tensors, device):
     for name, x in tensors.items():
         if x.device.type != "cuda":
             raise ValueError(f"{kernel} kernel: {name} is on {x.device}; "
                              f"the kernel takes CUDA tensors")
-        if x.device != q.device:
-            raise ValueError(f"{kernel} kernel: {name} is on {x.device}, q "
-                             f"on {q.device}")
+        if x.device != device:
+            raise ValueError(f"{kernel} kernel: {name} is on {x.device}, "
+                             f"not {device}")
         if not x.is_contiguous():
             raise ValueError(f"{kernel} kernel: {name} is not contiguous")
+
+
+def check_pools(kernel, q, k_pages, v_pages, index_tensors, k_scale=None,
+                v_scale=None):
+    """Raise on anything a paged kernel does not take: q (..., H, D) in
+    bfloat16 / float32 and pools (P, page, Hkv, D) in bfloat16 / float32,
+    or int8 / float8_e4m3fn with (P, page) float32 ``k_scale`` and
+    ``v_scale`` (and no scales otherwise), all on one CUDA device,
+    contiguous, int32 index tensors, D in ``HEAD_DIMS``, 1 <= H / Hkv <=
+    ``MAX_GROUP``, 16-byte aligned pools."""
+    tensors = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
+               **index_tensors}
+    scales = {"k_scale": k_scale, "v_scale": v_scale}
+    _check_device(kernel, {**tensors, **{n: x for n, x in scales.items()
+                                         if x is not None}}, q.device)
     for name, x in index_tensors.items():
         if x.dtype != torch.int32:
             raise ValueError(f"{kernel} kernel: {name} must be int32, got "
                              f"{x.dtype}")
-    if q.dtype not in _KERNEL_DTYPES or k_pages.dtype not in _KERNEL_DTYPES:
+    if q.dtype not in _Q_DTYPES or k_pages.dtype not in _KV_TYPES:
         raise ValueError(f"{kernel} kernel: q/pool dtypes {q.dtype}/"
-                         f"{k_pages.dtype} not in bfloat16/float32")
+                         f"{k_pages.dtype} not in bfloat16/float32 (q) and "
+                         f"{list(_KV_TYPES)} (pools)")
     if v_pages.dtype != k_pages.dtype or v_pages.shape != k_pages.shape \
             or k_pages.dim() != 4:
         raise ValueError(f"{kernel} kernel: pools must be (P, page, Hkv, D) "
                          f"and v_pages must match k_pages in shape and dtype")
+    quantized = k_pages.dtype in KV_VARIANTS
+    for name, x in scales.items():
+        if (x is not None) != quantized:
+            raise ValueError(f"{kernel} kernel: {k_pages.dtype} pools "
+                             f"{'need' if quantized else 'take no'} {name}")
+        if x is not None and (x.dtype != torch.float32
+                              or x.shape != k_pages.shape[:2]):
+            raise ValueError(f"{kernel} kernel: {name} must be float32 "
+                             f"{tuple(k_pages.shape[:2])}, got {x.dtype} "
+                             f"{tuple(x.shape)}")
     H, D = q.shape[-2:]
     Hkv, Dk = k_pages.shape[2:]
     if D not in HEAD_DIMS or Dk != D:
@@ -201,11 +261,12 @@ def check_pools(kernel, q, k_pages, v_pages, index_tensors):
                              f"aligned")
 
 
-def check_kernel_args(q, k_pages, v_pages, block_tables, tok_slot, tok_pos):
+def check_kernel_args(q, k_pages, v_pages, block_tables, tok_slot, tok_pos,
+                      k_scale=None, v_scale=None):
     """Raise on anything the packed kernel does not take."""
     check_pools("paged_packed_attention", q, k_pages, v_pages,
                 {"block_tables": block_tables, "tok_slot": tok_slot,
-                 "tok_pos": tok_pos})
+                 "tok_pos": tok_pos}, k_scale, v_scale)
     T = q.shape[0]
     if q.dim() != 3 or tok_slot.shape != (T,) or tok_pos.shape != (T,) \
             or block_tables.dim() != 2:
@@ -213,10 +274,12 @@ def check_kernel_args(q, k_pages, v_pages, block_tables, tok_slot, tok_pos):
                          "D), tok_slot/tok_pos (T,) and block_tables (S, Tb)")
 
 
-def check_decode_args(q, k_pages, v_pages, block_tables, seq_lens):
+def check_decode_args(q, k_pages, v_pages, block_tables, seq_lens,
+                      k_scale=None, v_scale=None):
     """Raise on anything the decode kernel does not take."""
     check_pools("paged_decode_attention", q, k_pages, v_pages,
-                {"block_tables": block_tables, "seq_lens": seq_lens})
+                {"block_tables": block_tables, "seq_lens": seq_lens},
+                k_scale, v_scale)
     B = q.shape[0]
     if q.dim() != 3 or seq_lens.shape != (B,) or block_tables.dim() != 2 \
             or block_tables.shape[0] != B:
@@ -224,11 +287,12 @@ def check_decode_args(q, k_pages, v_pages, block_tables, seq_lens):
                          "D), seq_lens (B,) and block_tables (B, Tb)")
 
 
-def check_chunk_args(q, k_pages, v_pages, block_tables, pos, n_valid):
+def check_chunk_args(q, k_pages, v_pages, block_tables, pos, n_valid,
+                     k_scale=None, v_scale=None):
     """Raise on anything the chunk kernel does not take."""
     check_pools("paged_chunk_attention", q, k_pages, v_pages,
                 {"block_tables": block_tables, "pos": pos,
-                 "n_valid": n_valid})
+                 "n_valid": n_valid}, k_scale, v_scale)
     B = q.shape[0]
     if q.dim() != 4 or pos.shape != (B,) or n_valid.shape != (B,) \
             or block_tables.dim() != 2 or block_tables.shape[0] != B:
@@ -236,114 +300,199 @@ def check_chunk_args(q, k_pages, v_pages, block_tables, pos, n_valid):
                          "D), pos/n_valid (B,) and block_tables (B, Tb)")
 
 
-def _launch(lib, fn, q, k_pages, *args):
-    """Call a C entry point with the dtype flags, device and current stream
-    appended; raise on a non-zero return."""
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _launch(lib, fn, q, k_pages, k_scale, *args):
+    """Call a C entry point with the dtype codes, device and current stream
+    appended; raise on a non-zero return; count the launch."""
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = getattr(lib, fn)(*args, int(q.dtype == torch.bfloat16),
-                           int(k_pages.dtype == torch.bfloat16),
-                           q.device.index, stream)
+                           _KV_TYPES[k_pages.dtype], q.device.index, stream)
     if err != 0:
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"{fn} kernel launch failed ({err}): {msg}")
+    LAUNCHES[kernel_label(fn, k_pages, k_scale)] += 1
 
 
 def paged_packed_attention_cuda(q, k_pages, v_pages, block_tables, tok_slot,
-                                tok_pos, *, scale=None):
-    """Launch the packed kernel on PyTorch's current stream (no sync)."""
-    global LAUNCHES_PACKED
-    check_kernel_args(q, k_pages, v_pages, block_tables, tok_slot, tok_pos)
+                                tok_pos, *, scale=None, k_scale=None,
+                                v_scale=None):
+    """Launch the packed kernel (or its scale variant) on PyTorch's current
+    stream (no sync)."""
+    check_kernel_args(q, k_pages, v_pages, block_tables, tok_slot, tok_pos,
+                      k_scale, v_scale)
     T, H, D = q.shape
     _, page, Hkv, _ = k_pages.shape
     scale = D ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
     if T == 0:
         return out
-    _launch(_lib(), "paged_packed_attention", q, k_pages,
+    _launch(_lib(), "paged_packed_attention", q, k_pages, k_scale,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), tok_slot.data_ptr(), tok_pos.data_ptr(),
-            out.data_ptr(), T, H, Hkv, D, page, block_tables.shape[1],
-            float(scale))
-    LAUNCHES_PACKED += 1
+            _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
+            tok_slot.data_ptr(), tok_pos.data_ptr(), out.data_ptr(), T, H,
+            Hkv, D, page, block_tables.shape[1], float(scale))
     return out
 
 
 def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, seq_lens,
-                                *, scale=None):
-    """Launch the decode kernel on PyTorch's current stream (no sync)."""
-    global LAUNCHES_DECODE
-    check_decode_args(q, k_pages, v_pages, block_tables, seq_lens)
+                                *, scale=None, k_scale=None, v_scale=None):
+    """Launch the decode kernel (or its scale variant) on PyTorch's current
+    stream (no sync)."""
+    check_decode_args(q, k_pages, v_pages, block_tables, seq_lens, k_scale,
+                      v_scale)
     B, H, D = q.shape
     _, page, Hkv, _ = k_pages.shape
     scale = D ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
     if B == 0:
         return out
-    _launch(_lib(), "paged_decode_attention", q, k_pages,
+    _launch(_lib(), "paged_decode_attention", q, k_pages, k_scale,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            B, H, Hkv, D, page, block_tables.shape[1], float(scale))
-    LAUNCHES_DECODE += 1
+            _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
+            seq_lens.data_ptr(), out.data_ptr(), B, H, Hkv, D, page,
+            block_tables.shape[1], float(scale))
     return out
 
 
 def paged_chunk_attention_cuda(q, k_pages, v_pages, block_tables, pos,
-                               n_valid, *, scale=None):
-    """Launch the chunk kernel on PyTorch's current stream (no sync)."""
-    global LAUNCHES_CHUNK
-    check_chunk_args(q, k_pages, v_pages, block_tables, pos, n_valid)
+                               n_valid, *, scale=None, k_scale=None,
+                               v_scale=None):
+    """Launch the chunk kernel (or its scale variant) on PyTorch's current
+    stream (no sync)."""
+    check_chunk_args(q, k_pages, v_pages, block_tables, pos, n_valid,
+                     k_scale, v_scale)
     B, C, H, D = q.shape
     _, page, Hkv, _ = k_pages.shape
     scale = D ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
     if B * C == 0:
         return out
-    _launch(_lib(), "paged_chunk_attention", q, k_pages,
+    _launch(_lib(), "paged_chunk_attention", q, k_pages, k_scale,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), pos.data_ptr(), n_valid.data_ptr(),
-            out.data_ptr(), B, C, H, Hkv, D, page, block_tables.shape[1],
-            float(scale))
-    LAUNCHES_CHUNK += 1
+            _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
+            pos.data_ptr(), n_valid.data_ptr(), out.data_ptr(), B, C, H, Hkv,
+            D, page, block_tables.shape[1], float(scale))
     return out
+
+
+# --------------------------------------------------------------------------- #
+# the page copy
+# --------------------------------------------------------------------------- #
+def check_page_pairs(num_pages, src, dst):
+    """Host index lists of a page copy -> (src, dst) as lists of ints.
+    Raise ValueError unless both have one entry per pair, every id is a
+    page of the pool, the ``dst`` pages are distinct and none of them is
+    also a ``src`` page (the kernel's blocks run in no order, so an overlap
+    would race; the reference forbids it, ``ref.py:170-175``).  ``src`` may
+    repeat."""
+    src, dst = [int(i) for i in src], [int(i) for i in dst]
+    if len(src) != len(dst):
+        raise ValueError(f"page copy: {len(src)} src pages but {len(dst)} "
+                         f"dst pages")
+    if any(not 0 <= i < num_pages for i in src + dst):
+        raise ValueError(f"page copy: page ids outside [0, {num_pages})")
+    if len(set(dst)) != len(dst):
+        raise ValueError("page copy: dst pages must be distinct")
+    if set(dst) & set(src):
+        raise ValueError("page copy: a dst page is also a src page")
+    return src, dst
+
+
+def copy_pages_plain(pool, src, dst):
+    """``ref.copy_pages_ref`` in place: pool (P, page, ...) of any dtype with
+    the rows of pages ``src`` written over pages ``dst``, as bytes (a
+    snapshot of the ``src`` rows is taken first).  Returns the pool."""
+    rows = pool.view(pool.shape[0], -1).view(torch.uint8)
+    idx = lambda v: torch.tensor(v, dtype=torch.long,        # noqa: E731
+                                 device=pool.device)
+    rows[idx(dst)] = rows[idx(src)]
+    return pool
+
+
+def _copy_lib():
+    from repro_torch.kernels import build
+    lib = build.load("page_copy")
+    if lib.page_copy.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.page_copy.argtypes = [vp, vp, vp, i, ctypes.c_longlong, i, vp]
+        lib.page_copy.restype = i
+        lib.page_copy_error_string.argtypes = [i]
+        lib.page_copy_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def page_copy_launch(pool, ids):
+    """Launch the page-copy kernel on PyTorch's current stream (no sync):
+    ``ids`` is a (2, n) int32 tensor on the pool's device, row 0 the src
+    pages, row 1 the dst pages, already checked (``check_page_pairs``)."""
+    _check_device("page_copy", {"pool": pool, "ids": ids}, pool.device)
+    if ids.dtype != torch.int32 or ids.dim() != 2 or ids.shape[0] != 2:
+        raise ValueError("page_copy kernel: ids must be (2, n) int32")
+    page_bytes = pool.numel() // pool.shape[0] * pool.element_size()
+    lib = _copy_lib()
+    err = lib.page_copy(pool.data_ptr(), ids[0].data_ptr(),
+                        ids[1].data_ptr(), ids.shape[1], page_bytes,
+                        pool.device.index,
+                        torch.cuda.current_stream(pool.device).cuda_stream)
+    if err != 0:
+        msg = lib.page_copy_error_string(err).decode()
+        raise RuntimeError(f"page_copy kernel launch failed ({err}): {msg}")
+    LAUNCHES["page_copy"] += 1
+
+
+def page_copy_cuda(pool, src, dst):
+    """Upload the host page lists ``src`` / ``dst`` (already checked by
+    ``check_page_pairs``) and launch the page-copy kernel.  Returns the
+    pool, rewritten in place."""
+    _check_device("page_copy", {"pool": pool}, pool.device)
+    if src:
+        page_copy_launch(pool, torch.tensor([src, dst], dtype=torch.int32)
+                         .to(pool.device))
+    return pool
 
 
 # --------------------------------------------------------------------------- #
 # public entry points: plain version on the CPU, kernel on the card
 # --------------------------------------------------------------------------- #
-def _no_scales(kernel, k_scale, v_scale):
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            f"{kernel}: int8/fp8 scale pools come with the quantized-KV "
-            f"slice of the PyTorch port")
-
-
 def paged_packed_attention(q, k_pages, v_pages, block_tables, tok_slot,
                            tok_pos, *, scale=None, k_scale=None,
                            v_scale=None):
     """Packed ragged paged attention: the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors (never the plain version there)."""
-    _no_scales("paged_packed_attention", k_scale, v_scale)
     fn = paged_packed_attention_plain if q.device.type == "cpu" \
         else paged_packed_attention_cuda
     return fn(q, k_pages, v_pages, block_tables, tok_slot, tok_pos,
-              scale=scale)
+              scale=scale, k_scale=k_scale, v_scale=v_scale)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
                            scale=None, k_scale=None, v_scale=None):
     """Paged decode attention: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (never the plain version there)."""
-    _no_scales("paged_decode_attention", k_scale, v_scale)
     fn = paged_decode_attention_plain if q.device.type == "cpu" \
         else paged_decode_attention_cuda
-    return fn(q, k_pages, v_pages, block_tables, seq_lens, scale=scale)
+    return fn(q, k_pages, v_pages, block_tables, seq_lens, scale=scale,
+              k_scale=k_scale, v_scale=v_scale)
 
 
 def paged_chunk_attention(q, k_pages, v_pages, block_tables, pos, n_valid, *,
                           scale=None, k_scale=None, v_scale=None):
     """Chunked paged attention: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (never the plain version there)."""
-    _no_scales("paged_chunk_attention", k_scale, v_scale)
     fn = paged_chunk_attention_plain if q.device.type == "cpu" \
         else paged_chunk_attention_cuda
-    return fn(q, k_pages, v_pages, block_tables, pos, n_valid, scale=scale)
+    return fn(q, k_pages, v_pages, block_tables, pos, n_valid, scale=scale,
+              k_scale=k_scale, v_scale=v_scale)
+
+
+def page_copy(pool, src, dst):
+    """Copy-on-write page copy in place: pool (P, page, ...) of any dtype,
+    ``src`` / ``dst`` host sequences of page ids (``dst`` distinct and
+    disjoint from ``src``, else ValueError).  The plain version for a CPU
+    pool, the CUDA kernel for a CUDA pool.  Returns the pool."""
+    src, dst = check_page_pairs(pool.shape[0], src, dst)
+    fn = copy_pages_plain if pool.device.type == "cpu" else page_copy_cuda
+    return fn(pool, src, dst)

@@ -2,13 +2,14 @@
 
 Port of the paged serving paths of ``repro/models/attention.py``:
 ``gqa_init``, ``gqa_qkv`` (``:406``), ``paged_scatter`` (``:108``) and
-``packed_scatter`` (``:129``), ``gqa_init_paged_cache`` (``:222``,
-unquantized pools only), ``_gqa_paged_qkv_scatter`` (``:244``), and the
-kernel branches of ``gqa_paged_apply`` (``:268``, the padded (B, C)
-layout), ``gqa_paged_dual`` (``:304``, the fused dual-branch decode) and
-``gqa_packed_apply`` (``:338``, the token-packed layout).  Sliding windows
-and logit softcaps (the reference's gather branches) and quantized KV pages
-come in later slices of the port.
+``packed_scatter`` (``:129``), the quantized KV page format (``KV_DTYPES``,
+``_quant_rows``, ``:195-220``), ``gqa_init_paged_cache`` (``:222``),
+``_gqa_paged_qkv_scatter`` (``:244``), and the kernel branches of
+``gqa_paged_apply`` (``:268``, the padded (B, C) layout), ``gqa_paged_dual``
+(``:304``, the fused dual-branch decode, or its two-op route on quantized
+pages) and ``gqa_packed_apply`` (``:338``, the token-packed layout).
+Sliding windows and logit softcaps (the reference's gather branches) come in
+a later slice of the port.
 """
 from __future__ import annotations
 
@@ -94,41 +95,90 @@ def packed_scatter(pages, vals, block_tables, tok_slot, tok_pos, page_size):
     return pages
 
 
+#: quantized KV page storage (``EngineConfig.kv_dtype`` values); "" keeps
+#: the engine's ``cache_dtype`` pools
+KV_DTYPES = ("", "bf16", "int8", "fp8")
+_KV_STORAGE = {"bf16": torch.bfloat16, "int8": torch.int8,
+               "fp8": torch.float8_e4m3fn}
+
+
+def _kv_qmax(pages_dtype) -> float:
+    return 448.0 if pages_dtype == torch.float8_e4m3fn else 127.0
+
+
+def _quant_rows(vals, pages_dtype):
+    """Per-token-row KV quantization: vals (..., Hkv, Dh) -> (q, scale) with
+    ``scale = amax / qmax`` over (Hkv, Dh), one fp32 scale per cached token
+    row shared by the KV heads.  A row's scale depends on that row alone, so
+    re-scattering a position, a COW page copy and a prefix-cache hit give
+    the same bytes.  ``q`` is in fp32 units of the narrow grid (the int8
+    grid rounded half to even and clipped); the page scatter's cast to the
+    pool's dtype does the final rounding (fp8: to nearest even)."""
+    qmax = _kv_qmax(pages_dtype)
+    a = vals.float().abs().amax(dim=(-2, -1))
+    scale = torch.clamp(a / qmax, min=1e-8)
+    q = vals.float() / scale[..., None, None]
+    if pages_dtype != torch.float8_e4m3fn:
+        q = torch.clamp(torch.round(q), -qmax, qmax)
+    return q, scale
+
+
 def gqa_init_paged_cache(cfg, num_pages, page_size, dtype, device,
                          kv_dtype=""):
-    """K/V page pools (P, page, Hkv, Dh) in ``dtype``."""
-    if kv_dtype:
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r}: quantized KV pages come with the "
-            f"quantized-KV slice of the PyTorch port")
+    """K/V page pools (P, page, Hkv, Dh).  ``kv_dtype``: "" stores in
+    ``dtype`` (the engine's ``cache_dtype``); "bf16" stores bfloat16 with
+    no scales; "int8" / "fp8" store int8 / float8_e4m3fn plus (P, page)
+    fp32 ``k_scale`` / ``v_scale`` row-scale pools (initialised to 1)."""
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, "
+                         f"got {kv_dtype!r}")
+    store = _KV_STORAGE.get(kv_dtype, dtype)
     shape = (num_pages, page_size, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=store, device=device),
+             "v": torch.zeros(shape, dtype=store, device=device)}
+    if kv_dtype in ("int8", "fp8"):
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.ones((num_pages, page_size),
+                                     dtype=torch.float32, device=device)
+    return cache
 
 
-def _unsupported(cfg, window, cache):
+def _unsupported(cfg, window):
     """Raise for the attention variants later slices of the port bring."""
     if cfg.attn_softcap or window:
         raise NotImplementedError(
             "sliding-window / softcapped attention (the reference's gather "
             "branch) comes in a later slice of the PyTorch port")
+
+
+def _scatter_kv(cache, k, v, scatter):
+    """Write k, v into the pools with ``scatter(pool, vals)``, quantizing
+    each token row first when the cache carries scale pools."""
     if "k_scale" in cache:
-        raise NotImplementedError(
-            "quantized KV pages come with the quantized-KV slice of the "
-            "PyTorch port")
+        k, ks = _quant_rows(k, cache["k"].dtype)
+        v, vs = _quant_rows(v, cache["v"].dtype)
+        scatter(cache["k_scale"], ks)
+        scatter(cache["v_scale"], vs)
+    scatter(cache["k"], k)
+    scatter(cache["v"], v)
+
+
+def _scales(cache):
+    return {"k_scale": cache.get("k_scale"), "v_scale": cache.get("v_scale")}
 
 
 def _gqa_paged_qkv_scatter(p, cfg, x, cache, block_tables, pos, n_valid):
     """Shared prologue of the sequential and dual-branch padded paths:
-    project q/k/v at the chunk's positions and scatter k/v into the page
-    pools in place.  Returns (q (B, C, H, Dh), positions (B, C)): one
-    implementation, so the two paths cannot drift apart."""
+    project q/k/v at the chunk's positions and scatter k/v (and their row
+    scales) into the page pools in place.  Returns (q (B, C, H, Dh),
+    positions (B, C)): one implementation, so the two paths cannot drift
+    apart."""
     C = x.shape[1]
     page = cache["k"].shape[1]
     positions = pos[:, None] + torch.arange(C, device=pos.device)[None]
     q, k, v = gqa_qkv(p, cfg, x, positions)
-    paged_scatter(cache["k"], k, block_tables, pos, n_valid, page)
-    paged_scatter(cache["v"], v, block_tables, pos, n_valid, page)
+    _scatter_kv(cache, k, v, lambda pool, vals: paged_scatter(
+        pool, vals, block_tables, pos, n_valid, page))
     return q, positions
 
 
@@ -137,18 +187,21 @@ def gqa_paged_apply(p, cfg, x, cache, block_tables, pos, n_valid, *,
     """Padded chunked tick against a paged cache.  x: (B, C, D) with C >= 1
     (C == 1 is a decode-only tick; C > 1 serves lanes at any phase through
     per-lane ``pos``/``n_valid``).  Scatters this tick's K/V into ``cache``
-    in place, then runs the decode kernel (C == 1) or the chunk kernel.
-    Returns (out (B, C, D), cache)."""
-    _unsupported(cfg, window, cache)
+    in place, then runs the decode kernel (C == 1) or the chunk kernel,
+    their scale variants on quantized pages.  Returns (out (B, C, D),
+    cache)."""
+    _unsupported(cfg, window)
     B, C = x.shape[:2]
     q, _ = _gqa_paged_qkv_scatter(p, cfg, x, cache, block_tables, pos,
                                   n_valid)
     if C == 1:
         o = ops.paged_decode_attention(q[:, 0], cache["k"], cache["v"],
-                                       block_tables, pos + 1)[:, None]
+                                       block_tables, pos + 1,
+                                       **_scales(cache))[:, None]
     else:
         o = ops.paged_chunk_attention(q, cache["k"], cache["v"],
-                                      block_tables, pos, n_valid)
+                                      block_tables, pos, n_valid,
+                                      **_scales(cache))
     return o.reshape(B, C, -1) @ p["wo"].to(x.dtype), cache
 
 
@@ -156,16 +209,25 @@ def gqa_paged_dual(p, ffn, cfg, x, mlp_in, cache, block_tables, pos,
                    n_valid):
     """Dual-branch single-token padded tick: the paged attention and the
     dense FFN go down as one dispatch (``ops.dual_branch_decode``: the
-    fused kernel on the card).  x: (B, 1, D) post-ln1 attention input;
-    mlp_in: (B, 1, D) the block's MLP input, independent of this block's
-    attention.  Returns (attn_out (B, 1, D), ffn_out (B, 1, D), cache)."""
-    _unsupported(cfg, 0, cache)
+    fused kernel on the card).  On quantized pages the fused kernel has no
+    dequantization, so, as in the reference (``attention.py:322-329``), the
+    two branches go down as two ops: the decode kernel's scale variant and
+    ``mlp_apply``.  x: (B, 1, D) post-ln1 attention input; mlp_in: (B, 1, D)
+    the block's MLP input, independent of this block's attention.  Returns
+    (attn_out (B, 1, D), ffn_out (B, 1, D), cache)."""
+    _unsupported(cfg, 0)
     B, C = x.shape[:2]
     q, _ = _gqa_paged_qkv_scatter(p, cfg, x, cache, block_tables, pos,
                                   n_valid)
-    o, y = ops.dual_branch_decode(q[:, 0], cache["k"], cache["v"],
-                                  block_tables, pos + 1, mlp_in, ffn,
-                                  kind=cfg.mlp)
+    if "k_scale" in cache:
+        o = ops.paged_decode_attention(q[:, 0], cache["k"], cache["v"],
+                                       block_tables, pos + 1,
+                                       **_scales(cache))
+        y = L.mlp_apply(ffn, mlp_in, cfg.mlp)
+    else:
+        o, y = ops.dual_branch_decode(q[:, 0], cache["k"], cache["v"],
+                                      block_tables, pos + 1, mlp_in, ffn,
+                                      kind=cfg.mlp)
     a = o[:, None].reshape(B, C, -1) @ p["wo"].to(x.dtype)
     return a, y, cache
 
@@ -174,15 +236,17 @@ def gqa_packed_apply(p, cfg, x, cache, block_tables, tok_slot, tok_pos, *,
                      window=0):
     """Token-packed ragged tick against a paged cache.  x: (1, T, D) flat
     packed tokens, token t of lane ``tok_slot[t]`` at ``tok_pos[t]``.
-    Scatters this tick's K/V into ``cache`` in place, then runs the packed
-    paged-attention kernel.  Returns (out (1, T, D), cache)."""
-    _unsupported(cfg, window, cache)
+    Scatters this tick's K/V (quantized rows and their scales on quantized
+    pages) into ``cache`` in place, then runs the packed paged-attention
+    kernel or its scale variant.  Returns (out (1, T, D), cache)."""
+    _unsupported(cfg, window)
     B, T = x.shape[:2]
     page = cache["k"].shape[1]
     positions = tok_pos.clamp(min=0)[None]                    # (1, T)
     q, k, v = gqa_qkv(p, cfg, x, positions)                   # (1, T, H, Dh)
-    packed_scatter(cache["k"], k[0], block_tables, tok_slot, tok_pos, page)
-    packed_scatter(cache["v"], v[0], block_tables, tok_slot, tok_pos, page)
+    _scatter_kv(cache, k[0], v[0], lambda pool, vals: packed_scatter(
+        pool, vals, block_tables, tok_slot, tok_pos, page))
     o = ops.paged_packed_attention(q[0].contiguous(), cache["k"], cache["v"],
-                                   block_tables, tok_slot, tok_pos)
+                                   block_tables, tok_slot, tok_pos,
+                                   **_scales(cache))
     return o.reshape(B, T, -1) @ p["wo"].to(x.dtype), cache

@@ -6,14 +6,17 @@ Port of the paged serving paths of ``repro/models/model.py``:
 (``:957``), ``paged_decode_step`` (``:979``) -> ``_decoder_paged_packed``
 (``:466``, the token-packed layout) or ``_decoder_paged_decode`` (``:388``,
 the padded (B, C) layout, sequential or dual-branch), and
-``_decoder_layer_stack`` (``:280``), plus ``init_params`` for the dense
+``_decoder_layer_stack`` (``:280``) and ``copy_paged_pages`` (``:1054``,
+the device half of copy-on-write), plus ``init_params`` for the dense
 decoder.
 
 Parameters are a dict tree in the reference's layout, except that the
 stacked ``blocks_dense`` leaves (leading layer axis) become a list of
 per-layer dicts under ``"blocks"``.  The cache holds block 0's pools, one
 ``(n_layers - 1, P, page, Hkv, Dh)`` tensor per K and per V for the other
-layers, and the per-slot ``a1_sig``; a tick updates all of them in place.
+layers (and, on quantized pages, one ``(n_layers - 1, P, page)`` fp32 tensor
+per row-scale pool), and the per-slot ``a1_sig``; a tick updates all of them
+in place.
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when there is none.  Pass ``device="cpu"`` to run the plain versions of
@@ -26,6 +29,7 @@ import torch
 
 from repro_torch.core import fal
 from repro_torch.core.plan import ExecutionPlan, Phase
+from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as BL
 from repro_torch.models import layers as L
@@ -121,18 +125,20 @@ def init_paged_cache(cfg, num_pages, page_size, slots, dtype="bfloat16",
                      kv_dtype="", device=None):
     """Paged KV cache: block 0's (P, page, Hkv, Dh) pools, one
     (n_layers - 1, P, page, Hkv, Dh) tensor per K and per V for the other
-    layers, and the per-slot FAL signal (slots, d_model).  Page 0 is
-    scratch."""
+    layers, and the per-slot FAL signal (slots, d_model) in ``dtype``.  Page
+    0 is scratch.  ``kv_dtype`` selects the page format
+    (``attention.gqa_init_paged_cache``); int8 / fp8 pools come with
+    (P, page) fp32 ``k_scale`` / ``v_scale`` pools, stacked likewise."""
     check_supported(cfg)
     device = resolve_device(device)
     dt = _dtype(dtype)
     c0 = A.gqa_init_paged_cache(cfg, num_pages, page_size, dt, device,
                                 kv_dtype=kv_dtype)
-    rest = (cfg.n_layers - 1,) + tuple(c0["k"].shape)
+    rest = cfg.n_layers - 1
     return {
         "block0": c0,
-        "blocks": {"k": torch.zeros(rest, dtype=dt, device=device),
-                   "v": torch.zeros(rest, dtype=dt, device=device)},
+        "blocks": {k: v[None].repeat((rest,) + (1,) * v.dim())
+                   for k, v in c0.items()},
         "a1_sig": torch.zeros((slots, cfg.d_model), dtype=dt, device=device),
     }
 
@@ -144,7 +150,7 @@ def _decoder_layer_stack(p, cfg, x, a1_sig, pos, blocks_cache, plan, *,
     Layer i reads and writes the i-th slice of the stacked pools in place,
     where the reference concatenates per-layer caches."""
     for i, pb in enumerate(p["blocks"]):
-        layer_cache = {"k": blocks_cache["k"][i], "v": blocks_cache["v"][i]}
+        layer_cache = {k: v[i] for k, v in blocks_cache.items()}
         x, _ = BL.block_apply(pb, cfg, x, a1_sig, plan=plan,
                               cache=layer_cache, block_tables=block_tables,
                               pos=pos, n_valid=n_valid, tok_slot=tok_slot,
@@ -243,3 +249,26 @@ def paged_decode_step(params, cfg, batch, cache, plan=None, want="logits"):
         return _decoder_paged_packed(params, cfg, batch, cache, plan,
                                      want=want)
     return _decoder_paged_decode(params, cfg, batch, cache, plan, want=want)
+
+
+def copy_paged_pages(cache, src, dst):
+    """Copy-on-write page copy across every layer's pools, in place: the
+    rows of physical pages ``src`` (n,) are written over pages ``dst`` (n,)
+    in block 0's pools and in all stacked pools of the other layers, scale
+    pools included (the device half of ``BlockTable`` copy-on-write; the
+    host half swaps the block-table entry).
+
+    ``src`` / ``dst`` are host sequences of page ids.  One ``ops.copy_pages``
+    call per pool leaf: block 0's pools as they are, the stacked
+    (L-1, P, ...) pools viewed as (L-1)*P flat pages with the page ids
+    offset per layer.  ``a1_sig`` is per slot, not per page: untouched.
+    Returns the cache."""
+    src, dst = [int(i) for i in src], [int(i) for i in dst]
+    for pool in cache["block0"].values():
+        ops.copy_pages(pool, src, dst)
+    for pool in cache["blocks"].values():
+        L, P = pool.shape[:2]
+        flat = pool.view((L * P,) + tuple(pool.shape[2:]))
+        ops.copy_pages(flat, [s + i * P for i in range(L) for s in src],
+                       [d + i * P for i in range(L) for d in dst])
+    return cache

@@ -2,9 +2,10 @@
 block tables with copy-on-write, alloc/share/free/fragmentation stats.
 
 The PyTorch port's copy of ``repro/serve/paged_cache.py``, unchanged: it is
-pure host-side Python.  The port's engine does not run the prefix cache yet,
-so ``share``/``adopt``/``first_shared_block``/``replace``/``shrink`` have no
-caller in the port until that slice lands.
+pure host-side Python.  The engine's prefix cache drives ``share`` /
+``adopt`` / ``first_shared_block`` / ``replace``; ``shrink`` waits for
+speculative decoding.  ``page_bytes`` is the bytes one page holds across
+every layer's pools, scale pools included (the engine computes it).
 
 The device arrays live in the model cache (``model.init_paged_cache``); this
 module owns WHICH physical page each logical block of each request maps to —

@@ -1,12 +1,13 @@
 """Continuous-batching scheduler over the paged KV cache, on torch.
 
-Port of ``repro/serve/scheduler.py`` in its default configuration: admission
-control ('prompt': prompt + 1 token; 'full': prompt + max_new, no
-preemption), TOKEN-PACKED ticks (one model call per tick over a flat
-``(token_budget,)`` buffer where token t belongs to lane ``tok_slot[t]`` at
-position ``tok_pos[t]``; decode lanes are packed first, prefill lanes share
-the rest round-robin), greedy selection, preemption of the youngest other
-request under page pressure, and rejection of requests that can never fit.
+Port of ``repro/serve/scheduler.py`` without speculative decoding and
+seeded sampling: admission control ('prompt': prompt + 1 token; 'full':
+prompt + max_new, no preemption), TOKEN-PACKED ticks (one model call per
+tick over a flat ``(token_budget,)`` buffer where token t belongs to lane
+``tok_slot[t]`` at position ``tok_pos[t]``; decode lanes are packed first,
+prefill lanes share the rest round-robin), greedy selection, preemption
+of the youngest other request under page pressure, and rejection of
+requests that can never fit.
 The engine's ``MetricsRegistry`` records TTFT, inter-token latency, queue
 wait, occupancy, page utilisation and preemptions; ``stats()`` summarises
 them.
@@ -15,9 +16,18 @@ Dual-branch decode (``EngineConfig.dual_branch``) runs each block after
 block 0 as the MHA || MLP block (fal / parallel / ablation2 only).  On the
 packed tick it launches no kernel of its own: the two branches run the
 sequential path's ops, one after the other on one stream, so its token
-streams equal the non-dual engine's.  The prefix cache, self-speculative
-decoding, quantized KV pages and seeded sampling come in later slices of
-the port and raise ``NotImplementedError`` here.
+streams equal the non-dual engine's.
+
+Quantized KV pages (``EngineConfig.kv_dtype`` "int8" / "fp8") store narrow
+pages with per-row fp32 scale pools; the ticks run the kernels' scale
+variants.  The radix prefix cache (``EngineConfig.prefix_cache``,
+``serve/prefix_cache.py``) matches each admitted prompt's longest cached
+page-aligned prefix, maps its pages into the block table, prefills only the
+rest, seeds the FAL ``a1_sig`` on a full-prompt hit, copies a shared page
+before a lane writes into it (copy-on-write through the ``page_copy``
+kernel) and parks every finished request's prefix.  Self-speculative
+decoding and seeded sampling come in later slices of the port and raise
+``NotImplementedError`` here.
 
 The engine runs on the card unless the caller passes ``device="cpu"``.
 ``engine_dispatch_ms`` times one model call from its start to the moment
@@ -38,6 +48,7 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serve import sampling as SP
 from repro_torch.serve.paged_cache import BlockTable, PageAllocator, pages_needed
+from repro_torch.serve.prefix_cache import PrefixCache
 
 _SITE = "serve/scheduler.py"
 
@@ -164,6 +175,14 @@ class ServeRequest:
     queued_tick: int = -1              # last (re-)queue tick, for queue wait
     last_token_time: float = 0.0
     decoding: bool = False             # per-residency phase (reset on preempt)
+    # prefix-cache plumbing (EngineConfig.prefix_cache)
+    pin_prefix: bool = False           # park this prefix pinned (no eviction)
+    prefix_hit_tokens: int = 0         # cached tokens mapped at last admission
+    # block 1's first-attention signal at position len(prompt)-1, captured
+    # (a cloned a1_sig row, on the engine's device) the tick the first token
+    # is sampled; cached with the prefix so a full-prompt hit seeds
+    # cache["a1_sig"] instead of re-running block 0
+    prefix_sig: Optional[torch.Tensor] = None
 
     def known(self) -> list:
         """Context to teacher-force: prompt + everything sampled so far."""
@@ -172,9 +191,8 @@ class ServeRequest:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Paged-engine knobs.  ``kv_dtype``, ``prefix_cache`` and
-    ``spec_tokens`` belong to later slices of the port and must keep their
-    defaults here."""
+    """Paged-engine knobs.  ``spec_tokens`` belongs to a later slice of the
+    port and must keep its default here."""
     page_size: int = 16
     num_pages: int = 64                # pool size incl. scratch page 0
     slots: int = 4                     # concurrent batch lanes
@@ -186,14 +204,18 @@ class EngineConfig:
     max_seq: int = 256                 # per-request context cap
     admission: str = "prompt"          # 'prompt' | 'full'
     cache_dtype: str = "float32"
+    # KV page storage ("" | "bf16" | "int8" | "fp8"): "" keeps cache_dtype
+    # pools; int8 / fp8 store narrow pages plus per-row fp32 scale pools
     kv_dtype: str = ""
     dual_branch: bool = False
+    # radix prefix cache over page-aligned finished prefixes;
+    # max_cached_prefix_pages caps the tree's own pages (0 = the pool)
     prefix_cache: bool = False
+    max_cached_prefix_pages: int = 0
     spec_tokens: int = 0
 
 
-_LATER = {"kv_dtype": "quantized-KV", "prefix_cache": "prefix-cache",
-          "spec_tokens": "speculative-decode"}
+_LATER = {"spec_tokens": "speculative-decode"}
 
 
 class PagedEngine:
@@ -234,19 +256,25 @@ class PagedEngine:
                                        engine_cfg.page_size)
         self.cache = M.init_paged_cache(
             cfg, engine_cfg.num_pages, engine_cfg.page_size,
-            engine_cfg.slots, engine_cfg.cache_dtype, device=self.device)
+            engine_cfg.slots, engine_cfg.cache_dtype,
+            kv_dtype=engine_cfg.kv_dtype, device=self.device)
         self.step_fn = make_packed_step(cfg, self.plan)
-        # device bytes per page across every layer's pools (a1_sig excluded)
-        pools = [self.cache["block0"]["k"], self.cache["block0"]["v"],
-                 self.cache["blocks"]["k"], self.cache["blocks"]["v"]]
-        page_bytes = sum(t.numel() * t.element_size()
-                         // engine_cfg.num_pages for t in pools)
+        # device bytes per page across every layer's pools, scale pools
+        # included, a1_sig excluded
+        page_bytes = sum(t.numel() * t.element_size() // engine_cfg.num_pages
+                         for part in ("block0", "blocks")
+                         for t in self.cache[part].values())
         self.allocator = PageAllocator(engine_cfg.num_pages,
                                        engine_cfg.page_size,
                                        metrics=self.metrics,
                                        page_bytes=page_bytes)
         self.tables = [BlockTable(self.allocator, self.max_blocks)
                        for _ in range(engine_cfg.slots)]
+        self.pcache: Optional[PrefixCache] = None
+        if engine_cfg.prefix_cache:
+            self.pcache = PrefixCache(
+                self.allocator, max_pages=engine_cfg.max_cached_prefix_pages,
+                metrics=self.metrics, tracer=self.tracer)
         self.slots: List[Optional[ServeRequest]] = [None] * engine_cfg.slots
         self.queue: List[ServeRequest] = []
         self.finished: List[ServeRequest] = []
@@ -291,6 +319,18 @@ class PagedEngine:
                                        unit="tokens", site=s)
         self._h_pad_frac = m.histogram("engine_padding_fraction",
                                        unit="ratio", site=s)
+        self._c_cow = m.counter("engine_cow_copies_total", unit="pages",
+                                site=s)
+        self._c_sig_seeded = m.counter("engine_a1_sig_seeded_total",
+                                       unit="events", site=s)
+        self._h_ttft_hit_ms = m.histogram("engine_ttft_hit_ms", unit="ms",
+                                          site=s)
+        self._h_ttft_cold_ms = m.histogram("engine_ttft_cold_ms", unit="ms",
+                                           site=s)
+        self._h_ttft_hit_ticks = m.histogram("engine_ttft_hit_ticks",
+                                             unit="ticks", site=s)
+        self._h_ttft_cold_ticks = m.histogram("engine_ttft_cold_ticks",
+                                              unit="ticks", site=s)
 
     # ------------------------------------------------------------------ #
     def submit(self, req: ServeRequest):
@@ -337,16 +377,51 @@ class PagedEngine:
                 self.queue.pop(0)
                 self._reject(r)
                 continue
-            if not self.allocator.can_alloc(need):
-                return                       # FCFS: no head-of-line skipping
+            # longest-prefix match; the provisional ``share`` keeps matched
+            # pages at refcount > 1 through any eviction below, so a
+            # just-matched node can never be freed out from under us
+            n_hit, hit_pages, hit_a1 = 0, [], {}
+            if self.pcache is not None and ctx > 1:
+                n_hit, hit_pages, hit_a1 = self.pcache.match(
+                    np.asarray(r.known(), np.int64))
+                if hit_pages:
+                    self.allocator.share(hit_pages)
+            need_new = need - len(hit_pages)
+            if not self.allocator.can_alloc(need_new):
+                if self.pcache is not None:
+                    self.pcache.evict(need_new - self.allocator.free_pages)
+                if not self.allocator.can_alloc(need_new):
+                    if hit_pages:           # drop the provisional hold
+                        self.allocator.free(hit_pages)
+                    return                   # FCFS: no head-of-line skipping
             self.queue.pop(0)
-            r.pos = 0
+            # (re-)prefill from the divergence point; a full-prompt hit
+            # (n_hit == ctx) enters decode on its first tick: the last prompt
+            # token runs as a one-token decode segment (its page is copied
+            # out of the shared span before the write)
+            r.pos = min(n_hit, ctx - 1)
             r.decoding = False
+            r.prefix_hit_tokens = n_hit
+            self.tables[free].adopt(hit_pages)
             self.slots[free] = r
             self._c_admitted.inc()
             self._h_queue_wait.record(self.ticks - r.queued_tick)
             self.tracer.instant("ADMITTED", rid=r.rid, slot=free,
                                 wait_ticks=self.ticks - r.queued_tick)
+            if self.pcache is not None:
+                self.pcache.note_admission(n_hit)
+            if n_hit:
+                self.tracer.instant("PREFIX_HIT", rid=r.rid, slot=free,
+                                    hit_tokens=n_hit,
+                                    shared_pages=len(hit_pages))
+                # seed the FAL signal from the cached entry on decode entry:
+                # the signal at position pos is a function of tokens
+                # [0, pos] alone, so the stored artifact stands in for
+                # block 0's output at that position
+                if r.pos == ctx - 1 and r.pos in hit_a1:
+                    self.cache["a1_sig"][free] = hit_a1[r.pos].to(
+                        self.cache["a1_sig"].dtype)
+                    self._c_sig_seeded.inc()
             self.tracer.instant("PREFILL", rid=r.rid, slot=free,
                                 context=ctx, from_pos=r.pos)
             if self.ecfg.admission == "full":
@@ -361,6 +436,9 @@ class PagedEngine:
     # ------------------------------------------------------------------ #
     def _preempt(self, i: int):
         r = self.slots[i]
+        # release() drops this request's references only: pages shared with
+        # the prefix cache stay allocated, so re-admission matches the
+        # still-cached prefix and re-prefills from the divergence point
         self.tables[i].release()
         r.pos = 0
         r.decoding = False
@@ -379,24 +457,82 @@ class PagedEngine:
             return None
         return max(cands, key=lambda i: self.slots[i].arrival)  # youngest
 
+    def _relieve_pressure(self, exclude: int) -> bool:
+        """Free page capacity under pressure, cheapest first: evict
+        refcount-free prefix-cache entries, then preempt the youngest other
+        active request.  False => nothing left to take (the caller must
+        preempt itself)."""
+        if self.pcache is not None and self.pcache.evict(1):
+            return True
+        victim = self._pick_victim(exclude=exclude)
+        if victim is None:
+            return False
+        self._preempt(victim)
+        return True
+
     def _ensure(self, i: int, new_len: int) -> bool:
-        """Grow slot i's block table to cover new_len tokens, preempting the
-        youngest other request under page pressure.  False => slot i was
-        itself preempted (or finished truncated) and is gone."""
+        """Grow slot i's block table to cover new_len tokens and copy (COW)
+        any prefix-shared page in this tick's write range [pos, new_len) to
+        a private page, relieving page pressure as needed.  False => slot i
+        was itself preempted (or finished truncated) and is gone."""
         if pages_needed(new_len, self.ecfg.page_size) \
                 > min(self.max_blocks, self.allocator.capacity):
             self._finish(i, truncated=True)
             return False
         while not self.tables[i].ensure(new_len):
-            victim = self._pick_victim(exclude=i)
-            if victim is None:
+            if not self._relieve_pressure(exclude=i):
                 self._preempt(i)
                 return False
-            self._preempt(victim)
-        return True
+        if self.pcache is None:
+            return True
+        # the tick scatters K/V at positions [pos, new_len): a page there
+        # still shared with the tree (or another sharer) gets a private
+        # device copy first, so the write never reaches another history
+        r = self.slots[i]
+        while True:
+            blk = self.tables[i].first_shared_block(r.pos, new_len)
+            if blk is None:
+                return True
+            got = self.allocator.alloc(1)
+            if got is None:
+                if not self._relieve_pressure(exclude=i):
+                    self._preempt(i)
+                    return False
+                continue
+            old = self.tables[i].pages[blk]
+            with self.tracer.span("engine.cow", annotate=True,
+                                  page_from=old, page_to=got[0]):
+                M.copy_paged_pages(self.cache, [old], [got[0]])
+            self.tables[i].replace(blk, got[0])
+            self._c_cow.inc()
+            self.tracer.instant("COW", rid=r.rid, slot=i, block=blk,
+                                page_from=old, page_to=got[0])
+
+    def _park_prefix(self, i: int, r: ServeRequest):
+        """Insert the finished request's page-aligned written prefix (and
+        its captured a1_sig at the prompt's last position) into the radix
+        tree.  Runs before ``release()``: ``insert`` takes the tree's own
+        reference on newly cached pages, release then drops the table's."""
+        ps = self.ecfg.page_size
+        n_ins = (r.pos // ps) * ps       # only fully written pages
+        if n_ins <= 0:
+            return
+        a1 = {}
+        q = len(r.prompt) - 1
+        if r.prefix_sig is not None and q < n_ins:
+            a1[q] = r.prefix_sig
+        adopted = self.pcache.insert(
+            np.asarray(r.known()[:n_ins], np.int64),
+            self.tables[i].pages[:n_ins // ps], a1=a1,
+            pinned=r.pin_prefix)
+        if adopted:
+            self.tracer.instant("PREFIX_PARKED", rid=r.rid,
+                                pages=adopted, tokens=n_ins)
 
     def _finish(self, i: int, truncated: bool = False):
         r = self.slots[i]
+        if self.pcache is not None:
+            self._park_prefix(i, r)
         r.done = True
         r.truncated = truncated
         r.finish_tick = self.ticks
@@ -433,8 +569,21 @@ class PagedEngine:
         r = self.slots[i]
         r.generated.append(tok)
         if len(r.generated) == 1:
-            self._h_ttft_ms.record((now - r.submit_time) * 1e3)
-            self._h_ttft_ticks.record(self.ticks - r.submit_tick)
+            if self.pcache is not None and r.prefix_sig is None:
+                # block 1's first-attention signal at position
+                # len(prompt) - 1 (this tick's seg_last row), the prefix
+                # artifact _park_prefix caches at finish
+                r.prefix_sig = self.cache["a1_sig"][i].clone()
+            ttft_ms = (now - r.submit_time) * 1e3
+            ttft_ticks = self.ticks - r.submit_tick
+            self._h_ttft_ms.record(ttft_ms)
+            self._h_ttft_ticks.record(ttft_ticks)
+            if self.pcache is not None:
+                hot = r.prefix_hit_tokens > 0
+                (self._h_ttft_hit_ms if hot
+                 else self._h_ttft_cold_ms).record(ttft_ms)
+                (self._h_ttft_hit_ticks if hot
+                 else self._h_ttft_cold_ticks).record(ttft_ticks)
         elif r.last_token_time:
             self._h_itl_ms.record((now - r.last_token_time) * 1e3)
         r.last_token_time = now
@@ -574,6 +723,20 @@ class PagedEngine:
             "queue_wait_ticks": pcts(self._h_queue_wait),
             "request_latency_ticks": pcts(self._h_req_ticks),
             "dispatch_ms": pcts(self._h_dispatch_ms),
+            # prefix-sharing cut (None without EngineConfig.prefix_cache):
+            # the tree and its hit rates, allocator sharing, COW copies,
+            # a1_sig seedings, and TTFT split hot (a hit at admission) and
+            # cold
+            "prefix": None if self.pcache is None else {
+                **self.pcache.stats(),
+                "shared_pages": self.allocator.shared_pages,
+                "cow_copies": self._c_cow.value,
+                "a1_sig_seeded": self._c_sig_seeded.value,
+                "ttft_hit_ms": pcts(self._h_ttft_hit_ms),
+                "ttft_cold_ms": pcts(self._h_ttft_cold_ms),
+                "ttft_hit_ticks": pcts(self._h_ttft_hit_ticks),
+                "ttft_cold_ticks": pcts(self._h_ttft_cold_ticks),
+            },
             "metrics": self.metrics.to_dict(),
         }
 

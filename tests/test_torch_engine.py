@@ -167,10 +167,24 @@ def test_engine_needs_a_device_here():
 @pytest.mark.parametrize("option,value", [
     ("prefix_cache", True), ("spec_tokens", 4), ("kv_dtype", "int8")])
 def test_engine_later_slice_options_raise(option, value):
+    """Of the options that raised in earlier slices only ``spec_tokens``
+    still does; ``prefix_cache`` and ``kv_dtype`` construct and serve
+    greedy requests to completion, every page back in the pool."""
     _, _, tcfg, tparams = _models()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TS.PagedEngine(tcfg, tparams, TS.EngineConfig(**{option: value}),
-                       device="cpu")
+    ecfg = TS.EngineConfig(page_size=8, num_pages=32, slots=2,
+                           prefill_chunk=8, max_seq=64, **{option: value})
+    if option == "spec_tokens":
+        with pytest.raises(NotImplementedError, match="later slice"):
+            TS.PagedEngine(tcfg, tparams, ecfg, device="cpu")
+        return
+    eng = TS.PagedEngine(tcfg, tparams, ecfg, device="cpu")
+    rng = np.random.default_rng(3)
+    out = _serve(eng, TS, [rng.integers(0, 512, 9) for _ in range(3)],
+                 [4, 5, 6])
+    assert [len(out[i][0]) for i in range(3)] == [4, 5, 6]
+    if eng.pcache is not None:
+        eng.pcache.clear()
+    assert eng.allocator.in_use == 0
 
 
 def test_engine_dual_branch_streams_match_reference_and_sequential():

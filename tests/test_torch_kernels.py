@@ -80,20 +80,31 @@ def test_dispatch_records_executed_cpu_calls():
     ops.reset_dispatch_paths()
     name = "kernel_dispatch_total.paged_packed_attention.cpu-plain"
     before = metrics.default_registry().counter(name).value
-    launches = PA.LAUNCHES_PACKED
+    launches = dict(PA.LAUNCHES)
     args = _torch(_packed_case(4, 32, 2))
     for _ in range(3):
         ops.paged_packed_attention(*args)
     assert ops.dispatch_paths() == {"paged_packed_attention": ops.PLAIN}
     assert metrics.default_registry().counter(name).value == before + 3
-    assert PA.LAUNCHES_PACKED == launches   # the plain version never counts
+    assert PA.LAUNCHES == launches          # the plain version never counts
 
 
 def test_scale_pools_raise():
-    args = _torch(_packed_case(4, 32, 2))
-    scale = torch.ones(64, 4)
-    with pytest.raises(NotImplementedError, match="quantized-KV slice"):
-        ops.paged_packed_attention(*args, k_scale=scale, v_scale=scale)
+    """Scale pools no longer raise: int8 pools with (P, page) row scales run
+    the plain scale variant on the CPU, equal to the unquantized plain
+    version on the dequantized pools, under the ``.int8`` site label."""
+    q, kp, vp, *idx = _torch(_packed_case(4, 32, 2))
+    ks = torch.rand(64, 4) / 64 + 1e-3
+    vs = torch.rand(64, 4) / 64 + 1e-3
+    k8 = (kp * 40).round().clamp(-127, 127).to(torch.int8)
+    v8 = (vp * 40).round().clamp(-127, 127).to(torch.int8)
+    ops.reset_dispatch_paths()
+    out = ops.paged_packed_attention(q, k8, v8, *idx, k_scale=ks, v_scale=vs)
+    want = PA.paged_packed_attention_plain(
+        q, k8.float() * ks[..., None, None], v8.float() * vs[..., None, None],
+        *idx)
+    assert torch.equal(out, want)
+    assert ops.dispatch_paths() == {"paged_packed_attention.int8": ops.PLAIN}
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
@@ -107,7 +118,7 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
 
 def test_build_recipe(monkeypatch):
     assert set(p.stem for p in build.CSRC.glob("*.cu")) == {
-        "paged_attention", "dual_branch"}
+        "paged_attention", "dual_branch", "page_copy"}
     cmd = build.nvcc_command("nvcc", "paged_attention",
                              build.BUILD_DIR / "x.so")
     flags = " ".join(cmd)

@@ -205,9 +205,20 @@ def test_later_slice_families_raise(arch):
 
 
 def test_quantized_cache_raises():
+    """kv_dtype="int8" no longer raises: the cache carries int8 pools and
+    (P, page) fp32 row-scale pools, stacked for the layers after block 0;
+    only a kv_dtype the reference does not know raises (its ValueError)."""
     cfg = get_config("llama3.2-3b").reduced()
-    with pytest.raises(NotImplementedError, match="quantized-KV"):
-        TM.init_paged_cache(cfg, 8, 4, 2, kv_dtype="int8", device="cpu")
+    c = TM.init_paged_cache(cfg, 8, 4, 2, kv_dtype="int8", device="cpu")
+    L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    assert c["block0"]["k"].dtype == torch.int8
+    assert c["blocks"]["v"].shape == (L - 1, 8, 4, Hkv, Dh)
+    assert c["block0"]["k_scale"].shape == (8, 4)
+    assert c["blocks"]["v_scale"].shape == (L - 1, 8, 4)
+    assert c["blocks"]["k_scale"].dtype == torch.float32
+    assert bool((c["blocks"]["k_scale"] == 1).all())
+    with pytest.raises(ValueError, match="kv_dtype must be one of"):
+        TM.init_paged_cache(cfg, 8, 4, 2, kv_dtype="int4", device="cpu")
 
 
 @pytest.mark.parametrize("connection", ["fal", "parallel", "ablation2"])

@@ -124,10 +124,19 @@ def test_dispatch_records_executed_cpu_calls(site, case):
     ("paged_decode_attention", _decode_case),
     ("paged_chunk_attention", _chunk_case)])
 def test_scale_pools_raise(site, case):
-    scale = torch.ones(64, 4)
-    with pytest.raises(NotImplementedError, match="quantized-KV slice"):
-        getattr(ops, site)(*_torch(case(4, 32, 2)), k_scale=scale,
-                           v_scale=scale)
+    """Scale pools no longer raise: fp8 pools with (P, page) row scales run
+    the plain scale variant on the CPU, equal to the unquantized plain
+    version on the dequantized pools, under the ``.fp8`` site label."""
+    q, kp, vp, *idx = _torch(case(4, 32, 2))
+    ks = torch.rand(kp.shape[:2]) + 0.5
+    vs = torch.rand(kp.shape[:2]) + 0.5
+    k8, v8 = kp.to(torch.float8_e4m3fn), vp.to(torch.float8_e4m3fn)
+    ops.reset_dispatch_paths()
+    out = getattr(ops, site)(q, k8, v8, *idx, k_scale=ks, v_scale=vs)
+    want = getattr(ops, site)(q, k8.float() * ks[..., None, None],
+                              v8.float() * vs[..., None, None], *idx)
+    assert torch.equal(out, want)
+    assert ops.dispatch_paths() == {f"{site}.fp8": ops.PLAIN, site: ops.PLAIN}
 
 
 @pytest.mark.parametrize("check,launch,case", [
