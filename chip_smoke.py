@@ -14,10 +14,14 @@ script exits non-zero:
                  main path's shapes (and small shapes), bf16 and fp32; the
                  dual-branch dispatcher's two-op route; page_copy byte for
                  byte; the int8 / fp8 scale variants of the three paged
-                 attention kernels
+                 attention kernels; flash_attention forward and backward
+                 (also against autograd through the plain forward, and
+                 bit-identical over two runs) and fused_ln_add forward and
+                 backward
   4. time        kernel, plain and bound times (median of 100 launches,
                  CUDA events, L2 flushed between launches); one COW at
-                 llama3.2-3b beside index_copy_
+                 llama3.2-3b beside index_copy_; the training kernels beside
+                 scaled_dot_product_attention and F.rms_norm + add
   5. tick        one packed tick (bf16, int8 and fp8 pages), one padded
                  C = 128 chunk tick and one dual-branch C == 1 tick of
                  llama3.2-3b at full width (2 layers, fp32) on the card
@@ -36,14 +40,22 @@ script exits non-zero:
                  prefill ticks, then 32 greedy C == 1 ticks sequentially and
                  again under the dual-branch plan from the same cache; then
                  8 ticks each way on int8 and on fp8 pages
+ 12. train tick  one train step at llama3.2-3b full width (2 layers, fp32,
+                 B=2, S=256) on the card against the CPU
+ 13. train       trainer.train at llama3.2-3b full width and depth (fal,
+                 fp32 masters, bf16 compute, remat, B=1, S=2048): one
+                 warm-up step, 5 counted steps, one profiled step
 
-Every main-path run (6, 8 and each run of 9 to 11) zeroes all launch counters
+The serving phases (5 to 11) also launch fused_ln_add: one per layer per
+tick under fal.  Every main-path run (6, 8 and each run of 9 to 11, and the
+counted steps of 13) zeroes all launch counters
 just before it and reads them just after.  The line before the last is a
 JSON object with one entry per kernel; the last line is {"ok": true,
 "device": {...}}.  Without a CUDA device, or outside a checkout, the script
 exits non-zero and prints no result.  It imports nothing of JAX and nothing
 of the JAX package ``repro``.
 """
+import itertools
 import json
 import math
 import pathlib
@@ -927,12 +939,13 @@ def tick_phase():
     padded_tick(cfg, params, "chunk tick C=128", 128,
                 ((0, 128), (128, 128), (256, 37), (300, 0), (0, 1),
                  (64, 128), (200, 90), (500, 128)), 40, False,
-                {"paged_chunk_attention": cuda})
+                {"paged_chunk_attention": cuda, "fused_ln_add": cuda})
     counts = padded_tick(
         cfg, params, "dual-branch decode tick C=1", 1,
         ((0, 1), (15, 1), (16, 1), (300, 1), (511, 1), (100, 0), (200, 1),
          (63, 1)), 64, True,
-        {"paged_decode_attention": cuda, "dual_branch_decode": cuda})
+        {"paged_decode_attention": cuda, "dual_branch_decode": cuda,
+         "fused_ln_add": cuda})
     require(counts["fused_dual_branch_decode"] == 1
             and counts["paged_decode_attention"] == 1,
             f"dual tick did not run block 0 on the decode kernel and block "
@@ -1040,7 +1053,7 @@ def packed_tick(cfg, params, kv=""):
           f"|diff| {ds:.3e}; tol {tol:g} (TICK_TOLS){codes}; card path "
           f"{paths_gpu}", flush=True)
     site = "paged_packed_attention" + (f".{kv}" if kv else "")
-    if paths_gpu != {site: ops.CUDA}:
+    if paths_gpu != {site: ops.CUDA, "fused_ln_add": ops.CUDA}:
         raise AssertionError(f"card tick did not run the kernel: {paths_gpu}")
     if not (dh <= tol and ds <= tol):
         raise AssertionError("card tick disagrees with the CPU plain path")
@@ -1116,11 +1129,16 @@ def engine_phase():
         raise AssertionError("not every request finished with 64 tokens")
     if bool(torch.stack(nan_seen).any()):
         raise AssertionError("NaN logits")
-    if launches != st["ticks"] * cfg.n_layers \
+    # fal: one fused_ln_add per layer per tick (block 0's ln2(x) + ln_a(a),
+    # each later block's ln2(x) + a1_sig)
+    ln_adds = counts["fused_ln_add"]
+    print(f"  fused_ln_add launches {ln_adds} (ticks x layers)", flush=True)
+    if launches != st["ticks"] * cfg.n_layers or ln_adds != launches \
             or st["packed_calls"] != st["ticks"] or sum(counts.values()) \
-            != launches:
+            != launches + ln_adds:
         raise AssertionError(f"kernel launches != ticks x layers: {counts}")
-    if paths != {"paged_packed_attention": ops.CUDA}:
+    if paths != {"paged_packed_attention": ops.CUDA,
+                 "fused_ln_add": ops.CUDA}:
         raise AssertionError(f"engine did not run the kernel only: {paths}")
     bf16_page = cfg.n_layers * 2 * PAGE * HKV * D * 2
     print(f"  page_bytes {st['pages']['page_bytes']} (28 layers x K and V x "
@@ -1223,9 +1241,11 @@ def dual_engine_phase(cfg, params, ecfg, prompts, streams):
     require(got == streams, "dual engine streams differ from the non-dual "
             "engine's")
     require(counts["paged_packed_attention"] == ticks * cfg.n_layers
-            and sum(counts.values()) == ticks * cfg.n_layers,
+            and counts["fused_ln_add"] == ticks * cfg.n_layers
+            and sum(counts.values()) == 2 * ticks * cfg.n_layers,
             f"dual engine launches != ticks x layers: {counts}")
-    require(paths == {"paged_packed_attention": ops.CUDA},
+    require(paths == {"paged_packed_attention": ops.CUDA,
+                      "fused_ln_add": ops.CUDA},
             f"dual engine did not run the kernel only: {paths}")
 
 
@@ -1344,12 +1364,15 @@ def prefix_engine_phase(cfg, params, ecfg, kv=""):
             r.truncated or len(r.generated) != w["max_new"]
             for r, w in zip((done[w["rid"]] for w in work), work)),
             f"{name} run: not every request finished")
-        want_paths = {"paged_packed_attention" + sfx: ops.CUDA}
+        want_paths = {"paged_packed_attention" + sfx: ops.CUDA,
+                      "fused_ln_add": ops.CUDA}
         if on:
             want_paths["copy_pages"] = ops.CUDA
         require(paths == want_paths, f"{name} run took {paths}")
-        require(counts["paged_packed_attention" + sfx] == st["ticks"] * L,
-                f"{name} run: packed launches {counts} != ticks x layers")
+        require(counts["paged_packed_attention" + sfx] == st["ticks"] * L
+                and counts["fused_ln_add"] == st["ticks"] * L,
+                f"{name} run: packed or LN-add launches {counts} != ticks x "
+                f"layers")
         out[name] = dict(done=done, firsts=firsts, counts=counts, st=st,
                          wall=wall, leaves=sum(len(engine.cache[p])
                                                for p in ("block0",
@@ -1437,9 +1460,11 @@ def quantized_engine_phase(cfg, params, ecfg, prompts, streams, kv):
         counts, paths = ops.launch_counts(), ops.dispatch_paths()
         ticks = engine.stats()["ticks"]
         got = {r.rid: list(map(int, r.generated)) for r in engine.finished}
-        require(paths == {site: ops.CUDA}, f"{kv} engine took {paths}")
+        require(paths == {site: ops.CUDA, "fused_ln_add": ops.CUDA},
+                f"{kv} engine took {paths}")
         require(counts[site] == ticks * L
-                and sum(counts.values()) == ticks * L,
+                and counts["fused_ln_add"] == ticks * L
+                and sum(counts.values()) == 2 * ticks * L,
                 f"{kv} engine launches {counts} != {ticks} x {L}")
         runs.append((got, counts[site], ticks, wall))
     page_bytes = engine.stats()["pages"]["page_bytes"]
@@ -1558,13 +1583,17 @@ def padded_generation_phase(params, kv="", n_new=32,
         require(set(pre_paths.values()) == {ops.CUDA},
                 f"prefill took a non-kernel path: {pre_paths}")
         require(pre_counts == {**{k: 0 for k in pre_counts},
-                               "paged_chunk_attention" + sfx: n_pre * L},
+                               "paged_chunk_attention" + sfx: n_pre * L,
+                               "fused_ln_add": n_pre * L},
                 f"prefill launches {pre_counts} != {n_pre} x {L} chunk")
         print(f"  prompts {lens.tolist()}; prefill {n_pre} chunk ticks in "
               f"{pre_s:.2f} s; launches {pre_counts}")
-        want = {"sequential": {"paged_decode_attention" + sfx: n_new * L},
+        # fal: one fused_ln_add per layer per tick, sequential or dual
+        want = {"sequential": {"paged_decode_attention" + sfx: n_new * L,
+                               "fused_ln_add": n_new * L},
                 "dual": {"paged_decode_attention": n_new,
-                         "fused_dual_branch_decode": n_new * (L - 1)}}
+                         "fused_dual_branch_decode": n_new * (L - 1),
+                         "fused_ln_add": n_new * L}}
         if kv:
             want["dual"] = want["sequential"]
         copies = [{k: (v.clone() if torch.is_tensor(v) else
@@ -1611,6 +1640,393 @@ def padded_generation_phase(params, kv="", n_new=32,
                               dual_counts["fused_dual_branch_decode"]})}
 
 
+# --------------------------------------------------------------------------- #
+# training: flash_attention and fused_ln_add, forward and backward
+# --------------------------------------------------------------------------- #
+#: (label, B, S, H, Hkv, D, causal): the training shape of llama3.2-3b and
+#: small odd shapes (S not a multiple of the 64-row tiles, G = 1, 2, 4)
+FLASH_SHAPES = (("train", 1, 2048, H, HKV, D, True),
+                ("odd", 2, 77, 4, 2, 32, True),
+                ("odd", 3, 130, 4, 1, 64, True),
+                ("odd", 1, 200, 8, 8, 128, True),
+                ("odd", 2, 91, 4, 2, 64, False))
+#: kernel vs plain: fp32 sums in another order; bf16: one rounding of the
+#: output (|o| < 4: 2^-7 x 4 = 0.03) and of each gradient
+FLASH_TOLS = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+#: kernel vs autograd through the plain forward, relative to the largest
+#: gradient: fp32 sums in another order; in bf16 the plain forward rounds
+#: p to bf16 before P.V and its autograd rounds each product, the kernel
+#: keeps fp32 to the end
+GRAD_TOLS = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+#: (kind, rows, d): the training shapes (llama3.2-3b rmsnorm, gpt2 layernorm)
+#: and an odd row width (scalar loads)
+LN_SHAPES = (("rmsnorm", 2048, 3072), ("layernorm", 2048, 768),
+             ("rmsnorm", 37, 200), ("layernorm", 5, 1001))
+
+
+def flash_inputs(dtype, B, S, h, hkv, d, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (randn(g, dtype, B, S, h, d), randn(g, dtype, B, S, hkv, d),
+            randn(g, dtype, B, S, hkv, d), randn(g, dtype, B, S, h, d))
+
+
+def rel_err(out, ref):
+    return max_err(out, ref) / max(ref.float().abs().max().item(), 1e-30)
+
+
+def flash_kernel_phase():
+    """flash_attention forward (O and lse) and backward against the plain
+    versions on the same inputs; the backward also against autograd
+    through the plain forward, and twice for bit-identical results."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.attention import blockwise_attention
+    phase("kernel: flash_attention forward and backward vs plain")
+    errs = {"flash_attention": 0.0, "flash_attention.bwd": 0.0}
+    for (label, B, S, h, hkv, d, causal), dtype in itertools.product(
+            FLASH_SHAPES, (torch.float32, torch.bfloat16)):
+        q, k, v, do = flash_inputs(dtype, B, S, h, hkv, d, seed=S + d)
+        tol = FLASH_TOLS[dtype]
+        o, lse = FA.flash_attention_fwd_cuda(q, k, v, causal=causal)
+        r_o, r_lse = FA.flash_attention_plain(q, k, v, causal=causal)
+        e_o, e_l = max_err(o, r_o), max_err(lse, r_lse)
+        grads = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                            causal=causal)
+        again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                            causal=causal)
+        same = all(torch.equal(a, b) for a, b in zip(grads, again))
+        plain = FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                             causal=causal)
+        e_g = max(rel_err(a, b) for a, b in zip(grads, plain))
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        blockwise_attention(*leaves, causal=causal).backward(do)
+        e_a = max(rel_err(a, b.grad) for a, b in zip(grads, leaves))
+        torch.cuda.synchronize()
+        name = f"{label} B={B} S={S} H={h} Hkv={hkv} D={d} " \
+               f"{'causal' if causal else 'full'} {str(dtype)[6:]}"
+        print(f"  {name}: o {e_o:.3e}, lse {e_l:.3e} (tol {tol:g}); grads "
+              f"vs plain {e_g:.3e} (relative, tol {tol:g}), vs autograd "
+              f"{e_a:.3e} (relative, tol {GRAD_TOLS[dtype]:g}); two "
+              f"backward runs bit-identical {same}", flush=True)
+        require(e_o <= tol and e_l <= tol, f"{name}: forward disagrees")
+        require(e_g <= tol, f"{name}: backward disagrees with its plain "
+                f"version")
+        require(e_a <= GRAD_TOLS[dtype], f"{name}: backward disagrees with "
+                f"autograd through the plain forward")
+        require(same, f"{name}: backward is not deterministic")
+        if label == "train" and dtype == torch.bfloat16:
+            errs = {"flash_attention": e_o, "flash_attention.bwd": e_g}
+    return errs
+
+
+def ln_inputs(dtype, kind, rows, d, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, a1, dy = (randn(g, dtype, rows, d) for _ in range(3))
+    scale = 1 + randn(g, torch.float32, d, std=0.1)
+    bias = randn(g, torch.float32, d, std=0.1) if kind == "layernorm" \
+        else None
+    return x, a1, scale, bias, dy
+
+
+def ln_kernel_phase():
+    """fused_ln_add forward and backward against the plain version (and
+    autograd through it) on the same inputs; the backward twice."""
+    from repro_torch.kernels import fused_ln_add as LN
+    phase("kernel: fused_ln_add forward and backward vs plain")
+    errs = {}
+    for (kind, rows, d), dtype in itertools.product(
+            LN_SHAPES, (torch.float32, torch.bfloat16)):
+        x, a1, scale, bias, dy = ln_inputs(dtype, kind, rows, d, seed=d)
+        y, mean, rstd = LN.fused_ln_add_fwd_cuda(x, a1, scale, bias,
+                                                 kind=kind)
+
+        def leaves():
+            return [None if t is None else
+                    t.detach().clone().requires_grad_(True)
+                    for t in (x, a1, scale, bias)]
+        px, pa, ps, pb = leaves()
+        ref = LN.ln_add_plain(px, pa, ps, pb, kind=kind)
+        ref.backward(dy)
+        kx, ka, ks, kb = leaves()
+        LN.FusedLnAdd.apply(kx, ka, ks, kb, kind, 1e-6).backward(dy)
+        pairs = [(kx, px), (ks, ps)] + ([(kb, pb)] if bias is not None
+                                        else [])
+        again = LN.fused_ln_add_bwd_cuda(dy, x, scale, mean, rstd, kind=kind)
+        same = torch.equal(again[0], kx.grad) and torch.equal(again[1],
+                                                              ks.grad)
+        torch.cuda.synchronize()
+        # fp32: one rounding apart; bf16: the kernel and the plain version
+        # both round LN(x) + a1n once, from fp32 values a few fp32 ulps
+        # apart: at most one bf16 ulp
+        tol_y = 1e-5 if dtype == torch.float32 else bf16_ulp(ref)
+        e_y = max_err(y, ref)
+        e_g = max(rel_err(k.grad, p.grad) for k, p in pairs)
+        e_a = max_err(ka.grad, dy)
+        tol_g = 1e-5 if dtype == torch.float32 else 2e-2
+        name = f"{kind} ({rows}, {d}) {str(dtype)[6:]}"
+        print(f"  {name}: y {e_y:.3e} (tol {tol_y:.3g}); dx, dscale"
+              f"{', dbias' if bias is not None else ''} vs autograd through "
+              f"the plain version {e_g:.3e} (relative, tol {tol_g:g}); "
+              f"d(a1n) == dy {e_a == 0}; two backward runs bit-identical "
+              f"{same}", flush=True)
+        require(e_y <= tol_y, f"{name}: forward disagrees")
+        require(e_g <= tol_g, f"{name}: backward disagrees")
+        require(e_a == 0 and same, f"{name}: d(a1n) or determinism")
+        if (kind, rows, d) == ("rmsnorm", 2048, 3072) \
+                and dtype == torch.bfloat16:
+            errs = {"fused_ln_add": e_y, "fused_ln_add.bwd": e_g}
+    return errs
+
+
+def _flash_bound_ms(B, S, h, hkv, d, elt, bw, factor=1.0, n_io=4):
+    """Least time of a causal attention pass: flops 4 * D per visible
+    (query, key) pair per head (S (S + 1) / 2 pairs), times ``factor``
+    (the backward: 2.5), at 989 TFLOP/s; bytes: ``n_io`` (B, S, H, D)
+    tensors of q's size (K and V count at Hkv / H of it) read or written
+    once, plus the fp32 row statistics."""
+    flops = 4 * d * h * B * S * (S + 1) / 2 * factor
+    nbytes = n_io * B * S * h * d * elt + 2 * B * h * S * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / bw
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def train_time_phase(bw):
+    """Kernel, plain, bound and library times of the four training kernels
+    at the training shapes of llama3.2-3b (bf16; B=1, S=2048)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_ln_add as LN
+    phase("kernel time: flash_attention and fused_ln_add, fwd and bwd")
+    rows = {}
+    _, B, S, h, hkv, d, _ = FLASH_SHAPES[0]
+    q, k, v, do = flash_inputs(torch.bfloat16, B, S, h, hkv, d, seed=1)
+    o, lse = FA.flash_attention_fwd_cuda(q, k, v)
+    shape = f"B={B} S={S} H={h} Hkv={hkv} D={d} causal bf16"
+    fwd_ms = _median_ms(lambda: FA.flash_attention_fwd_cuda(q, k, v), n=30)
+    bwd_ms = _median_ms(lambda: FA.flash_attention_bwd_cuda(
+        q, k, v, o, lse, do), n=30)
+    fwd_plain = _median_ms(lambda: FA.flash_attention_plain(q, k, v), n=10)
+    bwd_plain = _median_ms(lambda: FA.flash_attention_bwd_plain(
+        q, k, v, o, lse, do), n=10)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    lib_fwd = _median_ms(sdpa, n=30)
+    out = sdpa()
+    dot = do.transpose(1, 2)
+    lib_bwd = _median_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), n=30)
+    lib_both = _median_ms(lambda: torch.autograd.grad(
+        sdpa(), (qt, kt, vt), dot), n=30)
+    elt = q.element_size()
+    b_fwd = _flash_bound_ms(B, S, h, hkv, d, elt, bw,
+                            n_io=2 + 2 * hkv / h)
+    b_bwd = _flash_bound_ms(B, S, h, hkv, d, elt, bw, factor=2.5,
+                            n_io=4 + 4 * hkv / h)
+    rows["flash_attention"] = dict(ms=fwd_ms, plain_ms=fwd_plain,
+                                   bound_ms=b_fwd[0], bound_by=b_fwd[1],
+                                   library_ms=lib_fwd, shape=shape)
+    rows["flash_attention.bwd"] = dict(
+        ms=bwd_ms, plain_ms=bwd_plain, bound_ms=b_bwd[0],
+        bound_by=b_bwd[1], library_ms=lib_bwd, library_fwd_bwd_ms=lib_both,
+        shape=shape + "; bound at 2.5x the forward's flops")
+    print(f"  flash_attention {shape}: kernel_ms {fwd_ms:.4f} plain_ms "
+          f"{fwd_plain:.4f} bound_ms {b_fwd[0]:.4f} ({b_fwd[1]}) "
+          f"library_ms {lib_fwd:.4f} (scaled_dot_product_attention, "
+          f"enable_gqa)")
+    print(f"  flash_attention.bwd: kernel_ms {bwd_ms:.4f} plain_ms "
+          f"{bwd_plain:.4f} bound_ms {b_bwd[0]:.4f} ({b_bwd[1]}) "
+          f"library_ms {lib_bwd:.4f} (SDPA's backward alone; forward + "
+          f"backward {lib_both:.4f})", flush=True)
+    del qt, kt, vt, out
+    for kind, n, dm in LN_SHAPES[:2]:
+        x, a1, scale, bias, dy = ln_inputs(torch.bfloat16, kind, n, dm, 2)
+        y, mean, rstd = LN.fused_ln_add_fwd_cuda(x, a1, scale, bias,
+                                                 kind=kind)
+        f_ms = _median_ms(lambda: LN.fused_ln_add_fwd_cuda(
+            x, a1, scale, bias, kind=kind))
+        b_ms = _median_ms(lambda: LN.fused_ln_add_bwd_cuda(
+            dy, x, scale, mean, rstd, kind=kind))
+        f_plain = _median_ms(lambda: LN.ln_add_plain(x, a1, scale, bias,
+                                                     kind=kind))
+        xr = x.detach().requires_grad_(True)
+        sr = scale.detach().requires_grad_(True)
+        ref = LN.ln_add_plain(xr, a1, sr, bias, kind=kind)
+        b_plain = _median_ms(lambda: torch.autograd.grad(
+            ref, (xr, sr), dy, retain_graph=True))
+        w = scale.to(x.dtype)
+        if kind == "rmsnorm":
+            unfused = _median_ms(lambda: F.rms_norm(x, (dm,), w, 1e-6) + a1)
+        else:
+            bb = bias.to(x.dtype)
+            unfused = _median_ms(lambda: F.layer_norm(x, (dm,), w, bb, 1e-6)
+                                 + a1)
+        # bytes: x and a1n (dy and x) read, y (dx) written, the (rows,)
+        # fp32 statistics, and the (d,) fp32 scale (bias) and gradients
+        elt, ln = x.element_size(), int(kind == "layernorm")
+        fb = (3 * n * dm * elt + (1 + ln) * dm * 4 + 8 * n) / bw * 1e3
+        bb_ = (3 * n * dm * elt + (2 + ln) * dm * 4 + 8 * n) / bw * 1e3
+        shape = f"({n}, {dm}) {kind} bf16"
+        print(f"  fused_ln_add {shape}: kernel_ms {f_ms:.4f} plain_ms "
+              f"{f_plain:.4f} bound_ms {fb:.4f} (bytes) library_ms none "
+              f"(no single call); unfused_ms {unfused:.4f} "
+              f"(F.{'rms_norm' if kind == 'rmsnorm' else 'layer_norm'} + "
+              f"add)")
+        print(f"  fused_ln_add.bwd {shape}: kernel_ms {b_ms:.4f} plain_ms "
+              f"{b_plain:.4f} (autograd through the plain version) "
+              f"bound_ms {bb_:.4f} (bytes)", flush=True)
+        if kind == "rmsnorm":
+            rows["fused_ln_add"] = dict(ms=f_ms, plain_ms=f_plain,
+                                        bound_ms=fb, bound_by="bytes",
+                                        library_ms=None, unfused_ms=unfused,
+                                        shape=shape)
+            rows["fused_ln_add.bwd"] = dict(ms=b_ms, plain_ms=b_plain,
+                                            bound_ms=bb_, bound_by="bytes",
+                                            library_ms=None, shape=shape)
+    return rows
+
+
+def train_tick_phase():
+    """One train step at llama3.2-3b full width (2 layers, fp32, B=2,
+    S=256, fal, remat) on the card (kernels) against the CPU (plain
+    versions) from the same weights and batch."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    phase("one train step at full width, 2 layers, fp32: card vs CPU")
+    cfg = get_config("llama3.2-3b").replace(n_layers=2, dtype="float32")
+    ocfg = adamw.AdamWConfig(lr=3e-4)
+    cpu = tstep.init_state(0, cfg, ocfg, device="cpu")
+    gpu = tstep.init_state(0, cfg, ocfg, params=adamw.map_tree(
+        lambda t: t.detach().to("cuda"), cpu["params"]))
+    before = dict(adamw.named_leaves(adamw.map_tree(
+        lambda t: t.detach().clone(), cpu["params"])))
+    g = torch.Generator().manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 256), generator=g,
+                                     dtype=torch.int32)}
+    step = tstep.make_train_step(cfg, ocfg)
+    ops.reset_dispatch_paths()
+    ops.reset_launches()
+    _, m_gpu = step(gpu, {"tokens": batch["tokens"].cuda()})
+    torch.cuda.synchronize()
+    paths, counts = ops.dispatch_paths(), ops.launch_counts()
+    _, m_cpu = step(cpu, batch)
+    d_loss = abs(float(m_gpu["loss"]) - float(m_cpu["loss"]))
+    d_norm = abs(float(m_gpu["grad_norm"]) - float(m_cpu["grad_norm"])) \
+        / float(m_cpu["grad_norm"])
+    after = dict(adamw.named_leaves(cpu["params"]))
+    worst, n_far, n_all = 0.0, 0, 0
+    for path, t in adamw.named_leaves(gpu["params"]):
+        diff = (t.detach().cpu() - after[path].detach()).abs()
+        worst = max(worst, diff.max().item())
+        n_far += int((diff > 1e-6).sum())
+        n_all += diff.numel()
+    moved = max((after[p].detach() - t).abs().max().item()
+                for p, t in before.items())
+    lr = 3e-4
+    print(f"  loss card {float(m_gpu['loss']):.6f} CPU "
+          f"{float(m_cpu['loss']):.6f} (|diff| {d_loss:.3e}, tol 1e-4); "
+          f"grad_norm relative diff {d_norm:.3e} (tol 1e-4); post-step "
+          f"params max |diff| {worst:.3e} (tol 2 lr = {2 * lr:g}: a first "
+          f"AdamW step moves a weight by about lr times the sign of its "
+          f"gradient), {n_far} of {n_all} weights differ by more than "
+          f"1e-6 (tol 0.1%); largest step on the CPU {moved:.3e}; card "
+          f"paths {paths}; launches {counts}", flush=True)
+    require(paths == {"flash_attention": ops.CUDA,
+                      "fused_ln_add": ops.CUDA},
+            f"card train step paths {paths}")
+    require(d_loss <= 1e-4 and d_norm <= 1e-4, "card train step loss or "
+            "grad norm disagrees with the CPU")
+    require(worst <= 2 * lr and n_far <= 1e-3 * n_all,
+            "card post-step params disagree with the CPU")
+    L = cfg.n_layers
+    want = {"flash_attention": 2 * L, "flash_attention.bwd": L,
+            "fused_ln_add": 2 * L, "fused_ln_add.bwd": L}
+    require(all(counts[k] == n for k, n in want.items()),
+            f"train step launches {counts} != {want} (remat: 2 x layers "
+            f"forward, layers backward)")
+
+
+def train_phase():
+    """``trainer.train`` at llama3.2-3b full width and depth: fal, fp32
+    masters, bf16 compute, remat, B=1, S=2048, one warm-up step and 5
+    counted steps; then one more step under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    from repro_torch.train import trainer
+    cfg = get_config("llama3.2-3b")
+    steps, B, S = 6, 1, 2048
+    phase(f"train: llama3.2-3b, {cfg.n_layers} layers, {cfg.connection}, "
+          f"fp32 masters, {cfg.dtype} compute, remat {cfg.remat}, B={B}, "
+          f"S={S}, {steps - 1} steps after 1 warm-up")
+    marks = []
+
+    def mark(i, state, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if i == 0:                       # the warm-up step is not counted
+            ops.reset_launches()
+            ops.reset_dispatch_paths()
+            torch.cuda.reset_peak_memory_stats()
+
+    state, hist = trainer.train(cfg, steps=steps, batch=B, seq_len=S,
+                                log_every=1, device="cuda", callbacks=[mark])
+    counts, paths = ops.launch_counts(), ops.dispatch_paths()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    ms = statistics.median(step_ms)
+    print(f"  losses {['%.4f' % x for x in losses]}; step ms "
+          f"{['%.1f' % x for x in step_ms]} (median {ms:.1f}); "
+          f"{B * S / ms * 1e3:.1f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated)")
+    n, L = steps - 1, cfg.n_layers
+    # remat: block 0 and each later block run their forward twice (the
+    # forward, then the recompute in the backward), the backward once
+    want = {"flash_attention": n * L * 2, "flash_attention.bwd": n * L,
+            "fused_ln_add": n * L * 2, "fused_ln_add.bwd": n * L}
+    print(f"  launches {dict((k, counts[k]) for k in want)} (expected "
+          f"steps x layers x remat factor 2 forward, steps x layers "
+          f"backward: {want}); paths {paths}", flush=True)
+    require(all(math.isfinite(x) for x in losses), "non-finite loss")
+    require(all(counts[k] == v for k, v in want.items()),
+            "train launches != their products")
+    require(paths == {"flash_attention": ops.CUDA, "fused_ln_add": ops.CUDA},
+            f"train paths {paths}")
+    ocfg = adamw.AdamWConfig(lr=3e-4)
+    step = tstep.make_train_step(cfg, ocfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), device="cuda")}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(r[1] for r in rows)
+    if device_ms == 0.0:
+        print("  device time: not measured (the profiler saw no CUDA "
+              "kernels)")
+    else:
+        print(f"  profiled step: wall {wall:.1f} ms, device kernel time "
+              f"{device_ms:.1f} ms, busy share {device_ms / wall:.3f} "
+              f"(of the profiled wall)")
+        for key, kms, c in sorted(rows, key=lambda r: -r[1])[:10]:
+            print(f"    {kms:9.2f} ms {c:6d} calls  {key[:90]}")
+    sys.stdout.flush()
+    return {k: counts[k] for k in want}, dict(step_ms=ms, peak=peak)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1628,7 +2044,8 @@ def main():
             **padded_kernel_phase(),
             "fused_dual_branch_decode": fused_kernel_phase(),
             "page_copy": page_copy_phase(),
-            **scale_kernel_phase()}
+            **scale_kernel_phase(),
+            **flash_kernel_phase(), **ln_kernel_phase()}
     times = time_phase(bw)
     main_shape = "mixed tick (256 prefill + 7 decode near 1024 + 9 pad)"
     copy_times = page_copy_time_phase(bw)
@@ -1636,6 +2053,7 @@ def main():
         times[main_shape],
         shape=main_shape + ", bf16, H=24 Hkv=8 D=128 page=16"),
         **padded_time_phase(bw), **scale_time_phase(bw),
+        **train_time_phase(bw),
         "page_copy": dict(
             copy_times["bf16, 1 page x 28 layers, 4 pool leaves"],
             shape="one COW at llama3.2-3b: 1 page x 28 layers, 4 bf16 pool "
@@ -1655,6 +2073,11 @@ def main():
     for kv in KV_NARROW:
         launches.update(padded_generation_phase(
             params, kv, n_new=8, order=("sequential", "dual")))
+    del params
+    torch.cuda.empty_cache()
+    train_tick_phase()
+    train_launches, train = train_phase()
+    launches.update(train_launches)
     src = "src/repro_torch/kernels/csrc/"
     pa = "src/repro/kernels/paged_attention.py"
     where = {
@@ -1664,7 +2087,14 @@ def main():
         "fused_dual_branch_decode": ("dual_branch.cu",
                                      "src/repro/kernels/dual_branch.py:122"),
         "page_copy": ("page_copy.cu", f"{pa}:420"),
+        "flash_attention": ("flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:76"),
+        "fused_ln_add": ("fused_ln_add.cu",
+                         "src/repro/kernels/fused_ln_add.py:37"),
     }
+    for kname in ("flash_attention", "fused_ln_add"):
+        # the backward kernels replace XLA's autodiff of the same TPU kernel
+        where[f"{kname}.bwd"] = where[kname]
     for kv in KV_NARROW:
         for kname in ("paged_packed_attention", "paged_decode_attention",
                       "paged_chunk_attention"):
@@ -1680,13 +2110,14 @@ def main():
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],
                  "library_ms": row.get("library_ms")}
-        for extra in ("unfused_ms", "wrapper_ms"):
+        for extra in ("unfused_ms", "wrapper_ms", "library_fwd_bwd_ms"):
             if extra in row:
                 entry[extra] = row[extra]
         entry["shape"] = row["shape"]
         kernels.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s; engine "
-          f"{eng['tok_s']:.1f} tok/s over {eng['ticks']} ticks; card {smi}")
+          f"{eng['tok_s']:.1f} tok/s over {eng['ticks']} ticks; train "
+          f"{train['step_ms']:.1f} ms/step; card {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

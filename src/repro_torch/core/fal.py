@@ -11,9 +11,19 @@ of ``mlp_input``:
   falplus   : ln2(x + a) + ln_fal_i(a1)       -- eq (7)
   ablation1 : ln2(x) + ln_fal_i(a)            -- Apdx D.1
   ablation2 : block0 preln, later blocks MLP(ln2(x))  -- Apdx D.1
+
+Every ``norm(u) + v`` sum goes through ``kernels.ops.fused_ln_add`` (the
+fused LN-add kernel on the card, ``ref.ln_add_ref``'s plain version on the
+CPU): fal's ``ln2(x) + a1_sig`` in every block, falplus's
+``ln_fal(a1) + ln2(x + a)``, ablation1's ``ln2(x) + ln_fal(a)`` and block
+1's ``ln2(x) + ln_a(a)`` under fal.  In fp32 that is the reference's bits;
+in bf16 the sum is rounded once where the reference rounds twice, at most
+one bf16 ulp of the larger of |LN(u)| and the sum apart
+(``kernels/fused_ln_add.py``).
 """
 from __future__ import annotations
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 _NEEDS_LOCAL_ATTN = {"preln": True, "parallel": False, "fal": False,
@@ -23,6 +33,9 @@ _NEEDS_LOCAL_ATTN = {"preln": True, "parallel": False, "fal": False,
 NEEDS_LN_FAL = {"falplus", "ablation1"}
 #: modes that consume the first block's attention output
 USES_FIRST_ATTENTION = {"fal", "falplus"}
+#: modes whose MLP input runs ``ops.fused_ln_add``: every block under fal
+#: and ablation1, every block but block 0 under falplus
+FUSED_LN_ADD_MODES = ("fal", "falplus", "ablation1")
 #: modes whose steady-state MLP input is independent of the block's own
 #: attention output (the decode-time MHA||MLP dual-branch property)
 DUAL_BRANCH_MODES = tuple(m for m, dep in _NEEDS_LOCAL_ATTN.items()
@@ -52,6 +65,11 @@ def first_attention_signal(cfg, block0_params, a1_raw):
     return None
 
 
+def _ln_add(p, u, v, kind):
+    """``norm_apply(p, u, kind) + v`` in one fused pass."""
+    return ops.fused_ln_add(u, v, p["scale"], p.get("bias"), kind=kind)
+
+
 def mlp_input(cfg, p, x, a, a1_sig, norm_kind=None):
     """The MLP input of one block for ``cfg.connection``.  x: the block
     input; a: this block's MHA output; a1_sig: ``first_attention_signal``
@@ -63,13 +81,12 @@ def mlp_input(cfg, p, x, a, a1_sig, norm_kind=None):
     if mode == "parallel" or mode == "ablation2":
         return L.norm_apply(p["ln2"], x, nk)
     if mode == "fal":
-        return L.norm_apply(p["ln2"], x, nk) + a1_sig.to(x.dtype)
+        return _ln_add(p["ln2"], x, a1_sig.to(x.dtype), nk)
     if mode == "falplus":
-        return (L.norm_apply(p["ln2"], x + a, nk)
-                + L.norm_apply(p["ln_fal"], a1_sig, nk).to(x.dtype))
+        return _ln_add(p["ln_fal"], a1_sig.to(x.dtype),
+                       L.norm_apply(p["ln2"], x + a, nk), nk)
     if mode == "ablation1":
-        return (L.norm_apply(p["ln2"], x, nk)
-                + L.norm_apply(p["ln_fal"], a, nk))
+        return _ln_add(p["ln2"], x, L.norm_apply(p["ln_fal"], a, nk), nk)
     raise ValueError(mode)
 
 
@@ -80,7 +97,7 @@ def block0_mlp_input(cfg, p, x, a, norm_kind=None):
     nk = norm_kind or cfg.norm
     mode = cfg.connection
     if mode == "fal":
-        return L.norm_apply(p["ln2"], x, nk) + L.norm_apply(p["ln_a"], a, nk)
+        return _ln_add(p["ln2"], x, L.norm_apply(p["ln_a"], a, nk), nk)
     if mode == "ablation2":
         return L.norm_apply(p["ln2"], x + a, nk)
     if mode == "falplus":

@@ -1,10 +1,12 @@
 """Carry the JAX package's parameters across to the port.
 
-``params_from_numpy(tree, cfg, device=None)`` takes the reference's parameter
-tree with every leaf converted to a numpy array (``jax.tree.map(np.asarray,
-params)``) and returns the port's tree: the stacked ``blocks_dense`` leaves
-(leading layer axis) become a list of per-layer dicts under ``"blocks"``,
-matmul weights and embeddings are cast to ``cfg.dtype`` and norm scales and
+``params_from_numpy(tree, cfg, device=None, dtype=None)`` takes the
+reference's parameter tree with every leaf converted to a numpy array
+(``jax.tree.map(np.asarray, params)``) and returns the port's tree: the
+stacked ``blocks_dense`` leaves (leading layer axis) become a list of
+per-layer dicts under ``"blocks"``, matmul weights and embeddings are cast to
+``dtype`` (None: ``cfg.dtype``, the serving storage; training passes
+``cfg.param_dtype`` to keep the reference's fp32 masters) and norm scales and
 biases stay fp32.  bfloat16 leaves come through fp32, because
 ``torch.from_numpy`` does not take ml_dtypes' bfloat16.  Like every entry
 point of the port, ``device=None`` means the card (``cuda``, which must
@@ -48,15 +50,16 @@ def _unstack(tree, i):
     return np.asarray(tree)[i]
 
 
-def params_from_numpy(tree, cfg, device=None):
+def params_from_numpy(tree, cfg, device=None, dtype=None):
     """The reference's dense-decoder params (numpy leaves) -> the port's,
-    on ``device`` (None: the card, via ``models.model.resolve_device``)."""
+    on ``device`` (None: the card, via ``models.model.resolve_device``),
+    matmul weights and embeddings in ``dtype`` (None: ``cfg.dtype``)."""
     from repro_torch.models.model import resolve_device
     if "blocks_moe" in tree:
         raise NotImplementedError(
             "MoE parameters come with the family-breadth slice of the "
             "PyTorch port")
-    dtype = getattr(torch, cfg.dtype)
+    dtype = getattr(torch, dtype or cfg.dtype)
     device = resolve_device(device)
     out = {k: _convert(v, dtype, device) for k, v in tree.items()
            if k != "blocks_dense"}

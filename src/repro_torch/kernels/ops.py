@@ -13,6 +13,8 @@ A paged call with scale pools records its site as ``<site>.int8`` /
 from __future__ import annotations
 
 from repro_torch.kernels import dual_branch as _db
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import fused_ln_add as _ln
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.models import layers as _layers
 from repro_torch.obs import metrics as _metrics
@@ -46,14 +48,45 @@ def reset_dispatch_paths():
 def launch_counts() -> dict:
     """{kernel: launches since the last ``reset_launches()``} for every
     hand-written kernel of the port, each scale variant under its own
-    ``<kernel>.int8`` / ``<kernel>.fp8`` label."""
-    return {**_pa.LAUNCHES, "fused_dual_branch_decode": _db.LAUNCHES_FUSED}
+    ``<kernel>.int8`` / ``<kernel>.fp8`` label, and the training kernels'
+    backwards under ``<kernel>.bwd``."""
+    return {**_pa.LAUNCHES, "fused_dual_branch_decode": _db.LAUNCHES_FUSED,
+            **_fa.LAUNCHES, **_ln.LAUNCHES}
 
 
 def reset_launches():
     """Set every kernel's launch counter to 0."""
     _pa.reset_launches()
     _db.reset_launches()
+    _fa.reset_launches()
+    _ln.reset_launches()
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=None,
+                    q_offset=0, block_q=512):
+    """Differentiable causal GQA attention for the full-sequence phases: q
+    (B, Sq, H, D), k and v (B, Sk, Hkv, D) -> (B, Sq, H, D); causal at the
+    start (key j visible to query row i when j <= q_offset + i).  CUDA
+    tensors run the forward and backward kernels; CPU tensors the plain
+    versions (``attention.blockwise_attention`` and its backward formulas).
+    Neither takes a sliding window or a logit softcap: a call with either
+    raises (``models.model.check_supported`` refuses those configs)."""
+    if window or cap:
+        raise ValueError("flash_attention: no sliding window or logit "
+                         "softcap (window=0, cap=0.0 only); they come with "
+                         "the sliding-window slice of the port")
+    _record_dispatch("flash_attention", q.device.type == "cuda")
+    return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
+                               q_offset=q_offset, block_q=block_q)
+
+
+def fused_ln_add(x, a1n, scale, bias=None, *, kind="rmsnorm", eps=1e-6):
+    """Differentiable ``LN(x) * scale (+ bias) + a1n`` (FAL's MLP input),
+    x and a1n (..., d) -> (..., d) in x's dtype, rounded once: the forward
+    and backward kernels for CUDA tensors, ``ref.ln_add_ref``'s plain
+    version (autograd through it) for CPU tensors."""
+    _record_dispatch("fused_ln_add", x.device.type == "cuda")
+    return _ln.fused_ln_add(x, a1n, scale, bias, kind=kind, eps=eps)
 
 
 def paged_packed_attention(q, k_pages, v_pages, block_tables, tok_slot,

@@ -1,7 +1,10 @@
-"""GQA attention for the paged ticks, on torch tensors.
+"""GQA attention for training and the paged ticks, on torch tensors.
 
-Port of the paged serving paths of ``repro/models/attention.py``:
-``gqa_init``, ``gqa_qkv`` (``:406``), ``paged_scatter`` (``:108``) and
+Port of ``repro/models/attention.py``: ``blockwise_attention`` (``:21``,
+the plain version of the flash-attention kernel) and the full-sequence
+``gqa_apply`` (``:490``, through ``ops.flash_attention``) for training; and
+the paged serving paths: ``gqa_init``, ``gqa_qkv`` (``:406``),
+``paged_scatter`` (``:108``) and
 ``packed_scatter`` (``:129``), the quantized KV page format (``KV_DTYPES``,
 ``_quant_rows``, ``:195-220``), ``gqa_init_paged_cache`` (``:222``),
 ``_gqa_paged_qkv_scatter`` (``:244``), and the kernel branches of
@@ -18,6 +21,53 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+
+
+def blockwise_attention(q, k, v, *, causal=True, window=0, cap=0.0,
+                        block_q=512, scale=None, q_offset=0):
+    """Flash-style attention over query blocks: q (B, Sq, H, Dh), k (B, Sk,
+    Hkv, Dh), v (B, Sk, Hkv, Dv) -> (B, Sq, H, Dv) in v's dtype.  Scores in
+    fp32 (O(block_q * Sk) of them at a time), softcapped, masked causally at
+    the start (key j visible to query row i when j <= q_offset + i) and to
+    ``window`` keys when window > 0, softmaxed in fp32; ``p`` is rounded to
+    v's dtype before the P.V product, as in the reference."""
+    B, Sq, H, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    Dv = v.shape[-1]
+    scale = Dh ** -0.5 if scale is None else scale
+    bq = min(block_q, Sq)
+    k_pos = torch.arange(Sk, device=q.device)
+    kf = k.float()
+    out = []
+    for i0 in range(0, Sq, bq):
+        qblk = q[:, i0:i0 + bq]
+        n = qblk.shape[1]
+        q_pos = q_offset + i0 + torch.arange(n, device=q.device)
+        s = torch.einsum("bqhgd,bkhd->bhgqk",
+                         qblk.float().reshape(B, n, Hkv, G, Dh), kf) * scale
+        s = L.softcap(s, cap)
+        mask = torch.ones((n, Sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window > 0:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+        out.append(o.reshape(B, n, H, Dv))
+    return torch.cat(out, dim=1)
+
+
+def gqa_apply(p, cfg, x, positions, *, window=0, causal=True):
+    """Full-sequence attention (train / eval / prefill): x (B, S, D) at
+    ``positions`` (B, S) -> (B, S, D), through ``ops.flash_attention`` (the
+    kernels on the card, ``blockwise_attention`` on the CPU)."""
+    q, k, v = gqa_qkv(p, cfg, x, positions)
+    B, S = x.shape[:2]
+    o = ops.flash_attention(q, k, v, causal=causal, window=window,
+                            cap=cfg.attn_softcap, block_q=cfg.attn_block_q)
+    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
 
 
 def gqa_init(gen, cfg, dtype, device):

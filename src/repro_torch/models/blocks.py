@@ -1,9 +1,10 @@
 """Transformer block honoring the FAL connection modes (core/fal.py), for
-the paged ticks.
+training and the paged ticks.
 
 Port of the replicated paths of ``repro/models/blocks.py``: a block is
 ``x + MHA(ln1(x)) + FFN(mlp_input)`` with optional post-norms
-(``:143-214``), in the token-packed and the padded (B, C) paged layouts,
+(``:143-214``), over the full sequence (train / eval / prefill,
+``:170-173``), in the token-packed and the padded (B, C) paged layouts,
 and the dual-branch decode block ``_block_apply_dual`` (``:217-291``).  No
 tensor or sequence parallelism, no MoE, MLA or cross-attention: those come
 in later slices of the port.
@@ -45,15 +46,17 @@ def _paged_attention(p, cfg, h, cache, block_tables, pos, n_valid, tok_slot,
                              n_valid, window=window)
 
 
-def block_apply(p, cfg, x, a1_sig, *, is_block0=False, plan=None, cache,
-                block_tables, pos=None, n_valid=None, tok_slot=None,
-                tok_pos=None, window=0):
-    """One block over x: the packed buffer (1, T, D) with ``tok_slot`` /
-    ``tok_pos``, or the padded (B, C, D) chunk with ``pos`` / ``n_valid``.
-    Updates ``cache`` in place; returns (x_out, a_raw) where ``a_raw`` is
-    this block's MHA output (block 0 exports it as the first-attention
-    signal).  Under ``plan.dual_branch`` every block but block 0 runs the
-    MHA || MLP branch-parallel block."""
+def block_apply(p, cfg, x, a1_sig, *, is_block0=False, plan=None, cache=None,
+                block_tables=None, pos=None, n_valid=None, tok_slot=None,
+                tok_pos=None, window=0, positions=None):
+    """One block over x: the full sequence (B, S, D) at ``positions`` (B, S)
+    when ``plan`` is a full-sequence phase (train / eval / prefill; no
+    cache), else the packed buffer (1, T, D) with ``tok_slot`` / ``tok_pos``
+    or the padded (B, C, D) chunk with ``pos`` / ``n_valid``, updating
+    ``cache`` in place.  Returns (x_out, a_raw) where ``a_raw`` is this
+    block's MHA output (block 0 exports it as the first-attention signal).
+    Under ``plan.dual_branch`` every block but block 0 runs the MHA || MLP
+    branch-parallel block."""
     plan = ExecutionPlan.resolve(plan)
     if plan.dual_branch and not is_block0 \
             and plan.phase in (Phase.DECODE, Phase.PAGED):
@@ -65,8 +68,11 @@ def block_apply(p, cfg, x, a1_sig, *, is_block0=False, plan=None, cache,
                                  block_tables=block_tables, n_valid=n_valid,
                                  tok_slot=tok_slot, tok_pos=tok_pos)
     h = L.norm_apply(p["ln1"], x, cfg.norm)
-    a, _ = _paged_attention(p, cfg, h, cache, block_tables, pos, n_valid,
-                            tok_slot, tok_pos, window)
+    if plan.full_sequence:
+        a = A.gqa_apply(p["attn"], cfg, h, positions, window=window)
+    else:
+        a, _ = _paged_attention(p, cfg, h, cache, block_tables, pos, n_valid,
+                                tok_slot, tok_pos, window)
     if cfg.post_norms:
         a = L.norm_apply(p["post_attn"], a, cfg.norm)
     resid = x + a

@@ -1,8 +1,15 @@
-"""The dense FAL decoder on torch tensors: parameters, the paged KV cache
-and the paged ticks.
+"""The dense FAL decoder on torch tensors: parameters, the full-sequence
+forward and loss for training, the paged KV cache and the paged ticks.
 
-Port of the paged serving paths of ``repro/models/model.py``:
-``_embed_tokens``, ``_logits`` / ``lm_head``, ``init_paged_cache``
+Port of the dense decoder of ``repro/models/model.py``: ``cross_entropy``
+(``:72``), ``_run_decoder_blocks`` (``:204``, the layer scan as a Python
+loop), ``_decoder_forward`` (``:250``), ``forward`` (``:921``), ``_ce_tail``
+(``:1103``) and ``loss_fn`` (``:1108``; dense only, so the aux loss is 0 and
+there is no MTP head), with the reference's rematerialisation: under
+``cfg.remat`` block 0, each later block and the CE tail run under
+``torch.utils.checkpoint`` (non-reentrant) while gradients are on.  And
+the paged serving paths: ``_embed_tokens``, ``_logits`` / ``lm_head``,
+``init_paged_cache``
 (``:957``), ``paged_decode_step`` (``:979``) -> ``_decoder_paged_packed``
 (``:466``, the token-packed layout) or ``_decoder_paged_decode`` (``:388``,
 the padded (B, C) layout, sequential or dual-branch), and
@@ -24,8 +31,11 @@ the kernels on the CPU.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import fal
 from repro_torch.core.plan import ExecutionPlan, Phase
@@ -71,15 +81,18 @@ def _dtype(name) -> torch.dtype:
 # ------------------------------------------------------------------------- #
 # parameters
 # ------------------------------------------------------------------------- #
-def init_params(cfg, seed=0, device=None):
+def init_params(cfg, seed=0, device=None, dtype=None):
     """Random dense-decoder weights at the reference's scales, drawn with a
     ``torch.Generator`` on ``device`` (not the reference's numbers: tests
-    carry JAX weights across with ``interop.params_from_numpy``)."""
+    carry JAX weights across with ``interop.params_from_numpy``).  Matmul
+    weights and embeddings are stored in ``dtype``: None keeps
+    ``cfg.dtype`` (serving); training passes ``cfg.param_dtype`` (fp32
+    masters, cast to ``cfg.dtype`` at each use).  Norms stay fp32."""
     check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    dt = _dtype(cfg.dtype)
+    dt = _dtype(dtype or cfg.dtype)
     p = {"embed": L.embed_init(gen, cfg.vocab, cfg.d_model, dt, device)}
     if cfg.learned_pos:
         p["pos_emb"] = (torch.randn((cfg.max_seq, cfg.d_model), generator=gen,
@@ -116,6 +129,93 @@ def _logits(p, cfg, x):
 def lm_head(params, cfg, x):
     """Final norm + (tied) unembedding: hidden (B, S, D) -> (B, S, V)."""
     return _logits(params, cfg, x)
+
+
+# ------------------------------------------------------------------------- #
+# full-sequence forward and loss (training)
+# ------------------------------------------------------------------------- #
+def cross_entropy(logits, labels, mask=None):
+    """Mean next-token NLL: logits to fp32, then ``logsumexp`` minus the
+    label's logit (masked mean when ``mask`` is given)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp(min=1)
+    return nll.mean()
+
+
+def _maybe_remat(fn, cfg):
+    """``fn`` under non-reentrant activation checkpointing when
+    ``cfg.remat`` and gradients are on (the reference's ``jax.checkpoint``):
+    its activations are recomputed in the backward, kernels included."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
+
+
+def _run_decoder_blocks(p, cfg, x, positions, plan):
+    """Block 0, then the later blocks as a Python loop (the reference scans
+    over stacked params), each under ``_maybe_remat``.  The first-attention
+    signal is formed from block 0's output outside its checkpoint, as in the
+    reference.  Returns (x, aux): aux is 0, the port's blocks are dense."""
+    def block0(pb, h):
+        return BL.block_apply(pb, cfg, h, None, is_block0=True, plan=plan,
+                              positions=positions)
+
+    def block(pb, h, a1_sig):
+        return BL.block_apply(pb, cfg, h, a1_sig, plan=plan,
+                              positions=positions)[0]
+
+    x, a1_raw = _maybe_remat(block0, cfg)(p["block0"], x)
+    a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
+    body = _maybe_remat(block, cfg)
+    for pb in p["blocks"]:
+        x = body(pb, x, a1_sig)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _decoder_forward(p, cfg, batch, plan, want="logits"):
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    x = _embed_tokens(p, cfg, tokens, positions)
+    x, aux = _run_decoder_blocks(p, cfg, x, positions, plan)
+    if want == "hidden":
+        return None, aux, {"hidden": x}
+    return _logits(p, cfg, x), aux, {}
+
+
+def forward(params, cfg, batch, plan=None, want="logits"):
+    """Full-sequence forward of the dense decoder: batch {"tokens" (B, S)}
+    -> (logits (B, S, V), aux, extras), or with ``want='hidden'`` (None,
+    aux, {"hidden": (B, S, D)}).  ``plan``: an ExecutionPlan, a Phase or
+    its string value, or None (train)."""
+    check_supported(cfg)
+    plan = ExecutionPlan.resolve(plan).validate(cfg)
+    if not plan.full_sequence:
+        raise ValueError(f"forward: phase={plan.phase.value} is not a "
+                         f"full-sequence phase; use paged_decode_step")
+    return _decoder_forward(params, cfg, batch, plan, want=want)
+
+
+def _ce_tail(p, cfg, hidden, tokens):
+    logits = _logits(p, cfg, hidden)
+    return cross_entropy(logits[:, :-1], tokens[:, 1:])
+
+
+def loss_fn(params, cfg, batch, plan=None):
+    """-> (loss, {"ce", "aux"}): next-token cross entropy of the forward's
+    hidden states through the head, under ``_maybe_remat`` so the (B, S, V)
+    logits are recomputed in the backward instead of kept."""
+    plan = ExecutionPlan.resolve(plan)
+    _, aux, extras = forward(params, cfg, batch, plan, want="hidden")
+    tail = _maybe_remat(functools.partial(_ce_tail, cfg=cfg), cfg)
+    ce = tail(params, hidden=extras["hidden"], tokens=batch["tokens"])
+    loss = ce + cfg.router_aux_coef * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ------------------------------------------------------------------------- #

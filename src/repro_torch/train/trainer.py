@@ -1,0 +1,89 @@
+"""The training loop: data -> train_step -> logging / eval.
+
+Port of ``repro/train/trainer.py:25-81``.  Per-step metrics go through the
+port's ``obs.metrics`` registry with the reference's names: every logged
+scalar of the step (loss, grad_norm, ...) lands in a ``train_<k>`` gauge,
+the step's wall time in the ``train_step_ms`` histogram, the step and token
+counts in ``train_steps_total`` / ``train_tokens_total``, and the eval
+perplexity in ``train_eval_ppl``.  The step's wall time ends at a device
+synchronise, so on the card it includes the device's work.
+
+Runs on the card unless ``device="cpu"``.  ``params`` starts training from
+a given tree (fp32 masters, e.g. weights carried across from the reference)
+instead of drawing them from ``seed``.  Checkpoints (``ckpt_dir``) are not
+ported yet.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.data.pipeline import SyntheticMarkov
+from repro_torch.models.model import resolve_device
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.optim import adamw, schedules
+from repro_torch.train import step as tstep
+
+_SITE = "train/trainer.py"
+
+
+def train(cfg, *, steps=200, batch=8, seq_len=128, lr=3e-4, seed=0,
+          plan=None, num_microbatches=1, log_every=20, eval_every=0,
+          ckpt_dir=None, data=None, schedule="cosine", callbacks=(),
+          metrics=None, device=None, params=None):
+    """Returns (state, history).  ``metrics``: a ``MetricsRegistry`` to
+    record into (one is created per run when omitted)."""
+    if ckpt_dir:
+        raise NotImplementedError(
+            "ckpt_dir: the checkpoint format comes in a later slice of the "
+            "PyTorch port (ROADMAP.md Queue 1, launch and checkpoints)")
+    device = resolve_device(device)
+    reg = metrics if metrics is not None else MetricsRegistry()
+    c_steps = reg.counter("train_steps_total", unit="steps", site=_SITE)
+    c_tokens = reg.counter("train_tokens_total", unit="tokens", site=_SITE)
+    h_step_ms = reg.histogram("train_step_ms", unit="ms", site=_SITE)
+    sched = {"cosine": schedules.warmup_cosine,
+             "onecycle": schedules.one_cycle,
+             "wsd": schedules.wsd}[schedule](lr, steps)
+    ocfg = adamw.AdamWConfig(lr=sched)
+    state = tstep.init_state(seed, cfg, ocfg, device=device, params=params)
+    step_fn = tstep.make_train_step(cfg, ocfg, plan, num_microbatches)
+    eval_fn = tstep.make_eval_step(cfg, plan)
+    if data is None:
+        data = SyntheticMarkov(cfg.vocab, seq_len, batch, seed=seed)
+    it = iter(data)
+    history = []
+    t0 = time.time()
+    t_prev = time.perf_counter()
+    for i in range(steps):
+        b = {k: torch.from_numpy(np.asarray(v)).to(device)
+             for k, v in next(it).items()}
+        state, metrics_out = step_fn(state, b)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t_now = time.perf_counter()
+        c_steps.inc()
+        c_tokens.inc(int(np.prod(b["tokens"].shape)))
+        h_step_ms.record((t_now - t_prev) * 1e3)
+        t_prev = t_now
+        if (log_every and i % log_every == 0) or i == steps - 1:
+            m = {k: float(v) for k, v in metrics_out.items()}
+            for k, v in m.items():
+                reg.gauge(f"train_{k}", site=_SITE).set(v)
+            m.update(step=i, wall=time.time() - t0)
+            history.append(m)
+            if log_every:
+                print(f"step {i:5d} loss {m['loss']:.4f} "
+                      f"gnorm {m.get('grad_norm', 0):.2f} "
+                      f"({m['wall']:.1f}s)", flush=True)
+        if eval_every and i and i % eval_every == 0:
+            eb = {k: torch.from_numpy(np.asarray(v)).to(device)
+                  for k, v in data.batch_at(10**6 + i).items()}
+            em = eval_fn(state["params"], eb)
+            reg.gauge("train_eval_ppl", site=_SITE).set(float(em["ppl"]))
+            print(f"  eval ppl {float(em['ppl']):.3f}", flush=True)
+        for cb in callbacks:
+            cb(i, state, metrics_out)
+    return state, history

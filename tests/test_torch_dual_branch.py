@@ -14,6 +14,7 @@ from repro.kernels import ops as ROPS  # noqa: E402
 from repro.kernels import ref as RREF  # noqa: E402
 from repro.models import layers as RL  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.core import fal  # noqa: E402
 from repro_torch.core.plan import ExecutionPlan  # noqa: E402
 from repro_torch.kernels import dual_branch as DB  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -140,6 +141,8 @@ def test_port_dual_bit_exact(mode, chunk):
     assert torch.equal(seq, dual), (seq - dual).abs().max().item()
     want = {"paged_decode_attention", "dual_branch_decode"} if chunk == 1 \
         else {"paged_chunk_attention"}
+    if mode in fal.FUSED_LN_ADD_MODES:
+        want.add("fused_ln_add")
     assert set(ops.dispatch_paths()) == want
 
 

@@ -119,7 +119,8 @@ def _compare(ecfg_kw, prompts, max_new, tracer=None):
         assert ts[key] == rs[key], key
     assert ts["pages"]["peak_in_use"] == rs["pages"]["peak_in_use"]
     assert ts["dispatches_per_tick"] == 1.0
-    assert ops.dispatch_paths() == {"paged_packed_attention": ops.PLAIN}
+    assert ops.dispatch_paths() == {"paged_packed_attention": ops.PLAIN,
+                                    "fused_ln_add": ops.PLAIN}
     return port, ts
 
 

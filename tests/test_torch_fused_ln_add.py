@@ -1,0 +1,189 @@
+"""The port's fused LN-add module: its plain version against
+``ref.ln_add_ref`` and the Pallas kernel in interpret mode (rmsnorm and
+layernorm, fp32 and bf16), its gradients against ``jax.grad``, FAL's MLP
+inputs in ``core/fal.py`` (which now run it) against the reference's for all
+six connection modes, and (on a card only) the CUDA kernels against the
+plain version.
+
+Tolerances: fp32 1e-6 (one rsqrt and a few products, values of order 1);
+bf16 one bf16 ulp of the largest output (the same fp32 value rounded once
+on each side, after sums in another order)."""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.configs.base import get_config as ref_config  # noqa: E402
+from repro.core import fal as RF  # noqa: E402
+from repro.kernels import fused_ln_add as RLN  # noqa: E402
+from repro.kernels import ref as RREF  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.core import fal as TF  # noqa: E402
+from repro_torch.kernels import fused_ln_add as LN  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+TOL = 1e-6
+
+
+def _case(kind, rows=37, d=96, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, d)).astype(np.float32) * 2 + 0.5
+    a1 = rng.standard_normal((rows, d)).astype(np.float32)
+    scale = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(d)).astype(np.float32) \
+        if kind == "layernorm" else None
+    dy = rng.standard_normal((rows, d)).astype(np.float32)
+    return x, a1, scale, bias, dy
+
+
+def _bf16_ulp(a):
+    top = float(np.abs(np.asarray(a, np.float32)).max())
+    return 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_reference_and_pallas(kind, dtype):
+    x, a1, scale, bias, _ = _case(kind, seed=len(kind))
+    jx, ja = (jnp.asarray(t).astype(dtype) for t in (x, a1))
+    jb = None if bias is None else jnp.asarray(bias)
+    tx, ta = (torch.from_numpy(t).to(getattr(torch, dtype)) for t in (x, a1))
+    got = LN.ln_add_plain(tx, ta, torch.from_numpy(scale),
+                          None if bias is None else torch.from_numpy(bias),
+                          kind=kind).float().numpy()
+    refs = (RREF.ln_add_ref(jx, ja, jnp.asarray(scale), jb, kind=kind),
+            RLN.fused_ln_add(jx, ja, jnp.asarray(scale), jb, kind=kind,
+                             block_rows=16, interpret=True))
+    for ref in refs:
+        ref = np.asarray(ref.astype(jnp.float32))
+        tol = TOL if dtype == "float32" else _bf16_ulp(ref)
+        np.testing.assert_allclose(got, ref, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+def test_gradients_match_jax_grad(kind):
+    """d/d(x, a1n, scale, bias) of sum(y * dy): autograd through the plain
+    version (the dispatcher's CPU path) against jax.grad of ln_add_ref."""
+    x, a1, scale, bias, dy = _case(kind, seed=7)
+    args = [x, a1, scale] + ([bias] if bias is not None else [])
+
+    def ref_loss(*a):
+        b = a[3] if len(a) > 3 else None
+        return jnp.sum(RREF.ln_add_ref(a[0], a[1], a[2], b, kind=kind)
+                       * jnp.asarray(dy))
+    want = jax.grad(ref_loss, argnums=tuple(range(len(args))))(
+        *map(jnp.asarray, args))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    ops.reset_dispatch_paths()
+    y = ops.fused_ln_add(leaves[0], leaves[1], leaves[2],
+                         leaves[3] if bias is not None else None, kind=kind)
+    y.backward(torch.from_numpy(dy))
+    assert ops.dispatch_paths() == {"fused_ln_add": ops.PLAIN}
+    for leaf, w in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
+                                   atol=1e-4 if leaf.dim() == 1 else 1e-5,
+                                   rtol=0)
+
+
+def _norm_params(rng, d, kind):
+    p = {"scale": (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)}
+    if kind == "layernorm":
+        p["bias"] = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    return p
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "gpt2-117m"])
+@pytest.mark.parametrize("mode", ["preln", "parallel", "fal", "falplus",
+                                  "ablation1", "ablation2"])
+def test_fal_mlp_inputs_match_reference(arch, mode):
+    """``mlp_input`` and ``block0_mlp_input`` of every connection mode from
+    the same x, a, a1 and random norm parameters: equal to the reference's
+    in fp32 within 1e-6, and ``fused_ln_add`` recorded exactly for the modes
+    that sum an LN with something."""
+    rcfg = ref_config(arch).reduced().replace(connection=mode)
+    tcfg = get_config(arch).reduced().replace(connection=mode)
+    rng = np.random.default_rng(11)
+    d = rcfg.d_model
+    p = {name: _norm_params(rng, d, rcfg.norm)
+         for name in ("ln2", "ln_fal", "ln_a")}
+    x, a, a1 = (rng.standard_normal((2, 5, d)).astype(np.float32)
+                for _ in range(3))
+    jp = jax.tree.map(jnp.asarray, p)
+    tp = {k: {n: torch.from_numpy(v) for n, v in q.items()}
+          for k, q in p.items()}
+    j, t = (lambda *z: [jnp.asarray(v) for v in z]), \
+        (lambda *z: [torch.from_numpy(v) for v in z])
+    r_sig = RF.first_attention_signal(rcfg, jp, *j(a1))
+    t_sig = TF.first_attention_signal(tcfg, tp, *t(a1))
+    ops.reset_dispatch_paths()
+    pairs = [(RF.block0_mlp_input(rcfg, jp, *j(x, a)),
+              TF.block0_mlp_input(tcfg, tp, *t(x, a))),
+             (RF.mlp_input(rcfg, jp, *j(x, a), r_sig),
+              TF.mlp_input(tcfg, tp, *t(x, a), t_sig))]
+    for ref, got in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL,
+                                   rtol=0)
+    assert set(ops.dispatch_paths()) == (
+        {"fused_ln_add"} if mode in TF.FUSED_LN_ADD_MODES else set())
+
+
+def test_bf16_rounds_the_sum_once():
+    """In bf16 fal's ``ln2(x) + a1`` is rounded once by the fused path and
+    twice by the reference's jnp (LN(x), then the sum); the two stay within
+    one bf16 ulp of the larger of |LN(x)| and the sum."""
+    rcfg = ref_config("llama3.2-3b").reduced().replace(connection="fal",
+                                                       dtype="bfloat16")
+    tcfg = get_config("llama3.2-3b").reduced().replace(connection="fal",
+                                                       dtype="bfloat16")
+    rng = np.random.default_rng(5)
+    p = {"ln2": _norm_params(rng, rcfg.d_model, "rmsnorm")}
+    x, a1 = (rng.standard_normal((4, 9, rcfg.d_model)).astype(np.float32)
+             for _ in range(2))
+    ref = RF.mlp_input(rcfg, jax.tree.map(jnp.asarray, p),
+                       jnp.asarray(x, jnp.bfloat16), None,
+                       jnp.asarray(a1, jnp.bfloat16))
+    got = TF.mlp_input(tcfg, {"ln2": {"scale": torch.from_numpy(
+        p["ln2"]["scale"])}}, torch.from_numpy(x).bfloat16(), None,
+        torch.from_numpy(a1).bfloat16())
+    ref = np.asarray(ref.astype(jnp.float32))
+    xb = jnp.asarray(x, jnp.bfloat16).astype(jnp.float32)
+    ln = np.asarray(RREF.ln_add_ref(xb, jnp.zeros_like(xb),
+                                    jnp.asarray(p["ln2"]["scale"])))
+    top = np.maximum(np.maximum(np.abs(ref), np.abs(ln)), 2.0 ** -126)
+    diff = np.abs(got.float().numpy() - ref)
+    assert np.all(diff <= 2.0 ** (np.floor(np.log2(top)) - 7))
+    assert np.any(diff > 0)             # the roundings do differ somewhere
+
+
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
+    x, a1, scale, _, dy = (None if t is None else torch.from_numpy(t)
+                           for t in _case("rmsnorm"))
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        LN.fused_ln_add_fwd_cuda(x, a1, scale)
+    with pytest.raises(ValueError, match="kind"):
+        LN.check_kernel_args(x, scale, "batchnorm")
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card: python3 "
+                    "chip_smoke.py or pytest -m cuda)")
+    for kind, rows, d in (("rmsnorm", 64, 3072), ("layernorm", 37, 768),
+                          ("rmsnorm", 5, 1001)):
+        x, a1, scale, bias, dy = (None if t is None else
+                                  torch.from_numpy(t).cuda()
+                                  for t in _case(kind, rows, d))
+        leaves = [t.clone().requires_grad_(True) for t in (x, scale)]
+        ref = LN.ln_add_plain(leaves[0], a1, leaves[1], bias, kind=kind)
+        ref.backward(dy)
+        y, mean, rstd = LN.fused_ln_add_fwd_cuda(x, a1, scale, bias,
+                                                 kind=kind)
+        dx, dscale, _ = LN.fused_ln_add_bwd_cuda(dy, x, scale, mean, rstd,
+                                                 kind=kind)
+        torch.cuda.synchronize()
+        assert (y - ref).abs().max().item() <= 1e-5
+        assert (dx - leaves[0].grad).abs().max().item() <= 1e-4
+        assert (dscale - leaves[1].grad).abs().max().item() <= 1e-3

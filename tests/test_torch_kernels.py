@@ -118,7 +118,8 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
 
 def test_build_recipe(monkeypatch):
     assert set(p.stem for p in build.CSRC.glob("*.cu")) == {
-        "paged_attention", "dual_branch", "page_copy"}
+        "paged_attention", "dual_branch", "page_copy", "flash_attention",
+        "fused_ln_add"}
     cmd = build.nvcc_command("nvcc", "paged_attention",
                              build.BUILD_DIR / "x.so")
     flags = " ".join(cmd)

@@ -16,6 +16,7 @@ from repro.models import attention as RA  # noqa: E402
 from repro.models import model as RM  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.core import fal  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import attention as TA  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
@@ -94,7 +95,10 @@ def test_packed_tick_matches_reference(arch, connection):
     for part in ("block0", "blocks"):
         for name in ("k", "v"):
             _close(r_c[part][name], t_c[part][name])
-    assert ops.dispatch_paths() == {"paged_packed_attention": ops.PLAIN}
+    want = {"paged_packed_attention": ops.PLAIN}
+    if connection in fal.FUSED_LN_ADD_MODES:
+        want["fused_ln_add"] = ops.PLAIN
+    assert ops.dispatch_paths() == want
 
 
 @pytest.mark.parametrize("arch,connection", [
@@ -195,6 +199,13 @@ def test_entry_points_need_a_device_here():
         TM.init_paged_cache(cfg, 8, 4, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         interop.params_from_numpy({"embed": {"emb": np.zeros((4, 2))}}, cfg)
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as tstep
+    from repro_torch.train import trainer
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tstep.init_state(0, cfg, AdamWConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.train(cfg, steps=1, batch=2, seq_len=8, log_every=0)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "gemma2-27b",

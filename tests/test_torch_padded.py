@@ -18,6 +18,7 @@ from repro.models import attention as RA  # noqa: E402
 from repro.models import model as RM  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.core import fal  # noqa: E402
 from repro_torch.core.plan import ExecutionPlan as TPlan  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import attention as TA  # noqa: E402
@@ -89,13 +90,15 @@ def test_padded_tick_matches_reference(connection, dual, C):
             _close(np.asarray(r_c[part][name])[..., 1:, :, :, :],
                    t_c[part][name].numpy()[..., 1:, :, :, :])
     paths = ops.dispatch_paths()
+    ln_add = {"fused_ln_add": ops.PLAIN} \
+        if connection in fal.FUSED_LN_ADD_MODES else {}
     if C > 1:
-        assert paths == {"paged_chunk_attention": ops.PLAIN}
+        assert paths == {"paged_chunk_attention": ops.PLAIN, **ln_add}
     elif dual:
         assert paths == {"paged_decode_attention": ops.PLAIN,
-                         "dual_branch_decode": ops.PLAIN}
+                         "dual_branch_decode": ops.PLAIN, **ln_add}
     else:
-        assert paths == {"paged_decode_attention": ops.PLAIN}
+        assert paths == {"paged_decode_attention": ops.PLAIN, **ln_add}
 
 
 @pytest.mark.parametrize("arch,connection", [

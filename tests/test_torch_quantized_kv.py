@@ -24,6 +24,7 @@ from repro.models import model as RM  # noqa: E402
 from repro.serve import scheduler as RS  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.core import fal  # noqa: E402
 from repro_torch.core.plan import ExecutionPlan as TPlan  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
@@ -247,7 +248,8 @@ def test_padded_ticks_match_reference(kv, dual):
                                   torch.from_numpy)
     paths = ops.dispatch_paths()
     assert paths == {f"paged_chunk_attention.{kv}": ops.PLAIN,
-                     f"paged_decode_attention.{kv}": ops.PLAIN}
+                     f"paged_decode_attention.{kv}": ops.PLAIN,
+                     "fused_ln_add": ops.PLAIN}
     for w, g in zip(want, got):
         np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
         np.testing.assert_array_equal(g.argmax(-1), w.argmax(-1))
@@ -285,7 +287,8 @@ def test_quantized_engine_streams_match_reference(kv, dual):
     ops.reset_dispatch_paths()
     port = TS.PagedEngine(tcfg, tparams, TS.EngineConfig(**kw), device="cpu")
     assert _serve(port, TS, prompts, max_new) == want
-    assert ops.dispatch_paths() == {f"paged_packed_attention.{kv}": ops.PLAIN}
+    assert ops.dispatch_paths() == {f"paged_packed_attention.{kv}": ops.PLAIN,
+                                    "fused_ln_add": ops.PLAIN}
     rs, ts = ref.stats(), port.stats()
     for key in ("ticks", "prefill_tokens", "decode_tokens", "preemptions"):
         assert ts[key] == rs[key], key
@@ -324,8 +327,11 @@ def test_quantized_prefix_hit_matches_cold_and_reference(kv, connection):
     eng = TS.PagedEngine(tcfg, tparams, TS.EngineConfig(**kw), device="cpu")
     got, tstats = hot(TS, eng)
     assert got == want
-    assert ops.dispatch_paths() == {f"paged_packed_attention.{kv}": ops.PLAIN,
-                                    "copy_pages": ops.PLAIN}
+    want_paths = {f"paged_packed_attention.{kv}": ops.PLAIN,
+                  "copy_pages": ops.PLAIN}
+    if connection in fal.FUSED_LN_ADD_MODES:
+        want_paths["fused_ln_add"] = ops.PLAIN
+    assert ops.dispatch_paths() == want_paths
     assert tstats["cow_copies"] == rstats["cow_copies"] == 1
     for key in ("hits", "misses", "hit_rate", "cached_pages",
                 "a1_sig_seeded", "inserted_pages"):
