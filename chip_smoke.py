@@ -9,19 +9,23 @@ script exits non-zero:
 
   1. device      the card's name and power limit (nvidia-smi); TF32 off
   2. build       every kernel under src/repro_torch/kernels/csrc with nvcc,
-                 one nvcc per source, all started together
+                 one nvcc per source, all started together; registers and
+                 spills of the bf16 flash kernels (none may spill at
+                 D = 128)
   3. kernel      each kernel against its plain PyTorch version at the
                  main path's shapes (and small shapes), bf16 and fp32; the
                  dual-branch dispatcher's two-op route; page_copy byte for
                  byte; the int8 / fp8 scale variants of the three paged
                  attention kernels; flash_attention forward and backward
-                 (also against autograd through the plain forward, and
+                 (bf16: the tensor-core kernels, fp32: the CUDA-core ones;
+                 also against autograd through the plain forward, and
                  bit-identical over two runs) and fused_ln_add forward and
                  backward
   4. time        kernel, plain and bound times (median of 100 launches,
                  CUDA events, L2 flushed between launches); one COW at
                  llama3.2-3b beside index_copy_; the training kernels beside
-                 scaled_dot_product_attention and F.rms_norm + add
+                 scaled_dot_product_attention and F.rms_norm + add (flash:
+                 also TFLOP/s and share of the bound)
   5. tick        one packed tick (bf16, int8 and fp8 pages), one padded
                  C = 128 chunk tick and one dual-branch C == 1 tick of
                  llama3.2-3b at full width (2 layers, fp32) on the card
@@ -257,6 +261,7 @@ def build_phase():
     libs = build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})")
+    # ptxas -v's reports, of this run's builds or kept beside cached ones
     for name, log in build.PTXAS_LOG.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
         spill = [int(m) for m in re.findall(r"(\d+) bytes spill", log)]
@@ -264,7 +269,40 @@ def build_phase():
         print(f"  {name}: {len(regs)} kernels, {min(regs)}..{max(regs)} "
               f"registers, at most {max(smem, default=0)} bytes static "
               f"shared memory, {sum(spill)} bytes spilled (ptxas -v)")
+    tc = tensor_core_kernels(build.PTXAS_LOG.get("flash_attention", ""))
+    for (kname, d), (regs, spilled) in sorted(tc.items()):
+        print(f"  flash_attention bf16 {kname} D={d}: {regs} registers at "
+              f"launch (setmaxnreg moves them to the consumers), "
+              f"{spilled} bytes spilled")
+    require(len(tc) == 9, f"ptxas reported {len(tc)} of the 9 bf16 flash "
+            f"kernels")
+    require(all(sp == 0 for (_, d), (_, sp) in tc.items() if d == 128),
+            "a bf16 flash kernel spills at D = 128")
     sys.stdout.flush()
+
+
+def tensor_core_kernels(log):
+    """{(kernel, D): (registers, bytes spilled)} of the bf16 flash kernels
+    (namespace tc of csrc/flash_attention.cu) from ptxas -v's report."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*2tc(\d+)(\w+?_kernel)"
+                      r"ILi(\d+)E", line)
+        if m:
+            cur = (m.group(2), int(m.group(3)))
+            out[cur] = [0, 0]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur][0] = int(m.group(1))
+            cur = None
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def check_kernel(PA, dtype, tick, h, hkv, d, page, num_pages, tol,
@@ -1644,12 +1682,18 @@ def padded_generation_phase(params, kv="", n_new=32,
 # training: flash_attention and fused_ln_add, forward and backward
 # --------------------------------------------------------------------------- #
 #: (label, B, S, H, Hkv, D, causal): the training shape of llama3.2-3b and
-#: small odd shapes (S not a multiple of the 64-row tiles, G = 1, 2, 4)
+#: small odd shapes (S not a multiple of the 64- or 128-row tiles, G = 1 to
+#: 4, D = 32 also non-causal with G = 3)
 FLASH_SHAPES = (("train", 1, 2048, H, HKV, D, True),
                 ("odd", 2, 77, 4, 2, 32, True),
                 ("odd", 3, 130, 4, 1, 64, True),
                 ("odd", 1, 200, 8, 8, 128, True),
-                ("odd", 2, 91, 4, 2, 64, False))
+                ("odd", 2, 91, 4, 2, 64, False),
+                ("odd", 1, 150, 6, 2, 32, False))
+#: (B, Sq, Sk, H, Hkv, D, q_offset): queries at the end of a longer key
+#: sequence, causal from q_offset (Sq != Sk), as a chunked prefill calls it
+FLASH_OFFSET_SHAPES = ((1, 100, 260, 6, 2, 128, 160), (2, 70, 200, 4, 4, 64, 5),
+                       (1, 33, 300, 3, 1, 32, 267))
 #: kernel vs plain: fp32 sums in another order; bf16: one rounding of the
 #: output (|o| < 4: 2^-7 x 4 = 0.03) and of each gradient
 FLASH_TOLS = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -1677,7 +1721,8 @@ def rel_err(out, ref):
 def flash_kernel_phase():
     """flash_attention forward (O and lse) and backward against the plain
     versions on the same inputs; the backward also against autograd
-    through the plain forward, and twice for bit-identical results."""
+    through the plain forward, and twice for bit-identical results; then
+    queries at a q_offset into a longer key sequence."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models.attention import blockwise_attention
     phase("kernel: flash_attention forward and backward vs plain")
@@ -1715,6 +1760,26 @@ def flash_kernel_phase():
         require(same, f"{name}: backward is not deterministic")
         if label == "train" and dtype == torch.bfloat16:
             errs = {"flash_attention": e_o, "flash_attention.bwd": e_g}
+    for (B, Sq, Sk, h, hkv, d, qo), dtype in itertools.product(
+            FLASH_OFFSET_SHAPES, (torch.float32, torch.bfloat16)):
+        g = torch.Generator(device="cuda").manual_seed(Sq + Sk)
+        q, do = (randn(g, dtype, B, Sq, h, d) for _ in range(2))
+        k, v = (randn(g, dtype, B, Sk, hkv, d) for _ in range(2))
+        tol = FLASH_TOLS[dtype]
+        o, lse = FA.flash_attention_fwd_cuda(q, k, v, q_offset=qo)
+        r_o, r_lse = FA.flash_attention_plain(q, k, v, q_offset=qo)
+        grads = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, q_offset=qo)
+        plain = FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                             q_offset=qo)
+        torch.cuda.synchronize()
+        e_o, e_l = max_err(o, r_o), max_err(lse, r_lse)
+        e_g = max(rel_err(a, b) for a, b in zip(grads, plain))
+        name = f"q_offset {qo}: B={B} Sq={Sq} Sk={Sk} H={h} Hkv={hkv} " \
+               f"D={d} causal {str(dtype)[6:]}"
+        print(f"  {name}: o {e_o:.3e}, lse {e_l:.3e}; grads vs plain "
+              f"{e_g:.3e} (relative; tol {tol:g})", flush=True)
+        require(e_o <= tol and e_l <= tol and e_g <= tol,
+                f"{name}: kernels disagree with the plain versions")
     return errs
 
 
@@ -1833,14 +1898,18 @@ def train_time_phase(bw):
         ms=bwd_ms, plain_ms=bwd_plain, bound_ms=b_bwd[0],
         bound_by=b_bwd[1], library_ms=lib_bwd, library_fwd_bwd_ms=lib_both,
         shape=shape + "; bound at 2.5x the forward's flops")
+    flops = 4 * d * h * B * S * (S + 1) / 2
     print(f"  flash_attention {shape}: kernel_ms {fwd_ms:.4f} plain_ms "
           f"{fwd_plain:.4f} bound_ms {b_fwd[0]:.4f} ({b_fwd[1]}) "
           f"library_ms {lib_fwd:.4f} (scaled_dot_product_attention, "
-          f"enable_gqa)")
+          f"enable_gqa); {flops / fwd_ms / 1e9:.1f} TFLOP/s, "
+          f"{b_fwd[0] / fwd_ms:.3f} of the bound")
     print(f"  flash_attention.bwd: kernel_ms {bwd_ms:.4f} plain_ms "
           f"{bwd_plain:.4f} bound_ms {b_bwd[0]:.4f} ({b_bwd[1]}) "
           f"library_ms {lib_bwd:.4f} (SDPA's backward alone; forward + "
-          f"backward {lib_both:.4f})", flush=True)
+          f"backward {lib_both:.4f}); {2.5 * flops / bwd_ms / 1e9:.1f} "
+          f"TFLOP/s (at 2.5x the forward's flops), {b_bwd[0] / bwd_ms:.3f} "
+          f"of the bound", flush=True)
     del qt, kt, vt, out
     for kind, n, dm in LN_SHAPES[:2]:
         x, a1, scale, bias, dy = ln_inputs(torch.bfloat16, kind, n, dm, 2)
@@ -2023,6 +2092,15 @@ def train_phase():
               f"(of the profiled wall)")
         for key, kms, c in sorted(rows, key=lambda r: -r[1])[:10]:
             print(f"    {kms:9.2f} ms {c:6d} calls  {key[:90]}")
+        # the flash_attention kernels (bf16: namespace tc, and the delta
+        # pass), wherever they rank
+        flash = [(re.search(r"(\w+<[^>]*>)\(", key).group(1), kms, c)
+                 for key, kms, c in rows
+                 if re.search(r"tc::\w+_kernel<|flash_\w+_kernel<", key)]
+        flash_ms = sum(r[1] for r in flash)
+        print(f"  flash_attention kernels: {flash_ms:.2f} ms of the step's "
+              f"device time ({flash_ms / device_ms:.3f}): " + ", ".join(
+                  f"{name} {kms:.2f} ms in {c}" for name, kms, c in flash))
     sys.stdout.flush()
     return {k: counts[k] for k in want}, dict(step_ms=ms, peak=peak)
 

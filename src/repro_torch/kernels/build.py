@@ -11,7 +11,10 @@ the root of the checkout (``.gitignore`` lists ``build/``)::
 The library is loaded with ``ctypes``.  Its file name carries a hash of the
 source, of every header it includes from ``csrc/`` (``#include "..."``,
 followed recursively) and of the flags, so an edited source or header is
-rebuilt and an unchanged one is loaded as it is.  ``build_all`` starts one ``nvcc`` per source, all at
+rebuilt and an unchanged one is loaded as it is.  ``ptxas -v``'s report
+(registers, shared memory, spills) is kept beside the library as
+``<name>-<hash>.ptxas`` and read back with it, so a cached build reports
+the same as a fresh one; a library without its report is rebuilt.  ``build_all`` starts one ``nvcc`` per source, all at
 once.  Nothing here runs at import time: the kernel wrappers build on first
 launch, and a failed build raises.
 """
@@ -34,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: name -> loaded library, filled on first use
 _LIBS: Dict[str, ctypes.CDLL] = {}
-#: name -> what ptxas reported (registers, shared memory, spills)
+#: name -> what ptxas reported (registers, shared memory, spills), for every
+#: library built or loaded from the cache
 PTXAS_LOG: Dict[str, str] = {}
 
 
@@ -79,15 +83,21 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
+def report_path(lib: pathlib.Path) -> pathlib.Path:
+    """Where ``ptxas -v``'s report of library ``lib`` is kept."""
+    return lib.with_suffix(".ptxas")
+
+
 def nvcc_command(nvcc: str, name: str, out: pathlib.Path) -> List[str]:
     return [nvcc, *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
 def _start(name: str):
-    """Start the build of ``name`` unless its library exists; returns
-    (final path, temporary path, process or None)."""
+    """Start the build of ``name`` unless its library and its report
+    exist; returns (final path, temporary path, process or None)."""
     out = library_path(name)
-    if out.exists():
+    if out.exists() and report_path(out).exists():
+        PTXAS_LOG[name] = report_path(out).read_text()
         return out, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -118,6 +128,9 @@ def build_all(names=None) -> Dict[str, pathlib.Path]:
             if tmp.exists():
                 tmp.unlink()
             continue
+        report = report_path(tmp)
+        report.write_text(log)
+        os.replace(report, report_path(out))
         os.replace(tmp, out)        # atomic: a reader never sees half a file
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

@@ -17,35 +17,56 @@
 // as ref.attention_ref's.  Any Sq and Sk (the tails are masked), D in
 // {32, 64, 128}.
 //
-// Forward: one block per (64-row query block, head, batch).  The query
-// block sits in shared memory as fp32; 64-key K and V tiles are staged in
-// shared memory in turn; each of the 256 threads keeps a 4 x 4 tile of
-// scores and a 4 x D/16 tile of the output accumulator in registers, with
-// the online softmax's max and sum in fp32.  Key tiles past the causal
-// diagonal are never loaded.  The block writes O (rounded once to the
-// inputs' dtype) and lse = m + log(l) per row.
+// Two sets of kernels, chosen by dtype (not a fallback: each dtype has one):
 //
-// Backward, three kernels on one stream, no atomics, so the result is the
-// same bits on every run:
-//   1. delta = rowsum(dO * O) per (b, h, row), one warp a row;
-//   2. dK, dV: one block per (64-key block, KV head, batch), looping over
-//      the G query heads of its group and over the query blocks from the
-//      causal start, with dK and dV in registers;
-//   3. dQ: one block per (64-row query block, head, batch), looping over
-//      the key tiles up to the causal end.
-// P is recomputed as exp(s - lse); dS = P * (dP - delta).
+// bf16 (namespace tc): the products on the tensor cores.  Every kernel is
+// one block of three warpgroups: warpgroups 0 and 1 run wgmma (m64nNk16,
+// fp32 accumulators in registers, setmaxnreg 232); warpgroup 2 is the
+// producer, whose first warp brings the tiles in by TMA (128B-swizzled
+// bf16, 64B for D = 32) into a ring of three shared-memory stages with
+// full / empty mbarriers, on 40 registers.  The block's own tile is loaded
+// once.  P and dS are rounded to bf16 in registers, where they are the A
+// operands of the next products.
+//   forward: one block per (128-row query tile, head, batch), 64 rows a
+//     consumer warpgroup, the heaviest causal tiles launched first.  K/V
+//     tiles of 64 keys; S = Q K^T with A and B from shared memory; the
+//     online softmax in registers (a row of the accumulator lies in the 4
+//     threads of a quad: quad shuffles), in exp2 with the scale folded in;
+//     O += P V with V from shared memory, MN-major.  Key tiles past the
+//     causal diagonal are never loaded; only edge tiles are masked.  O is
+//     written in bf16 and lse in fp32.
+//   backward, three launches, no atomics (the same bits on every run):
+//     delta = rowsum(dO * O); dK/dV: one block per (64-key tile, KV head,
+//     batch) walking the G query heads and the 64-row query tiles from the
+//     causal start (Q, dO by TMA, lse and delta by the producer warp's
+//     lanes); warpgroup 0 forms S^T = K Q^T, P^T = exp(scale S^T - lse) and
+//     dV += P^T dO, and hands the bf16 P^T to warpgroup 1 through shared
+//     memory, which forms dP^T = V dO^T, dS^T = P^T (dP^T - delta) and
+//     dK += dS^T Q (one 64 x D accumulator a warpgroup: no spills at
+//     D = 128); dQ: one block per (128-row query tile, head, batch) walking
+//     64-key K/V tiles up to the causal end, S, P, dP, dS, dQ += dS K.
+//     That is 7 products where the bound counts 5: the price of
+//     determinism (S and dP are formed in both backward kernels).
+//
+// fp32 (the CUDA-core kernels): one block per 64-row tile, the
+// products on the CUDA cores in fp32 out of fp32 shared-memory copies.
+// The fp32 train-step check against the CPU needs fp32 products; TF32
+// would keep only about three decimal digits.
 //
 // What bounds it on this card: operations.  A causal forward at
 // llama3.2-3b (S = 2048, H = 24, D = 128) is 25.8 GFLOP; at the tensor
-// cores' 989 TFLOP/s that is 0.026 ms.  This first kernel does its products
-// on the CUDA cores in fp32 (about 1/15 of that rate at best) out of shared
-// memory; tensor cores (wgmma) and TMA-fed tiles are later work.  Nothing is
-// allocated (the wrapper passes delta's scratch) and nothing synchronises.
+// cores' 989 TFLOP/s that is 0.026 ms; the backward 2.5x that.  The bf16
+// kernels wait for each product before using it (no overlap of softmax and
+// products within a warpgroup; the two consumer warpgroups interleave on
+// the SM).  Nothing is allocated (the wrapper passes delta's scratch) and
+// nothing synchronises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -62,10 +83,6 @@ template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Rows [r0, r0 + kB) of one head of a (.., S, heads, D) tensor into a
 // kB x (D + 1) fp32 tile; rows at or past S are zero.  ``base`` points at
@@ -538,6 +555,729 @@ int bwd(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ===================================================================== //
+// bf16: wgmma on the tensor cores, TMA-fed tiles, warp specialisation
+// ===================================================================== //
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kWG = 128;                 // threads of a warpgroup
+constexpr int kThreadsTC = 3 * kWG;      // 2 consumer warpgroups + producer
+constexpr int kRows = 128;   // forward, dQ: the block's query rows (64 a WG)
+constexpr int kN = 64;       // rows of each streamed tile; dK/dV's key tile
+constexpr int kStages = 3;
+constexpr int kConsumerWarps = 8;        // arrivals that free a stage
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kErrMap = -2;              // the driver refused a tensor map
+
+// Tile geometry in shared memory (see sm90_common.cuh): D / kChunk column
+// chunks of kRowBytes-byte rows, swizzled to match the wgmma descriptors.
+template <int D>
+struct Geo {
+  static constexpr int kChunk = D >= 64 ? 64 : D;
+  static constexpr int kRowBytes = kChunk * 2;
+  static constexpr int kChunks = D / kChunk;
+  static constexpr uint32_t kSwz = D >= 64 ? 1 : 2;      // 128B / 64B
+  static constexpr uint32_t kSBO = 8 * kRowBytes;        // next 8 rows
+  __host__ __device__ static constexpr int tile(int rows) {
+    return rows * D * 2;
+  }
+  __host__ __device__ static constexpr int chunk(int rows) {
+    return rows * kRowBytes;
+  }
+};
+
+// Descriptor of an operand whose contraction runs over D (K-major): rows
+// r0 .. r0 + 63 (A) or all rows (B, r0 = 0) of a tile, at k-step 0.  K-step
+// kk (columns 16 kk ..) of a ``rows``-row tile is kstep<D>(rows, kk) further.
+template <int D>
+__device__ __forceinline__ uint64_t kmajor(const uint8_t* tile, int r0) {
+  using G = Geo<D>;
+  return sm90::make_desc(sm90::smem_u32(tile) + r0 * G::kRowBytes, 16,
+                         G::kSBO, G::kSwz);
+}
+template <int D>
+__host__ __device__ constexpr int kstep(int rows, int kk) {
+  // in the 16-byte units of the descriptor's address field
+  return ((kk * 16 / Geo<D>::kChunk) * Geo<D>::chunk(rows) +
+          (kk * 16 % Geo<D>::kChunk) * 2) >> 4;
+}
+
+// Descriptor of a B operand whose contraction runs over the tile's rows and
+// whose N is D (MN-major, trans-b), at k-step 0; k-step t (rows 16 t ..
+// 16 t + 15) is mnstep<D>(t) further.
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor(const uint8_t* tile, int rows) {
+  using G = Geo<D>;
+  return sm90::make_desc(sm90::smem_u32(tile), G::chunk(rows), G::kSBO,
+                         G::kSwz);
+}
+template <int D>
+__host__ __device__ constexpr int mnstep(int t) {
+  return (t * 16 * Geo<D>::kRowBytes) >> 4;
+}
+
+// d = A B^T over D in k-steps of 16, A (RowsA-row tile) and B (RowsB rows)
+// K-major in shared memory, from their k-step-0 descriptors.
+template <int D, int RowsA, int RowsB, int KK = 0, int N2>
+__device__ __forceinline__ void gemm_over_d(float (&d)[N2], uint64_t a,
+                                            uint64_t b) {
+  sm90::wgmma_ss<kstep<D>(RowsA, KK), kstep<D>(RowsB, KK)>(d, a, b, KK > 0);
+  if constexpr (KK + 1 < D / 16)
+    gemm_over_d<D, RowsA, RowsB, KK + 1>(d, a, b);
+}
+
+// d += A B over the rows of B: A the bf16 register fragments a[t] of
+// k-steps t, B an MN-major tile from its k-step-0 descriptor.
+template <int D, int T = 0, int N2, int KT>
+__device__ __forceinline__ void gemm_over_rows(float (&d)[N2],
+                                               const uint32_t (&a)[KT][4],
+                                               uint64_t b) {
+  sm90::wgmma_rs<mnstep<D>(T)>(d, a[T], b);
+  if constexpr (T + 1 < KT) gemm_over_rows<D, T + 1>(d, a, b);
+}
+
+// Rows row0 .. row0 + rows - 1 of one head of a (B, S, heads, D) tensor,
+// one TMA box per column chunk, signalled to ``bar``.
+template <int D>
+__device__ __forceinline__ void load_rows(uint8_t* tile, int rows,
+                                          const CUtensorMap* map,
+                                          uint64_t* bar, int head, int row0,
+                                          int b) {
+  using G = Geo<D>;
+#pragma unroll
+  for (int c = 0; c < G::kChunks; ++c)
+    sm90::tma_load_4d(tile + c * G::chunk(rows), map, bar, c * G::kChunk,
+                      head, row0, b);
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Columns 16 t .. 16 t + 15 of an m64nN accumulator (N / 2 floats) as the
+// bf16 A operands of N / 16 k-steps.
+template <int N2>
+__device__ __forceinline__ void to_a(const float (&d)[N2],
+                                     uint32_t (&a)[N2 / 8][4]) {
+#pragma unroll
+  for (int t = 0; t < N2 / 8; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[t][r] = sm90::pack_bf16(d[8 * t + 2 * r], d[8 * t + 2 * r + 1]);
+}
+
+// One row of an m64nD accumulator (rows i of this thread) to a bf16 row in
+// global memory, times ``mul``.
+template <int D>
+__device__ __forceinline__ void store_row(bf16* dst, const float (&acc)[D / 2],
+                                          int i, int c2, float mul) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    *reinterpret_cast<uint32_t*>(dst + 8 * n + c2) = sm90::pack_bf16(
+        acc[4 * n + 2 * i] * mul, acc[4 * n + 2 * i + 1] * mul);
+}
+
+// Producer / consumer ring over the streamed tiles: tile it uses stage
+// it % kStages; the consumer waits for the full phase of parity
+// (it / kStages) & 1, the producer for the opposite empty phase (the first
+// pass over the ring does not wait).
+__device__ __forceinline__ int stage_of(int it) { return it % kStages; }
+__device__ __forceinline__ uint32_t parity_of(int it) {
+  return (it / kStages) & 1;
+}
+
+__device__ __forceinline__ void init_barriers(uint64_t* fixed,
+                                              uint64_t* full,
+                                              uint64_t* empty,
+                                              uint32_t full_count) {
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(fixed, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], full_count);
+      sm90::mbar_init(&empty[s], kConsumerWarps);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// The forward's and dQ's block: query rows q0 .. q0 + kRows - 1 of head h
+// (KV head hk), batch b, the tiles with the most keys launched first; it
+// reads n_tiles key tiles, up to the causal end.
+struct QueryBlock {
+  int h, b, hk, q0, n_tiles;
+};
+__device__ __forceinline__ QueryBlock query_block(int B, int Sq, int Sk,
+                                                  int H, int Hkv, int causal,
+                                                  int q_offset) {
+  const int n_qt = (Sq + kRows - 1) / kRows;
+  const int per = H * B;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / per);   // heaviest first
+  const int h = (int)(blockIdx.x % per) % H, b = (int)(blockIdx.x % per) / H;
+  const int q0 = qt * kRows;
+  const int key_end = causal ? min(Sk, q_offset + min(q0 + kRows, Sq)) : Sk;
+  return {h, b, h / (H / Hkv), q0, (key_end + kN - 1) / kN};
+}
+
+// The producer's loop of the forward and dQ: K and V tiles 0 .. n_tiles - 1
+// of KV head hk through the ring (stage s holds K, then V).
+template <int D>
+__device__ __forceinline__ void stream_kv(uint8_t* KV, const CUtensorMap* tm_k,
+                                          const CUtensorMap* tm_v,
+                                          uint64_t* full, uint64_t* empty,
+                                          int hk, int b, int n_tiles) {
+  using G = Geo<D>;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = stage_of(t);
+    uint8_t* Ks = KV + s * 2 * G::tile(kN);
+    sm90::mbar_wait(&empty[s], parity_of(t) ^ 1);
+    sm90::mbar_arrive_expect_tx(&full[s], 2 * G::tile(kN));
+    load_rows<D>(Ks, kN, tm_k, &full[s], hk, t * kN, b);
+    load_rows<D>(Ks + G::tile(kN), kN, tm_v, &full[s], hk, t * kN, b);
+  }
+}
+
+// Element (row0 + 8 i, col0 + 8 n + c2 + j) of this thread's m64n64
+// accumulator fragment x[4 n + 2 i + j] becomes ``fill`` where
+// keep(row, col) is false.
+template <typename Keep>
+__device__ __forceinline__ void mask_tile(float (&x)[kN / 2], int row0,
+                                          int col0, int c2, float fill,
+                                          Keep keep) {
+#pragma unroll
+  for (int n = 0; n < kN / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (!keep(row0 + 8 * i, col0 + 8 * n + c2 + j))
+          x[4 * n + 2 * i + j] = fill;
+}
+
+// One block per SM: the consumers' setmaxnreg.inc takes the registers the
+// producer gave back, and would wait for ever on registers held by a second
+// block.  Asking for more than half the SM's 227 KB keeps a second block out.
+constexpr size_t smem_floor(size_t bytes) {
+  return bytes < 120 * 1024 ? 120 * 1024 : bytes;
+}
+
+template <int D>
+constexpr size_t fwd_smem() {
+  using G = Geo<D>;
+  return smem_floor(1024 + G::tile(kRows) + kStages * 2 * G::tile(kN) +
+         (1 + 2 * kStages) * 8);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+           const __grid_constant__ CUtensorMap tm_k,
+           const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+           float* __restrict__ lse, int B, int Sq, int Sk, int H, int Hkv,
+           float scale_log2, int causal, int q_offset) {
+  using G = Geo<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* KV = Qs + G::tile(kRows);           // stage s: K, then V
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      KV + kStages * 2 * G::tile(kN));
+  uint64_t *q_full = bars, *full = bars + 1, *empty = bars + 1 + kStages;
+  const QueryBlock qb = query_block(B, Sq, Sk, H, Hkv, causal, q_offset);
+  const int h = qb.h, b = qb.b, hk = qb.hk, q0 = qb.q0, n_tiles = qb.n_tiles;
+  init_barriers(q_full, full, empty, 1);
+  const int wg = threadIdx.x / kWG;
+
+  if (wg == 2) {                               // producer
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 2 * kWG) {
+      sm90::mbar_arrive_expect_tx(q_full, G::tile(kRows));
+      load_rows<D>(Qs, kRows, &tm_q, q_full, h, q0, b);
+      stream_kv<D>(KV, &tm_k, &tm_v, full, empty, hk, b, n_tiles);
+    }
+  } else {                                     // consumers
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int tid = threadIdx.x % kWG, lane = tid % 32;
+    const int c2 = 2 * (lane % 4);
+    const int wrow0 = q0 + 64 * wg;            // first row of this WG
+    const int r0 = wrow0 + (tid / 32) * 16 + lane / 4;   // rows r0, r0 + 8
+    const int last_row = min(wrow0 + 63, Sq - 1);
+    const bool active = wrow0 < Sq;
+    float acc[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    const uint64_t q_desc = kmajor<D>(Qs, 64 * wg);
+    sm90::mbar_wait(q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = stage_of(t), k0 = t * kN;
+      const uint8_t* Ks = KV + s * 2 * G::tile(kN);
+      const uint8_t* Vs = Ks + G::tile(kN);
+      sm90::mbar_wait(&full[s], parity_of(t));
+      if (active && (!causal || k0 <= q_offset + last_row)) {
+        float sc[kN / 2];
+        sm90::wgmma_fence();
+        gemm_over_d<D, kRows, kN>(sc, q_desc, kmajor<D>(Ks, 0));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait_all();
+        sm90::fence_regs(sc);
+        if (k0 + kN > Sk || (causal && k0 + kN - 1 > q_offset + wrow0))
+          mask_tile(sc, r0, k0, c2, -INFINITY, [&](int row, int key) {
+            return key < Sk && (!causal || key <= q_offset + row);
+          });
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int n = 0; n < kN / 8; ++n)
+            mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * i], sc[4 * n + 2 * i + 1]));
+          const float m_new = fmaxf(m[i], quad_max(mx) * scale_log2);
+          const float m_use = m_new == -INFINITY ? 0.f : m_new;
+          const float alpha = sm90::ex2(m[i] - m_use);
+          m[i] = m_new;
+          float rs = 0.f;
+#pragma unroll
+          for (int n = 0; n < kN / 8; ++n)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int e = 4 * n + 2 * i + j;
+              sc[e] = sm90::ex2(fmaf(sc[e], scale_log2, -m_use));
+              rs += sc[e];
+            }
+          l[i] = l[i] * alpha + rs;
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+            acc[4 * n + 2 * i] *= alpha;
+            acc[4 * n + 2 * i + 1] *= alpha;
+          }
+        }
+        uint32_t pa[kN / 16][4];
+        to_a(sc, pa);
+        sm90::wgmma_fence();
+        gemm_over_rows<D>(acc, pa, mnmajor<D>(Vs, kN));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait_all();
+        sm90::fence_regs(acc);
+        sm90::fence_regs(pa);
+      }
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float li = quad_sum(l[i]);
+      const int row = r0 + 8 * i;
+      if (!active || row >= Sq) continue;
+      store_row<D>(o + (((size_t)b * Sq + row) * H + h) * D, acc, i, c2,
+                   li > 0.f ? 1.f / li : 0.f);
+      if (lane % 4 == 0)
+        lse[((size_t)b * H + h) * Sq + row] = (m[i] + log2f(li)) * kLn2;
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dkdv_smem() {
+  using G = Geo<D>;
+  return smem_floor(1024 + 2 * G::tile(kN) +
+                    kStages * 2 * G::tile(kN) + kN * kN * 2 +
+                    kStages * 2 * kN * 4 + (1 + 2 * kStages) * 8);
+}
+
+// Named barriers (0 is __syncthreads) handing P^T from warpgroup 0 to
+// warpgroup 1 in the dK/dV kernel: "ready" after warpgroup 0 wrote it,
+// "free" after warpgroup 1 read it.
+constexpr int kBarPReady = 1, kBarPFree = 2;
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// One block per (64-key tile, KV head, batch), walking the G query heads
+// and the 64-row query tiles from the causal start.  The two consumer
+// warpgroups split the work of each tile: warpgroup 0 forms S^T = K Q^T,
+// P^T = exp(scale S^T - lse) (rounded to bf16, handed to warpgroup 1
+// through shared memory) and dV += P^T dO; warpgroup 1 forms
+// dP^T = V dO^T, dS^T = P^T (dP^T - delta) and dK += dS^T Q.  Four
+// products a tile, one 64 x D accumulator a warpgroup.
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+            const __grid_constant__ CUtensorMap tm_k,
+            const __grid_constant__ CUtensorMap tm_v,
+            const __grid_constant__ CUtensorMap tm_do,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int Sq,
+            int Sk, int H, int Hkv, float scale, float scale_log2,
+            int causal, int q_offset) {
+  using G = Geo<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = align1024(smem_raw);
+  uint8_t* Vs = Ks + G::tile(kN);
+  uint8_t* QO = Vs + G::tile(kN);           // stage s: Q, then dO
+  uint32_t* Pt = reinterpret_cast<uint32_t*>(QO + kStages * 2 *
+                                              G::tile(kN));
+  float* LD = reinterpret_cast<float*>(Pt + kN * kN / 2);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(LD + kStages * 2 * kN);
+  uint64_t *kv_full = bars, *full = bars + 1, *empty = bars + 1 + kStages;
+  const int per = Hkv * B;
+  const int kt = (int)(blockIdx.x / per);      // key tile 0 (most work) first
+  const int hk = (int)(blockIdx.x % per) % Hkv;
+  const int b = (int)(blockIdx.x % per) / Hkv;
+  const int G_ = H / Hkv, k0 = kt * kN;
+  const int qt_lo = causal ? max(0, k0 - q_offset) / kN : 0;
+  const int per_head = max(0, (Sq + kN - 1) / kN - qt_lo);
+  const int n_iter = G_ * per_head;
+  // the producer warp's 32 lanes each arrive (after writing lse and delta)
+  init_barriers(kv_full, full, empty, 32);
+  const int wg = threadIdx.x / kWG;
+
+  if (wg == 2) {                               // producer
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 2 * kWG + 32) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(kv_full, 2 * G::tile(kN));
+        load_rows<D>(Ks, kN, &tm_k, kv_full, hk, k0, b);
+        load_rows<D>(Vs, kN, &tm_v, kv_full, hk, k0, b);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = stage_of(it);
+        const int h = hk * G_ + it / per_head;
+        const int q0 = (qt_lo + it % per_head) * kN;
+        uint8_t* Qs = QO + s * 2 * G::tile(kN);
+        float* ls = LD + s * 2 * kN;
+        sm90::mbar_wait(&empty[s], parity_of(it) ^ 1);
+        for (int r = lane; r < kN; r += 32) {
+          const int row = q0 + r;
+          const size_t off = ((size_t)b * H + h) * Sq + row;
+          ls[r] = row < Sq ? lse[off] * kLog2e : 0.f;
+          ls[kN + r] = row < Sq ? delta[off] : 0.f;
+        }
+        if (lane == 0) {
+          sm90::mbar_arrive_expect_tx(&full[s], 2 * G::tile(kN));
+          load_rows<D>(Qs, kN, &tm_q, &full[s], h, q0, b);
+          load_rows<D>(Qs + G::tile(kN), kN, &tm_do, &full[s], h, q0,
+                       b);
+        } else {
+          sm90::mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {                                     // consumers
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int tid = threadIdx.x % kWG, lane = tid % 32;
+    const int c2 = 2 * (lane % 4);
+    const int kr0 = k0 + (tid / 32) * 16 + lane / 4;    // keys kr0, kr0 + 8
+    float acc[D / 2];                          // dV (warpgroup 0) or dK (1)
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+    const uint64_t k_desc = kmajor<D>(Ks, 0), v_desc = kmajor<D>(Vs, 0);
+    sm90::mbar_wait(kv_full, 0);
+    if (wg == 1) named_arrive(kBarPFree);      // the P^T buffer starts free
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = stage_of(it);
+      const int q0 = (qt_lo + it % per_head) * kN;
+      const uint8_t* Qs = QO + s * 2 * G::tile(kN);
+      const uint8_t* Os = Qs + G::tile(kN);
+      const float* ls = LD + s * 2 * kN;
+      sm90::mbar_wait(&full[s], parity_of(it));
+      // both warpgroups take the same branch: the barriers pair up
+      if (!causal || q_offset + min(q0 + kN - 1, Sq - 1) >= k0) {
+        if (wg == 0) {
+          float st[kN / 2];                 // S^T = K Q^T
+          sm90::wgmma_fence();
+          gemm_over_d<D, kN, kN>(st, k_desc, kmajor<D>(Qs, 0));
+          sm90::wgmma_commit();
+          sm90::wgmma_wait_all();
+          sm90::fence_regs(st);
+#pragma unroll
+          for (int n = 0; n < kN / 8; ++n) {
+            const float2 lv =
+                *reinterpret_cast<const float2*>(ls + 8 * n + c2);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              float* x = st + 4 * n + 2 * i;
+              x[0] = sm90::ex2(fmaf(x[0], scale_log2, -lv.x));
+              x[1] = sm90::ex2(fmaf(x[1], scale_log2, -lv.y));
+            }
+          }
+          if (k0 + kN > Sk || q0 + kN > Sq ||
+              (causal && k0 + kN - 1 > q_offset + q0))
+            mask_tile(st, kr0, q0, c2, 0.f, [&](int key, int qc) {
+              return key < Sk && qc < Sq && (!causal || key <= q_offset + qc);
+            });
+          uint32_t pa[kN / 16][4];
+          to_a(st, pa);
+          named_sync(kBarPFree);               // warpgroup 1 read the last
+#pragma unroll
+          for (int t = 0; t < kN / 16; ++t)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) Pt[(4 * t + r) * kWG + tid] = pa[t][r];
+          named_arrive(kBarPReady);
+          sm90::wgmma_fence();                 // dV += P^T dO
+          gemm_over_rows<D>(acc, pa, mnmajor<D>(Os, kN));
+          sm90::wgmma_commit();
+          sm90::wgmma_wait_all();
+          sm90::fence_regs(acc);
+          sm90::fence_regs(pa);
+        } else {
+          float dpt[kN / 2];                // dP^T = V dO^T
+          sm90::wgmma_fence();
+          gemm_over_d<D, kN, kN>(dpt, v_desc, kmajor<D>(Os, 0));
+          sm90::wgmma_commit();
+          sm90::wgmma_wait_all();
+          sm90::fence_regs(dpt);
+          // dS^T = P^T (dP^T - delta) from warpgroup 0's bf16 P^T (the same
+          // fragment layout: thread tid of both warpgroups holds the same
+          // keys and query columns)
+          uint32_t da[kN / 16][4];
+          named_sync(kBarPReady);
+#pragma unroll
+          for (int t = 0; t < kN / 16; ++t)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int col = 8 * (2 * t + r / 2) + c2, e = 8 * t + 2 * r;
+              const float2 dl =
+                  *reinterpret_cast<const float2*>(ls + kN + col);
+              const float2 pr = sm90::unpack_bf16(Pt[(4 * t + r) * kWG + tid]);
+              da[t][r] = sm90::pack_bf16(pr.x * (dpt[e] - dl.x),
+                                         pr.y * (dpt[e + 1] - dl.y));
+            }
+          named_arrive(kBarPFree);
+          sm90::wgmma_fence();                 // dK += dS^T Q
+          gemm_over_rows<D>(acc, da, mnmajor<D>(Qs, kN));
+          sm90::wgmma_commit();
+          sm90::wgmma_wait_all();
+          sm90::fence_regs(acc);
+          sm90::fence_regs(da);
+        }
+      }
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);
+    }
+    // warpgroup 1 arrived on "free" once more than warpgroup 0 waited
+    if (wg == 0) named_sync(kBarPFree);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = kr0 + 8 * i;
+      if (key >= Sk) continue;
+      const size_t off = (((size_t)b * Sk + key) * Hkv + hk) * D;
+      store_row<D>((wg == 0 ? dv : dk) + off, acc, i, c2,
+                   wg == 0 ? 1.f : scale);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dq_smem() {
+  using G = Geo<D>;
+  return smem_floor(1024 + 2 * G::tile(kRows) + kStages * 2 * G::tile(kN) +
+         (1 + 2 * kStages) * 8);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+          const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v,
+          const __grid_constant__ CUtensorMap tm_do,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          bf16* __restrict__ dq, int B, int Sq, int Sk, int H, int Hkv,
+          float scale, float scale_log2, int causal, int q_offset) {
+  using G = Geo<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* Os = Qs + G::tile(kRows);           // dO
+  uint8_t* KV = Os + G::tile(kRows);           // stage s: K, then V
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      KV + kStages * 2 * G::tile(kN));
+  uint64_t *qo_full = bars, *full = bars + 1, *empty = bars + 1 + kStages;
+  const QueryBlock qb = query_block(B, Sq, Sk, H, Hkv, causal, q_offset);
+  const int h = qb.h, b = qb.b, hk = qb.hk, q0 = qb.q0, n_tiles = qb.n_tiles;
+  init_barriers(qo_full, full, empty, 1);
+  const int wg = threadIdx.x / kWG;
+
+  if (wg == 2) {                               // producer
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 2 * kWG) {
+      sm90::mbar_arrive_expect_tx(qo_full, 2 * G::tile(kRows));
+      load_rows<D>(Qs, kRows, &tm_q, qo_full, h, q0, b);
+      load_rows<D>(Os, kRows, &tm_do, qo_full, h, q0, b);
+      stream_kv<D>(KV, &tm_k, &tm_v, full, empty, hk, b, n_tiles);
+    }
+  } else {                                     // consumers
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int tid = threadIdx.x % kWG, lane = tid % 32;
+    const int c2 = 2 * (lane % 4);
+    const int wrow0 = q0 + 64 * wg;
+    const int r0 = wrow0 + (tid / 32) * 16 + lane / 4;   // rows r0, r0 + 8
+    const int last_row = min(wrow0 + 63, Sq - 1);
+    const bool active = wrow0 < Sq;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + 8 * i;
+      const size_t off = ((size_t)b * H + h) * Sq + row;
+      lse2[i] = row < Sq ? lse[off] * kLog2e : 0.f;
+      dl[i] = row < Sq ? delta[off] : 0.f;
+    }
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) dq_acc[e] = 0.f;
+    const uint64_t q_desc = kmajor<D>(Qs, 64 * wg);
+    const uint64_t o_desc = kmajor<D>(Os, 64 * wg);
+    sm90::mbar_wait(qo_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = stage_of(t), k0 = t * kN;
+      const uint8_t* Ks = KV + s * 2 * G::tile(kN);
+      const uint8_t* Vs = Ks + G::tile(kN);
+      sm90::mbar_wait(&full[s], parity_of(t));
+      if (active && (!causal || k0 <= q_offset + last_row)) {
+        float sc[kN / 2];                   // S = Q K^T
+        sm90::wgmma_fence();
+        gemm_over_d<D, kRows, kN>(sc, q_desc, kmajor<D>(Ks, 0));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait_all();
+        sm90::fence_regs(sc);
+#pragma unroll
+        for (int e = 0; e < kN / 2; ++e)
+          sc[e] = sm90::ex2(fmaf(sc[e], scale_log2, -lse2[(e / 2) % 2]));
+        if (k0 + kN > Sk || wrow0 + 63 >= Sq ||
+            (causal && k0 + kN - 1 > q_offset + wrow0))
+          mask_tile(sc, r0, k0, c2, 0.f, [&](int row, int key) {
+            return row < Sq && key < Sk && (!causal || key <= q_offset + row);
+          });
+        uint32_t pa[kN / 16][4];            // P in bf16, as in dK/dV
+        to_a(sc, pa);
+        float dp[kN / 2];                   // dP = dO V^T
+        sm90::wgmma_fence();
+        gemm_over_d<D, kRows, kN>(dp, o_desc, kmajor<D>(Vs, 0));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait_all();
+        sm90::fence_regs(dp);
+        // dS = P (dP - delta) from the bf16 P, so that both kernels form
+        // the same dS
+        uint32_t da[kN / 16][4];
+#pragma unroll
+        for (int t = 0; t < kN / 16; ++t)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float2 pr = sm90::unpack_bf16(pa[t][r]);
+            const int e = 8 * t + 2 * r;
+            da[t][r] = sm90::pack_bf16(pr.x * (dp[e] - dl[r % 2]),
+                                       pr.y * (dp[e + 1] - dl[r % 2]));
+          }
+        sm90::wgmma_fence();
+        gemm_over_rows<D>(dq_acc, da, mnmajor<D>(Ks, kN));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait_all();
+        sm90::fence_regs(dq_acc);
+        sm90::fence_regs(da);
+      }
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + 8 * i;
+      if (!active || row >= Sq) continue;
+      store_row<D>(dq + (((size_t)b * Sq + row) * H + h) * D, dq_acc, i, c2,
+                   scale);
+    }
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Checks the grid and lifts the kernel's dynamic shared-memory limit.
+template <typename K>
+int prepare(K kernel, size_t grid, size_t smem) {
+  if (grid == 0 || grid > 0x7fffffff) return -1;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+}
+
+template <int D>
+int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+        const Shape& s, cudaStream_t stream) {
+  if (!(s.scale > 0.f) || !aligned16(q) || !aligned16(k) || !aligned16(v))
+    return -1;
+  CUtensorMap tq, tk, tv;
+  if (!sm90::bf16_rows_map(&tq, q, s.B, s.Sq, s.H, D, kRows) ||
+      !sm90::bf16_rows_map(&tk, k, s.B, s.Sk, s.Hkv, D, kN) ||
+      !sm90::bf16_rows_map(&tv, v, s.B, s.Sk, s.Hkv, D, kN))
+    return kErrMap;
+  const size_t grid = (size_t)((s.Sq + kRows - 1) / kRows) * s.H * s.B;
+  const int err = prepare(fwd_kernel<D>, grid, fwd_smem<D>());
+  if (err) return err;
+  fwd_kernel<D><<<(unsigned)grid, kThreadsTC, fwd_smem<D>(), stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse, s.B, s.Sq, s.Sk, s.H, s.Hkv,
+      s.scale * kLog2e, s.causal, s.q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int bwd(const void* q, const void* k, const void* v, const void* o,
+        const float* lse, const void* dout, void* dq, void* dk, void* dv,
+        float* delta, const Shape& s, cudaStream_t stream) {
+  if (!(s.scale > 0.f) || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
+      !aligned16(dout))
+    return -1;
+  CUtensorMap tq, tdo, tq64, tk64, tv64, tdo64;
+  // dK/dV: the block's own 64 keys, 64-row query tiles streamed; dQ: the
+  // block's own 128 query rows, 64-key tiles streamed
+  if (!sm90::bf16_rows_map(&tq, q, s.B, s.Sq, s.H, D, kRows) ||
+      !sm90::bf16_rows_map(&tdo, dout, s.B, s.Sq, s.H, D, kRows) ||
+      !sm90::bf16_rows_map(&tq64, q, s.B, s.Sq, s.H, D, kN) ||
+      !sm90::bf16_rows_map(&tdo64, dout, s.B, s.Sq, s.H, D, kN) ||
+      !sm90::bf16_rows_map(&tk64, k, s.B, s.Sk, s.Hkv, D, kN) ||
+      !sm90::bf16_rows_map(&tv64, v, s.B, s.Sk, s.Hkv, D, kN))
+    return kErrMap;
+  const size_t rows = (size_t)s.B * s.Sq * s.H;
+  const unsigned warps = kThreads / 32;
+  flash_delta_kernel<bf16, D><<<(unsigned)((rows + warps - 1) / warps),
+                                kThreads, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta,
+      s.B, s.Sq, s.H);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const float sl2 = s.scale * kLog2e;
+  size_t grid = (size_t)((s.Sk + kN - 1) / kN) * s.Hkv * s.B;
+  err = prepare(dkdv_kernel<D>, grid, dkdv_smem<D>());
+  if (err) return err;
+  dkdv_kernel<D><<<(unsigned)grid, kThreadsTC, dkdv_smem<D>(), stream>>>(
+      tq64, tk64, tv64, tdo64, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), s.B, s.Sq, s.Sk, s.H, s.Hkv, s.scale, sl2,
+      s.causal, s.q_offset);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  grid = (size_t)((s.Sq + kRows - 1) / kRows) * s.H * s.B;
+  err = prepare(dq_kernel<D>, grid, dq_smem<D>());
+  if (err) return err;
+  dq_kernel<D><<<(unsigned)grid, kThreadsTC, dq_smem<D>(), stream>>>(
+      tq, tk64, tv64, tdo, lse, delta, static_cast<bf16*>(dq), s.B, s.Sq,
+      s.Sk, s.H, s.Hkv, s.scale, sl2, s.causal, s.q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 int check(const Shape& s, int D, int device) {
   if (s.B <= 0 || s.Sq <= 0 || s.Sk <= 0 || s.Hkv <= 0 || s.H % s.Hkv ||
       s.q_offset < 0 || s.H > 65535 || s.B > 65535)
@@ -552,8 +1292,9 @@ extern "C" {
 
 // q (B, Sq, H, D), k and v (B, Sk, Hkv, D) -> o (B, Sq, H, D) in the same
 // dtype (bf16 when is_bf16, else fp32) and lse (B, H, Sq) fp32.  Returns 0
-// on success, -1 for an argument the kernel does not take, else the
-// cudaError_t of the launch.
+// on success, -1 for an argument the kernel does not take (bf16 also needs
+// 16-byte aligned tensors and scale > 0), -2 if the driver refused a TMA
+// tensor map, else the cudaError_t of the launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         float* lse, int B, int Sq, int Sk, int H, int Hkv,
                         int D, float scale, int causal, int q_offset,
@@ -562,10 +1303,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   const int err = check(s, D, device);
   if (err) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (D == 32) return fwd<__nv_bfloat16, 32>(q, k, v, o, lse, s, st);
-    if (D == 64) return fwd<__nv_bfloat16, 64>(q, k, v, o, lse, s, st);
-    return fwd<__nv_bfloat16, 128>(q, k, v, o, lse, s, st);
+  if (is_bf16) {                      // the tensor-core kernels
+    if (D == 32) return tc::fwd<32>(q, k, v, o, lse, s, st);
+    if (D == 64) return tc::fwd<64>(q, k, v, o, lse, s, st);
+    return tc::fwd<128>(q, k, v, o, lse, s, st);
   }
   if (D == 32) return fwd<float, 32>(q, k, v, o, lse, s, st);
   if (D == 64) return fwd<float, 64>(q, k, v, o, lse, s, st);
@@ -585,15 +1326,12 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   const int err = check(s, D, device);
   if (err) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
+  if (is_bf16) {                      // the tensor-core kernels
     if (D == 32)
-      return bwd<__nv_bfloat16, 32>(q, k, v, o, lse, dout, dq, dk, dv, delta,
-                                    s, st);
+      return tc::bwd<32>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
     if (D == 64)
-      return bwd<__nv_bfloat16, 64>(q, k, v, o, lse, dout, dq, dk, dv, delta,
-                                    s, st);
-    return bwd<__nv_bfloat16, 128>(q, k, v, o, lse, dout, dq, dk, dv, delta,
-                                   s, st);
+      return tc::bwd<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
+    return tc::bwd<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
   }
   if (D == 32)
     return bwd<float, 32>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
@@ -604,6 +1342,9 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
 
 const char* flash_attention_error_string(int code) {
   if (code == -1) return "argument not supported by the kernel";
+  if (code == tc::kErrMap)
+    return "cuTensorMapEncodeTiled refused a tensor map (or the driver "
+           "does not have it)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -12,7 +12,15 @@ The kernels are ``csrc/flash_attention.cu`` (CUDA C++ for ``sm_90a``): the
 forward writes O and the row log-sum-exp (B, H, Sq) fp32; the backward runs
 delta = rowsum(dO * O), a dK/dV kernel per (key block, KV head) and a dQ
 kernel per (query block, head), with no atomics, so two runs give the same
-bits.  What bounds them on an H100: operations (see the source's header).
+bits.  The dtype picks the kernels: bf16 runs on the tensor cores (``wgmma``
+on TMA-fed, swizzled shared-memory tiles, one producer warp and two
+consumer warpgroups per block, P and dS rounded to bf16 in registers as
+the A operands of the second products; helpers in ``csrc/sm90_common.cuh``),
+fp32 on the CUDA cores (fp32 products, which the fp32 train-step check
+against the CPU needs).  What bounds them on an H100: operations, 4 D flops
+per visible (query, key) pair per head at 989 TFLOP/s (the backward 2.5x);
+the backward kernels form S and dP twice, 7 products where the bound
+counts 5, to stay deterministic without atomics.
 
 Causal alignment is at the start (key j is visible to query row i when
 ``j <= q_offset + i``), as the Pallas kernel and ``blockwise_attention``

@@ -3,9 +3,13 @@ package's ``blockwise_attention``, ``ref.attention_ref`` (Sq == Sk only: it
 aligns causally at the end, the kernels at the start) and the Pallas kernel
 in interpret mode; its plain backward against ``jax.vjp`` of the reference's
 ``blockwise_attention`` and torch autograd through the plain forward; the
-dispatcher; and (on a card only) the CUDA kernels against the plain
-versions.  fp32 throughout; tolerance 1e-5 (sums in another order, values
-of order 1)."""
+dispatcher; an emulation of the bf16 tensor-core kernels' arithmetic (tile
+sizes and bf16 rounding points) against the plain versions and the
+reference; and (on a card only) the CUDA kernels against the plain
+versions.  fp32 tests: tolerance 1e-5 (sums in another order, values of
+order 1); the bf16 emulation: ``chip_smoke.py``'s bf16 tolerances."""
+import math
+
 import numpy as np
 import pytest
 
@@ -160,14 +164,160 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         FA.check_kernel_args(q, k, v, o=q, dout=do)
 
 
+#: rows of each streamed tile of the bf16 kernels (csrc/flash_attention.cu,
+#: namespace tc): K/V in the forward and dQ kernels, Q/dO in dK/dV
+TILE = 64
+#: chip_smoke.py's bf16 tolerances: FLASH_TOLS (o absolute, gradients
+#: relative to the largest, kernel vs plain) and GRAD_TOLS (gradients vs
+#: autograd through the plain forward, here vs the reference's jax.vjp)
+BF16_TOL, BF16_GRAD_TOL = 3e-2, 5e-2
+LOG2E = math.log2(math.e)
+
+#: (B, S, Hkv, G, D, causal): S not a multiple of 64 or 128, D 32 / 64 /
+#: 128, G 1 / 2 / 3, each S, D and G once causal and once full
+TC_SHAPES = [(1, 77, 2, 3, 32, True), (1, 130, 1, 2, 64, True),
+             (1, 200, 2, 1, 128, True), (2, 77, 1, 1, 64, False),
+             (1, 130, 2, 3, 128, False), (1, 200, 1, 2, 32, False)]
+
+
+def _heads(t, G=1):
+    """(B, S, heads, D) -> fp32 (B, heads * G, S, D), each head repeated G
+    times (K and V of a GQA group)."""
+    return t.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+
+
+def _visible(Sq, Sk, causal):
+    if not causal:
+        return torch.ones(Sq, Sk, dtype=torch.bool)
+    return torch.arange(Sk)[None] <= torch.arange(Sq)[:, None]
+
+
+def _round(x):
+    return x.to(torch.bfloat16).float()
+
+
+def emulate_tc_forward(q, k, v, causal):
+    """The bf16 forward kernel's arithmetic: scores of bf16 inputs summed in
+    fp32, one TILE-key tile at a time; the running max in the log2
+    domain (scale folded in), the tile's p = exp2(s * scale * log2(e) - m)
+    summed unrounded into l and rounded to bf16 for P.V (fp32 sums); o =
+    acc / l rounded to bf16, lse = (m + log2 l) ln 2."""
+    B, Sq, H, D = q.shape
+    G = H // k.shape[2]
+    sl2 = D ** -0.5 * LOG2E
+    qf, kf, vf = _heads(q), _heads(k, G), _heads(v, G)
+    vis = _visible(Sq, k.shape[1], causal)
+    m = torch.full((B, H, Sq), -math.inf)
+    l = torch.zeros(B, H, Sq)
+    acc = torch.zeros(B, H, Sq, D)
+    for k0 in range(0, k.shape[1], TILE):
+        sl = slice(k0, k0 + TILE)
+        s = (qf @ kf[:, :, sl].transpose(-1, -2)).masked_fill(
+            ~vis[:, sl], -math.inf)
+        m_new = torch.maximum(m, s.amax(-1) * sl2)
+        m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+        alpha = torch.exp2(m - m_use)
+        p = torch.exp2(s * sl2 - m_use[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + _round(p) @ vf[:, :, sl]
+        m = m_new
+    o = (acc / l[..., None]).permute(0, 2, 1, 3).to(torch.bfloat16)
+    return o, (m + torch.log2(l)) * math.log(2)
+
+
+def emulate_tc_backward(q, k, v, o, lse, do, causal):
+    """The bf16 backward kernels' arithmetic: delta = rowsum(dO * O) in
+    fp32; per TILE-query tile (dK/dV kernel) P = exp2(s * scale *
+    log2(e) - lse * log2(e)) rounded to bf16, dS = P (dP - delta) from
+    that bf16 P in fp32 and rounded to bf16, then dV += P^T dO and
+    dK += dS^T Q; per TILE-key tile (dQ kernel) the same P and dS
+    before dQ += dS K; fp32 sums, dK summed over the G heads of a group,
+    each gradient rounded once."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = D ** -0.5
+    qf, kf, vf, dof = _heads(q), _heads(k, G), _heads(v, G), _heads(do)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1)[..., None]
+    vis = _visible(Sq, Sk, causal)
+
+    def p_ds(qs, ks):
+        s = qf[:, :, qs] @ kf[:, :, ks].transpose(-1, -2)
+        p = torch.exp2(s * scale * LOG2E - lse[:, :, qs, None] * LOG2E)
+        p = _round(torch.where(vis[qs, ks], p, 0.0))
+        dp = dof[:, :, qs] @ vf[:, :, ks].transpose(-1, -2)
+        return p, _round(p * (dp - delta[:, :, qs]))
+
+    dk = torch.zeros(B, H, Sk, D)
+    dv = torch.zeros(B, H, Sk, D)
+    for q0 in range(0, Sq, TILE):
+        qs, ks = slice(q0, q0 + TILE), slice(0, Sk)
+        p, ds = p_ds(qs, ks)
+        dv += p.transpose(-1, -2) @ dof[:, :, qs]
+        dk += ds.transpose(-1, -2) @ qf[:, :, qs]
+    dq = torch.zeros(B, H, Sq, D)
+    for k0 in range(0, Sk, TILE):
+        ks = slice(k0, k0 + TILE)
+        _, ds = p_ds(slice(0, Sq), ks)
+        dq += ds @ kf[:, :, ks]
+
+    def out(t):                     # (B, heads, S, D) -> (B, S, heads, D)
+        return t.permute(0, 2, 1, 3).to(torch.bfloat16)
+    group = (B, Hkv, G, Sk, D)
+    return (out(dq * scale), out(dk.reshape(group).sum(2) * scale),
+            out(dv.reshape(group).sum(2)))
+
+
+def _max_abs(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _rel(a, b):
+    return _max_abs(a, b) / b.float().abs().max().item()
+
+
+@pytest.mark.parametrize("B,S,Hkv,G,D,causal", TC_SHAPES)
+def test_bf16_kernel_rounding_points_fit_the_chip_tolerances(B, S, Hkv, G,
+                                                             D, causal):
+    """The bf16 kernels' arithmetic, emulated in torch on the CPU, against
+    the plain versions and the reference's bf16 blockwise_attention and its
+    jax.vjp, within the tolerances chip_smoke.py holds the kernels to."""
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _case(B, S, Hkv, G, D, seed=S + D + G))
+    o, lse = emulate_tc_forward(q, k, v, causal)
+    r_o, r_lse = FA.flash_attention_plain(q, k, v, causal=causal)
+    assert _max_abs(o, r_o) <= BF16_TOL
+    assert _max_abs(lse, r_lse) <= 1e-4
+    grads = emulate_tc_backward(q, k, v, o, lse, do, causal)
+    plain = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    for got, want in zip(grads, plain):
+        assert got.dtype == torch.bfloat16
+        assert _rel(got, want) <= BF16_TOL
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16)
+                       for t in (q, k, v, do))
+    ref_o, vjp = jax.vjp(lambda a, b, c: RA.blockwise_attention(
+        a, b, c, causal=causal, block_q=S), jq, jk, jv)
+    assert _max_abs(o, torch.from_numpy(np.asarray(ref_o, np.float32))) \
+        <= BF16_TOL
+    for got, want in zip(grads, vjp(jdo)):
+        assert _rel(got, torch.from_numpy(np.asarray(want, np.float32))) \
+            <= BF16_GRAD_TOL
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
+    """fp32 cases run the CUDA-core kernels, bf16 cases the tensor-core
+    kernels: every head dim, causal and full, S not a multiple of the tiles,
+    G = 1 to 4; each backward twice for the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the card: python3 "
                     "chip_smoke.py or pytest -m cuda)")
-    for (B, S, Hkv, G, D, causal), dtype in zip(
-            SHAPES + [(1, 300, 2, 3, 128, True)],
-            [torch.float32, torch.bfloat16] * 4):
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = list(zip(SHAPES, [f32, bf16] * 3)) + [
+        ((1, 300, 2, 3, 128, True), f32), ((1, 300, 2, 3, 128, True), bf16),
+        ((2, 77, 2, 3, 32, True), bf16), ((1, 200, 2, 3, 128, False), bf16),
+        ((1, 91, 2, 2, 32, False), bf16)]
+    for (B, S, Hkv, G, D, causal), dtype in cases:
         q, k, v, do = (t.cuda().to(dtype)
                        for t in _t(*_case(B, S, Hkv, G, D)))
         o, lse = FA.flash_attention_fwd_cuda(q, k, v, causal=causal)

@@ -6,6 +6,7 @@ import itertools
 import pathlib
 import re
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -152,6 +153,53 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     after = {n: build.library_path(n) for n in names}
     assert all(after[n] != before[n] for n in names)
     assert all(after[n].parent == build.BUILD_DIR for n in names)
+
+
+def test_flash_attention_build_hashes_the_hopper_header(tmp_path,
+                                                        monkeypatch):
+    """flash_attention.cu includes csrc/sm90_common.cuh (the TMA, mbarrier
+    and wgmma helpers of its bf16 kernels): editing that header rebuilds the
+    flash_attention library and no other."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    header = csrc / "sm90_common.cuh"
+    assert build.local_includes(csrc / "flash_attention.cu") == [header]
+    names = sorted(p.stem for p in csrc.glob("*.cu"))
+    before = {n: build.library_path(n) for n in names}
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert {n for n in names if build.library_path(n) != before[n]} == \
+        {"flash_attention"}
+
+
+def test_build_keeps_the_ptxas_report_beside_the_library(tmp_path,
+                                                         monkeypatch):
+    """A cached library is loaded with the ptxas report of the build that
+    made it; a library whose report is missing is built again."""
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        f"open({str(calls)!r}, 'a').write('x')\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'w').write('lib')\n"
+        "print('ptxas info    : Used 40 registers, 0 bytes spill stores')\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(build, "PTXAS_LOG", {})
+    lib = build.build_all(["page_copy"])["page_copy"]
+    report = build.report_path(lib)
+    assert lib.read_text() == "lib" and report.parent == lib.parent
+    assert "Used 40 registers" in report.read_text()
+    assert build.PTXAS_LOG["page_copy"] == report.read_text()
+    build.PTXAS_LOG.clear()
+    assert build.build_all(["page_copy"])["page_copy"] == lib
+    assert calls.read_text() == "x"                 # loaded, not rebuilt
+    assert build.PTXAS_LOG["page_copy"] == report.read_text()
+    report.unlink()
+    build.build_all(["page_copy"])
+    assert calls.read_text() == "xx" and report.exists()
 
 
 def test_port_imports_neither_jax_nor_repro():
