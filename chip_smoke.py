@@ -11,9 +11,14 @@ script exits non-zero:
   2. build       every kernel under src/repro_torch/kernels/csrc with nvcc,
                  one nvcc per source, all started together; registers and
                  spills of the bf16 flash kernels (none may spill at
-                 D = 128)
+                 D = 128) and of the bf16 packed attention kernels (none
+                 may spill)
   3. kernel      each kernel against its plain PyTorch version at the
                  main path's shapes (and small shapes), bf16 and fp32; the
+                 bf16 packed kernel also on edge ticks (runs across tiles
+                 and splits, one key, padding in slot 0, a slot as two
+                 runs), bit-identical over two launches, and its plan
+                 kernel's work list equal to packed_work_list's; the
                  dual-branch dispatcher's two-op route; page_copy byte for
                  byte; the int8 / fp8 scale variants of the three paged
                  attention kernels; flash_attention forward and backward
@@ -22,7 +27,8 @@ script exits non-zero:
                  bit-identical over two runs) and fused_ln_add forward and
                  backward
   4. time        kernel, plain and bound times (median of 100 launches,
-                 CUDA events, L2 flushed between launches); one COW at
+                 CUDA events, L2 flushed between launches; the bf16 packed
+                 kernel on a mixed and a decode-only tick); one COW at
                  llama3.2-3b beside index_copy_; the training kernels beside
                  scaled_dot_product_attention and F.rms_norm + add (flash:
                  also TFLOP/s and share of the bound)
@@ -278,16 +284,29 @@ def build_phase():
             f"kernels")
     require(all(sp == 0 for (_, d), (_, sp) in tc.items() if d == 128),
             "a bf16 flash kernel spills at D = 128")
+    packed = tensor_core_kernels(build.PTXAS_LOG.get("paged_attention", ""),
+                                 "9packed_tc")
+    for (kname, d), (regs, spilled) in sorted(packed.items()):
+        print(f"  paged_packed_attention bf16 {kname} D={d}: {regs} "
+              f"registers, {spilled} bytes spilled")
+    require(sorted(packed) == [(k, d) for k in ("attn_kernel",
+                                                "combine_kernel")
+                               for d in (32, 64, 128)],
+            f"ptxas reported {sorted(packed)}, not the 6 bf16 packed kernels")
+    require(all(sp == 0 for _, sp in packed.values()),
+            "a bf16 packed attention kernel spills")
     sys.stdout.flush()
 
 
-def tensor_core_kernels(log):
-    """{(kernel, D): (registers, bytes spilled)} of the bf16 flash kernels
-    (namespace tc of csrc/flash_attention.cu) from ptxas -v's report."""
+def tensor_core_kernels(log, namespace="2tc"):
+    """{(kernel, D): (registers, bytes spilled)} of the kernel templates
+    over D in a mangled namespace (``2tc``: the bf16 flash kernels of
+    csrc/flash_attention.cu; ``9packed_tc``: the bf16 packed attention of
+    csrc/paged_packed_tc.cuh) from ptxas -v's report."""
     out, cur = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*2tc(\d+)(\w+?_kernel)"
-                      r"ILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '\S*" + namespace +
+                      r"(\d+)(\w+?_kernel)ILi(\d+)E", line)
         if m:
             cur = (m.group(2), int(m.group(3)))
             out[cur] = [0, 0]
@@ -354,7 +373,73 @@ def kernel_phase():
         for dtype in (torch.bfloat16, torch.float32):
             check_kernel(PA, dtype, small, h, hkv, d, page, 256,
                          tols[dtype], seed=d * page)
+        check_plan(PA, small, h, hkv, d, page)
+    # the bf16 packed kernel's edges (tests/test_torch_packed_tiles.py)
+    for page, g, d in EDGE_SHAPES:
+        edge = edge_tick(page)
+        check_kernel(PA, torch.bfloat16, edge, 2 * g, 2, d, page,
+                     edge[0].numel() + 1, tols[torch.bfloat16],
+                     seed=page * g)
+        check_plan(PA, edge, 2 * g, 2, d, page)
+    decode = decode_tick(page=PAGE, num_pages=num_pages, tb=tb)
+    for label, t in (("mixed", tick), ("decode", decode)):
+        check_plan(PA, t, H, HKV, D, PAGE)
+        check_repeat(PA, label, t, H, HKV, D, PAGE, num_pages)
+    check_repeat(PA, "edge", edge_tick(4), 16, 2, 128, 4, 513)
     return errs[torch.bfloat16]
+
+
+#: (page, G, D) of the edge ticks, as tests/test_torch_packed_tiles.py's
+EDGE_SHAPES = ((4, 1, 32), (16, 1, 128), (4, 3, 64), (16, 3, 32),
+               (4, 8, 128), (16, 8, 64))
+
+
+def edge_tick(page):
+    """tests/test_torch_packed_tiles.py's tick (table width 512 keys): slot
+    0 a 70-token run from 0, then 3 padding rows in slot 0; slot 1 20
+    tokens at 245..264 (across the 256-key split); slot 4 at 10..12, slot
+    2 one token at 0, slot 4 again at 13..14 (two runs); slot 3 one token
+    at 300.  CPU int32 (block_tables, tok_slot, tok_pos); the pool has 5 x
+    Tb + 1 pages."""
+    tb = 512 // page
+    g = torch.Generator().manual_seed(page)
+    bt = (torch.randperm(5 * tb, generator=g) + 1).to(torch.int32)
+    runs = [(0, range(70)), (0, [-1] * 3), (1, range(245, 265)),
+            (4, range(10, 13)), (2, [0]), (4, range(13, 15)), (3, [300])]
+    tok_slot = [s for s, ps in runs for _ in ps]
+    tok_pos = [p for _, ps in runs for p in ps]
+    return (bt.reshape(5, tb), torch.tensor(tok_slot, dtype=torch.int32),
+            torch.tensor(tok_pos, dtype=torch.int32))
+
+
+def check_plan(PA, tick, h, hkv, d, page):
+    """The bf16 packed kernel's plan kernel against the plain builder."""
+    bt, tok_slot, tok_pos = tick[:3]
+    q = torch.empty(tok_slot.numel(), h, d, dtype=torch.bfloat16,
+                    device="cuda")
+    kp = torch.empty(1, page, hkv, d, dtype=torch.bfloat16, device="cuda")
+    got = PA.paged_packed_plan_cuda(q, kp, bt.cuda(), tok_slot.cuda(),
+                                    tok_pos.cuda())
+    want = PA.packed_work_list(tok_slot, tok_pos, G=h // hkv, Hkv=hkv,
+                               page=page, Tb=bt.shape[1])
+    print(f"  plan H={h} Hkv={hkv} page={page} T={tok_slot.numel()}: "
+          f"{got.shape[0]} items (packed_work_list: {want.shape[0]})",
+          flush=True)
+    require(torch.equal(got, want), "the plan kernel's work list differs "
+            "from packed_work_list's")
+
+
+def check_repeat(PA, label, tick, h, hkv, d, page, num_pages):
+    """Two launches of the bf16 packed kernel on the same inputs give the
+    same bits (splits combine in a fixed order, no atomics)."""
+    bt, tok_slot, tok_pos = (x.cuda() for x in tick[:3])
+    q, kp, vp = attention_inputs(torch.bfloat16, tok_slot.numel(), h, hkv,
+                                 d, page, num_pages, seed=11)
+    a = PA.paged_packed_attention_cuda(q, kp, vp, bt, tok_slot, tok_pos)
+    b = PA.paged_packed_attention_cuda(q, kp, vp, bt, tok_slot, tok_pos)
+    same = torch.equal(a, b)
+    print(f"  bf16 {label} tick twice: bit-identical {same}", flush=True)
+    require(same, f"two launches on the {label} tick differ")
 
 
 #: (D, page, H, Hkv) small shapes: G = 3, 4, 3, 1, 8, 3, 2
@@ -655,15 +740,21 @@ def page_copy_phase():
     return 0.0
 
 
-def _median_ms(fn, n=100, flush_bytes=256 << 20):
+def _median_ms(fn, n=100, flush_bytes=256 << 20, lead_cycles=0):
     """Median over n launches of one launch's CUDA-event time, with the L2
     cache flushed before each launch (the engine finds pages cold: every
-    other layer's pages pass through L2 between two reads of a layer)."""
+    other layer's pages pass through L2 between two reads of a layer).
+    With ``lead_cycles`` the card also spins that many clocks after the
+    flush (``torch.cuda._sleep``), so that a wrapper whose host work
+    outlasts the flush (about 0.08 ms) adds no idle time between the
+    events: the interval is then device time only."""
     flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
     fn()                                                   # warm-up
     times = []
     for _ in range(n):
         flush.zero_()
+        if lead_cycles:
+            torch.cuda._sleep(lead_cycles)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -722,19 +813,37 @@ def time_phase(bw):
         bt, tok_slot, tok_pos = (x.cuda() for x in tick[:3])
         q, kp, vp = attention_inputs(torch.bfloat16, tok_slot.numel(),
                                      H, HKV, D, PAGE, num_pages, seed=3)
+        # the wrapper's host work (~0.06 ms) is close to the flush's: lead
         kernel_ms = _median_ms(lambda: PA.paged_packed_attention_cuda(
-            q, kp, vp, bt, tok_slot, tok_pos))
+            q, kp, vp, bt, tok_slot, tok_pos), lead_cycles=LEAD_CYCLES)
         plain_ms = _median_ms(lambda: PA.paged_packed_attention_plain(
+            q, kp, vp, bt, tok_slot, tok_pos), lead_cycles=LEAD_CYCLES)
+        # as PR 15 timed it: no lead, so the wrapper's host work may show
+        no_lead_ms = _median_ms(lambda: PA.paged_packed_attention_cuda(
             q, kp, vp, bt, tok_slot, tok_pos))
         bound_ms, bound_by = _bound_ms(q, kp, bt, tok_slot, tok_pos,
                                        bw)
         rows[label] = dict(ms=kernel_ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           no_lead_ms=no_lead_ms)
         print(f"  {label}: kernel_ms {kernel_ms:.4f} plain_ms "
               f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
               f"library_ms none (no single PyTorch call computes paged "
-              f"ragged attention)", flush=True)
+              f"ragged attention); without the lead {no_lead_ms:.4f}; "
+              f"before the tensor-core kernel "
+              f"{PACKED_PR15_MS[label.split()[0]]} ms (PERF.md, PR 15's final "
+              f"run without a lead, NVIDIA H100 80GB HBM3, 700.00 W)",
+              flush=True)
     return rows
+
+
+#: clocks the card spins before a timed launch whose wrapper's host work is
+#: close to the flush's (about 0.2 ms at H100's 1.98 GHz boost clock)
+LEAD_CYCLES = 400_000
+
+#: the bf16 packed kernel's times before its tensor-core redesign (PERF.md
+#: section 6: attend_block, PR 15's final run), as text beside the new ones
+PACKED_PR15_MS = {"decode": "0.1780", "mixed": "0.3039"}
 
 
 def padded_time_phase(bw):
@@ -1222,7 +1331,8 @@ def profile_phase(engine, cfg, rng):
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(ms for _, ms, _ in rows)
-    attn_ms = sum(ms for k, ms, _ in rows if "paged_packed_kernel" in k)
+    attn_ms = sum(ms for k, ms, _ in rows if "paged_packed_kernel" in k
+                  or "packed_tc::" in k)
     print(f"  unprofiled: {ticks} ticks in {wall_ms:.1f} ms "
           f"({wall_ms / ticks:.2f} ms/tick); profiled: {prof_ticks} ticks in "
           f"{prof_wall_ms:.1f} ms")
@@ -1440,6 +1550,11 @@ def prefix_engine_phase(cfg, params, ecfg, kv=""):
           f"{ttft['cold']:.2f} ms; ticks hot {hot['st']['ticks']} vs cold "
           f"{cold['st']['ticks']}; wall hot {hot['wall']:.2f} s vs cold "
           f"{cold['wall']:.2f} s")
+    print(f"  hot run's stats()['prefix'] TTFT p50: hits "
+          f"{pst['ttft_hit_ticks']['p50']} ticks / "
+          f"{pst['ttft_hit_ms']['p50']:.2f} ms, misses "
+          f"{pst['ttft_cold_ticks']['p50']} ticks / "
+          f"{pst['ttft_cold_ms']['p50']:.2f} ms")
     print(f"  first-token logits of the {len(hits)} hits, max |hot - cold| "
           f"{diff:.4f} (bound {DUAL_LOGIT_BOUND}); streams equal hot vs "
           f"cold {same}/{len(work)}; mean common-prefix fraction "
@@ -2127,8 +2242,11 @@ def main():
     times = time_phase(bw)
     main_shape = "mixed tick (256 prefill + 7 decode near 1024 + 9 pad)"
     copy_times = page_copy_time_phase(bw)
+    decode_shape = "decode tick (8 tokens x ~64 pages)"
     times = {"paged_packed_attention": dict(
-        times[main_shape],
+        times[main_shape], decode_tick_ms=times[decode_shape]["ms"],
+        decode_tick_bound_ms=times[decode_shape]["bound_ms"],
+        decode_tick_no_lead_ms=times[decode_shape]["no_lead_ms"],
         shape=main_shape + ", bf16, H=24 Hkv=8 D=128 page=16"),
         **padded_time_phase(bw), **scale_time_phase(bw),
         **train_time_phase(bw),
@@ -2159,7 +2277,9 @@ def main():
     src = "src/repro_torch/kernels/csrc/"
     pa = "src/repro/kernels/paged_attention.py"
     where = {
-        "paged_packed_attention": ("paged_attention.cu", f"{pa}:346"),
+        # bf16 q on bf16 pages (the timed and main-path case): the
+        # tensor-core kernels, built as part of paged_attention.cu
+        "paged_packed_attention": ("paged_packed_tc.cuh", f"{pa}:346"),
         "paged_decode_attention": ("paged_attention.cu", f"{pa}:106"),
         "paged_chunk_attention": ("paged_attention.cu", f"{pa}:222"),
         "fused_dual_branch_decode": ("dual_branch.cu",
@@ -2176,7 +2296,7 @@ def main():
     for kv in KV_NARROW:
         for kname in ("paged_packed_attention", "paged_decode_attention",
                       "paged_chunk_attention"):
-            where[f"{kname}.{kv}"] = where[kname]
+            where[f"{kname}.{kv}"] = ("paged_attention.cu", where[kname][1])
     kernels = []
     for kname, (source, replaces) in where.items():
         row = times[kname]
@@ -2188,7 +2308,9 @@ def main():
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],
                  "library_ms": row.get("library_ms")}
-        for extra in ("unfused_ms", "wrapper_ms", "library_fwd_bwd_ms"):
+        for extra in ("unfused_ms", "wrapper_ms", "library_fwd_bwd_ms",
+                      "no_lead_ms", "decode_tick_ms", "decode_tick_bound_ms",
+                      "decode_tick_no_lead_ms"):
             if extra in row:
                 entry[extra] = row[extra]
         entry["shape"] = row["shape"]

@@ -572,72 +572,18 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kErrMap = -2;              // the driver refused a tensor map
 
-// Tile geometry in shared memory (see sm90_common.cuh): D / kChunk column
-// chunks of kRowBytes-byte rows, swizzled to match the wgmma descriptors.
-template <int D>
-struct Geo {
-  static constexpr int kChunk = D >= 64 ? 64 : D;
-  static constexpr int kRowBytes = kChunk * 2;
-  static constexpr int kChunks = D / kChunk;
-  static constexpr uint32_t kSwz = D >= 64 ? 1 : 2;      // 128B / 64B
-  static constexpr uint32_t kSBO = 8 * kRowBytes;        // next 8 rows
-  __host__ __device__ static constexpr int tile(int rows) {
-    return rows * D * 2;
-  }
-  __host__ __device__ static constexpr int chunk(int rows) {
-    return rows * kRowBytes;
-  }
-};
-
-// Descriptor of an operand whose contraction runs over D (K-major): rows
-// r0 .. r0 + 63 (A) or all rows (B, r0 = 0) of a tile, at k-step 0.  K-step
-// kk (columns 16 kk ..) of a ``rows``-row tile is kstep<D>(rows, kk) further.
-template <int D>
-__device__ __forceinline__ uint64_t kmajor(const uint8_t* tile, int r0) {
-  using G = Geo<D>;
-  return sm90::make_desc(sm90::smem_u32(tile) + r0 * G::kRowBytes, 16,
-                         G::kSBO, G::kSwz);
-}
-template <int D>
-__host__ __device__ constexpr int kstep(int rows, int kk) {
-  // in the 16-byte units of the descriptor's address field
-  return ((kk * 16 / Geo<D>::kChunk) * Geo<D>::chunk(rows) +
-          (kk * 16 % Geo<D>::kChunk) * 2) >> 4;
-}
-
-// Descriptor of a B operand whose contraction runs over the tile's rows and
-// whose N is D (MN-major, trans-b), at k-step 0; k-step t (rows 16 t ..
-// 16 t + 15) is mnstep<D>(t) further.
-template <int D>
-__device__ __forceinline__ uint64_t mnmajor(const uint8_t* tile, int rows) {
-  using G = Geo<D>;
-  return sm90::make_desc(sm90::smem_u32(tile), G::chunk(rows), G::kSBO,
-                         G::kSwz);
-}
-template <int D>
-__host__ __device__ constexpr int mnstep(int t) {
-  return (t * 16 * Geo<D>::kRowBytes) >> 4;
-}
-
-// d = A B^T over D in k-steps of 16, A (RowsA-row tile) and B (RowsB rows)
-// K-major in shared memory, from their k-step-0 descriptors.
-template <int D, int RowsA, int RowsB, int KK = 0, int N2>
-__device__ __forceinline__ void gemm_over_d(float (&d)[N2], uint64_t a,
-                                            uint64_t b) {
-  sm90::wgmma_ss<kstep<D>(RowsA, KK), kstep<D>(RowsB, KK)>(d, a, b, KK > 0);
-  if constexpr (KK + 1 < D / 16)
-    gemm_over_d<D, RowsA, RowsB, KK + 1>(d, a, b);
-}
-
-// d += A B over the rows of B: A the bf16 register fragments a[t] of
-// k-steps t, B an MN-major tile from its k-step-0 descriptor.
-template <int D, int T = 0, int N2, int KT>
-__device__ __forceinline__ void gemm_over_rows(float (&d)[N2],
-                                               const uint32_t (&a)[KT][4],
-                                               uint64_t b) {
-  sm90::wgmma_rs<mnstep<D>(T)>(d, a[T], b);
-  if constexpr (T + 1 < KT) gemm_over_rows<D, T + 1>(d, a, b);
-}
+// Tile layout, wgmma sequences and accumulator helpers shared with the
+// paged kernels (sm90_common.cuh).
+using sm90::align1024;
+using sm90::gemm_over_d;
+using sm90::gemm_over_rows;
+using sm90::Geo;
+using sm90::kmajor;
+using sm90::mnmajor;
+using sm90::quad_max;
+using sm90::quad_sum;
+using sm90::store_row;
+using sm90::to_a;
 
 // Rows row0 .. row0 + rows - 1 of one head of a (B, S, heads, D) tensor,
 // one TMA box per column chunk, signalled to ``bar``.
@@ -651,43 +597,6 @@ __device__ __forceinline__ void load_rows(uint8_t* tile, int rows,
   for (int c = 0; c < G::kChunks; ++c)
     sm90::tma_load_4d(tile + c * G::chunk(rows), map, bar, c * G::kChunk,
                       head, row0, b);
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Columns 16 t .. 16 t + 15 of an m64nN accumulator (N / 2 floats) as the
-// bf16 A operands of N / 16 k-steps.
-template <int N2>
-__device__ __forceinline__ void to_a(const float (&d)[N2],
-                                     uint32_t (&a)[N2 / 8][4]) {
-#pragma unroll
-  for (int t = 0; t < N2 / 8; ++t)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[t][r] = sm90::pack_bf16(d[8 * t + 2 * r], d[8 * t + 2 * r + 1]);
-}
-
-// One row of an m64nD accumulator (rows i of this thread) to a bf16 row in
-// global memory, times ``mul``.
-template <int D>
-__device__ __forceinline__ void store_row(bf16* dst, const float (&acc)[D / 2],
-                                          int i, int c2, float mul) {
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    *reinterpret_cast<uint32_t*>(dst + 8 * n + c2) = sm90::pack_bf16(
-        acc[4 * n + 2 * i] * mul, acc[4 * n + 2 * i + 1] * mul);
 }
 
 // Producer / consumer ring over the streamed tiles: tile it uses stage

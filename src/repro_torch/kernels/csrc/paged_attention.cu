@@ -3,13 +3,17 @@
 // and runs paged_common.cuh's attend_block; the layouts differ only in how a
 // block finds its query row, its sequence's block-table row and the number
 // of keys it sees.  Bounded by bytes; see paged_common.cuh for the design.
+// The one exception is the packed layout with bf16 q on bf16 pages, which
+// runs on the tensor cores (paged_packed_tc.cuh).
 //
 // paged_packed_attention -- replaces the Pallas TPU kernel
 //   src/repro/kernels/paged_attention.py:346 (body _paged_packed_kernel,
 //   :292), with its int8/fp8 row-scale variant.  Oracle ref.py:119.
 //   q (T, H, D); block_tables (S, Tb); tok_slot, tok_pos (T,) -> (T, H, D).
 //   Token t reads table row tok_slot[t], keys k <= tok_pos[t]; tok_pos == -1
-//   writes zeros.  Grid (T, Hkv).
+//   writes zeros.  Grid (T, Hkv); bf16 q on bf16 pages: paged_packed_tc.cuh's
+//   plan, attention and combine kernels over a caller's workspace, chosen by
+//   type (the only route for that pair).
 //
 // paged_decode_attention -- replaces src/repro/kernels/paged_attention.py:106
 //   (body _paged_kernel, :53), with its scale variant.  Oracle ref.py:45.
@@ -31,6 +35,7 @@
 // (paged_common.cuh).  Nothing is allocated and nothing synchronises.
 
 #include "paged_common.cuh"
+#include "paged_packed_tc.cuh"
 
 namespace {
 
@@ -92,12 +97,15 @@ paged_chunk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
                            n_keys, h, Hkv, G, page, scale, out + row * D, sm);
 }
 
+// The workspace (ws, bytes) is the tensor-core route's; the attend_block
+// route takes none.
 template <typename TQ, typename TKV>
 struct PackedLaunch {
   static int run(const void* q, const void* k, const void* v,
                  const float* ks, const float* vs, const int* bt,
                  const int* tok_slot, const int* tok_pos, void* out, int T,
                  int H, int Hkv, int D, int page, int Tb, float scale,
+                 void* /*ws*/, long long /*bytes*/, int /*device*/,
                  cudaStream_t s) {
     const dim3 grid(T, Hkv);
 #define REPRO_LAUNCH(DD)                                                    \
@@ -108,6 +116,19 @@ struct PackedLaunch {
     REPRO_SWITCH_HEAD_DIM(D, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
     return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// bf16 q on bf16 pages: the tensor-core kernels.
+template <>
+struct PackedLaunch<__nv_bfloat16, __nv_bfloat16> {
+  static int run(const void* q, const void* k, const void* v,
+                 const float* /*ks*/, const float* /*vs*/, const int* bt,
+                 const int* tok_slot, const int* tok_pos, void* out, int T,
+                 int H, int Hkv, int D, int page, int Tb, float scale,
+                 void* ws, long long bytes, int device, cudaStream_t s) {
+    return packed_tc::launch(q, k, v, bt, tok_slot, tok_pos, out, T, H, Hkv,
+                             D, page, Tb, scale, ws, bytes, device, s);
   }
 };
 
@@ -169,20 +190,50 @@ extern "C" {
 // fp32.  kv_type: 0 fp32, 1 bfloat16, 2 int8, 3 fp8 e4m3; ks / vs are the
 // (P, page) fp32 row scales of types 2 and 3 and null otherwise.  The
 // launch goes on `stream` and does not synchronise.
+//
+// paged_packed_attention's workspace is device memory of at least
+// paged_packed_workspace_bytes(...) bytes (0 for every type pair but bf16
+// q on bf16 pages, whose kernels keep their work list and split partials
+// there; null when 0).
 int paged_packed_attention(const void* q, const void* k, const void* v,
                            const float* ks, const float* vs, const int* bt,
                            const int* tok_slot, const int* tok_pos,
                            void* out, int T, int H, int Hkv, int D,
                            int page, int Tb, float scale,
                            int q_bf16, int kv_type, int device,
-                           void* stream) {
+                           void* stream, void* workspace,
+                           long long workspace_bytes) {
   if (T == 0) return 0;
   const int err = prologue(H, Hkv, page, Tb, kv_type, ks, vs, device);
   if (err) return err;
   return by_kv_types<PackedLaunch>(q_bf16, kv_type, q, k, v, ks, vs, bt,
                                    tok_slot, tok_pos, out, T, H, Hkv, D,
-                                   page, Tb, scale,
+                                   page, Tb, scale, workspace,
+                                   workspace_bytes, device,
                                    static_cast<cudaStream_t>(stream));
+}
+
+long long paged_packed_workspace_bytes(int T, int H, int Hkv, int D,
+                                       int page, int Tb, int q_bf16,
+                                       int kv_type) {
+  if (!(q_bf16 && kv_type == 1) || T <= 0 || Hkv <= 0) return 0;
+  return (long long)packed_tc::workspace_layout(T, H, Hkv, D, Tb * page)
+      .bytes;
+}
+
+// The tensor-core route's plan kernel alone: the work list of a tick into
+// the workspace (int32 count at byte 0, int4 items from byte 16).
+int paged_packed_plan(const int* tok_slot, const int* tok_pos, int T, int H,
+                      int Hkv, int D, int page, int Tb, void* workspace,
+                      long long workspace_bytes, int device, void* stream) {
+  if (T <= 0 || Hkv <= 0 || H % Hkv || H / Hkv > repro_paged::kMaxG ||
+      page <= 0 || Tb <= 0)
+    return -1;
+  const int err = static_cast<int>(cudaSetDevice(device));
+  if (err) return err;
+  return packed_tc::plan(tok_slot, tok_pos, T, H, Hkv, D, page, Tb,
+                         workspace, workspace_bytes,
+                         static_cast<cudaStream_t>(stream));
 }
 
 int paged_decode_attention(const void* q, const void* k, const void* v,

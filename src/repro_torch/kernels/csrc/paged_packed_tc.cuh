@@ -1,0 +1,571 @@
+// The bf16 packed paged attention on Hopper's tensor cores: the path of
+// paged_attention.cu's paged_packed_attention for bf16 q on bf16 pages
+// (every other type pair runs paged_common.cuh's attend_block).
+//
+// Replaces, for that type pair, the Pallas TPU kernel
+// src/repro/kernels/paged_attention.py:346 (body _paged_packed_kernel,
+// :292), whose grid is one (token, KV head) per step with the pages as a
+// sequential, pipelined grid axis.  Here the tokens of a slot that sit side
+// by side in the packed buffer share their K/V tiles and one tensor-core
+// product:
+//
+//   * A run is a maximal stretch of consecutive tokens of one slot at
+//     consecutive positions (tok_pos >= 0).  The engine packs each lane as
+//     one run, but runs are found from tok_slot / tok_pos, not assumed:
+//     padding rows (tok_pos == -1, in slot 0 like a live lane) are in no
+//     run, and a slot may appear as several runs.
+//   * A work item is (up to 64 / G tokens of one run, one KV head, one key
+//     split).  Its 64 query rows are the (token, g) pairs, token-major, and
+//     row (t, g) sees key j iff j <= tok_pos[t].  A run is cut into chunks
+//     of 64 / G tokens from its first token on; a chunk's keys, up to its
+//     last token's position, into splits of L keys (split_keys: at least
+//     256, at most 8 splits of the table's Tb * page keys), so that a
+//     decode tick of a few long lanes still gives the card a few hundred
+//     items.
+//   * A plan kernel (one block, no host synchronisation) finds the runs and
+//     writes the work list into the caller's workspace, chunk by chunk,
+//     split by split, KV head by KV head; the attention kernel runs a
+//     persistent grid (SMs x resident blocks) that walks the list with a
+//     stride; a combine kernel merges the splits of each token in split
+//     order (no atomics: the same bits on every run) and writes the
+//     padding rows as exact zeros.  A row whose keys lie in one split is
+//     written by its item directly.  The attention and combine kernels are
+//     programmatic dependents of the kernel before them (their blocks start
+//     while it finishes and wait for it in-kernel), and every combine block
+//     waits for the attention kernel, so work after the call sees all of
+//     the output.
+//   * Per item, one warpgroup: Q (64 rows x D) and 64-key K/V tiles are
+//     gathered row by row (row_bt[k / page]) with 16-byte cp.async straight
+//     into the swizzled layout of sm90_common.cuh, double-buffered so that
+//     the next tile's gather overlaps this tile's products.  S = Q K^T and
+//     O += P V run as wgmma m64nNk16 with fp32 accumulators; the online
+//     softmax is fp32 in registers (exp2, the scale folded in); P is
+//     rounded to bf16 as the A operand of P V.  Each K/V row is read once
+//     per (chunk, KV head, split) for all of the chunk's tokens and heads.
+//   * Partials: (m, l) in the log2 domain and the unnormalised fp32
+//     accumulator, at (split, token, head) in the workspace.
+//
+// Semantics as attend_block's: the reference's -1e30 mask (as -inf: masked
+// scores weigh exactly 0), division by max(l, 1e-30), tok_pos == -1 rows
+// exact zeros, keys past Tb * page never read.
+//
+// What bounds it on this card: bytes (each visible K/V row of a chunk once
+// per KV head; ~6 flops a byte at G = 3, and the 64-row products waste the
+// rows a short chunk leaves empty, which the tensor cores absorb).
+//
+// Workspace (bytes, from workspace_layout): int32 item count at 0; the
+// items (int4: first token, tokens, split, KV head) from byte 16; then,
+// when a chunk can have more than one split, (m, l) float2 and the fp32
+// accumulators, each (splits, T, H[, D]).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "sm90_common.cuh"
+
+namespace packed_tc {
+
+using bf16 = __nv_bfloat16;
+using sm90::Geo;
+
+constexpr int kThreads = 128;       // one warpgroup
+constexpr int kRows = 64;           // query rows of an item (wgmma m64)
+constexpr int kKeys = 64;           // keys of a K/V tile
+constexpr int kStages = 2;          // K/V tiles in shared memory
+constexpr int kMinSplit = 256;      // keys of a split, at least
+constexpr int kMaxSplits = 8;       // splits of a chunk, at most
+constexpr int kPlanThreads = 1024;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Keys of a split for a table of max_keys = Tb * page keys.
+__host__ __device__ inline int split_keys(int max_keys) {
+  int per = (max_keys + kMaxSplits - 1) / kMaxSplits;
+  per = (per + kKeys - 1) / kKeys * kKeys;
+  return per > kMinSplit ? per : kMinSplit;
+}
+
+// Byte offsets of the workspace's parts and its size.
+struct Layout {
+  size_t items, ml, acc, bytes;
+};
+
+inline Layout workspace_layout(int T, int H, int Hkv, int D, int max_keys) {
+  const int L = split_keys(max_keys);
+  const int splits = (max_keys + L - 1) / L;       // most of a chunk
+  const size_t max_items = (size_t)T * splits * Hkv;   // chunks <= T
+  const size_t parts = splits > 1 ? (size_t)splits * T * H : 0;
+  Layout w;
+  w.items = 16;
+  w.ml = w.items + 16 * max_items;
+  w.acc = w.ml + 8 * parts;
+  w.bytes = w.acc + 4 * parts * D;
+  return w;
+}
+
+// ---------------------------------------------------------------- plan
+// Inclusive scan of v over the block with op; every thread must call it.
+template <typename Op>
+__device__ __forceinline__ int block_scan(int v, Op op, int* warp_tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v = op(v, n);
+  }
+  if (lane == 31) warp_tot[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    int w = warp_tot[lane];          // kPlanThreads / 32 == 32 warps
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int n = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w = op(w, n);
+    }
+    warp_tot[lane] = w;
+  }
+  __syncthreads();
+  if (warp > 0) v = op(v, warp_tot[warp - 1]);
+  __syncthreads();                   // warp_tot is reused by the next scan
+  return v;
+}
+
+// The work list of a tick: for each chunk (in token order), each split,
+// each KV head, one int4 (first token, tokens, split, KV head); the count
+// at *count.  One block of kPlanThreads threads, T in tiles of that size.
+__global__ void __launch_bounds__(kPlanThreads)
+plan_kernel(const int* __restrict__ tok_slot, const int* __restrict__ tok_pos,
+            int T, int R, int L, int max_keys, int Hkv,
+            int* __restrict__ count, int4* __restrict__ items) {
+  static_assert(kPlanThreads == 32 * 32, "block_scan's warp totals");
+  sm90::launch_dependents();         // the attention grid may start now
+  __shared__ int warp_tot[32];
+  __shared__ int carry[2];
+  int run_carry = -1, item_carry = 0;
+  for (int base = 0; base < T; base += kPlanThreads) {
+    const int t = base + threadIdx.x;
+    const int p = t < T ? tok_pos[t] : -1;
+    const int sl = t < T ? tok_slot[t] : 0;
+    const bool live = p >= 0;
+    // token t continues token t - 1's run; token t + 1 continues t's
+    const bool cont = live && t > 0 && tok_pos[t - 1] >= 0 &&
+                      tok_slot[t - 1] == sl && p == tok_pos[t - 1] + 1;
+    const bool next = live && t + 1 < T && tok_slot[t + 1] == sl &&
+                      tok_pos[t + 1] == p + 1;
+    // the latest run start at or before t: t's run start if t is live
+    int rs = block_scan(live && !cont ? t : -1,
+                        [](int a, int b) { return a > b ? a : b; }, warp_tot);
+    rs = rs > run_carry ? rs : run_carry;
+    // t ends a chunk: the run ends, or R tokens since the run's start
+    int t0 = 0, ns = 0;
+    if (live && (!next || (t + 1 - rs) % R == 0)) {
+      t0 = rs + (t - rs) / R * R;
+      const int nk = min(p + 1, max_keys);
+      ns = (nk + L - 1) / L;
+    }
+    const int n_items = ns * Hkv;
+    const int incl = block_scan(n_items, [](int a, int b) { return a + b; },
+                                warp_tot);
+    const int off = item_carry + incl - n_items;
+    for (int s = 0; s < ns; ++s)
+      for (int hk = 0; hk < Hkv; ++hk)
+        items[off + s * Hkv + hk] = make_int4(t0, t - t0 + 1, s, hk);
+    if (threadIdx.x == kPlanThreads - 1) {
+      carry[0] = rs;
+      carry[1] = item_carry + incl;
+    }
+    __syncthreads();
+    run_carry = carry[0];
+    item_carry = carry[1];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *count = item_carry;
+}
+
+// ------------------------------------------------------------ attention
+template <int D>
+constexpr size_t attn_smem() {
+  using G = Geo<D>;
+  return 1024 + G::tile(kRows) + kStages * 2 * G::tile(kKeys);
+}
+
+// The item's query rows: row r = (token j, g) = (r / G, r % G) of tokens
+// t0.., KV head hk; rows at or past `rows` are zeros.
+template <int D>
+__device__ __forceinline__ void load_q(uint8_t* Qs, const bf16* q, int t0,
+                                       int rows, int G, int hk, int H) {
+  constexpr int kUnits = D / 8;                    // 16-byte units a row
+  const uint32_t base = sm90::smem_u32(Qs);
+#pragma unroll
+  for (int i = 0; i < kRows * kUnits / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int r = e / kUnits, u = e % kUnits;
+    const bool valid = r < rows;
+    const bf16* src = q;
+    if (valid)
+      src = q + ((size_t)(t0 + r / G) * H + hk * G + r % G) * D + u * 8;
+    sm90::cp_async16(base + sm90::tile_offset<D>(kRows, r, u), src, valid);
+  }
+}
+
+// A thread's share of a K/V tile: 16-byte unit u = threadIdx.x % (D / 8)
+// of tile rows threadIdx.x / (D / 8) + i * kStep, i < kPer.
+template <int D>
+struct KvShare {
+  static constexpr int kUnits = D / 8;
+  static constexpr int kStep = kThreads / kUnits;
+  static constexpr int kPer = kKeys / kStep;
+};
+
+// The pool rows (page * page_size + offset) of keys k0 .. k0 + 63 that this
+// thread gathers, -1 at or past k_end: the block-table loads, issued a tile
+// ahead so that their latency hides behind a tile's products.
+template <int D>
+__device__ __forceinline__ void kv_rows(int (&prow)[KvShare<D>::kPer],
+                                        const int* row_bt, int k0, int k_end,
+                                        int page) {
+  using S = KvShare<D>;
+#pragma unroll
+  for (int i = 0; i < S::kPer; ++i) {
+    const int k = k0 + threadIdx.x / S::kUnits + i * S::kStep;
+    prow[i] = k < k_end ? row_bt[k / page] * page + k % page : -1;
+  }
+}
+
+// Those rows of KV head hk into a K tile and the V tile after it; rows of
+// -1 are zeros.
+template <int D>
+__device__ __forceinline__ void load_kv(uint8_t* Ks, const bf16* kp,
+                                        const bf16* vp,
+                                        const int (&prow)[KvShare<D>::kPer],
+                                        int Hkv, int hk) {
+  using S = KvShare<D>;
+  const uint32_t kbase = sm90::smem_u32(Ks);
+  const uint32_t vbase = kbase + Geo<D>::tile(kKeys);
+  const int u = threadIdx.x % S::kUnits;
+#pragma unroll
+  for (int i = 0; i < S::kPer; ++i) {
+    const int r = threadIdx.x / S::kUnits + i * S::kStep;
+    const bool valid = prow[i] >= 0;
+    const size_t off =
+        valid ? ((size_t)prow[i] * Hkv + hk) * D + u * 8 : 0;
+    const uint32_t so = sm90::tile_offset<D>(kKeys, r, u);
+    sm90::cp_async16(kbase + so, kp + off, valid);
+    sm90::cp_async16(vbase + so, vp + off, valid);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
+            const bf16* __restrict__ vp, const int* __restrict__ bt,
+            const int* __restrict__ tok_slot, const int* __restrict__ tok_pos,
+            bf16* __restrict__ out, const int* __restrict__ count,
+            const int4* __restrict__ items, float2* __restrict__ part_ml,
+            float* __restrict__ part_acc, int T, int H, int Hkv, int G,
+            int page, int Tb, int L, float scale_log2) {
+  using Gm = Geo<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = sm90::align1024(smem_raw);
+  uint8_t* KV = Qs + Gm::tile(kRows);        // stage s: K, then V
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c2 = 2 * (lane & 3);
+  const int r0 = warp * 16 + lane / 4;       // this thread's rows r0, r0 + 8
+  const int max_keys = Tb * page;
+  const uint64_t q_desc = sm90::kmajor<D>(Qs, 0);
+  sm90::grid_dependency_wait();              // the plan kernel's work list
+  sm90::launch_dependents();                 // the combine grid may start
+  const int n_items = *count;
+
+  for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+    const int4 it = items[w];
+    const int t0 = it.x, n = it.y, s = it.z, hk = it.w;
+    const int p0 = tok_pos[t0];
+    const int* row_bt = bt + (size_t)tok_slot[t0] * Tb;
+    const int k_begin = s * L;
+    const int k_end = min(min(p0 + n, max_keys), k_begin + L);
+    const int n_tiles = (k_end - k_begin + kKeys - 1) / kKeys;
+    const int rows = n * G;
+    int prow[KvShare<D>::kPer];
+    kv_rows<D>(prow, row_bt, k_begin, k_end, page);
+    load_q<D>(Qs, q, t0, rows, G, hk, H);
+    load_kv<D>(KV, kp, vp, prow, Hkv, hk);
+    sm90::cp_async_commit();
+    if (n_tiles > 1) kv_rows<D>(prow, row_bt, k_begin + kKeys, k_end, page);
+    // last visible key of rows r0, r0 + 8 (empty rows: every loaded key)
+    int last[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      last[i] = r < rows ? p0 + r / G : max_keys;
+    }
+    float acc[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int k0 = k_begin + j * kKeys;
+      if (j + 1 < n_tiles) {               // gather the next tile meanwhile
+        load_kv<D>(KV + ((j + 1) % kStages) * 2 * Gm::tile(kKeys), kp, vp,
+                   prow, Hkv, hk);
+        sm90::cp_async_commit();
+        if (j + 2 < n_tiles)
+          kv_rows<D>(prow, row_bt, k0 + 2 * kKeys, k_end, page);
+        sm90::cp_async_wait<1>();
+      } else {
+        sm90::cp_async_wait<0>();
+      }
+      sm90::fence_proxy_async();
+      __syncthreads();
+      const uint8_t* Ks = KV + (j % kStages) * 2 * Gm::tile(kKeys);
+      const uint8_t* Vs = Ks + Gm::tile(kKeys);
+
+      float sc[kKeys / 2];
+      sm90::wgmma_fence();
+      sm90::gemm_over_d<D, kRows, kKeys>(sc, q_desc, sm90::kmajor<D>(Ks, 0));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::fence_regs(sc);
+      // scores in the log2 domain (any sign of scale); key k0 + 8 n + c2 +
+      // jj of row r0 + 8 i is visible iff below k_end and at most the row's
+      // position (row 0 has the least)
+#pragma unroll
+      for (int e = 0; e < kKeys / 2; ++e) sc[e] *= scale_log2;
+      if (k0 + kKeys > k_end || k0 + kKeys - 1 > p0) {
+#pragma unroll
+        for (int n8 = 0; n8 < kKeys / 8; ++n8)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              const int key = k0 + 8 * n8 + c2 + jj;
+              if (key >= k_end || key > last[i])
+                sc[4 * n8 + 2 * i + jj] = -INFINITY;
+            }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n8 = 0; n8 < kKeys / 8; ++n8)
+          mx = fmaxf(mx, fmaxf(sc[4 * n8 + 2 * i], sc[4 * n8 + 2 * i + 1]));
+        const float m_new = fmaxf(m[i], sm90::quad_max(mx));
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = sm90::ex2(m[i] - m_use);
+        m[i] = m_new;
+        float rs = 0.f;
+#pragma unroll
+        for (int n8 = 0; n8 < kKeys / 8; ++n8)
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int e = 4 * n8 + 2 * i + jj;
+            sc[e] = sm90::ex2(sc[e] - m_use);
+            rs += sc[e];
+          }
+        l[i] = l[i] * alpha + rs;
+#pragma unroll
+        for (int n8 = 0; n8 < D / 8; ++n8) {
+          acc[4 * n8 + 2 * i] *= alpha;
+          acc[4 * n8 + 2 * i + 1] *= alpha;
+        }
+      }
+      uint32_t pa[kKeys / 16][4];
+      sm90::to_a(sc, pa);
+      sm90::wgmma_fence();
+      sm90::gemm_over_rows<D>(acc, pa, sm90::mnmajor<D>(Vs, kKeys));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::fence_regs(acc);
+      sm90::fence_regs(pa);
+      __syncthreads();                     // the stage is gathered again
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float li = sm90::quad_sum(l[i]);
+      const int r = r0 + 8 * i;
+      if (r >= rows) continue;
+      const int t = t0 + r / G, h = hk * G + r % G;
+      const int pos = p0 + r / G;
+      if (pos < k_begin) continue;         // no key of this split
+      const int splits = (min(pos + 1, max_keys) + L - 1) / L;
+      if (splits == 1) {                   // all its keys: the output
+        sm90::store_row<D>(out + ((size_t)t * H + h) * D, acc, i, c2,
+                           __fdividef(1.f, fmaxf(li, 1e-30f)));
+        continue;
+      }
+      const size_t slot = ((size_t)s * T + t) * H + h;
+      float* dst = part_acc + slot * D;
+#pragma unroll
+      for (int n8 = 0; n8 < D / 8; ++n8)
+        *reinterpret_cast<float2*>(dst + 8 * n8 + c2) =
+            make_float2(acc[4 * n8 + 2 * i], acc[4 * n8 + 2 * i + 1]);
+      if ((lane & 3) == 0) part_ml[slot] = make_float2(m[i], li);
+    }
+  }
+}
+
+// -------------------------------------------------------------- combine
+// Block (t, y): heads y * kHeads .. of token t, D / 4 threads a head, four
+// columns a thread.  Padding rows are written as zeros; a token whose keys
+// span several splits as the merge of its splits' partials in split order
+// (at most kMaxSplits, loaded together).
+template <int D>
+struct CombineShape {
+  static constexpr int kPer = D / 4;                 // threads of a head
+  static constexpr int kHeads = kThreads / kPer;     // heads of a block
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+combine_kernel(const int* __restrict__ tok_pos, bf16* __restrict__ out,
+               const float2* __restrict__ part_ml,
+               const float* __restrict__ part_acc, int T, int H,
+               int max_keys, int L) {
+  using C = CombineShape<D>;
+  const int t = blockIdx.x;
+  const int h = blockIdx.y * C::kHeads + threadIdx.x / C::kPer;
+  const int d4 = threadIdx.x % C::kPer;
+  const int p = tok_pos[t];
+  uint2* o = reinterpret_cast<uint2*>(out + ((size_t)t * H + h) * D) + d4;
+  if (h < H && p < 0) *o = make_uint2(0, 0);
+  // every block waits for the attention kernel's partials (and so finishes
+  // after it: work after this kernel in the stream sees all of out)
+  sm90::grid_dependency_wait();
+  if (h >= H || p < 0) return;
+  const int splits = (min(p + 1, max_keys) + L - 1) / L;
+  if (splits == 1) return;                 // written by its item
+  const size_t slot0 = (size_t)t * H + h, stride = (size_t)T * H;
+  float2 ml[kMaxSplits];
+  float4 v[kMaxSplits];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s) {
+    if (s < splits) {
+      ml[s] = part_ml[slot0 + s * stride];
+      v[s] = reinterpret_cast<const float4*>(
+          part_acc + (slot0 + s * stride) * D)[d4];
+      mx = fmaxf(mx, ml[s].x);
+    }
+  }
+  float l = 0.f;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s) {
+    if (s < splits) {
+      const float w = sm90::ex2(ml[s].x - mx);
+      l += w * ml[s].y;
+      a.x += w * v[s].x;
+      a.y += w * v[s].y;
+      a.z += w * v[s].z;
+      a.w += w * v[s].w;
+    }
+  }
+  // the approximate reciprocal has no slow path (l >= 1 here: the split
+  // holding the maximum adds at least 1)
+  const float inv = __fdividef(1.f, fmaxf(l, 1e-30f));
+  *o = make_uint2(sm90::pack_bf16(a.x * inv, a.y * inv),
+                  sm90::pack_bf16(a.z * inv, a.w * inv));
+}
+
+// ----------------------------------------------------------------- host
+// Writes the work list into ws; -1 if the workspace is too small.
+inline int plan(const int* tok_slot, const int* tok_pos, int T, int H,
+                int Hkv, int D, int page, int Tb, void* ws, long long bytes,
+                cudaStream_t st) {
+  const int max_keys = Tb * page;
+  const Layout w = workspace_layout(T, H, Hkv, D, max_keys);
+  if (ws == nullptr || bytes < (long long)w.bytes) return -1;
+  uint8_t* base = static_cast<uint8_t*>(ws);
+  plan_kernel<<<1, kPlanThreads, 0, st>>>(
+      tok_slot, tok_pos, T, kRows / (H / Hkv), split_keys(max_keys),
+      max_keys, Hkv, reinterpret_cast<int*>(base),
+      reinterpret_cast<int4*>(base + w.items));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The attention kernel's persistent grid: SMs x resident blocks, found once
+// per device (static: the cache is this library's own, not a symbol that
+// another library built from this header would share).
+template <int D>
+static int grid_size(int device) {
+  static int cached[16] = {};
+  if (device < 0 || device >= 16) return -1;
+  if (cached[device] == 0) {
+    if (cudaFuncSetAttribute(attn_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)attn_smem<D>()) != cudaSuccess)
+      return -1;
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                               device) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, attn_kernel<D>, kThreads, attn_smem<D>()) !=
+            cudaSuccess ||
+        sms * per_sm == 0)
+      return -1;
+    cached[device] = sms * per_sm;
+  }
+  return cached[device];
+}
+
+template <int D>
+int attend(const bf16* q, const bf16* kp, const bf16* vp, const int* bt,
+           const int* tok_slot, const int* tok_pos, bf16* out, int T, int H,
+           int Hkv, int page, int Tb, float scale, uint8_t* ws,
+           const Layout& w, int device, cudaStream_t st) {
+  const int grid = grid_size<D>(device);
+  if (grid < 0) return -1;
+  const int max_keys = Tb * page, L = split_keys(max_keys);
+  float2* ml = reinterpret_cast<float2*>(ws + w.ml);
+  float* acc = reinterpret_cast<float*>(ws + w.acc);
+  // the attention and combine kernels start while the kernel before each
+  // finishes (programmatic dependent launch), and wait for it in-kernel
+  int err = static_cast<int>(sm90::launch_dependent(
+      attn_kernel<D>, dim3(grid), dim3(kThreads), attn_smem<D>(), st, q, kp,
+      vp, bt, tok_slot, tok_pos, out, reinterpret_cast<const int*>(ws),
+      reinterpret_cast<const int4*>(ws + w.items), ml, acc, T, H, Hkv,
+      H / Hkv, page, Tb, L, scale * kLog2e));
+  if (err) return err;
+  const dim3 cgrid(T, (H + CombineShape<D>::kHeads - 1) /
+                          CombineShape<D>::kHeads);
+  err = static_cast<int>(sm90::launch_dependent(
+      combine_kernel<D>, cgrid, dim3(kThreads), 0, st, tok_pos, out,
+      static_cast<const float2*>(ml), static_cast<const float*>(acc), T, H,
+      max_keys, L));
+  return err;
+}
+
+// Plan, attention and combine on stream st: 0, -1 for an argument the
+// kernels do not take, else the cudaError_t of a launch.
+inline int launch(const void* q, const void* kp, const void* vp,
+                  const int* bt, const int* tok_slot, const int* tok_pos,
+                  void* out, int T, int H, int Hkv, int D, int page, int Tb,
+                  float scale, void* ws, long long bytes, int device,
+                  cudaStream_t st) {
+  if ((D != 32 && D != 64 && D != 128) ||
+      (reinterpret_cast<uintptr_t>(q) & 15) ||
+      (reinterpret_cast<uintptr_t>(out) & 15))
+    return -1;
+  int err = plan(tok_slot, tok_pos, T, H, Hkv, D, page, Tb, ws, bytes, st);
+  if (err) return err;
+  const Layout w = workspace_layout(T, H, Hkv, D, Tb * page);
+#define REPRO_ATTEND(DD)                                                    \
+  return attend<DD>(static_cast<const bf16*>(q),                           \
+                    static_cast<const bf16*>(kp),                          \
+                    static_cast<const bf16*>(vp), bt, tok_slot, tok_pos,   \
+                    static_cast<bf16*>(out), T, H, Hkv, page, Tb, scale,   \
+                    static_cast<uint8_t*>(ws), w, device, st)
+  switch (D) {
+    case 32: REPRO_ATTEND(32);
+    case 64: REPRO_ATTEND(64);
+    case 128: REPRO_ATTEND(128);
+    default: return -1;
+  }
+#undef REPRO_ATTEND
+}
+
+}  // namespace packed_tc

@@ -1,10 +1,13 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: shared-memory
-// addresses, mbarriers, TMA tile loads, wgmma descriptors and the bf16
-// wgmma shapes the attention kernels use, register rebalancing between
-// warpgroups, and the host-side encoding of TMA tensor maps.
+// addresses, mbarriers, TMA tile loads, cp.async copies, wgmma descriptors
+// and the bf16 wgmma shapes the attention kernels use, the tile layout and
+// the wgmma sequences over it (flash_attention.cu, paged_packed_tc.cuh),
+// register rebalancing between warpgroups, and the host-side encoding of
+// TMA tensor maps.
 //
 // Everything is raw PTX through inline asm (PTX ISA 8.0: cp.async.bulk.tensor,
-// mbarrier.*.expect_tx, wgmma.mma_async, setmaxnreg); no CUTLASS.  The
+// cp.async, mbarrier.*.expect_tx, wgmma.mma_async, setmaxnreg); no CUTLASS.
+// The
 // driver's cuTensorMapEncodeTiled is reached through the runtime's
 // cudaGetDriverEntryPoint, so a library that includes this header does not
 // link against libcuda.
@@ -302,8 +305,187 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
           "n"(OffB), "r"(1));
 }
 
+// -------------------------------------------------------------- cp.async
+// 16 bytes from global to shared memory, asynchronously; with valid false
+// the 16 bytes are written as zeros and nothing is read.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's shared-memory writes (st.shared, finished cp.async)
+// visible to the async proxy that wgmma reads its operands through; follow
+// with a barrier before the wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------ programmatic dependent launch
+// In a kernel launched by launch_dependent: waits until the kernel before it
+// in the stream has finished and its writes are visible (a no-op in a
+// kernel launched plainly).
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+// Lets the kernel after this one in the stream, when launched by
+// launch_dependent, start its blocks (up to its grid_dependency_wait) now.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// ------------------------------------------- tiles and wgmma sequences
+// Tile geometry in shared memory (the layout at the top of this file): D /
+// kChunk column chunks of kRowBytes-byte rows, swizzled to match the wgmma
+// descriptors.
+template <int D>
+struct Geo {
+  static constexpr int kChunk = D >= 64 ? 64 : D;
+  static constexpr int kRowBytes = kChunk * 2;
+  static constexpr int kChunks = D / kChunk;
+  static constexpr uint32_t kSwz = D >= 64 ? 1 : 2;      // 128B / 64B
+  static constexpr uint32_t kSBO = 8 * kRowBytes;        // next 8 rows
+  __host__ __device__ static constexpr int tile(int rows) {
+    return rows * D * 2;
+  }
+  __host__ __device__ static constexpr int chunk(int rows) {
+    return rows * kRowBytes;
+  }
+};
+
+// Descriptor of an operand whose contraction runs over D (K-major): rows
+// r0 .. r0 + 63 (A) or all rows (B, r0 = 0) of a tile, at k-step 0.  K-step
+// kk (columns 16 kk ..) of a ``rows``-row tile is kstep<D>(rows, kk) further.
+template <int D>
+__device__ __forceinline__ uint64_t kmajor(const uint8_t* tile, int r0) {
+  using G = Geo<D>;
+  return sm90::make_desc(sm90::smem_u32(tile) + r0 * G::kRowBytes, 16,
+                         G::kSBO, G::kSwz);
+}
+template <int D>
+__host__ __device__ constexpr int kstep(int rows, int kk) {
+  // in the 16-byte units of the descriptor's address field
+  return ((kk * 16 / Geo<D>::kChunk) * Geo<D>::chunk(rows) +
+          (kk * 16 % Geo<D>::kChunk) * 2) >> 4;
+}
+
+// Descriptor of a B operand whose contraction runs over the tile's rows and
+// whose N is D (MN-major, trans-b), at k-step 0; k-step t (rows 16 t ..
+// 16 t + 15) is mnstep<D>(t) further.
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor(const uint8_t* tile, int rows) {
+  using G = Geo<D>;
+  return sm90::make_desc(sm90::smem_u32(tile), G::chunk(rows), G::kSBO,
+                         G::kSwz);
+}
+template <int D>
+__host__ __device__ constexpr int mnstep(int t) {
+  return (t * 16 * Geo<D>::kRowBytes) >> 4;
+}
+
+// d = A B^T over D in k-steps of 16, A (RowsA-row tile) and B (RowsB rows)
+// K-major in shared memory, from their k-step-0 descriptors.
+template <int D, int RowsA, int RowsB, int KK = 0, int N2>
+__device__ __forceinline__ void gemm_over_d(float (&d)[N2], uint64_t a,
+                                            uint64_t b) {
+  sm90::wgmma_ss<kstep<D>(RowsA, KK), kstep<D>(RowsB, KK)>(d, a, b, KK > 0);
+  if constexpr (KK + 1 < D / 16)
+    gemm_over_d<D, RowsA, RowsB, KK + 1>(d, a, b);
+}
+
+// d += A B over the rows of B: A the bf16 register fragments a[t] of
+// k-steps t, B an MN-major tile from its k-step-0 descriptor.
+template <int D, int T = 0, int N2, int KT>
+__device__ __forceinline__ void gemm_over_rows(float (&d)[N2],
+                                               const uint32_t (&a)[KT][4],
+                                               uint64_t b) {
+  sm90::wgmma_rs<mnstep<D>(T)>(d, a[T], b);
+  if constexpr (T + 1 < KT) gemm_over_rows<D, T + 1>(d, a, b);
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Columns 16 t .. 16 t + 15 of an m64nN accumulator (N / 2 floats) as the
+// bf16 A operands of N / 16 k-steps.
+template <int N2>
+__device__ __forceinline__ void to_a(const float (&d)[N2],
+                                     uint32_t (&a)[N2 / 8][4]) {
+#pragma unroll
+  for (int t = 0; t < N2 / 8; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[t][r] = sm90::pack_bf16(d[8 * t + 2 * r], d[8 * t + 2 * r + 1]);
+}
+
+// One row of an m64nD accumulator (rows i of this thread) to a bf16 row in
+// global memory, times ``mul``.
+template <int D>
+__device__ __forceinline__ void store_row(__nv_bfloat16* dst, const float (&acc)[D / 2],
+                                          int i, int c2, float mul) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    *reinterpret_cast<uint32_t*>(dst + 8 * n + c2) = sm90::pack_bf16(
+        acc[4 * n + 2 * i] * mul, acc[4 * n + 2 * i + 1] * mul);
+}
+
+// Byte offset of 16-byte unit u (columns 8 u .. 8 u + 7) of row r in a
+// ``rows``-row tile of this layout, for a tile written by the threads
+// themselves (cp.async or st.shared) rather than by TMA: the 128B swizzle
+// stores unit c of a 128-byte row at c ^ (r % 8), the 64B swizzle (D = 32)
+// unit c of a 64-byte row at c ^ ((r / 2) % 4).  The tile starts on a
+// 1024-byte boundary, as the swizzle is a function of the address.
+template <int D>
+__device__ __forceinline__ uint32_t tile_offset(int rows, int r, int u) {
+  using G = Geo<D>;
+  constexpr int kUnits = G::kChunk / 8;            // units of a chunk row
+  const int c = u / kUnits, uc = u % kUnits;
+  const int sw = D >= 64 ? (r & 7) : ((r >> 1) & 3);
+  return c * G::chunk(rows) + r * G::kRowBytes + ((uc ^ sw) << 4);
+}
 
 // ------------------------------------------------------------ host side
+// Launches kernel on st as a programmatic dependent of the kernel before it
+// in the stream: its blocks may start once that kernel has called
+// launch_dependents (or finished) and must grid_dependency_wait before
+// reading what that kernel writes.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
+                                    dim3 block, size_t smem, cudaStream_t st,
+                                    Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
 // cuTensorMapEncodeTiled through the runtime's driver entry point; null if
 // the driver does not have it.
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,

@@ -31,6 +31,16 @@ One thread block per (query row, KV head) holds the G query rows in
 registers, walks the pages in a loop with vector loads and never touches a
 page past the last visible key (see the sources' headers).
 
+The packed kernel with bf16 q on bf16 pages (the engine's type pair) runs
+on the tensor cores instead (``csrc/paged_packed_tc.cuh``): the tokens of a
+slot that sit side by side form a run; each work item is up to
+``TILE_ROWS // G`` tokens of one run, one KV head and one key split of
+``split_keys(Tb * page)`` keys, whose K/V tiles are read once for all its
+(token, head) query rows.  A plan kernel writes the work list
+(``packed_work_list`` is its plain version) into a workspace the wrapper
+allocates, the attention kernel walks it, and a combine kernel merges the
+splits in split order; nothing is read back to the host.
+
 Each public function runs the plain version for CPU tensors and the kernel
 for CUDA tensors; on a CUDA tensor it launches the kernel or raises.
 ``LAUNCHES`` counts each kernel's launches under its label (the kernel's
@@ -53,6 +63,13 @@ LAUNCHES = {}
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8
+#: query rows of a work item of the bf16 packed kernel (wgmma's m64)
+TILE_ROWS = 64
+#: keys of a K/V tile of the bf16 packed kernel; splits are multiples
+TILE_KEYS = 64
+#: keys of a split of the bf16 packed kernel, at least; splits of a table,
+#: at most
+MIN_SPLIT_KEYS, MAX_SPLITS = 256, 8
 _Q_DTYPES = (torch.bfloat16, torch.float32)
 #: the kernels' ``kv_type`` codes (``csrc/paged_attention.cu``)
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -124,6 +141,46 @@ def paged_packed_attention_plain(q, k_pages, v_pages, block_tables, tok_slot,
     return o.reshape(T, H, v.shape[-1]).to(q.dtype)
 
 
+def split_keys(max_keys):
+    """Keys of a split of the bf16 packed kernel for a table of ``max_keys
+    = Tb * page`` keys: at least ``MIN_SPLIT_KEYS``, at most ``MAX_SPLITS``
+    splits, a multiple of ``TILE_KEYS`` (``csrc/paged_packed_tc.cuh``
+    ``split_keys``)."""
+    per = -(-max_keys // MAX_SPLITS)
+    return max(MIN_SPLIT_KEYS, -(-per // TILE_KEYS) * TILE_KEYS)
+
+
+def packed_work_list(tok_slot, tok_pos, *, G, Hkv, page, Tb):
+    """The bf16 packed kernel's work list, as its plan kernel writes it:
+    an int32 (n, 4) tensor of items (first token, tokens, split, KV head).
+
+    A run is a maximal stretch of consecutive tokens of one slot at
+    consecutive positions, ``tok_pos >= 0``; padding is in no run.  Each run
+    is cut into chunks of ``TILE_ROWS // G`` tokens from its first token on;
+    a chunk's keys (up to its last token's position, at most ``Tb * page``)
+    into splits of ``split_keys(Tb * page)`` keys; items go chunk by chunk,
+    split by split, KV head by KV head."""
+    slots, poss = tok_slot.tolist(), tok_pos.tolist()
+    R, max_keys = TILE_ROWS // G, Tb * page
+    L = split_keys(max_keys)
+    items, t = [], 0
+    while t < len(poss):
+        if poss[t] < 0:
+            t += 1
+            continue
+        end = t + 1                                  # the run is t .. end-1
+        while end < len(poss) and slots[end] == slots[t] \
+                and poss[end] == poss[end - 1] + 1:
+            end += 1
+        for t0 in range(t, end, R):
+            n = min(R, end - t0)
+            keys = min(poss[t0 + n - 1] + 1, max_keys)
+            items += [(t0, n, s, hk) for s in range(-(-keys // L))
+                      for hk in range(Hkv)]
+        t = end
+    return torch.tensor(items, dtype=torch.int32).reshape(-1, 4)
+
+
 def paged_decode_attention_plain(q, k_pages, v_pages, block_tables, seq_lens,
                                  *, scale=None, k_scale=None, v_scale=None):
     """Gather-based paged decode attention (``ref.py:45``): q (B, H, D),
@@ -187,7 +244,13 @@ def _lib():
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [f, i, i, i, vp]        # scale, q_bf16, kv_type, dev, stream
         lib.paged_packed_attention.argtypes = \
-            [vp] * 9 + [i] * 6 + tail  # ..., T, H, Hkv, D, page, Tb
+            [vp] * 9 + [i] * 6 + tail + [vp, ctypes.c_longlong]
+        # ..., T, H, Hkv, D, page, Tb, <tail>, workspace, its bytes
+        lib.paged_packed_workspace_bytes.argtypes = [i] * 8
+        lib.paged_packed_workspace_bytes.restype = ctypes.c_longlong
+        lib.paged_packed_plan.argtypes = \
+            [vp] * 2 + [i] * 6 + [vp, ctypes.c_longlong, i, vp]
+        lib.paged_packed_plan.restype = i
         lib.paged_decode_attention.argtypes = \
             [vp] * 8 + [i] * 6 + tail  # ..., B, H, Hkv, D, page, Tb
         lib.paged_chunk_attention.argtypes = \
@@ -304,16 +367,33 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _launch(lib, fn, q, k_pages, k_scale, *args):
-    """Call a C entry point with the dtype codes, device and current stream
-    appended; raise on a non-zero return; count the launch."""
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = getattr(lib, fn)(*args, int(q.dtype == torch.bfloat16),
-                           _KV_TYPES[k_pages.dtype], q.device.index, stream)
+def _raise_on(lib, fn, err):
     if err != 0:
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"{fn} kernel launch failed ({err}): {msg}")
+
+
+def _launch(lib, fn, q, k_pages, k_scale, *args, tail=()):
+    """Call a C entry point with the dtype codes, device, current stream
+    and ``tail`` appended; raise on a non-zero return; count the launch."""
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _raise_on(lib, fn, getattr(lib, fn)(
+        *args, int(q.dtype == torch.bfloat16), _KV_TYPES[k_pages.dtype],
+        q.device.index, stream, *tail))
     LAUNCHES[kernel_label(fn, k_pages, k_scale)] += 1
+
+
+def _packed_workspace(lib, q, k_pages, block_tables):
+    """The device workspace the packed kernels need for these arguments
+    (None when they need none: every type pair but bf16 on bf16)."""
+    T, H, D = q.shape
+    _, page, Hkv, _ = k_pages.shape
+    nbytes = lib.paged_packed_workspace_bytes(
+        T, H, Hkv, D, page, block_tables.shape[1],
+        int(q.dtype == torch.bfloat16), _KV_TYPES[k_pages.dtype])
+    if nbytes == 0:
+        return None
+    return torch.empty(nbytes, dtype=torch.uint8, device=q.device)
 
 
 def paged_packed_attention_cuda(q, k_pages, v_pages, block_tables, tok_slot,
@@ -329,12 +409,35 @@ def paged_packed_attention_cuda(q, k_pages, v_pages, block_tables, tok_slot,
     out = torch.empty_like(q)
     if T == 0:
         return out
-    _launch(_lib(), "paged_packed_attention", q, k_pages, k_scale,
+    lib = _lib()
+    ws = _packed_workspace(lib, q, k_pages, block_tables)
+    _launch(lib, "paged_packed_attention", q, k_pages, k_scale,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
             tok_slot.data_ptr(), tok_pos.data_ptr(), out.data_ptr(), T, H,
-            Hkv, D, page, block_tables.shape[1], float(scale))
+            Hkv, D, page, block_tables.shape[1], float(scale),
+            tail=(_ptr(ws), 0 if ws is None else ws.numel()))
     return out
+
+
+def paged_packed_plan_cuda(q, k_pages, block_tables, tok_slot, tok_pos):
+    """Run the bf16 packed kernel's plan kernel alone and read its work
+    list back: int32 (n, 4) on the host, to hold against
+    ``packed_work_list``.  A check, not a launch path: it synchronises."""
+    check_kernel_args(q, k_pages, k_pages, block_tables, tok_slot, tok_pos)
+    T, H, D = q.shape
+    _, page, Hkv, _ = k_pages.shape
+    lib = _lib()
+    ws = _packed_workspace(lib, q, k_pages, block_tables)
+    if ws is None:
+        raise ValueError("paged_packed_plan: only bf16 q on bf16 pages has "
+                         "a work list")
+    _raise_on(lib, "paged_packed_plan", lib.paged_packed_plan(
+        tok_slot.data_ptr(), tok_pos.data_ptr(), T, H, Hkv, D, page,
+        block_tables.shape[1], ws.data_ptr(), ws.numel(), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream))
+    n = int(ws[:4].view(torch.int32).item())
+    return ws[16:16 + 16 * n].view(torch.int32).reshape(n, 4).cpu()
 
 
 def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, seq_lens,

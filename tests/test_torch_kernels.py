@@ -144,8 +144,10 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "CSRC", csrc)
     names = ("paged_attention", "dual_branch")
     header = csrc / "paged_common.cuh"
-    for name in names:
-        assert build.local_includes(csrc / f"{name}.cu") == [header]
+    assert build.local_includes(csrc / "dual_branch.cu") == [header]
+    # the bf16 packed kernel's header, and the Hopper helpers it includes
+    assert build.local_includes(csrc / "paged_attention.cu") == [
+        header, csrc / "paged_packed_tc.cuh", csrc / "sm90_common.cuh"]
     before = {n: build.library_path(n) for n in names}
     (csrc / "unused.cuh").write_text("// included by nothing\n")
     assert {n: build.library_path(n) for n in names} == before
@@ -158,8 +160,9 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
 def test_flash_attention_build_hashes_the_hopper_header(tmp_path,
                                                         monkeypatch):
     """flash_attention.cu includes csrc/sm90_common.cuh (the TMA, mbarrier
-    and wgmma helpers of its bf16 kernels): editing that header rebuilds the
-    flash_attention library and no other."""
+    and wgmma helpers of its bf16 kernels), and so does paged_attention.cu
+    through csrc/paged_packed_tc.cuh (the bf16 packed kernel): editing that
+    header rebuilds those two libraries and no other."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
@@ -169,7 +172,7 @@ def test_flash_attention_build_hashes_the_hopper_header(tmp_path,
     before = {n: build.library_path(n) for n in names}
     header.write_text(header.read_text() + "\n// edited\n")
     assert {n for n in names if build.library_path(n) != before[n]} == \
-        {"flash_attention"}
+        {"flash_attention", "paged_attention"}
 
 
 def test_build_keeps_the_ptxas_report_beside_the_library(tmp_path,
