@@ -11,23 +11,24 @@ script exits non-zero:
   2. build       every kernel under src/repro_torch/kernels/csrc with nvcc,
                  one nvcc per source, all started together; registers and
                  spills of the bf16 flash kernels (none may spill at
-                 D = 128) and of the bf16 packed attention kernels (none
-                 may spill)
+                 D = 128) and of the tensor-core packed attention kernels
+                 (bf16, int8 and fp8 pages; none may spill)
   3. kernel      each kernel against its plain PyTorch version at the
                  main path's shapes (and small shapes), bf16 and fp32; the
-                 bf16 packed kernel also on edge ticks (runs across tiles
-                 and splits, one key, padding in slot 0, a slot as two
-                 runs), bit-identical over two launches, and its plan
-                 kernel's work list equal to packed_work_list's; the
-                 dual-branch dispatcher's two-op route; page_copy byte for
-                 byte; the int8 / fp8 scale variants of the three paged
-                 attention kernels; flash_attention forward and backward
+                 tensor-core packed kernel (bf16 q on bf16, int8 and fp8
+                 pages) also on edge ticks (runs across tiles and splits,
+                 one key, padding in slot 0, a slot as two runs),
+                 bit-identical over two launches, and its plan kernel's
+                 work list equal to packed_work_list's; the dual-branch
+                 dispatcher's two-op route; page_copy byte for byte; the
+                 int8 / fp8 scale variants of the three paged attention
+                 kernels; flash_attention forward and backward
                  (bf16: the tensor-core kernels, fp32: the CUDA-core ones;
                  also against autograd through the plain forward, and
                  bit-identical over two runs) and fused_ln_add forward and
                  backward
   4. time        kernel, plain and bound times (median of 100 launches,
-                 CUDA events, L2 flushed between launches; the bf16 packed
+                 CUDA events, L2 flushed between launches; the packed
                  kernel on a mixed and a decode-only tick); one COW at
                  llama3.2-3b beside index_copy_; the training kernels beside
                  scaled_dot_product_attention and F.rms_norm + add (flash:
@@ -276,39 +277,48 @@ def build_phase():
               f"registers, at most {max(smem, default=0)} bytes static "
               f"shared memory, {sum(spill)} bytes spilled (ptxas -v)")
     tc = tensor_core_kernels(build.PTXAS_LOG.get("flash_attention", ""))
-    for (kname, d), (regs, spilled) in sorted(tc.items()):
+    for (kname, _, d), (regs, spilled) in sorted(tc.items()):
         print(f"  flash_attention bf16 {kname} D={d}: {regs} registers at "
               f"launch (setmaxnreg moves them to the consumers), "
               f"{spilled} bytes spilled")
     require(len(tc) == 9, f"ptxas reported {len(tc)} of the 9 bf16 flash "
             f"kernels")
-    require(all(sp == 0 for (_, d), (_, sp) in tc.items() if d == 128),
+    require(all(sp == 0 for (_, _, d), (_, sp) in tc.items() if d == 128),
             "a bf16 flash kernel spills at D = 128")
     packed = tensor_core_kernels(build.PTXAS_LOG.get("paged_attention", ""),
                                  "9packed_tc")
-    for (kname, d), (regs, spilled) in sorted(packed.items()):
-        print(f"  paged_packed_attention bf16 {kname} D={d}: {regs} "
+    for (kname, pages, d), (regs, spilled) in sorted(packed.items()):
+        print(f"  paged_packed_attention {kname} "
+              f"{pages + ' pages ' if pages else ''}D={d}: {regs} "
               f"registers, {spilled} bytes spilled")
-    require(sorted(packed) == [(k, d) for k in ("attn_kernel",
-                                                "combine_kernel")
-                               for d in (32, 64, 128)],
-            f"ptxas reported {sorted(packed)}, not the 6 bf16 packed kernels")
+    want = sorted([("attn_kernel", pages, d) for pages in PAGE_TYPES.values()
+                   for d in (32, 64, 128)]
+                  + [("combine_kernel", "", d) for d in (32, 64, 128)])
+    require(sorted(packed) == want, f"ptxas reported {sorted(packed)}, not "
+            f"the {len(want)} tensor-core packed kernels")
     require(all(sp == 0 for _, sp in packed.values()),
-            "a bf16 packed attention kernel spills")
+            "a tensor-core packed attention kernel spills")
     sys.stdout.flush()
 
 
+#: mangled page type of a tensor-core packed attention kernel -> its name
+PAGE_TYPES = {"13__nv_bfloat16": "bf16", "a": "int8", "13__nv_fp8_e4m3": "fp8"}
+
+
 def tensor_core_kernels(log, namespace="2tc"):
-    """{(kernel, D): (registers, bytes spilled)} of the kernel templates
-    over D in a mangled namespace (``2tc``: the bf16 flash kernels of
-    csrc/flash_attention.cu; ``9packed_tc``: the bf16 packed attention of
-    csrc/paged_packed_tc.cuh) from ptxas -v's report."""
+    """{(kernel, page type or "", D): (registers, bytes spilled)} of the
+    kernel templates over (a page type and) D in a mangled namespace
+    (``2tc``: the bf16 flash kernels of csrc/flash_attention.cu;
+    ``9packed_tc``: the packed attention of csrc/paged_packed_tc.cuh, its
+    attention kernel over bf16, int8 and fp8 pages) from ptxas -v's
+    report."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*" + namespace +
-                      r"(\d+)(\w+?_kernel)ILi(\d+)E", line)
+                      r"(\d+)(\w+?_kernel)I(\w*?)Li(\d+)E", line)
         if m:
-            cur = (m.group(2), int(m.group(3)))
+            cur = (m.group(2), PAGE_TYPES.get(m.group(3), m.group(3)),
+                   int(m.group(4)))
             out[cur] = [0, 0]
             continue
         if cur is None:
@@ -385,7 +395,8 @@ def kernel_phase():
     for label, t in (("mixed", tick), ("decode", decode)):
         check_plan(PA, t, H, HKV, D, PAGE)
         check_repeat(PA, label, t, H, HKV, D, PAGE, num_pages)
-    check_repeat(PA, "edge", edge_tick(4), 16, 2, 128, 4, 513)
+    edge = edge_tick(4)
+    check_repeat(PA, "edge", edge, 16, 2, 128, 4, edge[0].numel() + 1)
     return errs[torch.bfloat16]
 
 
@@ -429,17 +440,25 @@ def check_plan(PA, tick, h, hkv, d, page):
             "from packed_work_list's")
 
 
-def check_repeat(PA, label, tick, h, hkv, d, page, num_pages):
-    """Two launches of the bf16 packed kernel on the same inputs give the
-    same bits (splits combine in a fixed order, no atomics)."""
+def check_repeat(PA, label, tick, h, hkv, d, page, num_pages, kv=""):
+    """Two launches of the tensor-core packed kernel (bf16 q; bf16 pages,
+    or ``kv`` pages with row scales) on the same inputs give the same bits
+    (splits combine in a fixed order, no atomics)."""
     bt, tok_slot, tok_pos = (x.cuda() for x in tick[:3])
-    q, kp, vp = attention_inputs(torch.bfloat16, tok_slot.numel(), h, hkv,
-                                 d, page, num_pages, seed=11)
-    a = PA.paged_packed_attention_cuda(q, kp, vp, bt, tok_slot, tok_pos)
-    b = PA.paged_packed_attention_cuda(q, kp, vp, bt, tok_slot, tok_pos)
+    q, kp, vp = attention_inputs(torch.float32 if kv else torch.bfloat16,
+                                 tok_slot.numel(), h, hkv, d, page,
+                                 num_pages, seed=11)
+    scales = {}
+    if kv:
+        kp, vp, ks, vs = quantize_pools(kp, vp, kv)
+        q, scales = q.to(torch.bfloat16), dict(k_scale=ks, v_scale=vs)
+    a, b = (PA.paged_packed_attention_cuda(q, kp, vp, bt, tok_slot, tok_pos,
+                                           **scales) for _ in range(2))
     same = torch.equal(a, b)
-    print(f"  bf16 {label} tick twice: bit-identical {same}", flush=True)
-    require(same, f"two launches on the {label} tick differ")
+    print(f"  bf16 q, {kv or 'bf16'} pages, {label} tick twice: "
+          f"bit-identical {same}", flush=True)
+    require(same, f"two launches on the {label} tick differ ({kv or 'bf16'} "
+            f"pages)")
 
 
 #: (D, page, H, Hkv) small shapes: G = 3, 4, 3, 1, 8, 3, 2
@@ -601,13 +620,21 @@ def scale_kernel_phase():
     """The scale variants of the packed, decode and chunk kernels (int8 and
     fp8 pools with fp32 row scales) against their plain versions on the
     same bytes, at the main path's shapes and at small ones (D 32 and 64,
-    G 1..4, ragged lengths).  Returns {label: main-shape error in bf16}."""
+    G 1..4, ragged lengths); the packed kernel also on the edge ticks, and
+    bit-identical over two launches with bf16 q.  Returns {label:
+    main-shape error in bf16}."""
     from repro_torch.kernels import paged_attention as PA
     phase("kernel vs plain: int8 / fp8 scale variants of the three paged "
           "attention kernels")
-    # Kernel and plain version dequantize the same bytes with the same
-    # scales in fp32 (one product per element), then run the unquantized
-    # path's fp32 math: the tolerances of the bf16/fp32 kernels hold.
+    # fp32 q (attend_block): kernel and plain version dequantize the same
+    # bytes with the same scales in fp32 (one product per element), then
+    # run the unquantized path's fp32 math: 1e-4 holds.  bf16 q: the decode
+    # and chunk kernels round only the output (one bf16 ulp: 2e-2 for |o|
+    # < 4).  The packed kernel (tensor cores) widens the one-byte values to
+    # bf16 exactly, applies the scales in fp32 and carries P . vs into P.V
+    # as a bf16 pair (to 2^-17), so it too differs from the plain version
+    # by fp32 order and the output's rounding: 2e-2 (one rounding of P . vs,
+    # relative 2^-9, would cost a bf16 ulp, 2^-5, where |o| >= 4).
     num_pages, tb = 1024, 128
     packed = [("main", mixed_tick(page=PAGE, num_pages=num_pages, tb=tb),
                H, HKV, D, PAGE, num_pages)]
@@ -617,6 +644,10 @@ def scale_kernel_phase():
             page=page, num_pages=256, tb=96 // page * 4, n_prefill=37,
             n_decode=3, decode_pos=90, n_pad=3, seed=d + page), h, hkv, d,
             page, 256))
+    for page, g, d in EDGE_SHAPES:
+        edge = edge_tick(page)
+        packed.append((f"edge{page},{g},{d}", edge, 2 * g, 2, d, page,
+                       edge[0].numel() + 1))
     dec = [(H, HKV, D, PAGE, tb, [1, PAGE, tb * PAGE, 1021, 500, 2 * PAGE,
                                   1020, 777])]
     chk = [(H, HKV, D, PAGE, tb, c, lanes) for c, lanes in MAIN_CHUNKS]
@@ -651,6 +682,15 @@ def scale_kernel_phase():
                              max_err(out[live], ref[live]), tol)
                 if i == 0 and dtype == torch.bfloat16:
                     errs[f"paged_packed_attention.{kv}"] = err
+            if dtype == torch.bfloat16:
+                for label, t in (
+                        ("mixed", packed[0][1]),
+                        ("decode", decode_tick(page=PAGE,
+                                               num_pages=num_pages, tb=tb))):
+                    check_repeat(PA, label, t, H, HKV, D, PAGE, num_pages, kv)
+                edge = edge_tick(4)
+                check_repeat(PA, "edge", edge, 16, 2, 128, 4,
+                             edge[0].numel() + 1, kv)
             for i, (h, hkv, d, page, tbl, lens) in enumerate(dec):
                 q, kp, vp, bt, sl = decode_inputs(torch.float32, lens, h, hkv,
                                                   d, page, tbl, seed=60 + i)
@@ -844,6 +884,9 @@ LEAD_CYCLES = 400_000
 #: the bf16 packed kernel's times before its tensor-core redesign (PERF.md
 #: section 6: attend_block, PR 15's final run), as text beside the new ones
 PACKED_PR15_MS = {"decode": "0.1780", "mixed": "0.3039"}
+#: the same for the int8 / fp8 packed variants (attend_block, PERF.md
+#: section 6)
+PACKED_ATTEND_BLOCK_MS = {"int8": "0.2812", "fp8": "0.2831"}
 
 
 def padded_time_phase(bw):
@@ -918,9 +961,11 @@ def padded_time_phase(bw):
 def scale_time_phase(bw):
     """Kernel, plain and bound times of the six scale variants at the main
     path's shapes (q in bf16, llama3.2-3b attention, page 16): the packed
-    kernel on the mixed tick, the decode kernel on 8 lanes x 1021 keys, the
-    chunk kernel on 8 lanes x C = 128 at pos 256.  The bound counts the
-    narrow K/V bytes plus the two fp32 scales of each key row."""
+    kernel on the mixed tick and on the decode-only tick (as the bf16
+    pages' row; timed with a lead, and without it as ``no_lead_ms``), the
+    decode kernel on 8 lanes x 1021 keys, the chunk kernel on 8 lanes x C
+    = 128 at pos 256.  The bound counts the narrow K/V bytes plus the two
+    fp32 scales of each key row."""
     from repro_torch.kernels import paged_attention as PA
     phase("kernel time: int8 / fp8 scale variants")
     bf16, tb, rows = torch.bfloat16, 128, {}
@@ -928,6 +973,9 @@ def scale_time_phase(bw):
     bt_p, tok_slot, tok_pos = (x.cuda() for x in tick[:3])
     qp, kp, vp = attention_inputs(torch.float32, tok_slot.numel(), H, HKV,
                                   D, PAGE, 1024, seed=3)
+    dtick = [x.cuda() for x in decode_tick(page=PAGE, num_pages=1024, tb=tb)]
+    q_dt = attention_inputs(torch.float32, dtick[1].numel(), H, HKV, D, PAGE,
+                            1024, seed=3)[0].to(bf16)
     lens = [1021] * 8
     dec = decode_inputs(torch.float32, lens, H, HKV, D, PAGE, tb, seed=3)
     lanes = [(256, n) for n in (128, 128, 44, 128, 100, 128, 0, 128)]
@@ -974,16 +1022,37 @@ def scale_time_phase(bw):
         for name, (shape, kernel, plain, (bound_ms, bound_by)) in \
                 cases.items():
             label = f"{name}.{kv}"
+            # the packed wrapper's host work (workspace, ~0.06 ms) is close
+            # to the flush's: lead, as for bf16 pages
+            lead = LEAD_CYCLES if name == "paged_packed_attention" else 0
             row = dict(shape=f"{shape}, q bf16, {kv} pages + fp32 row "
                        f"scales, H=24 Hkv=8 D=128 page=16 Tb=128",
-                       ms=_median_ms(kernel), plain_ms=_median_ms(plain),
+                       ms=_median_ms(kernel, lead_cycles=lead),
+                       plain_ms=_median_ms(plain, lead_cycles=lead),
                        bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=None)
+            extra = ""
+            if lead:
+                row["no_lead_ms"] = _median_ms(kernel)
+                dk_args = (q_dt, pk[0], pk[1], *dtick)
+                row["decode_tick_ms"] = _median_ms(
+                    lambda: PA.paged_packed_attention_cuda(*dk_args,
+                                                           **sc(pk)),
+                    lead_cycles=lead)
+                row["decode_tick_bound_ms"] = _bound_ms(
+                    q_dt, pk[0], *dtick, bw, scale_rows=True)[0]
+                extra = (f"; without the lead {row['no_lead_ms']:.4f}; "
+                         f"decode tick (8 tokens x ~64 pages) kernel_ms "
+                         f"{row['decode_tick_ms']:.4f} bound_ms "
+                         f"{row['decode_tick_bound_ms']:.4f}; attend_block "
+                         f"before: {PACKED_ATTEND_BLOCK_MS[kv]} ms mixed "
+                         f"tick (PERF.md section 6, without a lead, NVIDIA "
+                         f"H100 80GB HBM3, 700.00 W)")
             rows[label] = row
             print(f"  {label}, {row['shape']}: kernel_ms {row['ms']:.4f} "
                   f"plain_ms {row['plain_ms']:.4f} bound_ms {bound_ms:.4f} "
                   f"({bound_by}) library_ms none (no single PyTorch call "
-                  f"computes it)", flush=True)
+                  f"computes it){extra}", flush=True)
     return rows
 
 
@@ -1633,13 +1702,28 @@ def quantized_engine_phase(cfg, params, ecfg, prompts, streams, kv):
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(ms for _, ms, _ in rows)
+    # bf16 q on one-byte pages runs the tensor-core kernels, never
+    # attend_block's paged_packed_kernel
+    tc = [r for r in rows if "packed_tc::" in r[0]]
+    old = [r for r in rows if "paged_packed_kernel" in r[0]]
+    attn_ms = sum(ms for _, ms, _ in tc + old)
+    parts = ", ".join(f"{k[:48]}: {ms:.2f} ms in {n}" for k, ms, n in tc + old)
     print(f"  repeat under torch.profiler: device kernel time "
           f"{device_ms:.1f} ms = {device_ms / ticks:.2f} ms/tick (busy share "
           f"of the first run's wall {device_ms / (wall * 1e3):.3f}); "
           f"{sum(n for _, _, n in rows) / ticks:.0f} kernel launches per "
-          f"tick; the most device time:")
+          f"tick; {site} {attn_ms:.2f} ms = "
+          f"{attn_ms / max(device_ms, 1e-9):.3f} of device time ({parts}); "
+          f"the most device time:")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:6]:
         print(f"    {ms:9.2f} ms {n:6d} calls  {key[:90]}")
+    if device_ms > 0.0:
+        require(not old and any("attn_kernel" in k for k, _, _ in tc),
+                f"the {kv} engine's packed attention did not run the "
+                f"tensor-core kernels: {[k[:60] for k, _, _ in tc + old]}")
+    else:
+        print("  packed attention's kernels: not measured (the profiler saw "
+              "no CUDA kernels)")
     want_bytes = L * 2 * (PAGE * HKV * D + PAGE * 4)
     require(page_bytes == want_bytes,
             f"{kv} page_bytes {page_bytes} != {want_bytes}")
@@ -2294,9 +2378,10 @@ def main():
         # the backward kernels replace XLA's autodiff of the same TPU kernel
         where[f"{kname}.bwd"] = where[kname]
     for kv in KV_NARROW:
+        # bf16 q on int8 / fp8 pages: the tensor-core kernels too
         for kname in ("paged_packed_attention", "paged_decode_attention",
                       "paged_chunk_attention"):
-            where[f"{kname}.{kv}"] = ("paged_attention.cu", where[kname][1])
+            where[f"{kname}.{kv}"] = where[kname]
     kernels = []
     for kname, (source, replaces) in where.items():
         row = times[kname]

@@ -3,17 +3,18 @@
 // and runs paged_common.cuh's attend_block; the layouts differ only in how a
 // block finds its query row, its sequence's block-table row and the number
 // of keys it sees.  Bounded by bytes; see paged_common.cuh for the design.
-// The one exception is the packed layout with bf16 q on bf16 pages, which
-// runs on the tensor cores (paged_packed_tc.cuh).
+// The exception is the packed layout with bf16 q on bf16, int8 or fp8
+// pages, which runs on the tensor cores (paged_packed_tc.cuh).
 //
 // paged_packed_attention -- replaces the Pallas TPU kernel
 //   src/repro/kernels/paged_attention.py:346 (body _paged_packed_kernel,
 //   :292), with its int8/fp8 row-scale variant.  Oracle ref.py:119.
 //   q (T, H, D); block_tables (S, Tb); tok_slot, tok_pos (T,) -> (T, H, D).
 //   Token t reads table row tok_slot[t], keys k <= tok_pos[t]; tok_pos == -1
-//   writes zeros.  Grid (T, Hkv); bf16 q on bf16 pages: paged_packed_tc.cuh's
-//   plan, attention and combine kernels over a caller's workspace, chosen by
-//   type (the only route for that pair).
+//   writes zeros.  Grid (T, Hkv) for fp32 q or fp32 pages; bf16 q on bf16,
+//   int8 or fp8 pages: paged_packed_tc.cuh's plan, attention and combine
+//   kernels over a caller's workspace, chosen by type (the only route for
+//   those pairs).
 //
 // paged_decode_attention -- replaces src/repro/kernels/paged_attention.py:106
 //   (body _paged_kernel, :53), with its scale variant.  Oracle ref.py:45.
@@ -119,18 +120,28 @@ struct PackedLaunch {
   }
 };
 
-// bf16 q on bf16 pages: the tensor-core kernels.
-template <>
-struct PackedLaunch<__nv_bfloat16, __nv_bfloat16> {
+// bf16 q on bf16, int8 or fp8 e4m3 pages: the tensor-core kernels (a
+// shape they do not take returns -1; nothing falls back to attend_block).
+template <typename TKV>
+struct TensorCoreLaunch {
   static int run(const void* q, const void* k, const void* v,
-                 const float* /*ks*/, const float* /*vs*/, const int* bt,
+                 const float* ks, const float* vs, const int* bt,
                  const int* tok_slot, const int* tok_pos, void* out, int T,
                  int H, int Hkv, int D, int page, int Tb, float scale,
                  void* ws, long long bytes, int device, cudaStream_t s) {
-    return packed_tc::launch(q, k, v, bt, tok_slot, tok_pos, out, T, H, Hkv,
-                             D, page, Tb, scale, ws, bytes, device, s);
+    return packed_tc::launch<TKV>(q, k, v, ks, vs, bt, tok_slot, tok_pos,
+                                  out, T, H, Hkv, D, page, Tb, scale, ws,
+                                  bytes, device, s);
   }
 };
+template <>
+struct PackedLaunch<__nv_bfloat16, __nv_bfloat16>
+    : TensorCoreLaunch<__nv_bfloat16> {};
+template <>
+struct PackedLaunch<__nv_bfloat16, int8_t> : TensorCoreLaunch<int8_t> {};
+template <>
+struct PackedLaunch<__nv_bfloat16, __nv_fp8_e4m3>
+    : TensorCoreLaunch<__nv_fp8_e4m3> {};
 
 template <typename TQ, typename TKV>
 struct DecodeLaunch {
@@ -192,9 +203,9 @@ extern "C" {
 // launch goes on `stream` and does not synchronise.
 //
 // paged_packed_attention's workspace is device memory of at least
-// paged_packed_workspace_bytes(...) bytes (0 for every type pair but bf16
-// q on bf16 pages, whose kernels keep their work list and split partials
-// there; null when 0).
+// paged_packed_workspace_bytes(...) bytes (0 for fp32 q or fp32 pages; the
+// tensor-core kernels of bf16 q on bf16, int8 or fp8 pages keep their work
+// list and split partials there; null when 0).
 int paged_packed_attention(const void* q, const void* k, const void* v,
                            const float* ks, const float* vs, const int* bt,
                            const int* tok_slot, const int* tok_pos,
@@ -216,7 +227,7 @@ int paged_packed_attention(const void* q, const void* k, const void* v,
 long long paged_packed_workspace_bytes(int T, int H, int Hkv, int D,
                                        int page, int Tb, int q_bf16,
                                        int kv_type) {
-  if (!(q_bf16 && kv_type == 1) || T <= 0 || Hkv <= 0) return 0;
+  if (!q_bf16 || kv_type < 1 || kv_type > 3 || T <= 0 || Hkv <= 0) return 0;
   return (long long)packed_tc::workspace_layout(T, H, Hkv, D, Tb * page)
       .bytes;
 }

@@ -1,7 +1,8 @@
 // Device code shared by the port's paged-attention kernels for Hopper
 // (sm_90a): the per-(query row, KV head) attention block that
-// paged_attention.cu (packed, decode and chunk layouts) and dual_branch.cu
-// (the fused MHA || FFN decode) all run.
+// paged_attention.cu (decode and chunk layouts; the packed layout for fp32
+// q or fp32 pages, bf16 q on bf16 / int8 / fp8 pages runs
+// paged_packed_tc.cuh) and dual_branch.cu (the fused MHA || FFN decode) run.
 //
 // attend_block: one thread block computes G query rows that share KV head h
 // against the first n_keys keys of one sequence, whose pages are listed in
@@ -35,8 +36,8 @@
 //     addresses; K is consumed from registers, V is staged in shared memory
 //     for the P.V product;
 //   * pages past the last visible key are never touched.
-// Tensor cores, TMA, cp.async pipelining and split-K over pages are later
-// work.
+// The tensor-core design of paged_packed_tc.cuh (cp.async-gathered tiles,
+// wgmma, key splits) has not reached the decode and chunk layouts yet.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,8 +1,8 @@
-// The bf16 packed paged attention on Hopper's tensor cores: the path of
-// paged_attention.cu's paged_packed_attention for bf16 q on bf16 pages
-// (every other type pair runs paged_common.cuh's attend_block).
+// The packed paged attention on Hopper's tensor cores: the path of
+// paged_attention.cu's paged_packed_attention for bf16 q on bf16, int8 or
+// fp8 e4m3 pages (fp32 q or fp32 pages run paged_common.cuh's attend_block).
 //
-// Replaces, for that type pair, the Pallas TPU kernel
+// Replaces, for those type pairs, the Pallas TPU kernel
 // src/repro/kernels/paged_attention.py:346 (body _paged_packed_kernel,
 // :292), whose grid is one (token, KV head) per step with the pages as a
 // sequential, pipelined grid axis.  Here the tokens of a slot that sit side
@@ -42,6 +42,22 @@
 //     softmax is fp32 in registers (exp2, the scale folded in); P is
 //     rounded to bf16 as the A operand of P V.  Each K/V row is read once
 //     per (chunk, KV head, split) for all of the chunk's tokens and heads.
+//   * One-byte pages (int8, fp8 e4m3; the reference's _dequant: K and V
+//     rows times (P, page) fp32 row scales shared by the KV heads): the
+//     tile's raw rows and their 64 + 64 scales are gathered by cp.async
+//     into a two-stage raw ring; once a stage has landed, the warpgroup
+//     widens its bytes to bf16 into one K/V tile pair in the wgmma layout.
+//     That pass rounds nothing: every int8 value and every e4m3 value
+//     (3 mantissa bits, exponents 2^-9 .. 2^8) is a bf16 value.  The
+//     scales stay fp32 and act in registers: score column k times
+//     scale * ks[k] (the reference's (q . k ks) scale in another order),
+//     and x = p vs[k] enters P V as two bf16 A operands, bf16(x) and
+//     bf16(x - bf16(x)) (x to 2^-17; one rounding of x alone moved o by
+//     up to 2^-9 max|v vs|, a bf16 ulp of o where |o| >= 4), while l sums
+//     the unscaled p.
+//     The wgmma products are the bf16 route's; a narrow (fp8 / int8)
+//     wgmma would need Q and P in that type, which is far from the
+//     reference's fp32.
 //   * Partials: (m, l) in the log2 domain and the unnormalised fp32
 //     accumulator, at (split, token, head) in the workspace.
 //
@@ -50,8 +66,9 @@
 // exact zeros, keys past Tb * page never read.
 //
 // What bounds it on this card: bytes (each visible K/V row of a chunk once
-// per KV head; ~6 flops a byte at G = 3, and the 64-row products waste the
-// rows a short chunk leaves empty, which the tensor cores absorb).
+// per KV head; ~6 flops a byte at G = 3, ~12 on one-byte pages, and the
+// 64-row products waste the rows a short chunk leaves empty, which the
+// tensor cores absorb).
 //
 // Workspace (bytes, from workspace_layout): int32 item count at 0; the
 // items (int4: first token, tokens, split, KV head) from byte 16; then,
@@ -60,6 +77,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -185,11 +204,27 @@ plan_kernel(const int* __restrict__ tok_slot, const int* __restrict__ tok_pos,
 }
 
 // ------------------------------------------------------------ attention
-template <int D>
-constexpr size_t attn_smem() {
+// Pages of one byte an element (int8, fp8 e4m3) are quantized, with row
+// scales; bf16 pages are not.
+template <typename TKV>
+constexpr bool kQuant = sizeof(TKV) == 1;
+
+// Shared memory of the attention kernel, byte offsets from a 1024-byte
+// boundary: the Q tile; bf16 K/V tile pairs (kStages of them on bf16
+// pages, which are gathered into them; one on one-byte pages, which are
+// widened into it); on one-byte pages, kStages raw K/V stages (64 rows of
+// D bytes, K then V) and kStages scale stages (64 k_scale, 64 v_scale).
+template <typename TKV, int D>
+struct Smem {
   using G = Geo<D>;
-  return 1024 + G::tile(kRows) + kStages * 2 * G::tile(kKeys);
-}
+  static constexpr int kPairs = kQuant<TKV> ? 1 : kStages;
+  static constexpr int kRawStage = kQuant<TKV> ? 2 * kKeys * D : 0;
+  static constexpr int kScaleStage = kQuant<TKV> ? 2 * kKeys * 4 : 0;
+  static constexpr int kKV = G::tile(kRows);
+  static constexpr int kRaw = kKV + kPairs * 2 * G::tile(kKeys);
+  static constexpr int kScales = kRaw + kStages * kRawStage;
+  static constexpr size_t kBytes = 1024 + kScales + kStages * kScaleStage;
+};
 
 // The item's query rows: row r = (token j, g) = (r / G, r % G) of tokens
 // t0.., KV head hk; rows at or past `rows` are zeros.
@@ -210,11 +245,12 @@ __device__ __forceinline__ void load_q(uint8_t* Qs, const bf16* q, int t0,
   }
 }
 
-// A thread's share of a K/V tile: 16-byte unit u = threadIdx.x % (D / 8)
-// of tile rows threadIdx.x / (D / 8) + i * kStep, i < kPer.
-template <int D>
+// A thread's share of a tile of 64 rows of D elements of T: 16-byte unit
+// u = threadIdx.x % kUnits of tile rows threadIdx.x / kUnits + i * kStep,
+// i < kPer (D / 8 units a row in bf16, D / 16 in one byte).
+template <typename T, int D>
 struct KvShare {
-  static constexpr int kUnits = D / 8;
+  static constexpr int kUnits = D * (int)sizeof(T) / 16;
   static constexpr int kStep = kThreads / kUnits;
   static constexpr int kPer = kKeys / kStep;
 };
@@ -222,11 +258,11 @@ struct KvShare {
 // The pool rows (page * page_size + offset) of keys k0 .. k0 + 63 that this
 // thread gathers, -1 at or past k_end: the block-table loads, issued a tile
 // ahead so that their latency hides behind a tile's products.
-template <int D>
-__device__ __forceinline__ void kv_rows(int (&prow)[KvShare<D>::kPer],
+template <typename TKV, int D>
+__device__ __forceinline__ void kv_rows(int (&prow)[KvShare<TKV, D>::kPer],
                                         const int* row_bt, int k0, int k_end,
                                         int page) {
-  using S = KvShare<D>;
+  using S = KvShare<TKV, D>;
 #pragma unroll
   for (int i = 0; i < S::kPer; ++i) {
     const int k = k0 + threadIdx.x / S::kUnits + i * S::kStep;
@@ -234,42 +270,149 @@ __device__ __forceinline__ void kv_rows(int (&prow)[KvShare<D>::kPer],
   }
 }
 
-// Those rows of KV head hk into a K tile and the V tile after it; rows of
-// -1 are zeros.
-template <int D>
-__device__ __forceinline__ void load_kv(uint8_t* Ks, const bf16* kp,
-                                        const bf16* vp,
-                                        const int (&prow)[KvShare<D>::kPer],
-                                        int Hkv, int hk) {
-  using S = KvShare<D>;
-  const uint32_t kbase = sm90::smem_u32(Ks);
-  const uint32_t vbase = kbase + Geo<D>::tile(kKeys);
+// Those rows of KV head hk into stage s; rows of -1 are zeros.  bf16: into
+// the stage's K tile and the V tile after it, in the wgmma layout.  One
+// byte: the raw rows into the stage's raw K and V (row r at r * D), and
+// their scales (units 0 and 1 of each row fetch k_scale and v_scale).
+template <typename TKV, int D, typename S = KvShare<TKV, D>>
+__device__ __forceinline__ void load_kv(uint8_t* smem, int s, const TKV* kp,
+                                        const TKV* vp, const float* ks,
+                                        const float* vs,
+                                        const int (&prow)[S::kPer], int Hkv,
+                                        int hk) {
+  using M = Smem<TKV, D>;
+  const uint32_t base = sm90::smem_u32(smem);
   const int u = threadIdx.x % S::kUnits;
 #pragma unroll
   for (int i = 0; i < S::kPer; ++i) {
     const int r = threadIdx.x / S::kUnits + i * S::kStep;
     const bool valid = prow[i] >= 0;
     const size_t off =
-        valid ? ((size_t)prow[i] * Hkv + hk) * D + u * 8 : 0;
-    const uint32_t so = sm90::tile_offset<D>(kKeys, r, u);
-    sm90::cp_async16(kbase + so, kp + off, valid);
-    sm90::cp_async16(vbase + so, vp + off, valid);
+        valid ? ((size_t)prow[i] * Hkv + hk) * D + u * (16 / sizeof(TKV))
+              : 0;
+    if constexpr (kQuant<TKV>) {
+      const uint32_t raw =
+          base + M::kRaw + s * M::kRawStage + r * D + u * 16;
+      sm90::cp_async16(raw, kp + off, valid);
+      sm90::cp_async16(raw + kKeys * D, vp + off, valid);
+      if (u < 2)
+        sm90::cp_async4(base + M::kScales + s * M::kScaleStage +
+                            (u * kKeys + r) * 4,
+                        (u ? vs : ks) + (valid ? prow[i] : 0), valid);
+    } else {
+      const uint32_t t = base + M::kKV + s * 2 * Geo<D>::tile(kKeys) +
+                         sm90::tile_offset<D>(kKeys, r, u);
+      sm90::cp_async16(t, kp + off, valid);
+      sm90::cp_async16(t + Geo<D>::tile(kKeys), vp + off, valid);
+    }
   }
 }
 
-template <int D>
+// Eight one-byte values (w.x: the first four, lowest byte first) as eight
+// bf16, two a register, first in the low half.  Exact for every value.
+template <typename TKV>
+__device__ __forceinline__ uint4 widen(uint2 w);
+
+template <>
+__device__ __forceinline__ uint4 widen<int8_t>(uint2 w) {
+  uint32_t out[4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    // byte b + 128 as the low bits of the float 2^23 + (b + 128)
+    const uint32_t x = (h ? w.y : w.x) ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[j] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7650 + j)) -
+             8388736.f;
+    out[2 * h] = sm90::pack_bf16(f[0], f[1]);
+    out[2 * h + 1] = sm90::pack_bf16(f[2], f[3]);
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+template <>
+__device__ __forceinline__ uint4 widen<__nv_fp8_e4m3>(uint2 w) {
+  uint32_t out[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t x = j < 2 ? w.x : w.y;
+    const __half2 h = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(j % 2 ? x >> 16 : x & 0xffffu),
+        __NV_E4M3);
+    const float2 f = __half22float2(h);
+    out[j] = sm90::pack_bf16(f.x, f.y);
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// Raw stage s as bf16 into the K/V tile pair: unit u = threadIdx.x % (D /
+// 8) (eight values) of rows threadIdx.x / (D / 8) + i * kStep, the bf16
+// share (conflict-free writes into the swizzled tile).
+template <typename TKV, int D>
+__device__ __forceinline__ void widen_stage(uint8_t* smem, int s) {
+  using S = KvShare<bf16, D>;
+  using M = Smem<TKV, D>;
+  const uint8_t* raw = smem + M::kRaw + s * M::kRawStage;
+  uint8_t* Ks = smem + M::kKV;
+  const int u = threadIdx.x % S::kUnits;
+#pragma unroll
+  for (int i = 0; i < S::kPer; ++i) {
+    const int r = threadIdx.x / S::kUnits + i * S::kStep;
+    const uint32_t so = sm90::tile_offset<D>(kKeys, r, u);
+#pragma unroll
+    for (int kv = 0; kv < 2; ++kv)
+      *reinterpret_cast<uint4*>(Ks + kv * Geo<D>::tile(kKeys) + so) =
+          widen<TKV>(*reinterpret_cast<const uint2*>(
+              raw + kv * kKeys * D + r * D + u * 8));
+  }
+}
+
+// Multiplies this thread's accumulator columns (keys 8 n + c2 + j of rows
+// r0, r0 + 8) by the row scales sc[key] times mul.
+__device__ __forceinline__ void scale_columns(float (&d)[kKeys / 2],
+                                              const float* sc, int c2,
+                                              float mul) {
+#pragma unroll
+  for (int n8 = 0; n8 < kKeys / 8; ++n8) {
+    const float2 f = *reinterpret_cast<const float2*>(sc + 8 * n8 + c2);
+    const float a = f.x * mul, b = f.y * mul;
+    d[4 * n8] *= a;
+    d[4 * n8 + 1] *= b;
+    d[4 * n8 + 2] *= a;
+    d[4 * n8 + 3] *= b;
+  }
+}
+
+// What the bf16 A operands a (to_a of d) left of d: the A operands of
+// d - a, so that a + lo carries d to 2^-17 (d - a is exact in fp32).
+__device__ __forceinline__ void residual_a(const float (&d)[kKeys / 2],
+                                           const uint32_t (&a)[kKeys / 16][4],
+                                           uint32_t (&lo)[kKeys / 16][4]) {
+#pragma unroll
+  for (int t = 0; t < kKeys / 16; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float2 hi = sm90::unpack_bf16(a[t][r]);
+      lo[t][r] = sm90::pack_bf16(d[8 * t + 2 * r] - hi.x,
+                                 d[8 * t + 2 * r + 1] - hi.y);
+    }
+}
+
+template <typename TKV, int D>
 __global__ void __launch_bounds__(kThreads)
-attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
-            const bf16* __restrict__ vp, const int* __restrict__ bt,
+attn_kernel(const bf16* __restrict__ q, const TKV* __restrict__ kp,
+            const TKV* __restrict__ vp, const float* __restrict__ ks,
+            const float* __restrict__ vs, const int* __restrict__ bt,
             const int* __restrict__ tok_slot, const int* __restrict__ tok_pos,
             bf16* __restrict__ out, const int* __restrict__ count,
             const int4* __restrict__ items, float2* __restrict__ part_ml,
             float* __restrict__ part_acc, int T, int H, int Hkv, int G,
             int page, int Tb, int L, float scale_log2) {
   using Gm = Geo<D>;
+  using M = Smem<TKV, D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = sm90::align1024(smem_raw);
-  uint8_t* KV = Qs + Gm::tile(kRows);        // stage s: K, then V
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c2 = 2 * (lane & 3);
   const int r0 = warp * 16 + lane / 4;       // this thread's rows r0, r0 + 8
@@ -288,12 +431,13 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     const int k_end = min(min(p0 + n, max_keys), k_begin + L);
     const int n_tiles = (k_end - k_begin + kKeys - 1) / kKeys;
     const int rows = n * G;
-    int prow[KvShare<D>::kPer];
-    kv_rows<D>(prow, row_bt, k_begin, k_end, page);
+    int prow[KvShare<TKV, D>::kPer];
+    kv_rows<TKV, D>(prow, row_bt, k_begin, k_end, page);
     load_q<D>(Qs, q, t0, rows, G, hk, H);
-    load_kv<D>(KV, kp, vp, prow, Hkv, hk);
+    load_kv<TKV, D>(Qs, 0, kp, vp, ks, vs, prow, Hkv, hk);
     sm90::cp_async_commit();
-    if (n_tiles > 1) kv_rows<D>(prow, row_bt, k_begin + kKeys, k_end, page);
+    if (n_tiles > 1)
+      kv_rows<TKV, D>(prow, row_bt, k_begin + kKeys, k_end, page);
     // last visible key of rows r0, r0 + 8 (empty rows: every loaded key)
     int last[2];
 #pragma unroll
@@ -309,19 +453,29 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     for (int j = 0; j < n_tiles; ++j) {
       const int k0 = k_begin + j * kKeys;
       if (j + 1 < n_tiles) {               // gather the next tile meanwhile
-        load_kv<D>(KV + ((j + 1) % kStages) * 2 * Gm::tile(kKeys), kp, vp,
-                   prow, Hkv, hk);
+        load_kv<TKV, D>(Qs, (j + 1) % kStages, kp, vp, ks, vs, prow, Hkv,
+                        hk);
         sm90::cp_async_commit();
         if (j + 2 < n_tiles)
-          kv_rows<D>(prow, row_bt, k0 + 2 * kKeys, k_end, page);
+          kv_rows<TKV, D>(prow, row_bt, k0 + 2 * kKeys, k_end, page);
         sm90::cp_async_wait<1>();
       } else {
         sm90::cp_async_wait<0>();
       }
+      const uint8_t* Ks;
+      if constexpr (kQuant<TKV>) {
+        __syncthreads();                   // every thread's raw rows landed
+        widen_stage<TKV, D>(Qs, j % kStages);
+        Ks = Qs + M::kKV;
+      } else {
+        Ks = Qs + M::kKV + (j % kStages) * 2 * Gm::tile(kKeys);
+      }
       sm90::fence_proxy_async();
       __syncthreads();
-      const uint8_t* Ks = KV + (j % kStages) * 2 * Gm::tile(kKeys);
       const uint8_t* Vs = Ks + Gm::tile(kKeys);
+      // the stage's k_scale, then its v_scale (one-byte pages)
+      const float* scl = reinterpret_cast<const float*>(
+          Qs + M::kScales + (j % kStages) * M::kScaleStage);
 
       float sc[kKeys / 2];
       sm90::wgmma_fence();
@@ -332,8 +486,12 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
       // scores in the log2 domain (any sign of scale); key k0 + 8 n + c2 +
       // jj of row r0 + 8 i is visible iff below k_end and at most the row's
       // position (row 0 has the least)
+      if constexpr (kQuant<TKV>) {
+        scale_columns(sc, scl, c2, scale_log2);
+      } else {
 #pragma unroll
-      for (int e = 0; e < kKeys / 2; ++e) sc[e] *= scale_log2;
+        for (int e = 0; e < kKeys / 2; ++e) sc[e] *= scale_log2;
+      }
       if (k0 + kKeys > k_end || k0 + kKeys - 1 > p0) {
 #pragma unroll
         for (int n8 = 0; n8 < kKeys / 8; ++n8)
@@ -372,14 +530,22 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
           acc[4 * n8 + 2 * i + 1] *= alpha;
         }
       }
-      uint32_t pa[kKeys / 16][4];
+      // one-byte pages: P V's A operand is x = p vs[key] (l keeps the plain
+      // p), as bf16(x) + bf16(x - bf16(x)): two products carry x to
+      // 2^-17, so the scales round nothing that the reference does not
+      uint32_t pa[kKeys / 16][4], lo[kKeys / 16][4];
+      if constexpr (kQuant<TKV>) scale_columns(sc, scl + kKeys, c2, 1.f);
       sm90::to_a(sc, pa);
+      if constexpr (kQuant<TKV>) residual_a(sc, pa, lo);
       sm90::wgmma_fence();
       sm90::gemm_over_rows<D>(acc, pa, sm90::mnmajor<D>(Vs, kKeys));
+      if constexpr (kQuant<TKV>)
+        sm90::gemm_over_rows<D>(acc, lo, sm90::mnmajor<D>(Vs, kKeys));
       sm90::wgmma_commit();
       sm90::wgmma_wait_all();
       sm90::fence_regs(acc);
       sm90::fence_regs(pa);
+      if constexpr (kQuant<TKV>) sm90::fence_regs(lo);
       __syncthreads();                     // the stage is gathered again
     }
 
@@ -488,23 +654,24 @@ inline int plan(const int* tok_slot, const int* tok_pos, int T, int H,
 }
 
 // The attention kernel's persistent grid: SMs x resident blocks, found once
-// per device (static: the cache is this library's own, not a symbol that
-// another library built from this header would share).
-template <int D>
+// per device and kernel (static: the cache is this library's own, not a
+// symbol that another library built from this header would share; each
+// instantiation has its own cache and its own shared-memory attribute).
+template <typename TKV, int D>
 static int grid_size(int device) {
   static int cached[16] = {};
   if (device < 0 || device >= 16) return -1;
   if (cached[device] == 0) {
-    if (cudaFuncSetAttribute(attn_kernel<D>,
+    constexpr size_t smem = Smem<TKV, D>::kBytes;
+    if (cudaFuncSetAttribute(attn_kernel<TKV, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)attn_smem<D>()) != cudaSuccess)
+                             (int)smem) != cudaSuccess)
       return -1;
     int sms = 0, per_sm = 0;
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                device) != cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, attn_kernel<D>, kThreads, attn_smem<D>()) !=
-            cudaSuccess ||
+            &per_sm, attn_kernel<TKV, D>, kThreads, smem) != cudaSuccess ||
         sms * per_sm == 0)
       return -1;
     cached[device] = sms * per_sm;
@@ -512,12 +679,13 @@ static int grid_size(int device) {
   return cached[device];
 }
 
-template <int D>
-int attend(const bf16* q, const bf16* kp, const bf16* vp, const int* bt,
-           const int* tok_slot, const int* tok_pos, bf16* out, int T, int H,
-           int Hkv, int page, int Tb, float scale, uint8_t* ws,
-           const Layout& w, int device, cudaStream_t st) {
-  const int grid = grid_size<D>(device);
+template <typename TKV, int D>
+int attend(const bf16* q, const TKV* kp, const TKV* vp, const float* ks,
+           const float* vs, const int* bt, const int* tok_slot,
+           const int* tok_pos, bf16* out, int T, int H, int Hkv, int page,
+           int Tb, float scale, uint8_t* ws, const Layout& w, int device,
+           cudaStream_t st) {
+  const int grid = grid_size<TKV, D>(device);
   if (grid < 0) return -1;
   const int max_keys = Tb * page, L = split_keys(max_keys);
   float2* ml = reinterpret_cast<float2*>(ws + w.ml);
@@ -525,8 +693,9 @@ int attend(const bf16* q, const bf16* kp, const bf16* vp, const int* bt,
   // the attention and combine kernels start while the kernel before each
   // finishes (programmatic dependent launch), and wait for it in-kernel
   int err = static_cast<int>(sm90::launch_dependent(
-      attn_kernel<D>, dim3(grid), dim3(kThreads), attn_smem<D>(), st, q, kp,
-      vp, bt, tok_slot, tok_pos, out, reinterpret_cast<const int*>(ws),
+      attn_kernel<TKV, D>, dim3(grid), dim3(kThreads), Smem<TKV, D>::kBytes,
+      st, q, kp, vp, ks, vs, bt, tok_slot, tok_pos, out,
+      reinterpret_cast<const int*>(ws),
       reinterpret_cast<const int4*>(ws + w.items), ml, acc, T, H, Hkv,
       H / Hkv, page, Tb, L, scale * kLog2e));
   if (err) return err;
@@ -539,26 +708,37 @@ int attend(const bf16* q, const bf16* kp, const bf16* vp, const int* bt,
   return err;
 }
 
-// Plan, attention and combine on stream st: 0, -1 for an argument the
-// kernels do not take, else the cudaError_t of a launch.
-inline int launch(const void* q, const void* kp, const void* vp,
-                  const int* bt, const int* tok_slot, const int* tok_pos,
-                  void* out, int T, int H, int Hkv, int D, int page, int Tb,
-                  float scale, void* ws, long long bytes, int device,
-                  cudaStream_t st) {
-  if ((D != 32 && D != 64 && D != 128) ||
-      (reinterpret_cast<uintptr_t>(q) & 15) ||
-      (reinterpret_cast<uintptr_t>(out) & 15))
+inline bool misaligned(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes != 0;
+}
+
+// Plan, attention and combine on stream st for bf16 q on pages of TKV
+// (bf16, int8_t or __nv_fp8_e4m3; the one-byte types with their (P, page)
+// fp32 row scales ks, vs): 0, -1 for an argument the kernels do not take
+// (a head dim, a missing scale pool, an unaligned q, output or pool), else
+// the cudaError_t of a launch.
+template <typename TKV>
+int launch(const void* q, const void* kp, const void* vp, const float* ks,
+           const float* vs, const int* bt, const int* tok_slot,
+           const int* tok_pos, void* out, int T, int H, int Hkv, int D,
+           int page, int Tb, float scale, void* ws, long long bytes,
+           int device, cudaStream_t st) {
+  if ((D != 32 && D != 64 && D != 128) || misaligned(q, 16) ||
+      misaligned(out, 16) || misaligned(kp, 16) || misaligned(vp, 16))
+    return -1;
+  if (kQuant<TKV> && (ks == nullptr || vs == nullptr || misaligned(ks, 4) ||
+                      misaligned(vs, 4)))
     return -1;
   int err = plan(tok_slot, tok_pos, T, H, Hkv, D, page, Tb, ws, bytes, st);
   if (err) return err;
   const Layout w = workspace_layout(T, H, Hkv, D, Tb * page);
 #define REPRO_ATTEND(DD)                                                    \
-  return attend<DD>(static_cast<const bf16*>(q),                           \
-                    static_cast<const bf16*>(kp),                          \
-                    static_cast<const bf16*>(vp), bt, tok_slot, tok_pos,   \
-                    static_cast<bf16*>(out), T, H, Hkv, page, Tb, scale,   \
-                    static_cast<uint8_t*>(ws), w, device, st)
+  return attend<TKV, DD>(static_cast<const bf16*>(q),                      \
+                         static_cast<const TKV*>(kp),                      \
+                         static_cast<const TKV*>(vp), ks, vs, bt,          \
+                         tok_slot, tok_pos, static_cast<bf16*>(out), T, H, \
+                         Hkv, page, Tb, scale, static_cast<uint8_t*>(ws),  \
+                         w, device, st)
   switch (D) {
     case 32: REPRO_ATTEND(32);
     case 64: REPRO_ATTEND(64);

@@ -31,15 +31,18 @@ One thread block per (query row, KV head) holds the G query rows in
 registers, walks the pages in a loop with vector loads and never touches a
 page past the last visible key (see the sources' headers).
 
-The packed kernel with bf16 q on bf16 pages (the engine's type pair) runs
-on the tensor cores instead (``csrc/paged_packed_tc.cuh``): the tokens of a
-slot that sit side by side form a run; each work item is up to
-``TILE_ROWS // G`` tokens of one run, one KV head and one key split of
+The packed kernel with bf16 q on bf16, int8 or fp8 pages (the engine's
+type pairs) runs on the tensor cores instead (``csrc/paged_packed_tc.cuh``):
+the tokens of a slot that sit side by side form a run; each work item is up
+to ``TILE_ROWS // G`` tokens of one run, one KV head and one key split of
 ``split_keys(Tb * page)`` keys, whose K/V tiles are read once for all its
 (token, head) query rows.  A plan kernel writes the work list
 (``packed_work_list`` is its plain version) into a workspace the wrapper
 allocates, the attention kernel walks it, and a combine kernel merges the
-splits in split order; nothing is read back to the host.
+splits in split order; nothing is read back to the host.  One-byte pages
+are widened to bf16 exactly in shared memory; their row scales act in fp32
+on the score columns (``k_scale``) and on P before its bf16 rounding
+(``v_scale``).  fp32 q or fp32 pages keep the attention block.
 
 Each public function runs the plain version for CPU tensors and the kernel
 for CUDA tensors; on a CUDA tensor it launches the kernel or raises.
@@ -63,12 +66,12 @@ LAUNCHES = {}
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8
-#: query rows of a work item of the bf16 packed kernel (wgmma's m64)
+#: query rows of a work item of the tensor-core packed kernel (wgmma's m64)
 TILE_ROWS = 64
-#: keys of a K/V tile of the bf16 packed kernel; splits are multiples
+#: keys of a K/V tile of the tensor-core packed kernel; splits are multiples
 TILE_KEYS = 64
-#: keys of a split of the bf16 packed kernel, at least; splits of a table,
-#: at most
+#: keys of a split of the tensor-core packed kernel, at least; splits of a
+#: table, at most
 MIN_SPLIT_KEYS, MAX_SPLITS = 256, 8
 _Q_DTYPES = (torch.bfloat16, torch.float32)
 #: the kernels' ``kv_type`` codes (``csrc/paged_attention.cu``)
@@ -142,17 +145,17 @@ def paged_packed_attention_plain(q, k_pages, v_pages, block_tables, tok_slot,
 
 
 def split_keys(max_keys):
-    """Keys of a split of the bf16 packed kernel for a table of ``max_keys
-    = Tb * page`` keys: at least ``MIN_SPLIT_KEYS``, at most ``MAX_SPLITS``
-    splits, a multiple of ``TILE_KEYS`` (``csrc/paged_packed_tc.cuh``
-    ``split_keys``)."""
+    """Keys of a split of the tensor-core packed kernel for a table of
+    ``max_keys = Tb * page`` keys: at least ``MIN_SPLIT_KEYS``, at most
+    ``MAX_SPLITS`` splits, a multiple of ``TILE_KEYS``
+    (``csrc/paged_packed_tc.cuh`` ``split_keys``)."""
     per = -(-max_keys // MAX_SPLITS)
     return max(MIN_SPLIT_KEYS, -(-per // TILE_KEYS) * TILE_KEYS)
 
 
 def packed_work_list(tok_slot, tok_pos, *, G, Hkv, page, Tb):
-    """The bf16 packed kernel's work list, as its plan kernel writes it:
-    an int32 (n, 4) tensor of items (first token, tokens, split, KV head).
+    """The tensor-core packed kernel's work list, as its plan kernel writes
+    it: an int32 (n, 4) tensor of items (first token, tokens, split, KV head).
 
     A run is a maximal stretch of consecutive tokens of one slot at
     consecutive positions, ``tok_pos >= 0``; padding is in no run.  Each run
@@ -385,7 +388,7 @@ def _launch(lib, fn, q, k_pages, k_scale, *args, tail=()):
 
 def _packed_workspace(lib, q, k_pages, block_tables):
     """The device workspace the packed kernels need for these arguments
-    (None when they need none: every type pair but bf16 on bf16)."""
+    (None when they need none: fp32 q or fp32 pages)."""
     T, H, D = q.shape
     _, page, Hkv, _ = k_pages.shape
     nbytes = lib.paged_packed_workspace_bytes(
@@ -421,17 +424,19 @@ def paged_packed_attention_cuda(q, k_pages, v_pages, block_tables, tok_slot,
 
 
 def paged_packed_plan_cuda(q, k_pages, block_tables, tok_slot, tok_pos):
-    """Run the bf16 packed kernel's plan kernel alone and read its work
-    list back: int32 (n, 4) on the host, to hold against
-    ``packed_work_list``.  A check, not a launch path: it synchronises."""
+    """Run the tensor-core packed kernel's plan kernel alone and read its
+    work list back: int32 (n, 4) on the host, to hold against
+    ``packed_work_list``.  A check, not a launch path: it synchronises.
+    ``k_pages`` gives only the shapes: the plan reads no page and its list
+    depends on no page type, so a bf16 pool stands for int8 / fp8 ones."""
     check_kernel_args(q, k_pages, k_pages, block_tables, tok_slot, tok_pos)
     T, H, D = q.shape
     _, page, Hkv, _ = k_pages.shape
     lib = _lib()
     ws = _packed_workspace(lib, q, k_pages, block_tables)
     if ws is None:
-        raise ValueError("paged_packed_plan: only bf16 q on bf16 pages has "
-                         "a work list")
+        raise ValueError("paged_packed_plan: fp32 q or fp32 pages have no "
+                         "work list")
     _raise_on(lib, "paged_packed_plan", lib.paged_packed_plan(
         tok_slot.data_ptr(), tok_pos.data_ptr(), T, H, Hkv, D, page,
         block_tables.shape[1], ws.data_ptr(), ws.numel(), q.device.index,

@@ -145,7 +145,8 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     names = ("paged_attention", "dual_branch")
     header = csrc / "paged_common.cuh"
     assert build.local_includes(csrc / "dual_branch.cu") == [header]
-    # the bf16 packed kernel's header, and the Hopper helpers it includes
+    # the tensor-core packed kernel's header, and the Hopper helpers it
+    # includes
     assert build.local_includes(csrc / "paged_attention.cu") == [
         header, csrc / "paged_packed_tc.cuh", csrc / "sm90_common.cuh"]
     before = {n: build.library_path(n) for n in names}
@@ -161,8 +162,8 @@ def test_flash_attention_build_hashes_the_hopper_header(tmp_path,
                                                         monkeypatch):
     """flash_attention.cu includes csrc/sm90_common.cuh (the TMA, mbarrier
     and wgmma helpers of its bf16 kernels), and so does paged_attention.cu
-    through csrc/paged_packed_tc.cuh (the bf16 packed kernel): editing that
-    header rebuilds those two libraries and no other."""
+    through csrc/paged_packed_tc.cuh (the tensor-core packed kernel):
+    editing that header rebuilds those two libraries and no other."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)

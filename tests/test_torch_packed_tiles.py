@@ -1,8 +1,9 @@
-"""The bf16 packed paged-attention kernel's algorithm (runs, work items,
-64-key tiles, key splits and their combine: ``csrc/paged_packed_tc.cuh``)
-emulated in torch on the CPU, against the port's plain version and the JAX
-package's oracle (``ref.py`` ``paged_packed_attention_ref``), and the plain
-work-list builder the card's plan kernel is held against.
+"""The tensor-core packed paged-attention kernel's algorithm (runs, work
+items, 64-key tiles, key splits and their combine:
+``csrc/paged_packed_tc.cuh``) emulated in torch on the CPU, on bf16 pages
+and on int8 / fp8 pages with row scales, against the port's plain version
+and the JAX package's oracle (``ref.py`` ``paged_packed_attention_ref``),
+and the plain work-list builder the card's plan kernel is held against.
 
 The emulation follows the kernel's rounding points: bf16 Q, K and V; fp32
 scores; the online softmax in fp32 with exp2 and the scale folded in; P
@@ -13,7 +14,14 @@ algorithm is the plain version's fp32 arithmetic in another order, so 1e-5;
 with them, ``chip_smoke.py``'s ``ATTN_TOLS`` for bf16, 2e-2: the output's
 rounding is one bf16 ulp (at most 2^-7 = 0.0078 for |o| < 2, 0.0156 below
 4), and rounding P (relative 2^-9 per weight, weights summing to 1) moves o
-by at most 2^-9 max|v|, 0.0078 for |v| < 4."""
+by at most 2^-9 max|v|, 0.0078 for |v| < 4.
+
+On one-byte pages the kernel widens the int8 / e4m3 values to bf16 (exact:
+every such value is a bf16 value), multiplies score column j by scale *
+k_scale[j] in fp32, and feeds x = p * v_scale[j] to P.V as the bf16 pair
+bf16(x) + bf16(x - bf16(x)) (x to 2^-17), while l sums the unscaled p: the
+same two tolerances hold."""
+import itertools
 import math
 import pathlib
 import re
@@ -22,9 +30,11 @@ import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from repro.kernels import ref as RREF  # noqa: E402
+from repro_torch import interop  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 
 TOL_FP32 = 1e-5
@@ -65,12 +75,40 @@ def _tick(page, G, D, Hkv=2, seed=0):
             rnd(P, page, Hkv, D), bt, tok_slot, tok_pos)
 
 
+def _quant_pools(kv, P, page, Hkv, D, seed):
+    """int8 / fp8 e4m3 K/V pools with their (P, page) fp32 row scales, as
+    ``tests/test_torch_quantized_kv.py``'s ``_pools`` builds them: numpy
+    in the reference's dtypes, and the port's tensors of the same bytes
+    (``interop.cache_from_numpy``).  The fp8 codes are clipped to e4m3's
+    +-448 (these pools are large enough to hold values past it, which
+    would cast to NaN) and their scales carry 127 / 448, so that both
+    types' rows dequantize to the same range, |v * v_scale| < 4, as the
+    engine's quantizer (scale = row amax / code max) makes them."""
+    rng = np.random.default_rng(seed)
+    shape = (P, page, Hkv, D)
+    if kv == "int8":
+        k, v = (rng.integers(-127, 128, shape).astype(np.int8)
+                for _ in range(2))
+        unit = 1.0
+    else:
+        k, v = (np.asarray(jnp.asarray(np.clip(
+            rng.standard_normal(shape) * 100, -448, 448)).astype(
+                jnp.float8_e4m3fn)) for _ in range(2))
+        unit = 127 / 448
+    ks, vs = (rng.uniform(0.002, 0.03, (P, page)).astype(np.float32)
+              * np.float32(unit) for _ in range(2))
+    ref = dict(k=k, v=v, k_scale=ks, v_scale=vs)
+    return ref, interop.cache_from_numpy(ref, "cpu")
+
+
 def emulate_packed_tc(q, k_pages, v_pages, block_tables, tok_slot, tok_pos,
-                      *, round_bf16=True):
+                      *, round_bf16=True, k_scale=None, v_scale=None):
     """The kernel's arithmetic, item by item of ``PA.packed_work_list``:
-    fp32 (T, H, D) output; with ``round_bf16``, P and the output rounded
-    to bf16 where the kernel rounds them.  Also returns the number of
-    tokens written directly by an item and through the combine."""
+    fp32 (T, H, D) output; with ``round_bf16``, P (or p * v_scale, as a
+    bf16 pair) and the output rounded to bf16 where the kernel rounds
+    them.  One-byte pages come as their values in fp32 with (P, page)
+    ``k_scale`` / ``v_scale``.  Also returns the number of tokens written
+    directly by an item and through the combine."""
     T, H, D = q.shape
     _, page, Hkv, _ = k_pages.shape
     G, Tb = H // Hkv, block_tables.shape[1]
@@ -91,6 +129,8 @@ def emulate_packed_tc(q, k_pages, v_pages, block_tables, tok_slot, tok_pos,
         rows = pages[keys // page] * page + keys % page
         k = k_pages.reshape(-1, Hkv, D)[rows, hk]          # (keys, D)
         v = v_pages.reshape(-1, Hkv, D)[rows, hk]
+        if k_scale is not None:                            # key row scales
+            ks, vs = k_scale.reshape(-1)[rows], v_scale.reshape(-1)[rows]
         qr = q[t0:t0 + n, hk * G:(hk + 1) * G].reshape(n * G, D)
         last = p0 + torch.arange(n * G) // G               # row positions
         m = torch.full((n * G,), -math.inf)
@@ -98,7 +138,10 @@ def emulate_packed_tc(q, k_pages, v_pages, block_tables, tok_slot, tok_pos,
         acc = torch.zeros(n * G, D)
         for j0 in range(0, k_end - k_begin, PA.TILE_KEYS):
             kt, vt = k[j0:j0 + 64], v[j0:j0 + 64]
-            sc = (qr @ kt.T) * scale_log2
+            if k_scale is None:
+                sc = (qr @ kt.T) * scale_log2
+            else:
+                sc = (qr @ kt.T) * (ks[j0:j0 + 64] * scale_log2)[None]
             vis = keys[j0:j0 + 64][None] <= last[:, None]
             sc = torch.where(vis, sc, -math.inf)
             m_new = torch.maximum(m, sc.max(-1).values)
@@ -106,7 +149,12 @@ def emulate_packed_tc(q, k_pages, v_pages, block_tables, tok_slot, tok_pos,
             alpha = torch.exp2(m - m_use)
             p = torch.exp2(sc - m_use[:, None])
             l = l * alpha + p.sum(-1)
-            acc = acc * alpha[:, None] + rnd(p) @ vt
+            if v_scale is None:
+                pv = rnd(p) @ vt
+            else:
+                x = p * vs[j0:j0 + 64][None]
+                pv = rnd(x) @ vt + rnd(x - rnd(x)) @ vt
+            acc = acc * alpha[:, None] + pv
             m = m_new
         for r in range(n * G):
             t, h, pos = t0 + r // G, hk * G + r % G, int(last[r])
@@ -157,6 +205,46 @@ def test_tiled_split_algorithm_matches_plain_and_oracle(page, G, D):
     emu, _, _ = emulate_packed_tc(q, kp, vp, bt, tok_slot, tok_pos)
     assert torch.equal(emu[~live], torch.zeros_like(emu[~live]))
     assert torch.equal(emu, _bf16(emu))            # bf16 values
+    for want in (plain, oracle):
+        err = (emu[live] - want[live]).abs().max().item()
+        assert err <= TOL_BF16, err
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+@pytest.mark.parametrize("page,G,D", CASES)
+def test_quantized_tile_algorithm_matches_plain_and_oracle(page, G, D, kv):
+    """The kernel's one-byte route (exact widening to bf16, scales in fp32
+    on the score columns and on P.V's operand) on the edge tick: at fp32
+    it is the plain version's and the oracle's arithmetic in another
+    order, with its roundings within ``TOL_BF16``."""
+    q, _, _, bt, tok_slot, tok_pos = _tick(page, G, D)
+    P = 5 * bt.shape[1] + 1
+    ref, port = _quant_pools(kv, P, page, 2, D, seed=page * G)
+    args = [torch.from_numpy(a) for a in (q, bt, tok_slot, tok_pos)]
+    q_t, bt_t, slot_t, pos_t = args
+    kp, vp = port["k"], port["v"]
+    scales = dict(k_scale=port["k_scale"], v_scale=port["v_scale"])
+    # the widening to bf16 rounds nothing
+    for pool in (kp, vp):
+        assert torch.equal(pool.to(torch.bfloat16).float(), pool.float())
+    plain = PA.paged_packed_attention_plain(q_t, kp, vp, bt_t, slot_t, pos_t,
+                                            **scales)
+    oracle = torch.from_numpy(np.array(_REF(
+        q, ref["k"], ref["v"], bt, tok_slot, tok_pos, k_scale=ref["k_scale"],
+        v_scale=ref["v_scale"])))
+    live = pos_t >= 0
+    assert plain[live].abs().max() > 0.5          # outputs of order 1
+    exact, n_direct, n_combined = emulate_packed_tc(
+        q_t, kp.float(), vp.float(), bt_t, slot_t, pos_t, round_bf16=False,
+        **scales)
+    assert n_direct > 0 and n_combined == 10
+    for want in (plain, oracle):
+        np.testing.assert_allclose(exact[live].numpy(), want[live].numpy(),
+                                   atol=TOL_FP32, rtol=0)
+    emu, _, _ = emulate_packed_tc(q_t, kp.float(), vp.float(), bt_t, slot_t,
+                                  pos_t, **scales)
+    assert torch.equal(emu[~live], torch.zeros_like(emu[~live]))
+    assert torch.equal(emu, _bf16(emu))
     for want in (plain, oracle):
         err = (emu[live] - want[live]).abs().max().item()
         assert err <= TOL_BF16, err
@@ -223,16 +311,26 @@ def test_kernel_and_plan_match_the_emulation_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the card: python3 "
                     "chip_smoke.py or pytest -m cuda)")
-    for page, G, D in CASES:
+    for (page, G, D), kv in itertools.product(CASES, ("", "int8", "fp8")):
         args = [torch.from_numpy(a) for a in _tick(page, G, D)]
         q, kp, vp, bt, tok_slot, tok_pos = args
-        card = [a.cuda() for a in args]
-        card[:3] = [a.to(torch.bfloat16) for a in card[:3]]
-        items = PA.paged_packed_plan_cuda(card[0], card[1], *card[3:])
+        scales = {}
+        if kv:                                  # bf16 q on one-byte pages
+            _, port = _quant_pools(kv, kp.shape[0], page, 2, D, seed=page)
+            kp, vp = port["k"], port["v"]
+            scales = dict(k_scale=port["k_scale"], v_scale=port["v_scale"])
+        card = [a.cuda() for a in (q, kp, vp, bt, tok_slot, tok_pos)]
+        card[0] = card[0].to(torch.bfloat16)
+        if not kv:
+            card[1:3] = [a.to(torch.bfloat16) for a in card[1:3]]
+        items = PA.paged_packed_plan_cuda(card[0], card[0].new_empty(
+            (1, page, 2, D)), *card[3:])
         assert torch.equal(items, PA.packed_work_list(
             tok_slot, tok_pos, G=G, Hkv=2, page=page, Tb=bt.shape[1]))
-        out = PA.paged_packed_attention(*card).float().cpu()
-        emu, _, _ = emulate_packed_tc(q, kp, vp, bt, tok_slot, tok_pos)
+        out = PA.paged_packed_attention(
+            *card, **{n: x.cuda() for n, x in scales.items()}).float().cpu()
+        emu, _, _ = emulate_packed_tc(q, kp.float(), vp.float(), bt,
+                                      tok_slot, tok_pos, **scales)
         live = tok_pos >= 0
         # exp2 and the reciprocal are approximate on the card: one bf16 ulp
         assert (out[live] - emu[live]).abs().max().item() <= TOL_BF16
