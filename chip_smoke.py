@@ -11,15 +11,22 @@ script exits non-zero:
   2. build       every kernel under src/repro_torch/kernels/csrc with nvcc,
                  one nvcc per source, all started together; registers and
                  spills of the bf16 flash kernels (none may spill at
-                 D = 128) and of the tensor-core packed attention kernels
-                 (bf16, int8 and fp8 pages; none may spill)
+                 D = 128), of the tensor-core packed attention kernels
+                 (bf16, int8 and fp8 pages), of the bf16 key-split decode
+                 kernels and of the bf16 fused grid and its finishing
+                 kernel (none of these may spill)
   3. kernel      each kernel against its plain PyTorch version at the
                  main path's shapes (and small shapes), bf16 and fp32; the
                  tensor-core packed kernel (bf16 q on bf16, int8 and fp8
                  pages) also on edge ticks (runs across tiles and splits,
                  one key, padding in slot 0, a slot as two runs),
                  bit-identical over two launches, and its plan kernel's
-                 work list equal to packed_work_list's; the dual-branch
+                 work list equal to packed_work_list's; the bf16 key-split
+                 decode and the bf16 fused kernel also on edge lanes
+                 (seq_len 1, 255/256/257, 511/512, the table, 0) at G = 1,
+                 3, 8 and D = 32, 64, 128, bit-identical over two launches
+                 (fused: B = 3, 8, 11, a ragged F tile), fp32 still on the
+                 CUDA-core kernels (profiled by name); the dual-branch
                  dispatcher's two-op route; page_copy byte for byte; the
                  int8 / fp8 scale variants of the three paged attention
                  kernels; flash_attention forward and backward
@@ -29,7 +36,10 @@ script exits non-zero:
                  backward
   4. time        kernel, plain and bound times (median of 100 launches,
                  CUDA events, L2 flushed between launches; the packed
-                 kernel on a mixed and a decode-only tick); one COW at
+                 kernel on a mixed and a decode-only tick; the decode and
+                 fused kernels beside their times before the redesign, the
+                 fused one also with its FFN blocks alone, its attention
+                 items alone and its two-op route); one COW at
                  llama3.2-3b beside index_copy_; the training kernels beside
                  scaled_dot_product_attention and F.rms_norm + add (flash:
                  also TFLOP/s and share of the bound)
@@ -49,7 +59,9 @@ script exits non-zero:
  10. quantized   the profile workload on int8 and on fp8 pages
  11. padded      padded (B, C) generation at full width and depth: chunk
                  prefill ticks, then 32 greedy C == 1 ticks sequentially and
-                 again under the dual-branch plan from the same cache; then
+                 again under the dual-branch plan from the same cache (bf16:
+                 then 4 ticks of each plan under torch.profiler: device
+                 ms/tick, and the key-split and fused kernels by name); then
                  8 ticks each way on int8 and on fp8 pages
  12. train tick  one train step at llama3.2-3b full width (2 layers, fp32,
                  B=2, S=256) on the card against the CPU
@@ -298,6 +310,30 @@ def build_phase():
             f"the {len(want)} tensor-core packed kernels")
     require(all(sp == 0 for _, sp in packed.values()),
             "a tensor-core packed attention kernel spills")
+    # the bf16 decode key splits (paged_attention.cu) and the bf16 fused
+    # grid (dual_branch.cu): every instantiation, none may spill
+    split = templated_kernels(build.PTXAS_LOG.get("paged_attention", ""),
+                              ("split_kernel", "combine_kernel"),
+                              "13decode_splits")
+    dual = templated_kernels(build.PTXAS_LOG.get("dual_branch", ""),
+                             ("dual_tc_kernel", "dual_finish_kernel"))
+    for label, found in (("paged_decode_attention", split),
+                         ("fused_dual_branch_decode", dual)):
+        for (kname, d, mg), (regs, spilled) in sorted(found.items()):
+            print(f"  {label} bf16 {kname} D={d}"
+                  f"{f' G<={mg}' if mg else ''}: {regs} registers, "
+                  f"{spilled} bytes spilled")
+    want = {("split_kernel", d, g) for d in (32, 64, 128) for g in (4, 8)}
+    want |= {("combine_kernel", d, 0) for d in (32, 64, 128)}
+    require(set(split) == want, f"ptxas reported {sorted(split)}, not the "
+            f"{len(want)} key-split decode kernels")
+    want = {("dual_tc_kernel", d, g) for d in (32, 64, 128) for g in (4, 8)}
+    want |= {("dual_finish_kernel", d, 0) for d in (32, 64, 128)}
+    require(set(dual) == want, f"ptxas reported {sorted(dual)}, not the "
+            f"{len(want)} bf16 fused kernels")
+    require(all(sp == 0 for _, sp in list(split.values())
+                + list(dual.values())),
+            "a bf16 key-split decode or fused kernel spills")
     sys.stdout.flush()
 
 
@@ -320,6 +356,37 @@ def tensor_core_kernels(log, namespace="2tc"):
             cur = (m.group(2), PAGE_TYPES.get(m.group(3), m.group(3)),
                    int(m.group(4)))
             out[cur] = [0, 0]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur][0] = int(m.group(1))
+            cur = None
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def templated_kernels(log, names, scope=""):
+    """{(kernel, D, G bound or 0): (registers, bytes spilled)} of the
+    kernel templates ``names`` over D (and the query-group bound MG) from
+    ptxas -v's report; with ``scope``, only entries whose mangled name
+    holds it (a namespace)."""
+    out, cur = {}, None
+    pat = re.compile(r"Compiling entry function '(\S+)'")
+    kern = re.compile(r"\d+(" + "|".join(names) +
+                      r")ILi(\d+)E(?:Li(\d+)E)?E")
+    for line in log.splitlines():
+        m = pat.search(line)
+        if m:
+            k = kern.search(m.group(1))
+            cur = None
+            if k and scope in m.group(1):
+                cur = (k.group(1), int(k.group(2)), int(k.group(3) or 0))
+                out[cur] = [0, 0]
             continue
         if cur is None:
             continue
@@ -528,7 +595,49 @@ def padded_kernel_phase():
                          f"all rows", max_err(out, ref), tol)
             if i == 0 and dtype == torch.bfloat16:
                 errs["paged_chunk_attention"] = err
+    check_split_edges(PA)
     return errs
+
+
+#: (H, Hkv, D, page, Tb) of the bf16 key-split decode's edge checks: G = 1,
+#: 3 and 8 at D = 32, 64 and 128, tables of 640 keys (3 splits of 256) and
+#: 2048 keys (8 splits), and the main shape
+SPLIT_EDGE_SHAPES = ((2, 2, 32, 16, 40), (6, 2, 32, 4, 160),
+                     (16, 2, 32, 16, 128), (2, 2, 64, 8, 80),
+                     (6, 2, 64, 16, 40), (16, 2, 64, 4, 160),
+                     (2, 2, 128, 4, 160), (6, 2, 128, 16, 128),
+                     (16, 2, 128, 8, 80), (H, HKV, D, PAGE, 128))
+
+
+def edge_lanes(tb, page):
+    """Lane lengths across the split boundaries: one key, 255/256/257,
+    511/512, the whole table, and an empty lane."""
+    return [1, 255, 256, 257, 511, 512, tb * page, 0]
+
+
+def check_split_edges(PA):
+    """The bf16 key-split decode on the edge lanes: live lanes within
+    ATTN_TOLS[bf16] of the plain version, the empty lane exact zeros, two
+    launches bit-identical (splits merge in split order)."""
+    bf16 = torch.bfloat16
+    for i, (h, hkv, d, page, tb) in enumerate(SPLIT_EDGE_SHAPES):
+        lens = edge_lanes(tb, page)
+        args = decode_inputs(bf16, lens, h, hkv, d, page, tb, seed=400 + i)
+        out = PA.paged_decode_attention_cuda(*args)
+        again = PA.paged_decode_attention_cuda(*args)
+        ref = PA.paged_decode_attention_plain(
+            *(a.float() for a in args[:3]), *args[3:]).to(bf16)
+        torch.cuda.synchronize()
+        live = args[4] > 0
+        report(f"decode splits bf16 H={h} Hkv={hkv} D={d} page={page} "
+               f"Tb={tb} seq_lens={lens}", max_err(out[live], ref[live]),
+               ATTN_TOLS[bf16])
+        require(out[~live].abs().max().item() == 0.0,
+                "an empty lane is not exactly 0")
+        require(torch.equal(out, again), "two launches of the key-split "
+                "decode differ")
+    print("  key-split decode: empty lanes exact zeros, repeats "
+          "bit-identical", flush=True)
 
 
 def fused_kernel_phase():
@@ -546,7 +655,7 @@ def fused_kernel_phase():
     # y in bf16: kernel and plain version both compute in fp32 from the same
     # bf16 inputs and round once, so they differ by at most one bf16 ulp at
     # the largest |y|.
-    cases = [(kind, B, f, dict()) for kind in DB.KINDS for B in (3, 8)
+    cases = [(kind, B, f, dict()) for kind in DB.KINDS for B in (3, 8, 11)
              for f in (8192, 8192 + 40)]             # + 40: a ragged tile
     cases += [("swiglu", 2, 256, dict(dm=64, h=8, hkv=2, d=32, page=8, tb=4,
                                       seq=29)),
@@ -576,6 +685,12 @@ def fused_kernel_phase():
             if dtype == torch.bfloat16 and (kind, B, f) == ("swiglu", 8,
                                                             8192):
                 err_main = max(e_a, e_y)
+                a2, y2 = DB.fused_dual_branch_decode_cuda(
+                    q, kp, vp, bt, sl, x, ffn, kind=kind)
+                require(torch.equal(attn, a2) and torch.equal(y, y2),
+                        "two launches of the fused kernel differ")
+    check_fused_edges(DB)
+    check_fp32_routes(DB)
     # the dispatcher: F % (Hkv * Tb) == 0 fuses; otherwise the decode kernel
     # and mlp_apply (Hkv * Tb = 1024 here).  The two-op route's FFN is the
     # one mlp_apply call, so it equals a second call on the same inputs.
@@ -600,6 +715,72 @@ def fused_kernel_phase():
         report(f"dispatcher F={f} ffn", max_err(y[:, 0], ry),
                bf16_ulp(ry) if fused else 0.0)
     return err_main
+
+
+def check_fused_edges(DB):
+    """The bf16 fused kernel on the key-split edge lanes (G = 1, 3, 8; D =
+    32, 64, 128) beside a small FFN with a ragged tile (Dm 256, F 200): attn
+    within ATTN_TOLS[bf16], the empty lane exact zeros, y within one bf16
+    ulp, two launches bit-identical."""
+    bf16 = torch.bfloat16
+    for i, (h, hkv, d, page, tb) in enumerate(SPLIT_EDGE_SHAPES):
+        kind = DB.KINDS[i % 3]
+        lens = edge_lanes(tb, page)
+        att = decode_inputs(bf16, lens, h, hkv, d, page, tb, seed=500 + i)
+        g = torch.Generator(device="cuda").manual_seed(600 + i)
+        x, ffn = ffn_inputs(g, bf16, kind, len(lens), 256, 200)
+        attn, y = DB.fused_dual_branch_decode_cuda(*att, x, ffn, kind=kind)
+        a2, y2 = DB.fused_dual_branch_decode_cuda(*att, x, ffn, kind=kind)
+        ra, ry = DB.fused_dual_branch_decode_plain(
+            *(a.float() for a in att[:3]), *att[3:], x.float(),
+            {k: w.float() for k, w in ffn.items()}, kind=kind)
+        torch.cuda.synchronize()
+        live = att[4] > 0
+        ry = ry.to(bf16)
+        shape = (f"H={h} Hkv={hkv} D={d} page={page} Tb={tb} {kind} B=8 "
+                 f"Dm=256 F=200")
+        report(f"fused edges attn {shape}",
+               max_err(attn[live], ra.to(bf16)[live]), ATTN_TOLS[bf16])
+        report(f"fused edges ffn  {shape}", max_err(y, ry), bf16_ulp(ry))
+        require(attn[~live].abs().max().item() == 0.0,
+                "an empty lane of the fused kernel is not exactly 0")
+        require(torch.equal(attn, a2) and torch.equal(y, y2),
+                "two launches of the fused kernel differ")
+    print("  fused edges: empty lanes exact zeros, repeats bit-identical",
+          flush=True)
+
+
+def check_fp32_routes(DB):
+    """fp32 q, x, weights and pages keep the CUDA-core kernels: under
+    torch.profiler an fp32 decode and an fp32 fused call run
+    attend_block's paged_decode_kernel and dual_branch_kernel, not the
+    bf16 routes' split_kernel or dual_tc_kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import paged_attention as PA
+    f32 = torch.float32
+    att = decode_inputs(f32, [1, 300, 1021], H, HKV, D, PAGE, 128, seed=700)
+    g = torch.Generator(device="cuda").manual_seed(701)
+    x, ffn = ffn_inputs(g, f32, "swiglu", 3, 256, 256)
+    PA.paged_decode_attention_cuda(*att)
+    DB.fused_dual_branch_decode_cuda(*att, x, ffn)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        PA.paged_decode_attention_cuda(*att)
+        DB.fused_dual_branch_decode_cuda(*att, x, ffn)
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA)
+    if not names:
+        print("  fp32 routes: not measured (the profiler saw no CUDA "
+              "kernels)")
+        return
+    require("paged_decode_kernel" in names and "dual_branch_kernel" in names
+            and "split_kernel" not in names and "dual_tc_kernel" not in names,
+            f"fp32 calls ran other kernels than attend_block's: {names}")
+    print("  fp32 routes: paged_decode_kernel and dual_branch_kernel "
+          "(CUDA cores), as before", flush=True)
 
 
 #: quantized page storage the scale variants take, by EngineConfig.kv_dtype
@@ -780,19 +961,26 @@ def page_copy_phase():
     return 0.0
 
 
-def _median_ms(fn, n=100, flush_bytes=256 << 20, lead_cycles=0):
+def _median_ms(fn, n=100, flush_bytes=256 << 20, lead_cycles=0,
+               clean=False):
     """Median over n launches of one launch's CUDA-event time, with the L2
     cache flushed before each launch (the engine finds pages cold: every
     other layer's pages pass through L2 between two reads of a layer).
-    With ``lead_cycles`` the card also spins that many clocks after the
-    flush (``torch.cuda._sleep``), so that a wrapper whose host work
-    outlasts the flush (about 0.08 ms) adds no idle time between the
+    The flush writes a 256 MB buffer, so L2 is left full of dirty lines
+    that the launch's reads evict and write back; with ``clean`` it reads
+    the buffer instead, leaving clean lines (no write-back in the
+    interval).  With ``lead_cycles`` the card also spins that many clocks
+    after the flush (``torch.cuda._sleep``), so that a wrapper whose host
+    work outlasts the flush (about 0.08 ms) adds no idle time between the
     events: the interval is then device time only."""
     flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
     fn()                                                   # warm-up
     times = []
     for _ in range(n):
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         if lead_cycles:
             torch.cuda._sleep(lead_cycles)
         a = torch.cuda.Event(enable_timing=True)
@@ -892,8 +1080,10 @@ PACKED_ATTEND_BLOCK_MS = {"int8": "0.2812", "fp8": "0.2831"}
 def padded_time_phase(bw):
     """Kernel, plain and bound times of the decode, chunk and fused kernels
     at their main-path shapes (bf16, llama3.2-3b attention, table width
-    128); the fused kernel also beside its two-op route (decode kernel +
-    ``mlp_apply`` on cuBLAS)."""
+    128); the decode and fused kernels with a lead (and without, as PR 18
+    timed them); the fused kernel also beside its two-op route (decode
+    kernel + ``mlp_apply`` on cuBLAS), with its FFN blocks alone and its
+    attention items alone."""
     from repro_torch.kernels import dual_branch as DB
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import layers as L
@@ -934,28 +1124,60 @@ def padded_time_phase(bw):
                             extra_bytes=2 * (w_numel + 2 * x.numel()),
                             extra_flops=2 * 8 * w_numel)),
     }
+    # the bf16 decode and fused wrappers size and allocate a workspace and
+    # (fused) encode tensor maps: host work near the flush's, hence a lead
+    lead = {"paged_decode_attention": LEAD_CYCLES,
+            "fused_dual_branch_decode": LEAD_CYCLES}
     for name, (shape, kernel, plain, (bound_ms, bound_by)) in cases.items():
         row = dict(shape=shape + ", bf16, H=24 Hkv=8 D=128 page=16 Tb=128",
-                   ms=_median_ms(kernel), plain_ms=_median_ms(plain),
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   ms=_median_ms(kernel, lead_cycles=lead.get(name, 0)),
+                   plain_ms=_median_ms(plain), bound_ms=bound_ms,
+                   bound_by=bound_by)
         extra = ""
+        if name in lead:
+            row["no_lead_ms"] = _median_ms(kernel)
+            # the same with a flush that leaves no dirty lines to write back
+            row["clean_flush_ms"] = _median_ms(kernel, lead_cycles=LEAD_CYCLES,
+                                               clean=True)
+            extra = (f" (without the lead {row['no_lead_ms']:.4f}; after a "
+                     f"read flush, no write-back, "
+                     f"{row['clean_flush_ms']:.4f}; before "
+                     f"the redesign {PADDED_PR18_MS[name]} ms, PERF.md, "
+                     f"PR 18's final run without a lead, NVIDIA H100 80GB "
+                     f"HBM3, 700.00 W)")
         if name == "fused_dual_branch_decode":
             row["unfused_ms"] = _median_ms(lambda: (
                 PA.paged_decode_attention_cuda(*dec),
-                L.mlp_apply(ffn, x[:, None], "swiglu")))
-            # where its time goes: the same call with one key per lane
+                L.mlp_apply(ffn, x[:, None], "swiglu")),
+                lead_cycles=LEAD_CYCLES)
+            # where its time goes: the same call with one key per lane (the
+            # FFN blocks alone), and with a one-tile FFN of Dm = F = 64 (the
+            # attention items alone)
             short = (*dec[:4], torch.ones_like(dec[4]))
-            ffn_ms = _median_ms(lambda: DB.fused_dual_branch_decode_cuda(
-                *short, x, ffn))
-            extra = (f" unfused_ms {row['unfused_ms']:.4f} (decode kernel + "
-                     f"mlp_apply); with 1 key per lane (FFN blocks alone) "
-                     f"{ffn_ms:.4f}")
+            row["ffn_alone_ms"] = _median_ms(
+                lambda: DB.fused_dual_branch_decode_cuda(*short, x, ffn),
+                lead_cycles=LEAD_CYCLES)
+            xs, tiny = ffn_inputs(g, bf16, "swiglu", 8, 64, 64)
+            row["attn_alone_ms"] = _median_ms(
+                lambda: DB.fused_dual_branch_decode_cuda(*dec, xs, tiny),
+                lead_cycles=LEAD_CYCLES)
+            extra += (f"; unfused_ms {row['unfused_ms']:.4f} (decode kernel "
+                      f"+ mlp_apply); FFN blocks alone (1 key per lane) "
+                      f"{row['ffn_alone_ms']:.4f}; attention items alone "
+                      f"(Dm = F = 64) {row['attn_alone_ms']:.4f}")
         rows[name] = row
         print(f"  {name}, {row['shape']}: kernel_ms {row['ms']:.4f} "
               f"plain_ms {row['plain_ms']:.4f} bound_ms {bound_ms:.4f} "
               f"({bound_by}){extra} library_ms none (no single PyTorch call "
               f"computes it)", flush=True)
     return rows
+
+
+#: the bf16 decode and fused kernels' times before their redesign (PERF.md
+#: section 6: PR 18's final run), as text beside the new ones
+PADDED_PR18_MS = {"paged_decode_attention": "0.1781",
+                  "fused_dual_branch_decode": "0.2504 (FFN blocks alone "
+                                              "0.2466, unfused_ms 0.2501)"}
 
 
 def scale_time_phase(bw):
@@ -1833,9 +2055,13 @@ def padded_generation_phase(params, kv="", n_new=32,
                          "fused_ln_add": n_new * L}}
         if kv:
             want["dual"] = want["sequential"]
-        copies = [{k: (v.clone() if torch.is_tensor(v) else
-                       {n: t.clone() for n, t in v.items()})
-                   for k, v in cache.items()} for _ in order[1:]] + [cache]
+        def clone(c):
+            return {k: (v.clone() if torch.is_tensor(v) else
+                        {n: t.clone() for n, t in v.items()})
+                    for k, v in c.items()}
+
+        copies = [clone(cache) for _ in order[1:]] + [cache]
+        prof_cache = None if kv else clone(cache)
         # one tick of each plan first (allocations, GEMM heuristics): it
         # writes the K/V that the timed run's first tick writes again
         decode(copies[0], first, seq, n=1)
@@ -1854,9 +2080,14 @@ def padded_generation_phase(params, kv="", n_new=32,
             require(counts == {**{k: 0 for k in counts}, **want[name]},
                     f"{name} launches {counts} != {want[name]}")
             require(bool(torch.isfinite(lg).all()), "non-finite logits")
-            runs[name].append((toks, lg, counts))
-    (toks_s, lg_s, seq_counts) = runs["sequential"][0]
-    (toks_d, lg_d, dual_counts) = runs["dual"][0]
+            runs[name].append((toks, lg, counts, secs / n_new * 1e3))
+        if prof_cache is not None:
+            for name in ("sequential", "dual"):
+                tick_device_time(name, lambda: decode(
+                    prof_cache, first, seq if name == "sequential" else dual,
+                    n=PROFILED_TICKS), runs[name][0][3])
+    (toks_s, lg_s, seq_counts, _) = runs["sequential"][0]
+    (toks_d, lg_d, dual_counts, _) = runs["dual"][0]
     diff = (lg_s - lg_d).abs().max().item()
     common = [int((toks_s[b] == toks_d[b]).int().cumprod(0).sum())
               for b in range(B)]
@@ -1875,6 +2106,68 @@ def padded_generation_phase(params, kv="", n_new=32,
                 seq_counts["paged_decode_attention" + sfx],
             **({} if kv else {"fused_dual_branch_decode":
                               dual_counts["fused_dual_branch_decode"]})}
+
+
+#: padded decode ticks under the profiler, a plan each (bf16 pages)
+PROFILED_TICKS = 4
+
+
+def busy_ms(prof):
+    """The time at least one CUDA kernel ran, in ms: the union of the
+    kernels' intervals in a profile.  Kernels launched as programmatic
+    dependents (a combine or finishing grid) start while the kernel before
+    them runs and wait for it, so summing kernel times counts that overlap
+    twice."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def tick_device_time(name, run, wall_ms):
+    """Device time a padded decode tick (the time any CUDA kernel ran over
+    ``PROFILED_TICKS`` ticks under torch.profiler; also the sum of the
+    kernels' own times) beside the counted run's wall ms/tick, and the
+    kernels that ran: the bf16 decode is the key-split kernel, the dual
+    tick's blocks the tensor-core fused grid, never attend_block's
+    paged_decode_kernel or dual_branch_kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(ms for _, ms, _ in rows)
+    if device_ms == 0.0:
+        print(f"  {name}: device time not measured (the profiler saw no "
+              f"CUDA kernels); wall {wall_ms:.2f} ms/tick")
+        return
+    print(f"  {name}: device time {busy_ms(prof) / PROFILED_TICKS:.3f} "
+          f"ms/tick busy (kernel times summed: "
+          f"{device_ms / PROFILED_TICKS:.3f}; torch.profiler, "
+          f"{PROFILED_TICKS} ticks) beside the counted run's wall "
+          f"{wall_ms:.2f} ms/tick; the most device time (a dependent grid's "
+          f"time includes its wait):")
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:6]:
+        print(f"    {ms:9.3f} ms {n:6d} calls  {key[:90]}")
+    names = " ".join(k for k, _, _ in rows)
+    require("decode_splits::split_kernel" in names,
+            f"the {name} tick ran no key-split decode kernel")
+    require("paged_decode_kernel" not in names
+            and "dual_branch_kernel" not in names,
+            f"the {name} tick ran attend_block's decode or fused kernel")
+    if name == "dual":
+        require("dual_tc_kernel" in names,
+                "the dual tick ran no tensor-core fused kernel")
+    sys.stdout.flush()
 
 
 # --------------------------------------------------------------------------- #
@@ -2393,8 +2686,10 @@ def main():
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],
                  "library_ms": row.get("library_ms")}
-        for extra in ("unfused_ms", "wrapper_ms", "library_fwd_bwd_ms",
-                      "no_lead_ms", "decode_tick_ms", "decode_tick_bound_ms",
+        for extra in ("unfused_ms", "ffn_alone_ms", "attn_alone_ms",
+                      "clean_flush_ms", "wrapper_ms", "library_fwd_bwd_ms",
+                      "no_lead_ms",
+                      "decode_tick_ms", "decode_tick_bound_ms",
                       "decode_tick_no_lead_ms"):
             if extra in row:
                 entry[extra] = row[extra]

@@ -3,8 +3,10 @@
 // and runs paged_common.cuh's attend_block; the layouts differ only in how a
 // block finds its query row, its sequence's block-table row and the number
 // of keys it sees.  Bounded by bytes; see paged_common.cuh for the design.
-// The exception is the packed layout with bf16 q on bf16, int8 or fp8
-// pages, which runs on the tensor cores (paged_packed_tc.cuh).
+// The exceptions: the packed layout with bf16 q on bf16, int8 or fp8 pages
+// runs on the tensor cores (paged_packed_tc.cuh), and the decode layout
+// with bf16 q on bf16 pages runs key splits with a pipelined gather
+// (paged_decode_splits.cuh).
 //
 // paged_packed_attention -- replaces the Pallas TPU kernel
 //   src/repro/kernels/paged_attention.py:346 (body _paged_packed_kernel,
@@ -21,7 +23,10 @@
 //   q (B, H, D); block_tables (B, Tb); seq_lens (B,) -> (B, H, D).
 //   Lane b reads table row b, keys k < seq_lens[b]; seq_lens[b] == 0 writes
 //   zeros, as the Pallas kernel does (ref.py's oracle gives the mean of V
-//   there).  Grid (B, Hkv).
+//   there).  Grid (B, Hkv) for fp32 q, fp32 pages or int8 / fp8 pages;
+//   bf16 q on bf16 pages: paged_decode_splits.cuh's (B * Hkv, key splits)
+//   grid and combine kernel over a caller's workspace (the only route for
+//   that pair).
 //
 // paged_chunk_attention -- replaces src/repro/kernels/paged_attention.py:222
 //   (body _paged_chunk_kernel, :161), with its scale variant.  Oracle
@@ -36,6 +41,7 @@
 // (paged_common.cuh).  Nothing is allocated and nothing synchronises.
 
 #include "paged_common.cuh"
+#include "paged_decode_splits.cuh"
 #include "paged_packed_tc.cuh"
 
 namespace {
@@ -143,12 +149,15 @@ template <>
 struct PackedLaunch<__nv_bfloat16, __nv_fp8_e4m3>
     : TensorCoreLaunch<__nv_fp8_e4m3> {};
 
+// The workspace (ws, bytes) is the key-split route's; the attend_block
+// route takes none.
 template <typename TQ, typename TKV>
 struct DecodeLaunch {
   static int run(const void* q, const void* k, const void* v,
                  const float* ks, const float* vs, const int* bt,
                  const int* seq_lens, void* out, int B, int H, int Hkv, int D,
-                 int page, int Tb, float scale, cudaStream_t s) {
+                 int page, int Tb, float scale, void* /*ws*/,
+                 long long /*bytes*/, int /*device*/, cudaStream_t s) {
     const dim3 grid(B, Hkv);
 #define REPRO_LAUNCH(DD)                                                    \
   paged_decode_kernel<TQ, TKV, DD><<<grid, kThreads, 0, s>>>(               \
@@ -158,6 +167,20 @@ struct DecodeLaunch {
     REPRO_SWITCH_HEAD_DIM(D, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
     return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// bf16 q on bf16 pages: the key-split kernels (a shape they do not take
+// returns -1; nothing falls back to attend_block).
+template <>
+struct DecodeLaunch<__nv_bfloat16, __nv_bfloat16> {
+  static int run(const void* q, const void* k, const void* v,
+                 const float* /*ks*/, const float* /*vs*/, const int* bt,
+                 const int* seq_lens, void* out, int B, int H, int Hkv, int D,
+                 int page, int Tb, float scale, void* ws, long long bytes,
+                 int device, cudaStream_t s) {
+    return decode_splits::launch(q, k, v, bt, seq_lens, out, B, H, Hkv, D,
+                                 page, Tb, scale, ws, bytes, device, s);
   }
 };
 
@@ -247,18 +270,32 @@ int paged_packed_plan(const int* tok_slot, const int* tok_pos, int T, int H,
                          static_cast<cudaStream_t>(stream));
 }
 
+// paged_decode_attention's workspace is device memory of at least
+// paged_decode_workspace_bytes(...) bytes (0 unless bf16 q on bf16 pages
+// whose table can hold more than one key split; null when 0).
 int paged_decode_attention(const void* q, const void* k, const void* v,
                            const float* ks, const float* vs, const int* bt,
                            const int* seq_lens, void* out, int B, int H,
                            int Hkv, int D, int page, int Tb, float scale,
                            int q_bf16, int kv_type, int device,
-                           void* stream) {
+                           void* stream, void* workspace,
+                           long long workspace_bytes) {
   if (B == 0) return 0;
   const int err = prologue(H, Hkv, page, Tb, kv_type, ks, vs, device);
   if (err) return err;
   return by_kv_types<DecodeLaunch>(q_bf16, kv_type, q, k, v, ks, vs, bt,
                                    seq_lens, out, B, H, Hkv, D, page, Tb,
-                                   scale, static_cast<cudaStream_t>(stream));
+                                   scale, workspace, workspace_bytes, device,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+long long paged_decode_workspace_bytes(int B, int H, int Hkv, int D,
+                                       int page, int Tb, int q_bf16,
+                                       int kv_type) {
+  if (!q_bf16 || kv_type != 1 || B <= 0 || Hkv <= 0 || page <= 0 || Tb <= 0)
+    return 0;
+  return (long long)decode_splits::workspace_layout(B, H, D, Tb * page)
+      .bytes;
 }
 
 int paged_chunk_attention(const void* q, const void* k, const void* v,

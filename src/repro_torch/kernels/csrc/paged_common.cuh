@@ -1,8 +1,15 @@
 // Device code shared by the port's paged-attention kernels for Hopper
-// (sm_90a): the per-(query row, KV head) attention block that
-// paged_attention.cu (decode and chunk layouts; the packed layout for fp32
-// q or fp32 pages, bf16 q on bf16 / int8 / fp8 pages runs
-// paged_packed_tc.cuh) and dual_branch.cu (the fused MHA || FFN decode) run.
+// (sm_90a): the per-(query row, KV head) attention block of the CUDA-core
+// routes.  Which layouts and types still run it:
+//   * paged_attention.cu's chunk layout, every type pair (bf16 / fp32 q on
+//     bf16 / fp32 pages, and bf16 / fp32 q on int8 / fp8 pages);
+//   * its decode layout for fp32 q, fp32 pages and int8 / fp8 pages (bf16
+//     q on bf16 pages runs the key splits of paged_decode_splits.cuh);
+//   * its packed layout for fp32 q or fp32 pages (bf16 q on bf16, int8 or
+//     fp8 pages runs the tensor cores of paged_packed_tc.cuh);
+//   * dual_branch.cu's fused MHA || FFN decode when q, x and the weights or
+//     the pages are fp32 (the bf16 route runs the key-split items beside
+//     tensor-core FFN blocks).
 //
 // attend_block: one thread block computes G query rows that share KV head h
 // against the first n_keys keys of one sequence, whose pages are listed in
@@ -24,8 +31,11 @@
 // What bounds it on this card: bytes.  A block reads n_keys K rows and as
 // many V rows of D * sizeof(TKV) bytes and does 4 * G * D flops per key, so
 // at G = 3 it does about 6 flops per byte read, far below the ~295 flops per
-// byte where H100's tensor cores would be the limit.  The design spends its
-// effort on the loads:
+// byte where H100's tensor cores would be the limit.  But one block per
+// (query row, KV head) walks all of a long sequence alone, its loads
+// consumed as they are issued (no tile in flight while the last is used):
+// 64 such blocks on 132 SMs took 17.7x the bound on a decode tick (PERF.md),
+// which is why the bf16 decode and packed routes left it.  The design:
 //   * the G query rows that share a KV head live in registers, so each K/V
 //     row is read once for all G heads (GQA reuse) and never re-read;
 //   * the block walks the sequence's pages in a loop (the TPU's sequential
@@ -36,8 +46,8 @@
 //     addresses; K is consumed from registers, V is staged in shared memory
 //     for the P.V product;
 //   * pages past the last visible key are never touched.
-// The tensor-core design of paged_packed_tc.cuh (cp.async-gathered tiles,
-// wgmma, key splits) has not reached the decode and chunk layouts yet.
+// The chunk layout and the one-byte decode variants are next in line for
+// the key-split and tensor-core designs (ROADMAP.md, queue 2).
 #pragma once
 
 #include <cuda_bf16.h>

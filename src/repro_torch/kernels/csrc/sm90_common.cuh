@@ -544,4 +544,26 @@ inline bool bf16_rows_map(CUtensorMap* map, const void* base, int B, int S,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The tensor map of a contiguous bf16 (rows, cols) matrix as a 4-d map
+// (cols, rows, 1, 1), one box = box_rows rows x box_cols columns (64
+// columns: 128-byte rows, 128B swizzle).  Elements past the ends read as
+// zeros.  Returns false if the driver refuses (cols * 2 must be a multiple
+// of 16 and base 16-byte aligned).
+inline bool bf16_matrix_map(CUtensorMap* map, const void* base, int rows,
+                            int cols, int box_rows, int box_cols) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows, 1, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)rows * cols * 2,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1,
+                             1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace sm90

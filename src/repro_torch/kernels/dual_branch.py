@@ -8,10 +8,17 @@ block's attention, so the paged KV gather and the FFN weight reads can go
 down together.  The kernel is ``csrc/dual_branch.cu`` (CUDA C++ for
 ``sm_90a``): one grid of FFN blocks (each a 64-column tile of F for all B
 rows, partials summed in tile order by a second small launch) beside
-attention blocks that run the decode kernel's attention block.  What bounds
-it on an H100: bytes, the FFN weights above all (151 MB at llama3.2-3b in
-bf16).  The FFN is computed in fp32 with one rounding at each output, as the
-TPU kernel computes it.
+attention blocks.  What bounds it on an H100: bytes, the FFN weights above
+all (151 MB at llama3.2-3b in bf16).  The FFN is computed with fp32 sums and
+one rounding at each output, as the TPU kernel computes it.
+
+bf16 q, x, weights and pages (the serving path's types) run the FFN on the
+tensor cores (a TMA ring of weight boxes, ``mma.sync`` with the weights as
+the A operand and the batch as N, h fed to wo as a bf16 hi/lo pair, tile
+partials summed in ``FFN_SUM_CHUNKS`` chunks of tiles) and the attention as
+the decode kernel's key-split items (``csrc/paged_decode_splits.cuh``);
+fp32 inputs or pools keep the CUDA-core FFN blocks beside the attention
+block of ``csrc/paged_common.cuh``.
 
 ``fused_dual_branch_decode`` runs the plain version for CPU tensors and the
 kernel for CUDA tensors; on a CUDA tensor it launches the kernel or raises.
@@ -32,6 +39,9 @@ LAUNCHES_FUSED = 0
 KINDS = ("swiglu", "geglu", "gelu")
 #: F columns per FFN block of the kernel (``kFT`` in ``csrc/dual_branch.cu``)
 FFN_TILE = 64
+#: chunks of tiles the bf16 route sums in order, then adds in chunk order
+#: (``kSumChunks``)
+FFN_SUM_CHUNKS = 8
 
 
 def reset_launches():
@@ -59,10 +69,14 @@ def _lib():
     fn = lib.fused_dual_branch_decode
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        # q, k, v, bt, seq_lens, x, wi, wg, wo, out, y, scratch; B, H, Hkv,
-        # D, page, Tb, Dm, F, kind; scale; q_bf16, kv_bf16, device; stream
-        fn.argtypes = [vp] * 12 + [i] * 9 + [ctypes.c_float] + [i] * 3 + [vp]
+        # q, k, v, bt, seq_lens, x, wi, wg, wo, out, y, workspace; B, H,
+        # Hkv, D, page, Tb, Dm, F, kind; scale; q_bf16, kv_bf16, device;
+        # stream; workspace bytes
+        fn.argtypes = [vp] * 12 + [i] * 9 + [ctypes.c_float] + [i] * 3 \
+            + [vp, ctypes.c_longlong]
         fn.restype = i
+        lib.fused_dual_branch_workspace_bytes.argtypes = [i] * 10
+        lib.fused_dual_branch_workspace_bytes.restype = ctypes.c_longlong
         lib.dual_branch_error_string.argtypes = [i]
         lib.dual_branch_error_string.restype = ctypes.c_char_p
     return lib
@@ -108,20 +122,24 @@ def fused_dual_branch_decode_cuda(q, k_pages, v_pages, block_tables,
     y = torch.empty_like(x)
     if B == 0:
         return out, y
-    n_tiles = -(-F // FFN_TILE)
-    scratch = torch.empty((n_tiles, B, Dm), dtype=torch.float32,
-                          device=q.device)
+    Tb = block_tables.shape[1]
+    dtypes = (int(q.dtype == torch.bfloat16),
+              int(k_pages.dtype == torch.bfloat16))
     wg = ffn["wg"].data_ptr() if kind != "gelu" else None
     lib = _lib()
+    # the FFN tiles' fp32 partials (and on the bf16 route the attention
+    # splits' partials)
+    ws = torch.empty(lib.fused_dual_branch_workspace_bytes(
+        B, H, Hkv, D, page, Tb, Dm, F, *dtypes), dtype=torch.uint8,
+        device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.fused_dual_branch_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), seq_lens.data_ptr(), x.data_ptr(),
         ffn["wi"].data_ptr(), wg, ffn["wo"].data_ptr(), out.data_ptr(),
-        y.data_ptr(), scratch.data_ptr(), B, H, Hkv, D, page,
-        block_tables.shape[1], Dm, F, KINDS.index(kind), float(scale),
-        int(q.dtype == torch.bfloat16), int(k_pages.dtype == torch.bfloat16),
-        q.device.index, stream)
+        y.data_ptr(), ws.data_ptr(), B, H, Hkv, D, page, Tb, Dm, F,
+        KINDS.index(kind), float(scale), *dtypes, q.device.index, stream,
+        ws.numel())
     if err != 0:
         msg = lib.dual_branch_error_string(err).decode()
         raise RuntimeError(f"fused_dual_branch_decode kernel launch failed "

@@ -23,13 +23,24 @@ scales, dequantized where a row is loaded (the reference's ``_dequant``).
 
 The attention kernels are ``csrc/paged_attention.cu`` (CUDA C++ for
 ``sm_90a``), one source with three entry points over the shared attention
-block of ``csrc/paged_common.cuh``; the page copy is ``csrc/page_copy.cu``.
+block of ``csrc/paged_common.cuh`` (and the two bf16 designs below); the
+page copy is ``csrc/page_copy.cu``.
 What bounds them on an H100: bytes.  Each query row reads the K and V rows
 of its own pages up to its last visible key, once for all G query heads of a
 KV head, and does about 6 flops per byte at G = 3 (12 on quantized pages).
 One thread block per (query row, KV head) holds the G query rows in
 registers, walks the pages in a loop with vector loads and never touches a
 page past the last visible key (see the sources' headers).
+
+The decode kernel with bf16 q on bf16 pages (the padded serving path's
+pair) runs key splits with a pipelined gather instead
+(``csrc/paged_decode_splits.cuh``): a fixed grid of (lane, KV head, split
+of ``split_keys(Tb * page)`` keys) items, each gathering 64-key K/V tiles
+through the block table by cp.async into a three-stage ring and computing
+in fp32 on the CUDA cores; a lane with more than one split is merged by a
+combine kernel in split order from fp32 partials in a workspace the wrapper
+allocates (``paged_decode_workspace_bytes`` sizes it); the other pairs keep
+the attention block.
 
 The packed kernel with bf16 q on bf16, int8 or fp8 pages (the engine's
 type pairs) runs on the tensor cores instead (``csrc/paged_packed_tc.cuh``):
@@ -145,10 +156,11 @@ def paged_packed_attention_plain(q, k_pages, v_pages, block_tables, tok_slot,
 
 
 def split_keys(max_keys):
-    """Keys of a split of the tensor-core packed kernel for a table of
-    ``max_keys = Tb * page`` keys: at least ``MIN_SPLIT_KEYS``, at most
-    ``MAX_SPLITS`` splits, a multiple of ``TILE_KEYS``
-    (``csrc/paged_packed_tc.cuh`` ``split_keys``)."""
+    """Keys of a split of the tensor-core packed kernel and of the bf16
+    key-split decode kernel for a table of ``max_keys = Tb * page`` keys:
+    at least ``MIN_SPLIT_KEYS``, at most ``MAX_SPLITS`` splits, a multiple
+    of ``TILE_KEYS`` (``split_keys`` of ``csrc/paged_packed_tc.cuh`` and
+    ``csrc/paged_decode_splits.cuh``)."""
     per = -(-max_keys // MAX_SPLITS)
     return max(MIN_SPLIT_KEYS, -(-per // TILE_KEYS) * TILE_KEYS)
 
@@ -255,7 +267,10 @@ def _lib():
             [vp] * 2 + [i] * 6 + [vp, ctypes.c_longlong, i, vp]
         lib.paged_packed_plan.restype = i
         lib.paged_decode_attention.argtypes = \
-            [vp] * 8 + [i] * 6 + tail  # ..., B, H, Hkv, D, page, Tb
+            [vp] * 8 + [i] * 6 + tail + [vp, ctypes.c_longlong]
+        # ..., B, H, Hkv, D, page, Tb, <tail>, workspace, its bytes
+        lib.paged_decode_workspace_bytes.argtypes = [i] * 8
+        lib.paged_decode_workspace_bytes.restype = ctypes.c_longlong
         lib.paged_chunk_attention.argtypes = \
             [vp] * 9 + [i] * 7 + tail  # ..., B, C, H, Hkv, D, page, Tb
         for fn in (lib.paged_packed_attention, lib.paged_decode_attention,
@@ -386,17 +401,24 @@ def _launch(lib, fn, q, k_pages, k_scale, *args, tail=()):
     LAUNCHES[kernel_label(fn, k_pages, k_scale)] += 1
 
 
-def _packed_workspace(lib, q, k_pages, block_tables):
-    """The device workspace the packed kernels need for these arguments
-    (None when they need none: fp32 q or fp32 pages)."""
-    T, H, D = q.shape
+def _workspace(sizer, q, k_pages, block_tables):
+    """The device workspace a kernel needs for these arguments, as
+    ``sizer`` (a C entry over (rows, H, Hkv, D, page, Tb, q_bf16,
+    kv_type)) gives its bytes; None when it needs none."""
+    H, D = q.shape[-2:]
     _, page, Hkv, _ = k_pages.shape
-    nbytes = lib.paged_packed_workspace_bytes(
-        T, H, Hkv, D, page, block_tables.shape[1],
-        int(q.dtype == torch.bfloat16), _KV_TYPES[k_pages.dtype])
+    nbytes = sizer(q.shape[0], H, Hkv, D, page, block_tables.shape[1],
+                   int(q.dtype == torch.bfloat16), _KV_TYPES[k_pages.dtype])
     if nbytes == 0:
         return None
     return torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+
+
+def _packed_workspace(lib, q, k_pages, block_tables):
+    """The device workspace the packed kernels need for these arguments
+    (None when they need none: fp32 q or fp32 pages)."""
+    return _workspace(lib.paged_packed_workspace_bytes, q, k_pages,
+                      block_tables)
 
 
 def paged_packed_attention_cuda(q, k_pages, v_pages, block_tables, tok_slot,
@@ -457,11 +479,16 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, seq_lens,
     out = torch.empty_like(q)
     if B == 0:
         return out
-    _launch(_lib(), "paged_decode_attention", q, k_pages, k_scale,
+    lib = _lib()
+    # the key-split route's partials (bf16 q on bf16 pages, several splits)
+    ws = _workspace(lib.paged_decode_workspace_bytes, q, k_pages,
+                    block_tables)
+    _launch(lib, "paged_decode_attention", q, k_pages, k_scale,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
             seq_lens.data_ptr(), out.data_ptr(), B, H, Hkv, D, page,
-            block_tables.shape[1], float(scale))
+            block_tables.shape[1], float(scale),
+            tail=(_ptr(ws), 0 if ws is None else ws.numel()))
     return out
 
 

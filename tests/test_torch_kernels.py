@@ -144,11 +144,14 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "CSRC", csrc)
     names = ("paged_attention", "dual_branch")
     header = csrc / "paged_common.cuh"
-    assert build.local_includes(csrc / "dual_branch.cu") == [header]
-    # the tensor-core packed kernel's header, and the Hopper helpers it
+    # the bf16 key-split decode's header, and the Hopper helpers it
     # includes
+    assert build.local_includes(csrc / "dual_branch.cu") == [
+        header, csrc / "paged_decode_splits.cuh", csrc / "sm90_common.cuh"]
+    # also the tensor-core packed kernel's header
     assert build.local_includes(csrc / "paged_attention.cu") == [
-        header, csrc / "paged_packed_tc.cuh", csrc / "sm90_common.cuh"]
+        header, csrc / "paged_decode_splits.cuh", csrc / "paged_packed_tc.cuh",
+        csrc / "sm90_common.cuh"]
     before = {n: build.library_path(n) for n in names}
     (csrc / "unused.cuh").write_text("// included by nothing\n")
     assert {n: build.library_path(n) for n in names} == before
@@ -161,9 +164,11 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
 def test_flash_attention_build_hashes_the_hopper_header(tmp_path,
                                                         monkeypatch):
     """flash_attention.cu includes csrc/sm90_common.cuh (the TMA, mbarrier
-    and wgmma helpers of its bf16 kernels), and so does paged_attention.cu
-    through csrc/paged_packed_tc.cuh (the tensor-core packed kernel):
-    editing that header rebuilds those two libraries and no other."""
+    and wgmma helpers of its bf16 kernels), and so do paged_attention.cu
+    through csrc/paged_packed_tc.cuh (the tensor-core packed kernel) and
+    csrc/paged_decode_splits.cuh (the bf16 key-split decode), and
+    dual_branch.cu (its TMA-fed FFN and the key-split items): editing that
+    header rebuilds those three libraries and no other."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
@@ -173,7 +178,7 @@ def test_flash_attention_build_hashes_the_hopper_header(tmp_path,
     before = {n: build.library_path(n) for n in names}
     header.write_text(header.read_text() + "\n// edited\n")
     assert {n for n in names if build.library_path(n) != before[n]} == \
-        {"flash_attention", "paged_attention"}
+        {"flash_attention", "paged_attention", "dual_branch"}
 
 
 def test_build_keeps_the_ptxas_report_beside_the_library(tmp_path,
