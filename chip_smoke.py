@@ -11,10 +11,11 @@ script exits non-zero:
   2. build       every kernel under src/repro_torch/kernels/csrc with nvcc,
                  one nvcc per source, all started together; registers and
                  spills of the bf16 flash kernels (none may spill at
-                 D = 128), of the tensor-core packed attention kernels
-                 (bf16, int8 and fp8 pages), of the bf16 key-split decode
-                 kernels and of the bf16 fused grid and its finishing
-                 kernel (none of these may spill)
+                 D = 128), of the tensor-core attention and combine
+                 kernels over packed and chunk items (bf16, int8 and fp8
+                 pages), of the bf16 key-split decode kernels and of the
+                 bf16 fused grid and its finishing kernel (none of these
+                 may spill)
   3. kernel      each kernel against its plain PyTorch version at the
                  main path's shapes (and small shapes), bf16 and fp32; the
                  tensor-core packed kernel (bf16 q on bf16, int8 and fp8
@@ -25,9 +26,15 @@ script exits non-zero:
                  decode and the bf16 fused kernel also on edge lanes
                  (seq_len 1, 255/256/257, 511/512, the table, 0) at G = 1,
                  3, 8 and D = 32, 64, 128, bit-identical over two launches
-                 (fused: B = 3, 8, 11, a ragged F tile), fp32 still on the
-                 CUDA-core kernels (profiled by name); the dual-branch
-                 dispatcher's two-op route; page_copy byte for byte; the
+                 (fused: B = 3, 8, 11, a ragged F tile); the tensor-core
+                 chunk route (bf16 q on bf16, int8 and fp8 pages) on edge
+                 chunks (G = 1, 3, 8; D = 32, 64, 128; C = 1 and C not a
+                 multiple of 64 / G; n_valid 0 at pos 0 and > 0; chunks
+                 past the table's end; with and without key splits), all
+                 rows, bit-identical over two launches; fp32 decode, fused
+                 and chunk calls still on the CUDA-core kernels (profiled
+                 by name); the dual-branch dispatcher's two-op route;
+                 page_copy byte for byte; the
                  int8 / fp8 scale variants of the three paged attention
                  kernels; flash_attention forward and backward
                  (bf16: the tensor-core kernels, fp32: the CUDA-core ones;
@@ -36,10 +43,10 @@ script exits non-zero:
                  backward
   4. time        kernel, plain and bound times (median of 100 launches,
                  CUDA events, L2 flushed between launches; the packed
-                 kernel on a mixed and a decode-only tick; the decode and
-                 fused kernels beside their times before the redesign, the
-                 fused one also with its FFN blocks alone, its attention
-                 items alone and its two-op route); one COW at
+                 kernel on a mixed and a decode-only tick; the decode,
+                 chunk and fused kernels beside their times before the
+                 redesign, the fused one also with its FFN blocks alone,
+                 its attention items alone and its two-op route); one COW at
                  llama3.2-3b beside index_copy_; the training kernels beside
                  scaled_dot_product_attention and F.rms_norm + add (flash:
                  also TFLOP/s and share of the bound)
@@ -59,10 +66,13 @@ script exits non-zero:
  10. quantized   the profile workload on int8 and on fp8 pages
  11. padded      padded (B, C) generation at full width and depth: chunk
                  prefill ticks, then 32 greedy C == 1 ticks sequentially and
-                 again under the dual-branch plan from the same cache (bf16:
-                 then 4 ticks of each plan under torch.profiler: device
-                 ms/tick, and the key-split and fused kernels by name); then
-                 8 ticks each way on int8 and on fp8 pages
+                 again under the dual-branch plan from the same cache; the
+                 prefill again under torch.profiler from the empty cache
+                 (device ms/tick, the tensor-core chunk kernel by name);
+                 bf16: then 4 ticks of each plan under torch.profiler
+                 (device ms/tick, the key-split and fused kernels by name);
+                 then the same on int8 and on fp8 pages, 8 decode ticks
+                 each way
  12. train tick  one train step at llama3.2-3b full width (2 layers, fp32,
                  B=2, S=256) on the card against the CPU
  13. train       trainer.train at llama3.2-3b full width and depth (fal,
@@ -289,27 +299,32 @@ def build_phase():
               f"registers, at most {max(smem, default=0)} bytes static "
               f"shared memory, {sum(spill)} bytes spilled (ptxas -v)")
     tc = tensor_core_kernels(build.PTXAS_LOG.get("flash_attention", ""))
-    for (kname, _, d), (regs, spilled) in sorted(tc.items()):
+    for (kname, _, d, _), (regs, spilled) in sorted(tc.items()):
         print(f"  flash_attention bf16 {kname} D={d}: {regs} registers at "
               f"launch (setmaxnreg moves them to the consumers), "
               f"{spilled} bytes spilled")
     require(len(tc) == 9, f"ptxas reported {len(tc)} of the 9 bf16 flash "
             f"kernels")
-    require(all(sp == 0 for (_, _, d), (_, sp) in tc.items() if d == 128),
-            "a bf16 flash kernel spills at D = 128")
+    require(all(sp == 0 for (_, _, d, _), (_, sp) in tc.items()
+                if d == 128), "a bf16 flash kernel spills at D = 128")
+    # the tensor-core attention and combine kernels over the packed and the
+    # chunk layouts' items
     packed = tensor_core_kernels(build.PTXAS_LOG.get("paged_attention", ""),
                                  "9packed_tc")
-    for (kname, pages, d), (regs, spilled) in sorted(packed.items()):
-        print(f"  paged_packed_attention {kname} "
-              f"{pages + ' pages ' if pages else ''}D={d}: {regs} "
-              f"registers, {spilled} bytes spilled")
-    want = sorted([("attn_kernel", pages, d) for pages in PAGE_TYPES.values()
-                   for d in (32, 64, 128)]
-                  + [("combine_kernel", "", d) for d in (32, 64, 128)])
+    for (kname, pages, d, items), (regs, spilled) in sorted(packed.items()):
+        label = {"Packed": "paged_packed_attention",
+                 "Chunk": "paged_chunk_attention"}.get(items, items)
+        print(f"  {label} {kname} {pages + ' pages ' if pages else ''}D={d}: "
+              f"{regs} registers, {spilled} bytes spilled")
+    want = sorted([("attn_kernel", pages, d, items)
+                   for pages in PAGE_TYPES.values() for d in (32, 64, 128)
+                   for items in ("Packed", "Chunk")]
+                  + [("combine_kernel", "", d, items) for d in (32, 64, 128)
+                     for items in ("Packed", "Chunk")])
     require(sorted(packed) == want, f"ptxas reported {sorted(packed)}, not "
-            f"the {len(want)} tensor-core packed kernels")
+            f"the {len(want)} tensor-core packed and chunk kernels")
     require(all(sp == 0 for _, sp in packed.values()),
-            "a tensor-core packed attention kernel spills")
+            "a tensor-core packed or chunk attention kernel spills")
     # the bf16 decode key splits (paged_attention.cu) and the bf16 fused
     # grid (dual_branch.cu): every instantiation, none may spill
     split = templated_kernels(build.PTXAS_LOG.get("paged_attention", ""),
@@ -342,19 +357,21 @@ PAGE_TYPES = {"13__nv_bfloat16": "bf16", "a": "int8", "13__nv_fp8_e4m3": "fp8"}
 
 
 def tensor_core_kernels(log, namespace="2tc"):
-    """{(kernel, page type or "", D): (registers, bytes spilled)} of the
-    kernel templates over (a page type and) D in a mangled namespace
-    (``2tc``: the bf16 flash kernels of csrc/flash_attention.cu;
-    ``9packed_tc``: the packed attention of csrc/paged_packed_tc.cuh, its
-    attention kernel over bf16, int8 and fp8 pages) from ptxas -v's
-    report."""
+    """{(kernel, page type or "", D, item source or ""): (registers, bytes
+    spilled)} of the kernel templates over (a page type and) D (and an item
+    source) in a mangled namespace (``2tc``: the bf16 flash kernels of
+    csrc/flash_attention.cu; ``9packed_tc``: the tensor-core attention of
+    csrc/paged_packed_tc.cuh, its attention kernel over bf16, int8 and fp8
+    pages, and it and the combine over ``PackedItems`` or ``ChunkItems``,
+    named "Packed" / "Chunk") from ptxas -v's report."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*" + namespace +
-                      r"(\d+)(\w+?_kernel)I(\w*?)Li(\d+)E", line)
+                      r"(\d+)(\w+?_kernel)I(\w*?)Li(\d+)E"
+                      r"(?:NS_\d+(\w+?)ItemsE)?", line)
         if m:
             cur = (m.group(2), PAGE_TYPES.get(m.group(3), m.group(3)),
-                   int(m.group(4)))
+                   int(m.group(4)), m.group(5) or "")
             out[cur] = [0, 0]
             continue
         if cur is None:
@@ -451,6 +468,12 @@ def kernel_phase():
             check_kernel(PA, dtype, small, h, hkv, d, page, 256,
                          tols[dtype], seed=d * page)
         check_plan(PA, small, h, hkv, d, page)
+    # an odd count of split partials (3 splits x 43 tokens x 3 heads): the
+    # workspace's fp32 accumulators still start on a 16-byte boundary
+    odd = mixed_tick(page=8, num_pages=256, tb=80, n_prefill=37, n_decode=3,
+                     decode_pos=600, n_pad=3, seed=7)
+    check_kernel(PA, torch.bfloat16, odd, 3, 1, 32, 8, 256,
+                 tols[torch.bfloat16], seed=7)
     # the bf16 packed kernel's edges (tests/test_torch_packed_tiles.py)
     for page, g, d in EDGE_SHAPES:
         edge = edge_tick(page)
@@ -596,7 +619,101 @@ def padded_kernel_phase():
             if i == 0 and dtype == torch.bfloat16:
                 errs["paged_chunk_attention"] = err
     check_split_edges(PA)
+    check_chunk_edges(PA)
     return errs
+
+
+#: (H, Hkv, D, page, Tb, C) of the tensor-core chunk route's edge checks:
+#: G = 8, 1 and 3 at D = 32, 64 and 128; C not a multiple of 64 / G, C = 1;
+#: tables of 640 and 2048 keys; few row-tile items (key splits) and, at the
+#: last two, B x ceil(C / (64 / G)) x Hkv >= CHUNK_SPLIT_ITEMS (one split)
+CHUNK_EDGE_SHAPES = ((16, 2, 32, 16, 40, 37), (2, 2, 64, 4, 160, 100),
+                     (6, 2, 128, 8, 80, 1), (16, 2, 128, 16, 128, 56),
+                     (32, 4, 64, 16, 40, 64), (16, 16, 32, 4, 160, 128))
+
+
+def chunk_edge_lanes(C, max_keys):
+    """(pos, n_valid) of the chunk edge checks: a full chunk at 0; n_valid
+    0 at pos 0 (no row sees a key) and at pos > 0; one valid row; n_valid
+    < C just below the 256-key split boundary; a full chunk across it;
+    pos + C past the table's end; a full chunk ending at it."""
+    return [(0, C), (0, 0), (300, 0), (5, 1), (250, max(C - 3, 1)),
+            (256 - C // 2, C), (max_keys - C // 2, C // 2),
+            (max_keys - C - 1, C)]
+
+
+def chunk_route(PA, B, C, h, hkv, max_keys):
+    """How the tensor-core chunk route cuts a call: its split length and
+    split count (``chunk_split_keys``), as text."""
+    L = PA.chunk_split_keys(B, C, G=h // hkv, Hkv=hkv, max_keys=max_keys)
+    n = -(-max_keys // L)
+    return f"{n} split{'s' if n > 1 else ''} of {L} keys"
+
+
+def chunk_case(PA, dtype_kv, C, lanes, h, hkv, d, page, tb, seed):
+    """``chunk_inputs`` with bf16 q on ``dtype_kv`` pages ("" for bf16,
+    else int8 / fp8 with row scales): (args, scales)."""
+    args = chunk_inputs(torch.float32, C, lanes, h, hkv, d, page, tb, seed)
+    q, kp, vp = args[:3]
+    if not dtype_kv:
+        return ((q.to(torch.bfloat16), kp.to(torch.bfloat16),
+                 vp.to(torch.bfloat16), *args[3:]), {})
+    kq, vq, ks, vs = quantize_pools(kp, vp, dtype_kv)
+    return ((q.to(torch.bfloat16), kq, vq, *args[3:]),
+            dict(k_scale=ks, v_scale=vs))
+
+
+def check_chunk_edges(PA):
+    """The tensor-core chunk route (bf16 q on bf16, int8 and fp8 pages) on
+    the edge shapes, all rows against the plain version within
+    ATTN_TOLS[bf16], rows that see no key exact zeros, two launches
+    bit-identical; then the same, but for the zeros, at the timed chunk
+    tick (8 lanes x C = 128 at pos 256: one split) and at a shape that
+    takes splits (2 lanes x C = 128 at pos 1800 of a 2048-key table)."""
+    bf16 = torch.bfloat16
+    for i, (h, hkv, d, page, tb, c) in enumerate(CHUNK_EDGE_SHAPES):
+        lanes = chunk_edge_lanes(c, tb * page)
+        route = chunk_route(PA, len(lanes), c, h, hkv, tb * page)
+        require(route.startswith("1 split") == (i >= 4),
+                f"chunk edge shape {i} is on the wrong side of the split "
+                f"rule: {route}")
+        for kv in ("", *KV_NARROW):
+            args, sc = chunk_case(PA, kv, c, lanes, h, hkv, d, page, tb,
+                                  seed=800 + i)
+            out = PA.paged_chunk_attention_cuda(*args, **sc)
+            again = PA.paged_chunk_attention_cuda(*args, **sc)
+            ref = PA.paged_chunk_attention_plain(
+                args[0].float(), *args[1:], **sc).to(bf16)
+            torch.cuda.synchronize()
+            report(f"chunk edges bf16 q {kv or 'bf16'} pages H={h} Hkv={hkv} "
+                   f"D={d} page={page} Tb={tb} C={c} ({route}) (pos, "
+                   f"n_valid)={lanes}, all rows", max_err(out, ref),
+                   ATTN_TOLS[bf16])
+            require(out[1].abs().max().item() == 0.0,
+                    "chunk rows with no visible key are not exactly 0")
+            require(torch.equal(out, again), f"two launches of the chunk "
+                    f"route differ ({kv or 'bf16'} pages)")
+    timed = [(256, n) for n in (128, 128, 44, 128, 100, 128, 0, 128)]
+    for label, lanes in (("timed chunk tick", timed),
+                         ("long history", [(1800, 128), (1900, 100)])):
+        route = chunk_route(PA, len(lanes), 128, H, HKV, 128 * PAGE)
+        for kv in ("", *KV_NARROW):
+            args, sc = chunk_case(PA, kv, 128, lanes, H, HKV, D, PAGE, 128,
+                                  seed=900)
+            a, b = (PA.paged_chunk_attention_cuda(*args, **sc)
+                    for _ in range(2))
+            ref = PA.paged_chunk_attention_plain(
+                args[0].float(), *args[1:], **sc).to(bf16)
+            torch.cuda.synchronize()
+            report(f"bf16 q, {kv or 'bf16'} pages, chunk {label} {lanes} "
+                   f"({route}), all rows", max_err(a, ref), ATTN_TOLS[bf16])
+            same = torch.equal(a, b)
+            print(f"  bf16 q, {kv or 'bf16'} pages, chunk {label} {lanes} "
+                  f"({route}) twice: bit-identical {same}", flush=True)
+            require(same, f"two chunk launches differ ({label}, "
+                    f"{kv or 'bf16'} pages)")
+    print("  chunk edges: no-key rows exact zeros, repeats bit-identical",
+          flush=True)
 
 
 #: (H, Hkv, D, page, Tb) of the bf16 key-split decode's edge checks: G = 1,
@@ -752,9 +869,10 @@ def check_fused_edges(DB):
 
 def check_fp32_routes(DB):
     """fp32 q, x, weights and pages keep the CUDA-core kernels: under
-    torch.profiler an fp32 decode and an fp32 fused call run
-    attend_block's paged_decode_kernel and dual_branch_kernel, not the
-    bf16 routes' split_kernel or dual_tc_kernel."""
+    torch.profiler an fp32 decode, an fp32 fused call and an fp32 chunk
+    call run attend_block's paged_decode_kernel, dual_branch_kernel and
+    paged_chunk_kernel, not the bf16 routes' split_kernel, dual_tc_kernel
+    or the tensor-core attention kernel over chunk items."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import paged_attention as PA
@@ -762,13 +880,17 @@ def check_fp32_routes(DB):
     att = decode_inputs(f32, [1, 300, 1021], H, HKV, D, PAGE, 128, seed=700)
     g = torch.Generator(device="cuda").manual_seed(701)
     x, ffn = ffn_inputs(g, f32, "swiglu", 3, 256, 256)
+    chk = chunk_inputs(f32, 128, MAIN_CHUNKS[0][1], H, HKV, D, PAGE, 128,
+                       seed=702)
     PA.paged_decode_attention_cuda(*att)
     DB.fused_dual_branch_decode_cuda(*att, x, ffn)
+    PA.paged_chunk_attention_cuda(*chk)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         PA.paged_decode_attention_cuda(*att)
         DB.fused_dual_branch_decode_cuda(*att, x, ffn)
+        PA.paged_chunk_attention_cuda(*chk)
         torch.cuda.synchronize()
     names = " ".join(e.key for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA)
@@ -777,10 +899,12 @@ def check_fp32_routes(DB):
               "kernels)")
         return
     require("paged_decode_kernel" in names and "dual_branch_kernel" in names
-            and "split_kernel" not in names and "dual_tc_kernel" not in names,
+            and "paged_chunk_kernel" in names
+            and "split_kernel" not in names and "dual_tc_kernel" not in names
+            and "ChunkItems" not in names,
             f"fp32 calls ran other kernels than attend_block's: {names}")
-    print("  fp32 routes: paged_decode_kernel and dual_branch_kernel "
-          "(CUDA cores), as before", flush=True)
+    print("  fp32 routes: paged_decode_kernel, dual_branch_kernel and "
+          "paged_chunk_kernel (CUDA cores), as before", flush=True)
 
 
 #: quantized page storage the scale variants take, by EngineConfig.kv_dtype
@@ -1083,7 +1207,8 @@ def padded_time_phase(bw):
     128); the decode and fused kernels with a lead (and without, as PR 18
     timed them); the fused kernel also beside its two-op route (decode
     kernel + ``mlp_apply`` on cuBLAS), with its FFN blocks alone and its
-    attention items alone."""
+    attention items alone; the chunk kernel also at two lanes with a long
+    history (the key-split side of its route's rule)."""
     from repro_torch.kernels import dual_branch as DB
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import layers as L
@@ -1124,9 +1249,11 @@ def padded_time_phase(bw):
                             extra_bytes=2 * (w_numel + 2 * x.numel()),
                             extra_flops=2 * 8 * w_numel)),
     }
-    # the bf16 decode and fused wrappers size and allocate a workspace and
-    # (fused) encode tensor maps: host work near the flush's, hence a lead
+    # the bf16 decode, chunk and fused wrappers size (and allocate) a
+    # workspace and (fused) encode tensor maps: host work near the flush's,
+    # hence a lead
     lead = {"paged_decode_attention": LEAD_CYCLES,
+            "paged_chunk_attention": LEAD_CYCLES,
             "fused_dual_branch_decode": LEAD_CYCLES}
     for name, (shape, kernel, plain, (bound_ms, bound_by)) in cases.items():
         row = dict(shape=shape + ", bf16, H=24 Hkv=8 D=128 page=16 Tb=128",
@@ -1142,9 +1269,24 @@ def padded_time_phase(bw):
             extra = (f" (without the lead {row['no_lead_ms']:.4f}; after a "
                      f"read flush, no write-back, "
                      f"{row['clean_flush_ms']:.4f}; before "
-                     f"the redesign {PADDED_PR18_MS[name]} ms, PERF.md, "
-                     f"PR 18's final run without a lead, NVIDIA H100 80GB "
-                     f"HBM3, 700.00 W)")
+                     f"the redesign {BEFORE_REDESIGN_MS[name]} ms, PERF.md, "
+                     f"without a lead, NVIDIA H100 80GB HBM3, 700.00 W)")
+        if name == "paged_chunk_attention":
+            # the split side of the chunk route's rule (the tick above
+            # takes one split): few lanes with a long history
+            few = [(1800, 128), (1900, 100)]
+            fa = chunk_inputs(bf16, 128, few, H, HKV, D, PAGE, tb, seed=5)
+            row["few_lanes_ms"] = _median_ms(
+                lambda: PA.paged_chunk_attention_cuda(*fa),
+                lead_cycles=LEAD_CYCLES)
+            row["few_lanes_bound_ms"] = _paged_bound_ms(
+                fa[0], fa[1], sum(chunk_keys(p, n, 127, tb) for p, n in few),
+                sum(chunk_keys(p, n, c, tb) for p, n in few
+                    for c in range(128)), fa[3].numel() + 4, bw)[0]
+            extra += (f"; few lanes, {few} "
+                      f"({chunk_route(PA, 2, 128, H, HKV, tb * PAGE)}): "
+                      f"kernel_ms {row['few_lanes_ms']:.4f} bound_ms "
+                      f"{row['few_lanes_bound_ms']:.4f}")
         if name == "fused_dual_branch_decode":
             row["unfused_ms"] = _median_ms(lambda: (
                 PA.paged_decode_attention_cuda(*dec),
@@ -1173,11 +1315,15 @@ def padded_time_phase(bw):
     return rows
 
 
-#: the bf16 decode and fused kernels' times before their redesign (PERF.md
-#: section 6: PR 18's final run), as text beside the new ones
-PADDED_PR18_MS = {"paged_decode_attention": "0.1781",
-                  "fused_dual_branch_decode": "0.2504 (FFN blocks alone "
-                                              "0.2466, unfused_ms 0.2501)"}
+#: the decode, chunk and fused kernels' times before their redesign (PERF.md
+#: section 6, in brackets there), as text beside the new ones
+BEFORE_REDESIGN_MS = {
+    "paged_decode_attention": "0.1781",
+    "fused_dual_branch_decode": "0.2504 (FFN blocks alone 0.2466, "
+                                "unfused_ms 0.2501)",
+    "paged_chunk_attention": "0.8872 (attend_block)",
+    "paged_chunk_attention.int8": "0.9320 (attend_block)",
+    "paged_chunk_attention.fp8": "0.9301 (attend_block)"}
 
 
 def scale_time_phase(bw):
@@ -1244,9 +1390,9 @@ def scale_time_phase(bw):
         for name, (shape, kernel, plain, (bound_ms, bound_by)) in \
                 cases.items():
             label = f"{name}.{kv}"
-            # the packed wrapper's host work (workspace, ~0.06 ms) is close
-            # to the flush's: lead, as for bf16 pages
-            lead = LEAD_CYCLES if name == "paged_packed_attention" else 0
+            # the packed and chunk wrappers' host work (workspace, ~0.06
+            # ms) is close to the flush's: lead, as for bf16 pages
+            lead = 0 if name == "paged_decode_attention" else LEAD_CYCLES
             row = dict(shape=f"{shape}, q bf16, {kv} pages + fp32 row "
                        f"scales, H=24 Hkv=8 D=128 page=16 Tb=128",
                        ms=_median_ms(kernel, lead_cycles=lead),
@@ -1254,7 +1400,13 @@ def scale_time_phase(bw):
                        bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=None)
             extra = ""
-            if lead:
+            if name == "paged_chunk_attention":
+                row["no_lead_ms"] = _median_ms(kernel)
+                extra = (f"; without the lead {row['no_lead_ms']:.4f}; "
+                         f"before the redesign {BEFORE_REDESIGN_MS[label]} "
+                         f"ms (PERF.md, without a lead, NVIDIA H100 80GB "
+                         f"HBM3, 700.00 W)")
+            if name == "paged_packed_attention":
                 row["no_lead_ms"] = _median_ms(kernel)
                 dk_args = (q_dt, pk[0], pk[1], *dtick)
                 row["decode_tick_ms"] = _median_ms(
@@ -1955,19 +2107,82 @@ def quantized_engine_phase(cfg, params, ecfg, prompts, streams, kv):
     return launches
 
 
+#: the padded generation's lanes, chunk and table width
+PADDED_B, PADDED_C, PADDED_TB = 8, 128, 128
+
+
+def padded_lanes(cfg, kv, n_new):
+    """The padded generation's prompts (8 lanes, 300 to 512 tokens, seeded)
+    and, on the card, their block tables and an empty paged cache (bf16
+    pages, or ``kv`` pages with row scales) with room for ``n_new`` more
+    tokens a lane: (lens, prompts, block_tables, cache)."""
+    import numpy as np
+    from repro_torch.models import model as M
+    B, C = PADDED_B, PADDED_C
+    rng = np.random.default_rng(3)
+    lens = rng.integers(300, 513, B)
+    require(lens.min() <= 3 * C < lens.max(),
+            "the draw should leave some lanes idle in the last prefill tick")
+    bt, num_pages = lane_tables(lens + n_new, page=PAGE, tb=PADDED_TB, seed=9)
+    prompts = rng.integers(0, cfg.vocab, (B, int(lens.max())))
+    cache = M.init_paged_cache(cfg, num_pages, PAGE, B, "bfloat16",
+                               kv_dtype=kv)
+    return lens, prompts, bt.cuda(), cache
+
+
+def padded_prefill(params, cfg, lens, prompts, bt, cache):
+    """The chunk prefill ticks (C = 128; lanes whose prompt has ended sit
+    ticks out with n_valid = 0) into ``cache``, through
+    ``paged_decode_step``: returns (each lane's first greedy token, the
+    number of ticks)."""
+    import numpy as np
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.models import model as M
+    from repro_torch.serve.sampling import greedy
+    B, C = len(lens), PADDED_C
+    seq = ExecutionPlan.single_device("paged")
+    dev = lambda a: torch.as_tensor(np.asarray(a, np.int32)).cuda()  # noqa: E731,E501
+    first = torch.zeros((B,), dtype=torch.long, device="cuda")
+    ticks = 0
+    for t in range(0, int(lens.max()), C):
+        nv = np.clip(lens - t, 0, C)
+        tok = np.zeros((B, C), np.int64)
+        tok[:, :min(C, prompts.shape[1] - t)] = prompts[:, t:t + C]
+        batch = dict(tokens=dev(tok), pos=dev(np.minimum(t, lens)),
+                     n_valid=dev(nv), block_tables=bt)
+        h, _ = M.paged_decode_step(params, cfg, batch, cache, seq,
+                                   want="hidden")
+        ends = (nv > 0) & (lens <= t + C)       # prompt ends this tick
+        if ends.any():
+            idx = torch.as_tensor(np.nonzero(ends)[0]).cuda()
+            last = dev(lens[ends] - t - 1).long()
+            logits = M.lm_head(params, cfg, h[idx, last][:, None])
+            first[idx] = greedy(logits[:, 0]).long()
+        ticks += 1
+    return first, ticks
+
+
+def clone_cache(c):
+    return {k: (v.clone() if torch.is_tensor(v) else
+                {n: t.clone() for n, t in v.items()})
+            for k, v in c.items()}
+
+
 def padded_generation_phase(params, kv="", n_new=32,
                             order=("sequential", "dual", "dual",
                                    "sequential")):
     """Padded (B, C) generation through ``paged_decode_step`` at llama3.2-3b
     full width and depth (the engine phase's bf16 weights; bf16 pages, or
     int8 / fp8 pages with row scales for ``kv``): chunk prefill ticks
-    (C = 128; lanes whose prompt has ended sit ticks out with n_valid = 0),
-    then ``n_new`` greedy C == 1 ticks sequentially, and the same from the
-    same prefilled cache under the dual-branch plan (on quantized pages its
-    blocks take the two-op route: the decode kernel's scale variant and
-    ``mlp_apply``, nothing fused).  The counters are zeroed just before and
-    read just after each run.  The decode runs go in turns as ``order``
-    says, each from its own copy of the prefilled cache.  Returns {kernel
+    (``padded_prefill``), then ``n_new`` greedy C == 1 ticks sequentially,
+    and the same from the same prefilled cache under the dual-branch plan
+    (on quantized pages its blocks take the two-op route: the decode
+    kernel's scale variant and ``mlp_apply``, nothing fused).  The counters
+    are zeroed just before and read just after each run.  The decode runs
+    go in turns as ``order`` says, each from its own copy of the prefilled
+    cache.  Then the prefill again under torch.profiler from a copy of the
+    empty cache (its device time a tick; the tensor-core chunk kernel by
+    name) and, on bf16 pages, 4 decode ticks of each plan.  Returns {kernel
     label: launches of the first run that drives it}."""
     import numpy as np
     from repro_torch.configs.base import get_config
@@ -1975,22 +2190,15 @@ def padded_generation_phase(params, kv="", n_new=32,
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.serve.sampling import greedy
-    B, C, tb = 8, 128, 128
+    B, C, tb = PADDED_B, PADDED_C, PADDED_TB
     cfg = get_config("llama3.2-3b")
     L = cfg.n_layers
     sfx = f".{kv}" if kv else ""
     phase(f"padded generation: llama3.2-3b, {L} layers, bf16, "
           f"{kv + ' pages' if kv else 'bf16 pages'}, {B} lanes, C={C} "
           f"prefill, {n_new} greedy decode ticks, Tb={tb}")
-    rng = np.random.default_rng(3)
-    lens = rng.integers(300, 513, B)
-    require(lens.min() <= 3 * C < lens.max(),
-            "the draw should leave some lanes idle in the last prefill tick")
-    bt, num_pages = lane_tables(lens + n_new, page=PAGE, tb=tb, seed=9)
-    bt = bt.cuda()
-    prompts = rng.integers(0, cfg.vocab, (B, int(lens.max())))
-    cache = M.init_paged_cache(cfg, num_pages, PAGE, B, "bfloat16",
-                               kv_dtype=kv)
+    lens, prompts, bt, cache = padded_lanes(cfg, kv, n_new)
+    empty = clone_cache(cache)
     seq = ExecutionPlan.single_device("paged")
     dual = seq.with_dual_branch()
     dev = lambda a: torch.as_tensor(np.asarray(a, np.int32)).cuda()  # noqa: E731,E501
@@ -2005,26 +2213,6 @@ def padded_generation_phase(params, kv="", n_new=32,
         return out, time.perf_counter() - t0, ops.launch_counts(), \
             ops.dispatch_paths()
 
-    def prefill():
-        first = torch.zeros((B,), dtype=torch.long, device="cuda")
-        ticks = 0
-        for t in range(0, int(lens.max()), C):
-            nv = np.clip(lens - t, 0, C)
-            tok = np.zeros((B, C), np.int64)
-            tok[:, :min(C, prompts.shape[1] - t)] = prompts[:, t:t + C]
-            batch = dict(tokens=dev(tok), pos=dev(np.minimum(t, lens)),
-                         n_valid=dev(nv), block_tables=bt)
-            h, _ = M.paged_decode_step(params, cfg, batch, cache, seq,
-                                       want="hidden")
-            ends = (nv > 0) & (lens <= t + C)       # prompt ends this tick
-            if ends.any():
-                idx = torch.as_tensor(np.nonzero(ends)[0]).cuda()
-                last = dev(lens[ends] - t - 1).long()
-                logits = M.lm_head(params, cfg, h[idx, last][:, None])
-                first[idx] = greedy(logits[:, 0]).long()
-            ticks += 1
-        return first, ticks
-
     def decode(c, first, plan, n=n_new):
         tok, out, first_logits = first.clone(), [], None
         for i in range(n):
@@ -2038,7 +2226,8 @@ def padded_generation_phase(params, kv="", n_new=32,
         return torch.stack(out, 1).cpu(), first_logits
 
     with torch.no_grad():
-        (first, n_pre), pre_s, pre_counts, pre_paths = run_counted(prefill)
+        (first, n_pre), pre_s, pre_counts, pre_paths = run_counted(
+            lambda: padded_prefill(params, cfg, lens, prompts, bt, cache))
         require(set(pre_paths.values()) == {ops.CUDA},
                 f"prefill took a non-kernel path: {pre_paths}")
         require(pre_counts == {**{k: 0 for k in pre_counts},
@@ -2055,13 +2244,8 @@ def padded_generation_phase(params, kv="", n_new=32,
                          "fused_ln_add": n_new * L}}
         if kv:
             want["dual"] = want["sequential"]
-        def clone(c):
-            return {k: (v.clone() if torch.is_tensor(v) else
-                        {n: t.clone() for n, t in v.items()})
-                    for k, v in c.items()}
-
-        copies = [clone(cache) for _ in order[1:]] + [cache]
-        prof_cache = None if kv else clone(cache)
+        copies = [clone_cache(cache) for _ in order[1:]] + [cache]
+        prof_cache = None if kv else clone_cache(cache)
         # one tick of each plan first (allocations, GEMM heuristics): it
         # writes the K/V that the timed run's first tick writes again
         decode(copies[0], first, seq, n=1)
@@ -2081,11 +2265,19 @@ def padded_generation_phase(params, kv="", n_new=32,
                     f"{name} launches {counts} != {want[name]}")
             require(bool(torch.isfinite(lg).all()), "non-finite logits")
             runs[name].append((toks, lg, counts, secs / n_new * 1e3))
+        # the prefill's device time a tick, from the empty cache again
+        tick_device_time(
+            "prefill", lambda: padded_prefill(params, cfg, lens, prompts, bt,
+                                              empty),
+            pre_s / n_pre * 1e3, n_pre, want=PREFILL_KERNELS,
+            avoid=("paged_chunk_kernel",))
         if prof_cache is not None:
             for name in ("sequential", "dual"):
                 tick_device_time(name, lambda: decode(
                     prof_cache, first, seq if name == "sequential" else dual,
-                    n=PROFILED_TICKS), runs[name][0][3])
+                    n=PROFILED_TICKS), runs[name][0][3], PROFILED_TICKS,
+                    want=DECODE_KERNELS[name],
+                    avoid=("paged_decode_kernel", "dual_branch_kernel"))
     (toks_s, lg_s, seq_counts, _) = runs["sequential"][0]
     (toks_d, lg_d, dual_counts, _) = runs["dual"][0]
     diff = (lg_s - lg_d).abs().max().item()
@@ -2129,13 +2321,22 @@ def busy_ms(prof):
     return total / 1e3
 
 
-def tick_device_time(name, run, wall_ms):
-    """Device time a padded decode tick (the time any CUDA kernel ran over
-    ``PROFILED_TICKS`` ticks under torch.profiler; also the sum of the
-    kernels' own times) beside the counted run's wall ms/tick, and the
-    kernels that ran: the bf16 decode is the key-split kernel, the dual
-    tick's blocks the tensor-core fused grid, never attend_block's
-    paged_decode_kernel or dual_branch_kernel."""
+#: kernels a profiled padded tick must run, by tick: the bf16 decode's
+#: key-split kernel, the dual tick's blocks also the tensor-core fused grid;
+#: a prefill tick the tensor-core attention kernel over chunk items
+DECODE_KERNELS = {"sequential": ("decode_splits::split_kernel",),
+                  "dual": ("decode_splits::split_kernel", "dual_tc_kernel")}
+PREFILL_KERNELS = ("packed_tc::ChunkItems",)
+
+
+def tick_device_time(name, run, wall_ms, n_ticks, want=(), avoid=()):
+    """Device time of a padded tick (the time any CUDA kernel ran over the
+    ``n_ticks`` ticks that ``run`` drives under torch.profiler; also the sum
+    of the kernels' own times) beside the counted run's wall ms/tick, and
+    the kernels that ran: every name in ``want`` among them, none in
+    ``avoid`` (attend_block's paged_decode_kernel, dual_branch_kernel,
+    paged_chunk_kernel).  Returns the busy ms a tick (None when the
+    profiler saw no CUDA kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2149,25 +2350,21 @@ def tick_device_time(name, run, wall_ms):
     if device_ms == 0.0:
         print(f"  {name}: device time not measured (the profiler saw no "
               f"CUDA kernels); wall {wall_ms:.2f} ms/tick")
-        return
-    print(f"  {name}: device time {busy_ms(prof) / PROFILED_TICKS:.3f} "
-          f"ms/tick busy (kernel times summed: "
-          f"{device_ms / PROFILED_TICKS:.3f}; torch.profiler, "
-          f"{PROFILED_TICKS} ticks) beside the counted run's wall "
-          f"{wall_ms:.2f} ms/tick; the most device time (a dependent grid's "
-          f"time includes its wait):")
+        return None
+    busy = busy_ms(prof) / n_ticks
+    print(f"  {name}: device time {busy:.3f} ms/tick busy (kernel times "
+          f"summed: {device_ms / n_ticks:.3f}; torch.profiler, {n_ticks} "
+          f"ticks) beside the counted run's wall {wall_ms:.2f} ms/tick; the "
+          f"most device time (a dependent grid's time includes its wait):")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:6]:
         print(f"    {ms:9.3f} ms {n:6d} calls  {key[:90]}")
     names = " ".join(k for k, _, _ in rows)
-    require("decode_splits::split_kernel" in names,
-            f"the {name} tick ran no key-split decode kernel")
-    require("paged_decode_kernel" not in names
-            and "dual_branch_kernel" not in names,
-            f"the {name} tick ran attend_block's decode or fused kernel")
-    if name == "dual":
-        require("dual_tc_kernel" in names,
-                "the dual tick ran no tensor-core fused kernel")
+    for w in want:
+        require(w in names, f"the {name} tick ran no {w}")
+    for a in avoid:
+        require(a not in names, f"the {name} tick ran attend_block's {a}")
     sys.stdout.flush()
+    return busy
 
 
 # --------------------------------------------------------------------------- #
@@ -2658,7 +2855,9 @@ def main():
         # tensor-core kernels, built as part of paged_attention.cu
         "paged_packed_attention": ("paged_packed_tc.cuh", f"{pa}:346"),
         "paged_decode_attention": ("paged_attention.cu", f"{pa}:106"),
-        "paged_chunk_attention": ("paged_attention.cu", f"{pa}:222"),
+        # bf16 q on bf16, int8 or fp8 pages: the same tensor-core kernels
+        # over chunk items
+        "paged_chunk_attention": ("paged_packed_tc.cuh", f"{pa}:222"),
         "fused_dual_branch_decode": ("dual_branch.cu",
                                      "src/repro/kernels/dual_branch.py:122"),
         "page_copy": ("page_copy.cu", f"{pa}:420"),
@@ -2671,7 +2870,8 @@ def main():
         # the backward kernels replace XLA's autodiff of the same TPU kernel
         where[f"{kname}.bwd"] = where[kname]
     for kv in KV_NARROW:
-        # bf16 q on int8 / fp8 pages: the tensor-core kernels too
+        # the scale variants come from the same sources (bf16 q on int8 /
+        # fp8 pages: the packed and chunk ones the tensor-core kernels too)
         for kname in ("paged_packed_attention", "paged_decode_attention",
                       "paged_chunk_attention"):
             where[f"{kname}.{kv}"] = where[kname]
@@ -2688,7 +2888,7 @@ def main():
                  "library_ms": row.get("library_ms")}
         for extra in ("unfused_ms", "ffn_alone_ms", "attn_alone_ms",
                       "clean_flush_ms", "wrapper_ms", "library_fwd_bwd_ms",
-                      "no_lead_ms",
+                      "no_lead_ms", "few_lanes_ms", "few_lanes_bound_ms",
                       "decode_tick_ms", "decode_tick_bound_ms",
                       "decode_tick_no_lead_ms"):
             if extra in row:

@@ -3,9 +3,9 @@
 // and runs paged_common.cuh's attend_block; the layouts differ only in how a
 // block finds its query row, its sequence's block-table row and the number
 // of keys it sees.  Bounded by bytes; see paged_common.cuh for the design.
-// The exceptions: the packed layout with bf16 q on bf16, int8 or fp8 pages
-// runs on the tensor cores (paged_packed_tc.cuh), and the decode layout
-// with bf16 q on bf16 pages runs key splits with a pipelined gather
+// The exceptions: the packed and the chunk layouts with bf16 q on bf16, int8
+// or fp8 pages run on the tensor cores (paged_packed_tc.cuh), and the decode
+// layout with bf16 q on bf16 pages runs key splits with a pipelined gather
 // (paged_decode_splits.cuh).
 //
 // paged_packed_attention -- replaces the Pallas TPU kernel
@@ -33,7 +33,13 @@
 //   ref.py:76.  q (B, C, H, D); block_tables (B, Tb); pos, n_valid (B,)
 //   -> (B, C, H, D).  Row (b, c) reads table row b, keys
 //   k <= min(pos + c, pos + n_valid - 1); a row with no visible key writes
-//   zeros.  Rows past n_valid are defined by the same rule.  Grid (B*C, Hkv).
+//   zeros.  Rows past n_valid are defined by the same rule.  Grid (B*C, Hkv)
+//   for fp32 q or fp32 pages; bf16 q on bf16, int8 or fp8 pages:
+//   paged_packed_tc.cuh's attention kernel over chunk items (64 / G rows of
+//   a lane, KV head, key split; no plan kernel), with key splits and the
+//   combine only when the row-tile items are few (its partials in a caller's
+//   workspace, paged_chunk_workspace_bytes), chosen by type (the only route
+//   for those pairs).
 //
 // The pools are (P, page, Hkv, D) in TKV, q and the output in TQ; every
 // index array is int32.  int8 / fp8 pools come with (P, page) fp32 row
@@ -184,12 +190,15 @@ struct DecodeLaunch<__nv_bfloat16, __nv_bfloat16> {
   }
 };
 
+// The workspace (ws, bytes) is the tensor-core route's; the attend_block
+// route takes none.
 template <typename TQ, typename TKV>
 struct ChunkLaunch {
   static int run(const void* q, const void* k, const void* v,
                  const float* ks, const float* vs, const int* bt,
                  const int* pos, const int* n_valid, void* out, int B, int C,
                  int H, int Hkv, int D, int page, int Tb, float scale,
+                 void* /*ws*/, long long /*bytes*/, int /*device*/,
                  cudaStream_t s) {
     const dim3 grid(B * C, Hkv);
 #define REPRO_LAUNCH(DD)                                                    \
@@ -202,6 +211,30 @@ struct ChunkLaunch {
     return static_cast<int>(cudaGetLastError());
   }
 };
+
+// bf16 q on bf16, int8 or fp8 e4m3 pages: the tensor-core kernels over
+// chunk items (a shape they do not take returns -1; nothing falls back to
+// attend_block).
+template <typename TKV>
+struct TensorCoreChunkLaunch {
+  static int run(const void* q, const void* k, const void* v,
+                 const float* ks, const float* vs, const int* bt,
+                 const int* pos, const int* n_valid, void* out, int B, int C,
+                 int H, int Hkv, int D, int page, int Tb, float scale,
+                 void* ws, long long bytes, int device, cudaStream_t s) {
+    return packed_tc::launch_chunk<TKV>(q, k, v, ks, vs, bt, pos, n_valid,
+                                        out, B, C, H, Hkv, D, page, Tb,
+                                        scale, ws, bytes, device, s);
+  }
+};
+template <>
+struct ChunkLaunch<__nv_bfloat16, __nv_bfloat16>
+    : TensorCoreChunkLaunch<__nv_bfloat16> {};
+template <>
+struct ChunkLaunch<__nv_bfloat16, int8_t> : TensorCoreChunkLaunch<int8_t> {};
+template <>
+struct ChunkLaunch<__nv_bfloat16, __nv_fp8_e4m3>
+    : TensorCoreChunkLaunch<__nv_fp8_e4m3> {};
 
 // -1 for a shape the kernels do not take, or scales that do not match the
 // page type (types 2 and 3 need both, 0 and 1 take none), else the
@@ -298,18 +331,35 @@ long long paged_decode_workspace_bytes(int B, int H, int Hkv, int D,
       .bytes;
 }
 
+// paged_chunk_attention's workspace is device memory of at least
+// paged_chunk_workspace_bytes(...) bytes (0 unless bf16 q on bf16, int8 or
+// fp8 pages whose chunk the tensor-core route cuts into key splits: few
+// row-tile items and a table of more than one split; null when 0).
 int paged_chunk_attention(const void* q, const void* k, const void* v,
                           const float* ks, const float* vs, const int* bt,
                           const int* pos, const int* n_valid, void* out,
                           int B, int C, int H, int Hkv, int D, int page,
                           int Tb, float scale, int q_bf16, int kv_type,
-                          int device, void* stream) {
+                          int device, void* stream, void* workspace,
+                          long long workspace_bytes) {
   if (B == 0 || C == 0) return 0;
   const int err = prologue(H, Hkv, page, Tb, kv_type, ks, vs, device);
   if (err) return err;
   return by_kv_types<ChunkLaunch>(q_bf16, kv_type, q, k, v, ks, vs, bt, pos,
                                   n_valid, out, B, C, H, Hkv, D, page, Tb,
-                                  scale, static_cast<cudaStream_t>(stream));
+                                  scale, workspace, workspace_bytes, device,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+long long paged_chunk_workspace_bytes(int B, int C, int H, int Hkv, int D,
+                                      int page, int Tb, int q_bf16,
+                                      int kv_type) {
+  if (!q_bf16 || kv_type < 1 || kv_type > 3 || B <= 0 || C <= 0 ||
+      Hkv <= 0 || H % Hkv || H / Hkv > repro_paged::kMaxG || page <= 0 ||
+      Tb <= 0)
+    return 0;
+  return (long long)packed_tc::chunk_plan(B, C, H, Hkv, D, Tb * page)
+      .w.bytes;
 }
 
 const char* paged_attention_error_string(int code) {

@@ -1,8 +1,9 @@
 // Device code shared by the port's paged-attention kernels for Hopper
 // (sm_90a): the per-(query row, KV head) attention block of the CUDA-core
 // routes.  Which layouts and types still run it:
-//   * paged_attention.cu's chunk layout, every type pair (bf16 / fp32 q on
-//     bf16 / fp32 pages, and bf16 / fp32 q on int8 / fp8 pages);
+//   * paged_attention.cu's chunk layout for fp32 q or fp32 pages (bf16 q
+//     on bf16, int8 or fp8 pages runs the tensor cores of
+//     paged_packed_tc.cuh, over chunk items);
 //   * its decode layout for fp32 q, fp32 pages and int8 / fp8 pages (bf16
 //     q on bf16 pages runs the key splits of paged_decode_splits.cuh);
 //   * its packed layout for fp32 q or fp32 pages (bf16 q on bf16, int8 or
@@ -35,7 +36,8 @@
 // (query row, KV head) walks all of a long sequence alone, its loads
 // consumed as they are issued (no tile in flight while the last is used):
 // 64 such blocks on 132 SMs took 17.7x the bound on a decode tick (PERF.md),
-// which is why the bf16 decode and packed routes left it.  The design:
+// which is why the bf16 decode, packed and chunk routes left it.  The
+// design:
 //   * the G query rows that share a KV head live in registers, so each K/V
 //     row is read once for all G heads (GQA reuse) and never re-read;
 //   * the block walks the sequence's pages in a loop (the TPU's sequential
@@ -46,8 +48,8 @@
 //     addresses; K is consumed from registers, V is staged in shared memory
 //     for the P.V product;
 //   * pages past the last visible key are never touched.
-// The chunk layout and the one-byte decode variants are next in line for
-// the key-split and tensor-core designs (ROADMAP.md, queue 2).
+// The one-byte decode variants are next in line for the key-split design
+// (ROADMAP.md, queue 2).
 #pragma once
 
 #include <cuda_bf16.h>

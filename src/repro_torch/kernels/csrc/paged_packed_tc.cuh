@@ -1,13 +1,18 @@
-// The packed paged attention on Hopper's tensor cores: the path of
-// paged_attention.cu's paged_packed_attention for bf16 q on bf16, int8 or
-// fp8 e4m3 pages (fp32 q or fp32 pages run paged_common.cuh's attend_block).
+// The packed and the chunk paged attention on Hopper's tensor cores: the
+// path of paged_attention.cu's paged_packed_attention and
+// paged_chunk_attention for bf16 q on bf16, int8 or fp8 e4m3 pages (fp32 q
+// or fp32 pages run paged_common.cuh's attend_block).
 //
-// Replaces, for those type pairs, the Pallas TPU kernel
+// Replaces, for those type pairs, the Pallas TPU kernels
 // src/repro/kernels/paged_attention.py:346 (body _paged_packed_kernel,
-// :292), whose grid is one (token, KV head) per step with the pages as a
-// sequential, pipelined grid axis.  Here the tokens of a slot that sit side
-// by side in the packed buffer share their K/V tiles and one tensor-core
-// product:
+// :292) and :222 (body _paged_chunk_kernel, :161), whose grids are one
+// (token or chunk, KV head) per step with the pages as a sequential,
+// pipelined grid axis.  Here the tokens of a slot that sit side by side in
+// the packed buffer, or the rows of a lane's chunk, share their K/V tiles
+// and one tensor-core product.  The two layouts differ only in where an
+// item comes from and where its rows' key limits come from (an item source:
+// PackedItems, ChunkItems); the attention and combine kernels are one
+// template over the source.  The packed layout:
 //
 //   * A run is a maximal stretch of consecutive tokens of one slot at
 //     consecutive positions (tok_pos >= 0).  The engine packs each lane as
@@ -61,19 +66,50 @@
 //   * Partials: (m, l) in the log2 domain and the unnormalised fp32
 //     accumulator, at (split, token, head) in the workspace.
 //
+// The chunk layout (q (B, C, H, D) as B * C tokens, token b * C + c):
+//
+//   * Row (b, c) reads table row b and sees key j iff j <= min(pos[b] + c,
+//     pos[b] + n_valid[b] - 1) (the rule of paged_attention.cu's header;
+//     rows past n_valid too).  These limits are non-decreasing in c, so an
+//     item's first row has the least and its last row the greatest, as in
+//     a run; they are not consecutive positions past n_valid, which is why
+//     a chunk is not fed through the plan kernel as a run (every row past
+//     n_valid would become a one-token run that reads the whole history).
+//   * A lane's C rows are one run by construction, so there is no plan
+//     kernel: item w of B x ceil(C / R) x splits x Hkv (R = 64 / G rows of
+//     the chunk, KV head fastest) is decoded from w, and the persistent grid
+//     (at most the number of items) walks them with a stride.  An item
+//     whose split holds no key visible to its rows returns at once; the
+//     split-0 item of rows that see no key at all (pos = n_valid = 0) writes
+//     them as exact zeros.
+//   * Key splits (chunk_plan): only when the row-tile items B x ceil(C / R)
+//     x Hkv number fewer than kChunkSplitItems (few lanes: an item there
+//     walks its whole history alone while most SMs idle), the packed cut
+//     (split_keys) and the same combine in split order; else one split,
+//     whose items write their rows directly: no partials, no combine
+//     launch.  The rule reads only shapes and a constant, never the device.
+//     The constant is timed (experiments/torch_chunk_splits.py, C = 128,
+//     G = 3, pos 1800): splits win at 56 and 112 items (2.0x, 1.2x) and
+//     lose from 224 on (0.75x); at pos 0 they lose at every count.
+//
 // Semantics as attend_block's: the reference's -1e30 mask (as -inf: masked
 // scores weigh exactly 0), division by max(l, 1e-30), tok_pos == -1 rows
-// exact zeros, keys past Tb * page never read.
+// and chunk rows with no visible key exact zeros, keys past Tb * page never
+// read.  Chunk positions are >= 0.
 //
-// What bounds it on this card: bytes (each visible K/V row of a chunk once
-// per KV head; ~6 flops a byte at G = 3, ~12 on one-byte pages, and the
-// 64-row products waste the rows a short chunk leaves empty, which the
-// tensor cores absorb).
+// What bounds it on this card: bytes (each visible K/V row of a run or a
+// chunk once per 64 / G of its tokens and per KV head; ~6 flops a byte at
+// G = 3, ~12 on one-byte pages, and the 64-row products waste the rows a
+// short run leaves empty, which the tensor cores absorb).  A chunk of C =
+// 128 rows at G = 3 reads its lane's history ceil(128 / 21) = 7 times, not
+// once per row.
 //
 // Workspace (bytes, from workspace_layout): int32 item count at 0; the
 // items (int4: first token, tokens, split, KV head) from byte 16; then,
 // when a chunk can have more than one split, (m, l) float2 and the fp32
-// accumulators, each (splits, T, H[, D]).
+// accumulators (from a 16-byte boundary), each (splits, T, H[, D]).  The
+// chunk layout's (chunk_plan): no count and no items, the partials alone,
+// and none with one split.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -96,6 +132,7 @@ constexpr int kKeys = 64;           // keys of a K/V tile
 constexpr int kStages = 2;          // K/V tiles in shared memory
 constexpr int kMinSplit = 256;      // keys of a split, at least
 constexpr int kMaxSplits = 8;       // splits of a chunk, at most
+constexpr int kChunkSplitItems = 128;   // chunk layout: split below this
 constexpr int kPlanThreads = 1024;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -111,6 +148,14 @@ struct Layout {
   size_t items, ml, acc, bytes;
 };
 
+// The partials of `parts` (split, token, head) rows from byte ml on: the
+// accumulators from the next 16-byte boundary (the combine reads float4s).
+inline void partials_layout(Layout& w, size_t ml, size_t parts, int D) {
+  w.ml = ml;
+  w.acc = (ml + 8 * parts + 15) / 16 * 16;
+  w.bytes = parts ? w.acc + 4 * parts * D : ml;
+}
+
 inline Layout workspace_layout(int T, int H, int Hkv, int D, int max_keys) {
   const int L = split_keys(max_keys);
   const int splits = (max_keys + L - 1) / L;       // most of a chunk
@@ -118,10 +163,31 @@ inline Layout workspace_layout(int T, int H, int Hkv, int D, int max_keys) {
   const size_t parts = splits > 1 ? (size_t)splits * T * H : 0;
   Layout w;
   w.items = 16;
-  w.ml = w.items + 16 * max_items;
-  w.acc = w.ml + 8 * parts;
-  w.bytes = w.acc + 4 * parts * D;
+  partials_layout(w, w.items + 16 * max_items, parts, D);
   return w;
+}
+
+// The chunk layout's tiling: R rows of a chunk an item, `tiles` row tiles
+// of a lane, splits of L keys (one split of the whole table unless the
+// row-tile items are few), and the workspace of their partials (none with
+// one split).
+struct ChunkPlan {
+  int R, tiles, L, splits;
+  Layout w;
+};
+
+inline ChunkPlan chunk_plan(int B, int C, int H, int Hkv, int D,
+                            int max_keys) {
+  ChunkPlan p;
+  p.R = kRows / (H / Hkv);
+  p.tiles = (C + p.R - 1) / p.R;
+  const bool split = (long long)B * p.tiles * Hkv < kChunkSplitItems;
+  p.L = split ? split_keys(max_keys) : max_keys;
+  p.splits = (max_keys + p.L - 1) / p.L;
+  p.w.items = 0;
+  partials_layout(p.w, 0,
+                  p.splits > 1 ? (size_t)p.splits * B * C * H : 0, D);
+  return p;
 }
 
 // ---------------------------------------------------------------- plan
@@ -399,16 +465,70 @@ __device__ __forceinline__ void residual_a(const float (&d)[kKeys / 2],
     }
 }
 
-template <typename TKV, int D>
+// ---------------------------------------------------------- item sources
+// A work item: tokens t0 .. t0 + n - 1 of one table row (row_bt), KV head
+// hk, key split s; its token j sees keys <= last(j), non-decreasing in j.
+struct Item {
+  int t0, n, s, hk;
+  const int* row_bt;
+  int first, cap;
+  __device__ __forceinline__ int last(int j) const {
+    return min(first + j, cap);
+  }
+};
+
+// The packed layout: the plan kernel's work list in the workspace; token t
+// reads table row tok_slot[t] and sees keys <= tok_pos[t] (consecutive
+// positions within an item's run; -1: padding, in no item).
+struct PackedItems {
+  const int* tok_slot;
+  const int* tok_pos;
+  const int* count;
+  const int4* items;
+  __device__ __forceinline__ int size() const { return *count; }
+  __device__ __forceinline__ Item item(int w, const int* bt, int Tb) const {
+    const int4 it = items[w];
+    return {it.x, it.y, it.z, it.w, bt + (size_t)tok_slot[it.x] * Tb,
+            tok_pos[it.x], 0x7fffffff};
+  }
+  __device__ __forceinline__ int last(int t) const { return tok_pos[t]; }
+};
+
+// The chunk layout: item w of B x tiles x splits x Hkv (KV head fastest),
+// R rows of lane b's chunk from row c0; row (b, c) reads table row b and
+// sees keys <= min(pos[b] + c, pos[b] + n_valid[b] - 1) (-1: none).
+struct ChunkItems {
+  const int* pos;
+  const int* n_valid;
+  int B, C, R, tiles, splits, Hkv;
+  __device__ __forceinline__ int size() const {
+    return B * tiles * splits * Hkv;
+  }
+  __device__ __forceinline__ Item item(int w, const int* bt, int Tb) const {
+    const int hk = w % Hkv;
+    w /= Hkv;
+    const int s = w % splits;
+    w /= splits;
+    const int c0 = w % tiles * R, b = w / tiles;
+    const int p = pos[b];
+    return {b * C + c0, min(R, C - c0), s, hk, bt + (size_t)b * Tb, p + c0,
+            p + n_valid[b] - 1};
+  }
+  __device__ __forceinline__ int last(int t) const {
+    const int b = t / C, p = pos[b];
+    return min(p + t % C, p + n_valid[b] - 1);
+  }
+};
+
+template <typename TKV, int D, typename Src>
 __global__ void __launch_bounds__(kThreads)
 attn_kernel(const bf16* __restrict__ q, const TKV* __restrict__ kp,
             const TKV* __restrict__ vp, const float* __restrict__ ks,
             const float* __restrict__ vs, const int* __restrict__ bt,
-            const int* __restrict__ tok_slot, const int* __restrict__ tok_pos,
-            bf16* __restrict__ out, const int* __restrict__ count,
-            const int4* __restrict__ items, float2* __restrict__ part_ml,
-            float* __restrict__ part_acc, int T, int H, int Hkv, int G,
-            int page, int Tb, int L, float scale_log2) {
+            const Src src, bf16* __restrict__ out,
+            float2* __restrict__ part_ml, float* __restrict__ part_acc,
+            int T, int H, int Hkv, int G, int page, int Tb, int L,
+            float scale_log2) {
   using Gm = Geo<D>;
   using M = Smem<TKV, D>;
   extern __shared__ uint8_t smem_raw[];
@@ -418,19 +538,33 @@ attn_kernel(const bf16* __restrict__ q, const TKV* __restrict__ kp,
   const int r0 = warp * 16 + lane / 4;       // this thread's rows r0, r0 + 8
   const int max_keys = Tb * page;
   const uint64_t q_desc = sm90::kmajor<D>(Qs, 0);
-  sm90::grid_dependency_wait();              // the plan kernel's work list
+  // the plan kernel's work list (packed), the chunk's inputs (the kernel
+  // before this one)
+  sm90::grid_dependency_wait();
   sm90::launch_dependents();                 // the combine grid may start
-  const int n_items = *count;
+  const int n_items = src.size();
 
   for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
-    const int4 it = items[w];
-    const int t0 = it.x, n = it.y, s = it.z, hk = it.w;
-    const int p0 = tok_pos[t0];
-    const int* row_bt = bt + (size_t)tok_slot[t0] * Tb;
+    const Item it = src.item(w, bt, Tb);
+    const int t0 = it.t0, n = it.n, s = it.s, hk = it.hk;
+    const int p0 = it.last(0);                 // the least limit
+    const int* row_bt = it.row_bt;
     const int k_begin = s * L;
-    const int k_end = min(min(p0 + n, max_keys), k_begin + L);
-    const int n_tiles = (k_end - k_begin + kKeys - 1) / kKeys;
+    const int k_end = min(min(it.last(n - 1) + 1, max_keys), k_begin + L);
     const int rows = n * G;
+    if (k_end <= k_begin) {              // no key of this split (chunk only)
+      // split 0: its rows see no key at all: exact zeros
+      if (s == 0) {
+        for (int e = threadIdx.x; e < rows * (D / 8); e += kThreads) {
+          const int r = e / (D / 8);
+          reinterpret_cast<uint4*>(
+              out + ((size_t)(t0 + r / G) * H + hk * G + r % G) * D)
+              [e % (D / 8)] = make_uint4(0, 0, 0, 0);
+        }
+      }
+      continue;
+    }
+    const int n_tiles = (k_end - k_begin + kKeys - 1) / kKeys;
     int prow[KvShare<TKV, D>::kPer];
     kv_rows<TKV, D>(prow, row_bt, k_begin, k_end, page);
     load_q<D>(Qs, q, t0, rows, G, hk, H);
@@ -443,7 +577,7 @@ attn_kernel(const bf16* __restrict__ q, const TKV* __restrict__ kp,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = r0 + 8 * i;
-      last[i] = r < rows ? p0 + r / G : max_keys;
+      last[i] = r < rows ? it.last(r / G) : max_keys;
     }
     float acc[D / 2];
 #pragma unroll
@@ -555,9 +689,11 @@ attn_kernel(const bf16* __restrict__ q, const TKV* __restrict__ kp,
       const int r = r0 + 8 * i;
       if (r >= rows) continue;
       const int t = t0 + r / G, h = hk * G + r % G;
-      const int pos = p0 + r / G;
-      if (pos < k_begin) continue;         // no key of this split
-      const int splits = (min(pos + 1, max_keys) + L - 1) / L;
+      const int pos = it.last(r / G);
+      // no key of this split; a row that sees no key at all is written (as
+      // zeros: every weight was 0) by its split-0 item
+      if (pos < 0 ? s > 0 : pos < k_begin) continue;
+      const int splits = pos < 0 ? 1 : (min(pos + 1, max_keys) + L - 1) / L;
       if (splits == 1) {                   // all its keys: the output
         sm90::store_row<D>(out + ((size_t)t * H + h) * D, acc, i, c2,
                            __fdividef(1.f, fmaxf(li, 1e-30f)));
@@ -576,18 +712,19 @@ attn_kernel(const bf16* __restrict__ q, const TKV* __restrict__ kp,
 
 // -------------------------------------------------------------- combine
 // Block (t, y): heads y * kHeads .. of token t, D / 4 threads a head, four
-// columns a thread.  Padding rows are written as zeros; a token whose keys
-// span several splits as the merge of its splits' partials in split order
-// (at most kMaxSplits, loaded together).
+// columns a thread.  Rows that see no key (padding, last key -1) are
+// written as zeros; a token whose keys span several splits as the merge of
+// its splits' partials in split order (at most kMaxSplits, loaded
+// together).
 template <int D>
 struct CombineShape {
   static constexpr int kPer = D / 4;                 // threads of a head
   static constexpr int kHeads = kThreads / kPer;     // heads of a block
 };
 
-template <int D>
+template <int D, typename Src>
 __global__ void __launch_bounds__(kThreads)
-combine_kernel(const int* __restrict__ tok_pos, bf16* __restrict__ out,
+combine_kernel(const Src src, bf16* __restrict__ out,
                const float2* __restrict__ part_ml,
                const float* __restrict__ part_acc, int T, int H,
                int max_keys, int L) {
@@ -595,7 +732,7 @@ combine_kernel(const int* __restrict__ tok_pos, bf16* __restrict__ out,
   const int t = blockIdx.x;
   const int h = blockIdx.y * C::kHeads + threadIdx.x / C::kPer;
   const int d4 = threadIdx.x % C::kPer;
-  const int p = tok_pos[t];
+  const int p = src.last(t);
   uint2* o = reinterpret_cast<uint2*>(out + ((size_t)t * H + h) * D) + d4;
   if (h < H && p < 0) *o = make_uint2(0, 0);
   // every block waits for the attention kernel's partials (and so finishes
@@ -657,13 +794,13 @@ inline int plan(const int* tok_slot, const int* tok_pos, int T, int H,
 // per device and kernel (static: the cache is this library's own, not a
 // symbol that another library built from this header would share; each
 // instantiation has its own cache and its own shared-memory attribute).
-template <typename TKV, int D>
+template <typename TKV, int D, typename Src>
 static int grid_size(int device) {
   static int cached[16] = {};
   if (device < 0 || device >= 16) return -1;
   if (cached[device] == 0) {
     constexpr size_t smem = Smem<TKV, D>::kBytes;
-    if (cudaFuncSetAttribute(attn_kernel<TKV, D>,
+    if (cudaFuncSetAttribute(attn_kernel<TKV, D, Src>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem) != cudaSuccess)
       return -1;
@@ -671,7 +808,8 @@ static int grid_size(int device) {
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                device) != cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, attn_kernel<TKV, D>, kThreads, smem) != cudaSuccess ||
+            &per_sm, attn_kernel<TKV, D, Src>, kThreads, smem) !=
+            cudaSuccess ||
         sms * per_sm == 0)
       return -1;
     cached[device] = sms * per_sm;
@@ -679,38 +817,59 @@ static int grid_size(int device) {
   return cached[device];
 }
 
-template <typename TKV, int D>
+// The attention kernel over src's items on a persistent grid of at most
+// max_grid blocks, then, with `combine`, the combine kernel over T tokens.
+template <typename TKV, int D, typename Src>
 int attend(const bf16* q, const TKV* kp, const TKV* vp, const float* ks,
-           const float* vs, const int* bt, const int* tok_slot,
-           const int* tok_pos, bf16* out, int T, int H, int Hkv, int page,
-           int Tb, float scale, uint8_t* ws, const Layout& w, int device,
+           const float* vs, const int* bt, const Src& src, int max_grid,
+           bool combine, bf16* out, int T, int H, int Hkv, int page, int Tb,
+           int L, float scale, uint8_t* ws, const Layout& w, int device,
            cudaStream_t st) {
-  const int grid = grid_size<TKV, D>(device);
+  int grid = grid_size<TKV, D, Src>(device);
   if (grid < 0) return -1;
-  const int max_keys = Tb * page, L = split_keys(max_keys);
+  if (grid > max_grid) grid = max_grid;
   float2* ml = reinterpret_cast<float2*>(ws + w.ml);
   float* acc = reinterpret_cast<float*>(ws + w.acc);
   // the attention and combine kernels start while the kernel before each
   // finishes (programmatic dependent launch), and wait for it in-kernel
   int err = static_cast<int>(sm90::launch_dependent(
-      attn_kernel<TKV, D>, dim3(grid), dim3(kThreads), Smem<TKV, D>::kBytes,
-      st, q, kp, vp, ks, vs, bt, tok_slot, tok_pos, out,
-      reinterpret_cast<const int*>(ws),
-      reinterpret_cast<const int4*>(ws + w.items), ml, acc, T, H, Hkv,
-      H / Hkv, page, Tb, L, scale * kLog2e));
-  if (err) return err;
+      attn_kernel<TKV, D, Src>, dim3(grid), dim3(kThreads),
+      Smem<TKV, D>::kBytes, st, q, kp, vp, ks, vs, bt, src, out, ml, acc, T,
+      H, Hkv, H / Hkv, page, Tb, L, scale * kLog2e));
+  if (err || !combine) return err;
   const dim3 cgrid(T, (H + CombineShape<D>::kHeads - 1) /
                           CombineShape<D>::kHeads);
-  err = static_cast<int>(sm90::launch_dependent(
-      combine_kernel<D>, cgrid, dim3(kThreads), 0, st, tok_pos, out,
+  return static_cast<int>(sm90::launch_dependent(
+      combine_kernel<D, Src>, cgrid, dim3(kThreads), 0, st, src, out,
       static_cast<const float2*>(ml), static_cast<const float*>(acc), T, H,
-      max_keys, L));
-  return err;
+      Tb * page, L));
 }
 
 inline bool misaligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes != 0;
 }
+
+// -1 unless the kernels take this head dim, q, output and pools (16-byte
+// aligned) and, on one-byte pages, both scale pools.
+template <typename TKV>
+inline int check_args(int D, const void* q, const void* out, const void* kp,
+                      const void* vp, const float* ks, const float* vs) {
+  if ((D != 32 && D != 64 && D != 128) || misaligned(q, 16) ||
+      misaligned(out, 16) || misaligned(kp, 16) || misaligned(vp, 16))
+    return -1;
+  if (kQuant<TKV> && (ks == nullptr || vs == nullptr || misaligned(ks, 4) ||
+                      misaligned(vs, 4)))
+    return -1;
+  return 0;
+}
+
+#define REPRO_TC_SWITCH_HEAD_DIM(D, ATTEND) \
+  switch (D) {                              \
+    case 32: return ATTEND(32);             \
+    case 64: return ATTEND(64);             \
+    case 128: return ATTEND(128);           \
+    default: return -1;                     \
+  }
 
 // Plan, attention and combine on stream st for bf16 q on pages of TKV
 // (bf16, int8_t or __nv_fp8_e4m3; the one-byte types with their (P, page)
@@ -723,29 +882,50 @@ int launch(const void* q, const void* kp, const void* vp, const float* ks,
            const int* tok_pos, void* out, int T, int H, int Hkv, int D,
            int page, int Tb, float scale, void* ws, long long bytes,
            int device, cudaStream_t st) {
-  if ((D != 32 && D != 64 && D != 128) || misaligned(q, 16) ||
-      misaligned(out, 16) || misaligned(kp, 16) || misaligned(vp, 16))
-    return -1;
-  if (kQuant<TKV> && (ks == nullptr || vs == nullptr || misaligned(ks, 4) ||
-                      misaligned(vs, 4)))
-    return -1;
+  if (check_args<TKV>(D, q, out, kp, vp, ks, vs)) return -1;
   int err = plan(tok_slot, tok_pos, T, H, Hkv, D, page, Tb, ws, bytes, st);
   if (err) return err;
   const Layout w = workspace_layout(T, H, Hkv, D, Tb * page);
+  uint8_t* base = static_cast<uint8_t*>(ws);
+  const PackedItems src{tok_slot, tok_pos, reinterpret_cast<const int*>(base),
+                        reinterpret_cast<const int4*>(base + w.items)};
+  // the combine also writes the padding rows: always launched
 #define REPRO_ATTEND(DD)                                                    \
-  return attend<TKV, DD>(static_cast<const bf16*>(q),                      \
-                         static_cast<const TKV*>(kp),                      \
-                         static_cast<const TKV*>(vp), ks, vs, bt,          \
-                         tok_slot, tok_pos, static_cast<bf16*>(out), T, H, \
-                         Hkv, page, Tb, scale, static_cast<uint8_t*>(ws),  \
-                         w, device, st)
-  switch (D) {
-    case 32: REPRO_ATTEND(32);
-    case 64: REPRO_ATTEND(64);
-    case 128: REPRO_ATTEND(128);
-    default: return -1;
-  }
+  attend<TKV, DD>(static_cast<const bf16*>(q), static_cast<const TKV*>(kp), \
+                  static_cast<const TKV*>(vp), ks, vs, bt, src, 1 << 30,    \
+                  true, static_cast<bf16*>(out), T, H, Hkv, page, Tb,       \
+                  split_keys(Tb * page), scale, base, w, device, st)
+  REPRO_TC_SWITCH_HEAD_DIM(D, REPRO_ATTEND)
 #undef REPRO_ATTEND
 }
+
+// The chunk layout's attention (and, when chunk_plan takes splits, the
+// combine) on stream st, for the same type pairs: q and the output (B, C,
+// H, D), table row b and positions pos[b] .. for lane b; the workspace of
+// at least chunk_plan(...).w.bytes bytes (null when 0).  Returns as
+// launch.
+template <typename TKV>
+int launch_chunk(const void* q, const void* kp, const void* vp,
+                 const float* ks, const float* vs, const int* bt,
+                 const int* pos, const int* n_valid, void* out, int B, int C,
+                 int H, int Hkv, int D, int page, int Tb, float scale,
+                 void* ws, long long bytes, int device, cudaStream_t st) {
+  if (check_args<TKV>(D, q, out, kp, vp, ks, vs)) return -1;
+  const ChunkPlan c = chunk_plan(B, C, H, Hkv, D, Tb * page);
+  if (c.w.bytes && (ws == nullptr || bytes < (long long)c.w.bytes)) return -1;
+  const ChunkItems src{pos, n_valid, B, C, c.R, c.tiles, c.splits, Hkv};
+  const long long n_items = (long long)B * c.tiles * c.splits * Hkv;
+  if (n_items > 0x7fffffff) return -1;
+#define REPRO_ATTEND(DD)                                                    \
+  attend<TKV, DD>(static_cast<const bf16*>(q), static_cast<const TKV*>(kp), \
+                  static_cast<const TKV*>(vp), ks, vs, bt, src,             \
+                  (int)n_items, c.splits > 1, static_cast<bf16*>(out),      \
+                  B * C, H, Hkv, page, Tb, c.L, scale,                      \
+                  static_cast<uint8_t*>(ws), c.w, device, st)
+  REPRO_TC_SWITCH_HEAD_DIM(D, REPRO_ATTEND)
+#undef REPRO_ATTEND
+}
+
+#undef REPRO_TC_SWITCH_HEAD_DIM
 
 }  // namespace packed_tc

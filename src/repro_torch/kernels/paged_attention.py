@@ -55,6 +55,16 @@ are widened to bf16 exactly in shared memory; their row scales act in fp32
 on the score columns (``k_scale``) and on P before its bf16 rounding
 (``v_scale``).  fp32 q or fp32 pages keep the attention block.
 
+The chunk kernel with bf16 q on bf16, int8 or fp8 pages (the padded serving
+path's prefill) runs the same tensor-core attention kernel over chunk
+items instead: ``TILE_ROWS // G`` rows of one lane's chunk, one KV head and
+one key split, decoded from the item index (no plan kernel); row (b, c)
+keeps its own key limit ``min(pos + c, pos + n_valid - 1)``.  A chunk's
+keys are split (``chunk_split_keys``) only when the row-tile items number
+fewer than ``CHUNK_SPLIT_ITEMS``; then the combine merges them from a
+workspace the wrapper allocates (``paged_chunk_workspace_bytes`` sizes it),
+else every item writes its rows directly.
+
 Each public function runs the plain version for CPU tensors and the kernel
 for CUDA tensors; on a CUDA tensor it launches the kernel or raises.
 ``LAUNCHES`` counts each kernel's launches under its label (the kernel's
@@ -84,6 +94,9 @@ TILE_KEYS = 64
 #: keys of a split of the tensor-core packed kernel, at least; splits of a
 #: table, at most
 MIN_SPLIT_KEYS, MAX_SPLITS = 256, 8
+#: the tensor-core chunk route splits keys only below this many row-tile
+#: items (lanes x row tiles x KV heads; experiments/torch_chunk_splits.py)
+CHUNK_SPLIT_ITEMS = 128
 _Q_DTYPES = (torch.bfloat16, torch.float32)
 #: the kernels' ``kv_type`` codes (``csrc/paged_attention.cu``)
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -163,6 +176,18 @@ def split_keys(max_keys):
     ``csrc/paged_decode_splits.cuh``)."""
     per = -(-max_keys // MAX_SPLITS)
     return max(MIN_SPLIT_KEYS, -(-per // TILE_KEYS) * TILE_KEYS)
+
+
+def chunk_split_keys(B, C, *, G, Hkv, max_keys):
+    """Keys of a split of the tensor-core chunk route (``chunk_plan`` of
+    ``csrc/paged_packed_tc.cuh``): ``split_keys(max_keys)`` when the
+    row-tile items, ``B * ceil(C / (TILE_ROWS // G)) * Hkv``, number fewer
+    than ``CHUNK_SPLIT_ITEMS``, else the whole table in one split.  It reads
+    shapes only, never the device."""
+    tiles = -(-C // (TILE_ROWS // G))
+    if B * tiles * Hkv < CHUNK_SPLIT_ITEMS:
+        return split_keys(max_keys)
+    return max_keys
 
 
 def packed_work_list(tok_slot, tok_pos, *, G, Hkv, page, Tb):
@@ -272,7 +297,10 @@ def _lib():
         lib.paged_decode_workspace_bytes.argtypes = [i] * 8
         lib.paged_decode_workspace_bytes.restype = ctypes.c_longlong
         lib.paged_chunk_attention.argtypes = \
-            [vp] * 9 + [i] * 7 + tail  # ..., B, C, H, Hkv, D, page, Tb
+            [vp] * 9 + [i] * 7 + tail + [vp, ctypes.c_longlong]
+        # ..., B, C, H, Hkv, D, page, Tb, <tail>, workspace, its bytes
+        lib.paged_chunk_workspace_bytes.argtypes = [i] * 9
+        lib.paged_chunk_workspace_bytes.restype = ctypes.c_longlong
         for fn in (lib.paged_packed_attention, lib.paged_decode_attention,
                    lib.paged_chunk_attention):
             fn.restype = i
@@ -403,11 +431,12 @@ def _launch(lib, fn, q, k_pages, k_scale, *args, tail=()):
 
 def _workspace(sizer, q, k_pages, block_tables):
     """The device workspace a kernel needs for these arguments, as
-    ``sizer`` (a C entry over (rows, H, Hkv, D, page, Tb, q_bf16,
-    kv_type)) gives its bytes; None when it needs none."""
+    ``sizer`` (a C entry over (q's leading dims: T or B, or B and C, then
+    H, Hkv, D, page, Tb, q_bf16, kv_type)) gives its bytes; None when it
+    needs none."""
     H, D = q.shape[-2:]
     _, page, Hkv, _ = k_pages.shape
-    nbytes = sizer(q.shape[0], H, Hkv, D, page, block_tables.shape[1],
+    nbytes = sizer(*q.shape[:-2], H, Hkv, D, page, block_tables.shape[1],
                    int(q.dtype == torch.bfloat16), _KV_TYPES[k_pages.dtype])
     if nbytes == 0:
         return None
@@ -505,11 +534,16 @@ def paged_chunk_attention_cuda(q, k_pages, v_pages, block_tables, pos,
     out = torch.empty_like(q)
     if B * C == 0:
         return out
-    _launch(_lib(), "paged_chunk_attention", q, k_pages, k_scale,
+    lib = _lib()
+    # the tensor-core route's split partials (few row-tile items)
+    ws = _workspace(lib.paged_chunk_workspace_bytes, q, k_pages,
+                    block_tables)
+    _launch(lib, "paged_chunk_attention", q, k_pages, k_scale,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
             pos.data_ptr(), n_valid.data_ptr(), out.data_ptr(), B, C, H, Hkv,
-            D, page, block_tables.shape[1], float(scale))
+            D, page, block_tables.shape[1], float(scale),
+            tail=(_ptr(ws), 0 if ws is None else ws.numel()))
     return out
 
 
