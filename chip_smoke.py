@@ -13,27 +13,30 @@ script exits non-zero:
                  spills of the bf16 flash kernels (none may spill at
                  D = 128), of the tensor-core attention and combine
                  kernels over packed and chunk items (bf16, int8 and fp8
-                 pages), of the bf16 key-split decode kernels and of the
-                 bf16 fused grid and its finishing kernel (none of these
-                 may spill)
+                 pages), of the key-split decode kernels (bf16, int8 and
+                 fp8 pages) and of the bf16 fused grid and its finishing
+                 kernel (none of these may spill)
   3. kernel      each kernel against its plain PyTorch version at the
                  main path's shapes (and small shapes), bf16 and fp32; the
                  tensor-core packed kernel (bf16 q on bf16, int8 and fp8
                  pages) also on edge ticks (runs across tiles and splits,
                  one key, padding in slot 0, a slot as two runs),
                  bit-identical over two launches, and its plan kernel's
-                 work list equal to packed_work_list's; the bf16 key-split
-                 decode and the bf16 fused kernel also on edge lanes
-                 (seq_len 1, 255/256/257, 511/512, the table, 0) at G = 1,
-                 3, 8 and D = 32, 64, 128, bit-identical over two launches
-                 (fused: B = 3, 8, 11, a ragged F tile); the tensor-core
+                 work list equal to packed_work_list's; the key-split
+                 decode (bf16 q on bf16, int8 and fp8 pages) and the bf16
+                 fused kernel also on edge lanes (seq_len 1, 255/256/257,
+                 511/512, the table, 0) at G = 1, 3, 8 and D = 32, 64,
+                 128, bit-identical over two launches (fused: B = 3, 8,
+                 11, a ragged F tile), and on one lane of odd H over three
+                 splits (the partials' 16-byte alignment); the tensor-core
                  chunk route (bf16 q on bf16, int8 and fp8 pages) on edge
                  chunks (G = 1, 3, 8; D = 32, 64, 128; C = 1 and C not a
                  multiple of 64 / G; n_valid 0 at pos 0 and > 0; chunks
                  past the table's end; with and without key splits), all
-                 rows, bit-identical over two launches; fp32 decode, fused
-                 and chunk calls still on the CUDA-core kernels (profiled
-                 by name); the dual-branch dispatcher's two-op route;
+                 rows, bit-identical over two launches; fp32 decode (also
+                 fp32 q on int8 pages), fused and chunk calls still on the
+                 CUDA-core kernels (profiled by name); the dual-branch
+                 dispatcher's two-op route;
                  page_copy byte for byte; the
                  int8 / fp8 scale variants of the three paged attention
                  kernels; flash_attention forward and backward
@@ -49,7 +52,9 @@ script exits non-zero:
                  its attention items alone and its two-op route); one COW at
                  llama3.2-3b beside index_copy_; the training kernels beside
                  scaled_dot_product_attention and F.rms_norm + add (flash:
-                 also TFLOP/s and share of the bound)
+                 also TFLOP/s and share of the bound; fused_ln_add also at
+                 the engine's 263 rows and with fewer rows than the
+                 backward's grid)
   5. tick        one packed tick (bf16, int8 and fp8 pages), one padded
                  C = 128 chunk tick and one dual-branch C == 1 tick of
                  llama3.2-3b at full width (2 layers, fp32) on the card
@@ -69,10 +74,10 @@ script exits non-zero:
                  again under the dual-branch plan from the same cache; the
                  prefill again under torch.profiler from the empty cache
                  (device ms/tick, the tensor-core chunk kernel by name);
-                 bf16: then 4 ticks of each plan under torch.profiler
-                 (device ms/tick, the key-split and fused kernels by name);
-                 then the same on int8 and on fp8 pages, 8 decode ticks
-                 each way
+                 then 4 ticks of each plan under torch.profiler (device
+                 ms/tick, the key-split decode and, bf16, the fused kernel
+                 by name); then the same on int8 and on fp8 pages, 8
+                 decode ticks each way
  12. train tick  one train step at llama3.2-3b full width (2 layers, fp32,
                  B=2, S=256) on the card against the CPU
  13. train       trainer.train at llama3.2-3b full width and depth (fal,
@@ -120,8 +125,12 @@ H, HKV, D, PAGE = 24, 8, 128, 16          # llama3.2-3b attention shapes
 DUAL_LOGIT_BOUND = 0.25
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    """Print a phase's heading with the seconds since the script started."""
+    print(f"== {name} [{time.perf_counter() - _T0:.1f} s]", flush=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -298,6 +307,8 @@ def build_phase():
         print(f"  {name}: {len(regs)} kernels, {min(regs)}..{max(regs)} "
               f"registers, at most {max(smem, default=0)} bytes static "
               f"shared memory, {sum(spill)} bytes spilled (ptxas -v)")
+        for kname, spilled in spilling_kernels(log):
+            print(f"    spills {spilled} bytes: {kname}")
     tc = tensor_core_kernels(build.PTXAS_LOG.get("flash_attention", ""))
     for (kname, _, d, _), (regs, spilled) in sorted(tc.items()):
         print(f"  flash_attention bf16 {kname} D={d}: {regs} registers at "
@@ -325,8 +336,9 @@ def build_phase():
             f"the {len(want)} tensor-core packed and chunk kernels")
     require(all(sp == 0 for _, sp in packed.values()),
             "a tensor-core packed or chunk attention kernel spills")
-    # the bf16 decode key splits (paged_attention.cu) and the bf16 fused
-    # grid (dual_branch.cu): every instantiation, none may spill
+    # the decode key splits over bf16, int8 and fp8 pages
+    # (paged_attention.cu) and the bf16 fused grid (dual_branch.cu): every
+    # instantiation, none may spill
     split = templated_kernels(build.PTXAS_LOG.get("paged_attention", ""),
                               ("split_kernel", "combine_kernel"),
                               "13decode_splits")
@@ -334,22 +346,50 @@ def build_phase():
                              ("dual_tc_kernel", "dual_finish_kernel"))
     for label, found in (("paged_decode_attention", split),
                          ("fused_dual_branch_decode", dual)):
-        for (kname, d, mg), (regs, spilled) in sorted(found.items()):
-            print(f"  {label} bf16 {kname} D={d}"
-                  f"{f' G<={mg}' if mg else ''}: {regs} registers, "
+        for (kname, pages, d, mg), (regs, spilled) in sorted(found.items()):
+            before = SPLIT_BF16_REGS.get((kname, pages, d, mg))
+            print(f"  {label} {kname} {pages + ' pages ' if pages else ''}"
+                  f"D={d}{f' G<={mg}' if mg else ''}: {regs} registers"
+                  f"{f' (was {before})' if before else ''}, "
                   f"{spilled} bytes spilled")
-    want = {("split_kernel", d, g) for d in (32, 64, 128) for g in (4, 8)}
-    want |= {("combine_kernel", d, 0) for d in (32, 64, 128)}
+    want = {("split_kernel", pages, d, g) for pages in PAGE_TYPES.values()
+            for d in (32, 64, 128) for g in (4, 8)}
+    want |= {("combine_kernel", "", d, 0) for d in (32, 64, 128)}
     require(set(split) == want, f"ptxas reported {sorted(split)}, not the "
             f"{len(want)} key-split decode kernels")
-    want = {("dual_tc_kernel", d, g) for d in (32, 64, 128) for g in (4, 8)}
-    want |= {("dual_finish_kernel", d, 0) for d in (32, 64, 128)}
+    want = {("dual_tc_kernel", "", d, g) for d in (32, 64, 128)
+            for g in (4, 8)}
+    want |= {("dual_finish_kernel", "", d, 0) for d in (32, 64, 128)}
     require(set(dual) == want, f"ptxas reported {sorted(dual)}, not the "
             f"{len(want)} bf16 fused kernels")
     require(all(sp == 0 for _, sp in list(split.values())
                 + list(dual.values())),
-            "a bf16 key-split decode or fused kernel spills")
+            "a key-split decode or bf16 fused kernel spills")
     sys.stdout.flush()
+
+
+#: registers of the bf16 key-split decode kernels for G <= 4 before they
+#: took the page type as a template parameter (PERF.md section 6), printed
+#: beside this build's
+SPLIT_BF16_REGS = {("split_kernel", "bf16", 128, 4): 120,
+                   ("split_kernel", "bf16", 64, 4): 119,
+                   ("split_kernel", "bf16", 32, 4): 113}
+
+
+def spilling_kernels(log):
+    """[(mangled kernel name, bytes spilled)] of the kernels in a ptxas -v
+    report that spill."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur and int(m.group(1)) + int(m.group(2)):
+            out.append((cur, int(m.group(1)) + int(m.group(2))))
+    return out
 
 
 #: mangled page type of a tensor-core packed attention kernel -> its name
@@ -388,21 +428,22 @@ def tensor_core_kernels(log, namespace="2tc"):
 
 
 def templated_kernels(log, names, scope=""):
-    """{(kernel, D, G bound or 0): (registers, bytes spilled)} of the
-    kernel templates ``names`` over D (and the query-group bound MG) from
-    ptxas -v's report; with ``scope``, only entries whose mangled name
-    holds it (a namespace)."""
+    """{(kernel, page type or "", D, G bound or 0): (registers, bytes
+    spilled)} of the kernel templates ``names`` over (a page type,) D (and
+    the query-group bound MG) from ptxas -v's report; with ``scope``, only
+    entries whose mangled name holds it (a namespace)."""
     out, cur = {}, None
     pat = re.compile(r"Compiling entry function '(\S+)'")
     kern = re.compile(r"\d+(" + "|".join(names) +
-                      r")ILi(\d+)E(?:Li(\d+)E)?E")
+                      r")I(\w*?)Li(\d+)E(?:Li(\d+)E)?E")
     for line in log.splitlines():
         m = pat.search(line)
         if m:
             k = kern.search(m.group(1))
             cur = None
             if k and scope in m.group(1):
-                cur = (k.group(1), int(k.group(2)), int(k.group(3) or 0))
+                cur = (k.group(1), PAGE_TYPES.get(k.group(2), k.group(2)),
+                       int(k.group(3)), int(k.group(4) or 0))
                 out[cur] = [0, 0]
             continue
         if cur is None:
@@ -619,6 +660,7 @@ def padded_kernel_phase():
             if i == 0 and dtype == torch.bfloat16:
                 errs["paged_chunk_attention"] = err
     check_split_edges(PA)
+    check_split_alignment()
     check_chunk_edges(PA)
     return errs
 
@@ -733,28 +775,91 @@ def edge_lanes(tb, page):
 
 
 def check_split_edges(PA):
-    """The bf16 key-split decode on the edge lanes: live lanes within
-    ATTN_TOLS[bf16] of the plain version, the empty lane exact zeros, two
-    launches bit-identical (splits merge in split order)."""
+    """The key-split decode of bf16 q on bf16, int8 and fp8 pages on the
+    edge lanes: live lanes within ATTN_TOLS[bf16] of the plain version, the
+    empty lane exact zeros, two launches bit-identical (splits merge in
+    split order).  One-byte pools are the fp32 draws quantized as the
+    engine quantizes them (``quantize_pools``)."""
     bf16 = torch.bfloat16
-    for i, (h, hkv, d, page, tb) in enumerate(SPLIT_EDGE_SHAPES):
-        lens = edge_lanes(tb, page)
-        args = decode_inputs(bf16, lens, h, hkv, d, page, tb, seed=400 + i)
-        out = PA.paged_decode_attention_cuda(*args)
-        again = PA.paged_decode_attention_cuda(*args)
-        ref = PA.paged_decode_attention_plain(
-            *(a.float() for a in args[:3]), *args[3:]).to(bf16)
-        torch.cuda.synchronize()
-        live = args[4] > 0
-        report(f"decode splits bf16 H={h} Hkv={hkv} D={d} page={page} "
-               f"Tb={tb} seq_lens={lens}", max_err(out[live], ref[live]),
-               ATTN_TOLS[bf16])
-        require(out[~live].abs().max().item() == 0.0,
-                "an empty lane is not exactly 0")
-        require(torch.equal(out, again), "two launches of the key-split "
-                "decode differ")
-    print("  key-split decode: empty lanes exact zeros, repeats "
-          "bit-identical", flush=True)
+    for kv in ("", *KV_NARROW):
+        for i, (h, hkv, d, page, tb) in enumerate(SPLIT_EDGE_SHAPES):
+            lens = edge_lanes(tb, page)
+            args, sc = split_case(kv, lens, h, hkv, d, page, tb,
+                                  seed=400 + i)
+            out = PA.paged_decode_attention_cuda(*args, **sc)
+            again = PA.paged_decode_attention_cuda(*args, **sc)
+            ref = PA.paged_decode_attention_plain(
+                args[0].float(), *args[1:], **sc).to(bf16)
+            torch.cuda.synchronize()
+            live = args[4] > 0
+            report(f"decode splits bf16 q, {kv or 'bf16'} pages H={h} "
+                   f"Hkv={hkv} D={d} page={page} Tb={tb} seq_lens={lens}",
+                   max_err(out[live], ref[live]), ATTN_TOLS[bf16])
+            require(out[~live].abs().max().item() == 0.0,
+                    "an empty lane is not exactly 0")
+            require(torch.equal(out, again), f"two launches of the key-split "
+                    f"decode differ ({kv or 'bf16'} pages)")
+    print("  key-split decode (bf16, int8, fp8 pages): empty lanes exact "
+          "zeros, repeats bit-identical", flush=True)
+
+
+def split_case(kv, lens, h, hkv, d, page, tb, seed):
+    """Decode arguments of bf16 q on ``kv`` pages ("" bf16, else int8 /
+    fp8 with their row scales): (args, scale kwargs)."""
+    if not kv:
+        return decode_inputs(torch.bfloat16, lens, h, hkv, d, page, tb,
+                             seed), {}
+    q, kp, vp, bt, sl = decode_inputs(torch.float32, lens, h, hkv, d, page,
+                                      tb, seed)
+    kq, vq, ks, vs = quantize_pools(kp, vp, kv)
+    return (q.to(torch.bfloat16), kq, vq, bt, sl), dict(k_scale=ks,
+                                                        v_scale=vs)
+
+
+#: (H, Hkv, D) of one lane over a 768-key table (48 pages of 16: three
+#: splits): B x H x splits odd, so the split partials' (m, l) float2s end on
+#: an 8-byte boundary (gpt2-1.5b decodes one padded lane at 25 heads)
+ALIGN_SHAPES = ((3, 1, 128), (25, 25, 64))
+ALIGN_LENS = (768, 600)       # all three splits used
+
+
+def check_split_alignment(routes=("bf16", "int8", "fp8", "fused")):
+    """One lane, an odd number of heads, three key splits: the decode
+    kernel on bf16, int8 and fp8 pages and the fused dual route on bf16
+    pages, each against its plain version (ATTN_TOLS[bf16]).  The
+    combine reads the fp32 accumulators as float4s, so they must start on
+    a 16-byte boundary of the workspace: the sizer's total less the
+    accumulators is that offset.  A misaligned read is a sticky CUDA
+    error: run on a tree that may fault, in a process of its own."""
+    from repro_torch.kernels import dual_branch as DB
+    from repro_torch.kernels import paged_attention as PA
+    bf16, page, tb = torch.bfloat16, 16, 48
+    ns = -(-tb * page // PA.split_keys(tb * page))
+    for (h, hkv, d), n in itertools.product(ALIGN_SHAPES, ALIGN_LENS):
+        parts = ns * 1 * h
+        for route in routes:
+            kv = "" if route in ("bf16", "fused") else route
+            args, sc = split_case(kv, [n], h, hkv, d, page, tb, seed=h + n)
+            ws = PA._lib().paged_decode_workspace_bytes(
+                1, h, hkv, d, page, tb, 1, PA._KV_TYPES[args[1].dtype])
+            acc_at = ws - 4 * parts * d
+            ref = PA.paged_decode_attention_plain(
+                args[0].float(), *args[1:], **sc).to(bf16)
+            if route == "fused":
+                g = torch.Generator(device="cuda").manual_seed(n)
+                x, ffn = ffn_inputs(g, bf16, "swiglu", 1, 256, 200)
+                out, _ = DB.fused_dual_branch_decode_cuda(*args, x, ffn)
+            else:
+                out = PA.paged_decode_attention_cuda(*args, **sc)
+            torch.cuda.synchronize()
+            report(f"alignment: {route} H={h} Hkv={hkv} D={d} one lane of "
+                   f"{n} keys, {ns} splits ({parts} partials, accumulators "
+                   f"at byte {acc_at})", max_err(out, ref),
+                   ATTN_TOLS[bf16])
+            require(acc_at % 16 == 0, f"the decode accumulators start at "
+                    f"byte {acc_at}, not on a 16-byte boundary")
+    print(f"  odd B x H x splits: {', '.join(routes)} within tolerance, "
+          f"accumulators 16-byte aligned", flush=True)
 
 
 def fused_kernel_phase():
@@ -869,28 +974,33 @@ def check_fused_edges(DB):
 
 def check_fp32_routes(DB):
     """fp32 q, x, weights and pages keep the CUDA-core kernels: under
-    torch.profiler an fp32 decode, an fp32 fused call and an fp32 chunk
-    call run attend_block's paged_decode_kernel, dual_branch_kernel and
-    paged_chunk_kernel, not the bf16 routes' split_kernel, dual_tc_kernel
-    or the tensor-core attention kernel over chunk items."""
+    torch.profiler an fp32 decode, an fp32-q decode on int8 pages, an fp32
+    fused call and an fp32 chunk call run attend_block's
+    paged_decode_kernel, dual_branch_kernel and paged_chunk_kernel, not the
+    bf16-q routes' split_kernel, dual_tc_kernel or the tensor-core
+    attention kernel over chunk items."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import paged_attention as PA
     f32 = torch.float32
     att = decode_inputs(f32, [1, 300, 1021], H, HKV, D, PAGE, 128, seed=700)
+    kq, vq, ks, vs = quantize_pools(att[1], att[2], "int8")
+    q8 = (att[0], kq, vq, *att[3:])
     g = torch.Generator(device="cuda").manual_seed(701)
     x, ffn = ffn_inputs(g, f32, "swiglu", 3, 256, 256)
     chk = chunk_inputs(f32, 128, MAIN_CHUNKS[0][1], H, HKV, D, PAGE, 128,
                        seed=702)
-    PA.paged_decode_attention_cuda(*att)
-    DB.fused_dual_branch_decode_cuda(*att, x, ffn)
-    PA.paged_chunk_attention_cuda(*chk)
+
+    def calls():
+        PA.paged_decode_attention_cuda(*att)
+        PA.paged_decode_attention_cuda(*q8, k_scale=ks, v_scale=vs)
+        DB.fused_dual_branch_decode_cuda(*att, x, ffn)
+        PA.paged_chunk_attention_cuda(*chk)
+    calls()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        PA.paged_decode_attention_cuda(*att)
-        DB.fused_dual_branch_decode_cuda(*att, x, ffn)
-        PA.paged_chunk_attention_cuda(*chk)
+        calls()
         torch.cuda.synchronize()
     names = " ".join(e.key for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA)
@@ -900,11 +1010,13 @@ def check_fp32_routes(DB):
         return
     require("paged_decode_kernel" in names and "dual_branch_kernel" in names
             and "paged_chunk_kernel" in names
+            and "paged_decode_kernel<float, signed char" in names
             and "split_kernel" not in names and "dual_tc_kernel" not in names
             and "ChunkItems" not in names,
             f"fp32 calls ran other kernels than attend_block's: {names}")
-    print("  fp32 routes: paged_decode_kernel, dual_branch_kernel and "
-          "paged_chunk_kernel (CUDA cores), as before", flush=True)
+    print("  fp32 routes: paged_decode_kernel (fp32 pages and int8 pages), "
+          "dual_branch_kernel and paged_chunk_kernel (CUDA cores), as "
+          "before", flush=True)
 
 
 #: quantized page storage the scale variants take, by EngineConfig.kv_dtype
@@ -1323,17 +1435,19 @@ BEFORE_REDESIGN_MS = {
                                 "unfused_ms 0.2501)",
     "paged_chunk_attention": "0.8872 (attend_block)",
     "paged_chunk_attention.int8": "0.9320 (attend_block)",
-    "paged_chunk_attention.fp8": "0.9301 (attend_block)"}
+    "paged_chunk_attention.fp8": "0.9301 (attend_block)",
+    "paged_decode_attention.int8": "0.1778 (attend_block)",
+    "paged_decode_attention.fp8": "0.1896 (attend_block)"}
 
 
 def scale_time_phase(bw):
     """Kernel, plain and bound times of the six scale variants at the main
     path's shapes (q in bf16, llama3.2-3b attention, page 16): the packed
     kernel on the mixed tick and on the decode-only tick (as the bf16
-    pages' row; timed with a lead, and without it as ``no_lead_ms``), the
-    decode kernel on 8 lanes x 1021 keys, the chunk kernel on 8 lanes x C
-    = 128 at pos 256.  The bound counts the narrow K/V bytes plus the two
-    fp32 scales of each key row."""
+    pages' row), the decode kernel on 8 lanes x 1021 keys, the chunk kernel
+    on 8 lanes x C = 128 at pos 256, each timed with a lead (and the three
+    redesigned ones without it as ``no_lead_ms``).  The bound counts the
+    narrow K/V bytes plus the two fp32 scales of each key row."""
     from repro_torch.kernels import paged_attention as PA
     phase("kernel time: int8 / fp8 scale variants")
     bf16, tb, rows = torch.bfloat16, 128, {}
@@ -1390,9 +1504,9 @@ def scale_time_phase(bw):
         for name, (shape, kernel, plain, (bound_ms, bound_by)) in \
                 cases.items():
             label = f"{name}.{kv}"
-            # the packed and chunk wrappers' host work (workspace, ~0.06
-            # ms) is close to the flush's: lead, as for bf16 pages
-            lead = 0 if name == "paged_decode_attention" else LEAD_CYCLES
+            # the wrappers' host work (workspace, ~0.06 ms) is close to
+            # the flush's: lead, as for bf16 pages
+            lead = LEAD_CYCLES
             row = dict(shape=f"{shape}, q bf16, {kv} pages + fp32 row "
                        f"scales, H=24 Hkv=8 D=128 page=16 Tb=128",
                        ms=_median_ms(kernel, lead_cycles=lead),
@@ -1400,7 +1514,7 @@ def scale_time_phase(bw):
                        bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=None)
             extra = ""
-            if name == "paged_chunk_attention":
+            if name in ("paged_chunk_attention", "paged_decode_attention"):
                 row["no_lead_ms"] = _median_ms(kernel)
                 extra = (f"; without the lead {row['no_lead_ms']:.4f}; "
                          f"before the redesign {BEFORE_REDESIGN_MS[label]} "
@@ -2182,14 +2296,12 @@ def padded_generation_phase(params, kv="", n_new=32,
     go in turns as ``order`` says, each from its own copy of the prefilled
     cache.  Then the prefill again under torch.profiler from a copy of the
     empty cache (its device time a tick; the tensor-core chunk kernel by
-    name) and, on bf16 pages, 4 decode ticks of each plan.  Returns {kernel
-    label: launches of the first run that drives it}."""
-    import numpy as np
+    name) and 4 decode ticks of each plan (the key-split decode kernel by
+    name, attend_block's never).  Returns {kernel label: launches of the
+    first run that drives it}."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.plan import ExecutionPlan
     from repro_torch.kernels import ops
-    from repro_torch.models import model as M
-    from repro_torch.serve.sampling import greedy
     B, C, tb = PADDED_B, PADDED_C, PADDED_TB
     cfg = get_config("llama3.2-3b")
     L = cfg.n_layers
@@ -2201,7 +2313,6 @@ def padded_generation_phase(params, kv="", n_new=32,
     empty = clone_cache(cache)
     seq = ExecutionPlan.single_device("paged")
     dual = seq.with_dual_branch()
-    dev = lambda a: torch.as_tensor(np.asarray(a, np.int32)).cuda()  # noqa: E731,E501
 
     def run_counted(fn):
         torch.cuda.synchronize()
@@ -2214,16 +2325,7 @@ def padded_generation_phase(params, kv="", n_new=32,
             ops.dispatch_paths()
 
     def decode(c, first, plan, n=n_new):
-        tok, out, first_logits = first.clone(), [], None
-        for i in range(n):
-            batch = dict(tokens=tok[:, None].int(), pos=dev(lens + i),
-                         n_valid=dev(np.ones(B)), block_tables=bt)
-            logits, _ = M.paged_decode_step(params, cfg, batch, c, plan)
-            if i == 0:
-                first_logits = logits[:, 0].float()
-            tok = greedy(logits[:, 0]).long()
-            out.append(tok)
-        return torch.stack(out, 1).cpu(), first_logits
+        return padded_decode(params, cfg, lens, bt, c, first, plan, n)
 
     with torch.no_grad():
         (first, n_pre), pre_s, pre_counts, pre_paths = run_counted(
@@ -2245,7 +2347,7 @@ def padded_generation_phase(params, kv="", n_new=32,
         if kv:
             want["dual"] = want["sequential"]
         copies = [clone_cache(cache) for _ in order[1:]] + [cache]
-        prof_cache = None if kv else clone_cache(cache)
+        prof_cache = clone_cache(cache)
         # one tick of each plan first (allocations, GEMM heuristics): it
         # writes the K/V that the timed run's first tick writes again
         decode(copies[0], first, seq, n=1)
@@ -2271,13 +2373,12 @@ def padded_generation_phase(params, kv="", n_new=32,
                                               empty),
             pre_s / n_pre * 1e3, n_pre, want=PREFILL_KERNELS,
             avoid=("paged_chunk_kernel",))
-        if prof_cache is not None:
-            for name in ("sequential", "dual"):
-                tick_device_time(name, lambda: decode(
-                    prof_cache, first, seq if name == "sequential" else dual,
-                    n=PROFILED_TICKS), runs[name][0][3], PROFILED_TICKS,
-                    want=DECODE_KERNELS[name],
-                    avoid=("paged_decode_kernel", "dual_branch_kernel"))
+        for name in ("sequential", "dual"):
+            tick_device_time(name, lambda: decode(
+                prof_cache, first, seq if name == "sequential" else dual,
+                n=PROFILED_TICKS), runs[name][0][3], PROFILED_TICKS,
+                want=DECODE_KERNELS[kv or "bf16"][name],
+                avoid=("paged_decode_kernel", "dual_branch_kernel"))
     (toks_s, lg_s, seq_counts, _) = runs["sequential"][0]
     (toks_d, lg_d, dual_counts, _) = runs["dual"][0]
     diff = (lg_s - lg_d).abs().max().item()
@@ -2300,8 +2401,29 @@ def padded_generation_phase(params, kv="", n_new=32,
                               dual_counts["fused_dual_branch_decode"]})}
 
 
-#: padded decode ticks under the profiler, a plan each (bf16 pages)
+#: padded decode ticks under the profiler, a plan each
 PROFILED_TICKS = 4
+
+
+def padded_decode(params, cfg, lens, bt, cache, first, plan, n):
+    """``n`` greedy C == 1 ticks of ``paged_decode_step`` from the tokens
+    ``first`` at positions ``lens``: (tokens (B, n) on the host, the first
+    tick's fp32 logits)."""
+    import numpy as np
+    from repro_torch.models import model as M
+    from repro_torch.serve.sampling import greedy
+    B = len(lens)
+    dev = lambda a: torch.as_tensor(np.asarray(a, np.int32)).cuda()  # noqa: E731,E501
+    tok, out, first_logits = first.clone(), [], None
+    for i in range(n):
+        batch = dict(tokens=tok[:, None].int(), pos=dev(lens + i),
+                     n_valid=dev(np.ones(B)), block_tables=bt)
+        logits, _ = M.paged_decode_step(params, cfg, batch, cache, plan)
+        if i == 0:
+            first_logits = logits[:, 0].float()
+        tok = greedy(logits[:, 0]).long()
+        out.append(tok)
+    return torch.stack(out, 1).cpu(), first_logits
 
 
 def busy_ms(prof):
@@ -2321,11 +2443,18 @@ def busy_ms(prof):
     return total / 1e3
 
 
-#: kernels a profiled padded tick must run, by tick: the bf16 decode's
-#: key-split kernel, the dual tick's blocks also the tensor-core fused grid;
-#: a prefill tick the tensor-core attention kernel over chunk items
-DECODE_KERNELS = {"sequential": ("decode_splits::split_kernel",),
-                  "dual": ("decode_splits::split_kernel", "dual_tc_kernel")}
+#: kernels a profiled padded tick must run, by page type and tick: the
+#: decode's key-split kernel; on bf16 pages the dual tick's blocks also the
+#: tensor-core fused grid (on one-byte pages the dual route is the decode
+#: kernel and mlp_apply); a prefill tick the tensor-core attention kernel
+#: over chunk items
+SPLIT = "decode_splits::split_kernel"
+DECODE_KERNELS = {
+    "bf16": {"sequential": (SPLIT,), "dual": (SPLIT, "dual_tc_kernel")},
+    "int8": {"sequential": (SPLIT + "<signed char",),
+             "dual": (SPLIT + "<signed char",)},
+    "fp8": {"sequential": (SPLIT + "<__nv_fp8_e4m3",),
+            "dual": (SPLIT + "<__nv_fp8_e4m3",)}}
 PREFILL_KERNELS = ("packed_tc::ChunkItems",)
 
 
@@ -2391,10 +2520,14 @@ FLASH_TOLS = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 #: p to bf16 before P.V and its autograd rounds each product, the kernel
 #: keeps fp32 to the end
 GRAD_TOLS = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
-#: (kind, rows, d): the training shapes (llama3.2-3b rmsnorm, gpt2 layernorm)
-#: and an odd row width (scalar loads)
+#: (kind, rows, d): the training shapes (llama3.2-3b rmsnorm, gpt2
+#: layernorm), the engine's token budget (263 rows of llama3.2-3b), fewer
+#: rows than the backward's grid of two blocks an SM, and odd row widths
+#: (scalar loads); the first LN_TIMED are also timed
 LN_SHAPES = (("rmsnorm", 2048, 3072), ("layernorm", 2048, 768),
+             ("rmsnorm", 263, 3072), ("layernorm", 100, 768),
              ("rmsnorm", 37, 200), ("layernorm", 5, 1001))
+LN_TIMED = 4
 
 
 def flash_inputs(dtype, B, S, h, hkv, d, seed):
@@ -2600,14 +2733,26 @@ def train_time_phase(bw):
           f"TFLOP/s (at 2.5x the forward's flops), {b_bwd[0] / bwd_ms:.3f} "
           f"of the bound", flush=True)
     del qt, kt, vt, out
-    for kind, n, dm in LN_SHAPES[:2]:
+    for kind, n, dm in LN_SHAPES[:LN_TIMED]:
         x, a1, scale, bias, dy = ln_inputs(torch.bfloat16, kind, n, dm, 2)
         y, mean, rstd = LN.fused_ln_add_fwd_cuda(x, a1, scale, bias,
                                                  kind=kind)
+        # the wrappers' host work (three or four allocations; the
+        # backward also asks the card's SM count) is close to the flush's
+        # at small shapes: timed with a lead (device time) and, as before
+        # the backward's redesign, without
         f_ms = _median_ms(lambda: LN.fused_ln_add_fwd_cuda(
+            x, a1, scale, bias, kind=kind), lead_cycles=LEAD_CYCLES)
+        f_no_lead = _median_ms(lambda: LN.fused_ln_add_fwd_cuda(
             x, a1, scale, bias, kind=kind))
         b_ms = _median_ms(lambda: LN.fused_ln_add_bwd_cuda(
+            dy, x, scale, mean, rstd, kind=kind), lead_cycles=LEAD_CYCLES)
+        b_no_lead = _median_ms(lambda: LN.fused_ln_add_bwd_cuda(
             dy, x, scale, mean, rstd, kind=kind))
+        # the same after a flush that leaves no dirty lines to write back
+        b_clean = _median_ms(lambda: LN.fused_ln_add_bwd_cuda(
+            dy, x, scale, mean, rstd, kind=kind), lead_cycles=LEAD_CYCLES,
+            clean=True)
         f_plain = _median_ms(lambda: LN.ln_add_plain(x, a1, scale, bias,
                                                      kind=kind))
         xr = x.detach().requires_grad_(True)
@@ -2628,23 +2773,70 @@ def train_time_phase(bw):
         fb = (3 * n * dm * elt + (1 + ln) * dm * 4 + 8 * n) / bw * 1e3
         bb_ = (3 * n * dm * elt + (2 + ln) * dm * 4 + 8 * n) / bw * 1e3
         shape = f"({n}, {dm}) {kind} bf16"
-        print(f"  fused_ln_add {shape}: kernel_ms {f_ms:.4f} plain_ms "
-              f"{f_plain:.4f} bound_ms {fb:.4f} (bytes) library_ms none "
-              f"(no single call); unfused_ms {unfused:.4f} "
-              f"(F.{'rms_norm' if kind == 'rmsnorm' else 'layer_norm'} + "
+        torch_norm = "rms_norm" if kind == "rmsnorm" else "layer_norm"
+        print(f"  fused_ln_add {shape}: kernel_ms {f_ms:.4f} (without "
+              f"the lead {f_no_lead:.4f}) plain_ms {f_plain:.4f} bound_ms "
+              f"{fb:.4f} (bytes, {fb / f_ms:.2f} of it) library_ms none (no "
+              f"single call); unfused_ms {unfused:.4f} (F.{torch_norm} + "
               f"add)")
-        print(f"  fused_ln_add.bwd {shape}: kernel_ms {b_ms:.4f} plain_ms "
-              f"{b_plain:.4f} (autograd through the plain version) "
-              f"bound_ms {bb_:.4f} (bytes)", flush=True)
-        if kind == "rmsnorm":
-            rows["fused_ln_add"] = dict(ms=f_ms, plain_ms=f_plain,
-                                        bound_ms=fb, bound_by="bytes",
-                                        library_ms=None, unfused_ms=unfused,
-                                        shape=shape)
-            rows["fused_ln_add.bwd"] = dict(ms=b_ms, plain_ms=b_plain,
-                                            bound_ms=bb_, bound_by="bytes",
-                                            library_ms=None, shape=shape)
+        print(f"  fused_ln_add.bwd {shape}: kernel_ms {b_ms:.4f} (without "
+              f"the lead {b_no_lead:.4f}; after a read flush, no "
+              f"write-back, {b_clean:.4f}) plain_ms {b_plain:.4f} (autograd "
+              f"through the plain version) bound_ms {bb_:.4f} (bytes, "
+              f"{bb_ / b_ms:.2f} of it); before the redesign "
+              f"{LN_BWD_BEFORE_MS.get((kind, n, dm), 'not measured')} ms "
+              f"(PERF.md, without a lead, NVIDIA H100 80GB HBM3, 700.00 W)",
+              flush=True)
+        fwd = dict(ms=f_ms, plain_ms=f_plain, bound_ms=fb, bound_by="bytes",
+                   library_ms=None, unfused_ms=unfused, no_lead_ms=f_no_lead,
+                   shape=shape)
+        bwd = dict(ms=b_ms, plain_ms=b_plain, bound_ms=bb_, bound_by="bytes",
+                   library_ms=None, no_lead_ms=b_no_lead,
+                   clean_flush_ms=b_clean, shape=shape)
+        if (kind, n, dm) == LN_SHAPES[0]:
+            # where the backward's time goes: its two kernels' device times
+            bwd["kernels_us"] = kernel_breakdown(
+                lambda: LN.fused_ln_add_bwd_cuda(dy, x, scale, mean, rstd,
+                                                 kind=kind))
+            print("  fused_ln_add.bwd kernels (torch.profiler, mean of 20 "
+                  "calls; the column sums, a programmatic dependent, "
+                  "include their wait): " + ", ".join(
+                      f"{k} {v:.2f} us" for k, v in
+                      bwd["kernels_us"].items()), flush=True)
+            rows["fused_ln_add"], rows["fused_ln_add.bwd"] = fwd, bwd
+        else:
+            # the other timed shapes ride along in the main rows
+            tag = f"{kind}_{n}x{dm}"
+            rows["fused_ln_add"].update({f"{tag}_ms": f_ms,
+                                         f"{tag}_bound_ms": fb,
+                                         f"{tag}_unfused_ms": unfused})
+            rows["fused_ln_add.bwd"].update({f"{tag}_ms": b_ms,
+                                             f"{tag}_bound_ms": bb_})
     return rows
+
+
+def kernel_breakdown(fn, n=20):
+    """{kernel name: mean device microseconds a call} of ``n`` calls of
+    ``fn`` under torch.profiler (empty when it sees no CUDA kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    short = lambda k: re.sub(  # noqa: E731
+        r"\(.*", "", k.split("(anonymous namespace)::")[-1])
+    return {short(e.key): e.self_device_time_total / n
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+#: fused_ln_add's backward before its redesign (PERF.md section 6), as text
+#: beside the new times
+LN_BWD_BEFORE_MS = {("rmsnorm", 2048, 3072): "0.0460",
+                    ("layernorm", 2048, 768): "0.0442"}
 
 
 def train_tick_phase():
@@ -2886,13 +3078,10 @@ def main():
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],
                  "library_ms": row.get("library_ms")}
-        for extra in ("unfused_ms", "ffn_alone_ms", "attn_alone_ms",
-                      "clean_flush_ms", "wrapper_ms", "library_fwd_bwd_ms",
-                      "no_lead_ms", "few_lanes_ms", "few_lanes_bound_ms",
-                      "decode_tick_ms", "decode_tick_bound_ms",
-                      "decode_tick_no_lead_ms"):
-            if extra in row:
-                entry[extra] = row[extra]
+        # the row's other measurements (times without a lead, other
+        # shapes, parts of a kernel), then its shape
+        entry.update({k: v for k, v in row.items()
+                      if k not in entry and k != "shape"})
         entry["shape"] = row["shape"]
         kernels.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s; engine "

@@ -670,9 +670,10 @@ __device__ __forceinline__ void ffn_block(const Ffn& a, const Maps& maps,
 // (the FFN's ring is 1024-byte aligned inside the dynamic shared memory)
 template <int D>
 constexpr size_t tc_smem_bytes() {
-  return sizeof(ffn_tc::Smem) + 1024 > sizeof(decode_splits::Smem<D>)
+  using Attn = decode_splits::Smem<__nv_bfloat16, D>;
+  return sizeof(ffn_tc::Smem) + 1024 > sizeof(Attn)
              ? sizeof(ffn_tc::Smem) + 1024
-             : sizeof(decode_splits::Smem<D>);
+             : sizeof(Attn);
 }
 
 // Blocks [0, n_tiles): FFN tiles; then the attention items (lane, KV
@@ -701,10 +702,11 @@ dual_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int lanes = ffn.B * Hkv;
   const int b = (a % lanes) / Hkv, hk = a % Hkv;
   const size_t row = (size_t)b * H * D;
-  decode_splits::split_item<D, MG>(
-      q + row, kp, vp, bt + (size_t)b * Tb, seq_lens[b], b, hk, a / lanes,
-      ffn.B, H, Hkv, G, page, Tb, scale, out + row, part_ml, part_acc,
-      *reinterpret_cast<decode_splits::Smem<D>*>(dual_smem));
+  decode_splits::split_item<__nv_bfloat16, D, MG>(
+      q + row, kp, vp, nullptr, nullptr, bt + (size_t)b * Tb, seq_lens[b], b,
+      hk, a / lanes, ffn.B, H, Hkv, G, page, Tb, scale, out + row, part_ml,
+      part_acc,
+      *reinterpret_cast<decode_splits::Smem<__nv_bfloat16, D>*>(dual_smem));
 }
 
 // Blocks [0, n_sum): y = the tiles' partials summed in a fixed order,

@@ -19,16 +19,31 @@
 //
 // Backward: dx per row from dy, x, scale and the saved statistics,
 //   dx = rstd * (g - mean(g) - xhat * mean(g * xhat)),  g = dy * scale
-// (rmsnorm drops the mean(g) term), by a grid of at most kBwdBlocks blocks
-// that stride over the rows; each block sums dy * xhat (and dy) for its
-// rows into per-column fp32 partials in shared memory and writes them out;
-// a second small kernel sums the partials column by column in block order.
-// No atomics: the same bits on every run.  d(a1n) is dy itself (no
-// launch; the wrapper returns it).
+// (rmsnorm drops the mean(g) term), then dscale = sum over rows of
+// dy * xhat (and dbias = sum of dy).  A grid of two blocks an SM (fewer
+// when the rows are fewer) takes rows in a fixed order, block i rows i, i +
+// grid, ...; a block's threads own fixed 16-byte vectors of a row (NV
+// each, a template parameter: at d = 3072 bf16 a row is 384 vectors, two a
+// thread of 192), so a row's x and dy stay in registers from the
+// statistic's pass to the dx pass; a block takes two rows a step (one
+// block-wide sum for both) where a thread holds at most 16 values of a row,
+// and loads the next step's rows while it reduces this one's; the
+// scale is loaded once as vectors, and the dscale / dbias sums of a
+// thread's columns stay in registers over all its rows, in row order.
+// Each block writes them once, as one (d,) fp32 partial row.  A second
+// kernel (a programmatic dependent of the first) sums the partial rows
+// column by column over at least as many blocks as the card has SMs where
+// d allows (16-byte column units of a few columns a block), in a fixed
+// two-level order: each thread sums a strided set of partial rows in row
+// order, then the block adds those sums in a fixed tree.  No atomics: the
+// same bits on every run.  d(a1n) is dy itself (no launch; the wrapper
+// returns it).
 //
 // What bounds it on this card: bytes.  The forward reads x and a1n and
 // writes y (6 bytes a value in bf16, 12 in fp32); at (2048, 3072) bf16
-// that is 37.7 MB, 0.011 ms at 3.35 TB/s.  Nothing is allocated (the
+// that is 37.7 MB, 0.011 ms at 3.35 TB/s; the backward reads x and dy and
+// writes dx, the same bytes, plus its fp32 partial rows (3.2 MB at
+// (2048, 3072) on 132 SMs), read back once.  Nothing is allocated (the
 // wrapper passes the partials' scratch) and nothing synchronises.
 
 #include <cuda_bf16.h>
@@ -36,10 +51,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_common.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 256;
-constexpr int kBwdBlocks = 256;   // at most this many partial rows
+constexpr int kBwdPerSM = 2;       // backward blocks an SM, at most
+constexpr int kRowsAStep = 2;      // rows a backward block reduces at once
+constexpr int kSumThreads = 256;   // threads of a column-sum block
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -141,78 +160,235 @@ ln_add_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a1,
   }
 }
 
-// Partial sums of dy * xhat (and dy) over the rows of this block, then dx.
-// Thread t owns the columns of vectors t, t + blockDim.x, ... in every row,
-// so its shared-memory partials need no synchronisation.
-template <typename T, int VEC, bool LN>
-__global__ void __launch_bounds__(kMaxThreads)
+// Sums over the block of each of v[0..N) (blockDim.x a multiple of 32),
+// in a fixed order; every thread gets them.
+template <int N>
+__device__ __forceinline__ void block_sums(float (&v)[N]) {
+  __shared__ float red[N][32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+  const int wp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();                 // red is free from the last call
+  if (lane == 0)
+#pragma unroll
+    for (int i = 0; i < N; ++i) red[i][wp] = v[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    v[i] = lane < (int)(blockDim.x / 32) ? red[i][lane] : 0.f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+}
+
+// Threads of a backward block, at most: 256, or, with NV = 8 vectors a
+// thread (rows of more than 2048 vectors: d > 2048 at one element a
+// vector, > 4096 at two), the d <= 8192 of the widest row.
+template <int VEC, int NV>
+constexpr int bwd_bound() {
+  return NV < 8 ? kMaxThreads : 8192 / (VEC * NV);
+}
+
+// A thread's NV vectors of one row (vector j = threadIdx.x + k blockDim.x,
+// k < NV; those at or past nv are not read), and the row's statistics.
+template <typename T, int VEC, int NV>
+struct RowRegs {
+  Pack<T, VEC> x[NV], g[NV];
+  float mu, rs;
+};
+
+template <typename T, int VEC, int NV, bool LN>
+__device__ __forceinline__ void load_row(RowRegs<T, VEC, NV>& r,
+                                         const T* __restrict__ x,
+                                         const T* __restrict__ dy,
+                                         const float* __restrict__ mean,
+                                         const float* __restrict__ rstd,
+                                         int row, int rows, int nv, int d) {
+  if (row >= rows) return;
+  const T* xr = x + (size_t)row * d;
+  const T* gr = dy + (size_t)row * d;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int j = threadIdx.x + k * blockDim.x;
+    if (j < nv) {
+      r.x[k] = reinterpret_cast<const Pack<T, VEC>*>(xr)[j];
+      r.g[k] = reinterpret_cast<const Pack<T, VEC>*>(gr)[j];
+    }
+  }
+  r.mu = LN ? mean[row] : 0.f;
+  r.rs = rstd[row];
+}
+
+// Rows of a backward step: R of the block's rows are reduced together (one
+// block-wide sum for all of them) where a thread holds at most 16 values of
+// a row in fewer than 8 vectors; wider shares take one row at a time.
+template <int VEC, int NV>
+__host__ __device__ constexpr int rows_a_step() {
+  return NV < 8 && NV * VEC <= 16 ? kRowsAStep : 1;
+}
+
+// dx of rows blockIdx.x, blockIdx.x + gridDim.x, ..., and this block's
+// partial row of dscale (and dbias) over them, summed in that row order.
+// A step takes R of those rows; the next step's are loaded while this one
+// is reduced, except at 8 vectors a thread (rows wider than 2048
+// vectors), whose registers would spill.
+template <typename T, int VEC, int NV, bool LN>
+__global__ void __launch_bounds__(bwd_bound<VEC, NV>())
 ln_add_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
                   const float* __restrict__ scale,
                   const float* __restrict__ mean,
                   const float* __restrict__ rstd, T* __restrict__ dx,
                   float* __restrict__ part_scale,
                   float* __restrict__ part_bias, int rows, int d) {
-  extern __shared__ float acc[];   // d for dscale, then d for dbias (LN)
+  constexpr int R = rows_a_step<VEC, NV>();
+  constexpr bool kAhead = NV < 8;
+  constexpr int S = LN ? 2 : 1;        // sums a row: g xhat (and g)
+  sm90::launch_dependents();           // the column sums may start now
   const int nv = d / VEC;
-  for (int j = threadIdx.x; j < nv; j += blockDim.x)
+  const int G = gridDim.x;
+  float sc[NV][VEC], ds[NV][VEC], db[NV][VEC];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int j = threadIdx.x + k * blockDim.x;
+    Pack<float, VEC> s{};
+    if (j < nv) s = reinterpret_cast<const Pack<float, VEC>*>(scale)[j];
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
-      acc[j * VEC + i] = 0.f;
-      if (LN) acc[d + j * VEC + i] = 0.f;
-    }
-  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
-    const T* xr = x + (size_t)row * d;
-    const T* gr = dy + (size_t)row * d;
-    const float mu = LN ? mean[row] : 0.f, rs = rstd[row];
-    float s_gx = 0.f, s_g = 0.f;
-    for (int j = threadIdx.x; j < nv; j += blockDim.x) {
-      float xv[VEC], gv[VEC];
-      load<T, VEC>(xr + j * VEC, xv);
-      load<T, VEC>(gr + j * VEC, gv);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const int c = j * VEC + i;
-        const float xh = (xv[i] - mu) * rs;
-        const float g = gv[i] * scale[c];
-        s_gx += g * xh;
-        s_g += g;
-        acc[c] += gv[i] * xh;
-        if (LN) acc[d + c] += gv[i];
-      }
-    }
-    const float m_gx = block_sum(s_gx) / d;
-    const float m_g = LN ? block_sum(s_g) / d : 0.f;
-    T* dr = dx + (size_t)row * d;
-    for (int j = threadIdx.x; j < nv; j += blockDim.x) {
-      float xv[VEC], gv[VEC], out[VEC];
-      load<T, VEC>(xr + j * VEC, xv);
-      load<T, VEC>(gr + j * VEC, gv);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const int c = j * VEC + i;
-        const float xh = (xv[i] - mu) * rs;
-        out[i] = rs * (gv[i] * scale[c] - m_g - xh * m_gx);
-      }
-      store<T, VEC>(dr + j * VEC, out);
+      sc[k][i] = s.v[i];
+      ds[k][i] = 0.f;
+      db[k][i] = 0.f;
     }
   }
-  for (int j = threadIdx.x; j < nv; j += blockDim.x)
+  RowRegs<T, VEC, NV> cur[R];
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      const int c = j * VEC + i;
-      part_scale[(size_t)blockIdx.x * d + c] = acc[c];
-      if (LN) part_bias[(size_t)blockIdx.x * d + c] = acc[d + c];
+  for (int t = 0; t < R; ++t)
+    load_row<T, VEC, NV, LN>(cur[t], x, dy, mean, rstd, blockIdx.x + t * G,
+                             rows, nv, d);
+  for (int base = blockIdx.x; base < rows; base += R * G) {
+    RowRegs<T, VEC, NV> nxt[R];
+    if (kAhead)
+#pragma unroll
+      for (int t = 0; t < R; ++t)
+        load_row<T, VEC, NV, LN>(nxt[t], x, dy, mean, rstd,
+                                 base + (R + t) * G, rows, nv, d);
+    float sums[R * S];
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      float s_gx = 0.f, s_g = 0.f;
+      if (base + t * G < rows) {
+#pragma unroll
+        for (int k = 0; k < NV; ++k) {
+          if (threadIdx.x + k * blockDim.x < nv) {
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) {
+              const float gv = to_f(cur[t].g[k].v[i]);
+              const float xh =
+                  (to_f(cur[t].x[k].v[i]) - cur[t].mu) * cur[t].rs;
+              const float g = gv * sc[k][i];
+              s_gx += g * xh;
+              s_g += g;
+              ds[k][i] += gv * xh;
+              if (LN) db[k][i] += gv;
+            }
+          }
+        }
+      }
+      sums[S * t] = s_gx;
+      if (LN) sums[S * t + S - 1] = s_g;
     }
+    block_sums<R * S>(sums);
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      const int row = base + t * G;
+      const float m_gx = sums[S * t] / d;
+      const float m_g = LN ? sums[S * t + S - 1] / d : 0.f;
+      T* dr = dx + (size_t)row * d;
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int j = threadIdx.x + k * blockDim.x;
+        if (row < rows && j < nv) {
+          Pack<T, VEC> o;
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            const float xh =
+                (to_f(cur[t].x[k].v[i]) - cur[t].mu) * cur[t].rs;
+            o.v[i] = from_f<T>(cur[t].rs *
+                               (to_f(cur[t].g[k].v[i]) * sc[k][i] - m_g -
+                                xh * m_gx));
+          }
+          reinterpret_cast<Pack<T, VEC>*>(dr)[j] = o;
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      if (kAhead)
+        cur[t] = nxt[t];
+      else
+        load_row<T, VEC, NV, LN>(cur[t], x, dy, mean, rstd,
+                                 base + (R + t) * G, rows, nv, d);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int j = threadIdx.x + k * blockDim.x;
+    if (j < nv) {
+      Pack<float, VEC> a, c;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        a.v[i] = ds[k][i];
+        c.v[i] = db[k][i];
+      }
+      reinterpret_cast<Pack<float, VEC>*>(part_scale +
+                                          (size_t)blockIdx.x * d)[j] = a;
+      if (LN)
+        reinterpret_cast<Pack<float, VEC>*>(part_bias +
+                                            (size_t)blockIdx.x * d)[j] = c;
+    }
+  }
 }
 
-// out[c] = sum over p < n of part[p, c], in order of p.
-__global__ void column_sum_kernel(const float* __restrict__ part,
-                                  float* __restrict__ out, int n, int d) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= d) return;
-  float s = 0.f;
-  for (int p = 0; p < n; ++p) s += part[(size_t)p * d + c];
-  out[c] = s;
+// out[c] = the sum over p < n of part[p, c] for the CU column units (U
+// columns each) of block x; blockIdx.y picks (part, out) or (part2, out2).
+// Thread t = rg * CU + cu sums rows rg, rg + RG, ... (RG = kSumThreads /
+// CU) of unit cu in row order; the block then adds the RG sums in a fixed
+// tree (RG a power of two).
+template <int U>
+__global__ void __launch_bounds__(kSumThreads)
+column_sum_kernel(const float* __restrict__ part,
+                  const float* __restrict__ part2, float* __restrict__ out,
+                  float* __restrict__ out2, int n, int d, int CU) {
+  using V = Pack<float, U>;
+  __shared__ V red[kSumThreads];
+  sm90::grid_dependency_wait();        // the backward's partial rows
+  const float* src = blockIdx.y ? part2 : part;
+  float* dst = blockIdx.y ? out2 : out;
+  const int RG = kSumThreads / CU;
+  const int cu = threadIdx.x % CU, rg = threadIdx.x / CU;
+  const int c = (blockIdx.x * CU + cu) * U;     // first column of the unit
+  V s{};
+  if (c < d)
+#pragma unroll 4
+    for (int p = rg; p < n; p += RG) {
+      const V v = *reinterpret_cast<const V*>(src + (size_t)p * d + c);
+#pragma unroll
+      for (int i = 0; i < U; ++i) s.v[i] += v.v[i];
+    }
+  red[threadIdx.x] = s;
+  __syncthreads();
+  for (int h = RG / 2; h > 0; h >>= 1) {
+    if (rg < h) {
+      const V v = red[threadIdx.x + h * CU];
+#pragma unroll
+      for (int i = 0; i < U; ++i) s.v[i] += v.v[i];
+      red[threadIdx.x] = s;
+    }
+    __syncthreads();
+  }
+  if (rg == 0 && c < d) *reinterpret_cast<V*>(dst + c) = s;
 }
 
 int threads_for(int nv) {
@@ -236,40 +412,97 @@ int fwd(const void* x, const void* a1, const float* scale, const float* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+inline bool misaligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes != 0;
+}
+
+// Backward blocks for `rows` rows: kBwdPerSM an SM of `sms`, at most one a
+// row.
+int bwd_blocks(int rows, int sms) {
+  const int cap = kBwdPerSM * sms;
+  return rows < cap ? rows : cap;
+}
+
+int sm_count(int device, int* sms) {
+  return static_cast<int>(cudaDeviceGetAttribute(
+      sms, cudaDevAttrMultiProcessorCount, device));
+}
+
+// Vectors a thread: the fewest of 1, 2, 4 and 8 that keep a row of nv
+// vectors within kMaxThreads threads, else 8.
+int vectors_per_thread(int nv) {
+  int k = 1;
+  while (k < 8 && (nv + k - 1) / k > kMaxThreads) k *= 2;
+  return k;
+}
+
+template <typename T, int VEC, int NV>
+void bwd_rows(const T* dy, const T* x, const float* scale, const float* mean,
+              const float* rstd, T* dx, float* part, float* part_bias,
+              int rows, int d, int ln, int blocks, int threads,
+              cudaStream_t st) {
+  if (ln)
+    ln_add_bwd_kernel<T, VEC, NV, true><<<blocks, threads, 0, st>>>(
+        dy, x, scale, mean, rstd, dx, part, part_bias, rows, d);
+  else
+    ln_add_bwd_kernel<T, VEC, NV, false><<<blocks, threads, 0, st>>>(
+        dy, x, scale, mean, rstd, dx, part, nullptr, rows, d);
+}
+
 template <typename T, int VEC>
 int bwd(const void* dy, const void* x, const float* scale, const float* mean,
         const float* rstd, void* dx, float* dscale, float* dbias,
-        float* part, int rows, int d, int ln, cudaStream_t st) {
-  const int threads = threads_for(d / VEC);
-  const int blocks = rows < kBwdBlocks ? rows : kBwdBlocks;
-  const size_t smem = sizeof(float) * d * (ln ? 2 : 1);
-  float* part_bias = part + (size_t)blocks * d;
+        float* part, int rows, int d, int ln, int sms, cudaStream_t st) {
+  const int blocks = bwd_blocks(rows, sms);
+  const int nv = d / VEC, nvt = vectors_per_thread(nv);
+  const int threads = ((nv + nvt - 1) / nvt + 31) / 32 * 32;
+  float* part_bias = ln ? part + (size_t)blocks * d : nullptr;
   const T* gt = static_cast<const T*>(dy);
   const T* xt = static_cast<const T*>(x);
-  cudaError_t err;
-  if (ln) {
-    err = cudaFuncSetAttribute(ln_add_bwd_kernel<T, VEC, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ln_add_bwd_kernel<T, VEC, true><<<blocks, threads, smem, st>>>(
-        gt, xt, scale, mean, rstd, static_cast<T*>(dx), part, part_bias,
-        rows, d);
-  } else {
-    err = cudaFuncSetAttribute(ln_add_bwd_kernel<T, VEC, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ln_add_bwd_kernel<T, VEC, false><<<blocks, threads, smem, st>>>(
-        gt, xt, scale, mean, rstd, static_cast<T*>(dx), part, nullptr, rows,
-        d);
+  T* dt = static_cast<T*>(dx);
+  switch (nvt) {
+    case 1:
+      bwd_rows<T, VEC, 1>(gt, xt, scale, mean, rstd, dt, part, part_bias,
+                          rows, d, ln, blocks, threads, st);
+      break;
+    case 2:
+      bwd_rows<T, VEC, 2>(gt, xt, scale, mean, rstd, dt, part, part_bias,
+                          rows, d, ln, blocks, threads, st);
+      break;
+    case 4:
+      bwd_rows<T, VEC, 4>(gt, xt, scale, mean, rstd, dt, part, part_bias,
+                          rows, d, ln, blocks, threads, st);
+      break;
+    default:
+      // 8 vectors a thread only for rows of more than 2048 vectors, which
+      // 16-byte vectors of d <= 8192 bf16 values never make
+      if constexpr (VEC < 8)
+        bwd_rows<T, VEC, 8>(gt, xt, scale, mean, rstd, dt, part, part_bias,
+                            rows, d, ln, blocks, threads, st);
+      else
+        return -1;
   }
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int cb = (d + 255) / 256;
-  column_sum_kernel<<<cb, 256, 0, st>>>(part, dscale, blocks, d);
-  if (ln) column_sum_kernel<<<cb, 256, 0, st>>>(part_bias, dbias, blocks, d);
-  return static_cast<int>(cudaGetLastError());
+  // the column sums: 16-byte units where d and the buffers allow; CU units
+  // a block, the most (up to 32) that still give at least `sms` blocks
+  const bool wide = d % 4 == 0 && !misaligned(part, 16) &&
+                    !misaligned(dscale, 16) &&
+                    (!ln || !misaligned(dbias, 16));
+  const int U = wide ? 4 : 1;
+  int CU = 1;
+  while (CU < 32 && (d + 2 * U * CU - 1) / (2 * U * CU) >= sms) CU *= 2;
+  const dim3 grid((d + U * CU - 1) / (U * CU), ln ? 2 : 1);
+  const float* pb = part_bias;
+  err = wide ? sm90::launch_dependent(column_sum_kernel<4>, grid,
+                                      dim3(kSumThreads), 0, st,
+                                      static_cast<const float*>(part), pb,
+                                      dscale, dbias, blocks, d, CU)
+             : sm90::launch_dependent(column_sum_kernel<1>, grid,
+                                      dim3(kSumThreads), 0, st,
+                                      static_cast<const float*>(part), pb,
+                                      dscale, dbias, blocks, d, CU);
+  return static_cast<int>(err);
 }
 
 // The widest vector (16 bytes) that d and every row pointer allow.
@@ -325,39 +558,55 @@ int fused_ln_add_fwd(const void* x, const void* a1, const float* scale,
   }
 }
 
-// Rows of partial sums the backward's scratch needs: min(rows, 256); the
-// scratch is that many (d,) fp32 rows, twice for layernorm.
-int fused_ln_add_bwd_blocks(int rows) {
-  return rows < kBwdBlocks ? rows : kBwdBlocks;
+// Rows of partial sums the backward's scratch needs on `device`: its grid,
+// two blocks an SM, at most one a row (min(rows, 2 SMs)); the scratch is
+// that many (d,) fp32 rows, twice for layernorm.  -1 if the device cannot
+// be queried.
+int fused_ln_add_bwd_blocks(int rows, int device) {
+  int sms = 0;
+  if (sm_count(device, &sms) != 0 || sms <= 0) return -1;
+  return bwd_blocks(rows, sms);
 }
 
 // dy, x (rows, d), scale (d,), mean and rstd from the forward -> dx (rows,
 // d) in x's dtype, dscale (and, for layernorm, dbias) (d,) fp32.  part is
-// the partials' scratch.  Two or three launches; no atomics.
+// the partials' scratch (fused_ln_add_bwd_blocks rows, twice for
+// layernorm).  Two launches; no atomics.
 int fused_ln_add_bwd(const void* dy, const void* x, const float* scale,
                      const float* mean, const float* rstd, void* dx,
                      float* dscale, float* dbias, float* part, int rows,
                      int d, int kind, int is_bf16, int device,
                      void* stream) {
   if (rows == 0) return 0;
-  const int err = check(rows, d, device);
+  int err = check(rows, d, device);
   if (err) return err;
   if (kind == 1 && dbias == nullptr) return -1;
+  int sms = 0;
+  err = sm_count(device, &sms);
+  if (err) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* ptrs[3] = {dy, x, dx};
+  // the scale and the partial rows are read and written as fp32 vectors of
+  // the rows' vector width
+  auto vec_of = [&](int vec) {
+    while (vec > 1 &&
+           (misaligned(scale, 4 * vec) || misaligned(part, 4 * vec)))
+      vec /= 2;
+    return vec;
+  };
   if (is_bf16) {
     using T = __nv_bfloat16;
-    switch (vec_for<T>(d, ptrs, 3)) {
-      case 8: return bwd<T, 8>(dy, x, scale, mean, rstd, dx, dscale, dbias, part, rows, d, kind, st);
-      case 4: return bwd<T, 4>(dy, x, scale, mean, rstd, dx, dscale, dbias, part, rows, d, kind, st);
-      case 2: return bwd<T, 2>(dy, x, scale, mean, rstd, dx, dscale, dbias, part, rows, d, kind, st);
-      default: return bwd<T, 1>(dy, x, scale, mean, rstd, dx, dscale, dbias, part, rows, d, kind, st);
+    switch (vec_of(vec_for<T>(d, ptrs, 3))) {
+      case 8: return bwd<T, 8>(dy, x, scale, mean, rstd, dx, dscale, dbias, part, rows, d, kind, sms, st);
+      case 4: return bwd<T, 4>(dy, x, scale, mean, rstd, dx, dscale, dbias, part, rows, d, kind, sms, st);
+      case 2: return bwd<T, 2>(dy, x, scale, mean, rstd, dx, dscale, dbias, part, rows, d, kind, sms, st);
+      default: return bwd<T, 1>(dy, x, scale, mean, rstd, dx, dscale, dbias, part, rows, d, kind, sms, st);
     }
   }
-  switch (vec_for<float>(d, ptrs, 3)) {
-    case 4: return bwd<float, 4>(dy, x, scale, mean, rstd, dx, dscale, dbias, part, rows, d, kind, st);
-    case 2: return bwd<float, 2>(dy, x, scale, mean, rstd, dx, dscale, dbias, part, rows, d, kind, st);
-    default: return bwd<float, 1>(dy, x, scale, mean, rstd, dx, dscale, dbias, part, rows, d, kind, st);
+  switch (vec_of(vec_for<float>(d, ptrs, 3))) {
+    case 4: return bwd<float, 4>(dy, x, scale, mean, rstd, dx, dscale, dbias, part, rows, d, kind, sms, st);
+    case 2: return bwd<float, 2>(dy, x, scale, mean, rstd, dx, dscale, dbias, part, rows, d, kind, sms, st);
+    default: return bwd<float, 1>(dy, x, scale, mean, rstd, dx, dscale, dbias, part, rows, d, kind, sms, st);
   }
 }
 

@@ -5,8 +5,8 @@
 // of keys it sees.  Bounded by bytes; see paged_common.cuh for the design.
 // The exceptions: the packed and the chunk layouts with bf16 q on bf16, int8
 // or fp8 pages run on the tensor cores (paged_packed_tc.cuh), and the decode
-// layout with bf16 q on bf16 pages runs key splits with a pipelined gather
-// (paged_decode_splits.cuh).
+// layout with bf16 q on the same three page types runs key splits with a
+// pipelined gather (paged_decode_splits.cuh).
 //
 // paged_packed_attention -- replaces the Pallas TPU kernel
 //   src/repro/kernels/paged_attention.py:346 (body _paged_packed_kernel,
@@ -23,10 +23,10 @@
 //   q (B, H, D); block_tables (B, Tb); seq_lens (B,) -> (B, H, D).
 //   Lane b reads table row b, keys k < seq_lens[b]; seq_lens[b] == 0 writes
 //   zeros, as the Pallas kernel does (ref.py's oracle gives the mean of V
-//   there).  Grid (B, Hkv) for fp32 q, fp32 pages or int8 / fp8 pages;
-//   bf16 q on bf16 pages: paged_decode_splits.cuh's (B * Hkv, key splits)
-//   grid and combine kernel over a caller's workspace (the only route for
-//   that pair).
+//   there).  Grid (B, Hkv) for fp32 q or fp32 pages; bf16 q on bf16, int8
+//   or fp8 pages: paged_decode_splits.cuh's (B * Hkv, key splits) grid and
+//   combine kernel over a caller's workspace, chosen by type (the only
+//   route for those pairs).
 //
 // paged_chunk_attention -- replaces src/repro/kernels/paged_attention.py:222
 //   (body _paged_chunk_kernel, :161), with its scale variant.  Oracle
@@ -176,19 +176,28 @@ struct DecodeLaunch {
   }
 };
 
-// bf16 q on bf16 pages: the key-split kernels (a shape they do not take
-// returns -1; nothing falls back to attend_block).
-template <>
-struct DecodeLaunch<__nv_bfloat16, __nv_bfloat16> {
+// bf16 q on bf16, int8 or fp8 e4m3 pages: the key-split kernels (a shape
+// they do not take returns -1; nothing falls back to attend_block).
+template <typename TKV>
+struct SplitDecodeLaunch {
   static int run(const void* q, const void* k, const void* v,
-                 const float* /*ks*/, const float* /*vs*/, const int* bt,
+                 const float* ks, const float* vs, const int* bt,
                  const int* seq_lens, void* out, int B, int H, int Hkv, int D,
                  int page, int Tb, float scale, void* ws, long long bytes,
                  int device, cudaStream_t s) {
-    return decode_splits::launch(q, k, v, bt, seq_lens, out, B, H, Hkv, D,
-                                 page, Tb, scale, ws, bytes, device, s);
+    return decode_splits::launch<TKV>(q, k, v, ks, vs, bt, seq_lens, out, B,
+                                      H, Hkv, D, page, Tb, scale, ws, bytes,
+                                      device, s);
   }
 };
+template <>
+struct DecodeLaunch<__nv_bfloat16, __nv_bfloat16>
+    : SplitDecodeLaunch<__nv_bfloat16> {};
+template <>
+struct DecodeLaunch<__nv_bfloat16, int8_t> : SplitDecodeLaunch<int8_t> {};
+template <>
+struct DecodeLaunch<__nv_bfloat16, __nv_fp8_e4m3>
+    : SplitDecodeLaunch<__nv_fp8_e4m3> {};
 
 // The workspace (ws, bytes) is the tensor-core route's; the attend_block
 // route takes none.
@@ -304,8 +313,8 @@ int paged_packed_plan(const int* tok_slot, const int* tok_pos, int T, int H,
 }
 
 // paged_decode_attention's workspace is device memory of at least
-// paged_decode_workspace_bytes(...) bytes (0 unless bf16 q on bf16 pages
-// whose table can hold more than one key split; null when 0).
+// paged_decode_workspace_bytes(...) bytes (0 unless bf16 q on bf16, int8 or
+// fp8 pages whose table can hold more than one key split; null when 0).
 int paged_decode_attention(const void* q, const void* k, const void* v,
                            const float* ks, const float* vs, const int* bt,
                            const int* seq_lens, void* out, int B, int H,
@@ -325,7 +334,8 @@ int paged_decode_attention(const void* q, const void* k, const void* v,
 long long paged_decode_workspace_bytes(int B, int H, int Hkv, int D,
                                        int page, int Tb, int q_bf16,
                                        int kv_type) {
-  if (!q_bf16 || kv_type != 1 || B <= 0 || Hkv <= 0 || page <= 0 || Tb <= 0)
+  if (!q_bf16 || kv_type < 1 || kv_type > 3 || B <= 0 || Hkv <= 0 ||
+      page <= 0 || Tb <= 0)
     return 0;
   return (long long)decode_splits::workspace_layout(B, H, D, Tb * page)
       .bytes;

@@ -4,8 +4,8 @@
 //   * paged_attention.cu's chunk layout for fp32 q or fp32 pages (bf16 q
 //     on bf16, int8 or fp8 pages runs the tensor cores of
 //     paged_packed_tc.cuh, over chunk items);
-//   * its decode layout for fp32 q, fp32 pages and int8 / fp8 pages (bf16
-//     q on bf16 pages runs the key splits of paged_decode_splits.cuh);
+//   * its decode layout for fp32 q or fp32 pages (bf16 q on bf16, int8 or
+//     fp8 pages runs the key splits of paged_decode_splits.cuh);
 //   * its packed layout for fp32 q or fp32 pages (bf16 q on bf16, int8 or
 //     fp8 pages runs the tensor cores of paged_packed_tc.cuh);
 //   * dual_branch.cu's fused MHA || FFN decode when q, x and the weights or
@@ -36,7 +36,7 @@
 // (query row, KV head) walks all of a long sequence alone, its loads
 // consumed as they are issued (no tile in flight while the last is used):
 // 64 such blocks on 132 SMs took 17.7x the bound on a decode tick (PERF.md),
-// which is why the bf16 decode, packed and chunk routes left it.  The
+// which is why the decode, packed and chunk routes of bf16 q left it.  The
 // design:
 //   * the G query rows that share a KV head live in registers, so each K/V
 //     row is read once for all G heads (GQA reuse) and never re-read;
@@ -48,8 +48,6 @@
 //     addresses; K is consumed from registers, V is staged in shared memory
 //     for the P.V product;
 //   * pages past the last visible key are never touched.
-// The one-byte decode variants are next in line for the key-split design
-// (ROADMAP.md, queue 2).
 #pragma once
 
 #include <cuda_bf16.h>

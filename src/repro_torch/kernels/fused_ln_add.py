@@ -10,9 +10,12 @@ port's backward is a kernel too.
 
 The kernels are ``csrc/fused_ln_add.cu`` (CUDA C++ for ``sm_90a``): the
 forward, one thread block a row, writes y and each row's rstd (and mean);
-the backward writes dx per row and sums dscale (and dbias) from per-block
-fp32 partials in a second launch, with no atomics.  d(a1n) is dy.  What
-bounds them on an H100: bytes (see the source's header).
+the backward, a grid of two blocks an SM taking rows in a fixed order with
+a row's x and dy held in registers, writes dx per row and one fp32 partial
+row of dscale (and dbias) a block, which a second launch sums column by
+column in a fixed two-level order, with no atomics
+(``tests/test_torch_fused_ln_add.py`` emulates that order).  d(a1n) is
+dy.  What bounds them on an H100: bytes (see the source's header).
 
 The plain version is ``ref.ln_add_ref`` (``repro/kernels/ref.py:178``) in
 torch ops; its gradient is autograd through it.  In fp32 it gives the bits
@@ -72,7 +75,7 @@ def _lib():
         # is_bf16, device; stream
         lib.fused_ln_add_bwd.argtypes = [vp] * 9 + [i] * 5 + [vp]
         lib.fused_ln_add_bwd.restype = i
-        lib.fused_ln_add_bwd_blocks.argtypes = [i]
+        lib.fused_ln_add_bwd_blocks.argtypes = [i, i]
         lib.fused_ln_add_bwd_blocks.restype = i
         lib.fused_ln_add_error_string.argtypes = [i]
         lib.fused_ln_add_error_string.restype = ctypes.c_char_p
@@ -151,10 +154,12 @@ def fused_ln_add_bwd_cuda(dy, x, scale, mean, rstd, *, kind="rmsnorm"):
             raise ValueError(f"fused_ln_add kernel: {name} must be "
                              f"({rows},) fp32 on {x.device}")
     lib = _lib()
-    n_parts = lib.fused_ln_add_bwd_blocks(rows)
+    n_parts = lib.fused_ln_add_bwd_blocks(rows, x.device.index)
+    if n_parts < 0:
+        raise RuntimeError(f"fused_ln_add.bwd: cannot query {x.device}")
     ln = kind == "layernorm"
     dx = torch.empty_like(x)
-    dscale = torch.zeros(d, dtype=torch.float32, device=x.device)
+    dscale = torch.empty(d, dtype=torch.float32, device=x.device)
     dbias = torch.empty_like(dscale) if ln else None
     part = torch.empty(((2 if ln else 1) * max(n_parts, 1), d),
                        dtype=torch.float32, device=x.device)

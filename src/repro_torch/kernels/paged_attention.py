@@ -32,15 +32,17 @@ One thread block per (query row, KV head) holds the G query rows in
 registers, walks the pages in a loop with vector loads and never touches a
 page past the last visible key (see the sources' headers).
 
-The decode kernel with bf16 q on bf16 pages (the padded serving path's
-pair) runs key splits with a pipelined gather instead
+The decode kernel with bf16 q on bf16, int8 or fp8 pages (the padded
+serving path's pairs) runs key splits with a pipelined gather instead
 (``csrc/paged_decode_splits.cuh``): a fixed grid of (lane, KV head, split
 of ``split_keys(Tb * page)`` keys) items, each gathering 64-key K/V tiles
-through the block table by cp.async into a three-stage ring and computing
-in fp32 on the CUDA cores; a lane with more than one split is merged by a
-combine kernel in split order from fp32 partials in a workspace the wrapper
-allocates (``paged_decode_workspace_bytes`` sizes it); the other pairs keep
-the attention block.
+(raw bytes and their row scales on one-byte pages) through the block table
+by cp.async into a ring and computing in fp32 on the CUDA cores (one-byte
+values widened exactly, the scales folded into the scores and into P); a
+lane with more than one split is merged by a combine kernel in split order
+from fp32 partials in a workspace the wrapper allocates
+(``paged_decode_workspace_bytes`` sizes it); fp32 q or fp32 pages keep the
+attention block.
 
 The packed kernel with bf16 q on bf16, int8 or fp8 pages (the engine's
 type pairs) runs on the tensor cores instead (``csrc/paged_packed_tc.cuh``):
@@ -509,7 +511,8 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, seq_lens,
     if B == 0:
         return out
     lib = _lib()
-    # the key-split route's partials (bf16 q on bf16 pages, several splits)
+    # the key-split route's partials (bf16 q on bf16, int8 or fp8 pages,
+    # several splits)
     ws = _workspace(lib.paged_decode_workspace_bytes, q, k_pages,
                     block_tables)
     _launch(lib, "paged_decode_attention", q, k_pages, k_scale,

@@ -1,19 +1,24 @@
-"""The key-split paged decode attention of bf16 q on bf16 pages
-(``csrc/paged_decode_splits.cuh``: items of (lane, KV head, key split),
-64-key tiles, an online softmax per item, fp32 partials merged in split
-order) emulated in torch on the CPU, against the JAX package's Pallas
-decode kernel (interpret mode) and its oracle (``ref.py``
-``paged_attention_ref``), on the edge lanes the card's checks use; and the
-split rule against ``split_keys``, the packed kernel's.
+"""The key-split paged decode attention of bf16 q on bf16, int8 and fp8
+pages (``csrc/paged_decode_splits.cuh``: items of (lane, KV head, key
+split), 64-key tiles, an online softmax per item, fp32 partials merged in
+split order) emulated in torch on the CPU, against the JAX package's Pallas
+decode kernel (interpret mode, with its k_scale / v_scale variant) and its
+oracle (``ref.py`` ``paged_attention_ref``), on the edge lanes the card's
+checks use and on one lane of odd H over three splits; and the split rule
+against ``split_keys``, the packed kernel's.
 
 The emulation follows the kernel's arithmetic: fp32 scores times the scale,
 the reference's -1e30 mask, expf, acc * alpha + p v, a lane whose keys lie
 in one split written by its item, the others merged as sum_s w_s acc_s /
 sum_s w_s l_s with w_s = exp(m_s - max m), the output rounded to bf16 once.
+On one-byte pages (pools quantized by the port's ``_quant_rows``) the
+scales are folded as the kernel folds them: a score is ((q . k_raw) ks)
+scale, P.V takes p vs, l sums p.
 Tolerances: on fp32 values the emulation is the oracle's arithmetic in
 another order, so 1e-5; with bf16 inputs and the output's rounding,
 ``chip_smoke.py``'s ``ATTN_TOLS`` for bf16, 2e-2 (one bf16 ulp of outputs
 below 4)."""
+import itertools
 import math
 import pathlib
 import re
@@ -28,6 +33,7 @@ import torch  # noqa: E402
 from repro.kernels import paged_attention as RPA  # noqa: E402
 from repro.kernels import ref as RREF  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.models.attention import _quant_rows  # noqa: E402
 
 TOL_FP32 = 1e-5
 TOL_BF16 = 2e-2
@@ -72,11 +78,12 @@ def split_ranges(seq_len, max_keys):
 
 
 def emulate_decode_splits(q, k_pages, v_pages, block_tables, seq_lens, *,
-                          round_bf16=True):
+                          round_bf16=True, k_scale=None, v_scale=None):
     """The kernel's arithmetic, item by item: fp32 (B, H, D) output,
-    rounded to bf16 where the kernel rounds it with ``round_bf16``.  Also
-    returns the number of lanes written directly and through the
-    combine."""
+    rounded to bf16 where the kernel rounds it with ``round_bf16``.
+    One-byte pages come as their values in fp32 with (P, page)
+    ``k_scale`` / ``v_scale``.  Also returns the number of lanes written
+    directly and through the combine."""
     B, H, D = q.shape
     _, page, Hkv, _ = k_pages.shape
     G, Tb = H // Hkv, block_tables.shape[1]
@@ -102,12 +109,17 @@ def emulate_decode_splits(q, k_pages, v_pages, block_tables, seq_lens, *,
                     rows = pages[keys // page] * page + keys % page
                     kt = k_pages.reshape(-1, Hkv, D)[rows, hk]
                     vt = v_pages.reshape(-1, Hkv, D)[rows, hk]
-                    s = (qr @ kt.T) * scale
+                    s = qr @ kt.T
+                    if k_scale is not None:       # ((q . k_raw) ks) scale
+                        s = s * k_scale.reshape(-1)[rows][None]
+                    s = s * scale
                     m_new = torch.maximum(m, s.max(-1).values)
                     p = torch.exp(s - m_new[:, None])
                     alpha = torch.exp(m - m_new)
                     l = l * alpha + p.sum(-1)
-                    acc = acc * alpha[:, None] + p @ vt
+                    pv = p if v_scale is None else \
+                        p * v_scale.reshape(-1)[rows][None]
+                    acc = acc * alpha[:, None] + pv @ vt
                     m = m_new
                 parts.append((m, l, acc))
             if len(parts) == 1:
@@ -163,6 +175,81 @@ def test_split_items_match_pallas_and_oracle(page, Tb, G, D):
                                atol=TOL_FP32, rtol=0)
 
 
+KV_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+def _quant_case(kv, page, Tb, G, D, seed, lens=None, Hkv=HKV):
+    """The inputs of ``_case`` (or one-lane ``lens``) with fp32 K/V pools
+    quantized by the port's ``_quant_rows`` to ``kv`` pages: (port args,
+    the pools' values in fp32, the scales, the reference's numpy pools in
+    their own dtypes)."""
+    rng = np.random.default_rng(seed)
+    seq_lens = np.array(lens or _lanes(Tb * page), np.int32)
+    B = len(seq_lens)
+    P = B * Tb + 1
+    bt = (rng.permutation(np.arange(1, P))[:B * Tb].reshape(B, Tb)
+          .astype(np.int32))
+    q = _bf16(torch.from_numpy(
+        rng.standard_normal((B, G * Hkv, D)).astype(np.float32)))
+    dt = KV_DTYPES[kv]
+    pools, values, scales, ref = [], [], [], []
+    for _ in range(2):
+        x = torch.from_numpy(
+            rng.standard_normal((P, page, Hkv, D)).astype(np.float32))
+        codes, sc = _quant_rows(x, dt)
+        pool = codes.to(dt)
+        pools.append(pool)
+        values.append(pool.float())
+        scales.append(sc.contiguous())
+        raw = pool.view(torch.uint8).numpy()
+        ref.append(raw.view(jnp.float8_e4m3fn) if kv == "fp8"
+                   else pool.numpy())
+    args = (q, *pools, torch.from_numpy(bt), torch.from_numpy(seq_lens))
+    return args, values, scales, ref
+
+
+#: (page, Tb, G, D, lanes, Hkv) of the one-byte cases: two of CASES (edge
+#: lanes) and one lane of G = 3 over a 768-key table (three splits), whose
+#: partials' count is odd
+QUANT_CASES = [(16, 40, 3, 64, None, HKV), (8, 80, 3, 128, None, HKV),
+               (16, 48, 3, 128, [700], 1)]
+
+
+@pytest.mark.parametrize("kv", sorted(KV_DTYPES))
+@pytest.mark.parametrize("page,Tb,G,D,lanes,Hkv", QUANT_CASES)
+def test_one_byte_split_items_match_pallas_and_oracle(kv, page, Tb, G, D,
+                                                      lanes, Hkv):
+    args, (kf, vf), (ks, vs), (kr, vr) = _quant_case(
+        kv, page, Tb, G, D, seed=page * G + D, lens=lanes, Hkv=Hkv)
+    q, _, _, bt, seq_lens = args
+    jq, jbt, jsl = (jnp.asarray(t.numpy()) for t in (q, bt, seq_lens))
+    jsc = dict(k_scale=jnp.asarray(ks.numpy()),
+               v_scale=jnp.asarray(vs.numpy()))
+    jk, jv = jnp.asarray(kr), jnp.asarray(vr)
+    pallas = torch.from_numpy(np.array(RPA.paged_decode_attention(
+        jq, jk, jv, jbt, jsl, **jsc, interpret=True)))
+    oracle = torch.from_numpy(np.array(_REF(jq, jk, jv, jbt, jsl, **jsc)))
+    live = seq_lens > 0
+    exact, _, n_combined = emulate_decode_splits(
+        q, kf, vf, bt, seq_lens, round_bf16=False, k_scale=ks, v_scale=vs)
+    assert n_combined == (4 if lanes is None else 1)
+    np.testing.assert_allclose(exact.numpy(), pallas.numpy(), atol=TOL_FP32,
+                               rtol=0)
+    np.testing.assert_allclose(exact[live].numpy(), oracle[live].numpy(),
+                               atol=TOL_FP32, rtol=0)
+    emu, _, _ = emulate_decode_splits(q, kf, vf, bt, seq_lens, k_scale=ks,
+                                      v_scale=vs)
+    assert torch.equal(emu[~live], torch.zeros_like(emu[~live]))
+    for want in (pallas, oracle):
+        err = (emu[live] - want[live]).abs().max().item()
+        assert err <= TOL_BF16, err
+    # and the port's plain version on the one-byte pools themselves
+    plain = PA.paged_decode_attention_plain(q, *args[1:], k_scale=ks,
+                                            v_scale=vs)
+    np.testing.assert_allclose(exact[live].numpy(), plain[live].numpy(),
+                               atol=TOL_FP32, rtol=0)
+
+
 @pytest.mark.parametrize("max_keys", [64, 96, 256, 512, 640, 1000, 2048,
                                       4096, 32768])
 def test_split_ranges_cover_every_key_once(max_keys):
@@ -208,6 +295,28 @@ def test_emulation_handles_lengths_past_the_table():
     b, _, _ = emulate_decode_splits(q, kp, vp, bt, longer)
     assert torch.equal(a, b)
     assert math.isfinite(b.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_one_byte_split_kernel_matches_the_emulation_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card: python3 "
+                    "chip_smoke.py or pytest -m cuda)")
+    for kv, (page, Tb, G, D, lanes, Hkv) in itertools.product(
+            sorted(KV_DTYPES), QUANT_CASES):
+        args, (kf, vf), (ks, vs), _ = _quant_case(kv, page, Tb, G, D,
+                                                  seed=1, lens=lanes, Hkv=Hkv)
+        card = [a.cuda() for a in args]
+        card[0] = card[0].to(torch.bfloat16)
+        sc = dict(k_scale=ks.cuda(), v_scale=vs.cuda())
+        out = PA.paged_decode_attention(*card, **sc).float().cpu()
+        again = PA.paged_decode_attention(*card, **sc).float().cpu()
+        emu, _, _ = emulate_decode_splits(args[0], kf, vf, *args[3:],
+                                          k_scale=ks, v_scale=vs)
+        assert (out - emu).abs().max().item() <= TOL_BF16
+        assert torch.equal(out, again)
+        dead = args[4] == 0
+        assert torch.equal(out[dead], torch.zeros_like(out[dead]))
 
 
 @pytest.mark.cuda

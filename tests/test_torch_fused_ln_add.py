@@ -1,13 +1,18 @@
 """The port's fused LN-add module: its plain version against
 ``ref.ln_add_ref`` and the Pallas kernel in interpret mode (rmsnorm and
-layernorm, fp32 and bf16), its gradients against ``jax.grad``, FAL's MLP
-inputs in ``core/fal.py`` (which now run it) against the reference's for all
-six connection modes, and (on a card only) the CUDA kernels against the
-plain version.
+layernorm, fp32 and bf16), its gradients against ``jax.grad``, the backward
+kernel's reduction order (``csrc/fused_ln_add.cu``: per-block partial rows
+over a fixed set of rows, then column sums in a fixed two-level order)
+emulated in torch against ``jax.grad``, FAL's MLP inputs in ``core/fal.py``
+(which now run it) against the reference's for all six connection modes,
+and (on a card only) the CUDA kernels against the plain version.
 
 Tolerances: fp32 1e-6 (one rsqrt and a few products, values of order 1);
 bf16 one bf16 ulp of the largest output (the same fp32 value rounded once
 on each side, after sums in another order)."""
+import pathlib
+import re
+
 import numpy as np
 import pytest
 
@@ -85,6 +90,91 @@ def test_gradients_match_jax_grad(kind):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
                                    atol=1e-4 if leaf.dim() == 1 else 1e-5,
                                    rtol=0)
+
+
+def _bwd_constants():
+    """The backward's grid and column-sum constants from its source."""
+    src = (pathlib.Path(LN.__file__).parent / "csrc" / "fused_ln_add.cu")
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);",
+                            src.read_text()))
+    return {k: int(const[k]) for k in ("kBwdPerSM", "kSumThreads",
+                                       "kMaxThreads")}
+
+
+def emulate_ln_add_bwd(dy, x, scale, kind, *, sms, eps=1e-6):
+    """The backward kernels' arithmetic and order on fp32 (rows, d) inputs,
+    for a card of ``sms`` SMs: dx per row; block i of min(rows, kBwdPerSM x
+    sms) sums dy * xhat (and dy) over rows i, i + grid, ... in row order
+    into its partial row; the column sums add partial rows rg, rg + RG, ...
+    in order (RG = kSumThreads / CU, CU the column units of a block: the
+    most, up to 32, that leave at least ``sms`` blocks), then the RG sums
+    in a halving tree.  Returns (dx, dscale, dbias)."""
+    c = _bwd_constants()
+    rows, d = x.shape
+    ln = kind == "layernorm"
+    mu = x.mean(-1) if ln else torch.zeros(rows)
+    xc = x - mu[:, None]
+    rs = torch.rsqrt((xc * xc).mean(-1) + eps)
+    xh = xc * rs[:, None]
+    g = dy * scale
+    m_gx = (g * xh).sum(-1) / d
+    m_g = g.sum(-1) / d if ln else torch.zeros(rows)
+    dx = rs[:, None] * (g - m_g[:, None] - xh * m_gx[:, None])
+    grid = min(rows, c["kBwdPerSM"] * sms)
+    U = 4 if d % 4 == 0 else 1
+    CU = 1
+    while CU < 32 and -(-d // (2 * U * CU)) >= sms:
+        CU *= 2
+    RG = c["kSumThreads"] // CU
+
+    def reduce(terms):
+        part = torch.zeros(grid, d)
+        for r0 in range(0, rows, grid):        # each block's next row
+            n = min(grid, rows - r0)
+            part[:n] += terms[r0:r0 + n]
+        sums = torch.zeros(RG, d)
+        for p0 in range(0, grid, RG):          # each thread's next row
+            n = min(RG, grid - p0)
+            sums[:n] += part[p0:p0 + n]
+        h = RG // 2
+        while h:
+            sums[:h] += sums[h:2 * h]
+            h //= 2
+        return sums[0]
+
+    return dx, reduce(dy * xh), reduce(dy) if ln else None
+
+
+@pytest.mark.parametrize("kind,rows,d", [("rmsnorm", 600, 3072),
+                                         ("layernorm", 37, 96),
+                                         ("layernorm", 300, 1001)])
+def test_backward_reduction_order_matches_jax_grad(kind, rows, d):
+    """The kernel's order (grid of 264 partial rows on a 132-SM card, or
+    fewer rows than that; 16-byte and one-column units) against jax.grad
+    of ln_add_ref: dx within 1e-5, dscale / dbias within 1e-4 (sums of a
+    few hundred order-1 products in another order)."""
+    x, a1, scale, bias, dy = _case(kind, rows=rows, d=d, seed=rows)
+    args = [x, a1, scale] + ([bias] if bias is not None else [])
+
+    def ref_loss(*a):
+        b = a[3] if len(a) > 3 else None
+        return jnp.sum(RREF.ln_add_ref(a[0], a[1], a[2], b, kind=kind)
+                       * jnp.asarray(dy))
+    want = jax.grad(ref_loss, argnums=(0, 2) + ((3,) if bias is not None
+                                                else ()))(
+        *map(jnp.asarray, args))
+    got = emulate_ln_add_bwd(*(torch.from_numpy(t) for t in (dy, x, scale)),
+                             kind, sms=132)
+    for g, w, tol in zip(got, want, (1e-5, 1e-4, 1e-4)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=tol,
+                                   rtol=0)
+
+
+def test_backward_constants():
+    """Two blocks an SM, 256-thread rows and column-sum blocks: the numbers
+    the emulation above and chip_smoke.py's timing notes assume."""
+    assert _bwd_constants() == {"kBwdPerSM": 2, "kSumThreads": 256,
+                                "kMaxThreads": 256}
 
 
 def _norm_params(rng, d, kind):
@@ -172,7 +262,8 @@ def test_kernels_match_plain_on_card():
         pytest.skip("needs a CUDA device (runs on the card: python3 "
                     "chip_smoke.py or pytest -m cuda)")
     for kind, rows, d in (("rmsnorm", 64, 3072), ("layernorm", 37, 768),
-                          ("rmsnorm", 5, 1001)):
+                          ("rmsnorm", 5, 1001), ("rmsnorm", 600, 3072),
+                          ("layernorm", 300, 1001)):
         x, a1, scale, bias, dy = (None if t is None else
                                   torch.from_numpy(t).cuda()
                                   for t in _case(kind, rows, d))
@@ -183,7 +274,14 @@ def test_kernels_match_plain_on_card():
                                                  kind=kind)
         dx, dscale, _ = LN.fused_ln_add_bwd_cuda(dy, x, scale, mean, rstd,
                                                  kind=kind)
+        again = LN.fused_ln_add_bwd_cuda(dy, x, scale, mean, rstd,
+                                         kind=kind)
+        emu = emulate_ln_add_bwd(dy.cpu(), x.cpu(), scale.cpu(), kind,
+                                 sms=torch.cuda.get_device_properties(
+                                     0).multi_processor_count)
         torch.cuda.synchronize()
         assert (y - ref).abs().max().item() <= 1e-5
         assert (dx - leaves[0].grad).abs().max().item() <= 1e-4
         assert (dscale - leaves[1].grad).abs().max().item() <= 1e-3
+        assert torch.equal(dx, again[0]) and torch.equal(dscale, again[1])
+        assert (dscale.cpu() - emu[1]).abs().max().item() <= 1e-4

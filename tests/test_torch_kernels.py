@@ -166,9 +166,10 @@ def test_flash_attention_build_hashes_the_hopper_header(tmp_path,
     """flash_attention.cu includes csrc/sm90_common.cuh (the TMA, mbarrier
     and wgmma helpers of its bf16 kernels), and so do paged_attention.cu
     through csrc/paged_packed_tc.cuh (the tensor-core packed kernel) and
-    csrc/paged_decode_splits.cuh (the bf16 key-split decode), and
-    dual_branch.cu (its TMA-fed FFN and the key-split items): editing that
-    header rebuilds those three libraries and no other."""
+    csrc/paged_decode_splits.cuh (the key-split decode), dual_branch.cu (its
+    TMA-fed FFN and the key-split items) and fused_ln_add.cu (the
+    backward's programmatic dependent launch): editing that header rebuilds
+    those four libraries and no other."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
@@ -178,7 +179,7 @@ def test_flash_attention_build_hashes_the_hopper_header(tmp_path,
     before = {n: build.library_path(n) for n in names}
     header.write_text(header.read_text() + "\n// edited\n")
     assert {n for n in names if build.library_path(n) != before[n]} == \
-        {"flash_attention", "paged_attention", "dual_branch"}
+        {"flash_attention", "paged_attention", "dual_branch", "fused_ln_add"}
 
 
 def test_build_keeps_the_ptxas_report_beside_the_library(tmp_path,
