@@ -14,8 +14,9 @@ script exits non-zero:
                  D = 128), of the tensor-core attention and combine
                  kernels over packed and chunk items (bf16, int8 and fp8
                  pages), of the key-split decode kernels (bf16, int8 and
-                 fp8 pages) and of the bf16 fused grid and its finishing
-                 kernel (none of these may spill)
+                 fp8 pages), of the bf16 fused grid and its finishing
+                 kernel, of the LN-add forward at the port's shapes and of
+                 the page copy (none of these may spill)
   3. kernel      each kernel against its plain PyTorch version at the
                  main path's shapes (and small shapes), bf16 and fp32; the
                  tensor-core packed kernel (bf16 q on bf16, int8 and fp8
@@ -37,24 +38,29 @@ script exits non-zero:
                  fp32 q on int8 pages), fused and chunk calls still on the
                  CUDA-core kernels (profiled by name); the dual-branch
                  dispatcher's two-op route;
-                 page_copy byte for byte; the
+                 page_copy byte for byte (one pool a launch; the whole
+                 cache of bf16 and of int8 pages with scales in one launch
+                 at n = 1, 3 with a repeated src and past the cap); the
                  int8 / fp8 scale variants of the three paged attention
                  kernels; flash_attention forward and backward
                  (bf16: the tensor-core kernels, fp32: the CUDA-core ones;
                  also against autograd through the plain forward, and
                  bit-identical over two runs) and fused_ln_add forward and
-                 backward
+                 backward (the forward's y also without its statistics, and
+                 its first rows in calls of 8 and of 1 row, bit-identical)
   4. time        kernel, plain and bound times (median of 100 launches,
                  CUDA events, L2 flushed between launches; the packed
                  kernel on a mixed and a decode-only tick; the decode,
                  chunk and fused kernels beside their times before the
                  redesign, the fused one also with its FFN blocks alone,
                  its attention items alone and its two-op route); one COW at
-                 llama3.2-3b beside index_copy_; the training kernels beside
+                 llama3.2-3b (one launch, with a lead and without) and 64
+                 pages beside index_copy_; the training kernels beside
                  scaled_dot_product_attention and F.rms_norm + add (flash:
                  also TFLOP/s and share of the bound; fused_ln_add also at
-                 the engine's 263 rows and with fewer rows than the
-                 backward's grid)
+                 the engine's 263 rows, the padded decode's 8 rows and with
+                 fewer rows than the backward's grid, the forward also
+                 without its statistics and after a read flush)
   5. tick        one packed tick (bf16, int8 and fp8 pages), one padded
                  C = 128 chunk tick and one dual-branch C == 1 tick of
                  llama3.2-3b at full width (2 layers, fp32) on the card
@@ -365,7 +371,91 @@ def build_phase():
     require(all(sp == 0 for _, sp in list(split.values())
                 + list(dual.values())),
             "a key-split decode or bf16 fused kernel spills")
+    # the LN-add forward over (dtype, vector width, vectors a thread, kind):
+    # every instantiation built, none of the port's shapes may spill; and
+    # the cache-wide page copy, which may not spill
+    fwd = ln_fwd_kernels(build.PTXAS_LOG.get("fused_ln_add", ""))
+    want = {(t, vec, nv, kind) for t, vecs in (("bf16", (8, 4, 2, 1)),
+                                               ("fp32", (4, 2, 1)))
+            for vec in vecs for nv in (1, 2, 3) + {4: (4,), 2: (4, 8),
+                                                   1: (4, 8, 16)}.get(vec, ())
+            for kind in ("rmsnorm", "layernorm")}
+    require(set(fwd) == want, f"ptxas reported {len(fwd)} forward LN-add "
+            f"kernels, not the {len(want)} instantiations")
+    main = {ln_fwd_instance(kind, d, t) for kind, _, d in LN_SHAPES
+            for t in ("bf16", "fp32")}
+    for key in sorted(main):
+        regs, spilled = fwd[key]
+        print(f"  fused_ln_add forward {key[0]} VEC={key[1]} NV={key[2]} "
+              f"{key[3]}: {regs} registers, {spilled} bytes spilled")
+    rare = sorted(k for k, (_, sp) in fwd.items() if sp and k not in main)
+    print(f"  fused_ln_add forward instantiations no shape of the port "
+          f"takes that spill: {rare or 'none'}")
+    copy = entry_stats(build.PTXAS_LOG.get("page_copy", ""),
+                       "page_copy_kernel")
+    print(f"  page_copy: {len(copy)} kernel(s), "
+          f"{sorted(copy.values())} (registers, bytes spilled)")
+    require(len(copy) == 1, "ptxas reported no page_copy kernel")
+    require(all(fwd[k][1] == 0 for k in main)
+            and all(sp == 0 for _, sp in copy.values()),
+            "a forward LN-add kernel of the port's shapes or the page-copy "
+            "kernel spills")
     sys.stdout.flush()
+
+
+def ln_fwd_instance(kind, d, dtype):
+    """(dtype, VEC, NV, kind) of the forward LN-add kernel a row of width d
+    launches (``fwd_row_threads`` and ``fwd`` in csrc/fused_ln_add.cu, on
+    allocator-aligned tensors): 16-byte vectors where d allows, one warp a
+    row of at most 96 vectors, else 32 ceil(nv / 64) threads (at most
+    512), NV = ceil(nv / threads) rounded up to 1, 2, 3, 4, 8 or 16."""
+    vec = 8 if dtype == "bf16" else 4
+    while d % vec:
+        vec //= 2
+    nv = d // vec
+    threads = 32 if nv <= 96 else 32 * min(-(-nv // 64), 16)
+    nvt = -(-nv // threads)
+    return dtype, vec, min(n for n in (1, 2, 3, 4, 8, 16) if n >= nvt), kind
+
+
+def entry_stats(log, name):
+    """{mangled entry: (registers, bytes spilled)} of the kernels whose
+    mangled name holds ``name``, from ptxas -v's report."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1) if name in m.group(1) else None
+            if cur:
+                out[cur] = [0, 0]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur][0] = int(m.group(1))
+            cur = None
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def ln_fwd_kernels(log):
+    """{(dtype, VEC, NV, kind): (registers, bytes spilled)} of the forward
+    LN-add kernel template ``ln_add_fwd_kernel<T, VEC, NV, LN>`` from
+    ptxas -v's report."""
+    kern = re.compile(r"17ln_add_fwd_kernelI(13__nv_bfloat16|f)Li(\d+)ELi"
+                      r"(\d+)ELb([01])E")
+    out = {}
+    for name, stats in entry_stats(log, "ln_add_fwd_kernel").items():
+        k = kern.search(name)
+        if k:
+            out[("fp32" if k.group(1) == "f" else "bf16", int(k.group(2)),
+                 int(k.group(3)),
+                 "layernorm" if k.group(4) == "1" else "rmsnorm")] = stats
+    return out
 
 
 #: registers of the bf16 key-split decode kernels for G <= 4 before they
@@ -379,17 +469,7 @@ SPLIT_BF16_REGS = {("split_kernel", "bf16", 128, 4): 120,
 def spilling_kernels(log):
     """[(mangled kernel name, bytes spilled)] of the kernels in a ptxas -v
     report that spill."""
-    out, cur = [], None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            cur = m.group(1)
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and cur and int(m.group(1)) + int(m.group(2)):
-            out.append((cur, int(m.group(1)) + int(m.group(2))))
-    return out
+    return [(k, sp) for k, (_, sp) in entry_stats(log, "").items() if sp]
 
 
 #: mangled page type of a tensor-core packed attention kernel -> its name
@@ -1147,11 +1227,17 @@ def scale_kernel_phase():
 
 def page_copy_phase():
     """The page-copy kernel against its plain version on copies of the same
-    pool, byte for byte (``torch.equal`` on uint8 views): bf16, int8, fp8
-    and fp32 scale pools, the stacked (27, P, ...) view with per-layer
-    offsets, n = 1 and n = 64, repeated src, and a page whose byte size
-    takes the element path.  Returns 0.0, the error of a byte-exact copy."""
+    pools, byte for byte (``torch.equal`` on uint8 views): one pool a
+    launch (bf16, int8, fp8 and fp32 scale pools, n = 1 and n = 64,
+    repeated src, and a page whose byte size takes the byte path); then
+    the cache-wide launch of ``copy_paged_pages`` on llama3.2-3b caches of
+    bf16 and of int8 pages with their scales against the plain version leaf
+    by leaf, at n = 1, at n = 3 with a repeated src and at more pairs than
+    one launch takes, with its launches counted.  Returns 0.0, the error of
+    a byte-exact copy."""
+    from repro_torch.configs.base import get_config
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import model as M
     phase("kernel vs plain: page_copy (byte-exact)")
     g = torch.Generator(device="cuda").manual_seed(21)
     P = 256
@@ -1167,33 +1253,62 @@ def page_copy_phase():
         "fp8 (P, 16, 8, 128)": randn(g, torch.float32, P, PAGE, HKV, D).to(
             torch.float8_e4m3fn),
         "fp32 scales (P, 16)": randn(g, torch.float32, P, PAGE),
-        "int8 (P, 3, 5) (element path)": (randn(g, torch.float32, P, 3, 5)
-                                          * 40).clamp(-127, 127).to(
-                                              torch.int8),
+        "int8 (P, 3, 5) (byte path)": (randn(g, torch.float32, P, 3, 5)
+                                       * 40).clamp(-127, 127).to(
+                                           torch.int8),
     }
     for name, pool in pools.items():
         for label, (src, dst) in pairs.items():
             a, b = pool.clone(), pool.clone()
-            PA.page_copy_cuda(a, src, dst)
+            PA.LAUNCHES["page_copy"] = 0
+            PA.page_copy(a, src, dst)
+            launched = PA.LAUNCHES["page_copy"]
             PA.copy_pages_plain(b, src, dst)
             torch.cuda.synchronize()
             ok = torch.equal(a.view(torch.uint8), b.view(torch.uint8))
-            print(f"  {name} {label}: byte-equal {ok}", flush=True)
-            require(ok, f"page_copy differs from its plain version: {name} "
-                    f"{label}")
-    stacked = randn(g, torch.bfloat16, 27, 64, PAGE, HKV, D)
-    src, dst = [5, 9], [17, 40]
-    a, b = stacked.clone(), stacked.clone()
-    flat = a.view((27 * 64,) + tuple(a.shape[2:]))
-    PA.page_copy_cuda(flat, [s + i * 64 for i in range(27) for s in src],
-                      [d + i * 64 for i in range(27) for d in dst])
-    b[:, dst] = b[:, src]
-    torch.cuda.synchronize()
-    ok = torch.equal(a.view(torch.uint8), b.view(torch.uint8))
-    print(f"  stacked bf16 (27, 64, 16, 8, 128) viewed as 1728 pages, "
-          f"pairs {list(zip(src, dst))} in every layer: byte-equal {ok}",
-          flush=True)
-    require(ok, "page_copy on the stacked view differs")
+            print(f"  {name} {label}: byte-equal {ok}, {launched} launch",
+                  flush=True)
+            require(ok and launched == 1, f"page_copy differs from its "
+                    f"plain version: {name} {label}")
+    cfg = get_config("llama3.2-3b")
+    P, cap = 640, PA.COPY_MAX_PAIRS
+    over = cap + 44
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(5))
+    perm = (perm + 1).tolist()
+    cases = {"n=1": ([perm[0]], [perm[1]]),
+             "n=3, repeated src": ([perm[0], perm[2], perm[0]], perm[3:6]),
+             f"n={over} (above the cap of {cap})": (perm[:over],
+                                                   perm[over:2 * over])}
+    for kv in ("", "int8"):
+        cache = M.init_paged_cache(cfg, P, PAGE, 8, "bfloat16", kv_dtype=kv)
+        for part in ("block0", "blocks"):
+            for pool in cache[part].values():
+                flat = pool.view(torch.uint8)
+                flat.copy_(torch.randint(0, 256, flat.shape, generator=g,
+                                         device="cuda", dtype=torch.uint8))
+        leaves = [(p, False) for p in cache["block0"].values()] \
+            + [(p, True) for p in cache["blocks"].values()]
+        for label, (src, dst) in cases.items():
+            want = [pool.clone() for pool, _ in leaves]
+            for w, (_, stacked) in zip(want, leaves):
+                PA.copy_pages_plain(w, src, dst, stacked=stacked)
+            sig = cache["a1_sig"].clone()
+            PA.LAUNCHES["page_copy"] = 0
+            M.copy_paged_pages(cache, src, dst)
+            launched = PA.LAUNCHES["page_copy"]
+            torch.cuda.synchronize()
+            ok = all(torch.equal(w.view(torch.uint8), pool.view(torch.uint8))
+                     for w, (pool, _) in zip(want, leaves)) \
+                and torch.equal(sig, cache["a1_sig"])
+            n_launch = -(-len(src) // cap)
+            name = f"llama3.2-3b cache, {kv or 'bf16'} pages, " \
+                   f"{len(leaves)} pool leaves, {label}"
+            print(f"  {name}: byte-equal {ok}, a1_sig untouched; "
+                  f"{launched} launch(es), {n_launch} expected", flush=True)
+            require(ok and launched == n_launch, f"copy_paged_pages "
+                    f"differs from the plain version leaf by leaf: {name}")
+        del cache, leaves, want
+    torch.cuda.empty_cache()
     return 0.0
 
 
@@ -1546,15 +1661,16 @@ def scale_time_phase(bw):
 
 def page_copy_time_phase(bw):
     """Time of one copy-on-write at llama3.2-3b (one page across all 28
-    layers: block 0's pools and the stacked (27, P, ...) pools viewed as
-    flat pages; 4 pool leaves in bf16, 8 with int8 pages and their scales),
-    and of 64 pages: the kernel (one launch per leaf on page ids already on
-    the card), the PyTorch call ``pool.index_copy_(0, dst,
-    pool.index_select(0, src))`` per leaf on the same ids, the plain
-    version, and ``copy_paged_pages`` as the engine calls it (host page
-    lists, checked and uploaded per leaf: ``wrapper_ms``).  The bound is
-    2 x the bytes copied (read once, written once) at the card's memory
-    rate."""
+    layers: block 0's pools and the stacked (27, P, ...) pools; 4 pool
+    leaves in bf16, 8 with int8 pages and their scales), and of 64 pages:
+    the kernel (one launch for the whole cache, page ids from host lists in
+    its parameters) with a lead (device time) and without, the PyTorch call
+    ``pool.index_copy_(0, dst, pool.index_select(0, src))`` per leaf on ids
+    already on the card (the stacked leaves as flat pages with per-layer
+    ids), the plain version, and ``copy_paged_pages`` as the engine calls
+    it (host page lists, checked once: ``wrapper_ms``, no lead), with the
+    launches of one kernel call, counted.  The bound is 2 x the bytes
+    copied (read once, written once) at the card's memory rate."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import model as M
@@ -1564,56 +1680,71 @@ def page_copy_time_phase(bw):
     for kv in ("", "int8"):
         P = 256
         cache = M.init_paged_cache(cfg, P, PAGE, 8, "bfloat16", kv_dtype=kv)
-        leaves = []
-        for pool in cache["block0"].values():
-            leaves.append((pool, 1))
-        for pool in cache["blocks"].values():
-            L, P = pool.shape[:2]
-            leaves.append((pool.view((L * P,) + tuple(pool.shape[2:])), L))
+        leaves = [(p, False) for p in cache["block0"].values()] \
+            + [(p, True) for p in cache["blocks"].values()]
         for n in (1, 64):
             src, dst = list(range(1, 1 + n)), list(range(100, 100 + n))
-            # (pool, its page ids) per leaf: the stacked leaves offset by
-            # layer, as copy_paged_pages does
-            pairs = [(pool, [s + i * P for i in range(layers) for s in src],
-                      [d + i * P for i in range(layers) for d in dst])
-                     for pool, layers in leaves]
-            nbytes = sum(len(s) * pool.numel() // pool.shape[0]
-                         * pool.element_size() for pool, s, _ in pairs)
-            ids = [torch.tensor([s, d], dtype=torch.int32, device="cuda")
-                   for _, s, d in pairs]
-            long_ids = [i.long() for i in ids]
+            flat = []
+            for pool, stacked in leaves:
+                layers = pool.shape[0] if stacked else 1
+                ids = torch.tensor(
+                    [[s + i * P for i in range(layers) for s in src],
+                     [d + i * P for i in range(layers) for d in dst]],
+                    dtype=torch.long, device="cuda")
+                flat.append((pool.view((layers * P,)
+                                       + tuple(pool.shape[1 + stacked:])),
+                             ids))
+            nbytes = sum(ids.shape[1] * pool.numel() // pool.shape[0]
+                         * pool.element_size() for pool, ids in flat)
 
             def kernel():
-                for (pool, _, _), i in zip(pairs, ids):
-                    PA.page_copy_launch(pool, i)
+                PA.page_copy_cuda(leaves, src, dst)
 
             def library():
-                for (pool, _, _), i in zip(pairs, long_ids):
+                for pool, i in flat:
                     pool.index_copy_(0, i[1], pool.index_select(0, i[0]))
 
             def plain():
-                for pool, s, d in pairs:
-                    PA.copy_pages_plain(pool, s, d)
+                for pool, stacked in leaves:
+                    PA.copy_pages_plain(pool, src, dst, stacked=stacked)
 
+            PA.LAUNCHES["page_copy"] = 0
+            kernel()
+            launches_a_call = PA.LAUNCHES["page_copy"]
+            require(launches_a_call == -(-n // PA.COPY_MAX_PAIRS),
+                    f"page_copy: {launches_a_call} launches for {n} pairs")
             label = (f"{'int8 pages + scales' if kv else 'bf16'}, {n} "
                      f"page{'s' if n > 1 else ''} x 28 layers, "
                      f"{len(leaves)} pool leaves")
             row = dict(
-                shape=label, ms=_median_ms(kernel),
+                shape=label, ms=_median_ms(kernel, lead_cycles=LEAD_CYCLES),
+                no_lead_ms=_median_ms(kernel),
                 wrapper_ms=_median_ms(
                     lambda: M.copy_paged_pages(cache, src, dst)),
                 plain_ms=_median_ms(plain), library_ms=_median_ms(library),
-                bound_ms=2 * nbytes / bw * 1e3, bound_by="bytes")
+                bound_ms=2 * nbytes / bw * 1e3, bound_by="bytes",
+                launches_a_call=launches_a_call)
             rows[label] = row
             print(f"  {label}: {nbytes} bytes; kernel_ms {row['ms']:.4f} "
-                  f"({len(leaves)} launches) library_ms "
-                  f"{row['library_ms']:.4f} (index_copy_ + index_select per "
-                  f"leaf) bound_ms {row['bound_ms']:.4f} (bytes); "
-                  f"plain_ms {row['plain_ms']:.4f}; wrapper_ms "
+                  f"({launches_a_call} launch a call; without the lead "
+                  f"{row['no_lead_ms']:.4f}) "
+                  f"library_ms {row['library_ms']:.4f} (index_copy_ + "
+                  f"index_select per leaf) bound_ms {row['bound_ms']:.4f} "
+                  f"(bytes); plain_ms {row['plain_ms']:.4f}; wrapper_ms "
                   f"{row['wrapper_ms']:.4f} (copy_paged_pages from host "
-                  f"page lists)", flush=True)
-        del cache, leaves
+                  f"page lists); before the redesign "
+                  f"{COPY_BEFORE_MS.get((kv, n), 'not measured')} (PERF.md)",
+                  flush=True)
+        del cache, leaves, flat
     return rows
+
+
+#: page_copy before its redesign (PERF.md section 6: the last final run
+#: of the per-leaf kernel, one launch a leaf, no lead; NVIDIA H100 80GB
+#: HBM3, 700.00 W): kernel_ms / wrapper_ms, as text beside the new times
+COPY_BEFORE_MS = {("", 1): "0.0758 / 0.2199", ("", 64): "0.0978 / 1.778",
+                  ("int8", 1): "0.0798 / 0.6507",
+                  ("int8", 64): "0.2025 / 3.5669"}
 
 
 def random_history(cache, g):
@@ -2118,9 +2249,10 @@ def prefix_engine_phase(cfg, params, ecfg, kv=""):
           f"{statistics.mean(common):.3f}; launches {hot['counts']}",
           flush=True)
     require(pst["hit_rate"] > 0.9, f"hit rate {pst['hit_rate']} <= 0.9")
-    require(copies == pst["cow_copies"] * out["hot"]["leaves"]
-            and copies > 0, f"page_copy launches {copies} != COW copies "
-            f"{pst['cow_copies']} x {out['hot']['leaves']} leaves")
+    require(copies == pst["cow_copies"] and copies > 0,
+            f"page_copy launches {copies} != COW copies "
+            f"{pst['cow_copies']} (one launch a COW for all "
+            f"{out['hot']['leaves']} pool leaves)")
     require(hot["st"]["prefill_tokens"] < cold["st"]["prefill_tokens"],
             "the hot run prefilled no fewer tokens than the cold run")
     require(diff <= DUAL_LOGIT_BOUND, f"hit logits differ from cold by "
@@ -2522,12 +2654,14 @@ FLASH_TOLS = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 GRAD_TOLS = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 #: (kind, rows, d): the training shapes (llama3.2-3b rmsnorm, gpt2
 #: layernorm), the engine's token budget (263 rows of llama3.2-3b), fewer
-#: rows than the backward's grid of two blocks an SM, and odd row widths
-#: (scalar loads); the first LN_TIMED are also timed
+#: rows than the backward's grid of two blocks an SM, the padded decode
+#: tick's 8 lanes, and odd row widths (scalar loads); the first LN_TIMED
+#: are also timed
 LN_SHAPES = (("rmsnorm", 2048, 3072), ("layernorm", 2048, 768),
              ("rmsnorm", 263, 3072), ("layernorm", 100, 768),
-             ("rmsnorm", 37, 200), ("layernorm", 5, 1001))
-LN_TIMED = 4
+             ("rmsnorm", 8, 3072), ("rmsnorm", 37, 200),
+             ("layernorm", 5, 1001))
+LN_TIMED = 5
 
 
 def flash_inputs(dtype, B, S, h, hkv, d, seed):
@@ -2616,7 +2750,9 @@ def ln_inputs(dtype, kind, rows, d, seed):
 
 def ln_kernel_phase():
     """fused_ln_add forward and backward against the plain version (and
-    autograd through it) on the same inputs; the backward twice."""
+    autograd through it) on the same inputs; the backward twice; the
+    forward's y the same bits without the statistics, and its first rows
+    the same bits in calls of 8 rows and of 1 row."""
     from repro_torch.kernels import fused_ln_add as LN
     phase("kernel: fused_ln_add forward and backward vs plain")
     errs = {}
@@ -2625,6 +2761,14 @@ def ln_kernel_phase():
         x, a1, scale, bias, dy = ln_inputs(dtype, kind, rows, d, seed=d)
         y, mean, rstd = LN.fused_ln_add_fwd_cuda(x, a1, scale, bias,
                                                  kind=kind)
+        y_bare, none, _ = LN.fused_ln_add_fwd_cuda(x, a1, scale, bias,
+                                                   kind=kind, stats=False)
+        # a row's bits do not depend on the row count (nor on its block)
+        few = [LN.fused_ln_add_fwd_cuda(x[:k], a1[:k], scale, bias,
+                                        kind=kind, stats=False)[0]
+               for k in (min(8, rows), 1)]
+        rows_same = all(torch.equal(f, y[:f.shape[0]]) for f in few)
+        stats_same = torch.equal(y_bare, y) and none is None
 
         def leaves():
             return [None if t is None else
@@ -2654,8 +2798,12 @@ def ln_kernel_phase():
               f"{', dbias' if bias is not None else ''} vs autograd through "
               f"the plain version {e_g:.3e} (relative, tol {tol_g:g}); "
               f"d(a1n) == dy {e_a == 0}; two backward runs bit-identical "
-              f"{same}", flush=True)
+              f"{same}; y without the statistics bit-identical "
+              f"{stats_same}; rows of 8- and 1-row calls bit-identical "
+              f"{rows_same}", flush=True)
         require(e_y <= tol_y, f"{name}: forward disagrees")
+        require(stats_same, f"{name}: y differs without the statistics")
+        require(rows_same, f"{name}: a row's bits depend on the row count")
         require(e_g <= tol_g, f"{name}: backward disagrees")
         require(e_a == 0 and same, f"{name}: d(a1n) or determinism")
         if (kind, rows, d) == ("rmsnorm", 2048, 3072) \
@@ -2745,6 +2893,13 @@ def train_time_phase(bw):
             x, a1, scale, bias, kind=kind), lead_cycles=LEAD_CYCLES)
         f_no_lead = _median_ms(lambda: LN.fused_ln_add_fwd_cuda(
             x, a1, scale, bias, kind=kind))
+        # the serving route: no statistics
+        f_bare = _median_ms(lambda: LN.fused_ln_add_fwd_cuda(
+            x, a1, scale, bias, kind=kind, stats=False),
+            lead_cycles=LEAD_CYCLES)
+        f_clean = _median_ms(lambda: LN.fused_ln_add_fwd_cuda(
+            x, a1, scale, bias, kind=kind), lead_cycles=LEAD_CYCLES,
+            clean=True)
         b_ms = _median_ms(lambda: LN.fused_ln_add_bwd_cuda(
             dy, x, scale, mean, rstd, kind=kind), lead_cycles=LEAD_CYCLES)
         b_no_lead = _median_ms(lambda: LN.fused_ln_add_bwd_cuda(
@@ -2775,10 +2930,13 @@ def train_time_phase(bw):
         shape = f"({n}, {dm}) {kind} bf16"
         torch_norm = "rms_norm" if kind == "rmsnorm" else "layer_norm"
         print(f"  fused_ln_add {shape}: kernel_ms {f_ms:.4f} (without "
-              f"the lead {f_no_lead:.4f}) plain_ms {f_plain:.4f} bound_ms "
+              f"the lead {f_no_lead:.4f}; without the statistics "
+              f"{f_bare:.4f}; after a read flush {f_clean:.4f}) plain_ms {f_plain:.4f} bound_ms "
               f"{fb:.4f} (bytes, {fb / f_ms:.2f} of it) library_ms none (no "
               f"single call); unfused_ms {unfused:.4f} (F.{torch_norm} + "
-              f"add)")
+              f"add); before the redesign "
+              f"{LN_FWD_BEFORE_MS.get((kind, n, dm), 'not measured')} ms "
+              f"(PERF.md, with a lead, NVIDIA H100 80GB HBM3, 700.00 W)")
         print(f"  fused_ln_add.bwd {shape}: kernel_ms {b_ms:.4f} (without "
               f"the lead {b_no_lead:.4f}; after a read flush, no "
               f"write-back, {b_clean:.4f}) plain_ms {b_plain:.4f} (autograd "
@@ -2789,7 +2947,7 @@ def train_time_phase(bw):
               flush=True)
         fwd = dict(ms=f_ms, plain_ms=f_plain, bound_ms=fb, bound_by="bytes",
                    library_ms=None, unfused_ms=unfused, no_lead_ms=f_no_lead,
-                   shape=shape)
+                   nostats_ms=f_bare, clean_flush_ms=f_clean, shape=shape)
         bwd = dict(ms=b_ms, plain_ms=b_plain, bound_ms=bb_, bound_by="bytes",
                    library_ms=None, no_lead_ms=b_no_lead,
                    clean_flush_ms=b_clean, shape=shape)
@@ -2808,6 +2966,8 @@ def train_time_phase(bw):
             # the other timed shapes ride along in the main rows
             tag = f"{kind}_{n}x{dm}"
             rows["fused_ln_add"].update({f"{tag}_ms": f_ms,
+                                         f"{tag}_nostats_ms": f_bare,
+                                         f"{tag}_clean_flush_ms": f_clean,
                                          f"{tag}_bound_ms": fb,
                                          f"{tag}_unfused_ms": unfused})
             rows["fused_ln_add.bwd"].update({f"{tag}_ms": b_ms,
@@ -2833,6 +2993,12 @@ def kernel_breakdown(fn, n=20):
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
+#: fused_ln_add's forward before its redesign (PERF.md section 6: the last
+#: final run of the one-block-a-row kernel, with a lead), as text beside
+#: the new times
+LN_FWD_BEFORE_MS = {("rmsnorm", 2048, 3072): "0.0222",
+                    ("layernorm", 2048, 768): "0.0124",
+                    ("rmsnorm", 263, 3072): "0.0092"}
 #: fused_ln_add's backward before its redesign (PERF.md section 6), as text
 #: beside the new times
 LN_BWD_BEFORE_MS = {("rmsnorm", 2048, 3072): "0.0460",

@@ -2,12 +2,14 @@
 """Build constants of two of the port's kernels, timed on one CUDA card:
 the ring depth of the key-split decode, timed on one-byte pages
 (``kStages`` of ``src/repro_torch/kernels/csrc/paged_decode_splits.cuh``),
-and the grid and rows a step of the ``fused_ln_add`` backward
-(``kBwdPerSM``, ``kRowsAStep`` of ``csrc/fused_ln_add.cu``).
+the grid and rows a step of the ``fused_ln_add`` backward (``kBwdPerSM``,
+``kRowsAStep`` of ``csrc/fused_ln_add.cu``), and the vectors a thread and
+the many-row block of its forward (``kFwdVecs``, ``kFwdBlockThreads``).
 
 Run from the root of a checkout:
     python3 experiments/torch_kernel_variants.py decode_stages
     python3 experiments/torch_kernel_variants.py ln_bwd
+    python3 experiments/torch_kernel_variants.py ln_fwd
 
 It builds the source once per variant from copies of ``csrc/`` under
 ``build/variants/<set>/`` (one ``nvcc`` each, all at once), then runs each
@@ -18,8 +20,9 @@ its build against the plain version at chip_smoke.py's tolerance and times
 it with chip_smoke.py's timing (L2 flushed before each launch, a lead, the
 median of 100 launches): decode_stages at chip_smoke.py's decode tick on
 int8 and fp8 pages (bf16 q, llama3.2-3b attention, 8 lanes x 1021 keys),
-ln_bwd at chip_smoke.py's timed fused_ln_add shapes (bf16).  Prints a line
-a variant run and, last, one JSON object.
+ln_bwd and ln_fwd at chip_smoke.py's timed fused_ln_add shapes (bf16;
+the forward without statistics, as a serving tick calls it, also after a
+read flush).  Prints a line a variant run and, last, one JSON object.
 """
 from __future__ import annotations
 
@@ -41,6 +44,8 @@ SETS = {
                       {"kStages": (3, 4, 5)}),
     "ln_bwd": ("fused_ln_add", "fused_ln_add.cu",
                {"kBwdPerSM": (2, 4), "kRowsAStep": (1, 2)}),
+    "ln_fwd": ("fused_ln_add", "fused_ln_add.cu",
+               {"kFwdVecs": (2, 4), "kFwdBlockThreads": (256, 512)}),
 }
 
 
@@ -125,6 +130,26 @@ def time_ln_bwd(cs, bw):
     return out
 
 
+def time_ln_fwd(cs, bw):
+    from repro_torch.kernels import fused_ln_add as LN
+    out = {}
+    for kind, n, d in cs.LN_SHAPES[:cs.LN_TIMED]:
+        x, a1, scale, bias, _ = cs.ln_inputs(torch.bfloat16, kind, n, d, 2)
+        ref = LN.ln_add_plain(x, a1, scale, bias, kind=kind)
+
+        def fwd():
+            return LN.fused_ln_add_fwd_cuda(x, a1, scale, bias, kind=kind,
+                                            stats=False)[0]
+        err = cs.max_err(fwd(), ref)
+        cs.require(err <= cs.bf16_ulp(ref), f"forward disagrees with plain: "
+                   f"{err}")
+        out[f"{kind} ({n}, {d})"] = dict(
+            err=err, ms=cs._median_ms(fwd, lead_cycles=cs.LEAD_CYCLES),
+            clean_ms=cs._median_ms(fwd, lead_cycles=cs.LEAD_CYCLES,
+                                   clean=True))
+    return out
+
+
 def child(name, lib_path):
     """Time one variant's library in this process: one JSON line."""
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
@@ -133,7 +158,8 @@ def child(name, lib_path):
     _, smi, bw = cs.device_phase()
     lib_name = SETS[name][0]
     build._LIBS[lib_name] = ctypes.CDLL(str(lib_path))
-    timer = time_decode if name == "decode_stages" else time_ln_bwd
+    timer = {"decode_stages": time_decode, "ln_bwd": time_ln_bwd,
+             "ln_fwd": time_ln_fwd}[name]
     print(json.dumps(timer(cs, bw)))
     return 0
 

@@ -4,7 +4,7 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/fused_ln_add.py:37
 // (fused_ln_add, pallas_call :55, body _ln_add_kernel :24; oracle
 // ref.py:178 ln_add_ref).  The TPU kernel tiles 256 rows with the whole
-// feature dimension in VMEM; here one thread block owns a row at a time.
+// feature dimension in VMEM; here a fixed group of threads owns a row.
 //
 // Layouts: x, a1n, y, dy, dx (rows, d) in one dtype (fp32 or bf16),
 // row-major; scale, bias, dscale, dbias (d,) fp32; mean, rstd (rows,)
@@ -12,10 +12,24 @@
 // ((x - mean) * rstd * scale + bias), both in fp32 with eps inside the
 // root, as the reference computes them; y is rounded once to x's dtype.
 //
-// Forward: one block per row.  The row is read with 16-byte vectors where
-// d allows (8 bf16 or 4 fp32 values), reduced in fp32 (layernorm: mean,
-// then the mean square about it, as the reference does), and written once.
-// The block also writes the row's rstd and mean for the backward.
+// Forward: a row of nv 16-byte vectors (8 bf16 or 4 fp32 values where d
+// and the pointers allow) belongs to a group of T threads, one warp while
+// nv <= 32 kFwdWarpVecs, else 32 ceil(nv / (32 kFwdVecs)) (at most 512),
+// thread t holding vectors t, t + T, ... (NV = ceil(nv / T) of them) in
+// registers from the statistic to the output: the row is read from
+// memory once.  Each thread first issues
+// all its loads, x, a1n and the fp32 scale (and bias) as vectors, then
+// sums its values in vector order, the warp adds its lanes in an xor
+// butterfly, and the group adds its warps' sums in warp order after a
+// named barrier of the group alone (no barrier at all when a row is one
+// warp).  Layernorm takes the mean that way, then the mean square about
+// it from the same registers, as the reference does.  A row's order
+// depends only on nv (d, the dtype and the vector width), never on the
+// row count: a block holds R rows (R groups, R a power of two, at most
+// kFwdBlockThreads threads) only while that still leaves a block for
+// every SM, and R does not touch a row's arithmetic.  mean and rstd are
+// written only when the caller passes them (the autograd forward); the
+// serving path passes none and y's bits are the same.
 //
 // Backward: dx per row from dy, x, scale and the saved statistics,
 //   dx = rstd * (g - mean(g) - xhat * mean(g * xhat)),  g = dy * scale
@@ -41,7 +55,9 @@
 //
 // What bounds it on this card: bytes.  The forward reads x and a1n and
 // writes y (6 bytes a value in bf16, 12 in fp32); at (2048, 3072) bf16
-// that is 37.7 MB, 0.011 ms at 3.35 TB/s; the backward reads x and dy and
+// that is 37.7 MB, 0.011 ms at 3.35 TB/s, and at the serving tick's 263
+// rows 4.8 MB, 0.0015 ms, where one round trip to memory a row and the
+// launch are what is left; the backward reads x and dy and
 // writes dx, the same bytes, plus its fp32 partial rows (3.2 MB at
 // (2048, 3072) on 132 SMs), read back once.  Nothing is allocated (the
 // wrapper passes the partials' scratch) and nothing synchronises.
@@ -56,6 +72,10 @@
 namespace {
 
 constexpr int kMaxThreads = 256;
+constexpr int kFwdWarpVecs = 3;      // vectors a thread of a one-warp row
+constexpr int kFwdVecs = 2;          // vectors a thread of a wider row, aim
+constexpr int kFwdMaxWarps = 16;     // warps of a forward row, at most
+constexpr int kFwdBlockThreads = 256;  // threads of a many-row block, most
 constexpr int kBwdPerSM = 2;       // backward blocks an SM, at most
 constexpr int kRowsAStep = 2;      // rows a backward block reduces at once
 constexpr int kSumThreads = 256;   // threads of a column-sum block
@@ -94,69 +114,112 @@ __device__ __forceinline__ void store(T* p, const float (&in)[VEC]) {
   *reinterpret_cast<Pack<T, VEC>*>(p) = pk;
 }
 
-// Sum over the block (blockDim.x a multiple of 32); every thread gets it.
-__device__ float block_sum(float v) {
-  __shared__ float red[32];
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();                 // red is free from the last call
-  if (lane == 0) red[w] = v;
-  __syncthreads();
-  float t = lane < (int)(blockDim.x / 32) ? red[lane] : 0.f;
-  for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-  return t;
+// Threads of the group that owns a row of nv vectors: one warp while it
+// holds the row in kFwdWarpVecs vectors a thread (no barrier), else
+// enough warps for kFwdVecs a thread, at most kFwdMaxWarps.
+__host__ __device__ constexpr int fwd_row_threads(int nv) {
+  if (nv <= 32 * kFwdWarpVecs) return 32;
+  const int w = (nv + 32 * kFwdVecs - 1) / (32 * kFwdVecs);
+  return 32 * (w < kFwdMaxWarps ? w : kFwdMaxWarps);
 }
 
-template <typename T, int VEC, bool LN>
-__global__ void __launch_bounds__(kMaxThreads)
+// Threads of a forward block, at most: R groups within kFwdBlockThreads,
+// or one group of kFwdMaxWarps warps.
+constexpr int kFwdBound = 32 * kFwdMaxWarps > kFwdBlockThreads
+                              ? 32 * kFwdMaxWarps : kFwdBlockThreads;
+
+// The sum of v over a group of W warps (every thread of the group gets
+// the same bits): an xor butterfly in each warp, then the warps' sums in
+// warp order from red[0..W) after the group's named barrier `bar`.
+__device__ __forceinline__ float group_sum(float v, float* red, int t, int W,
+                                           int bar) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (W == 1) return v;
+  if ((t & 31) == 0) red[t >> 5] = v;
+  asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(32 * W) : "memory");
+  float s = red[0];
+  for (int w = 1; w < W; ++w) s += red[w];
+  return s;
+}
+
+template <typename T, int VEC, int NV, bool LN>
+__global__ void __launch_bounds__(kFwdBound)
 ln_add_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a1,
                   const float* __restrict__ scale,
                   const float* __restrict__ bias, T* __restrict__ y,
                   float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                  int d, float eps) {
-  const size_t row = blockIdx.x;
-  const T* xr = x + row * d;
+                  int rows, int d, float eps) {
+  // one slot a warp of the block for each of the two sums
+  __shared__ float red[2][32];
   const int nv = d / VEC;
-  float acc = 0.f;
-  for (int j = threadIdx.x; j < nv; j += blockDim.x) {
-    float xv[VEC];
-    load<T, VEC>(xr + j * VEC, xv);
+  const int RT = fwd_row_threads(nv), W = RT / 32;
+  const int g = threadIdx.x / RT, t = threadIdx.x - g * RT;
+  const int row = blockIdx.x * (blockDim.x / RT) + g;
+  if (row >= rows) return;                 // the whole group leaves
+  using PT = Pack<T, VEC>;
+  using PF = Pack<float, VEC>;
+  const PT* xr = reinterpret_cast<const PT*>(x + (size_t)row * d);
+  const PT* ar = reinterpret_cast<const PT*>(a1 + (size_t)row * d);
+  PT xv[NV], av[NV];
+  PF sv[NV], bv[NV];
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc += LN ? xv[i] : xv[i] * xv[i];
+  for (int k = 0; k < NV; ++k) {
+    const int j = t + k * RT;
+    if (j < nv) {
+      xv[k] = xr[j];
+      av[k] = ar[j];
+      sv[k] = reinterpret_cast<const PF*>(scale)[j];
+      if (LN) bv[k] = reinterpret_cast<const PF*>(bias)[j];
+    }
   }
+  float acc = 0.f;
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+    if (t + k * RT < nv)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float v = to_f(xv[k].v[i]);
+        acc = LN ? acc + v : fmaf(v, v, acc);
+      }
+  const int bar = 1 + g;                   // 0 is __syncthreads'
+  const float s = group_sum(acc, red[0] + g * W, t, W, bar);
   float mu = 0.f, var;
   if (LN) {
-    mu = block_sum(acc) / d;
+    mu = s / d;
     float sq = 0.f;
-    for (int j = threadIdx.x; j < nv; j += blockDim.x) {
-      float xv[VEC];
-      load<T, VEC>(xr + j * VEC, xv);
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) sq += (xv[i] - mu) * (xv[i] - mu);
-    }
-    var = block_sum(sq) / d;
+    for (int k = 0; k < NV; ++k)
+      if (t + k * RT < nv)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float c = to_f(xv[k].v[i]) - mu;
+          sq = fmaf(c, c, sq);
+        }
+    var = group_sum(sq, red[1] + g * W, t, W, bar) / d;
   } else {
-    var = block_sum(acc) / d;
+    var = s / d;
   }
   const float rstd = rsqrtf(var + eps);
-  const T* ar = a1 + row * d;
-  T* yr = y + row * d;
-  for (int j = threadIdx.x; j < nv; j += blockDim.x) {
-    float xv[VEC], av[VEC], out[VEC];
-    load<T, VEC>(xr + j * VEC, xv);
-    load<T, VEC>(ar + j * VEC, av);
+  PT* yr = reinterpret_cast<PT*>(y + (size_t)row * d);
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      const int c = j * VEC + i;
-      const float n = LN ? (xv[i] - mu) * rstd * scale[c] + bias[c]
-                         : xv[i] * rstd * scale[c];
-      out[i] = n + av[i];
+  for (int k = 0; k < NV; ++k) {
+    const int j = t + k * RT;
+    if (j < nv) {
+      PT o;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float v = to_f(xv[k].v[i]);
+        const float n = LN ? fmaf((v - mu) * rstd, sv[k].v[i], bv[k].v[i])
+                           : v * rstd * sv[k].v[i];
+        o.v[i] = from_f<T>(n + to_f(av[k].v[i]));
+      }
+      yr[j] = o;
     }
-    store<T, VEC>(yr + j * VEC, out);
   }
-  if (threadIdx.x == 0) {
-    rstd_out[row] = rstd;
+  if (mean_out != nullptr && t == 0) {
     mean_out[row] = mu;
+    rstd_out[row] = rstd;
   }
 }
 
@@ -391,25 +454,53 @@ column_sum_kernel(const float* __restrict__ part,
   if (rg == 0 && c < d) *reinterpret_cast<V*>(dst + c) = s;
 }
 
-int threads_for(int nv) {
-  const int t = (nv + 31) / 32 * 32;
-  return t < kMaxThreads ? t : kMaxThreads;
+template <typename T, int VEC, bool LN, int NV>
+int fwd_rows(const T* x, const T* a1, const float* scale, const float* bias,
+             T* y, float* mean, float* rstd, int rows, int d, float eps,
+             int blocks, int threads, cudaStream_t st) {
+  ln_add_fwd_kernel<T, VEC, NV, LN><<<blocks, threads, 0, st>>>(
+      x, a1, scale, bias, y, mean, rstd, rows, d, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// R rows a block (a power of two) while R groups fit kFwdBlockThreads and
+// the blocks still number at least the SMs; then NV from the row's width.
+template <typename T, int VEC, bool LN>
+int fwd(const void* x, const void* a1, const float* scale, const float* bias,
+        void* y, float* mean, float* rstd, int rows, int d, float eps,
+        int sms, cudaStream_t st) {
+  const int nv = d / VEC, rt = fwd_row_threads(nv);
+  int R = 1;
+  while (2 * R * rt <= kFwdBlockThreads && (rows + 2 * R - 1) / (2 * R) >= sms)
+    R *= 2;
+  const int blocks = (rows + R - 1) / R, threads = R * rt;
+  const T* xt = static_cast<const T*>(x);
+  const T* at = static_cast<const T*>(a1);
+  T* yt = static_cast<T*>(y);
+  const int per = (nv + rt - 1) / rt;
+  if (per == 1) return fwd_rows<T, VEC, LN, 1>(xt, at, scale, bias, yt, mean, rstd, rows, d, eps, blocks, threads, st);
+  if (per == 2) return fwd_rows<T, VEC, LN, 2>(xt, at, scale, bias, yt, mean, rstd, rows, d, eps, blocks, threads, st);
+  if (per == 3) return fwd_rows<T, VEC, LN, 3>(xt, at, scale, bias, yt, mean, rstd, rows, d, eps, blocks, threads, st);
+  // more than 3 vectors a thread only in rows of more than 1024 vectors
+  // (kFwdMaxWarps warps of kFwdVecs): up to 4 in four-value vectors (d <=
+  // 8192), 8 in two-value ones, 16 in one-value ones
+  if constexpr (VEC <= 4)
+    if (per <= 4) return fwd_rows<T, VEC, LN, 4>(xt, at, scale, bias, yt, mean, rstd, rows, d, eps, blocks, threads, st);
+  if constexpr (VEC <= 2)
+    if (per <= 8) return fwd_rows<T, VEC, LN, 8>(xt, at, scale, bias, yt, mean, rstd, rows, d, eps, blocks, threads, st);
+  if constexpr (VEC == 1)
+    return fwd_rows<T, VEC, LN, 16>(xt, at, scale, bias, yt, mean, rstd, rows, d, eps, blocks, threads, st);
+  return -1;
 }
 
 template <typename T, int VEC>
-int fwd(const void* x, const void* a1, const float* scale, const float* bias,
-        void* y, float* mean, float* rstd, int rows, int d, int ln,
-        float eps, cudaStream_t st) {
-  const int threads = threads_for(d / VEC);
-  const T* xt = static_cast<const T*>(x);
-  const T* at = static_cast<const T*>(a1);
-  if (ln)
-    ln_add_fwd_kernel<T, VEC, true><<<rows, threads, 0, st>>>(
-        xt, at, scale, bias, static_cast<T*>(y), mean, rstd, d, eps);
-  else
-    ln_add_fwd_kernel<T, VEC, false><<<rows, threads, 0, st>>>(
-        xt, at, scale, bias, static_cast<T*>(y), mean, rstd, d, eps);
-  return static_cast<int>(cudaGetLastError());
+int fwd_kind(const void* x, const void* a1, const float* scale,
+             const float* bias, void* y, float* mean, float* rstd, int rows,
+             int d, int ln, float eps, int sms, cudaStream_t st) {
+  return ln ? fwd<T, VEC, true>(x, a1, scale, bias, y, mean, rstd, rows, d,
+                                eps, sms, st)
+            : fwd<T, VEC, false>(x, a1, scale, bias, y, mean, rstd, rows, d,
+                                 eps, sms, st);
 }
 
 inline bool misaligned(const void* p, size_t bytes) {
@@ -519,6 +610,14 @@ int vec_for(int d, const void* const* ptrs, int n) {
   return vec;
 }
 
+// The widest of vec and its halves at which the fp32 (d,) vectors at p and
+// (when given) q are read as vectors of that width.
+int fp32_vec(int vec, const void* p, const void* q) {
+  while (vec > 1 && (misaligned(p, 4 * vec) || (q && misaligned(q, 4 * vec))))
+    vec /= 2;
+  return vec;
+}
+
 int check(int rows, int d, int device) {
   if (rows < 0 || d <= 0 || d > 8192) return -1;
   return static_cast<int>(cudaSetDevice(device));
@@ -529,32 +628,38 @@ int check(int rows, int d, int device) {
 extern "C" {
 
 // x, a1n (rows, d) -> y (rows, d) in the same dtype (bf16 when is_bf16,
-// else fp32), mean and rstd (rows,) fp32.  kind 0 rmsnorm, 1 layernorm
-// (bias (d,) fp32 then required).  Returns 0 on success, -1 for an
-// argument the kernel does not take, else the cudaError_t of the launch.
+// else fp32) and, when mean and rstd are given, the rows' statistics
+// (rows,) fp32 (both or neither).  kind 0 rmsnorm, 1 layernorm (bias (d,)
+// fp32 then required).  Returns 0 on success, -1 for an argument the
+// kernel does not take, else the cudaError_t of the launch.
 int fused_ln_add_fwd(const void* x, const void* a1, const float* scale,
                      const float* bias, void* y, float* mean, float* rstd,
                      int rows, int d, int kind, float eps, int is_bf16,
                      int device, void* stream) {
   if (rows == 0) return 0;
-  const int err = check(rows, d, device);
+  int err = check(rows, d, device);
   if (err) return err;
-  if (kind == 1 && bias == nullptr) return -1;
+  if ((kind == 1 && bias == nullptr) || (mean == nullptr) != (rstd == nullptr))
+    return -1;
+  int sms = 0;
+  err = sm_count(device, &sms);
+  if (err) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* ptrs[3] = {x, a1, y};
+  const float* b = kind == 1 ? bias : nullptr;
   if (is_bf16) {
     using T = __nv_bfloat16;
-    switch (vec_for<T>(d, ptrs, 3)) {
-      case 8: return fwd<T, 8>(x, a1, scale, bias, y, mean, rstd, rows, d, kind, eps, st);
-      case 4: return fwd<T, 4>(x, a1, scale, bias, y, mean, rstd, rows, d, kind, eps, st);
-      case 2: return fwd<T, 2>(x, a1, scale, bias, y, mean, rstd, rows, d, kind, eps, st);
-      default: return fwd<T, 1>(x, a1, scale, bias, y, mean, rstd, rows, d, kind, eps, st);
+    switch (fp32_vec(vec_for<T>(d, ptrs, 3), scale, b)) {
+      case 8: return fwd_kind<T, 8>(x, a1, scale, b, y, mean, rstd, rows, d, kind, eps, sms, st);
+      case 4: return fwd_kind<T, 4>(x, a1, scale, b, y, mean, rstd, rows, d, kind, eps, sms, st);
+      case 2: return fwd_kind<T, 2>(x, a1, scale, b, y, mean, rstd, rows, d, kind, eps, sms, st);
+      default: return fwd_kind<T, 1>(x, a1, scale, b, y, mean, rstd, rows, d, kind, eps, sms, st);
     }
   }
-  switch (vec_for<float>(d, ptrs, 3)) {
-    case 4: return fwd<float, 4>(x, a1, scale, bias, y, mean, rstd, rows, d, kind, eps, st);
-    case 2: return fwd<float, 2>(x, a1, scale, bias, y, mean, rstd, rows, d, kind, eps, st);
-    default: return fwd<float, 1>(x, a1, scale, bias, y, mean, rstd, rows, d, kind, eps, st);
+  switch (fp32_vec(vec_for<float>(d, ptrs, 3), scale, b)) {
+    case 4: return fwd_kind<float, 4>(x, a1, scale, b, y, mean, rstd, rows, d, kind, eps, sms, st);
+    case 2: return fwd_kind<float, 2>(x, a1, scale, b, y, mean, rstd, rows, d, kind, eps, sms, st);
+    default: return fwd_kind<float, 1>(x, a1, scale, b, y, mean, rstd, rows, d, kind, eps, sms, st);
   }
 }
 
@@ -588,12 +693,7 @@ int fused_ln_add_bwd(const void* dy, const void* x, const float* scale,
   const void* ptrs[3] = {dy, x, dx};
   // the scale and the partial rows are read and written as fp32 vectors of
   // the rows' vector width
-  auto vec_of = [&](int vec) {
-    while (vec > 1 &&
-           (misaligned(scale, 4 * vec) || misaligned(part, 4 * vec)))
-      vec /= 2;
-    return vec;
-  };
+  auto vec_of = [&](int vec) { return fp32_vec(vec, scale, part); };
   if (is_bf16) {
     using T = __nv_bfloat16;
     switch (vec_of(vec_for<T>(d, ptrs, 3))) {

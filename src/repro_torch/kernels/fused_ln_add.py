@@ -9,8 +9,12 @@ rounded once to x's dtype.  The JAX package has no backward kernel; the
 port's backward is a kernel too.
 
 The kernels are ``csrc/fused_ln_add.cu`` (CUDA C++ for ``sm_90a``): the
-forward, one thread block a row, writes y and each row's rstd (and mean);
-the backward, a grid of two blocks an SM taking rows in a fixed order with
+forward, a fixed group of warps a row (the row's vectors held in
+registers from the statistic to the output, so it is read once; the
+warps' sums added in a fixed order, so a row's bits do not depend on the
+row count; several rows a block where rows are many), writes y and, when
+a backward will read them (``stats``), each row's rstd and mean; the
+backward, a grid of two blocks an SM taking rows in a fixed order with
 a row's x and dy held in registers, writes dx per row and one fp32 partial
 row of dscale (and dbias) a block, which a second launch sums column by
 column in a fixed two-level order, with no atomics
@@ -26,7 +30,11 @@ the sum: the two differ by at most one bf16 ulp of the larger of |LN(x)| and
 |LN(x) + a1n| (``tests/test_torch_fused_ln_add.py``).
 
 The plain version runs for CPU tensors; on a CUDA tensor the wrappers
-launch the kernels or raise.  ``LAUNCHES`` counts the wrappers' launches:
+launch the kernels or raise.  ``fused_ln_add`` goes through the autograd
+Function (statistics saved) only when a gradient can flow: grad mode on
+and an input that requires grad; otherwise (serving) it launches the
+forward alone, with no statistics, and y has the same bits.
+``LAUNCHES`` counts the wrappers' launches:
 ``fused_ln_add`` one per forward call, ``fused_ln_add.bwd`` one per backward
 call (its two or three kernels go down from one C entry point).
 """
@@ -121,22 +129,26 @@ def _raise(lib, fn, err):
 
 
 def fused_ln_add_fwd_cuda(x, a1n, scale, bias=None, *, kind="rmsnorm",
-                          eps=1e-6):
+                          eps=1e-6, stats=True):
     """Launch the forward on PyTorch's current stream (no sync) ->
-    (y, mean, rstd); mean and rstd are (rows,) fp32 (mean 0 for
-    rmsnorm)."""
+    (y, mean, rstd); mean and rstd are (rows,) fp32 (mean 0 for rmsnorm),
+    or None, None without ``stats`` (nothing allocated or written for
+    them; y is the same)."""
     check_kernel_args(x, scale, kind, bias=bias, a1n=a1n)
     d = x.shape[-1]
     rows = x.numel() // d
     y = torch.empty_like(x)
-    mean = torch.empty(rows, dtype=torch.float32, device=x.device)
-    rstd = torch.empty_like(mean)
+    mean = rstd = None
+    if stats:
+        mean = torch.empty(rows, dtype=torch.float32, device=x.device)
+        rstd = torch.empty_like(mean)
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _raise(lib, "fused_ln_add", lib.fused_ln_add_fwd(
         x.data_ptr(), a1n.data_ptr(), scale.data_ptr(),
         bias.data_ptr() if kind == "layernorm" else None, y.data_ptr(),
-        mean.data_ptr(), rstd.data_ptr(), rows, d, KINDS.index(kind),
+        mean.data_ptr() if stats else None,
+        rstd.data_ptr() if stats else None, rows, d, KINDS.index(kind),
         float(eps), int(x.dtype == torch.bfloat16), x.device.index, stream))
     LAUNCHES["fused_ln_add"] += 1
     return y, mean, rstd
@@ -200,8 +212,14 @@ def fused_ln_add(x, a1n, scale, bias=None, *, kind="rmsnorm", eps=1e-6):
     """Differentiable ``LN(x) * scale (+ bias) + a1n``, x and a1n (..., d)
     -> (..., d) in x's dtype: the plain version for CPU tensors, the
     kernels for CUDA tensors (a1n cast to x's dtype first, and the
-    gradient cast back by autograd)."""
+    gradient cast back by autograd; with no gradient to take, the forward
+    kernel alone, without the statistics)."""
     if x.device.type == "cpu":
         return ln_add_plain(x, a1n, scale, bias, kind=kind, eps=eps)
     a1n = a1n.to(x.dtype).contiguous()
-    return FusedLnAdd.apply(x.contiguous(), a1n, scale, bias, kind, eps)
+    x = x.contiguous()
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, a1n, scale, bias)):
+        return FusedLnAdd.apply(x, a1n, scale, bias, kind, eps)
+    return fused_ln_add_fwd_cuda(x, a1n, scale, bias, kind=kind, eps=eps,
+                                 stats=False)[0]

@@ -166,3 +166,14 @@ def copy_pages(pool, src, dst):
     pool."""
     _record_dispatch("copy_pages", pool.device.type == "cuda")
     return _pa.page_copy(pool, src, dst)
+
+
+def copy_page_leaves(leaves, src, dst):
+    """``copy_pages`` over several pools at once (the same call site):
+    ``leaves`` (pool, stacked) pairs, pool (P, page, ...) or, stacked, (L,
+    P, page, ...), every layer of every leaf copied, in one kernel launch
+    on the card.  Returns the leaves."""
+    leaves = list(leaves)
+    _record_dispatch("copy_pages", bool(leaves)
+                     and leaves[0][0].device.type == "cuda")
+    return _pa.page_copy_leaves(leaves, src, dst)

@@ -15,7 +15,9 @@ Replaces four Pallas TPU kernels of ``repro/kernels/paged_attention.py``:
   the lane's live history ``j < pos + n_valid``; plain version ``ref.py:76``.
 * ``page_copy`` (``:420``): in place, the rows of pages ``src[i]`` over
   pages ``dst[i]`` in one (P, page, ...) pool; plain version
-  ``ref.py:170``.
+  ``ref.py:170``.  The reference's ``copy_paged_pages`` calls it once per
+  pool leaf of the cache; the port's kernel takes every leaf, and every
+  layer of a stacked leaf, in one launch (``page_copy_leaves``).
 
 Each attention kernel also has its int8 / fp8 scale variant: quantized
 (P, page, Hkv, D) pools with (P, page) fp32 ``k_scale`` / ``v_scale`` row
@@ -24,7 +26,10 @@ scales, dequantized where a row is loaded (the reference's ``_dequant``).
 The attention kernels are ``csrc/paged_attention.cu`` (CUDA C++ for
 ``sm_90a``), one source with three entry points over the shared attention
 block of ``csrc/paged_common.cuh`` (and the two bf16 designs below); the
-page copy is ``csrc/page_copy.cu``.
+page copy is ``csrc/page_copy.cu``: one launch a copy-on-write, its leaf
+table (base, bytes a page, pages a layer, layers) and page ids in the
+launch's parameters, each block one (leaf, layer, pair, 16 KB chunk) task
+of 16-byte vectors, four loads in flight a thread.
 What bounds them on an H100: bytes.  Each query row reads the K and V rows
 of its own pages up to its last visible key, once for all G query heads of a
 KV head, and does about 6 flops per byte at G = 3 (12 on quantized pages).
@@ -71,8 +76,8 @@ Each public function runs the plain version for CPU tensors and the kernel
 for CUDA tensors; on a CUDA tensor it launches the kernel or raises.
 ``LAUNCHES`` counts each kernel's launches under its label (the kernel's
 name, ``<name>.int8`` / ``<name>.fp8`` for the scale variants, and
-``page_copy``), raised by one where the wrapper launches it and nowhere
-else.
+``page_copy``: one a copy-on-write of up to ``COPY_MAX_PAIRS`` pages),
+raised by one where the wrapper launches it and nowhere else.
 """
 from __future__ import annotations
 
@@ -99,6 +104,11 @@ MIN_SPLIT_KEYS, MAX_SPLITS = 256, 8
 #: the tensor-core chunk route splits keys only below this many row-tile
 #: items (lanes x row tiles x KV heads; experiments/torch_chunk_splits.py)
 CHUNK_SPLIT_ITEMS = 128
+#: page pairs and pool leaves of one page-copy launch, at most
+#: (``csrc/page_copy.cu``'s kMaxPairs and kMaxLeaves: the pairs and the
+#: leaf table ride in the launch's parameter block; a cache has at most 8
+#: leaves, so only the pairs are split)
+COPY_MAX_PAIRS, COPY_MAX_LEAVES = 256, 16
 _Q_DTYPES = (torch.bfloat16, torch.float32)
 #: the kernels' ``kv_type`` codes (``csrc/paged_attention.cu``)
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -573,14 +583,16 @@ def check_page_pairs(num_pages, src, dst):
     return src, dst
 
 
-def copy_pages_plain(pool, src, dst):
-    """``ref.copy_pages_ref`` in place: pool (P, page, ...) of any dtype with
-    the rows of pages ``src`` written over pages ``dst``, as bytes (a
-    snapshot of the ``src`` rows is taken first).  Returns the pool."""
-    rows = pool.view(pool.shape[0], -1).view(torch.uint8)
+def copy_pages_plain(pool, src, dst, *, stacked=False):
+    """``ref.copy_pages_ref`` in place: the rows of pages ``src`` written
+    over pages ``dst``, as bytes (a snapshot of the ``src`` rows is taken
+    first), in pool (P, page, ...) of any dtype or, ``stacked``, in every
+    layer of pool (L, P, page, ...).  Returns the pool."""
+    lead = tuple(pool.shape[:2]) if stacked else (1, pool.shape[0])
+    rows = pool.view(*lead, -1).view(torch.uint8)
     idx = lambda v: torch.tensor(v, dtype=torch.long,        # noqa: E731
                                  device=pool.device)
-    rows[idx(dst)] = rows[idx(src)]
+    rows[:, idx(dst)] = rows[:, idx(src)]
     return pool
 
 
@@ -588,42 +600,75 @@ def _copy_lib():
     from repro_torch.kernels import build
     lib = build.load("page_copy")
     if lib.page_copy.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.page_copy.argtypes = [vp, vp, vp, i, ctypes.c_longlong, i, vp]
+        i, ptr = ctypes.c_int, ctypes.POINTER
+        # bases, page_bytes, pages, layers; n_leaves; src, dst; n, device;
+        # stream
+        lib.page_copy.argtypes = [
+            ptr(ctypes.c_ulonglong), ptr(ctypes.c_longlong), ptr(i), ptr(i),
+            i, ptr(i), ptr(i), i, i, ctypes.c_void_p]
         lib.page_copy.restype = i
         lib.page_copy_error_string.argtypes = [i]
         lib.page_copy_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def page_copy_launch(pool, ids):
-    """Launch the page-copy kernel on PyTorch's current stream (no sync):
-    ``ids`` is a (2, n) int32 tensor on the pool's device, row 0 the src
-    pages, row 1 the dst pages, already checked (``check_page_pairs``)."""
-    _check_device("page_copy", {"pool": pool, "ids": ids}, pool.device)
-    if ids.dtype != torch.int32 or ids.dim() != 2 or ids.shape[0] != 2:
-        raise ValueError("page_copy kernel: ids must be (2, n) int32")
-    page_bytes = pool.numel() // pool.shape[0] * pool.element_size()
+def leaf_pages(leaves):
+    """Pages a layer of every leaf ((pool, stacked) pairs: pool (P, page,
+    ...) or, stacked, (L, P, page, ...)); ValueError unless they agree (the
+    page ids of a copy name a page of every layer of every leaf)."""
+    pages = {pool.shape[1] if stacked else pool.shape[0]
+             for pool, stacked in leaves}
+    if len(pages) != 1:
+        raise ValueError(f"page copy: the pools hold {sorted(pages)} pages "
+                         f"a layer, not one count")
+    return pages.pop()
+
+
+def copy_leaf_table(leaves):
+    """The kernel's leaf table of (pool, stacked) pairs: one (base address,
+    bytes a page, pages a layer, layers) a leaf."""
+    table = []
+    for pool, stacked in leaves:
+        layers, pages = pool.shape[:2] if stacked else (1, pool.shape[0])
+        table.append((pool.data_ptr(), pool.numel() // (layers * pages)
+                      * pool.element_size(), pages, layers))
+    return table
+
+
+def copy_launches(table, src, dst):
+    """The page copy's launches: [(leaf table, src, dst)], the whole table
+    in each, the pairs in runs of at most ``COPY_MAX_PAIRS``, in order."""
+    return [(table, src[j:j + COPY_MAX_PAIRS], dst[j:j + COPY_MAX_PAIRS])
+            for j in range(0, len(src), COPY_MAX_PAIRS)]
+
+
+def page_copy_cuda(leaves, src, dst):
+    """Launch the page-copy kernel on PyTorch's current stream (no sync)
+    for CUDA pools ``leaves`` ((pool, stacked) pairs, one device,
+    contiguous) and host page lists ``src`` / ``dst`` already checked by
+    ``check_page_pairs``: one launch for up to ``COPY_MAX_PAIRS`` pairs
+    (more than ``COPY_MAX_LEAVES`` leaves raise), nothing uploaded (the
+    table and the ids go in the launch's parameters).  Returns the
+    leaves."""
+    dev = leaves[0][0].device
+    _check_device("page_copy", {f"pool {k}": pool
+                                for k, (pool, _) in enumerate(leaves)}, dev)
     lib = _copy_lib()
-    err = lib.page_copy(pool.data_ptr(), ids[0].data_ptr(),
-                        ids[1].data_ptr(), ids.shape[1], page_bytes,
-                        pool.device.index,
-                        torch.cuda.current_stream(pool.device).cuda_stream)
-    if err != 0:
-        msg = lib.page_copy_error_string(err).decode()
-        raise RuntimeError(f"page_copy kernel launch failed ({err}): {msg}")
-    LAUNCHES["page_copy"] += 1
-
-
-def page_copy_cuda(pool, src, dst):
-    """Upload the host page lists ``src`` / ``dst`` (already checked by
-    ``check_page_pairs``) and launch the page-copy kernel.  Returns the
-    pool, rewritten in place."""
-    _check_device("page_copy", {"pool": pool}, pool.device)
-    if src:
-        page_copy_launch(pool, torch.tensor([src, dst], dtype=torch.int32)
-                         .to(pool.device))
-    return pool
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    c = ctypes
+    for table, s, d in copy_launches(copy_leaf_table(leaves), src, dst):
+        k, n = len(table), len(s)
+        base, nbytes, pages, layers = zip(*table)
+        err = lib.page_copy(
+            (c.c_ulonglong * k)(*base), (c.c_longlong * k)(*nbytes),
+            (c.c_int * k)(*pages), (c.c_int * k)(*layers), k,
+            (c.c_int * n)(*s), (c.c_int * n)(*d), n, dev.index, stream)
+        if err != 0:
+            msg = lib.page_copy_error_string(err).decode()
+            raise RuntimeError(f"page_copy kernel launch failed ({err}): "
+                               f"{msg}")
+        LAUNCHES["page_copy"] += 1
+    return leaves
 
 
 # --------------------------------------------------------------------------- #
@@ -660,11 +705,35 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, pos, n_valid, *,
               k_scale=k_scale, v_scale=v_scale)
 
 
+def page_copy_leaves(leaves, src, dst):
+    """Copy-on-write page copy in place over several pools at once:
+    ``leaves`` (pool, stacked) pairs, pool (P, page, ...) or, stacked, (L,
+    P, page, ...) of any dtype, every leaf with the same P; in every layer
+    of every leaf the rows of pages ``src`` are written over pages ``dst``
+    (host sequences of page ids; ``dst`` distinct and disjoint from
+    ``src``, else ValueError, checked once for all leaves).  The plain
+    version leaf by leaf for CPU pools, one kernel launch (or one per
+    ``COPY_MAX_PAIRS`` pairs; at most ``COPY_MAX_LEAVES`` leaves) for CUDA
+    pools.  Returns the leaves."""
+    leaves = list(leaves)
+    if not leaves:
+        return leaves
+    src, dst = check_page_pairs(leaf_pages(leaves), src, dst)
+    devices = {pool.device for pool, _ in leaves}
+    if len(devices) != 1:
+        raise ValueError(f"page copy: pools on {sorted(map(str, devices))}")
+    if leaves[0][0].device.type == "cpu":
+        for pool, stacked in leaves:
+            copy_pages_plain(pool, src, dst, stacked=stacked)
+        return leaves
+    return page_copy_cuda(leaves, src, dst) if src else leaves
+
+
 def page_copy(pool, src, dst):
     """Copy-on-write page copy in place: pool (P, page, ...) of any dtype,
     ``src`` / ``dst`` host sequences of page ids (``dst`` distinct and
     disjoint from ``src``, else ValueError).  The plain version for a CPU
-    pool, the CUDA kernel for a CUDA pool.  Returns the pool."""
-    src, dst = check_page_pairs(pool.shape[0], src, dst)
-    fn = copy_pages_plain if pool.device.type == "cpu" else page_copy_cuda
-    return fn(pool, src, dst)
+    pool, the CUDA kernel with a one-leaf table for a CUDA pool.  Returns
+    the pool."""
+    page_copy_leaves([(pool, False)], src, dst)
+    return pool

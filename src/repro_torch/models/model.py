@@ -358,17 +358,13 @@ def copy_paged_pages(cache, src, dst):
     pools included (the device half of ``BlockTable`` copy-on-write; the
     host half swaps the block-table entry).
 
-    ``src`` / ``dst`` are host sequences of page ids.  One ``ops.copy_pages``
-    call per pool leaf: block 0's pools as they are, the stacked
-    (L-1, P, ...) pools viewed as (L-1)*P flat pages with the page ids
-    offset per layer.  ``a1_sig`` is per slot, not per page: untouched.
-    Returns the cache."""
-    src, dst = [int(i) for i in src], [int(i) for i in dst]
-    for pool in cache["block0"].values():
-        ops.copy_pages(pool, src, dst)
-    for pool in cache["blocks"].values():
-        L, P = pool.shape[:2]
-        flat = pool.view((L * P,) + tuple(pool.shape[2:]))
-        ops.copy_pages(flat, [s + i * P for i in range(L) for s in src],
-                       [d + i * P for i in range(L) for d in dst])
+    ``src`` / ``dst`` are host sequences of page ids.  One
+    ``ops.copy_page_leaves`` call for every pool leaf: block 0's pools as
+    they are, the stacked (L-1, P, ...) pools in every layer (one kernel
+    launch for the whole cache on the card; the reference makes one
+    ``ops.copy_pages`` call a leaf, with the ids offset per layer).
+    ``a1_sig`` is per slot, not per page: untouched.  Returns the cache."""
+    ops.copy_page_leaves(
+        [(pool, False) for pool in cache["block0"].values()]
+        + [(pool, True) for pool in cache["blocks"].values()], src, dst)
     return cache

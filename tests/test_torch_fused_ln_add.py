@@ -1,11 +1,15 @@
 """The port's fused LN-add module: its plain version against
 ``ref.ln_add_ref`` and the Pallas kernel in interpret mode (rmsnorm and
-layernorm, fp32 and bf16), its gradients against ``jax.grad``, the backward
-kernel's reduction order (``csrc/fused_ln_add.cu``: per-block partial rows
-over a fixed set of rows, then column sums in a fixed two-level order)
-emulated in torch against ``jax.grad``, FAL's MLP inputs in ``core/fal.py``
-(which now run it) against the reference's for all six connection modes,
-and (on a card only) the CUDA kernels against the plain version.
+layernorm, fp32 and bf16), its gradients against ``jax.grad``, the forward
+kernel's per-row reduction order (``csrc/fused_ln_add.cu``: a row's
+vectors over a fixed group of threads, an xor butterfly in each warp, the
+warps' sums in order) emulated in torch against ``ref.ln_add_ref`` and the
+Pallas kernel, and its launch rule, the backward kernel's reduction order
+(per-block partial rows over a fixed set of rows, then column sums in a
+fixed two-level order) emulated in torch against ``jax.grad``, FAL's MLP
+inputs in ``core/fal.py`` (which now run it) against the reference's for
+all six connection modes, and (on a card only) the CUDA kernels against
+the plain version.
 
 Tolerances: fp32 1e-6 (one rsqrt and a few products, values of order 1);
 bf16 one bf16 ulp of the largest output (the same fp32 value rounded once
@@ -92,13 +96,170 @@ def test_gradients_match_jax_grad(kind):
                                    rtol=0)
 
 
-def _bwd_constants():
-    """The backward's grid and column-sum constants from its source."""
+def _cu_constants(*names):
+    """Integer constants of ``csrc/fused_ln_add.cu``."""
     src = (pathlib.Path(LN.__file__).parent / "csrc" / "fused_ln_add.cu")
     const = dict(re.findall(r"constexpr int (k\w+) = (\d+);",
                             src.read_text()))
-    return {k: int(const[k]) for k in ("kBwdPerSM", "kSumThreads",
-                                       "kMaxThreads")}
+    return {k: int(const[k]) for k in names}
+
+
+def _bwd_constants():
+    """The backward's grid and column-sum constants from its source."""
+    return _cu_constants("kBwdPerSM", "kSumThreads", "kMaxThreads")
+
+
+_FWD = ("kFwdWarpVecs", "kFwdVecs", "kFwdMaxWarps", "kFwdBlockThreads")
+
+
+def fwd_launch(rows, nv, sms):
+    """The forward's launch rule (``fwd_row_threads`` and ``fwd`` in the
+    source), from its constants: (threads a row T, vectors a thread NV,
+    rows a block R, blocks).  T and NV follow from a row's nv vectors
+    alone: one warp while it holds the row in kFwdWarpVecs vectors a
+    thread, else warps for kFwdVecs a thread, at most kFwdMaxWarps; R (a
+    power of two) only while R groups fit a many-row block and the blocks
+    still number at least ``sms``."""
+    c = _cu_constants(*_FWD)
+    t = 32 if nv <= 32 * c["kFwdWarpVecs"] else \
+        32 * min(-(-nv // (32 * c["kFwdVecs"])), c["kFwdMaxWarps"])
+    R = 1
+    while 2 * R * t <= c["kFwdBlockThreads"] and -(-rows // (2 * R)) >= sms:
+        R *= 2
+    return t, -(-nv // t), R, -(-rows // R)
+
+
+def _fma(a, b, c):
+    """fp32 fma(a, b, c): the exact product and sum in fp64, rounded once
+    to fp32 (a double rounding, not the card's single one, in rare
+    halfway cases)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def emulate_ln_add_fwd(x, a1n, scale, bias, kind, *, vec, eps=1e-6):
+    """The forward kernel's arithmetic and order on (rows, d) inputs in
+    their dtype, with rows of ``vec``-value vectors: thread t of a row's T
+    sums the values of its vectors t, t + T, ... in vector order (fmaf of
+    the squares for rmsnorm); each warp adds its 32 lanes in an xor
+    butterfly, the row adds its warps' sums in warp order; layernorm takes
+    the mean that way, then the mean square about it from the same values.
+    Returns (y in x's dtype, mean, rstd)."""
+    rows, d = x.shape
+    nv = d // vec
+    t, n, _, _ = fwd_launch(rows, nv, sms=1)
+    xf = x.float()
+    ln = kind == "layernorm"
+
+    def row_sum(vals, square):
+        # (rows, d) -> (rows, T, NV * vec) in each thread's order
+        pad = torch.zeros(rows, n * t * vec)
+        pad[:, :d] = vals
+        per = pad.view(rows, n, t, vec).permute(0, 2, 1, 3).reshape(
+            rows, t, n * vec)
+        acc = torch.zeros(rows, t)
+        for i in range(n * vec):
+            v = per[:, :, i]
+            acc = _fma(v, v, acc) if square else acc + v
+        lanes = acc.view(rows, t // 32, 32)
+        for o in (16, 8, 4, 2, 1):
+            lanes = lanes[..., :o] + lanes[..., o:2 * o]
+        s = lanes[..., 0]
+        out = s[:, 0]
+        for w in range(1, t // 32):
+            out = out + s[:, w]
+        return out
+
+    if ln:
+        mu = row_sum(xf, False) / d
+        var = row_sum(xf - mu[:, None], True) / d
+    else:
+        mu = torch.zeros(rows)
+        var = row_sum(xf, True) / d
+    rstd = torch.rsqrt(var + eps)
+    if ln:
+        n_ = _fma((xf - mu[:, None]) * rstd[:, None], scale, bias)
+    else:
+        n_ = xf * rstd[:, None] * scale
+    return (n_ + a1n.float()).to(x.dtype), mu, rstd
+
+
+#: (vector width, dtype) of a row of width d: 16-byte vectors where d
+#: allows (8 bf16 or 4 fp32 values), else halves down to one value
+def _vec(d, dtype):
+    vec = 8 if dtype == "bfloat16" else 4
+    while d % vec:
+        vec //= 2
+    return vec
+
+
+@pytest.mark.parametrize("d", [3072, 768, 200, 1001])
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_reduction_order_matches_reference(d, kind, dtype):
+    """The forward kernel's per-row order (one warp a row at d = 768 bf16
+    and d = 200; 3 to 16 warps at 768 fp32, 1001 and 3072) against
+    ``ref.ln_add_ref`` and the Pallas kernel in interpret mode: fp32 within
+    1e-5, bf16 within one bf16 ulp of the largest output (one rounding of
+    fp32 values a few ulps apart)."""
+    x, a1, scale, bias, _ = _case(kind, rows=13, d=d, seed=d)
+    jx, ja = (jnp.asarray(t).astype(dtype) for t in (x, a1))
+    jb = None if bias is None else jnp.asarray(bias)
+    tx, ta = (torch.from_numpy(t).to(getattr(torch, dtype)) for t in (x, a1))
+    got, _, _ = emulate_ln_add_fwd(
+        tx, ta, torch.from_numpy(scale),
+        None if bias is None else torch.from_numpy(bias), kind,
+        vec=_vec(d, dtype))
+    got = got.float().numpy()
+    refs = (RREF.ln_add_ref(jx, ja, jnp.asarray(scale), jb, kind=kind),
+            RLN.fused_ln_add(jx, ja, jnp.asarray(scale), jb, kind=kind,
+                             block_rows=8, interpret=True))
+    for ref in refs:
+        ref = np.asarray(ref.astype(jnp.float32))
+        tol = 1e-5 if dtype == "float32" else _bf16_ulp(ref)
+        np.testing.assert_allclose(got, ref, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("kind,d", [("rmsnorm", 3072), ("layernorm", 768)])
+def test_forward_row_bits_do_not_depend_on_row_count(kind, d):
+    """A row's threads and order come from d alone: at 263 rows (the
+    engine's token budget), 8 (a padded decode tick) and 1 row the launch
+    keeps T and NV, and the emulated rows 0..7 have the same bits.  The
+    emulation computes each row on its own, so this holds the launch plan
+    to the property; the kernel itself is held to it on the card
+    (``test_forward_without_statistics_on_card`` and chip_smoke.py)."""
+    x, a1, scale, bias, _ = _case(kind, rows=263, d=d, seed=3)
+    tx, ta = (torch.from_numpy(t).bfloat16() for t in (x, a1))
+    sc = torch.from_numpy(scale)
+    bi = None if bias is None else torch.from_numpy(bias)
+    nv = d // 8
+    plans = {rows: fwd_launch(rows, nv, sms=132) for rows in (1, 8, 263)}
+    assert len({p[:2] for p in plans.values()}) == 1
+    full = emulate_ln_add_fwd(tx, ta, sc, bi, kind, vec=8)
+    for rows in (8, 1):
+        part = emulate_ln_add_fwd(tx[:rows], ta[:rows], sc, bi, kind, vec=8)
+        for a, b in zip(part, full):
+            assert torch.equal(a, b[:rows])
+
+
+def test_forward_launch_rule():
+    """The constants of the forward's launch rule in the source, and what
+    they give at the port's shapes on a 132-SM card: d = 3072 bf16 six
+    warps a row of 2 vectors each, a row a block; d = 768 bf16 one warp a
+    row of 3 (no barrier), eight rows a block at 2048 rows, two at 263,
+    one at 8; fp32 d = 3072 twelve warps; d = 8191 (one-value vectors) 16
+    warps of 16."""
+    assert _cu_constants(*_FWD) == {"kFwdWarpVecs": 3, "kFwdVecs": 2,
+                                    "kFwdMaxWarps": 16,
+                                    "kFwdBlockThreads": 256}
+    assert fwd_launch(263, 384, 132) == (192, 2, 1, 263)
+    assert fwd_launch(8, 384, 132) == (192, 2, 1, 8)
+    assert fwd_launch(2048, 384, 132) == (192, 2, 1, 2048)
+    assert fwd_launch(2048, 96, 132) == (32, 3, 8, 256)
+    assert fwd_launch(263, 96, 132) == (32, 3, 2, 132)
+    assert fwd_launch(8, 96, 132) == (32, 3, 1, 8)
+    assert fwd_launch(2048, 768, 132) == (384, 2, 1, 2048)
+    assert fwd_launch(3, 8191, 132) == (512, 16, 1, 3)
+    assert fwd_launch(3, 128, 132) == (64, 2, 1, 3)     # d = 1024 bf16
 
 
 def emulate_ln_add_bwd(dy, x, scale, kind, *, sms, eps=1e-6):
@@ -285,3 +446,47 @@ def test_kernels_match_plain_on_card():
         assert (dscale - leaves[1].grad).abs().max().item() <= 1e-3
         assert torch.equal(dx, again[0]) and torch.equal(dscale, again[1])
         assert (dscale.cpu() - emu[1]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_forward_without_statistics_on_card():
+    """The serving route (no statistics written or allocated) gives y's
+    bits; ``fused_ln_add`` takes it with no gradient to compute, and the
+    autograd Function (statistics saved) otherwise; the emulated order
+    stays within 1e-5 of the kernel in fp32.  In bf16 a row's bits do not
+    depend on the row count: rows 0..7 of a 263-row rmsnorm call and of a
+    2048-row layernorm call (8 rows a block at d = 768) equal an 8-row and
+    a 1-row call's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card: python3 "
+                    "chip_smoke.py or pytest -m cuda)")
+    for kind, rows, d in (("rmsnorm", 263, 3072), ("layernorm", 8, 768),
+                          ("rmsnorm", 5, 1001)):
+        x, a1, scale, bias = (None if t is None else
+                              torch.from_numpy(t).cuda()
+                              for t in _case(kind, rows, d)[:4])
+        y, mean, rstd = LN.fused_ln_add_fwd_cuda(x, a1, scale, bias,
+                                                 kind=kind)
+        bare, m2, r2 = LN.fused_ln_add_fwd_cuda(x, a1, scale, bias,
+                                                kind=kind, stats=False)
+        with torch.no_grad():
+            served = LN.fused_ln_add(x, a1, scale, bias, kind=kind)
+        emu = emulate_ln_add_fwd(x.cpu(), a1.cpu(), scale.cpu(),
+                                 None if bias is None else bias.cpu(), kind,
+                                 vec=_vec(d, "float32"))
+        torch.cuda.synchronize()
+        assert m2 is None and r2 is None
+        assert torch.equal(bare, y) and torch.equal(served, y)
+        assert (y.cpu() - emu[0]).abs().max().item() <= 1e-5
+        assert (rstd.cpu() - emu[2]).abs().max().item() <= 1e-5
+    for kind, rows, d in (("rmsnorm", 263, 3072), ("layernorm", 2048, 768)):
+        x, a1, scale, bias = (None if t is None else
+                              torch.from_numpy(t).cuda()
+                              for t in _case(kind, rows, d, seed=5)[:4])
+        x, a1 = x.bfloat16(), a1.bfloat16()
+        full = LN.fused_ln_add_fwd_cuda(x, a1, scale, bias, kind=kind,
+                                        stats=False)[0]
+        for n in (8, 1):
+            part = LN.fused_ln_add_fwd_cuda(x[:n], a1[:n], scale, bias,
+                                            kind=kind, stats=False)[0]
+            assert torch.equal(part, full[:n])

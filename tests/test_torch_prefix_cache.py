@@ -2,13 +2,17 @@
 package: the radix tree (the same insert / match / evict sequences through
 both classes), the page copy (plain version against ``ref.copy_pages_ref``
 and the Pallas ``page_copy`` in interpret mode, bit for bit, and the
-wrapper's checks), ``copy_paged_pages`` across every layer, and the
+wrapper's checks), ``copy_paged_pages`` across every layer, a plain mirror
+of the cache-wide page-copy launch (its leaf table, its tasks and the
+split at the cap of ``csrc/page_copy.cu``) against the reference, and the
 prefix-cached engine: greedy streams equal to the reference's and to cold
 runs, the seeded ``a1_sig`` of a full-prompt hit, COW among sharers,
 dual-branch under preemption, re-prefill from the cached prefix after a
 preemption, and ``stats()["prefix"]``; and (on a card only) the page-copy
-kernel against its plain version."""
+kernel against its plain version, one pool and the whole cache."""
 import functools
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -269,6 +273,131 @@ def test_copy_paged_pages_matches_reference_all_layers(kv):
     assert ops.launch_counts()["page_copy"] == 0     # the CPU: plain only
 
 
+def _copy_constants():
+    """The page-copy kernel's constants from its source."""
+    src = pathlib.Path(PA.__file__).parent / "csrc" / "page_copy.cu"
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);",
+                            src.read_text()))
+    return {k: int(const[k]) for k in ("kThreads", "kInFlight",
+                                       "kMaxLeaves", "kMaxPairs")}
+
+
+def _mirror_cow_plan(cache, src, dst):
+    """A plain mirror of the cache-wide page copy: the leaf table (block
+    0's pools, then the stacked pools: base, bytes a page, pages a layer,
+    layers; at most kMaxLeaves), its launches (the pairs in runs of
+    kMaxPairs) and, for each, its blocks in order: (leaf, layer, src page,
+    dst page, first byte, bytes) with the page's chunks of kThreads x
+    kInFlight units (16 bytes where the page size and the base allow, else
+    one), layer-major, then pair, then chunk.  Returns (leaves, table,
+    [(table, src, dst, tasks)])."""
+    c = _copy_constants()
+    leaves = [(p, False) for p in cache["block0"].values()] \
+        + [(p, True) for p in cache["blocks"].values()]
+    table = []
+    for pool, stacked in leaves:
+        L, P = pool.shape[:2] if stacked else (1, pool.shape[0])
+        table.append((pool.data_ptr(), pool.numel() // (L * P)
+                      * pool.element_size(), P, L))
+    assert len(table) <= c["kMaxLeaves"]
+    plans = []
+    for j in range(0, len(src), c["kMaxPairs"]):
+        s, d = src[j:j + c["kMaxPairs"]], dst[j:j + c["kMaxPairs"]]
+        tasks = []
+        for k, (base, nbytes, _, L) in enumerate(table):
+            unit = 16 if nbytes % 16 == 0 and base % 16 == 0 else 1
+            chunk = c["kThreads"] * c["kInFlight"] * unit
+            tasks += [(k, layer, s[n], d[n], off, min(chunk, nbytes - off))
+                      for layer in range(L) for n in range(len(s))
+                      for off in range(0, nbytes, chunk)]
+        plans.append((table, s, d, tasks))
+    return leaves, table, plans
+
+
+_COW_CASES = {"n=1": ([2], [5]), "n=3, repeated src": ([2, 7, 2], [5, 6, 9]),
+              "n above the cap": (list(range(1, 262)), list(range(300, 561)))}
+
+
+@pytest.mark.parametrize("case", list(_COW_CASES))
+@pytest.mark.parametrize("kv", ["", "int8", "fp8"])
+def test_cow_launch_plan_matches_reference(kv, case):
+    """The mirror's tasks, run one after the other on byte views of the
+    port's cache (blocks run in no order; dst pages are disjoint from src,
+    so any order gives these bytes), give ``RM.copy_paged_pages``'s cache
+    byte for byte on bf16, int8 and fp8 caches with their scales; the
+    module's leaf table and launch split are the mirror's, one launch a
+    COW up to the cap and one more past it."""
+    src, dst = _COW_CASES[case]
+    cfg = ref_config("llama3.2-3b").reduced().replace(n_layers=3)
+    rng = np.random.default_rng(len(kv) + len(src))
+    cache = jax.tree.map(np.asarray, RM.init_paged_cache(
+        cfg, 600, 4, 2, "bfloat16", kv_dtype=kv))
+
+    def fill(a):
+        if a.dtype == np.int8:
+            return rng.integers(-128, 128, a.shape).astype(np.int8)
+        return np.asarray(jnp.asarray(rng.standard_normal(a.shape))
+                          .astype(a.dtype))
+
+    cache = jax.tree.map(fill, cache)
+    want = RM.copy_paged_pages(jax.tree.map(jnp.asarray, cache),
+                               jnp.asarray(src, jnp.int32),
+                               jnp.asarray(dst, jnp.int32))
+    got = interop.cache_from_numpy(cache, "cpu")
+    leaves, table, plans = _mirror_cow_plan(got, src, dst)
+    assert table == PA.copy_leaf_table(leaves)
+    assert [p[:3] for p in plans] == PA.copy_launches(table, src, dst)
+    cap = _copy_constants()["kMaxPairs"]
+    assert len(plans) == -(-len(src) // cap)
+    rows = [pool.reshape(t[2] * t[3], -1).view(torch.uint8)
+            for (pool, _), t in zip(leaves, table)]
+    for tab, _, _, tasks in plans:
+        assert len(tasks) < 2 ** 31
+        for leaf, layer, s, d, off, n in tasks:
+            P = table[leaf][2]
+            rows[leaf][layer * P + d, off:off + n] = \
+                rows[leaf][layer * P + s, off:off + n]
+    for path, leaf in jax.tree_util.tree_leaves_with_path(want):
+        t = got
+        for key in path:
+            t = t[key.key]
+        np.testing.assert_array_equal(_bytes(t), _bytes(leaf))
+
+
+def test_page_copy_cap_matches_source():
+    """The wrapper's caps are the kernel's, the parameter block they size
+    stays under 4 KB (16 leaves of 48 bytes, two counts, the pairs), and a
+    copy past the pair cap is split into runs of the cap, every launch
+    with the whole leaf table."""
+    c = _copy_constants()
+    assert (PA.COPY_MAX_PAIRS, PA.COPY_MAX_LEAVES) == (c["kMaxPairs"],
+                                                      c["kMaxLeaves"])
+    assert c["kMaxLeaves"] * 48 + 8 + 2 * 4 * c["kMaxPairs"] < 4096
+    table = [(16 * i, 64, 1000, 1) for i in range(8)]
+    src, dst = list(range(600)), list(range(600, 1200))
+    got = PA.copy_launches(table, src, dst)
+    assert [(t, s[0], len(s)) for t, s, _ in got] == [
+        (table, 0, 256), (table, 256, 256), (table, 512, 88)]
+    assert all(d == [x + 600 for x in s] for _, s, d in got)
+
+
+def test_copy_page_leaves_checks_once():
+    """``ops.copy_page_leaves`` checks the pairs once for all leaves (and
+    raises on overlaps as ``copy_pages`` does), refuses leaves whose pages
+    a layer differ, and records the ``copy_pages`` call site."""
+    a, b = torch.zeros(10, 4, 2), torch.zeros(3, 10, 4)
+    with pytest.raises(ValueError, match="also a src"):
+        ops.copy_page_leaves([(a, False), (b, True)], [1, 2], [2, 5])
+    with pytest.raises(ValueError, match="pages a layer"):
+        ops.copy_page_leaves([(a, False), (torch.zeros(3, 9, 4), True)],
+                             [1], [2])
+    a[1], b[:, 1] = 1.0, 2.0
+    ops.reset_dispatch_paths()
+    ops.copy_page_leaves([(a, False), (b, True)], [1], [4])
+    assert ops.dispatch_paths() == {"copy_pages": ops.PLAIN}
+    assert torch.equal(a[4], a[1]) and torch.equal(b[:, 4], b[:, 1])
+
+
 # --------------------------------------------------------------------------- #
 # the engine
 # --------------------------------------------------------------------------- #
@@ -496,3 +625,24 @@ def test_page_copy_matches_plain_on_card():
             PA.copy_pages_plain(b, src, dst)
             torch.cuda.synchronize()
             assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    # the cache-wide launch: every leaf and layer of bf16 and int8 caches
+    cfg = get_config("llama3.2-3b").reduced().replace(n_layers=3)
+    for kv in ("", "int8"):
+        cache = TM.init_paged_cache(cfg, 600, 4, 2, "bfloat16", kv_dtype=kv,
+                                    device="cuda")
+        for part in ("block0", "blocks"):
+            for pool in cache[part].values():
+                pool.view(torch.uint8).copy_(torch.randint(
+                    0, 256, pool.view(torch.uint8).shape, dtype=torch.uint8))
+        for src, dst in _COW_CASES.values():
+            leaves, _, plans = _mirror_cow_plan(cache, src, dst)
+            want = [PA.copy_pages_plain(pool.clone(), src, dst,
+                                        stacked=stacked)
+                    for pool, stacked in leaves]
+            ops.reset_launches()
+            TM.copy_paged_pages(cache, src, dst)
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["page_copy"] == len(plans)
+            assert all(torch.equal(w.view(torch.uint8),
+                                   pool.view(torch.uint8))
+                       for w, (pool, _) in zip(want, leaves))
