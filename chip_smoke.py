@@ -61,7 +61,8 @@ script exits non-zero:
                  the engine's 263 rows, the padded decode's 8 rows and with
                  fewer rows than the backward's grid, the forward also
                  without its statistics and after a read flush)
-  5. tick        one packed tick (bf16, int8 and fp8 pages), one padded
+  5. tick        one packed tick (bf16, int8 and fp8 pages), one
+                 speculative tick (draft and verify logits), one padded
                  C = 128 chunk tick and one dual-branch C == 1 tick of
                  llama3.2-3b at full width (2 layers, fp32) on the card
                  against the plain path on the CPU
@@ -72,6 +73,17 @@ script exits non-zero:
                  the same engine, timed plainly and under torch.profiler
   8. dual engine the profile workload again through
                  EngineConfig(dual_branch=True): the same token streams
+  8a. sampler    the seeded samplers on llama3.2-3b head logits (8 lanes,
+                 and the 8 x 4 verify grid): threefry bits and tokens card
+                 = CPU, fast = full on eligible lanes, ms a call
+  8b. seeded     8 seeded + 2 full-sort requests twice through the engine:
+                 the same streams, ticks x layers launches
+  8c. spec       EngineConfig(spec_tokens=4, draft_blocks=2), greedy on the
+                 random weights and seeded on late-block-damped weights,
+                 each twice, then 3 seeded ticks profiled: launches =
+                 ticks x layers + draft iterations x draft_blocks,
+                 acceptance, tok/s and common-prefix fraction against the
+                 non-spec engine
   9. prefix      the repeated-prefix workload cold and hot through
                  EngineConfig(prefix_cache=True), on bf16 and int8 pages
  10. quantized   the profile workload on int8 and on fp8 pages
@@ -91,8 +103,8 @@ script exits non-zero:
                  warm-up step, 5 counted steps, one profiled step
 
 The serving phases (5 to 11) also launch fused_ln_add: one per layer per
-tick under fal.  Every main-path run (6, 8 and each run of 9 to 11, and the
-counted steps of 13) zeroes all launch counters
+tick under fal.  Every main-path run (6, 8, 8b, each run of 8c and of 9 to
+11, and the counted steps of 13) zeroes all launch counters
 just before it and reads them just after.  The line before the last is a
 JSON object with one entry per kernel; the last line is {"ok": true,
 "device": {...}}.  Without a CUDA device, or outside a checkout, the script
@@ -603,7 +615,15 @@ def kernel_phase():
                      seed=page * g)
         check_plan(PA, edge, 2 * g, 2, d, page)
     decode = decode_tick(page=PAGE, num_pages=num_pages, tb=tb)
-    for label, t in (("mixed", tick), ("decode", decode)):
+    verify, draft = spec_ticks(page=PAGE, num_pages=num_pages, tb=tb)
+    # the speculative engine's two shapes: 4-row decode segments that see
+    # rows written in the same call, and the draft's one row a lane
+    for t in (verify, draft):
+        for dtype in (torch.bfloat16, torch.float32):
+            check_kernel(PA, dtype, t, H, HKV, D, PAGE, num_pages,
+                         tols[dtype], seed=12)
+    for label, t in (("mixed", tick), ("decode", decode),
+                     ("spec verify", verify), ("spec draft", draft)):
         check_plan(PA, t, H, HKV, D, PAGE)
         check_repeat(PA, label, t, H, HKV, D, PAGE, num_pages)
     edge = edge_tick(4)
@@ -632,6 +652,41 @@ def edge_tick(page):
     tok_pos = [p for _, ps in runs for p in ps]
     return (bt.reshape(5, tb), torch.tensor(tok_slot, dtype=torch.int32),
             torch.tensor(tok_pos, dtype=torch.int32))
+
+
+#: last known positions of the speculative ticks' decode lanes: across
+#: page and split boundaries; lanes 3 and 6 do not speculate
+SPEC_POS = (15, 16, 63, 64, 255, 256, 700, 1020)
+SPEC_LANES = (True, True, True, False, True, True, False, True)
+
+
+def spec_ticks(*, page, num_pages, tb, n=4, n_prefill=100, n_pad=5, seed=3):
+    """A speculative verify tick and its draft tick as ``make_spec_step``
+    lays them out, over one set of tables.  Verify: each speculating lane
+    of ``SPEC_POS`` packs n rows (pos..pos+n-1), the others one, then a
+    prefill lane 8 at 0..n_prefill-1 and padding.  Draft: one row a lane,
+    slot s at SPEC_POS[s] when it speculates, else padding in slot s (as
+    the draft packs it).  CPU int32 (block_tables, tok_slot, tok_pos)
+    each."""
+    g = torch.Generator().manual_seed(seed)
+    perm = (torch.randperm(num_pages - 1, generator=g) + 1).to(torch.int32)
+    last = [p + n - 1 for p in SPEC_POS] + [n_prefill - 1]
+    bt = torch.zeros((len(last), tb), dtype=torch.int32)
+    used = 0
+    for s, p in enumerate(last):
+        k = p // page + 1
+        bt[s, :k] = perm[used:used + k]
+        used += k
+    slot, pos = [], []
+    for s, (p, on) in enumerate(zip(SPEC_POS, SPEC_LANES)):
+        slot += [s] * (n if on else 1)
+        pos += list(range(p, p + (n if on else 1)))
+    slot += [len(SPEC_POS)] * n_prefill + [0] * n_pad
+    pos += list(range(n_prefill)) + [-1] * n_pad
+    d_pos = [p if on else -1 for p, on in zip(SPEC_POS, SPEC_LANES)] + [-1]
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)     # noqa: E731
+    return ((bt, i32(slot), i32(pos)),
+            (bt, torch.arange(len(last), dtype=torch.int32), i32(d_pos)))
 
 
 def check_plan(PA, tick, h, hkv, d, page):
@@ -1770,6 +1825,7 @@ def tick_phase():
     packed_tick(cfg, params)
     for kv in KV_NARROW:
         packed_tick(cfg, params, kv)
+    spec_tick(cfg, params)
     cuda = ops.CUDA
     padded_tick(cfg, params, "chunk tick C=128", 128,
                 ((0, 128), (128, 128), (256, 37), (300, 0), (0, 1),
@@ -1896,6 +1952,94 @@ def packed_tick(cfg, params, kv=""):
         raise AssertionError("non-finite hidden states on the card")
 
 
+def spec_tick(cfg, params):
+    """One speculative tick (``make_spec_step``, spec_tokens=4,
+    draft_blocks=1) at full width from one cache state, on the card
+    (kernels) and on the CPU (plain versions): the verify layout of
+    ``spec_ticks`` (six lanes speculating, two plain decode lanes, a
+    prefill lane, padding), greedy.  The draft logits of each iteration and
+    the verify logits are compared on the rows whose fed tokens (the
+    proposals so far) agree on both sides, within TICK_TOLS[""]; the card
+    runs the verify and .draft sites on the kernels, (2 + 3 x 1) launches
+    of each."""
+    from repro_torch import interop
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serve import sampling as SP
+    from repro_torch.serve.scheduler import make_spec_step
+    phase("one speculative tick at full width (spec_tokens=4, draft_blocks"
+          "=1): card (kernel) vs CPU (plain)")
+    n, num_pages, tb = 4, 512, 72
+    (bt, tok_slot, tok_pos), _ = spec_ticks(page=PAGE, num_pages=num_pages,
+                                             tb=tb, n=n)
+    S = bt.shape[0]
+    seg_last = torch.tensor([int((tok_slot == s).nonzero().max())
+                             for s in range(S)], dtype=torch.int32)
+    spec_mask = torch.tensor(list(SPEC_LANES) + [False])
+    g = torch.Generator().manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab, tok_slot.shape, generator=g,
+                           dtype=torch.int32)
+    cache = M.init_paged_cache(cfg, num_pages, PAGE, S, "float32",
+                               device="cpu")
+    random_history(cache, g)
+    z = torch.zeros(S, dtype=torch.int32)
+    batch = (tokens, tok_slot, tok_pos, bt, seg_last, spec_mask,
+             torch.zeros(S), z, torch.ones(S), z)
+    seen = {}
+
+    def run(device, p, c, args):
+        logits = seen.setdefault(device, [])
+
+        def record(lg, *a):
+            logits.append(lg.float().cpu())
+            return SP.greedy(lg)
+        step = make_spec_step(cfg, spec_tokens=n, draft_blocks=1,
+                              sampler=record)
+        tgt, fed, _ = step(p, c, *args)
+        return tgt.cpu(), fed.cpu()
+
+    gpu = {k: interop.tree_to(v, "cuda") for k, v in
+           (("params", params), ("cache", cache))}
+    ops.reset_dispatch_paths()
+    ops.reset_launches()
+    tgt_g, fed_g = run("cuda", gpu["params"], gpu["cache"],
+                       [a.cuda() for a in batch])
+    torch.cuda.synchronize()
+    paths, counts = ops.dispatch_paths(), ops.launch_counts()
+    tgt_c, fed_c = run("cpu", params, cache, batch)
+    agree = (fed_g == fed_c).long().cumprod(-1).bool()          # (S, n)
+    draft_diff, rows = 0.0, 0
+    for j in range(n - 1):          # iteration j reads rows 0..j of a lane
+        ok = spec_mask & agree[:, j]
+        rows += int(ok.sum())
+        draft_diff = max(draft_diff, (seen["cuda"][j][ok]
+                                      - seen["cpu"][j][ok]).abs().max()
+                         .item())
+    live = fed_c >= 0
+    vg, vc = (seen[d][n - 1].reshape(S, n, -1) for d in ("cuda", "cpu"))
+    vrows = agree & live
+    verify_diff = (vg[vrows] - vc[vrows]).abs().max().item()
+    tol = TICK_TOLS[""]
+    print(f"  fed tokens agree on {int(vrows.sum())}/{int(live.sum())} live "
+          f"verify rows; draft logits max |diff| {draft_diff:.3e} over "
+          f"{rows} lane-iterations, verify logits max |diff| "
+          f"{verify_diff:.3e} (max |logit| {vc[vrows].abs().max().item():.3f}"
+          f"); tol {tol:g}; targets equal on "
+          f"{int(((tgt_g == tgt_c) & vrows).sum())} of them; card paths "
+          f"{paths}; launches {counts}", flush=True)
+    require(paths == {s: ops.CUDA for s in (
+        "paged_packed_attention", "fused_ln_add",
+        "paged_packed_attention.draft", "fused_ln_add.draft")},
+        f"card spec tick paths {paths}")
+    require(counts["paged_packed_attention"] == 2 + (n - 1)
+            and counts["fused_ln_add"] == 2 + (n - 1),
+            f"spec tick launches {counts} != 2 layers + 3 draft x 1")
+    require(rows > 0 and int(vrows.sum()) > int(live.sum()) // 2,
+            "too few rows agree to compare")
+    require(draft_diff <= tol and verify_diff <= tol,
+            "card spec tick disagrees with the CPU plain path")
+
+
 def engine_phase():
     import numpy as np
     from repro_torch.configs.base import get_config
@@ -1914,14 +2058,18 @@ def engine_phase():
                         cache_dtype="bfloat16")
     engine = PagedEngine(cfg, params, ecfg)
     nan_seen = []
-    inner = engine.step_fn
+    step_for = engine._step_for
 
-    def checked(*args):
-        logits, nxt, cache = inner(*args)
-        nan_seen.append(torch.isnan(logits).any())
-        return logits, nxt, cache
+    def checked_step_for(kind):
+        inner = step_for(kind)
 
-    engine.step_fn = checked
+        def checked(*args):
+            logits, nxt, cache = inner(*args)
+            nan_seen.append(torch.isnan(logits).any())
+            return logits, nxt, cache
+        return checked
+
+    engine._step_for = checked_step_for
     rng = np.random.default_rng(0)
     # warm-up request: cuBLAS handles and allocator pools, outside the count
     engine.submit(ServeRequest(rid=-1, prompt=rng.integers(0, cfg.vocab, 32),
@@ -2140,12 +2288,16 @@ def first_token_probe(engine):
     logits its first token was sampled from (as fp32 on the host) and its
     time to first token in ms."""
     last, firsts = {}, {}
-    step, consume = engine.step_fn, engine._consume_one
+    step_for, consume = engine._step_for, engine._consume_one
 
-    def step_fn(*args):
-        logits, nxt, cache = step(*args)
-        last["logits"] = logits
-        return logits, nxt, cache
+    def probed_step_for(kind):
+        step = step_for(kind)
+
+        def step_fn(*args):
+            logits, nxt, cache = step(*args)
+            last["logits"] = logits
+            return logits, nxt, cache
+        return step_fn
 
     def consume_one(i, tok, now):
         r = engine.slots[i]
@@ -2154,7 +2306,7 @@ def first_token_probe(engine):
                              (now - r.submit_time) * 1e3)
         consume(i, tok, now)
 
-    engine.step_fn, engine._consume_one = step_fn, consume_one
+    engine._step_for, engine._consume_one = probed_step_for, consume_one
     return firsts
 
 
@@ -3152,6 +3304,338 @@ def train_phase():
     return {k: counts[k] for k in want}, dict(step_ms=ms, peak=peak)
 
 
+# --------------------------------------------------------------------------- #
+# seeded sampling and self-speculative decoding
+# --------------------------------------------------------------------------- #
+#: per-lane (temperature, top_k, top_p) of the sampler phase: greedy;
+#: temperature only and top_k 0 / top_p 0.9 (the full sort); top_k 50 /
+#: top_p 0.95 and top_k 64 (the fast path)
+SAMPLER_LANES = ((0.0, 0, 1.0), (0.9, 0, 1.0), (0.9, 50, 0.95),
+                 (0.8, 0, 0.9), (0.7, 50, 0.95), (1.0, 64, 1.0),
+                 (0.9, 50, 0.95), (1.2, 0, 0.9))
+SAMPLER_SEEDS = (0, 1, -7, 2 ** 31 - 1, -2 ** 31, 123, 42, -1)
+SAMPLER_POS = (0, 17, 100, 255, 1000, 2047, 3, 64)
+
+
+def sampler_args(n):
+    """The sampler phase's per-lane CPU tensors (temps, top_ks, top_ps,
+    seeds, positions) for its 8 lanes, each over n positions pos..pos+n-1
+    (the (S, n) verify grid flattened as ``make_spec_step`` samples it)."""
+    def rep(v, dt):
+        return torch.tensor(v, dtype=dt).repeat_interleave(n)
+    pos = (torch.tensor(SAMPLER_POS, dtype=torch.int32)[:, None]
+           + torch.arange(n, dtype=torch.int32)).reshape(-1)
+    return (rep([x[0] for x in SAMPLER_LANES], torch.float32),
+            rep([x[1] for x in SAMPLER_LANES], torch.int32),
+            rep([x[2] for x in SAMPLER_LANES], torch.float32),
+            rep(SAMPLER_SEEDS, torch.int32), pos)
+
+
+def sampler_phase(cfg, params):
+    """The samplers on the card against the CPU, on llama3.2-3b head logits
+    (bf16 head, fp32 logits) at S = 8 lanes and at the (8, 4) verify grid:
+    the threefry bits and uniforms equal, the full and fast samplers' tokens
+    equal, fast = full on the fast-eligible lanes.  Times a call of each
+    (CUDA events around one call, L2 flushed before, median of 20).
+    Returns {(sampler, rows): ms}."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import prng
+    from repro_torch.serve import sampling as SP
+    phase("sampler: seeded sampling over llama3.2-3b's 128256 logits, card "
+          "vs CPU")
+    V = cfg.vocab
+    samplers = {"full": SP.sample_tokens, "fast": SP.fast_sampler(V)}
+    g = torch.Generator(device="cuda").manual_seed(23)
+    with torch.no_grad():
+        h = torch.randn((32, 1, cfg.d_model), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        logits = M.lm_head(params, cfg, h)[:, 0].float()          # (32, V)
+    eligible = torch.tensor([SP.fast_eligible(SP.SamplingParams(*x), V)
+                             for x in SAMPLER_LANES])
+    times = {}
+    for n in (1, 4):
+        args = sampler_args(n)
+        cuda = tuple(a.cuda() for a in args)
+        lg = logits[:8 * n]
+        keys = prng.fold_in(prng.prng_key(args[3]), args[4])
+        bits = torch.equal(prng.random_bits(keys.cuda(), V).cpu(),
+                           prng.random_bits(keys, V))
+        uni = torch.equal(prng.uniform(keys.cuda(), V, 1e-20).cpu(),
+                          prng.uniform(keys, V, 1e-20))
+        toks = {name: (fn(lg, *cuda).cpu(), fn(lg.cpu(), *args))
+                for name, fn in samplers.items()}
+        elig = eligible.repeat_interleave(n)
+        print(f"  {8 * n} rows: bits card = CPU {bits}, uniform card = CPU "
+              f"{uni}; tokens card = CPU: full "
+              f"{torch.equal(*toks['full'])}, fast "
+              f"{torch.equal(*toks['fast'])}; fast = full on the "
+              f"{int(elig.sum())} eligible rows "
+              f"{torch.equal(toks['fast'][0][elig], toks['full'][0][elig])}"
+              f"; full tokens {toks['full'][0].tolist()}", flush=True)
+        require(bits and uni, "the card's threefry bits differ from the CPU's")
+        for name, (a, b) in toks.items():
+            require(torch.equal(a, b), f"{name} sampler: card tokens {a} != "
+                    f"CPU tokens {b}")
+        require(torch.equal(toks["fast"][0][elig], toks["full"][0][elig]),
+                "fast sampler != full sampler on eligible lanes")
+        for name, fn in samplers.items():
+            times[(name, 8 * n)] = _median_ms(lambda: fn(lg, *cuda), n=20)
+    print("  ms a call: " + "; ".join(
+        f"{name} at {rows} rows {ms:.3f}" for (name, rows), ms
+        in times.items()), flush=True)
+    return times
+
+
+def seeded_workload(vocab, n=10, n_full=2, seed=5):
+    """Seeded requests (temperature 0.9, top_k 50, top_p 0.95, seed rid:
+    the fast sampler), the last ``n_full`` on the full sort (top_k 0, top_p
+    0.9), prompts of 64..256 tokens: [(rid, prompt, SamplingParams)]."""
+    import numpy as np
+    from repro_torch.serve.sampling import SamplingParams
+    rng = np.random.default_rng(seed)
+    full = lambda i: i >= n - n_full                          # noqa: E731
+    return [(i, rng.integers(0, vocab, int(rng.integers(64, 257))),
+             SamplingParams(temperature=0.9, top_k=0 if full(i) else 50,
+                            top_p=0.9 if full(i) else 0.95, seed=i))
+            for i in range(n)]
+
+
+def serve_counted(engine, work, max_new):
+    """Serve ``work`` [(rid, prompt, sampling or None: greedy)] on
+    ``engine`` once, launch
+    counters and dispatch paths zeroed just before and read just after.
+    Returns (streams, wall s, launches, paths, stats)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import ServeRequest
+    engine.finished.clear()
+    engine.reset_stats()
+    for rid, prompt, sp in work:
+        kw = {} if sp is None else {"sampling": sp}
+        engine.submit(ServeRequest(rid=rid, prompt=prompt, max_new=max_new,
+                                   **kw))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ops.reset_dispatch_paths()
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(len(done) == len(work) and all(
+        not r.truncated and len(r.generated) == max_new for r in done),
+        "not every request finished with max_new tokens")
+    return ({r.rid: list(map(int, r.generated)) for r in done}, wall,
+            ops.launch_counts(), ops.dispatch_paths(), engine.stats())
+
+
+def warm(engine, vocab, sampling=None):
+    """One short request outside every count (cuBLAS handles, allocator
+    pools, each sampler variant the runs will use)."""
+    import numpy as np
+    from repro_torch.serve.scheduler import ServeRequest
+    prompt = np.random.default_rng(99).integers(0, vocab, 32)
+    for sp in sampling or [None]:
+        kw = {} if sp is None else {"sampling": sp}
+        engine.submit(ServeRequest(rid=-1, prompt=prompt, max_new=6, **kw))
+        engine.run()
+
+
+def seeded_engine_phase(cfg, params, ecfg):
+    """Seeded requests at llama3.2-3b full width and depth, twice through
+    one engine: every request finishes, the repeat gives the same streams,
+    the card runs the kernels only, one launch of each per layer per tick.
+    Returns the packed kernel's launches in the first run."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import PagedEngine
+    L = cfg.n_layers
+    phase(f"seeded engine: llama3.2-3b, {L} layers, bf16, 8 seeded + 2 "
+          f"full-sort requests, twice")
+    work = seeded_workload(cfg.vocab)
+    engine = PagedEngine(cfg, params, ecfg)
+    warm(engine, cfg.vocab, [work[0][2], work[-1][2]])
+    runs = [serve_counted(engine, work, 24) for _ in range(2)]
+    for streams, wall, counts, paths, st in runs:
+        gen = sum(map(len, streams.values()))
+        print(f"  {st['ticks']} ticks, {gen} tokens in {wall:.2f} s = "
+              f"{gen / wall:.1f} tok/s; engine_dispatch_ms p50 "
+              f"{st['dispatch_ms']['p50']:.2f}; launches {counts}; paths "
+              f"{paths}", flush=True)
+        require(paths == {"paged_packed_attention": ops.CUDA,
+                          "fused_ln_add": ops.CUDA},
+                f"seeded engine did not run the kernels only: {paths}")
+        require(counts["paged_packed_attention"] == st["ticks"] * L
+                and counts["fused_ln_add"] == st["ticks"] * L
+                and sum(counts.values()) == 2 * st["ticks"] * L,
+                f"seeded engine launches {counts} != ticks x layers")
+    require(runs[0][0] == runs[1][0], "the seeded repeat's streams differ")
+    print(f"  repeat: the same streams ({len(work)} requests)", flush=True)
+    return runs[0][2]["paged_packed_attention"]
+
+
+def late_block_damped(params, draft_blocks, scale=0.02):
+    """The port's copy of ``benchmarks/bench_serving.py:260``
+    (``_late_block_damped``): the residual-writing projections (attention
+    and FFN ``wo``) of the stacked blocks the draft skips (index >=
+    draft_blocks - 1) times ``scale``, so that the shallow draft agrees with
+    the full model as it would on trained weights.  Other leaves are
+    shared with ``params``."""
+    def damp(tree):
+        return {k: damp(v) if isinstance(v, dict)
+                else v * scale if k == "wo" else v for k, v in tree.items()}
+    keep = draft_blocks - 1
+    return dict(params, blocks=[pb if i < keep else damp(pb)
+                                for i, pb in enumerate(params["blocks"])])
+
+
+#: speculative ticks profiled: the profiler's processing costs about 1.5 s
+#: a 28-layer spec tick, so a few steady-state ticks, not a whole run
+SPEC_PROFILED_TICKS = 3
+
+
+def spec_tick_device_ms(engine, reqs, max_new, profile, activity, kind):
+    """Device time of a steady-state speculative tick: serve ``reqs`` once
+    more, step plainly until every admitted lane decodes, then profile
+    SPEC_PROFILED_TICKS ticks (kernels only) in which every live lane
+    speculates.  Returns ms a tick (the sum of the kernels' own times)."""
+    from repro_torch.serve.scheduler import ServeRequest
+    engine.finished.clear()
+    for rid, prompt, sp in reqs:
+        kw = {} if sp is None else {"sampling": sp}
+        engine.submit(ServeRequest(rid=rid, prompt=prompt, max_new=max_new,
+                                   **kw))
+    while engine.queue or any(r is not None and not r.generated
+                              for r in engine.slots):
+        engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[activity.CUDA]) as prof:
+        for _ in range(SPEC_PROFILED_TICKS):
+            engine.step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == kind.CUDA]
+    dev = sum(ms for _, ms, _ in rows)
+    engine.run()
+    ms = dev / SPEC_PROFILED_TICKS
+    print(f"  seeded spec tick device time {ms:.2f} ms ("
+          f"{SPEC_PROFILED_TICKS} profiled ticks, every lane speculating; "
+          f"{wall / SPEC_PROFILED_TICKS:.1f} ms of wall a tick under the "
+          f"profiler)", flush=True)
+    for key, kms, n in sorted(rows, key=lambda r: -r[1])[:8]:
+        print(f"    {kms / SPEC_PROFILED_TICKS:8.3f} ms a tick {n:6d} calls  "
+              f"{key[:90]}")
+    return ms
+
+
+def spec_engine_phase(cfg, params, ecfg):
+    """Self-speculative decoding at llama3.2-3b full width and depth
+    (spec_tokens=4, draft_blocks=2), greedy on the random weights and
+    seeded on late-block-damped weights, each run twice (then a few seeded
+    ticks under torch.profiler).  Every request finishes, one model call a
+    tick, the kernels only (verify and .draft sites), packed and LN-add
+    launches
+    = ticks x layers + draft iterations x draft_blocks, the repeat gives the
+    same streams, and the damped draft's proposals are accepted.  Reports
+    acceptance, tok/s against the non-spec engine on the same weights and
+    the common-prefix fraction of the streams against a non-spec engine of
+    the same token budget (not gated: bf16 on the card, another M for the
+    GEMMs).  Returns {"launches", "formula", "device_ms_per_tick"}."""
+    import dataclasses
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.serve import scheduler as SCH
+    L, n, db = cfg.n_layers, 4, 2
+    phase(f"spec engine: llama3.2-3b, {L} layers, bf16, spec_tokens={n}, "
+          f"draft_blocks={db}, greedy (random) and seeded (damped)")
+    spec_cfg = dataclasses.replace(ecfg, spec_tokens=n, draft_blocks=db)
+    draws = []
+    draft = SCH.M.paged_spec_draft
+
+    def counted(*a, **kw):
+        draws.append(1)
+        return draft(*a, **kw)
+
+    want_paths = {site: ops.CUDA for site in (
+        "paged_packed_attention", "fused_ln_add",
+        "paged_packed_attention.draft", "fused_ln_add.draft")}
+    # the reference bench's spec workload sampling: every lane top_k 50
+    work = seeded_workload(cfg.vocab, n=8, n_full=0, seed=6)
+    greedy = [(rid, prompt, None) for rid, prompt, _ in work]
+    out = {}
+    SCH.M.paged_spec_draft = counted
+    try:
+        for name, weights, reqs in (
+                ("greedy", params, greedy),
+                ("seeded", late_block_damped(params, db), work)):
+            engine = SCH.PagedEngine(cfg, weights, spec_cfg)
+            warm(engine, cfg.vocab, [r[2] for r in reqs[:1]])
+            plain = SCH.PagedEngine(cfg, weights, dataclasses.replace(
+                ecfg, token_budget=engine.budget))
+            warm(plain, cfg.vocab, [r[2] for r in reqs[:1]])
+            runs = []
+            for rep in range(2):
+                draws.clear()
+                runs.append(serve_counted(engine, reqs, 48))
+                streams, wall, counts, paths, st = runs[-1]
+                ticks, iters = st["ticks"], len(draws)
+                formula = ticks * L + iters * db
+                sp_st = st["spec"]
+                gen = sum(map(len, streams.values()))
+                print(f"  [{time.perf_counter() - _T0:.1f} s] {name} run "
+                      f"{rep}: {ticks} ticks, {iters} draft "
+                      f"iterations ({iters // (n - 1)} ticks with a spec "
+                      f"lane), {gen} tokens in {wall:.2f} s = "
+                      f"{gen / wall:.1f} tok/s; acceptance "
+                      f"{sp_st['acceptance_rate']:.3f}, accepted_len p50 "
+                      f"{sp_st['accepted_len']['p50']} mean "
+                      f"{sp_st['accepted_len']['mean']:.2f}; "
+                      f"dispatches_per_tick {st['dispatches_per_tick']}; "
+                      f"launches {counts} (ticks x {L} + draft iterations x "
+                      f"{db} = {formula}); paths {paths}", flush=True)
+                require(st["dispatches_per_tick"] == 1.0,
+                        f"{name}: dispatches_per_tick "
+                        f"{st['dispatches_per_tick']}")
+                require(paths == want_paths, f"{name}: paths {paths}")
+                require(iters % (n - 1) == 0 and counts[
+                    "paged_packed_attention"] == formula
+                    and counts["fused_ln_add"] == formula
+                    and sum(counts.values()) == 2 * formula,
+                    f"{name}: launches {counts} != ticks x {L} + draft "
+                    f"iterations x {db} = {formula}")
+            require(runs[0][0] == runs[1][0],
+                    f"{name}: the repeat's streams differ")
+            if name == "seeded":
+                out["device_ms_per_tick"] = spec_tick_device_ms(
+                    engine, reqs, 48, profile, ProfilerActivity, DeviceType)
+            ref = serve_counted(plain, reqs, 48)
+            common = [common_prefix(runs[0][0][rid], ref[0][rid])
+                      / len(ref[0][rid]) for rid in ref[0]]
+            gen = sum(map(len, ref[0].values()))
+            spec_tok_s = sum(map(len, runs[0][0].values())) / runs[0][1]
+            print(f"  [{time.perf_counter() - _T0:.1f} s] {name}: non-spec "
+                  f"engine (token_budget {plain.budget}) {ref[4]['ticks']} "
+                  f"ticks, {gen / ref[1]:.1f} tok/s against the spec "
+                  f"engine's {spec_tok_s:.1f} "
+                  f"(x{spec_tok_s * ref[1] / gen:.2f}, no claim: one run "
+                  f"each); spec streams equal "
+                  f"{sum(runs[0][0][k] == v for k, v in ref[0].items())}/"
+                  f"{len(ref[0])}, mean common-prefix fraction "
+                  f"{statistics.mean(common):.3f}", flush=True)
+            out[name] = runs[0]
+            del engine, plain
+            torch.cuda.empty_cache()
+    finally:
+        SCH.M.paged_spec_draft = draft
+    first = out["seeded"]
+    require(first[4]["spec"]["proposals_accepted"] > 0,
+            "no proposal accepted on the damped weights")
+    return {"launches": first[2]["paged_packed_attention"],
+            "ln_launches": first[2]["fused_ln_add"],
+            "formula": f"ticks x {L} + draft iterations x {db}",
+            "device_ms_per_tick": out["device_ms_per_tick"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3191,6 +3675,12 @@ def main():
     from repro_torch.configs.base import get_config
     cfg = get_config("llama3.2-3b")
     launches = {"paged_packed_attention": launches}
+    t_new = time.perf_counter()
+    sampler_ms = sampler_phase(cfg, params)
+    seeded_launches = seeded_engine_phase(cfg, params, ecfg)
+    spec = spec_engine_phase(cfg, params, ecfg)
+    print(f"  sampling and speculation phases: "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
     prefix = prefix_engine_phase(cfg, params, ecfg)
     launches["page_copy"] = prefix["page_copy"]
     prefix_engine_phase(cfg, params, ecfg, "int8")
@@ -3248,11 +3738,21 @@ def main():
         # shapes, parts of a kernel), then its shape
         entry.update({k: v for k, v in row.items()
                       if k not in entry and k != "shape"})
+        if kname == "paged_packed_attention":
+            entry.update(seeded_engine_launches=seeded_launches,
+                         spec_engine_launches=spec["launches"],
+                         spec_engine_formula=spec["formula"])
+        elif kname == "fused_ln_add":
+            entry.update(spec_engine_launches=spec["ln_launches"],
+                         spec_engine_formula=spec["formula"])
         entry["shape"] = row["shape"]
         kernels.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s; engine "
-          f"{eng['tok_s']:.1f} tok/s over {eng['ticks']} ticks; train "
-          f"{train['step_ms']:.1f} ms/step; card {smi}")
+          f"{eng['tok_s']:.1f} tok/s over {eng['ticks']} ticks; sampler ms "
+          f"a call " + ", ".join(f"{k[0]}@{k[1]} {v:.3f}" for k, v in
+                                 sampler_ms.items())
+          + f"; seeded spec tick {spec['device_ms_per_tick']:.2f} ms of "
+          f"device time; train {train['step_ms']:.1f} ms/step; card {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -8,9 +8,14 @@ path follows the tensors' device; there is no fallback from one to the
 other.  ``dispatch_paths()`` holds the last path per site and the default
 metrics registry counts ``kernel_dispatch_total.<site>.<path>`` in calls.
 A paged call with scale pools records its site as ``<site>.int8`` /
-``<site>.fp8`` (the reference's ``ops._kv_variant``).
+``<site>.fp8`` (the reference's ``ops._kv_variant``), and a call made
+inside ``dispatch_site_suffix("draft")`` (the speculative draft) as
+``<site>.draft`` after that, e.g. ``paged_packed_attention.int8.draft``.
+Launch counters stay per kernel label, whatever the site.
 """
 from __future__ import annotations
+
+import contextlib
 
 from repro_torch.kernels import dual_branch as _db
 from repro_torch.kernels import flash_attention as _fa
@@ -25,8 +30,13 @@ PLAIN = "cpu-plain"
 #: last path run per dispatcher call site
 _DISPATCH_PATHS = {}
 
+#: dotted suffix of the sites recorded inside ``dispatch_site_suffix``
+_SITE_SUFFIX = ""
+
 
 def _record_dispatch(site: str, cuda: bool) -> str:
+    if _SITE_SUFFIX:
+        site = f"{site}.{_SITE_SUFFIX}"
     path = CUDA if cuda else PLAIN
     _DISPATCH_PATHS[site] = path
     _metrics.default_registry().counter(
@@ -43,6 +53,19 @@ def dispatch_paths() -> dict:
 
 def reset_dispatch_paths():
     _DISPATCH_PATHS.clear()
+
+
+@contextlib.contextmanager
+def dispatch_site_suffix(suffix: str):
+    """Record the dispatches run inside the context as ``<site>.<suffix>``
+    (``repro/kernels/ops.py:54``): the speculative draft's calls then show
+    in ``dispatch_paths()`` apart from the verify's."""
+    global _SITE_SUFFIX
+    prev, _SITE_SUFFIX = _SITE_SUFFIX, suffix
+    try:
+        yield
+    finally:
+        _SITE_SUFFIX = prev
 
 
 def launch_counts() -> dict:

@@ -15,7 +15,10 @@ the paged serving paths: ``_embed_tokens``, ``_logits`` / ``lm_head``,
 the padded (B, C) layout, sequential or dual-branch), and
 ``_decoder_layer_stack`` (``:280``) and ``copy_paged_pages`` (``:1054``,
 the device half of copy-on-write), plus ``init_params`` for the dense
-decoder.
+decoder.  For self-speculative decoding: ``paged_spec_draft`` (``:1010``)
+-> ``_decoder_paged_packed_draft`` (``:532``, the early-exit draft) and
+``lm_head_segment_tail`` (``:1034``, the verify's head over each segment's
+last rows).
 
 Parameters are a dict tree in the reference's layout, except that the
 stacked ``blocks_dense`` leaves (leading layer axis) become a list of
@@ -245,11 +248,13 @@ def init_paged_cache(cfg, num_pages, page_size, slots, dtype="bfloat16",
 
 def _decoder_layer_stack(p, cfg, x, a1_sig, pos, blocks_cache, plan, *,
                          block_tables, n_valid=None, tok_slot=None,
-                         tok_pos=None):
+                         tok_pos=None, limit=None):
     """The post-block-0 layers as a Python loop (the reference scans).
     Layer i reads and writes the i-th slice of the stacked pools in place,
-    where the reference concatenates per-layer caches."""
-    for i, pb in enumerate(p["blocks"]):
+    where the reference concatenates per-layer caches.  ``limit`` runs only
+    the first ``limit`` layers (the speculative draft's early exit); the
+    pools of the layers past it are not touched."""
+    for i, pb in enumerate(p["blocks"][:limit]):
         layer_cache = {k: v[i] for k, v in blocks_cache.items()}
         x, _ = BL.block_apply(pb, cfg, x, a1_sig, plan=plan,
                               cache=layer_cache, block_tables=block_tables,
@@ -333,6 +338,30 @@ def _decoder_paged_packed(p, cfg, batch, cache, plan, want="logits"):
     return _logits(p, cfg, x), cache
 
 
+def _decoder_paged_packed_draft(p, cfg, batch, cache, plan, draft_blocks):
+    """Early-exit packed forward of the speculative draft: block 0 and the
+    first ``draft_blocks - 1`` later layers over the packed batch ->
+    (hidden (1, T, D), cache).  K/V is written for those layers only (the
+    verify pass rewrites those rows with the same values and is the first
+    writer of every deeper layer).  ``cache["a1_sig"]`` is not refreshed:
+    the per-slot signal tracks the lane's last accepted position, which
+    only the verify pass knows.  Its dispatches record ``<site>.draft``."""
+    tokens, bt = batch["tokens"], batch["block_tables"]
+    tok_slot, tok_pos = batch["tok_slot"], batch["tok_pos"]
+    positions = tok_pos.clamp(min=0)[None]                      # (1, T)
+    with ops.dispatch_site_suffix("draft"):
+        x = _embed_tokens(p, cfg, tokens[None], positions)
+        x, a1_raw = BL.block_apply(p["block0"], cfg, x, None, is_block0=True,
+                                   plan=plan, cache=cache["block0"],
+                                   block_tables=bt, tok_slot=tok_slot,
+                                   tok_pos=tok_pos)
+        a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
+        x = _decoder_layer_stack(p, cfg, x, a1_sig, None, cache["blocks"],
+                                 plan, block_tables=bt, tok_slot=tok_slot,
+                                 tok_pos=tok_pos, limit=draft_blocks - 1)
+    return x, cache
+
+
 def paged_decode_step(params, cfg, batch, cache, plan=None, want="logits"):
     """One paged tick -> (logits or, with ``want='hidden'``, the pre-head
     hidden states; cache updated in place) in either paged layout:
@@ -349,6 +378,39 @@ def paged_decode_step(params, cfg, batch, cache, plan=None, want="logits"):
         return _decoder_paged_packed(params, cfg, batch, cache, plan,
                                      want=want)
     return _decoder_paged_decode(params, cfg, batch, cache, plan, want=want)
+
+
+def paged_spec_draft(params, cfg, batch, cache, plan=None, *, draft_blocks=1):
+    """Self-speculative draft forward on the token-packed layout
+    (``model.py:1010``): embed, block 0 and the first ``draft_blocks - 1``
+    later layers -> (hidden (1, T, D), cache updated in place), the stack
+    the engine's draft loop runs ``lm_head`` over.  The batch is
+    ``_decoder_paged_packed``'s without ``seg_last``.  Requires
+    1 <= draft_blocks < cfg.n_layers."""
+    check_supported(cfg)
+    if not 1 <= draft_blocks < cfg.n_layers:
+        raise ValueError(
+            f"draft_blocks={draft_blocks} must satisfy 1 <= draft_blocks "
+            f"< n_layers={cfg.n_layers} (== n_layers would be the full "
+            f"model, not a draft)")
+    plan = ExecutionPlan.resolve(plan).with_phase(Phase.PAGED).validate(cfg)
+    return _decoder_paged_packed_draft(params, cfg, batch, cache, plan,
+                                       draft_blocks)
+
+
+def lm_head_segment_tail(params, cfg, hidden, seg_last, n):
+    """The head over each segment's last ``n`` packed rows, for the
+    speculative verify (``model.py:1034``): rows ``seg_last[s] - (n - 1) ..
+    seg_last[s]`` of ``hidden`` (1, T, D) -> (logits (S, n, V), rows (S, n)
+    int32).  Rows of lanes sitting the tick out (``seg_last == -1``) and
+    rows that would fall before row 0 are read at row 0 and zeroed before
+    the head; the caller masks which columns are live."""
+    off = torch.arange(n, dtype=torch.int32, device=seg_last.device) - (n - 1)
+    rows = seg_last[:, None] + off[None, :]                      # (S, n)
+    valid = (seg_last >= 0)[:, None] & (rows >= 0)
+    h = hidden[0, rows.clamp(min=0).long()]                      # (S, n, D)
+    h = torch.where(valid[:, :, None], h, torch.zeros_like(h))
+    return _logits(params, cfg, h), rows
 
 
 def copy_paged_pages(cache, src, dst):

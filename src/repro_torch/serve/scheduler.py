@@ -1,13 +1,14 @@
 """Continuous-batching scheduler over the paged KV cache, on torch.
 
-Port of ``repro/serve/scheduler.py`` without speculative decoding and
-seeded sampling: admission control ('prompt': prompt + 1 token; 'full':
-prompt + max_new, no preemption), TOKEN-PACKED ticks (one model call per
-tick over a flat ``(token_budget,)`` buffer where token t belongs to lane
-``tok_slot[t]`` at position ``tok_pos[t]``; decode lanes are packed first,
-prefill lanes share the rest round-robin), greedy selection, preemption
-of the youngest other request under page pressure, and rejection of
-requests that can never fit.
+Port of ``repro/serve/scheduler.py``: admission control ('prompt': prompt
++ 1 token; 'full': prompt + max_new, no preemption), TOKEN-PACKED ticks
+(one model call per tick over a flat ``(token_budget,)`` buffer where token
+t belongs to lane ``tok_slot[t]`` at position ``tok_pos[t]``; decode lanes
+are packed first, prefill lanes share the rest round-robin), per-request
+seeded sampling after the head (``serve/sampling.py``; the engine picks the
+greedy, fast or full-sort sampler host-side per tick), preemption of the
+youngest other request under page pressure, and rejection of requests
+that can never fit.
 The engine's ``MetricsRegistry`` records TTFT, inter-token latency, queue
 wait, occupancy, page utilisation and preemptions; ``stats()`` summarises
 them.
@@ -25,9 +26,19 @@ variants.  The radix prefix cache (``EngineConfig.prefix_cache``,
 page-aligned prefix, maps its pages into the block table, prefills only the
 rest, seeds the FAL ``a1_sig`` on a full-prompt hit, copies a shared page
 before a lane writes into it (copy-on-write through the ``page_copy``
-kernel) and parks every finished request's prefix.  Self-speculative
-decoding and seeded sampling come in later slices of the port and raise
-``NotImplementedError`` here.
+kernel) and parks every finished request's prefix.
+
+Self-speculative decoding (``EngineConfig.spec_tokens``): each eligible
+decode lane packs its pending token and ``spec_tokens - 1`` placeholder rows
+as one segment.  Within the tick's one model call (``make_spec_step``) the
+early-exit draft (block 0 and ``draft_blocks - 1`` later layers) proposes
+the placeholders one by one, sampled with the same ``fold_in(seed,
+position)`` keys the verify will use, and the full-depth packed forward
+verifies the whole segment; the host accepts the longest matching prefix
+plus the bonus target and rewinds the rejected page growth
+(``BlockTable.shrink``).  Exact-match acceptance keeps greedy and seeded
+streams equal to non-speculative decode.  On a tick where no lane
+speculates the draft does not run.
 
 The engine runs on the card unless the caller passes ``device="cpu"``.
 ``engine_dispatch_ms`` times one model call from its start to the moment
@@ -56,22 +67,26 @@ _SITE = "serve/scheduler.py"
 # --------------------------------------------------------------------------- #
 # the engine's one model call per tick
 # --------------------------------------------------------------------------- #
-def make_packed_step(cfg, plan=None):
-    """The packed tick: (params, cache, tokens (T,), tok_slot (T,),
-    tok_pos (T,), block_tables (S, Tb), seg_last (S,)) -> (seg_logits
-    (S, V), next_tokens (S,) int32, cache).
+def make_packed_step(cfg, plan=None, *, sampler=None):
+    """The packed tick (``scheduler.py:106``): (params, cache, tokens (T,),
+    tok_slot (T,), tok_pos (T,), block_tables (S, Tb), seg_last (S,),
+    temps, top_ks, top_ps, seeds, sample_pos (S,)) -> (seg_logits (S, V),
+    next_tokens (S,) int32, cache).
 
     Runs the blocks to hidden states, gathers each segment's last token
-    (``seg_last``, -1 for lanes sitting the tick out) and applies the LM
-    head to the (S, 1, D) gather only.  Lanes sitting out get a zeroed row
-    before the head and the -1 sentinel instead of a sampled id.  The cache
-    is updated in place."""
+    (``seg_last``, -1 for lanes sitting the tick out), applies the LM head
+    to the (S, 1, D) gather only and samples each lane with its parameters
+    at position ``sample_pos`` (``sampler``: a ``sampling.sample_tokens``
+    drop-in; None is ``sample_tokens``).  Lanes sitting out get a zeroed
+    row before the head and the -1 sentinel instead of a sampled id.  The
+    cache is updated in place."""
     plan = ExecutionPlan.resolve(plan).with_phase(Phase.PAGED)
     plan.validate(cfg)
+    samp = sampler if sampler is not None else SP.sample_tokens
 
     @torch.no_grad()
     def step(params, cache, tokens, tok_slot, tok_pos, block_tables,
-             seg_last):
+             seg_last, temps, top_ks, top_ps, seeds, sample_pos):
         batch = {"tokens": tokens, "tok_slot": tok_slot, "tok_pos": tok_pos,
                  "block_tables": block_tables, "seg_last": seg_last}
         hidden, cache = M.paged_decode_step(params, cfg, batch, cache, plan,
@@ -81,9 +96,81 @@ def make_packed_step(cfg, plan=None):
         h_seg = torch.where(active[:, None], h_seg,
                             torch.zeros_like(h_seg))
         logits = M.lm_head(params, cfg, h_seg[:, None])[:, 0]     # (S, V)
-        nxt = SP.greedy(logits)
+        nxt = samp(logits, temps, top_ks, top_ps, seeds, sample_pos)
         nxt = torch.where(active, nxt, torch.full_like(nxt, -1))
         return logits, nxt, cache
+
+    return step
+
+
+def make_spec_step(cfg, plan=None, *, spec_tokens, draft_blocks,
+                   sampler=None):
+    """The self-speculative packed tick (``scheduler.py:159``), still one
+    model call per tick: (params, cache, tokens (T,), tok_slot (T,),
+    tok_pos (T,), block_tables (S, Tb), seg_last (S,), spec_mask (S,),
+    temps, top_ks, top_ps, seeds, draft=True) -> (targets (S, n), fed
+    (S, n), cache).
+
+    Lanes with ``spec_mask`` set are decode lanes whose segment spans
+    n == ``spec_tokens`` rows: the pending token, then n-1 placeholders at
+    positions pos+1..pos+n-1.  With ``draft`` (the host passes whether any
+    lane speculates), n-1 draft iterations each run row ``seg_start + j``
+    of every spec lane as a flat (S,) packed batch (other lanes ride as
+    padding, tok_pos == -1) through ``model.paged_spec_draft``, sample a
+    proposal with the key the verify will use at that position, and plant
+    it in row ``seg_start + j + 1``.  The verify is the full-depth packed
+    forward over the whole buffer; the head runs on each segment's last n
+    rows (``model.lm_head_segment_tail``) and ``targets[s, j]`` is sampled
+    at the position after row ``rows[s, j]``.  ``fed`` holds the tokens
+    those rows carried.  Non-spec lanes' only live column is the last;
+    dead columns are zeroed before the head and return -1."""
+    n = int(spec_tokens)
+    if n < 2:
+        raise ValueError("spec_tokens >= 2 (1 proposal minimum)")
+    plan = ExecutionPlan.resolve(plan).with_phase(Phase.PAGED)
+    plan.validate(cfg)
+    samp = sampler if sampler is not None else SP.sample_tokens
+
+    @torch.no_grad()
+    def step(params, cache, tokens, tok_slot, tok_pos, block_tables,
+             seg_last, spec_mask, temps, top_ks, top_ps, seeds, draft=True):
+        T, S = tokens.shape[0], seg_last.shape[0]
+        seg_start = seg_last - (n - 1)
+        lane = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        # one row past the buffer takes the writes of non-spec lanes
+        toks = torch.cat([tokens, tokens.new_zeros(1)])
+        for j in range(n - 1 if draft else 0):
+            row = torch.where(spec_mask, (seg_start + j).clamp(min=0),
+                              0).long()
+            dpos = torch.where(spec_mask, tok_pos[row], -1)
+            dbatch = {"tokens": torch.where(spec_mask, toks[row], 0),
+                      "tok_slot": lane, "tok_pos": dpos,
+                      "block_tables": block_tables}
+            dh, cache = M.paged_spec_draft(params, cfg, dbatch, cache, plan,
+                                           draft_blocks=draft_blocks)
+            h = torch.where(spec_mask[:, None], dh[0], torch.zeros_like(dh[0]))
+            dlogits = M.lm_head(params, cfg, h[:, None])[:, 0]    # (S, V)
+            dnext = samp(dlogits, temps, top_ks, top_ps, seeds, dpos + 1)
+            wrow = torch.where(spec_mask, seg_start + j + 1, T).long()
+            toks.scatter_(0, wrow, dnext.to(toks.dtype))
+        toks = toks[:T]
+        batch = {"tokens": toks, "tok_slot": tok_slot, "tok_pos": tok_pos,
+                 "block_tables": block_tables, "seg_last": seg_last}
+        hidden, cache = M.paged_decode_step(params, cfg, batch, cache, plan,
+                                            want="hidden")
+        logits, rows = M.lm_head_segment_tail(params, cfg, hidden,
+                                              seg_last, n)      # (S, n, V)
+        col = torch.arange(n, device=rows.device)[None, :]
+        live = ((seg_last >= 0)[:, None] & (rows >= 0)
+                & (spec_mask[:, None] | (col == n - 1)))
+        at = rows.clamp(min=0).long()
+        rep = lambda a: a.repeat_interleave(n)                    # noqa: E731
+        tgt = samp(logits.reshape(S * n, -1), rep(temps), rep(top_ks),
+                   rep(top_ps), rep(seeds),
+                   (tok_pos[at] + 1).reshape(-1)).reshape(S, n)
+        tgt = torch.where(live, tgt, -1)
+        fed = torch.where(live, toks[at], -1)
+        return tgt, fed, cache
 
     return step
 
@@ -191,13 +278,13 @@ class ServeRequest:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Paged-engine knobs.  ``spec_tokens`` belongs to a later slice of the
-    port and must keep its default here."""
+    """Paged-engine knobs."""
     page_size: int = 16
     num_pages: int = 64                # pool size incl. scratch page 0
     slots: int = 4                     # concurrent batch lanes
     prefill_chunk: int = 16            # max prefill tokens per lane per tick
-    # flat tokens per packed call; 0 = auto (slots + prefill_chunk - 1)
+    # flat tokens per packed call; 0 = auto (slots * max(1, spec_tokens)
+    # + prefill_chunk - 1)
     token_budget: int = 0
     # cap on total prefill tokens per tick (0 = uncapped)
     max_prefill_tokens: int = 0
@@ -212,10 +299,11 @@ class EngineConfig:
     # max_cached_prefix_pages caps the tree's own pages (0 = the pool)
     prefix_cache: bool = False
     max_cached_prefix_pages: int = 0
+    # self-speculative decoding: the rows each decode lane packs a tick (its
+    # pending token and spec_tokens - 1 proposals; 0 = off, >= 2 on), and
+    # the leading blocks (block 0 included) the draft runs before its head
     spec_tokens: int = 0
-
-
-_LATER = {"spec_tokens": "speculative-decode"}
+    draft_blocks: int = 2
 
 
 class PagedEngine:
@@ -229,23 +317,30 @@ class PagedEngine:
                  plan=None, metrics: Optional[MetricsRegistry] = None,
                  tracer=None, device=None):
         M.check_supported(cfg)
-        for name, what in _LATER.items():
-            if getattr(engine_cfg, name):
-                raise NotImplementedError(
-                    f"EngineConfig.{name}: {what} comes in a later slice of "
-                    f"the PyTorch port")
         if engine_cfg.admission not in ("prompt", "full"):
             raise ValueError(f"admission must be 'prompt' or 'full', got "
                              f"{engine_cfg.admission!r}")
         self.device = M.resolve_device(device)
         self.cfg, self.params, self.ecfg = cfg, params, engine_cfg
+        self.spec = int(engine_cfg.spec_tokens)
+        if self.spec:
+            if self.spec < 2:
+                raise ValueError(
+                    f"spec_tokens={self.spec}: needs >= 2 (the lane's "
+                    f"pending token + at least one proposal), or 0 = off")
+            if not 1 <= engine_cfg.draft_blocks < cfg.n_layers:
+                raise ValueError(
+                    f"draft_blocks={engine_cfg.draft_blocks} must satisfy "
+                    f"1 <= draft_blocks < n_layers={cfg.n_layers}")
+        # every decode lane packs spec_tokens rows under speculation
+        seg = max(1, self.spec)
         self.budget = engine_cfg.token_budget or (
-            engine_cfg.slots + engine_cfg.prefill_chunk - 1)
-        if self.budget < engine_cfg.slots:
+            engine_cfg.slots * seg + engine_cfg.prefill_chunk - 1)
+        if self.budget < engine_cfg.slots * seg:
             raise ValueError(
                 f"token_budget={self.budget} cannot keep all "
                 f"{engine_cfg.slots} slots live (need >= slots * "
-                f"1 packed rows per decode lane)")
+                f"{seg} packed rows per decode lane)")
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.plan = ExecutionPlan.resolve(plan).with_phase(Phase.PAGED)
@@ -258,7 +353,9 @@ class PagedEngine:
             cfg, engine_cfg.num_pages, engine_cfg.page_size,
             engine_cfg.slots, engine_cfg.cache_dtype,
             kv_dtype=engine_cfg.kv_dtype, device=self.device)
-        self.step_fn = make_packed_step(cfg, self.plan)
+        # the tick's model call with the greedy, fast or full-sort sampler,
+        # built on first use (``_step_for``)
+        self._step_fns = {}
         # device bytes per page across every layer's pools, scale pools
         # included, a1_sig excluded
         page_bytes = sum(t.numel() * t.element_size() // engine_cfg.num_pages
@@ -331,10 +428,15 @@ class PagedEngine:
                                              unit="ticks", site=s)
         self._h_ttft_cold_ticks = m.histogram("engine_ttft_cold_ticks",
                                               unit="ticks", site=s)
+        self._c_spec_acc = m.counter("engine_spec_accepted_total",
+                                     unit="tokens", site=s)
+        self._c_spec_rej = m.counter("engine_spec_rejected_total",
+                                     unit="tokens", site=s)
+        self._h_spec_len = m.histogram("engine_spec_accepted_len",
+                                       unit="tokens", site=s)
 
     # ------------------------------------------------------------------ #
     def submit(self, req: ServeRequest):
-        SP.check_supported(req.sampling)
         req.arrival = self._arrival
         self._arrival += 1
         req.submit_tick = self.ticks
@@ -547,9 +649,19 @@ class PagedEngine:
             "req", r.rid, outcome="truncated" if truncated else "finished")
 
     # ------------------------------------------------------------------ #
+    def _spec_eligible(self, r: ServeRequest) -> bool:
+        """A decode lane speculates when speculation is on, it has sampled
+        its first token (the first-token tick runs plainly, so the prefix
+        cache's a1_sig is captured at the prompt's last position), and a
+        whole n-row proposal fits under ``max_seq``."""
+        return (self.spec > 0 and len(r.generated) > 0
+                and r.pos + self.spec <= self.ecfg.max_seq)
+
     def _plan_pack(self) -> PackedTick:
         """Each active lane offers up to ``prefill_chunk`` tokens when
-        prefilling, or its one pending token when decoding."""
+        prefilling, its one pending token when decoding, or, when it
+        speculates, its pending token and ``spec_tokens - 1`` placeholder
+        rows the draft fills in on the device."""
         lists, poss, dec = [], [], []
         for r in self.slots:
             if r is None:
@@ -557,9 +669,13 @@ class PagedEngine:
                 poss.append(0)
                 dec.append(False)
                 continue
-            lists.append(r.known()[r.pos:r.pos + self.ecfg.prefill_chunk])
+            decoding = len(r.known()) - r.pos == 1
+            if decoding and self._spec_eligible(r):
+                lists.append(r.known()[r.pos:] + [0] * (self.spec - 1))
+            else:
+                lists.append(r.known()[r.pos:r.pos + self.ecfg.prefill_chunk])
             poss.append(r.pos)
-            dec.append(len(r.known()) - r.pos == 1)
+            dec.append(decoding)
         return pack_tokens(lists, poss, dec, self.budget,
                            self.ecfg.max_prefill_tokens, rotate=self.ticks)
 
@@ -596,12 +712,81 @@ class PagedEngine:
         elif len(r.known()) >= self.ecfg.max_seq:
             self._finish(i, truncated=True)
 
+    def _consume_spec_lane(self, i: int, tgt_row: np.ndarray,
+                           fed_row: np.ndarray, now: float):
+        """Accept the longest prefix of lane i's n-1 proposals that match
+        their targets, plus the bonus target after it, and rewind the
+        rejected page growth.  ``tgt_row[j]`` is the model's token at
+        position pos+j+1, ``fed_row[j]`` what was packed at pos+j (row 0
+        the pending token, rows 1.. the proposals)."""
+        n = self.spec
+        r = self.slots[i]
+        a = 0
+        while a < n - 1 and int(fed_row[a + 1]) == int(tgt_row[a]):
+            a += 1
+        # the stream must be what sequential decode emits, cut at the same
+        # finish boundaries
+        room = min(r.max_new - len(r.generated),
+                   self.ecfg.max_seq - len(r.known()))
+        emit = [int(t) for t in tgt_row[:a + 1][:room]]
+        r.generated.extend(emit)
+        # positions pos..pos+len(emit)-1 now hold verified context; shrink
+        # drops this table's references past them (shared prefix pages
+        # survive); the rejected rows' K/V is invisible until re-fed
+        r.pos += len(emit)
+        dropped = self.tables[i].shrink(r.pos)
+        self._c_decode_toks.inc(len(emit))
+        self._c_spec_acc.inc(a)
+        self._c_spec_rej.inc(n - 1 - a)
+        self._h_spec_len.record(len(emit))
+        if dropped:
+            self.tracer.instant("SPEC_ROLLBACK", rid=r.rid, slot=i,
+                                pages=dropped, accepted=a)
+        if r.last_token_time:
+            self._h_itl_ms.record((now - r.last_token_time) * 1e3)
+        r.last_token_time = now
+        if not r.decoding:
+            r.decoding = True
+            self.tracer.instant("DECODE", rid=r.rid, slot=i,
+                                generated=len(r.generated))
+        if len(r.generated) >= r.max_new:
+            self._finish(i)
+        elif len(r.known()) >= self.ecfg.max_seq:
+            self._finish(i, truncated=True)
+
+    def _sampler_kind(self, ids) -> str:
+        """'greedy' when every lane of the tick is greedy, 'fast' when every
+        lane satisfies ``sampling.fast_eligible``, else 'full'."""
+        sps = [self.slots[i].sampling for i in ids]
+        if all(sp.temperature <= 0.0 for sp in sps):
+            return "greedy"
+        if all(SP.fast_eligible(sp, self.cfg.vocab) for sp in sps):
+            return "fast"
+        return "full"
+
+    def _step_for(self, kind: str):
+        """The tick's model call with the ``kind`` sampler (three variants
+        at most per engine; the reference builds its fast and full ones)."""
+        if kind not in self._step_fns:
+            samp = {"greedy": SP.greedy_sampler,
+                    "fast": SP.fast_sampler(self.cfg.vocab),
+                    "full": SP.sample_tokens}[kind]
+            if self.spec:
+                self._step_fns[kind] = make_spec_step(
+                    self.cfg, self.plan, spec_tokens=self.spec,
+                    draft_blocks=self.ecfg.draft_blocks, sampler=samp)
+            else:
+                self._step_fns[kind] = make_packed_step(self.cfg, self.plan,
+                                                        sampler=samp)
+        return self._step_fns[kind]
+
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
     def _run_packed(self, pt: PackedTick):
-        """One model call over the packed buffer; consume a sampled token
-        for every lane whose context completed this call."""
+        """One model call over the packed buffer (forward and sampling);
+        consume the samples of every lane whose context completed this call
+        (under speculation a spec lane may emit up to n tokens)."""
         S = self.ecfg.slots
         ids = [i for i in range(S) if pt.n_taken[i] > 0]
         self.dispatches += 1
@@ -611,14 +796,59 @@ class PagedEngine:
         self._h_tok_disp.record(pt.n_live)
         self._h_pad_frac.record(1.0 - pt.n_live / T)
         bt = np.stack([t.as_row() for t in self.tables])
+        temps = np.zeros((S,), np.float32)
+        ks = np.zeros((S,), np.int32)
+        ps = np.ones((S,), np.float32)
+        seeds = np.zeros((S,), np.int32)
+        poss = np.zeros((S,), np.int32)
+        spec_mask = np.zeros((S,), bool)
+        for i in ids:
+            r = self.slots[i]
+            sp = r.sampling
+            temps[i], ks[i], ps[i] = sp.temperature, sp.top_k, sp.top_p
+            seeds[i] = sp.seed
+            # position of the would-be new token (len(known()) exactly when
+            # this call completes the request's context)
+            poss[i] = r.pos + int(pt.n_taken[i])
+            # only _plan_pack's spec-eligible decode lanes pack > 1 row
+            spec_mask[i] = (len(r.known()) - r.pos == 1
+                            and int(pt.n_taken[i]) > 1)
+        step_fn = self._step_for(self._sampler_kind(ids))
+        dev = self._to_device
+        args = (self.params, self.cache, dev(pt.tokens), dev(pt.tok_slot),
+                dev(pt.tok_pos), dev(bt), dev(pt.seg_last))
+        samp_args = (dev(temps), dev(ks), dev(ps), dev(seeds))
         t0 = time.perf_counter()
+        if self.spec:
+            with self.tracer.span("engine.dispatch", annotate=True,
+                                  lanes=len(ids), live_tokens=pt.n_live,
+                                  budget=T, spec_lanes=int(spec_mask.sum())):
+                tgt, fed, self.cache = step_fn(
+                    *args, dev(spec_mask), *samp_args,
+                    draft=bool(spec_mask.any()))
+                tgt_np, fed_np = tgt.cpu().numpy(), fed.cpu().numpy()
+            self._h_dispatch_ms.record((time.perf_counter() - t0) * 1e3)
+            now = time.perf_counter()
+            for i in ids:
+                r = self.slots[i]
+                adv = int(pt.n_taken[i])
+                if spec_mask[i]:
+                    # only the accepted prefix advances the lane
+                    self._consume_spec_lane(i, tgt_np[i], fed_np[i], now)
+                    continue
+                if len(r.known()) - r.pos == 1:
+                    self._c_decode_toks.inc(adv)
+                else:
+                    self._c_prefill_toks.inc(adv)
+                r.pos += adv
+                if r.pos == len(r.known()):
+                    # a non-spec lane's sample is the last column
+                    self._consume_one(i, int(tgt_np[i][self.spec - 1]), now)
+            return
         with self.tracer.span("engine.dispatch", annotate=True,
                               lanes=len(ids), live_tokens=pt.n_live,
                               budget=T):
-            _, nxt, self.cache = self.step_fn(
-                self.params, self.cache, self._to_device(pt.tokens),
-                self._to_device(pt.tok_slot), self._to_device(pt.tok_pos),
-                self._to_device(bt), self._to_device(pt.seg_last))
+            _, nxt, self.cache = step_fn(*args, *samp_args, dev(poss))
             nxt_np = nxt.cpu().numpy()
         self._h_dispatch_ms.record((time.perf_counter() - t0) * 1e3)
         for i in ids:
@@ -723,6 +953,17 @@ class PagedEngine:
             "queue_wait_ticks": pcts(self._h_queue_wait),
             "request_latency_ticks": pcts(self._h_req_ticks),
             "dispatch_ms": pcts(self._h_dispatch_ms),
+            # self-speculative cut (None when spec_tokens == 0): proposal
+            # acceptance and the emitted (accepted + bonus) length a tick
+            "spec": None if not self.spec else {
+                "spec_tokens": self.spec,
+                "draft_blocks": self.ecfg.draft_blocks,
+                "proposals_accepted": self._c_spec_acc.value,
+                "proposals_rejected": self._c_spec_rej.value,
+                "acceptance_rate": self._c_spec_acc.value / max(
+                    self._c_spec_acc.value + self._c_spec_rej.value, 1),
+                "accepted_len": pcts(self._h_spec_len),
+            },
             # prefix-sharing cut (None without EngineConfig.prefix_cache):
             # the tree and its hit rates, allocator sharing, COW copies,
             # a1_sig seedings, and TTFT split hot (a hit at admission) and

@@ -14,6 +14,7 @@ from repro.configs.base import get_config as ref_config  # noqa: E402
 from repro.models import model as RM  # noqa: E402
 from repro.obs import metrics as RMET  # noqa: E402
 from repro.serve import paged_cache as RPC  # noqa: E402
+from repro.serve import sampling as RSP  # noqa: E402
 from repro.serve import scheduler as RS  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
@@ -23,6 +24,17 @@ from repro_torch.obs.trace import Tracer, validate_chrome_trace  # noqa: E402
 from repro_torch.serve import paged_cache as TPC  # noqa: E402
 from repro_torch.serve import sampling as TSP  # noqa: E402
 from repro_torch.serve import scheduler as TS  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The reduced model's ops are tiny: one intra-op thread, so that the
+    file's tests do not contend for the cores with the other test workers
+    (under six workers the default thread count made them ~10x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -168,16 +180,15 @@ def test_engine_needs_a_device_here():
 @pytest.mark.parametrize("option,value", [
     ("prefix_cache", True), ("spec_tokens", 4), ("kv_dtype", "int8")])
 def test_engine_later_slice_options_raise(option, value):
-    """Of the options that raised in earlier slices only ``spec_tokens``
-    still does; ``prefix_cache`` and ``kv_dtype`` construct and serve
-    greedy requests to completion, every page back in the pool."""
+    """The options that raised in earlier slices of the port now construct
+    and serve greedy requests to completion, every page back in the pool
+    (``spec_tokens`` with ``draft_blocks=1``: the reduced model has 2
+    layers and the draft must stop short of the last)."""
     _, _, tcfg, tparams = _models()
+    extra = {"draft_blocks": 1} if option == "spec_tokens" else {}
     ecfg = TS.EngineConfig(page_size=8, num_pages=32, slots=2,
-                           prefill_chunk=8, max_seq=64, **{option: value})
-    if option == "spec_tokens":
-        with pytest.raises(NotImplementedError, match="later slice"):
-            TS.PagedEngine(tcfg, tparams, ecfg, device="cpu")
-        return
+                           prefill_chunk=8, max_seq=64, **{option: value},
+                           **extra)
     eng = TS.PagedEngine(tcfg, tparams, ecfg, device="cpu")
     rng = np.random.default_rng(3)
     out = _serve(eng, TS, [rng.integers(0, 512, 9) for _ in range(3)],
@@ -215,12 +226,21 @@ def test_engine_dual_branch_rejects_preln_like_reference():
 
 
 def test_engine_sampled_requests_raise():
-    _, _, tcfg, tparams = _models()
-    eng = TS.PagedEngine(tcfg, tparams, TS.EngineConfig(), device="cpu")
-    req = TS.ServeRequest(rid=0, prompt=np.arange(4), max_new=2,
-                          sampling=TSP.SamplingParams(temperature=0.7))
-    with pytest.raises(NotImplementedError, match="threefry"):
-        eng.submit(req)
+    """A request with temperature > 0 no longer raises: it is served, and
+    its seeded stream is the JAX engine's."""
+    rcfg, rparams, tcfg, tparams = _models()
+    kw = dict(page_size=8, num_pages=48, slots=2, prefill_chunk=8,
+              max_seq=64)
+    streams = []
+    for mod, sp, cfg, params, extra in (
+            (RS, RSP, rcfg, rparams, {}),
+            (TS, TSP, tcfg, tparams, {"device": "cpu"})):
+        eng = mod.PagedEngine(cfg, params, mod.EngineConfig(**kw), **extra)
+        eng.submit(mod.ServeRequest(
+            rid=0, prompt=np.arange(4), max_new=6,
+            sampling=sp.SamplingParams(temperature=0.7, top_k=20, seed=5)))
+        streams.append(list(map(int, eng.run()[0].generated)))
+    assert len(streams[1]) == 6 and streams[1] == streams[0]
 
 
 def test_packed_step_idle_lane_emits_sentinel():
@@ -233,7 +253,10 @@ def test_packed_step_idle_lane_emits_sentinel():
     tok_slot = torch.zeros(4, dtype=torch.int32)
     tok_pos = torch.tensor([0, 1, -1, -1], dtype=torch.int32)
     seg_last = torch.tensor([1, -1, -1], dtype=torch.int32)
-    logits, nxt, _ = eng.step_fn(tparams, eng.cache, tokens, tok_slot,
-                                 tok_pos, bt, seg_last)
+    z = torch.zeros(3, dtype=torch.int32)
+    step = TS.make_packed_step(tcfg)
+    logits, nxt, _ = step(tparams, eng.cache, tokens, tok_slot, tok_pos, bt,
+                          seg_last, torch.full((3,), 0.8), z,
+                          torch.ones(3), z, z)
     assert nxt[1:].tolist() == [-1, -1] and 0 <= int(nxt[0]) < tcfg.vocab
     assert torch.isfinite(logits).all()
