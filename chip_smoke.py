@@ -101,11 +101,25 @@ script exits non-zero:
  13. train       trainer.train at llama3.2-3b full width and depth (fal,
                  fp32 masters, bf16 compute, remat, B=1, S=2048): one
                  warm-up step, 5 counted steps, one profiled step
+ 14. gemma2      gemma2-27b at full width cut to 2 layers (block 0 local,
+                 block 1 global; every layer softcapped): one packed, one
+                 padded chunk and one padded decode tick and one train step
+                 (fp32, window 128, B=1, S=320) on the card against the
+                 CPU; trainer.train (fp32 masters, bf16 compute, remat,
+                 B=1, S=6144: 1 warm-up, 3 counted, 1 profiled step) with a
+                 checkpoint, which is restored on the card and stepped
+                 again bit for bit like the uninterrupted run; 4 greedy
+                 requests of 4200..5200 prompt tokens through PagedEngine
+                 (bf16, window 4096) twice, the same streams, and three
+                 ticks profiled.  Phase 3 also holds the six flash kernels
+                 with window and cap (gemma2's heads, S = 6144 and edge
+                 cases) to their plain versions, and phase 4 times them at
+                 gemma2's training shape
 
-The serving phases (5 to 11) also launch fused_ln_add: one per layer per
-tick under fal.  Every main-path run (6, 8, 8b, each run of 8c and of 9 to
-11, and the counted steps of 13) zeroes all launch counters
-just before it and reads them just after.  The line before the last is a
+The serving phases (5 to 11, 14) also launch fused_ln_add: one per layer
+per tick under fal.  Every main-path run (6, 8, 8b, each run of 8c and of 9
+to 11, the counted steps of 13 and 14, and each gemma2 engine run) zeroes
+all launch counters just before it and reads them just after.  The line before the last is a
 JSON object with one entry per kernel; the last line is {"ok": true,
 "device": {...}}.  Without a CUDA device, or outside a checkout, the script
 exits non-zero and prints no result.  It imports nothing of JAX and nothing
@@ -328,12 +342,16 @@ def build_phase():
         for kname, spilled in spilling_kernels(log):
             print(f"    spills {spilled} bytes: {kname}")
     tc = tensor_core_kernels(build.PTXAS_LOG.get("flash_attention", ""))
-    for (kname, _, d, _), (regs, spilled) in sorted(tc.items()):
-        print(f"  flash_attention bf16 {kname} D={d}: {regs} registers at "
-              f"launch (setmaxnreg moves them to the consumers), "
-              f"{spilled} bytes spilled")
-    require(len(tc) == 9, f"ptxas reported {len(tc)} of the 9 bf16 flash "
-            f"kernels")
+    for (kname, _, d, cap), (regs, spilled) in sorted(tc.items()):
+        print(f"  flash_attention bf16 {kname}{' (softcap)' if cap else ''} "
+              f"D={d}: {regs} registers at launch (setmaxnreg moves them to "
+              f"the consumers), {spilled} bytes spilled")
+    want = {(kname, "", d, cap) for kname in ("fwd_kernel", "dkdv_kernel",
+                                              "dq_kernel")
+            for d in (32, 64, 128) for cap in ("", "cap")}
+    require(set(tc) == want, f"ptxas reported {sorted(tc)}, not the 18 bf16 "
+            f"flash kernels (3 kernels x 3 head dims, with and without the "
+            f"softcap)")
     require(all(sp == 0 for (_, _, d, _), (_, sp) in tc.items()
                 if d == 128), "a bf16 flash kernel spills at D = 128")
     # the tensor-core attention and combine kernels over the packed and the
@@ -489,21 +507,23 @@ PAGE_TYPES = {"13__nv_bfloat16": "bf16", "a": "int8", "13__nv_fp8_e4m3": "fp8"}
 
 
 def tensor_core_kernels(log, namespace="2tc"):
-    """{(kernel, page type or "", D, item source or ""): (registers, bytes
-    spilled)} of the kernel templates over (a page type and) D (and an item
-    source) in a mangled namespace (``2tc``: the bf16 flash kernels of
-    csrc/flash_attention.cu; ``9packed_tc``: the tensor-core attention of
-    csrc/paged_packed_tc.cuh, its attention kernel over bf16, int8 and fp8
-    pages, and it and the combine over ``PackedItems`` or ``ChunkItems``,
-    named "Packed" / "Chunk") from ptxas -v's report."""
+    """{(kernel, page type or "", D, item source or softcap or ""):
+    (registers, bytes spilled)} of the kernel templates over (a page type
+    and) D (and an item source or the softcap flag) in a mangled namespace
+    (``2tc``: the bf16 flash kernels of csrc/flash_attention.cu, over D and
+    kCap, the capped ones named "cap"; ``9packed_tc``: the tensor-core
+    attention of csrc/paged_packed_tc.cuh, its attention kernel over bf16,
+    int8 and fp8 pages, and it and the combine over ``PackedItems`` or
+    ``ChunkItems``, named "Packed" / "Chunk") from ptxas -v's report."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*" + namespace +
-                      r"(\d+)(\w+?_kernel)I(\w*?)Li(\d+)E"
+                      r"(\d+)(\w+?_kernel)I(\w*?)Li(\d+)E(?:Lb([01])E)?"
                       r"(?:NS_\d+(\w+?)ItemsE)?", line)
         if m:
             cur = (m.group(2), PAGE_TYPES.get(m.group(3), m.group(3)),
-                   int(m.group(4)), m.group(5) or "")
+                   int(m.group(4)),
+                   m.group(6) or ("cap" if m.group(5) == "1" else ""))
             out[cur] = [0, 0]
             continue
         if cur is None:
@@ -1843,10 +1863,13 @@ def tick_phase():
             f"1 on the fused kernel: {counts}")
 
 
-def padded_tick(cfg, params, label, C, lanes, tb, dual, want_paths):
+def padded_tick(cfg, params, label, C, lanes, tb, dual, want_paths,
+                scaled_tol=False):
     """One padded (B, C) tick at per-lane (pos, n_valid) over a random
     history: the card (kernels) against the CPU (plain versions).  Returns
-    the card run's launch counts."""
+    the card run's launch counts.  ``scaled_tol``: the tolerance is 1e-3
+    times max(1, the largest |hidden|) (fp32 sums in another order, errors
+    relative to the activations' size)."""
     from repro_torch import interop
     from repro_torch.core.plan import ExecutionPlan
     from repro_torch.kernels import ops
@@ -1879,13 +1902,15 @@ def padded_tick(cfg, params, label, C, lanes, tb, dual, want_paths):
     live = torch.arange(C)[None] < n_valid[:, None]               # (B, C)
     dh = (h_gpu.cpu()[live] - h_cpu[live]).abs().max().item()
     ds = (c_gpu["a1_sig"].cpu() - c_cpu["a1_sig"]).abs().max().item()
+    top = h_cpu[live].abs().max().item()
+    tol = 1e-3 * max(1.0, top) if scaled_tol else 1e-3
     print(f"  (pos, n_valid) {list(lanes)}, Tb={tb}: hidden max |diff| "
-          f"{dh:.3e} (max |h| {h_cpu[live].abs().max().item():.3f}); a1_sig "
-          f"max |diff| {ds:.3e}; tol 1e-3 (fp32 on both sides, sums in "
-          f"another order, activations of order 1); card paths {paths}; "
-          f"launches {counts}", flush=True)
+          f"{dh:.3e} (max |h| {top:.3f}); a1_sig max |diff| {ds:.3e}; tol "
+          f"{tol:.3g} (fp32 on both sides, sums in another order"
+          f"{', 1e-3 x max |h|' if scaled_tol else ', activations of order 1'}"
+          f"); card paths {paths}; launches {counts}", flush=True)
     require(paths == want_paths, f"card tick paths {paths} != {want_paths}")
-    require(dh <= 1e-3 and ds <= 1e-3,
+    require(dh <= tol and ds <= tol,
             "card tick disagrees with the CPU plain path")
     require(bool(torch.isfinite(h_gpu).all()),
             "non-finite hidden states on the card")
@@ -1902,12 +1927,17 @@ def padded_tick(cfg, params, label, C, lanes, tb, dual, want_paths):
 TICK_TOLS = {"": 1e-3, "int8": 1e-2, "fp8": 1e-2}
 
 
-def packed_tick(cfg, params, kv=""):
+def packed_tick(cfg, params, kv="", want_paths=None, scaled_tol=False):
+    """One packed tick (``mixed_tick``) over a random history, the card
+    against the CPU; ``want_paths``: the card's dispatch paths (default:
+    the packed kernel's site and the LN-add kernel); ``scaled_tol`` as in
+    ``padded_tick``."""
     from repro_torch import interop
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
-    phase(f"one packed tick at full width{', ' + kv + ' pages' if kv else ''}"
-          f": card (kernel) vs CPU (plain)")
+    phase(f"one packed tick of {cfg.arch_id} at full width"
+          f"{', ' + kv + ' pages' if kv else ''}: card (kernel) vs CPU "
+          f"(plain)")
     num_pages, tb = 512, 72
     bt, tok_slot, tok_pos, seg_last = mixed_tick(
         page=PAGE, num_pages=num_pages, tb=tb, seed=5)
@@ -1933,7 +1963,7 @@ def packed_tick(cfg, params, kv=""):
     dh = (h_gpu[0, live.cuda()].cpu() - h_cpu[0, live]).abs().max().item()
     ds = (c_gpu["a1_sig"].cpu() - c_cpu["a1_sig"]).abs().max().item()
     scale = h_cpu[0, live].abs().max().item()
-    tol = TICK_TOLS[kv]
+    tol = TICK_TOLS[kv] * (max(1.0, scale) if scaled_tol else 1.0)
     codes = ""
     if kv:
         diff = sum(int((c_gpu[part][n].cpu().view(torch.uint8)
@@ -1941,10 +1971,12 @@ def packed_tick(cfg, params, kv=""):
                    for part in ("block0", "blocks") for n in ("k", "v"))
         codes = f"; K/V codes that differ card vs CPU: {diff}"
     print(f"  hidden max |diff| {dh:.3e} (max |h| {scale:.3f}); a1_sig max "
-          f"|diff| {ds:.3e}; tol {tol:g} (TICK_TOLS){codes}; card path "
+          f"|diff| {ds:.3e}; tol {tol:.3g} (TICK_TOLS"
+          f"{' x max |h|' if scaled_tol else ''}){codes}; card path "
           f"{paths_gpu}", flush=True)
     site = "paged_packed_attention" + (f".{kv}" if kv else "")
-    if paths_gpu != {site: ops.CUDA, "fused_ln_add": ops.CUDA}:
+    want_paths = want_paths or {site: ops.CUDA, "fused_ln_add": ops.CUDA}
+    if paths_gpu != want_paths:
         raise AssertionError(f"card tick did not run the kernel: {paths_gpu}")
     if not (dh <= tol and ds <= tol):
         raise AssertionError("card tick disagrees with the CPU plain path")
@@ -2796,6 +2828,31 @@ FLASH_SHAPES = (("train", 1, 2048, H, HKV, D, True),
 #: sequence, causal from q_offset (Sq != Sk), as a chunked prefill calls it
 FLASH_OFFSET_SHAPES = ((1, 100, 260, 6, 2, 128, 160), (2, 70, 200, 4, 4, 64, 5),
                        (1, 33, 300, 3, 1, 32, 267))
+#: gemma2-27b's attention heads (32 query, 16 KV, head dim 128), its local
+#: layers' window and its attention softcap
+G2_H, G2_HKV, G2_D, G2_WINDOW, G2_CAP = 32, 16, 128, 4096, 50.0
+#: (label, B, Sq, Sk, H, Hkv, D, causal, q_offset, window, cap): the sliding
+#: window and the logit softcap: gemma2's training shape (the window binds
+#: from row 4096 on); at gemma2's heads a window of one key (the diagonal
+#: alone), one of 100 keys (not a multiple of the 64-key tiles), one of 64,
+#: the cap alone, the window alone, a window past the end (Sk + 5: the same
+#: as none), and queries at a q_offset into a longer key sequence; at small
+#: heads D = 32 and 64, a non-causal window, G = 1 and 2
+FLASH_WINDOW_SHAPES = (
+    ("gemma2 train", 1, 6144, 6144, G2_H, G2_HKV, G2_D, True, 0, G2_WINDOW,
+     G2_CAP),
+    ("edge", 1, 300, 300, G2_H, G2_HKV, G2_D, True, 0, 1, G2_CAP),
+    ("edge", 1, 300, 300, G2_H, G2_HKV, G2_D, True, 0, 1, 0.0),
+    ("edge", 1, 300, 300, G2_H, G2_HKV, G2_D, True, 0, 100, G2_CAP),
+    ("edge", 1, 300, 300, G2_H, G2_HKV, G2_D, True, 0, 100, 0.0),
+    ("edge", 1, 300, 300, G2_H, G2_HKV, G2_D, True, 0, 64, G2_CAP),
+    ("edge", 1, 300, 300, G2_H, G2_HKV, G2_D, True, 0, 0, G2_CAP),
+    ("edge", 1, 300, 300, G2_H, G2_HKV, G2_D, True, 0, 305, G2_CAP),
+    ("q_offset", 1, 100, 260, G2_H, G2_HKV, G2_D, True, 160, 100, G2_CAP),
+    ("q_offset", 2, 70, 200, 4, 2, 64, True, 5, 30, 0.0),
+    ("small", 2, 77, 77, 4, 2, 32, True, 0, 5, 30.0),
+    ("small", 3, 130, 130, 4, 1, 64, True, 0, 70, 30.0),
+    ("small", 1, 91, 91, 4, 2, 64, False, 0, 20, 30.0))
 #: kernel vs plain: fp32 sums in another order; bf16: one rounding of the
 #: output (|o| < 4: 2^-7 x 4 = 0.03) and of each gradient
 FLASH_TOLS = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -2888,7 +2945,107 @@ def flash_kernel_phase():
               f"{e_g:.3e} (relative; tol {tol:g})", flush=True)
         require(e_o <= tol and e_l <= tol and e_g <= tol,
                 f"{name}: kernels disagree with the plain versions")
+    t0 = time.perf_counter()
+    for case, dtype in itertools.product(FLASH_WINDOW_SHAPES,
+                                         (torch.float32, torch.bfloat16)):
+        e_o, e_g = flash_window_case(FA, blockwise_attention, case, dtype)
+        if case[0] == "gemma2 train" and dtype == torch.bfloat16:
+            errs.update({"flash_attention.gemma2": e_o,
+                         "flash_attention.bwd.gemma2": e_g})
+    check_window_past_end(FA)
+    print(f"  window and softcap cases: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return errs
+
+
+def _flash_visible_pairs(Sq, Sk, causal, q_offset, window):
+    """(query, key) pairs one head sees: row i sees keys j < Sk with
+    j <= q_offset + i (causal) and j > q_offset + i - window (window > 0)."""
+    n = 0
+    for i in range(Sq):
+        hi = min(Sk, q_offset + i + 1) if causal else Sk
+        lo = max(0, q_offset + i - window + 1) if window > 0 else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def flash_window_case(FA, blockwise_attention, case, dtype):
+    """One FLASH_WINDOW_SHAPES case: the forward (o, lse) and backward
+    kernels against the plain versions with the same window and cap, the
+    backward twice for the same bits, and (below 1000 rows) against
+    autograd through the plain forward.  Returns (o error, gradient
+    error)."""
+    label, B, Sq, Sk, h, hkv, d, causal, qo, window, cap = case
+    g = torch.Generator(device="cuda").manual_seed(Sq + Sk + window)
+    q, do = (randn(g, dtype, B, Sq, h, d) for _ in range(2))
+    k, v = (randn(g, dtype, B, Sk, hkv, d) for _ in range(2))
+    kw = dict(causal=causal, q_offset=qo, window=window, cap=cap)
+    tol = FLASH_TOLS[dtype]
+    o, lse = FA.flash_attention_fwd_cuda(q, k, v, **kw)
+    r_o, r_lse = FA.flash_attention_plain(q, k, v, **kw)
+    grads = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(grads, again))
+    plain = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    e_o, e_l = max_err(o, r_o), max_err(lse, r_lse)
+
+    def grad_err(got, want):
+        # each gradient relative to its largest value, floored at 10% of
+        # the largest of the three: under a window of one key dQ and dK
+        # are 0 up to rounding (P = 1 on the diagonal, dP = delta), and
+        # their rounding noise has no scale of its own
+        top = max(w.float().abs().max().item() for w in want)
+        return max(max_err(a, b) / max(b.float().abs().max().item(),
+                                       0.1 * top, 1e-30)
+                   for a, b in zip(got, want))
+    e_g = grad_err(grads, plain)
+    e_a = None
+    if Sq < 1000:
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        blockwise_attention(*leaves, **kw).backward(do)
+        e_a = grad_err(grads, [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    name = (f"{label} B={B} Sq={Sq} Sk={Sk} H={h} Hkv={hkv} D={d} "
+            f"{'causal' if causal else 'full'} q_offset={qo} window={window} "
+            f"cap={cap:g} {str(dtype)[6:]}")
+    auto = "" if e_a is None else (
+        f", vs autograd {e_a:.3e} (relative, tol {GRAD_TOLS[dtype]:g})")
+    print(f"  {name}: o {e_o:.3e}, lse {e_l:.3e} (tol {tol:g}); grads vs "
+          f"plain {e_g:.3e} (relative, tol {tol:g}){auto}; two backward "
+          f"runs bit-identical {same}", flush=True)
+    require(e_o <= tol and e_l <= tol, f"{name}: forward disagrees")
+    require(e_g <= tol, f"{name}: backward disagrees with its plain version")
+    require(e_a is None or e_a <= GRAD_TOLS[dtype],
+            f"{name}: backward disagrees with autograd through the plain "
+            f"forward")
+    require(same, f"{name}: backward is not deterministic")
+    return e_o, e_g
+
+
+def check_window_past_end(FA):
+    """A window of Sk keys or more is no window: o, lse and the gradients
+    equal the window = 0 results bit for bit (fp32 and bf16, with and
+    without the cap, a causal and a q_offset call)."""
+    for (B, Sq, Sk, qo), dtype, cap in itertools.product(
+            ((1, 300, 300, 0), (1, 100, 260, 160)),
+            (torch.float32, torch.bfloat16), (0.0, G2_CAP)):
+        g = torch.Generator(device="cuda").manual_seed(Sq + qo)
+        q, do = (randn(g, dtype, B, Sq, G2_H, G2_D) for _ in range(2))
+        k, v = (randn(g, dtype, B, Sk, G2_HKV, G2_D) for _ in range(2))
+        outs = []
+        for window in (0, Sk, Sk + 37):
+            kw = dict(q_offset=qo, window=window, cap=cap)
+            o, lse = FA.flash_attention_fwd_cuda(q, k, v, **kw)
+            outs.append((o, lse) + FA.flash_attention_bwd_cuda(
+                q, k, v, o, lse, do, **kw))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for other in outs[1:]
+                   for a, b in zip(outs[0], other))
+        name = (f"Sq={Sq} Sk={Sk} q_offset={qo} cap={cap:g} "
+                f"{str(dtype)[6:]}")
+        print(f"  window Sk and Sk + 37 vs none, {name}: o, lse, dq, dk, dv "
+              f"bit-identical {same}", flush=True)
+        require(same, f"{name}: a window past the end changes the result")
 
 
 def ln_inputs(dtype, kind, rows, d, seed):
@@ -2964,13 +3121,15 @@ def ln_kernel_phase():
     return errs
 
 
-def _flash_bound_ms(B, S, h, hkv, d, elt, bw, factor=1.0, n_io=4):
+def _flash_bound_ms(B, S, h, hkv, d, elt, bw, factor=1.0, n_io=4,
+                    pairs=None):
     """Least time of a causal attention pass: flops 4 * D per visible
-    (query, key) pair per head (S (S + 1) / 2 pairs), times ``factor``
-    (the backward: 2.5), at 989 TFLOP/s; bytes: ``n_io`` (B, S, H, D)
-    tensors of q's size (K and V count at Hkv / H of it) read or written
-    once, plus the fp32 row statistics."""
-    flops = 4 * d * h * B * S * (S + 1) / 2 * factor
+    (query, key) pair per head (``pairs``, default S (S + 1) / 2), times
+    ``factor`` (the backward: 2.5), at 989 TFLOP/s; bytes: ``n_io``
+    (B, S, H, D) tensors of q's size (K and V count at Hkv / H of it) read
+    or written once, plus the fp32 row statistics."""
+    pairs = S * (S + 1) / 2 if pairs is None else pairs
+    flops = 4 * d * h * B * pairs * factor
     nbytes = n_io * B * S * h * d * elt + 2 * B * h * S * 4
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / bw
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -3033,6 +3192,8 @@ def train_time_phase(bw):
           f"TFLOP/s (at 2.5x the forward's flops), {b_bwd[0] / bwd_ms:.3f} "
           f"of the bound", flush=True)
     del qt, kt, vt, out
+    rows["flash_attention"].update(flash_gemma2_times(bw))
+    rows["flash_attention.bwd"].update(rows["flash_attention"].pop("bwd"))
     for kind, n, dm in LN_SHAPES[:LN_TIMED]:
         x, a1, scale, bias, dy = ln_inputs(torch.bfloat16, kind, n, dm, 2)
         y, mean, rstd = LN.fused_ln_add_fwd_cuda(x, a1, scale, bias,
@@ -3127,6 +3288,62 @@ def train_time_phase(bw):
     return rows
 
 
+def flash_gemma2_times(bw):
+    """The capped, windowed flash kernels at gemma2-27b's training shape
+    (B=1, S=6144, H=32, Hkv=16, D=128, window 4096, cap 50, bf16): kernel,
+    plain and bound times, forward and backward; also with the window alone
+    (the softcap's cost).  No PyTorch call applies a logit softcap: no
+    library time.  Returns the forward's fields, the backward's under
+    "bwd"."""
+    from repro_torch.kernels import flash_attention as FA
+    B, S, h, hkv, d = G2_TRAIN_B, G2_TRAIN_S, G2_H, G2_HKV, G2_D
+    q, k, v, do = flash_inputs(torch.bfloat16, B, S, h, hkv, d, seed=2)
+    kw = dict(window=G2_WINDOW, cap=G2_CAP)
+    bare = dict(window=G2_WINDOW)
+    o, lse = FA.flash_attention_fwd_cuda(q, k, v, **kw)
+    o0, lse0 = FA.flash_attention_fwd_cuda(q, k, v, **bare)
+    fwd_ms = _median_ms(lambda: FA.flash_attention_fwd_cuda(q, k, v, **kw),
+                        n=30)
+    bwd_ms = _median_ms(lambda: FA.flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, **kw), n=30)
+    fwd_nocap = _median_ms(lambda: FA.flash_attention_fwd_cuda(
+        q, k, v, **bare), n=30)
+    bwd_nocap = _median_ms(lambda: FA.flash_attention_bwd_cuda(
+        q, k, v, o0, lse0, do, **bare), n=30)
+    fwd_plain = _median_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
+                           n=5)
+    bwd_plain = _median_ms(lambda: FA.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, **kw), n=5)
+    pairs = _flash_visible_pairs(S, S, True, 0, G2_WINDOW)
+    elt = q.element_size()
+    b_fwd = _flash_bound_ms(B, S, h, hkv, d, elt, bw, n_io=2 + 2 * hkv / h,
+                            pairs=pairs)
+    b_bwd = _flash_bound_ms(B, S, h, hkv, d, elt, bw, factor=2.5,
+                            n_io=4 + 4 * hkv / h, pairs=pairs)
+    shape = (f"B={B} S={S} H={h} Hkv={hkv} D={d} causal window "
+             f"{G2_WINDOW} cap {G2_CAP:g} bf16, {pairs} visible pairs a "
+             f"head ({S * (S + 1) // 2} causal)")
+    flops = 4 * d * h * B * pairs
+    print(f"  flash_attention gemma2 {shape}: kernel_ms {fwd_ms:.4f} "
+          f"(window alone {fwd_nocap:.4f}) plain_ms {fwd_plain:.4f} "
+          f"bound_ms {b_fwd[0]:.4f} ({b_fwd[1]}) library_ms none (no "
+          f"PyTorch call applies a logit softcap); {flops / fwd_ms / 1e9:.1f}"
+          f" TFLOP/s, {b_fwd[0] / fwd_ms:.3f} of the bound")
+    print(f"  flash_attention.bwd gemma2: kernel_ms {bwd_ms:.4f} (window "
+          f"alone {bwd_nocap:.4f}) plain_ms {bwd_plain:.4f} bound_ms "
+          f"{b_bwd[0]:.4f} ({b_bwd[1]}); {2.5 * flops / bwd_ms / 1e9:.1f} "
+          f"TFLOP/s (at 2.5x the forward's flops), "
+          f"{b_bwd[0] / bwd_ms:.3f} of the bound", flush=True)
+    return dict(gemma2_ms=fwd_ms, gemma2_window_only_ms=fwd_nocap,
+                gemma2_plain_ms=fwd_plain, gemma2_bound_ms=b_fwd[0],
+                gemma2_bound_by=b_fwd[1], gemma2_library_ms=None,
+                gemma2_shape=shape,
+                bwd=dict(gemma2_ms=bwd_ms, gemma2_window_only_ms=bwd_nocap,
+                         gemma2_plain_ms=bwd_plain,
+                         gemma2_bound_ms=b_bwd[0], gemma2_bound_by=b_bwd[1],
+                         gemma2_library_ms=None, gemma2_shape=shape))
+
+
 def kernel_breakdown(fn, n=20):
     """{kernel name: mean device microseconds a call} of ``n`` calls of
     ``fn`` under torch.profiler (empty when it sees no CUDA kernel)."""
@@ -3162,19 +3379,27 @@ def train_tick_phase():
     S=256, fal, remat) on the card (kernels) against the CPU (plain
     versions) from the same weights and batch."""
     from repro_torch.configs.base import get_config
+    phase("one train step at full width, 2 layers, fp32: card vs CPU")
+    train_tick(get_config("llama3.2-3b").replace(n_layers=2,
+                                                 dtype="float32"), 2, 256)
+
+
+def train_tick(cfg, B, S, params=None):
+    """One train step of ``cfg`` (fp32) on B x S tokens on the card
+    (kernels) against the CPU (plain versions) from the same weights
+    (``params`` on the CPU, else drawn from seed 0) and batch: loss, grad
+    norm and post-step params; the card's paths and launches."""
     from repro_torch.kernels import ops
     from repro_torch.optim import adamw
     from repro_torch.train import step as tstep
-    phase("one train step at full width, 2 layers, fp32: card vs CPU")
-    cfg = get_config("llama3.2-3b").replace(n_layers=2, dtype="float32")
     ocfg = adamw.AdamWConfig(lr=3e-4)
-    cpu = tstep.init_state(0, cfg, ocfg, device="cpu")
+    cpu = tstep.init_state(0, cfg, ocfg, device="cpu", params=params)
     gpu = tstep.init_state(0, cfg, ocfg, params=adamw.map_tree(
         lambda t: t.detach().to("cuda"), cpu["params"]))
     before = dict(adamw.named_leaves(adamw.map_tree(
         lambda t: t.detach().clone(), cpu["params"])))
     g = torch.Generator().manual_seed(3)
-    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 256), generator=g,
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
                                      dtype=torch.int32)}
     step = tstep.make_train_step(cfg, ocfg)
     ops.reset_dispatch_paths()
@@ -3302,6 +3527,321 @@ def train_phase():
                   f"{name} {kms:.2f} ms in {c}" for name, kms, c in flash))
     sys.stdout.flush()
     return {k: counts[k] for k in want}, dict(step_ms=ms, peak=peak)
+
+
+# --------------------------------------------------------------------------- #
+# gemma2: sliding windows, logit softcaps, checkpoints
+# --------------------------------------------------------------------------- #
+#: the window of the card-vs-CPU ticks (the config's 4096 replaced), so that
+#: it binds on lanes of ~300 tokens
+G2_TICK_WINDOW = 128
+#: gemma2 training: B x S tokens (S past the local layers' 4096 window)
+G2_TRAIN_B, G2_TRAIN_S = 1, 6144
+
+
+def gemma2_config(**kw):
+    """gemma2-27b at full width, cut to 2 layers: block 0 local (window
+    4096), block 1 global."""
+    from repro_torch.configs.base import get_config
+    return get_config("gemma2-27b").replace(n_layers=2, **kw)
+
+
+def gemma2_tick_phase():
+    """gemma2-27b at full width (2 layers, fp32, window 128): one packed
+    tick, one padded chunk tick and one padded decode tick over a random
+    history, then one train step (B=1, S=320), each on the card against
+    the CPU.  Every layer takes the gather branch (the softcap is on in all
+    of them): the card's only kernel on the serving ticks is the LN-add."""
+    from repro_torch import interop
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    cfg = gemma2_config(dtype="float32", sliding_window=G2_TICK_WINDOW)
+    phase(f"gemma2-27b ticks at full width, 2 layers, fp32, window "
+          f"{G2_TICK_WINDOW}: card vs CPU")
+    t0 = time.perf_counter()
+    # drawn on the card (seconds faster than the CPU's generator), then
+    # copied to the CPU: both sides start from these CPU weights
+    params = interop.tree_to(M.init_params(cfg, seed=0, device="cuda",
+                                           dtype="float32"), "cpu")
+    torch.cuda.empty_cache()
+    print(f"  init_params on the card, copied to the CPU: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ln = {"fused_ln_add": ops.CUDA}
+    packed_tick(cfg, params, want_paths=ln, scaled_tol=True)
+    padded_tick(cfg, params, "gemma2-27b chunk tick C=128", 128,
+                ((0, 128), (172, 128), (300, 37), (250, 0), (0, 1),
+                 (64, 128), (200, 90), (400, 128)), 40, False, ln,
+                scaled_tol=True)
+    padded_tick(cfg, params, "gemma2-27b decode tick C=1", 1,
+                ((0, 1), (127, 1), (128, 1), (300, 1), (511, 1), (100, 0),
+                 (200, 1), (129, 1)), 64, False, ln, scaled_tol=True)
+    phase("gemma2-27b: one train step at full width, 2 layers, fp32, B=1, "
+          f"S=320, window {G2_TICK_WINDOW}: card vs CPU")
+    train_tick(cfg, 1, 320, params=params)
+    print(f"  gemma2 tick phases: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def _host_leaves(state, lazy=False):
+    """{(tree, path): CPU copy} of the params and both AdamW moments; with
+    ``lazy``, the (key, CPU copy) pairs one at a time."""
+    from repro_torch.optim import adamw
+    pairs = (((k, path), t.detach().cpu())
+             for k, tree in (("params", state["params"]),
+                             ("m", state["opt"]["m"]),
+                             ("v", state["opt"]["v"]))
+             for path, t in adamw.named_leaves(tree))
+    return pairs if lazy else dict(pairs)
+
+
+def gemma2_train_phase():
+    """``trainer.train`` at gemma2-27b's full width, 2 layers (local, then
+    global), fal, fp32 masters, bf16 compute, remat, B=1, S=6144: 1 warm-up
+    step and 3 counted steps, saving the checkpoint (the reference's
+    format) after the last; one more step under torch.profiler; then the
+    checkpoint restored on the card and the same step again from it, which
+    must give the uninterrupted run's params and moments bit for bit."""
+    import shutil
+    import tempfile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.models.blocks import window_schedule
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint
+    from repro_torch.train import step as tstep
+    from repro_torch.train import trainer
+    cfg = gemma2_config()
+    steps, B, S = 4, G2_TRAIN_B, G2_TRAIN_S
+    phase(f"train: gemma2-27b, 2 layers (windows {window_schedule(cfg)}), "
+          f"{cfg.connection}, fp32 masters, {cfg.dtype} compute, remat "
+          f"{cfg.remat}, B={B}, S={S}, {steps - 1} steps after 1 warm-up")
+    tmp = tempfile.mkdtemp(prefix="g2ckpt-")
+    marks = []
+
+    def mark(i, state, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if i == 0:                       # the warm-up step is not counted
+            ops.reset_launches()
+            ops.reset_dispatch_paths()
+            torch.cuda.reset_peak_memory_stats()
+
+    try:
+        t_train = time.perf_counter()
+        state, hist = trainer.train(cfg, steps=steps, batch=B, seq_len=S,
+                                    log_every=1, device="cuda",
+                                    callbacks=[mark], ckpt_dir=tmp)
+        save_s = time.perf_counter() - marks[-1]
+        counts, paths = ops.launch_counts(), ops.dispatch_paths()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in hist]
+        step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        ms = statistics.median(step_ms)
+        size = sum(f.stat().st_size for f in pathlib.Path(tmp).iterdir())
+        print(f"  losses {['%.4f' % x for x in losses]}; step ms "
+              f"{['%.1f' % x for x in step_ms]} (median {ms:.1f}); "
+              f"{B * S / ms * 1e3:.1f} tokens/s; peak memory "
+              f"{peak / 2**30:.2f} GiB (max_memory_allocated, counted "
+              f"steps); checkpoint {size / 1e9:.2f} GB written in "
+              f"{save_s:.1f} s (train + save {time.perf_counter() - t_train:.1f}"
+              f" s)")
+        n, L = steps - 1, cfg.n_layers
+        want = {"flash_attention": n * L * 2, "flash_attention.bwd": n * L,
+                "fused_ln_add": n * L * 2, "fused_ln_add.bwd": n * L}
+        print(f"  launches {dict((k, counts[k]) for k in want)} (expected "
+              f"steps x layers x remat factor 2 forward, steps x layers "
+              f"backward: {want}); paths {paths}", flush=True)
+        require(all(math.isfinite(x) for x in losses), "non-finite loss")
+        require(all(counts[k] == v for k, v in want.items()),
+                "gemma2 train launches != their products")
+        require(paths == {"flash_attention": ops.CUDA,
+                          "fused_ln_add": ops.CUDA},
+                f"gemma2 train paths {paths}")
+        require(checkpoint.latest_step(tmp) == steps,
+                "the trainer did not save its checkpoint at step == steps")
+        ocfg = adamw.AdamWConfig(lr=3e-4)
+        step = tstep.make_train_step(cfg, ocfg)
+        g = torch.Generator().manual_seed(17)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                         dtype=torch.int32).cuda()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            m5 = step(state, batch)[1]
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        step_peak = torch.cuda.max_memory_allocated()
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        device_ms = sum(r[1] for r in rows)
+        flash = [(re.search(r"(\w+<[^>]*>)\(", key).group(1), kms, c)
+                 for key, kms, c in rows
+                 if re.search(r"tc::\w+_kernel<|flash_\w+_kernel<", key)]
+        flash_ms = sum(r[1] for r in flash)
+        if device_ms == 0.0:
+            print("  device time: not measured (the profiler saw no CUDA "
+                  "kernels)")
+        else:
+            print(f"  profiled step: wall {wall:.1f} ms, device kernel time "
+                  f"{device_ms:.1f} ms, busy share {device_ms / wall:.3f} "
+                  f"(of the profiled wall); peak memory "
+                  f"{step_peak / 2**30:.2f} GiB")
+            for key, kms, c in sorted(rows, key=lambda r: -r[1])[:8]:
+                print(f"    {kms:9.2f} ms {c:6d} calls  {key[:90]}")
+            print(f"  flash_attention kernels: {flash_ms:.2f} ms of the "
+                  f"step's device time ({flash_ms / device_ms:.3f}): "
+                  + ", ".join(f"{name} {kms:.2f} ms in {c}"
+                              for name, kms, c in flash), flush=True)
+        # resume: the checkpoint of step 4 on the card, then the same step
+        want_leaves = _host_leaves(state)
+        like = {"params": adamw.map_tree(
+                    lambda t: torch.empty_like(t).requires_grad_(
+                        t.requires_grad), state["params"]),
+                "opt": {"m": adamw.map_tree(torch.empty_like,
+                                            state["opt"]["m"]),
+                        "v": adamw.map_tree(torch.empty_like,
+                                            state["opt"]["v"]),
+                        "count": state["opt"]["count"]}}
+        count5 = state["opt"]["count"]
+        del state
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed = checkpoint.restore(tmp, like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del like
+        torch.cuda.empty_cache()
+        m5r = step(resumed, batch)[1]
+        torch.cuda.synchronize()
+        same = [k for k, t in _host_leaves(resumed, lazy=True)
+                if torch.equal(t, want_leaves[k])]
+        print(f"  resumed from the step-{steps} checkpoint (restored in "
+              f"{restore_s:.1f} s): count {resumed['opt']['count']} "
+              f"(uninterrupted {count5}); loss {float(m5r['loss']):.6f} "
+              f"(uninterrupted {float(m5['loss']):.6f}); {len(same)} of "
+              f"{len(want_leaves)} params / m / v leaves bit-identical to "
+              f"the uninterrupted run's", flush=True)
+        require(len(same) == len(want_leaves)
+                and resumed["opt"]["count"] == count5
+                and float(m5r["loss"]) == float(m5["loss"]),
+                "the resumed step differs from the uninterrupted one")
+        del resumed
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ({"flash_attention": counts["flash_attention"],
+             "flash_attention.bwd": counts["flash_attention.bwd"]},
+            dict(step_ms=ms, peak=peak, device_ms=device_ms,
+                 flash_ms=flash_ms))
+
+
+def gemma2_engine_phase():
+    """gemma2-27b at full width (2 layers, bf16, the real window of 4096)
+    through PagedEngine: 4 greedy requests with prompts of 4200 to 5200
+    tokens and 16 new tokens each, twice (the same streams); then three
+    ticks of a third serving under torch.profiler (device time a tick,
+    peak memory)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import (EngineConfig, PagedEngine,
+                                             ServeRequest)
+    cfg = gemma2_config()
+    phase("engine: gemma2-27b, 2 layers, bf16, window 4096, 4 greedy "
+          "requests of 4200..5200 prompt tokens")
+    params = M.init_params(cfg, seed=0)
+    ecfg = EngineConfig(page_size=16, num_pages=1400, slots=4,
+                        prefill_chunk=256, max_seq=6144,
+                        cache_dtype="bfloat16")
+    engine = PagedEngine(cfg, params, ecfg)
+    rng = np.random.default_rng(24)
+    engine.submit(ServeRequest(rid=-1, prompt=rng.integers(0, cfg.vocab, 32),
+                               max_new=4))
+    engine.run()
+    lens = rng.integers(4200, 5201, 4)
+    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lens]
+
+    def serve(base, max_ticks=None):
+        engine.finished.clear()
+        engine.reset_stats()
+        for i, p in enumerate(prompts):
+            engine.submit(ServeRequest(rid=base + i, prompt=p, max_new=16))
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        ops.reset_dispatch_paths()
+        t0 = time.perf_counter()
+        done = engine.run(max_ticks=max_ticks)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, done, engine.stats(),
+                ops.launch_counts(), ops.dispatch_paths())
+
+    runs = []
+    for base in (0, 100):
+        wall, done, st, counts, paths = serve(base)
+        streams = {r.rid - base: list(map(int, r.generated)) for r in done}
+        gen = sum(len(v) for v in streams.values())
+        print(f"  run {len(runs) + 1}: {st['ticks']} ticks, {gen} tokens in "
+              f"{wall:.2f} s = {gen / wall:.1f} tok/s; engine_dispatch_ms "
+              f"p50 {st['dispatch_ms']['p50']:.2f} p99 "
+              f"{st['dispatch_ms']['p99']:.2f}; ttft_ms p50 "
+              f"{st['ttft_ms']['p50']:.1f}; fused_ln_add launches "
+              f"{counts['fused_ln_add']} (ticks x layers = "
+              f"{st['ticks'] * cfg.n_layers}); paths {paths}", flush=True)
+        require(len(done) == 4 and all(len(v) == 16 and not r.truncated
+                                       for r, v in zip(done,
+                                                       streams.values())),
+                "not every gemma2 request finished with 16 tokens")
+        require(counts["fused_ln_add"] == st["ticks"] * cfg.n_layers
+                and paths == {"fused_ln_add": ops.CUDA},
+                f"gemma2 engine launches {counts} / paths {paths}")
+        runs.append(dict(streams=streams, tok_s=gen / wall, wall=wall,
+                         ticks=st["ticks"], p50=st["dispatch_ms"]["p50"],
+                         launches=counts["fused_ln_add"]))
+    same = runs[0]["streams"] == runs[1]["streams"]
+    print(f"  prompts {sorted(int(n) for n in lens)} tokens; the two runs' "
+          f"streams equal: {same}", flush=True)
+    require(same, "two gemma2 engine runs gave different streams")
+    engine.finished.clear()
+    engine.reset_stats()
+    for i, p in enumerate(prompts):
+        engine.submit(ServeRequest(rid=200 + i, prompt=p, max_new=16))
+    engine.run(max_ticks=2)                # admitted, prefilling
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run(max_ticks=2 + n)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(r[1] for r in rows)
+    if device_ms == 0.0:
+        print("  device time: not measured (the profiler saw no CUDA "
+              "kernels)")
+    else:
+        print(f"  {n} prefill ticks profiled: device kernel time "
+              f"{device_ms / n:.2f} ms a tick (wall {wall / n:.2f} ms a "
+              f"tick, busy share {device_ms / wall:.3f}); peak memory "
+              f"{peak / 2**30:.2f} GiB (max_memory_allocated over the "
+              f"ticks)")
+        for key, kms, c in sorted(rows, key=lambda r: -r[1])[:6]:
+            print(f"    {kms / n:9.2f} ms a tick {c:6d} calls  {key[:80]}")
+    sys.stdout.flush()
+    del engine, params
+    torch.cuda.empty_cache()
+    return dict(tok_s=runs[0]["tok_s"], p50=runs[0]["p50"],
+                tick_device_ms=device_ms / n, peak=peak,
+                launches=runs[0]["launches"])
 
 
 # --------------------------------------------------------------------------- #
@@ -3696,6 +4236,11 @@ def main():
     train_tick_phase()
     train_launches, train = train_phase()
     launches.update(train_launches)
+    t_g2 = time.perf_counter()
+    gemma2_tick_phase()
+    g2_launches, g2_train = gemma2_train_phase()
+    g2_engine = gemma2_engine_phase()
+    print(f"  gemma2 phases: {time.perf_counter() - t_g2:.1f} s", flush=True)
     src = "src/repro_torch/kernels/csrc/"
     pa = "src/repro/kernels/paged_attention.py"
     where = {
@@ -3744,7 +4289,13 @@ def main():
                          spec_engine_formula=spec["formula"])
         elif kname == "fused_ln_add":
             entry.update(spec_engine_launches=spec["ln_launches"],
-                         spec_engine_formula=spec["formula"])
+                         spec_engine_formula=spec["formula"],
+                         gemma2_engine_launches=g2_engine["launches"])
+        if kname in g2_launches:
+            # the gemma2 training path (3 counted steps, 2 layers, remat)
+            # and the window / softcap check's error at its shape
+            entry.update(gemma2_launches=g2_launches[kname],
+                         gemma2_max_abs_err=errs[f"{kname}.gemma2"])
         entry["shape"] = row["shape"]
         kernels.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s; engine "
@@ -3752,7 +4303,11 @@ def main():
           f"a call " + ", ".join(f"{k[0]}@{k[1]} {v:.3f}" for k, v in
                                  sampler_ms.items())
           + f"; seeded spec tick {spec['device_ms_per_tick']:.2f} ms of "
-          f"device time; train {train['step_ms']:.1f} ms/step; card {smi}")
+          f"device time; train {train['step_ms']:.1f} ms/step; gemma2 "
+          f"train {g2_train['step_ms']:.1f} ms/step (peak "
+          f"{g2_train['peak'] / 2**30:.2f} GiB), engine "
+          f"{g2_engine['tok_s']:.1f} tok/s, prefill tick "
+          f"{g2_engine['tick_device_ms']:.2f} ms of device time; card {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -17,6 +17,21 @@
 // as ref.attention_ref's.  Any Sq and Sk (the tails are masked), D in
 // {32, 64, 128}.
 //
+// gemma2's options, which the TPU kernel does not take (the reference runs
+// them in blockwise_attention, src/repro/models/attention.py:21-66): a
+// sliding window (window > 0: row i also sees only keys > q_offset + i -
+// window) and a logit softcap (cap > 0: the scaled score s becomes
+// tanhf(s / cap) * cap in fp32 before the mask and the running max; lse is
+// over the capped scores).  Under a window a query block loads no key tile
+// wholly below its first row's window, and a dK/dV block walks the query
+// tiles only up to the last row that sees its last key; only edge tiles are
+// masked.  The backward recomputes t = tanhf(s / cap) and scales dS by
+// 1 - t^2 before dS is rounded for the dQ and dK products.  The softcap is
+// a template parameter (kCap): without it the kernels are the same code as
+// before it existed, and window <= 0 leaves every tile range as it was.
+// The cap costs one accurate tanhf (not tanh.approx, ~2^-11 relative) for
+// each visible pair, in both passes.
+//
 // Two sets of kernels, chosen by dtype (not a fallback: each dtype has one):
 //
 // bf16 (namespace tc): the products on the tensor cores.  Every kernel is
@@ -63,6 +78,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -125,15 +141,40 @@ __device__ __forceinline__ int key_end(int q0, int Sq, int Sk, int causal,
   return min(Sk, q_offset + min(q0 + kB, Sq));
 }
 
+// First key that any row of a query block starting at row q0 sees: under a
+// sliding window (window > 0) row r sees keys > q_offset + r - window, so
+// the block's first row bounds it; 0 without a window.
+__device__ __forceinline__ int key_begin(int q0, int window, int q_offset) {
+  return window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
+}
+
+// Last query row (exclusive) that sees any key of a key block whose last
+// key is k_last: row r sees key j only while q_offset + r < j + window;
+// Sq without a window.
+__device__ __forceinline__ int query_end(int k_last, int Sq, int window,
+                                         int q_offset) {
+  return window > 0 ? min(Sq, max(0, k_last + window - q_offset)) : Sq;
+}
+
+// Whether key j lies inside the window of the query at position qpos.
+__device__ __forceinline__ bool in_window(int key, int qpos, int window) {
+  return window <= 0 || key > qpos - window;
+}
+
 // Thread layout of a 64 x 64 tile: ty = tid / 16 owns rows ty + 16 i,
 // tx = tid % 16 owns columns tx + 16 j (i, j < 4).  The 16 threads of one
 // ty share a half warp, so a row's reductions are half-warp shuffles.
-template <typename T, int D>
+//
+// Under a softcap (kCap) the scaled score s becomes tanhf(s / cap) * cap
+// before the mask and the softmax (tanhf, not tanh.approx: the fp32 gate is
+// 1e-4).
+template <typename T, int D, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
-                 float scale, int causal, int q_offset) {
+                 float scale, int causal, int q_offset, int window,
+                 float cap) {
   constexpr int LD = D + 1, NC = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -157,7 +198,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
   const int n_tiles = (key_end(q0, Sq, Sk, causal, q_offset) + kB - 1) / kB;
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = key_begin(q0, window, q_offset) / kB; t < n_tiles; ++t) {
     const int k0 = t * kB;
     __syncthreads();                 // the last tile's reads are done
     load_tile<T, D>(Ks, kb, k0, Sk, (size_t)Hkv * D);
@@ -187,8 +228,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < Sk && (!causal || kpos <= qpos);
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
+        const bool ok = kpos < Sk && (!causal || kpos <= qpos) &&
+                        in_window(kpos, qpos, window);
+        float x = s[i][j] * scale;
+        if constexpr (kCap) x = tanhf(x / cap) * cap;
+        s[i][j] = ok ? x : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], half_warp_max(mx));
@@ -254,14 +298,17 @@ flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 
 // dK, dV of one 64-key block of one KV head: ty owns keys ty + 16 i, tx
 // owns query rows tx + 16 j of each query tile.
-template <typename T, int D>
+// Under a softcap dS is scaled by 1 - t^2, t = tanhf(s / cap) (tanh's
+// derivative at the capped score).
+template <typename T, int D, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, T* __restrict__ dk,
                   T* __restrict__ dv, int Sq, int Sk, int H, int Hkv,
-                  float scale, int causal, int q_offset) {
+                  float scale, int causal, int q_offset, int window,
+                  float cap) {
   constexpr int LD = D + 1, NC = D / 16;
   extern __shared__ float smem[];
   float* Ks = smem;
@@ -284,9 +331,11 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < NC; ++c) adk[i][c] = adv[i][c] = 0.f;
-  // the first query row that sees key k0 is k0 - q_offset
+  // the first query row that sees key k0 is k0 - q_offset; under a window
+  // the last one that sees the block's last key bounds the rows above
   const int q_lo = causal ? max(0, k0 - q_offset) : 0;
-  const int n_qt = (Sq + kB - 1) / kB;
+  const int n_qt =
+      (query_end(min(k0 + kB, Sk) - 1, Sq, window, q_offset) + kB - 1) / kB;
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
     const T* qb = q + ((size_t)b * Sq * H + h) * D;
@@ -330,14 +379,27 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int kpos = k0 + ty + 16 * i;
+        // the rows that see key kpos end at Sq or, under a window, at the
+        // first row whose window has passed it (q_offset + row >= kpos +
+        // window): one bound a key, so the row test costs what it did
+        const int row_end =
+            window > 0 ? min(Sq, kpos + window - q_offset) : Sq;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int r = tx + 16 * j, qrow = q0 + r;
-          const bool ok = kpos < Sk && qrow < Sq &&
+          const bool ok = kpos < Sk && qrow < row_end &&
                           (!causal || kpos <= q_offset + qrow);
-          const float p = ok ? expf(s[i][j] * scale - Ls[r]) : 0.f;
-          Ps[(ty + 16 * i) * kLdP + r] = p;
-          Ds[(ty + 16 * i) * kLdP + r] = p * (dp[i][j] - Es[r]);
+          if constexpr (kCap) {
+            const float th = tanhf(s[i][j] * scale / cap);
+            const float p = ok ? expf(th * cap - Ls[r]) : 0.f;
+            Ps[(ty + 16 * i) * kLdP + r] = p;
+            Ds[(ty + 16 * i) * kLdP + r] =
+                p * (dp[i][j] - Es[r]) * (1.f - th * th);
+          } else {
+            const float p = ok ? expf(s[i][j] * scale - Ls[r]) : 0.f;
+            Ps[(ty + 16 * i) * kLdP + r] = p;
+            Ds[(ty + 16 * i) * kLdP + r] = p * (dp[i][j] - Es[r]);
+          }
         }
       }
       __syncthreads();               // the P and dS tiles are complete
@@ -377,14 +439,14 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // dQ of one 64-row query block of one head: ty owns rows ty + 16 i, tx
 // owns keys tx + 16 j of each key tile.
-template <typename T, int D>
+template <typename T, int D, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dq, int Sq,
                 int Sk, int H, int Hkv, float scale, int causal,
-                int q_offset) {
+                int q_offset, int window, float cap) {
   constexpr int LD = D + 1, NC = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -411,7 +473,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < NC; ++c) adq[i][c] = 0.f;
   const int n_tiles = (key_end(q0, Sq, Sk, causal, q_offset) + kB - 1) / kB;
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = key_begin(q0, window, q_offset) / kB; t < n_tiles; ++t) {
     const int k0 = t * kB;
     __syncthreads();
     load_tile<T, D>(Ks, kb, k0, Sk, (size_t)Hkv * D);
@@ -446,13 +508,25 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i, qrow = q0 + r;
+      // keys above key_lo: none for a row past Sq, else those inside the
+      // row's window (all without one): one bound a row, so the key test
+      // costs what the row test did
+      const int key_lo = qrow >= Sq ? INT_MAX
+                         : window > 0 ? q_offset + qrow - window : -1;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < Sk && qrow < Sq &&
+        const bool ok = kpos < Sk && kpos > key_lo &&
                         (!causal || kpos <= q_offset + qrow);
-        const float p = ok ? expf(s[i][j] * scale - Ls[r]) : 0.f;
-        Ds[r * kLdP + tx + 16 * j] = p * (dp[i][j] - Es[r]);
+        if constexpr (kCap) {
+          const float th = tanhf(s[i][j] * scale / cap);
+          const float p = ok ? expf(th * cap - Ls[r]) : 0.f;
+          Ds[r * kLdP + tx + 16 * j] =
+              p * (dp[i][j] - Es[r]) * (1.f - th * th);
+        } else {
+          const float p = ok ? expf(s[i][j] * scale - Ls[r]) : 0.f;
+          Ds[r * kLdP + tx + 16 * j] = p * (dp[i][j] - Es[r]);
+        }
       }
     }
     __syncthreads();                 // the dS tile is complete
@@ -496,25 +570,27 @@ struct Shape {
   int B, Sq, Sk, H, Hkv;
   float scale;
   int causal, q_offset;
+  int window;   // <= 0: no sliding window
+  float cap;    // 0: no logit softcap (the kCap = false kernels)
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kCap>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
         const Shape& s, cudaStream_t stream) {
   const size_t smem = fwd_smem<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, D, kCap>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((s.Sq + kB - 1) / kB, s.H, s.B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, D, kCap><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, s.Sq, s.Sk, s.H,
-      s.Hkv, s.scale, s.causal, s.q_offset);
+      s.Hkv, s.scale, s.causal, s.q_offset, s.window, s.cap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kCap>
 int bwd(const void* q, const void* k, const void* v, const void* o,
         const float* lse, const void* dout, void* dq, void* dk, void* dv,
         float* delta, const Shape& s, cudaStream_t stream) {
@@ -531,27 +607,27 @@ int bwd(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   size_t smem = dkdv_smem<D>();
-  err = cudaFuncSetAttribute(flash_dkdv_kernel<T, D>,
+  err = cudaFuncSetAttribute(flash_dkdv_kernel<T, D, kCap>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_dkdv_kernel<T, D>
+  flash_dkdv_kernel<T, D, kCap>
       <<<dim3((s.Sk + kB - 1) / kB, s.Hkv, s.B), kThreads, smem, stream>>>(
           qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
           static_cast<T*>(dv), s.Sq, s.Sk, s.H, s.Hkv, s.scale, s.causal,
-          s.q_offset);
+          s.q_offset, s.window, s.cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   smem = dq_smem<D>();
-  err = cudaFuncSetAttribute(flash_dq_kernel<T, D>,
+  err = cudaFuncSetAttribute(flash_dq_kernel<T, D, kCap>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_dq_kernel<T, D>
+  flash_dq_kernel<T, D, kCap>
       <<<dim3((s.Sq + kB - 1) / kB, s.H, s.B), kThreads, smem, stream>>>(
           qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), s.Sq, s.Sk, s.H,
-          s.Hkv, s.scale, s.causal, s.q_offset);
+          s.Hkv, s.scale, s.causal, s.q_offset, s.window, s.cap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -626,34 +702,37 @@ __device__ __forceinline__ void init_barriers(uint64_t* fixed,
 
 // The forward's and dQ's block: query rows q0 .. q0 + kRows - 1 of head h
 // (KV head hk), batch b, the tiles with the most keys launched first; it
-// reads n_tiles key tiles, up to the causal end.
+// reads key tiles t0 .. n_tiles - 1: from the first tile its first row's
+// window reaches (0 without a window) up to the causal end.
 struct QueryBlock {
-  int h, b, hk, q0, n_tiles;
+  int h, b, hk, q0, t0, n_tiles;
 };
 __device__ __forceinline__ QueryBlock query_block(int B, int Sq, int Sk,
                                                   int H, int Hkv, int causal,
-                                                  int q_offset) {
+                                                  int q_offset, int window) {
   const int n_qt = (Sq + kRows - 1) / kRows;
   const int per = H * B;
   const int qt = n_qt - 1 - (int)(blockIdx.x / per);   // heaviest first
   const int h = (int)(blockIdx.x % per) % H, b = (int)(blockIdx.x % per) / H;
   const int q0 = qt * kRows;
   const int key_end = causal ? min(Sk, q_offset + min(q0 + kRows, Sq)) : Sk;
-  return {h, b, h / (H / Hkv), q0, (key_end + kN - 1) / kN};
+  return {h, b, h / (H / Hkv), q0, key_begin(q0, window, q_offset) / kN,
+          (key_end + kN - 1) / kN};
 }
 
-// The producer's loop of the forward and dQ: K and V tiles 0 .. n_tiles - 1
-// of KV head hk through the ring (stage s holds K, then V).
+// The producer's loop of the forward and dQ: K and V tiles t0 .. n_tiles - 1
+// of KV head hk through the ring (stage s holds K, then V); tile t is the
+// ring's step t - t0.
 template <int D>
 __device__ __forceinline__ void stream_kv(uint8_t* KV, const CUtensorMap* tm_k,
                                           const CUtensorMap* tm_v,
                                           uint64_t* full, uint64_t* empty,
-                                          int hk, int b, int n_tiles) {
+                                          int hk, int b, int t0, int n_tiles) {
   using G = Geo<D>;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = stage_of(t);
+  for (int t = t0; t < n_tiles; ++t) {
+    const int s = stage_of(t - t0);
     uint8_t* Ks = KV + s * 2 * G::tile(kN);
-    sm90::mbar_wait(&empty[s], parity_of(t) ^ 1);
+    sm90::mbar_wait(&empty[s], parity_of(t - t0) ^ 1);
     sm90::mbar_arrive_expect_tx(&full[s], 2 * G::tile(kN));
     load_rows<D>(Ks, kN, tm_k, &full[s], hk, t * kN, b);
     load_rows<D>(Ks + G::tile(kN), kN, tm_v, &full[s], hk, t * kN, b);
@@ -691,22 +770,33 @@ constexpr size_t fwd_smem() {
          (1 + 2 * kStages) * 8);
 }
 
-template <int D>
+// Under a softcap (kCap) a raw score x becomes the capped score in log2
+// units, tanhf(x * scale / cap) * cap * log2(e) (soc = scale / cap,
+// cap_log2 = cap log2(e)), before the mask and the running max; the
+// softmax then runs on it with a unit multiplier, and lse comes out over
+// the capped scores.
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreadsTC, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
            const __grid_constant__ CUtensorMap tm_k,
            const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
            float* __restrict__ lse, int B, int Sq, int Sk, int H, int Hkv,
-           float scale_log2, int causal, int q_offset) {
+           float scale_log2, int causal, int q_offset, int window, float soc,
+           float cap_log2) {
   using G = Geo<D>;
+  // the multiplier of a score in the softmax: the capped score is in log2
+  // units already
+  const float sl2 = kCap ? 1.f : scale_log2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);
   uint8_t* KV = Qs + G::tile(kRows);           // stage s: K, then V
   uint64_t* bars = reinterpret_cast<uint64_t*>(
       KV + kStages * 2 * G::tile(kN));
   uint64_t *q_full = bars, *full = bars + 1, *empty = bars + 1 + kStages;
-  const QueryBlock qb = query_block(B, Sq, Sk, H, Hkv, causal, q_offset);
-  const int h = qb.h, b = qb.b, hk = qb.hk, q0 = qb.q0, n_tiles = qb.n_tiles;
+  const QueryBlock qb =
+      query_block(B, Sq, Sk, H, Hkv, causal, q_offset, window);
+  const int h = qb.h, b = qb.b, hk = qb.hk, q0 = qb.q0, t0 = qb.t0,
+            n_tiles = qb.n_tiles;
   init_barriers(q_full, full, empty, 1);
   const int wg = threadIdx.x / kWG;
 
@@ -715,7 +805,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == 2 * kWG) {
       sm90::mbar_arrive_expect_tx(q_full, G::tile(kRows));
       load_rows<D>(Qs, kRows, &tm_q, q_full, h, q0, b);
-      stream_kv<D>(KV, &tm_k, &tm_v, full, empty, hk, b, n_tiles);
+      stream_kv<D>(KV, &tm_k, &tm_v, full, empty, hk, b, t0, n_tiles);
     }
   } else {                                     // consumers
     sm90::setmaxnreg_inc<kConsumerRegs>();
@@ -731,21 +821,31 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     const uint64_t q_desc = kmajor<D>(Qs, 64 * wg);
     sm90::mbar_wait(q_full, 0);
-    for (int t = 0; t < n_tiles; ++t) {
-      const int s = stage_of(t), k0 = t * kN;
+    for (int t = t0; t < n_tiles; ++t) {
+      const int s = stage_of(t - t0), k0 = t * kN;
       const uint8_t* Ks = KV + s * 2 * G::tile(kN);
       const uint8_t* Vs = Ks + G::tile(kN);
-      sm90::mbar_wait(&full[s], parity_of(t));
-      if (active && (!causal || k0 <= q_offset + last_row)) {
+      sm90::mbar_wait(&full[s], parity_of(t - t0));
+      // the tile holds a key this warpgroup's rows see: not past the causal
+      // end of its last row, not wholly below the window of its first
+      if (active && (!causal || k0 <= q_offset + last_row) &&
+          (window <= 0 || k0 + kN - 1 > q_offset + wrow0 - window)) {
         float sc[kN / 2];
         sm90::wgmma_fence();
         gemm_over_d<D, kRows, kN>(sc, q_desc, kmajor<D>(Ks, 0));
         sm90::wgmma_commit();
         sm90::wgmma_wait_all();
         sm90::fence_regs(sc);
-        if (k0 + kN > Sk || (causal && k0 + kN - 1 > q_offset + wrow0))
+        if constexpr (kCap) {
+#pragma unroll
+          for (int e = 0; e < kN / 2; ++e)
+            sc[e] = tanhf(sc[e] * soc) * cap_log2;
+        }
+        if (k0 + kN > Sk || (causal && k0 + kN - 1 > q_offset + wrow0) ||
+            (window > 0 && k0 <= q_offset + last_row - window))
           mask_tile(sc, r0, k0, c2, -INFINITY, [&](int row, int key) {
-            return key < Sk && (!causal || key <= q_offset + row);
+            return key < Sk && (!causal || key <= q_offset + row) &&
+                   in_window(key, q_offset + row, window);
           });
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
@@ -753,7 +853,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
           for (int n = 0; n < kN / 8; ++n)
             mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * i], sc[4 * n + 2 * i + 1]));
-          const float m_new = fmaxf(m[i], quad_max(mx) * scale_log2);
+          const float m_new = fmaxf(m[i], quad_max(mx) * sl2);
           const float m_use = m_new == -INFINITY ? 0.f : m_new;
           const float alpha = sm90::ex2(m[i] - m_use);
           m[i] = m_new;
@@ -763,7 +863,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
               const int e = 4 * n + 2 * i + j;
-              sc[e] = sm90::ex2(fmaf(sc[e], scale_log2, -m_use));
+              sc[e] = sm90::ex2(fmaf(sc[e], sl2, -m_use));
               rs += sc[e];
             }
           l[i] = l[i] * alpha + rs;
@@ -797,11 +897,14 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D>
+// Under a softcap the dK/dV block also hands warpgroup 1 the fp32 factor
+// 1 - t^2 of each P^T element (kN x kN floats beside P^T).
+template <int D, bool kCap>
 constexpr size_t dkdv_smem() {
   using G = Geo<D>;
   return smem_floor(1024 + 2 * G::tile(kN) +
                     kStages * 2 * G::tile(kN) + kN * kN * 2 +
+                    (kCap ? kN * kN * 4 : 0) +
                     kStages * 2 * kN * 4 + (1 + 2 * kStages) * 8);
 }
 
@@ -823,8 +926,12 @@ __device__ __forceinline__ void named_arrive(int id) {
 // P^T = exp(scale S^T - lse) (rounded to bf16, handed to warpgroup 1
 // through shared memory) and dV += P^T dO; warpgroup 1 forms
 // dP^T = V dO^T, dS^T = P^T (dP^T - delta) and dK += dS^T Q.  Four
-// products a tile, one 64 x D accumulator a warpgroup.
-template <int D>
+// products a tile, one 64 x D accumulator a warpgroup.  Under a softcap
+// warpgroup 0 caps S^T (tanhf) and hands warpgroup 1 the factor
+// 1 - t^2 beside P^T; warpgroup 1 scales dS^T by it before rounding.  The
+// block's query tiles run from the causal start to the last row that sees
+// its last key under a window.
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreadsTC, 1)
 dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
             const __grid_constant__ CUtensorMap tm_k,
@@ -833,7 +940,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
             const float* __restrict__ lse, const float* __restrict__ delta,
             bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int Sq,
             int Sk, int H, int Hkv, float scale, float scale_log2,
-            int causal, int q_offset) {
+            int causal, int q_offset, int window, float soc,
+            float cap_log2) {
   using G = Geo<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Ks = align1024(smem_raw);
@@ -841,7 +949,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint8_t* QO = Vs + G::tile(kN);           // stage s: Q, then dO
   uint32_t* Pt = reinterpret_cast<uint32_t*>(QO + kStages * 2 *
                                               G::tile(kN));
-  float* LD = reinterpret_cast<float*>(Pt + kN * kN / 2);
+  float* Gt = reinterpret_cast<float*>(Pt + kN * kN / 2);   // kCap: 1 - t^2
+  float* LD = Gt + (kCap ? kN * kN : 0);
   uint64_t* bars = reinterpret_cast<uint64_t*>(LD + kStages * 2 * kN);
   uint64_t *kv_full = bars, *full = bars + 1, *empty = bars + 1 + kStages;
   const int per = Hkv * B;
@@ -850,7 +959,9 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int b = (int)(blockIdx.x % per) / Hkv;
   const int G_ = H / Hkv, k0 = kt * kN;
   const int qt_lo = causal ? max(0, k0 - q_offset) / kN : 0;
-  const int per_head = max(0, (Sq + kN - 1) / kN - qt_lo);
+  const int per_head = max(
+      0, (query_end(min(k0 + kN, Sk) - 1, Sq, window, q_offset) + kN - 1) /
+                 kN - qt_lo);
   const int n_iter = G_ * per_head;
   // the producer warp's 32 lanes each arrive (after writing lse and delta)
   init_barriers(kv_full, full, empty, 32);
@@ -915,6 +1026,9 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
           sm90::wgmma_commit();
           sm90::wgmma_wait_all();
           sm90::fence_regs(st);
+          // capped: 1 - t^2 goes straight to shared memory (32 more live
+          // registers would spill), once warpgroup 1 has read the last
+          if constexpr (kCap) named_sync(kBarPFree);
 #pragma unroll
           for (int n = 0; n < kN / 8; ++n) {
             const float2 lv =
@@ -922,18 +1036,30 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
               float* x = st + 4 * n + 2 * i;
-              x[0] = sm90::ex2(fmaf(x[0], scale_log2, -lv.x));
-              x[1] = sm90::ex2(fmaf(x[1], scale_log2, -lv.y));
+              if constexpr (kCap) {
+                const int e = 4 * n + 2 * i;
+                const float t0 = tanhf(x[0] * soc), t1 = tanhf(x[1] * soc);
+                Gt[e * kWG + tid] = 1.f - t0 * t0;
+                Gt[(e + 1) * kWG + tid] = 1.f - t1 * t1;
+                x[0] = sm90::ex2(fmaf(t0, cap_log2, -lv.x));
+                x[1] = sm90::ex2(fmaf(t1, cap_log2, -lv.y));
+              } else {
+                x[0] = sm90::ex2(fmaf(x[0], scale_log2, -lv.x));
+                x[1] = sm90::ex2(fmaf(x[1], scale_log2, -lv.y));
+              }
             }
           }
           if (k0 + kN > Sk || q0 + kN > Sq ||
-              (causal && k0 + kN - 1 > q_offset + q0))
+              (causal && k0 + kN - 1 > q_offset + q0) ||
+              (window > 0 && q_offset + q0 + kN - 1 >= k0 + window))
             mask_tile(st, kr0, q0, c2, 0.f, [&](int key, int qc) {
-              return key < Sk && qc < Sq && (!causal || key <= q_offset + qc);
+              return key < Sk && qc < Sq && (!causal || key <= q_offset + qc) &&
+                     in_window(key, q_offset + qc, window);
             });
           uint32_t pa[kN / 16][4];
           to_a(st, pa);
-          named_sync(kBarPFree);               // warpgroup 1 read the last
+          if constexpr (!kCap)
+            named_sync(kBarPFree);             // warpgroup 1 read the last
 #pragma unroll
           for (int t = 0; t < kN / 16; ++t)
 #pragma unroll
@@ -965,8 +1091,13 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
               const float2 dl =
                   *reinterpret_cast<const float2*>(ls + kN + col);
               const float2 pr = sm90::unpack_bf16(Pt[(4 * t + r) * kWG + tid]);
-              da[t][r] = sm90::pack_bf16(pr.x * (dpt[e] - dl.x),
-                                         pr.y * (dpt[e + 1] - dl.y));
+              if constexpr (kCap)
+                da[t][r] = sm90::pack_bf16(
+                    pr.x * ((dpt[e] - dl.x) * Gt[e * kWG + tid]),
+                    pr.y * ((dpt[e + 1] - dl.y) * Gt[(e + 1) * kWG + tid]));
+              else
+                da[t][r] = sm90::pack_bf16(pr.x * (dpt[e] - dl.x),
+                                           pr.y * (dpt[e + 1] - dl.y));
             }
           named_arrive(kBarPFree);
           sm90::wgmma_fence();                 // dK += dS^T Q
@@ -999,7 +1130,9 @@ constexpr size_t dq_smem() {
          (1 + 2 * kStages) * 8);
 }
 
-template <int D>
+// Under a softcap each score is capped (tanhf) before P is formed, and
+// the factor 1 - t^2 kept in registers scales dS before its rounding.
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreadsTC, 1)
 dq_kernel(const __grid_constant__ CUtensorMap tm_q,
           const __grid_constant__ CUtensorMap tm_k,
@@ -1007,7 +1140,8 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
           const __grid_constant__ CUtensorMap tm_do,
           const float* __restrict__ lse, const float* __restrict__ delta,
           bf16* __restrict__ dq, int B, int Sq, int Sk, int H, int Hkv,
-          float scale, float scale_log2, int causal, int q_offset) {
+          float scale, float scale_log2, int causal, int q_offset,
+          int window, float soc, float cap_log2) {
   using G = Geo<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);
@@ -1016,8 +1150,10 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* bars = reinterpret_cast<uint64_t*>(
       KV + kStages * 2 * G::tile(kN));
   uint64_t *qo_full = bars, *full = bars + 1, *empty = bars + 1 + kStages;
-  const QueryBlock qb = query_block(B, Sq, Sk, H, Hkv, causal, q_offset);
-  const int h = qb.h, b = qb.b, hk = qb.hk, q0 = qb.q0, n_tiles = qb.n_tiles;
+  const QueryBlock qb =
+      query_block(B, Sq, Sk, H, Hkv, causal, q_offset, window);
+  const int h = qb.h, b = qb.b, hk = qb.hk, q0 = qb.q0, t0 = qb.t0,
+            n_tiles = qb.n_tiles;
   init_barriers(qo_full, full, empty, 1);
   const int wg = threadIdx.x / kWG;
 
@@ -1027,7 +1163,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       sm90::mbar_arrive_expect_tx(qo_full, 2 * G::tile(kRows));
       load_rows<D>(Qs, kRows, &tm_q, qo_full, h, q0, b);
       load_rows<D>(Os, kRows, &tm_do, qo_full, h, q0, b);
-      stream_kv<D>(KV, &tm_k, &tm_v, full, empty, hk, b, n_tiles);
+      stream_kv<D>(KV, &tm_k, &tm_v, full, empty, hk, b, t0, n_tiles);
     }
   } else {                                     // consumers
     sm90::setmaxnreg_inc<kConsumerRegs>();
@@ -1051,36 +1187,63 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint64_t q_desc = kmajor<D>(Qs, 64 * wg);
     const uint64_t o_desc = kmajor<D>(Os, 64 * wg);
     sm90::mbar_wait(qo_full, 0);
-    for (int t = 0; t < n_tiles; ++t) {
-      const int s = stage_of(t), k0 = t * kN;
+    for (int t = t0; t < n_tiles; ++t) {
+      const int s = stage_of(t - t0), k0 = t * kN;
       const uint8_t* Ks = KV + s * 2 * G::tile(kN);
       const uint8_t* Vs = Ks + G::tile(kN);
-      sm90::mbar_wait(&full[s], parity_of(t));
-      if (active && (!causal || k0 <= q_offset + last_row)) {
+      sm90::mbar_wait(&full[s], parity_of(t - t0));
+      if (active && (!causal || k0 <= q_offset + last_row) &&
+          (window <= 0 || k0 + kN - 1 > q_offset + wrow0 - window)) {
         float sc[kN / 2];                   // S = Q K^T
-        sm90::wgmma_fence();
-        gemm_over_d<D, kRows, kN>(sc, q_desc, kmajor<D>(Ks, 0));
-        sm90::wgmma_commit();
-        sm90::wgmma_wait_all();
-        sm90::fence_regs(sc);
-#pragma unroll
-        for (int e = 0; e < kN / 2; ++e)
-          sc[e] = sm90::ex2(fmaf(sc[e], scale_log2, -lse2[(e / 2) % 2]));
-        if (k0 + kN > Sk || wrow0 + 63 >= Sq ||
-            (causal && k0 + kN - 1 > q_offset + wrow0))
-          mask_tile(sc, r0, k0, c2, 0.f, [&](int row, int key) {
-            return row < Sq && key < Sk && (!causal || key <= q_offset + row);
-          });
-        uint32_t pa[kN / 16][4];            // P in bf16, as in dK/dV
-        to_a(sc, pa);
         float dp[kN / 2];                   // dP = dO V^T
-        sm90::wgmma_fence();
-        gemm_over_d<D, kRows, kN>(dp, o_desc, kmajor<D>(Vs, 0));
-        sm90::wgmma_commit();
-        sm90::wgmma_wait_all();
-        sm90::fence_regs(dp);
+        const auto mask = [&](float (&x)[kN / 2]) {
+          if (k0 + kN > Sk || wrow0 + 63 >= Sq ||
+              (causal && k0 + kN - 1 > q_offset + wrow0) ||
+              (window > 0 && k0 <= q_offset + last_row - window))
+            mask_tile(x, r0, k0, c2, 0.f, [&](int row, int key) {
+              return row < Sq && key < Sk &&
+                     (!causal || key <= q_offset + row) &&
+                     in_window(key, q_offset + row, window);
+            });
+        };
+        uint32_t pa[kN / 16][4];            // P in bf16, as in dK/dV
+        if constexpr (kCap) {
+          // both products first; 1 - t^2 is folded into dP - delta at
+          // once, so that no third fragment stays live (it would spill)
+          sm90::wgmma_fence();
+          gemm_over_d<D, kRows, kN>(sc, q_desc, kmajor<D>(Ks, 0));
+          gemm_over_d<D, kRows, kN>(dp, o_desc, kmajor<D>(Vs, 0));
+          sm90::wgmma_commit();
+          sm90::wgmma_wait_all();
+          sm90::fence_regs(sc);
+          sm90::fence_regs(dp);
+#pragma unroll
+          for (int e = 0; e < kN / 2; ++e) {
+            const float th = tanhf(sc[e] * soc);
+            sc[e] = sm90::ex2(fmaf(th, cap_log2, -lse2[(e / 2) % 2]));
+            dp[e] = (dp[e] - dl[(e / 2) % 2]) * (1.f - th * th);
+          }
+          mask(sc);
+          to_a(sc, pa);
+        } else {
+          sm90::wgmma_fence();
+          gemm_over_d<D, kRows, kN>(sc, q_desc, kmajor<D>(Ks, 0));
+          sm90::wgmma_commit();
+          sm90::wgmma_wait_all();
+          sm90::fence_regs(sc);
+#pragma unroll
+          for (int e = 0; e < kN / 2; ++e)
+            sc[e] = sm90::ex2(fmaf(sc[e], scale_log2, -lse2[(e / 2) % 2]));
+          mask(sc);
+          to_a(sc, pa);
+          sm90::wgmma_fence();
+          gemm_over_d<D, kRows, kN>(dp, o_desc, kmajor<D>(Vs, 0));
+          sm90::wgmma_commit();
+          sm90::wgmma_wait_all();
+          sm90::fence_regs(dp);
+        }
         // dS = P (dP - delta) from the bf16 P, so that both kernels form
-        // the same dS
+        // the same dS (capped: P ((dP - delta)(1 - t^2)))
         uint32_t da[kN / 16][4];
 #pragma unroll
         for (int t = 0; t < kN / 16; ++t)
@@ -1088,8 +1251,11 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
           for (int r = 0; r < 4; ++r) {
             const float2 pr = sm90::unpack_bf16(pa[t][r]);
             const int e = 8 * t + 2 * r;
-            da[t][r] = sm90::pack_bf16(pr.x * (dp[e] - dl[r % 2]),
-                                       pr.y * (dp[e + 1] - dl[r % 2]));
+            if constexpr (kCap)
+              da[t][r] = sm90::pack_bf16(pr.x * dp[e], pr.y * dp[e + 1]);
+            else
+              da[t][r] = sm90::pack_bf16(pr.x * (dp[e] - dl[r % 2]),
+                                         pr.y * (dp[e + 1] - dl[r % 2]));
           }
         sm90::wgmma_fence();
         gemm_over_rows<D>(dq_acc, da, mnmajor<D>(Ks, kN));
@@ -1122,6 +1288,24 @@ int prepare(K kernel, size_t grid, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
 }
 
+// The softcap's constants of the kCap kernels: scale / cap and cap log2(e).
+float cap_soc(const Shape& s) { return s.cap > 0.f ? s.scale / s.cap : 0.f; }
+float cap_log2(const Shape& s) { return s.cap * kLog2e; }
+
+template <int D, bool kCap>
+int fwd_launch(const CUtensorMap& tq, const CUtensorMap& tk,
+               const CUtensorMap& tv, void* o, float* lse, const Shape& s,
+               cudaStream_t stream) {
+  const size_t grid = (size_t)((s.Sq + kRows - 1) / kRows) * s.H * s.B;
+  const int err = prepare(fwd_kernel<D, kCap>, grid, fwd_smem<D>());
+  if (err) return err;
+  fwd_kernel<D, kCap><<<(unsigned)grid, kThreadsTC, fwd_smem<D>(), stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse, s.B, s.Sq, s.Sk, s.H, s.Hkv,
+      s.scale * kLog2e, s.causal, s.q_offset, s.window, cap_soc(s),
+      cap_log2(s));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
         const Shape& s, cudaStream_t stream) {
@@ -1132,12 +1316,34 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
       !sm90::bf16_rows_map(&tk, k, s.B, s.Sk, s.Hkv, D, kN) ||
       !sm90::bf16_rows_map(&tv, v, s.B, s.Sk, s.Hkv, D, kN))
     return kErrMap;
-  const size_t grid = (size_t)((s.Sq + kRows - 1) / kRows) * s.H * s.B;
-  const int err = prepare(fwd_kernel<D>, grid, fwd_smem<D>());
+  return s.cap > 0.f ? fwd_launch<D, true>(tq, tk, tv, o, lse, s, stream)
+                     : fwd_launch<D, false>(tq, tk, tv, o, lse, s, stream);
+}
+
+template <int D, bool kCap>
+int bwd_launch(const CUtensorMap& tq, const CUtensorMap& tdo,
+               const CUtensorMap& tq64, const CUtensorMap& tk64,
+               const CUtensorMap& tv64, const CUtensorMap& tdo64,
+               const float* lse, void* dq, void* dk, void* dv,
+               const float* delta, const Shape& s, cudaStream_t stream) {
+  const float sl2 = s.scale * kLog2e;
+  size_t grid = (size_t)((s.Sk + kN - 1) / kN) * s.Hkv * s.B;
+  int err = prepare(dkdv_kernel<D, kCap>, grid, dkdv_smem<D, kCap>());
   if (err) return err;
-  fwd_kernel<D><<<(unsigned)grid, kThreadsTC, fwd_smem<D>(), stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), lse, s.B, s.Sq, s.Sk, s.H, s.Hkv,
-      s.scale * kLog2e, s.causal, s.q_offset);
+  dkdv_kernel<D, kCap>
+      <<<(unsigned)grid, kThreadsTC, dkdv_smem<D, kCap>(), stream>>>(
+          tq64, tk64, tv64, tdo64, lse, delta, static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), s.B, s.Sq, s.Sk, s.H, s.Hkv, s.scale, sl2,
+          s.causal, s.q_offset, s.window, cap_soc(s), cap_log2(s));
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  grid = (size_t)((s.Sq + kRows - 1) / kRows) * s.H * s.B;
+  err = prepare(dq_kernel<D, kCap>, grid, dq_smem<D>());
+  if (err) return err;
+  dq_kernel<D, kCap><<<(unsigned)grid, kThreadsTC, dq_smem<D>(), stream>>>(
+      tq, tk64, tv64, tdo, lse, delta, static_cast<bf16*>(dq), s.B, s.Sq,
+      s.Sk, s.H, s.Hkv, s.scale, sl2, s.causal, s.q_offset, s.window,
+      cap_soc(s), cap_log2(s));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1164,32 +1370,38 @@ int bwd(const void* q, const void* k, const void* v, const void* o,
                                 kThreads, 0, stream>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta,
       s.B, s.Sq, s.H);
-  int err = static_cast<int>(cudaGetLastError());
+  const int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  const float sl2 = s.scale * kLog2e;
-  size_t grid = (size_t)((s.Sk + kN - 1) / kN) * s.Hkv * s.B;
-  err = prepare(dkdv_kernel<D>, grid, dkdv_smem<D>());
-  if (err) return err;
-  dkdv_kernel<D><<<(unsigned)grid, kThreadsTC, dkdv_smem<D>(), stream>>>(
-      tq64, tk64, tv64, tdo64, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), s.B, s.Sq, s.Sk, s.H, s.Hkv, s.scale, sl2,
-      s.causal, s.q_offset);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  grid = (size_t)((s.Sq + kRows - 1) / kRows) * s.H * s.B;
-  err = prepare(dq_kernel<D>, grid, dq_smem<D>());
-  if (err) return err;
-  dq_kernel<D><<<(unsigned)grid, kThreadsTC, dq_smem<D>(), stream>>>(
-      tq, tk64, tv64, tdo, lse, delta, static_cast<bf16*>(dq), s.B, s.Sq,
-      s.Sk, s.H, s.Hkv, s.scale, sl2, s.causal, s.q_offset);
-  return static_cast<int>(cudaGetLastError());
+  if (s.cap > 0.f)
+    return bwd_launch<D, true>(tq, tdo, tq64, tk64, tv64, tdo64, lse, dq, dk,
+                               dv, delta, s, stream);
+  return bwd_launch<D, false>(tq, tdo, tq64, tk64, tv64, tdo64, lse, dq, dk,
+                              dv, delta, s, stream);
 }
 
 }  // namespace tc
 
+// The fp32 kernels' instantiation: with or without the softcap.
+template <int D>
+int fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+            const Shape& s, cudaStream_t st) {
+  return s.cap > 0.f ? fwd<float, D, true>(q, k, v, o, lse, s, st)
+                     : fwd<float, D, false>(q, k, v, o, lse, s, st);
+}
+template <int D>
+int bwd_f32(const void* q, const void* k, const void* v, const void* o,
+            const float* lse, const void* dout, void* dq, void* dk, void* dv,
+            float* delta, const Shape& s, cudaStream_t st) {
+  return s.cap > 0.f
+             ? bwd<float, D, true>(q, k, v, o, lse, dout, dq, dk, dv, delta,
+                                   s, st)
+             : bwd<float, D, false>(q, k, v, o, lse, dout, dq, dk, dv, delta,
+                                    s, st);
+}
+
 int check(const Shape& s, int D, int device) {
   if (s.B <= 0 || s.Sq <= 0 || s.Sk <= 0 || s.Hkv <= 0 || s.H % s.Hkv ||
-      s.q_offset < 0 || s.H > 65535 || s.B > 65535)
+      s.q_offset < 0 || s.H > 65535 || s.B > 65535 || !(s.cap >= 0.f))
     return -1;
   if (D != 32 && D != 64 && D != 128) return -1;
   return static_cast<int>(cudaSetDevice(device));
@@ -1200,15 +1412,18 @@ int check(const Shape& s, int D, int device) {
 extern "C" {
 
 // q (B, Sq, H, D), k and v (B, Sk, Hkv, D) -> o (B, Sq, H, D) in the same
-// dtype (bf16 when is_bf16, else fp32) and lse (B, H, Sq) fp32.  Returns 0
-// on success, -1 for an argument the kernel does not take (bf16 also needs
-// 16-byte aligned tensors and scale > 0), -2 if the driver refused a TMA
-// tensor map, else the cudaError_t of the launch.
+// dtype (bf16 when is_bf16, else fp32) and lse (B, H, Sq) fp32.  window > 0
+// limits row i to keys > q_offset + i - window; cap > 0 softcaps the scaled
+// scores (0: neither).  Returns 0 on success, -1 for an argument the kernel
+// does not take (bf16 also needs 16-byte aligned tensors and scale > 0), -2
+// if the driver refused a TMA tensor map, else the cudaError_t of the
+// launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         float* lse, int B, int Sq, int Sk, int H, int Hkv,
                         int D, float scale, int causal, int q_offset,
-                        int is_bf16, int device, void* stream) {
-  const Shape s{B, Sq, Sk, H, Hkv, scale, causal, q_offset};
+                        int window, float cap, int is_bf16, int device,
+                        void* stream) {
+  const Shape s{B, Sq, Sk, H, Hkv, scale, causal, q_offset, window, cap};
   const int err = check(s, D, device);
   if (err) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1217,9 +1432,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     if (D == 64) return tc::fwd<64>(q, k, v, o, lse, s, st);
     return tc::fwd<128>(q, k, v, o, lse, s, st);
   }
-  if (D == 32) return fwd<float, 32>(q, k, v, o, lse, s, st);
-  if (D == 64) return fwd<float, 64>(q, k, v, o, lse, s, st);
-  return fwd<float, 128>(q, k, v, o, lse, s, st);
+  if (D == 32) return fwd_f32<32>(q, k, v, o, lse, s, st);
+  if (D == 64) return fwd_f32<64>(q, k, v, o, lse, s, st);
+  return fwd_f32<128>(q, k, v, o, lse, s, st);
 }
 
 // The backward of flash_attention_fwd: from q, k, v, o, lse and dout
@@ -1229,9 +1444,9 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const float* lse, const void* dout,
                         void* dq, void* dk, void* dv, float* delta, int B,
                         int Sq, int Sk, int H, int Hkv, int D, float scale,
-                        int causal, int q_offset, int is_bf16, int device,
-                        void* stream) {
-  const Shape s{B, Sq, Sk, H, Hkv, scale, causal, q_offset};
+                        int causal, int q_offset, int window, float cap,
+                        int is_bf16, int device, void* stream) {
+  const Shape s{B, Sq, Sk, H, Hkv, scale, causal, q_offset, window, cap};
   const int err = check(s, D, device);
   if (err) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1243,10 +1458,10 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
     return tc::bwd<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
   }
   if (D == 32)
-    return bwd<float, 32>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
+    return bwd_f32<32>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
   if (D == 64)
-    return bwd<float, 64>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
-  return bwd<float, 128>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
+    return bwd_f32<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
+  return bwd_f32<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
 }
 
 const char* flash_attention_error_string(int code) {

@@ -89,18 +89,16 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=None,
                     q_offset=0, block_q=512):
     """Differentiable causal GQA attention for the full-sequence phases: q
     (B, Sq, H, D), k and v (B, Sk, Hkv, D) -> (B, Sq, H, D); causal at the
-    start (key j visible to query row i when j <= q_offset + i).  CUDA
-    tensors run the forward and backward kernels; CPU tensors the plain
-    versions (``attention.blockwise_attention`` and its backward formulas).
-    Neither takes a sliding window or a logit softcap: a call with either
-    raises (``models.model.check_supported`` refuses those configs)."""
-    if window or cap:
-        raise ValueError("flash_attention: no sliding window or logit "
-                         "softcap (window=0, cap=0.0 only); they come with "
-                         "the sliding-window slice of the port")
+    start (key j visible to query row i when j <= q_offset + i), with
+    gemma2's sliding ``window`` (> 0: also j > q_offset + i - window) and
+    logit softcap ``cap`` (!= 0).  CUDA tensors run the forward and
+    backward kernels, window and cap included; CPU tensors the plain
+    versions (``attention.blockwise_attention`` and its backward
+    formulas)."""
     _record_dispatch("flash_attention", q.device.type == "cuda")
-    return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
-                               q_offset=q_offset, block_q=block_q)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               cap=cap, scale=scale, q_offset=q_offset,
+                               block_q=block_q)
 
 
 def fused_ln_add(x, a1n, scale, bias=None, *, kind="rmsnorm", eps=1e-6):

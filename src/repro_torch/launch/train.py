@@ -7,6 +7,8 @@ On the card:
 On the CPU (the kernels' plain versions) add ``--device cpu``.  The
 single-device twin of ``repro/launch/train.py``; ``--mesh``, ``--tp`` and
 ``--sp`` come with the port's distributed slice and raise here.
+``--ckpt DIR`` saves the state after the last step (``train.checkpoint``:
+the reference's npz + manifest format, which either package restores).
 """
 import argparse
 

@@ -5,14 +5,22 @@ the plain version of the flash-attention kernel) and the full-sequence
 ``gqa_apply`` (``:490``, through ``ops.flash_attention``) for training; and
 the paged serving paths: ``gqa_init``, ``gqa_qkv`` (``:406``),
 ``paged_scatter`` (``:108``) and
-``packed_scatter`` (``:129``), the quantized KV page format (``KV_DTYPES``,
-``_quant_rows``, ``:195-220``), ``gqa_init_paged_cache`` (``:222``),
-``_gqa_paged_qkv_scatter`` (``:244``), and the kernel branches of
-``gqa_paged_apply`` (``:268``, the padded (B, C) layout), ``gqa_paged_dual``
-(``:304``, the fused dual-branch decode, or its two-op route on quantized
-pages) and ``gqa_packed_apply`` (``:338``, the token-packed layout).
-Sliding windows and logit softcaps (the reference's gather branches) come in
-a later slice of the port.
+``packed_scatter`` (``:129``), ``paged_gather``, ``_gather_dequant`` and
+``chunk_attention`` (``:149-190``), the quantized KV page format
+(``KV_DTYPES``, ``_quant_rows``, ``:195-220``), ``gqa_init_paged_cache``
+(``:222``), ``_gqa_paged_qkv_scatter`` (``:244``), ``gqa_paged_apply``
+(``:268``, the padded (B, C) layout), ``gqa_paged_dual`` (``:304``, the fused
+dual-branch decode, or its two-op route on quantized pages) and
+``gqa_packed_apply`` (``:338``, the token-packed layout).
+
+The paged layouts have two branches, as in the reference: full attention
+runs the block-table kernels; a layer with a sliding window or a logit
+softcap (gemma2: every layer, the softcap is on in all of them) runs the
+gather branch, which the reference writes in ``jnp`` and the port in
+PyTorch ops: the pages gathered into each lane's logical sequence
+(dequantized to fp32 on int8 / fp8 pages), fp32 scores, softcap, the
+causal and window masks at -1e30, softmax in fp32, ``p`` in v's dtype for
+P.V.
 """
 from __future__ import annotations
 
@@ -193,12 +201,54 @@ def gqa_init_paged_cache(cfg, num_pages, page_size, dtype, device,
     return cache
 
 
-def _unsupported(cfg, window):
-    """Raise for the attention variants later slices of the port bring."""
-    if cfg.attn_softcap or window:
-        raise NotImplementedError(
-            "sliding-window / softcapped attention (the reference's gather "
-            "branch) comes in a later slice of the PyTorch port")
+def paged_gather(pages, block_tables):
+    """(P, page, ...) x (B, T) -> (B, T * page, ...): each lane's logical
+    sequence (gathered index == logical position)."""
+    g = pages[block_tables.long()]
+    return g.reshape((g.shape[0], g.shape[1] * g.shape[2])
+                     + tuple(g.shape[3:]))
+
+
+def _gather_dequant(pages, scale_pages, block_tables):
+    """Gather a K/V pool to (B, Sk, Hkv, D) and, when a (P, page) row-scale
+    pool rides along (int8 / fp8 pages), dequantize to fp32."""
+    g = paged_gather(pages, block_tables)
+    if scale_pages is None:
+        return g
+    s = paged_gather(scale_pages, block_tables)                # (B, Sk)
+    return g.float() * s[..., None, None]
+
+
+def chunk_attention(q, k, v, q_pos, *, window=0, cap=0.0, scale=None):
+    """Multi-token attention against a gathered cache with per-token
+    positions: q (B, C, H, Dh), k and v (B, Sk, Hkv, D*), q_pos (B, C) the
+    position of each query.  Key j is visible iff j <= q_pos and, when
+    window > 0, j > q_pos - window.  fp32 scores, softcapped, masked at
+    -1e30, softmaxed in fp32; ``p`` in v's dtype for P.V.  Returns
+    (B, C, H, Dv) in v's dtype."""
+    B, C, H, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = Dh ** -0.5 if scale is None else scale
+    qg = q.float().reshape(B, C, Hkv, G, Dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    s = L.softcap(s, cap)
+    k_pos = torch.arange(Sk, device=q.device)[None, None]          # (1,1,Sk)
+    qp = q_pos[:, :, None]
+    mask = k_pos <= qp
+    if window > 0:
+        mask = mask & (k_pos > qp - window)
+    s = torch.where(mask[:, None, None], s,
+                    torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    return o.reshape(B, C, H, v.shape[-1])
+
+
+def _gathered(cfg, window) -> bool:
+    """Whether a layer runs the gather branch: a sliding window or a logit
+    softcap (the block-table kernels take neither)."""
+    return cfg.attn_softcap != 0.0 or window != 0
 
 
 def _scatter_kv(cache, k, v, scatter):
@@ -238,13 +288,22 @@ def gqa_paged_apply(p, cfg, x, cache, block_tables, pos, n_valid, *,
     (C == 1 is a decode-only tick; C > 1 serves lanes at any phase through
     per-lane ``pos``/``n_valid``).  Scatters this tick's K/V into ``cache``
     in place, then runs the decode kernel (C == 1) or the chunk kernel,
-    their scale variants on quantized pages.  Returns (out (B, C, D),
-    cache)."""
-    _unsupported(cfg, window)
+    their scale variants on quantized pages; a layer with a window or a
+    softcap runs the gather branch (``chunk_attention`` over each lane's
+    gathered, dequantized sequence; its output, in the pages' dtype or fp32
+    on quantized pages, is cast to x's dtype, which is the reference's
+    ``astype`` on quantized pages and its type promotion in the ``wo``
+    product otherwise).  Returns (out (B, C, D), cache)."""
     B, C = x.shape[:2]
-    q, _ = _gqa_paged_qkv_scatter(p, cfg, x, cache, block_tables, pos,
-                                  n_valid)
-    if C == 1:
+    q, positions = _gqa_paged_qkv_scatter(p, cfg, x, cache, block_tables,
+                                          pos, n_valid)
+    ks, vs = cache.get("k_scale"), cache.get("v_scale")
+    if _gathered(cfg, window):
+        o = chunk_attention(q, _gather_dequant(cache["k"], ks, block_tables),
+                            _gather_dequant(cache["v"], vs, block_tables),
+                            positions, window=window, cap=cfg.attn_softcap)
+        o = o.to(x.dtype)
+    elif C == 1:
         o = ops.paged_decode_attention(q[:, 0], cache["k"], cache["v"],
                                        block_tables, pos + 1,
                                        **_scales(cache))[:, None]
@@ -264,8 +323,9 @@ def gqa_paged_dual(p, ffn, cfg, x, mlp_in, cache, block_tables, pos,
     two branches go down as two ops: the decode kernel's scale variant and
     ``mlp_apply``.  x: (B, 1, D) post-ln1 attention input; mlp_in: (B, 1, D)
     the block's MLP input, independent of this block's attention.  Returns
-    (attn_out (B, 1, D), ffn_out (B, 1, D), cache)."""
-    _unsupported(cfg, 0)
+    (attn_out (B, 1, D), ffn_out (B, 1, D), cache).  Full attention only:
+    ``blocks._block_apply_dual`` takes this route when the layer has no
+    window and no softcap."""
     B, C = x.shape[:2]
     q, _ = _gqa_paged_qkv_scatter(p, cfg, x, cache, block_tables, pos,
                                   n_valid)
@@ -288,15 +348,48 @@ def gqa_packed_apply(p, cfg, x, cache, block_tables, tok_slot, tok_pos, *,
     packed tokens, token t of lane ``tok_slot[t]`` at ``tok_pos[t]``.
     Scatters this tick's K/V (quantized rows and their scales on quantized
     pages) into ``cache`` in place, then runs the packed paged-attention
-    kernel or its scale variant.  Returns (out (1, T, D), cache)."""
-    _unsupported(cfg, window)
+    kernel or its scale variant; a layer with a window or a softcap runs
+    the gather branch (``_packed_gather_attention``).  Returns
+    (out (1, T, D), cache)."""
     B, T = x.shape[:2]
     page = cache["k"].shape[1]
     positions = tok_pos.clamp(min=0)[None]                    # (1, T)
     q, k, v = gqa_qkv(p, cfg, x, positions)                   # (1, T, H, Dh)
     _scatter_kv(cache, k[0], v[0], lambda pool, vals: packed_scatter(
         pool, vals, block_tables, tok_slot, tok_pos, page))
-    o = ops.paged_packed_attention(q[0].contiguous(), cache["k"], cache["v"],
-                                   block_tables, tok_slot, tok_pos,
-                                   **_scales(cache))
+    if _gathered(cfg, window):
+        o = _packed_gather_attention(q[0], cache, block_tables, tok_slot,
+                                     tok_pos, window,
+                                     cfg.attn_softcap).to(x.dtype)
+    else:
+        o = ops.paged_packed_attention(q[0].contiguous(), cache["k"],
+                                       cache["v"], block_tables, tok_slot,
+                                       tok_pos, **_scales(cache))
     return o.reshape(B, T, -1) @ p["wo"].to(x.dtype), cache
+
+
+def _packed_gather_attention(q, cache, block_tables, tok_slot, tok_pos,
+                             window, cap):
+    """The packed layout's gather branch: q (T, H, D), token t attending
+    over its slot's gathered sequence at ``tok_pos[t]`` -> (T, H, Dv).
+
+    The reference gathers a (T, Sk, Hkv, D) copy of each pool (every
+    token's slot sequence, ``[tok_slot]`` after the gather): at gemma2's
+    width, 263 tokens and 6144 keys, 6.6 GB a pool and layer in bf16.
+    Here the same rows are computed slot by slot: all T queries against
+    one slot's gathered sequence, kept for the tokens of that slot.  A
+    token's row is the reference's (the same scores, masks and softmax
+    over the same keys); padding tokens (tok_pos == -1) get their slot's
+    fully masked row, as in the reference.  The slot loop has no host
+    sync; it costs S x the scores of one pass (S = slots), never a
+    per-token copy of the pools."""
+    ks, vs = cache.get("k_scale"), cache.get("v_scale")
+    out = None
+    for s in range(block_tables.shape[0]):
+        bt = block_tables[s:s + 1]
+        o = chunk_attention(q[None], _gather_dequant(cache["k"], ks, bt),
+                            _gather_dequant(cache["v"], vs, bt),
+                            tok_pos[None], window=window, cap=cap)[0]
+        out = o if out is None else torch.where(
+            (tok_slot == s)[:, None, None], o, out)
+    return out

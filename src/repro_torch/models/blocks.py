@@ -5,7 +5,8 @@ Port of the replicated paths of ``repro/models/blocks.py``: a block is
 ``x + MHA(ln1(x)) + FFN(mlp_input)`` with optional post-norms
 (``:143-214``), over the full sequence (train / eval / prefill,
 ``:170-173``), in the token-packed and the padded (B, C) paged layouts,
-and the dual-branch decode block ``_block_apply_dual`` (``:217-291``).  No
+and the dual-branch decode block ``_block_apply_dual`` (``:217-291``), and
+``window_schedule`` (``:388-393``), each layer's sliding window.  No
 tensor or sequence parallelism, no MoE, MLA or cross-attention: those come
 in later slices of the port.
 """
@@ -122,3 +123,13 @@ def _block_apply_dual(p, cfg, x, a1_sig, window, *, plan: ExecutionPlan,
         y = L.mlp_apply(p["ffn"], mlp_in, cfg.mlp)
     # keep the sequential path's (x + a) + y association: bit-identical
     return (x + a) + y, a
+
+
+def window_schedule(cfg, n_layers=None):
+    """Per-layer sliding windows as Python ints (0: full attention).  Under
+    ``layer_pattern == "local_global"`` (gemma2) even layers are local
+    (``cfg.sliding_window``) and odd layers global."""
+    n = n_layers or cfg.n_layers
+    if cfg.layer_pattern == "local_global" and cfg.sliding_window:
+        return [cfg.sliding_window if i % 2 == 0 else 0 for i in range(n)]
+    return [cfg.sliding_window] * n

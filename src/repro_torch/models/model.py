@@ -22,7 +22,9 @@ last rows).
 
 Parameters are a dict tree in the reference's layout, except that the
 stacked ``blocks_dense`` leaves (leading layer axis) become a list of
-per-layer dicts under ``"blocks"``.  The cache holds block 0's pools, one
+per-layer dicts under ``"blocks"``.  Every path passes each layer its
+sliding window (``blocks.window_schedule``: gemma2's local / global
+alternation) as a Python int.  The cache holds block 0's pools, one
 ``(n_layers - 1, P, page, Hkv, Dh)`` tensor per K and per V for the other
 layers (and, on quantized pages, one ``(n_layers - 1, P, page)`` fp32 tensor
 per row-scale pool), and the per-slot ``a1_sig``; a tick updates all of them
@@ -60,8 +62,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_supported(cfg):
-    """Raise NotImplementedError for what this slice of the port does not
-    cover yet, naming the slice that will."""
+    """Raise NotImplementedError for what the port does not cover yet
+    (non-dense families, MLA, MoE), naming the slice that will."""
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family '{cfg.family}': the PyTorch port serves the dense "
@@ -71,10 +73,6 @@ def check_supported(cfg):
         raise NotImplementedError(
             "MLA / MoE layers come in the family-breadth slice of the "
             "PyTorch port")
-    if cfg.sliding_window or cfg.attn_softcap or cfg.final_softcap:
-        raise NotImplementedError(
-            "sliding windows and softcaps come in a later slice of the "
-            "PyTorch port (the reference's per-token gather branch)")
 
 
 def _dtype(name) -> torch.dtype:
@@ -161,22 +159,25 @@ def _maybe_remat(fn, cfg):
 
 def _run_decoder_blocks(p, cfg, x, positions, plan):
     """Block 0, then the later blocks as a Python loop (the reference scans
-    over stacked params), each under ``_maybe_remat``.  The first-attention
-    signal is formed from block 0's output outside its checkpoint, as in the
-    reference.  Returns (x, aux): aux is 0, the port's blocks are dense."""
+    over stacked params), each under ``_maybe_remat`` and with its window
+    from ``window_schedule``.  The first-attention signal is formed from
+    block 0's output outside its checkpoint, as in the reference.  Returns
+    (x, aux): aux is 0, the port's blocks are dense."""
+    wsched = BL.window_schedule(cfg)
+
     def block0(pb, h):
         return BL.block_apply(pb, cfg, h, None, is_block0=True, plan=plan,
-                              positions=positions)
+                              positions=positions, window=wsched[0])
 
-    def block(pb, h, a1_sig):
+    def block(pb, h, a1_sig, window):
         return BL.block_apply(pb, cfg, h, a1_sig, plan=plan,
-                              positions=positions)[0]
+                              positions=positions, window=window)[0]
 
     x, a1_raw = _maybe_remat(block0, cfg)(p["block0"], x)
     a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
     body = _maybe_remat(block, cfg)
-    for pb in p["blocks"]:
-        x = body(pb, x, a1_sig)
+    for pb, w in zip(p["blocks"], wsched[1:]):
+        x = body(pb, x, a1_sig, w)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -253,13 +254,15 @@ def _decoder_layer_stack(p, cfg, x, a1_sig, pos, blocks_cache, plan, *,
     Layer i reads and writes the i-th slice of the stacked pools in place,
     where the reference concatenates per-layer caches.  ``limit`` runs only
     the first ``limit`` layers (the speculative draft's early exit); the
-    pools of the layers past it are not touched."""
+    pools of the layers past it are not touched.  Each layer attends with
+    its window from ``window_schedule`` (``wsched[1:]``)."""
+    wsched = BL.window_schedule(cfg)[1:]
     for i, pb in enumerate(p["blocks"][:limit]):
         layer_cache = {k: v[i] for k, v in blocks_cache.items()}
         x, _ = BL.block_apply(pb, cfg, x, a1_sig, plan=plan,
                               cache=layer_cache, block_tables=block_tables,
                               pos=pos, n_valid=n_valid, tok_slot=tok_slot,
-                              tok_pos=tok_pos)
+                              tok_pos=tok_pos, window=wsched[i])
     return x
 
 
@@ -281,7 +284,8 @@ def _decoder_paged_decode(p, cfg, batch, cache, plan, want="logits"):
     x = _embed_tokens(p, cfg, tokens, positions)
     x, a1_raw = BL.block_apply(p["block0"], cfg, x, None, is_block0=True,
                                plan=plan, cache=cache["block0"],
-                               block_tables=bt, pos=pos, n_valid=n_valid)
+                               block_tables=bt, pos=pos, n_valid=n_valid,
+                               window=BL.window_schedule(cfg)[0])
     a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
 
     # stash each lane's export at its last valid position before the
@@ -320,7 +324,8 @@ def _decoder_paged_packed(p, cfg, batch, cache, plan, want="logits"):
     x, a1_raw = BL.block_apply(p["block0"], cfg, x, None, is_block0=True,
                                plan=plan, cache=cache["block0"],
                                block_tables=bt, tok_slot=tok_slot,
-                               tok_pos=tok_pos)
+                               tok_pos=tok_pos,
+                               window=BL.window_schedule(cfg)[0])
     a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
 
     # refresh the per-slot FAL export from each active segment's LAST
@@ -354,7 +359,8 @@ def _decoder_paged_packed_draft(p, cfg, batch, cache, plan, draft_blocks):
         x, a1_raw = BL.block_apply(p["block0"], cfg, x, None, is_block0=True,
                                    plan=plan, cache=cache["block0"],
                                    block_tables=bt, tok_slot=tok_slot,
-                                   tok_pos=tok_pos)
+                                   tok_pos=tok_pos,
+                                   window=BL.window_schedule(cfg)[0])
         a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
         x = _decoder_layer_stack(p, cfg, x, a1_sig, None, cache["blocks"],
                                  plan, block_tables=bt, tok_slot=tok_slot,

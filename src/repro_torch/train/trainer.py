@@ -10,8 +10,11 @@ synchronise, so on the card it includes the device's work.
 
 Runs on the card unless ``device="cpu"``.  ``params`` starts training from
 a given tree (fp32 masters, e.g. weights carried across from the reference)
-instead of drawing them from ``seed``.  Checkpoints (``ckpt_dir``) are not
-ported yet.
+instead of drawing them from ``seed``.  With ``ckpt_dir`` the state is saved
+once after the last step (``train.checkpoint``, the reference's format, at
+``step=steps``), as the reference does; there is no resume argument, as
+there is none in the reference: resuming is ``checkpoint.restore`` into a
+state of the same structure, then ``step.make_train_step``.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from repro_torch.data.pipeline import SyntheticMarkov
 from repro_torch.models.model import resolve_device
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.optim import adamw, schedules
+from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import step as tstep
 
 _SITE = "train/trainer.py"
@@ -35,10 +39,6 @@ def train(cfg, *, steps=200, batch=8, seq_len=128, lr=3e-4, seed=0,
           metrics=None, device=None, params=None):
     """Returns (state, history).  ``metrics``: a ``MetricsRegistry`` to
     record into (one is created per run when omitted)."""
-    if ckpt_dir:
-        raise NotImplementedError(
-            "ckpt_dir: the checkpoint format comes in a later slice of the "
-            "PyTorch port (ROADMAP.md Queue 1, launch and checkpoints)")
     device = resolve_device(device)
     reg = metrics if metrics is not None else MetricsRegistry()
     c_steps = reg.counter("train_steps_total", unit="steps", site=_SITE)
@@ -86,4 +86,7 @@ def train(cfg, *, steps=200, batch=8, seq_len=128, lr=3e-4, seed=0,
             print(f"  eval ppl {float(em['ppl']):.3f}", flush=True)
         for cb in callbacks:
             cb(i, state, metrics_out)
+    if ckpt_dir:
+        ckpt.save(ckpt_dir, state, step=steps,
+                  meta={"arch": cfg.arch_id, "connection": cfg.connection})
     return state, history

@@ -208,7 +208,7 @@ def test_entry_points_need_a_device_here():
         trainer.train(cfg, steps=1, batch=2, seq_len=8, log_every=0)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "gemma2-27b",
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v3-671b",
                                   "mamba2-370m", "llava-next-mistral-7b"])
 def test_later_slice_families_raise(arch):
     with pytest.raises(NotImplementedError, match="slice"):

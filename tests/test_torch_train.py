@@ -291,7 +291,7 @@ def test_eval_step_matches_reference():
                                                             float(r[k]))
 
 
-def test_launcher_trains_on_cpu_and_refuses_later_slices(capsys):
+def test_launcher_trains_on_cpu_and_refuses_later_slices(capsys, tmp_path):
     args = ["--arch", "llama3.2-3b", "--reduced", "--steps", "2",
             "--batch", "2", "--seq", "16", "--device", "cpu"]
     _, hist = TL.main(args)
@@ -300,5 +300,9 @@ def test_launcher_trains_on_cpu_and_refuses_later_slices(capsys):
     for extra in (["--mesh", "single"], ["--tp", "explicit"], ["--sp"]):
         with pytest.raises(NotImplementedError, match="distributed slice"):
             TL.main(args + extra)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        TL.main(args + ["--ckpt", "ckpts"])
+    # --ckpt writes the reference's checkpoint format after the last step
+    # (tests/test_torch_checkpoint.py restores it in both packages)
+    from repro.train import checkpoint as RC
+    TL.main(args + ["--ckpt", str(tmp_path / "ckpts")])
+    assert RC.latest_step(str(tmp_path / "ckpts")) == 2
+    assert (tmp_path / "ckpts" / "ckpt_2.npz").is_file()
