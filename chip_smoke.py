@@ -101,6 +101,26 @@ script exits non-zero:
  13. train       trainer.train at llama3.2-3b full width and depth (fal,
                  fp32 masters, bf16 compute, remat, B=1, S=2048): one
                  warm-up step, 5 counted steps, one profiled step
+ 13a. tp         explicit tensor parallelism (core/tp.py) at llama3.2-3b
+                 full width cut to 4 layers, B=1, S=2048: two ranks
+                 spawned on this card over gloo (named, printed; CUDA
+                 tensors staged through host memory), and over NCCL too
+                 where there are two cards (else init_tp_group('nccl')
+                 must refuse).  Each rank: the one-device references
+                 first (bf16 logits, the decode tick, and on rank 0 three
+                 trainer steps), then with every counter at 0: the bf16
+                 forward (logits vs one device), trainer.train 3 steps
+                 (fp32 masters, remat; losses and grad norms vs one
+                 device; step ms, labelled gloo through host memory),
+                 forward + backward of fal and preln (all-reduce counts
+                 and bytes, fal / preln = (L + 1) / (2 L) = 5/8) and of
+                 their SP layouts (ar + tp x rs bytes = the replicated
+                 bytes), and one steady-state block's padded decode tick
+                 sequential and dual (one all-reduce each; Hkv 4 pages,
+                 d_ff 4096 shards) vs one device.  flash_attention (and
+                 .bwd), fused_ln_add (and .bwd), paged_decode_attention
+                 and fused_dual_branch_decode must launch in every rank;
+                 a failing rank fails the run
  14. gemma2      gemma2-27b at full width cut to 2 layers (block 0 local,
                  block 1 global; every layer softcapped): one packed, one
                  padded chunk and one padded decode tick and one train step
@@ -118,8 +138,9 @@ script exits non-zero:
 
 The serving phases (5 to 11, 14) also launch fused_ln_add: one per layer
 per tick under fal.  Every main-path run (6, 8, 8b, each run of 8c and of 9
-to 11, the counted steps of 13 and 14, and each gemma2 engine run) zeroes
-all launch counters just before it and reads them just after.  The line before the last is a
+to 11, the counted steps of 13 and 14, the TP paths of 13a in each rank,
+and each gemma2 engine run) zeroes all launch counters just before it and
+reads them just after.  The line before the last is a
 JSON object with one entry per kernel; the last line is {"ok": true,
 "device": {...}}.  Without a CUDA device, or outside a checkout, the script
 exits non-zero and prints no result.  It imports nothing of JAX and nothing
@@ -3530,6 +3551,376 @@ def train_phase():
 
 
 # --------------------------------------------------------------------------- #
+# tensor parallelism over torch.distributed
+# --------------------------------------------------------------------------- #
+#: llama3.2-3b at full width cut to 4 layers: the two ranks share one card,
+#: and fal pays (L + 1) / (2 L) = 5/8 of preln's all-reduce bytes
+TP_LAYERS, TP_SEQ, TP_STEPS, TP_SIZE = 4, 2048, 3, 2
+#: padded decode tick of one steady-state block: (pos, n_valid) a lane and
+#: Tb = 64 pages of 16 (the fused route needs F / tp % (Hkv / tp * Tb) == 0)
+TP_TICK_LANES = ((0, 1), (15, 1), (16, 1), (300, 1), (511, 1), (100, 0),
+                 (900, 1), (1000, 1))
+TP_TICK_TB = 64
+#: tolerances of the TP phase.  Logits (bf16 compute): each TP all-reduce
+#: rounds two bf16 partial sums and their sum, where one device rounds the
+#: full product once: differences of a few bf16 ulps in each of 4 blocks'
+#: residual updates, reaching logits of order 1 through the final norm.
+#: Losses and grad norms (fp32 masters, bf16 compute, 3 AdamW steps): the
+#: same roundings, relative.  Decode tick (bf16): one block, a few ulps of
+#: the output's largest magnitude.
+TP_LOGIT_TOL = 0.25
+TP_LOSS_TOL = 2e-3
+TP_GNORM_RTOL = 2e-2
+TP_TICK_ULPS = 8
+
+
+def tp_config(connection="fal", **kw):
+    from repro_torch.configs.base import get_config
+    return get_config("llama3.2-3b").replace(n_layers=TP_LAYERS,
+                                             connection=connection, **kw)
+
+
+def _tp_tokens(cfg, device):
+    g = torch.Generator().manual_seed(21)
+    return torch.randint(0, cfg.vocab, (1, TP_SEQ), generator=g,
+                         dtype=torch.int32).to(device)
+
+
+def _tp_counts_run(group, dev, connection, sp):
+    """Forward + backward + the step's gradient sum of ``connection`` under
+    explicit TP (remat off, fp32 masters, bf16 compute) -> this rank's
+    collective counts, and the no-grad forward's."""
+    from repro_torch.core import tp
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.launch import mesh as MX
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    cfg = tp_config(connection, remat=False)
+    plan = ExecutionPlan.from_group(group, tp="explicit", sp=sp)
+    full = M.init_params(cfg, seed=1, device=dev, dtype=cfg.param_dtype)
+    shard = MX.shard_params(full, cfg, plan.tp_rank, plan.tp_size)
+    del full
+    batch = {"tokens": _tp_tokens(cfg, dev)}
+    tp.reset_collectives()
+    with torch.no_grad():
+        M.forward(shard, cfg, batch, plan)
+    fwd = tp.collective_counts()
+    for _, p in adamw.named_leaves(shard):
+        p.requires_grad_(True)
+    tp.reset_collectives()
+    loss, _ = M.loss_fn(shard, cfg, batch, plan)
+    loss.backward()
+    M.tp_sync_grads(shard, cfg, plan)
+    torch.cuda.synchronize(dev)
+    return {"forward": fwd, "train": tp.collective_counts(),
+            "loss": float(loss)}
+
+
+def _tp_tick_case(dev):
+    """One steady-state block of llama3.2-3b (bf16) and a cache with
+    history: (cfg, block params, K/V pools, x, a1_sig, tables, pos,
+    n_valid) on ``dev``."""
+    from repro_torch import interop
+    from repro_torch.models import blocks as BL
+    cfg = tp_config()
+    bt, num_pages = lane_tables([p + 1 for p, _ in TP_TICK_LANES], page=PAGE,
+                                tb=TP_TICK_TB, seed=23)
+    g = torch.Generator().manual_seed(24)
+    block = BL.block_init(g, cfg, torch.bfloat16, "cpu")
+    shape = (num_pages, PAGE, cfg.n_kv_heads, cfg.resolved_head_dim)
+    cache = {k: torch.randn(shape, generator=g).to(torch.bfloat16)
+             for k in ("k", "v")}
+    B = len(TP_TICK_LANES)
+    x = torch.randn((B, 1, cfg.d_model), generator=g).to(torch.bfloat16)
+    sig = torch.randn((B, 1, cfg.d_model), generator=g).to(torch.bfloat16)
+    lanes = torch.tensor(TP_TICK_LANES, dtype=torch.int32)
+    return (cfg, *interop.tree_to(
+        [block, cache, x, sig, bt, lanes[:, 0].contiguous(),
+         lanes[:, 1].contiguous()], dev))
+
+
+def tp_device(rank):
+    """Rank r's card: r modulo the visible cards (gloo: all on card 0 of
+    one)."""
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def tp_rank(group, backend):
+    """One rank of the TP phase (spawned by ``core.tp.run_ranks``): the
+    one-device references first, then, with the launch and collective
+    counters zeroed, the TP paths.  Returns numbers only."""
+    import torch.distributed as dist
+    from repro_torch.core import tp
+    from repro_torch.core.plan import ExecutionPlan, Phase, local_kv_heads
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as MX
+    from repro_torch.models import blocks as BL
+    from repro_torch.models import model as M
+    from repro_torch.train import trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, size = dist.get_rank(), dist.get_world_size()
+    dev = tp_device(rank)
+    out = {"rank": rank, "device": str(dev)}
+    plan = ExecutionPlan.from_group(group, tp="explicit")
+
+    # one-device references: bf16 logits, the tick, and (rank 0) training
+    cfg = tp_config()
+    batch = {"tokens": _tp_tokens(cfg, dev)}
+    full = M.init_params(cfg, seed=0, device=dev)
+    with torch.no_grad():
+        ref_logits = M.forward(full, cfg, batch)[0]
+    shard = MX.shard_params(full, cfg, rank, size)
+    del full
+    tcfg, block, cache, x, sig, bt, pos, nv = _tp_tick_case(dev)
+    ref_tick = {}
+    for dual in (False, True):
+        one = {k: v.clone() for k, v in cache.items()}
+        with torch.no_grad():
+            ref_tick[dual] = BL.block_apply(
+                block, tcfg, x, sig, cache=one, block_tables=bt, pos=pos,
+                n_valid=nv, plan=ExecutionPlan.single_device(Phase.PAGED,
+                                                             dual))[0]
+    marks = []
+
+    def mark(i, state, metrics):
+        torch.cuda.synchronize(dev)
+        marks.append(time.perf_counter())
+
+    if rank == 0:
+        _, hist = trainer.train(tp_config(remat=True), steps=TP_STEPS,
+                                batch=1, seq_len=TP_SEQ, log_every=1,
+                                device=dev, callbacks=[mark])
+        out["one_device_train"] = [(h["loss"], h["grad_norm"]) for h in hist]
+        out["one_device_step_ms"] = [(b - a) * 1e3 for a, b in
+                                     zip(marks, marks[1:])]
+        marks.clear()
+        torch.cuda.empty_cache()
+    dist.barrier()             # the TP parts start together on every rank
+
+    # the TP paths, every counter from 0
+    ops.reset_launches()
+    ops.reset_dispatch_paths()
+    launches = {}
+
+    def part(name, fn):
+        ops.reset_launches()
+        tp.reset_collectives()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[name] = {k: v for k, v in ops.launch_counts().items() if v}
+        out[name] = dict(res or {}, ms=ms, counts=tp.collective_counts())
+
+    def forward():
+        with torch.no_grad():
+            logits = M.forward(shard, cfg, batch, plan)[0]
+        return {"logit_err": max_err(logits, ref_logits),
+                "logit_top": ref_logits.float().abs().max().item(),
+                "logit_sum": logits.float().sum().item()}
+    part("forward", forward)
+    del ref_logits
+
+    def train():
+        _, hist = trainer.train(tp_config(remat=True), steps=TP_STEPS,
+                                batch=1, seq_len=TP_SEQ, log_every=1,
+                                plan=plan, device=dev, callbacks=[mark])
+        return {"hist": [(h["loss"], h["grad_norm"]) for h in hist]}
+    part("train", train)
+    out["train"]["step_ms"] = [(b - a) * 1e3 for a, b in
+                               zip(marks, marks[1:])]
+    torch.cuda.empty_cache()
+    for connection in ("fal", "preln"):
+        for sp in (False, True):
+            part(f"{connection}{'_sp' if sp else ''}",
+                 lambda: _tp_counts_run(group, dev, connection, sp))
+            torch.cuda.empty_cache()
+    hk = local_kv_heads(tcfg, size)
+    tblock = MX.shard_params(block, tcfg, rank, size)
+    ticks = {}
+    for dual in (False, True):
+        _, step = tp.make_tp_decode_step(group, tcfg, dual=dual,
+                                         page_size=PAGE, device=dev)
+        local = {k: v[:, :, rank * hk:(rank + 1) * hk].clone()
+                 for k, v in cache.items()}
+
+        def tick():
+            with torch.no_grad():
+                ticks[dual] = step(tblock, x, local, bt, pos, nv, sig)[0]
+            ref = ref_tick[dual]
+            return {"err": max_err(ticks[dual], ref),
+                    "ulp": bf16_ulp(ref)}
+        part("dual_tick" if dual else "tick", tick)
+    out["dual_vs_sequential"] = max_err(ticks[True], ticks[False])
+    out["launches"] = launches
+    out["paths"] = ops.dispatch_paths()
+    # what one activation all-reduce of the training path costs here
+    # (1 x S x d_model bf16, staged through host memory under gloo)
+    act = torch.randn((1, TP_SEQ, cfg.d_model), device=dev,
+                      dtype=torch.bfloat16)
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        tp.assemble(act, group)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["all_reduce_ms"] = statistics.median(times[1:])
+    out["all_reduce_bytes"] = act.numel() * act.element_size()
+    return out
+
+
+def tp_phase(smi):
+    """Explicit TP at llama3.2-3b full width, 4 layers, over two ranks on
+    this card (``core.tp.run_ranks`` over gloo, which stages CUDA tensors
+    through host memory); NCCL too where there are two cards.  Returns
+    ({kernel: launches in the TP paths of rank 0}, rank 0's median TP
+    train step in ms), both over gloo."""
+    from repro_torch.core import tp
+    n_cards = torch.cuda.device_count()
+    backends = ["gloo"] + (["nccl"] if n_cards >= TP_SIZE else [])
+    if n_cards < TP_SIZE:
+        try:
+            tp.init_tp_group("nccl", rank=0, world_size=TP_SIZE)
+            raise AssertionError("init_tp_group('nccl') did not refuse")
+        except RuntimeError as e:
+            print(f"  nccl: not run ({n_cards} card(s)); init_tp_group "
+                  f"refuses it: {e}", flush=True)
+    torch.cuda.empty_cache()
+    tp_launches, step_ms = None, None
+    for backend in backends:
+        phase(f"tensor parallelism: backend {backend}, world size "
+              f"{TP_SIZE}, llama3.2-3b full width, {TP_LAYERS} layers, "
+              f"B=1, S={TP_SEQ}; card {smi}")
+        t0 = time.perf_counter()
+        ranks = tp.run_ranks("chip_smoke:tp_rank", TP_SIZE, backend=backend,
+                             args=(backend,), timeout=900)
+        print(f"  {TP_SIZE} ranks done in {time.perf_counter() - t0:.1f} s "
+              f"on {[r['device'] for r in ranks]}", flush=True)
+        launches = tp_report(ranks, backend, smi)
+        if backend == "gloo":
+            tp_launches = launches
+            step_ms = statistics.median(ranks[0]["train"]["step_ms"])
+    return tp_launches, step_ms
+
+
+def _ar(counts, direction="forward", what="calls", kind="all-reduce"):
+    from repro_torch.core import tp
+    return tp.count(counts, kind, direction, what)
+
+
+def tp_report(ranks, backend, smi):
+    """Print and gate the ranks' results; returns rank 0's launches summed
+    over the TP paths."""
+    r0 = ranks[0]
+    L = TP_LAYERS
+    for r in ranks:
+        f = r["forward"]
+        print(f"  rank {r['rank']}: bf16 forward logits vs one device on "
+              f"the card: max |diff| {f['logit_err']:.4f} (max |logit| "
+              f"{f['logit_top']:.3f}; tol {TP_LOGIT_TOL}); all-reduces "
+              f"{_ar(f['counts'])} (want {L + 1}); "
+              f"{f['ms']:.1f} ms", flush=True)
+        require(f["logit_err"] <= TP_LOGIT_TOL, "TP logits disagree with "
+                "the one-device forward")
+        require(_ar(f["counts"]) == L + 1, "TP forward all-reduces")
+    require(len({r["forward"]["logit_sum"] for r in ranks}) == 1,
+            "TP logits differ across ranks")
+    print(f"  one all-reduce of {r0['all_reduce_bytes']} B (1 x {TP_SEQ} x "
+          f"d_model bf16) over {backend}: median "
+          f"{[round(r['all_reduce_ms'], 2) for r in ranks]} ms by rank "
+          f"(host clock, 5 calls after one; card {smi})", flush=True)
+    one = r0["one_device_train"]
+    for r in ranks:
+        hist = r["train"]["hist"]
+        print(f"  rank {r['rank']}: trainer.train {TP_STEPS} steps (fal, "
+              f"fp32 masters, bf16 compute, remat): TP (loss, grad_norm) "
+              f"{[(round(a, 5), round(b, 4)) for a, b in hist]}, one device "
+              f"{[(round(a, 5), round(b, 4)) for a, b in one]} (tol "
+              f"{TP_LOSS_TOL} / relative {TP_GNORM_RTOL}); step ms "
+              f"{[round(t, 1) for t in r['train']['step_ms']]} over "
+              f"{backend} through host memory, both ranks on one card (no "
+              f"measure of the paper's claim; one device: "
+              f"{[round(t, 1) for t in r0['one_device_step_ms']]}); card "
+              f"{smi}", flush=True)
+        for (la, ga), (lb, gb) in zip(hist, one):
+            require(abs(la - lb) <= TP_LOSS_TOL
+                    and abs(ga - gb) <= TP_GNORM_RTOL * gb,
+                    "TP training disagrees with one device")
+    counts = {}
+    for mode in ("fal", "preln"):
+        c = r0[mode]["train"]
+        counts[mode] = c
+        print(f"  {mode}: all-reduces forward {_ar(c)} ({_ar(c, what='bytes')}"
+              f" B), backward {_ar(c, 'backward')} "
+              f"({_ar(c, 'backward', 'bytes')} B), step "
+              f"{_ar(c, 'step')} ({_ar(c, 'step', 'bytes')} B); "
+              f"forward + backward {r0[mode]['ms']:.1f} ms over {backend} "
+              f"through host memory", flush=True)
+    fal, pre = counts["fal"], counts["preln"]
+    for d in ("forward", "backward"):
+        ratio = _ar(fal, d, "bytes") / _ar(pre, d, "bytes")
+        print(f"  fal / preln all-reduce bytes, {d}: {ratio:.4f} "
+              f"((L + 1) / (2 L) = {(L + 1) / (2 * L):.4f})", flush=True)
+        require(_ar(fal, d, "bytes") * 2 * L == _ar(pre, d, "bytes")
+                * (L + 1), f"fal / preln {d} bytes != (L + 1) / (2 L)")
+    require((_ar(fal), _ar(pre)) == (L + 1, 2 * L)
+            and (_ar(fal, "backward"), _ar(pre, "backward"))
+            == (L + 1, 2 * L), "fal / preln all-reduce counts")
+    for mode in ("fal", "preln"):
+        repl, sp = r0[mode]["forward"], r0[f"{mode}_sp"]["forward"]
+        ar_b, sp_ar_b = _ar(repl, what="bytes"), _ar(sp, what="bytes")
+        sp_rs_b = _ar(sp, what="bytes", kind="reduce-scatter")
+        sp_rs_n = _ar(sp, kind="reduce-scatter")
+        print(f"  {mode} SP forward: {_ar(sp)} all-reduces ({sp_ar_b} B), "
+              f"{sp_rs_n} reduce-scatters ({sp_rs_b} B), "
+              f"{_ar(sp, kind='all-gather')} all-gathers; replicated "
+              f"{_ar(repl)} all-reduces ({ar_b} B); SP loss "
+              f"{r0[f'{mode}_sp']['loss']:.5f} vs {r0[mode]['loss']:.5f}",
+              flush=True)
+        require(_ar(sp) + sp_rs_n == _ar(repl)
+                and sp_ar_b + TP_SIZE * sp_rs_b == ar_b,
+                f"{mode} SP reduce counts / bytes")
+    for r in ranks:
+        t, d = r["tick"], r["dual_tick"]
+        print(f"  rank {r['rank']}: decode tick of one block (bf16, Hkv "
+              f"{tp_config().n_kv_heads // TP_SIZE} a rank, d_ff "
+              f"{tp_config().d_ff // TP_SIZE}): vs one device sequential "
+              f"{t['err']:.4f}, dual {d['err']:.4f} (tol {TP_TICK_ULPS} bf16 "
+              f"ulps = {TP_TICK_ULPS * t['ulp']:.4f}); dual vs sequential "
+              f"{r['dual_vs_sequential']:.4f}; all-reduces {_ar(t['counts'])}"
+              f" / {_ar(d['counts'])}; {t['ms']:.2f} / {d['ms']:.2f} ms",
+              flush=True)
+        require(t["counts"] == d["counts"] and _ar(t["counts"]) == 1,
+                "TP decode ticks: sequential and dual collectives differ")
+        require(max(t["err"], d["err"]) <= TP_TICK_ULPS * t["ulp"],
+                "TP decode tick disagrees with one device")
+    total = {}
+    for r in ranks:
+        tot = {}
+        for part, counts in r["launches"].items():
+            for k, v in counts.items():
+                tot[k] = tot.get(k, 0) + v
+        print(f"  rank {r['rank']} launches on the TP paths: {tot}; by "
+              f"part {r['launches']}; paths {r['paths']}", flush=True)
+        for k in ("flash_attention", "flash_attention.bwd", "fused_ln_add",
+                  "fused_ln_add.bwd", "paged_decode_attention",
+                  "fused_dual_branch_decode"):
+            require(tot.get(k, 0) > 0, f"rank {r['rank']}: {k} not launched "
+                    f"on the TP paths")
+        n = TP_STEPS
+        want = {"flash_attention": 2 * n * L, "flash_attention.bwd": n * L}
+        got = {k: r["launches"]["train"].get(k, 0) for k in want}
+        require(got == want, f"TP train launches {got} != {want}")
+        if r["rank"] == 0:
+            total = tot
+    return total
+
+
+# --------------------------------------------------------------------------- #
 # gemma2: sliding windows, logit softcaps, checkpoints
 # --------------------------------------------------------------------------- #
 #: the window of the card-vs-CPU ticks (the config's 4096 replaced), so that
@@ -4236,6 +4627,7 @@ def main():
     train_tick_phase()
     train_launches, train = train_phase()
     launches.update(train_launches)
+    tp_launches, tp_step_ms = tp_phase(smi)
     t_g2 = time.perf_counter()
     gemma2_tick_phase()
     g2_launches, g2_train = gemma2_train_phase()
@@ -4291,6 +4683,9 @@ def main():
             entry.update(spec_engine_launches=spec["ln_launches"],
                          spec_engine_formula=spec["formula"],
                          gemma2_engine_launches=g2_engine["launches"])
+        if kname in tp_launches:
+            # rank 0's launches on the tensor-parallel paths (phase 13a)
+            entry["tp_launches"] = tp_launches[kname]
         if kname in g2_launches:
             # the gemma2 training path (3 counted steps, 2 layers, remat)
             # and the window / softcap check's error at its shape
@@ -4303,7 +4698,9 @@ def main():
           f"a call " + ", ".join(f"{k[0]}@{k[1]} {v:.3f}" for k, v in
                                  sampler_ms.items())
           + f"; seeded spec tick {spec['device_ms_per_tick']:.2f} ms of "
-          f"device time; train {train['step_ms']:.1f} ms/step; gemma2 "
+          f"device time; train {train['step_ms']:.1f} ms/step; TP train "
+          f"(4 layers, gloo through host memory, 2 ranks on the card) "
+          f"{tp_step_ms:.1f} ms/step; gemma2 "
           f"train {g2_train['step_ms']:.1f} ms/step (peak "
           f"{g2_train['peak'] / 2**30:.2f} GiB), engine "
           f"{g2_engine['tok_s']:.1f} tok/s, prefill tick "

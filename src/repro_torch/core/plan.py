@@ -1,14 +1,34 @@
 """ExecutionPlan: the typed description of how one program executes.
 
-Port of ``repro/core/plan.py`` for one device: the phase and the
-dual-branch flag, with the reference's validation messages.  There is no
-mesh, no tensor or sequence parallelism and no gradient compression yet;
-those come with the port's distributed slice.
+Port of ``repro/core/plan.py:59-327`` over ``torch.distributed``.  The
+reference lays a program out on a ``jax.sharding.Mesh``; here a plan holds
+a process group in its place (``ExecutionPlan.from_group``), whose ranks
+are the tensor-parallel shards.  Plan axes:
+
+* ``phase``  -- train | eval | prefill | decode | paged.
+* ``tp``     -- none | gspmd | explicit.  ``explicit`` runs the dense
+  decoder through the explicit partial-sum stack
+  (``models/model.py::decoder_stack_tp``): each rank holds its shard of the
+  block weights (``launch/mesh.py::shard_params``) and the blocks pay the
+  paper's per-block collectives (``core/tp.py``).  ``gspmd`` has no PyTorch
+  counterpart and raises.
+* ``sequence_parallel`` -- Megatron-SP LN regions under explicit TP: the
+  residual stream between blocks is sharded along the sequence and every
+  per-block all-reduce becomes a reduce-scatter behind an all-gather.
+* ``dual_branch`` -- decode-time MHA || MLP branch parallelism.
+* ``grad_compress`` -- none | int8 | lowrank; only ``none`` is ported
+  (the compressed collectives are ``optim/grad_compress.py``, ROADMAP.md
+  Queue 1).
+
+Inside the stack the blocks see ``plan.inner()``, on which ``tp_axis`` is
+the process group the partial sums reduce over (None on replicated paths).
+There is no data-parallel axis yet (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Any
 
 
 class Phase(enum.Enum):
@@ -34,21 +54,72 @@ class Phase(enum.Enum):
 #: phases that run the full-sequence block path (vs KV-cache decode/paged)
 FULL_SEQUENCE_PHASES = (Phase.TRAIN, Phase.EVAL, Phase.PREFILL)
 
+
+class TPStyle(enum.Enum):
+    """Tensor-parallel style."""
+    NONE = "none"
+    GSPMD = "gspmd"
+    EXPLICIT = "explicit"
+
+    @classmethod
+    def coerce(cls, v) -> "TPStyle":
+        if isinstance(v, TPStyle):
+            return v
+        if v is None:
+            return cls.NONE
+        try:
+            return cls(v)
+        except ValueError:
+            raise ValueError(
+                f"unknown TP style {v!r}; valid: "
+                f"{[t.value for t in cls]}") from None
+
+
+#: families with an explicit partial-sum TP stack in the port
+EXPLICIT_TP_FAMILIES = ("dense",)
+
 #: families whose decode path runs FAL transformer blocks
 DUAL_BRANCH_FAMILIES = ("dense", "moe", "vlm", "hybrid")
+
+_LATER = "(ROADMAP.md Queue 1)"
 
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
-    """Frozen single-device plan: ``phase`` and ``dual_branch``."""
+    """Frozen description of how one program executes.  ``group`` is the
+    tensor-parallel process group (None: one device); ``local`` is set only
+    on the plan the blocks inside the stack see (``inner()``)."""
     phase: Phase = Phase.TRAIN
+    tp: TPStyle = TPStyle.NONE
+    sequence_parallel: bool = False
     dual_branch: bool = False
+    grad_compress: str = "none"            # none | int8 | lowrank
+    group: Any = None                      # torch.distributed ProcessGroup
+    local: bool = False                    # set only by inner()
 
+    # ------------------------------------------------------------- build --
     @classmethod
     def single_device(cls, phase=Phase.TRAIN,
                       dual_branch: bool = False) -> "ExecutionPlan":
-        """Replicated single-program plan (no mesh, no TP)."""
+        """Replicated single-program plan (no group, no TP)."""
         return cls(phase=Phase.coerce(phase), dual_branch=bool(dual_branch))
+
+    @classmethod
+    def from_group(cls, group, *, tp="explicit", sp: bool = False,
+                   phase=Phase.TRAIN, dual_branch: bool = False,
+                   grad_compress: str = "none",
+                   data_group=None) -> "ExecutionPlan":
+        """Plan over the tensor-parallel process ``group`` (the counterpart
+        of the reference's ``from_mesh``).  A data-parallel group has no
+        port yet and raises."""
+        if data_group is not None:
+            raise NotImplementedError(
+                f"data-parallel axes: the port's distributed slice shards "
+                f"over one tensor-parallel group only {_LATER}")
+        return cls(phase=Phase.coerce(phase), tp=TPStyle.coerce(tp),
+                   sequence_parallel=bool(sp), group=group,
+                   dual_branch=bool(dual_branch),
+                   grad_compress=str(grad_compress))
 
     @classmethod
     def resolve(cls, plan) -> "ExecutionPlan":
@@ -60,10 +131,11 @@ class ExecutionPlan:
             raise TypeError(
                 "context dicts are no longer accepted (the one-release "
                 "shim expired); construct an ExecutionPlan (core.plan) — "
-                "e.g. ExecutionPlan.from_mesh(mesh, tp='explicit')")
+                "e.g. ExecutionPlan.from_group(group, tp='explicit')")
         phase = Phase.coerce(plan) if plan is not None else Phase.TRAIN
         return cls.single_device(phase)
 
+    # -------------------------------------------------------- derived -----
     def with_phase(self, phase) -> "ExecutionPlan":
         return dataclasses.replace(self, phase=Phase.coerce(phase))
 
@@ -71,14 +143,84 @@ class ExecutionPlan:
         """Same plan with MHA||MLP decode branch parallelism toggled."""
         return dataclasses.replace(self, dual_branch=bool(flag))
 
+    def inner(self) -> "ExecutionPlan":
+        """The plan the blocks inside the explicit-TP stack see:
+        ``tp_axis`` set, ``use_explicit_tp`` off."""
+        return dataclasses.replace(self, local=True)
+
+    @property
+    def tp_size(self) -> int:
+        if self.group is None:
+            return 1
+        import torch.distributed as dist
+        return dist.get_world_size(self.group)
+
+    @property
+    def tp_rank(self) -> int:
+        if self.group is None:
+            return 0
+        import torch.distributed as dist
+        return dist.get_rank(self.group)
+
+    @property
+    def tp_axis(self):
+        """The process group the blocks' partial sums reduce over: set only
+        on ``inner()``; None on replicated paths."""
+        return self.group if self.local else None
+
+    @property
+    def use_explicit_tp(self) -> bool:
+        """True when the caller asked for the explicit partial-sum stack."""
+        return (self.tp is TPStyle.EXPLICIT and self.group is not None
+                and not self.local)
+
+    @property
+    def is_sharded(self) -> bool:
+        return self.group is not None
+
     @property
     def full_sequence(self) -> bool:
         return self.phase in FULL_SEQUENCE_PHASES
 
+    # -------------------------------------------------------- validate ----
     def validate(self, cfg) -> "ExecutionPlan":
         """Fail loudly when the plan cannot execute ``cfg``; returns self."""
+        if self.tp is TPStyle.GSPMD:
+            raise NotImplementedError(
+                f"tp='gspmd' lets XLA shard against PartitionSpecs; it has "
+                f"no PyTorch counterpart: use tp='explicit' {_LATER}")
+        if self.sequence_parallel and self.tp is not TPStyle.EXPLICIT:
+            raise ValueError(
+                "sequence_parallel=True requires tp='explicit': SP shards "
+                "inter-block activations inside the explicit partial-sum "
+                "stack; there is no replicated SP path")
+        if self.sequence_parallel and self.phase not in FULL_SEQUENCE_PHASES:
+            raise ValueError(
+                f"sequence_parallel=True is a full-sequence layout "
+                f"(train/eval/prefill); phase={self.phase.value} decodes "
+                f"single tokens against KV caches")
         if self.dual_branch:
             self._validate_dual_branch(cfg)
+        if self.grad_compress not in ("none", "int8", "lowrank"):
+            raise ValueError(
+                f"unknown grad_compress {self.grad_compress!r}; valid: "
+                f"none/int8/lowrank (optim/grad_compress.py methods)")
+        if self.grad_compress != "none":
+            raise NotImplementedError(
+                f"grad_compress={self.grad_compress!r}: the compressed "
+                f"backward collectives (optim/grad_compress.py) are not "
+                f"ported yet {_LATER}")
+        if self.tp is TPStyle.EXPLICIT:
+            if self.group is None:
+                raise ValueError("tp='explicit' requires a process group "
+                                 "(the explicit-TP stack shards over it)")
+            if cfg.family not in EXPLICIT_TP_FAMILIES:
+                raise ValueError(
+                    f"tp='explicit': family '{cfg.family}' has no "
+                    f"explicit-TP stack (decoder family only: "
+                    f"{EXPLICIT_TP_FAMILIES}) — running it would silently "
+                    f"fall back and mislabel any numbers")
+            self._check_divisibility(cfg)
         return self
 
     def _validate_dual_branch(self, cfg):
@@ -108,3 +250,34 @@ class ExecutionPlan:
                 "dual_branch=True: post_norms normalise the assembled "
                 "attention output before the residual merge — the MLP "
                 "branch cannot be issued concurrently with the KV gather")
+
+    def _check_divisibility(self, cfg):
+        """Explicit TP shards heads and the FFN hidden evenly: fail loudly
+        when the config does not divide."""
+        tp_size = self.tp_size
+
+        def div(n, what):
+            if n % tp_size:
+                raise ValueError(f"explicit TP: {what}={n} is not divisible "
+                                 f"by tp_size={tp_size}")
+        div(cfg.n_heads, "n_heads")
+        if cfg.n_kv_heads % tp_size and tp_size % cfg.n_kv_heads:
+            # n_kv_heads < tp_size is fine when groups align (KV
+            # replication, attention._kv_group_slice); anything else cannot
+            # shard evenly
+            raise ValueError(f"explicit TP: n_kv_heads={cfg.n_kv_heads} "
+                             f"divides neither way with tp_size={tp_size}")
+        div(cfg.dense_d_ff or cfg.d_ff, "d_ff")
+
+
+def local_kv_heads(cfg, tp_size: int) -> int:
+    """KV heads a rank holds: ``n_kv_heads / tp``, or 1 when the KV heads
+    are replicated (``n_kv_heads < tp``)."""
+    return cfg.n_kv_heads // tp_size if cfg.n_kv_heads % tp_size == 0 else 1
+
+
+def kv_replicated(cfg, tp_size: int) -> bool:
+    """Megatron's GQA fallback: ``wk`` / ``wv`` whole on every rank when
+    the KV heads do not divide over the ranks."""
+    return cfg.n_kv_heads % tp_size != 0
+

@@ -2,7 +2,9 @@
 
 Port of ``repro/models/attention.py``: ``blockwise_attention`` (``:21``,
 the plain version of the flash-attention kernel) and the full-sequence
-``gqa_apply`` (``:490``, through ``ops.flash_attention``) for training; and
+``gqa_apply`` (``:490``, through ``ops.flash_attention``) for training,
+with ``_kv_group_slice`` (``:474``) for explicit TP with fewer KV heads
+than ranks (also on the paged paths, given the plan); and
 the paged serving paths: ``gqa_init``, ``gqa_qkv`` (``:406``),
 ``paged_scatter`` (``:108``) and
 ``packed_scatter`` (``:129``), ``paged_gather``, ``_gather_dequant`` and
@@ -67,11 +69,28 @@ def blockwise_attention(q, k, v, *, causal=True, window=0, cap=0.0,
     return torch.cat(out, dim=1)
 
 
-def gqa_apply(p, cfg, x, positions, *, window=0, causal=True):
+def _kv_group_slice(k, v, cfg, plan):
+    """Megatron's GQA fallback for ``n_kv_heads < tp`` inside the
+    explicit-TP stack: wk / wv are replicated (``launch.mesh``), every rank
+    computes all KV heads and keeps the one its query heads attend to
+    (``tp / n_kv_heads`` ranks share each KV head)."""
+    if plan is None or plan.tp_axis is None:
+        return k, v
+    tp = plan.tp_size
+    if cfg.n_kv_heads % tp == 0:
+        return k, v          # kv heads are sharded like query heads
+    idx = plan.tp_rank // (tp // cfg.n_kv_heads)
+    return k[:, :, idx:idx + 1], v[:, :, idx:idx + 1]
+
+
+def gqa_apply(p, cfg, x, positions, *, window=0, causal=True, plan=None):
     """Full-sequence attention (train / eval / prefill): x (B, S, D) at
     ``positions`` (B, S) -> (B, S, D), through ``ops.flash_attention`` (the
-    kernels on the card, ``blockwise_attention`` on the CPU)."""
+    kernels on the card, ``blockwise_attention`` on the CPU).  With the
+    explicit-TP shards of the weights (``plan.tp_axis`` set) the result is
+    this rank's partial sum over its heads."""
     q, k, v = gqa_qkv(p, cfg, x, positions)
+    k, v = _kv_group_slice(k, v, cfg, plan)
     B, S = x.shape[:2]
     o = ops.flash_attention(q, k, v, causal=causal, window=window,
                             cap=cfg.attn_softcap, block_q=cfg.attn_block_q)
@@ -182,16 +201,19 @@ def _quant_rows(vals, pages_dtype):
 
 
 def gqa_init_paged_cache(cfg, num_pages, page_size, dtype, device,
-                         kv_dtype=""):
-    """K/V page pools (P, page, Hkv, Dh).  ``kv_dtype``: "" stores in
-    ``dtype`` (the engine's ``cache_dtype``); "bf16" stores bfloat16 with
-    no scales; "int8" / "fp8" store int8 / float8_e4m3fn plus (P, page)
-    fp32 ``k_scale`` / ``v_scale`` row-scale pools (initialised to 1)."""
+                         kv_dtype="", n_kv_heads=None):
+    """K/V page pools (P, page, Hkv, Dh); ``n_kv_heads`` the heads a rank
+    holds under explicit TP (``core.plan.local_kv_heads``; None: all of
+    ``cfg.n_kv_heads``).  ``kv_dtype``: "" stores in ``dtype`` (the
+    engine's ``cache_dtype``); "bf16" stores bfloat16 with no scales;
+    "int8" / "fp8" store int8 / float8_e4m3fn plus (P, page) fp32
+    ``k_scale`` / ``v_scale`` row-scale pools (initialised to 1)."""
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, "
                          f"got {kv_dtype!r}")
     store = _KV_STORAGE.get(kv_dtype, dtype)
-    shape = (num_pages, page_size, cfg.n_kv_heads, cfg.resolved_head_dim)
+    shape = (num_pages, page_size, n_kv_heads or cfg.n_kv_heads,
+             cfg.resolved_head_dim)
     cache = {"k": torch.zeros(shape, dtype=store, device=device),
              "v": torch.zeros(shape, dtype=store, device=device)}
     if kv_dtype in ("int8", "fp8"):
@@ -267,7 +289,8 @@ def _scales(cache):
     return {"k_scale": cache.get("k_scale"), "v_scale": cache.get("v_scale")}
 
 
-def _gqa_paged_qkv_scatter(p, cfg, x, cache, block_tables, pos, n_valid):
+def _gqa_paged_qkv_scatter(p, cfg, x, cache, block_tables, pos, n_valid,
+                           plan=None):
     """Shared prologue of the sequential and dual-branch padded paths:
     project q/k/v at the chunk's positions and scatter k/v (and their row
     scales) into the page pools in place.  Returns (q (B, C, H, Dh),
@@ -277,13 +300,14 @@ def _gqa_paged_qkv_scatter(p, cfg, x, cache, block_tables, pos, n_valid):
     page = cache["k"].shape[1]
     positions = pos[:, None] + torch.arange(C, device=pos.device)[None]
     q, k, v = gqa_qkv(p, cfg, x, positions)
+    k, v = _kv_group_slice(k, v, cfg, plan)
     _scatter_kv(cache, k, v, lambda pool, vals: paged_scatter(
         pool, vals, block_tables, pos, n_valid, page))
     return q, positions
 
 
 def gqa_paged_apply(p, cfg, x, cache, block_tables, pos, n_valid, *,
-                    window=0):
+                    window=0, plan=None):
     """Padded chunked tick against a paged cache.  x: (B, C, D) with C >= 1
     (C == 1 is a decode-only tick; C > 1 serves lanes at any phase through
     per-lane ``pos``/``n_valid``).  Scatters this tick's K/V into ``cache``
@@ -296,7 +320,7 @@ def gqa_paged_apply(p, cfg, x, cache, block_tables, pos, n_valid, *,
     product otherwise).  Returns (out (B, C, D), cache)."""
     B, C = x.shape[:2]
     q, positions = _gqa_paged_qkv_scatter(p, cfg, x, cache, block_tables,
-                                          pos, n_valid)
+                                          pos, n_valid, plan)
     ks, vs = cache.get("k_scale"), cache.get("v_scale")
     if _gathered(cfg, window):
         o = chunk_attention(q, _gather_dequant(cache["k"], ks, block_tables),
@@ -315,7 +339,7 @@ def gqa_paged_apply(p, cfg, x, cache, block_tables, pos, n_valid, *,
 
 
 def gqa_paged_dual(p, ffn, cfg, x, mlp_in, cache, block_tables, pos,
-                   n_valid):
+                   n_valid, plan=None):
     """Dual-branch single-token padded tick: the paged attention and the
     dense FFN go down as one dispatch (``ops.dual_branch_decode``: the
     fused kernel on the card).  On quantized pages the fused kernel has no
@@ -328,7 +352,7 @@ def gqa_paged_dual(p, ffn, cfg, x, mlp_in, cache, block_tables, pos,
     window and no softcap."""
     B, C = x.shape[:2]
     q, _ = _gqa_paged_qkv_scatter(p, cfg, x, cache, block_tables, pos,
-                                  n_valid)
+                                  n_valid, plan)
     if "k_scale" in cache:
         o = ops.paged_decode_attention(q[:, 0], cache["k"], cache["v"],
                                        block_tables, pos + 1,
@@ -343,7 +367,7 @@ def gqa_paged_dual(p, ffn, cfg, x, mlp_in, cache, block_tables, pos,
 
 
 def gqa_packed_apply(p, cfg, x, cache, block_tables, tok_slot, tok_pos, *,
-                     window=0):
+                     window=0, plan=None):
     """Token-packed ragged tick against a paged cache.  x: (1, T, D) flat
     packed tokens, token t of lane ``tok_slot[t]`` at ``tok_pos[t]``.
     Scatters this tick's K/V (quantized rows and their scales on quantized
@@ -355,6 +379,7 @@ def gqa_packed_apply(p, cfg, x, cache, block_tables, tok_slot, tok_pos, *,
     page = cache["k"].shape[1]
     positions = tok_pos.clamp(min=0)[None]                    # (1, T)
     q, k, v = gqa_qkv(p, cfg, x, positions)                   # (1, T, H, Dh)
+    k, v = _kv_group_slice(k, v, cfg, plan)
     _scatter_kv(cache, k[0], v[0], lambda pool, vals: packed_scatter(
         pool, vals, block_tables, tok_slot, tok_pos, page))
     if _gathered(cfg, window):

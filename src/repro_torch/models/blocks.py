@@ -1,18 +1,28 @@
 """Transformer block honoring the FAL connection modes (core/fal.py), for
 training and the paged ticks.
 
-Port of the replicated paths of ``repro/models/blocks.py``: a block is
-``x + MHA(ln1(x)) + FFN(mlp_input)`` with optional post-norms
-(``:143-214``), over the full sequence (train / eval / prefill,
-``:170-173``), in the token-packed and the padded (B, C) paged layouts,
-and the dual-branch decode block ``_block_apply_dual`` (``:217-291``), and
-``window_schedule`` (``:388-393``), each layer's sliding window.  No
-tensor or sequence parallelism, no MoE, MLA or cross-attention: those come
-in later slices of the port.
+Port of ``repro/models/blocks.py``: a block is ``x + MHA(ln1(x)) +
+FFN(mlp_input)`` with optional post-norms (``:143-214``), over the full
+sequence (train / eval / prefill, ``:170-173``), in the token-packed and the
+padded (B, C) paged layouts, and the dual-branch decode block
+``_block_apply_dual`` (``:217-291``), and ``window_schedule``
+(``:388-393``), each layer's sliding window.
+
+Under explicit tensor parallelism (``plan.tp_axis`` set: the process group
+of ``models/model.py::decoder_stack_tp``) the attention and FFN see this
+rank's head / hidden shards and return partial sums, and this module owns
+the paper's per-block collective structure (``block_apply_tp``): modes
+whose MLP input needs the block's assembled attention
+(``fal.attention_must_assemble``) pay two all-reduces, the others add the
+MHA and MLP partials locally and pay ONE.  With
+``plan.sequence_parallel`` the same fork runs in the Megatron-SP layout
+(``_block_apply_sp``).  No MoE, MLA or cross-attention: those come in later
+slices of the port.
 """
 from __future__ import annotations
 
 from repro_torch.core import fal
+from repro_torch.core import tp
 from repro_torch.core.plan import ExecutionPlan, Phase
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -37,14 +47,14 @@ def block_init(gen, cfg, dtype, device, *, is_block0=False):
 
 
 def _paged_attention(p, cfg, h, cache, block_tables, pos, n_valid, tok_slot,
-                     tok_pos, window):
+                     tok_pos, window, plan=None):
     """The block's MHA over the paged cache in whichever layout the batch
     uses: token-packed when ``tok_slot`` is given, else padded (B, C)."""
     if tok_slot is not None:
         return A.gqa_packed_apply(p["attn"], cfg, h, cache, block_tables,
-                                  tok_slot, tok_pos, window=window)
+                                  tok_slot, tok_pos, window=window, plan=plan)
     return A.gqa_paged_apply(p["attn"], cfg, h, cache, block_tables, pos,
-                             n_valid, window=window)
+                             n_valid, window=window, plan=plan)
 
 
 def block_apply(p, cfg, x, a1_sig, *, is_block0=False, plan=None, cache=None,
@@ -57,7 +67,8 @@ def block_apply(p, cfg, x, a1_sig, *, is_block0=False, plan=None, cache=None,
     ``cache`` in place.  Returns (x_out, a_raw) where ``a_raw`` is this
     block's MHA output (block 0 exports it as the first-attention signal).
     Under ``plan.dual_branch`` every block but block 0 runs the MHA || MLP
-    branch-parallel block."""
+    branch-parallel block; under explicit TP (``plan.tp_axis``) the block is
+    ``block_apply_tp``'s."""
     plan = ExecutionPlan.resolve(plan)
     if plan.dual_branch and not is_block0 \
             and plan.phase in (Phase.DECODE, Phase.PAGED):
@@ -68,6 +79,13 @@ def block_apply(p, cfg, x, a1_sig, *, is_block0=False, plan=None, cache=None,
                                  cache=cache, pos=pos,
                                  block_tables=block_tables, n_valid=n_valid,
                                  tok_slot=tok_slot, tok_pos=tok_pos)
+    if plan.tp_axis is not None:
+        x, a, _ = block_apply_tp(
+            p, cfg, x, a1_sig, is_block0=is_block0, plan=plan, cache=cache,
+            block_tables=block_tables, pos=pos, n_valid=n_valid,
+            tok_slot=tok_slot, tok_pos=tok_pos, window=window,
+            positions=positions)
+        return x, a
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     if plan.full_sequence:
         a = A.gqa_apply(p["attn"], cfg, h, positions, window=window)
@@ -105,8 +123,11 @@ def _block_apply_dual(p, cfg, x, a1_sig, window, *, plan: ExecutionPlan,
     sequential path's (the packed kernel or the padded kernels, then the
     dense MLP), with the same ``(x + a) + y`` residual association, so the
     outputs are bit-identical.  In eager PyTorch those two branches run one
-    after the other on one stream."""
+    after the other on one stream.  Under explicit TP the two partial sums
+    merge before the sequential fused path's one all-reduce: no extra
+    collective (``core.tp.assert_dual_no_extra_collectives``)."""
     # a=None is safe: DUAL_BRANCH_MODES never read the block's own attention
+    group = plan.tp_axis
     mlp_in = fal.mlp_input(cfg, p, x, None, a1_sig)
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     C = x.shape[1]
@@ -116,13 +137,182 @@ def _block_apply_dual(p, cfg, x, a1_sig, window, *, plan: ExecutionPlan,
         # only: a packed buffer of length 1 is NOT a (B, 1) tick); the port
         # serves dense blocks only (models.model.check_supported)
         a, y, _ = A.gqa_paged_dual(p["attn"], p["ffn"], cfg, h, mlp_in,
-                                   cache, block_tables, pos, n_valid)
+                                   cache, block_tables, pos, n_valid,
+                                   plan=plan)
     else:
         a, _ = _paged_attention(p, cfg, h, cache, block_tables, pos, n_valid,
-                                tok_slot, tok_pos, window)
+                                tok_slot, tok_pos, window, plan)
         y = L.mlp_apply(p["ffn"], mlp_in, cfg.mlp)
+    if group is not None:
+        # one fused collective per block, as on the sequential fused path
+        return x + tp.assemble(a + y, group), a
     # keep the sequential path's (x + a) + y association: bit-identical
     return (x + a) + y, a
+
+
+def _fused(cfg, is_block0) -> bool:
+    """Whether a TP block adds its MHA and MLP partials locally before one
+    reduction: the MLP input must not need the block's assembled attention
+    (``fal.attention_must_assemble``), and post-norms normalise that
+    attention."""
+    return not cfg.post_norms and not fal.attention_must_assemble(
+        cfg.connection, is_block0)
+
+
+def _shared_signal(cfg) -> bool:
+    """Under explicit TP FAL's signal enters every later block's sharded MLP
+    through one *f* on the export (``tp.enter``) when those blocks take the
+    fused path; with post-norms they assemble and their MLP inputs enter
+    whole instead."""
+    return cfg.connection == "fal" and not cfg.post_norms
+
+
+def block_apply_tp(p, cfg, x, a1_sig, *, is_block0=False, plan, cache=None,
+                   block_tables=None, pos=None, n_valid=None, tok_slot=None,
+                   tok_pos=None, window=0, positions=None):
+    """One block under explicit TP (reference ``:174-214``) over this
+    rank's weight shards -> (x_out, a_raw, a1_export).  ``a1_export`` is
+    block 0's first-attention signal as later blocks take it (FAL: the
+    normalised export behind its one *f*; FAL+: the raw assembled
+    attention; else None); later blocks return None there.
+
+    Fused path (the MLP input does not need this block's attention: fal and
+    ablation2 after block 0, parallel everywhere): x enters both branches
+    through one *f*, and ``x + assemble(a + y)`` pays ONE all-reduce in the
+    forward and one in the backward.  Assembled path: the attention
+    partial is all-reduced, then the FFN partial (two), the LN outputs
+    entering each sharded branch behind an *f* (two in the backward).
+    FAL's block 0 assembles its attention and exports ``ln_a(a)``; with the
+    fused path downstream, x enters through one *f* and the signal through
+    the other, which also serves every later block: (L + 1) all-reduces
+    each way over L layers.  ``a_raw`` is a partial sum on the fused path.
+    Under ``plan.sequence_parallel`` x is this rank's sequence shard
+    (``_block_apply_sp``)."""
+    group = plan.tp_axis
+    if plan.sequence_parallel:
+        return _block_apply_sp(p, cfg, x, a1_sig, positions, window,
+                               is_block0=is_block0, plan=plan)
+
+    def attend(h):
+        if plan.full_sequence:
+            return A.gqa_apply(p["attn"], cfg, h, positions, window=window,
+                               plan=plan)
+        return _paged_attention(p, cfg, h, cache, block_tables, pos, n_valid,
+                                tok_slot, tok_pos, window, plan)[0]
+
+    def ffn(h):
+        return L.mlp_apply(p["ffn"], h, cfg.mlp)
+
+    if _fused(cfg, is_block0):
+        x_in = tp.enter(x, group)
+        a = attend(L.norm_apply(p["ln1"], x_in, cfg.norm))
+        mlp_in = (fal.block0_mlp_input(cfg, p, x_in, a) if is_block0
+                  else fal.mlp_input(cfg, p, x_in, a, a1_sig))
+        return x + tp.assemble(a + ffn(mlp_in), group), a, None
+
+    if is_block0 and _shared_signal(cfg):
+        x_in = tp.enter(x, group)
+        a = tp.assemble(attend(L.norm_apply(p["ln1"], x_in, cfg.norm)),
+                        group)
+        sig = tp.enter(fal.first_attention_signal(cfg, p, a), group)
+        # block 0's MLP input ln2(x) + ln_a(a) is fal's later-block input
+        # over the exported signal
+        y = tp.assemble(ffn(fal.mlp_input(cfg, p, x_in, a, sig)), group)
+        return (x + a) + y, a, sig
+
+    h = tp.enter(L.norm_apply(p["ln1"], x, cfg.norm), group)
+    a = tp.assemble(attend(h), group)
+    if cfg.post_norms:
+        a = L.norm_apply(p["post_attn"], a, cfg.norm)
+    mlp_in = (fal.block0_mlp_input(cfg, p, x, a) if is_block0
+              else fal.mlp_input(cfg, p, x, a, a1_sig))
+    y = tp.assemble(ffn(tp.enter(mlp_in, group)), group)
+    if cfg.post_norms:
+        y = L.norm_apply(p["post_ffn"], y, cfg.norm)
+    sig = fal.first_attention_signal(cfg, p, a) if is_block0 else None
+    return (x + a) + y, a, sig
+
+
+def _block_apply_sp(p, cfg, x_s, a1_sig, positions, window, *, is_block0,
+                    plan):
+    """Sequence-parallel (Megatron-SP) block (reference ``:294-385``):
+    ``x_s`` is this rank's (B, S/tp, D) shard of the residual stream and
+    so is the output.  Returns (x_out_s, a_raw, a1_export).
+
+      fused: all-gather(x_s) -> attention + MLP partials over the full
+          sequence -> ONE reduce-scatter(a + y).
+      assembled: all-gather(x_s) -> attention partial -> reduce-scatter(a)
+          -> the MLP input on the shard -> all-gather -> MLP partial ->
+          reduce-scatter(y).
+      block 0 with a first-attention export (fal / falplus): the attention
+          partial pays a true all-reduce instead of the reduce-scatter (the
+          signal feeds every later block at every position), then the MLP
+          input over the full sequence and one reduce-scatter(y).
+
+    Norms are per token, so they apply to shards or gathered tensors
+    alike."""
+    group = plan.tp_axis
+    x = tp.gather_seq(x_s, group)                      # (B, S, D)
+    a = A.gqa_apply(p["attn"], cfg, L.norm_apply(p["ln1"], x, cfg.norm),
+                    positions, window=window, plan=plan)
+
+    def ffn(h):
+        return L.mlp_apply(p["ffn"], h, cfg.mlp)
+
+    if _fused(cfg, is_block0):
+        mlp_in = (fal.block0_mlp_input(cfg, p, x, a) if is_block0
+                  else fal.mlp_input(cfg, p, x, a, a1_sig))
+        return x_s + tp.scatter_seq(a + ffn(mlp_in), group), a, None
+
+    sig = None
+    if is_block0 and cfg.connection in fal.USES_FIRST_ATTENTION:
+        a = tp.assemble(a, group)
+        if cfg.post_norms:
+            a = L.norm_apply(p["post_attn"], a, cfg.norm)
+        resid_s = x_s + tp.split_seq(a, group)
+        sig = fal.first_attention_signal(cfg, p, a)
+        if cfg.connection == "fal":
+            sig_in = tp.enter(sig, group)
+            if _shared_signal(cfg):
+                sig = sig_in
+            mlp_in = fal.mlp_input(cfg, p, x, a, sig_in)
+        else:
+            mlp_in = fal.block0_mlp_input(cfg, p, x, tp.enter(a, group))
+    else:
+        a_s = tp.scatter_seq(a, group)                 # complete, sharded
+        if cfg.post_norms:
+            a_s = L.norm_apply(p["post_attn"], a_s, cfg.norm)
+        resid_s = x_s + a_s
+        sig_s = tp.split_seq(a1_sig, group) if a1_sig is not None else None
+        mlp_in_s = (fal.block0_mlp_input(cfg, p, x_s, a_s) if is_block0
+                    else fal.mlp_input(cfg, p, x_s, a_s, sig_s))
+        mlp_in = tp.gather_seq(mlp_in_s, group)        # LN region -> full
+    y_s = tp.scatter_seq(ffn(mlp_in), group)
+    if cfg.post_norms:
+        y_s = L.norm_apply(p["post_ffn"], y_s, cfg.norm)
+    return resid_s + y_s, a, sig
+
+
+def tp_partial_leaves(cfg, plan, *, is_block0, kv_rep):
+    """Keys (paths into one block's params) of the replicated leaves whose
+    gradient each rank holds as a partial sum under ``plan``'s placement of
+    the collectives above: leaves used between an *f* (or a sequence
+    all-gather) and the sharded weights see only this rank's share of the
+    cotangent, and under SP a norm applied to a sequence shard sees only
+    this rank's tokens.  The train step sums their gradients over the
+    group (``models.model.tp_sync_grads``); every other replicated leaf's
+    gradient is already whole and equal on every rank."""
+    keys = [("attn", "qnorm"), ("attn", "knorm")]
+    if kv_rep:
+        keys += [("attn", "wk"), ("attn", "wv")]
+    if plan.sequence_parallel:
+        export = is_block0 and cfg.connection in fal.USES_FIRST_ATTENTION
+        keys += [("ln1",), ("ln2",), ("ln_fal",), ("post_ffn",)]
+        if not export:
+            keys.append(("post_attn",))
+    elif _fused(cfg, is_block0) or (is_block0 and _shared_signal(cfg)):
+        keys += [("ln1",), ("ln2",)]
+    return keys
 
 
 def window_schedule(cfg, n_layers=None):

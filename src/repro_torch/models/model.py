@@ -20,6 +20,13 @@ decoder.  For self-speculative decoding: ``paged_spec_draft`` (``:1010``)
 ``lm_head_segment_tail`` (``:1034``, the verify's head over each segment's
 last rows).
 
+Explicit tensor parallelism (``core/tp.py``): under an explicit-TP plan
+(``ExecutionPlan.from_group``) ``forward`` and ``loss_fn`` run
+``decoder_stack_tp`` (``:149-201``, the dispatch of ``:258-261``) on this
+rank's shard of the blocks (``launch/mesh.py::shard_params``), remat
+included, and ``tp_sync_grads`` sums the replicated leaves' partial
+gradients after the backward.  The paged ticks refuse a sharded plan.
+
 Parameters are a dict tree in the reference's layout, except that the
 stacked ``blocks_dense`` leaves (leading layer axis) become a list of
 per-layer dicts under ``"blocks"``.  Every path passes each layer its
@@ -43,7 +50,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core import fal
-from repro_torch.core.plan import ExecutionPlan, Phase
+from repro_torch.core import tp
+from repro_torch.core.plan import ExecutionPlan, Phase, kv_replicated
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as BL
@@ -181,12 +189,96 @@ def _run_decoder_blocks(p, cfg, x, positions, plan):
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _check_shards(p, cfg, tp_size):
+    """The explicit-TP stack runs on this rank's shard of the blocks
+    (``launch.mesh.shard_params``); full weights would compute tp times
+    the attention and FFN and sum them."""
+    Dh = cfg.resolved_head_dim
+    got = p["block0"]["attn"]["wq"].shape[-1]
+    if got * tp_size != cfg.n_heads * Dh:
+        raise ValueError(
+            f"explicit TP over {tp_size} ranks: wq has {got} columns, "
+            f"expected {cfg.n_heads * Dh // tp_size}; pass this rank's "
+            f"shard (launch.mesh.shard_params)")
+
+
+def decoder_stack_tp(p, cfg, x, positions, plan):
+    """Block 0 and the later blocks under explicit tensor parallelism
+    (reference ``model.py:149-201``): ``p`` holds this rank's shard of the
+    blocks, x (B, S, D) is replicated on every rank and so is the output.
+    The blocks see ``plan.inner()`` and pay the collectives of
+    ``blocks.block_apply_tp``: fal / parallel one all-reduce per
+    steady-state block, preln / falplus two, and block 0 the one extra
+    that exports the first-attention signal.  With
+    ``plan.sequence_parallel`` the residual stream between blocks is this
+    rank's (B, S/tp, D) slice (``tp.split_seq`` in, ``tp.unsplit_seq``
+    out): every per-block all-reduce becomes a reduce-scatter at 1/tp the
+    bytes behind an all-gather.  Remat as on one device.  Returns (x,
+    aux)."""
+    plan.validate(cfg)
+    tp_size = plan.tp_size
+    _check_shards(p, cfg, tp_size)
+    sp = plan.sequence_parallel
+    if sp and x.shape[1] % tp_size:
+        raise ValueError(
+            f"sequence_parallel: seq len {x.shape[1]} is not divisible by "
+            f"tp_size={tp_size} (the residual stream shards evenly or not "
+            f"at all)")
+    inner = plan.inner()
+    wsched = BL.window_schedule(cfg)
+
+    def block0(pb, h):
+        h, _, sig = BL.block_apply_tp(pb, cfg, h, None, is_block0=True,
+                                      plan=inner, positions=positions,
+                                      window=wsched[0])
+        return h, sig
+
+    def block(pb, h, a1_sig, window):
+        return BL.block_apply_tp(pb, cfg, h, a1_sig, plan=inner,
+                                 positions=positions, window=window)[0]
+
+    if sp:
+        x = tp.split_seq(x, plan.group)
+    x, a1_sig = _maybe_remat(block0, cfg)(p["block0"], x)
+    body = _maybe_remat(block, cfg)
+    for pb, w in zip(p["blocks"], wsched[1:]):
+        x = body(pb, x, a1_sig, w)
+    if sp:
+        x = tp.unsplit_seq(x, plan.group)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def tp_sync_grads(params, cfg, plan):
+    """Sum over the TP group, in ONE all-reduce, the gradients that each
+    rank holds as a partial sum of a replicated leaf
+    (``blocks.tp_partial_leaves``); afterwards every replicated leaf's
+    gradient is whole and equal on every rank.  Call after the backward
+    (and after the last microbatch)."""
+    kv_rep = kv_replicated(cfg, plan.tp_size)
+    grads = []
+    for pb, is0 in [(params["block0"], True)] + [
+            (b, False) for b in params["blocks"]]:
+        for key in BL.tp_partial_leaves(cfg, plan, is_block0=is0,
+                                        kv_rep=kv_rep):
+            node = pb
+            for k in key:
+                node = node.get(k) if isinstance(node, dict) else None
+            if node is None:
+                continue
+            leaves = node.values() if isinstance(node, dict) else [node]
+            grads += [t.grad for t in leaves]
+    tp.all_reduce_(grads, plan.group)
+
+
 def _decoder_forward(p, cfg, batch, plan, want="logits"):
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = _embed_tokens(p, cfg, tokens, positions)
-    x, aux = _run_decoder_blocks(p, cfg, x, positions, plan)
+    if plan.use_explicit_tp:
+        x, aux = decoder_stack_tp(p, cfg, x, positions, plan)
+    else:
+        x, aux = _run_decoder_blocks(p, cfg, x, positions, plan)
     if want == "hidden":
         return None, aux, {"hidden": x}
     return _logits(p, cfg, x), aux, {}
@@ -368,6 +460,14 @@ def _decoder_paged_packed_draft(p, cfg, batch, cache, plan, draft_blocks):
     return x, cache
 
 
+def _refuse_sharded(plan):
+    if plan.is_sharded:
+        raise NotImplementedError(
+            "tensor parallelism in the paged engine is not ported yet "
+            "(ROADMAP.md Queue 1); core.tp.make_tp_decode_step runs one "
+            "block's padded decode tick under explicit TP")
+
+
 def paged_decode_step(params, cfg, batch, cache, plan=None, want="logits"):
     """One paged tick -> (logits or, with ``want='hidden'``, the pre-head
     hidden states; cache updated in place) in either paged layout:
@@ -377,9 +477,13 @@ def paged_decode_step(params, cfg, batch, cache, plan=None, want="logits"):
       * padded chunk (tokens (B, C) with per-lane ``pos`` / ``n_valid``):
         see ``_decoder_paged_decode``; (B, C, V) / (B, C, D).
 
-    ``plan`` may carry ``dual_branch`` (fal / parallel / ablation2 only)."""
+    ``plan`` may carry ``dual_branch`` (fal / parallel / ablation2 only).
+    Tensor parallelism in the paged engine is not ported (ROADMAP.md Queue
+    1): a sharded plan raises; ``core.tp.make_tp_decode_step`` runs one
+    block's tick under TP."""
     check_supported(cfg)
     plan = ExecutionPlan.resolve(plan).with_phase(Phase.PAGED).validate(cfg)
+    _refuse_sharded(plan)
     if "tok_slot" in batch:
         return _decoder_paged_packed(params, cfg, batch, cache, plan,
                                      want=want)
@@ -400,6 +504,7 @@ def paged_spec_draft(params, cfg, batch, cache, plan=None, *, draft_blocks=1):
             f"< n_layers={cfg.n_layers} (== n_layers would be the full "
             f"model, not a draft)")
     plan = ExecutionPlan.resolve(plan).with_phase(Phase.PAGED).validate(cfg)
+    _refuse_sharded(plan)
     return _decoder_paged_packed_draft(params, cfg, batch, cache, plan,
                                        draft_blocks)
 

@@ -76,26 +76,43 @@ def init_opt_state(params, ocfg: AdamWConfig):
             "count": 0}
 
 
-def global_norm(tree):
+def global_norm(tree, group=None, sharded=frozenset()):
     """sqrt of the sum of squares of every leaf, in fp32, as a 0-d tensor
     (no sync with the host).  ``square().sum()``, the reference's formula:
     ``torch.linalg.vector_norm`` on the CPU loses about 1% on a leaf of
-    1e8 values (an fp32 accumulation)."""
-    sq = [x.float().square().sum() for _, x in named_leaves(tree)]
-    return torch.sqrt(torch.stack(sq).sum())
+    1e8 values (an fp32 accumulation).
+
+    Under explicit TP (``group``) the leaves at ``sharded`` paths
+    (``launch.mesh.sharded_paths``) are this rank's shards: their squares
+    are summed over the group in one all-reduce of a scalar, and the
+    replicated leaves, equal on every rank, count once."""
+    sq = {path: x.float().square().sum() for path, x in named_leaves(tree)}
+    if group is None:
+        return torch.sqrt(torch.stack(list(sq.values())).sum())
+    from repro_torch.core import tp
+    zero = next(iter(sq.values())).new_zeros(())
+    shards = sum((v for p, v in sq.items() if p in sharded), zero)
+    rest = sum((v for p, v in sq.items() if p not in sharded), zero)
+    shards = shards.reshape(1)
+    tp.all_reduce_([shards], group)
+    return torch.sqrt(rest + shards[0])
 
 
 @torch.no_grad()
-def adamw_update(params, grads, opt_state, ocfg: AdamWConfig):
+def adamw_update(params, grads, opt_state, ocfg: AdamWConfig, *, group=None,
+                 sharded=frozenset()):
     """One AdamW step, in place: ``params``, ``opt_state`` and ``grads``
     (clipped) are updated; returns (params, opt_state, grad_norm) with the
     pre-clip global norm as a 0-d fp32 tensor.  The learning rate
     ``ocfg.lr(count)`` and the bias corrections are computed on the host in
-    fp32, as the reference computes them in ``jnp.float32``."""
+    fp32, as the reference computes them in ``jnp.float32``.  Under
+    explicit TP (``group``, ``sharded``: see ``global_norm``) each rank
+    updates its shards and the replicated leaves; the clip is the global
+    norm of the whole model's gradient."""
     count = opt_state["count"] + 1
     lr = ocfg.lr(count) if callable(ocfg.lr) else ocfg.lr
     lr = float(np.float32(lr))
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, group, sharded)
     scale = torch.clamp(ocfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     bc1 = float(np.float32(1) - np.float32(ocfg.b1) ** np.float32(count))

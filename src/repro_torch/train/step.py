@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.plan import ExecutionPlan, Phase
+from repro_torch.launch import mesh as MX
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 
@@ -39,10 +40,18 @@ def make_train_step(cfg, ocfg: adamw.AdamWConfig, plan=None,
     is split into ``num_microbatches`` sequential microbatches along B.
     ``metrics``: "loss" and "grad_norm" (0-d tensors on the device; no sync
     with the host), plus "ce" and "aux" when there is one microbatch, as in
-    the reference."""
+    the reference.
+
+    Under an explicit-TP plan ``state["params"]`` holds this rank's shard
+    (``launch.mesh.shard_params``): after the backward the partial
+    gradients of replicated leaves are summed over the group
+    (``model.tp_sync_grads``, one all-reduce) and the global norm sums the
+    shards' squares over it (one scalar all-reduce), so clipping and every
+    update equal the single device's."""
     plan = ExecutionPlan.resolve(plan).with_phase(Phase.TRAIN)
     plan.validate(cfg)
     loss_fn = make_loss_fn(cfg, plan)
+    group = plan.group if plan.use_explicit_tp else None
 
     def train_step(state, batch):
         params = state["params"]
@@ -66,8 +75,13 @@ def make_train_step(cfg, ocfg: adamw.AdamWConfig, plan=None,
             for p in leaves:
                 p.grad.div_(num_microbatches)
             metrics = {}
+        sharded = frozenset()
+        if group is not None:
+            M.tp_sync_grads(params, cfg, plan)
+            sharded = MX.sharded_paths(params, cfg, plan.tp_size)
         grads = adamw.map_tree(lambda p: p.grad, params)
-        _, _, gnorm = adamw.adamw_update(params, grads, state["opt"], ocfg)
+        _, _, gnorm = adamw.adamw_update(params, grads, state["opt"], ocfg,
+                                         group=group, sharded=sharded)
         for p in leaves:
             p.grad = None
         return state, dict(metrics, loss=loss, grad_norm=gnorm)

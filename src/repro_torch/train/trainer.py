@@ -15,6 +15,13 @@ once after the last step (``train.checkpoint``, the reference's format, at
 ``step=steps``), as the reference does; there is no resume argument, as
 there is none in the reference: resuming is ``checkpoint.restore`` into a
 state of the same structure, then ``step.make_train_step``.
+
+Under an explicit-TP ``plan`` (``ExecutionPlan.from_group``) every rank
+runs ``train`` with the same arguments and data: the weights (drawn from
+``seed`` or given whole in ``params``) are cut to this rank's shard
+(``launch.mesh.shard_params``) and the returned state holds the shard.
+Sharded checkpoints are not ported (ROADMAP.md Queue 1): ``ckpt_dir``
+raises there.
 """
 from __future__ import annotations
 
@@ -23,7 +30,10 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.plan import ExecutionPlan
 from repro_torch.data.pipeline import SyntheticMarkov
+from repro_torch.launch import mesh as MX
+from repro_torch.models import model as M
 from repro_torch.models.model import resolve_device
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.optim import adamw, schedules
@@ -40,6 +50,16 @@ def train(cfg, *, steps=200, batch=8, seq_len=128, lr=3e-4, seed=0,
     """Returns (state, history).  ``metrics``: a ``MetricsRegistry`` to
     record into (one is created per run when omitted)."""
     device = resolve_device(device)
+    plan = ExecutionPlan.resolve(plan)
+    if plan.use_explicit_tp:
+        if ckpt_dir:
+            raise NotImplementedError(
+                "ckpt_dir under tensor parallelism: sharded checkpoints are "
+                "not ported yet (ROADMAP.md Queue 1)")
+        if params is None:
+            params = M.init_params(cfg, seed=seed, device=device,
+                                   dtype=cfg.param_dtype)
+        params = MX.shard_params(params, cfg, plan.tp_rank, plan.tp_size)
     reg = metrics if metrics is not None else MetricsRegistry()
     c_steps = reg.counter("train_steps_total", unit="steps", site=_SITE)
     c_tokens = reg.counter("train_tokens_total", unit="tokens", site=_SITE)

@@ -297,9 +297,15 @@ def test_launcher_trains_on_cpu_and_refuses_later_slices(capsys, tmp_path):
     _, hist = TL.main(args)
     assert len(hist) == 2 and np.isfinite(hist[-1]["loss"])
     assert "final loss" in capsys.readouterr().out
-    for extra in (["--mesh", "single"], ["--tp", "explicit"], ["--sp"]):
-        with pytest.raises(NotImplementedError, match="distributed slice"):
-            TL.main(args + extra)
+    with pytest.raises(NotImplementedError, match="distributed slice"):
+        TL.main(args + ["--mesh", "single"])
+    # explicit TP runs one process per rank (tests/test_torch_tp_structure.py
+    # trains under two); without a process group it refuses, and gspmd has
+    # no PyTorch counterpart
+    with pytest.raises(RuntimeError, match="needs a process group"):
+        TL.main(args + ["--tp", "explicit"])
+    with pytest.raises(NotImplementedError, match="gspmd"):
+        TL.main(args + ["--tp", "gspmd"])
     # --ckpt writes the reference's checkpoint format after the last step
     # (tests/test_torch_checkpoint.py restores it in both packages)
     from repro.train import checkpoint as RC
