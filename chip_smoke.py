@@ -96,6 +96,16 @@ script exits non-zero:
                  ms/tick, the key-split decode and, bf16, the fused kernel
                  by name); then the same on int8 and on fp8 pages, 8
                  decode ticks each way
+ 11a. contiguous decode over the contiguous KV cache (init_cache /
+                 decode_step): 12 ticks of 8 ragged lanes (one at 0, one
+                 reaching S - 1, some idle on alternate ticks) at full
+                 width, 2 layers, fp32, card vs CPU, sequential and dual
+                 (dual bit-identical to sequential on the card); decode ==
+                 forward at full depth in bf16 (B=4, S=256, every logit
+                 within CONTIG_FWD_BOUND); ContinuousBatcher (8 slots,
+                 bf16, 28 layers) serving 16 greedy requests of 32..128 +
+                 32 tokens in one dispatch a tick (tok/s, ms a tick, 3
+                 ticks profiled); obs.run_metadata naming the card
  12. train tick  one train step at llama3.2-3b full width (2 layers, fp32,
                  B=2, S=256) on the card against the CPU
  13. train       trainer.train at llama3.2-3b full width and depth (fal,
@@ -123,7 +133,8 @@ script exits non-zero:
                  a failing rank fails the run
  14. gemma2      gemma2-27b at full width cut to 2 layers (block 0 local,
                  block 1 global; every layer softcapped): one packed, one
-                 padded chunk and one padded decode tick and one train step
+                 padded chunk, one padded decode and one contiguous decode
+                 tick and one train step
                  (fp32, window 128, B=1, S=320) on the card against the
                  CPU; trainer.train (fp32 masters, bf16 compute, remat,
                  B=1, S=6144: 1 warm-up, 3 counted, 1 profiled step) with a
@@ -136,9 +147,10 @@ script exits non-zero:
                  cases) to their plain versions, and phase 4 times them at
                  gemma2's training shape
 
-The serving phases (5 to 11, 14) also launch fused_ln_add: one per layer
-per tick under fal.  Every main-path run (6, 8, 8b, each run of 8c and of 9
-to 11, the counted steps of 13 and 14, the TP paths of 13a in each rank,
+The serving phases (5 to 11a, 14) also launch fused_ln_add: one per layer
+per tick under fal (on the contiguous cache the only kernel a tick runs).
+Every main-path run (6, 8, 8b, each run of 8c and of 9 to 11a, the counted
+steps of 13 and 14, the TP paths of 13a in each rank,
 and each gemma2 engine run) zeroes all launch counters just before it and
 reads them just after.  The line before the last is a
 JSON object with one entry per kernel; the last line is {"ok": true,
@@ -2741,6 +2753,280 @@ def padded_generation_phase(params, kv="", n_new=32,
 #: padded decode ticks under the profiler, a plan each
 PROFILED_TICKS = 4
 
+# --------------------------------------------------------------------------- #
+# contiguous-cache decode: decode_step, serve.decode.ContinuousBatcher
+# --------------------------------------------------------------------------- #
+#: card vs CPU on the contiguous cache: S keys a lane, the ticks, and each
+#: lane's (first position, advances every tick): lane 0 starts at 0, lane 1
+#: reaches S - 1 on the last tick, and the lanes that advance only after odd
+#: ticks re-decode their (token, position) in between (the cache write is
+#: idempotent, so an idle lane needs no mask)
+CONTIG_S, CONTIG_TICKS = 256, 12
+CONTIG_LANES = ((0, True), (CONTIG_S - CONTIG_TICKS, True), (17, True),
+                (100, False), (128, True), (200, False), (63, True),
+                (31, False))
+#: gemma2's one contiguous tick (window 128 binds on the local layer)
+G2_CONTIG_S = 512
+G2_CONTIG_LANES = tuple((p, True) for p in (0, 127, 128, 300, 511, 100, 200,
+                                            129))
+#: decode == forward at llama3.2-3b full depth in bf16: B lanes of S tokens
+CONTIG_FWD_B, CONTIG_FWD_S = 4, 256
+#: bound on |logit| differences between decode_step and forward at
+#: llama3.2-3b in bf16, over all B x S x 128256 logits.  The two attend in
+#: other orders with other bf16 rounding points (forward: the flash kernel,
+#: P rounded to bf16 before its division by the row sum; decode: fp32 scores
+#: over the whole cache, P normalised, then rounded), and the residual
+#: stream rounds each block's output to bf16 (relative 2^-9): as
+#: DUAL_LOGIT_BOUND, differences enter in each of 28 blocks and reach logits
+#: of order 1 through the final norm; the logits themselves are bf16 (one
+#: ulp is 2^-5 at |logit| >= 4)
+CONTIG_FWD_BOUND = 0.25
+#: the batcher's workload: slots, max_seq, requests, prompt tokens, new
+BATCHER_SLOTS, BATCHER_MAX_SEQ, BATCHER_REQS = 8, 512, 16
+BATCHER_PROMPT, BATCHER_NEW = (32, 128), 32
+BATCHER_PROFILED_TICKS = 3
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def contiguous_positions(lanes, n_ticks):
+    """(n_ticks, B) int32 positions of the lanes ``(first position,
+    advances every tick)``: the others advance only after odd ticks."""
+    cur = [p for p, _ in lanes]
+    out = []
+    for t in range(n_ticks):
+        out.append(list(cur))
+        cur = [c + 1 if every or t % 2 else c
+               for c, (_, every) in zip(cur, lanes)]
+    return torch.tensor(out, dtype=torch.int32)
+
+
+def contiguous_run(cfg, params, cache, toks, positions, plan):
+    """``decode_step`` over the ticks: lane b feeds ``toks[b, pos]`` at each
+    tick's position -> (n_ticks, B, V) fp32 logits on the host."""
+    from repro_torch.models import model as M
+    dev = cache["block0"]["k"].device
+    lanes = torch.arange(positions.shape[1])
+    out = []
+    with torch.no_grad():
+        for pos in positions:
+            batch = {"tokens": toks[lanes, pos.long()][:, None].to(dev),
+                     "pos": pos.to(dev)}
+            logits, cache = M.decode_step(params, cfg, batch, cache, plan)
+            out.append(logits[:, 0].float().cpu())
+    return torch.stack(out)
+
+
+def contiguous_card_vs_cpu(cfg, params, label, lanes, S, n_ticks,
+                           plans=("sequential", "dual"), scaled_tol=False):
+    """``n_ticks`` contiguous decode ticks at ``lanes`` over a random fp32
+    history, on the card (``fused_ln_add``'s kernel) and on the CPU (plain
+    versions), from the same CPU ``params`` and cache, for each plan; the
+    counters are zeroed before each card run and read after it.  Logits
+    within TICK_TOLS' fp32 gate (with ``scaled_tol``: times max(1, the
+    largest |logit|), as ``padded_tick``'s); on the card the dual-branch
+    logits equal the sequential ones bit for bit (the contiguous route has
+    no fused kernel: both plans run the same ops)."""
+    from repro_torch import interop
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    phase(f"contiguous decode, {label}: {n_ticks} decode_step ticks of "
+          f"{len(lanes)} lanes, S={S}, card (kernel) vs CPU (plain), "
+          f"{' and '.join(plans)}")
+    B, L = len(lanes), cfg.n_layers
+    g = torch.Generator().manual_seed(21)
+    positions = contiguous_positions(lanes, n_ticks)
+    require(int(positions.max()) <= S - 1, "a lane passes the cache")
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=g, dtype=torch.int32)
+    cache = M.init_cache(cfg, B, S, "float32", device="cpu")
+    for part in cache.values():
+        for name in ("k", "v"):
+            part[name].copy_(torch.randn(part[name].shape, generator=g))
+    gparams = interop.tree_to(params, "cuda")
+    card = {}
+    for name in plans:
+        plan = ExecutionPlan.single_device("decode",
+                                           dual_branch=name == "dual")
+        gcache = interop.tree_to(cache, "cuda")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        ops.reset_dispatch_paths()
+        t0 = time.perf_counter()
+        gpu = contiguous_run(cfg, gparams, gcache, toks, positions, plan)
+        secs = time.perf_counter() - t0
+        counts, paths = ops.launch_counts(), ops.dispatch_paths()
+        cpu = contiguous_run(cfg, params, {k: {n: t.clone() for n, t in
+                                               v.items()}
+                                           for k, v in cache.items()},
+                             toks, positions, plan)
+        diff = (gpu - cpu).abs().max().item()
+        top = cpu.abs().max().item()
+        tol = TICK_TOLS[""] * (max(1.0, top) if scaled_tol else 1.0)
+        print(f"  {name}: logits max |diff| {diff:.3e} (max |logit| "
+              f"{top:.3f}); tol {tol:.3g} (TICK_TOLS"
+              f"{' x max |logit|' if scaled_tol else ''}); card "
+              f"{secs / n_ticks * 1e3:.2f} ms/tick; paths {paths}; "
+              f"launches {nonzero(counts)}", flush=True)
+        require(paths == {"fused_ln_add": ops.CUDA},
+                f"contiguous {name} ticks ran {paths}")
+        require(counts == {**{k: 0 for k in counts},
+                           "fused_ln_add": n_ticks * L},
+                f"contiguous {name} launches {counts} != {n_ticks} x {L} "
+                f"fused_ln_add")
+        require(diff <= tol and bool(torch.isfinite(gpu).all()),
+                f"contiguous {name} ticks: card disagrees with the CPU")
+        card[name] = gpu
+    if "dual" in card:
+        require(torch.equal(card["sequential"], card["dual"]),
+                "contiguous dual-branch logits differ from sequential on "
+                "the card")
+        print("  dual-branch logits equal the sequential ones bit for bit "
+              "on the card", flush=True)
+
+
+def contiguous_decode_phase(params, smi):
+    """Contiguous-cache decode (``models.model.init_cache`` /
+    ``decode_step``, ``serve.decode.ContinuousBatcher``): 12 ticks card vs
+    CPU at 2 layers fp32, sequential and dual; decode == forward at full
+    depth in bf16 (``params``: the engine phase's 28-layer bf16 weights on
+    the card); the batcher's workload, timed and 3 ticks profiled; and
+    ``obs.run_metadata`` on the card.  Returns {"decode_step": fused_ln_add
+    launches of the decode == forward run, "batcher": of the batcher's
+    run}."""
+    import numpy as np
+    from repro_torch import interop
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.obs import run_metadata
+    from repro_torch.serve.decode import ContinuousBatcher, Request
+    t_phase = time.perf_counter()
+    small = get_config("llama3.2-3b").replace(n_layers=2, dtype="float32")
+    # drawn on the card, then copied: both sides start from these weights
+    cpu_params = interop.tree_to(M.init_params(small, seed=0, device="cuda"),
+                                 "cpu")
+    torch.cuda.empty_cache()
+    contiguous_card_vs_cpu(small, cpu_params,
+                           "llama3.2-3b full width, 2 layers, fp32",
+                           CONTIG_LANES, CONTIG_S, CONTIG_TICKS)
+    del cpu_params
+
+    cfg = get_config("llama3.2-3b")
+    L, B, S = cfg.n_layers, CONTIG_FWD_B, CONTIG_FWD_S
+    phase(f"contiguous decode == forward: llama3.2-3b, {L} layers, bf16, "
+          f"B={B}, S={S}")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=g, device="cuda",
+                         dtype=torch.int32)
+    with torch.no_grad():
+        full = M.forward(params, cfg, {"tokens": toks}, "eval")[0]
+        cache = M.init_cache(cfg, B, S, "bfloat16")
+        err = torch.zeros((), device="cuda")
+        same = torch.zeros((), dtype=torch.long, device="cuda")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        ops.reset_dispatch_paths()
+        t0 = time.perf_counter()
+        for t in range(S):
+            logits, cache = M.decode_step(
+                params, cfg, {"tokens": toks[:, t:t + 1],
+                              "pos": torch.full((B,), t, dtype=torch.int32,
+                                                device="cuda")}, cache)
+            err = torch.maximum(err, (logits[:, 0].float()
+                                      - full[:, t].float()).abs().max())
+            same += (logits[:, 0].argmax(-1) == full[:, t].argmax(-1)).sum()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts, paths = ops.launch_counts(), ops.dispatch_paths()
+    err, top = err.item(), full.float().abs().max().item()
+    print(f"  {S} ticks in {secs:.2f} s = {secs / S * 1e3:.2f} ms/tick; "
+          f"logits max |decode - forward| {err:.4f} (bound "
+          f"{CONTIG_FWD_BOUND}; max |logit| {top:.3f}); greedy tokens equal "
+          f"at {same.item()} of {B * S} positions; paths {paths}; launches "
+          f"{nonzero(counts)}", flush=True)
+    require(paths == {"fused_ln_add": ops.CUDA},
+            f"contiguous decode ran {paths}")
+    require(counts == {**{k: 0 for k in counts}, "fused_ln_add": S * L},
+            f"contiguous decode launches {counts} != {S} ticks x {L} "
+            f"fused_ln_add")
+    require(err <= CONTIG_FWD_BOUND, f"decode differs from forward by {err}")
+    del full, cache
+    launches = {"decode_step": counts["fused_ln_add"]}
+
+    phase(f"ContinuousBatcher: llama3.2-3b, {L} layers, bf16, "
+          f"{BATCHER_SLOTS} slots, max_seq {BATCHER_MAX_SEQ}, "
+          f"{BATCHER_REQS} greedy requests of {BATCHER_PROMPT[0]}.."
+          f"{BATCHER_PROMPT[1]} prompt tokens + {BATCHER_NEW}")
+    rng = np.random.default_rng(11)
+    warm = ContinuousBatcher(cfg, params, 2, 64, cache_dtype="bfloat16")
+    warm.submit(Request(rid=-1, prompt=rng.integers(0, cfg.vocab, 4),
+                        max_new=2))
+    warm.run()
+    del warm
+    eng = ContinuousBatcher(cfg, params, BATCHER_SLOTS, BATCHER_MAX_SEQ,
+                            cache_dtype="bfloat16")
+    lens = rng.integers(BATCHER_PROMPT[0], BATCHER_PROMPT[1] + 1,
+                        BATCHER_REQS)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(n)),
+                    max_new=BATCHER_NEW) for i, n in enumerate(lens)]
+    for r in reqs:
+        eng.submit(r)
+    tick_ms, done = [], []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ops.reset_dispatch_paths()
+    t0 = time.perf_counter()
+    while any(s is not None for s in eng.slots) or eng.queue:
+        t1 = time.perf_counter()
+        done += eng.step()        # ends in the next tokens' copy to the host
+        tick_ms.append((time.perf_counter() - t1) * 1e3)
+    secs = time.perf_counter() - t0
+    counts, paths = ops.launch_counts(), ops.dispatch_paths()
+    st = eng.stats()
+    n_tok = sum(len(r.generated) for r in done)
+    p50, p99 = np.percentile(tick_ms, [50, 99])
+    print(f"  {len(done)} requests (prompts {lens.tolist()}), {st['ticks']} "
+          f"ticks in {secs:.2f} s: {n_tok / secs:.1f} generated tok/s; ms a "
+          f"tick p50 {p50:.2f} p99 {p99:.2f}; dispatches_per_tick "
+          f"{st['dispatches_per_tick']}; mean occupancy "
+          f"{st['mean_occupancy']:.3f}; launches {nonzero(counts)}; card "
+          f"{smi}",
+          flush=True)
+    require(len(done) == BATCHER_REQS
+            and all(len(r.generated) == BATCHER_NEW for r in done),
+            "the batcher left a request unfinished")
+    require(st["dispatches_per_tick"] == 1.0, "more than one dispatch a tick")
+    require(paths == {"fused_ln_add": ops.CUDA}, f"the batcher ran {paths}")
+    require(counts == {**{k: 0 for k in counts},
+                       "fused_ln_add": st["ticks"] * L},
+            f"batcher launches {counts} != {st['ticks']} ticks x {L}")
+    launches["batcher"] = counts["fused_ln_add"]
+    for r in reqs[:BATCHER_SLOTS]:
+        eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new=BATCHER_NEW))
+    eng.step()
+    busy = tick_device_time(
+        "batcher tick (8 lanes)",
+        lambda: [eng.step() for _ in range(BATCHER_PROFILED_TICKS)],
+        float(p50), BATCHER_PROFILED_TICKS, want=("ln_add_fwd_kernel",))
+    print(f"  batcher tick_device_time: "
+          f"{'not measured' if busy is None else f'{busy:.3f} ms'} a tick; "
+          f"card {smi}", flush=True)
+
+    meta = run_metadata(timestamp=time.time(), repo_dir=str(ROOT),
+                        dispatch_paths=ops.dispatch_paths())
+    print(f"  run_metadata: {json.dumps(meta)}", flush=True)
+    require(meta["device_kind"] == torch.cuda.get_device_name(0)
+            and meta["power_limit"].splitlines()[0] == smi
+            and "jax_version" not in meta,
+            "run_metadata does not name the card and its power limit")
+    print(f"  contiguous decode phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, {"tok_s": n_tok / secs, "tick_ms_p50": float(p50),
+                      "tick_ms_p99": float(p99), "tick_device_ms": busy}
+
 
 def padded_decode(params, cfg, lens, bt, cache, first, plan, n):
     """``n`` greedy C == 1 ticks of ``paged_decode_step`` from the tokens
@@ -3939,10 +4225,11 @@ def gemma2_config(**kw):
 
 def gemma2_tick_phase():
     """gemma2-27b at full width (2 layers, fp32, window 128): one packed
-    tick, one padded chunk tick and one padded decode tick over a random
-    history, then one train step (B=1, S=320), each on the card against
-    the CPU.  Every layer takes the gather branch (the softcap is on in all
-    of them): the card's only kernel on the serving ticks is the LN-add."""
+    tick, one padded chunk tick, one padded decode tick and one contiguous
+    decode tick over a random history, then one train step (B=1, S=320),
+    each on the card against the CPU.  Every layer takes the gather branch
+    (the softcap is on in all of them): the card's only kernel on the
+    serving ticks is the LN-add."""
     from repro_torch import interop
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
@@ -3966,6 +4253,11 @@ def gemma2_tick_phase():
     padded_tick(cfg, params, "gemma2-27b decode tick C=1", 1,
                 ((0, 1), (127, 1), (128, 1), (300, 1), (511, 1), (100, 0),
                  (200, 1), (129, 1)), 64, False, ln, scaled_tol=True)
+    # post-norms: no dual-branch plan
+    contiguous_card_vs_cpu(cfg, params, f"gemma2-27b full width, 2 layers, "
+                           f"fp32, window {G2_TICK_WINDOW}", G2_CONTIG_LANES,
+                           G2_CONTIG_S, 1, plans=("sequential",),
+                           scaled_tol=True)
     phase("gemma2-27b: one train step at full width, 2 layers, fp32, B=1, "
           f"S=320, window {G2_TICK_WINDOW}: card vs CPU")
     train_tick(cfg, 1, 320, params=params)
@@ -4622,6 +4914,7 @@ def main():
     for kv in KV_NARROW:
         launches.update(padded_generation_phase(
             params, kv, n_new=8, order=("sequential", "dual")))
+    contig_launches, contig = contiguous_decode_phase(params, smi)
     del params
     torch.cuda.empty_cache()
     train_tick_phase()
@@ -4682,7 +4975,10 @@ def main():
         elif kname == "fused_ln_add":
             entry.update(spec_engine_launches=spec["ln_launches"],
                          spec_engine_formula=spec["formula"],
-                         gemma2_engine_launches=g2_engine["launches"])
+                         gemma2_engine_launches=g2_engine["launches"],
+                         contiguous_decode_launches=contig_launches[
+                             "decode_step"],
+                         batcher_launches=contig_launches["batcher"])
         if kname in tp_launches:
             # rank 0's launches on the tensor-parallel paths (phase 13a)
             entry["tp_launches"] = tp_launches[kname]
@@ -4700,7 +4996,8 @@ def main():
           + f"; seeded spec tick {spec['device_ms_per_tick']:.2f} ms of "
           f"device time; train {train['step_ms']:.1f} ms/step; TP train "
           f"(4 layers, gloo through host memory, 2 ranks on the card) "
-          f"{tp_step_ms:.1f} ms/step; gemma2 "
+          f"{tp_step_ms:.1f} ms/step; batcher {contig['tok_s']:.1f} tok/s, "
+          f"{contig['tick_ms_p50']:.2f} ms a tick p50; gemma2 "
           f"train {g2_train['step_ms']:.1f} ms/step (peak "
           f"{g2_train['peak'] / 2**30:.2f} GiB), engine "
           f"{g2_engine['tok_s']:.1f} tok/s, prefill tick "

@@ -4,8 +4,10 @@ Port of ``repro/models/attention.py``: ``blockwise_attention`` (``:21``,
 the plain version of the flash-attention kernel) and the full-sequence
 ``gqa_apply`` (``:490``, through ``ops.flash_attention``) for training,
 with ``_kv_group_slice`` (``:474``) for explicit TP with fewer KV heads
-than ranks (also on the paged paths, given the plan); and
-the paged serving paths: ``gqa_init``, ``gqa_qkv`` (``:406``),
+than ranks (also on the paged paths, given the plan); the contiguous
+KV cache's ``gqa_init_cache`` (``:514``), ``decode_attention`` (``:69``,
+``chunk_attention`` at one query a lane) and ``gqa_decode`` (``:522``);
+and the paged serving paths: ``gqa_init``, ``gqa_qkv`` (``:406``),
 ``paged_scatter`` (``:108``) and
 ``packed_scatter`` (``:129``), ``paged_gather``, ``_gather_dequant`` and
 ``chunk_attention`` (``:149-190``), the quantized KV page format
@@ -129,6 +131,43 @@ def gqa_qkv(p, cfg, x, positions):
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def gqa_init_cache(cfg, batch, seq, dtype, device):
+    """Contiguous K/V cache: zeros of (batch, seq, Hkv, Dh) in ``dtype``."""
+    shape = (batch, seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window=0, cap=0.0,
+                     scale=None):
+    """One-token attention against a contiguous cache: q (B, 1, H, Dh),
+    caches (B, S, Hkv, D*), pos (B,) the index of the current token (keys
+    at indices <= pos are visible, and with ``window`` > 0 only those
+    > pos - window).  ``chunk_attention`` with one query a lane.  Returns
+    (B, 1, H, Dv) in the cache's dtype."""
+    return chunk_attention(q, k_cache, v_cache, pos[:, None], window=window,
+                           cap=cap, scale=scale)
+
+
+def gqa_decode(p, cfg, x, cache, pos, *, window=0):
+    """One-step decode: x (B, 1, D), pos (B,) each lane's position.  Writes
+    lane b's k/v at row ``pos[b]`` of the cache in place (the reference's
+    ``dynamic_update_slice``, which clamps the row into the cache), then
+    attends.  Returns (out (B, 1, D), cache).  The attention output is in
+    the cache's dtype and meets ``wo`` in the promoted dtype of the two, as
+    the reference's ``o @ wo.astype(x.dtype)`` does."""
+    B = x.shape[0]
+    q, k, v = gqa_qkv(p, cfg, x, pos[:, None])
+    rows = pos.long().clamp(0, cache["k"].shape[1] - 1)
+    lanes = torch.arange(B, device=x.device)
+    cache["k"][lanes, rows] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][lanes, rows] = v[:, 0].to(cache["v"].dtype)
+    o = decode_attention(q, cache["k"], cache["v"], pos, window=window,
+                         cap=cfg.attn_softcap)
+    dt = torch.promote_types(o.dtype, x.dtype)
+    return o.reshape(B, 1, -1).to(dt) @ p["wo"].to(x.dtype).to(dt), cache
 
 
 def paged_scatter(pages, vals, block_tables, pos, n_valid, page_size):

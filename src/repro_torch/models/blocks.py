@@ -3,9 +3,10 @@ training and the paged ticks.
 
 Port of ``repro/models/blocks.py``: a block is ``x + MHA(ln1(x)) +
 FFN(mlp_input)`` with optional post-norms (``:143-214``), over the full
-sequence (train / eval / prefill, ``:170-173``), in the token-packed and the
-padded (B, C) paged layouts, and the dual-branch decode block
-``_block_apply_dual`` (``:217-291``), and ``window_schedule``
+sequence (train / eval / prefill, ``:170-173``), over the contiguous KV
+cache one token at a time (``Phase.DECODE``, ``:162-167``), in the
+token-packed and the padded (B, C) paged layouts, and the dual-branch
+decode block ``_block_apply_dual`` (``:217-291``), and ``window_schedule``
 (``:388-393``), each layer's sliding window.
 
 Under explicit tensor parallelism (``plan.tp_axis`` set: the process group
@@ -46,10 +47,14 @@ def block_init(gen, cfg, dtype, device, *, is_block0=False):
     return p
 
 
-def _paged_attention(p, cfg, h, cache, block_tables, pos, n_valid, tok_slot,
-                     tok_pos, window, plan=None):
-    """The block's MHA over the paged cache in whichever layout the batch
-    uses: token-packed when ``tok_slot`` is given, else padded (B, C)."""
+def _cached_attention(p, cfg, h, cache, block_tables, pos, n_valid,
+                      tok_slot, tok_pos, window, plan):
+    """The block's MHA over its KV cache: the contiguous cache's one-token
+    step under ``Phase.DECODE``, else the paged cache in whichever layout
+    the batch uses: token-packed when ``tok_slot`` is given, else padded
+    (B, C)."""
+    if plan.phase is Phase.DECODE:
+        return A.gqa_decode(p["attn"], cfg, h, cache, pos, window=window)
     if tok_slot is not None:
         return A.gqa_packed_apply(p["attn"], cfg, h, cache, block_tables,
                                   tok_slot, tok_pos, window=window, plan=plan)
@@ -62,10 +67,12 @@ def block_apply(p, cfg, x, a1_sig, *, is_block0=False, plan=None, cache=None,
                 tok_pos=None, window=0, positions=None):
     """One block over x: the full sequence (B, S, D) at ``positions`` (B, S)
     when ``plan`` is a full-sequence phase (train / eval / prefill; no
-    cache), else the packed buffer (1, T, D) with ``tok_slot`` / ``tok_pos``
-    or the padded (B, C, D) chunk with ``pos`` / ``n_valid``, updating
-    ``cache`` in place.  Returns (x_out, a_raw) where ``a_raw`` is this
-    block's MHA output (block 0 exports it as the first-attention signal).
+    cache); under ``Phase.DECODE`` one token a lane (B, 1, D) at ``pos``
+    against the contiguous cache; else the packed buffer (1, T, D) with
+    ``tok_slot`` / ``tok_pos`` or the padded (B, C, D) chunk with ``pos`` /
+    ``n_valid``; ``cache`` is updated in place.  Returns (x_out, a_raw)
+    where ``a_raw`` is this block's MHA output (block 0 exports it as the
+    first-attention signal).
     Under ``plan.dual_branch`` every block but block 0 runs the MHA || MLP
     branch-parallel block; under explicit TP (``plan.tp_axis``) the block is
     ``block_apply_tp``'s."""
@@ -90,8 +97,8 @@ def block_apply(p, cfg, x, a1_sig, *, is_block0=False, plan=None, cache=None,
     if plan.full_sequence:
         a = A.gqa_apply(p["attn"], cfg, h, positions, window=window)
     else:
-        a, _ = _paged_attention(p, cfg, h, cache, block_tables, pos, n_valid,
-                                tok_slot, tok_pos, window)
+        a, _ = _cached_attention(p, cfg, h, cache, block_tables, pos,
+                                 n_valid, tok_slot, tok_pos, window, plan)
     if cfg.post_norms:
         a = L.norm_apply(p["post_attn"], a, cfg.norm)
     resid = x + a
@@ -120,10 +127,11 @@ def _block_apply_dual(p, cfg, x, a1_sig, window, *, plan: ExecutionPlan,
     The MLP input is formed first.  On the padded C == 1 tick both branches
     go down as one fused dispatch (``attention.gqa_paged_dual``, the fused
     kernel on the card).  Otherwise the arithmetic is op for op the
-    sequential path's (the packed kernel or the padded kernels, then the
-    dense MLP), with the same ``(x + a) + y`` residual association, so the
-    outputs are bit-identical.  In eager PyTorch those two branches run one
-    after the other on one stream.  Under explicit TP the two partial sums
+    sequential path's (the packed kernel, the padded kernels or the
+    contiguous cache's ``gqa_decode``, then the dense MLP), with the same
+    ``(x + a) + y`` residual association, so the outputs are bit-identical.
+    In eager PyTorch those two branches run one after the other on one
+    stream.  Under explicit TP the two partial sums
     merge before the sequential fused path's one all-reduce: no extra
     collective (``core.tp.assert_dual_no_extra_collectives``)."""
     # a=None is safe: DUAL_BRANCH_MODES never read the block's own attention
@@ -140,8 +148,8 @@ def _block_apply_dual(p, cfg, x, a1_sig, window, *, plan: ExecutionPlan,
                                    cache, block_tables, pos, n_valid,
                                    plan=plan)
     else:
-        a, _ = _paged_attention(p, cfg, h, cache, block_tables, pos, n_valid,
-                                tok_slot, tok_pos, window, plan)
+        a, _ = _cached_attention(p, cfg, h, cache, block_tables, pos,
+                                 n_valid, tok_slot, tok_pos, window, plan)
         y = L.mlp_apply(p["ffn"], mlp_in, cfg.mlp)
     if group is not None:
         # one fused collective per block, as on the sequential fused path
@@ -197,8 +205,8 @@ def block_apply_tp(p, cfg, x, a1_sig, *, is_block0=False, plan, cache=None,
         if plan.full_sequence:
             return A.gqa_apply(p["attn"], cfg, h, positions, window=window,
                                plan=plan)
-        return _paged_attention(p, cfg, h, cache, block_tables, pos, n_valid,
-                                tok_slot, tok_pos, window, plan)[0]
+        return _cached_attention(p, cfg, h, cache, block_tables, pos,
+                                 n_valid, tok_slot, tok_pos, window, plan)[0]
 
     def ffn(h):
         return L.mlp_apply(p["ffn"], h, cfg.mlp)

@@ -8,8 +8,10 @@ loop), ``_decoder_forward`` (``:250``), ``forward`` (``:921``), ``_ce_tail``
 there is no MTP head), with the reference's rematerialisation: under
 ``cfg.remat`` block 0, each later block and the CE tail run under
 ``torch.utils.checkpoint`` (non-reentrant) while gradients are on.  And
-the paged serving paths: ``_embed_tokens``, ``_logits`` / ``lm_head``,
-``init_paged_cache``
+the contiguous KV cache's ``init_cache`` (``:936``, ``_decoder_init_cache``
+``:270``) and ``decode_step`` (``:946`` -> ``_decoder_decode``, ``:337``; the
+VLM image-prefix splice waits for the VLM slice), and the paged serving
+paths: ``_embed_tokens``, ``_logits`` / ``lm_head``, ``init_paged_cache``
 (``:957``), ``paged_decode_step`` (``:979``) -> ``_decoder_paged_packed``
 (``:466``, the token-packed layout) or ``_decoder_paged_decode`` (``:388``,
 the padded (B, C) layout, sequential or dual-branch), and
@@ -25,7 +27,8 @@ Explicit tensor parallelism (``core/tp.py``): under an explicit-TP plan
 ``decoder_stack_tp`` (``:149-201``, the dispatch of ``:258-261``) on this
 rank's shard of the blocks (``launch/mesh.py::shard_params``), remat
 included, and ``tp_sync_grads`` sums the replicated leaves' partial
-gradients after the backward.  The paged ticks refuse a sharded plan.
+gradients after the backward.  The serving ticks, contiguous and paged,
+refuse a sharded plan.
 
 Parameters are a dict tree in the reference's layout, except that the
 stacked ``blocks_dense`` leaves (leading layer axis) become a list of
@@ -293,7 +296,8 @@ def forward(params, cfg, batch, plan=None, want="logits"):
     plan = ExecutionPlan.resolve(plan).validate(cfg)
     if not plan.full_sequence:
         raise ValueError(f"forward: phase={plan.phase.value} is not a "
-                         f"full-sequence phase; use paged_decode_step")
+                         f"full-sequence phase; use decode_step / "
+                         f"paged_decode_step")
     return _decoder_forward(params, cfg, batch, plan, want=want)
 
 
@@ -315,6 +319,58 @@ def loss_fn(params, cfg, batch, plan=None):
 
 
 # ------------------------------------------------------------------------- #
+# contiguous KV cache and its one-token step
+# ------------------------------------------------------------------------- #
+def _stacked(cfg, c0):
+    """Block 0's cache leaves ``c0`` and, for the other layers, one
+    (n_layers - 1, ...) copy of each."""
+    rest = cfg.n_layers - 1
+    return {"block0": c0,
+            "blocks": {k: v[None].repeat((rest,) + (1,) * v.dim())
+                       for k, v in c0.items()}}
+
+
+def _decoder_init_cache(cfg, batch, seq, dtype, device):
+    return _stacked(cfg, A.gqa_init_cache(cfg, batch, seq, dtype, device))
+
+
+def init_cache(cfg, batch, seq, dtype="bfloat16", device=None):
+    """Contiguous KV cache for ``decode_step``: block 0's (B, S, Hkv, Dh)
+    K and V, and one (n_layers - 1, B, S, Hkv, Dh) tensor per K and per V
+    for the other layers (the paged cache's stacking), zeros in
+    ``dtype``."""
+    check_supported(cfg)
+    return _decoder_init_cache(cfg, batch, seq, _dtype(dtype),
+                               resolve_device(device))
+
+
+def _decoder_decode(p, cfg, batch, cache, plan):
+    """tokens (B, 1), pos (B,) each lane's position -> (logits (B, 1, V),
+    cache updated in place).  Block 0's fresh first-attention signal feeds
+    every later block of the tick, dual-branch too."""
+    tokens, pos = batch["tokens"], batch["pos"]
+    x = _embed_tokens(p, cfg, tokens, pos[:, None])
+    x, a1_raw = BL.block_apply(p["block0"], cfg, x, None, is_block0=True,
+                               plan=plan, cache=cache["block0"], pos=pos,
+                               window=BL.window_schedule(cfg)[0])
+    a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
+    x = _decoder_layer_stack(p, cfg, x, a1_sig, pos, cache["blocks"], plan,
+                             block_tables=None)
+    return _logits(p, cfg, x), cache
+
+
+def decode_step(params, cfg, batch, cache, plan=None):
+    """One token a lane against the contiguous cache (``init_cache``):
+    batch {"tokens" (B, 1), "pos" (B,)} -> (logits (B, 1, V), cache updated
+    in place).  ``plan`` may carry ``dual_branch`` (fal / parallel /
+    ablation2 only); a sharded plan raises, as the paged ticks do."""
+    check_supported(cfg)
+    plan = ExecutionPlan.resolve(plan).with_phase(Phase.DECODE).validate(cfg)
+    _refuse_sharded(plan)
+    return _decoder_decode(params, cfg, batch, cache, plan)
+
+
+# ------------------------------------------------------------------------- #
 # paged cache and the paged ticks
 # ------------------------------------------------------------------------- #
 def init_paged_cache(cfg, num_pages, page_size, slots, dtype="bfloat16",
@@ -330,21 +386,18 @@ def init_paged_cache(cfg, num_pages, page_size, slots, dtype="bfloat16",
     dt = _dtype(dtype)
     c0 = A.gqa_init_paged_cache(cfg, num_pages, page_size, dt, device,
                                 kv_dtype=kv_dtype)
-    rest = cfg.n_layers - 1
-    return {
-        "block0": c0,
-        "blocks": {k: v[None].repeat((rest,) + (1,) * v.dim())
-                   for k, v in c0.items()},
-        "a1_sig": torch.zeros((slots, cfg.d_model), dtype=dt, device=device),
-    }
+    return {**_stacked(cfg, c0),
+            "a1_sig": torch.zeros((slots, cfg.d_model), dtype=dt,
+                                  device=device)}
 
 
 def _decoder_layer_stack(p, cfg, x, a1_sig, pos, blocks_cache, plan, *,
                          block_tables, n_valid=None, tok_slot=None,
                          tok_pos=None, limit=None):
     """The post-block-0 layers as a Python loop (the reference scans).
-    Layer i reads and writes the i-th slice of the stacked pools in place,
-    where the reference concatenates per-layer caches.  ``limit`` runs only
+    Layer i reads and writes the i-th slice of the stacked caches in place
+    (the paged pools or the contiguous (B, S, Hkv, Dh) caches), where the
+    reference concatenates per-layer caches.  ``limit`` runs only
     the first ``limit`` layers (the speculative draft's early exit); the
     pools of the layers past it are not touched.  Each layer attends with
     its window from ``window_schedule`` (``wsched[1:]``)."""
@@ -463,7 +516,7 @@ def _decoder_paged_packed_draft(p, cfg, batch, cache, plan, draft_blocks):
 def _refuse_sharded(plan):
     if plan.is_sharded:
         raise NotImplementedError(
-            "tensor parallelism in the paged engine is not ported yet "
+            "tensor parallelism in the serving ticks is not ported yet "
             "(ROADMAP.md Queue 1); core.tp.make_tp_decode_step runs one "
             "block's padded decode tick under explicit TP")
 

@@ -26,6 +26,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 import torch  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.kernels import ref as RREF  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402

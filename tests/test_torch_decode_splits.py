@@ -29,6 +29,7 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.kernels import paged_attention as RPA  # noqa: E402
 from repro.kernels import ref as RREF  # noqa: E402

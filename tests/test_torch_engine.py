@@ -9,6 +9,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 import torch  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.configs.base import get_config as ref_config  # noqa: E402
 from repro.models import model as RM  # noqa: E402
@@ -24,17 +25,6 @@ from repro_torch.obs.trace import Tracer, validate_chrome_trace  # noqa: E402
 from repro_torch.serve import paged_cache as TPC  # noqa: E402
 from repro_torch.serve import sampling as TSP  # noqa: E402
 from repro_torch.serve import scheduler as TS  # noqa: E402
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """The reduced model's ops are tiny: one intra-op thread, so that the
-    file's tests do not contend for the cores with the other test workers
-    (under six workers the default thread count made them ~10x slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("seed", range(6))

@@ -21,6 +21,7 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.configs.base import get_config as ref_config  # noqa: E402
 from repro.models import blocks as RB  # noqa: E402
@@ -39,16 +40,6 @@ TOL = 1e-4
 #: hidden states on bf16 pages (see the module docstring)
 TOL_BF16_PAGES = 2e-2
 _REF_STEP = jax.jit(RM.paged_decode_step, static_argnums=(1, 4, 5))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """Small ops: one intra-op thread, so that the file's tests do not
-    contend for the cores with the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

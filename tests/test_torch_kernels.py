@@ -14,6 +14,7 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.kernels import paged_attention as RPA  # noqa: E402
 from repro.kernels import ref as RREF  # noqa: E402
@@ -218,6 +219,9 @@ def test_port_imports_neither_jax_nor_repro():
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    port = ROOT / "src" / "repro_torch"
+    for f in ("serve/decode.py", "obs/runmeta.py"):
+        assert port / f in files, f
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert hits == []
 

@@ -8,6 +8,7 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.configs import base as RB  # noqa: E402
 from repro.core import fal as RF  # noqa: E402

@@ -10,6 +10,7 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.configs.base import get_config as ref_config  # noqa: E402
 from repro.models import attention as RA  # noqa: E402
@@ -206,6 +207,21 @@ def test_entry_points_need_a_device_here():
         tstep.init_state(0, cfg, AdamWConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trainer.train(cfg, steps=1, batch=2, seq_len=8, log_every=0)
+    # contiguous-cache decode: the cache, and so every step over it, goes
+    # to the card unless a device is named
+    from repro_torch.serve import decode as TD
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.init_cache(cfg, 2, 8)
+    params = TM.init_params(cfg, device="cpu")
+    toks = torch.zeros((2, 1), dtype=torch.int32)
+    pos = torch.zeros((2,), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.decode_step(params, cfg, {"tokens": toks, "pos": pos},
+                       TM.init_cache(cfg, 2, 8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TD.make_serve_step(cfg)(params, TM.init_cache(cfg, 2, 8), toks, pos)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TD.ContinuousBatcher(cfg, params, 2, 8)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v3-671b",

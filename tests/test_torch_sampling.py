@@ -11,6 +11,7 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.configs.base import get_config as ref_config  # noqa: E402
 from repro.models import model as RM  # noqa: E402
@@ -25,17 +26,6 @@ from repro_torch.serve import scheduler as TS  # noqa: E402
 
 SEEDS = (0, 1, 2 ** 31 - 1, -123457)
 SHAPES = (1, 7, 512, 128256)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """The reduced model's ops are tiny: one intra-op thread, so that the
-    file's tests do not contend for the cores with the other test workers
-    (under six workers the default thread count made them ~10x slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _u32(a):

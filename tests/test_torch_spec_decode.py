@@ -14,6 +14,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 import torch  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.configs.base import get_config as ref_config  # noqa: E402
 from repro.models import model as RM  # noqa: E402
@@ -32,17 +33,6 @@ BASE = TS.EngineConfig(page_size=8, num_pages=48, slots=4, prefill_chunk=8,
                        max_seq=64)
 # the reduced config has 2 layers, so the draft runs block 0 only
 SPEC = dataclasses.replace(BASE, spec_tokens=4, draft_blocks=1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """The reduced model's ops are tiny: one intra-op thread, so that the
-    file's tests do not contend for the cores with the other test workers
-    (under six workers the default thread count made them ~10x slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

@@ -30,6 +30,7 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.configs.base import get_config as ref_config  # noqa: E402
 from repro.models import model as RM  # noqa: E402
@@ -120,7 +121,8 @@ def case(tmp_path_factory):
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(
             tp.run_ranks, "torch_tp_ranks:parity", 2, backend="gloo",
-            threads=1, workdir=str(tmp_path_factory.mktemp("tp_parity")),
+            threads=1, timeout=R.RANKS_TIMEOUT,
+            workdir=str(tmp_path_factory.mktemp("tp_parity")),
             args=({m: (CASES[m], weights[m]) for m in CASES}, toks,
                   (weights["fal"], train_toks, TRAIN_OCFG, TRAIN_STEPS)))
         ref = {m: _reference(c, weights[m], toks) for m, c in cfgs.items()}

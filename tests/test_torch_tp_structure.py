@@ -22,6 +22,7 @@ import pytest
 
 pytest.importorskip("jax")
 import torch  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import tp  # noqa: E402
@@ -46,6 +47,7 @@ TOL = 1e-5          # fp32; partial sums added in another order
 def runs(tmp_path_factory):
     res = tp.run_ranks(
         "torch_tp_ranks:structure", TP, backend="gloo", threads=1,
+        timeout=R.RANKS_TIMEOUT,
         workdir=str(tmp_path_factory.mktemp("tp_structure")),
         args=(tuple(REMAT_ADDS),))
     return {"structure": res, "decode": [r["decode"] for r in res]}
@@ -167,7 +169,7 @@ def test_launcher_trains_under_two_ranks(tmp_path):
             "--backend", "gloo", "--init-method",
             f"file://{tmp_path}/store"]
     logs = tp.spawn(argv, TP, workdir=str(tmp_path / "ranks"), threads=1,
-                    timeout=300)
+                    timeout=R.RANKS_TIMEOUT)
     finals = [[ln for ln in log.splitlines() if ln.startswith("final loss")]
               for log in logs]
     assert finals[0] == finals[1] and len(finals[0]) == 1, logs

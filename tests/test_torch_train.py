@@ -28,6 +28,7 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.configs.base import get_config as ref_config  # noqa: E402
 from repro.data import pipeline as RD  # noqa: E402

@@ -19,6 +19,10 @@ from repro_torch.optim import adamw as TO
 from repro_torch.train import step as TT
 
 MODES = ("preln", "fal", "parallel", "falplus", "ablation1", "ablation2")
+#: seconds the tests give a spawn of ranks (``tp.spawn`` / ``run_ranks``
+#: default to 900 for real launches): a stuck gloo rank fails its test
+#: loudly well inside the test run's time limit
+RANKS_TIMEOUT = 240
 
 
 def tp_config(connection, arch="llama3.2-3b", **kw):
