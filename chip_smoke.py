@@ -86,7 +86,9 @@ script exits non-zero:
                  non-spec engine
   9. prefix      the repeated-prefix workload cold and hot through
                  EngineConfig(prefix_cache=True), on bf16 and int8 pages
- 10. quantized   the profile workload on int8 and on fp8 pages
+ 10. quantized   the profile workload on int8 and on fp8 pages, the model
+                 cut to its first 14 layers (QUANT_LAYERS), read against
+                 the bf16 engine's streams at that depth
  11. padded      padded (B, C) generation at full width and depth: chunk
                  prefill ticks, then 32 greedy C == 1 ticks sequentially and
                  again under the dual-branch plan from the same cache; the
@@ -131,6 +133,22 @@ script exits non-zero:
                  .bwd), fused_ln_add (and .bwd), paged_decode_attention
                  and fused_dual_branch_decode must launch in every rank;
                  a failing rank fails the run
+ 13b. dp         tp 2 x dp 2: four gloo ranks on this card
+                 (core.tp.run_ranks(..., tp_size=2); init_tp_group('nccl')
+                 must refuse four ranks on one card), llama3.2-3b full
+                 width, 4 layers, fp32 compute (the reference's int8 gate
+                 is against an fp32 all-reduce), remat, a global batch of
+                 2 x 1024 (one row a data rank): rank 0 first trains 3
+                 steps on one device; then 3 steps each of grad_compress
+                 none (losses and grad norms vs one device; one DP
+                 all-reduce a step of exactly the local gradient bytes),
+                 int8 and lowrank (forward collectives equal to none's;
+                 backward wire bytes int8 <= 0.3 of none's, lowrank below;
+                 the first step's gradient error vs none's); DP
+                 all-reduces timed (gloo through host memory, not NCCL);
+                 the none state saved (gathered over TP, one-device
+                 format) and restored into one device on the card bit for
+                 bit; each rank's launches, every path cuda-kernel
  14. gemma2      gemma2-27b at full width cut to 2 layers (block 0 local,
                  block 1 global; every layer softcapped): one packed, one
                  padded chunk, one padded decode and one contiguous decode
@@ -150,7 +168,8 @@ script exits non-zero:
 The serving phases (5 to 11a, 14) also launch fused_ln_add: one per layer
 per tick under fal (on the contiguous cache the only kernel a tick runs).
 Every main-path run (6, 8, 8b, each run of 8c and of 9 to 11a, the counted
-steps of 13 and 14, the TP paths of 13a in each rank,
+steps of 13 and 14, the TP paths of 13a and the DP paths of 13b in each
+rank,
 and each gemma2 engine run) zeroes all launch counters just before it and
 reads them just after.  The line before the last is a
 JSON object with one entry per kernel; the last line is {"ok": true,
@@ -158,9 +177,11 @@ JSON object with one entry per kernel; the last line is {"ok": true,
 exits non-zero and prints no result.  It imports nothing of JAX and nothing
 of the JAX package ``repro``.
 """
+import gc
 import itertools
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -2479,6 +2500,29 @@ def prefix_engine_phase(cfg, params, ecfg, kv=""):
                 hot["counts"]["paged_packed_attention" + sfx]}
 
 
+#: layers of the quantized engine phases: half of llama3.2-3b's 28 (their
+#: profiled repeats cost ~60 s each at full depth, most of it the
+#: profiler's ~3,500 events a tick)
+QUANT_LAYERS = 14
+
+
+def quantized_depth(cfg, params, ecfg, prompts):
+    """llama3.2-3b cut to its first ``QUANT_LAYERS`` layers (the same
+    weights), and the bf16 engine's streams of the profile workload at that
+    depth, for the quantized engines to be read against."""
+    from repro_torch.serve.scheduler import PagedEngine, ServeRequest
+    qcfg = cfg.replace(n_layers=QUANT_LAYERS)
+    qparams = dict(params, blocks=params["blocks"][:QUANT_LAYERS - 1])
+    engine = PagedEngine(qcfg, qparams, ecfg)
+    for i, p in enumerate(prompts):
+        engine.submit(ServeRequest(rid=100 + i, prompt=p, max_new=24))
+    engine.run()
+    streams = {r.rid: list(map(int, r.generated)) for r in engine.finished}
+    del engine
+    torch.cuda.empty_cache()
+    return qcfg, qparams, streams
+
+
 def quantized_engine_phase(cfg, params, ecfg, prompts, streams, kv):
     """The profile workload (8 requests x 200 prompt tokens, 24 new) on
     ``kv`` pages, twice through one engine (the repeat under
@@ -2494,7 +2538,7 @@ def quantized_engine_phase(cfg, params, ecfg, prompts, streams, kv):
     from repro_torch.serve.scheduler import PagedEngine, ServeRequest
     L, site = cfg.n_layers, f"paged_packed_attention.{kv}"
     phase(f"quantized engine: the profile workload with EngineConfig("
-          f"kv_dtype={kv!r})")
+          f"kv_dtype={kv!r}), {L} layers")
     engine = PagedEngine(cfg, params, dataclasses.replace(ecfg, kv_dtype=kv))
     engine.submit(ServeRequest(rid=-1, prompt=prompts[0][:32], max_new=4))
     engine.run()
@@ -2533,7 +2577,7 @@ def quantized_engine_phase(cfg, params, ecfg, prompts, streams, kv):
           f"ms/tick); {site} launches {launches} = {ticks} x {L}; "
           f"page_bytes {page_bytes} (bf16 pages: {2 * L * PAGE * HKV * D * 2}"
           f"); repeat gives the same tokens: {got == again}; common-prefix "
-          f"fraction with the bf16 engine's streams "
+          f"fraction with the bf16 engine's streams at {L} layers "
           f"{statistics.mean(common):.3f} (per request "
           f"{[round(c, 3) for c in common]})", flush=True)
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -4207,6 +4251,321 @@ def tp_report(ranks, backend, smi):
 
 
 # --------------------------------------------------------------------------- #
+# data parallelism, compressed backward collectives, checkpoints under TP
+# --------------------------------------------------------------------------- #
+#: tp 2 x dp 2: four gloo ranks on this card, llama3.2-3b full width at
+#: TP_LAYERS layers, a global batch of 2 (one row a data rank) of DP_SEQ
+#: tokens.  fp32 compute (``dp_config``) at S = 2048 needs ~19 GB a rank
+#: (the 16 B a parameter of ~595 M local parameters, the fp32 logits and
+#: the tied embedding's gradients): four such ranks ran the card out of
+#: memory, so the sequence is halved
+DP_TP, DP_SIZE, DP_STEPS, DP_BATCH, DP_SEQ = 2, 2, 3, 2, 1024
+DP_METHODS = ("none", "int8", "lowrank")
+#: int8's backward wire bytes against "none"'s, at most
+#: (benchmarks/bench_comm.py's gate on the reference)
+DP_INT8_WIRE = 0.3
+
+
+def dp_config():
+    """The TP phase's model (fal, remat) in fp32 compute: the reference's
+    bench_comm measures int8 against an fp32 all-reduce, so the 0.3 gate
+    holds for fp32 cotangents (one byte for four; for bf16 ones it would
+    be one for two)."""
+    return tp_config(remat=True, dtype="float32")
+
+
+def _flat_grads(params):
+    """Every leaf's gradient, flat, in host memory (four ranks share the
+    card)."""
+    from repro_torch.optim import adamw
+    return torch.cat([p.grad.reshape(-1).cpu()
+                      for _, p in adamw.named_leaves(params)])
+
+
+def _timed(dev, fn):
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize(dev)
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def dp_rank(groups, ckpt_dir):
+    """One rank of the DP phase (spawned by ``core.tp.run_ranks`` with
+    ``tp_size``): rank 0 first trains 3 steps on one device (the global
+    batch of 2); then, with the launch counters zeroed, every rank trains
+    3 steps of each ``grad_compress`` method from the same weights (its
+    rows of the same global batches; each method's first gradients, read
+    through ``on_grads``, against "none"'s; right after "none" its state is
+    saved (``checkpoint.save_distributed``) and rank 0 restores it into
+    one device on the card); times DP all-reduces of its gradient size.
+    Returns numbers only."""
+    import torch.distributed as dist
+    from repro_torch.core import tp
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.data.pipeline import SyntheticMarkov, shard_rows
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as MX
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    dev = tp_device(rank)
+    cfg = dp_config()
+    ocfg = adamw.AdamWConfig(lr=3e-4)
+    plan = ExecutionPlan.from_group(groups.tp, tp="explicit",
+                                    data_group=groups.dp)
+    out = {"rank": rank, "tp_rank": plan.tp_rank, "dp_rank": plan.dp_rank,
+           "device": str(dev)}
+    data = SyntheticMarkov(cfg.vocab, DP_SEQ, DP_BATCH, seed=0)
+    glob = [{"tokens": torch.from_numpy(data.batch_at(i)["tokens"]).to(dev)}
+            for i in range(DP_STEPS)]
+    mine = [shard_rows(b, plan.dp_rank, plan.dp_size) for b in glob]
+    full = M.init_params(cfg, seed=0, device=dev, dtype=cfg.param_dtype)
+    if rank == 0:                 # the one-device run of the global batch
+        state = tstep.init_state(0, cfg, ocfg, params=adamw.map_tree(
+            lambda t: t.detach().clone(), full))
+        step = tstep.make_train_step(cfg, ocfg)
+        hist, ms = [], []
+        for b in glob:
+            (state, m), t = _timed(dev, lambda: step(state, b))
+            hist.append((float(m["loss"]), float(m["grad_norm"])))
+            ms.append(t)
+        out["one_device"] = {"hist": hist, "step_ms": ms}
+        del state, step
+    # this rank's shard waits in host memory: four ranks' states at ~16 B
+    # a parameter fill most of the card
+    shard = adamw.map_tree(lambda t: t.cpu(), MX.shard_params(
+        full, cfg, plan.tp_rank, plan.tp_size))
+    del full
+    torch.cuda.empty_cache()
+    dist.barrier()              # the DP paths start together on every rank
+
+    ops.reset_launches()
+    ops.reset_dispatch_paths()
+    torch.cuda.reset_peak_memory_stats(dev)
+    first = None
+    for method in DP_METHODS:
+        pm = plan.with_grad_compress(method)
+        state = tstep.init_state(0, cfg, ocfg, params=adamw.map_tree(
+            lambda t: t.to(dev, copy=True), shard))
+        res = {"hist": [], "step_ms": [], "counts": []}
+        grads = []
+
+        def keep_first(params):
+            if not grads:
+                grads.append(_flat_grads(params))
+        step = tstep.make_train_step(cfg, ocfg, pm, on_grads=keep_first)
+        for b in mine:
+            tp.reset_collectives()
+            (state, m), t = _timed(dev, lambda: step(state, b))
+            res["counts"].append(tp.collective_counts())
+            res["hist"].append((float(m["loss"]), float(m["grad_norm"])))
+            res["step_ms"].append(t)
+        if first is None:
+            first = grads[0]
+        else:
+            res["grad_err"] = ((grads[0] - first).norm()
+                               / first.norm()).item()
+        out[method] = res
+        if method == "none":     # checkpointed before the next state exists
+            out["n_local"] = sum(p.numel() for _, p in
+                                 adamw.named_leaves(state["params"]))
+            peak = torch.cuda.max_memory_allocated(dev)
+            out.update(_dp_checkpoint(state, cfg, plan, ocfg, ckpt_dir,
+                                      dev))
+            torch.cuda.reset_peak_memory_stats(dev)
+        del state, step
+        torch.cuda.empty_cache()
+    del first
+    out["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    out["paths"] = ops.dispatch_paths()
+    out["peak"] = max(peak, torch.cuda.max_memory_allocated(dev))
+    flat = torch.zeros(out["n_local"], device=dev)
+    out["dp_all_reduce_ms"] = [_timed(dev, lambda: tp.all_reduce_(
+        [flat], groups.dp, "data"))[1] for _ in range(2)]
+    del flat
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _dp_checkpoint(state, cfg, plan, ocfg, ckpt_dir, dev):
+    """Save ``state`` under the tp x dp plan (``save_distributed``), free
+    every rank's card memory but the state's, and on rank 0 restore the
+    file into one device on the card and compare it bit for bit with the
+    gathered state.  -> numbers for the report."""
+    import torch.distributed as dist
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as CK
+    out = {}
+    gathered, t = _timed(dev, lambda: CK.save_distributed(
+        ckpt_dir, state, cfg, plan, step=DP_STEPS,
+        meta={"arch": cfg.arch_id}))
+    out["save_s"] = t / 1e3
+    if dist.get_rank() == 0:
+        gathered = adamw.map_tree(lambda t: t.detach().cpu()
+                                  if isinstance(t, torch.Tensor) else t,
+                                  gathered)
+        like = {"params": M.init_params(cfg, seed=1, device=dev,
+                                        dtype=cfg.param_dtype)}
+        like["opt"] = adamw.init_opt_state(like["params"], ocfg)
+        restored, t = _timed(dev, lambda: CK.restore(ckpt_dir, like))
+        out["restore_s"] = t / 1e3
+        got = dict(adamw.named_leaves(restored))
+        want = dict(adamw.named_leaves(gathered))
+        out["ckpt_leaves"] = len(want)
+        out["ckpt_equal"] = got.keys() == want.keys() and all(
+            torch.equal(got[k].cpu(), want[k])
+            if isinstance(want[k], torch.Tensor) else got[k] == want[k]
+            for k in want)
+        out["ckpt_bytes"] = sum(f.stat().st_size for f in
+                                pathlib.Path(ckpt_dir).iterdir())
+        out["ckpt_on_card"] = all(t.is_cuda for t in got.values()
+                                  if isinstance(t, torch.Tensor))
+        del like, restored, got
+    del gathered
+    torch.cuda.empty_cache()
+    dist.barrier()              # the next method starts on every rank
+    return out
+
+
+def dp_phase(smi):
+    """tp 2 x dp 2 at llama3.2-3b full width, 4 layers, over four gloo
+    ranks on this card (``core.tp.run_ranks(..., tp_size=2)``; CUDA
+    tensors staged through host memory).  Returns ({kernel: launches on
+    the DP paths of rank 0}, a summary for the last lines)."""
+    import tempfile
+    from repro_torch.core import tp
+    world = DP_TP * DP_SIZE
+    n_cards = torch.cuda.device_count()
+    if n_cards < world:
+        try:
+            tp.init_tp_group("nccl", rank=0, world_size=world)
+            raise AssertionError("init_tp_group('nccl') did not refuse")
+        except RuntimeError as e:
+            print(f"  nccl: not run ({n_cards} card(s) for {world} ranks); "
+                  f"init_tp_group refuses it: {e}", flush=True)
+    phase(f"data parallelism: tp {DP_TP} x dp {DP_SIZE} = {world} gloo "
+          f"ranks on this card, llama3.2-3b full width, {TP_LAYERS} "
+          f"layers, fp32 compute, remat, global batch {DP_BATCH} x "
+          f"{DP_SEQ}; grad_compress {'/'.join(DP_METHODS)}; card {smi}")
+    gc.collect()                # this process's tensors off the card
+    torch.cuda.empty_cache()
+    # the ranks' allocators give back what they free (four share the card)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory(prefix="dp_ckpt_") as ckpt:
+            t0 = time.perf_counter()
+            ranks = tp.run_ranks("chip_smoke:dp_rank", world,
+                                 backend="gloo", args=(ckpt,), timeout=600,
+                                 tp_size=DP_TP)
+            secs = time.perf_counter() - t0
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    print(f"  {world} ranks done in {secs:.1f} s on "
+          f"{[r['device'] for r in ranks]}", flush=True)
+    return dp_report(ranks, smi)
+
+
+def _wire(counts, direction):
+    return sum(v[direction]["wire"] for v in counts.values()
+               if direction in v)
+
+
+def dp_report(ranks, smi):
+    """Print and gate the DP ranks' results."""
+    r0 = ranks[0]
+    L = TP_LAYERS
+    one = r0["one_device"]
+    hist = [(round(a, 5), round(b, 4)) for a, b in one["hist"]]
+    print(f"  one device (rank 0, global batch {DP_BATCH}): (loss, "
+          f"grad_norm) {hist}; step ms "
+          f"{[round(t, 1) for t in one['step_ms']]}; card {smi}", flush=True)
+    for r in ranks:
+        none = r["none"]
+        print(f"  rank {r['rank']} (tp {r['tp_rank']}, dp {r['dp_rank']}): "
+              f"none (loss, grad_norm) "
+              f"{[(round(a, 5), round(b, 4)) for a, b in none['hist']]} "
+              f"(tol {TP_LOSS_TOL} / relative {TP_GNORM_RTOL} of one "
+              f"device); step ms {[round(t, 1) for t in none['step_ms']]} "
+              f"(gloo through host memory, four ranks on one card: no "
+              f"measure of NCCL or of the paper's claim)", flush=True)
+        for (la, ga), (lb, gb) in zip(none["hist"], one["hist"]):
+            require(abs(la - lb) <= TP_LOSS_TOL
+                    and abs(ga - gb) <= TP_GNORM_RTOL * gb,
+                    "DP training disagrees with one device")
+        for method in DP_METHODS:
+            for c in r[method]["counts"]:
+                require(_ar(c, "data") == 1 and _ar(c, "data", "bytes")
+                        == 4 * r["n_local"] and _ar(c, "metric") == 1,
+                        f"{method}: DP all-reduces a step {c}")
+        base = r["none"]["counts"][0]
+        base_fwd = {k: v["forward"] for k, v in base.items()
+                    if "forward" in v}
+        w_none = _wire(base, "backward")
+        for method in DP_METHODS[1:]:
+            res = r[method]
+            c = res["counts"][0]
+            fwd = {k: v["forward"] for k, v in c.items() if "forward" in v}
+            ratio = _wire(c, "backward") / w_none
+            kinds = {k: v["backward"]["calls"] for k, v in c.items()
+                     if "backward" in v}
+            print(f"  rank {r['rank']}: {method}: (loss, grad_norm) "
+                  f"{[(round(a, 5), round(b, 4)) for a, b in res['hist']]};"
+                  f" first-step gradient vs none: relative error "
+                  f"{res['grad_err']:.4e}; backward wire bytes "
+                  f"{_wire(c, 'backward')} vs none {w_none} (ratio "
+                  f"{ratio:.4f}); backward calls {kinds}; step ms "
+                  f"{[round(t, 1) for t in res['step_ms']]}",
+                  flush=True)
+            require(fwd == base_fwd, f"{method}: forward collectives differ "
+                    f"from none's")
+            require(ratio <= DP_INT8_WIRE if method == "int8" else
+                    ratio < 1, f"{method}: backward wire ratio {ratio:.4f}")
+            require(all(math.isfinite(a) for a, _ in res["hist"]),
+                    f"{method}: loss not finite")
+        print(f"  rank {r['rank']}: DP all-reduce {4 * r['n_local']} B "
+              f"(the local fp32 gradient) over gloo through host memory: "
+              f"{[round(t, 1) for t in r['dp_all_reduce_ms']]} ms (host "
+              f"clock); peak {r['peak'] / 2**30:.2f} GiB; launches "
+              f"{r['launches']}; paths {r['paths']}; card {smi}", flush=True)
+        from repro_torch.kernels import ops
+        require(set(r["paths"].values()) == {ops.CUDA}
+                and {"flash_attention", "fused_ln_add"} <= set(r["paths"]),
+                f"rank {r['rank']}: DP paths {r['paths']}")
+        passes = len(DP_METHODS) * DP_STEPS
+        want = {"flash_attention": 2 * passes * L,
+                "flash_attention.bwd": passes * L}
+        got = {k: r["launches"].get(k, 0) for k in want}
+        require(got == want, f"DP launches {got} != {want}")
+        for k in ("fused_ln_add", "fused_ln_add.bwd"):
+            require(r["launches"].get(k, 0) > 0, f"rank {r['rank']}: {k} "
+                    f"not launched on the DP paths")
+    require(len({tuple(r["none"]["hist"]) for r in ranks}) == 1,
+            "DP losses differ across ranks")
+    print(f"  checkpoint: {r0['ckpt_leaves']} leaves, {r0['ckpt_bytes']} B "
+          f"written by rank 0 (gathered over TP); save "
+          f"{[round(r['save_s'], 2) for r in ranks]} s by rank (gather + "
+          f"write + barrier), restore into one device on the card "
+          f"{r0['restore_s']:.2f} s; bit-equal to the gathered state: "
+          f"{r0['ckpt_equal']}; card {smi}", flush=True)
+    require(r0["ckpt_equal"] and r0["ckpt_on_card"],
+            "the tp x dp checkpoint does not restore bit for bit")
+    summary = {"step_ms": statistics.median(r0["none"]["step_ms"]),
+               "dp_all_reduce_ms": statistics.median(
+                   r0["dp_all_reduce_ms"]),
+               "save_s": r0["save_s"], "restore_s": r0["restore_s"]}
+    return r0["launches"], summary
+
+
+# --------------------------------------------------------------------------- #
 # gemma2: sliding windows, logit softcaps, checkpoints
 # --------------------------------------------------------------------------- #
 #: the window of the card-vs-CPU ticks (the config's 4096 replaced), so that
@@ -4907,9 +5266,11 @@ def main():
     prefix = prefix_engine_phase(cfg, params, ecfg)
     launches["page_copy"] = prefix["page_copy"]
     prefix_engine_phase(cfg, params, ecfg, "int8")
+    qcfg, qparams, qstreams = quantized_depth(cfg, params, ecfg, prompts)
     for kv in KV_NARROW:
         launches[f"paged_packed_attention.{kv}"] = quantized_engine_phase(
-            cfg, params, ecfg, prompts, streams, kv)
+            qcfg, qparams, ecfg, prompts, qstreams, kv)
+    del qparams
     launches.update(padded_generation_phase(params))
     for kv in KV_NARROW:
         launches.update(padded_generation_phase(
@@ -4921,6 +5282,10 @@ def main():
     train_launches, train = train_phase()
     launches.update(train_launches)
     tp_launches, tp_step_ms = tp_phase(smi)
+    t_dp = time.perf_counter()
+    dp_launches, dp = dp_phase(smi)
+    print(f"  data-parallel phase: {time.perf_counter() - t_dp:.1f} s",
+          flush=True)
     t_g2 = time.perf_counter()
     gemma2_tick_phase()
     g2_launches, g2_train = gemma2_train_phase()
@@ -4982,6 +5347,9 @@ def main():
         if kname in tp_launches:
             # rank 0's launches on the tensor-parallel paths (phase 13a)
             entry["tp_launches"] = tp_launches[kname]
+        if kname in dp_launches:
+            # rank 0's launches on the tp x dp paths (phase 13b)
+            entry["dp_launches"] = dp_launches[kname]
         if kname in g2_launches:
             # the gemma2 training path (3 counted steps, 2 layers, remat)
             # and the window / softcap check's error at its shape
@@ -4996,7 +5364,11 @@ def main():
           + f"; seeded spec tick {spec['device_ms_per_tick']:.2f} ms of "
           f"device time; train {train['step_ms']:.1f} ms/step; TP train "
           f"(4 layers, gloo through host memory, 2 ranks on the card) "
-          f"{tp_step_ms:.1f} ms/step; batcher {contig['tok_s']:.1f} tok/s, "
+          f"{tp_step_ms:.1f} ms/step; tp 2 x dp 2 (4 layers, fp32, gloo "
+          f"through host memory, 4 ranks on the card) {dp['step_ms']:.1f} "
+          f"ms/step, DP all-reduce {dp['dp_all_reduce_ms']:.1f} ms, "
+          f"checkpoint save {dp['save_s']:.1f} s / restore "
+          f"{dp['restore_s']:.1f} s; batcher {contig['tok_s']:.1f} tok/s, "
           f"{contig['tick_ms_p50']:.2f} ms a tick p50; gemma2 "
           f"train {g2_train['step_ms']:.1f} ms/step (peak "
           f"{g2_train['peak'] / 2**30:.2f} GiB), engine "

@@ -16,13 +16,18 @@ are the tensor-parallel shards.  Plan axes:
   residual stream between blocks is sharded along the sequence and every
   per-block all-reduce becomes a reduce-scatter behind an all-gather.
 * ``dual_branch`` -- decode-time MHA || MLP branch parallelism.
-* ``grad_compress`` -- none | int8 | lowrank; only ``none`` is ported
-  (the compressed collectives are ``optim/grad_compress.py``, ROADMAP.md
-  Queue 1).
+* ``grad_compress`` -- none | int8 | lowrank: the backward TP collectives
+  of the explicit stack run ``optim/grad_compress.py``'s lossy exchanges
+  (forward collectives stay exact); requires ``tp='explicit'``.
+* ``data_group`` -- the data-parallel process group (the counterpart of
+  the reference's ``data_axes``): each of its ranks trains on its rows of
+  the global batch and the train step sums the gradients over it
+  (``train/step.py``).  ``tp='none'`` with a data group is pure data
+  parallelism.  ``core.tp.init_groups`` builds both groups from one world,
+  TP the inner axis (``rank = dp_rank * tp + tp_rank``).
 
 Inside the stack the blocks see ``plan.inner()``, on which ``tp_axis`` is
 the process group the partial sums reduce over (None on replicated paths).
-There is no data-parallel axis yet (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -87,14 +92,16 @@ _LATER = "(ROADMAP.md Queue 1)"
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
     """Frozen description of how one program executes.  ``group`` is the
-    tensor-parallel process group (None: one device); ``local`` is set only
-    on the plan the blocks inside the stack see (``inner()``)."""
+    tensor-parallel process group (None: no TP), ``data_group`` the
+    data-parallel one (None: no DP); ``local`` is set only on the plan the
+    blocks inside the stack see (``inner()``)."""
     phase: Phase = Phase.TRAIN
     tp: TPStyle = TPStyle.NONE
     sequence_parallel: bool = False
     dual_branch: bool = False
     grad_compress: str = "none"            # none | int8 | lowrank
     group: Any = None                      # torch.distributed ProcessGroup
+    data_group: Any = None                 # the data-parallel group
     local: bool = False                    # set only by inner()
 
     # ------------------------------------------------------------- build --
@@ -109,16 +116,12 @@ class ExecutionPlan:
                    phase=Phase.TRAIN, dual_branch: bool = False,
                    grad_compress: str = "none",
                    data_group=None) -> "ExecutionPlan":
-        """Plan over the tensor-parallel process ``group`` (the counterpart
-        of the reference's ``from_mesh``).  A data-parallel group has no
-        port yet and raises."""
-        if data_group is not None:
-            raise NotImplementedError(
-                f"data-parallel axes: the port's distributed slice shards "
-                f"over one tensor-parallel group only {_LATER}")
+        """Plan over the tensor-parallel process ``group`` and the
+        data-parallel ``data_group`` (the counterpart of the reference's
+        ``from_mesh`` over ``("data", "model")``); either may be None."""
         return cls(phase=Phase.coerce(phase), tp=TPStyle.coerce(tp),
                    sequence_parallel=bool(sp), group=group,
-                   dual_branch=bool(dual_branch),
+                   data_group=data_group, dual_branch=bool(dual_branch),
                    grad_compress=str(grad_compress))
 
     @classmethod
@@ -143,6 +146,10 @@ class ExecutionPlan:
         """Same plan with MHA||MLP decode branch parallelism toggled."""
         return dataclasses.replace(self, dual_branch=bool(flag))
 
+    def with_grad_compress(self, method: str) -> "ExecutionPlan":
+        """Same plan with compressed backward TP collectives selected."""
+        return dataclasses.replace(self, grad_compress=str(method))
+
     def inner(self) -> "ExecutionPlan":
         """The plan the blocks inside the explicit-TP stack see:
         ``tp_axis`` set, ``use_explicit_tp`` off."""
@@ -150,17 +157,19 @@ class ExecutionPlan:
 
     @property
     def tp_size(self) -> int:
-        if self.group is None:
-            return 1
-        import torch.distributed as dist
-        return dist.get_world_size(self.group)
+        return 1 if self.group is None else self.group.size()
 
     @property
     def tp_rank(self) -> int:
-        if self.group is None:
-            return 0
-        import torch.distributed as dist
-        return dist.get_rank(self.group)
+        return 0 if self.group is None else self.group.rank()
+
+    @property
+    def dp_size(self) -> int:
+        return 1 if self.data_group is None else self.data_group.size()
+
+    @property
+    def dp_rank(self) -> int:
+        return 0 if self.data_group is None else self.data_group.rank()
 
     @property
     def tp_axis(self):
@@ -176,6 +185,8 @@ class ExecutionPlan:
 
     @property
     def is_sharded(self) -> bool:
+        """Whether the weights are sharded (TP); a data group replicates
+        them."""
         return self.group is not None
 
     @property
@@ -205,11 +216,12 @@ class ExecutionPlan:
             raise ValueError(
                 f"unknown grad_compress {self.grad_compress!r}; valid: "
                 f"none/int8/lowrank (optim/grad_compress.py methods)")
-        if self.grad_compress != "none":
-            raise NotImplementedError(
-                f"grad_compress={self.grad_compress!r}: the compressed "
-                f"backward collectives (optim/grad_compress.py) are not "
-                f"ported yet {_LATER}")
+        if self.grad_compress != "none" and self.tp is not TPStyle.EXPLICIT:
+            raise ValueError(
+                "grad_compress != 'none' requires tp='explicit': the "
+                "compressed collectives wrap the explicit-TP partial-sum "
+                "collectives (models/blocks.py); there is no replicated "
+                "gradient-compression path")
         if self.tp is TPStyle.EXPLICIT:
             if self.group is None:
                 raise ValueError("tp='explicit' requires a process group "

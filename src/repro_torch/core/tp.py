@@ -24,19 +24,31 @@ that exports the signal: (L+1)/(2L) of preln's bytes over L layers); under
 sequence parallelism each all-reduce becomes a reduce-scatter at 1/tp the
 bytes, behind an all-gather (``models/blocks.py``).
 
-Every collective counts its calls and output bytes by kind (all-reduce,
-reduce-scatter, all-gather) and direction (forward, backward, and ``step``
-for the train step's gradient and norm sums): ``collective_counts()``,
-``reset_collectives()``.  These replace the reference's HLO parsers.
+Under ``plan.grad_compress`` (``int8`` / ``lowrank``) the backward
+all-reduce of ``enter`` and the backward all-gather of ``scatter_seq`` run
+``optim/grad_compress.py``'s lossy exchanges; every forward collective
+stays exact.  (The reference compresses the transpose of each forward
+psum instead: the same count a block, other tensors; ROADMAP.md Queue 3.)
+
+Every collective counts its calls, output bytes and ring-model wire bytes
+by kind (all-reduce, reduce-scatter, all-gather, all-to-all) and direction
+(forward, backward; ``step`` for the train step's TP gradient and norm
+sums; ``data`` for its one data-parallel gradient sum, ``metric`` for the
+data-parallel mean of the loss; ``checkpoint`` for gathering a sharded
+state): ``collective_counts()``, ``reset_collectives()``.  These replace
+the reference's HLO parsers (``collective_payload_bytes``'s ring model).
 
 Backends: ``init_tp_group(backend, ...)`` takes ``nccl`` or ``gloo`` and
 picks neither on its own; ``nccl`` with fewer visible cards than ranks
 raises.  Under ``gloo`` CUDA tensors are staged through host memory, decided
-by the backend's name.  ``run_ranks`` spawns one process per rank on one
-machine (a ``file://`` rendezvous, no port) and fails if any rank fails.
+by the backend's name.  ``init_groups`` / ``split_groups`` cut one world
+into tensor-parallel and data-parallel groups (TP the inner axis).
+``run_ranks`` spawns one process per rank on one machine (a ``file://``
+rendezvous, no port) and fails if any rank fails.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import datetime
 import importlib
@@ -49,17 +61,19 @@ import time
 import torch
 import torch.distributed as dist
 
-#: {kind: {direction: {"calls": n, "bytes": b}}} since reset_collectives();
-#: kinds all-reduce / reduce-scatter / all-gather, directions forward /
-#: backward / step
+#: {kind: {direction: {"calls": n, "bytes": b, "wire": w}}} since
+#: reset_collectives()
 _COUNTS: dict = {}
 
 
 def collective_counts() -> dict:
-    """{kind: {direction: {"calls", "bytes"}}} since the last
-    ``reset_collectives()``; bytes are each collective's output on this
+    """{kind: {direction: {"calls", "bytes", "wire"}}} since the last
+    ``reset_collectives()``.  ``bytes`` are each collective's output on this
     rank (the reduced shard for a reduce-scatter, the gathered tensor for an
-    all-gather)."""
+    all-gather); ``wire`` the bytes a rank sends under a ring model, as the
+    reference's ``core/tp.py::collective_payload_bytes`` bills them:
+    all-reduce 2 out (n-1)/n, all-gather and all-to-all out (n-1)/n,
+    reduce-scatter out (n-1)."""
     return copy.deepcopy(_COUNTS)
 
 
@@ -72,11 +86,19 @@ def count(counts, kind, direction="forward", what="calls") -> int:
     return counts.get(kind, {}).get(direction, {}).get(what, 0)
 
 
-def _record(kind, direction, t):
+_WIRE = {"all-reduce": lambda b, n: 2 * b * (n - 1) // n,
+         "all-gather": lambda b, n: b * (n - 1) // n,
+         "all-to-all": lambda b, n: b * (n - 1) // n,
+         "reduce-scatter": lambda b, n: b * (n - 1)}
+
+
+def _record(kind, direction, t, group):
     c = _COUNTS.setdefault(kind, {}).setdefault(
-        direction, {"calls": 0, "bytes": 0})
+        direction, {"calls": 0, "bytes": 0, "wire": 0})
+    b = t.numel() * t.element_size()
     c["calls"] += 1
-    c["bytes"] += t.numel() * t.element_size()
+    c["bytes"] += b
+    c["wire"] += _WIRE[kind](b, group.size())
 
 
 def _staged(t, group) -> bool:
@@ -85,18 +107,44 @@ def _staged(t, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def _all_reduce(t, group, direction):
+def all_reduce(t, group, direction):
+    """The sum of ``t`` over ``group`` (a new tensor), counted."""
     stage = _staged(t, group)
     out = t.detach().to("cpu", copy=True) if stage \
         else t.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, group=group)
-    _record("all-reduce", direction, out)
+    _record("all-reduce", direction, out, group)
     return out.to(t.device) if stage else out
 
 
-def _seq_collective(t, group, direction, gather):
-    """All-gather (``gather``) or reduce-scatter of ``t`` along dim 1, the
-    sequence, through dim 0 of a (S, B, ...) copy."""
+def exchange_rows(t, group, direction):
+    """All-to-all of a (n, ...) tensor over the n ranks of ``group``: row j
+    goes to rank j, and row i of the result came from rank i."""
+    stage = _staged(t, group)
+    src = t.detach().to("cpu") if stage else t.detach()
+    src = src.contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    _record("all-to-all", direction, out, group)
+    return out.to(t.device) if stage else out
+
+
+def gather_rows(t, group, direction, host=False):
+    """All-gather: (...) on each rank -> (n, ...), row i rank i's; on
+    ``t``'s device, or in host memory with ``host``."""
+    stage = _staged(t, group)
+    src = t.detach().to("cpu") if stage else t.detach()
+    src = src.contiguous().reshape(-1)
+    out = src.new_empty((group.size() * src.numel(),))
+    dist.all_gather_into_tensor(out, src, group=group)
+    _record("all-gather", direction, out, group)
+    out = out.reshape((group.size(),) + tuple(t.shape))
+    return out.cpu() if host else out.to(t.device)
+
+
+def seq_collective(t, group, direction, gather):
+    """All-gather (``gather``, tiled) or reduce-scatter of ``t`` along dim
+    1, the sequence, through dim 0 of a (S, B, ...) copy."""
     n = dist.get_world_size(group)
     src = t.detach().movedim(1, 0).contiguous()
     stage = _staged(t, group)
@@ -108,7 +156,8 @@ def _seq_collective(t, group, direction, gather):
         dist.all_gather_into_tensor(out, src, group=group)
     else:
         dist.reduce_scatter_tensor(out, src, group=group)
-    _record("all-gather" if gather else "reduce-scatter", direction, out)
+    _record("all-gather" if gather else "reduce-scatter", direction, out,
+            group)
     return out.to(t.device).movedim(0, 1).contiguous()
 
 
@@ -121,7 +170,7 @@ def _seq_slice(t, group):
 class _Assemble(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        return _all_reduce(x, group, "forward")
+        return all_reduce(x, group, "forward")
 
     @staticmethod
     def backward(ctx, g):
@@ -130,35 +179,42 @@ class _Assemble(torch.autograd.Function):
 
 class _Enter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, compress):
+        ctx.group, ctx.compress = group, compress
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.group, "backward"), None
+        if ctx.compress == "none":
+            return all_reduce(g, ctx.group, "backward"), None, None
+        from repro_torch.optim import grad_compress as GC
+        return GC.ALL_REDUCE[ctx.compress](g, ctx.group), None, None
 
 
 class _ScatterSeq(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _seq_collective(x, group, "forward", gather=False)
+    def forward(ctx, x, group, compress):
+        ctx.group, ctx.compress = group, compress
+        return seq_collective(x, group, "forward", gather=False)
 
     @staticmethod
     def backward(ctx, g):
-        return _seq_collective(g, ctx.group, "backward", gather=True), None
+        if ctx.compress == "none":
+            return (seq_collective(g, ctx.group, "backward", gather=True),
+                    None, None)
+        from repro_torch.optim import grad_compress as GC
+        return GC.ALL_GATHER[ctx.compress](g, ctx.group), None, None
 
 
 class _GatherSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return _seq_collective(x, group, "forward", gather=True)
+        return seq_collective(x, group, "forward", gather=True)
 
     @staticmethod
     def backward(ctx, g):
-        return _seq_collective(g, ctx.group, "backward", gather=False), None
+        return seq_collective(g, ctx.group, "backward", gather=False), None
 
 
 class _SplitSeq(torch.autograd.Function):
@@ -169,14 +225,14 @@ class _SplitSeq(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _seq_collective(g, ctx.group, "backward", gather=True), None
+        return seq_collective(g, ctx.group, "backward", gather=True), None
 
 
 class _UnsplitSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return _seq_collective(x, group, "forward", gather=True)
+        return seq_collective(x, group, "forward", gather=True)
 
     @staticmethod
     def backward(ctx, g):
@@ -188,16 +244,18 @@ def assemble(partial, group):
     return partial if group is None else _Assemble.apply(partial, group)
 
 
-def enter(x, group):
+def enter(x, group, compress="none"):
     """A replicated tensor entering sharded branches (*f*): its gradient,
-    a partial sum on each rank, is all-reduced in the backward."""
-    return x if group is None else _Enter.apply(x, group)
+    a partial sum on each rank, is all-reduced in the backward (by
+    ``optim/grad_compress.py``'s ``compress`` exchange unless "none")."""
+    return x if group is None else _Enter.apply(x, group, compress)
 
 
-def scatter_seq(partial, group):
+def scatter_seq(partial, group, compress="none"):
     """(B, S, ...) partial sums -> this rank's (B, S/tp, ...) shard of
-    their sum (reduce-scatter)."""
-    return _ScatterSeq.apply(partial, group)
+    their sum (reduce-scatter; the backward all-gather by the ``compress``
+    exchange unless "none")."""
+    return _ScatterSeq.apply(partial, group, compress)
 
 
 def gather_seq(shard, group):
@@ -219,12 +277,25 @@ def unsplit_seq(shard, group):
 
 def all_reduce_(tensors, group, direction="step"):
     """Sum ``tensors`` (one dtype) over ``group`` in place, as ONE
-    all-reduce of their concatenation: the train step's gradient sums."""
+    all-reduce of their concatenation: the train step's gradient sums
+    (``step`` over the TP group, ``data`` over the data-parallel one).
+    Under gloo the concatenation is built in host memory straight from
+    the tensors, so the sum takes no device memory."""
     tensors = [t for t in tensors if t is not None]
     if not tensors:
         return
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    flat = _all_reduce(flat, group, direction)
+    if _staged(tensors[0], group):
+        flat = torch.empty(sum(t.numel() for t in tensors),
+                           dtype=tensors[0].dtype)
+        i = 0
+        for t in tensors:
+            flat[i:i + t.numel()].copy_(t.reshape(-1))
+            i += t.numel()
+        dist.all_reduce(flat, group=group)
+        _record("all-reduce", direction, flat, group)
+    else:
+        flat = all_reduce(torch.cat([t.reshape(-1) for t in tensors]),
+                           group, direction)
     i = 0
     for t in tensors:
         t.copy_(flat[i:i + t.numel()].view_as(t))
@@ -257,6 +328,47 @@ def init_tp_group(backend, *, rank, world_size, init_method="env://",
                             world_size=world_size,
                             timeout=datetime.timedelta(seconds=timeout_s))
     return dist.group.WORLD
+
+
+#: a rank's two groups: ``tp`` the tensor-parallel one, ``dp`` the
+#: data-parallel one (None where the axis has one rank)
+Groups = collections.namedtuple("Groups", "tp dp")
+
+
+def split_groups(tp_size) -> Groups:
+    """Cut the default group's world into tensor-parallel groups of
+    ``tp_size`` consecutive ranks and data-parallel groups across them: TP
+    is the inner axis, ``rank = dp_rank * tp_size + tp_rank``, as Megatron
+    and the reference's ``("data", "model")`` mesh order it.  Every rank
+    makes every ``new_group`` call, in the same order.  An axis of one rank
+    gets None; an axis spanning the world gets the default group."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if tp_size < 1 or world % tp_size:
+        raise ValueError(f"world size {world} is not a multiple of the TP "
+                         f"size {tp_size}")
+    dp_size = world // tp_size
+    if dp_size == 1 or tp_size == 1:
+        whole = dist.group.WORLD if world > 1 else None
+        return Groups(tp=whole if dp_size == 1 else None,
+                      dp=whole if tp_size == 1 else None)
+    tp_group = dp_group = None
+    for d in range(dp_size):
+        g = dist.new_group(list(range(d * tp_size, (d + 1) * tp_size)))
+        if rank // tp_size == d:
+            tp_group = g
+    for t in range(tp_size):
+        g = dist.new_group(list(range(t, world, tp_size)))
+        if rank % tp_size == t:
+            dp_group = g
+    return Groups(tp=tp_group, dp=dp_group)
+
+
+def init_groups(backend, *, rank, world_size, tp_size,
+                init_method="env://", timeout_s=600) -> Groups:
+    """``init_tp_group`` over the whole world, then ``split_groups``."""
+    init_tp_group(backend, rank=rank, world_size=world_size,
+                  init_method=init_method, timeout_s=timeout_s)
+    return split_groups(tp_size)
 
 
 def spawn(argv, world_size, *, workdir, timeout=900, threads=None,
@@ -319,23 +431,28 @@ def _failure(procs, logs, bad, timeout):
 
 
 def run_ranks(target, world_size, *, backend, args=(), workdir=None,
-              timeout=900, threads=None):
+              timeout=900, threads=None, tp_size=None):
     """Call ``target`` ("module:function") as ``fn(group, *args)`` in
     ``world_size`` spawned processes joined by ``init_tp_group(backend)``;
-    return the list of their return values (by rank).  ``args`` cross with
-    ``torch.save``; so do the results, in ``workdir`` (None: a temporary
-    directory, removed afterwards).  Any rank failing fails the call."""
+    return the list of their return values (by rank).  With ``tp_size``
+    the world is cut by ``split_groups(tp_size)`` and ``group`` is the
+    rank's ``Groups(tp, dp)``.  ``args`` cross with ``torch.save``; so do
+    the results, in ``workdir`` (None: a temporary directory, removed
+    afterwards).  Any rank failing fails the call."""
     if workdir is None:
         with tempfile.TemporaryDirectory(prefix="tp_ranks_") as tmp:
             return run_ranks(target, world_size, backend=backend, args=args,
-                             workdir=tmp, timeout=timeout, threads=threads)
+                             workdir=tmp, timeout=timeout, threads=threads,
+                             tp_size=tp_size)
     os.makedirs(workdir, exist_ok=True)
     torch.save(tuple(args), os.path.join(workdir, "args.pt"))
+    env = {"TP_TARGET": target, "TP_BACKEND": backend, "TP_WORKDIR": workdir}
+    if tp_size is not None:
+        env["TP_SIZE"] = str(tp_size)
     spawn([sys.executable, "-c",
            "from repro_torch.core.tp import _rank_main; _rank_main()"],
           world_size, workdir=workdir, timeout=timeout, threads=threads,
-          env={"TP_TARGET": target, "TP_BACKEND": backend,
-               "TP_WORKDIR": workdir})
+          env=env)
     return [torch.load(os.path.join(workdir, f"result{r}.pt"),
                        weights_only=False) for r in range(world_size)]
 
@@ -347,6 +464,8 @@ def _rank_main():
     rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
     group = init_tp_group(env["TP_BACKEND"], rank=rank, world_size=world,
                           init_method=env["TP_INIT_METHOD"])
+    if env.get("TP_SIZE"):
+        group = split_groups(int(env["TP_SIZE"]))
     mod, name = env["TP_TARGET"].split(":")
     fn = getattr(importlib.import_module(mod), name)
     args = torch.load(os.path.join(env["TP_WORKDIR"], "args.pt"),
@@ -380,20 +499,22 @@ def _block_stack(cfg, seed, device, dtype):
 
 
 def make_tp_forward(group, n_layers, d, d_ff, n_heads, mode, *, sp=False,
-                    device="cpu"):
+                    device="cpu", grad_compress="none"):
     """(init_fn, forward) for an ``n_layers`` block stack under explicit TP
     over ``group``: ``init_fn(seed)`` draws the whole stack (the same on
     every rank) and returns this rank's shard; ``forward(params, x)`` runs
     ``models/model.py::decoder_stack_tp`` on the replicated x (B, S, d) and
     returns the replicated output.  ``sp=True``: the sequence-parallel
-    layout."""
+    layout; ``grad_compress``: the backward exchanges (none / int8 /
+    lowrank)."""
     from repro_torch.core.plan import ExecutionPlan
     from repro_torch.launch import mesh as MX
     from repro_torch.models import model as M
 
     cfg = bench_stack_config(n_layers, d, d_ff, n_heads, mode)
-    plan = ExecutionPlan.from_group(group, tp="explicit",
-                                    sp=sp).validate(cfg)
+    plan = ExecutionPlan.from_group(group, tp="explicit", sp=sp,
+                                    grad_compress=grad_compress
+                                    ).validate(cfg)
 
     def init_fn(seed):
         full = _block_stack(cfg, seed, device, torch.float32)

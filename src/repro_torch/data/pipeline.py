@@ -16,6 +16,11 @@ Two sources:
 
 Both yield dict batches ``{"tokens": (B, S) int32}`` deterministically from a
 seed + step index (restart-safe: the stream is a pure function of the step).
+
+Data parallelism in the port draws the GLOBAL batch on every rank
+(``host_id=0, num_hosts=1``, as the reference's jitted trainer does) and
+keeps this data rank's rows (``shard_rows``), so a run over any number of
+data ranks trains on the batches a one-device run of the seed does.
 """
 from __future__ import annotations
 
@@ -93,6 +98,19 @@ class MemmapTokens:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def shard_rows(batch, rank, n):
+    """Data rank ``rank``'s rows ``[rank B/n, (rank+1) B/n)`` of every
+    (B, ...) array of a global batch; B must divide by ``n``."""
+    out = {}
+    for k, v in batch.items():
+        B = v.shape[0]
+        if B % n:
+            raise ValueError(f"batch {k!r}: {B} rows do not split over {n} "
+                             f"data-parallel ranks")
+        out[k] = v[rank * (B // n):(rank + 1) * (B // n)]
+    return out
 
 
 def unigram_entropy(ds: SyntheticMarkov, n=50_000):

@@ -2,7 +2,8 @@
 
 Port of ``repro/launch/mesh.py:47-147`` (``_BASE``, ``param_specs``,
 ``kv_replicated``) for the explicit-TP stack, where each rank holds its
-shard (there is no production mesh or pod layout: ROADMAP.md Queue 1).
+shard (the reference's 256- and 512-chip pod meshes have no port; data
+parallelism is a process group of its own, ``core.tp.split_groups``).
 Megatron's layout over the block weights:
 
   attention  wq / wk / wv by output columns (whole heads), wo by input rows
@@ -110,3 +111,21 @@ def gather_params(shards, cfg, kv_replicated=None):
             return parts[0]
         return torch.cat([p.detach() for p in parts], dim=spec)
     return _apply(shards[0], specs, join)
+
+
+def gather_over_group(shard, cfg, group, kv_replicated=None):
+    """The full tree from every rank's ``shard`` (params, or an AdamW
+    moment of the same structure) over the TP ``group``, collectively:
+    each sharded leaf is all-gathered into host memory and joined along
+    its dim; replicated leaves are this rank's, as given.  The
+    collective ``gather_params``, for checkpoints."""
+    from repro_torch.core import tp
+    specs = param_specs(shard, cfg, group.size(), kv_replicated)
+
+    def join(path, spec):
+        t = _leaf(shard, path)
+        if spec is None:
+            return t
+        parts = tp.gather_rows(t, group, "checkpoint", host=True)
+        return torch.cat(parts.unbind(0), dim=spec)
+    return _apply(shard, specs, join)

@@ -8,18 +8,24 @@ On the CPU (the kernels' plain versions) add ``--device cpu``.
 ``--ckpt DIR`` saves the state after the last step (``train.checkpoint``:
 the reference's npz + manifest format, which either package restores).
 
-Explicit tensor parallelism runs one process per rank under torchrun's
-variables (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``; ``--init-method``
-defaults to torchrun's ``env://``) with the backend named:
+Explicit tensor parallelism and data parallelism run one process per rank
+under torchrun's variables (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``;
+``--init-method`` defaults to torchrun's ``env://``) with the backend
+named:
 
-    torchrun --nproc-per-node 2 -m repro_torch.launch.train \
-        --arch llama3.2-3b --reduced --tp explicit [--sp] --backend nccl
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch llama3.2-3b --reduced --tp explicit [--sp] --dp 2 \
+        --backend nccl
 
+``--dp N`` makes N data-parallel replicas: with ``--tp explicit`` each of
+``WORLD_SIZE / N`` ranks (TP the inner axis: ranks 0..tp-1 are data rank
+0's TP group), without it pure data parallelism over ``WORLD_SIZE = N``
+ranks.  ``--batch`` is the global batch; each data rank trains on its rows.
 ``--backend nccl`` needs one card per rank; ``gloo`` runs ranks that share
 a card (or the CPU), through host memory.  Rank r runs on card
-``LOCAL_RANK`` modulo the visible cards.  ``--mesh`` (a pod layout with
-data-parallel axes), ``--tp gspmd`` and ``--ckpt`` under TP raise
-(ROADMAP.md Queue 1).
+``LOCAL_RANK`` modulo the visible cards.  ``--ckpt`` writes the one-device
+format from the gathered state.  ``--mesh`` (the reference's pod layouts)
+and ``--tp gspmd`` raise.
 """
 import argparse
 import os
@@ -43,8 +49,11 @@ def main(argv=None):
     ap.add_argument("--sp", action="store_true",
                     help="with --tp explicit: Megatron-SP sequence-parallel "
                          "LN regions")
+    ap.add_argument("--dp", type=int, default=None,
+                    help="data-parallel replicas (under torchrun)")
     ap.add_argument("--backend", default=None, choices=[None, "nccl", "gloo"],
-                    help="with --tp explicit: the torch.distributed backend")
+                    help="with --tp explicit or --dp: the torch.distributed "
+                         "backend")
     ap.add_argument("--init-method", default="env://")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--seed", type=int, default=0)
@@ -54,9 +63,12 @@ def main(argv=None):
 
     if args.mesh:
         raise NotImplementedError(
-            "--mesh: pod layouts (data-parallel axes over a production "
-            "mesh) are not part of the port's distributed slice "
-            "(ROADMAP.md Queue 1); use --tp explicit under torchrun")
+            "--mesh: the reference's pod layouts (256- and 512-chip "
+            "meshes) are not part of the port's distributed slice; run "
+            "data parallelism with --dp N under torchrun (with --tp "
+            "explicit: tp = WORLD_SIZE / N)")
+    if args.dp is not None and args.dp < 1:
+        raise ValueError(f"--dp must be >= 1, got {args.dp}")
     if args.sp and args.tp != "explicit":
         raise ValueError("--sp requires --tp explicit (sequence-parallel "
                          "LN regions live inside the explicit partial-sum "
@@ -72,20 +84,23 @@ def main(argv=None):
     if args.connection:
         cfg = cfg.replace(connection=args.connection)
     device = args.device
-    group = None
+    joined = False
     if args.tp == "gspmd":
         ExecutionPlan(tp=TPStyle.GSPMD).validate(cfg)      # raises
-    if args.tp == "explicit":
-        group, device = _join(args)
-        plan = ExecutionPlan.from_group(group, tp="explicit", sp=args.sp)
+    if args.tp == "explicit" or args.dp is not None:
+        groups, device = _join(args)
+        joined = True
+        plan = ExecutionPlan.from_group(
+            groups.tp, tp=args.tp or "none", sp=args.sp,
+            data_group=groups.dp)
     else:
         plan = ExecutionPlan.single_device()
     plan.validate(cfg)
 
     print(f"training {cfg.arch_id} connection={cfg.connection} "
           f"layers={cfg.n_layers} d={cfg.d_model} tp={plan.tp.value} "
-          f"x{plan.tp_size} sp={plan.sequence_parallel} device="
-          f"{device or 'cuda'}", flush=True)
+          f"x{plan.tp_size} sp={plan.sequence_parallel} dp={plan.dp_size} "
+          f"device={device or 'cuda'}", flush=True)
     try:
         state, hist = trainer.train(
             cfg, steps=args.steps, batch=args.batch, seq_len=args.seq,
@@ -93,7 +108,7 @@ def main(argv=None):
             num_microbatches=args.microbatches, schedule=args.schedule,
             ckpt_dir=args.ckpt, device=device)
     finally:
-        if group is not None:
+        if joined:
             import torch.distributed as dist
             dist.destroy_process_group()
     print(f"final loss {hist[-1]['loss']:.4f}")
@@ -101,21 +116,24 @@ def main(argv=None):
 
 
 def _join(args):
-    """Join the TP group from torchrun's variables -> (group, device)."""
+    """Join the world from torchrun's variables and cut it into the TP and
+    data groups -> (``core.tp.Groups``, device)."""
     import torch
     from repro_torch.core import tp
     if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
         raise RuntimeError(
-            "--tp explicit needs a process group: run one process per rank "
-            "under torchrun (RANK / WORLD_SIZE / LOCAL_RANK)")
+            "--tp explicit / --dp: the run needs a process group: run one "
+            "process per rank under torchrun (RANK / WORLD_SIZE / "
+            "LOCAL_RANK)")
     if args.backend is None:
-        raise ValueError("--tp explicit needs --backend nccl|gloo (nothing "
-                         "picks one)")
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt under tensor parallelism: sharded checkpoints are not "
-            "ported yet (ROADMAP.md Queue 1)")
+        raise ValueError("--tp explicit / --dp need --backend nccl|gloo "
+                         "(nothing picks one)")
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dp = args.dp or 1
+    if world % dp or (args.tp != "explicit" and world != dp):
+        raise ValueError(
+            f"--dp {dp} over WORLD_SIZE {world}: pure data parallelism "
+            f"needs WORLD_SIZE == --dp, with --tp explicit a multiple of it")
     local = int(os.environ.get("LOCAL_RANK", rank))
     device = args.device
     if device is None or device == "cuda":
@@ -123,9 +141,10 @@ def _join(args):
             raise RuntimeError("no CUDA device: pass --device cpu")
         device = f"cuda:{local % torch.cuda.device_count()}"
         torch.cuda.set_device(torch.device(device))
-    group = tp.init_tp_group(args.backend, rank=rank, world_size=world,
-                             init_method=args.init_method)
-    return group, device
+    groups = tp.init_groups(args.backend, rank=rank, world_size=world,
+                            tp_size=world // dp,
+                            init_method=args.init_method)
+    return groups, device
 
 
 if __name__ == "__main__":

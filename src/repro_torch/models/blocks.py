@@ -195,8 +195,10 @@ def block_apply_tp(p, cfg, x, a1_sig, *, is_block0=False, plan, cache=None,
     the other, which also serves every later block: (L + 1) all-reduces
     each way over L layers.  ``a_raw`` is a partial sum on the fused path.
     Under ``plan.sequence_parallel`` x is this rank's sequence shard
-    (``_block_apply_sp``)."""
-    group = plan.tp_axis
+    (``_block_apply_sp``).  Under ``plan.grad_compress`` each *f*'s
+    backward all-reduce runs the compressed exchange
+    (``optim/grad_compress.py``)."""
+    group, gc = plan.tp_axis, plan.grad_compress
     if plan.sequence_parallel:
         return _block_apply_sp(p, cfg, x, a1_sig, positions, window,
                                is_block0=is_block0, plan=plan)
@@ -212,29 +214,29 @@ def block_apply_tp(p, cfg, x, a1_sig, *, is_block0=False, plan, cache=None,
         return L.mlp_apply(p["ffn"], h, cfg.mlp)
 
     if _fused(cfg, is_block0):
-        x_in = tp.enter(x, group)
+        x_in = tp.enter(x, group, gc)
         a = attend(L.norm_apply(p["ln1"], x_in, cfg.norm))
         mlp_in = (fal.block0_mlp_input(cfg, p, x_in, a) if is_block0
                   else fal.mlp_input(cfg, p, x_in, a, a1_sig))
         return x + tp.assemble(a + ffn(mlp_in), group), a, None
 
     if is_block0 and _shared_signal(cfg):
-        x_in = tp.enter(x, group)
+        x_in = tp.enter(x, group, gc)
         a = tp.assemble(attend(L.norm_apply(p["ln1"], x_in, cfg.norm)),
                         group)
-        sig = tp.enter(fal.first_attention_signal(cfg, p, a), group)
+        sig = tp.enter(fal.first_attention_signal(cfg, p, a), group, gc)
         # block 0's MLP input ln2(x) + ln_a(a) is fal's later-block input
         # over the exported signal
         y = tp.assemble(ffn(fal.mlp_input(cfg, p, x_in, a, sig)), group)
         return (x + a) + y, a, sig
 
-    h = tp.enter(L.norm_apply(p["ln1"], x, cfg.norm), group)
+    h = tp.enter(L.norm_apply(p["ln1"], x, cfg.norm), group, gc)
     a = tp.assemble(attend(h), group)
     if cfg.post_norms:
         a = L.norm_apply(p["post_attn"], a, cfg.norm)
     mlp_in = (fal.block0_mlp_input(cfg, p, x, a) if is_block0
               else fal.mlp_input(cfg, p, x, a, a1_sig))
-    y = tp.assemble(ffn(tp.enter(mlp_in, group)), group)
+    y = tp.assemble(ffn(tp.enter(mlp_in, group, gc)), group)
     if cfg.post_norms:
         y = L.norm_apply(p["post_ffn"], y, cfg.norm)
     sig = fal.first_attention_signal(cfg, p, a) if is_block0 else None
@@ -258,8 +260,9 @@ def _block_apply_sp(p, cfg, x_s, a1_sig, positions, window, *, is_block0,
           input over the full sequence and one reduce-scatter(y).
 
     Norms are per token, so they apply to shards or gathered tensors
-    alike."""
-    group = plan.tp_axis
+    alike.  Under ``plan.grad_compress`` the backward all-gather of each
+    reduce-scatter and each *f*'s backward all-reduce are compressed."""
+    group, gc = plan.tp_axis, plan.grad_compress
     x = tp.gather_seq(x_s, group)                      # (B, S, D)
     a = A.gqa_apply(p["attn"], cfg, L.norm_apply(p["ln1"], x, cfg.norm),
                     positions, window=window, plan=plan)
@@ -270,7 +273,7 @@ def _block_apply_sp(p, cfg, x_s, a1_sig, positions, window, *, is_block0,
     if _fused(cfg, is_block0):
         mlp_in = (fal.block0_mlp_input(cfg, p, x, a) if is_block0
                   else fal.mlp_input(cfg, p, x, a, a1_sig))
-        return x_s + tp.scatter_seq(a + ffn(mlp_in), group), a, None
+        return x_s + tp.scatter_seq(a + ffn(mlp_in), group, gc), a, None
 
     sig = None
     if is_block0 and cfg.connection in fal.USES_FIRST_ATTENTION:
@@ -280,14 +283,15 @@ def _block_apply_sp(p, cfg, x_s, a1_sig, positions, window, *, is_block0,
         resid_s = x_s + tp.split_seq(a, group)
         sig = fal.first_attention_signal(cfg, p, a)
         if cfg.connection == "fal":
-            sig_in = tp.enter(sig, group)
+            sig_in = tp.enter(sig, group, gc)
             if _shared_signal(cfg):
                 sig = sig_in
             mlp_in = fal.mlp_input(cfg, p, x, a, sig_in)
         else:
-            mlp_in = fal.block0_mlp_input(cfg, p, x, tp.enter(a, group))
+            mlp_in = fal.block0_mlp_input(cfg, p, x,
+                                          tp.enter(a, group, gc))
     else:
-        a_s = tp.scatter_seq(a, group)                 # complete, sharded
+        a_s = tp.scatter_seq(a, group, gc)             # complete, sharded
         if cfg.post_norms:
             a_s = L.norm_apply(p["post_attn"], a_s, cfg.norm)
         resid_s = x_s + a_s
@@ -295,7 +299,7 @@ def _block_apply_sp(p, cfg, x_s, a1_sig, positions, window, *, is_block0,
         mlp_in_s = (fal.block0_mlp_input(cfg, p, x_s, a_s) if is_block0
                     else fal.mlp_input(cfg, p, x_s, a_s, sig_s))
         mlp_in = tp.gather_seq(mlp_in_s, group)        # LN region -> full
-    y_s = tp.scatter_seq(ffn(mlp_in), group)
+    y_s = tp.scatter_seq(ffn(mlp_in), group, gc)
     if cfg.post_norms:
         y_s = L.norm_apply(p["post_ffn"], y_s, cfg.norm)
     return resid_s + y_s, a, sig

@@ -519,6 +519,11 @@ def _refuse_sharded(plan):
             "tensor parallelism in the serving ticks is not ported yet "
             "(ROADMAP.md Queue 1); core.tp.make_tp_decode_step runs one "
             "block's padded decode tick under explicit TP")
+    if plan.data_group is not None:
+        raise ValueError(
+            "a data-parallel group in a serving tick: a data replica is a "
+            "separate engine (one per rank), and a tick never reduces over "
+            "replicas")
 
 
 def paged_decode_step(params, cfg, batch, cache, plan=None, want="logits"):

@@ -20,7 +20,13 @@ behind that call:
   ``(hi, lo)`` words of the flat index (``iota_2x32_shape``);
 * ``uniform``: ``_uniform`` (``jax/_src/random.py:435``): the top 23 bits
   as a mantissa under the exponent of 1.0, minus 1, times
-  ``maxval - minval``, plus ``minval``, then ``max(minval, .)``.
+  ``maxval - minval``, plus ``minval``, then ``max(minval, .)``;
+* ``normal``: ``_normal_real`` (``jax/_src/random.py``) in float32: a
+  uniform on ``[nextafter(-1, 0), 1)`` through ``sqrt(2) * erfinv(u)``.
+  The uniforms are bit-exact; ``torch.erfinv`` and XLA's ``ErfInv``
+  (a polynomial) may differ in the last ulps, so the normals agree to a
+  few float32 ulps (``tests/test_torch_grad_compress.py`` holds 1e-6
+  relative).
 
 torch has no full uint32 arithmetic, so every word is an int64 tensor
 holding a value in [0, 2**32), masked back to 32 bits after each add and
@@ -31,6 +37,9 @@ global generator.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 MASK = 0xFFFFFFFF
@@ -88,3 +97,15 @@ def uniform(keys, n, minval=0.0, maxval=1.0):
     bits = (random_bits(keys, n) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+#: jax's lower bound of the normal's uniform: the float32 after -1
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
+def normal(keys, n):
+    """``jax.random.normal(key, (n,), float32)`` for each key: (..., 2) ->
+    (..., n) float32 (reshape for a 2-D shape: jax draws it row-major)."""
+    u = uniform(keys, n, minval=_NORMAL_LO, maxval=1.0)
+    return torch.tensor(math.sqrt(2), dtype=torch.float32,
+                        device=keys.device) * torch.erfinv(u)

@@ -21,6 +21,13 @@ restores the other's checkpoint:
 Each leaf reaches the host in one device-to-host copy (a stacked leaf: one
 copy per block, into its slice of the host array); nothing loops over
 elements in Python.
+
+Under tensor and data parallelism (``save_distributed``,
+``restore_sharded``) the file is the one-device format: the data rank 0's
+TP group gathers the params and both AdamW moments into host memory
+(``launch.mesh.gather_over_group``), its rank 0 writes them, and every
+rank waits at a barrier; restoring reads the whole file on each rank's
+host and cuts that rank's shard (``launch.mesh.shard_params``' layout).
 """
 from __future__ import annotations
 
@@ -29,6 +36,10 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.launch import mesh as MX
+from repro_torch.optim.adamw import named_leaves
 
 _STACKED = "blocks_dense"
 
@@ -94,6 +105,59 @@ def save(path, state, step=0, meta=None):
         json.dump(manifest, f, indent=1)
 
 
+def _state_specs(state, cfg, tp_size):
+    """{path in ``state``: sharded dim} of the params and both moments."""
+    trees = {("params",): state["params"], ("opt", "m"): state["opt"]["m"],
+             ("opt", "v"): state["opt"]["v"]}
+    return {prefix + p: s for prefix, tree in trees.items()
+            for p, s in named_leaves(MX.param_specs(tree, cfg, tp_size))
+            if s is not None}
+
+
+def save_distributed(path, state, cfg, plan, step=0, meta=None):
+    """``save`` of a state held under ``plan``'s TP and data groups, in
+    the one-device format: data rank 0's TP ranks gather the params and
+    moments (one all-gather a sharded leaf, direction ``checkpoint``), the
+    rank that is TP and data rank 0 writes, and every rank waits at a
+    barrier of the whole world.  Returns the gathered state (sharded
+    leaves in host memory) on data rank 0's ranks, None on the others."""
+    if plan.dp_rank == 0:
+        if plan.group is not None:
+            opt = state["opt"]
+            state = {"params": MX.gather_over_group(state["params"], cfg,
+                                                    plan.group),
+                     "opt": {"m": MX.gather_over_group(opt["m"], cfg,
+                                                       plan.group),
+                             "v": MX.gather_over_group(opt["v"], cfg,
+                                                       plan.group),
+                             "count": opt["count"]}}
+        if plan.tp_rank == 0:
+            save(path, state, step=step, meta=meta)
+    dist.barrier()
+    return state if plan.dp_rank == 0 else None
+
+
+def restore_sharded(path, like, cfg, plan, step=None):
+    """``restore`` into ``like``, this TP rank's state under ``plan``: the
+    whole file is read on the host and each sharded leaf cut to this
+    rank's part before it reaches ``like``'s device."""
+    specs = _state_specs(like, cfg, plan.tp_size)
+    n, r = plan.tp_size, plan.tp_rank
+
+    def cut(p, arr):
+        s = specs.get(p)
+        if s is None:
+            return arr
+        k = arr.shape[s] // n
+        index = [slice(None)] * arr.ndim
+        index[s] = slice(r * k, (r + 1) * k)
+        return arr[tuple(index)]
+
+    step = latest_step(path) if step is None else step
+    with np.load(os.path.join(path, f"ckpt_{step}.npz")) as data:
+        return _rebuild(data, like, cut)
+
+
 def latest_step(path):
     if not os.path.isfile(os.path.join(path, "manifest.json")):
         return None
@@ -124,7 +188,9 @@ def restore(path, like, step=None):
         return _rebuild(data, like)
 
 
-def _rebuild(data, like):
+def _rebuild(data, like, cut=None):
+    """``like``'s structure from the npz ``data``; ``cut(path, array)``,
+    where given, trims each leaf (``path``: its keys in ``like``)."""
     stacked = {}            # a stacked leaf is read once for all its blocks
 
     def load(key, index):
@@ -134,23 +200,24 @@ def _rebuild(data, like):
             stacked[key] = data[key]
         return stacked[key][index]
 
-    def rebuild(tree, prefix="", index=None):
+    def rebuild(tree, prefix="", index=None, path=()):
         if isinstance(tree, dict):
             out = {}
             for k, v in tree.items():
                 if k == "blocks" and isinstance(v, list) and index is None:
-                    out[k] = [rebuild(b, f"{prefix}{_STACKED}/", i)
+                    out[k] = [rebuild(b, f"{prefix}{_STACKED}/", i,
+                                      path + (k, i))
                               for i, b in enumerate(v)]
                 else:
-                    out[k] = rebuild(v, f"{prefix}{k}/", index)
+                    out[k] = rebuild(v, f"{prefix}{k}/", index, path + (k,))
             return out
         if isinstance(tree, (list, tuple)):
-            return type(tree)(rebuild(v, f"{prefix}{i}/", index)
+            return type(tree)(rebuild(v, f"{prefix}{i}/", index, path + (i,))
                               for i, v in enumerate(tree))
         key = prefix[:-1]
         arr = load(key, index)
         if isinstance(tree, torch.Tensor):
-            return _tensor(arr, tree, key)
+            return _tensor(arr if cut is None else cut(path, arr), tree, key)
         return int(arr)
 
     return rebuild(like)

@@ -16,12 +16,18 @@ once after the last step (``train.checkpoint``, the reference's format, at
 there is none in the reference: resuming is ``checkpoint.restore`` into a
 state of the same structure, then ``step.make_train_step``.
 
-Under an explicit-TP ``plan`` (``ExecutionPlan.from_group``) every rank
-runs ``train`` with the same arguments and data: the weights (drawn from
-``seed`` or given whole in ``params``) are cut to this rank's shard
-(``launch.mesh.shard_params``) and the returned state holds the shard.
-Sharded checkpoints are not ported (ROADMAP.md Queue 1): ``ckpt_dir``
-raises there.
+Under a distributed ``plan`` (``ExecutionPlan.from_group``: explicit TP,
+a data group, or both) every rank runs ``train`` with the same arguments.
+Under TP the weights (drawn from ``seed`` or given whole in ``params``)
+are cut to this rank's shard (``launch.mesh.shard_params``) and the
+returned state holds the shard.  Every rank draws the same GLOBAL batch of
+``batch`` rows (``SyntheticMarkov(..., host_id=0, num_hosts=1)``, as the
+reference's jitted trainer does) and trains on its data rank's rows
+(``data.pipeline.shard_rows``), so a run of a seed over any tp x dp
+layout trains on the batches a one-device run of that seed does;
+``batch`` must divide by ``dp_size * num_microbatches``.  ``ckpt_dir``
+writes the one-device format from the gathered state
+(``checkpoint.save_distributed``).
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.plan import ExecutionPlan
-from repro_torch.data.pipeline import SyntheticMarkov
+from repro_torch.data.pipeline import SyntheticMarkov, shard_rows
 from repro_torch.launch import mesh as MX
 from repro_torch.models import model as M
 from repro_torch.models.model import resolve_device
@@ -51,11 +57,12 @@ def train(cfg, *, steps=200, batch=8, seq_len=128, lr=3e-4, seed=0,
     record into (one is created per run when omitted)."""
     device = resolve_device(device)
     plan = ExecutionPlan.resolve(plan)
+    dp = plan.dp_size
+    if batch % (dp * num_microbatches):
+        raise ValueError(
+            f"batch {batch} does not split into {dp} data-parallel ranks x "
+            f"{num_microbatches} microbatches")
     if plan.use_explicit_tp:
-        if ckpt_dir:
-            raise NotImplementedError(
-                "ckpt_dir under tensor parallelism: sharded checkpoints are "
-                "not ported yet (ROADMAP.md Queue 1)")
         if params is None:
             params = M.init_params(cfg, seed=seed, device=device,
                                    dtype=cfg.param_dtype)
@@ -78,14 +85,15 @@ def train(cfg, *, steps=200, batch=8, seq_len=128, lr=3e-4, seed=0,
     t0 = time.time()
     t_prev = time.perf_counter()
     for i in range(steps):
+        glob = next(it)
         b = {k: torch.from_numpy(np.asarray(v)).to(device)
-             for k, v in next(it).items()}
+             for k, v in shard_rows(glob, plan.dp_rank, dp).items()}
         state, metrics_out = step_fn(state, b)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t_now = time.perf_counter()
         c_steps.inc()
-        c_tokens.inc(int(np.prod(b["tokens"].shape)))
+        c_tokens.inc(int(np.prod(np.shape(glob["tokens"]))))
         h_step_ms.record((t_now - t_prev) * 1e3)
         t_prev = t_now
         if (log_every and i % log_every == 0) or i == steps - 1:
@@ -99,6 +107,7 @@ def train(cfg, *, steps=200, batch=8, seq_len=128, lr=3e-4, seed=0,
                       f"gnorm {m.get('grad_norm', 0):.2f} "
                       f"({m['wall']:.1f}s)", flush=True)
         if eval_every and i and i % eval_every == 0:
+            # the whole global eval batch on every rank: one perplexity
             eb = {k: torch.from_numpy(np.asarray(v)).to(device)
                   for k, v in data.batch_at(10**6 + i).items()}
             em = eval_fn(state["params"], eb)
@@ -107,6 +116,10 @@ def train(cfg, *, steps=200, batch=8, seq_len=128, lr=3e-4, seed=0,
         for cb in callbacks:
             cb(i, state, metrics_out)
     if ckpt_dir:
-        ckpt.save(ckpt_dir, state, step=steps,
-                  meta={"arch": cfg.arch_id, "connection": cfg.connection})
+        meta = {"arch": cfg.arch_id, "connection": cfg.connection}
+        if plan.is_sharded or plan.data_group is not None:
+            ckpt.save_distributed(ckpt_dir, state, cfg, plan, step=steps,
+                                  meta=meta)
+        else:
+            ckpt.save(ckpt_dir, state, step=steps, meta=meta)
     return state, history

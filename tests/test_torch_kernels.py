@@ -220,7 +220,7 @@ def test_port_imports_neither_jax_nor_repro():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
     port = ROOT / "src" / "repro_torch"
-    for f in ("serve/decode.py", "obs/runmeta.py"):
+    for f in ("serve/decode.py", "obs/runmeta.py", "optim/grad_compress.py"):
         assert port / f in files, f
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert hits == []

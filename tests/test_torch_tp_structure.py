@@ -16,6 +16,7 @@ body): forward all-reduces preln 8, fal 5, parallel 4, falplus 8,
 ablation1 8, ablation2 5.  Bytes are each collective's output on a rank.
 """
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -178,7 +179,7 @@ def test_launcher_trains_under_two_ranks(tmp_path):
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    (["--mesh", "single"], NotImplementedError, "pod layouts"),
+    (["--mesh", "single"], NotImplementedError, "pod layouts.*--dp"),
     (["--tp", "gspmd"], NotImplementedError, "gspmd"),
     (["--tp", "explicit"], RuntimeError, "process group"),
     (["--sp"], ValueError, "--sp requires --tp explicit")])
@@ -189,17 +190,37 @@ def test_launcher_refusals(argv, err, match):
         TL.main(args + argv)
 
 
+#: a stand-in for a process group of two ranks (a plan reads its size and
+#: rank only)
+GROUP = types.SimpleNamespace(size=lambda: 2, rank=lambda: 0)
+
+
 @pytest.mark.parametrize("kw,err,match", [
     (dict(tp="gspmd"), NotImplementedError, "no PyTorch counterpart"),
-    (dict(grad_compress="int8"), NotImplementedError, "not ported"),
-    (dict(grad_compress="lowrank"), NotImplementedError, "not ported"),
+    (dict(tp="none", grad_compress="int8"), ValueError,
+     "requires tp='explicit'"),
+    (dict(tp="none", grad_compress="lowrank"), ValueError,
+     "requires tp='explicit'"),
     (dict(grad_compress="zip"), ValueError, "unknown grad_compress"),
-    (dict(data_group=object()), NotImplementedError, "data-parallel"),
     (dict(sp=True, phase="paged"), ValueError, "full-sequence layout")])
 def test_plan_refusals(kw, err, match):
     cfg = get_config("llama3.2-3b").reduced()
     with pytest.raises(err, match=match):
-        ExecutionPlan.from_group(object(), **kw).validate(cfg)
+        ExecutionPlan.from_group(GROUP, **kw).validate(cfg)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(grad_compress="int8"), dict(grad_compress="lowrank"),
+    dict(grad_compress="int8", sp=True), dict(data_group=GROUP),
+    dict(tp="none", data_group=GROUP)])
+def test_plan_validates(kw):
+    """Compressed backward collectives under explicit TP, and a data group
+    with or without TP (``tp='none'``: pure data parallelism)."""
+    cfg = get_config("llama3.2-3b").reduced()
+    plan = ExecutionPlan.from_group(
+        GROUP if kw.get("tp") != "none" else None, **kw)
+    assert plan.validate(cfg) is plan
+    assert plan.dp_size == (2 if "data_group" in kw else 1)
 
 
 def test_nccl_refuses_more_ranks_than_cards():
