@@ -87,7 +87,7 @@ script exits non-zero:
   9. prefix      the repeated-prefix workload cold and hot through
                  EngineConfig(prefix_cache=True), on bf16 and int8 pages
  10. quantized   the profile workload on int8 and on fp8 pages, the model
-                 cut to its first 14 layers (QUANT_LAYERS), read against
+                 cut to its first 7 layers (QUANT_LAYERS), read against
                  the bf16 engine's streams at that depth
  11. padded      padded (B, C) generation at full width and depth: chunk
                  prefill ticks, then 32 greedy C == 1 ticks sequentially and
@@ -138,8 +138,8 @@ script exits non-zero:
                  must refuse four ranks on one card), llama3.2-3b full
                  width, 4 layers, fp32 compute (the reference's int8 gate
                  is against an fp32 all-reduce), remat, a global batch of
-                 2 x 1024 (one row a data rank): rank 0 first trains 3
-                 steps on one device; then 3 steps each of grad_compress
+                 2 x 1024 (one row a data rank): rank 0 first trains 2
+                 steps on one device; then 2 steps each of grad_compress
                  none (losses and grad norms vs one device; one DP
                  all-reduce a step of exactly the local gradient bytes),
                  int8 and lowrank (forward collectives equal to none's;
@@ -164,13 +164,37 @@ script exits non-zero:
                  with window and cap (gemma2's heads, S = 6144 and edge
                  cases) to their plain versions, and phase 4 times them at
                  gemma2's training shape
+ 15. moe         qwen3-moe-30b-a3b (128 experts of 768, top 8, G = 8):
+                 at full width, 2 layers, fp32, one packed, one padded
+                 chunk, one padded C == 1 tick under the dual-branch plan
+                 (MoE blocks take the unfused route: no fused launch), 4
+                 contiguous decode ticks and one train step (B=1, S=256),
+                 card vs CPU with the routing compared (a token may choose
+                 other experts only at a near tie, MOE_GAP_EPS, and its
+                 sequence is then left out of the gate); the engine at
+                 full width and depth (48 layers, bf16, 60.4 GB) serving
+                 16 greedy requests of 64..512 + 32 (packed and LN-add
+                 launches = ticks x 48, no fused dual-branch launch), 2
+                 prefill ticks profiled with the share of dropped (token,
+                 expert) pairs, and again under dual_branch (the same
+                 streams); trainer.train at 2 layers (1.56 B parameters,
+                 fp32 masters, bf16 compute, remat, B=1, S=2048: 1 warm-up,
+                 3 counted, 1 profiled step); then two gloo ranks: explicit
+                 TP in fp32 (2 layers, S=1024, 64 experts a rank: logits
+                 and one trainer step vs one device, fal's L + 1
+                 all-reduces), and expert parallelism on bf16 layers
+                 against moe_apply on one device (a qwen3-moe layer through
+                 moe_apply_sharded, a deepseek-v3 layer (d 7168, 256
+                 experts of 2048, top 8, 16 groups limit 4, a shared
+                 expert) through moe_apply_shard_slot; capacity E / k, so
+                 nothing drops), with their all-to-all counts and bytes
 
-The serving phases (5 to 11a, 14) also launch fused_ln_add: one per layer
+The serving phases (5 to 11a, 14, 15) also launch fused_ln_add: one per layer
 per tick under fal (on the contiguous cache the only kernel a tick runs).
 Every main-path run (6, 8, 8b, each run of 8c and of 9 to 11a, the counted
 steps of 13 and 14, the TP paths of 13a and the DP paths of 13b in each
-rank,
-and each gemma2 engine run) zeroes all launch counters just before it and
+rank, each gemma2 engine run, and in 15 each MoE engine run, the counted
+train steps and each rank's TP forward and trainer step) zeroes all launch counters just before it and
 reads them just after.  The line before the last is a
 JSON object with one entry per kernel; the last line is {"ok": true,
 "device": {...}}.  Without a CUDA device, or outside a checkout, the script
@@ -200,6 +224,7 @@ SXM_BYTES_PER_S = 3.35e12
 PCIE_BYTES_PER_S = 2.0e12
 
 H, HKV, D, PAGE = 24, 8, 128, 16          # llama3.2-3b attention shapes
+MOE_H, MOE_HKV = 32, 4                   # qwen3-moe-30b-a3b's (G = 8)
 
 #: bound on |logit| differences between sequential and dual-branch decode
 #: at llama3.2-3b in bf16 (padded generation phase).  Attention is the same
@@ -666,6 +691,10 @@ def kernel_phase():
     for dtype in (torch.bfloat16, torch.float32):
         errs[dtype] = check_kernel(PA, dtype, tick, H, HKV, D, PAGE,
                                    num_pages, tols[dtype], seed=10)
+        # the MoE engine's tick (phase 15): G = 8 over 4 KV heads
+        check_kernel(PA, dtype, tick, MOE_H, MOE_HKV, D, PAGE, num_pages,
+                     tols[dtype], seed=14)
+    check_plan(PA, tick, MOE_H, MOE_HKV, D, PAGE)
     for d, page, h, hkv in ((64, 16, 6, 2), (32, 16, 8, 2), (128, 4, 12, 4),
                             (128, 8, 4, 4), (64, 4, 16, 2), (32, 8, 3, 1)):
         small = mixed_tick(page=page, num_pages=256, tb=96 // page * 4,
@@ -1918,12 +1947,14 @@ def tick_phase():
 
 
 def padded_tick(cfg, params, label, C, lanes, tb, dual, want_paths,
-                scaled_tol=False):
+                scaled_tol=False, moe=False):
     """One padded (B, C) tick at per-lane (pos, n_valid) over a random
     history: the card (kernels) against the CPU (plain versions).  Returns
     the card run's launch counts.  ``scaled_tol``: the tolerance is 1e-3
     times max(1, the largest |hidden|) (fp32 sums in another order, errors
-    relative to the activations' size)."""
+    relative to the activations' size).  ``moe``: the routing of both runs
+    is compared (``route_flips``); a lane whose routing differs at a near
+    tie is left out of the gate."""
     from repro_torch import interop
     from repro_torch.core.plan import ExecutionPlan
     from repro_torch.kernels import ops
@@ -1946,7 +1977,7 @@ def padded_tick(cfg, params, label, C, lanes, tb, dual, want_paths,
            (("params", params), ("cache", cache), ("batch", batch))}
     ops.reset_dispatch_paths()
     ops.reset_launches()
-    with torch.no_grad():
+    with routes_if(moe) as routes, torch.no_grad():
         h_gpu, c_gpu = M.paged_decode_step(gpu["params"], cfg, gpu["batch"],
                                            gpu["cache"], plan, want="hidden")
         torch.cuda.synchronize()
@@ -1954,8 +1985,13 @@ def padded_tick(cfg, params, label, C, lanes, tb, dual, want_paths,
         h_cpu, c_cpu = M.paged_decode_step(params, cfg, batch, cache, plan,
                                            want="hidden")
     live = torch.arange(C)[None] < n_valid[:, None]               # (B, C)
+    kept = torch.ones(B, dtype=torch.bool)
+    if moe:                     # an MoE call's row b * C + c is lane b's
+        for lane in {r // C for _, r, _ in route_flips(routes, label)}:
+            kept[lane] = False
+        live &= kept[:, None]
     dh = (h_gpu.cpu()[live] - h_cpu[live]).abs().max().item()
-    ds = (c_gpu["a1_sig"].cpu() - c_cpu["a1_sig"]).abs().max().item()
+    ds = (c_gpu["a1_sig"].cpu() - c_cpu["a1_sig"])[kept].abs().max().item()
     top = h_cpu[live].abs().max().item()
     tol = 1e-3 * max(1.0, top) if scaled_tol else 1e-3
     print(f"  (pos, n_valid) {list(lanes)}, Tb={tb}: hidden max |diff| "
@@ -1971,6 +2007,64 @@ def padded_tick(cfg, params, label, C, lanes, tb, dual, want_paths,
     return counts
 
 
+#: near-tie bounds on the router's probabilities: a token may choose other
+#: experts in two runs (the card and the CPU, or a sharded run and one
+#: device) only where the reference run's k-th and (k+1)-th largest
+#: probabilities lie closer than this fraction of the k-th.  fp32: the
+#: router logits of two runs differ by ~1e-6 relative, so 1e-3 leaves three
+#: orders of margin and still calls anything wider a fault.  bf16: the
+#: logits are bf16 (|logit| < 4 at these scales, one ulp <= 2^-6), and one
+#: ulp on each of two logits moves their probabilities' ratio by up to
+#: 2^-5; 2^-4 leaves a factor of two
+MOE_GAP_EPS = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -4}
+
+
+def routes_if(on):
+    """``moe.recording_routes()`` when ``on``, else an empty stand-in."""
+    import contextlib
+    from repro_torch.models import moe as MO
+    return MO.recording_routes() if on else contextlib.nullcontext([])
+
+
+def route_flips(records, label, ref=None, eps=MOE_GAP_EPS[torch.float32],
+                what="card vs CPU"):
+    """``records``: ``moe.recording_routes``'s list over a run, compared
+    call by call with ``ref``'s (the reference run's); without ``ref``,
+    ``records`` holds a card run and then the same run on the CPU, and its
+    second half is the reference.  Prints how many (token, slot) choices
+    differ and, at each token that differs, the reference's probability gap
+    between its k-th and (k+1)-th expert relative to the k-th; fails where
+    a gap is not below ``eps``.  Returns [(call, row, gap)] of the rows
+    that differ."""
+    if ref is None:
+        half = len(records) // 2
+        require(half > 0 and len(records) == 2 * half,
+                f"{label}: {len(records)} routing records, not two equal "
+                f"runs")
+        records, ref = records[:half], records[half:]
+    require(len(records) == len(ref) > 0,
+            f"{label}: {len(records)} routing records against {len(ref)}")
+    flips, n_slots, n_rows = [], 0, 0
+    for i, ((e_a, _), (e_b, p_b)) in enumerate(zip(records, ref)):
+        e_a, e_b, p_b = e_a.cpu(), e_b.cpu(), p_b.float().cpu()
+        k = e_b.shape[-1]
+        same = (e_a[:, :, None] == e_b[:, None, :]).any(-1).sum(-1)
+        top = p_b.topk(k + 1, dim=-1).values
+        gap = (top[:, k - 1] - top[:, k]) / top[:, k - 1]
+        n_slots += int((k - same).sum())
+        n_rows += e_b.shape[0]
+        for r in (same < k).nonzero()[:, 0].tolist():
+            flips.append((i, r, float(gap[r])))
+    far = [f for f in flips if f[2] >= eps]
+    print(f"  routing {what} ({label}): {n_slots} (token, slot) choices "
+          f"differ, at {len(flips)} of {n_rows} token-layers; relative "
+          f"probability gaps there {[f'{g:.2e}' for _, _, g in flips[:8]]} "
+          f"(allowed below {eps:g}: a near tie)", flush=True)
+    require(not far, f"{label}: routing differs where the router's "
+            f"probabilities do not tie: {far[:5]}")
+    return flips
+
+
 #: card vs CPU tolerance on a packed tick's hidden states and a1_sig: fp32
 #: on both sides, sums in another order, activations of order 1 -> 1e-3.
 #: On quantized pages the tick's new K/V rows are quantized on each side
@@ -1981,11 +2075,13 @@ def padded_tick(cfg, params, label, C, lanes, tb, dual, want_paths,
 TICK_TOLS = {"": 1e-3, "int8": 1e-2, "fp8": 1e-2}
 
 
-def packed_tick(cfg, params, kv="", want_paths=None, scaled_tol=False):
+def packed_tick(cfg, params, kv="", want_paths=None, scaled_tol=False,
+                moe=False):
     """One packed tick (``mixed_tick``) over a random history, the card
     against the CPU; ``want_paths``: the card's dispatch paths (default:
-    the packed kernel's site and the LN-add kernel); ``scaled_tol`` as in
-    ``padded_tick``."""
+    the packed kernel's site and the LN-add kernel); ``scaled_tol`` and
+    ``moe`` as in ``padded_tick`` (a slot whose routing differs at a near
+    tie is left out of the gate).  Returns the card run's launch counts."""
     from repro_torch import interop
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
@@ -2006,16 +2102,23 @@ def packed_tick(cfg, params, kv="", want_paths=None, scaled_tol=False):
     gpu = {k: interop.tree_to(v, "cuda") for k, v in
            (("params", params), ("cache", cache), ("batch", batch))}
     ops.reset_dispatch_paths()
-    with torch.no_grad():
+    ops.reset_launches()
+    with routes_if(moe) as routes, torch.no_grad():
         h_gpu, c_gpu = M.paged_decode_step(gpu["params"], cfg, gpu["batch"],
                                            gpu["cache"], want="hidden")
         torch.cuda.synchronize()
-        paths_gpu = ops.dispatch_paths()
+        paths_gpu, counts = ops.dispatch_paths(), ops.launch_counts()
         h_cpu, c_cpu = M.paged_decode_step(params, cfg, batch, cache,
                                            want="hidden")
     live = tok_pos >= 0
+    kept = torch.ones(seg_last.numel(), dtype=torch.bool)
+    if moe:                     # an MoE call's row t is packed token t
+        for slot in {int(tok_slot[r]) for _, r, _ in
+                     route_flips(routes, f"packed tick of {cfg.arch_id}")}:
+            kept[slot] = False
+        live &= kept[tok_slot.long()]
     dh = (h_gpu[0, live.cuda()].cpu() - h_cpu[0, live]).abs().max().item()
-    ds = (c_gpu["a1_sig"].cpu() - c_cpu["a1_sig"]).abs().max().item()
+    ds = (c_gpu["a1_sig"].cpu() - c_cpu["a1_sig"])[kept].abs().max().item()
     scale = h_cpu[0, live].abs().max().item()
     tol = TICK_TOLS[kv] * (max(1.0, scale) if scaled_tol else 1.0)
     codes = ""
@@ -2036,6 +2139,7 @@ def packed_tick(cfg, params, kv="", want_paths=None, scaled_tol=False):
         raise AssertionError("card tick disagrees with the CPU plain path")
     if not torch.isfinite(h_gpu).all():
         raise AssertionError("non-finite hidden states on the card")
+    return counts
 
 
 def spec_tick(cfg, params):
@@ -2500,10 +2604,11 @@ def prefix_engine_phase(cfg, params, ecfg, kv=""):
                 hot["counts"]["paged_packed_attention" + sfx]}
 
 
-#: layers of the quantized engine phases: half of llama3.2-3b's 28 (their
-#: profiled repeats cost ~60 s each at full depth, most of it the
-#: profiler's ~3,500 events a tick)
-QUANT_LAYERS = 14
+#: layers of the quantized engine phases: a quarter of llama3.2-3b's 28
+#: (their profiled repeats cost ~60 s each at full depth, most of it the
+#: profiler's ~3,500 events a tick; 34.5 s each at 14 layers, cut again to
+#: make room for the MoE phases)
+QUANT_LAYERS = 7
 
 
 def quantized_depth(cfg, params, ecfg, prompts):
@@ -2864,7 +2969,8 @@ def contiguous_run(cfg, params, cache, toks, positions, plan):
 
 
 def contiguous_card_vs_cpu(cfg, params, label, lanes, S, n_ticks,
-                           plans=("sequential", "dual"), scaled_tol=False):
+                           plans=("sequential", "dual"), scaled_tol=False,
+                           moe=False):
     """``n_ticks`` contiguous decode ticks at ``lanes`` over a random fp32
     history, on the card (``fused_ln_add``'s kernel) and on the CPU (plain
     versions), from the same CPU ``params`` and cache, for each plan; the
@@ -2872,7 +2978,9 @@ def contiguous_card_vs_cpu(cfg, params, label, lanes, S, n_ticks,
     within TICK_TOLS' fp32 gate (with ``scaled_tol``: times max(1, the
     largest |logit|), as ``padded_tick``'s); on the card the dual-branch
     logits equal the sequential ones bit for bit (the contiguous route has
-    no fused kernel: both plans run the same ops)."""
+    no fused kernel: both plans run the same ops).  ``moe``: as in
+    ``padded_tick``, a lane whose routing differs at a near tie in any tick
+    is left out of the gate."""
     from repro_torch import interop
     from repro_torch.core.plan import ExecutionPlan
     from repro_torch.kernels import ops
@@ -2899,14 +3007,19 @@ def contiguous_card_vs_cpu(cfg, params, label, lanes, S, n_ticks,
         ops.reset_launches()
         ops.reset_dispatch_paths()
         t0 = time.perf_counter()
-        gpu = contiguous_run(cfg, gparams, gcache, toks, positions, plan)
-        secs = time.perf_counter() - t0
-        counts, paths = ops.launch_counts(), ops.dispatch_paths()
-        cpu = contiguous_run(cfg, params, {k: {n: t.clone() for n, t in
-                                               v.items()}
-                                           for k, v in cache.items()},
-                             toks, positions, plan)
-        diff = (gpu - cpu).abs().max().item()
+        with routes_if(moe) as routes:
+            gpu = contiguous_run(cfg, gparams, gcache, toks, positions, plan)
+            secs = time.perf_counter() - t0
+            counts, paths = ops.launch_counts(), ops.dispatch_paths()
+            cpu = contiguous_run(cfg, params, {k: {n: t.clone() for n, t in
+                                                   v.items()}
+                                               for k, v in cache.items()},
+                                 toks, positions, plan)
+        kept = torch.ones(B, dtype=torch.bool)
+        if moe:                 # an MoE call's row b is lane b's token
+            for lane in {r for _, r, _ in route_flips(routes, label)}:
+                kept[lane] = False
+        diff = (gpu - cpu)[:, kept].abs().max().item()
         top = cpu.abs().max().item()
         tol = TICK_TOLS[""] * (max(1.0, top) if scaled_tol else 1.0)
         print(f"  {name}: logits max |diff| {diff:.3e} (max |logit| "
@@ -3170,6 +3283,7 @@ def tick_device_time(name, run, wall_ms, n_ticks, want=(), avoid=()):
 #: small odd shapes (S not a multiple of the 64- or 128-row tiles, G = 1 to
 #: 4, D = 32 also non-causal with G = 3)
 FLASH_SHAPES = (("train", 1, 2048, H, HKV, D, True),
+                ("qwen3-moe train", 1, 2048, MOE_H, MOE_HKV, D, True),
                 ("odd", 2, 77, 4, 2, 32, True),
                 ("odd", 3, 130, 4, 1, 64, True),
                 ("odd", 1, 200, 8, 8, 128, True),
@@ -3215,12 +3329,13 @@ GRAD_TOLS = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 #: (kind, rows, d): the training shapes (llama3.2-3b rmsnorm, gpt2
 #: layernorm), the engine's token budget (263 rows of llama3.2-3b), fewer
 #: rows than the backward's grid of two blocks an SM, the padded decode
-#: tick's 8 lanes, and odd row widths (scalar loads); the first LN_TIMED
-#: are also timed
+#: tick's 8 lanes, odd row widths (scalar loads), and qwen3-moe-30b-a3b's
+#: training and engine rows (phase 15); the first LN_TIMED are also timed
 LN_SHAPES = (("rmsnorm", 2048, 3072), ("layernorm", 2048, 768),
              ("rmsnorm", 263, 3072), ("layernorm", 100, 768),
              ("rmsnorm", 8, 3072), ("rmsnorm", 37, 200),
-             ("layernorm", 5, 1001))
+             ("layernorm", 5, 1001), ("rmsnorm", 2048, 2048),
+             ("rmsnorm", 263, 2048))
 LN_TIMED = 5
 
 
@@ -3735,11 +3850,13 @@ def train_tick_phase():
                                                  dtype="float32"), 2, 256)
 
 
-def train_tick(cfg, B, S, params=None):
+def train_tick(cfg, B, S, params=None, moe=False):
     """One train step of ``cfg`` (fp32) on B x S tokens on the card
     (kernels) against the CPU (plain versions) from the same weights
     (``params`` on the CPU, else drawn from seed 0) and batch: loss, grad
-    norm and post-step params; the card's paths and launches."""
+    norm and post-step params; the card's paths and launches.  ``moe``:
+    the routing of both steps is compared (``route_flips``: only near ties
+    may differ); the loss, norm and params gates stay whole."""
     from repro_torch.kernels import ops
     from repro_torch.optim import adamw
     from repro_torch.train import step as tstep
@@ -3755,10 +3872,13 @@ def train_tick(cfg, B, S, params=None):
     step = tstep.make_train_step(cfg, ocfg)
     ops.reset_dispatch_paths()
     ops.reset_launches()
-    _, m_gpu = step(gpu, {"tokens": batch["tokens"].cuda()})
-    torch.cuda.synchronize()
-    paths, counts = ops.dispatch_paths(), ops.launch_counts()
-    _, m_cpu = step(cpu, batch)
+    with routes_if(moe) as routes:
+        _, m_gpu = step(gpu, {"tokens": batch["tokens"].cuda()})
+        torch.cuda.synchronize()
+        paths, counts = ops.dispatch_paths(), ops.launch_counts()
+        _, m_cpu = step(cpu, batch)
+    if moe:
+        route_flips(routes, f"train step of {cfg.arch_id}")
     d_loss = abs(float(m_gpu["loss"]) - float(m_cpu["loss"]))
     d_norm = abs(float(m_gpu["grad_norm"]) - float(m_cpu["grad_norm"])) \
         / float(m_cpu["grad_norm"])
@@ -4258,8 +4378,9 @@ def tp_report(ranks, backend, smi):
 #: tokens.  fp32 compute (``dp_config``) at S = 2048 needs ~19 GB a rank
 #: (the 16 B a parameter of ~595 M local parameters, the fp32 logits and
 #: the tied embedding's gradients): four such ranks ran the card out of
-#: memory, so the sequence is halved
-DP_TP, DP_SIZE, DP_STEPS, DP_BATCH, DP_SEQ = 2, 2, 3, 2, 1024
+#: memory, so the sequence is halved; 2 steps a method (3 before the MoE
+#: phases needed the time)
+DP_TP, DP_SIZE, DP_STEPS, DP_BATCH, DP_SEQ = 2, 2, 2, 2, 1024
 DP_METHODS = ("none", "int8", "lowrank")
 #: int8's backward wire bytes against "none"'s, at most
 #: (benchmarks/bench_comm.py's gate on the reference)
@@ -4292,9 +4413,9 @@ def _timed(dev, fn):
 
 def dp_rank(groups, ckpt_dir):
     """One rank of the DP phase (spawned by ``core.tp.run_ranks`` with
-    ``tp_size``): rank 0 first trains 3 steps on one device (the global
-    batch of 2); then, with the launch counters zeroed, every rank trains
-    3 steps of each ``grad_compress`` method from the same weights (its
+    ``tp_size``): rank 0 first trains DP_STEPS steps on one device (the
+    global batch of 2); then, with the launch counters zeroed, every rank
+    trains DP_STEPS steps of each ``grad_compress`` method from the same weights (its
     rows of the same global batches; each method's first gradients, read
     through ``on_grads``, against "none"'s; right after "none" its state is
     saved (``checkpoint.save_distributed``) and rank 0 restores it into
@@ -4558,7 +4679,8 @@ def dp_report(ranks, smi):
           f"{r0['ckpt_equal']}; card {smi}", flush=True)
     require(r0["ckpt_equal"] and r0["ckpt_on_card"],
             "the tp x dp checkpoint does not restore bit for bit")
-    summary = {"step_ms": statistics.median(r0["none"]["step_ms"]),
+    # the first step carries each rank's warm-up: the median of the rest
+    summary = {"step_ms": statistics.median(r0["none"]["step_ms"][1:]),
                "dp_all_reduce_ms": statistics.median(
                    r0["dp_all_reduce_ms"]),
                "save_s": r0["save_s"], "restore_s": r0["restore_s"]}
@@ -5218,6 +5340,605 @@ def spec_engine_phase(cfg, params, ecfg):
             "device_ms_per_tick": out["device_ms_per_tick"]}
 
 
+# --------------------------------------------------------------------------- #
+# the MoE family: qwen3-moe-30b-a3b (and one deepseek-v3 MoE layer)
+# --------------------------------------------------------------------------- #
+MOE_ARCH = "qwen3-moe-30b-a3b"
+#: the engine serves the whole model: 48 layers, 60.4 GB of bf16 weights
+MOE_ENGINE_LAYERS = 48
+MOE_ENGINE_REQS, MOE_ENGINE_PROMPT, MOE_ENGINE_NEW = 16, (64, 512), 32
+MOE_PROFILED_TICKS = 2
+MOE_CONTIG_TICKS = 4
+MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 1, 2048, 4
+MOE_TP_SEQ = 1024
+#: the ticks' lanes (llama3.2-3b's, tick_phase): (pos, n_valid)
+MOE_CHUNK_LANES = ((0, 128), (128, 128), (256, 37), (300, 0), (0, 1),
+                   (64, 128), (200, 90), (500, 128))
+MOE_DECODE_LANES = ((0, 1), (15, 1), (16, 1), (300, 1), (511, 1), (100, 0),
+                    (200, 1), (63, 1))
+#: expert parallelism over two ranks: {case: (arch, path, tokens a rank)}.
+#: Capacity is per source shard there, so the sharded paths equal the
+#: one-device moe_apply only where nothing drops: each case sets its
+#: capacity factor so that nothing can (``ep_config``)
+MOE_EP_CASES = {"qwen3-moe layer, moe_apply_sharded":
+                (MOE_ARCH, "sharded", 512),
+                "deepseek-v3 layer, moe_apply_shard_slot":
+                ("deepseek-v3-671b", "shard_slot", 128)}
+#: bf16 gates of the EP paths against moe_apply on one device: the same
+#: expert products over other batches of rows (cuBLAS may sum them in
+#: another order) and, shard-slot, the weighted sum taken per rank and then
+#: across ranks: a few bf16 ulps of the output's largest magnitude; the
+#: input gradient through bf16 autograd, relative to its largest magnitude
+MOE_EP_ULPS = 8
+MOE_EP_GRAD_RTOL = 5e-2
+#: gates of the MoE TP phase, fp32 compute on both sides (bf16 router logits
+#: tie often, and a token routed otherwise at a tie moves every later
+#: position's logits through attention): the partial sums reassociate fp32
+#: sums (~1e-6 relative) -> the fp32 tick gate on logits of order 1; the
+#: trainer step's loss and aux within 1e-4 (``train_tick``'s) and its grad
+#: norm within 1e-3 relative
+MOE_TP_LOGIT_TOL, MOE_TP_LOSS_TOL, MOE_TP_GNORM_RTOL = 1e-3, 1e-4, 1e-3
+
+
+def moe_config(**kw):
+    from repro_torch.configs.base import get_config
+    return get_config(MOE_ARCH).replace(**kw)
+
+
+def moe_tick_phase():
+    """qwen3-moe-30b-a3b at full width, 2 layers (both MoE), fp32: one
+    packed tick, one padded chunk tick, one padded C == 1 tick under the
+    dual-branch plan (MoE blocks take the unfused route: no fused launch),
+    MOE_CONTIG_TICKS contiguous decode ticks, and one train step (B=1,
+    S=256), each on the card against the CPU with the routing compared
+    (``route_flips``): a token may choose other experts only at a near tie,
+    and such a token's sequence is left out of the gate."""
+    from repro_torch import interop
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    cfg = moe_config(n_layers=2, dtype="float32")
+    L, cuda = cfg.n_layers, ops.CUDA
+    phase(f"{MOE_ARCH} ticks at full width, {L} layers, fp32: card vs CPU")
+    t0 = time.perf_counter()
+    params = interop.tree_to(M.init_params(cfg, seed=0, device="cuda",
+                                           dtype="float32"), "cpu")
+    torch.cuda.empty_cache()
+    print(f"  init_params on the card, copied to the CPU: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    counts = packed_tick(cfg, params, scaled_tol=True, moe=True)
+    require(counts["paged_packed_attention"] == L
+            and counts["fused_ln_add"] == L,
+            f"MoE packed tick launches {nonzero(counts)}")
+    padded_tick(cfg, params, "qwen3-moe chunk tick C=128", 128,
+                MOE_CHUNK_LANES, 40, False,
+                {"paged_chunk_attention": cuda, "fused_ln_add": cuda},
+                scaled_tol=True, moe=True)
+    counts = padded_tick(cfg, params, "qwen3-moe dual-branch decode tick C=1",
+                         1, MOE_DECODE_LANES, 64, True,
+                         {"paged_decode_attention": cuda,
+                          "fused_ln_add": cuda}, scaled_tol=True, moe=True)
+    require(counts["fused_dual_branch_decode"] == 0
+            and counts["paged_decode_attention"] == L,
+            f"MoE dual C == 1 tick launches {nonzero(counts)}: MoE blocks "
+            f"must take the unfused route")
+    contiguous_card_vs_cpu(cfg, params, f"{MOE_ARCH} full width, {L} "
+                           f"layers, fp32", CONTIG_LANES, CONTIG_S,
+                           MOE_CONTIG_TICKS, scaled_tol=True, moe=True)
+    phase(f"{MOE_ARCH}: one train step at full width, {L} layers, fp32, "
+          f"B=1, S=256: card vs CPU")
+    train_tick(cfg, 1, 256, params=params, moe=True)
+    del params
+    print(f"  MoE tick phases: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def moe_engine_phase():
+    """qwen3-moe-30b-a3b at full width and depth (48 layers, bf16) through
+    PagedEngine: MOE_ENGINE_REQS greedy requests, the counters zeroed just
+    before and read just after; then MOE_PROFILED_TICKS prefill ticks of the
+    same workload under torch.profiler (device time, busy share) and
+    ``moe.counting_drops`` (the share of (token, expert) pairs over
+    capacity); then the workload through ``EngineConfig(dual_branch=True)``:
+    the same streams, and no fused dual-branch launch (MoE blocks)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MO
+    from repro_torch.optim import adamw
+    from repro_torch.serve.scheduler import (EngineConfig, PagedEngine,
+                                             ServeRequest)
+    cfg = moe_config(n_layers=MOE_ENGINE_LAYERS)
+    L, (lo, hi), new = cfg.n_layers, MOE_ENGINE_PROMPT, MOE_ENGINE_NEW
+    phase(f"engine: {MOE_ARCH}, {L} layers, bf16, {MOE_ENGINE_REQS} greedy "
+          f"requests of {lo}..{hi} prompt tokens + {new}")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for _, t in adamw.named_leaves(params))
+    print(f"  init_params on the card: {time.perf_counter() - t0:.1f} s; "
+          f"{n_par / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+          flush=True)
+    kw = dict(page_size=16, num_pages=1024, slots=8, prefill_chunk=256,
+              max_seq=2048, cache_dtype="bfloat16")
+    rng = np.random.default_rng(28)
+    lens = rng.integers(lo, hi + 1, MOE_ENGINE_REQS)
+    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in lens]
+
+    def serve(engine, base):
+        engine.finished.clear()
+        engine.reset_stats()
+        for i, p in enumerate(prompts):
+            engine.submit(ServeRequest(rid=base + i, prompt=p, max_new=new))
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        ops.reset_dispatch_paths()
+        t = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts, paths, st = (ops.launch_counts(), ops.dispatch_paths(),
+                             engine.stats())
+        streams = {r.rid - base: list(map(int, r.generated)) for r in done}
+        gen = sum(len(v) for v in streams.values())
+        print(f"  {'dual' if engine.plan.dual_branch else 'sequential'}: "
+              f"ticks {st['ticks']}, {gen} tokens in {wall:.2f} s = "
+              f"{gen / wall:.1f} tok/s; engine_dispatch_ms p50 "
+              f"{st['dispatch_ms']['p50']:.2f} p99 "
+              f"{st['dispatch_ms']['p99']:.2f}; ttft_ms p50 "
+              f"{st['ttft_ms']['p50']:.1f}; peak pages "
+              f"{st['pages']['peak_in_use']}/{st['pages']['capacity']}; "
+              f"launches {nonzero(counts)} (ticks x layers = "
+              f"{st['ticks'] * L}); paths {paths}", flush=True)
+        require(len(streams) == MOE_ENGINE_REQS
+                and all(len(v) == new for v in streams.values()),
+                f"not every MoE request finished with {new} tokens")
+        require(counts["paged_packed_attention"] == st["ticks"] * L
+                and counts["fused_ln_add"] == st["ticks"] * L
+                and counts["fused_dual_branch_decode"] == 0
+                and sum(counts.values()) == 2 * st["ticks"] * L,
+                f"MoE engine launches {nonzero(counts)} != ticks x layers")
+        require(paths == {"paged_packed_attention": ops.CUDA,
+                          "fused_ln_add": ops.CUDA},
+                f"MoE engine paths {paths}")
+        return dict(streams=streams, tok_s=gen / wall, wall=wall,
+                    ticks=st["ticks"], p50=st["dispatch_ms"]["p50"],
+                    p99=st["dispatch_ms"]["p99"],
+                    launches=counts["paged_packed_attention"],
+                    ln_launches=counts["fused_ln_add"])
+
+    engine = PagedEngine(cfg, params, EngineConfig(**kw))
+    engine.submit(ServeRequest(rid=-1, prompt=rng.integers(0, cfg.vocab, 32),
+                               max_new=4))
+    engine.run()
+    seq = serve(engine, 0)
+    # where a tick's time goes: prefill ticks of the same workload
+    engine.finished.clear()
+    engine.reset_stats()
+    for i, p in enumerate(prompts):
+        engine.submit(ServeRequest(rid=100 + i, prompt=p, max_new=new))
+    engine.run(max_ticks=1)                # admitted, prefilling
+    torch.cuda.synchronize()
+    n = MOE_PROFILED_TICKS
+    with MO.counting_drops() as drops, profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        engine.run(max_ticks=1 + n)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    summed = sum(r[1] for r in rows)
+    drop_share = int(drops["dropped"]) / max(drops["pairs"], 1)
+    prof_out = dict(drop_share=drop_share, pairs=drops["pairs"] // n)
+    if summed == 0.0:
+        print("  device time: not measured (the profiler saw no CUDA "
+              "kernels)")
+    else:
+        busy = busy_ms(prof) / n
+        prof_out.update(device_ms=busy, busy=busy / (wall / n),
+                        wall_ms=wall / n)
+        print(f"  {n} prefill ticks profiled: device time {busy:.2f} ms a "
+              f"tick busy (kernel times summed {summed / n:.2f}), wall "
+              f"{wall / n:.2f} ms a tick (profiled), busy share "
+              f"{busy / (wall / n):.3f}; dropped (token, expert) pairs "
+              f"{int(drops['dropped'])} of {drops['pairs']} = "
+              f"{drop_share:.4f} (capacity factor {cfg.capacity_factor})")
+        for key, kms, c in sorted(rows, key=lambda r: -r[1])[:8]:
+            print(f"    {kms / n:9.2f} ms a tick {c:6d} calls  {key[:80]}")
+    sys.stdout.flush()
+    del engine
+    torch.cuda.empty_cache()
+    engine = PagedEngine(cfg, params, EngineConfig(**kw, dual_branch=True))
+    dual = serve(engine, 200)
+    same = dual["streams"] == seq["streams"]
+    print(f"  dual-branch streams equal the sequential engine's: {same}",
+          flush=True)
+    require(same, "the MoE dual-branch engine's streams differ")
+    del engine, params
+    torch.cuda.empty_cache()
+    return dict(seq, streams=None, dual_tok_s=dual["tok_s"], **prof_out)
+
+
+def moe_train_phase():
+    """``trainer.train`` at qwen3-moe-30b-a3b's full width, 2 layers (both
+    MoE: 1.56 B parameters), fal, fp32 masters, bf16 compute, remat, B=1,
+    S=2048: one warm-up step and MOE_TRAIN_STEPS - 1 counted steps, then
+    one step under torch.profiler and ``moe.counting_drops``."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as MO
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    from repro_torch.train import trainer
+    cfg = moe_config(n_layers=2)
+    steps, B, S, L = MOE_TRAIN_STEPS, MOE_TRAIN_B, MOE_TRAIN_S, cfg.n_layers
+    phase(f"train: {MOE_ARCH}, {L} layers, {cfg.connection}, fp32 masters, "
+          f"{cfg.dtype} compute, remat {cfg.remat}, B={B}, S={S}, "
+          f"{steps - 1} steps after 1 warm-up")
+    marks = []
+
+    def mark(i, state, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if i == 0:
+            ops.reset_launches()
+            ops.reset_dispatch_paths()
+            torch.cuda.reset_peak_memory_stats()
+
+    state, hist = trainer.train(cfg, steps=steps, batch=B, seq_len=S,
+                                log_every=1, device="cuda", callbacks=[mark])
+    counts, paths = ops.launch_counts(), ops.dispatch_paths()
+    peak = torch.cuda.max_memory_allocated()
+    n_par = sum(t.numel() for _, t in adamw.named_leaves(state["params"]))
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    ms = statistics.median(step_ms)
+    n = steps - 1
+    want = {"flash_attention": n * L * 2, "flash_attention.bwd": n * L,
+            "fused_ln_add": n * L * 2, "fused_ln_add.bwd": n * L}
+    print(f"  {n_par / 1e9:.3f} B parameters; (loss, ce, aux) "
+          f"{[(round(h['loss'], 4), round(h['ce'], 4), round(h['aux'], 4)) for h in hist]}; "
+          f"step ms {['%.1f' % x for x in step_ms]} (median {ms:.1f}); "
+          f"{B * S / ms * 1e3:.1f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated, counted steps); "
+          f"launches {dict((k, counts[k]) for k in want)} (want {want}); "
+          f"paths {paths}", flush=True)
+    require(all(math.isfinite(h[k]) for h in hist
+                for k in ("loss", "ce", "aux")) and hist[-1]["aux"] > 0,
+            "MoE train: a non-finite loss, ce or aux")
+    require(all(counts[k] == v for k, v in want.items()),
+            "MoE train launches != their products")
+    require(paths == {"flash_attention": ops.CUDA, "fused_ln_add": ops.CUDA},
+            f"MoE train paths {paths}")
+    step = tstep.make_train_step(cfg, adamw.AdamWConfig(lr=3e-4))
+    g = torch.Generator().manual_seed(29)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                     dtype=torch.int32).cuda()}
+    torch.cuda.synchronize()
+    with MO.counting_drops() as drops, profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device_ms = busy_ms(prof)
+    # remat runs each forward twice: both runs route the same pairs
+    drop_share = int(drops["dropped"]) / max(drops["pairs"], 1)
+    out = dict(step_ms=ms, tok_s=B * S / ms * 1e3, peak=peak,
+               drop_share=drop_share, n_params=n_par)
+    if device_ms == 0.0:
+        print("  device time: not measured (the profiler saw no CUDA "
+              "kernels)")
+    else:
+        out.update(device_ms=device_ms, busy=device_ms / wall)
+        print(f"  profiled step: wall {wall:.1f} ms, device time "
+              f"{device_ms:.1f} ms busy, busy share {device_ms / wall:.3f}; "
+              f"dropped (token, expert) pairs {drop_share:.4f} of "
+              f"{drops['pairs']} routed (capacity factor "
+              f"{cfg.capacity_factor})", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return ({k: counts[k] for k in want}, out)
+
+
+def ep_config(arch):
+    """The case's layer config with a capacity factor of E / k: then C =
+    T for any T (no expert can take more than every token), so neither the
+    one-device oracle nor a source shard drops a pair; shard-slot's second
+    stage (C2 = 2 ceil(M T k / E cf)) then holds all M T rows too."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    return cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k,
+                       dtype="bfloat16")
+
+
+def ep_weights(cfg, lo, hi, dev, seed=5):
+    """Experts [lo, hi) of a MoE layer and its router (and shared expert),
+    bf16 on ``dev``: each expert drawn from its own seed, so a rank draws
+    only its own and the one-device oracle draws them all alike."""
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    g = torch.Generator(device=dev)
+    bf = torch.bfloat16
+
+    def normal(shape, fan_in):
+        return (torch.randn(shape, generator=g, device=dev)
+                / math.sqrt(fan_in)).to(bf)
+    p = {k: torch.empty((hi - lo,) + s, dtype=bf, device=dev)
+         for k, s in (("wi", (d, f)), ("wg", (d, f)), ("wo", (f, d)))}
+    for e in range(lo, hi):
+        g.manual_seed(seed * 1_000_003 + e)
+        p["wi"][e - lo] = normal((d, f), d)
+        p["wg"][e - lo] = normal((d, f), d)
+        p["wo"][e - lo] = normal((f, d), f)
+    g.manual_seed(seed * 1_000_003 - 1)
+    p["router"] = normal((d, E), d)
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        p["shared"] = {"wi": normal((d, fs), d), "wg": normal((d, fs), d),
+                       "wo": normal((fs, d), fs)}
+    return p
+
+
+def ep_inputs(cfg, T, dev):
+    """x and the output gradient (1, T, d), bf16, from fixed seeds."""
+    g = torch.Generator(device=dev).manual_seed(33)
+    x = torch.randn((1, T, cfg.d_model), generator=g, device=dev)
+    dy = torch.randn((1, T, cfg.d_model), generator=g, device=dev)
+    return x.to(torch.bfloat16), dy.to(torch.bfloat16)
+
+
+def ep_oracle(path):
+    """``moe_apply`` on one device for each MOE_EP_CASES case over both
+    ranks' tokens: its output, the input's gradient and its routing (the
+    experts and probabilities) saved (on the host) to ``path`` for the
+    ranks; no pair may drop."""
+    from repro_torch.models import moe as MO
+    refs = {}
+    for name, (arch, _, t_rank) in MOE_EP_CASES.items():
+        cfg = ep_config(arch)
+        t0 = time.perf_counter()
+        p = ep_weights(cfg, 0, cfg.n_experts, "cuda")
+        x, dy = ep_inputs(cfg, TP_SIZE * t_rank, "cuda")
+        x.requires_grad_(True)
+        with MO.counting_drops() as drops, MO.recording_routes() as routes:
+            y, _ = MO.moe_apply(p, cfg, x)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        n_par = sum(t.numel() for t in (p["wi"], p["wg"], p["wo"],
+                                         p["router"]))
+        n_par += sum(t.numel() for t in p.get("shared", {}).values())
+        (e, probs), = routes
+        refs[name] = (y.detach().cpu(), x.grad.cpu(), e.cpu(), probs.cpu())
+        print(f"  {name}: {n_par / 1e9:.2f} B parameters "
+              f"({2 * n_par / 1e9:.1f} GB bf16) on one device, "
+              f"{int(drops['dropped'])} of {drops['pairs']} pairs dropped "
+              f"(capacity factor {cfg.capacity_factor:g}); "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        require(int(drops["dropped"]) == 0, "the EP oracle dropped pairs")
+        del p, x, y, dy
+        torch.cuda.empty_cache()
+    torch.save(refs, path)
+
+
+def moe_rank(group, oracle_path):
+    """One rank of the MoE TP / EP phase (spawned by ``core.tp.run_ranks``).
+    Explicit TP at qwen3-moe-30b-a3b's full width, 2 layers, 64 experts a
+    rank, fp32 compute: the one-device references first (logits and their
+    routing; on rank 0 one trainer step), then with the counters zeroed the
+    TP forward (its routing against one device's: positions from the first
+    token routed otherwise at a near tie on are left out of the logits
+    gate, B = 1) and one TP trainer step.  Expert parallelism: each MOE_EP_CASES case on this
+    rank's tokens and experts, forward and backward, against the oracle.
+    Returns numbers only."""
+    import torch.distributed as dist
+    from repro_torch.core import tp
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as MX
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MO
+    from repro_torch.train import trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, size = dist.get_rank(), dist.get_world_size()
+    dev = tp_device(rank)
+    out = {"rank": rank, "device": str(dev)}
+    plan = ExecutionPlan.from_group(group, tp="explicit")
+    cfg = moe_config(n_layers=2, dtype="float32")
+    g = torch.Generator().manual_seed(31)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, MOE_TP_SEQ),
+                                     generator=g, dtype=torch.int32).to(dev)}
+    full = M.init_params(cfg, seed=0, device=dev)
+    with torch.no_grad(), MO.recording_routes() as ref_routes:
+        ref_logits = M.forward(full, cfg, batch)[0]
+    shard = MX.shard_params(full, cfg, rank, size)
+    del full
+    torch.cuda.empty_cache()
+    tcfg = moe_config(n_layers=2, remat=True, dtype="float32")
+    if rank == 0:
+        _, hist = trainer.train(tcfg, steps=1, batch=1, seq_len=MOE_TP_SEQ,
+                                log_every=1, device=dev)
+        out["one_device_train"] = [(h["loss"], h["grad_norm"], h["aux"])
+                                   for h in hist]
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    def part(name, fn):
+        ops.reset_launches()
+        ops.reset_dispatch_paths()
+        tp.reset_collectives()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        out[name] = dict(res or {}, ms=(time.perf_counter() - t0) * 1e3,
+                         counts=tp.collective_counts(),
+                         launches=nonzero(ops.launch_counts()),
+                         paths=ops.dispatch_paths())
+
+    def forward():
+        with torch.no_grad(), MO.recording_routes() as routes:
+            logits = M.forward(shard, cfg, batch, plan)[0]
+        flips = route_flips(routes, f"rank {rank}, TP forward",
+                            ref=ref_routes, what="TP vs one device")
+        first = min([r for _, r, _ in flips], default=MOE_TP_SEQ)
+        return {"logit_err": max_err(logits[:, :first],
+                                     ref_logits[:, :first]),
+                "logit_top": ref_logits.float().abs().max().item(),
+                "logit_sum": logits.float().sum().item(),
+                "gated": first}
+    part("forward", forward)
+    del ref_logits, shard, ref_routes
+    torch.cuda.empty_cache()
+
+    def train():
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, hist = trainer.train(tcfg, steps=1, batch=1, seq_len=MOE_TP_SEQ,
+                                log_every=1, plan=plan, device=dev)
+        return {"hist": [(h["loss"], h["grad_norm"], h["aux"])
+                         for h in hist],
+                "peak": torch.cuda.max_memory_allocated(dev)}
+    part("train", train)
+    torch.cuda.empty_cache()
+
+    refs = torch.load(oracle_path)
+    for name, (arch, path, t_rank) in MOE_EP_CASES.items():
+        ecfg = ep_config(arch)
+        n_loc = ecfg.n_experts // size
+        p = ep_weights(ecfg, rank * n_loc, (rank + 1) * n_loc, dev)
+        x, dy = ep_inputs(ecfg, size * t_rank, dev)
+        sl = slice(rank * t_rank, (rank + 1) * t_rank)
+        x = x[:, sl].clone().requires_grad_(True)
+        fn = {"sharded": MO.moe_apply_sharded,
+              "shard_slot": MO.moe_apply_shard_slot}[path]
+        res = {}
+
+        def fwd():
+            with MO.recording_routes() as routes:
+                res["y"], res["aux"] = fn(p, ecfg, x, group)
+            res["routes"] = routes
+
+        def bwd():
+            res["y"].backward(dy[:, sl])
+        part(f"ep {name} forward", fwd)
+        part(f"ep {name} backward", bwd)
+        y_ref, dx_ref, e_ref, p_ref = refs[name]
+        y_ref, dx_ref = y_ref[:, sl], dx_ref[:, sl]
+        # a token is its own row here (no attention): a token routed
+        # otherwise at a near tie is left out of the gates
+        flips = route_flips(res["routes"], f"rank {rank}, {name}",
+                            ref=[(e_ref[sl], p_ref[sl])],
+                            eps=MOE_GAP_EPS[torch.bfloat16],
+                            what="vs one device")
+        kept = torch.ones(t_rank, dtype=torch.bool)
+        kept[[r for _, r, _ in flips]] = False
+        out[name] = {"err": max_err(res["y"].cpu()[:, kept], y_ref[:, kept]),
+                     "ulp": bf16_ulp(y_ref),
+                     "grad_err": max_err(x.grad.cpu()[:, kept],
+                                         dx_ref[:, kept]),
+                     "grad_top": dx_ref.float().abs().max().item(),
+                     "finite": bool(torch.isfinite(res["y"]).all()
+                                    and torch.isfinite(x.grad).all()),
+                     "experts": n_loc, "tokens": t_rank,
+                     "flipped": len(flips)}
+        del p, x, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_dist_phase(smi):
+    """Explicit TP and expert parallelism of the MoE family over two gloo
+    ranks on this card (``moe_rank``); the EP oracle first, on one device
+    in this process.  Returns rank 0's launches on the TP paths."""
+    import tempfile
+    from repro_torch.core import tp
+    phase(f"MoE expert parallelism: the one-device oracle ({', '.join(MOE_EP_CASES)})")
+    with tempfile.TemporaryDirectory(prefix="moe_ep_") as tmp:
+        oracle = os.path.join(tmp, "oracle.pt")
+        ep_oracle(oracle)
+        phase(f"MoE tensor and expert parallelism: gloo, world size "
+              f"{TP_SIZE}, {MOE_ARCH} full width, 2 layers, fp32, "
+              f"S={MOE_TP_SEQ}, {128 // TP_SIZE} experts a rank; card {smi}")
+        t0 = time.perf_counter()
+        ranks = tp.run_ranks("chip_smoke:moe_rank", TP_SIZE, backend="gloo",
+                             args=(oracle,), timeout=900)
+    print(f"  {TP_SIZE} ranks done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return moe_dist_report(ranks, smi)
+
+
+def moe_dist_report(ranks, smi):
+    """Print and gate ``moe_rank``'s results."""
+    L = 2
+    one = ranks[0]["one_device_train"]
+    for r in ranks:
+        f, t = r["forward"], r["train"]
+        print(f"  rank {r['rank']}: fp32 forward logits vs one device over "
+              f"the first {f['gated']} positions: max |diff| "
+              f"{f['logit_err']:.3e} (max |logit| {f['logit_top']:.3f}; tol "
+              f"{MOE_TP_LOGIT_TOL}); all-reduces "
+              f"{_ar(f['counts'])} (want fal's L + 1 = {L + 1}), all-to-alls "
+              f"{_ar(f['counts'], kind='all-to-all')}; {f['ms']:.1f} ms; "
+              f"launches {f['launches']}", flush=True)
+        require(f["logit_err"] <= MOE_TP_LOGIT_TOL, "MoE TP logits "
+                "disagree with the one-device forward")
+        require(_ar(f["counts"]) == L + 1
+                and _ar(f["counts"], kind="all-to-all") == 0,
+                "MoE TP forward collectives")
+        print(f"  rank {r['rank']}: one trainer step (fal, fp32, remat) TP "
+              f"(loss, grad_norm, aux) "
+              f"{[tuple(round(v, 6) for v in h) for h in t['hist']]}, one "
+              f"device {[tuple(round(v, 6) for v in h) for h in one]} (tol "
+              f"{MOE_TP_LOSS_TOL} / relative {MOE_TP_GNORM_RTOL}); "
+              f"{t['ms']:.1f} ms "
+              f"with init over gloo through host memory; peak "
+              f"{t['peak'] / 2**30:.2f} GiB; all-reduces forward "
+              f"{_ar(t['counts'])}, backward {_ar(t['counts'], 'backward')}, "
+              f"step {_ar(t['counts'], 'step')}; launches {t['launches']}; "
+              f"card {smi}", flush=True)
+        for (la, ga, xa), (lb, gb, xb) in zip(t["hist"], one):
+            require(abs(la - lb) <= MOE_TP_LOSS_TOL
+                    and abs(xa - xb) <= MOE_TP_LOSS_TOL
+                    and abs(ga - gb) <= MOE_TP_GNORM_RTOL * gb,
+                    "MoE TP training disagrees with one device")
+        for name, (arch, path, t_rank) in MOE_EP_CASES.items():
+            e = r[name]
+            fw, bw = r[f"ep {name} forward"], r[f"ep {name} backward"]
+            a2a = {d: (_ar(c, d, kind="all-to-all"),
+                       _ar(c, d, "bytes", kind="all-to-all"))
+                   for c, d in ((fw["counts"], "forward"),
+                                (bw["counts"], "backward"))}
+            print(f"  rank {r['rank']}: {name}: {e['experts']} experts and "
+                  f"{e['tokens']} tokens a rank ({e['flipped']} routed "
+                  f"otherwise at a near tie, left out); output vs one-device "
+                  f"moe_apply max |diff| {e['err']:.4e} (tol {MOE_EP_ULPS} "
+                  f"bf16 ulps = {MOE_EP_ULPS * e['ulp']:.4e}); input "
+                  f"gradient max |diff| {e['grad_err']:.4e} (max "
+                  f"{e['grad_top']:.4f}, tol {MOE_EP_GRAD_RTOL} of it); "
+                  f"all-to-alls (calls, bytes) forward {a2a['forward']}, "
+                  f"backward {a2a['backward']}; all-reduces forward "
+                  f"{_ar(fw['counts'])}, backward "
+                  f"{_ar(bw['counts'], 'backward')}; forward "
+                  f"{fw['ms']:.1f} ms, backward {bw['ms']:.1f} ms (gloo "
+                  f"through host memory)", flush=True)
+            want = (2, 2) if path == "sharded" else (4, 3)
+            require(e["finite"] and e["err"] <= MOE_EP_ULPS * e["ulp"]
+                    and e["grad_err"] <= MOE_EP_GRAD_RTOL * e["grad_top"],
+                    f"{name} disagrees with moe_apply on one device")
+            require((a2a["forward"][0], a2a["backward"][0]) == want,
+                    f"{name}: all-to-all calls {a2a} != {want}")
+    require(len({r["forward"]["logit_sum"] for r in ranks}) == 1,
+            "MoE TP logits differ across ranks")
+    from repro_torch.kernels import ops
+    for r in ranks:
+        require(r["forward"]["paths"] == {"flash_attention": ops.CUDA,
+                                          "fused_ln_add": ops.CUDA},
+                f"MoE TP forward paths {r['forward']['paths']}")
+    return ranks[0]["forward"]["launches"], ranks[0]["train"]["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5291,6 +6012,12 @@ def main():
     g2_launches, g2_train = gemma2_train_phase()
     g2_engine = gemma2_engine_phase()
     print(f"  gemma2 phases: {time.perf_counter() - t_g2:.1f} s", flush=True)
+    t_moe = time.perf_counter()
+    moe_tick_phase()
+    moe_eng = moe_engine_phase()
+    moe_train_launches, moe_train = moe_train_phase()
+    moe_tp_launches = moe_dist_phase(smi)
+    print(f"  MoE phases: {time.perf_counter() - t_moe:.1f} s", flush=True)
     src = "src/repro_torch/kernels/csrc/"
     pa = "src/repro/kernels/paged_attention.py"
     where = {
@@ -5336,14 +6063,28 @@ def main():
         if kname == "paged_packed_attention":
             entry.update(seeded_engine_launches=seeded_launches,
                          spec_engine_launches=spec["launches"],
-                         spec_engine_formula=spec["formula"])
+                         spec_engine_formula=spec["formula"],
+                         moe_engine_launches=moe_eng["launches"],
+                         moe_engine_formula=f"ticks x layers = "
+                         f"{moe_eng['ticks']} x {MOE_ENGINE_LAYERS}")
         elif kname == "fused_ln_add":
             entry.update(spec_engine_launches=spec["ln_launches"],
                          spec_engine_formula=spec["formula"],
                          gemma2_engine_launches=g2_engine["launches"],
                          contiguous_decode_launches=contig_launches[
                              "decode_step"],
-                         batcher_launches=contig_launches["batcher"])
+                         batcher_launches=contig_launches["batcher"],
+                         moe_engine_launches=moe_eng["ln_launches"])
+        elif kname == "fused_dual_branch_decode":
+            # MoE blocks take the unfused route on C == 1 ticks
+            entry["moe_engine_launches"] = 0
+        if kname in moe_train_launches:
+            # the MoE training path (3 counted steps, 2 layers, remat) and
+            # rank 0's launches on the MoE TP forward and trainer step
+            entry["moe_train_launches"] = moe_train_launches[kname]
+            entry["moe_tp_launches"] = {
+                "forward": moe_tp_launches[0].get(kname, 0),
+                "train": moe_tp_launches[1].get(kname, 0)}
         if kname in tp_launches:
             # rank 0's launches on the tensor-parallel paths (phase 13a)
             entry["tp_launches"] = tp_launches[kname]
@@ -5373,7 +6114,10 @@ def main():
           f"train {g2_train['step_ms']:.1f} ms/step (peak "
           f"{g2_train['peak'] / 2**30:.2f} GiB), engine "
           f"{g2_engine['tok_s']:.1f} tok/s, prefill tick "
-          f"{g2_engine['tick_device_ms']:.2f} ms of device time; card {smi}")
+          f"{g2_engine['tick_device_ms']:.2f} ms of device time; "
+          f"{MOE_ARCH} ({MOE_ENGINE_LAYERS} layers) engine "
+          f"{moe_eng['tok_s']:.1f} tok/s, MoE train "
+          f"{moe_train['step_ms']:.1f} ms/step; card {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -6,8 +6,8 @@ a process group in its place (``ExecutionPlan.from_group``), whose ranks
 are the tensor-parallel shards.  Plan axes:
 
 * ``phase``  -- train | eval | prefill | decode | paged.
-* ``tp``     -- none | gspmd | explicit.  ``explicit`` runs the dense
-  decoder through the explicit partial-sum stack
+* ``tp``     -- none | gspmd | explicit.  ``explicit`` runs the decoder
+  (dense or MoE) through the explicit partial-sum stack
   (``models/model.py::decoder_stack_tp``): each rank holds its shard of the
   block weights (``launch/mesh.py::shard_params``) and the blocks pay the
   paper's per-block collectives (``core/tp.py``).  ``gspmd`` has no PyTorch
@@ -81,7 +81,7 @@ class TPStyle(enum.Enum):
 
 
 #: families with an explicit partial-sum TP stack in the port
-EXPLICIT_TP_FAMILIES = ("dense",)
+EXPLICIT_TP_FAMILIES = ("dense", "moe")
 
 #: families whose decode path runs FAL transformer blocks
 DUAL_BRANCH_FAMILIES = ("dense", "moe", "vlm", "hybrid")
@@ -264,8 +264,8 @@ class ExecutionPlan:
                 "branch cannot be issued concurrently with the KV gather")
 
     def _check_divisibility(self, cfg):
-        """Explicit TP shards heads and the FFN hidden evenly: fail loudly
-        when the config does not divide."""
+        """Explicit TP shards heads, the FFN hidden and the experts
+        evenly: fail loudly when the config does not divide."""
         tp_size = self.tp_size
 
         def div(n, what):
@@ -280,6 +280,10 @@ class ExecutionPlan:
             raise ValueError(f"explicit TP: n_kv_heads={cfg.n_kv_heads} "
                              f"divides neither way with tp_size={tp_size}")
         div(cfg.dense_d_ff or cfg.d_ff, "d_ff")
+        if cfg.n_experts:
+            div(cfg.n_experts, "n_experts")
+            if cfg.n_shared_experts:
+                div(cfg.moe_d_ff * cfg.n_shared_experts, "shared-expert d_ff")
 
 
 def local_kv_heads(cfg, tp_size: int) -> int:

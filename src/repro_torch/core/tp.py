@@ -17,6 +17,9 @@ rank is a process holding its shard of the block weights
   split_seq     this rank's slice of a replicated tensor; backward
                 all-gather
   unsplit_seq   all-gather to the replicated tensor; backward the slice
+  all_to_all    row j of a (n, ...) tensor to rank j; backward the
+                reverse all-to-all (the expert-parallel MoE's dispatch,
+                return and metadata exchanges, ``models/moe.py``)
 
 Per block and connection mode the structure is the paper's Fig 2 (preln /
 falplus two all-reduces, fal / parallel one, fal's block 0 the one extra
@@ -167,6 +170,19 @@ def _seq_slice(t, group):
     return t.narrow(1, r * s, s).contiguous()
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return exchange_rows(x, group, "forward")
+
+    @staticmethod
+    def backward(ctx, g):
+        # row i of the output came from rank i, so its gradient goes back
+        # to rank i: the same exchange
+        return exchange_rows(g, ctx.group, "backward"), None
+
+
 class _Assemble(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -242,6 +258,13 @@ class _UnsplitSeq(torch.autograd.Function):
 def assemble(partial, group):
     """Sum a TP partial sum over ``group`` (*g*); identity without one."""
     return partial if group is None else _Assemble.apply(partial, group)
+
+
+def all_to_all(x, group):
+    """All-to-all of a (n, ...) tensor over the n ranks of ``group`` (row
+    j to rank j; row i of the result from rank i), counted, with the
+    reverse all-to-all as its backward."""
+    return _AllToAll.apply(x, group)
 
 
 def enter(x, group, compress="none"):
@@ -558,9 +581,9 @@ def make_tp_decode_step(group, cfg, *, dual=False, page_size=8,
         return params, cache
 
     def step(params, x, cache, bt, pos, n_valid, a1_sig):
-        out, _ = BL.block_apply(params, cfg, x, a1_sig, plan=inner,
-                                cache=cache, block_tables=bt, pos=pos,
-                                n_valid=n_valid)
+        out = BL.block_apply(params, cfg, x, a1_sig, plan=inner,
+                             cache=cache, block_tables=bt, pos=pos,
+                             n_valid=n_valid)[0]
         return out, cache
 
     return init_fn, step

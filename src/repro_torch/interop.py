@@ -3,8 +3,9 @@
 ``params_from_numpy(tree, cfg, device=None, dtype=None)`` takes the
 reference's parameter tree with every leaf converted to a numpy array
 (``jax.tree.map(np.asarray, params)``) and returns the port's tree: the
-stacked ``blocks_dense`` leaves (leading layer axis) become a list of
-per-layer dicts under ``"blocks"``, matmul weights and embeddings are cast to
+stacked ``blocks_dense`` and then ``blocks_moe`` leaves (leading layer
+axis) become one list of per-layer dicts under ``"blocks"``, in depth order
+(a MoE block's expert leaves stay 3-D), matmul weights and embeddings are cast to
 ``dtype`` (None: ``cfg.dtype``, the serving storage; training passes
 ``cfg.param_dtype`` to keep the reference's fp32 masters) and norm scales and
 biases stay fp32.  bfloat16 leaves come through fp32, because
@@ -50,23 +51,27 @@ def _unstack(tree, i):
     return np.asarray(tree)[i]
 
 
+#: the reference's stacks of the blocks after block 0, in depth order
+STACKS = ("blocks_dense", "blocks_moe")
+
+
 def params_from_numpy(tree, cfg, device=None, dtype=None):
-    """The reference's dense-decoder params (numpy leaves) -> the port's,
-    on ``device`` (None: the card, via ``models.model.resolve_device``),
+    """The reference's decoder params (numpy leaves) -> the port's, on
+    ``device`` (None: the card, via ``models.model.resolve_device``),
     matmul weights and embeddings in ``dtype`` (None: ``cfg.dtype``)."""
-    from repro_torch.models.model import resolve_device
-    if "blocks_moe" in tree:
-        raise NotImplementedError(
-            "MoE parameters come with the family-breadth slice of the "
-            "PyTorch port")
+    from repro_torch.models.model import check_supported, resolve_device
+    check_supported(cfg)
     dtype = getattr(torch, dtype or cfg.dtype)
     device = resolve_device(device)
     out = {k: _convert(v, dtype, device) for k, v in tree.items()
-           if k != "blocks_dense"}
-    stacked = tree.get("blocks_dense")
-    n = 0 if stacked is None else len(np.asarray(stacked["ln1"]["scale"]))
-    out["blocks"] = [_convert(_unstack(stacked, i), dtype, device)
-                     for i in range(n)]
+           if k not in STACKS}
+    out["blocks"] = []
+    for name in STACKS:
+        stacked = tree.get(name)
+        n = 0 if stacked is None else len(np.asarray(
+            stacked["ln1"]["scale"]))
+        out["blocks"] += [_convert(_unstack(stacked, i), dtype, device)
+                          for i in range(n)]
     return out
 
 

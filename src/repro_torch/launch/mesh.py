@@ -1,6 +1,6 @@
-"""Tensor-parallel layout of the dense decoder's parameters.
+"""Tensor-parallel layout of the decoder's parameters.
 
-Port of ``repro/launch/mesh.py:47-147`` (``_BASE``, ``param_specs``,
+Port of ``repro/launch/mesh.py:47-147`` (``_BASE``, ``_MOE``, ``param_specs``,
 ``kv_replicated``) for the explicit-TP stack, where each rank holds its
 shard (the reference's 256- and 512-chip pod meshes have no port; data
 parallelism is a process group of its own, ``core.tp.split_groups``).
@@ -8,6 +8,9 @@ Megatron's layout over the block weights:
 
   attention  wq / wk / wv by output columns (whole heads), wo by input rows
   FFN        wi / wg by columns, wo by rows
+  MoE FFN    the experts' wi / wg / wo by experts (dim 0), the router
+             replicated, the shared expert like a dense FFN (``_MOE``,
+             reference ``:71-76``)
   the rest   replicated: norms, qk-norms, and outside the blocks the
              embedding, positions, final norm and head (the stack shards
              only the blocks, reference ``model.py:180-185``)
@@ -20,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.plan import kv_replicated as _kv_replicated
+from repro_torch.models.blocks import is_moe
 from repro_torch.optim.adamw import map_tree, named_leaves
 
 #: dim each block leaf is sharded along: 1 columns, 0 rows
@@ -27,12 +31,20 @@ _BLOCK = {("attn", "wq"): 1, ("attn", "wk"): 1, ("attn", "wv"): 1,
           ("attn", "wo"): 0, ("ffn", "wi"): 1, ("ffn", "wg"): 1,
           ("ffn", "wo"): 0}
 _KV = (("attn", "wk"), ("attn", "wv"))
+#: a MoE FFN's leaves: (E, d, f) / (E, f, d) experts split by experts, the
+#: shared expert's swiglu MLP as a dense FFN; the router is replicated
+_MOE = {("ffn", "wi"): 0, ("ffn", "wg"): 0, ("ffn", "wo"): 0,
+        ("shared", "wi"): 1, ("shared", "wg"): 1, ("shared", "wo"): 0}
 
 
 def _block_specs(block, kv_rep):
+    moe = is_moe(block)
+
     def spec(path):
         if kv_rep and path[-2:] in _KV:
             return None
+        if moe and path[0] == "ffn":
+            return _MOE.get(path[-2:])
         return _BLOCK.get(path[-2:])
     return _tree_of(block, spec)
 

@@ -17,8 +17,10 @@ whose MLP input needs the block's assembled attention
 (``fal.attention_must_assemble``) pay two all-reduces, the others add the
 MHA and MLP partials locally and pay ONE.  With
 ``plan.sequence_parallel`` the same fork runs in the Megatron-SP layout
-(``_block_apply_sp``).  No MoE, MLA or cross-attention: those come in later
-slices of the port.
+(``_block_apply_sp``).  A block's FFN is a dense MLP or a MoE layer
+(``kind``, ``models/moe.py``): ``_ffn_apply`` returns its output and the
+MoE's load-balance aux, which every apply function carries out.  No MLA
+or cross-attention: those come in later slices of the port.
 """
 from __future__ import annotations
 
@@ -27,15 +29,21 @@ from repro_torch.core import tp
 from repro_torch.core.plan import ExecutionPlan, Phase
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
-def block_init(gen, cfg, dtype, device, *, is_block0=False):
+def block_init(gen, cfg, dtype, device, *, kind="dense", is_block0=False):
+    """kind: 'dense' (``cfg.mlp`` FFN of ``dense_d_ff or d_ff``) or 'moe'
+    (``moe.moe_init``)."""
     d = cfg.d_model
     p = {"ln1": L.norm_init(d, cfg.norm, device),
          "ln2": L.norm_init(d, cfg.norm, device),
-         "attn": A.gqa_init(gen, cfg, dtype, device),
-         "ffn": L.mlp_init(gen, d, cfg.dense_d_ff or cfg.d_ff, cfg.mlp, dtype,
-                           device)}
+         "attn": A.gqa_init(gen, cfg, dtype, device)}
+    if kind == "moe":
+        p["ffn"] = M.moe_init(gen, cfg, dtype, device)
+    else:
+        p["ffn"] = L.mlp_init(gen, d, cfg.dense_d_ff or cfg.d_ff, cfg.mlp,
+                              dtype, device)
     if cfg.connection in fal.NEEDS_LN_FAL and (
             not is_block0 or cfg.connection == "ablation1"):
         p["ln_fal"] = L.norm_init(d, cfg.norm, device)
@@ -45,6 +53,31 @@ def block_init(gen, cfg, dtype, device, *, is_block0=False):
         p["post_attn"] = L.norm_init(d, cfg.norm, device)
         p["post_ffn"] = L.norm_init(d, cfg.norm, device)
     return p
+
+
+def is_moe(p) -> bool:
+    """Whether a block's (or a tree of its structure's) FFN is a MoE
+    layer."""
+    return "router" in p["ffn"]
+
+
+def _ffn_apply(p, cfg, h, kind, plan):
+    """-> (y, aux).  Under explicit TP (``plan.tp_axis``) ``y`` is a
+    partial sum (dense: column-split wi / wg, row-split wo; MoE: this
+    rank's experts, ``moe.moe_apply_partial``).  aux is None for a dense
+    FFN (no zero tensor a block on the serving path)."""
+    if kind == "moe":
+        if plan.tp_axis is not None:
+            return M.moe_apply_partial(p["ffn"], cfg, h, plan.tp_axis)
+        return M.moe_apply(p["ffn"], cfg, h)
+    return L.mlp_apply(p["ffn"], h, cfg.mlp), None
+
+
+def add_aux(total, aux):
+    """Sum of the blocks' aux terms, None standing for 0."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
 
 
 def _cached_attention(p, cfg, h, cache, block_tables, pos, n_valid,
@@ -62,17 +95,19 @@ def _cached_attention(p, cfg, h, cache, block_tables, pos, n_valid,
                              n_valid, window=window, plan=plan)
 
 
-def block_apply(p, cfg, x, a1_sig, *, is_block0=False, plan=None, cache=None,
-                block_tables=None, pos=None, n_valid=None, tok_slot=None,
-                tok_pos=None, window=0, positions=None):
+def block_apply(p, cfg, x, a1_sig, *, kind="dense", is_block0=False,
+                plan=None, cache=None, block_tables=None, pos=None,
+                n_valid=None, tok_slot=None, tok_pos=None, window=0,
+                positions=None):
     """One block over x: the full sequence (B, S, D) at ``positions`` (B, S)
     when ``plan`` is a full-sequence phase (train / eval / prefill; no
     cache); under ``Phase.DECODE`` one token a lane (B, 1, D) at ``pos``
     against the contiguous cache; else the packed buffer (1, T, D) with
     ``tok_slot`` / ``tok_pos`` or the padded (B, C, D) chunk with ``pos`` /
-    ``n_valid``; ``cache`` is updated in place.  Returns (x_out, a_raw)
-    where ``a_raw`` is this block's MHA output (block 0 exports it as the
-    first-attention signal).
+    ``n_valid``; ``cache`` is updated in place.  Returns (x_out, a_raw,
+    aux) where ``a_raw`` is this block's MHA output (block 0 exports it as
+    the first-attention signal) and ``aux`` the MoE load-balance term
+    (None for a dense FFN).  ``kind``: the FFN, 'dense' or 'moe'.
     Under ``plan.dual_branch`` every block but block 0 runs the MHA || MLP
     branch-parallel block; under explicit TP (``plan.tp_axis``) the block is
     ``block_apply_tp``'s."""
@@ -82,17 +117,17 @@ def block_apply(p, cfg, x, a1_sig, *, is_block0=False, plan=None, cache=None,
         # steady-state MHA||MLP branch parallelism (plan.validate guarantees
         # a DUAL_BRANCH_MODES connection and no post-norms); block 0 stays
         # sequential: it must assemble its attention to export the signal
-        return _block_apply_dual(p, cfg, x, a1_sig, window, plan=plan,
-                                 cache=cache, pos=pos,
+        return _block_apply_dual(p, cfg, x, a1_sig, window, kind=kind,
+                                 plan=plan, cache=cache, pos=pos,
                                  block_tables=block_tables, n_valid=n_valid,
                                  tok_slot=tok_slot, tok_pos=tok_pos)
     if plan.tp_axis is not None:
-        x, a, _ = block_apply_tp(
-            p, cfg, x, a1_sig, is_block0=is_block0, plan=plan, cache=cache,
-            block_tables=block_tables, pos=pos, n_valid=n_valid,
+        x, a, _, aux = block_apply_tp(
+            p, cfg, x, a1_sig, kind=kind, is_block0=is_block0, plan=plan,
+            cache=cache, block_tables=block_tables, pos=pos, n_valid=n_valid,
             tok_slot=tok_slot, tok_pos=tok_pos, window=window,
             positions=positions)
-        return x, a
+        return x, a, aux
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     if plan.full_sequence:
         a = A.gqa_apply(p["attn"], cfg, h, positions, window=window)
@@ -106,15 +141,15 @@ def block_apply(p, cfg, x, a1_sig, *, is_block0=False, plan=None, cache=None,
         mlp_in = fal.block0_mlp_input(cfg, p, x, a)
     else:
         mlp_in = fal.mlp_input(cfg, p, x, a, a1_sig)
-    y = L.mlp_apply(p["ffn"], mlp_in, cfg.mlp)
+    y, aux = _ffn_apply(p, cfg, mlp_in, kind, plan)
     if cfg.post_norms:
         y = L.norm_apply(p["post_ffn"], y, cfg.norm)
-    return resid + y, a
+    return resid + y, a, aux
 
 
-def _block_apply_dual(p, cfg, x, a1_sig, window, *, plan: ExecutionPlan,
-                      cache, pos, block_tables, n_valid, tok_slot=None,
-                      tok_pos=None):
+def _block_apply_dual(p, cfg, x, a1_sig, window, *, kind,
+                      plan: ExecutionPlan, cache, pos, block_tables, n_valid,
+                      tok_slot=None, tok_pos=None):
     """Branch-parallel decode block: MHA || MLP (``plan.dual_branch``).
 
     For ``core.fal.DUAL_BRANCH_MODES`` the MLP input is a function of only
@@ -126,7 +161,9 @@ def _block_apply_dual(p, cfg, x, a1_sig, window, *, plan: ExecutionPlan,
 
     The MLP input is formed first.  On the padded C == 1 tick both branches
     go down as one fused dispatch (``attention.gqa_paged_dual``, the fused
-    kernel on the card).  Otherwise the arithmetic is op for op the
+    kernel on the card) when the FFN is dense; a MoE block's FFN is no
+    swiglu matmul pair, so it takes the unfused route, as in the reference
+    (``kind == "dense"``).  Otherwise the arithmetic is op for op the
     sequential path's (the packed kernel, the padded kernels or the
     contiguous cache's ``gqa_decode``, then the dense MLP), with the same
     ``(x + a) + y`` residual association, so the outputs are bit-identical.
@@ -139,23 +176,24 @@ def _block_apply_dual(p, cfg, x, a1_sig, window, *, plan: ExecutionPlan,
     mlp_in = fal.mlp_input(cfg, p, x, None, a1_sig)
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     C = x.shape[1]
-    if (plan.phase is Phase.PAGED and not cfg.use_mla and tok_slot is None
-            and C == 1 and cfg.attn_softcap == 0.0 and window == 0):
+    if (plan.phase is Phase.PAGED and kind == "dense" and not cfg.use_mla
+            and tok_slot is None and C == 1 and cfg.attn_softcap == 0.0
+            and window == 0):
         # single-token dense tick: fused dual-branch dispatch (padded layout
-        # only: a packed buffer of length 1 is NOT a (B, 1) tick); the port
-        # serves dense blocks only (models.model.check_supported)
+        # only: a packed buffer of length 1 is NOT a (B, 1) tick)
         a, y, _ = A.gqa_paged_dual(p["attn"], p["ffn"], cfg, h, mlp_in,
                                    cache, block_tables, pos, n_valid,
                                    plan=plan)
+        aux = None
     else:
         a, _ = _cached_attention(p, cfg, h, cache, block_tables, pos,
                                  n_valid, tok_slot, tok_pos, window, plan)
-        y = L.mlp_apply(p["ffn"], mlp_in, cfg.mlp)
+        y, aux = _ffn_apply(p, cfg, mlp_in, kind, plan)
     if group is not None:
         # one fused collective per block, as on the sequential fused path
-        return x + tp.assemble(a + y, group), a
+        return x + tp.assemble(a + y, group), a, aux
     # keep the sequential path's (x + a) + y association: bit-identical
-    return (x + a) + y, a
+    return (x + a) + y, a, aux
 
 
 def _fused(cfg, is_block0) -> bool:
@@ -175,11 +213,14 @@ def _shared_signal(cfg) -> bool:
     return cfg.connection == "fal" and not cfg.post_norms
 
 
-def block_apply_tp(p, cfg, x, a1_sig, *, is_block0=False, plan, cache=None,
-                   block_tables=None, pos=None, n_valid=None, tok_slot=None,
-                   tok_pos=None, window=0, positions=None):
+def block_apply_tp(p, cfg, x, a1_sig, *, kind="dense", is_block0=False,
+                   plan, cache=None, block_tables=None, pos=None,
+                   n_valid=None, tok_slot=None, tok_pos=None, window=0,
+                   positions=None):
     """One block under explicit TP (reference ``:174-214``) over this
-    rank's weight shards -> (x_out, a_raw, a1_export).  ``a1_export`` is
+    rank's weight shards -> (x_out, a_raw, a1_export, aux).  A MoE FFN
+    holds this rank's experts (``moe.moe_apply_partial``): its partial sum
+    joins the block's all-reduce like a dense FFN's.  ``a1_export`` is
     block 0's first-attention signal as later blocks take it (FAL: the
     normalised export behind its one *f*; FAL+: the raw assembled
     attention; else None); later blocks return None there.
@@ -201,7 +242,7 @@ def block_apply_tp(p, cfg, x, a1_sig, *, is_block0=False, plan, cache=None,
     group, gc = plan.tp_axis, plan.grad_compress
     if plan.sequence_parallel:
         return _block_apply_sp(p, cfg, x, a1_sig, positions, window,
-                               is_block0=is_block0, plan=plan)
+                               kind=kind, is_block0=is_block0, plan=plan)
 
     def attend(h):
         if plan.full_sequence:
@@ -211,14 +252,15 @@ def block_apply_tp(p, cfg, x, a1_sig, *, is_block0=False, plan, cache=None,
                                  n_valid, tok_slot, tok_pos, window, plan)[0]
 
     def ffn(h):
-        return L.mlp_apply(p["ffn"], h, cfg.mlp)
+        return _ffn_apply(p, cfg, h, kind, plan)
 
     if _fused(cfg, is_block0):
         x_in = tp.enter(x, group, gc)
         a = attend(L.norm_apply(p["ln1"], x_in, cfg.norm))
         mlp_in = (fal.block0_mlp_input(cfg, p, x_in, a) if is_block0
                   else fal.mlp_input(cfg, p, x_in, a, a1_sig))
-        return x + tp.assemble(a + ffn(mlp_in), group), a, None
+        y, aux = ffn(mlp_in)
+        return x + tp.assemble(a + y, group), a, None, aux
 
     if is_block0 and _shared_signal(cfg):
         x_in = tp.enter(x, group, gc)
@@ -227,8 +269,8 @@ def block_apply_tp(p, cfg, x, a1_sig, *, is_block0=False, plan, cache=None,
         sig = tp.enter(fal.first_attention_signal(cfg, p, a), group, gc)
         # block 0's MLP input ln2(x) + ln_a(a) is fal's later-block input
         # over the exported signal
-        y = tp.assemble(ffn(fal.mlp_input(cfg, p, x_in, a, sig)), group)
-        return (x + a) + y, a, sig
+        y, aux = ffn(fal.mlp_input(cfg, p, x_in, a, sig))
+        return (x + a) + tp.assemble(y, group), a, sig, aux
 
     h = tp.enter(L.norm_apply(p["ln1"], x, cfg.norm), group, gc)
     a = tp.assemble(attend(h), group)
@@ -236,18 +278,21 @@ def block_apply_tp(p, cfg, x, a1_sig, *, is_block0=False, plan, cache=None,
         a = L.norm_apply(p["post_attn"], a, cfg.norm)
     mlp_in = (fal.block0_mlp_input(cfg, p, x, a) if is_block0
               else fal.mlp_input(cfg, p, x, a, a1_sig))
-    y = tp.assemble(ffn(tp.enter(mlp_in, group, gc)), group)
+    y, aux = ffn(tp.enter(mlp_in, group, gc))
+    y = tp.assemble(y, group)
     if cfg.post_norms:
         y = L.norm_apply(p["post_ffn"], y, cfg.norm)
     sig = fal.first_attention_signal(cfg, p, a) if is_block0 else None
-    return (x + a) + y, a, sig
+    return (x + a) + y, a, sig, aux
 
 
-def _block_apply_sp(p, cfg, x_s, a1_sig, positions, window, *, is_block0,
-                    plan):
+def _block_apply_sp(p, cfg, x_s, a1_sig, positions, window, *, kind,
+                    is_block0, plan):
     """Sequence-parallel (Megatron-SP) block (reference ``:294-385``):
     ``x_s`` is this rank's (B, S/tp, D) shard of the residual stream and
-    so is the output.  Returns (x_out_s, a_raw, a1_export).
+    so is the output.  Returns (x_out_s, a_raw, a1_export, aux).  The FFN
+    sees the gathered full sequence, so a MoE layer routes the same tokens
+    on every rank and its partial sum joins the reduce-scatter.
 
       fused: all-gather(x_s) -> attention + MLP partials over the full
           sequence -> ONE reduce-scatter(a + y).
@@ -268,12 +313,13 @@ def _block_apply_sp(p, cfg, x_s, a1_sig, positions, window, *, is_block0,
                     positions, window=window, plan=plan)
 
     def ffn(h):
-        return L.mlp_apply(p["ffn"], h, cfg.mlp)
+        return _ffn_apply(p, cfg, h, kind, plan)
 
     if _fused(cfg, is_block0):
         mlp_in = (fal.block0_mlp_input(cfg, p, x, a) if is_block0
                   else fal.mlp_input(cfg, p, x, a, a1_sig))
-        return x_s + tp.scatter_seq(a + ffn(mlp_in), group, gc), a, None
+        y, aux = ffn(mlp_in)
+        return x_s + tp.scatter_seq(a + y, group, gc), a, None, aux
 
     sig = None
     if is_block0 and cfg.connection in fal.USES_FIRST_ATTENTION:
@@ -299,13 +345,14 @@ def _block_apply_sp(p, cfg, x_s, a1_sig, positions, window, *, is_block0,
         mlp_in_s = (fal.block0_mlp_input(cfg, p, x_s, a_s) if is_block0
                     else fal.mlp_input(cfg, p, x_s, a_s, sig_s))
         mlp_in = tp.gather_seq(mlp_in_s, group)        # LN region -> full
-    y_s = tp.scatter_seq(ffn(mlp_in), group, gc)
+    y, aux = ffn(mlp_in)
+    y_s = tp.scatter_seq(y, group, gc)
     if cfg.post_norms:
         y_s = L.norm_apply(p["post_ffn"], y_s, cfg.norm)
-    return resid_s + y_s, a, sig
+    return resid_s + y_s, a, sig, aux
 
 
-def tp_partial_leaves(cfg, plan, *, is_block0, kv_rep):
+def tp_partial_leaves(cfg, plan, *, is_block0, kv_rep, moe=False):
     """Keys (paths into one block's params) of the replicated leaves whose
     gradient each rank holds as a partial sum under ``plan``'s placement of
     the collectives above: leaves used between an *f* (or a sequence
@@ -313,8 +360,12 @@ def tp_partial_leaves(cfg, plan, *, is_block0, kv_rep):
     cotangent, and under SP a norm applied to a sequence shard sees only
     this rank's tokens.  The train step sums their gradients over the
     group (``models.model.tp_sync_grads``); every other replicated leaf's
-    gradient is already whole and equal on every rank."""
+    gradient is already whole and equal on every rank.  A MoE block's
+    router (``moe``) is replicated and each rank's output covers only its
+    experts, so its gradient is a partial sum too."""
     keys = [("attn", "qnorm"), ("attn", "knorm")]
+    if moe:
+        keys.append(("ffn", "router"))
     if kv_rep:
         keys += [("attn", "wk"), ("attn", "wv")]
     if plan.sequence_parallel:

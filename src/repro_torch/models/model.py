@@ -1,11 +1,13 @@
-"""The dense FAL decoder on torch tensors: parameters, the full-sequence
-forward and loss for training, the paged KV cache and the paged ticks.
+"""The FAL decoder on torch tensors (dense and MoE FFNs): parameters, the
+full-sequence forward and loss for training, the paged KV cache and the
+paged ticks.
 
-Port of the dense decoder of ``repro/models/model.py``: ``cross_entropy``
+Port of the decoder of ``repro/models/model.py``: ``_layer_kind``
+(``:66``: MoE from ``first_dense_layers`` on), ``cross_entropy``
 (``:72``), ``_run_decoder_blocks`` (``:204``, the layer scan as a Python
-loop), ``_decoder_forward`` (``:250``), ``forward`` (``:921``), ``_ce_tail``
-(``:1103``) and ``loss_fn`` (``:1108``; dense only, so the aux loss is 0 and
-there is no MTP head), with the reference's rematerialisation: under
+loop, summing the MoE layers' aux), ``_decoder_forward`` (``:250``),
+``forward`` (``:921``), ``_ce_tail`` (``:1103``) and ``loss_fn`` (``:1108``;
+ce + ``router_aux_coef`` x aux; no MTP head), with the reference's rematerialisation: under
 ``cfg.remat`` block 0, each later block and the CE tail run under
 ``torch.utils.checkpoint`` (non-reentrant) while gradients are on.  And
 the contiguous KV cache's ``init_cache`` (``:936``, ``_decoder_init_cache``
@@ -17,7 +19,8 @@ paths: ``_embed_tokens``, ``_logits`` / ``lm_head``, ``init_paged_cache``
 the padded (B, C) layout, sequential or dual-branch), and
 ``_decoder_layer_stack`` (``:280``) and ``copy_paged_pages`` (``:1054``,
 the device half of copy-on-write), plus ``init_params`` for the dense
-decoder.  For self-speculative decoding: ``paged_spec_draft`` (``:1010``)
+decoder and the MoE family (``first_dense_layers`` dense blocks of width
+``dense_d_ff``, then MoE blocks).  For self-speculative decoding: ``paged_spec_draft`` (``:1010``)
 -> ``_decoder_paged_packed_draft`` (``:532``, the early-exit draft) and
 ``lm_head_segment_tail`` (``:1034``, the verify's head over each segment's
 last rows).
@@ -31,8 +34,9 @@ gradients after the backward.  The serving ticks, contiguous and paged,
 refuse a sharded plan.
 
 Parameters are a dict tree in the reference's layout, except that the
-stacked ``blocks_dense`` leaves (leading layer axis) become a list of
-per-layer dicts under ``"blocks"``.  Every path passes each layer its
+stacked ``blocks_dense`` and ``blocks_moe`` leaves (leading layer axis)
+become one list of per-layer dicts under ``"blocks"``, in depth order (the
+dense ones first); a block's kind is ``blocks.is_moe``.  Every path passes each layer its
 sliding window (``blocks.window_schedule``: gemma2's local / global
 alternation) as a Python int.  The cache holds block 0's pools, one
 ``(n_layers - 1, P, page, Hkv, Dh)`` tensor per K and per V for the other
@@ -72,18 +76,36 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+#: families the port runs: the decoder with dense or MoE FFNs
+SUPPORTED_FAMILIES = ("dense", "moe")
+
+
 def check_supported(cfg):
     """Raise NotImplementedError for what the port does not cover yet
-    (non-dense families, MLA, MoE), naming the slice that will."""
-    if cfg.family != "dense":
+    (VLM, SSM, hybrid and audio families, MLA attention), naming the slice
+    that will."""
+    if cfg.family not in SUPPORTED_FAMILIES:
         raise NotImplementedError(
-            f"family '{cfg.family}': the PyTorch port serves the dense "
-            f"decoder only; MoE, VLM, SSM, hybrid and audio come in the "
+            f"family '{cfg.family}': the PyTorch port serves the dense and "
+            f"MoE decoders; VLM, SSM, hybrid and audio come in the "
             f"family-breadth slices (ROADMAP.md Queue 1)")
-    if cfg.use_mla or cfg.n_experts:
+    if cfg.use_mla:
         raise NotImplementedError(
-            "MLA / MoE layers come in the family-breadth slice of the "
-            "PyTorch port")
+            "MLA attention (deepseek-v3) comes in a later family-breadth "
+            "slice of the PyTorch port (ROADMAP.md Queue 1)")
+
+
+def _layer_kind(cfg, i):
+    """Layer ``i``'s FFN: MoE from ``first_dense_layers`` on when the
+    config has experts, else dense."""
+    if cfg.n_experts and i >= cfg.first_dense_layers:
+        return "moe"
+    return "dense"
+
+
+def layer_kinds(cfg, n_layers=None):
+    """Every layer's kind, block 0 first."""
+    return [_layer_kind(cfg, i) for i in range(n_layers or cfg.n_layers)]
 
 
 def _dtype(name) -> torch.dtype:
@@ -94,7 +116,7 @@ def _dtype(name) -> torch.dtype:
 # parameters
 # ------------------------------------------------------------------------- #
 def init_params(cfg, seed=0, device=None, dtype=None):
-    """Random dense-decoder weights at the reference's scales, drawn with a
+    """Random decoder weights at the reference's scales, drawn with a
     ``torch.Generator`` on ``device`` (not the reference's numbers: tests
     carry JAX weights across with ``interop.params_from_numpy``).  Matmul
     weights and embeddings are stored in ``dtype``: None keeps
@@ -109,9 +131,11 @@ def init_params(cfg, seed=0, device=None, dtype=None):
     if cfg.learned_pos:
         p["pos_emb"] = (torch.randn((cfg.max_seq, cfg.d_model), generator=gen,
                                     device=device) * 0.02).to(dt)
-    p["block0"] = BL.block_init(gen, cfg, dt, device, is_block0=True)
-    p["blocks"] = [BL.block_init(gen, cfg, dt, device)
-                   for _ in range(cfg.n_layers - 1)]
+    kinds = layer_kinds(cfg)
+    p["block0"] = BL.block_init(gen, cfg, dt, device, kind=kinds[0],
+                                is_block0=True)
+    p["blocks"] = [BL.block_init(gen, cfg, dt, device, kind=kind)
+                   for kind in kinds[1:]]
     p["final_norm"] = L.norm_init(cfg.d_model, cfg.norm, device)
     if not cfg.tie_embeddings:
         p["head"] = {"w": L.dense_init(gen, cfg.d_model, cfg.vocab, dt,
@@ -168,28 +192,39 @@ def _maybe_remat(fn, cfg):
                              use_reentrant=False)
 
 
+def _aux_total(aux, device):
+    return aux if aux is not None else torch.zeros(
+        (), dtype=torch.float32, device=device)
+
+
 def _run_decoder_blocks(p, cfg, x, positions, plan):
     """Block 0, then the later blocks as a Python loop (the reference scans
     over stacked params), each under ``_maybe_remat`` and with its window
-    from ``window_schedule``.  The first-attention signal is formed from
-    block 0's output outside its checkpoint, as in the reference.  Returns
-    (x, aux): aux is 0, the port's blocks are dense."""
+    from ``window_schedule`` and its kind from ``layer_kinds``.  The
+    first-attention signal is formed from block 0's output outside its
+    checkpoint, as in the reference.  Returns (x, aux): the sum of the MoE
+    layers' load-balance terms (0 for a dense model)."""
     wsched = BL.window_schedule(cfg)
+    kinds = layer_kinds(cfg)
 
     def block0(pb, h):
-        return BL.block_apply(pb, cfg, h, None, is_block0=True, plan=plan,
-                              positions=positions, window=wsched[0])
+        return BL.block_apply(pb, cfg, h, None, kind=kinds[0],
+                              is_block0=True, plan=plan, positions=positions,
+                              window=wsched[0])
 
-    def block(pb, h, a1_sig, window):
-        return BL.block_apply(pb, cfg, h, a1_sig, plan=plan,
-                              positions=positions, window=window)[0]
+    def block(pb, h, a1_sig, window, kind):
+        out, _, aux = BL.block_apply(pb, cfg, h, a1_sig, kind=kind,
+                                     plan=plan, positions=positions,
+                                     window=window)
+        return out, aux
 
-    x, a1_raw = _maybe_remat(block0, cfg)(p["block0"], x)
+    x, a1_raw, aux = _maybe_remat(block0, cfg)(p["block0"], x)
     a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
-    body = _maybe_remat(block, cfg)
-    for pb, w in zip(p["blocks"], wsched[1:]):
-        x = body(pb, x, a1_sig, w)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    for pb, w, kind in zip(p["blocks"], wsched[1:], kinds[1:]):
+        x, aux_i = _maybe_remat(functools.partial(block, kind=kind), cfg)(
+            pb, x, a1_sig, w)
+        aux = BL.add_aux(aux, aux_i)
+    return x, _aux_total(aux, x.device)
 
 
 def _check_shards(p, cfg, tp_size):
@@ -217,7 +252,11 @@ def decoder_stack_tp(p, cfg, x, positions, plan):
     rank's (B, S/tp, D) slice (``tp.split_seq`` in, ``tp.unsplit_seq``
     out): every per-block all-reduce becomes a reduce-scatter at 1/tp the
     bytes behind an all-gather.  Remat as on one device.  Returns (x,
-    aux)."""
+    aux): MoE layers run this rank's experts (``moe.moe_apply_partial``)
+    and aux, the same on every TP rank, is summed over the blocks; under a
+    data group its value is the group's mean (the reference's pmean over
+    the data axes) while its gradient stays this rank's (the train step
+    averages the gradients over the data group)."""
     plan.validate(cfg)
     tp_size = plan.tp_size
     _check_shards(p, cfg, tp_size)
@@ -229,26 +268,34 @@ def decoder_stack_tp(p, cfg, x, positions, plan):
             f"at all)")
     inner = plan.inner()
     wsched = BL.window_schedule(cfg)
+    kinds = layer_kinds(cfg)
 
     def block0(pb, h):
-        h, _, sig = BL.block_apply_tp(pb, cfg, h, None, is_block0=True,
-                                      plan=inner, positions=positions,
-                                      window=wsched[0])
-        return h, sig
+        h, _, sig, aux = BL.block_apply_tp(
+            pb, cfg, h, None, kind=kinds[0], is_block0=True, plan=inner,
+            positions=positions, window=wsched[0])
+        return h, sig, aux
 
-    def block(pb, h, a1_sig, window):
-        return BL.block_apply_tp(pb, cfg, h, a1_sig, plan=inner,
-                                 positions=positions, window=window)[0]
+    def block(pb, h, a1_sig, window, kind):
+        out, _, _, aux = BL.block_apply_tp(
+            pb, cfg, h, a1_sig, kind=kind, plan=inner, positions=positions,
+            window=window)
+        return out, aux
 
     if sp:
         x = tp.split_seq(x, plan.group)
-    x, a1_sig = _maybe_remat(block0, cfg)(p["block0"], x)
-    body = _maybe_remat(block, cfg)
-    for pb, w in zip(p["blocks"], wsched[1:]):
-        x = body(pb, x, a1_sig, w)
+    x, a1_sig, aux = _maybe_remat(block0, cfg)(p["block0"], x)
+    for pb, w, kind in zip(p["blocks"], wsched[1:], kinds[1:]):
+        x, aux_i = _maybe_remat(functools.partial(block, kind=kind), cfg)(
+            pb, x, a1_sig, w)
+        aux = BL.add_aux(aux, aux_i)
     if sp:
         x = tp.unsplit_seq(x, plan.group)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = _aux_total(aux, x.device)
+    if cfg.n_experts and plan.data_group is not None:
+        mean = tp.all_reduce(aux, plan.data_group, "metric") / plan.dp_size
+        aux = aux + (mean - aux).detach()
+    return x, aux
 
 
 def tp_sync_grads(params, cfg, plan):
@@ -262,7 +309,7 @@ def tp_sync_grads(params, cfg, plan):
     for pb, is0 in [(params["block0"], True)] + [
             (b, False) for b in params["blocks"]]:
         for key in BL.tp_partial_leaves(cfg, plan, is_block0=is0,
-                                        kv_rep=kv_rep):
+                                        kv_rep=kv_rep, moe=BL.is_moe(pb)):
             node = pb
             for k in key:
                 node = node.get(k) if isinstance(node, dict) else None
@@ -288,7 +335,7 @@ def _decoder_forward(p, cfg, batch, plan, want="logits"):
 
 
 def forward(params, cfg, batch, plan=None, want="logits"):
-    """Full-sequence forward of the dense decoder: batch {"tokens" (B, S)}
+    """Full-sequence forward of the decoder: batch {"tokens" (B, S)}
     -> (logits (B, S, V), aux, extras), or with ``want='hidden'`` (None,
     aux, {"hidden": (B, S, D)}).  ``plan``: an ExecutionPlan, a Phase or
     its string value, or None (train)."""
@@ -350,9 +397,10 @@ def _decoder_decode(p, cfg, batch, cache, plan):
     every later block of the tick, dual-branch too."""
     tokens, pos = batch["tokens"], batch["pos"]
     x = _embed_tokens(p, cfg, tokens, pos[:, None])
-    x, a1_raw = BL.block_apply(p["block0"], cfg, x, None, is_block0=True,
-                               plan=plan, cache=cache["block0"], pos=pos,
-                               window=BL.window_schedule(cfg)[0])
+    x, a1_raw, _ = BL.block_apply(p["block0"], cfg, x, None,
+                                  kind=_layer_kind(cfg, 0), is_block0=True,
+                                  plan=plan, cache=cache["block0"], pos=pos,
+                                  window=BL.window_schedule(cfg)[0])
     a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
     x = _decoder_layer_stack(p, cfg, x, a1_sig, pos, cache["blocks"], plan,
                              block_tables=None)
@@ -400,14 +448,17 @@ def _decoder_layer_stack(p, cfg, x, a1_sig, pos, blocks_cache, plan, *,
     reference concatenates per-layer caches.  ``limit`` runs only
     the first ``limit`` layers (the speculative draft's early exit); the
     pools of the layers past it are not touched.  Each layer attends with
-    its window from ``window_schedule`` (``wsched[1:]``)."""
+    its window from ``window_schedule`` (``wsched[1:]``) and its FFN kind
+    from ``layer_kinds``; the MoE layers' aux is not used when serving."""
     wsched = BL.window_schedule(cfg)[1:]
+    kinds = layer_kinds(cfg)[1:]
     for i, pb in enumerate(p["blocks"][:limit]):
         layer_cache = {k: v[i] for k, v in blocks_cache.items()}
-        x, _ = BL.block_apply(pb, cfg, x, a1_sig, plan=plan,
-                              cache=layer_cache, block_tables=block_tables,
-                              pos=pos, n_valid=n_valid, tok_slot=tok_slot,
-                              tok_pos=tok_pos, window=wsched[i])
+        x, _, _ = BL.block_apply(pb, cfg, x, a1_sig, kind=kinds[i],
+                                 plan=plan, cache=layer_cache,
+                                 block_tables=block_tables, pos=pos,
+                                 n_valid=n_valid, tok_slot=tok_slot,
+                                 tok_pos=tok_pos, window=wsched[i])
     return x
 
 
@@ -427,10 +478,11 @@ def _decoder_paged_decode(p, cfg, batch, cache, plan, want="logits"):
     C = tokens.shape[1]
     positions = pos[:, None] + torch.arange(C, device=pos.device)[None]
     x = _embed_tokens(p, cfg, tokens, positions)
-    x, a1_raw = BL.block_apply(p["block0"], cfg, x, None, is_block0=True,
-                               plan=plan, cache=cache["block0"],
-                               block_tables=bt, pos=pos, n_valid=n_valid,
-                               window=BL.window_schedule(cfg)[0])
+    x, a1_raw, _ = BL.block_apply(p["block0"], cfg, x, None,
+                                  kind=_layer_kind(cfg, 0), is_block0=True,
+                                  plan=plan, cache=cache["block0"],
+                                  block_tables=bt, pos=pos, n_valid=n_valid,
+                                  window=BL.window_schedule(cfg)[0])
     a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
 
     # stash each lane's export at its last valid position before the
@@ -466,11 +518,12 @@ def _decoder_paged_packed(p, cfg, batch, cache, plan, want="logits"):
     seg_last = batch["seg_last"]
     positions = tok_pos.clamp(min=0)[None]                      # (1, T)
     x = _embed_tokens(p, cfg, tokens[None], positions)
-    x, a1_raw = BL.block_apply(p["block0"], cfg, x, None, is_block0=True,
-                               plan=plan, cache=cache["block0"],
-                               block_tables=bt, tok_slot=tok_slot,
-                               tok_pos=tok_pos,
-                               window=BL.window_schedule(cfg)[0])
+    x, a1_raw, _ = BL.block_apply(p["block0"], cfg, x, None,
+                                  kind=_layer_kind(cfg, 0), is_block0=True,
+                                  plan=plan, cache=cache["block0"],
+                                  block_tables=bt, tok_slot=tok_slot,
+                                  tok_pos=tok_pos,
+                                  window=BL.window_schedule(cfg)[0])
     a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
 
     # refresh the per-slot FAL export from each active segment's LAST
@@ -501,11 +554,12 @@ def _decoder_paged_packed_draft(p, cfg, batch, cache, plan, draft_blocks):
     positions = tok_pos.clamp(min=0)[None]                      # (1, T)
     with ops.dispatch_site_suffix("draft"):
         x = _embed_tokens(p, cfg, tokens[None], positions)
-        x, a1_raw = BL.block_apply(p["block0"], cfg, x, None, is_block0=True,
-                                   plan=plan, cache=cache["block0"],
-                                   block_tables=bt, tok_slot=tok_slot,
-                                   tok_pos=tok_pos,
-                                   window=BL.window_schedule(cfg)[0])
+        x, a1_raw, _ = BL.block_apply(p["block0"], cfg, x, None,
+                                      kind=_layer_kind(cfg, 0),
+                                      is_block0=True, plan=plan,
+                                      cache=cache["block0"], block_tables=bt,
+                                      tok_slot=tok_slot, tok_pos=tok_pos,
+                                      window=BL.window_schedule(cfg)[0])
         a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
         x = _decoder_layer_stack(p, cfg, x, a1_sig, None, cache["blocks"],
                                  plan, block_tables=bt, tok_slot=tok_slot,

@@ -307,7 +307,8 @@ class EngineConfig:
 
 
 class PagedEngine:
-    """Slot-based continuous batching over paged KV (dense decoder).
+    """Slot-based continuous batching over paged KV (the dense and MoE
+    decoders).
 
     ``device``: where the model and cache live; None means ``cuda`` and
     raises without one.  ``metrics``: a ``MetricsRegistry`` (one per engine

@@ -8,9 +8,11 @@ restores the other's checkpoint:
 
 * the port keeps the blocks after block 0 as a list of per-block dicts
   under ``"blocks"`` (``interop.params_from_numpy``); the reference stacks
-  the same leaves under ``"blocks_dense"`` with a leading (L-1) axis.
-  ``save`` writes them stacked and ``restore`` unstacks them, wherever the
-  list sits (``params``, ``opt/m``, ``opt/v``);
+  the same leaves with a leading layer axis, the dense blocks under
+  ``"blocks_dense"`` and the MoE blocks (their FFN has a ``router``) under
+  ``"blocks_moe"``.  ``save`` writes each kind stacked and ``restore``
+  unstacks them, wherever the list sits (``params``, ``opt/m``,
+  ``opt/v``);
 * AdamW's step count is a Python int here and a 0-d int32 array there
   (``opt/count``): written as ``np.int32``, read back as an int;
 * bfloat16 leaves: numpy has no bfloat16, and an npz written by the
@@ -39,9 +41,16 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch import mesh as MX
+from repro_torch.models.blocks import is_moe
 from repro_torch.optim.adamw import named_leaves
 
-_STACKED = "blocks_dense"
+#: the reference's stack of each block kind: dense, MoE
+_STACKS = ("blocks_dense", "blocks_moe")
+
+
+def _stack_of(block) -> str:
+    """The reference's stack of a block (or a tree of its structure)."""
+    return _STACKS[int(is_moe(block))]
 
 
 def _host(t: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
@@ -77,8 +86,10 @@ def _flatten(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
             if k == "blocks" and isinstance(v, list):
-                if v:
-                    out.update(_flatten(_stack(v), f"{prefix}{_STACKED}/"))
+                for name in _STACKS:
+                    part = [b for b in v if _stack_of(b) == name]
+                    if part:
+                        out.update(_flatten(_stack(part), f"{prefix}{name}/"))
             else:
                 out.update(_flatten(v, f"{prefix}{k}/"))
     elif isinstance(tree, (list, tuple)):
@@ -205,9 +216,14 @@ def _rebuild(data, like, cut=None):
             out = {}
             for k, v in tree.items():
                 if k == "blocks" and isinstance(v, list) and index is None:
-                    out[k] = [rebuild(b, f"{prefix}{_STACKED}/", i,
-                                      path + (k, i))
-                              for i, b in enumerate(v)]
+                    # each block's index within its kind's stack
+                    seen = dict.fromkeys(_STACKS, 0)
+                    out[k] = []
+                    for i, b in enumerate(v):
+                        name = _stack_of(b)
+                        out[k].append(rebuild(b, f"{prefix}{name}/",
+                                              seen[name], path + (k, i)))
+                        seen[name] += 1
                 else:
                     out[k] = rebuild(v, f"{prefix}{k}/", index, path + (k,))
             return out

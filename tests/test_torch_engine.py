@@ -87,11 +87,11 @@ def test_argmax_returns_the_first_maximum():
 # the engines
 # --------------------------------------------------------------------------- #
 @functools.lru_cache(maxsize=None)
-def _models(connection="fal"):
+def _models(connection="fal", arch="llama3.2-3b"):
     """Reference weights and their port copy, shared by the tests (neither
     engine writes to its params)."""
-    rcfg = ref_config("llama3.2-3b").reduced().replace(connection=connection)
-    tcfg = get_config("llama3.2-3b").reduced().replace(connection=connection)
+    rcfg = ref_config(arch).reduced().replace(connection=connection)
+    tcfg = get_config(arch).reduced().replace(connection=connection)
     rparams = jax.jit(RM.init_params, static_argnums=1)(
         jax.random.PRNGKey(0), rcfg)
     tparams = interop.params_from_numpy(jax.tree.map(np.asarray, rparams),
@@ -106,8 +106,8 @@ def _serve(engine, mod, prompts, max_new):
     return {r.rid: (list(map(int, r.generated)), r.truncated) for r in done}
 
 
-def _compare(ecfg_kw, prompts, max_new, tracer=None):
-    rcfg, rparams, tcfg, tparams = _models()
+def _compare(ecfg_kw, prompts, max_new, tracer=None, arch="llama3.2-3b"):
+    rcfg, rparams, tcfg, tparams = _models(arch=arch)
     ref = RS.PagedEngine(rcfg, rparams, RS.EngineConfig(**ecfg_kw))
     port = TS.PagedEngine(tcfg, tparams, TS.EngineConfig(**ecfg_kw),
                           tracer=tracer, device="cpu")
@@ -126,15 +126,17 @@ def _compare(ecfg_kw, prompts, max_new, tracer=None):
     return port, ts
 
 
-def test_engine_streams_match_reference():
-    # the ragged stream of examples/serve_requests.py:49-55
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen3-moe-30b-a3b"])
+def test_engine_streams_match_reference(arch):
+    # the ragged stream of examples/serve_requests.py:49-55; the MoE model
+    # routes every packed row, padding included, as the reference does
     rng = np.random.default_rng(42)
     prompts = [rng.integers(0, 512, 4 + i % 7) for i in range(10)]
     tracer = Tracer(enabled=True)
     port, st = _compare(dict(page_size=8, num_pages=48, slots=4,
                              prefill_chunk=8, max_seq=128),
                         prompts, [8 + 3 * (i % 3) for i in range(10)],
-                        tracer=tracer)
+                        tracer=tracer, arch=arch)
     assert st["tokens_per_dispatch"]["count"] == st["ticks"]
     assert st["ttft_ms"]["count"] == 10
     names = {e["name"] for e in tracer.events}

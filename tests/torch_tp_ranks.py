@@ -173,9 +173,9 @@ def decode_ticks(group):
             one = {k: v.clone() for k, v in cache.items()}
             plan1 = ExecutionPlan.single_device(Phase.PAGED, dual)
             with torch.no_grad():
-                ref, _ = BL.block_apply(full, cfg, x, sig, plan=plan1,
-                                        cache=one, block_tables=bt, pos=pos,
-                                        n_valid=nv)
+                ref = BL.block_apply(full, cfg, x, sig, plan=plan1,
+                                     cache=one, block_tables=bt, pos=pos,
+                                     n_valid=nv)[0]
             _, step = tp.make_tp_decode_step(group, cfg, dual=dual,
                                              page_size=page)
             local = {k: v[:, :, h0:h0 + hk].clone()
