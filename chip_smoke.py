@@ -427,12 +427,13 @@ def build_phase():
               f"the consumers), {spilled} bytes spilled")
     want = {(kname, "", d, cap) for kname in ("fwd_kernel", "dkdv_kernel",
                                               "dq_kernel")
-            for d in (32, 64, 128) for cap in ("", "cap")}
-    require(set(tc) == want, f"ptxas reported {sorted(tc)}, not the 18 bf16 "
-            f"flash kernels (3 kernels x 3 head dims, with and without the "
+            for d in (32, 64, 128, 192) for cap in ("", "cap")}
+    require(set(tc) == want, f"ptxas reported {sorted(tc)}, not the 24 bf16 "
+            f"flash kernels (3 kernels x 4 head dims, with and without the "
             f"softcap)")
     require(all(sp == 0 for (_, _, d, _), (_, sp) in tc.items()
-                if d == 128), "a bf16 flash kernel spills at D = 128")
+                if d in (128, 192)),
+            "a bf16 flash kernel spills at D = 128 or 192 (MLA)")
     # the tensor-core attention and combine kernels over the packed and the
     # chunk layouts' items
     packed = tensor_core_kernels(build.PTXAS_LOG.get("paged_attention", ""),
@@ -1906,11 +1907,12 @@ COPY_BEFORE_MS = {("", 1): "0.0758 / 0.2199", ("", 64): "0.0978 / 1.778",
 
 
 def random_history(cache, g):
-    """Fill every K/V pool and the per-slot a1_sig with N(0, 1); quantized
-    pools get the N(0, 1) rows' codes and row scales."""
+    """Fill every pool (K / V, or MLA's latent c and rope key kr) and the
+    per-slot a1_sig with N(0, 1); quantized pools get the N(0, 1) rows'
+    codes and row scales."""
     from repro_torch.models.attention import _quant_rows
     for pools in (cache["block0"], cache["blocks"]):
-        for name in ("k", "v"):
+        for name in [n for n in pools if not n.endswith("_scale")]:
             x = torch.randn(pools[name].shape, generator=g)
             if f"{name}_scale" in pools:
                 x, sc = _quant_rows(x, pools[name].dtype)
@@ -1947,14 +1949,15 @@ def tick_phase():
 
 
 def padded_tick(cfg, params, label, C, lanes, tb, dual, want_paths,
-                scaled_tol=False, moe=False):
+                scaled_tol=False, moe=False, image=False):
     """One padded (B, C) tick at per-lane (pos, n_valid) over a random
     history: the card (kernels) against the CPU (plain versions).  Returns
     the card run's launch counts.  ``scaled_tol``: the tolerance is 1e-3
     times max(1, the largest |hidden|) (fp32 sums in another order, errors
     relative to the activations' size).  ``moe``: the routing of both runs
     is compared (``route_flips``); a lane whose routing differs at a near
-    tie is left out of the gate."""
+    tie is left out of the gate.  ``image``: each row carries a random
+    patch embedding (a VLM's rows inside its image prefix take it)."""
     from repro_torch import interop
     from repro_torch.core.plan import ExecutionPlan
     from repro_torch.kernels import ops
@@ -1972,6 +1975,8 @@ def padded_tick(cfg, params, label, C, lanes, tb, dual, want_paths,
     cache = M.init_paged_cache(cfg, num_pages, PAGE, B, "float32",
                                device="cpu")
     random_history(cache, g)
+    if image:
+        batch["image_embeds"] = torch.randn((B, C, cfg.d_model), generator=g)
     plan = ExecutionPlan.single_device("paged", dual_branch=dual)
     gpu = {k: interop.tree_to(v, "cuda") for k, v in
            (("params", params), ("cache", cache), ("batch", batch))}
@@ -2076,12 +2081,14 @@ TICK_TOLS = {"": 1e-3, "int8": 1e-2, "fp8": 1e-2}
 
 
 def packed_tick(cfg, params, kv="", want_paths=None, scaled_tol=False,
-                moe=False):
+                moe=False, image=False):
     """One packed tick (``mixed_tick``) over a random history, the card
     against the CPU; ``want_paths``: the card's dispatch paths (default:
     the packed kernel's site and the LN-add kernel); ``scaled_tol`` and
     ``moe`` as in ``padded_tick`` (a slot whose routing differs at a near
-    tie is left out of the gate).  Returns the card run's launch counts."""
+    tie is left out of the gate); ``image``: every row carries a random
+    patch embedding (a VLM's rows inside its image prefix take it).
+    Returns the card run's launch counts."""
     from repro_torch import interop
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
@@ -2099,6 +2106,9 @@ def packed_tick(cfg, params, kv="", want_paths=None, scaled_tol=False,
     cache = M.init_paged_cache(cfg, num_pages, PAGE, seg_last.numel(),
                                "float32", kv_dtype=kv, device="cpu")
     random_history(cache, g)
+    if image:
+        batch["image_embeds"] = torch.randn((len(tokens), cfg.d_model),
+                                            generator=g)
     gpu = {k: interop.tree_to(v, "cuda") for k, v in
            (("params", params), ("cache", cache), ("batch", batch))}
     ops.reset_dispatch_paths()
@@ -2604,10 +2614,11 @@ def prefix_engine_phase(cfg, params, ecfg, kv=""):
                 hot["counts"]["paged_packed_attention" + sfx]}
 
 
-#: layers of the quantized engine phases: a quarter of llama3.2-3b's 28
-#: (their profiled repeats cost ~60 s each at full depth, most of it the
-#: profiler's ~3,500 events a tick; 34.5 s each at 14 layers, cut again to
-#: make room for the MoE phases)
+#: layers of the quantized engine phases and of the int8 / fp8 padded
+#: generations: a quarter of llama3.2-3b's 28, to keep the script inside
+#: its time limit beside the MoE and MLA phases (their profiled repeats
+#: cost ~60 s each at full depth, most of it the profiler's ~3,500 events
+#: a tick; 34.5 s each at 14 layers)
 QUANT_LAYERS = 7
 
 
@@ -2782,10 +2793,11 @@ def clone_cache(c):
 
 def padded_generation_phase(params, kv="", n_new=32,
                             order=("sequential", "dual", "dual",
-                                   "sequential")):
+                                   "sequential"), cfg=None):
     """Padded (B, C) generation through ``paged_decode_step`` at llama3.2-3b
-    full width and depth (the engine phase's bf16 weights; bf16 pages, or
-    int8 / fp8 pages with row scales for ``kv``): chunk prefill ticks
+    full width, at full depth or ``cfg``'s (the engine phase's bf16
+    weights, or their first layers; bf16 pages, or int8 / fp8 pages with
+    row scales for ``kv``): chunk prefill ticks
     (``padded_prefill``), then ``n_new`` greedy C == 1 ticks sequentially,
     and the same from the same prefilled cache under the dual-branch plan
     (on quantized pages its blocks take the two-op route: the decode
@@ -2801,7 +2813,7 @@ def padded_generation_phase(params, kv="", n_new=32,
     from repro_torch.core.plan import ExecutionPlan
     from repro_torch.kernels import ops
     B, C, tb = PADDED_B, PADDED_C, PADDED_TB
-    cfg = get_config("llama3.2-3b")
+    cfg = cfg or get_config("llama3.2-3b")
     L = cfg.n_layers
     sfx = f".{kv}" if kv else ""
     phase(f"padded generation: llama3.2-3b, {L} layers, bf16, "
@@ -2956,7 +2968,7 @@ def contiguous_run(cfg, params, cache, toks, positions, plan):
     """``decode_step`` over the ticks: lane b feeds ``toks[b, pos]`` at each
     tick's position -> (n_ticks, B, V) fp32 logits on the host."""
     from repro_torch.models import model as M
-    dev = cache["block0"]["k"].device
+    dev = next(iter(cache["block0"].values())).device
     lanes = torch.arange(positions.shape[1])
     out = []
     with torch.no_grad():
@@ -2995,7 +3007,7 @@ def contiguous_card_vs_cpu(cfg, params, label, lanes, S, n_ticks,
     toks = torch.randint(0, cfg.vocab, (B, S), generator=g, dtype=torch.int32)
     cache = M.init_cache(cfg, B, S, "float32", device="cpu")
     for part in cache.values():
-        for name in ("k", "v"):
+        for name in part:                      # K / V, or MLA's c / kr
             part[name].copy_(torch.randn(part[name].shape, generator=g))
     gparams = interop.tree_to(params, "cuda")
     card = {}
@@ -3318,6 +3330,14 @@ FLASH_WINDOW_SHAPES = (
     ("small", 2, 77, 77, 4, 2, 32, True, 0, 5, 30.0),
     ("small", 3, 130, 130, 4, 1, 64, True, 0, 70, 30.0),
     ("small", 1, 91, 91, 4, 2, 64, False, 0, 20, 30.0))
+#: (label, B, S, H, Hkv, D, Dv, causal): MLA's heads at D = 192 (qk 128 +
+#: 64, v 128 padded by the wrapper to 192): deepseek-v3's training shape
+#: (128 heads, each its own expanded K / V head), then small odd shapes (S
+#: not a multiple of the 32-row tiles, G = 2, a full-width v, non-causal)
+FLASH_MLA_SHAPES = (("deepseek-v3 train", 1, 2048, 128, 128, 192, 128, True),
+                    ("odd", 2, 77, 6, 3, 192, 128, True),
+                    ("odd", 1, 300, 4, 4, 192, 192, True),
+                    ("odd", 1, 200, 4, 2, 192, 128, False))
 #: kernel vs plain: fp32 sums in another order; bf16: one rounding of the
 #: output (|o| < 4: 2^-7 x 4 = 0.03) and of each gradient
 FLASH_TOLS = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -3421,7 +3441,52 @@ def flash_kernel_phase():
     check_window_past_end(FA)
     print(f"  window and softcap cases: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    for case, dtype in itertools.product(FLASH_MLA_SHAPES,
+                                         (torch.float32, torch.bfloat16)):
+        e_o, e_g = flash_mla_case(FA, case, dtype)
+        if case[0] == "deepseek-v3 train" and dtype == torch.bfloat16:
+            errs.update({"flash_attention.mla": e_o,
+                         "flash_attention.bwd.mla": e_g})
+    print(f"  D = 192 (MLA) cases: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return errs
+
+
+def flash_mla_case(FA, case, dtype):
+    """One FLASH_MLA_SHAPES case through the wrapper MLA calls
+    (``flash_attention``: v padded to D = 192 on the card, the first Dv
+    columns of o kept, autograd through the pad): o and the gradients
+    against the plain versions at the unpadded width, the backward twice
+    for the same bits.  Returns (o error, largest relative gradient
+    error)."""
+    label, B, S, h, hkv, d, dv, causal = case
+    g = torch.Generator(device="cuda").manual_seed(S + dv)
+    q, k = randn(g, dtype, B, S, h, d), randn(g, dtype, B, S, hkv, d)
+    v, do = randn(g, dtype, B, S, hkv, dv), randn(g, dtype, B, S, h, dv)
+    tol = FLASH_TOLS[dtype]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = FA.flash_attention(*leaves, causal=causal)
+    grads = torch.autograd.grad(o, leaves, do)
+    again = torch.autograd.grad(FA.flash_attention(*leaves, causal=causal),
+                                leaves, do)
+    r_o, r_lse = FA.flash_attention_plain(q, k, v, causal=causal)
+    plain = FA.flash_attention_bwd_plain(q, k, v, r_o, r_lse, do,
+                                         causal=causal)
+    torch.cuda.synchronize()
+    e_o = max_err(o, r_o)
+    e_g = max(rel_err(a, b) for a, b in zip(grads, plain))
+    same = all(torch.equal(a, b) for a, b in zip(grads, again))
+    name = f"{label} B={B} S={S} H={h} Hkv={hkv} D={d} Dv={dv} " \
+           f"{'causal' if causal else 'full'} {str(dtype)[6:]}"
+    print(f"  {name}: o {e_o:.3e} (tol {tol:g}); grads vs plain {e_g:.3e} "
+          f"(relative, tol {tol:g}); two backward runs bit-identical "
+          f"{same}", flush=True)
+    require(o.shape == (B, S, h, dv), f"{name}: o is {tuple(o.shape)}")
+    require(e_o <= tol and e_g <= tol,
+            f"{name}: the D = 192 kernels disagree with the plain versions")
+    require(same, f"{name}: backward is not deterministic")
+    return e_o, e_g
 
 
 def _flash_visible_pairs(Sq, Sk, causal, q_offset, window):
@@ -3660,6 +3725,8 @@ def train_time_phase(bw):
     del qt, kt, vt, out
     rows["flash_attention"].update(flash_gemma2_times(bw))
     rows["flash_attention.bwd"].update(rows["flash_attention"].pop("bwd"))
+    rows["flash_attention"].update(flash_mla_times(bw))
+    rows["flash_attention.bwd"].update(rows["flash_attention"].pop("bwd"))
     for kind, n, dm in LN_SHAPES[:LN_TIMED]:
         x, a1, scale, bias, dy = ln_inputs(torch.bfloat16, kind, n, dm, 2)
         y, mean, rstd = LN.fused_ln_add_fwd_cuda(x, a1, scale, bias,
@@ -3808,6 +3875,103 @@ def flash_gemma2_times(bw):
                          gemma2_plain_ms=bwd_plain,
                          gemma2_bound_ms=b_bwd[0], gemma2_bound_by=b_bwd[1],
                          gemma2_library_ms=None, gemma2_shape=shape))
+
+
+def _sdpa_fused_ms(q, k, v, do):
+    """(forward ms, backward ms) of ``scaled_dot_product_attention`` on
+    (B, S, H, *) bf16 q, k, v of their own head widths, causal, through a
+    fused backend only (flash, memory-efficient or cuDNN); (None, None)
+    when none of them takes the shapes."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                SDPBackend.CUDNN_ATTENTION]
+
+    def sdpa():
+        with sdpa_kernel(backends):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    try:
+        out = sdpa()
+        torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2),
+                            retain_graph=True)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(f"  scaled_dot_product_attention: no fused backend takes "
+              f"q / k {q.shape[-1]} and v {v.shape[-1]} wide ({str(e)[:120]})")
+        return None, None
+    dot = do.transpose(1, 2)
+    return (_median_ms(sdpa, n=30),
+            _median_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True), n=30))
+
+
+def flash_mla_times(bw):
+    """The D = 192 flash kernels at deepseek-v3's training shape (B=1,
+    S=2048, 128 heads, qk 128 + 64 = 192 wide, v 128 wide, causal, bf16):
+    the kernels on v padded to 192 (what MLA launches), the wrapper's whole
+    route (pad, kernel, slice), the plain versions at the unpadded width,
+    and ``scaled_dot_product_attention`` where a fused backend takes v
+    narrower than q.  Bound: 2 (192 + 128) flops a visible pair a head at
+    989 TFLOP/s (the backward 2.5x), or the unpadded tensors' bytes.
+    Returns the forward's fields, the backward's under "bwd"."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    _, B, S, h, hkv, d, dv, _ = FLASH_MLA_SHAPES[0]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k = randn(g, torch.bfloat16, B, S, h, d), \
+        randn(g, torch.bfloat16, B, S, hkv, d)
+    v, do = randn(g, torch.bfloat16, B, S, hkv, dv), \
+        randn(g, torch.bfloat16, B, S, h, dv)
+    pad = (0, d - dv)
+    vp, dop = F.pad(v, pad), F.pad(do, pad)
+    o, lse = FA.flash_attention_fwd_cuda(q, k, vp)
+    fwd_ms = _median_ms(lambda: FA.flash_attention_fwd_cuda(q, k, vp), n=30)
+    bwd_ms = _median_ms(lambda: FA.flash_attention_bwd_cuda(
+        q, k, vp, o, lse, dop), n=30)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = FA.flash_attention(*leaves)
+    route_fwd = _median_ms(lambda: FA.flash_attention(*leaves), n=30)
+    route_bwd = _median_ms(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), n=30)
+    r_o, r_lse = FA.flash_attention_plain(q, k, v)
+    fwd_plain = _median_ms(lambda: FA.flash_attention_plain(q, k, v), n=5)
+    bwd_plain = _median_ms(lambda: FA.flash_attention_bwd_plain(
+        q, k, v, r_o, r_lse, do), n=5)
+    lib_fwd, lib_bwd = _sdpa_fused_ms(q, k, v, do)
+    pairs = S * (S + 1) / 2
+    flops = 2 * (d + dv) * h * B * pairs
+    fwd_bytes = B * S * h * (2 * d + 2 * dv) * 2 + B * h * S * 4
+    bwd_bytes = B * S * h * (4 * d + 4 * dv) * 2 + 2 * B * h * S * 4
+    bounds = []
+    for fl, nb in ((flops, fwd_bytes), (2.5 * flops, bwd_bytes)):
+        t_ops, t_bytes = fl / PEAK_BF16_FLOPS, nb / bw
+        bounds.append((max(t_ops, t_bytes) * 1e3,
+                       "operations" if t_ops >= t_bytes else "bytes"))
+    shape = (f"B={B} S={S} H={h} Hkv={hkv} qk D={d} v Dv={dv} (padded to "
+             f"{d} for the kernel) causal bf16")
+    lib = (lambda x: "none (no fused SDPA backend takes these widths)"
+           if x is None else f"{x:.4f}")
+    print(f"  flash_attention MLA {shape}: kernel_ms {fwd_ms:.4f} (the "
+          f"wrapper's pad + kernel + slice {route_fwd:.4f}) plain_ms "
+          f"{fwd_plain:.4f} bound_ms {bounds[0][0]:.4f} ({bounds[0][1]}) "
+          f"library_ms {lib(lib_fwd)}; {flops / fwd_ms / 1e9:.1f} TFLOP/s "
+          f"of unpadded work, {bounds[0][0] / fwd_ms:.3f} of the bound")
+    print(f"  flash_attention.bwd MLA: kernel_ms {bwd_ms:.4f} (the route "
+          f"{route_bwd:.4f}) plain_ms {bwd_plain:.4f} bound_ms "
+          f"{bounds[1][0]:.4f} ({bounds[1][1]}) library_ms {lib(lib_bwd)}; "
+          f"{2.5 * flops / bwd_ms / 1e9:.1f} TFLOP/s, "
+          f"{bounds[1][0] / bwd_ms:.3f} of the bound", flush=True)
+    return dict(mla_ms=fwd_ms, mla_route_ms=route_fwd,
+                mla_plain_ms=fwd_plain, mla_bound_ms=bounds[0][0],
+                mla_bound_by=bounds[0][1], mla_library_ms=lib_fwd,
+                mla_shape=shape,
+                bwd=dict(mla_ms=bwd_ms, mla_route_ms=route_bwd,
+                         mla_plain_ms=bwd_plain, mla_bound_ms=bounds[1][0],
+                         mla_bound_by=bounds[1][1], mla_library_ms=lib_bwd,
+                         mla_shape=shape + "; bound at 2.5x the forward's "
+                         "flops"))
 
 
 def kernel_breakdown(fn, n=20):
@@ -4188,6 +4352,25 @@ def tp_rank(group, backend):
             part(f"{connection}{'_sp' if sp else ''}",
                  lambda: _tp_counts_run(group, dev, connection, sp))
             torch.cuda.empty_cache()
+    # MLA (deepseek-v3 at full width, MLA_TP_LAYERS layers, fp32): the
+    # sharded forward's logits against one device's
+    mcfg = mla_config(n_layers=MLA_TP_LAYERS, dtype="float32")
+    mbatch = {"tokens": _tp_tokens(mcfg, dev)[:, :MLA_TP_SEQ]}
+    mfull = M.init_params(mcfg, seed=0, device=dev, dtype="float32")
+    with torch.no_grad():
+        mref = M.forward(mfull, mcfg, mbatch)[0]
+    mshard = MX.shard_params(mfull, mcfg, rank, size)
+    del mfull
+    torch.cuda.empty_cache()
+
+    def mla():
+        with torch.no_grad():
+            logits = M.forward(mshard, mcfg, mbatch, plan)[0]
+        return {"logit_err": max_err(logits, mref),
+                "logit_top": mref.float().abs().max().item()}
+    part("mla", mla)
+    del mshard, mref
+    torch.cuda.empty_cache()
     hk = local_kv_heads(tcfg, size)
     tblock = MX.shard_params(block, tcfg, rank, size)
     ticks = {}
@@ -4279,6 +4462,19 @@ def tp_report(ranks, backend, smi):
         require(_ar(f["counts"]) == L + 1, "TP forward all-reduces")
     require(len({r["forward"]["logit_sum"] for r in ranks}) == 1,
             "TP logits differ across ranks")
+    for r in ranks:
+        f = r["mla"]
+        tol = 1e-3 * max(1.0, f["logit_top"])
+        print(f"  rank {r['rank']}: {MLA_ARCH} (MLA; full width, "
+              f"{MLA_TP_LAYERS} layers + MTP, fp32, S={MLA_TP_SEQ}) forward "
+              f"logits vs one device: max |diff| {f['logit_err']:.3e} (max "
+              f"|logit| {f['logit_top']:.3f}; tol {tol:.3g}); all-reduces "
+              f"{_ar(f['counts'])} (want {MLA_TP_LAYERS + 1}); {f['ms']:.1f}"
+              f" ms", flush=True)
+        require(f["logit_err"] <= tol, "MLA TP logits disagree with one "
+                "device")
+        require(_ar(f["counts"]) == MLA_TP_LAYERS + 1,
+                "MLA TP forward all-reduces != L + 1")
     print(f"  one all-reduce of {r0['all_reduce_bytes']} B (1 x {TP_SEQ} x "
           f"d_model bf16) over {backend}: median "
           f"{[round(r['all_reduce_ms'], 2) for r in ranks]} ms by rank "
@@ -4746,33 +4942,18 @@ def gemma2_tick_phase():
           flush=True)
 
 
-def _host_leaves(state, lazy=False):
-    """{(tree, path): CPU copy} of the params and both AdamW moments; with
-    ``lazy``, the (key, CPU copy) pairs one at a time."""
-    from repro_torch.optim import adamw
-    pairs = (((k, path), t.detach().cpu())
-             for k, tree in (("params", state["params"]),
-                             ("m", state["opt"]["m"]),
-                             ("v", state["opt"]["v"]))
-             for path, t in adamw.named_leaves(tree))
-    return pairs if lazy else dict(pairs)
-
-
 def gemma2_train_phase():
     """``trainer.train`` at gemma2-27b's full width, 2 layers (local, then
     global), fal, fp32 masters, bf16 compute, remat, B=1, S=6144: 1 warm-up
-    step and 3 counted steps, saving the checkpoint (the reference's
-    format) after the last; one more step under torch.profiler; then the
-    checkpoint restored on the card and the same step again from it, which
-    must give the uninterrupted run's params and moments bit for bit."""
-    import shutil
-    import tempfile
+    step and 3 counted steps; one more step under torch.profiler.  (Its
+    27.75 GB checkpoint round trip left this phase for the MLA phases'
+    time: the data-parallel phase still round-trips a checkpoint on the
+    card and ``tests/test_torch_checkpoint.py`` holds the format.)"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
     from repro_torch.models.blocks import window_schedule
     from repro_torch.optim import adamw
-    from repro_torch.train import checkpoint
     from repro_torch.train import step as tstep
     from repro_torch.train import trainer
     cfg = gemma2_config()
@@ -4780,7 +4961,6 @@ def gemma2_train_phase():
     phase(f"train: gemma2-27b, 2 layers (windows {window_schedule(cfg)}), "
           f"{cfg.connection}, fp32 masters, {cfg.dtype} compute, remat "
           f"{cfg.remat}, B={B}, S={S}, {steps - 1} steps after 1 warm-up")
-    tmp = tempfile.mkdtemp(prefix="g2ckpt-")
     marks = []
 
     def mark(i, state, metrics):
@@ -4791,112 +4971,69 @@ def gemma2_train_phase():
             ops.reset_dispatch_paths()
             torch.cuda.reset_peak_memory_stats()
 
-    try:
-        t_train = time.perf_counter()
-        state, hist = trainer.train(cfg, steps=steps, batch=B, seq_len=S,
-                                    log_every=1, device="cuda",
-                                    callbacks=[mark], ckpt_dir=tmp)
-        save_s = time.perf_counter() - marks[-1]
-        counts, paths = ops.launch_counts(), ops.dispatch_paths()
-        peak = torch.cuda.max_memory_allocated()
-        losses = [h["loss"] for h in hist]
-        step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
-        ms = statistics.median(step_ms)
-        size = sum(f.stat().st_size for f in pathlib.Path(tmp).iterdir())
-        print(f"  losses {['%.4f' % x for x in losses]}; step ms "
-              f"{['%.1f' % x for x in step_ms]} (median {ms:.1f}); "
-              f"{B * S / ms * 1e3:.1f} tokens/s; peak memory "
-              f"{peak / 2**30:.2f} GiB (max_memory_allocated, counted "
-              f"steps); checkpoint {size / 1e9:.2f} GB written in "
-              f"{save_s:.1f} s (train + save {time.perf_counter() - t_train:.1f}"
-              f" s)")
-        n, L = steps - 1, cfg.n_layers
-        want = {"flash_attention": n * L * 2, "flash_attention.bwd": n * L,
-                "fused_ln_add": n * L * 2, "fused_ln_add.bwd": n * L}
-        print(f"  launches {dict((k, counts[k]) for k in want)} (expected "
-              f"steps x layers x remat factor 2 forward, steps x layers "
-              f"backward: {want}); paths {paths}", flush=True)
-        require(all(math.isfinite(x) for x in losses), "non-finite loss")
-        require(all(counts[k] == v for k, v in want.items()),
-                "gemma2 train launches != their products")
-        require(paths == {"flash_attention": ops.CUDA,
-                          "fused_ln_add": ops.CUDA},
-                f"gemma2 train paths {paths}")
-        require(checkpoint.latest_step(tmp) == steps,
-                "the trainer did not save its checkpoint at step == steps")
-        ocfg = adamw.AdamWConfig(lr=3e-4)
-        step = tstep.make_train_step(cfg, ocfg)
-        g = torch.Generator().manual_seed(17)
-        batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
-                                         dtype=torch.int32).cuda()}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            m5 = step(state, batch)[1]
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        step_peak = torch.cuda.max_memory_allocated()
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        device_ms = sum(r[1] for r in rows)
-        flash = [(re.search(r"(\w+<[^>]*>)\(", key).group(1), kms, c)
-                 for key, kms, c in rows
-                 if re.search(r"tc::\w+_kernel<|flash_\w+_kernel<", key)]
-        flash_ms = sum(r[1] for r in flash)
-        if device_ms == 0.0:
-            print("  device time: not measured (the profiler saw no CUDA "
-                  "kernels)")
-        else:
-            print(f"  profiled step: wall {wall:.1f} ms, device kernel time "
-                  f"{device_ms:.1f} ms, busy share {device_ms / wall:.3f} "
-                  f"(of the profiled wall); peak memory "
-                  f"{step_peak / 2**30:.2f} GiB")
-            for key, kms, c in sorted(rows, key=lambda r: -r[1])[:8]:
-                print(f"    {kms:9.2f} ms {c:6d} calls  {key[:90]}")
-            print(f"  flash_attention kernels: {flash_ms:.2f} ms of the "
-                  f"step's device time ({flash_ms / device_ms:.3f}): "
-                  + ", ".join(f"{name} {kms:.2f} ms in {c}"
-                              for name, kms, c in flash), flush=True)
-        # resume: the checkpoint of step 4 on the card, then the same step
-        want_leaves = _host_leaves(state)
-        like = {"params": adamw.map_tree(
-                    lambda t: torch.empty_like(t).requires_grad_(
-                        t.requires_grad), state["params"]),
-                "opt": {"m": adamw.map_tree(torch.empty_like,
-                                            state["opt"]["m"]),
-                        "v": adamw.map_tree(torch.empty_like,
-                                            state["opt"]["v"]),
-                        "count": state["opt"]["count"]}}
-        count5 = state["opt"]["count"]
-        del state
-        torch.cuda.empty_cache()
+    t_train = time.perf_counter()
+    state, hist = trainer.train(cfg, steps=steps, batch=B, seq_len=S,
+                                log_every=1, device="cuda", callbacks=[mark])
+    counts, paths = ops.launch_counts(), ops.dispatch_paths()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    ms = statistics.median(step_ms)
+    print(f"  losses {['%.4f' % x for x in losses]}; step ms "
+          f"{['%.1f' % x for x in step_ms]} (median {ms:.1f}); "
+          f"{B * S / ms * 1e3:.1f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated, counted "
+          f"steps); train {time.perf_counter() - t_train:.1f} s")
+    n, L = steps - 1, cfg.n_layers
+    want = {"flash_attention": n * L * 2, "flash_attention.bwd": n * L,
+            "fused_ln_add": n * L * 2, "fused_ln_add.bwd": n * L}
+    print(f"  launches {dict((k, counts[k]) for k in want)} (expected "
+          f"steps x layers x remat factor 2 forward, steps x layers "
+          f"backward: {want}); paths {paths}", flush=True)
+    require(all(math.isfinite(x) for x in losses), "non-finite loss")
+    require(all(counts[k] == v for k, v in want.items()),
+            "gemma2 train launches != their products")
+    require(paths == {"flash_attention": ops.CUDA,
+                      "fused_ln_add": ops.CUDA},
+            f"gemma2 train paths {paths}")
+    ocfg = adamw.AdamWConfig(lr=3e-4)
+    step = tstep.make_train_step(cfg, ocfg)
+    g = torch.Generator().manual_seed(17)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                     dtype=torch.int32).cuda()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        resumed = checkpoint.restore(tmp, like)
+        step(state, batch)
         torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-        del like
-        torch.cuda.empty_cache()
-        m5r = step(resumed, batch)[1]
-        torch.cuda.synchronize()
-        same = [k for k, t in _host_leaves(resumed, lazy=True)
-                if torch.equal(t, want_leaves[k])]
-        print(f"  resumed from the step-{steps} checkpoint (restored in "
-              f"{restore_s:.1f} s): count {resumed['opt']['count']} "
-              f"(uninterrupted {count5}); loss {float(m5r['loss']):.6f} "
-              f"(uninterrupted {float(m5['loss']):.6f}); {len(same)} of "
-              f"{len(want_leaves)} params / m / v leaves bit-identical to "
-              f"the uninterrupted run's", flush=True)
-        require(len(same) == len(want_leaves)
-                and resumed["opt"]["count"] == count5
-                and float(m5r["loss"]) == float(m5["loss"]),
-                "the resumed step differs from the uninterrupted one")
-        del resumed
-        torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        wall = (time.perf_counter() - t0) * 1e3
+    step_peak = torch.cuda.max_memory_allocated()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    device_ms = sum(r[1] for r in rows)
+    flash = [(re.search(r"(\w+<[^>]*>)\(", key).group(1), kms, c)
+             for key, kms, c in rows
+             if re.search(r"tc::\w+_kernel<|flash_\w+_kernel<", key)]
+    flash_ms = sum(r[1] for r in flash)
+    if device_ms == 0.0:
+        print("  device time: not measured (the profiler saw no CUDA "
+              "kernels)")
+    else:
+        print(f"  profiled step: wall {wall:.1f} ms, device kernel time "
+              f"{device_ms:.1f} ms, busy share {device_ms / wall:.3f} "
+              f"(of the profiled wall); peak memory "
+              f"{step_peak / 2**30:.2f} GiB")
+        for key, kms, c in sorted(rows, key=lambda r: -r[1])[:8]:
+            print(f"    {kms:9.2f} ms {c:6d} calls  {key[:90]}")
+        print(f"  flash_attention kernels: {flash_ms:.2f} ms of the "
+              f"step's device time ({flash_ms / device_ms:.3f}): "
+              + ", ".join(f"{name} {kms:.2f} ms in {c}"
+                          for name, kms, c in flash), flush=True)
+    del state
+    torch.cuda.empty_cache()
     return ({"flash_attention": counts["flash_attention"],
              "flash_attention.bwd": counts["flash_attention.bwd"]},
             dict(step_ms=ms, peak=peak, device_ms=device_ms,
@@ -5939,6 +6076,444 @@ def moe_dist_report(ranks, smi):
     return ranks[0]["forward"]["launches"], ranks[0]["train"]["launches"]
 
 
+# --------------------------------------------------------------------------- #
+# phase 16: MLA and the MTP head (deepseek-v3-671b), the VLM's image prefix
+# (llava-next-mistral-7b)
+# --------------------------------------------------------------------------- #
+MLA_ARCH = "deepseek-v3-671b"
+VLM_ARCH = "llava-next-mistral-7b"
+#: deepseek-v3 at full width: 2 layers (both dense: first_dense_layers is
+#: 3) and the MTP head for the fp32 card-vs-CPU ticks and training; 4
+#: layers (block 0, two dense, one MoE; 15.8 B parameters, 31.6 GB in
+#: bf16) for the engine
+MLA_TICK_LAYERS, MLA_ENGINE_LAYERS, MLA_TRAIN_LAYERS = 2, 4, 2
+MLA_CHUNK_LANES = ((0, 64), (64, 64), (200, 37), (300, 0))
+MLA_CONTIG_TICKS = 4
+#: the card-vs-CPU loss and gradient: B=1 x MLA_GRAD_SEQ tokens (the CPU
+#: runs 3.7 B fp32 parameters forward and backward)
+MLA_GRAD_SEQ = 32
+#: the engine: a shared 256-token system prompt (16 pages) with suffixes,
+#: in two waves (the second hits the first's parked prefixes: a verbatim
+#: repeat of a page-aligned prompt enters decode with one COW copy)
+MLA_ENGINE_NEW = 24
+MLA_TRAIN_STEPS, MLA_TRAIN_S = 4, 1024
+#: TP (inside the gloo TP phase): deepseek-v3 full width, 2 layers, fp32
+MLA_TP_LAYERS, MLA_TP_SEQ = 2, 512
+#: llava at full depth: the 2,880-token image prefix plus text, prefilled
+#: in packed ticks of VLM_CHUNK tokens, then VLM_DECODE decode ticks
+VLM_TEXT, VLM_CHUNK, VLM_DECODE = 128, 512, 16
+
+
+def mla_config(**kw):
+    from repro_torch.configs.base import get_config
+    return get_config(MLA_ARCH).replace(**kw)
+
+
+def vlm_config(**kw):
+    from repro_torch.configs.base import get_config
+    return get_config(VLM_ARCH).replace(**kw)
+
+
+def _n_params(params):
+    from repro_torch.optim import adamw
+    return sum(t.numel() for _, t in adamw.named_leaves(params))
+
+
+def mla_tick_phase():
+    """deepseek-v3 at full width, MLA_TICK_LAYERS layers plus the MTP head,
+    fp32 (3.71 B parameters): a packed tick, a padded chunk tick, a C == 1
+    tick under the dual-branch plan (MLA blocks take the unfused route), 4
+    contiguous decode ticks and one training pass's loss (ce, aux, mtp)
+    and gradient norm, each on the card against the CPU.  MLA's serving
+    paths are PyTorch ops (no paged kernel reads latents): a tick launches
+    ``fused_ln_add`` only."""
+    from repro_torch import interop
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    cfg = mla_config(n_layers=MLA_TICK_LAYERS, dtype="float32")
+    L, cuda = cfg.n_layers, ops.CUDA
+    phase(f"{MLA_ARCH} ticks at full width, {L} layers + MTP, fp32: card "
+          f"vs CPU")
+    t0 = time.perf_counter()
+    params = interop.tree_to(M.init_params(cfg, seed=0, device="cuda",
+                                           dtype="float32"), "cpu")
+    torch.cuda.empty_cache()
+    print(f"  {_n_params(params) / 1e9:.3f} B parameters; init_params on "
+          f"the card, copied to the CPU: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    ln = {"fused_ln_add": cuda}
+    counts = packed_tick(cfg, params, want_paths=ln, scaled_tol=True)
+    require(counts["fused_ln_add"] == L and sum(counts.values()) == L,
+            f"MLA packed tick launches {nonzero(counts)}")
+    padded_tick(cfg, params, "deepseek-v3 chunk tick C=64", 64,
+                MLA_CHUNK_LANES, 24, False, ln, scaled_tol=True)
+    counts = padded_tick(cfg, params, "deepseek-v3 dual-branch decode tick "
+                         "C=1", 1, MOE_DECODE_LANES, 64, True, ln,
+                         scaled_tol=True)
+    require(counts["fused_dual_branch_decode"] == 0
+            and counts["fused_ln_add"] == L,
+            f"MLA dual C == 1 tick launches {nonzero(counts)}: MLA blocks "
+            f"take the unfused route")
+    contiguous_card_vs_cpu(cfg, params, f"{MLA_ARCH} full width, {L} "
+                           f"layers, fp32", CONTIG_LANES, CONTIG_S,
+                           MLA_CONTIG_TICKS, scaled_tol=True)
+    mla_loss_tick(cfg, params)
+    del params
+    print(f"  MLA tick phases: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def mla_loss_tick(cfg, params):
+    """``loss_fn`` and its backward on B=1 x MLA_GRAD_SEQ tokens, on the
+    card (kernels) and on the CPU (plain versions) from the same weights:
+    loss, ce, aux, mtp and the gradient norm within 1e-4 (fp32 sums in
+    another order)."""
+    from repro_torch import interop
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    S = MLA_GRAD_SEQ
+    phase(f"{MLA_ARCH}: loss (ce, aux, mtp) and gradient norm, {cfg.n_layers}"
+          f" layers + MTP, fp32, B=1, S={S}: card vs CPU")
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (1, S), generator=g,
+                           dtype=torch.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = interop.tree_to(params, dev) if dev == "cuda" else adamw.map_tree(
+            lambda t: t.detach(), params)
+        for _, t in adamw.named_leaves(p):
+            t.requires_grad_(True)
+        ops.reset_launches()
+        ops.reset_dispatch_paths()
+        t0 = time.perf_counter()
+        loss, m = M.loss_fn(p, cfg, {"tokens": tokens.to(dev)})
+        loss.backward()
+        norm = math.sqrt(sum(float(t.grad.double().square().sum())
+                             for _, t in adamw.named_leaves(p)))
+        out[dev] = dict({k: float(v.detach()) for k, v in m.items()},
+                        loss=float(loss.detach()), norm=norm,
+                        secs=time.perf_counter() - t0,
+                        counts=ops.launch_counts(), paths=ops.dispatch_paths())
+        del p, loss, m
+        torch.cuda.empty_cache()
+    c, h = out["cuda"], out["cpu"]
+    diffs = {k: abs(c[k] - h[k]) for k in ("loss", "ce", "aux", "mtp")}
+    d_norm = abs(c["norm"] - h["norm"]) / h["norm"]
+    print(f"  card {({k: round(c[k], 6) for k in diffs})} CPU "
+          f"{({k: round(h[k], 6) for k in diffs})}; |diff| "
+          f"{({k: f'{v:.2e}' for k, v in diffs.items()})} (tol 1e-4); grad "
+          f"norm {c['norm']:.6f} / {h['norm']:.6f}, relative diff "
+          f"{d_norm:.3e} (tol 1e-4); card {c['secs']:.1f} s, CPU "
+          f"{h['secs']:.1f} s; card paths {c['paths']}; launches "
+          f"{nonzero(c['counts'])}", flush=True)
+    require(all(v <= 1e-4 for v in diffs.values()) and d_norm <= 1e-4,
+            "the card's MLA loss or gradient disagrees with the CPU")
+    require(c["paths"] == {"flash_attention": ops.CUDA,
+                           "fused_ln_add": ops.CUDA},
+            f"MLA training paths {c['paths']}")
+    require(all(math.isfinite(c[k]) for k in diffs) and c["mtp"] > 0,
+            "non-finite or missing MTP loss")
+
+
+def mla_engine_phase():
+    """deepseek-v3 at full width, MLA_ENGINE_LAYERS layers (block 0, two
+    dense, one MoE), bf16, through ``PagedEngine`` with the prefix cache:
+    a first wave of 6 greedy requests over a shared 256-token system
+    prompt, then a second wave of 2 (a verbatim repeat of a page-aligned
+    prompt, which enters decode from the cache with one COW copy, and a
+    new suffix), the counters zeroed before each wave and read after it;
+    then one prefill tick under torch.profiler.  A tick launches
+    ``fused_ln_add`` once a layer; a COW launches ``page_copy`` once over
+    both latent pools of every layer."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import (EngineConfig, PagedEngine,
+                                             ServeRequest)
+    cfg = mla_config(n_layers=MLA_ENGINE_LAYERS)
+    L, new = cfg.n_layers, MLA_ENGINE_NEW
+    kinds = "/".join(M.layer_kinds(cfg))
+    phase(f"engine: {MLA_ARCH}, {L} layers ({kinds}), bf16, prefix cache, "
+          f"8 greedy requests + {new}")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"  init_params on the card: {time.perf_counter() - t0:.1f} s; "
+          f"{_n_params(params) / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+          flush=True)
+    ecfg = EngineConfig(page_size=16, num_pages=1024, slots=8,
+                        prefill_chunk=256, max_seq=2048,
+                        cache_dtype="bfloat16", prefix_cache=True)
+    engine = PagedEngine(cfg, params, ecfg)
+    rng = np.random.default_rng(29)
+    sysp = rng.integers(0, cfg.vocab, 256)
+    first = [np.concatenate([sysp, rng.integers(0, cfg.vocab, n)])
+             for n in (0, 16, 40, 75, 130, 200)]
+    second = [first[0].copy(), np.concatenate(
+        [sysp, rng.integers(0, cfg.vocab, 60)])]
+    engine.submit(ServeRequest(rid=-1, prompt=rng.integers(0, cfg.vocab, 32),
+                               max_new=4))
+    engine.run()                                     # warm-up
+    engine.pcache.clear()
+    waves, total = [], {"gen": 0, "wall": 0.0, "ticks": 0}
+    counts_all = {}
+    for w, prompts in enumerate((first, second)):
+        engine.finished.clear()
+        engine.reset_stats()
+        for i, p in enumerate(prompts):
+            engine.submit(ServeRequest(rid=10 * w + i, prompt=p, max_new=new))
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        ops.reset_dispatch_paths()
+        t = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts, paths, st = (ops.launch_counts(), ops.dispatch_paths(),
+                             engine.stats())
+        gen = sum(len(r.generated) for r in done)
+        pre = st["prefix"]
+        print(f"  wave {w + 1}: {len(done)} requests, ticks {st['ticks']}, "
+              f"{gen} tokens in {wall:.2f} s = {gen / wall:.1f} tok/s; "
+              f"engine_dispatch_ms p50 {st['dispatch_ms']['p50']:.2f} p99 "
+              f"{st['dispatch_ms']['p99']:.2f}; ttft_ms p50 "
+              f"{st['ttft_ms']['p50']:.1f}; prefix hits {pre['hits']}, COW "
+              f"copies {pre['cow_copies']}; page_bytes "
+              f"{engine.allocator.page_bytes}; launches {nonzero(counts)} "
+              f"(ticks x layers = {st['ticks'] * L}); paths {paths}",
+              flush=True)
+        require(len(done) == len(prompts)
+                and all(len(r.generated) == new for r in done),
+                f"not every MLA request finished with {new} tokens")
+        require(counts["fused_ln_add"] == st["ticks"] * L
+                and counts["page_copy"] == pre["cow_copies"]
+                and sum(counts.values()) == st["ticks"] * L
+                + pre["cow_copies"],
+                f"MLA engine launches {nonzero(counts)} != ticks x layers "
+                f"+ COW copies")
+        waves.append(dict(ticks=st["ticks"], p50=st["dispatch_ms"]["p50"],
+                          p99=st["dispatch_ms"]["p99"], hits=pre["hits"],
+                          cow=pre["cow_copies"], tok_s=gen / wall))
+        total["gen"] += gen
+        total["wall"] += wall
+        total["ticks"] += st["ticks"]
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+    require(waves[1]["hits"] >= 2 and waves[1]["cow"] >= 1,
+            f"the second wave did not hit the cache with a COW: {waves[1]}")
+    # one prefill tick under the profiler
+    engine.finished.clear()
+    engine.reset_stats()
+    for i, p in enumerate(first):
+        engine.submit(ServeRequest(rid=100 + i, prompt=p[::-1].copy(),
+                                   max_new=new))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        engine.run(max_ticks=1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    device = busy_ms(prof)
+    out = dict(tok_s=total["gen"] / total["wall"], ticks=total["ticks"],
+               p50=waves[0]["p50"], p99=waves[0]["p99"],
+               ln_launches=counts_all["fused_ln_add"],
+               copy_launches=counts_all["page_copy"],
+               n_params=_n_params(params))
+    if device == 0.0:
+        print("  device time: not measured (the profiler saw no CUDA "
+              "kernels)")
+    else:
+        out.update(device_ms=device, busy=device / wall)
+        print(f"  one prefill tick profiled: device time {device:.2f} ms "
+              f"busy, wall {wall:.2f} ms, busy share {device / wall:.3f}",
+              flush=True)
+    del engine, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_train_phase():
+    """``trainer.train`` at deepseek-v3's full width, MLA_TRAIN_LAYERS
+    layers plus the MTP head (3.71 B parameters: 59.3 GB of fp32 masters,
+    gradients and moments), fal, bf16 compute, remat, B=1,
+    S=MLA_TRAIN_S: one warm-up step and MLA_TRAIN_STEPS - 1 counted, then
+    one step under torch.profiler.  Every full-sequence attention (both
+    layers and the MTP block) runs the D = 192 flash kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    from repro_torch.train import trainer
+    cfg = mla_config(n_layers=MLA_TRAIN_LAYERS)
+    steps, B, S, L = MLA_TRAIN_STEPS, 1, MLA_TRAIN_S, cfg.n_layers
+    phase(f"train: {MLA_ARCH}, {L} layers + MTP, {cfg.connection}, fp32 "
+          f"masters, {cfg.dtype} compute, remat {cfg.remat}, B={B}, S={S}, "
+          f"{steps - 1} steps after 1 warm-up")
+    marks = []
+
+    def mark(i, state, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if i == 0:
+            ops.reset_launches()
+            ops.reset_dispatch_paths()
+            torch.cuda.reset_peak_memory_stats()
+
+    state, hist = trainer.train(cfg, steps=steps, batch=B, seq_len=S,
+                                log_every=1, device="cuda", callbacks=[mark])
+    counts, paths = ops.launch_counts(), ops.dispatch_paths()
+    peak = torch.cuda.max_memory_allocated()
+    n_par = _n_params(state["params"])
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    ms = statistics.median(step_ms)
+    flash = {k: counts[k] for k in ("flash_attention", "flash_attention.bwd",
+                                    "fused_ln_add", "fused_ln_add.bwd")}
+    print(f"  {n_par / 1e9:.3f} B parameters; (loss, ce, mtp) "
+          f"{[(round(h['loss'], 4), round(h['ce'], 4), round(h['mtp'], 4)) for h in hist]}; "
+          f"step ms {['%.1f' % x for x in step_ms]} (median {ms:.1f}); "
+          f"{B * S / ms * 1e3:.1f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated, counted steps); "
+          f"launches {flash} in {steps - 1} steps; paths {paths}",
+          flush=True)
+    require(all(math.isfinite(h[k]) for h in hist
+                for k in ("loss", "ce", "mtp")),
+            "MLA train: a non-finite loss, ce or mtp")
+    n = steps - 1
+    # remat: each of the L blocks and the MTP block run their forward
+    # twice; fal's LN-add runs in the L main blocks only (the MTP block is
+    # preln)
+    want = {"flash_attention": 2 * n * (L + 1), "flash_attention.bwd":
+            n * (L + 1), "fused_ln_add": 2 * n * L, "fused_ln_add.bwd": n * L}
+    require(flash == want, f"MLA train launches {flash} != {want}")
+    require(paths == {"flash_attention": ops.CUDA, "fused_ln_add": ops.CUDA},
+            f"MLA train paths {paths}")
+    step = tstep.make_train_step(cfg, adamw.AdamWConfig(lr=3e-4))
+    g = torch.Generator().manual_seed(31)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                     dtype=torch.int32).cuda()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device_ms = busy_ms(prof)
+    out = dict(step_ms=ms, tok_s=B * S / ms * 1e3, peak=peak, n_params=n_par)
+    if device_ms == 0.0:
+        print("  device time: not measured (the profiler saw no CUDA "
+              "kernels)")
+    else:
+        out.update(device_ms=device_ms, busy=device_ms / wall)
+        print(f"  profiled step: wall {wall:.1f} ms, device time "
+              f"{device_ms:.1f} ms busy, busy share {device_ms / wall:.3f}",
+              flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return flash, out
+
+
+def vlm_phase():
+    """llava-next-mistral-7b: at 2 layers in fp32 a packed tick and a
+    padded chunk tick with every row's patch embedding, card vs CPU; then
+    at full depth (32 layers, bf16, 7.24 B parameters) the 2,880-token
+    image prefix plus VLM_TEXT text tokens prefilled through packed ticks
+    of VLM_CHUNK tokens with ``image_embeds``, then VLM_DECODE decode
+    ticks, the counters zeroed before and read after; the prefill's
+    logits beside the full-sequence forward's; ``PagedEngine`` refuses
+    the image config."""
+    from repro_torch import interop
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import EngineConfig, PagedEngine
+    cuda = ops.CUDA
+    cfg = vlm_config(n_layers=2, dtype="float32")
+    phase(f"{VLM_ARCH} at full width, 2 layers, fp32, image prefix rows: "
+          f"card vs CPU")
+    t0 = time.perf_counter()
+    params = interop.tree_to(M.init_params(cfg, seed=0, device="cuda",
+                                           dtype="float32"), "cpu")
+    torch.cuda.empty_cache()
+    packed_tick(cfg, params, scaled_tol=True, image=True)
+    padded_tick(cfg, params, "llava chunk tick C=64 with patch embeddings",
+                64, MLA_CHUNK_LANES, 24, False,
+                {"paged_chunk_attention": cuda, "fused_ln_add": cuda},
+                scaled_tol=True, image=True)
+    del params
+    cfg = vlm_config()
+    L, n_img = cfg.n_layers, cfg.n_image_tokens
+    S = n_img + VLM_TEXT
+    phase(f"{VLM_ARCH} at full depth ({L} layers), bf16: {n_img} image + "
+          f"{VLM_TEXT} text tokens in packed ticks of {VLM_CHUNK}, then "
+          f"{VLM_DECODE} decode ticks")
+    params = M.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    try:
+        PagedEngine(cfg, params, EngineConfig())
+        raise AssertionError("PagedEngine took a config with an image prefix")
+    except NotImplementedError as e:
+        print(f"  PagedEngine refuses the image config: {e}", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(37)
+    tokens = torch.randint(0, cfg.vocab, (1, S + VLM_DECODE), generator=g,
+                           device="cuda", dtype=torch.int32)
+    img = (torch.randn((1, n_img, cfg.d_model), generator=g, device="cuda")
+           * 0.02).to(torch.bfloat16)
+    tb = (S + VLM_DECODE) // PAGE + 1
+    cache = M.init_paged_cache(cfg, tb + 2, PAGE, 1, "bfloat16")
+    bt = torch.arange(1, tb + 1, dtype=torch.int32, device="cuda")[None]
+    zeros = torch.zeros((1, cfg.d_model), dtype=torch.bfloat16, device="cuda")
+
+    def tick(lo, hi):
+        pos = torch.arange(lo, hi, dtype=torch.int32, device="cuda")
+        rows = torch.cat([img[0], zeros.expand(S + VLM_DECODE - n_img, -1)])
+        batch = dict(tokens=tokens[0, lo:hi], tok_slot=torch.zeros_like(pos),
+                     tok_pos=pos, block_tables=bt,
+                     seg_last=torch.tensor([hi - lo - 1], dtype=torch.int32,
+                                           device="cuda"),
+                     image_embeds=rows[lo:hi])
+        with torch.no_grad():
+            return M.paged_decode_step(params, cfg, batch, cache)[0]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ops.reset_dispatch_paths()
+    t = time.perf_counter()
+    pre = [tick(lo, min(lo + VLM_CHUNK, S)) for lo in range(0, S, VLM_CHUNK)]
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t
+    t = time.perf_counter()
+    dec = [tick(i, i + 1) for i in range(S, S + VLM_DECODE)]
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t) * 1e3 / VLM_DECODE
+    counts, paths = ops.launch_counts(), ops.dispatch_paths()
+    n_ticks = len(pre) + len(dec)
+    logits = torch.cat([x[0] for x in pre + dec]).float()
+    with torch.no_grad():
+        full = M.forward(params, cfg, {"tokens": tokens,
+                                       "image_embeds": img})[0][0].float()
+    diff = (logits - full).abs().max().item()
+    agree = (logits.argmax(-1) == full.argmax(-1)).float().mean().item()
+    print(f"  {_n_params(params) / 1e9:.3f} B parameters; prefill "
+          f"{len(pre)} packed ticks in {pre_s:.2f} s ({S / pre_s:.0f} tok/s)"
+          f"; decode {dec_ms:.2f} ms a tick; logits of every position vs "
+          f"the full-sequence forward: max |diff| {diff:.4f}, argmax "
+          f"agreement {agree:.3f}; launches {nonzero(counts)} ({n_ticks} "
+          f"ticks x {L} layers = {n_ticks * L}); paths {paths}", flush=True)
+    require(logits.shape == full.shape and bool(torch.isfinite(logits).all()),
+            "llava's ticks gave non-finite logits or the wrong shape")
+    require(counts["paged_packed_attention"] == n_ticks * L
+            and counts["fused_ln_add"] == n_ticks * L,
+            f"llava tick launches {nonzero(counts)} != ticks x layers")
+    del params, cache
+    torch.cuda.empty_cache()
+    print(f"  VLM phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(prefill_tok_s=S / pre_s, decode_ms=dec_ms, diff=diff,
+                agree=agree, launches=counts["paged_packed_attention"],
+                ln_launches=counts["fused_ln_add"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5991,11 +6566,11 @@ def main():
     for kv in KV_NARROW:
         launches[f"paged_packed_attention.{kv}"] = quantized_engine_phase(
             qcfg, qparams, ecfg, prompts, qstreams, kv)
-    del qparams
     launches.update(padded_generation_phase(params))
     for kv in KV_NARROW:
         launches.update(padded_generation_phase(
-            params, kv, n_new=8, order=("sequential", "dual")))
+            qparams, kv, n_new=8, order=("sequential", "dual"), cfg=qcfg))
+    del qparams
     contig_launches, contig = contiguous_decode_phase(params, smi)
     del params
     torch.cuda.empty_cache()
@@ -6018,6 +6593,13 @@ def main():
     moe_train_launches, moe_train = moe_train_phase()
     moe_tp_launches = moe_dist_phase(smi)
     print(f"  MoE phases: {time.perf_counter() - t_moe:.1f} s", flush=True)
+    t_mla = time.perf_counter()
+    mla_tick_phase()
+    mla_eng = mla_engine_phase()
+    mla_train_launches, mla_train = mla_train_phase()
+    vlm = vlm_phase()
+    print(f"  MLA and VLM phases: {time.perf_counter() - t_mla:.1f} s",
+          flush=True)
     src = "src/repro_torch/kernels/csrc/"
     pa = "src/repro/kernels/paged_attention.py"
     where = {
@@ -6067,6 +6649,7 @@ def main():
                          moe_engine_launches=moe_eng["launches"],
                          moe_engine_formula=f"ticks x layers = "
                          f"{moe_eng['ticks']} x {MOE_ENGINE_LAYERS}")
+            entry["vlm_launches"] = vlm["launches"]
         elif kname == "fused_ln_add":
             entry.update(spec_engine_launches=spec["ln_launches"],
                          spec_engine_formula=spec["formula"],
@@ -6074,7 +6657,11 @@ def main():
                          contiguous_decode_launches=contig_launches[
                              "decode_step"],
                          batcher_launches=contig_launches["batcher"],
-                         moe_engine_launches=moe_eng["ln_launches"])
+                         moe_engine_launches=moe_eng["ln_launches"],
+                         mla_engine_launches=mla_eng["ln_launches"],
+                         vlm_launches=vlm["ln_launches"])
+        elif kname == "page_copy":
+            entry["mla_engine_launches"] = mla_eng["copy_launches"]
         elif kname == "fused_dual_branch_decode":
             # MoE blocks take the unfused route on C == 1 ticks
             entry["moe_engine_launches"] = 0
@@ -6096,6 +6683,12 @@ def main():
             # and the window / softcap check's error at its shape
             entry.update(gemma2_launches=g2_launches[kname],
                          gemma2_max_abs_err=errs[f"{kname}.gemma2"])
+        if kname in mla_train_launches:
+            # the deepseek-v3 training path (MLA: the D = 192 kernels on
+            # every layer and the MTP block), the D = 192 check's error
+            entry["mla_train_launches"] = mla_train_launches[kname]
+            if f"{kname}.mla" in errs:
+                entry["mla_max_abs_err"] = errs[f"{kname}.mla"]
         entry["shape"] = row["shape"]
         kernels.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s; engine "
@@ -6117,7 +6710,12 @@ def main():
           f"{g2_engine['tick_device_ms']:.2f} ms of device time; "
           f"{MOE_ARCH} ({MOE_ENGINE_LAYERS} layers) engine "
           f"{moe_eng['tok_s']:.1f} tok/s, MoE train "
-          f"{moe_train['step_ms']:.1f} ms/step; card {smi}")
+          f"{moe_train['step_ms']:.1f} ms/step; {MLA_ARCH} "
+          f"({MLA_ENGINE_LAYERS} layers) engine {mla_eng['tok_s']:.1f} "
+          f"tok/s, train ({MLA_TRAIN_LAYERS} layers + MTP) "
+          f"{mla_train['step_ms']:.1f} ms/step; {VLM_ARCH} (32 layers) "
+          f"prefill {vlm['prefill_tok_s']:.0f} tok/s, decode "
+          f"{vlm['decode_ms']:.2f} ms a tick; card {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

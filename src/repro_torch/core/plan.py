@@ -81,7 +81,7 @@ class TPStyle(enum.Enum):
 
 
 #: families with an explicit partial-sum TP stack in the port
-EXPLICIT_TP_FAMILIES = ("dense", "moe")
+EXPLICIT_TP_FAMILIES = ("dense", "moe", "vlm")
 
 #: families whose decode path runs FAL transformer blocks
 DUAL_BRANCH_FAMILIES = ("dense", "moe", "vlm", "hybrid")
@@ -273,7 +273,10 @@ class ExecutionPlan:
                 raise ValueError(f"explicit TP: {what}={n} is not divisible "
                                  f"by tp_size={tp_size}")
         div(cfg.n_heads, "n_heads")
-        if cfg.n_kv_heads % tp_size and tp_size % cfg.n_kv_heads:
+        # MLA has no KV heads to shard: its latent is replicated and the
+        # up-projections split by query heads (reference plan.py:316)
+        if not cfg.use_mla and cfg.n_kv_heads % tp_size \
+                and tp_size % cfg.n_kv_heads:
             # n_kv_heads < tp_size is fine when groups align (KV
             # replication, attention._kv_group_slice); anything else cannot
             # shard evenly
@@ -294,6 +297,7 @@ def local_kv_heads(cfg, tp_size: int) -> int:
 
 def kv_replicated(cfg, tp_size: int) -> bool:
     """Megatron's GQA fallback: ``wk`` / ``wv`` whole on every rank when
-    the KV heads do not divide over the ranks."""
-    return cfg.n_kv_heads % tp_size != 0
+    the KV heads do not divide over the ranks.  Never under MLA, which has
+    no ``wk`` / ``wv``."""
+    return not cfg.use_mla and cfg.n_kv_heads % tp_size != 0
 

@@ -5,18 +5,20 @@ reference's parameter tree with every leaf converted to a numpy array
 (``jax.tree.map(np.asarray, params)``) and returns the port's tree: the
 stacked ``blocks_dense`` and then ``blocks_moe`` leaves (leading layer
 axis) become one list of per-layer dicts under ``"blocks"``, in depth order
-(a MoE block's expert leaves stay 3-D), matmul weights and embeddings are cast to
-``dtype`` (None: ``cfg.dtype``, the serving storage; training passes
-``cfg.param_dtype`` to keep the reference's fp32 masters) and norm scales and
-biases stay fp32.  bfloat16 leaves come through fp32, because
-``torch.from_numpy`` does not take ml_dtypes' bfloat16.  Like every entry
-point of the port, ``device=None`` means the card (``cuda``, which must
-exist); pass ``device="cpu"`` for the CPU.
+(a MoE block's expert leaves stay 3-D; MLA's attention leaves and the
+``mtp`` subtree, a dict like any other, cross as they are), matmul weights
+and embeddings are cast to ``dtype`` (None: ``cfg.dtype``, the serving
+storage; training passes ``cfg.param_dtype`` to keep the reference's fp32
+masters) and norm scales and biases stay fp32.  bfloat16 leaves come
+through fp32, because ``torch.from_numpy`` does not take ml_dtypes'
+bfloat16.  Like every entry point of the port, ``device=None`` means the
+card (``cuda``, which must exist); pass ``device="cpu"`` for the CPU.
 
 ``cache_from_numpy(tree, device=None)`` takes the reference's paged cache
 with numpy leaves and returns the port's, leaf for leaf in the same dtype:
 the two caches share one layout (block 0's pools, the stacked pools of the
-other layers, ``a1_sig``).  int8 pools cross as they are; fp8 pools cross
+other layers, ``a1_sig``; under MLA the pools are the latent ``c`` and rope
+key ``kr``).  int8 pools cross as they are; fp8 pools cross
 as the bytes of ml_dtypes' float8_e4m3fn, viewed as uint8.
 """
 from __future__ import annotations

@@ -15,7 +15,8 @@
 // repeated.  Causal alignment is at the start, as blockwise_attention's
 // (key j is visible to query row i when j <= q_offset + i), not at the end
 // as ref.attention_ref's.  Any Sq and Sk (the tails are masked), D in
-// {32, 64, 128}.
+// {32, 64, 128, 192} (192: MLA's 128 + 64-wide query / key heads; the
+// wrapper pads MLA's 128-wide V with zeros to 192).
 //
 // gemma2's options, which the TPU kernel does not take (the reference runs
 // them in blockwise_attention, src/repro/models/attention.py:21-66): a
@@ -62,6 +63,13 @@
 //     64-key K/V tiles up to the causal end, S, P, dP, dS, dQ += dS K.
 //     That is 7 products where the bound counts 5: the price of
 //     determinism (S and dP are formed in both backward kernels).
+//   D = 192 (MLA): the streamed tiles hold 32 rows (tile_n), not 64, so
+//     that a 32-column score fragment (16 floats) sits beside the 96-float
+//     accumulator of a 192-wide row within the 168 registers a thread gets
+//     at this launch bound; the products gain an m64n32 (scores) and an
+//     m64n192 (P V, dS K, P^T dO, dS^T Q) shape.  dK/dV keeps its 64-key
+//     block.  MLA's V is 128 wide: the wrapper pads it with zeros, so a
+//     third of the P V and dV work and of V's bytes is spent on zeros.
 //
 // fp32 (the CUDA-core kernels): one block per 64-row tile, the
 // products on the CUDA cores in fp32 out of fp32 shared-memory copies.
@@ -640,7 +648,13 @@ using bf16 = __nv_bfloat16;
 constexpr int kWG = 128;                 // threads of a warpgroup
 constexpr int kThreadsTC = 3 * kWG;      // 2 consumer warpgroups + producer
 constexpr int kRows = 128;   // forward, dQ: the block's query rows (64 a WG)
-constexpr int kN = 64;       // rows of each streamed tile; dK/dV's key tile
+constexpr int kN = 64;       // dK/dV's key tile (its warpgroups' wgmma rows)
+// Rows of each streamed tile: K/V in the forward and dQ, Q/dO in dK/dV.  64,
+// or 32 at D = 192, where a 64-column score tile beside a 192-wide row's
+// 96-float accumulator would not fit the 168 registers a thread ptxas
+// allocates at this launch bound (setmaxnreg does not raise it).
+template <int D>
+__host__ __device__ constexpr int tile_n() { return D > 128 ? 32 : 64; }
 constexpr int kStages = 3;
 constexpr int kConsumerWarps = 8;        // arrivals that free a stage
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
@@ -707,6 +721,7 @@ __device__ __forceinline__ void init_barriers(uint64_t* fixed,
 struct QueryBlock {
   int h, b, hk, q0, t0, n_tiles;
 };
+template <int N>
 __device__ __forceinline__ QueryBlock query_block(int B, int Sq, int Sk,
                                                   int H, int Hkv, int causal,
                                                   int q_offset, int window) {
@@ -716,8 +731,8 @@ __device__ __forceinline__ QueryBlock query_block(int B, int Sq, int Sk,
   const int h = (int)(blockIdx.x % per) % H, b = (int)(blockIdx.x % per) / H;
   const int q0 = qt * kRows;
   const int key_end = causal ? min(Sk, q_offset + min(q0 + kRows, Sq)) : Sk;
-  return {h, b, h / (H / Hkv), q0, key_begin(q0, window, q_offset) / kN,
-          (key_end + kN - 1) / kN};
+  return {h, b, h / (H / Hkv), q0, key_begin(q0, window, q_offset) / N,
+          (key_end + N - 1) / N};
 }
 
 // The producer's loop of the forward and dQ: K and V tiles t0 .. n_tiles - 1
@@ -729,25 +744,26 @@ __device__ __forceinline__ void stream_kv(uint8_t* KV, const CUtensorMap* tm_k,
                                           uint64_t* full, uint64_t* empty,
                                           int hk, int b, int t0, int n_tiles) {
   using G = Geo<D>;
+  constexpr int N = tile_n<D>();
   for (int t = t0; t < n_tiles; ++t) {
     const int s = stage_of(t - t0);
-    uint8_t* Ks = KV + s * 2 * G::tile(kN);
+    uint8_t* Ks = KV + s * 2 * G::tile(N);
     sm90::mbar_wait(&empty[s], parity_of(t - t0) ^ 1);
-    sm90::mbar_arrive_expect_tx(&full[s], 2 * G::tile(kN));
-    load_rows<D>(Ks, kN, tm_k, &full[s], hk, t * kN, b);
-    load_rows<D>(Ks + G::tile(kN), kN, tm_v, &full[s], hk, t * kN, b);
+    sm90::mbar_arrive_expect_tx(&full[s], 2 * G::tile(N));
+    load_rows<D>(Ks, N, tm_k, &full[s], hk, t * N, b);
+    load_rows<D>(Ks + G::tile(N), N, tm_v, &full[s], hk, t * N, b);
   }
 }
 
-// Element (row0 + 8 i, col0 + 8 n + c2 + j) of this thread's m64n64
-// accumulator fragment x[4 n + 2 i + j] becomes ``fill`` where
-// keep(row, col) is false.
-template <typename Keep>
-__device__ __forceinline__ void mask_tile(float (&x)[kN / 2], int row0,
+// Element (row0 + 8 i, col0 + 8 n + c2 + j) of this thread's m64nN
+// accumulator fragment x[4 n + 2 i + j] (N2 = N / 2 floats) becomes
+// ``fill`` where keep(row, col) is false.
+template <int N2, typename Keep>
+__device__ __forceinline__ void mask_tile(float (&x)[N2], int row0,
                                           int col0, int c2, float fill,
                                           Keep keep) {
 #pragma unroll
-  for (int n = 0; n < kN / 8; ++n)
+  for (int n = 0; n < N2 / 4; ++n)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -766,8 +782,9 @@ constexpr size_t smem_floor(size_t bytes) {
 template <int D>
 constexpr size_t fwd_smem() {
   using G = Geo<D>;
-  return smem_floor(1024 + G::tile(kRows) + kStages * 2 * G::tile(kN) +
-         (1 + 2 * kStages) * 8);
+  return smem_floor(1024 + G::tile(kRows) +
+                    kStages * 2 * G::tile(tile_n<D>()) +
+                    (1 + 2 * kStages) * 8);
 }
 
 // Under a softcap (kCap) a raw score x becomes the capped score in log2
@@ -784,6 +801,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
            float scale_log2, int causal, int q_offset, int window, float soc,
            float cap_log2) {
   using G = Geo<D>;
+  constexpr int N = tile_n<D>();
   // the multiplier of a score in the softmax: the capped score is in log2
   // units already
   const float sl2 = kCap ? 1.f : scale_log2;
@@ -791,10 +809,10 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint8_t* Qs = align1024(smem_raw);
   uint8_t* KV = Qs + G::tile(kRows);           // stage s: K, then V
   uint64_t* bars = reinterpret_cast<uint64_t*>(
-      KV + kStages * 2 * G::tile(kN));
+      KV + kStages * 2 * G::tile(N));
   uint64_t *q_full = bars, *full = bars + 1, *empty = bars + 1 + kStages;
   const QueryBlock qb =
-      query_block(B, Sq, Sk, H, Hkv, causal, q_offset, window);
+      query_block<N>(B, Sq, Sk, H, Hkv, causal, q_offset, window);
   const int h = qb.h, b = qb.b, hk = qb.hk, q0 = qb.q0, t0 = qb.t0,
             n_tiles = qb.n_tiles;
   init_barriers(q_full, full, empty, 1);
@@ -822,26 +840,26 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint64_t q_desc = kmajor<D>(Qs, 64 * wg);
     sm90::mbar_wait(q_full, 0);
     for (int t = t0; t < n_tiles; ++t) {
-      const int s = stage_of(t - t0), k0 = t * kN;
-      const uint8_t* Ks = KV + s * 2 * G::tile(kN);
-      const uint8_t* Vs = Ks + G::tile(kN);
+      const int s = stage_of(t - t0), k0 = t * N;
+      const uint8_t* Ks = KV + s * 2 * G::tile(N);
+      const uint8_t* Vs = Ks + G::tile(N);
       sm90::mbar_wait(&full[s], parity_of(t - t0));
       // the tile holds a key this warpgroup's rows see: not past the causal
       // end of its last row, not wholly below the window of its first
       if (active && (!causal || k0 <= q_offset + last_row) &&
-          (window <= 0 || k0 + kN - 1 > q_offset + wrow0 - window)) {
-        float sc[kN / 2];
+          (window <= 0 || k0 + N - 1 > q_offset + wrow0 - window)) {
+        float sc[N / 2];
         sm90::wgmma_fence();
-        gemm_over_d<D, kRows, kN>(sc, q_desc, kmajor<D>(Ks, 0));
+        gemm_over_d<D, kRows, N>(sc, q_desc, kmajor<D>(Ks, 0));
         sm90::wgmma_commit();
         sm90::wgmma_wait_all();
         sm90::fence_regs(sc);
         if constexpr (kCap) {
 #pragma unroll
-          for (int e = 0; e < kN / 2; ++e)
+          for (int e = 0; e < N / 2; ++e)
             sc[e] = tanhf(sc[e] * soc) * cap_log2;
         }
-        if (k0 + kN > Sk || (causal && k0 + kN - 1 > q_offset + wrow0) ||
+        if (k0 + N > Sk || (causal && k0 + N - 1 > q_offset + wrow0) ||
             (window > 0 && k0 <= q_offset + last_row - window))
           mask_tile(sc, r0, k0, c2, -INFINITY, [&](int row, int key) {
             return key < Sk && (!causal || key <= q_offset + row) &&
@@ -851,7 +869,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int i = 0; i < 2; ++i) {
           float mx = -INFINITY;
 #pragma unroll
-          for (int n = 0; n < kN / 8; ++n)
+          for (int n = 0; n < N / 8; ++n)
             mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * i], sc[4 * n + 2 * i + 1]));
           const float m_new = fmaxf(m[i], quad_max(mx) * sl2);
           const float m_use = m_new == -INFINITY ? 0.f : m_new;
@@ -859,7 +877,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           m[i] = m_new;
           float rs = 0.f;
 #pragma unroll
-          for (int n = 0; n < kN / 8; ++n)
+          for (int n = 0; n < N / 8; ++n)
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
               const int e = 4 * n + 2 * i + j;
@@ -873,10 +891,10 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
             acc[4 * n + 2 * i + 1] *= alpha;
           }
         }
-        uint32_t pa[kN / 16][4];
+        uint32_t pa[N / 16][4];
         to_a(sc, pa);
         sm90::wgmma_fence();
-        gemm_over_rows<D>(acc, pa, mnmajor<D>(Vs, kN));
+        gemm_over_rows<D>(acc, pa, mnmajor<D>(Vs, N));
         sm90::wgmma_commit();
         sm90::wgmma_wait_all();
         sm90::fence_regs(acc);
@@ -898,14 +916,15 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // Under a softcap the dK/dV block also hands warpgroup 1 the fp32 factor
-// 1 - t^2 of each P^T element (kN x kN floats beside P^T).
+// 1 - t^2 of each P^T element (kN x N floats beside P^T).
 template <int D, bool kCap>
 constexpr size_t dkdv_smem() {
   using G = Geo<D>;
+  constexpr int N = tile_n<D>();
   return smem_floor(1024 + 2 * G::tile(kN) +
-                    kStages * 2 * G::tile(kN) + kN * kN * 2 +
-                    (kCap ? kN * kN * 4 : 0) +
-                    kStages * 2 * kN * 4 + (1 + 2 * kStages) * 8);
+                    kStages * 2 * G::tile(N) + kN * N * 2 +
+                    (kCap ? kN * N * 4 : 0) +
+                    kStages * 2 * N * 4 + (1 + 2 * kStages) * 8);
 }
 
 // Named barriers (0 is __syncthreads) handing P^T from warpgroup 0 to
@@ -921,7 +940,7 @@ __device__ __forceinline__ void named_arrive(int id) {
 }
 
 // One block per (64-key tile, KV head, batch), walking the G query heads
-// and the 64-row query tiles from the causal start.  The two consumer
+// and the N-row query tiles (tile_n) from the causal start.  The two consumer
 // warpgroups split the work of each tile: warpgroup 0 forms S^T = K Q^T,
 // P^T = exp(scale S^T - lse) (rounded to bf16, handed to warpgroup 1
 // through shared memory) and dV += P^T dO; warpgroup 1 forms
@@ -943,25 +962,26 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
             int causal, int q_offset, int window, float soc,
             float cap_log2) {
   using G = Geo<D>;
+  constexpr int N = tile_n<D>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Ks = align1024(smem_raw);
   uint8_t* Vs = Ks + G::tile(kN);
   uint8_t* QO = Vs + G::tile(kN);           // stage s: Q, then dO
   uint32_t* Pt = reinterpret_cast<uint32_t*>(QO + kStages * 2 *
-                                              G::tile(kN));
-  float* Gt = reinterpret_cast<float*>(Pt + kN * kN / 2);   // kCap: 1 - t^2
-  float* LD = Gt + (kCap ? kN * kN : 0);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(LD + kStages * 2 * kN);
+                                              G::tile(N));
+  float* Gt = reinterpret_cast<float*>(Pt + kN * N / 2);    // kCap: 1 - t^2
+  float* LD = Gt + (kCap ? kN * N : 0);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(LD + kStages * 2 * N);
   uint64_t *kv_full = bars, *full = bars + 1, *empty = bars + 1 + kStages;
   const int per = Hkv * B;
   const int kt = (int)(blockIdx.x / per);      // key tile 0 (most work) first
   const int hk = (int)(blockIdx.x % per) % Hkv;
   const int b = (int)(blockIdx.x % per) / Hkv;
   const int G_ = H / Hkv, k0 = kt * kN;
-  const int qt_lo = causal ? max(0, k0 - q_offset) / kN : 0;
+  const int qt_lo = causal ? max(0, k0 - q_offset) / N : 0;
   const int per_head = max(
-      0, (query_end(min(k0 + kN, Sk) - 1, Sq, window, q_offset) + kN - 1) /
-                 kN - qt_lo);
+      0, (query_end(min(k0 + kN, Sk) - 1, Sq, window, q_offset) + N - 1) /
+                 N - qt_lo);
   const int n_iter = G_ * per_head;
   // the producer warp's 32 lanes each arrive (after writing lse and delta)
   init_barriers(kv_full, full, empty, 32);
@@ -979,20 +999,20 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int it = 0; it < n_iter; ++it) {
         const int s = stage_of(it);
         const int h = hk * G_ + it / per_head;
-        const int q0 = (qt_lo + it % per_head) * kN;
-        uint8_t* Qs = QO + s * 2 * G::tile(kN);
-        float* ls = LD + s * 2 * kN;
+        const int q0 = (qt_lo + it % per_head) * N;
+        uint8_t* Qs = QO + s * 2 * G::tile(N);
+        float* ls = LD + s * 2 * N;
         sm90::mbar_wait(&empty[s], parity_of(it) ^ 1);
-        for (int r = lane; r < kN; r += 32) {
+        for (int r = lane; r < N; r += 32) {
           const int row = q0 + r;
           const size_t off = ((size_t)b * H + h) * Sq + row;
           ls[r] = row < Sq ? lse[off] * kLog2e : 0.f;
-          ls[kN + r] = row < Sq ? delta[off] : 0.f;
+          ls[N + r] = row < Sq ? delta[off] : 0.f;
         }
         if (lane == 0) {
-          sm90::mbar_arrive_expect_tx(&full[s], 2 * G::tile(kN));
-          load_rows<D>(Qs, kN, &tm_q, &full[s], h, q0, b);
-          load_rows<D>(Qs + G::tile(kN), kN, &tm_do, &full[s], h, q0,
+          sm90::mbar_arrive_expect_tx(&full[s], 2 * G::tile(N));
+          load_rows<D>(Qs, N, &tm_q, &full[s], h, q0, b);
+          load_rows<D>(Qs + G::tile(N), N, &tm_do, &full[s], h, q0,
                        b);
         } else {
           sm90::mbar_arrive(&full[s]);
@@ -1012,17 +1032,17 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (wg == 1) named_arrive(kBarPFree);      // the P^T buffer starts free
     for (int it = 0; it < n_iter; ++it) {
       const int s = stage_of(it);
-      const int q0 = (qt_lo + it % per_head) * kN;
-      const uint8_t* Qs = QO + s * 2 * G::tile(kN);
-      const uint8_t* Os = Qs + G::tile(kN);
-      const float* ls = LD + s * 2 * kN;
+      const int q0 = (qt_lo + it % per_head) * N;
+      const uint8_t* Qs = QO + s * 2 * G::tile(N);
+      const uint8_t* Os = Qs + G::tile(N);
+      const float* ls = LD + s * 2 * N;
       sm90::mbar_wait(&full[s], parity_of(it));
       // both warpgroups take the same branch: the barriers pair up
-      if (!causal || q_offset + min(q0 + kN - 1, Sq - 1) >= k0) {
+      if (!causal || q_offset + min(q0 + N - 1, Sq - 1) >= k0) {
         if (wg == 0) {
-          float st[kN / 2];                 // S^T = K Q^T
+          float st[N / 2];                  // S^T = K Q^T
           sm90::wgmma_fence();
-          gemm_over_d<D, kN, kN>(st, k_desc, kmajor<D>(Qs, 0));
+          gemm_over_d<D, kN, N>(st, k_desc, kmajor<D>(Qs, 0));
           sm90::wgmma_commit();
           sm90::wgmma_wait_all();
           sm90::fence_regs(st);
@@ -1030,7 +1050,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
           // registers would spill), once warpgroup 1 has read the last
           if constexpr (kCap) named_sync(kBarPFree);
 #pragma unroll
-          for (int n = 0; n < kN / 8; ++n) {
+          for (int n = 0; n < N / 8; ++n) {
             const float2 lv =
                 *reinterpret_cast<const float2*>(ls + 8 * n + c2);
 #pragma unroll
@@ -1049,47 +1069,47 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
               }
             }
           }
-          if (k0 + kN > Sk || q0 + kN > Sq ||
+          if (k0 + kN > Sk || q0 + N > Sq ||
               (causal && k0 + kN - 1 > q_offset + q0) ||
-              (window > 0 && q_offset + q0 + kN - 1 >= k0 + window))
+              (window > 0 && q_offset + q0 + N - 1 >= k0 + window))
             mask_tile(st, kr0, q0, c2, 0.f, [&](int key, int qc) {
               return key < Sk && qc < Sq && (!causal || key <= q_offset + qc) &&
                      in_window(key, q_offset + qc, window);
             });
-          uint32_t pa[kN / 16][4];
+          uint32_t pa[N / 16][4];
           to_a(st, pa);
           if constexpr (!kCap)
             named_sync(kBarPFree);             // warpgroup 1 read the last
 #pragma unroll
-          for (int t = 0; t < kN / 16; ++t)
+          for (int t = 0; t < N / 16; ++t)
 #pragma unroll
             for (int r = 0; r < 4; ++r) Pt[(4 * t + r) * kWG + tid] = pa[t][r];
           named_arrive(kBarPReady);
           sm90::wgmma_fence();                 // dV += P^T dO
-          gemm_over_rows<D>(acc, pa, mnmajor<D>(Os, kN));
+          gemm_over_rows<D>(acc, pa, mnmajor<D>(Os, N));
           sm90::wgmma_commit();
           sm90::wgmma_wait_all();
           sm90::fence_regs(acc);
           sm90::fence_regs(pa);
         } else {
-          float dpt[kN / 2];                // dP^T = V dO^T
+          float dpt[N / 2];                 // dP^T = V dO^T
           sm90::wgmma_fence();
-          gemm_over_d<D, kN, kN>(dpt, v_desc, kmajor<D>(Os, 0));
+          gemm_over_d<D, kN, N>(dpt, v_desc, kmajor<D>(Os, 0));
           sm90::wgmma_commit();
           sm90::wgmma_wait_all();
           sm90::fence_regs(dpt);
           // dS^T = P^T (dP^T - delta) from warpgroup 0's bf16 P^T (the same
           // fragment layout: thread tid of both warpgroups holds the same
           // keys and query columns)
-          uint32_t da[kN / 16][4];
+          uint32_t da[N / 16][4];
           named_sync(kBarPReady);
 #pragma unroll
-          for (int t = 0; t < kN / 16; ++t)
+          for (int t = 0; t < N / 16; ++t)
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
               const int col = 8 * (2 * t + r / 2) + c2, e = 8 * t + 2 * r;
               const float2 dl =
-                  *reinterpret_cast<const float2*>(ls + kN + col);
+                  *reinterpret_cast<const float2*>(ls + N + col);
               const float2 pr = sm90::unpack_bf16(Pt[(4 * t + r) * kWG + tid]);
               if constexpr (kCap)
                 da[t][r] = sm90::pack_bf16(
@@ -1101,7 +1121,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
             }
           named_arrive(kBarPFree);
           sm90::wgmma_fence();                 // dK += dS^T Q
-          gemm_over_rows<D>(acc, da, mnmajor<D>(Qs, kN));
+          gemm_over_rows<D>(acc, da, mnmajor<D>(Qs, N));
           sm90::wgmma_commit();
           sm90::wgmma_wait_all();
           sm90::fence_regs(acc);
@@ -1126,8 +1146,9 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
 template <int D>
 constexpr size_t dq_smem() {
   using G = Geo<D>;
-  return smem_floor(1024 + 2 * G::tile(kRows) + kStages * 2 * G::tile(kN) +
-         (1 + 2 * kStages) * 8);
+  return smem_floor(1024 + 2 * G::tile(kRows) +
+                    kStages * 2 * G::tile(tile_n<D>()) +
+                    (1 + 2 * kStages) * 8);
 }
 
 // Under a softcap each score is capped (tanhf) before P is formed, and
@@ -1143,15 +1164,16 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
           float scale, float scale_log2, int causal, int q_offset,
           int window, float soc, float cap_log2) {
   using G = Geo<D>;
+  constexpr int N = tile_n<D>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);
   uint8_t* Os = Qs + G::tile(kRows);           // dO
   uint8_t* KV = Os + G::tile(kRows);           // stage s: K, then V
   uint64_t* bars = reinterpret_cast<uint64_t*>(
-      KV + kStages * 2 * G::tile(kN));
+      KV + kStages * 2 * G::tile(N));
   uint64_t *qo_full = bars, *full = bars + 1, *empty = bars + 1 + kStages;
   const QueryBlock qb =
-      query_block(B, Sq, Sk, H, Hkv, causal, q_offset, window);
+      query_block<N>(B, Sq, Sk, H, Hkv, causal, q_offset, window);
   const int h = qb.h, b = qb.b, hk = qb.hk, q0 = qb.q0, t0 = qb.t0,
             n_tiles = qb.n_tiles;
   init_barriers(qo_full, full, empty, 1);
@@ -1188,17 +1210,17 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint64_t o_desc = kmajor<D>(Os, 64 * wg);
     sm90::mbar_wait(qo_full, 0);
     for (int t = t0; t < n_tiles; ++t) {
-      const int s = stage_of(t - t0), k0 = t * kN;
-      const uint8_t* Ks = KV + s * 2 * G::tile(kN);
-      const uint8_t* Vs = Ks + G::tile(kN);
+      const int s = stage_of(t - t0), k0 = t * N;
+      const uint8_t* Ks = KV + s * 2 * G::tile(N);
+      const uint8_t* Vs = Ks + G::tile(N);
       sm90::mbar_wait(&full[s], parity_of(t - t0));
       if (active && (!causal || k0 <= q_offset + last_row) &&
-          (window <= 0 || k0 + kN - 1 > q_offset + wrow0 - window)) {
-        float sc[kN / 2];                   // S = Q K^T
-        float dp[kN / 2];                   // dP = dO V^T
-        const auto mask = [&](float (&x)[kN / 2]) {
-          if (k0 + kN > Sk || wrow0 + 63 >= Sq ||
-              (causal && k0 + kN - 1 > q_offset + wrow0) ||
+          (window <= 0 || k0 + N - 1 > q_offset + wrow0 - window)) {
+        float sc[N / 2];                    // S = Q K^T
+        float dp[N / 2];                    // dP = dO V^T
+        const auto mask = [&](float (&x)[N / 2]) {
+          if (k0 + N > Sk || wrow0 + 63 >= Sq ||
+              (causal && k0 + N - 1 > q_offset + wrow0) ||
               (window > 0 && k0 <= q_offset + last_row - window))
             mask_tile(x, r0, k0, c2, 0.f, [&](int row, int key) {
               return row < Sq && key < Sk &&
@@ -1206,19 +1228,19 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                      in_window(key, q_offset + row, window);
             });
         };
-        uint32_t pa[kN / 16][4];            // P in bf16, as in dK/dV
+        uint32_t pa[N / 16][4];             // P in bf16, as in dK/dV
         if constexpr (kCap) {
           // both products first; 1 - t^2 is folded into dP - delta at
           // once, so that no third fragment stays live (it would spill)
           sm90::wgmma_fence();
-          gemm_over_d<D, kRows, kN>(sc, q_desc, kmajor<D>(Ks, 0));
-          gemm_over_d<D, kRows, kN>(dp, o_desc, kmajor<D>(Vs, 0));
+          gemm_over_d<D, kRows, N>(sc, q_desc, kmajor<D>(Ks, 0));
+          gemm_over_d<D, kRows, N>(dp, o_desc, kmajor<D>(Vs, 0));
           sm90::wgmma_commit();
           sm90::wgmma_wait_all();
           sm90::fence_regs(sc);
           sm90::fence_regs(dp);
 #pragma unroll
-          for (int e = 0; e < kN / 2; ++e) {
+          for (int e = 0; e < N / 2; ++e) {
             const float th = tanhf(sc[e] * soc);
             sc[e] = sm90::ex2(fmaf(th, cap_log2, -lse2[(e / 2) % 2]));
             dp[e] = (dp[e] - dl[(e / 2) % 2]) * (1.f - th * th);
@@ -1227,26 +1249,26 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
           to_a(sc, pa);
         } else {
           sm90::wgmma_fence();
-          gemm_over_d<D, kRows, kN>(sc, q_desc, kmajor<D>(Ks, 0));
+          gemm_over_d<D, kRows, N>(sc, q_desc, kmajor<D>(Ks, 0));
           sm90::wgmma_commit();
           sm90::wgmma_wait_all();
           sm90::fence_regs(sc);
 #pragma unroll
-          for (int e = 0; e < kN / 2; ++e)
+          for (int e = 0; e < N / 2; ++e)
             sc[e] = sm90::ex2(fmaf(sc[e], scale_log2, -lse2[(e / 2) % 2]));
           mask(sc);
           to_a(sc, pa);
           sm90::wgmma_fence();
-          gemm_over_d<D, kRows, kN>(dp, o_desc, kmajor<D>(Vs, 0));
+          gemm_over_d<D, kRows, N>(dp, o_desc, kmajor<D>(Vs, 0));
           sm90::wgmma_commit();
           sm90::wgmma_wait_all();
           sm90::fence_regs(dp);
         }
         // dS = P (dP - delta) from the bf16 P, so that both kernels form
         // the same dS (capped: P ((dP - delta)(1 - t^2)))
-        uint32_t da[kN / 16][4];
+        uint32_t da[N / 16][4];
 #pragma unroll
-        for (int t = 0; t < kN / 16; ++t)
+        for (int t = 0; t < N / 16; ++t)
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             const float2 pr = sm90::unpack_bf16(pa[t][r]);
@@ -1258,7 +1280,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                                          pr.y * (dp[e + 1] - dl[r % 2]));
           }
         sm90::wgmma_fence();
-        gemm_over_rows<D>(dq_acc, da, mnmajor<D>(Ks, kN));
+        gemm_over_rows<D>(dq_acc, da, mnmajor<D>(Ks, N));
         sm90::wgmma_commit();
         sm90::wgmma_wait_all();
         sm90::fence_regs(dq_acc);
@@ -1313,8 +1335,8 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
     return -1;
   CUtensorMap tq, tk, tv;
   if (!sm90::bf16_rows_map(&tq, q, s.B, s.Sq, s.H, D, kRows) ||
-      !sm90::bf16_rows_map(&tk, k, s.B, s.Sk, s.Hkv, D, kN) ||
-      !sm90::bf16_rows_map(&tv, v, s.B, s.Sk, s.Hkv, D, kN))
+      !sm90::bf16_rows_map(&tk, k, s.B, s.Sk, s.Hkv, D, tile_n<D>()) ||
+      !sm90::bf16_rows_map(&tv, v, s.B, s.Sk, s.Hkv, D, tile_n<D>()))
     return kErrMap;
   return s.cap > 0.f ? fwd_launch<D, true>(tq, tk, tv, o, lse, s, stream)
                      : fwd_launch<D, false>(tq, tk, tv, o, lse, s, stream);
@@ -1322,8 +1344,9 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
 
 template <int D, bool kCap>
 int bwd_launch(const CUtensorMap& tq, const CUtensorMap& tdo,
-               const CUtensorMap& tq64, const CUtensorMap& tk64,
-               const CUtensorMap& tv64, const CUtensorMap& tdo64,
+               const CUtensorMap& tq_n, const CUtensorMap& tk64,
+               const CUtensorMap& tv64, const CUtensorMap& tdo_n,
+               const CUtensorMap& tk_n, const CUtensorMap& tv_n,
                const float* lse, void* dq, void* dk, void* dv,
                const float* delta, const Shape& s, cudaStream_t stream) {
   const float sl2 = s.scale * kLog2e;
@@ -1332,7 +1355,7 @@ int bwd_launch(const CUtensorMap& tq, const CUtensorMap& tdo,
   if (err) return err;
   dkdv_kernel<D, kCap>
       <<<(unsigned)grid, kThreadsTC, dkdv_smem<D, kCap>(), stream>>>(
-          tq64, tk64, tv64, tdo64, lse, delta, static_cast<bf16*>(dk),
+          tq_n, tk64, tv64, tdo_n, lse, delta, static_cast<bf16*>(dk),
           static_cast<bf16*>(dv), s.B, s.Sq, s.Sk, s.H, s.Hkv, s.scale, sl2,
           s.causal, s.q_offset, s.window, cap_soc(s), cap_log2(s));
   err = static_cast<int>(cudaGetLastError());
@@ -1341,7 +1364,7 @@ int bwd_launch(const CUtensorMap& tq, const CUtensorMap& tdo,
   err = prepare(dq_kernel<D, kCap>, grid, dq_smem<D>());
   if (err) return err;
   dq_kernel<D, kCap><<<(unsigned)grid, kThreadsTC, dq_smem<D>(), stream>>>(
-      tq, tk64, tv64, tdo, lse, delta, static_cast<bf16*>(dq), s.B, s.Sq,
+      tq, tk_n, tv_n, tdo, lse, delta, static_cast<bf16*>(dq), s.B, s.Sq,
       s.Sk, s.H, s.Hkv, s.scale, sl2, s.causal, s.q_offset, s.window,
       cap_soc(s), cap_log2(s));
   return static_cast<int>(cudaGetLastError());
@@ -1354,15 +1377,18 @@ int bwd(const void* q, const void* k, const void* v, const void* o,
   if (!(s.scale > 0.f) || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
       !aligned16(dout))
     return -1;
-  CUtensorMap tq, tdo, tq64, tk64, tv64, tdo64;
-  // dK/dV: the block's own 64 keys, 64-row query tiles streamed; dQ: the
-  // block's own 128 query rows, 64-key tiles streamed
+  CUtensorMap tq, tdo, tq_n, tk64, tv64, tdo_n, tk_n, tv_n;
+  // dK/dV: the block's own 64 keys, N-row query tiles streamed; dQ: the
+  // block's own 128 query rows, N-key tiles streamed (N = tile_n<D>())
+  constexpr int N = tile_n<D>();
   if (!sm90::bf16_rows_map(&tq, q, s.B, s.Sq, s.H, D, kRows) ||
       !sm90::bf16_rows_map(&tdo, dout, s.B, s.Sq, s.H, D, kRows) ||
-      !sm90::bf16_rows_map(&tq64, q, s.B, s.Sq, s.H, D, kN) ||
-      !sm90::bf16_rows_map(&tdo64, dout, s.B, s.Sq, s.H, D, kN) ||
+      !sm90::bf16_rows_map(&tq_n, q, s.B, s.Sq, s.H, D, N) ||
+      !sm90::bf16_rows_map(&tdo_n, dout, s.B, s.Sq, s.H, D, N) ||
       !sm90::bf16_rows_map(&tk64, k, s.B, s.Sk, s.Hkv, D, kN) ||
-      !sm90::bf16_rows_map(&tv64, v, s.B, s.Sk, s.Hkv, D, kN))
+      !sm90::bf16_rows_map(&tv64, v, s.B, s.Sk, s.Hkv, D, kN) ||
+      !sm90::bf16_rows_map(&tk_n, k, s.B, s.Sk, s.Hkv, D, N) ||
+      !sm90::bf16_rows_map(&tv_n, v, s.B, s.Sk, s.Hkv, D, N))
     return kErrMap;
   const size_t rows = (size_t)s.B * s.Sq * s.H;
   const unsigned warps = kThreads / 32;
@@ -1373,10 +1399,10 @@ int bwd(const void* q, const void* k, const void* v, const void* o,
   const int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   if (s.cap > 0.f)
-    return bwd_launch<D, true>(tq, tdo, tq64, tk64, tv64, tdo64, lse, dq, dk,
-                               dv, delta, s, stream);
-  return bwd_launch<D, false>(tq, tdo, tq64, tk64, tv64, tdo64, lse, dq, dk,
-                              dv, delta, s, stream);
+    return bwd_launch<D, true>(tq, tdo, tq_n, tk64, tv64, tdo_n, tk_n, tv_n,
+                               lse, dq, dk, dv, delta, s, stream);
+  return bwd_launch<D, false>(tq, tdo, tq_n, tk64, tv64, tdo_n, tk_n, tv_n,
+                              lse, dq, dk, dv, delta, s, stream);
 }
 
 }  // namespace tc
@@ -1403,7 +1429,7 @@ int check(const Shape& s, int D, int device) {
   if (s.B <= 0 || s.Sq <= 0 || s.Sk <= 0 || s.Hkv <= 0 || s.H % s.Hkv ||
       s.q_offset < 0 || s.H > 65535 || s.B > 65535 || !(s.cap >= 0.f))
     return -1;
-  if (D != 32 && D != 64 && D != 128) return -1;
+  if (D != 32 && D != 64 && D != 128 && D != 192) return -1;
   return static_cast<int>(cudaSetDevice(device));
 }
 
@@ -1430,11 +1456,13 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (is_bf16) {                      // the tensor-core kernels
     if (D == 32) return tc::fwd<32>(q, k, v, o, lse, s, st);
     if (D == 64) return tc::fwd<64>(q, k, v, o, lse, s, st);
-    return tc::fwd<128>(q, k, v, o, lse, s, st);
+    if (D == 128) return tc::fwd<128>(q, k, v, o, lse, s, st);
+    return tc::fwd<192>(q, k, v, o, lse, s, st);
   }
   if (D == 32) return fwd_f32<32>(q, k, v, o, lse, s, st);
   if (D == 64) return fwd_f32<64>(q, k, v, o, lse, s, st);
-  return fwd_f32<128>(q, k, v, o, lse, s, st);
+  if (D == 128) return fwd_f32<128>(q, k, v, o, lse, s, st);
+  return fwd_f32<192>(q, k, v, o, lse, s, st);
 }
 
 // The backward of flash_attention_fwd: from q, k, v, o, lse and dout
@@ -1455,13 +1483,17 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
       return tc::bwd<32>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
     if (D == 64)
       return tc::bwd<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
-    return tc::bwd<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
+    if (D == 128)
+      return tc::bwd<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
+    return tc::bwd<192>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
   }
   if (D == 32)
     return bwd_f32<32>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
   if (D == 64)
     return bwd_f32<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
-  return bwd_f32<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
+  if (D == 128)
+    return bwd_f32<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
+  return bwd_f32<192>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, st);
 }
 
 const char* flash_attention_error_string(int code) {

@@ -3,10 +3,11 @@ plain PyTorch versions and the ``torch.autograd.Function`` that joins them.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:76``
 ``flash_attention`` (body ``_flash_kernel``, ``:24``): q (B, Sq, H, D), k and
-v (B, Sk, Hkv, D) -> o (B, Sq, H, D) in q's dtype, online softmax with fp32
-accumulation, query head h reading KV head h // (H // Hkv).  The JAX package
-has no backward kernel (its gradient is XLA's autodiff of the plain code);
-the port's gradient is a hand-written kernel too.
+v (B, Sk, Hkv, D), D in ``HEAD_DIMS`` -> o (B, Sq, H, D) in q's dtype,
+online softmax with fp32 accumulation, query head h reading KV head
+h // (H // Hkv).  The JAX package has no backward kernel (its gradient is
+XLA's autodiff of the plain code); the port's gradient is a hand-written
+kernel too.
 
 The kernels are ``csrc/flash_attention.cu`` (CUDA C++ for ``sm_90a``): the
 forward writes O and the row log-sum-exp (B, H, Sq) fp32; the backward runs
@@ -54,7 +55,7 @@ import torch
 
 #: kernel launches since the last ``reset_launches()``, by kernel label
 LAUNCHES = {}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 192)
 DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30
 
@@ -117,10 +118,11 @@ def flash_attention_bwd_plain(q, k, v, o, lse, dout, *, causal=True,
     block: P = exp(s_c - lse), delta = rowsum(dO * O), dS = P * (dP -
     delta), times ``1 - (s_c / cap)^2`` under a softcap; dQ = scale * dS K,
     dK = scale * dS^T Q, dV = P^T dO (summed over the G query heads of each
-    KV head).  Returns (dq, dk, dv) in the inputs' dtypes."""
+    KV head; v, dout and o may be Dv < D wide).  Returns (dq, dk, dv) in
+    the inputs' dtypes."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    G = H // Hkv
+    G, Dv = H // Hkv, v.shape[-1]
     scale = D ** -0.5 if scale is None else scale
     kf, vf = k.float(), v.float()
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -132,8 +134,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, dout, *, causal=True,
         bq = q[:, sl].shape[1]
         s = _scores(q[:, sl], k, scale, causal, q_offset, i0, window, cap)
         p = torch.exp(s - lse[..., sl, None])            # (B, Hkv, G, bq, Sk)
-        do = dout[:, sl].float().reshape(B, bq, Hkv, G, D)
-        delta = (do * o[:, sl].float().reshape(B, bq, Hkv, G, D)).sum(-1)
+        do = dout[:, sl].float().reshape(B, bq, Hkv, G, Dv)
+        delta = (do * o[:, sl].float().reshape(B, bq, Hkv, G, Dv)).sum(-1)
         dp = torch.einsum("bqhgd,bkhd->bhgqk", do, vf)
         ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
         if cap:
@@ -295,11 +297,27 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=None,
                     q_offset=0, block_q=512):
-    """Differentiable causal GQA attention: q (B, Sq, H, D), k and v (B, Sk,
-    Hkv, D) -> (B, Sq, H, D), with an optional sliding ``window`` and logit
-    softcap ``cap``.  The kernels for CUDA tensors (made contiguous first),
-    the plain versions for CPU tensors."""
+    """Differentiable causal GQA attention: q (B, Sq, H, D), k (B, Sk, Hkv,
+    D) and v (B, Sk, Hkv, Dv) with Dv <= D -> (B, Sq, H, Dv), with an
+    optional sliding ``window`` and logit softcap ``cap``.  The kernels for
+    CUDA tensors (made contiguous first), the plain versions for CPU
+    tensors.
+
+    The kernels take one head dim: for a narrower v (MLA: qk 192, v 128)
+    the CUDA route pads v with zeros to D and returns the first Dv columns
+    of o.  That is exact: the padded columns of O, and so of dO and dV,
+    are zero, P and dP never read them, and delta = rowsum(dO * O) gains
+    only zeros.  The CPU route runs the plain versions at Dv."""
+    Dv = v.shape[-1]
+    if Dv > q.shape[-1]:
+        raise ValueError(f"flash_attention: v is {Dv} wide, wider than "
+                         f"q / k ({q.shape[-1]})")
     if q.device.type == "cuda":
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if Dv < q.shape[-1]:
+            v = torch.nn.functional.pad(v, (0, q.shape[-1] - Dv))
+            return FlashAttention.apply(q, k, v, causal, scale, q_offset,
+                                        block_q, int(window),
+                                        float(cap))[..., :Dv]
     return FlashAttention.apply(q, k, v, causal, scale, q_offset, block_q,
                                 int(window), float(cap))

@@ -88,13 +88,14 @@ def reset_launches():
 def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=None,
                     q_offset=0, block_q=512):
     """Differentiable causal GQA attention for the full-sequence phases: q
-    (B, Sq, H, D), k and v (B, Sk, Hkv, D) -> (B, Sq, H, D); causal at the
-    start (key j visible to query row i when j <= q_offset + i), with
-    gemma2's sliding ``window`` (> 0: also j > q_offset + i - window) and
-    logit softcap ``cap`` (!= 0).  CUDA tensors run the forward and
-    backward kernels, window and cap included; CPU tensors the plain
-    versions (``attention.blockwise_attention`` and its backward
-    formulas)."""
+    (B, Sq, H, D), k (B, Sk, Hkv, D) and v (B, Sk, Hkv, Dv), Dv <= D (MLA:
+    v narrower than q / k; the kernels see v padded to D) -> (B, Sq, H,
+    Dv); causal at the start (key j visible to query row i when j <=
+    q_offset + i), with gemma2's sliding ``window`` (> 0: also j >
+    q_offset + i - window) and logit softcap ``cap`` (!= 0).  CUDA tensors
+    run the forward and backward kernels, window and cap included; CPU
+    tensors the plain versions (``attention.blockwise_attention`` and its
+    backward formulas)."""
     _record_dispatch("flash_attention", q.device.type == "cuda")
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                cap=cap, scale=scale, q_offset=q_offset,

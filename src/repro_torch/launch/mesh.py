@@ -6,14 +6,18 @@ shard (the reference's 256- and 512-chip pod meshes have no port; data
 parallelism is a process group of its own, ``core.tp.split_groups``).
 Megatron's layout over the block weights:
 
-  attention  wq / wk / wv by output columns (whole heads), wo by input rows
+  attention  wq / wk / wv by output columns (whole heads), wo by input rows;
+             MLA's up-projections w_uq / w_uk / w_uv by columns (whole
+             heads), wo by rows, its down-projections w_dq / w_dkv / w_kr
+             and their norms replicated (reference ``:58-61``)
   FFN        wi / wg by columns, wo by rows
   MoE FFN    the experts' wi / wg / wo by experts (dim 0), the router
              replicated, the shared expert like a dense FFN (``_MOE``,
              reference ``:71-76``)
   the rest   replicated: norms, qk-norms, and outside the blocks the
-             embedding, positions, final norm and head (the stack shards
-             only the blocks, reference ``model.py:180-185``)
+             embedding, positions, final norm, head and the MTP head (the
+             stack shards only the blocks, reference ``model.py:180-185``;
+             the MTP head runs outside it, ``:101-104``)
 
 With ``kv_replicated`` (``n_kv_heads < tp``) wk / wv stay whole on every
 rank and each rank slices its KV group (``attention._kv_group_slice``).
@@ -28,7 +32,8 @@ from repro_torch.optim.adamw import map_tree, named_leaves
 
 #: dim each block leaf is sharded along: 1 columns, 0 rows
 _BLOCK = {("attn", "wq"): 1, ("attn", "wk"): 1, ("attn", "wv"): 1,
-          ("attn", "wo"): 0, ("ffn", "wi"): 1, ("ffn", "wg"): 1,
+          ("attn", "wo"): 0, ("attn", "w_uq"): 1, ("attn", "w_uk"): 1,
+          ("attn", "w_uv"): 1, ("ffn", "wi"): 1, ("ffn", "wg"): 1,
           ("ffn", "wo"): 0}
 _KV = (("attn", "wk"), ("attn", "wv"))
 #: a MoE FFN's leaves: (E, d, f) / (E, f, d) experts split by experts, the

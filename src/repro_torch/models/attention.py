@@ -1,4 +1,5 @@
-"""GQA attention for training and the paged ticks, on torch tensors.
+"""GQA and MLA attention for training and the serving ticks, on torch
+tensors.
 
 Port of ``repro/models/attention.py``: ``blockwise_attention`` (``:21``,
 the plain version of the flash-attention kernel) and the full-sequence
@@ -15,7 +16,14 @@ and the paged serving paths: ``gqa_init``, ``gqa_qkv`` (``:406``),
 (``:222``), ``_gqa_paged_qkv_scatter`` (``:244``), ``gqa_paged_apply``
 (``:268``, the padded (B, C) layout), ``gqa_paged_dual`` (``:304``, the fused
 dual-branch decode, or its two-op route on quantized pages) and
-``gqa_packed_apply`` (``:338``, the token-packed layout).
+``gqa_packed_apply`` (``:338``, the token-packed layout).  DeepSeek-V3's
+multi-head latent attention (``:538-714``): ``mla_init``, ``_mla_q`` /
+``_mla_ckv`` (head count from the weights' width, so head shards work),
+``mla_apply`` (full sequence through ``ops.flash_attention`` at qk width
+dn + dr and v width dv), and the absorbed-matrix serving paths over the
+latent cache (c, kr): ``mla_init_cache`` / ``mla_decode``,
+``mla_init_paged_cache``, ``mla_paged_apply`` and ``mla_packed_apply``,
+PyTorch ops as the reference's are jnp (no paged kernel reads latents).
 
 The paged layouts have two branches, as in the reference: full attention
 runs the block-table kernels; a layer with a sliding window or a logit
@@ -457,3 +465,193 @@ def _packed_gather_attention(q, cache, block_tables, tok_slot, tok_pos,
         out = o if out is None else torch.where(
             (tok_slot == s)[:, None, None], o, out)
     return out
+
+
+# ------------------------------------------------------------------------- #
+# MLA (DeepSeek-V3 multi-head latent attention)
+# ------------------------------------------------------------------------- #
+def mla_init(gen, cfg, dtype, device):
+    """MLA's weights at the reference's scales (``attention.py:538``):
+    the query and KV down-projections with their RMSNorms, the rope key's
+    shared projection, the per-head up-projections and ``wo``."""
+    d, H = cfg.d_model, cfg.n_heads
+    rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "w_dq": L.dense_init(gen, d, rq, dtype, device),
+        "q_norm": L.norm_init(rq, "rmsnorm", device),
+        "w_uq": L.dense_init(gen, rq, H * (dn + dr), dtype, device),
+        "w_dkv": L.dense_init(gen, d, rkv, dtype, device),
+        "kv_norm": L.norm_init(rkv, "rmsnorm", device),
+        "w_kr": L.dense_init(gen, d, dr, dtype, device),
+        "w_uk": L.dense_init(gen, rkv, H * dn, dtype, device),
+        "w_uv": L.dense_init(gen, rkv, H * dv, dtype, device),
+        "wo": L.dense_init(gen, H * dv, d, dtype, device,
+                           scale=1.0 / np.sqrt(H * dv * 2 * cfg.n_layers)),
+    }
+
+
+def _mla_q(p, cfg, x, positions):
+    """x (B, S, D) -> (q_nope (B, S, H, dn), q_rope (B, S, H, dr)), RoPE at
+    ``positions``.  The head count comes from ``w_uq``'s width, so a head
+    shard under explicit TP works."""
+    B, S = x.shape[:2]
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    H = p["w_uq"].shape[-1] // (dn + dr)
+    cq = L.norm_apply(p["q_norm"], x @ p["w_dq"].to(x.dtype))
+    q = (cq @ p["w_uq"].to(x.dtype)).reshape(B, S, H, dn + dr)
+    return q[..., :dn], L.apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _mla_ckv(p, cfg, x, positions):
+    """x (B, S, D) -> (the normalised latent c (B, S, rkv), the rope key
+    shared by all heads kr (B, S, dr))."""
+    c = L.norm_apply(p["kv_norm"], x @ p["w_dkv"].to(x.dtype))
+    kr = x @ p["w_kr"].to(x.dtype)
+    kr = L.apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c, kr
+
+
+def mla_apply(p, cfg, x, positions, plan=None):
+    """Full-sequence MLA (train / eval / prefill, reference ``:578``): k and
+    v expanded per head, then ``ops.flash_attention`` at qk width dn + dr
+    and v width dv (the kernel pads v to the qk width on the card), scale
+    (dn + dr)^-0.5.  The head count comes from the up-projections, so
+    under explicit TP (head shards, ``wo`` by rows) the result is this
+    rank's partial sum."""
+    B, S = x.shape[:2]
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    H = p["w_uk"].shape[-1] // dn
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c, kr = _mla_ckv(p, cfg, x, positions)
+    k_nope = (c @ p["w_uk"].to(x.dtype)).reshape(B, S, H, dn)
+    v = (c @ p["w_uv"].to(x.dtype)).reshape(B, S, H, dv)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, H, dr)], -1)
+    o = ops.flash_attention(q, k, v, causal=True, scale=(dn + dr) ** -0.5,
+                            block_q=cfg.attn_block_q)
+    return o.reshape(B, S, H * dv) @ p["wo"].to(x.dtype)
+
+
+def mla_init_cache(cfg, batch, seq, dtype, device):
+    """Contiguous latent cache: zeros of (batch, seq, rkv) for c and
+    (batch, seq, dr) for the rope key."""
+    return {"c": torch.zeros((batch, seq, cfg.kv_lora_rank), dtype=dtype,
+                             device=device),
+            "kr": torch.zeros((batch, seq, cfg.qk_rope_head_dim),
+                              dtype=dtype, device=device)}
+
+
+def _mla_absorbed(p, cfg, q_nope, q_rope, cc, krc, mask, x_dtype):
+    """Attention in the latent space (the reference's absorbed matrices):
+    q_nope (N, M, H, dn) and q_rope (N, M, H, dr), the M queries of each of
+    N rows against that row's latent cache cc (N, Sk, rkv) and rope keys
+    krc (N, Sk, dr); mask (N, M, Sk).  q_lat = q_nope W_uk^T per head in
+    x's dtype; fp32 scores (the reference's ``preferred_element_type``),
+    latent part plus rope part, scaled, masked at -1e30, softmaxed in fp32;
+    p in the cache's dtype for P.cc; W_uv in the promoted dtype of the
+    two.  Returns (N, M, H * dv)."""
+    rkv, dn, dv = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.v_head_dim
+    N, M, H = q_nope.shape[:3]
+    w_uk = p["w_uk"].to(x_dtype).reshape(rkv, H, dn)
+    q_lat = torch.einsum("nmhd,rhd->nmhr", q_nope, w_uk)
+    s = q_lat.reshape(N, M * H, rkv).float() @ cc.float().transpose(1, 2)
+    s = s + q_rope.reshape(N, M * H, -1).float() @ krc.float().transpose(
+        1, 2)
+    s = s.reshape(N, M, H, -1) * (dn + cfg.qk_rope_head_dim) ** -0.5
+    s = torch.where(mask[:, :, None, :], s,
+                    torch.full((), -1e30, device=s.device))
+    pattn = torch.softmax(s, dim=-1).to(cc.dtype)
+    o_lat = (pattn.reshape(N, M * H, -1) @ cc).reshape(N, M, H, rkv)
+    dt = torch.promote_types(o_lat.dtype, x_dtype)
+    w_uv = p["w_uv"].to(x_dtype).reshape(rkv, H, dv).to(dt)
+    o = torch.einsum("nmhr,rhd->nmhd", o_lat.to(dt), w_uv)
+    return o.reshape(N, M, H * dv)
+
+
+def mla_decode(p, cfg, x, cache, pos):
+    """Absorbed-matrix MLA decode (reference ``:611``): x (B, 1, D), pos
+    (B,).  Writes each lane's latent and rope key at row ``pos[b]`` of the
+    contiguous cache in place (clamped into the cache, as
+    ``dynamic_update_slice`` does), then attends in the latent space over
+    keys <= pos.  Returns (out (B, 1, D), cache)."""
+    B = x.shape[0]
+    positions = pos[:, None]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c, kr = _mla_ckv(p, cfg, x, positions)
+    rows = pos.long().clamp(0, cache["c"].shape[1] - 1)
+    lanes = torch.arange(B, device=x.device)
+    cache["c"][lanes, rows] = c[:, 0].to(cache["c"].dtype)
+    cache["kr"][lanes, rows] = kr[:, 0].to(cache["kr"].dtype)
+    Sk = cache["c"].shape[1]
+    mask = (torch.arange(Sk, device=x.device)[None] <= pos[:, None])
+    o = _mla_absorbed(p, cfg, q_nope, q_rope, cache["c"], cache["kr"],
+                      mask[:, None], x.dtype)                  # (B, 1, H dv)
+    return o @ p["wo"].to(x.dtype).to(o.dtype), cache
+
+
+def mla_init_paged_cache(cfg, num_pages, page_size, dtype, device):
+    """Latent page pools: c (P, page, rkv) and kr (P, page, dr)."""
+    return {"c": torch.zeros((num_pages, page_size, cfg.kv_lora_rank),
+                             dtype=dtype, device=device),
+            "kr": torch.zeros((num_pages, page_size, cfg.qk_rope_head_dim),
+                              dtype=dtype, device=device)}
+
+
+def mla_paged_apply(p, cfg, x, cache, block_tables, pos, n_valid):
+    """Padded chunked tick of absorbed-matrix MLA against the latent pages
+    (reference ``:651``): x (B, C, D); each lane's chunk scattered into the
+    pools in place (rows past ``n_valid`` to the scratch page), then every
+    query attends over its lane's gathered sequence up to its position.
+    PyTorch ops, as the reference's are jnp.  Returns (out (B, C, D),
+    cache)."""
+    C = x.shape[1]
+    page = cache["c"].shape[1]
+    positions = pos[:, None] + torch.arange(C, device=pos.device)[None]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c, kr = _mla_ckv(p, cfg, x, positions)
+    paged_scatter(cache["c"], c, block_tables, pos, n_valid, page)
+    paged_scatter(cache["kr"], kr, block_tables, pos, n_valid, page)
+    cc = paged_gather(cache["c"], block_tables)               # (B, Sk, rkv)
+    krc = paged_gather(cache["kr"], block_tables)
+    mask = (torch.arange(cc.shape[1], device=x.device)[None, None]
+            <= positions[:, :, None])
+    o = _mla_absorbed(p, cfg, q_nope, q_rope, cc, krc, mask, x.dtype)
+    return o @ p["wo"].to(x.dtype).to(o.dtype), cache
+
+
+#: packed tokens whose gathered latent sequences are held at once
+MLA_PACKED_CHUNK = 64
+
+
+def mla_packed_apply(p, cfg, x, cache, block_tables, tok_slot, tok_pos):
+    """Token-packed tick of absorbed-matrix MLA (reference ``:682``): x
+    (1, T, D), token t of slot ``tok_slot[t]`` at ``tok_pos[t]`` (-1:
+    padding, scattered to the scratch page).  Each token attends over its
+    own slot's latent sequence up to its position.  The reference gathers
+    every slot's sequence and then a (T, Sk, rkv) copy of it by token; here
+    the slots are gathered once and indexed by ``tok_slot`` in chunks of
+    ``MLA_PACKED_CHUNK`` tokens, so the per-token copy held at once is
+    (64, Sk, rkv), not (T, Sk, rkv).  The same rows, scores and softmax:
+    the function is the reference's.  Returns (out (1, T, D), cache)."""
+    B, T = x.shape[:2]
+    page = cache["c"].shape[1]
+    positions = tok_pos.clamp(min=0)[None]                     # (1, T)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c, kr = _mla_ckv(p, cfg, x, positions)
+    packed_scatter(cache["c"], c[0], block_tables, tok_slot, tok_pos, page)
+    packed_scatter(cache["kr"], kr[0], block_tables, tok_slot, tok_pos,
+                   page)
+    cs = paged_gather(cache["c"], block_tables)                # (S, Sk, rkv)
+    krs = paged_gather(cache["kr"], block_tables)
+    k_pos = torch.arange(cs.shape[1], device=x.device)[None]
+    out = []
+    for t0 in range(0, T, MLA_PACKED_CHUNK):
+        sl = slice(t0, t0 + MLA_PACKED_CHUNK)
+        slot = tok_slot[sl].long()
+        mask = (k_pos <= tok_pos[sl, None])[:, None]           # (t, 1, Sk)
+        out.append(_mla_absorbed(p, cfg, q_nope[0, sl, None],
+                                 q_rope[0, sl, None], cs[slot], krs[slot],
+                                 mask, x.dtype)[:, 0])
+    o = torch.cat(out, 0).reshape(B, T, -1)
+    return o @ p["wo"].to(x.dtype).to(o.dtype), cache

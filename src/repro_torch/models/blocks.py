@@ -19,8 +19,11 @@ MHA and MLP partials locally and pay ONE.  With
 ``plan.sequence_parallel`` the same fork runs in the Megatron-SP layout
 (``_block_apply_sp``).  A block's FFN is a dense MLP or a MoE layer
 (``kind``, ``models/moe.py``): ``_ffn_apply`` returns its output and the
-MoE's load-balance aux, which every apply function carries out.  No MLA
-or cross-attention: those come in later slices of the port.
+MoE's load-balance aux, which every apply function carries out.  The
+attention is GQA or, under ``cfg.use_mla``, DeepSeek-V3's latent attention
+(``attention.mla_*``) on every path (``_attend`` / ``_cached_attention``);
+MLA blocks take the unfused dual-branch route, as in the reference.  No
+cross-attention: that comes with Whisper in a later slice of the port.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ def block_init(gen, cfg, dtype, device, *, kind="dense", is_block0=False):
     d = cfg.d_model
     p = {"ln1": L.norm_init(d, cfg.norm, device),
          "ln2": L.norm_init(d, cfg.norm, device),
-         "attn": A.gqa_init(gen, cfg, dtype, device)}
+         "attn": (A.mla_init if cfg.use_mla else A.gqa_init)(
+             gen, cfg, dtype, device)}
     if kind == "moe":
         p["ffn"] = M.moe_init(gen, cfg, dtype, device)
     else:
@@ -80,12 +84,30 @@ def add_aux(total, aux):
     return aux if total is None else total + aux
 
 
+def _attend(p, cfg, h, positions, window, plan=None):
+    """The block's full-sequence MHA: GQA or MLA (reference ``:170-173``),
+    over this rank's head shard under explicit TP."""
+    if cfg.use_mla:
+        return A.mla_apply(p["attn"], cfg, h, positions, plan=plan)
+    return A.gqa_apply(p["attn"], cfg, h, positions, window=window,
+                       plan=plan)
+
+
 def _cached_attention(p, cfg, h, cache, block_tables, pos, n_valid,
                       tok_slot, tok_pos, window, plan):
     """The block's MHA over its KV cache: the contiguous cache's one-token
     step under ``Phase.DECODE``, else the paged cache in whichever layout
     the batch uses: token-packed when ``tok_slot`` is given, else padded
-    (B, C)."""
+    (B, C).  MLA (reference ``:147-168``) runs its absorbed-matrix paths
+    over the latent caches."""
+    if cfg.use_mla:
+        if plan.phase is Phase.DECODE:
+            return A.mla_decode(p["attn"], cfg, h, cache, pos)
+        if tok_slot is not None:
+            return A.mla_packed_apply(p["attn"], cfg, h, cache,
+                                      block_tables, tok_slot, tok_pos)
+        return A.mla_paged_apply(p["attn"], cfg, h, cache, block_tables,
+                                 pos, n_valid)
     if plan.phase is Phase.DECODE:
         return A.gqa_decode(p["attn"], cfg, h, cache, pos, window=window)
     if tok_slot is not None:
@@ -130,7 +152,7 @@ def block_apply(p, cfg, x, a1_sig, *, kind="dense", is_block0=False,
         return x, a, aux
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     if plan.full_sequence:
-        a = A.gqa_apply(p["attn"], cfg, h, positions, window=window)
+        a = _attend(p, cfg, h, positions, window)
     else:
         a, _ = _cached_attention(p, cfg, h, cache, block_tables, pos,
                                  n_valid, tok_slot, tok_pos, window, plan)
@@ -246,8 +268,7 @@ def block_apply_tp(p, cfg, x, a1_sig, *, kind="dense", is_block0=False,
 
     def attend(h):
         if plan.full_sequence:
-            return A.gqa_apply(p["attn"], cfg, h, positions, window=window,
-                               plan=plan)
+            return _attend(p, cfg, h, positions, window, plan)
         return _cached_attention(p, cfg, h, cache, block_tables, pos,
                                  n_valid, tok_slot, tok_pos, window, plan)[0]
 
@@ -309,8 +330,8 @@ def _block_apply_sp(p, cfg, x_s, a1_sig, positions, window, *, kind,
     reduce-scatter and each *f*'s backward all-reduce are compressed."""
     group, gc = plan.tp_axis, plan.grad_compress
     x = tp.gather_seq(x_s, group)                      # (B, S, D)
-    a = A.gqa_apply(p["attn"], cfg, L.norm_apply(p["ln1"], x, cfg.norm),
-                    positions, window=window, plan=plan)
+    a = _attend(p, cfg, L.norm_apply(p["ln1"], x, cfg.norm), positions,
+                window, plan)
 
     def ffn(h):
         return _ffn_apply(p, cfg, h, kind, plan)
@@ -352,6 +373,11 @@ def _block_apply_sp(p, cfg, x_s, a1_sig, positions, window, *, kind,
     return resid_s + y_s, a, sig, aux
 
 
+#: MLA's leaves kept whole on every rank under explicit TP (reference
+#: ``launch/mesh.py:58-61``); the up-projections and ``wo`` are sharded
+MLA_REPLICATED = ("w_dq", "q_norm", "w_dkv", "kv_norm", "w_kr")
+
+
 def tp_partial_leaves(cfg, plan, *, is_block0, kv_rep, moe=False):
     """Keys (paths into one block's params) of the replicated leaves whose
     gradient each rank holds as a partial sum under ``plan``'s placement of
@@ -362,8 +388,13 @@ def tp_partial_leaves(cfg, plan, *, is_block0, kv_rep, moe=False):
     group (``models.model.tp_sync_grads``); every other replicated leaf's
     gradient is already whole and equal on every rank.  A MoE block's
     router (``moe``) is replicated and each rank's output covers only its
-    experts, so its gradient is a partial sum too."""
+    experts, so its gradient is a partial sum too; so are MLA's replicated
+    down-projections, their norms and the rope key's projection
+    (``MLA_REPLICATED``), which feed only this rank's heads.  The MTP head
+    runs outside the stack, whole on every rank, and is never listed."""
     keys = [("attn", "qnorm"), ("attn", "knorm")]
+    if cfg.use_mla:
+        keys += [("attn", k) for k in MLA_REPLICATED]
     if moe:
         keys.append(("ffn", "router"))
     if kv_rep:

@@ -1,18 +1,20 @@
-"""The FAL decoder on torch tensors (dense and MoE FFNs): parameters, the
-full-sequence forward and loss for training, the paged KV cache and the
-paged ticks.
+"""The FAL decoder on torch tensors (dense and MoE FFNs, GQA or MLA
+attention, DeepSeek-V3's MTP head, the VLM's image prefix): parameters, the
+full-sequence forward and loss for training, the KV caches and the serving
+ticks.
 
 Port of the decoder of ``repro/models/model.py``: ``_layer_kind``
 (``:66``: MoE from ``first_dense_layers`` on), ``cross_entropy``
 (``:72``), ``_run_decoder_blocks`` (``:204``, the layer scan as a Python
 loop, summing the MoE layers' aux), ``_decoder_forward`` (``:250``),
-``forward`` (``:921``), ``_ce_tail`` (``:1103``) and ``loss_fn`` (``:1108``;
-ce + ``router_aux_coef`` x aux; no MTP head), with the reference's rematerialisation: under
-``cfg.remat`` block 0, each later block and the CE tail run under
+``forward`` (``:921``), ``_ce_tail`` (``:1103``), ``_mtp_loss``
+(``:1086``) and ``loss_fn`` (``:1108``; ce + ``router_aux_coef`` x aux + 0.3
+x mtp), with the reference's rematerialisation: under ``cfg.remat`` block
+0, each later block, the CE tail and the MTP loss run under
 ``torch.utils.checkpoint`` (non-reentrant) while gradients are on.  And
 the contiguous KV cache's ``init_cache`` (``:936``, ``_decoder_init_cache``
-``:270``) and ``decode_step`` (``:946`` -> ``_decoder_decode``, ``:337``; the
-VLM image-prefix splice waits for the VLM slice), and the paged serving
+``:270``; MLA's latent caches) and ``decode_step`` (``:946`` ->
+``_decoder_decode``, ``:337``), and the paged serving
 paths: ``_embed_tokens``, ``_logits`` / ``lm_head``, ``init_paged_cache``
 (``:957``), ``paged_decode_step`` (``:979``) -> ``_decoder_paged_packed``
 (``:466``, the token-packed layout) or ``_decoder_paged_decode`` (``:388``,
@@ -20,7 +22,12 @@ the padded (B, C) layout, sequential or dual-branch), and
 ``_decoder_layer_stack`` (``:280``) and ``copy_paged_pages`` (``:1054``,
 the device half of copy-on-write), plus ``init_params`` for the dense
 decoder and the MoE family (``first_dense_layers`` dense blocks of width
-``dense_d_ff``, then MoE blocks).  For self-speculative decoding: ``paged_spec_draft`` (``:1010``)
+``dense_d_ff``, then MoE blocks) with the ``mtp`` subtree (reference
+``:106-116``) when ``cfg.mtp_depth``.  A VLM's image prefix enters where
+the reference splices it (``_embed_tokens`` for the full sequence,
+``_splice_image`` in the contiguous, padded and packed ticks): precomputed
+patch embeddings in place of the first ``n_image_tokens`` positions' token
+embeddings.  For self-speculative decoding: ``paged_spec_draft`` (``:1010``)
 -> ``_decoder_paged_packed_draft`` (``:532``, the early-exit draft) and
 ``lm_head_segment_tail`` (``:1034``, the verify's head over each segment's
 last rows).
@@ -30,8 +37,10 @@ Explicit tensor parallelism (``core/tp.py``): under an explicit-TP plan
 ``decoder_stack_tp`` (``:149-201``, the dispatch of ``:258-261``) on this
 rank's shard of the blocks (``launch/mesh.py::shard_params``), remat
 included, and ``tp_sync_grads`` sums the replicated leaves' partial
-gradients after the backward.  The serving ticks, contiguous and paged,
-refuse a sharded plan.
+gradients after the backward.  The MTP head runs outside the stack on the
+whole hidden states (reference ``:1097``), so its leaves' gradients are
+whole on every rank and are not summed.  The serving ticks, contiguous
+and paged, refuse a sharded plan.
 
 Parameters are a dict tree in the reference's layout, except that the
 stacked ``blocks_dense`` and ``blocks_moe`` leaves (leading layer axis)
@@ -41,8 +50,9 @@ sliding window (``blocks.window_schedule``: gemma2's local / global
 alternation) as a Python int.  The cache holds block 0's pools, one
 ``(n_layers - 1, P, page, Hkv, Dh)`` tensor per K and per V for the other
 layers (and, on quantized pages, one ``(n_layers - 1, P, page)`` fp32 tensor
-per row-scale pool), and the per-slot ``a1_sig``; a tick updates all of them
-in place.
+per row-scale pool; under MLA the latent pools ``c`` and ``kr`` instead of
+K and V), and the per-slot ``a1_sig``; a tick updates all of them in
+place.
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when there is none.  Pass ``device="cpu"`` to run the plain versions of
@@ -76,23 +86,21 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-#: families the port runs: the decoder with dense or MoE FFNs
-SUPPORTED_FAMILIES = ("dense", "moe")
+#: families the port runs: the decoder with dense or MoE FFNs (GQA or MLA
+#: attention, an optional MTP head) and the VLM's decoder with its image
+#: prefix
+SUPPORTED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_supported(cfg):
-    """Raise NotImplementedError for what the port does not cover yet
-    (VLM, SSM, hybrid and audio families, MLA attention), naming the slice
-    that will."""
+    """Raise NotImplementedError for what the port does not cover yet (the
+    SSM, hybrid and audio families), naming the slice that will."""
     if cfg.family not in SUPPORTED_FAMILIES:
         raise NotImplementedError(
-            f"family '{cfg.family}': the PyTorch port serves the dense and "
-            f"MoE decoders; VLM, SSM, hybrid and audio come in the "
-            f"family-breadth slices (ROADMAP.md Queue 1)")
-    if cfg.use_mla:
-        raise NotImplementedError(
-            "MLA attention (deepseek-v3) comes in a later family-breadth "
-            "slice of the PyTorch port (ROADMAP.md Queue 1)")
+            f"family '{cfg.family}': the PyTorch port serves the dense, MoE "
+            f"and VLM decoders; SSM, hybrid and audio (models/ssm.py, the "
+            f"mamba, zamba and whisper paths) come in the family-breadth "
+            f"slice ROADMAP.md Queue 1, item 4")
 
 
 def _layer_kind(cfg, i):
@@ -140,19 +148,55 @@ def init_params(cfg, seed=0, device=None, dtype=None):
     if not cfg.tie_embeddings:
         p["head"] = {"w": L.dense_init(gen, cfg.d_model, cfg.vocab, dt,
                                        device)}
+    if cfg.mtp_depth:
+        # DeepSeek-V3's MTP head (reference ``:106-116``): a plain preln
+        # block outside the main depth, so FAL's rewiring does not apply
+        p["mtp"] = {
+            "proj": {"w": L.dense_init(gen, 2 * cfg.d_model, cfg.d_model,
+                                       dt, device)},
+            "norm_h": L.norm_init(cfg.d_model, cfg.norm, device),
+            "norm_e": L.norm_init(cfg.d_model, cfg.norm, device),
+            "block": BL.block_init(gen, _mtp_cfg(cfg), dt, device,
+                                   kind="dense"),
+        }
     return p
+
+
+def _mtp_cfg(cfg):
+    """The MTP head block's config: the model's, connection preln."""
+    return cfg.replace(connection="preln")
 
 
 # ------------------------------------------------------------------------- #
 # embeddings and head
 # ------------------------------------------------------------------------- #
-def _embed_tokens(p, cfg, tokens, positions):
+def _embed_tokens(p, cfg, tokens, positions, image_embeds=None):
+    """Token embeddings (scaled, plus learned positions where the config
+    has them).  A VLM's full-sequence batch replaces the first
+    ``n_image_tokens`` positions by its precomputed patch embeddings
+    ``image_embeds`` (B, n_image_tokens, D) (reference ``:130-139``)."""
     x = L.embed_apply(p["embed"], tokens, _dtype(cfg.dtype))
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
     if cfg.learned_pos:
         x = x + p["pos_emb"].to(x.dtype)[positions.long()]
+    if image_embeds is not None and cfg.n_image_tokens:
+        n = cfg.n_image_tokens
+        x = torch.cat([image_embeds.to(x.dtype), x[:, n:]], dim=1)
     return x
+
+
+def _splice_image(cfg, batch, x, positions):
+    """The serving ticks' image prefix (reference ``:341-345``, ``:417-421``,
+    ``:493-497``): rows at positions < ``n_image_tokens`` take the batch's
+    ``image_embeds`` (the patch embedding of each row's position, in x's
+    layout) in place of their token embedding."""
+    if not (cfg.n_image_tokens and "image_embeds" in batch):
+        return x
+    img = batch["image_embeds"].to(x.dtype)
+    if img.dim() < x.dim():
+        img = img[None]                                   # packed: (T, D)
+    return torch.where((positions < cfg.n_image_tokens)[..., None], img, x)
 
 
 def _logits(p, cfg, x):
@@ -231,12 +275,16 @@ def _check_shards(p, cfg, tp_size):
     """The explicit-TP stack runs on this rank's shard of the blocks
     (``launch.mesh.shard_params``); full weights would compute tp times
     the attention and FFN and sum them."""
-    Dh = cfg.resolved_head_dim
-    got = p["block0"]["attn"]["wq"].shape[-1]
-    if got * tp_size != cfg.n_heads * Dh:
+    if cfg.use_mla:
+        name = "w_uq"
+        width = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    else:
+        name, width = "wq", cfg.resolved_head_dim
+    got = p["block0"]["attn"][name].shape[-1]
+    if got * tp_size != cfg.n_heads * width:
         raise ValueError(
-            f"explicit TP over {tp_size} ranks: wq has {got} columns, "
-            f"expected {cfg.n_heads * Dh // tp_size}; pass this rank's "
+            f"explicit TP over {tp_size} ranks: {name} has {got} columns, "
+            f"expected {cfg.n_heads * width // tp_size}; pass this rank's "
             f"shard (launch.mesh.shard_params)")
 
 
@@ -324,7 +372,7 @@ def _decoder_forward(p, cfg, batch, plan, want="logits"):
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = _embed_tokens(p, cfg, tokens, positions)
+    x = _embed_tokens(p, cfg, tokens, positions, batch.get("image_embeds"))
     if plan.use_explicit_tp:
         x, aux = decoder_stack_tp(p, cfg, x, positions, plan)
     else:
@@ -353,16 +401,46 @@ def _ce_tail(p, cfg, hidden, tokens):
     return cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 
+def _mtp_loss(p, cfg, batch, hidden):
+    """DeepSeek-V3's multi-token prediction (reference ``:1086-1100``):
+    predict token t + 2 from the final hidden state h_t and the embedding
+    of token t + 1, through ``proj`` and the preln MTP block (full
+    sequence, one device: under explicit TP it runs outside the stack on
+    the whole hidden states, its weights whole on every rank), then the
+    model's head."""
+    tokens = batch["tokens"]
+    mtp = p["mtp"]
+    emb_next = L.embed_apply(p["embed"], tokens[:, 1:], _dtype(cfg.dtype))
+    z = torch.cat([L.norm_apply(mtp["norm_h"], hidden[:, :-1], cfg.norm),
+                   L.norm_apply(mtp["norm_e"], emb_next, cfg.norm)], -1)
+    z = L.dense_apply(mtp["proj"]["w"], z)
+    B, S1 = z.shape[:2]
+    positions = torch.arange(S1, device=z.device)[None].expand(B, S1)
+    z, _, _ = BL.block_apply(mtp["block"], _mtp_cfg(cfg), z, None,
+                             kind="dense", positions=positions)
+    logits = _logits(p, cfg, z)                               # (B, S-1, V)
+    return cross_entropy(logits[:, :-1], tokens[:, 2:])
+
+
 def loss_fn(params, cfg, batch, plan=None):
-    """-> (loss, {"ce", "aux"}): next-token cross entropy of the forward's
-    hidden states through the head, under ``_maybe_remat`` so the (B, S, V)
-    logits are recomputed in the backward instead of kept."""
+    """-> (loss, metrics): next-token cross entropy of the forward's hidden
+    states through the head, under ``_maybe_remat`` so the (B, S, V)
+    logits are recomputed in the backward instead of kept, plus
+    ``router_aux_coef`` x the MoE aux; metrics {"ce", "aux"}.  With an MTP
+    head (``cfg.mtp_depth`` and ``params["mtp"]``) the loss adds 0.3 x its
+    cross entropy, under ``_maybe_remat`` too, and metrics carry "mtp"."""
     plan = ExecutionPlan.resolve(plan)
     _, aux, extras = forward(params, cfg, batch, plan, want="hidden")
     tail = _maybe_remat(functools.partial(_ce_tail, cfg=cfg), cfg)
     ce = tail(params, hidden=extras["hidden"], tokens=batch["tokens"])
     loss = ce + cfg.router_aux_coef * aux
-    return loss, {"ce": ce, "aux": aux}
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp_depth and "mtp" in params:
+        mtp_fn = _maybe_remat(functools.partial(_mtp_loss, cfg=cfg), cfg)
+        mtp = mtp_fn(params, batch=batch, hidden=extras["hidden"])
+        loss = loss + 0.3 * mtp
+        metrics["mtp"] = mtp
+    return loss, metrics
 
 
 # ------------------------------------------------------------------------- #
@@ -378,14 +456,16 @@ def _stacked(cfg, c0):
 
 
 def _decoder_init_cache(cfg, batch, seq, dtype, device):
-    return _stacked(cfg, A.gqa_init_cache(cfg, batch, seq, dtype, device))
+    mk = A.mla_init_cache if cfg.use_mla else A.gqa_init_cache
+    return _stacked(cfg, mk(cfg, batch, seq, dtype, device))
 
 
 def init_cache(cfg, batch, seq, dtype="bfloat16", device=None):
     """Contiguous KV cache for ``decode_step``: block 0's (B, S, Hkv, Dh)
     K and V, and one (n_layers - 1, B, S, Hkv, Dh) tensor per K and per V
     for the other layers (the paged cache's stacking), zeros in
-    ``dtype``."""
+    ``dtype``; under MLA the latent ``c`` (B, S, rkv) and rope key ``kr``
+    (B, S, dr) stacked likewise."""
     check_supported(cfg)
     return _decoder_init_cache(cfg, batch, seq, _dtype(dtype),
                                resolve_device(device))
@@ -397,6 +477,7 @@ def _decoder_decode(p, cfg, batch, cache, plan):
     every later block of the tick, dual-branch too."""
     tokens, pos = batch["tokens"], batch["pos"]
     x = _embed_tokens(p, cfg, tokens, pos[:, None])
+    x = _splice_image(cfg, batch, x, pos[:, None])
     x, a1_raw, _ = BL.block_apply(p["block0"], cfg, x, None,
                                   kind=_layer_kind(cfg, 0), is_block0=True,
                                   plan=plan, cache=cache["block0"], pos=pos,
@@ -428,12 +509,22 @@ def init_paged_cache(cfg, num_pages, page_size, slots, dtype="bfloat16",
     layers, and the per-slot FAL signal (slots, d_model) in ``dtype``.  Page
     0 is scratch.  ``kv_dtype`` selects the page format
     (``attention.gqa_init_paged_cache``); int8 / fp8 pools come with
-    (P, page) fp32 ``k_scale`` / ``v_scale`` pools, stacked likewise."""
+    (P, page) fp32 ``k_scale`` / ``v_scale`` pools, stacked likewise.
+    Under MLA the pools are the latent ``c`` (P, page, rkv) and rope key
+    ``kr`` (P, page, dr), and a ``kv_dtype`` raises, as in the
+    reference."""
     check_supported(cfg)
     device = resolve_device(device)
     dt = _dtype(dtype)
-    c0 = A.gqa_init_paged_cache(cfg, num_pages, page_size, dt, device,
-                                kv_dtype=kv_dtype)
+    if cfg.use_mla:
+        if kv_dtype:
+            raise NotImplementedError(
+                "quantized KV pages (kv_dtype) are GQA-only: the MLA cache "
+                "stores latents, not per-head K/V rows")
+        c0 = A.mla_init_paged_cache(cfg, num_pages, page_size, dt, device)
+    else:
+        c0 = A.gqa_init_paged_cache(cfg, num_pages, page_size, dt, device,
+                                    kv_dtype=kv_dtype)
     return {**_stacked(cfg, c0),
             "a1_sig": torch.zeros((slots, cfg.d_model), dtype=dt,
                                   device=device)}
@@ -477,7 +568,8 @@ def _decoder_paged_decode(p, cfg, batch, cache, plan, want="logits"):
     bt, n_valid = batch["block_tables"], batch["n_valid"]
     C = tokens.shape[1]
     positions = pos[:, None] + torch.arange(C, device=pos.device)[None]
-    x = _embed_tokens(p, cfg, tokens, positions)
+    x = _splice_image(cfg, batch, _embed_tokens(p, cfg, tokens, positions),
+                      positions)
     x, a1_raw, _ = BL.block_apply(p["block0"], cfg, x, None,
                                   kind=_layer_kind(cfg, 0), is_block0=True,
                                   plan=plan, cache=cache["block0"],
@@ -517,7 +609,9 @@ def _decoder_paged_packed(p, cfg, batch, cache, plan, want="logits"):
     tok_slot, tok_pos = batch["tok_slot"], batch["tok_pos"]
     seg_last = batch["seg_last"]
     positions = tok_pos.clamp(min=0)[None]                      # (1, T)
-    x = _embed_tokens(p, cfg, tokens[None], positions)
+    x = _splice_image(cfg, batch,
+                      _embed_tokens(p, cfg, tokens[None], positions),
+                      positions)
     x, a1_raw, _ = BL.block_apply(p["block0"], cfg, x, None,
                                   kind=_layer_kind(cfg, 0), is_block0=True,
                                   plan=plan, cache=cache["block0"],
@@ -643,7 +737,8 @@ def copy_paged_pages(cache, src, dst):
     pools included (the device half of ``BlockTable`` copy-on-write; the
     host half swaps the block-table entry).
 
-    ``src`` / ``dst`` are host sequences of page ids.  One
+    ``src`` / ``dst`` are host sequences of page ids (K / V pools, or
+    MLA's latent ``c`` and ``kr`` pools).  One
     ``ops.copy_page_leaves`` call for every pool leaf: block 0's pools as
     they are, the stacked (L-1, P, ...) pools in every layer (one kernel
     launch for the whole cache on the card; the reference makes one

@@ -308,7 +308,7 @@ class EngineConfig:
 
 class PagedEngine:
     """Slot-based continuous batching over paged KV (the dense and MoE
-    decoders).
+    decoders, GQA or MLA; a VLM config with an image prefix raises).
 
     ``device``: where the model and cache live; None means ``cuda`` and
     raises without one.  ``metrics``: a ``MetricsRegistry`` (one per engine
@@ -318,6 +318,13 @@ class PagedEngine:
                  plan=None, metrics: Optional[MetricsRegistry] = None,
                  tracer=None, device=None):
         M.check_supported(cfg)
+        if cfg.n_image_tokens:
+            # paged_decode_step takes image_embeds, but a request carries
+            # only text: refuse rather than serve the image prefix as text
+            # tokens (reference scheduler.py:442-448)
+            raise NotImplementedError(
+                "PagedEngine serves text-only requests; vlm image prefixes "
+                "need image_embeds plumbed through ServeRequest")
         if engine_cfg.admission not in ("prompt", "full"):
             raise ValueError(f"admission must be 'prompt' or 'full', got "
                              f"{engine_cfg.admission!r}")

@@ -13,6 +13,10 @@ restores the other's checkpoint:
   ``"blocks_moe"``.  ``save`` writes each kind stacked and ``restore``
   unstacks them, wherever the list sits (``params``, ``opt/m``,
   ``opt/v``);
+* every other subtree is written and read under its own keys, as the
+  reference flattens it: MLA's attention leaves (``.../attn/w_dq`` ...)
+  and DeepSeek-V3's ``mtp`` head (``params/mtp/proj/w``,
+  ``params/mtp/block/...``), which stays whole under TP;
 * AdamW's step count is a Python int here and a 0-d int32 array there
   (``opt/count``): written as ``np.int32``, read back as an int;
 * bfloat16 leaves: numpy has no bfloat16, and an npz written by the

@@ -236,8 +236,15 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
 
 
 #: rows of each streamed tile of the bf16 kernels (csrc/flash_attention.cu,
-#: namespace tc): K/V in the forward and dQ kernels, Q/dO in dK/dV
+#: namespace tc, ``tile_n``): K/V in the forward and dQ kernels, Q/dO in
+#: dK/dV; 32 at D = 192
 TILE = 64
+
+
+def tile_n(D):
+    return 32 if D > 128 else TILE
+
+
 #: chip_smoke.py's bf16 tolerances: FLASH_TOLS (o absolute, gradients
 #: relative to the largest, kernel vs plain) and GRAD_TOLS (gradients vs
 #: autograd through the plain forward, here vs the reference's jax.vjp)
@@ -280,14 +287,14 @@ def _capped(s, scale, cap):
 
 def emulate_tc_forward(q, k, v, causal, window=0, cap=0.0):
     """The bf16 forward kernel's arithmetic: scores of bf16 inputs summed in
-    fp32, one TILE-key tile at a time; under a softcap each score becomes
-    tanh(s * scale / cap) * cap * log2(e) before the mask; the running max
-    in the log2 domain (scale folded in), the tile's p = exp2(s * scale *
-    log2(e) - m) (capped: exp2(s_c - m)) summed unrounded into l and
-    rounded to bf16 for P.V (fp32 sums); o = acc / l rounded to bf16, lse
-    = (m + log2 l) ln 2.  A tile no row of the block sees changes nothing
-    (p = 0, alpha = 1 or l = 0), so the kernel's skipping of tiles below the
-    window needs no emulation."""
+    fp32, one tile_n(D)-key tile at a time; under a softcap each score
+    becomes tanh(s * scale / cap) * cap * log2(e) before the mask; the
+    running max in the log2 domain (scale folded in), the tile's p =
+    exp2(s * scale * log2(e) - m) (capped: exp2(s_c - m)) summed unrounded
+    into l and rounded to bf16 for P.V (fp32 sums); o = acc / l rounded to
+    bf16, lse = (m + log2 l) ln 2.  A tile no row of the block sees changes
+    nothing (p = 0, alpha = 1 or l = 0), so the kernel's skipping of tiles
+    below the window needs no emulation."""
     B, Sq, H, D = q.shape
     G = H // k.shape[2]
     qf, kf, vf = _heads(q), _heads(k, G), _heads(v, G)
@@ -295,8 +302,9 @@ def emulate_tc_forward(q, k, v, causal, window=0, cap=0.0):
     m = torch.full((B, H, Sq), -math.inf)
     l = torch.zeros(B, H, Sq)
     acc = torch.zeros(B, H, Sq, D)
-    for k0 in range(0, k.shape[1], TILE):
-        sl = slice(k0, k0 + TILE)
+    tile = tile_n(D)
+    for k0 in range(0, k.shape[1], tile):
+        sl = slice(k0, k0 + tile)
         sl2, s = _capped(qf @ kf[:, :, sl].transpose(-1, -2), D ** -0.5,
                          cap)
         s = s.masked_fill(~vis[:, sl], -math.inf)
@@ -313,13 +321,13 @@ def emulate_tc_forward(q, k, v, causal, window=0, cap=0.0):
 
 def emulate_tc_backward(q, k, v, o, lse, do, causal, window=0, cap=0.0):
     """The bf16 backward kernels' arithmetic: delta = rowsum(dO * O) in
-    fp32; per TILE-query tile (dK/dV kernel) P = exp2(s * scale *
+    fp32; per tile_n(D)-query tile (dK/dV kernel) P = exp2(s * scale *
     log2(e) - lse * log2(e)) (capped: t = tanh(s * scale / cap), P =
     exp2(t * cap * log2(e) - lse * log2(e))) rounded to bf16, dS = P (dP -
     delta) from that bf16 P in fp32 (capped: P ((dP - delta)(1 - t^2))),
-    rounded to bf16, then dV += P^T dO and dK += dS^T Q; per TILE-key tile (dQ
-    kernel) the same P and dS before dQ += dS K; fp32 sums, dK summed over
-    the G heads of a group, each gradient rounded once."""
+    rounded to bf16, then dV += P^T dO and dK += dS^T Q; per tile_n(D)-key
+    tile (dQ kernel) the same P and dS before dQ += dS K; fp32 sums, dK
+    summed over the G heads of a group, each gradient rounded once."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -343,14 +351,15 @@ def emulate_tc_backward(q, k, v, o, lse, do, causal, window=0, cap=0.0):
 
     dk = torch.zeros(B, H, Sk, D)
     dv = torch.zeros(B, H, Sk, D)
-    for q0 in range(0, Sq, TILE):
-        qs, ks = slice(q0, q0 + TILE), slice(0, Sk)
+    tile = tile_n(D)
+    for q0 in range(0, Sq, tile):
+        qs, ks = slice(q0, q0 + tile), slice(0, Sk)
         p, ds = p_ds(qs, ks)
         dv += p.transpose(-1, -2) @ dof[:, :, qs]
         dk += ds.transpose(-1, -2) @ qf[:, :, qs]
     dq = torch.zeros(B, H, Sq, D)
-    for k0 in range(0, Sk, TILE):
-        ks = slice(k0, k0 + TILE)
+    for k0 in range(0, Sk, tile):
+        ks = slice(k0, k0 + tile)
         _, ds = p_ds(slice(0, Sq), ks)
         dq += ds @ kf[:, :, ks]
 

@@ -224,8 +224,8 @@ def test_entry_points_need_a_device_here():
         TD.ContinuousBatcher(cfg, params, 2, 8)
 
 
-@pytest.mark.parametrize("arch", ["whisper-small", "deepseek-v3-671b",
-                                  "mamba2-370m", "llava-next-mistral-7b"])
+@pytest.mark.parametrize("arch", ["whisper-small", "mamba2-370m",
+                                  "zamba2-1.2b"])
 def test_later_slice_families_raise(arch):
     with pytest.raises(NotImplementedError, match="slice"):
         TM.init_params(get_config(arch).reduced(), device="cpu")
