@@ -70,7 +70,8 @@ script exits non-zero:
                  depth (llama3.2-3b, 28 layers, bf16), with the kernels'
                  launch counters zeroed just before and read just after
   7. profile     where a tick's time goes: a second, smaller workload on
-                 the same engine, timed plainly and under torch.profiler
+                 the same engine, timed plainly and with its first
+                 PROFILE_WINDOW ticks under torch.profiler
   8. dual engine the profile workload again through
                  EngineConfig(dual_branch=True): the same token streams
   8a. sampler    the seeded samplers on llama3.2-3b head logits (8 lanes,
@@ -103,7 +104,7 @@ script exits non-zero:
                  reaching S - 1, some idle on alternate ticks) at full
                  width, 2 layers, fp32, card vs CPU, sequential and dual
                  (dual bit-identical to sequential on the card); decode ==
-                 forward at full depth in bf16 (B=4, S=256, every logit
+                 forward at full depth in bf16 (B=4, S=128, every logit
                  within CONTIG_FWD_BOUND); ContinuousBatcher (8 slots,
                  bf16, 28 layers) serving 16 greedy requests of 32..128 +
                  32 tokens in one dispatch a tick (tok/s, ms a tick, 3
@@ -135,8 +136,9 @@ script exits non-zero:
                  a failing rank fails the run
  13b. dp         tp 2 x dp 2: four gloo ranks on this card
                  (core.tp.run_ranks(..., tp_size=2); init_tp_group('nccl')
-                 must refuse four ranks on one card), llama3.2-3b full
-                 width, 4 layers, fp32 compute (the reference's int8 gate
+                 must refuse four ranks on one card), llama3.2-3b's
+                 widths, 2 layers and a 32768-token vocabulary (gloo
+                 measures no NCCL time), fp32 compute (the reference's int8 gate
                  is against an fp32 all-reduce), remat, a global batch of
                  2 x 1024 (one row a data rank): rank 0 first trains 2
                  steps on one device; then 2 steps each of grad_compress
@@ -188,19 +190,40 @@ script exits non-zero:
                  experts of 2048, top 8, 16 groups limit 4, a shared
                  expert) through moe_apply_shard_slot; capacity E / k, so
                  nothing drops), with their all-to-all counts and bytes
+ 16. mla / vlm   deepseek-v3's latent attention and MTP head, llava's
+                 image prefix (see the functions' docstrings)
+ 17. families    mamba2-370m (ssm), zamba2-1.2b (hybrid) and whisper-small
+                 (audio): (a) fp32 at full width, card vs CPU (mamba 2
+                 layers at S = 512, two SSD chunks; zamba 13 layers: two
+                 groups and a trailing layer; whisper 2 + 2 layers, 1,500
+                 frames, T = 64): logits, loss, gradient norm and 16
+                 decode_step ticks; (b) bf16 serving at full depth: mamba
+                 (48 layers) and zamba (38, also dual-branch) through
+                 ContinuousBatcher (8 slots, 16 requests of 64 + 64, slots
+                 reused), decode == forward within FAMILY_FWD_BOUND;
+                 whisper (12 + 12) encoding 8 x 1,500 frames and
+                 generating 64 tokens, decode == forward; (c) training at
+                 full depth (fp32 masters, bf16 compute, remat): mamba
+                 and zamba at S = 2048, whisper with 1,500 frames and
+                 T = 448; step ms, tokens/s, peak memory, busy share.
+                 Phase 3 also holds the flash kernels at whisper's shapes
+                 (1500 x 1500 non-causal, 448 x 1500 and 1 x 1500 cross)
+                 to their plain versions, and phase 4 times them
 
 The serving phases (5 to 11a, 14, 15) also launch fused_ln_add: one per layer
 per tick under fal (on the contiguous cache the only kernel a tick runs).
 Every main-path run (6, 8, 8b, each run of 8c and of 9 to 11a, the counted
 steps of 13 and 14, the TP paths of 13a and the DP paths of 13b in each
 rank, each gemma2 engine run, and in 15 each MoE engine run, the counted
-train steps and each rank's TP forward and trainer step) zeroes all launch counters just before it and
-reads them just after.  The line before the last is a
+train steps and each rank's TP forward and trainer step; in 17 each
+family's serving and training run) zeroes all launch counters just before
+it and reads them just after.  The line before the last is a
 JSON object with one entry per kernel; the last line is {"ok": true,
 "device": {...}}.  Without a CUDA device, or outside a checkout, the script
 exits non-zero and prints no result.  It imports nothing of JAX and nothing
 of the JAX package ``repro``.
 """
+import contextlib
 import gc
 import itertools
 import json
@@ -2335,51 +2358,69 @@ def engine_phase():
                           wall_s=wall), params, ecfg, prompts, streams
 
 
+#: the profile workload's ticks run under torch.profiler (the first ones:
+#: its 1,600 prompt tokens' prefill ticks and the first decode ticks); the
+#: profiler's processing of all ~31 ticks took most of this phase's ~50 s
+PROFILE_WINDOW = 10
+
+
 def profile_phase(engine, cfg, rng):
     """Where a tick's time goes, after the counted run: the same second
     workload (8 requests of 200 prompt tokens, 24 new tokens each) is served
-    twice by the same engine, first plainly for the wall time, then under
-    torch.profiler for the device time (the sum of the CUDA kernels' own
-    times).  Busy share = device time / unprofiled wall time."""
+    twice by the same engine, first plainly for the wall time, then with
+    its first PROFILE_WINDOW ticks under torch.profiler for the device time
+    (the sum of the CUDA kernels' own times).  Busy share = device time /
+    the unprofiled wall time of the same ticks."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.scheduler import ServeRequest
-    phase("profile: 8 requests x (200 prompt + 24 new), torch.profiler")
+    phase(f"profile: 8 requests x (200 prompt + 24 new), its first "
+          f"{PROFILE_WINDOW} ticks under torch.profiler")
     prompts = [rng.integers(0, cfg.vocab, 200) for _ in range(8)]
 
-    def serve():
+    def serve(prof=None):
+        """-> (wall ms of the first PROFILE_WINDOW ticks, of all, ticks,
+        streams); the first ticks under ``prof`` when given."""
         engine.finished.clear()
         for i, p in enumerate(prompts):
             engine.submit(ServeRequest(rid=100 + i, prompt=p, max_new=24))
         t0 = engine.ticks
         torch.cuda.synchronize()
         w0 = time.perf_counter()
+        with prof or contextlib.nullcontext():
+            for _ in range(PROFILE_WINDOW):
+                engine.step()
+            torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - w0) * 1e3
         engine.run()
         torch.cuda.synchronize()
         streams = {r.rid: list(map(int, r.generated))
                    for r in engine.finished}
-        return (time.perf_counter() - w0) * 1e3, engine.ticks - t0, streams
+        return (window_ms, (time.perf_counter() - w0) * 1e3,
+                engine.ticks - t0, streams)
 
-    wall_ms, ticks, streams = serve()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prof_wall_ms, prof_ticks, _ = serve()
+    window_ms, wall_ms, ticks, streams = serve()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    _, prof_wall_ms, prof_ticks, _ = serve(prof)
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(ms for _, ms, _ in rows)
     attn_ms = sum(ms for k, ms, _ in rows if "paged_packed_kernel" in k
                   or "packed_tc::" in k)
+    n = PROFILE_WINDOW
     print(f"  unprofiled: {ticks} ticks in {wall_ms:.1f} ms "
-          f"({wall_ms / ticks:.2f} ms/tick); profiled: {prof_ticks} ticks in "
-          f"{prof_wall_ms:.1f} ms")
+          f"({wall_ms / ticks:.2f} ms/tick), the first {n} in "
+          f"{window_ms:.1f} ms ({window_ms / n:.2f} ms/tick); with the "
+          f"profiler: {prof_ticks} ticks in {prof_wall_ms:.1f} ms")
     if device_ms == 0.0 or prof_ticks != ticks:
         print("  device time: not measured (the profiler saw no CUDA "
               "kernels, or the two runs differ)")
         return prompts, streams
-    busy = device_ms / wall_ms
-    print(f"  device kernel time {device_ms:.1f} ms ({device_ms / ticks:.2f} "
-          f"ms/tick): busy share {busy:.3f}, idle share {1 - busy:.3f} of "
-          f"the unprofiled wall; paged_packed_attention {attn_ms:.2f} ms = "
+    busy = device_ms / window_ms
+    print(f"  device kernel time {device_ms:.1f} ms over the first {n} "
+          f"ticks ({device_ms / n:.2f} ms/tick): busy share {busy:.3f}, idle "
+          f"share {1 - busy:.3f} of their unprofiled wall; "
+          f"paged_packed_attention {attn_ms:.2f} ms = "
           f"{attn_ms / device_ms:.3f} of device time")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"    {ms:9.2f} ms {n:6d} calls  {key[:90]}")
@@ -2931,7 +2972,7 @@ G2_CONTIG_S = 512
 G2_CONTIG_LANES = tuple((p, True) for p in (0, 127, 128, 300, 511, 100, 200,
                                             129))
 #: decode == forward at llama3.2-3b full depth in bf16: B lanes of S tokens
-CONTIG_FWD_B, CONTIG_FWD_S = 4, 256
+CONTIG_FWD_B, CONTIG_FWD_S = 4, 128
 #: bound on |logit| differences between decode_step and forward at
 #: llama3.2-3b in bf16, over all B x S x 128256 logits.  The two attend in
 #: other orders with other bf16 rounding points (forward: the flash kernel,
@@ -3338,6 +3379,15 @@ FLASH_MLA_SHAPES = (("deepseek-v3 train", 1, 2048, 128, 128, 192, 128, True),
                     ("odd", 2, 77, 6, 3, 192, 128, True),
                     ("odd", 1, 300, 4, 4, 192, 192, True),
                     ("odd", 1, 200, 4, 2, 192, 128, False))
+#: (label, B, Sq, Sk, H, Hkv, D): whisper-small's attention, 12 heads of
+#: 64 and no mask: the encoder over its 1,500 frames (not a multiple of the
+#: 64-key tiles), the decoder's cross-attention at the training length 448
+#: and at one decode step; WHISPER_TIMED_B is the batch phase 4 times them
+#: at (phase 17's training and serving batch)
+FLASH_WHISPER_SHAPES = (("whisper encoder", 2, 1500, 1500, 12, 12, 64),
+                        ("whisper cross", 2, 448, 1500, 12, 12, 64),
+                        ("whisper decode cross", 8, 1, 1500, 12, 12, 64))
+WHISPER_TIMED_B = 8
 #: kernel vs plain: fp32 sums in another order; bf16: one rounding of the
 #: output (|o| < 4: 2^-7 x 4 = 0.03) and of each gradient
 FLASH_TOLS = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -3450,7 +3500,45 @@ def flash_kernel_phase():
                          "flash_attention.bwd.mla": e_g})
     print(f"  D = 192 (MLA) cases: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    for case, dtype in itertools.product(FLASH_WHISPER_SHAPES,
+                                         (torch.float32, torch.bfloat16)):
+        e_o, e_g = flash_whisper_case(FA, case, dtype)
+        if case[0] == "whisper encoder" and dtype == torch.bfloat16:
+            errs.update({"flash_attention.whisper": e_o,
+                         "flash_attention.bwd.whisper": e_g})
+    print(f"  whisper cases: {time.perf_counter() - t0:.1f} s", flush=True)
     return errs
+
+
+def flash_whisper_case(FA, case, dtype):
+    """One FLASH_WHISPER_SHAPES case, no mask (``causal=False``), Sq and Sk
+    as given: o, lse and the gradients against the plain versions, the
+    backward twice for bit-identical results.  -> (o error, relative
+    gradient error)."""
+    label, B, Sq, Sk, h, hkv, d = case
+    g = torch.Generator(device="cuda").manual_seed(Sq + Sk)
+    q, do = (randn(g, dtype, B, Sq, h, d) for _ in range(2))
+    k, v = (randn(g, dtype, B, Sk, hkv, d) for _ in range(2))
+    tol = FLASH_TOLS[dtype]
+    o, lse = FA.flash_attention_fwd_cuda(q, k, v, causal=False)
+    r_o, r_lse = FA.flash_attention_plain(q, k, v, causal=False)
+    grads = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=False)
+    again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=False)
+    plain = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False)
+    torch.cuda.synchronize()
+    e_o, e_l = max_err(o, r_o), max_err(lse, r_lse)
+    e_g = max(rel_err(a, b) for a, b in zip(grads, plain))
+    same = all(torch.equal(a, b) for a, b in zip(grads, again))
+    name = f"{label}: B={B} Sq={Sq} Sk={Sk} H={h} Hkv={hkv} D={d} full " \
+           f"{str(dtype)[6:]}"
+    print(f"  {name}: o {e_o:.3e}, lse {e_l:.3e}; grads vs plain {e_g:.3e} "
+          f"(relative; tol {tol:g}); two backward runs bit-identical "
+          f"{same}", flush=True)
+    require(e_o <= tol and e_l <= tol and e_g <= tol,
+            f"{name}: kernels disagree with the plain versions")
+    require(same, f"{name}: backward is not deterministic")
+    return e_o, e_g
 
 
 def flash_mla_case(FA, case, dtype):
@@ -3727,6 +3815,8 @@ def train_time_phase(bw):
     rows["flash_attention.bwd"].update(rows["flash_attention"].pop("bwd"))
     rows["flash_attention"].update(flash_mla_times(bw))
     rows["flash_attention.bwd"].update(rows["flash_attention"].pop("bwd"))
+    rows["flash_attention"].update(flash_whisper_times(bw))
+    rows["flash_attention.bwd"].update(rows["flash_attention"].pop("bwd"))
     for kind, n, dm in LN_SHAPES[:LN_TIMED]:
         x, a1, scale, bias, dy = ln_inputs(torch.bfloat16, kind, n, dm, 2)
         y, mean, rstd = LN.fused_ln_add_fwd_cuda(x, a1, scale, bias,
@@ -3877,11 +3967,11 @@ def flash_gemma2_times(bw):
                          gemma2_library_ms=None, gemma2_shape=shape))
 
 
-def _sdpa_fused_ms(q, k, v, do):
+def _sdpa_fused_ms(q, k, v, do, causal=True):
     """(forward ms, backward ms) of ``scaled_dot_product_attention`` on
-    (B, S, H, *) bf16 q, k, v of their own head widths, causal, through a
-    fused backend only (flash, memory-efficient or cuDNN); (None, None)
-    when none of them takes the shapes."""
+    (B, S, H, *) bf16 q, k, v of their own head widths, causal or not,
+    through a fused backend only (flash, memory-efficient or cuDNN); (None,
+    None) when none of them takes the shapes."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
@@ -3891,7 +3981,8 @@ def _sdpa_fused_ms(q, k, v, do):
 
     def sdpa():
         with sdpa_kernel(backends):
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
     try:
         out = sdpa()
         torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2),
@@ -3972,6 +4063,62 @@ def flash_mla_times(bw):
                          mla_bound_by=bounds[1][1], mla_library_ms=lib_bwd,
                          mla_shape=shape + "; bound at 2.5x the forward's "
                          "flops"))
+
+
+def flash_whisper_times(bw):
+    """The flash kernels at whisper-small's shapes (FLASH_WHISPER_SHAPES at
+    B = WHISPER_TIMED_B, bf16, no mask): kernel, plain and
+    ``scaled_dot_product_attention`` (a fused backend) times; the backward
+    at the two training shapes (a decode step has none).  Bound: 4 D flops
+    a (query, key) pair a head at 989 TFLOP/s (the backward 2.5x), or q, o
+    (+ dO, dQ) of Sq rows and k, v (+ dK, dV) of Sk rows read or written
+    once.  Returns the forward's fields, the backward's under "bwd", each
+    keyed by the shape's short name."""
+    from repro_torch.kernels import flash_attention as FA
+    fwd, bwd = {}, {}
+    for label, _, Sq, Sk, h, hkv, d in FLASH_WHISPER_SHAPES:
+        B = WHISPER_TIMED_B
+        key = "whisper_" + label.split(" ", 1)[1].replace(" ", "_")
+        g = torch.Generator(device="cuda").manual_seed(7)
+        q, do = (randn(g, torch.bfloat16, B, Sq, h, d) for _ in range(2))
+        k, v = (randn(g, torch.bfloat16, B, Sk, hkv, d) for _ in range(2))
+        o, lse = FA.flash_attention_fwd_cuda(q, k, v, causal=False)
+        kw = dict(causal=False)
+        f_ms = _median_ms(lambda: FA.flash_attention_fwd_cuda(q, k, v, **kw),
+                          n=30)
+        f_plain = _median_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
+                             n=5)
+        lib_f, lib_b = _sdpa_fused_ms(q, k, v, do, causal=False)
+        flops = 4 * d * h * B * Sq * Sk
+        q_bytes, k_bytes = B * Sq * h * d * 2, B * Sk * hkv * d * 2
+        stats = B * h * Sq * 4
+        shape = f"B={B} Sq={Sq} Sk={Sk} H={h} Hkv={hkv} D={d} full bf16"
+        rows = [("", fwd, f_ms, f_plain, lib_f, flops,
+                 2 * q_bytes + 2 * k_bytes + stats)]
+        if Sq > 1:
+            b_ms = _median_ms(lambda: FA.flash_attention_bwd_cuda(
+                q, k, v, o, lse, do, **kw), n=30)
+            r_o, r_lse = FA.flash_attention_plain(q, k, v, **kw)
+            b_plain = _median_ms(lambda: FA.flash_attention_bwd_plain(
+                q, k, v, r_o, r_lse, do, **kw), n=3)
+            rows.append((".bwd", bwd, b_ms, b_plain, lib_b, 2.5 * flops,
+                         4 * q_bytes + 4 * k_bytes + 2 * stats))
+        for suffix, out, ms, plain_ms, lib, fl, nb in rows:
+            t_ops, t_bytes = fl / PEAK_BF16_FLOPS, nb / bw
+            bound = max(t_ops, t_bytes) * 1e3
+            by = "operations" if t_ops >= t_bytes else "bytes"
+            out.update({f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
+                        f"{key}_bound_ms": bound, f"{key}_bound_by": by,
+                        f"{key}_library_ms": lib, f"{key}_shape": shape})
+            lib_s = "none" if lib is None else f"{lib:.4f}"
+            print(f"  flash_attention{suffix} {label} {shape}: kernel_ms "
+                  f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound:.4f} "
+                  f"({by}) library_ms {lib_s} (scaled_dot_product_attention"
+                  f"); {fl / ms / 1e9:.1f} TFLOP/s, {bound / ms:.3f} of the "
+                  f"bound", flush=True)
+        del q, k, v, do, o, lse
+    fwd["bwd"] = bwd
+    return fwd
 
 
 def kernel_breakdown(fn, n=20):
@@ -4569,14 +4716,16 @@ def tp_report(ranks, backend, smi):
 # --------------------------------------------------------------------------- #
 # data parallelism, compressed backward collectives, checkpoints under TP
 # --------------------------------------------------------------------------- #
-#: tp 2 x dp 2: four gloo ranks on this card, llama3.2-3b full width at
-#: TP_LAYERS layers, a global batch of 2 (one row a data rank) of DP_SEQ
-#: tokens.  fp32 compute (``dp_config``) at S = 2048 needs ~19 GB a rank
-#: (the 16 B a parameter of ~595 M local parameters, the fp32 logits and
-#: the tied embedding's gradients): four such ranks ran the card out of
-#: memory, so the sequence is halved; 2 steps a method (3 before the MoE
-#: phases needed the time)
+#: tp 2 x dp 2: four gloo ranks on this card, llama3.2-3b's widths at
+#: DP_LAYERS layers with a DP_VOCAB-token vocabulary, a global batch of 2
+#: (one row a data rank) of DP_SEQ tokens.  fp32 compute (``dp_config``).
+#: gloo stages every collective through host memory and measures no NCCL
+#: time, so the phase checks counts, bytes, gradients and the checkpoint,
+#: and its size buys nothing: 2 layers and a 32768-token vocabulary (the
+#: tied embedding was two thirds of the 4-layer model) cut the all-reduced
+#: gradient and the checkpoint to about a third; 2 steps a method
 DP_TP, DP_SIZE, DP_STEPS, DP_BATCH, DP_SEQ = 2, 2, 2, 2, 1024
+DP_LAYERS, DP_VOCAB = 2, 32768
 DP_METHODS = ("none", "int8", "lowrank")
 #: int8's backward wire bytes against "none"'s, at most
 #: (benchmarks/bench_comm.py's gate on the reference)
@@ -4588,7 +4737,8 @@ def dp_config():
     bench_comm measures int8 against an fp32 all-reduce, so the 0.3 gate
     holds for fp32 cotangents (one byte for four; for bf16 ones it would
     be one for two)."""
-    return tp_config(remat=True, dtype="float32")
+    return tp_config(remat=True, dtype="float32").replace(
+        n_layers=DP_LAYERS, vocab=DP_VOCAB)
 
 
 def _flat_grads(params):
@@ -4750,8 +4900,8 @@ def _dp_checkpoint(state, cfg, plan, ocfg, ckpt_dir, dev):
 
 
 def dp_phase(smi):
-    """tp 2 x dp 2 at llama3.2-3b full width, 4 layers, over four gloo
-    ranks on this card (``core.tp.run_ranks(..., tp_size=2)``; CUDA
+    """tp 2 x dp 2 at llama3.2-3b's widths (``dp_config``: DP_LAYERS
+    layers, a DP_VOCAB vocabulary) over four gloo ranks on this card (``core.tp.run_ranks(..., tp_size=2)``; CUDA
     tensors staged through host memory).  Returns ({kernel: launches on
     the DP paths of rank 0}, a summary for the last lines)."""
     import tempfile
@@ -4766,8 +4916,8 @@ def dp_phase(smi):
             print(f"  nccl: not run ({n_cards} card(s) for {world} ranks); "
                   f"init_tp_group refuses it: {e}", flush=True)
     phase(f"data parallelism: tp {DP_TP} x dp {DP_SIZE} = {world} gloo "
-          f"ranks on this card, llama3.2-3b full width, {TP_LAYERS} "
-          f"layers, fp32 compute, remat, global batch {DP_BATCH} x "
+          f"ranks on this card, llama3.2-3b widths, {DP_LAYERS} layers, "
+          f"vocab {DP_VOCAB}, fp32 compute, remat, global batch {DP_BATCH} x "
           f"{DP_SEQ}; grad_compress {'/'.join(DP_METHODS)}; card {smi}")
     gc.collect()                # this process's tensors off the card
     torch.cuda.empty_cache()
@@ -4799,7 +4949,7 @@ def _wire(counts, direction):
 def dp_report(ranks, smi):
     """Print and gate the DP ranks' results."""
     r0 = ranks[0]
-    L = TP_LAYERS
+    L = DP_LAYERS
     one = r0["one_device"]
     hist = [(round(a, 5), round(b, 4)) for a, b in one["hist"]]
     print(f"  one device (rank 0, global batch {DP_BATCH}): (loss, "
@@ -6514,6 +6664,466 @@ def vlm_phase():
                 ln_launches=counts["fused_ln_add"])
 
 
+# --------------------------------------------------------------------------- #
+# phase 17: the SSM, hybrid and audio families
+# --------------------------------------------------------------------------- #
+SSM_ARCH, HYBRID_ARCH, AUDIO_ARCH = ("mamba2-370m", "zamba2-1.2b",
+                                     "whisper-small")
+FAMILIES = (SSM_ARCH, HYBRID_ARCH, AUDIO_ARCH)
+#: (a) card vs CPU in fp32 at full width: each family's depth cut, batch
+#: and sequence.  mamba: S = 512, two SSD chunks, so the inter-chunk loop
+#: runs; zamba: 13 layers, two groups of 6 and a trailing layer, so group
+#: 0, a later group and the tail all run, at one chunk (its CPU side's
+#: fp32 GEMMs set this phase's time); whisper: 2 + 2 layers over its
+#: 1,500 frames
+FAMILY_TICKS = {SSM_ARCH: (dict(n_layers=2), 2, 512),
+                HYBRID_ARCH: (dict(n_layers=13), 1, 256),
+                AUDIO_ARCH: (dict(n_layers=2, n_enc_layers=2), 2, 64)}
+FAMILY_DECODE_TICKS = 16
+#: card vs CPU bounds (fp32 sums in other orders, TF32 off): logits within
+#: TICK_TOLS[""] x max(1, the largest |logit|); loss 1e-4 and the gradient
+#: norm 1e-4 relative, as train_tick's
+FAMILY_LOSS_TOL, FAMILY_GNORM_RTOL = 1e-4, 1e-4
+#: (b) serving in bf16 at full depth: the batcher's slots, requests and each
+#: request's prompt and new tokens (16 requests through 8 slots: every
+#: slot is taken twice, so the recurrent-state reset runs); decode ==
+#: forward over FAMILY_FWD_B lanes of FAMILY_FWD_S tokens
+FAMILY_SLOTS, FAMILY_REQS, FAMILY_PROMPT, FAMILY_NEW = 8, 16, 64, 64
+FAMILY_FWD_B, FAMILY_FWD_S = 4, 64
+#: bound on |logit| differences between decode_step and forward in bf16 at
+#: full depth, over every logit.  The two compute the same function in
+#: other orders with other bf16 rounding points: mamba's chunked SSD
+#: (products of bf16-rounded decays and scores, fp32 sums) against the
+#: recurrence's fp32 state update; zamba's and whisper's attention through
+#: the flash kernel against decode's fp32 scores; every layer rounds its
+#: output to bf16 (relative 2^-9), over 48 (mamba), 38 + 6 (zamba) and
+#: 12 + 12 (whisper) layers, and the logits are bf16 themselves (one ulp is
+#: 2^-5 at |logit| >= 4): CONTIG_FWD_BOUND's reasoning at up to twice the
+#: depth
+FAMILY_FWD_BOUND = 0.5
+WHISPER_SERVE_B, WHISPER_NEW = 8, 64
+#: (c) training at full depth: (batch, sequence).  SSD's largest tensor is
+#: the (B, S / 256, H, 256, 256) decay matrix, 0.54 GB in fp32 for mamba2
+#: (H = 32) at B = 8 and for zamba2 (H = 64) at B = 4; whisper's sequence is
+#: the decoder's (its encoder reads 1,500 frames)
+FAMILY_TRAIN = {SSM_ARCH: (8, 2048), HYBRID_ARCH: (4, 2048),
+                AUDIO_ARCH: (8, 448)}
+FAMILY_TRAIN_STEPS = 3
+
+
+def family_config(arch, **kw):
+    from repro_torch.configs.base import get_config
+    return get_config(arch).replace(**kw)
+
+
+def family_batch(cfg, B, S, g, device):
+    """Tokens (B, S) and, for whisper, frames (B, n_enc_frames, d) drawn
+    from ``g`` (a generator on ``device``)."""
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                     device=device, dtype=torch.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((B, cfg.n_enc_frames, cfg.d_model),
+                                      generator=g, device=device)
+    return batch
+
+
+def family_expected(cfg, steps=1, ticks=0):
+    """Launches of the family's kernels: ``steps`` remat training steps
+    (each block's forward twice, its backward once) plus ``ticks`` decode
+    ticks.  zamba: one flash call and one LN-add (fal's MLP input) per
+    shared-block invocation; whisper: per encoder block one flash call
+    (bidirectional) and one LN-add, per decoder block two flash calls
+    (causal self-attention, cross-attention; one, the cross, at decode)
+    and one LN-add; mamba: none."""
+    if cfg.family == "hybrid":
+        n = cfg.n_layers // cfg.attn_every
+        fa = ln = n
+        tick_fa, tick_ln = 0, n
+    elif cfg.family == "audio":
+        fa, ln = cfg.n_enc_layers + 2 * cfg.n_layers, \
+            cfg.n_enc_layers + cfg.n_layers
+        tick_fa = tick_ln = cfg.n_layers
+    else:
+        return {}
+    return {"flash_attention": 2 * steps * fa + ticks * tick_fa,
+            "flash_attention.bwd": steps * fa,
+            "fused_ln_add": 2 * steps * ln + ticks * tick_ln,
+            "fused_ln_add.bwd": steps * ln}
+
+
+def family_paths(cfg):
+    """The dispatch paths a family's run records on the card."""
+    from repro_torch.kernels import ops
+    if cfg.family == "ssm":
+        return {}
+    return {"flash_attention": ops.CUDA, "fused_ln_add": ops.CUDA}
+
+
+def family_grads(cfg, params, batch):
+    """(eval logits (B, S, V) fp32 on the host, loss, gradient norm) of
+    ``params`` on ``batch``; the gradients are cleared after."""
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    leaves = [t for _, t in adamw.named_leaves(params)]
+    with torch.no_grad():
+        logits = M.forward(params, cfg, batch, "eval")[0].float().cpu()
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = M.loss_fn(params, cfg, batch)
+    loss.backward()
+    gnorm = torch.stack([t.grad.float().square().sum()
+                         for t in leaves]).sum().sqrt().item()
+    for t in leaves:
+        t.grad = None
+        t.requires_grad_(False)
+    return logits, loss.item(), gnorm
+
+
+def family_decode(cfg, params, batch, n, device, cache_dtype="float32"):
+    """``n`` decode_step ticks feeding batch's tokens at positions 0..n-1
+    (whisper: ``enc_out`` from ``whisper_encode`` first) -> (n, B, V) fp32
+    logits on the host."""
+    from repro_torch.models import model as M
+    B = batch["tokens"].shape[0]
+    out = []
+    with torch.no_grad():
+        cache = M.init_cache(cfg, B, n, cache_dtype, device=device)
+        if cfg.family == "audio":
+            cache["enc_out"].copy_(M.whisper_encode(params, cfg,
+                                                    batch["frames"]))
+        for t in range(n):
+            logits, cache = M.decode_step(
+                params, cfg, {"tokens": batch["tokens"][:, t:t + 1],
+                              "pos": torch.full((B,), t, dtype=torch.int32,
+                                                device=device)}, cache)
+            out.append(logits[:, 0].float().cpu())
+    return torch.stack(out)
+
+
+def family_tick_phase():
+    """(a) Each family at full width in fp32, cut in depth (FAMILY_TICKS),
+    on the card (kernels) and on the CPU (plain versions) from the same
+    weights and batch: eval logits, loss, gradient norm and
+    FAMILY_DECODE_TICKS decode_step ticks; the card's paths."""
+    from repro_torch import interop
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    for arch in FAMILIES:
+        cut, B, S = FAMILY_TICKS[arch]
+        cfg = family_config(arch, dtype="float32", **cut)
+        phase(f"{arch} at full width, {cut}, fp32, B={B}, S={S}: logits, "
+              f"loss, gradient norm and {FAMILY_DECODE_TICKS} decode_step "
+              f"ticks, card (kernels) vs CPU (plain)")
+        t0 = time.perf_counter()
+        cpu_params = M.init_params(cfg, seed=0, device="cpu",
+                                   dtype="float32")
+        gparams = interop.tree_to(cpu_params, "cuda")
+        batch = family_batch(cfg, B, S, torch.Generator().manual_seed(17),
+                             "cpu")
+        gbatch = {k: v.cuda() for k, v in batch.items()}
+        n = FAMILY_DECODE_TICKS
+        ops.reset_launches()
+        ops.reset_dispatch_paths()
+        card = family_grads(cfg, gparams, gbatch) + (
+            family_decode(cfg, gparams, gbatch, n, "cuda"),)
+        torch.cuda.synchronize()
+        counts, paths = ops.launch_counts(), ops.dispatch_paths()
+        del gparams
+        torch.cuda.empty_cache()
+        cpu = family_grads(cfg, cpu_params, batch) + (
+            family_decode(cfg, cpu_params, batch, n, "cpu"),)
+        top = cpu[0].abs().max().item()
+        d_logit = (card[0] - cpu[0]).abs().max().item()
+        d_loss = abs(card[1] - cpu[1])
+        d_norm = abs(card[2] - cpu[2]) / cpu[2]
+        d_dec = (card[3] - cpu[3]).abs().max().item()
+        tol = TICK_TOLS[""] * max(1.0, top)
+        print(f"  logits max |diff| {d_logit:.3e} (max |logit| {top:.3f}; "
+              f"tol {tol:.3g}); loss card {card[1]:.6f} CPU {cpu[1]:.6f} "
+              f"(|diff| {d_loss:.3e}, tol {FAMILY_LOSS_TOL:g}); grad norm "
+              f"{card[2]:.5f} / {cpu[2]:.5f} (relative {d_norm:.3e}, tol "
+              f"{FAMILY_GNORM_RTOL:g}); {n} decode ticks max |diff| "
+              f"{d_dec:.3e} (tol {tol:.3g}); card paths {paths}; launches "
+              f"{nonzero(counts)}; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        require(paths == family_paths(cfg), f"{arch}: card paths {paths}")
+        require(d_logit <= tol and d_dec <= tol
+                and bool(torch.isfinite(card[3]).all()),
+                f"{arch}: card logits disagree with the CPU")
+        require(d_loss <= FAMILY_LOSS_TOL and d_norm <= FAMILY_GNORM_RTOL,
+                f"{arch}: card loss or gradient norm disagrees with the CPU")
+        del cpu_params, card, cpu
+
+
+def family_fwd_check(cfg, params):
+    """decode_step == forward at full depth in bf16: FAMILY_FWD_B lanes of
+    FAMILY_FWD_S tokens, every logit within FAMILY_FWD_BOUND -> (max
+    |diff|, share of positions whose greedy tokens agree)."""
+    from repro_torch.models import model as M
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batch = family_batch(cfg, FAMILY_FWD_B, FAMILY_FWD_S, g, "cuda")
+    with torch.no_grad():
+        full = M.forward(params, cfg, batch, "eval")[0].float().cpu()
+    dec = family_decode(cfg, params, batch, FAMILY_FWD_S, "cuda",
+                        "bfloat16").transpose(0, 1)
+    err = (dec - full).abs().max().item()
+    agree = (dec.argmax(-1) == full.argmax(-1)).float().mean().item()
+    print(f"  decode == forward ({FAMILY_FWD_B} lanes x {FAMILY_FWD_S} "
+          f"tokens, bf16): logits max |diff| {err:.4f} (bound "
+          f"{FAMILY_FWD_BOUND}; max |logit| {full.abs().max().item():.3f}); "
+          f"greedy tokens agree at {agree:.4f} of the positions", flush=True)
+    require(err <= FAMILY_FWD_BOUND and bool(torch.isfinite(dec).all()),
+            f"{cfg.arch_id}: decode differs from forward by {err}")
+    return err, agree
+
+
+def family_batcher(cfg, params, smi, dual=False):
+    """FAMILY_REQS greedy requests of FAMILY_PROMPT + FAMILY_NEW tokens
+    through ContinuousBatcher (FAMILY_SLOTS slots, bf16 cache), the
+    counters zeroed just before and read just after; then
+    BATCHER_PROFILED_TICKS full ticks under torch.profiler.  -> (streams,
+    numbers)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serve.decode import ContinuousBatcher, Request
+    max_seq = FAMILY_PROMPT + FAMILY_NEW + 1
+    rng = np.random.default_rng(13)
+    warm = ContinuousBatcher(cfg, params, 2, 16, cache_dtype="bfloat16",
+                             dual_branch=dual)
+    warm.submit(Request(rid=-1, prompt=rng.integers(0, cfg.vocab, 4),
+                        max_new=2))
+    warm.run()
+    del warm
+    eng = ContinuousBatcher(cfg, params, FAMILY_SLOTS, max_seq,
+                            cache_dtype="bfloat16", dual_branch=dual)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, FAMILY_PROMPT),
+                    max_new=FAMILY_NEW) for i in range(FAMILY_REQS)]
+    for r in reqs:
+        eng.submit(r)
+    tick_ms, done = [], []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ops.reset_dispatch_paths()
+    t0 = time.perf_counter()
+    while any(s is not None for s in eng.slots) or eng.queue:
+        t1 = time.perf_counter()
+        done += eng.step()        # ends in the next tokens' copy to the host
+        tick_ms.append((time.perf_counter() - t1) * 1e3)
+    secs = time.perf_counter() - t0
+    counts, paths = ops.launch_counts(), ops.dispatch_paths()
+    st = eng.stats()
+    n_tok = sum(len(r.generated) for r in done)
+    p50, p99 = np.percentile(tick_ms, [50, 99])
+    want = family_expected(cfg, steps=0, ticks=st["ticks"])
+    print(f"  ContinuousBatcher{' (dual_branch)' if dual else ''}: "
+          f"{len(done)} requests, {st['ticks']} ticks in {secs:.2f} s: "
+          f"{n_tok / secs:.1f} generated tok/s; ms a tick p50 {p50:.2f} p99 "
+          f"{p99:.2f}; mean occupancy {st['mean_occupancy']:.3f}; paths "
+          f"{paths}; launches {nonzero(counts)} (want {nonzero(want)}); "
+          f"card {smi}", flush=True)
+    require(len(done) == FAMILY_REQS
+            and all(len(r.generated) == FAMILY_NEW for r in done),
+            "the batcher left a request unfinished")
+    require(paths == ({} if cfg.family == "ssm"
+                      else {"fused_ln_add": ops.CUDA}),
+            f"{cfg.arch_id} batcher paths {paths}")
+    require(nonzero(counts) == nonzero(want),
+            f"{cfg.arch_id} batcher launches {nonzero(counts)} != "
+            f"{nonzero(want)}")
+    for r in reqs[:FAMILY_SLOTS]:
+        eng.submit(Request(rid=r.rid, prompt=r.prompt, max_new=FAMILY_NEW))
+    eng.step()
+    busy = tick_device_time(
+        f"{cfg.arch_id} batcher tick ({FAMILY_SLOTS} lanes)",
+        lambda: [eng.step() for _ in range(BATCHER_PROFILED_TICKS)],
+        float(p50), BATCHER_PROFILED_TICKS,
+        want=() if cfg.family == "ssm" else ("ln_add_fwd_kernel",))
+    streams = {r.rid: list(r.generated) for r in done}
+    return streams, {"tok_s": n_tok / secs, "tick_ms_p50": float(p50),
+                     "tick_ms_p99": float(p99), "tick_device_ms": busy,
+                     "busy": None if busy is None else busy / float(p50),
+                     "launches": counts.get("fused_ln_add", 0)}
+
+
+def whisper_serve(cfg, params, smi):
+    """Encode WHISPER_SERVE_B x 1,500 frames, then WHISPER_NEW greedy
+    decode_step ticks against ``enc_out`` (the counters zeroed just before
+    the encoder and read after the last tick); decode == forward over the
+    fed tokens."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    B, n = WHISPER_SERVE_B, WHISPER_NEW
+    g = torch.Generator(device="cuda").manual_seed(23)
+    frames = family_batch(cfg, B, 1, g, "cuda")["frames"]
+    tok = torch.randint(0, cfg.vocab, (B,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    with torch.no_grad():                                   # warm-up
+        M.whisper_encode(params, cfg, frames[:1])
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        ops.reset_dispatch_paths()
+        t0 = time.perf_counter()
+        enc = M.whisper_encode(params, cfg, frames)
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        cache = M.init_cache(cfg, B, n, "bfloat16")
+        cache["enc_out"].copy_(enc)
+        fed, logits = [], []
+        t0 = time.perf_counter()
+        for t in range(n):
+            fed.append(tok)
+            lg, cache = M.decode_step(
+                params, cfg, {"tokens": tok[:, None],
+                              "pos": torch.full((B,), t, dtype=torch.int32,
+                                                device="cuda")}, cache)
+            logits.append(lg[:, 0].float())
+            tok = lg[:, 0].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts, paths = ops.launch_counts(), ops.dispatch_paths()
+        fed = torch.stack(fed, 1)
+        full = M.forward(params, cfg, {"tokens": fed, "frames": frames},
+                         "eval")[0].float()
+    dec = torch.stack(logits, 1)
+    err = (dec - full).abs().max().item()
+    agree = (dec.argmax(-1) == full.argmax(-1)).float().mean().item()
+    Le, Ld = cfg.n_enc_layers, cfg.n_layers
+    want = {"flash_attention": Le + n * Ld, "fused_ln_add": Le + n * Ld}
+    print(f"  whisper: encode {B} x {cfg.n_enc_frames} frames {enc_ms:.1f} "
+          f"ms; {n} decode ticks of {B} lanes in {secs:.2f} s = "
+          f"{secs / n * 1e3:.2f} ms a tick, {B * n / secs:.1f} tok/s; decode "
+          f"== forward: logits max |diff| {err:.4f} (bound "
+          f"{FAMILY_FWD_BOUND}), greedy tokens agree at {agree:.4f}; paths "
+          f"{paths}; launches {nonzero(counts)} (want {want}); card {smi}",
+          flush=True)
+    require(paths == family_paths(cfg), f"whisper serving paths {paths}")
+    require(nonzero(counts) == want, "whisper serving launches")
+    require(err <= FAMILY_FWD_BOUND and bool(torch.isfinite(dec).all()),
+            f"whisper: decode differs from forward by {err}")
+    return {"encode_ms": enc_ms, "tick_ms": secs / n * 1e3,
+            "tok_s": B * n / secs, "fwd_err": err, "launches": want}
+
+
+def family_serve_phase(smi):
+    """(b) bf16 serving at full depth: mamba2 and zamba2 decode == forward
+    and through ContinuousBatcher (zamba also under dual_branch: the same
+    streams); whisper's encoder and decode ticks.  -> {arch: numbers}."""
+    from repro_torch.models import model as M
+    out = {}
+    for arch in FAMILIES:
+        cfg = family_config(arch)
+        phase(f"{arch} serving, full depth ({cfg.n_layers} layers"
+              f"{f' + {cfg.n_enc_layers} encoder' if cfg.n_enc_layers else ''}"
+              f"), bf16")
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, seed=0)
+        if cfg.family == "audio":
+            out[arch] = whisper_serve(cfg, params, smi)
+        else:
+            err, agree = family_fwd_check(cfg, params)
+            streams, res = family_batcher(cfg, params, smi)
+            res.update(fwd_err=err, fwd_agree=agree)
+            if cfg.family == "hybrid":
+                dual, res["dual"] = family_batcher(cfg, params, smi,
+                                                   dual=True)
+                require(dual == streams, "zamba's dual-branch streams "
+                        "differ from the sequential ones")
+                print("  dual-branch streams equal the sequential ones",
+                      flush=True)
+            out[arch] = res
+        print(f"  {arch} serving: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_train_phase():
+    """(c) Training at full depth (fp32 masters, bf16 compute, remat,
+    FAMILY_TRAIN's batch and sequence): one warm-up step, then
+    FAMILY_TRAIN_STEPS - 1 counted steps (the counters zeroed after the
+    warm-up and read after the last), then one step under torch.profiler.
+    mamba2 and zamba2 through ``trainer.train``; whisper through
+    ``train.step.make_train_step`` on batches with frames (the trainer's
+    data makes none, nor does the reference's).  -> ({arch: launches},
+    {arch: numbers})."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    from repro_torch.train import trainer
+    launches, out = {}, {}
+    for arch in FAMILIES:
+        cfg = family_config(arch)
+        B, S = FAMILY_TRAIN[arch]
+        steps = FAMILY_TRAIN_STEPS
+        phase(f"train: {arch} at full depth, fp32 masters, {cfg.dtype} "
+              f"compute, remat {cfg.remat}, B={B}, S={S}, {steps - 1} steps "
+              f"after 1 warm-up")
+        marks, hist = [], []
+
+        def mark(i, state, metrics):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if i == 0:
+                ops.reset_launches()
+                ops.reset_dispatch_paths()
+                torch.cuda.reset_peak_memory_stats()
+
+        g = torch.Generator(device="cuda").manual_seed(31)
+        ocfg = adamw.AdamWConfig(lr=3e-4)
+        if cfg.family == "audio":
+            state = tstep.init_state(0, cfg, ocfg)
+            step = tstep.make_train_step(cfg, ocfg)
+            for i in range(steps):
+                state, m = step(state, family_batch(cfg, B, S, g, "cuda"))
+                hist.append({k: float(v) for k, v in m.items()})
+                mark(i, state, m)
+        else:
+            state, hist = trainer.train(cfg, steps=steps, batch=B,
+                                        seq_len=S, log_every=1,
+                                        device="cuda", callbacks=[mark])
+            step = tstep.make_train_step(cfg, ocfg)
+        counts, paths = ops.launch_counts(), ops.dispatch_paths()
+        peak = torch.cuda.max_memory_allocated()
+        n_par = sum(t.numel() for _, t in adamw.named_leaves(
+            state["params"]))
+        step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        ms = statistics.median(step_ms)
+        want = family_expected(cfg, steps=steps - 1)
+        batch = family_batch(cfg, B, S, g, "cuda")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        device_ms = busy_ms(prof)
+        res = dict(step_ms=ms, tok_s=B * S / ms * 1e3, peak=peak,
+                   n_params=n_par, B=B, S=S)
+        if device_ms:
+            res.update(device_ms=device_ms, busy=device_ms / wall)
+        print(f"  {n_par / 1e9:.3f} B parameters; losses "
+              f"{[round(h['loss'], 4) for h in hist]}; step ms "
+              f"{['%.1f' % x for x in step_ms]} (median {ms:.1f}); "
+              f"{B * S / ms * 1e3:.1f} tokens/s; peak memory "
+              f"{peak / 2**30:.2f} GiB (counted steps); profiled step: wall "
+              f"{wall:.1f} ms, device time "
+              f"{'not measured' if not device_ms else f'{device_ms:.1f} ms, busy share {device_ms / wall:.3f}'}; "
+              f"paths {paths}; launches {nonzero(counts)} (want {want})",
+              flush=True)
+        require(all(math.isfinite(h["loss"]) for h in hist),
+                f"{arch} train: a loss is not finite")
+        require(paths == family_paths(cfg), f"{arch} train paths {paths}")
+        require(nonzero(counts) == want, f"{arch} train launches "
+                f"{nonzero(counts)} != {want}")
+        launches[arch], out[arch] = want, res
+        del state, step, batch
+        torch.cuda.empty_cache()
+    return launches, out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -6600,6 +7210,12 @@ def main():
     vlm = vlm_phase()
     print(f"  MLA and VLM phases: {time.perf_counter() - t_mla:.1f} s",
           flush=True)
+    t_fam = time.perf_counter()
+    family_tick_phase()
+    fam_serve = family_serve_phase(smi)
+    fam_train_launches, fam_train = family_train_phase()
+    print(f"  SSM, hybrid and audio phases: "
+          f"{time.perf_counter() - t_fam:.1f} s", flush=True)
     src = "src/repro_torch/kernels/csrc/"
     pa = "src/repro/kernels/paged_attention.py"
     where = {
@@ -6683,6 +7299,17 @@ def main():
             # and the window / softcap check's error at its shape
             entry.update(gemma2_launches=g2_launches[kname],
                          gemma2_max_abs_err=errs[f"{kname}.gemma2"])
+        if kname.startswith(("flash_attention", "fused_ln_add")):
+            # phase 17: each family's counted training steps and serving
+            # runs (the batchers' ticks, whisper's encoder + decode ticks)
+            entry["family_train_launches"] = {
+                a: n.get(kname, 0) for a, n in fam_train_launches.items()}
+            entry["family_serve_launches"] = {
+                a: (r["launches"].get(kname, 0) if a == AUDIO_ARCH
+                    else r["launches"] if kname == "fused_ln_add" else 0)
+                for a, r in fam_serve.items()}
+            if f"{kname}.whisper" in errs:
+                entry["whisper_max_abs_err"] = errs[f"{kname}.whisper"]
         if kname in mla_train_launches:
             # the deepseek-v3 training path (MLA: the D = 192 kernels on
             # every layer and the MTP block), the D = 192 check's error
@@ -6698,8 +7325,9 @@ def main():
           + f"; seeded spec tick {spec['device_ms_per_tick']:.2f} ms of "
           f"device time; train {train['step_ms']:.1f} ms/step; TP train "
           f"(4 layers, gloo through host memory, 2 ranks on the card) "
-          f"{tp_step_ms:.1f} ms/step; tp 2 x dp 2 (4 layers, fp32, gloo "
-          f"through host memory, 4 ranks on the card) {dp['step_ms']:.1f} "
+          f"{tp_step_ms:.1f} ms/step; tp 2 x dp 2 ({DP_LAYERS} layers, "
+          f"vocab {DP_VOCAB}, fp32, gloo through host memory, 4 ranks on "
+          f"the card) {dp['step_ms']:.1f} "
           f"ms/step, DP all-reduce {dp['dp_all_reduce_ms']:.1f} ms, "
           f"checkpoint save {dp['save_s']:.1f} s / restore "
           f"{dp['restore_s']:.1f} s; batcher {contig['tok_s']:.1f} tok/s, "
@@ -6715,7 +7343,13 @@ def main():
           f"tok/s, train ({MLA_TRAIN_LAYERS} layers + MTP) "
           f"{mla_train['step_ms']:.1f} ms/step; {VLM_ARCH} (32 layers) "
           f"prefill {vlm['prefill_tok_s']:.0f} tok/s, decode "
-          f"{vlm['decode_ms']:.2f} ms a tick; card {smi}")
+          f"{vlm['decode_ms']:.2f} ms a tick; "
+          + "; ".join(f"{a} batcher {fam_serve[a]['tok_s']:.1f} tok/s, "
+                      f"train {fam_train[a]['step_ms']:.1f} ms/step"
+                      for a in (SSM_ARCH, HYBRID_ARCH))
+          + f"; {AUDIO_ARCH} {fam_serve[AUDIO_ARCH]['tok_s']:.1f} tok/s, "
+          f"train {fam_train[AUDIO_ARCH]['step_ms']:.1f} ms/step; card "
+          f"{smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -6,25 +6,35 @@ reference's parameter tree with every leaf converted to a numpy array
 stacked ``blocks_dense`` and then ``blocks_moe`` leaves (leading layer
 axis) become one list of per-layer dicts under ``"blocks"``, in depth order
 (a MoE block's expert leaves stay 3-D; MLA's attention leaves and the
-``mtp`` subtree, a dict like any other, cross as they are), matmul weights
-and embeddings are cast to ``dtype`` (None: ``cfg.dtype``, the serving
-storage; training passes ``cfg.param_dtype`` to keep the reference's fp32
-masters) and norm scales and biases stay fp32.  bfloat16 leaves come
+``mtp`` subtree, a dict like any other, cross as they are).  The other
+families' stacks become lists under their own keys (``STACKED``): mamba's
+``blocks``; zamba's ``mamba`` (a list of groups, each a list of layers)
+and ``mamba_tail``, while its ``in_proj`` (n_groups, 2d, d) stays one
+tensor, as the reference indexes it; whisper's ``enc_blocks`` and
+``dec_blocks``.  Matmul weights and embeddings are cast to ``dtype``
+(None: ``cfg.dtype``, the serving storage; training passes
+``cfg.param_dtype`` to keep the reference's fp32 masters); norm scales and
+biases, and the mamba mixer's ``a_log``, ``dt_bias`` and ``D``
+(``ssm.SSM_FP32_LEAVES``, read in fp32), stay fp32.  bfloat16 leaves come
 through fp32, because ``torch.from_numpy`` does not take ml_dtypes'
 bfloat16.  Like every entry point of the port, ``device=None`` means the
 card (``cuda``, which must exist); pass ``device="cpu"`` for the CPU.
 
-``cache_from_numpy(tree, device=None)`` takes the reference's paged cache
-with numpy leaves and returns the port's, leaf for leaf in the same dtype:
-the two caches share one layout (block 0's pools, the stacked pools of the
-other layers, ``a1_sig``; under MLA the pools are the latent ``c`` and rope
-key ``kr``).  int8 pools cross as they are; fp8 pools cross
+``cache_from_numpy(tree, device=None)`` takes the reference's paged or
+contiguous cache with numpy leaves and returns the port's, leaf for leaf
+in the same dtype: the two share one layout (block 0's pools, the stacked
+pools of the other layers, ``a1_sig``; under MLA the pools are the latent
+``c`` and rope key ``kr``; mamba's stacked ``state`` / ``conv``, zamba's
+``mamba`` / ``attn`` / ``mamba_tail``, whisper's ``block0`` / ``blocks`` /
+``enc_out``).  int8 pools cross as they are; fp8 pools cross
 as the bytes of ml_dtypes' float8_e4m3fn, viewed as uint8.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.models.ssm import SSM_FP32_LEAVES
 
 
 def _is_norm(d) -> bool:
@@ -43,7 +53,8 @@ def _convert(tree, dtype, device):
     if _is_norm(tree):
         return {k: _tensor(v, torch.float32, device) for k, v in tree.items()}
     if isinstance(tree, dict):
-        return {k: _convert(v, dtype, device) for k, v in tree.items()}
+        return {k: _convert(v, torch.float32 if k in SSM_FP32_LEAVES
+                            else dtype, device) for k, v in tree.items()}
     return _tensor(tree, dtype, device)
 
 
@@ -56,15 +67,36 @@ def _unstack(tree, i):
 #: the reference's stacks of the blocks after block 0, in depth order
 STACKS = ("blocks_dense", "blocks_moe")
 
+#: the other families' stacked subtrees, by key: how many leading axes
+#: become nested lists in the port's tree
+STACKED = {"ssm": {"blocks": 1},
+           "hybrid": {"mamba": 2, "mamba_tail": 1},
+           "audio": {"enc_blocks": 1, "dec_blocks": 1}}
+
+
+def _lists(tree, depth, dtype, device):
+    """A stacked subtree -> nested lists (``depth`` levels) of trees."""
+    if depth == 0:
+        return _convert(tree, dtype, device)
+    leaf = tree
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return [_lists(_unstack(tree, i), depth - 1, dtype, device)
+            for i in range(len(np.asarray(leaf)))]
+
 
 def params_from_numpy(tree, cfg, device=None, dtype=None):
-    """The reference's decoder params (numpy leaves) -> the port's, on
-    ``device`` (None: the card, via ``models.model.resolve_device``),
-    matmul weights and embeddings in ``dtype`` (None: ``cfg.dtype``)."""
+    """The reference's params (numpy leaves) -> the port's, on ``device``
+    (None: the card, via ``models.model.resolve_device``), matmul weights
+    and embeddings in ``dtype`` (None: ``cfg.dtype``)."""
     from repro_torch.models.model import check_supported, resolve_device
     check_supported(cfg)
     dtype = getattr(torch, dtype or cfg.dtype)
     device = resolve_device(device)
+    stacked = STACKED.get(cfg.family)
+    if stacked is not None:
+        return {k: _lists(v, stacked.get(k, 0), dtype, device)
+                for k, v in tree.items()}
     out = {k: _convert(v, dtype, device) for k, v in tree.items()
            if k not in STACKS}
     out["blocks"] = []

@@ -16,7 +16,8 @@ and the paged serving paths: ``gqa_init``, ``gqa_qkv`` (``:406``),
 (``:222``), ``_gqa_paged_qkv_scatter`` (``:244``), ``gqa_paged_apply``
 (``:268``, the padded (B, C) layout), ``gqa_paged_dual`` (``:304``, the fused
 dual-branch decode, or its two-op route on quantized pages) and
-``gqa_packed_apply`` (``:338``, the token-packed layout).  DeepSeek-V3's
+``gqa_packed_apply`` (``:338``, the token-packed layout), and the whisper
+decoder's ``gqa_cross_apply`` (``:505``).  DeepSeek-V3's
 multi-head latent attention (``:538-714``): ``mla_init``, ``_mla_q`` /
 ``_mla_ckv`` (head count from the weights' width, so head shards work),
 ``mla_apply`` (full sequence through ``ops.flash_attention`` at qk width
@@ -107,6 +108,19 @@ def gqa_apply(p, cfg, x, positions, *, window=0, causal=True, plan=None):
     return o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
 
 
+def gqa_cross_apply(p, cfg, x, enc_out):
+    """Cross-attention (the whisper decoder, reference ``:505-511``): x
+    (B, Sq, D) attends to every row of ``enc_out`` (B, Sk, D), no mask, no
+    rope, through ``ops.flash_attention(causal=False)``.  K / V are
+    projected from ``enc_out`` at every call, as the reference keeps no
+    cross-attention cache."""
+    q, k, v = gqa_qkv(p, cfg, x, None, kv_x=enc_out, rope=False)
+    o = ops.flash_attention(q, k, v, causal=False, cap=0.0,
+                            block_q=cfg.attn_block_q)
+    B, S = x.shape[:2]
+    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+
+
 def gqa_init(gen, cfg, dtype, device):
     d, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     Dh = cfg.resolved_head_dim
@@ -123,19 +137,22 @@ def gqa_init(gen, cfg, dtype, device):
     return p
 
 
-def gqa_qkv(p, cfg, x, positions):
-    """Project x (B, S, D) to q (B, S, H, Dh) and k, v (B, S, Hkv, Dh), with
-    qk_norm and RoPE at ``positions`` (B, S)."""
+def gqa_qkv(p, cfg, x, positions, kv_x=None, rope=True):
+    """Project x (B, S, D) to q (B, S, H, Dh) and k, v (B, Skv, Hkv, Dh)
+    from ``kv_x`` (B, Skv, D) (None: x), with qk_norm and, when ``rope``,
+    RoPE at ``positions`` (B, S)."""
     Dh = cfg.resolved_head_dim
     H, Hkv = p["wq"].shape[-1] // Dh, p["wk"].shape[-1] // Dh
     B, S = x.shape[:2]
+    kv_x = x if kv_x is None else kv_x
+    Skv = kv_x.shape[1]
     q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, Dh)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, Hkv, Dh)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, Hkv, Dh)
+    k = (kv_x @ p["wk"].to(x.dtype)).reshape(B, Skv, Hkv, Dh)
+    v = (kv_x @ p["wv"].to(x.dtype)).reshape(B, Skv, Hkv, Dh)
     if cfg.qk_norm:
         q = L.norm_apply(p["qnorm"], q)
         k = L.norm_apply(p["knorm"], k)
-    if cfg.rope and positions is not None:
+    if cfg.rope and rope and positions is not None:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

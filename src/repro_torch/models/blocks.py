@@ -22,8 +22,11 @@ MHA and MLP partials locally and pay ONE.  With
 MoE's load-balance aux, which every apply function carries out.  The
 attention is GQA or, under ``cfg.use_mla``, DeepSeek-V3's latent attention
 (``attention.mla_*``) on every path (``_attend`` / ``_cached_attention``);
-MLA blocks take the unfused dual-branch route, as in the reference.  No
-cross-attention: that comes with Whisper in a later slice of the port.
+MLA blocks take the unfused dual-branch route, as in the reference.  The
+whisper decoder's blocks (``block_init(cross=True)``) add cross-attention
+to the encoder's output after the residual (``:197-203``), and its
+encoder's blocks attend bidirectionally (``causal=False``); neither has a
+dual-branch or an explicit-TP path.
 """
 from __future__ import annotations
 
@@ -35,14 +38,19 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 
 
-def block_init(gen, cfg, dtype, device, *, kind="dense", is_block0=False):
+def block_init(gen, cfg, dtype, device, *, kind="dense", cross=False,
+               is_block0=False):
     """kind: 'dense' (``cfg.mlp`` FFN of ``dense_d_ff or d_ff``) or 'moe'
-    (``moe.moe_init``)."""
+    (``moe.moe_init``); ``cross`` adds the cross-attention ``xattn`` and
+    its norm ``ln_x``."""
     d = cfg.d_model
     p = {"ln1": L.norm_init(d, cfg.norm, device),
          "ln2": L.norm_init(d, cfg.norm, device),
          "attn": (A.mla_init if cfg.use_mla else A.gqa_init)(
              gen, cfg, dtype, device)}
+    if cross:
+        p["ln_x"] = L.norm_init(d, cfg.norm, device)
+        p["xattn"] = A.gqa_init(gen, cfg, dtype, device)
     if kind == "moe":
         p["ffn"] = M.moe_init(gen, cfg, dtype, device)
     else:
@@ -84,13 +92,14 @@ def add_aux(total, aux):
     return aux if total is None else total + aux
 
 
-def _attend(p, cfg, h, positions, window, plan=None):
+def _attend(p, cfg, h, positions, window, plan=None, causal=True):
     """The block's full-sequence MHA: GQA or MLA (reference ``:170-173``),
-    over this rank's head shard under explicit TP."""
+    over this rank's head shard under explicit TP; ``causal=False`` for
+    the whisper encoder."""
     if cfg.use_mla:
         return A.mla_apply(p["attn"], cfg, h, positions, plan=plan)
     return A.gqa_apply(p["attn"], cfg, h, positions, window=window,
-                       plan=plan)
+                       causal=causal, plan=plan)
 
 
 def _cached_attention(p, cfg, h, cache, block_tables, pos, n_valid,
@@ -120,7 +129,7 @@ def _cached_attention(p, cfg, h, cache, block_tables, pos, n_valid,
 def block_apply(p, cfg, x, a1_sig, *, kind="dense", is_block0=False,
                 plan=None, cache=None, block_tables=None, pos=None,
                 n_valid=None, tok_slot=None, tok_pos=None, window=0,
-                positions=None):
+                positions=None, enc_out=None, causal=True):
     """One block over x: the full sequence (B, S, D) at ``positions`` (B, S)
     when ``plan`` is a full-sequence phase (train / eval / prefill; no
     cache); under ``Phase.DECODE`` one token a lane (B, 1, D) at ``pos``
@@ -130,6 +139,9 @@ def block_apply(p, cfg, x, a1_sig, *, kind="dense", is_block0=False,
     aux) where ``a_raw`` is this block's MHA output (block 0 exports it as
     the first-attention signal) and ``aux`` the MoE load-balance term
     (None for a dense FFN).  ``kind``: the FFN, 'dense' or 'moe'.
+    A block with cross-attention (``xattn``) attends to ``enc_out`` (B,
+    F, D) after its self-attention; ``causal=False`` makes the
+    full-sequence self-attention bidirectional (the whisper encoder).
     Under ``plan.dual_branch`` every block but block 0 runs the MHA || MLP
     branch-parallel block; under explicit TP (``plan.tp_axis``) the block is
     ``block_apply_tp``'s."""
@@ -139,11 +151,22 @@ def block_apply(p, cfg, x, a1_sig, *, kind="dense", is_block0=False,
         # steady-state MHA||MLP branch parallelism (plan.validate guarantees
         # a DUAL_BRANCH_MODES connection and no post-norms); block 0 stays
         # sequential: it must assemble its attention to export the signal
+        if "xattn" in p:
+            raise NotImplementedError(
+                "dual-branch decode supports self-attention decoder blocks "
+                "only (cross-attention consumes the assembled attention)")
         return _block_apply_dual(p, cfg, x, a1_sig, window, kind=kind,
                                  plan=plan, cache=cache, pos=pos,
                                  block_tables=block_tables, n_valid=n_valid,
                                  tok_slot=tok_slot, tok_pos=tok_pos)
     if plan.tp_axis is not None:
+        if "xattn" in p or not causal:
+            # the reference's SP refusal (``:133-139``); the port's
+            # explicit-TP stacks run only the decoder families
+            raise NotImplementedError(
+                "explicit-TP and sequence-parallel blocks support causal "
+                "self-attention only (no cross-attention / bidirectional "
+                "encoders)")
         x, a, _, aux = block_apply_tp(
             p, cfg, x, a1_sig, kind=kind, is_block0=is_block0, plan=plan,
             cache=cache, block_tables=block_tables, pos=pos, n_valid=n_valid,
@@ -152,13 +175,21 @@ def block_apply(p, cfg, x, a1_sig, *, kind="dense", is_block0=False,
         return x, a, aux
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     if plan.full_sequence:
-        a = _attend(p, cfg, h, positions, window)
+        a = _attend(p, cfg, h, positions, window, causal=causal)
     else:
         a, _ = _cached_attention(p, cfg, h, cache, block_tables, pos,
                                  n_valid, tok_slot, tok_pos, window, plan)
     if cfg.post_norms:
         a = L.norm_apply(p["post_attn"], a, cfg.norm)
     resid = x + a
+    if "xattn" in p:
+        # the whisper decoder's cross-attention: it joins the residual and
+        # x, so the FAL MLP input sees it but not this block's attention
+        cx = A.gqa_cross_apply(p["xattn"], cfg,
+                               L.norm_apply(p["ln_x"], resid, cfg.norm),
+                               enc_out)
+        resid = resid + cx
+        x = x + cx
     if is_block0:
         mlp_in = fal.block0_mlp_input(cfg, p, x, a)
     else:

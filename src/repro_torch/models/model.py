@@ -54,6 +54,22 @@ per row-scale pool; under MLA the latent pools ``c`` and ``kr`` instead of
 K and V), and the per-slot ``a1_sig``; a tick updates all of them in
 place.
 
+The other three families (reference ``:583-908``), each with its own
+parameters, forward, cache and decode step behind the reference's family
+dispatch (``init_params``, ``forward``, ``init_cache``, ``decode_step``;
+``loss_fn`` through ``forward``): the SSM family (mamba2, ``_mamba_*``:
+``ln`` then ``ssm.mamba_apply`` a layer, ``"blocks"`` a list), the hybrid
+(zamba2, ``_zamba_*``: groups of ``attn_every`` mamba layers, each group
+followed by one invocation of the weight-shared attention block through
+its group's ``in_proj`` over ``[x, x_emb0]``, then the trailing mamba
+layers; ``"mamba"`` a list of groups, each a list of layers) and the audio
+encoder-decoder (whisper, ``whisper_encode`` and ``_whisper_*``: a
+bidirectional encoder over the stubbed frame embeddings, decoder blocks
+with cross-attention; ``"enc_blocks"`` / ``"dec_blocks"`` lists).  Their
+caches are contiguous only: the paged entry points refuse them with the
+reference's error (``PAGED_FAMILIES``).  The recurrent leaves of a cache
+(mamba's ``state`` and ``conv``) are written in place like the KV rows.
+
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when there is none.  Pass ``device="cpu"`` to run the plain versions of
 the kernels on the CPU.
@@ -73,6 +89,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as BL
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 
 def resolve_device(device=None) -> torch.device:
@@ -87,20 +104,29 @@ def resolve_device(device=None) -> torch.device:
 
 
 #: families the port runs: the decoder with dense or MoE FFNs (GQA or MLA
-#: attention, an optional MTP head) and the VLM's decoder with its image
-#: prefix
-SUPPORTED_FAMILIES = ("dense", "moe", "vlm")
+#: attention, an optional MTP head), the VLM's decoder with its image
+#: prefix, mamba2 (ssm), zamba2 (hybrid) and whisper (audio)
+SUPPORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
+
+#: families with a paged KV cache (reference ``:954``); the others serve
+#: from the contiguous cache only
+PAGED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_supported(cfg):
-    """Raise NotImplementedError for what the port does not cover yet (the
-    SSM, hybrid and audio families), naming the slice that will."""
+    """Raise NotImplementedError for a family the port does not know."""
     if cfg.family not in SUPPORTED_FAMILIES:
         raise NotImplementedError(
-            f"family '{cfg.family}': the PyTorch port serves the dense, MoE "
-            f"and VLM decoders; SSM, hybrid and audio (models/ssm.py, the "
-            f"mamba, zamba and whisper paths) come in the family-breadth "
-            f"slice ROADMAP.md Queue 1, item 4")
+            f"family '{cfg.family}': the PyTorch port runs "
+            f"{', '.join(SUPPORTED_FAMILIES)}")
+
+
+def _refuse_unpaged(cfg, what):
+    """The reference's refusal of a paged entry point for a family without
+    a paged cache (``:972-974``, ``:993-995``, ``:1021-1023``)."""
+    if cfg.family not in PAGED_FAMILIES:
+        raise NotImplementedError(f"{what}: decoder family only, got "
+                                  f"{cfg.family}")
 
 
 def _layer_kind(cfg, i):
@@ -124,17 +150,25 @@ def _dtype(name) -> torch.dtype:
 # parameters
 # ------------------------------------------------------------------------- #
 def init_params(cfg, seed=0, device=None, dtype=None):
-    """Random decoder weights at the reference's scales, drawn with a
-    ``torch.Generator`` on ``device`` (not the reference's numbers: tests
-    carry JAX weights across with ``interop.params_from_numpy``).  Matmul
-    weights and embeddings are stored in ``dtype``: None keeps
-    ``cfg.dtype`` (serving); training passes ``cfg.param_dtype`` (fp32
-    masters, cast to ``cfg.dtype`` at each use).  Norms stay fp32."""
+    """Random weights of the config's family at the reference's scales,
+    drawn with a ``torch.Generator`` on ``device`` (not the reference's
+    numbers: tests carry JAX weights across with
+    ``interop.params_from_numpy``).  Matmul weights and embeddings are
+    stored in ``dtype``: None keeps ``cfg.dtype`` (serving); training
+    passes ``cfg.param_dtype`` (fp32 masters, cast to ``cfg.dtype`` at each
+    use).  Norms, and the mamba mixer's ``a_log`` / ``dt_bias`` / ``D``,
+    stay fp32."""
     check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     dt = _dtype(dtype or cfg.dtype)
+    init = {"ssm": _mamba_init, "hybrid": _zamba_init,
+            "audio": _whisper_init}.get(cfg.family, _decoder_init)
+    return init(gen, cfg, dt, device)
+
+
+def _decoder_init(gen, cfg, dt, device):
     p = {"embed": L.embed_init(gen, cfg.vocab, cfg.d_model, dt, device)}
     if cfg.learned_pos:
         p["pos_emb"] = (torch.randn((cfg.max_seq, cfg.d_model), generator=gen,
@@ -383,17 +417,19 @@ def _decoder_forward(p, cfg, batch, plan, want="logits"):
 
 
 def forward(params, cfg, batch, plan=None, want="logits"):
-    """Full-sequence forward of the decoder: batch {"tokens" (B, S)}
-    -> (logits (B, S, V), aux, extras), or with ``want='hidden'`` (None,
-    aux, {"hidden": (B, S, D)}).  ``plan``: an ExecutionPlan, a Phase or
-    its string value, or None (train)."""
+    """Full-sequence forward: batch {"tokens" (B, S)} (whisper's also
+    "frames" (B, F, D)) -> (logits (B, S, V), aux, extras), or with
+    ``want='hidden'`` (None, aux, {"hidden": (B, S, D)}).  ``plan``: an
+    ExecutionPlan, a Phase or its string value, or None (train)."""
     check_supported(cfg)
     plan = ExecutionPlan.resolve(plan).validate(cfg)
     if not plan.full_sequence:
         raise ValueError(f"forward: phase={plan.phase.value} is not a "
                          f"full-sequence phase; use decode_step / "
                          f"paged_decode_step")
-    return _decoder_forward(params, cfg, batch, plan, want=want)
+    fn = {"ssm": _mamba_forward, "hybrid": _zamba_forward,
+          "audio": _whisper_forward}.get(cfg.family, _decoder_forward)
+    return fn(params, cfg, batch, plan, want=want)
 
 
 def _ce_tail(p, cfg, hidden, tokens):
@@ -449,10 +485,7 @@ def loss_fn(params, cfg, batch, plan=None):
 def _stacked(cfg, c0):
     """Block 0's cache leaves ``c0`` and, for the other layers, one
     (n_layers - 1, ...) copy of each."""
-    rest = cfg.n_layers - 1
-    return {"block0": c0,
-            "blocks": {k: v[None].repeat((rest,) + (1,) * v.dim())
-                       for k, v in c0.items()}}
+    return {"block0": c0, "blocks": _stacked_n(c0, cfg.n_layers - 1)}
 
 
 def _decoder_init_cache(cfg, batch, seq, dtype, device):
@@ -465,10 +498,13 @@ def init_cache(cfg, batch, seq, dtype="bfloat16", device=None):
     K and V, and one (n_layers - 1, B, S, Hkv, Dh) tensor per K and per V
     for the other layers (the paged cache's stacking), zeros in
     ``dtype``; under MLA the latent ``c`` (B, S, rkv) and rope key ``kr``
-    (B, S, dr) stacked likewise."""
+    (B, S, dr) stacked likewise.  The other families' caches are the
+    reference's: ``_mamba_init_cache``, ``_zamba_init_cache``,
+    ``_whisper_init_cache``."""
     check_supported(cfg)
-    return _decoder_init_cache(cfg, batch, seq, _dtype(dtype),
-                               resolve_device(device))
+    fn = {"ssm": _mamba_init_cache, "hybrid": _zamba_init_cache,
+          "audio": _whisper_init_cache}.get(cfg.family, _decoder_init_cache)
+    return fn(cfg, batch, seq, _dtype(dtype), resolve_device(device))
 
 
 def _decoder_decode(p, cfg, batch, cache, plan):
@@ -496,7 +532,9 @@ def decode_step(params, cfg, batch, cache, plan=None):
     check_supported(cfg)
     plan = ExecutionPlan.resolve(plan).with_phase(Phase.DECODE).validate(cfg)
     _refuse_sharded(plan)
-    return _decoder_decode(params, cfg, batch, cache, plan)
+    fn = {"ssm": _mamba_decode, "hybrid": _zamba_decode,
+          "audio": _whisper_decode}.get(cfg.family, _decoder_decode)
+    return fn(params, cfg, batch, cache, plan)
 
 
 # ------------------------------------------------------------------------- #
@@ -512,8 +550,10 @@ def init_paged_cache(cfg, num_pages, page_size, slots, dtype="bfloat16",
     (P, page) fp32 ``k_scale`` / ``v_scale`` pools, stacked likewise.
     Under MLA the pools are the latent ``c`` (P, page, rkv) and rope key
     ``kr`` (P, page, dr), and a ``kv_dtype`` raises, as in the
-    reference."""
+    reference.  The families without a paged cache raise the reference's
+    NotImplementedError."""
     check_supported(cfg)
+    _refuse_unpaged(cfg, "paged KV cache")
     device = resolve_device(device)
     dt = _dtype(dtype)
     if cfg.use_mla:
@@ -688,6 +728,7 @@ def paged_decode_step(params, cfg, batch, cache, plan=None, want="logits"):
     1): a sharded plan raises; ``core.tp.make_tp_decode_step`` runs one
     block's tick under TP."""
     check_supported(cfg)
+    _refuse_unpaged(cfg, "paged decode")
     plan = ExecutionPlan.resolve(plan).with_phase(Phase.PAGED).validate(cfg)
     _refuse_sharded(plan)
     if "tok_slot" in batch:
@@ -704,6 +745,7 @@ def paged_spec_draft(params, cfg, batch, cache, plan=None, *, draft_blocks=1):
     ``_decoder_paged_packed``'s without ``seg_last``.  Requires
     1 <= draft_blocks < cfg.n_layers."""
     check_supported(cfg)
+    _refuse_unpaged(cfg, "speculative draft")
     if not 1 <= draft_blocks < cfg.n_layers:
         raise ValueError(
             f"draft_blocks={draft_blocks} must satisfy 1 <= draft_blocks "
@@ -748,3 +790,303 @@ def copy_paged_pages(cache, src, dst):
         [(pool, False) for pool in cache["block0"].values()]
         + [(pool, True) for pool in cache["blocks"].values()], src, dst)
     return cache
+
+
+# ------------------------------------------------------------------------- #
+# MambaLM (ssm): a stack of Mamba2 layers
+# ------------------------------------------------------------------------- #
+def _mamba_block_init(gen, cfg, dt, device):
+    return {"ln": L.norm_init(cfg.d_model, cfg.norm, device),
+            "mixer": S.mamba_init(gen, cfg, dt, device)}
+
+
+def _mamba_init(gen, cfg, dt, device):
+    """Reference ``:589-596``; the stacked ``blocks`` are a list here."""
+    return {
+        "embed": L.embed_init(gen, cfg.vocab, cfg.d_model, dt, device),
+        "blocks": [_mamba_block_init(gen, cfg, dt, device)
+                   for _ in range(cfg.n_layers)],
+        "final_norm": L.norm_init(cfg.d_model, cfg.norm, device),
+    }
+
+
+def _mamba_layer(pb, h, cfg):
+    y, _ = S.mamba_apply(pb["mixer"], cfg, L.norm_apply(pb["ln"], h,
+                                                        cfg.norm))
+    return h + y
+
+
+def _mamba_seg(blocks, cfg, x):
+    """Mamba layers over the full sequence, each under ``_maybe_remat``."""
+    layer = _maybe_remat(functools.partial(_mamba_layer, cfg=cfg), cfg)
+    for pb in blocks:
+        x = layer(pb, x)
+    return x
+
+
+def _zero_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _mamba_forward(p, cfg, batch, plan, want="logits"):
+    """Reference ``:599-617``."""
+    x = L.embed_apply(p["embed"], batch["tokens"], _dtype(cfg.dtype))
+    x = _mamba_seg(p["blocks"], cfg, x)
+    if want == "hidden":
+        return None, _zero_aux(x), {"hidden": x}
+    return _logits(p, cfg, x), _zero_aux(x), {}
+
+
+def _layers_of(cache, n):
+    """A stacked cache subtree -> one dict of views a layer."""
+    return [{k: v[i] for k, v in cache.items()} for i in range(n)]
+
+
+def _stacked_n(c, n):
+    """Leaves of one layer's cache ``c`` stacked n times (zeros)."""
+    return {k: v[None].repeat((n,) + (1,) * v.dim()) for k, v in c.items()}
+
+
+def _mamba_init_cache(cfg, batch, seq, dtype, device):
+    """{"blocks": {"state" (L, B, H, P, N) fp32, "conv" (L, B, K-1,
+    conv_dim)}} (reference ``:620-623``)."""
+    return {"blocks": _stacked_n(S.mamba_init_cache(cfg, batch, dtype,
+                                                    device), cfg.n_layers)}
+
+
+def _mamba_decode_seg(blocks, cfg, x, cache):
+    """One token through mamba layers, each layer's {"state", "conv"}
+    (views of the stacked cache) written in place."""
+    for pb, c in zip(blocks, _layers_of(cache, len(blocks))):
+        y, new = S.mamba_decode(pb["mixer"], cfg,
+                                L.norm_apply(pb["ln"], x, cfg.norm), c)
+        x = x + y
+        for k, v in new.items():
+            c[k].copy_(v)
+    return x
+
+
+def _mamba_decode(p, cfg, batch, cache, plan):
+    """Reference ``:626-639``: tokens (B, 1) -> (logits (B, 1, V), cache
+    updated in place).  ``pos`` is not read: the state is the history."""
+    x = L.embed_apply(p["embed"], batch["tokens"], _dtype(cfg.dtype))
+    x = _mamba_decode_seg(p["blocks"], cfg, x, cache["blocks"])
+    return _logits(p, cfg, x), cache
+
+
+# ------------------------------------------------------------------------- #
+# ZambaLM (hybrid): a mamba2 backbone and one weight-shared attention block
+# ------------------------------------------------------------------------- #
+def _zamba_counts(cfg):
+    n_groups = cfg.n_layers // cfg.attn_every
+    return n_groups, cfg.n_layers - n_groups * cfg.attn_every
+
+
+def _zamba_init(gen, cfg, dt, device):
+    """Reference ``:648-671``: ``mamba`` a list of ``n_groups`` groups of
+    ``attn_every`` layers, ``mamba_tail`` the trailing layers, ONE shared
+    block (built as block 0: ``ln_a``, no ``ln_fal``; ``shared_ln_fal``
+    joins it at each invocation where the mode has one) and the groups'
+    input projections ``in_proj`` (n_groups, 2 d, d)."""
+    n_groups, trailing = _zamba_counts(cfg)
+    d = cfg.d_model
+    p = {
+        "embed": L.embed_init(gen, cfg.vocab, d, dt, device),
+        "mamba": [[_mamba_block_init(gen, cfg, dt, device)
+                   for _ in range(cfg.attn_every)] for _ in range(n_groups)],
+        "shared": BL.block_init(gen, cfg, dt, device, kind="dense",
+                                is_block0=True),
+        "in_proj": (torch.randn((n_groups, 2 * d, d), generator=gen,
+                                device=device) / np.sqrt(2 * d)).to(dt),
+        "final_norm": L.norm_init(d, cfg.norm, device),
+    }
+    if cfg.connection in fal.NEEDS_LN_FAL:
+        p["shared_ln_fal"] = L.norm_init(d, cfg.norm, device)
+    if trailing:
+        p["mamba_tail"] = [_mamba_block_init(gen, cfg, dt, device)
+                           for _ in range(trailing)]
+    return p
+
+
+def _zamba_shared_block(p, cfg, x, x0, in_proj, a1_sig, positions, *,
+                        first, plan, cache=None, pos=None):
+    """One invocation of the weight-shared attention block (reference
+    ``:674-686``): its input is ``[x, x0] @ in_proj``, and only its delta
+    ``out - h_in`` joins the backbone's residual stream.  Returns (x, the
+    block's attention output)."""
+    h_in = torch.cat([x, x0], dim=-1) @ in_proj.to(x.dtype)
+    shared = dict(p["shared"])
+    if "shared_ln_fal" in p:
+        shared["ln_fal"] = p["shared_ln_fal"]
+    out, a_raw, _ = BL.block_apply(shared, cfg, h_in, a1_sig, kind="dense",
+                                   is_block0=first, plan=plan, cache=cache,
+                                   pos=pos, positions=positions)
+    return x + (out - h_in), a_raw
+
+
+def _zamba_forward(p, cfg, batch, plan, want="logits"):
+    """Reference ``:689-732``: group 0 (under one ``_maybe_remat``, its
+    layers each under their own) exports the first-attention signal, then
+    the later groups (each under ``_maybe_remat``), then the tail."""
+    tokens = batch["tokens"]
+    B, Sq = tokens.shape
+    positions = torch.arange(Sq, device=tokens.device)[None].expand(B, Sq)
+    x0 = L.embed_apply(p["embed"], tokens, _dtype(cfg.dtype))
+
+    def group(pm, in_proj, h, a1_sig, first):
+        h = _mamba_seg(pm, cfg, h)
+        return _zamba_shared_block(p, cfg, h, x0, in_proj, a1_sig, positions,
+                                   first=first, plan=plan)
+
+    x, a1_raw = _maybe_remat(group, cfg)(p["mamba"][0], p["in_proj"][0], x0,
+                                         None, True)
+    a1_sig = fal.first_attention_signal(cfg, p["shared"], a1_raw)
+    for g in range(1, len(p["mamba"])):
+        x, _ = _maybe_remat(group, cfg)(p["mamba"][g], p["in_proj"][g], x,
+                                        a1_sig, False)
+    x = _mamba_seg(p.get("mamba_tail", []), cfg, x)
+    if want == "hidden":
+        return None, _zero_aux(x), {"hidden": x}
+    return _logits(p, cfg, x), _zero_aux(x), {}
+
+
+def _zamba_init_cache(cfg, batch, seq, dtype, device):
+    """Reference ``:735-745``: ``mamba`` {"state", "conv"} stacked
+    (n_groups, attn_every, ...), ``attn`` the shared block's K / V a group
+    (n_groups, B, S, Hkv, Dh), ``mamba_tail`` stacked (trailing, ...)."""
+    n_groups, trailing = _zamba_counts(cfg)
+    mc = S.mamba_init_cache(cfg, batch, dtype, device)
+    cache = {"mamba": _stacked_n(_stacked_n(mc, cfg.attn_every), n_groups),
+             "attn": _stacked_n(A.gqa_init_cache(cfg, batch, seq, dtype,
+                                                 device), n_groups)}
+    if trailing:
+        cache["mamba_tail"] = _stacked_n(mc, trailing)
+    return cache
+
+
+def _zamba_decode(p, cfg, batch, cache, plan):
+    """Reference ``:748-801``: the shared block's invocations read rope
+    from ``pos`` (``positions=None``); under ``plan.dual_branch`` those
+    after the first run the MHA || MLP block."""
+    tokens, pos = batch["tokens"], batch["pos"]
+    x0 = L.embed_apply(p["embed"], tokens, _dtype(cfg.dtype))
+    x, a1_sig = x0, None
+    attn = _layers_of(cache["attn"], len(p["mamba"]))
+    for g, pm in enumerate(p["mamba"]):
+        mc = {k: v[g] for k, v in cache["mamba"].items()}
+        x = _mamba_decode_seg(pm, cfg, x, mc)
+        x, a_raw = _zamba_shared_block(p, cfg, x, x0, p["in_proj"][g],
+                                       a1_sig, None, first=g == 0, plan=plan,
+                                       cache=attn[g], pos=pos)
+        if g == 0:
+            a1_sig = fal.first_attention_signal(cfg, p["shared"], a_raw)
+    if "mamba_tail" in p:
+        x = _mamba_decode_seg(p["mamba_tail"], cfg, x, cache["mamba_tail"])
+    return _logits(p, cfg, x), cache
+
+
+# ------------------------------------------------------------------------- #
+# Whisper (audio encoder-decoder): the mel / conv front end is a stub; the
+# inputs are precomputed frame embeddings, as in the reference
+# ------------------------------------------------------------------------- #
+def _whisper_init(gen, cfg, dt, device):
+    """Reference ``:804-822``; the stacked encoder and decoder blocks are
+    lists here.  The decoder blocks carry cross-attention."""
+    d = cfg.d_model
+
+    def normal(shape):
+        return (torch.randn(shape, generator=gen, device=device)
+                * 0.02).to(dt)
+
+    return {
+        "embed": L.embed_init(gen, cfg.vocab, d, dt, device),
+        "pos_emb": normal((cfg.max_seq, d)),
+        "enc_pos": normal((cfg.n_enc_frames, d)),
+        "enc_block0": BL.block_init(gen, cfg, dt, device, is_block0=True),
+        "enc_blocks": [BL.block_init(gen, cfg, dt, device)
+                       for _ in range(cfg.n_enc_layers - 1)],
+        "enc_norm": L.norm_init(d, cfg.norm, device),
+        "dec_block0": BL.block_init(gen, cfg, dt, device, cross=True,
+                                    is_block0=True),
+        "dec_blocks": [BL.block_init(gen, cfg, dt, device, cross=True)
+                       for _ in range(cfg.n_layers - 1)],
+        "final_norm": L.norm_init(d, cfg.norm, device),
+    }
+
+
+def _stack_apply(p, cfg, blocks, x, a1_sig, plan, **kw):
+    """Block 0 (``blocks[0]``, exporting the first-attention signal) and
+    the later blocks, each under ``_maybe_remat`` -> x.  ``kw``: the
+    blocks' shared keywords (positions, causal, enc_out)."""
+    def block0(pb, h):
+        return BL.block_apply(pb, cfg, h, None, is_block0=True, plan=plan,
+                              **kw)[:2]
+
+    def block(pb, h, sig):
+        return BL.block_apply(pb, cfg, h, sig, plan=plan, **kw)[0]
+
+    x, a1_raw = _maybe_remat(block0, cfg)(blocks[0], x)
+    a1_sig = fal.first_attention_signal(cfg, blocks[0], a1_raw)
+    for pb in blocks[1:]:
+        x = _maybe_remat(block, cfg)(pb, x, a1_sig)
+    return x
+
+
+def whisper_encode(p, cfg, frames, plan=None):
+    """The encoder (reference ``:825-844``): frames (B, F, d) stubbed frame
+    embeddings plus ``enc_pos``, bidirectional blocks (no rope, no mask)
+    with their own block-0 signal, then ``enc_norm`` -> (B, F, d)."""
+    plan = ExecutionPlan.resolve(plan).with_phase(Phase.PREFILL)
+    dt = _dtype(cfg.dtype)
+    x = frames.to(dt) + p["enc_pos"].to(dt)[None, :frames.shape[1]]
+    x = _stack_apply(p, cfg, [p["enc_block0"]] + p["enc_blocks"], x, None,
+                     plan, causal=False)
+    return L.norm_apply(p["enc_norm"], x, cfg.norm)
+
+
+def _whisper_forward(p, cfg, batch, plan, want="logits"):
+    """Reference ``:847-870``: the encoder over ``batch["frames"]``, then
+    the decoder over the tokens plus the learned ``pos_emb``, each block
+    cross-attending to the encoder's output."""
+    enc_out = whisper_encode(p, cfg, batch["frames"], plan)
+    tokens = batch["tokens"]
+    B, Sq = tokens.shape
+    positions = torch.arange(Sq, device=tokens.device)[None].expand(B, Sq)
+    dt = _dtype(cfg.dtype)
+    x = L.embed_apply(p["embed"], tokens, dt) \
+        + p["pos_emb"].to(dt)[None, :Sq]
+    x = _stack_apply(p, cfg, [p["dec_block0"]] + p["dec_blocks"], x, None,
+                     plan, positions=positions, enc_out=enc_out)
+    if want == "hidden":
+        return None, _zero_aux(x), {"hidden": x}
+    return _logits(p, cfg, x), _zero_aux(x), {}
+
+
+def _whisper_init_cache(cfg, batch, seq, dtype, device):
+    """Reference ``:873-882``: the decoder's K / V (block 0, the stacked
+    rest) and ``enc_out`` (B, n_enc_frames, d), which the caller fills with
+    ``whisper_encode``'s output."""
+    cache = _stacked(cfg, A.gqa_init_cache(cfg, batch, seq, dtype, device))
+    cache["enc_out"] = torch.zeros((batch, cfg.n_enc_frames, cfg.d_model),
+                                   dtype=dtype, device=device)
+    return cache
+
+
+def _whisper_decode(p, cfg, batch, cache, plan):
+    """Reference ``:885-908``: the token plus ``pos_emb[pos]``, each block
+    cross-attending to ``cache["enc_out"]`` (cast to ``cfg.dtype``; its K /
+    V are recomputed every step, as the reference keeps no cross cache)."""
+    tokens, pos = batch["tokens"], batch["pos"]
+    dt = _dtype(cfg.dtype)
+    enc_out = cache["enc_out"].to(dt)
+    x = L.embed_apply(p["embed"], tokens, dt) \
+        + p["pos_emb"].to(dt)[pos.long()][:, None]
+    x, a1_raw, _ = BL.block_apply(p["dec_block0"], cfg, x, None,
+                                  is_block0=True, plan=plan, enc_out=enc_out,
+                                  cache=cache["block0"], pos=pos)
+    a1_sig = fal.first_attention_signal(cfg, p["dec_block0"], a1_raw)
+    for pb, c in zip(p["dec_blocks"], _layers_of(cache["blocks"],
+                                                 len(p["dec_blocks"]))):
+        x, _, _ = BL.block_apply(pb, cfg, x, a1_sig, plan=plan,
+                                 enc_out=enc_out, cache=c, pos=pos)
+    return _logits(p, cfg, x), cache

@@ -17,8 +17,9 @@ Two differences of form, none of result:
   (``_decay_mask``), judged on ITS layout, where the blocks after block 0
   are stacked along a leading layer axis: their norm scales are
   (L - 1, d) and are decayed, while block 0's norms and ``final_norm`` are
-  not.  The port keeps those blocks as a list of per-layer dicts, so a leaf
-  under ``"blocks"`` is judged by its stacked rank (``ndim + 1``).
+  not.  The port keeps every stack as a list of per-layer dicts (zamba's
+  groups a list of lists), so a leaf is judged by its stacked rank: its
+  ``ndim`` plus one for each list it sits in.
 """
 from __future__ import annotations
 
@@ -63,10 +64,11 @@ def map_tree(fn, tree):
 
 
 def decay_mask(path, p) -> bool:
-    """The reference's ``p.ndim >= 2`` on the reference's layout: a leaf
-    under ``"blocks"`` (stacked there) counts one more dimension."""
-    stacked = bool(path) and path[0] == "blocks"
-    return p.dim() + int(stacked) >= 2
+    """The reference's ``p.ndim >= 2`` on the reference's layout: each list
+    index on the leaf's path (a stacked axis there) counts one more
+    dimension."""
+    stacked = sum(isinstance(k, int) for k in path)
+    return p.dim() + stacked >= 2
 
 
 def init_opt_state(params, ocfg: AdamWConfig):

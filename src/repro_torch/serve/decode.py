@@ -10,6 +10,17 @@ prompt prefills one call a token; the paged engine
 (``serve.scheduler.PagedEngine``) packs prompt chunks into one call instead,
 and its ``stats()`` reports the same ``dispatches_per_tick`` / occupancy
 fields, so the two compare directly.
+
+Every family's contiguous cache serves here: mamba2 and zamba2 through the
+batcher; whisper by filling ``cache["enc_out"]`` with
+``models.model.whisper_encode``'s output and then stepping, as the
+reference's tests do (``Request`` carries no frames, as the reference's
+does not).  One repair of the reference: its batcher never resets a slot
+when a new request takes it, which is harmless for KV rows (rewritten
+before they are read) but not for a recurrent state, which would carry the
+last request's SSM state and conv window into the next.  The port's
+batcher zeroes the slot's recurrent leaves (``recurrent_leaves``) when a
+request takes it; KV leaves are left as the reference leaves them.
 """
 from __future__ import annotations
 
@@ -24,6 +35,25 @@ from repro_torch.models import model as M
 from repro_torch.obs.metrics import MetricsRegistry
 
 _SITE = "serve/decode.py"
+
+
+def recurrent_leaves(cfg, cache):
+    """(tensor, slot axis) of each recurrent leaf of a contiguous cache:
+    mamba's stacked ``state`` / ``conv`` (L, B, ...), zamba's ``mamba``
+    (n_groups, attn_every, B, ...) and ``mamba_tail`` (trailing, B, ...).
+    The decoder and whisper caches hold none."""
+    if cfg.family == "ssm":
+        return [(t, 1) for t in cache["blocks"].values()]
+    if cfg.family == "hybrid":
+        return ([(t, 2) for t in cache["mamba"].values()]
+                + [(t, 1) for t in cache.get("mamba_tail", {}).values()])
+    return []
+
+
+def _device_of(cache):
+    while isinstance(cache, dict):
+        cache = next(iter(cache.values()))
+    return cache.device
 
 
 def make_serve_step(cfg, plan=None, dual_branch=False):
@@ -58,7 +88,7 @@ def make_prefill_then_decode(cfg, plan=None):
 
     def generate(params, prompts: np.ndarray, max_new: int, cache):
         B, P = prompts.shape
-        device = cache["block0"]["k"].device
+        device = _device_of(cache)
         toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
                                device=device)
         out = []
@@ -90,7 +120,10 @@ class ContinuousBatcher:
     slots, a finished request's slot goes to the next queued one.  Each
     slot's position is its own, so one tick is one (B, 1) ``decode_step``
     with a per-lane ``pos``; an empty slot decodes token 0 at position 0
-    (its rows are rewritten before any request reads them).
+    (its KV rows are rewritten before any request reads them).  A request
+    taking a slot starts from zeroed recurrent leaves
+    (``recurrent_leaves``: mamba / zamba), as it would from a fresh
+    cache.
 
     ``device``: where the cache lives and the params must be; None means
     ``cuda`` and raises without one.  ``metrics``: a ``MetricsRegistry``
@@ -127,6 +160,8 @@ class ContinuousBatcher:
         for i in range(self.B):
             if self.slots[i] is None and self.queue:
                 self.slots[i] = self.queue.pop(0)
+                for t, axis in recurrent_leaves(self.cfg, self.cache):
+                    t.select(axis, i).zero_()
 
     def step(self):
         """One tick: feed each active slot its next token; returns the

@@ -317,7 +317,8 @@ class PagedEngine:
     def __init__(self, cfg, params, engine_cfg: EngineConfig = EngineConfig(),
                  plan=None, metrics: Optional[MetricsRegistry] = None,
                  tracer=None, device=None):
-        M.check_supported(cfg)
+        if cfg.family not in M.PAGED_FAMILIES:
+            raise NotImplementedError(cfg.family)
         if cfg.n_image_tokens:
             # paged_decode_step takes image_embeds, but a request carries
             # only text: refuse rather than serve the image prefix as text

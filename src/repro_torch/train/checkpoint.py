@@ -6,13 +6,18 @@ reads the manifest, ``restore`` rebuilds a state in the structure of
 ``like``.  The files are the reference's, key for key, so either package
 restores the other's checkpoint:
 
-* the port keeps the blocks after block 0 as a list of per-block dicts
-  under ``"blocks"`` (``interop.params_from_numpy``); the reference stacks
-  the same leaves with a leading layer axis, the dense blocks under
-  ``"blocks_dense"`` and the MoE blocks (their FFN has a ``router``) under
-  ``"blocks_moe"``.  ``save`` writes each kind stacked and ``restore``
-  unstacks them, wherever the list sits (``params``, ``opt/m``,
-  ``opt/v``);
+* the port keeps the decoder's blocks after block 0 as a list of
+  per-block dicts under ``"blocks"`` (``interop.params_from_numpy``); the
+  reference stacks the same leaves with a leading layer axis, the dense
+  blocks under ``"blocks_dense"`` and the MoE blocks (their FFN has a
+  ``router``) under ``"blocks_moe"``.  ``save`` writes each kind stacked
+  and ``restore`` unstacks them, wherever the list sits (``params``,
+  ``opt/m``, ``opt/v``);
+* every other list is a stack the reference keeps under the list's own
+  key: mamba's ``blocks`` (its blocks have a ``mixer``, no ``ffn``),
+  zamba's ``mamba`` (a list of groups, each a list of layers: stacked
+  (n_groups, attn_every, ...)) and ``mamba_tail``, whisper's
+  ``enc_blocks`` and ``dec_blocks``;
 * every other subtree is written and read under its own keys, as the
   reference flattens it: MLA's attention leaves (``.../attn/w_dq`` ...)
   and DeepSeek-V3's ``mtp`` head (``params/mtp/proj/w``,
@@ -53,8 +58,15 @@ _STACKS = ("blocks_dense", "blocks_moe")
 
 
 def _stack_of(block) -> str:
-    """The reference's stack of a block (or a tree of its structure)."""
+    """The reference's stack of a decoder block (or a tree of its
+    structure)."""
     return _STACKS[int(is_moe(block))]
+
+
+def _by_kind(key, blocks) -> bool:
+    """Whether a list is the decoder's blocks, stacked by FFN kind."""
+    return key == "blocks" and isinstance(blocks[0], dict) \
+        and "ffn" in blocks[0]
 
 
 def _host(t: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
@@ -74,9 +86,13 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _stack(blocks):
-    """A list of per-block trees -> the reference's stacked tree of numpy
-    arrays with a leading block axis."""
+    """A list of per-block trees (or of such lists) -> the reference's
+    stacked tree of numpy arrays with a leading block axis (two for a list
+    of lists)."""
     first = blocks[0]
+    if isinstance(first, list):
+        flat = _stack([b for group in blocks for b in group])
+        return _reshape(flat, (len(blocks), len(first)))
     if isinstance(first, dict):
         return {k: _stack([b[k] for b in blocks]) for k in first}
     out = torch.empty((len(blocks),) + tuple(first.shape), dtype=first.dtype)
@@ -85,15 +101,23 @@ def _stack(blocks):
     return _numpy(out)
 
 
+def _reshape(tree, lead):
+    if isinstance(tree, dict):
+        return {k: _reshape(v, lead) for k, v in tree.items()}
+    return tree.reshape(lead + tree.shape[1:])
+
+
 def _flatten(tree, prefix=""):
     out = {}
     if isinstance(tree, dict):
         for k, v in tree.items():
-            if k == "blocks" and isinstance(v, list):
+            if isinstance(v, list) and _by_kind(k, v):
                 for name in _STACKS:
                     part = [b for b in v if _stack_of(b) == name]
                     if part:
                         out.update(_flatten(_stack(part), f"{prefix}{name}/"))
+            elif isinstance(v, list):
+                out.update(_flatten(_stack(v), f"{prefix}{k}/"))
             else:
                 out.update(_flatten(v, f"{prefix}{k}/"))
     elif isinstance(tree, (list, tuple)):
@@ -215,11 +239,19 @@ def _rebuild(data, like, cut=None):
             stacked[key] = data[key]
         return stacked[key][index]
 
+    def stack(blocks, prefix, path, lead=()):
+        """A stacked list: block i reads index ``lead + (i,)`` of the
+        arrays under ``prefix``."""
+        return [stack(b, prefix, path + (i,), lead + (i,))
+                if isinstance(b, list) else
+                rebuild(b, prefix, lead + (i,), path + (i,))
+                for i, b in enumerate(blocks)]
+
     def rebuild(tree, prefix="", index=None, path=()):
         if isinstance(tree, dict):
             out = {}
             for k, v in tree.items():
-                if k == "blocks" and isinstance(v, list) and index is None:
+                if isinstance(v, list) and index is None and _by_kind(k, v):
                     # each block's index within its kind's stack
                     seen = dict.fromkeys(_STACKS, 0)
                     out[k] = []
@@ -228,6 +260,8 @@ def _rebuild(data, like, cut=None):
                         out[k].append(rebuild(b, f"{prefix}{name}/",
                                               seen[name], path + (k, i)))
                         seen[name] += 1
+                elif isinstance(v, list) and index is None:
+                    out[k] = stack(v, f"{prefix}{k}/", path + (k,))
                 else:
                     out[k] = rebuild(v, f"{prefix}{k}/", index, path + (k,))
             return out

@@ -229,3 +229,55 @@ def test_launcher_ckpt_writes_a_checkpoint_both_packages_read(tmp_path,
     like = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), like)
     r_back = RC.restore(str(ckpt), like)
     assert int(r_back["opt"]["count"]) == 2
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b",
+                                  "whisper-small"])
+def test_family_checkpoints_cross_both_ways(arch, tmp_path):
+    """mamba's stacked ``blocks``, zamba's ``mamba`` (n_groups, attn_every,
+    ...), ``mamba_tail``, ``in_proj`` and ``shared``, whisper's
+    ``enc_blocks`` / ``dec_blocks``: the reference's state after one step,
+    saved by the reference, restores in the port leaf for leaf; the
+    port's save of the restored state restores in the reference with every
+    leaf and key equal; one port step from it follows the reference's step
+    (loss within 1e-5, params by the one-step rules) with a weight decay of
+    0.5, so that the decay of the stacked leaves' norm scales (a list of
+    lists in zamba's ``mamba``) shows."""
+    kw = {"n_layers": 5} if arch.startswith("zamba") else {}
+    rcfg = ref_config(arch).reduced().replace(**kw)
+    tcfg = get_config(arch).reduced().replace(**kw)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, rcfg.vocab, (2, 32)).astype(np.int32)}
+    if rcfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (2, rcfg.n_enc_frames, rcfg.d_model)).astype(np.float32)
+    ocfg = RO.AdamWConfig(lr=LR, weight_decay=0.5)
+    params = jax.jit(RM.init_params, static_argnums=1)(
+        jax.random.PRNGKey(6), rcfg)
+    r_step = jax.jit(RT.make_train_step(rcfg, ocfg))
+    r_state = {"params": params, "opt": RO.init_opt_state(params, ocfg)}
+    r_state, _ = r_step(r_state, {k: jnp.asarray(v) for k, v in
+                                  batch.items()})
+    RC.save(str(tmp_path / "ref"), r_state, step=1)
+    like = _port_state(params, tcfg, TO.AdamWConfig(lr=LR,
+                                                    weight_decay=0.5))
+    t_state = TC.restore(tmp_path / "ref", like)
+    want = _flat_ref(r_state)
+    got = TC._flatten(t_state)
+    assert got.keys() == want.keys()
+    for key, arr in got.items():
+        assert np.array_equal(arr, want[key]), key
+    TC.save(tmp_path / "port", t_state, step=1)
+    back = _flat_ref(RC.restore(str(tmp_path / "port"),
+                                jax.tree.map(jnp.zeros_like, r_state)))
+    for key, arr in want.items():
+        assert back[key].dtype == arr.dtype and \
+            np.array_equal(back[key], arr), key
+    from test_torch_train import _close_step
+    r_next, r_m = r_step(r_state, {k: jnp.asarray(v) for k, v in
+                                   batch.items()})
+    t_next, t_m = TT.make_train_step(
+        tcfg, TO.AdamWConfig(lr=LR, weight_decay=0.5))(
+        t_state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert abs(float(t_m["loss"]) - float(r_m["loss"])) <= 1e-5
+    _close_step(r_next, t_next, tcfg, LR)
