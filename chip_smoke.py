@@ -130,7 +130,17 @@ script exits non-zero:
                  their SP layouts (ar + tp x rs bytes = the replicated
                  bytes), and one steady-state block's padded decode tick
                  sequential and dual (one all-reduce each; Hkv 4 pages,
-                 d_ff 4096 shards) vs one device.  flash_attention (and
+                 d_ff 4096 shards) vs one device; then TP serving (fp32
+                 and bf16 weights at the same width and depth): one fp32
+                 packed tick, one padded chunk tick and the C == 1
+                 dual-branch tick after it (L + 1 all-reduces each; logits
+                 vs one device, equal on both ranks); PagedEngine serving
+                 8 greedy requests with a prefix copy-on-write, fp32
+                 (streams equal one device's) and bf16 (a first divergence
+                 only at a one-device top-2 gap <= TP_LOGIT_TOL); one
+                 int8-page tick (pools gathered over heads vs one device)
+                 and the int8 scatter of the same rows (byte for byte, one
+                 MAX all-reduce).  flash_attention (and
                  .bwd), fused_ln_add (and .bwd), paged_decode_attention
                  and fused_dual_branch_decode must launch in every rank;
                  a failing rank fails the run
@@ -209,6 +219,12 @@ script exits non-zero:
                  Phase 3 also holds the flash kernels at whisper's shapes
                  (1500 x 1500 non-causal, 448 x 1500 and 1 x 1500 cross)
                  to their plain versions, and phase 4 times them
+ 18. analysis    benchmarks/bench_motivation.py's model (6 layers, d 192,
+                 preln, fp32) trained 150 steps on the card, then every
+                 core.analysis function (Fig 3a CKA, Fig 4a gradient
+                 magnitudes, Fig 4b / 3b ablation perplexities) on the
+                 card (flash forward and backward kernels) and on the CPU
+                 on the same weights: parity gated, findings printed
 
 The serving phases (5 to 11a, 14, 15) also launch fused_ln_add: one per layer
 per tick under fal (on the contiguous cache the only kernel a tick runs).
@@ -4443,6 +4459,8 @@ def tp_rank(group, backend):
                 block, tcfg, x, sig, cache=one, block_tables=bt, pos=pos,
                 n_valid=nv, plan=ExecutionPlan.single_device(Phase.PAGED,
                                                              dual))[0]
+    serve_cases, serve_ref = tp_serve_refs(dev, rank)
+    torch.cuda.empty_cache()
     marks = []
 
     def mark(i, state, metrics):
@@ -4535,6 +4553,11 @@ def tp_rank(group, backend):
                     "ulp": bf16_ulp(ref)}
         part("dual_tick" if dual else "tick", tick)
     out["dual_vs_sequential"] = max_err(ticks[True], ticks[False])
+    del tblock
+    torch.cuda.empty_cache()
+    tp_serve_parts(group, dev, serve_cases, serve_ref, part, out)
+    del serve_cases, serve_ref
+    torch.cuda.empty_cache()
     out["launches"] = launches
     out["paths"] = ops.dispatch_paths()
     # what one activation all-reduce of the training path costs here
@@ -4553,12 +4576,446 @@ def tp_rank(group, backend):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# tensor parallelism in the serving ticks (inside tp_rank's spawn)
+# --------------------------------------------------------------------------- #
+#: padded ticks of the TP serving check: (pos, n_valid) a lane for one
+#: C = TP_SERVE_C chunk tick over a random history, then one C == 1 dual
+#: tick at pos + n_valid; Tb = 64 pages of 16 (the fused route needs F / tp
+#: % (Hkv / tp * Tb) == 0)
+TP_SERVE_LANES = ((0, 16), (15, 16), (100, 9), (300, 1), (511, 16),
+                  (700, 0), (900, 16), (1000, 5))
+TP_SERVE_C = 16
+#: fp32 TP ticks against one device: the ranks sum half the heads / FFN
+#: columns and then the halves, one device all at once (fp32 rounding of
+#: 4 blocks' residual updates), relative to max(1, max |logit|)
+TP_SERVE_FP32_TOL = 1e-3
+#: the int8 tick against one device.  TP computes K / V from the
+#: one-device residual stream up to fp32 rounding (cuBLAS, block 0
+#: included, reduces a 512-column shard in another order than the
+#: 1024-column whole), which flips a code by one step where a row lands
+#: near a rounding boundary; a flipped code moves the next layers'
+#: attention, so later rows' amax and scales move by more (on an H100 80GB
+#: HBM3 at 700 W: 5.0e-4 relative at most, 0.011% of the codes one step
+#: off).  The scatter alone, on the same rows, must be byte-exact
+TP_SERVE_SCALE_RTOL = 1e-3
+TP_SERVE_CODES_FRAC = 1e-3
+TP_SERVE_NEW = 8
+TP_SERVE_SEED = 3
+
+
+def tp_serve_params(dev, dtype):
+    """llama3.2-3b at full width and TP_LAYERS layers: weights in
+    ``dtype`` (norms fp32), drawn from one seed on the card."""
+    from repro_torch.models import model as M
+    cfg = tp_config(dtype=dtype)
+    return cfg, M.init_params(cfg, seed=TP_SERVE_SEED, device=dev)
+
+
+def tp_serve_workload(vocab):
+    """8 greedy requests: a donor parks a 4-page system prompt; then its
+    verbatim repeat (a full-prompt hit: one copy-on-write), three
+    extensions of it and three fresh prompts."""
+    import numpy as np
+    rng = np.random.default_rng(31)
+    sysp = rng.integers(0, vocab, 4 * PAGE)
+    later = [sysp.copy()]
+    later += [np.concatenate([sysp, rng.integers(0, vocab, int(n))])
+              for n in (5, 17, 33)]
+    later += [rng.integers(0, vocab, int(n)) for n in (20, 47, 90)]
+    return [[(0, sysp)], list(enumerate(later, start=1))]
+
+
+def tp_serve_engine(cfg, params, dev, plan=None):
+    """The workload through ``PagedEngine`` (prefix cache on) -> (streams,
+    stats, per-call (sum, max) all-reduce counts)."""
+    from repro_torch.core import tp
+    from repro_torch.serve.scheduler import (EngineConfig, PagedEngine,
+                                             ServeRequest)
+    ecfg = EngineConfig(page_size=PAGE, num_pages=64, slots=4,
+                        prefill_chunk=64, max_seq=256,
+                        cache_dtype=cfg.dtype, prefix_cache=True)
+    eng = PagedEngine(cfg, params, ecfg, plan=plan, device=dev)
+    calls, run_packed = [], eng._run_packed
+
+    def counted(pt):
+        before = tp.collective_counts()
+        run_packed(pt)
+        after = tp.collective_counts()
+        calls.append(tuple(tp.count(after, k) - tp.count(before, k)
+                           for k in ("all-reduce", "all-reduce-max")))
+    eng._run_packed = counted
+    for reqs in tp_serve_workload(cfg.vocab):
+        for rid, prompt in reqs:
+            eng.submit(ServeRequest(rid=rid, prompt=prompt,
+                                    max_new=TP_SERVE_NEW))
+        eng.run()
+    st = eng.stats()
+    return ({r.rid: list(map(int, r.generated)) for r in eng.finished},
+            {"ticks": st["ticks"], "calls": st["packed_calls"],
+             "cow": st["prefix"]["cow_copies"],
+             "hit_rate": st["prefix"]["hit_rate"]}, calls)
+
+
+def tp_serve_cases(cfg, dev):
+    """The fp32 ticks' inputs on ``dev``: a packed tick (``mixed_tick``)
+    and the padded lanes, each with a random full-head cache."""
+    from repro_torch import interop
+    from repro_torch.models import model as M
+    g = torch.Generator().manual_seed(41)
+    bt, tok_slot, tok_pos, seg_last = mixed_tick(page=PAGE, num_pages=512,
+                                                 tb=72, seed=5)
+    tokens = torch.randint(0, cfg.vocab, tok_slot.shape, generator=g,
+                           dtype=torch.int32)
+    packed = dict(tokens=tokens, tok_slot=tok_slot, tok_pos=tok_pos,
+                  block_tables=bt, seg_last=seg_last)
+    pcache = M.init_paged_cache(cfg, 512, PAGE, seg_last.numel(), "float32",
+                                device="cpu")
+    random_history(pcache, g)
+    pbt, n_pages = lane_tables([p + TP_SERVE_C + 1 for p, _ in
+                                TP_SERVE_LANES], page=PAGE, tb=64, seed=43)
+    dcache = M.init_paged_cache(cfg, n_pages, PAGE, len(TP_SERVE_LANES),
+                                "float32", device="cpu")
+    random_history(dcache, g)
+    pos = torch.tensor([p for p, _ in TP_SERVE_LANES], dtype=torch.int32)
+    nv = torch.tensor([n for _, n in TP_SERVE_LANES], dtype=torch.int32)
+    chunk = dict(tokens=torch.randint(0, cfg.vocab, (len(pos), TP_SERVE_C),
+                                      generator=g, dtype=torch.int32),
+                 pos=pos, n_valid=nv, block_tables=pbt)
+    one = dict(tokens=torch.randint(0, cfg.vocab, (len(pos), 1),
+                                    generator=g, dtype=torch.int32),
+               pos=pos + nv, n_valid=(nv > 0).to(torch.int32),
+               block_tables=pbt)
+    return interop.tree_to({"packed": [packed, pcache],
+                            "padded": [chunk, one, dcache]}, dev)
+
+
+def _heads_of(cache, rank, size):
+    """This rank's KV heads of a full-head cache (scale pools and a1_sig
+    whole)."""
+    out = {}
+    for part, leaves in cache.items():
+        if not isinstance(leaves, dict):
+            out[part] = leaves.clone()
+            continue
+        out[part] = {}
+        for k, v in leaves.items():
+            if k in ("k", "v"):
+                hk = v.shape[-2] // size
+                v = v[..., rank * hk:(rank + 1) * hk, :]
+            out[part][k] = v.clone()
+    return out
+
+
+def tp_serve_ticks(params, cfg, cases, plan=None, rank=0, size=1):
+    """The fp32 packed tick, then the padded chunk tick and the dual C == 1
+    tick after it -> their logits (a TP plan: on this rank's heads)."""
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.models import model as M
+    base = plan if plan is not None else ExecutionPlan.single_device()
+    packed, pcache = cases["packed"]
+    chunk, one, dcache = cases["padded"]
+    with torch.no_grad():
+        lp = M.paged_decode_step(params, cfg, packed,
+                                 _heads_of(pcache, rank, size), base)[0]
+        cache = _heads_of(dcache, rank, size)
+        lc = M.paged_decode_step(params, cfg, chunk, cache, base)[0]
+        ld = M.paged_decode_step(params, cfg, one, cache,
+                                 base.with_dual_branch())[0]
+    return {"packed": lp, "chunk": lc, "dual": ld}
+
+
+def tp_serve_quant(params, cfg, cases, dev, plan=None, size=1):
+    """One packed tick of the fp32 model on empty int8 pages -> its K / V
+    pools and row scales, gathered over the group's heads under TP."""
+    from repro_torch.core import tp
+    from repro_torch.models import model as M
+    packed = cases["packed"][0]
+    cache = M.init_paged_cache(cfg, 512, PAGE, packed["seg_last"].numel(),
+                               "float32", kv_dtype="int8", device=dev,
+                               tp_size=size)
+    with torch.no_grad():
+        M.paged_decode_step(params, cfg, packed, cache, plan)
+    if plan is None:
+        return cache
+    torch.cuda.synchronize(dev)
+    out = {}
+    for part in ("block0", "blocks"):
+        out[part] = {}
+        for k, v in cache[part].items():
+            if k in ("k", "v"):
+                rows = tp.gather_rows(v.contiguous(), plan.group,
+                                      "checkpoint")
+                v = torch.cat(list(rows), dim=-2)
+            out[part][k] = v
+    return out
+
+
+def tp_serve_scatter(dev, plan=None):
+    """Rows of K / V (mixed_tick's 272 rows, all 8 heads, D = 128) drawn on
+    the card, quantized into int8 pages through ``attention._scatter_kv``
+    (this rank's heads under TP: one MAX all-reduce of the rows' amax) ->
+    the pools and scales (gathered over heads under TP)."""
+    from repro_torch.core import tp
+    from repro_torch.models import attention as A
+    g = torch.Generator(device=dev).manual_seed(47)
+    T = 272
+    k = torch.randn((T, HKV, D), generator=g, device=dev)
+    v = torch.randn((T, HKV, D), generator=g, device=dev)
+    k[:, -1] *= 3                     # the last rank's head holds the amax
+    size = 1 if plan is None else plan.tp_size
+    hk = HKV // size
+    r = 0 if plan is None else plan.tp_rank
+    cache = {n: torch.zeros((T // PAGE + 1, PAGE, hk, D), dtype=torch.int8,
+                            device=dev) for n in ("k", "v")}
+    for n in ("k_scale", "v_scale"):
+        cache[n] = torch.ones((T // PAGE + 1, PAGE), device=dev)
+    tables = (1 + torch.arange(T // PAGE, dtype=torch.int32,
+                               device=dev))[None]
+    slot = torch.zeros(T, dtype=torch.int32, device=dev)
+    rows = torch.arange(T, dtype=torch.int32, device=dev)
+    A._scatter_kv(cache, k[:, r * hk:(r + 1) * hk].contiguous(),
+                  v[:, r * hk:(r + 1) * hk].contiguous(),
+                  lambda pool, vals: A.packed_scatter(pool, vals, tables,
+                                                      slot, rows, PAGE),
+                  None if plan is None else plan.inner())
+    if plan is not None:
+        for n in ("k", "v"):
+            cache[n] = torch.cat(list(tp.gather_rows(cache[n], plan.group,
+                                                     "checkpoint")), -2)
+    return cache
+
+
+def _int8_diff(got, want):
+    """(codes compared, codes that differ, their largest step, largest
+    relative scale difference, block 0 byte-exact) of two int8 caches,
+    past the scratch page 0 (every padding row of a tick is written there,
+    in an order the card does not fix)."""
+    numel, n, step, rel = 0, 0, 0, 0.0
+    exact0 = True
+    for part in ("block0", "blocks"):
+        for k in ("k", "v", "k_scale", "v_scale"):
+            a, b = got[part][k], want[part][k]
+            a, b = (a[1:], b[1:]) if part == "block0" else (a[:, 1:],
+                                                             b[:, 1:])
+            if k in ("k", "v"):
+                d = (a.int() - b.int()).abs()
+                numel += d.numel()
+                n += int((d > 0).sum())
+                step = max(step, int(d.max()))
+                same = not bool((d > 0).any())
+            else:
+                rel = max(rel, ((a - b).abs() / b.abs()).max().item())
+                same = torch.equal(a, b)
+            if part == "block0" and not same:
+                exact0 = False
+    return numel, n, step, rel, exact0
+
+
+def tp_serve_refs(dev, rank):
+    """The one-device side of the TP serving check on this rank's card:
+    the fp32 ticks, the int8 tick's pools and the scatter; rank 0 also the
+    fp32 and bf16 engines' streams."""
+    cfg, params = tp_serve_params(dev, "float32")
+    cases = tp_serve_cases(cfg, dev)
+    ref = {"ticks": tp_serve_ticks(params, cfg, cases),
+           "quant": tp_serve_quant(params, cfg, cases, dev),
+           "scatter": tp_serve_scatter(dev)}
+    if rank == 0:
+        ref["engine_fp32"] = tp_serve_engine(cfg, params, dev)
+        del params
+        bcfg, bparams = tp_serve_params(dev, "bfloat16")
+        ref["engine_bf16"] = tp_serve_engine(bcfg, bparams, dev)
+    return cases, ref
+
+
+def tp_serve_gap(cfg, params, prompt, stream, j):
+    """One device's top-2 logit gap where token j of ``stream`` was
+    chosen (a full-sequence forward over the prompt and stream[:j])."""
+    from repro_torch.models import model as M
+    toks = list(prompt) + list(stream[:j])
+    t = torch.tensor([toks], dtype=torch.int32, device=params["embed"][
+        "emb"].device)
+    with torch.no_grad():
+        top = M.forward(params, cfg, {"tokens": t})[0][0, -1].float().topk(2)
+    return float(top.values[0] - top.values[1])
+
+
+def tp_serve_parts(group, dev, cases, ref, part, out):
+    """The TP side, each path one ``part`` (counters from 0, host-clock ms
+    with the card synchronised): (i) the fp32 ticks, (ii) the fp32 engine,
+    (iii) the bf16 engine, (iv) the int8 tick and the scatter."""
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.launch import mesh as MX
+    rank, size = group.rank(), group.size()
+    plan = ExecutionPlan.from_group(group, tp="explicit")
+    cfg, full = tp_serve_params(dev, "float32")
+    shard = MX.shard_params(full, cfg, rank, size)
+    del full
+    torch.cuda.empty_cache()
+
+    def ticks():
+        got = tp_serve_ticks(shard, cfg, cases, plan, rank, size)
+        res = {}
+        live = {"packed": (cases["packed"][0]["tok_pos"] >= 0)[None],
+                "chunk": (torch.arange(TP_SERVE_C, device=dev)[None]
+                          < cases["padded"][0]["n_valid"][:, None]),
+                "dual": (cases["padded"][1]["n_valid"] > 0)[:, None]}
+        for k, v in got.items():
+            want = ref["ticks"][k]
+            res[k] = {"err": max_err(v[live[k]], want[live[k]]),
+                      "top": want[live[k]].abs().max().item(),
+                      "sum": v[live[k]].double().sum().item()}
+        return res
+    part("serve_ticks", ticks)
+
+    def engine():
+        streams, st, calls = tp_serve_engine(cfg, shard, dev, plan)
+        return {"streams": streams, "stats": st, "calls": calls}
+    part("serve_engine_fp32", engine)
+
+    def quant():
+        got = tp_serve_quant(shard, cfg, cases, dev, plan, size)
+        numel, n, step, rel, exact0 = _int8_diff(got, ref["quant"])
+        sc = tp_serve_scatter(dev, plan)
+        exact = all(torch.equal(sc[k], ref["scatter"][k]) for k in sc)
+        return {"codes_differ": n, "codes_numel": numel, "max_step": step,
+                "scale_rel": rel, "block0_exact": exact0,
+                "scatter_exact": exact}
+    part("serve_int8", quant)
+    del shard
+    torch.cuda.empty_cache()
+
+    bcfg, bfull = tp_serve_params(dev, "bfloat16")
+    bshard = MX.shard_params(bfull, bcfg, rank, size)
+
+    def bf16_engine():
+        streams, st, calls = tp_serve_engine(bcfg, bshard, dev, plan)
+        return {"streams": streams, "stats": st, "calls": calls}
+    part("serve_engine_bf16", bf16_engine)
+    del bshard
+    if rank == 0:
+        # where a bf16 stream leaves one device's, one device's top-2 gap
+        prompts = dict(r for reqs in tp_serve_workload(bcfg.vocab)
+                       for r in reqs)
+        one = ref["engine_bf16"][0]
+        gaps = {}
+        for rid, st in out["serve_engine_bf16"]["streams"].items():
+            j = common_prefix(st, one[rid])
+            if j < len(one[rid]):
+                gaps[rid] = (j, tp_serve_gap(bcfg, bfull, prompts[rid],
+                                             one[rid], j))
+        out["serve_bf16_gaps"] = gaps
+        out["serve_ref_streams"] = {"fp32": ref["engine_fp32"],
+                                    "bf16": ref["engine_bf16"]}
+    del bfull
+    torch.cuda.empty_cache()
+
+
+def tp_serve_report(ranks):
+    """Print and gate the TP serving parts; returns rank 0's launches over
+    them."""
+    L = TP_LAYERS
+    r0 = ranks[0]
+    one32, st32, calls32 = r0["serve_ref_streams"]["fp32"]
+    one16 = r0["serve_ref_streams"]["bf16"][0]
+    sums = {}
+    for r in ranks:
+        t = r["serve_ticks"]
+        for k in ("packed", "chunk", "dual"):
+            tol = TP_SERVE_FP32_TOL * max(1.0, t[k]["top"])
+            print(f"  rank {r['rank']}: TP serving, fp32 {k} tick (llama3.2"
+                  f"-3b full width, {L} layers, Hkv {HKV // TP_SIZE} a rank)"
+                  f" vs one device: max |diff| {t[k]['err']:.3e} (max "
+                  f"|logit| {t[k]['top']:.3f}; tol {tol:.3g})", flush=True)
+            require(t[k]["err"] <= tol, f"TP serving {k} tick disagrees "
+                    f"with one device")
+            sums.setdefault(k, set()).add(t[k]["sum"])
+        ar = _ar(t["counts"])
+        print(f"  rank {r['rank']}: the three ticks paid {ar} all-reduces "
+              f"(want 3 x (L + 1) = {3 * (L + 1)}); {t['ms']:.1f} ms over "
+              f"gloo, host-memory staging included", flush=True)
+        require(ar == 3 * (L + 1), "TP serving ticks: all-reduce count")
+    require(all(len(v) == 1 for v in sums.values()),
+            "TP serving ticks: logits differ across ranks")
+    for label, key, one in (("fp32", "serve_engine_fp32", one32),
+                            ("bf16", "serve_engine_bf16", one16)):
+        for r in ranks:
+            e = r[key]
+            st = e["stats"]
+            agree = sum(e["streams"][rid] == one[rid] for rid in one)
+            print(f"  rank {r['rank']}: TP PagedEngine {label}, "
+                  f"{len(one)} greedy requests x {TP_SERVE_NEW} new: "
+                  f"{agree} / {len(one)} streams equal one device's; "
+                  f"{st['ticks']} ticks, {st['calls']} packed calls, "
+                  f"{st['cow']} copy-on-write, prefix hit rate "
+                  f"{st['hit_rate']:.3f}; {e['ms']:.1f} ms = "
+                  f"{e['ms'] / st['ticks']:.2f} ms a tick over gloo "
+                  f"(host-memory staging, both ranks on one card; not a "
+                  f"collective time); per-call (sum, max) all-reduces "
+                  f"{sorted(set(e['calls']))}", flush=True)
+            require(e["streams"] == ranks[0][key]["streams"],
+                    f"TP {label} engine streams differ across ranks")
+            require(st["cow"] > 0, "TP engine workload made no COW")
+            require(set(e["calls"]) == {(L + 1, 0)},
+                    f"TP {label} engine ticks: collectives {e['calls']}")
+            if label == "fp32":
+                require(e["streams"] == one, "TP fp32 engine streams differ "
+                        "from one device's")
+        if label == "bf16":
+            for rid, (j, gap) in r0["serve_bf16_gaps"].items():
+                print(f"  bf16 request {rid}: first divergence at token {j}"
+                      f", one device's top-2 gap there {gap:.4f} (must be "
+                      f"<= TP_LOGIT_TOL {TP_LOGIT_TOL})", flush=True)
+                require(gap <= TP_LOGIT_TOL, "TP bf16 stream diverges at a "
+                        "clear margin")
+    for r in ranks:
+        q = r["serve_int8"]
+        print(f"  rank {r['rank']}: int8-page tick, pools gathered over "
+              f"heads vs one device: {q['codes_differ']} of "
+              f"{q['codes_numel']} codes differ (largest step "
+              f"{q['max_step']}), scales max relative diff "
+              f"{q['scale_rel']:.2e}, block 0 byte-exact "
+              f"{q['block0_exact']}; the scatter of the same K / V rows: "
+              f"byte-exact {q['scatter_exact']}; MAX all-reduces "
+              f"{_ar(q['counts'], kind='all-reduce-max')} (want L + 1 = "
+              f"{L + 1}: the tick's L and the scatter's one)", flush=True)
+        require(q["scatter_exact"], "TP int8 scatter is not the one-device "
+                "bytes")
+        require(q["max_step"] <= 1
+                and q["codes_differ"] <= TP_SERVE_CODES_FRAC
+                * q["codes_numel"] and q["scale_rel"] <= TP_SERVE_SCALE_RTOL,
+                "TP int8 pools disagree with one device")
+        require(_ar(q["counts"], kind="all-reduce-max") == L + 1,
+                "TP int8 tick: MAX all-reduce count")
+    total = {}
+    for name in ("serve_ticks", "serve_engine_fp32", "serve_int8",
+                 "serve_engine_bf16"):
+        for k, v in r0["launches"][name].items():
+            total[k] = total.get(k, 0) + v
+    e = r0["serve_engine_fp32"]
+    print(f"  rank 0 launches on the TP serving parts: {total}; by part "
+          f"{ {n: r0['launches'][n] for n in ('serve_ticks', 'serve_engine_fp32', 'serve_int8', 'serve_engine_bf16')} }",
+          flush=True)
+    want = {"paged_packed_attention": L * e["stats"]["calls"],
+            "page_copy": e["stats"]["cow"]}
+    got = {k: r0["launches"]["serve_engine_fp32"].get(k, 0) for k in want}
+    require(got == want, f"TP fp32 engine launches {got} != {want}")
+    for k in ("paged_packed_attention", "paged_chunk_attention",
+              "paged_decode_attention", "fused_dual_branch_decode",
+              "page_copy", "fused_ln_add"):
+        require(total.get(k, 0) > 0, f"{k} not launched on the TP serving "
+                f"parts")
+    return total
+
+
 def tp_phase(smi):
     """Explicit TP at llama3.2-3b full width, 4 layers, over two ranks on
     this card (``core.tp.run_ranks`` over gloo, which stages CUDA tensors
     through host memory); NCCL too where there are two cards.  Returns
     ({kernel: launches in the TP paths of rank 0}, rank 0's median TP
-    train step in ms), both over gloo."""
+    train step in ms, {kernel: rank 0's launches on the TP serving
+    paths}), all over gloo."""
     from repro_torch.core import tp
     n_cards = torch.cuda.device_count()
     backends = ["gloo"] + (["nccl"] if n_cards >= TP_SIZE else [])
@@ -4570,7 +5027,7 @@ def tp_phase(smi):
             print(f"  nccl: not run ({n_cards} card(s)); init_tp_group "
                   f"refuses it: {e}", flush=True)
     torch.cuda.empty_cache()
-    tp_launches, step_ms = None, None
+    tp_launches, step_ms, serve_launches = None, None, None
     for backend in backends:
         phase(f"tensor parallelism: backend {backend}, world size "
               f"{TP_SIZE}, llama3.2-3b full width, {TP_LAYERS} layers, "
@@ -4581,10 +5038,11 @@ def tp_phase(smi):
         print(f"  {TP_SIZE} ranks done in {time.perf_counter() - t0:.1f} s "
               f"on {[r['device'] for r in ranks]}", flush=True)
         launches = tp_report(ranks, backend, smi)
+        serve = tp_serve_report(ranks)
         if backend == "gloo":
-            tp_launches = launches
+            tp_launches, serve_launches = launches, serve
             step_ms = statistics.median(ranks[0]["train"]["step_ms"])
-    return tp_launches, step_ms
+    return tp_launches, step_ms, serve_launches
 
 
 def _ar(counts, direction="forward", what="calls", kind="all-reduce"):
@@ -7124,6 +7582,120 @@ def family_train_phase():
     return launches, out
 
 
+# --------------------------------------------------------------------------- #
+# phase 18: the paper's §3 motivation analyses (core/analysis.py)
+# --------------------------------------------------------------------------- #
+#: benchmarks/bench_motivation.py's model (:18-21) and run: 6 layers of
+#: width 192, preln, fp32, SyntheticMarkov(1024, 128, 16, seed=23), 150
+#: trainer steps at lr 1e-3
+ANALYSIS_STEPS = 150
+#: card vs CPU on the same weights: test_torch_analysis.py's tolerances
+ANALYSIS_CKA_TOL = 1e-5
+ANALYSIS_GRAD_RTOL = 1e-4
+ANALYSIS_PPL_RTOL = 1e-5
+
+
+def analysis_config():
+    from repro_torch.configs.base import get_config
+    return get_config("gpt2-117m").replace(
+        n_layers=6, d_model=192, n_heads=6, n_kv_heads=6, d_ff=768,
+        vocab=1024, max_seq=128, dtype="float32", param_dtype="float32",
+        remat=False, connection="preln", attn_block_q=64, attn_block_k=128)
+
+
+def analysis_run(params, cfg, batch):
+    """Every analysis of ``core.analysis`` on ``params`` / ``batch`` (on
+    their device): Fig 3a's CKA table, Fig 4a's gradient magnitudes, Fig
+    4b's per-layer ablations and Fig 3b's triple."""
+    from repro_torch.core import analysis as AN
+    out = {"cka": AN.cka_table(params, cfg, batch),
+           "mags": AN.mha_gradient_magnitudes(params, cfg, batch),
+           "base": AN.ablate_attention_perplexity(params, cfg, batch)}
+    out["drops"] = [AN.ablate_attention_perplexity(params, cfg, batch,
+                                                   drop_layer=i)
+                    for i in range(cfg.n_layers)]
+    out["no_conn"] = AN.ablate_attention_perplexity(
+        params, cfg, batch, drop_connections=True)
+    out["no_mha"] = AN.ablate_attention_perplexity(params, cfg, batch,
+                                                   drop_all_mha=True)
+    return out
+
+
+def analysis_phase():
+    """The card twin of ``benchmarks/bench_motivation.py``: train its model
+    150 steps on the card, then run every analysis on the card (the flash
+    kernels forward, and backward for the gradient magnitudes) and on the
+    CPU (their plain versions) on the same weights; gate the parity, print
+    the paper's findings (not gated).  Returns the analyses' launches."""
+    from repro_torch import interop
+    from repro_torch.data.pipeline import SyntheticMarkov
+    from repro_torch.kernels import ops
+    from repro_torch.train import trainer
+    cfg = analysis_config()
+    phase(f"analysis: bench_motivation's model (gpt2-117m widths cut to "
+          f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.connection}, "
+          f"fp32), {ANALYSIS_STEPS} trainer steps on the card, then "
+          f"core.analysis card vs CPU")
+    data = SyntheticMarkov(cfg.vocab, 128, 16, seed=23)
+    t0 = time.perf_counter()
+    state, hist = trainer.train(cfg, steps=ANALYSIS_STEPS, batch=16,
+                                seq_len=128, data=data, log_every=0,
+                                lr=1e-3, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    params = state["params"]
+    batch = {"tokens": torch.from_numpy(data.batch_at(10 ** 6)["tokens"])}
+    ops.reset_launches()
+    ops.reset_dispatch_paths()
+    t0 = time.perf_counter()
+    card = analysis_run(params, cfg, interop.tree_to(batch, "cuda"))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    paths = ops.dispatch_paths()
+    cpu = analysis_run(interop.tree_to(params, "cpu"), cfg, batch)
+    L = cfg.n_layers
+    print(f"  trained {ANALYSIS_STEPS} steps in {train_s:.1f} s (last loss "
+          f"{hist[-1]['loss'] if hist else float('nan'):.4f}); analyses on "
+          f"the card {card_s:.2f} s; launches {launches}; paths {paths}",
+          flush=True)
+    for k in ("mha_out", "mlp_in", "mlp_out"):
+        err = max(abs(a - b) for a, b in zip(card["cka"][k], cpu["cka"][k]))
+        print(f"  Fig 3a CKA {k}: avg {sum(card['cka'][k]) / (L - 1):.4f} "
+              f"(card) / {sum(cpu['cka'][k]) / (L - 1):.4f} (CPU); "
+              f"consecutive blocks {[round(v, 4) for v in card['cka'][k]]};"
+              f" card vs CPU max |diff| {err:.2e} (tol {ANALYSIS_CKA_TOL})",
+              flush=True)
+        require(err <= ANALYSIS_CKA_TOL, f"CKA {k}: card vs CPU")
+    mags = card["mags"]
+    rank1 = sorted(mags, reverse=True).index(mags[0]) + 1
+    err = max(abs(a - b) / abs(b) for a, b in zip(mags, cpu["mags"]))
+    print(f"  Fig 4a |dLoss/dMHA_i| per block: "
+          f"{[round(m, 2) for m in mags]}; block 1 ranks {rank1} of {L}; "
+          f"card vs CPU max relative diff {err:.2e} (tol "
+          f"{ANALYSIS_GRAD_RTOL})", flush=True)
+    require(err <= ANALYSIS_GRAD_RTOL, "gradient magnitudes: card vs CPU")
+    pp = [card["base"], *card["drops"], card["no_conn"], card["no_mha"]]
+    pc = [cpu["base"], *cpu["drops"], cpu["no_conn"], cpu["no_mha"]]
+    err = max(abs(a - b) / abs(b) for a, b in zip(pp, pc))
+    print(f"  Fig 4b perplexity: base {card['base']:.3f}, dropping block "
+          f"i's MHA {[round(p, 3) for p in card['drops']]}; Fig 3b: "
+          f"original {card['base']:.3f}, all MHA->MLP connections removed "
+          f"{card['no_conn']:.3f}, all MHA removed {card['no_mha']:.3f}; "
+          f"card vs CPU max relative diff {err:.2e} (tol "
+          f"{ANALYSIS_PPL_RTOL})", flush=True)
+    require(err <= ANALYSIS_PPL_RTOL, "ablation perplexities: card vs CPU")
+    # forward: the CKA pass, the gradient pass and 1 + L + 2 ablations;
+    # backward: the gradient pass, in every block but block 0 (whose
+    # attention inputs depend on no perturbation)
+    want = {"flash_attention": L * (L + 5), "flash_attention.bwd": L - 1}
+    got = {k: launches.get(k, 0) for k in want}
+    require(got == want, f"analysis launches {got} != {want}")
+    require(paths.get("flash_attention") == ops.CUDA,
+            "the card's analyses did not run the flash kernel")
+    return got
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -7187,7 +7759,7 @@ def main():
     train_tick_phase()
     train_launches, train = train_phase()
     launches.update(train_launches)
-    tp_launches, tp_step_ms = tp_phase(smi)
+    tp_launches, tp_step_ms, tp_serve_launches = tp_phase(smi)
     t_dp = time.perf_counter()
     dp_launches, dp = dp_phase(smi)
     print(f"  data-parallel phase: {time.perf_counter() - t_dp:.1f} s",
@@ -7216,6 +7788,10 @@ def main():
     fam_train_launches, fam_train = family_train_phase()
     print(f"  SSM, hybrid and audio phases: "
           f"{time.perf_counter() - t_fam:.1f} s", flush=True)
+    t_an = time.perf_counter()
+    analysis_launches = analysis_phase()
+    print(f"  analysis phase: {time.perf_counter() - t_an:.1f} s",
+          flush=True)
     src = "src/repro_torch/kernels/csrc/"
     pa = "src/repro/kernels/paged_attention.py"
     where = {
@@ -7291,6 +7867,9 @@ def main():
         if kname in tp_launches:
             # rank 0's launches on the tensor-parallel paths (phase 13a)
             entry["tp_launches"] = tp_launches[kname]
+        if kname in tp_serve_launches:
+            # of which rank 0's on the TP serving ticks and engines
+            entry["tp_serving_launches"] = tp_serve_launches[kname]
         if kname in dp_launches:
             # rank 0's launches on the tp x dp paths (phase 13b)
             entry["dp_launches"] = dp_launches[kname]
@@ -7310,6 +7889,9 @@ def main():
                 for a, r in fam_serve.items()}
             if f"{kname}.whisper" in errs:
                 entry["whisper_max_abs_err"] = errs[f"{kname}.whisper"]
+        if kname in analysis_launches:
+            # phase 18: core.analysis on the trained motivation model
+            entry["analysis_launches"] = analysis_launches[kname]
         if kname in mla_train_launches:
             # the deepseek-v3 training path (MLA: the D = 192 kernels on
             # every layer and the MTP block), the D = 192 check's error

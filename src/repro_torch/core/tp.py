@@ -34,7 +34,8 @@ stays exact.  (The reference compresses the transpose of each forward
 psum instead: the same count a block, other tensors; ROADMAP.md Queue 3.)
 
 Every collective counts its calls, output bytes and ring-model wire bytes
-by kind (all-reduce, reduce-scatter, all-gather, all-to-all) and direction
+by kind (all-reduce, all-reduce-max, reduce-scatter, all-gather,
+all-to-all) and direction
 (forward, backward; ``step`` for the train step's TP gradient and norm
 sums; ``data`` for its one data-parallel gradient sum, ``metric`` for the
 data-parallel mean of the loss; ``checkpoint`` for gathering a sharded
@@ -90,6 +91,7 @@ def count(counts, kind, direction="forward", what="calls") -> int:
 
 
 _WIRE = {"all-reduce": lambda b, n: 2 * b * (n - 1) // n,
+         "all-reduce-max": lambda b, n: 2 * b * (n - 1) // n,
          "all-gather": lambda b, n: b * (n - 1) // n,
          "all-to-all": lambda b, n: b * (n - 1) // n,
          "reduce-scatter": lambda b, n: b * (n - 1)}
@@ -110,13 +112,21 @@ def _staged(t, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def all_reduce(t, group, direction):
-    """The sum of ``t`` over ``group`` (a new tensor), counted."""
+_REDUCE_OPS = {"all-reduce": dist.ReduceOp.SUM,
+               "all-reduce-max": dist.ReduceOp.MAX}
+
+
+def all_reduce(t, group, direction, kind="all-reduce"):
+    """The sum of ``t`` over ``group`` (a new tensor), counted; with
+    ``kind="all-reduce-max"`` the elementwise max, counted under that kind
+    so that the sum all-reduces of the blocks' structure keep their counts
+    (the serving ticks' quantized pages reduce each token row's K / V amax
+    with it, one a layer a tick)."""
     stage = _staged(t, group)
     out = t.detach().to("cpu", copy=True) if stage \
         else t.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=group)
-    _record("all-reduce", direction, out, group)
+    dist.all_reduce(out, op=_REDUCE_OPS[kind], group=group)
+    _record(kind, direction, out, group)
     return out.to(t.device) if stage else out
 
 
@@ -559,7 +569,10 @@ def make_tp_decode_step(group, cfg, *, dual=False, page_size=8,
     cache, block_tables (B, T), pos (B,), n_valid (B,), a1_sig (B, 1, d))
     -> (x_out, cache)`` (cache updated in place).  ``dual``: the MHA || MLP
     dispatch, which merges both partial sums before the block's one
-    all-reduce."""
+    all-reduce.  The block runs the model's TP block path (``block_apply``
+    on ``plan.inner()``, which the serving ticks of ``models/model.py``
+    run on every block) over a pool of ``local_kv_heads``, as
+    ``init_paged_cache(..., tp_size=)`` builds a layer's."""
     from repro_torch.core.plan import ExecutionPlan, Phase, local_kv_heads
     from repro_torch.launch import mesh as MX
     from repro_torch.models import attention as A

@@ -40,6 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import tp
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -158,9 +159,11 @@ def gqa_qkv(p, cfg, x, positions, kv_x=None, rope=True):
     return q, k, v
 
 
-def gqa_init_cache(cfg, batch, seq, dtype, device):
-    """Contiguous K/V cache: zeros of (batch, seq, Hkv, Dh) in ``dtype``."""
-    shape = (batch, seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+def gqa_init_cache(cfg, batch, seq, dtype, device, n_kv_heads=None):
+    """Contiguous K/V cache: zeros of (batch, seq, Hkv, Dh) in ``dtype``;
+    ``n_kv_heads`` the heads a rank holds under explicit TP
+    (``core.plan.local_kv_heads``; None: all of ``cfg.n_kv_heads``)."""
+    shape = (batch, seq, n_kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -176,15 +179,18 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0, cap=0.0,
                            cap=cap, scale=scale)
 
 
-def gqa_decode(p, cfg, x, cache, pos, *, window=0):
+def gqa_decode(p, cfg, x, cache, pos, *, window=0, plan=None):
     """One-step decode: x (B, 1, D), pos (B,) each lane's position.  Writes
     lane b's k/v at row ``pos[b]`` of the cache in place (the reference's
     ``dynamic_update_slice``, which clamps the row into the cache), then
     attends.  Returns (out (B, 1, D), cache).  The attention output is in
     the cache's dtype and meets ``wo`` in the promoted dtype of the two, as
-    the reference's ``o @ wo.astype(x.dtype)`` does."""
+    the reference's ``o @ wo.astype(x.dtype)`` does.  Under explicit TP
+    (``plan``) the cache holds this rank's KV heads and the output is its
+    partial sum."""
     B = x.shape[0]
     q, k, v = gqa_qkv(p, cfg, x, pos[:, None])
+    k, v = _kv_group_slice(k, v, cfg, plan)
     rows = pos.long().clamp(0, cache["k"].shape[1] - 1)
     lanes = torch.arange(B, device=x.device)
     cache["k"][lanes, rows] = k[:, 0].to(cache["k"].dtype)
@@ -247,16 +253,23 @@ def _kv_qmax(pages_dtype) -> float:
     return 448.0 if pages_dtype == torch.float8_e4m3fn else 127.0
 
 
-def _quant_rows(vals, pages_dtype):
+def _row_amax(vals):
+    """vals (..., Hkv, Dh) -> each token row's fp32 amax over (Hkv, Dh)."""
+    return vals.float().abs().amax(dim=(-2, -1))
+
+
+def _quant_rows(vals, pages_dtype, amax=None):
     """Per-token-row KV quantization: vals (..., Hkv, Dh) -> (q, scale) with
     ``scale = amax / qmax`` over (Hkv, Dh), one fp32 scale per cached token
     row shared by the KV heads.  A row's scale depends on that row alone, so
     re-scattering a position, a COW page copy and a prefix-cache hit give
-    the same bytes.  ``q`` is in fp32 units of the narrow grid (the int8
-    grid rounded half to even and clipped); the page scatter's cast to the
-    pool's dtype does the final rounding (fp8: to nearest even)."""
+    the same bytes.  ``amax`` (...): the rows' amax when it is not this
+    ``vals``' own (explicit TP: the max over every rank's heads).  ``q`` is
+    in fp32 units of the narrow grid (the int8 grid rounded half to even
+    and clipped); the page scatter's cast to the pool's dtype does the
+    final rounding (fp8: to nearest even)."""
     qmax = _kv_qmax(pages_dtype)
-    a = vals.float().abs().amax(dim=(-2, -1))
+    a = _row_amax(vals) if amax is None else amax
     scale = torch.clamp(a / qmax, min=1e-8)
     q = vals.float() / scale[..., None, None]
     if pages_dtype != torch.float8_e4m3fn:
@@ -337,12 +350,23 @@ def _gathered(cfg, window) -> bool:
     return cfg.attn_softcap != 0.0 or window != 0
 
 
-def _scatter_kv(cache, k, v, scatter):
+def _scatter_kv(cache, k, v, scatter, plan=None):
     """Write k, v into the pools with ``scatter(pool, vals)``, quantizing
-    each token row first when the cache carries scale pools."""
+    each token row first when the cache carries scale pools.
+
+    A row's scale is shared by all KV heads, so under explicit TP
+    (``plan.tp_axis``), where this rank holds ``Hkv / tp`` of them, the
+    rows' K and V amax go through ONE MAX all-reduce over the group
+    (``core.tp.all_reduce``, a (rows, 2) fp32 tensor): every rank then
+    quantizes its heads with the one-device scale, and the ranks' pools,
+    gathered over heads, are the one-device pools."""
     if "k_scale" in cache:
-        k, ks = _quant_rows(k, cache["k"].dtype)
-        v, vs = _quant_rows(v, cache["v"].dtype)
+        amax = torch.stack([_row_amax(k), _row_amax(v)], -1)
+        if plan is not None and plan.tp_axis is not None:
+            amax = tp.all_reduce(amax, plan.tp_axis, "forward",
+                                 kind="all-reduce-max")
+        k, ks = _quant_rows(k, cache["k"].dtype, amax[..., 0])
+        v, vs = _quant_rows(v, cache["v"].dtype, amax[..., 1])
         scatter(cache["k_scale"], ks)
         scatter(cache["v_scale"], vs)
     scatter(cache["k"], k)
@@ -366,7 +390,7 @@ def _gqa_paged_qkv_scatter(p, cfg, x, cache, block_tables, pos, n_valid,
     q, k, v = gqa_qkv(p, cfg, x, positions)
     k, v = _kv_group_slice(k, v, cfg, plan)
     _scatter_kv(cache, k, v, lambda pool, vals: paged_scatter(
-        pool, vals, block_tables, pos, n_valid, page))
+        pool, vals, block_tables, pos, n_valid, page), plan)
     return q, positions
 
 
@@ -445,7 +469,7 @@ def gqa_packed_apply(p, cfg, x, cache, block_tables, tok_slot, tok_pos, *,
     q, k, v = gqa_qkv(p, cfg, x, positions)                   # (1, T, H, Dh)
     k, v = _kv_group_slice(k, v, cfg, plan)
     _scatter_kv(cache, k[0], v[0], lambda pool, vals: packed_scatter(
-        pool, vals, block_tables, tok_slot, tok_pos, page))
+        pool, vals, block_tables, tok_slot, tok_pos, page), plan)
     if _gathered(cfg, window):
         o = _packed_gather_attention(q[0], cache, block_tables, tok_slot,
                                      tok_pos, window,

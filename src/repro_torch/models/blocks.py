@@ -118,7 +118,8 @@ def _cached_attention(p, cfg, h, cache, block_tables, pos, n_valid,
         return A.mla_paged_apply(p["attn"], cfg, h, cache, block_tables,
                                  pos, n_valid)
     if plan.phase is Phase.DECODE:
-        return A.gqa_decode(p["attn"], cfg, h, cache, pos, window=window)
+        return A.gqa_decode(p["attn"], cfg, h, cache, pos, window=window,
+                            plan=plan)
     if tok_slot is not None:
         return A.gqa_packed_apply(p["attn"], cfg, h, cache, block_tables,
                                   tok_slot, tok_pos, window=window, plan=plan)

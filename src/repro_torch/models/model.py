@@ -40,7 +40,8 @@ included, and ``tp_sync_grads`` sums the replicated leaves' partial
 gradients after the backward.  The MTP head runs outside the stack on the
 whole hidden states (reference ``:1097``), so its leaves' gradients are
 whole on every rank and are not summed.  The serving ticks, contiguous
-and paged, refuse a sharded plan.
+and paged, run the same blocks under such a plan (``serving_plan``):
+each rank holds its shard and its KV heads' caches, in lockstep.
 
 Parameters are a dict tree in the reference's layout, except that the
 stacked ``blocks_dense`` and ``blocks_moe`` leaves (leading layer axis)
@@ -84,7 +85,8 @@ import torch.utils.checkpoint
 
 from repro_torch.core import fal
 from repro_torch.core import tp
-from repro_torch.core.plan import ExecutionPlan, Phase, kv_replicated
+from repro_torch.core.plan import (EXPLICIT_TP_FAMILIES, ExecutionPlan,
+                                   Phase, kv_replicated, local_kv_heads)
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as BL
@@ -488,23 +490,33 @@ def _stacked(cfg, c0):
     return {"block0": c0, "blocks": _stacked_n(c0, cfg.n_layers - 1)}
 
 
-def _decoder_init_cache(cfg, batch, seq, dtype, device):
-    mk = A.mla_init_cache if cfg.use_mla else A.gqa_init_cache
-    return _stacked(cfg, mk(cfg, batch, seq, dtype, device))
+def _decoder_init_cache(cfg, batch, seq, dtype, device, tp_size=1):
+    if cfg.use_mla:
+        return _stacked(cfg, A.mla_init_cache(cfg, batch, seq, dtype, device))
+    return _stacked(cfg, A.gqa_init_cache(
+        cfg, batch, seq, dtype, device,
+        n_kv_heads=local_kv_heads(cfg, tp_size)))
 
 
-def init_cache(cfg, batch, seq, dtype="bfloat16", device=None):
+def init_cache(cfg, batch, seq, dtype="bfloat16", device=None, tp_size=1):
     """Contiguous KV cache for ``decode_step``: block 0's (B, S, Hkv, Dh)
     K and V, and one (n_layers - 1, B, S, Hkv, Dh) tensor per K and per V
     for the other layers (the paged cache's stacking), zeros in
     ``dtype``; under MLA the latent ``c`` (B, S, rkv) and rope key ``kr``
-    (B, S, dr) stacked likewise.  The other families' caches are the
+    (B, S, dr) stacked likewise.  ``tp_size``: the ranks of an explicit-TP
+    plan; each rank's cache holds its ``local_kv_heads`` (MLA's latents
+    stay whole on every rank).  The other families' caches are the
     reference's: ``_mamba_init_cache``, ``_zamba_init_cache``,
-    ``_whisper_init_cache``."""
+    ``_whisper_init_cache``; they have no TP cache."""
     check_supported(cfg)
+    device = resolve_device(device)
+    if cfg.family in PAGED_FAMILIES:
+        return _decoder_init_cache(cfg, batch, seq, _dtype(dtype), device,
+                                   tp_size)
+    _refuse_tp_family(cfg, tp_size)
     fn = {"ssm": _mamba_init_cache, "hybrid": _zamba_init_cache,
-          "audio": _whisper_init_cache}.get(cfg.family, _decoder_init_cache)
-    return fn(cfg, batch, seq, _dtype(dtype), resolve_device(device))
+          "audio": _whisper_init_cache}[cfg.family]
+    return fn(cfg, batch, seq, _dtype(dtype), device)
 
 
 def _decoder_decode(p, cfg, batch, cache, plan):
@@ -514,11 +526,8 @@ def _decoder_decode(p, cfg, batch, cache, plan):
     tokens, pos = batch["tokens"], batch["pos"]
     x = _embed_tokens(p, cfg, tokens, pos[:, None])
     x = _splice_image(cfg, batch, x, pos[:, None])
-    x, a1_raw, _ = BL.block_apply(p["block0"], cfg, x, None,
-                                  kind=_layer_kind(cfg, 0), is_block0=True,
-                                  plan=plan, cache=cache["block0"], pos=pos,
-                                  window=BL.window_schedule(cfg)[0])
-    a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
+    x, _, a1_sig = _serve_block0(p, cfg, x, plan, cache=cache["block0"],
+                                 pos=pos)
     x = _decoder_layer_stack(p, cfg, x, a1_sig, pos, cache["blocks"], plan,
                              block_tables=None)
     return _logits(p, cfg, x), cache
@@ -528,10 +537,11 @@ def decode_step(params, cfg, batch, cache, plan=None):
     """One token a lane against the contiguous cache (``init_cache``):
     batch {"tokens" (B, 1), "pos" (B,)} -> (logits (B, 1, V), cache updated
     in place).  ``plan`` may carry ``dual_branch`` (fal / parallel /
-    ablation2 only); a sharded plan raises, as the paged ticks do."""
+    ablation2 only), and, for the decoder families, an explicit-TP group:
+    ``params`` is then this rank's shard and ``cache`` this rank's
+    (``init_cache(..., tp_size=)``); see ``serving_plan``."""
     check_supported(cfg)
-    plan = ExecutionPlan.resolve(plan).with_phase(Phase.DECODE).validate(cfg)
-    _refuse_sharded(plan)
+    plan = serving_plan(params, cfg, plan, Phase.DECODE)
     fn = {"ssm": _mamba_decode, "hybrid": _zamba_decode,
           "audio": _whisper_decode}.get(cfg.family, _decoder_decode)
     return fn(params, cfg, batch, cache, plan)
@@ -541,7 +551,7 @@ def decode_step(params, cfg, batch, cache, plan=None):
 # paged cache and the paged ticks
 # ------------------------------------------------------------------------- #
 def init_paged_cache(cfg, num_pages, page_size, slots, dtype="bfloat16",
-                     kv_dtype="", device=None):
+                     kv_dtype="", device=None, tp_size=1):
     """Paged KV cache: block 0's (P, page, Hkv, Dh) pools, one
     (n_layers - 1, P, page, Hkv, Dh) tensor per K and per V for the other
     layers, and the per-slot FAL signal (slots, d_model) in ``dtype``.  Page
@@ -550,8 +560,14 @@ def init_paged_cache(cfg, num_pages, page_size, slots, dtype="bfloat16",
     (P, page) fp32 ``k_scale`` / ``v_scale`` pools, stacked likewise.
     Under MLA the pools are the latent ``c`` (P, page, rkv) and rope key
     ``kr`` (P, page, dr), and a ``kv_dtype`` raises, as in the
-    reference.  The families without a paged cache raise the reference's
-    NotImplementedError."""
+    reference.  ``tp_size``: the ranks of an explicit-TP plan; each rank's
+    pools hold its ``local_kv_heads`` (``Hkv / tp``, or the one KV head its
+    query heads attend when ``n_kv_heads < tp``), its scale pools one
+    scale a row as on one device; MLA's latent pools are whole on every
+    rank (the reference shards their sequence over ``model``,
+    ``launch/mesh.py:184-186``: the same function, tp times the bytes) and
+    so is ``a1_sig``.  The families without a paged cache raise the
+    reference's NotImplementedError."""
     check_supported(cfg)
     _refuse_unpaged(cfg, "paged KV cache")
     device = resolve_device(device)
@@ -564,10 +580,32 @@ def init_paged_cache(cfg, num_pages, page_size, slots, dtype="bfloat16",
         c0 = A.mla_init_paged_cache(cfg, num_pages, page_size, dt, device)
     else:
         c0 = A.gqa_init_paged_cache(cfg, num_pages, page_size, dt, device,
-                                    kv_dtype=kv_dtype)
+                                    kv_dtype=kv_dtype,
+                                    n_kv_heads=local_kv_heads(cfg, tp_size))
     return {**_stacked(cfg, c0),
             "a1_sig": torch.zeros((slots, cfg.d_model), dtype=dt,
                                   device=device)}
+
+
+def _serve_block0(p, cfg, x, plan, **kw):
+    """Block 0 of a serving tick -> (x, a_raw, a1_sig): its output, its MHA
+    output and the first-attention signal the later blocks take (None for
+    the modes without one).  Under an explicit-TP plan it is
+    ``blocks.block_apply_tp`` over this rank's shard, whose export is the
+    signal, exactly as in ``decoder_stack_tp``; ``a_raw`` is then this
+    rank's partial sum where block 0 does not assemble its attention
+    (``parallel``, whose ticks never read it).  ``kw``: the tick's cache
+    arguments."""
+    kind, window = _layer_kind(cfg, 0), BL.window_schedule(cfg)[0]
+    if plan.use_explicit_tp:
+        x, a_raw, sig, _ = BL.block_apply_tp(
+            p["block0"], cfg, x, None, kind=kind, is_block0=True,
+            plan=plan.inner(), window=window, **kw)
+        return x, a_raw, sig
+    x, a_raw, _ = BL.block_apply(p["block0"], cfg, x, None, kind=kind,
+                                 is_block0=True, plan=plan, window=window,
+                                 **kw)
+    return x, a_raw, fal.first_attention_signal(cfg, p["block0"], a_raw)
 
 
 def _decoder_layer_stack(p, cfg, x, a1_sig, pos, blocks_cache, plan, *,
@@ -580,9 +618,15 @@ def _decoder_layer_stack(p, cfg, x, a1_sig, pos, blocks_cache, plan, *,
     the first ``limit`` layers (the speculative draft's early exit); the
     pools of the layers past it are not touched.  Each layer attends with
     its window from ``window_schedule`` (``wsched[1:]``) and its FFN kind
-    from ``layer_kinds``; the MoE layers' aux is not used when serving."""
+    from ``layer_kinds``; the MoE layers' aux is not used when serving.
+    Under an explicit-TP plan every block sees ``plan.inner()``, so it runs
+    ``blocks.block_apply_tp`` (or, under ``dual_branch``, the MHA || MLP
+    block that merges both partials before its one all-reduce) on this
+    rank's shard and this rank's pools."""
     wsched = BL.window_schedule(cfg)[1:]
     kinds = layer_kinds(cfg)[1:]
+    if plan.use_explicit_tp:
+        plan = plan.inner()
     for i, pb in enumerate(p["blocks"][:limit]):
         layer_cache = {k: v[i] for k, v in blocks_cache.items()}
         x, _, _ = BL.block_apply(pb, cfg, x, a1_sig, kind=kinds[i],
@@ -610,12 +654,9 @@ def _decoder_paged_decode(p, cfg, batch, cache, plan, want="logits"):
     positions = pos[:, None] + torch.arange(C, device=pos.device)[None]
     x = _splice_image(cfg, batch, _embed_tokens(p, cfg, tokens, positions),
                       positions)
-    x, a1_raw, _ = BL.block_apply(p["block0"], cfg, x, None,
-                                  kind=_layer_kind(cfg, 0), is_block0=True,
-                                  plan=plan, cache=cache["block0"],
-                                  block_tables=bt, pos=pos, n_valid=n_valid,
-                                  window=BL.window_schedule(cfg)[0])
-    a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
+    x, a1_raw, a1_sig = _serve_block0(p, cfg, x, plan, cache=cache["block0"],
+                                      block_tables=bt, pos=pos,
+                                      n_valid=n_valid)
 
     # stash each lane's export at its last valid position before the
     # steady-state stack runs; lanes sitting this tick out (n_valid == 0)
@@ -652,13 +693,9 @@ def _decoder_paged_packed(p, cfg, batch, cache, plan, want="logits"):
     x = _splice_image(cfg, batch,
                       _embed_tokens(p, cfg, tokens[None], positions),
                       positions)
-    x, a1_raw, _ = BL.block_apply(p["block0"], cfg, x, None,
-                                  kind=_layer_kind(cfg, 0), is_block0=True,
-                                  plan=plan, cache=cache["block0"],
-                                  block_tables=bt, tok_slot=tok_slot,
-                                  tok_pos=tok_pos,
-                                  window=BL.window_schedule(cfg)[0])
-    a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
+    x, a1_raw, a1_sig = _serve_block0(p, cfg, x, plan, cache=cache["block0"],
+                                      block_tables=bt, tok_slot=tok_slot,
+                                      tok_pos=tok_pos)
 
     # refresh the per-slot FAL export from each active segment's LAST
     # packed token; slots sitting this tick out keep their cached signal
@@ -688,30 +725,56 @@ def _decoder_paged_packed_draft(p, cfg, batch, cache, plan, draft_blocks):
     positions = tok_pos.clamp(min=0)[None]                      # (1, T)
     with ops.dispatch_site_suffix("draft"):
         x = _embed_tokens(p, cfg, tokens[None], positions)
-        x, a1_raw, _ = BL.block_apply(p["block0"], cfg, x, None,
-                                      kind=_layer_kind(cfg, 0),
-                                      is_block0=True, plan=plan,
-                                      cache=cache["block0"], block_tables=bt,
-                                      tok_slot=tok_slot, tok_pos=tok_pos,
-                                      window=BL.window_schedule(cfg)[0])
-        a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
+        x, _, a1_sig = _serve_block0(p, cfg, x, plan, cache=cache["block0"],
+                                     block_tables=bt, tok_slot=tok_slot,
+                                     tok_pos=tok_pos)
         x = _decoder_layer_stack(p, cfg, x, a1_sig, None, cache["blocks"],
                                  plan, block_tables=bt, tok_slot=tok_slot,
                                  tok_pos=tok_pos, limit=draft_blocks - 1)
     return x, cache
 
 
-def _refuse_sharded(plan):
-    if plan.is_sharded:
+def _refuse_tp_family(cfg, tp_size):
+    if tp_size > 1 and cfg.family not in EXPLICIT_TP_FAMILIES:
         raise NotImplementedError(
-            "tensor parallelism in the serving ticks is not ported yet "
-            "(ROADMAP.md Queue 1); core.tp.make_tp_decode_step runs one "
-            "block's padded decode tick under explicit TP")
+            f"family '{cfg.family}' under a tensor-parallel group: it has "
+            f"no explicit-TP stack (decoder families only: "
+            f"{EXPLICIT_TP_FAMILIES}; ROADMAP.md)")
+
+
+def serving_plan(params, cfg, plan, phase):
+    """The plan of a serving tick, pinned to ``phase`` and validated.  A
+    plan over a process group serves only under ``tp='explicit'`` and only
+    the decoder families (``EXPLICIT_TP_FAMILIES``); ``params`` must then
+    be this rank's shard (``_check_shards``).  A data group raises: a data
+    replica is an engine of its own.
+
+    Under explicit TP every rank runs the same tick on the same replicated
+    batch in lockstep: the embedding, the head, ``a1_sig`` and the image
+    prefix are replicated, the blocks run ``blocks.block_apply_tp`` on
+    this rank's heads and FFN columns (or experts) and their pools, and
+    each block's sum all-reduce makes the residual stream the same bytes
+    on every rank (the forward's L + 1 all-reduces under fal, 2L under
+    preln / falplus).  On int8 / fp8 pages each layer adds one MAX
+    all-reduce of its rows' K / V amax (``attention._scatter_kv``), so
+    every rank quantizes with the one-device scale."""
+    plan = ExecutionPlan.resolve(plan).with_phase(phase)
     if plan.data_group is not None:
         raise ValueError(
             "a data-parallel group in a serving tick: a data replica is a "
             "separate engine (one per rank), and a tick never reduces over "
             "replicas")
+    if plan.is_sharded:
+        _refuse_tp_family(cfg, plan.tp_size)
+        if not plan.use_explicit_tp:
+            raise NotImplementedError(
+                f"a serving tick over a process group needs tp='explicit' "
+                f"(got tp='{plan.tp.value}'): the port's serving ticks "
+                f"shard only through the explicit partial-sum blocks")
+    plan.validate(cfg)
+    if plan.use_explicit_tp:
+        _check_shards(params, cfg, plan.tp_size)
+    return plan
 
 
 def paged_decode_step(params, cfg, batch, cache, plan=None, want="logits"):
@@ -723,14 +786,12 @@ def paged_decode_step(params, cfg, batch, cache, plan=None, want="logits"):
       * padded chunk (tokens (B, C) with per-lane ``pos`` / ``n_valid``):
         see ``_decoder_paged_decode``; (B, C, V) / (B, C, D).
 
-    ``plan`` may carry ``dual_branch`` (fal / parallel / ablation2 only).
-    Tensor parallelism in the paged engine is not ported (ROADMAP.md Queue
-    1): a sharded plan raises; ``core.tp.make_tp_decode_step`` runs one
-    block's tick under TP."""
+    ``plan`` may carry ``dual_branch`` (fal / parallel / ablation2 only)
+    and an explicit-TP group (``serving_plan``: ``params`` and ``cache``
+    are then this rank's, ``init_paged_cache(..., tp_size=)``)."""
     check_supported(cfg)
     _refuse_unpaged(cfg, "paged decode")
-    plan = ExecutionPlan.resolve(plan).with_phase(Phase.PAGED).validate(cfg)
-    _refuse_sharded(plan)
+    plan = serving_plan(params, cfg, plan, Phase.PAGED)
     if "tok_slot" in batch:
         return _decoder_paged_packed(params, cfg, batch, cache, plan,
                                      want=want)
@@ -751,8 +812,7 @@ def paged_spec_draft(params, cfg, batch, cache, plan=None, *, draft_blocks=1):
             f"draft_blocks={draft_blocks} must satisfy 1 <= draft_blocks "
             f"< n_layers={cfg.n_layers} (== n_layers would be the full "
             f"model, not a draft)")
-    plan = ExecutionPlan.resolve(plan).with_phase(Phase.PAGED).validate(cfg)
-    _refuse_sharded(plan)
+    plan = serving_plan(params, cfg, plan, Phase.PAGED)
     return _decoder_paged_packed_draft(params, cfg, batch, cache, plan,
                                        draft_blocks)
 

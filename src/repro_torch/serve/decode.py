@@ -60,8 +60,10 @@ def make_serve_step(cfg, plan=None, dual_branch=False):
     """serve_step(params, cache, tokens (B, 1), pos (B,)) -> (next_token
     (B,) int32, logits (B, 1, V), cache updated in place): greedy argmax.
 
-    ``plan``'s phase is pinned to decode.  ``dual_branch=True`` (or a plan
-    with ``dual_branch`` set) runs the blocks after block 0 as MHA || MLP,
+    ``plan``'s phase is pinned to decode; an explicit-TP plan runs the
+    sharded blocks (``models.model.serving_plan``; ``params`` and ``cache``
+    this rank's).  ``dual_branch=True`` (or a plan with ``dual_branch``
+    set) runs the blocks after block 0 as MHA || MLP,
     valid only for connections whose MLP input does not read the block's
     own attention (``plan.validate`` rejects the rest)."""
     plan = ExecutionPlan.resolve(plan).with_phase(Phase.DECODE)
@@ -126,7 +128,11 @@ class ContinuousBatcher:
     cache.
 
     ``device``: where the cache lives and the params must be; None means
-    ``cuda`` and raises without one.  ``metrics``: a ``MetricsRegistry``
+    ``cuda`` and raises without one.  ``plan``: None or an explicit-TP
+    plan (``ExecutionPlan.from_group(group, tp="explicit")``) with
+    ``params`` this rank's shard: one batcher a rank, fed the same
+    requests, in lockstep; its cache holds this rank's KV heads and the
+    greedy ids are the same on every rank.  ``metrics``: a ``MetricsRegistry``
     (one per batcher when omitted) holding ``batcher_ticks_total``,
     ``batcher_dispatches_total`` and ``batcher_occupancy``."""
 
@@ -141,7 +147,8 @@ class ContinuousBatcher:
         self.B = batch_slots
         self.max_seq = max_seq
         self.cache = M.init_cache(cfg, batch_slots, max_seq, cache_dtype,
-                                  device=self.device)
+                                  device=self.device,
+                                  tp_size=self.plan.tp_size)
         self.serve_step = make_serve_step(cfg, self.plan)
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self.queue: List[Request] = []

@@ -310,6 +310,16 @@ class PagedEngine:
     """Slot-based continuous batching over paged KV (the dense and MoE
     decoders, GQA or MLA; a VLM config with an image prefix raises).
 
+    ``plan``: None (one device) or ``ExecutionPlan.from_group(group,
+    tp="explicit")``, with ``params`` this rank's shard
+    (``launch.mesh.shard_params``): one engine a rank, fed the same
+    requests in the same order, in lockstep.  Each rank's pools hold its KV
+    heads; every host decision (admission, page allocation, preemption,
+    prefix match and copy-on-write, speculative acceptance, seeded
+    sampling) reads only replicated values (the logits and sampled ids,
+    the same bytes on every rank after each block's all-reduce), so the
+    ranks decide alike with no collective of their own.
+
     ``device``: where the model and cache live; None means ``cuda`` and
     raises without one.  ``metrics``: a ``MetricsRegistry`` (one per engine
     when omitted).  ``tracer``: a ``Tracer``; the default records nothing."""
@@ -352,16 +362,17 @@ class PagedEngine:
                 f"{seg} packed rows per decode lane)")
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        self.plan = ExecutionPlan.resolve(plan).with_phase(Phase.PAGED)
+        self.plan = ExecutionPlan.resolve(plan)
         if engine_cfg.dual_branch:
             self.plan = self.plan.with_dual_branch()
-        self.plan.validate(cfg)
+        self.plan = M.serving_plan(params, cfg, self.plan, Phase.PAGED)
         self.max_blocks = pages_needed(engine_cfg.max_seq,
                                        engine_cfg.page_size)
         self.cache = M.init_paged_cache(
             cfg, engine_cfg.num_pages, engine_cfg.page_size,
             engine_cfg.slots, engine_cfg.cache_dtype,
-            kv_dtype=engine_cfg.kv_dtype, device=self.device)
+            kv_dtype=engine_cfg.kv_dtype, device=self.device,
+            tp_size=self.plan.tp_size)
         # the tick's model call with the greedy, fast or full-sort sampler,
         # built on first use (``_step_for``)
         self._step_fns = {}

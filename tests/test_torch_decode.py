@@ -165,15 +165,32 @@ def test_dual_branch_bit_exact_contiguous_decode(connection):
 
 
 def test_sharded_plan_refused():
-    """Tensor parallelism in the serving ticks is not ported: a plan over a
-    process group raises, as it does for the paged ticks."""
+    """The serving ticks run under an explicit-TP plan
+    (``test_torch_tp_serving.py``); what still raises: a process group
+    without ``tp='explicit'``, a data-parallel group (a data replica is an
+    engine of its own) and the families without an explicit-TP stack
+    (ssm / hybrid / audio) under a group."""
+    import types
     _, _, tcfg, tparams = _models("llama3.2-3b", "fal")
-    plan = TPlan.from_group(object(), tp="none", phase="decode")
+    group = types.SimpleNamespace(size=lambda: 2, rank=lambda: 0)
     cache = TM.init_cache(tcfg, B, S, "float32", device="cpu")
     batch = {"tokens": torch.zeros((B, 1), dtype=torch.int32),
              "pos": torch.zeros((B,), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="not ported"):
+    plan = TPlan.from_group(group, tp="none", phase="decode")
+    with pytest.raises(NotImplementedError, match="tp='explicit'"):
         TM.decode_step(tparams, tcfg, batch, cache, plan)
+    with pytest.raises(NotImplementedError, match="tp='explicit'"):
+        TM.paged_decode_step(tparams, tcfg, {"tok_slot": None}, None, plan)
+    dp = TPlan.from_group(None, tp="none", data_group=group)
+    with pytest.raises(ValueError, match="separate engine"):
+        TM.decode_step(tparams, tcfg, batch, cache, dp)
+    ssm = get_config("mamba2-370m").reduced()
+    for tp_style in ("none", "explicit"):
+        with pytest.raises(NotImplementedError, match="no explicit-TP"):
+            TM.decode_step(None, ssm, batch, None,
+                           TPlan.from_group(group, tp=tp_style))
+    with pytest.raises(NotImplementedError, match="no explicit-TP"):
+        TM.init_cache(ssm, B, S, "float32", device="cpu", tp_size=2)
 
 
 def test_prefill_then_decode_matches_reference():
