@@ -225,6 +225,18 @@ script exits non-zero:
                  magnitudes, Fig 4b / 3b ablation perplexities) on the
                  card (flash forward and backward kernels) and on the CPU
                  on the same weights: parity gated, findings printed
+ 13c. dry run    (right after phase 13) the meta route's workspace sizes
+                 against the libraries' sizing functions; then
+                 launch/dryrun.py's lower_pair on
+                 the meta device (no card) for phase 13's workload at
+                 model 1 x data 1: its argument bytes equal the state and
+                 tokens phase 13 built, its peak within DRYRUN_PEAK_RTOL
+                 of phase 13's max_memory_allocated; its flops over the
+                 measured step time as TFLOP/s
+ 19. examples    examples/torch_*.py at their defaults, each in a process
+                 of its own, started together: exit 0 (their own asserts),
+                 cuda-kernel on every dispatch site, and the kernels of
+                 EXAMPLES launched
 
 The serving phases (5 to 11a, 14, 15) also launch fused_ln_add: one per layer
 per tick under fal (on the contiguous cache the only kernel a tick runs).
@@ -249,6 +261,7 @@ import pathlib
 import re
 import statistics
 import subprocess
+import tempfile
 import sys
 import time
 
@@ -4324,7 +4337,192 @@ def train_phase():
               f"device time ({flash_ms / device_ms:.3f}): " + ", ".join(
                   f"{name} {kms:.2f} ms in {c}" for name, kms, c in flash))
     sys.stdout.flush()
-    return {k: counts[k] for k in want}, dict(step_ms=ms, peak=peak)
+    state_bytes = sum(t.numel() * t.element_size() for _, t in
+                      adamw.named_leaves({"params": state["params"],
+                                          "m": state["opt"]["m"],
+                                          "v": state["opt"]["v"]}))
+    return {k: counts[k] for k in want}, dict(
+        step_ms=ms, peak=peak, state_bytes=state_bytes, B=B, S=S,
+        steps=steps)
+
+
+# --------------------------------------------------------------------------- #
+# the dry run against the card
+# --------------------------------------------------------------------------- #
+#: the dry run's predicted peak against train_phase's max_memory_allocated
+DRYRUN_PEAK_RTOL = 0.05
+
+
+def check_meta_workspaces():
+    """The meta route's workspace sizes (Python mirrors of the sources'
+    layouts) against the built libraries' own sizing functions, over
+    edge shapes: equal bytes, or the gate fails."""
+    from repro_torch.kernels import dual_branch as DB
+    from repro_torch.kernels import paged_attention as PA
+    lib, dlib = PA._lib(), DB._lib()
+    n = 0
+    for (H, Hkv, D), page, Tb, rows, kv in itertools.product(
+            ((24, 8, 128), (32, 8, 64), (8, 8, 32), (16, 2, 128)), (4, 16),
+            (1, 4, 16, 64, 130), (1, 8, 263), (1, 2, 3)):
+        want = (lib.paged_packed_workspace_bytes(rows, H, Hkv, D, page, Tb,
+                                                 1, kv),
+                lib.paged_decode_workspace_bytes(rows, H, Hkv, D, page, Tb,
+                                                 1, kv),
+                lib.paged_chunk_workspace_bytes(rows, 37, H, Hkv, D, page,
+                                                Tb, 1, kv))
+        got = (PA.packed_workspace_size(rows, H, Hkv, D, page, Tb),
+               PA.decode_workspace_size(rows, H, D, page, Tb),
+               PA.chunk_workspace_size(rows, 37, H, Hkv, D, page, Tb))
+        require(got == want, f"meta workspaces {got} != the library's {want}"
+                f" at H={H} Hkv={Hkv} D={D} page={page} Tb={Tb} rows={rows} "
+                f"kv_type={kv}")
+        for Dm, F, bf16 in ((3072, 8192, 1), (128, 200, 1), (128, 256, 0)):
+            want = dlib.fused_dual_branch_workspace_bytes(
+                rows, H, Hkv, D, page, Tb, Dm, F, bf16, bf16)
+            got = DB.workspace_size(rows, H, D, page, Tb, Dm, F, bf16, bf16)
+            require(got == want, f"meta dual workspace {got} != {want}")
+        n += 1
+    print(f"  meta-route workspaces equal the libraries' sizing at {n} "
+          f"shapes (packed, decode, chunk, dual)", flush=True)
+
+
+def dryrun_phase(train):
+    """``launch/dryrun.py``'s ``lower_pair`` at model 1 x data 1 for
+    train_phase's own workload (llama3.2-3b, full depth, fp32 masters, bf16
+    compute, remat, B = 1, S = 2048), run on the ``meta`` device (no
+    card), held against the numbers train_phase measured on the card: its
+    state's bytes, its ``max_memory_allocated`` and its step time."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as DR
+    B, S = train["B"], train["S"]
+    phase(f"dry run (meta device) of the train phase's workload: "
+          f"llama3.2-3b, B={B}, S={S}, model 1 x data 1")
+    check_meta_workspaces()
+    info = DR.lower_pair("llama3.2-3b", ShapeConfig("train_phase", S, B,
+                                                    "train"), DR.Mesh(1, 1, 1))
+    mem, gib = info["memory"], 2 ** 30
+    batch_bytes = B * S * 4                  # the trainer's int32 tokens
+    arg_want = train["state_bytes"] + batch_bytes
+    peak, measured = mem["peak_bytes"], train["peak"]
+    err = (peak - measured) / measured
+    transient, measured_transient = peak - mem["argument_bytes"], \
+        measured - arg_want
+    tflops = info["cost"]["flops"] / (train["step_ms"] * 1e-3) / 1e12
+    print(f"  traced in {info['trace_s']:.2f} s on the host; argument bytes "
+          f"{mem['argument_bytes']} ({mem['argument_bytes'] / gib:.3f} GiB; "
+          f"the card's state {train['state_bytes']} + tokens "
+          f"{batch_bytes}); peak predicted {peak / gib:.3f} GiB vs "
+          f"max_memory_allocated {measured / gib:.3f} GiB ({err:+.4f}); "
+          f"transient (peak - arguments) predicted "
+          f"{transient / gib:.3f} GiB vs measured "
+          f"{measured_transient / gib:.3f} GiB, the card's extra "
+          f"{(measured - peak) / 2**20:.1f} MiB (the tracker sees no "
+          f"allocator rounding and no cuBLAS workspace); flops "
+          f"{info['cost']['flops']:.4g} a step "
+          f"({info['cost']['kernel_flops']:.4g} in the kernels' meta "
+          f"counts) over the measured "
+          f"{train['step_ms']:.1f} ms: {tflops:.1f} TFLOP/s", flush=True)
+    require(mem["argument_bytes"] == arg_want,
+            f"dry-run arguments {mem['argument_bytes']} != the card's "
+            f"state + tokens {arg_want}")
+    require(abs(err) <= DRYRUN_PEAK_RTOL,
+            f"dry-run peak {peak} vs measured {measured}: {err:+.4f}")
+    require(info["dispatch_paths"] == {"flash_attention": "meta-shape",
+                                       "fused_ln_add": "meta-shape"},
+            f"dry-run paths {info['dispatch_paths']}")
+    return dict(peak=peak, measured=measured, rel_err=err, tflops=tflops,
+                flops=info["cost"]["flops"], trace_s=info["trace_s"])
+
+
+# --------------------------------------------------------------------------- #
+# the examples on the card
+# --------------------------------------------------------------------------- #
+#: each example twin and the kernels its run must launch (its own process;
+#: the quickstart's TP ranks count apart), as the first run on the card
+#: launched them; the serving example's dual engine runs the packed layout,
+#: whose attention and FFN are two ops, so fused_dual_branch_decode is not
+#: among them
+EXAMPLES = {
+    "torch_train_fal_vs_baseline": ("flash_attention", "flash_attention.bwd",
+                                    "fused_ln_add", "fused_ln_add.bwd"),
+    "torch_quickstart": ("flash_attention", "flash_attention.bwd",
+                         "fused_ln_add", "fused_ln_add.bwd"),
+    "torch_serve_requests": ("paged_packed_attention",
+                             "paged_packed_attention.int8", "fused_ln_add",
+                             "page_copy"),
+}
+EXAMPLE_TIMEOUT = 600
+_EXAMPLE_MAIN = """
+import json, runpy, sys
+sys.argv = [sys.argv[1]]
+from repro_torch.kernels import ops
+main = runpy.run_path(sys.argv[0], run_name="example")["main"]
+out = main([])
+print("EXAMPLE " + json.dumps({
+    "launches": ops.launch_counts(), "paths": ops.dispatch_paths(),
+    "rank_launches": (out or {}).get("rank_launches")}))
+"""
+
+
+def examples_phase():
+    """The three example twins at their defaults, each in a process of its
+    own, all started together, in a temporary working directory: each must
+    exit 0 (its own asserts met), report ``cuda-kernel`` on every dispatch
+    site and launch the kernels ``EXAMPLES`` names."""
+    phase("examples on the card: " + ", ".join(EXAMPLES))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="examples_") as tmp:
+        procs = {}
+        for name in EXAMPLES:
+            log = open(os.path.join(tmp, f"{name}.log"), "w")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-c", _EXAMPLE_MAIN,
+                 str(ROOT / "examples" / f"{name}.py")], cwd=tmp, env=env,
+                stdout=log, stderr=subprocess.STDOUT), log)
+        try:
+            for name, (proc, log) in procs.items():
+                try:
+                    rc = proc.wait(timeout=max(
+                        1.0, EXAMPLE_TIMEOUT - (time.perf_counter() - t0)))
+                except subprocess.TimeoutExpired:
+                    rc = "timeout"
+                log.close()
+                with open(log.name) as f:
+                    text = f.read()
+                secs = time.perf_counter() - t0
+                lines = [ln for ln in text.splitlines()
+                         if ln.startswith("EXAMPLE ")]
+                print(f"  {name}: exit {rc} after {secs:.1f} s; its "
+                      f"output:\n    " + "\n    ".join(
+                          ln[:200] for ln in text.splitlines()
+                          if not ln.startswith("EXAMPLE ")), flush=True)
+                require(rc == 0 and lines, f"{name} failed (exit {rc}):\n"
+                        + text[-3000:])
+                out[name] = json.loads(lines[-1][len("EXAMPLE "):])
+        finally:
+            for proc, log in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+    for name, want in EXAMPLES.items():
+        got = out[name]
+        launched = {k: n for k, n in got["launches"].items() if n}
+        print(f"  {name}: launches {launched}; paths {got['paths']}"
+              + (f"; rank 0's launches "
+                 f"{ {k: n for k, n in got['rank_launches'].items() if n} }"
+                 if got["rank_launches"] else ""), flush=True)
+        require(got["paths"] and all(
+            p == "cuda-kernel" for p in got["paths"].values()),
+            f"{name}: dispatch paths {got['paths']}")
+        require(all(got["launches"].get(k, 0) > 0 for k in want),
+                f"{name}: expected launches of {want}, got {launched}")
+    print(f"  examples: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {name: r["launches"] for name, r in out.items()}
 
 
 # --------------------------------------------------------------------------- #
@@ -7759,6 +7957,7 @@ def main():
     train_tick_phase()
     train_launches, train = train_phase()
     launches.update(train_launches)
+    dry = dryrun_phase(train)
     tp_launches, tp_step_ms, tp_serve_launches = tp_phase(smi)
     t_dp = time.perf_counter()
     dp_launches, dp = dp_phase(smi)
@@ -7792,6 +7991,7 @@ def main():
     analysis_launches = analysis_phase()
     print(f"  analysis phase: {time.perf_counter() - t_an:.1f} s",
           flush=True)
+    example_launches = examples_phase()
     src = "src/repro_torch/kernels/csrc/"
     pa = "src/repro/kernels/paged_attention.py"
     where = {
@@ -7889,6 +8089,9 @@ def main():
                 for a, r in fam_serve.items()}
             if f"{kname}.whisper" in errs:
                 entry["whisper_max_abs_err"] = errs[f"{kname}.whisper"]
+        # the example twins' runs at their defaults (phase 19)
+        entry["example_launches"] = {
+            name: n.get(kname, 0) for name, n in example_launches.items()}
         if kname in analysis_launches:
             # phase 18: core.analysis on the trained motivation model
             entry["analysis_launches"] = analysis_launches[kname]
@@ -7930,7 +8133,10 @@ def main():
                       f"train {fam_train[a]['step_ms']:.1f} ms/step"
                       for a in (SSM_ARCH, HYBRID_ARCH))
           + f"; {AUDIO_ARCH} {fam_serve[AUDIO_ARCH]['tok_s']:.1f} tok/s, "
-          f"train {fam_train[AUDIO_ARCH]['step_ms']:.1f} ms/step; card "
+          f"train {fam_train[AUDIO_ARCH]['step_ms']:.1f} ms/step; dry "
+          f"run peak {dry['peak'] / 2**30:.3f} GiB vs "
+          f"{dry['measured'] / 2**30:.3f} GiB measured "
+          f"({dry['rel_err']:+.4f}), {dry['tflops']:.1f} TFLOP/s; card "
           f"{smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

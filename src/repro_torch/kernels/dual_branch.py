@@ -22,6 +22,9 @@ block of ``csrc/paged_common.cuh``.
 
 ``fused_dual_branch_decode`` runs the plain version for CPU tensors and the
 kernel for CUDA tensors; on a CUDA tensor it launches the kernel or raises.
+On ``meta`` tensors it takes the meta route (``kernels/meta.py``): the
+outputs and the CUDA route's workspace (``workspace_size``), the attention's
+4 D flops a table key a query head plus the FFN's 2 Dm F a matrix a lane.
 ``LAUNCHES_FUSED`` counts kernel launches, and nothing else.
 """
 from __future__ import annotations
@@ -30,6 +33,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import meta
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.models import layers as L
 
@@ -148,12 +152,48 @@ def fused_dual_branch_decode_cuda(q, k_pages, v_pages, block_tables,
     return out, y
 
 
+def workspace_size(B, H, D, page, Tb, Dm, F, q_bf16, kv_bf16):
+    """``fused_dual_branch_workspace_bytes`` (``csrc/dual_branch.cu``): on
+    the bf16 route the decode splits' partials, then from a 16-byte
+    boundary the FFN tiles' fp32 partials a chunk of 8 lanes; else the
+    CUDA-core FFN's scratch."""
+    tiles = -(-F // FFN_TILE)
+    if q_bf16 and kv_bf16:
+        attn = _pa.decode_workspace_size(B, H, D, page, Tb)
+        return (attn + 15) // 16 * 16 + tiles * (-(-B // 8)) * Dm * 8 * 4
+    return tiles * B * Dm * 4
+
+
+def fused_dual_branch_decode_meta(q, k_pages, v_pages, block_tables,
+                                  seq_lens, x, ffn, *, kind="swiglu",
+                                  scale=None):
+    """The meta route: (attn, y) and the workspace, as the CUDA route
+    allocates them."""
+    B, H, D = q.shape
+    Dm, F = ffn["wi"].shape
+    out, y = torch.empty_like(q), torch.empty_like(x)
+    if B:
+        torch.empty(workspace_size(
+            B, H, D, k_pages.shape[1], block_tables.shape[1], Dm, F,
+            q.dtype == torch.bfloat16, k_pages.dtype == torch.bfloat16),
+            dtype=torch.uint8, device=q.device)
+    keys = block_tables.shape[1] * k_pages.shape[1]
+    mats = 2 if kind == "gelu" else 3
+    meta.add("fused_dual_branch_decode",
+             4 * D * keys * H * B + 2 * Dm * F * mats * B,
+             (q, k_pages, v_pages, block_tables, seq_lens, x,
+              *ffn.values()), (out, y))
+    return out, y
+
+
 def fused_dual_branch_decode(q, k_pages, v_pages, block_tables, seq_lens, x,
                              ffn, *, kind="swiglu", scale=None):
     """Fused dual-branch decode: the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors (never the plain version there).  q (B, H,
+    CUDA kernel for CUDA tensors (never the plain version there), the meta
+    route for ``meta`` tensors.  q (B, H,
     D); x (B, Dm) -> (attn (B, H, D), y (B, Dm))."""
-    fn = fused_dual_branch_decode_plain if q.device.type == "cpu" \
-        else fused_dual_branch_decode_cuda
+    fn = meta.route(q, fused_dual_branch_decode_plain,
+                    fused_dual_branch_decode_meta,
+                    fused_dual_branch_decode_cuda)
     return fn(q, k_pages, v_pages, block_tables, seq_lens, x, ffn, kind=kind,
               scale=scale)

@@ -43,7 +43,9 @@ The plain versions: the forward is ``models.attention.blockwise_attention``
 P.V product) beside the row log-sum-exp; the backward applies the kernel's
 formulas (P = exp(s - lse), dS = P * (dP - delta)) in fp32 torch ops.  They
 run for CPU tensors; on a CUDA tensor the wrappers launch the kernels or
-raise.  ``LAUNCHES`` counts the wrappers' launches: ``flash_attention`` one
+raise; on a ``meta`` tensor they take the meta route (``kernels/meta.py``:
+the CUDA route's outputs and ``lse`` / ``delta``, its flops counted, nothing
+computed).  ``LAUNCHES`` counts the wrappers' launches: ``flash_attention`` one
 per forward call, ``flash_attention.bwd`` one per backward call (its three
 kernels go down from one C entry point).
 """
@@ -51,7 +53,10 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
+
+from repro_torch.kernels import meta
 
 #: kernel launches since the last ``reset_launches()``, by kernel label
 LAUNCHES = {}
@@ -264,20 +269,69 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, dout, *, causal=True,
     return dq, dk, dv
 
 
+# --------------------------------------------------------------------------- #
+# the meta route
+# --------------------------------------------------------------------------- #
+def visible_pairs(Sq, Sk, *, causal=True, window=0, q_offset=0) -> int:
+    """(query row, key) pairs a head sees: key j visible to row i when j <=
+    q_offset + i (causal) and j > q_offset + i - window (window > 0)."""
+    i = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.minimum(Sk - 1, i) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, i - window + 1) if window > 0 else 0
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def forward_flops(q, k, *, causal=True, window=0, q_offset=0) -> int:
+    """The forward kernel's operations: 4 D a visible pair a head (QK^T and
+    PV, D the kernel's head dim)."""
+    B, Sq, H, D = q.shape
+    return 4 * D * B * H * visible_pairs(Sq, k.shape[1], causal=causal,
+                                         window=window, q_offset=q_offset)
+
+
+def flash_attention_fwd_meta(q, k, v, *, causal=True, window=0, cap=0.0,
+                             scale=None, q_offset=0):
+    """The forward's meta route -> (o, lse) as the CUDA route allocates
+    them."""
+    B, Sq, H, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    meta.add("flash_attention", forward_flops(
+        q, k, causal=causal, window=window, q_offset=q_offset),
+        (q, k, v), (o, lse))
+    return o, lse
+
+
+def flash_attention_bwd_meta(q, k, v, o, lse, dout, *, causal=True,
+                             window=0, cap=0.0, scale=None, q_offset=0):
+    """The backward's meta route -> (dq, dk, dv), with the CUDA route's
+    ``delta`` workspace; 2.5x the forward's flops."""
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty_like(lse)
+    flops = 2.5 * forward_flops(q, k, causal=causal, window=window,
+                                q_offset=q_offset)
+    meta.add("flash_attention.bwd", flops, (q, k, v, o, lse, dout),
+             (dq, dk, dv, delta))
+    return dq, dk, dv
+
+
 class FlashAttention(torch.autograd.Function):
     """o = attention(q, k, v); the kernels for CUDA tensors, the plain
-    versions for CPU tensors.  Saves q, k, v, o and lse for the backward;
-    under activation checkpointing the forward runs again and, being the
-    same kernel on the same inputs, gives the same bits."""
+    versions for CPU tensors, the meta route for ``meta`` tensors.  Saves
+    q, k, v, o and lse for the backward; under activation checkpointing
+    the forward runs again and, being the same kernel on the same inputs,
+    gives the same bits."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, q_offset, block_q, window, cap):
         args = dict(causal=causal, window=window, cap=cap, scale=scale,
                     q_offset=q_offset)
-        if q.device.type == "cuda":
-            o, lse = flash_attention_fwd_cuda(q, k, v, **args)
-        else:
+        if q.device.type == "cpu":
             o, lse = flash_attention_plain(q, k, v, block_q=block_q, **args)
+        elif q.device.type == "meta":
+            o, lse = flash_attention_fwd_meta(q, k, v, **args)
+        else:
+            o, lse = flash_attention_fwd_cuda(q, k, v, **args)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = args
         ctx.block_q = block_q
@@ -286,12 +340,13 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, o, lse = ctx.saved_tensors
-        if q.device.type == "cuda":
-            dq, dk, dv = flash_attention_bwd_cuda(
-                q, k, v, o, lse, dout.contiguous(), **ctx.args)
-        else:
+        if q.device.type == "cpu":
             dq, dk, dv = flash_attention_bwd_plain(
                 q, k, v, o, lse, dout, block_q=ctx.block_q, **ctx.args)
+        else:
+            bwd = flash_attention_bwd_meta if q.device.type == "meta" \
+                else flash_attention_bwd_cuda
+            dq, dk, dv = bwd(q, k, v, o, lse, dout.contiguous(), **ctx.args)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -301,6 +356,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=None,
     D) and v (B, Sk, Hkv, Dv) with Dv <= D -> (B, Sq, H, Dv), with an
     optional sliding ``window`` and logit softcap ``cap``.  The kernels for
     CUDA tensors (made contiguous first), the plain versions for CPU
+    tensors, the meta route (the CUDA route's layout) for ``meta``
     tensors.
 
     The kernels take one head dim: for a narrower v (MLA: qk 192, v 128)
@@ -312,7 +368,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=None,
     if Dv > q.shape[-1]:
         raise ValueError(f"flash_attention: v is {Dv} wide, wider than "
                          f"q / k ({q.shape[-1]})")
-    if q.device.type == "cuda":
+    if q.device.type != "cpu":
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if Dv < q.shape[-1]:
             v = torch.nn.functional.pad(v, (0, q.shape[-1] - Dv))

@@ -30,10 +30,12 @@ the sum: the two differ by at most one bf16 ulp of the larger of |LN(x)| and
 |LN(x) + a1n| (``tests/test_torch_fused_ln_add.py``).
 
 The plain version runs for CPU tensors; on a CUDA tensor the wrappers
-launch the kernels or raise.  ``fused_ln_add`` goes through the autograd
-Function (statistics saved) only when a gradient can flow: grad mode on
-and an input that requires grad; otherwise (serving) it launches the
-forward alone, with no statistics, and y has the same bits.
+launch the kernels or raise; on a ``meta`` tensor they take the meta route
+(``kernels/meta.py``: the CUDA route's outputs, statistics and partial
+rows, no flops counted, nothing computed).  ``fused_ln_add`` goes through
+the autograd Function (statistics saved) only when a gradient can flow:
+grad mode on and an input that requires grad; otherwise (serving) it
+launches the forward alone, with no statistics, and y has the same bits.
 ``LAUNCHES`` counts the wrappers' launches:
 ``fused_ln_add`` one per forward call, ``fused_ln_add.bwd`` one per backward
 call (its two or three kernels go down from one C entry point).
@@ -44,6 +46,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import meta
 from repro_torch.models import layers as L
 
 #: kernel launches since the last ``reset_launches()``, by kernel label
@@ -186,15 +189,47 @@ def fused_ln_add_bwd_cuda(dy, x, scale, mean, rstd, *, kind="rmsnorm"):
     return dx, dscale, dbias
 
 
+def fused_ln_add_fwd_meta(x, a1n, scale, bias=None, *, kind="rmsnorm",
+                          eps=1e-6, stats=True):
+    """The forward's meta route -> (y, mean, rstd) as the CUDA route
+    allocates them."""
+    y = torch.empty_like(x)
+    mean = rstd = None
+    if stats:
+        mean = torch.empty(x.numel() // x.shape[-1], dtype=torch.float32,
+                           device=x.device)
+        rstd = torch.empty_like(mean)
+    meta.add("fused_ln_add", 0, (x, a1n, scale, bias), (y, mean, rstd))
+    return y, mean, rstd
+
+
+def fused_ln_add_bwd_meta(dy, x, scale, mean, rstd, *, kind="rmsnorm"):
+    """The backward's meta route -> (dx, dscale, dbias), with the CUDA
+    route's partial rows (two blocks an SM of ``meta.SMS``, at most one a
+    row)."""
+    d = x.shape[-1]
+    ln = kind == "layernorm"
+    dx = torch.empty_like(x)
+    dscale = torch.empty(d, dtype=torch.float32, device=x.device)
+    dbias = torch.empty_like(dscale) if ln else None
+    n_parts = min(x.numel() // d, 2 * meta.SMS)
+    part = torch.empty(((2 if ln else 1) * max(n_parts, 1), d),
+                       dtype=torch.float32, device=x.device)
+    meta.add("fused_ln_add.bwd", 0, (dy, x, scale, mean, rstd),
+             (dx, dscale, dbias, part))
+    return dx, dscale, dbias
+
+
 class FusedLnAdd(torch.autograd.Function):
     """y = LN(x) * scale (+ bias) + a1n on CUDA tensors through the kernels,
-    forward and backward; a1n is in x's dtype.  Saves x, scale and the
-    per-row statistics; d(a1n) = dy."""
+    forward and backward (on ``meta`` tensors the meta route); a1n is in
+    x's dtype.  Saves x, scale and the per-row statistics; d(a1n) = dy."""
 
     @staticmethod
     def forward(ctx, x, a1n, scale, bias, kind, eps):
-        y, mean, rstd = fused_ln_add_fwd_cuda(x, a1n, scale, bias, kind=kind,
-                                              eps=eps)
+        fwd = fused_ln_add_fwd_meta if x.device.type == "meta" \
+            else fused_ln_add_fwd_cuda
+        y, mean, rstd = fwd(x, a1n, scale, bias, kind=kind, eps=eps)
         ctx.save_for_backward(x, scale, mean, rstd)
         ctx.kind = kind
         return y
@@ -203,8 +238,9 @@ class FusedLnAdd(torch.autograd.Function):
     def backward(ctx, dy):
         x, scale, mean, rstd = ctx.saved_tensors
         dy = dy.contiguous()
-        dx, dscale, dbias = fused_ln_add_bwd_cuda(dy, x, scale, mean, rstd,
-                                                  kind=ctx.kind)
+        bwd = fused_ln_add_bwd_meta if x.device.type == "meta" \
+            else fused_ln_add_bwd_cuda
+        dx, dscale, dbias = bwd(dy, x, scale, mean, rstd, kind=ctx.kind)
         return dx, dy, dscale, dbias, None, None
 
 
@@ -213,7 +249,8 @@ def fused_ln_add(x, a1n, scale, bias=None, *, kind="rmsnorm", eps=1e-6):
     -> (..., d) in x's dtype: the plain version for CPU tensors, the
     kernels for CUDA tensors (a1n cast to x's dtype first, and the
     gradient cast back by autograd; with no gradient to take, the forward
-    kernel alone, without the statistics)."""
+    kernel alone, without the statistics), and for ``meta`` tensors the
+    meta route in the CUDA route's place."""
     if x.device.type == "cpu":
         return ln_add_plain(x, a1n, scale, bias, kind=kind, eps=eps)
     a1n = a1n.to(x.dtype).contiguous()
@@ -221,5 +258,6 @@ def fused_ln_add(x, a1n, scale, bias=None, *, kind="rmsnorm", eps=1e-6):
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, a1n, scale, bias)):
         return FusedLnAdd.apply(x, a1n, scale, bias, kind, eps)
-    return fused_ln_add_fwd_cuda(x, a1n, scale, bias, kind=kind, eps=eps,
-                                 stats=False)[0]
+    fwd = fused_ln_add_fwd_meta if x.device.type == "meta" \
+        else fused_ln_add_fwd_cuda
+    return fwd(x, a1n, scale, bias, kind=kind, eps=eps, stats=False)[0]

@@ -2,14 +2,17 @@
 
 Port of ``repro/kernels/ops.py`` for the kernels the port carries.  Each
 dispatcher records, per call site and per EXECUTED call, which path ran:
-``cuda-kernel`` for CUDA tensors (the hand-written kernel) and
-``cpu-plain`` for CPU tensors (the kernel's plain PyTorch version).  The
-path follows the tensors' device; there is no fallback from one to the
-other.  ``dispatch_paths()`` holds the last path per site and the default
-metrics registry counts ``kernel_dispatch_total.<site>.<path>`` in calls.
-A paged call with scale pools records its site as ``<site>.int8`` /
-``<site>.fp8`` (the reference's ``ops._kv_variant``), and a call made
-inside ``dispatch_site_suffix("draft")`` (the speculative draft) as
+``cuda-kernel`` for CUDA tensors (the hand-written kernel), ``cpu-plain``
+for CPU tensors (the kernel's plain PyTorch version) and ``meta-shape`` for
+``meta`` tensors (the dry run's route: outputs and workspaces of the CUDA
+route's shapes, the kernel's flops and bytes counted in ``meta_counts()``,
+nothing computed; ``kernels/meta.py``).  The path follows the tensors'
+device; there is no fallback from one to another.  ``dispatch_paths()``
+holds the last path per site and the default metrics registry counts
+``kernel_dispatch_total.<site>.<path>`` in calls.  A paged call with
+scale pools records its site as ``<site>.int8`` / ``<site>.fp8`` (the
+reference's ``ops._kv_variant``), and a call made inside
+``dispatch_site_suffix("draft")`` (the speculative draft) as
 ``<site>.draft`` after that, e.g. ``paged_packed_attention.int8.draft``.
 Launch counters stay per kernel label, whatever the site.
 """
@@ -20,12 +23,14 @@ import contextlib
 from repro_torch.kernels import dual_branch as _db
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_ln_add as _ln
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.models import layers as _layers
 from repro_torch.obs import metrics as _metrics
 
 CUDA = "cuda-kernel"
 PLAIN = "cpu-plain"
+META = "meta-shape"
 
 #: last path run per dispatcher call site
 _DISPATCH_PATHS = {}
@@ -34,10 +39,11 @@ _DISPATCH_PATHS = {}
 _SITE_SUFFIX = ""
 
 
-def _record_dispatch(site: str, cuda: bool) -> str:
+def _record_dispatch(site: str, t) -> str:
+    """Record the path the call on tensor ``t`` takes, by its device."""
     if _SITE_SUFFIX:
         site = f"{site}.{_SITE_SUFFIX}"
-    path = CUDA if cuda else PLAIN
+    path = {"cuda": CUDA, "meta": META}.get(t.device.type, PLAIN)
     _DISPATCH_PATHS[site] = path
     _metrics.default_registry().counter(
         f"kernel_dispatch_total.{site}.{path}", unit="calls",
@@ -46,8 +52,8 @@ def _record_dispatch(site: str, cuda: bool) -> str:
 
 
 def dispatch_paths() -> dict:
-    """{call site: 'cuda-kernel' | 'cpu-plain'} for every dispatcher run
-    since the last ``reset_dispatch_paths()``."""
+    """{call site: 'cuda-kernel' | 'cpu-plain' | 'meta-shape'} for every
+    dispatcher run since the last ``reset_dispatch_paths()``."""
     return dict(_DISPATCH_PATHS)
 
 
@@ -85,6 +91,16 @@ def reset_launches():
     _ln.reset_launches()
 
 
+def meta_counts() -> dict:
+    """{kernel label: {"calls", "flops", "bytes"}} of the meta route since
+    the last ``reset_meta_counts()`` (``kernels/meta.py``)."""
+    return _meta.counts()
+
+
+def reset_meta_counts():
+    _meta.reset()
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=None,
                     q_offset=0, block_q=512):
     """Differentiable causal GQA attention for the full-sequence phases: q
@@ -95,8 +111,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, scale=None,
     q_offset + i - window) and logit softcap ``cap`` (!= 0).  CUDA tensors
     run the forward and backward kernels, window and cap included; CPU
     tensors the plain versions (``attention.blockwise_attention`` and its
-    backward formulas)."""
-    _record_dispatch("flash_attention", q.device.type == "cuda")
+    backward formulas), ``meta`` tensors the meta route."""
+    _record_dispatch("flash_attention", q)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                cap=cap, scale=scale, q_offset=q_offset,
                                block_q=block_q)
@@ -107,7 +123,7 @@ def fused_ln_add(x, a1n, scale, bias=None, *, kind="rmsnorm", eps=1e-6):
     x and a1n (..., d) -> (..., d) in x's dtype, rounded once: the forward
     and backward kernels for CUDA tensors, ``ref.ln_add_ref``'s plain
     version (autograd through it) for CPU tensors."""
-    _record_dispatch("fused_ln_add", x.device.type == "cuda")
+    _record_dispatch("fused_ln_add", x)
     return _ln.fused_ln_add(x, a1n, scale, bias, kind=kind, eps=eps)
 
 
@@ -121,7 +137,7 @@ def paged_packed_attention(q, k_pages, v_pages, block_tables, tok_slot,
     int8 / fp8 pools come with (P, page) fp32 ``k_scale`` / ``v_scale``
     row scales (the scale variant of the kernel; likewise below)."""
     _record_dispatch(_pa.kernel_label("paged_packed_attention", k_pages,
-                                      k_scale), q.device.type == "cuda")
+                                      k_scale), q)
     return _pa.paged_packed_attention(q, k_pages, v_pages, block_tables,
                                       tok_slot, tok_pos, k_scale=k_scale,
                                       v_scale=v_scale)
@@ -133,7 +149,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
     (P, page, Hkv, D) pools addressed through (B, Tb) block tables; lane b
     sees gathered keys ``j < seq_lens[b]``."""
     _record_dispatch(_pa.kernel_label("paged_decode_attention", k_pages,
-                                      k_scale), q.device.type == "cuda")
+                                      k_scale), q)
     return _pa.paged_decode_attention(q, k_pages, v_pages, block_tables,
                                       seq_lens, k_scale=k_scale,
                                       v_scale=v_scale)
@@ -147,7 +163,7 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, pos, n_valid, *,
     addressed through (B, Tb) block tables.  Rows past ``n_valid`` are
     finite but meaningless and must not be read."""
     _record_dispatch(_pa.kernel_label("paged_chunk_attention", k_pages,
-                                      k_scale), q.device.type == "cuda")
+                                      k_scale), q)
     return _pa.paged_chunk_attention(q, k_pages, v_pages, block_tables, pos,
                                      n_valid, k_scale=k_scale,
                                      v_scale=v_scale)
@@ -168,7 +184,7 @@ def dual_branch_decode(q, k_pages, v_pages, block_tables, seq_lens, mlp_in,
     ``mlp_apply``, op for op the sequential path's, so dual and sequential
     ticks agree bit for bit there."""
     n_tiles = k_pages.shape[2] * block_tables.shape[1]
-    _record_dispatch("dual_branch_decode", q.device.type == "cuda")
+    _record_dispatch("dual_branch_decode", q)
     if ffn["wi"].shape[-1] % n_tiles == 0:
         attn, y = _db.fused_dual_branch_decode(
             q.contiguous(), k_pages, v_pages, block_tables, seq_lens,
@@ -186,7 +202,7 @@ def copy_pages(pool, src, dst):
     ``src`` / ``dst`` are host sequences of page ids; ``dst`` must be
     distinct and disjoint from ``src`` (ValueError otherwise).  Returns the
     pool."""
-    _record_dispatch("copy_pages", pool.device.type == "cuda")
+    _record_dispatch("copy_pages", pool)
     return _pa.page_copy(pool, src, dst)
 
 
@@ -196,6 +212,6 @@ def copy_page_leaves(leaves, src, dst):
     P, page, ...), every layer of every leaf copied, in one kernel launch
     on the card.  Returns the leaves."""
     leaves = list(leaves)
-    _record_dispatch("copy_pages", bool(leaves)
-                     and leaves[0][0].device.type == "cuda")
+    if leaves:
+        _record_dispatch("copy_pages", leaves[0][0])
     return _pa.page_copy_leaves(leaves, src, dst)

@@ -73,7 +73,11 @@ workspace the wrapper allocates (``paged_chunk_workspace_bytes`` sizes it),
 else every item writes its rows directly.
 
 Each public function runs the plain version for CPU tensors and the kernel
-for CUDA tensors; on a CUDA tensor it launches the kernel or raises.
+for CUDA tensors; on a CUDA tensor it launches the kernel or raises.  On
+``meta`` tensors it takes the meta route (``kernels/meta.py``): the
+kernel's output and the workspace its CUDA route allocates
+(``*_workspace_size``, the sources' layouts in Python), flops counted over
+every key of each row's table, since a meta tensor holds no positions.
 ``LAUNCHES`` counts each kernel's launches under its label (the kernel's
 name, ``<name>.int8`` / ``<name>.fp8`` for the scale variants, and
 ``page_copy``: one a copy-on-write of up to ``COPY_MAX_PAIRS`` pages),
@@ -84,6 +88,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from repro_torch.kernels import meta
 
 ATTENTION_KERNELS = ("paged_packed_attention", "paged_decode_attention",
                      "paged_chunk_attention")
@@ -200,6 +206,48 @@ def chunk_split_keys(B, C, *, G, Hkv, max_keys):
     if B * tiles * Hkv < CHUNK_SPLIT_ITEMS:
         return split_keys(max_keys)
     return max_keys
+
+
+def _partials_end(ml, parts, D):
+    """End of ``partials_layout`` (``csrc/paged_packed_tc.cuh``): ``parts``
+    (m, l) float2 from byte ``ml``, then the fp32 accumulators from the
+    next 16-byte boundary."""
+    if not parts:
+        return ml
+    return (ml + 8 * parts + 15) // 16 * 16 + 4 * parts * D
+
+
+def _split_route(q, k_pages):
+    """Whether the split routes (and their workspaces) run: bf16 q on bf16,
+    int8 or fp8 pages."""
+    return q.dtype == torch.bfloat16 and k_pages.dtype != torch.float32
+
+
+def packed_workspace_size(T, H, Hkv, D, page, Tb):
+    """``paged_packed_workspace_bytes`` of the tensor-core route: the count,
+    ``T * splits * Hkv`` items, and the partials when a chunk can have
+    more than one split."""
+    max_keys = Tb * page
+    splits = -(-max_keys // split_keys(max_keys))
+    parts = splits * T * H if splits > 1 else 0
+    return _partials_end(16 + 16 * T * splits * Hkv, parts, D)
+
+
+def decode_workspace_size(B, H, D, page, Tb):
+    """``paged_decode_workspace_bytes`` of the key-split route
+    (``workspace_layout`` of ``csrc/paged_decode_splits.cuh``)."""
+    max_keys = Tb * page
+    splits = -(-max_keys // split_keys(max_keys))
+    return _partials_end(0, splits * B * H if splits > 1 else 0, D)
+
+
+def chunk_workspace_size(B, C, H, Hkv, D, page, Tb):
+    """``paged_chunk_workspace_bytes`` of the tensor-core chunk route
+    (``chunk_plan``)."""
+    max_keys = Tb * page
+    L = chunk_split_keys(B, C, G=H // Hkv, Hkv=Hkv, max_keys=max_keys)
+    splits = -(-max_keys // L)
+    return _partials_end(0, splits * B * C * H if splits > 1 else 0, D)
 
 
 def packed_work_list(tok_slot, tok_pos, *, G, Hkv, page, Tb):
@@ -672,6 +720,60 @@ def page_copy_cuda(leaves, src, dst):
 
 
 # --------------------------------------------------------------------------- #
+# the meta route
+# --------------------------------------------------------------------------- #
+def _attention_meta(label, q, k_pages, v_pages, block_tables, k_scale,
+                    v_scale, more, ws_bytes):
+    """The attention kernels' meta route: the output like q, the CUDA
+    route's workspace (``ws_bytes``, when the split route runs), and 4 D
+    flops a table key a query head for every row of q."""
+    out = torch.empty_like(q)
+    if ws_bytes and _split_route(q, k_pages):
+        torch.empty(ws_bytes, dtype=torch.uint8, device=q.device)
+    H, D = q.shape[-2:]
+    keys = block_tables.shape[1] * k_pages.shape[1]
+    rows = q.numel() // (H * D)
+    meta.add(kernel_label(label, k_pages, k_scale), 4 * D * keys * H * rows,
+             (q, k_pages, v_pages, block_tables, k_scale, v_scale, *more),
+             (out,))
+    return out
+
+
+def paged_packed_attention_meta(q, k_pages, v_pages, block_tables, tok_slot,
+                                tok_pos, *, scale=None, k_scale=None,
+                                v_scale=None):
+    T, H, D = q.shape
+    _, page, Hkv, _ = k_pages.shape
+    return _attention_meta(
+        "paged_packed_attention", q, k_pages, v_pages, block_tables, k_scale,
+        v_scale, (tok_slot, tok_pos),
+        T and packed_workspace_size(T, H, Hkv, D, page,
+                                    block_tables.shape[1]))
+
+
+def paged_decode_attention_meta(q, k_pages, v_pages, block_tables, seq_lens,
+                                *, scale=None, k_scale=None, v_scale=None):
+    B, H, D = q.shape
+    return _attention_meta(
+        "paged_decode_attention", q, k_pages, v_pages, block_tables, k_scale,
+        v_scale, (seq_lens,),
+        B and decode_workspace_size(B, H, D, k_pages.shape[1],
+                                    block_tables.shape[1]))
+
+
+def paged_chunk_attention_meta(q, k_pages, v_pages, block_tables, pos,
+                               n_valid, *, scale=None, k_scale=None,
+                               v_scale=None):
+    B, C, H, D = q.shape
+    _, page, Hkv, _ = k_pages.shape
+    return _attention_meta(
+        "paged_chunk_attention", q, k_pages, v_pages, block_tables, k_scale,
+        v_scale, (pos, n_valid),
+        B * C and chunk_workspace_size(B, C, H, Hkv, D, page,
+                                       block_tables.shape[1]))
+
+
+# --------------------------------------------------------------------------- #
 # public entry points: plain version on the CPU, kernel on the card
 # --------------------------------------------------------------------------- #
 def paged_packed_attention(q, k_pages, v_pages, block_tables, tok_slot,
@@ -679,8 +781,8 @@ def paged_packed_attention(q, k_pages, v_pages, block_tables, tok_slot,
                            v_scale=None):
     """Packed ragged paged attention: the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors (never the plain version there)."""
-    fn = paged_packed_attention_plain if q.device.type == "cpu" \
-        else paged_packed_attention_cuda
+    fn = meta.route(q, paged_packed_attention_plain,
+                    paged_packed_attention_meta, paged_packed_attention_cuda)
     return fn(q, k_pages, v_pages, block_tables, tok_slot, tok_pos,
               scale=scale, k_scale=k_scale, v_scale=v_scale)
 
@@ -689,8 +791,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
                            scale=None, k_scale=None, v_scale=None):
     """Paged decode attention: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (never the plain version there)."""
-    fn = paged_decode_attention_plain if q.device.type == "cpu" \
-        else paged_decode_attention_cuda
+    fn = meta.route(q, paged_decode_attention_plain,
+                    paged_decode_attention_meta, paged_decode_attention_cuda)
     return fn(q, k_pages, v_pages, block_tables, seq_lens, scale=scale,
               k_scale=k_scale, v_scale=v_scale)
 
@@ -699,8 +801,8 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, pos, n_valid, *,
                           scale=None, k_scale=None, v_scale=None):
     """Chunked paged attention: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (never the plain version there)."""
-    fn = paged_chunk_attention_plain if q.device.type == "cpu" \
-        else paged_chunk_attention_cuda
+    fn = meta.route(q, paged_chunk_attention_plain,
+                    paged_chunk_attention_meta, paged_chunk_attention_cuda)
     return fn(q, k_pages, v_pages, block_tables, pos, n_valid, scale=scale,
               k_scale=k_scale, v_scale=v_scale)
 
@@ -714,6 +816,7 @@ def page_copy_leaves(leaves, src, dst):
     ``src``, else ValueError, checked once for all leaves).  The plain
     version leaf by leaf for CPU pools, one kernel launch (or one per
     ``COPY_MAX_PAIRS`` pairs; at most ``COPY_MAX_LEAVES`` leaves) for CUDA
+    pools, the meta route (bytes counted, nothing copied) for ``meta``
     pools.  Returns the leaves."""
     leaves = list(leaves)
     if not leaves:
@@ -725,6 +828,15 @@ def page_copy_leaves(leaves, src, dst):
     if leaves[0][0].device.type == "cpu":
         for pool, stacked in leaves:
             copy_pages_plain(pool, src, dst, stacked=stacked)
+        return leaves
+    if leaves[0][0].device.type == "meta":
+        # the meta route: the pools stay as they are; the bytes of the
+        # copied pages are counted, read once and written once
+        for j in range(0, len(src), COPY_MAX_PAIRS):
+            n = len(src[j:j + COPY_MAX_PAIRS])
+            moved = [pool[:, :n] if stacked else pool[:n]
+                     for pool, stacked in leaves]
+            meta.add("page_copy", 0, moved, moved)
         return leaves
     return page_copy_cuda(leaves, src, dst) if src else leaves
 

@@ -153,7 +153,8 @@ def _dtype(name) -> torch.dtype:
 # ------------------------------------------------------------------------- #
 def init_params(cfg, seed=0, device=None, dtype=None):
     """Random weights of the config's family at the reference's scales,
-    drawn with a ``torch.Generator`` on ``device`` (not the reference's
+    drawn with a ``torch.Generator`` on ``device`` (on the CPU for a
+    ``meta`` device, whose tensors hold no numbers; not the reference's
     numbers: tests carry JAX weights across with
     ``interop.params_from_numpy``).  Matmul weights and embeddings are
     stored in ``dtype``: None keeps ``cfg.dtype`` (serving); training
@@ -162,7 +163,8 @@ def init_params(cfg, seed=0, device=None, dtype=None):
     stay fp32."""
     check_supported(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
+    # a meta init draws no numbers: a CPU generator drives it
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
     gen.manual_seed(seed)
     dt = _dtype(dtype or cfg.dtype)
     init = {"ssm": _mamba_init, "hybrid": _zamba_init,

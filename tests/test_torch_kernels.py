@@ -218,6 +218,11 @@ def test_port_imports_neither_jax_nor_repro():
                      r"from repro(\.| import))", re.M)
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [f.name for f in examples] == [
+        "torch_quickstart.py", "torch_serve_requests.py",
+        "torch_train_fal_vs_baseline.py"]
+    files += examples
     assert len(files) > 15
     port = ROOT / "src" / "repro_torch"
     for f in ("serve/decode.py", "obs/runmeta.py", "optim/grad_compress.py"):
