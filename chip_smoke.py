@@ -160,7 +160,17 @@ script exits non-zero:
                  all-reduces timed (gloo through host memory, not NCCL);
                  the none state saved (gathered over TP, one-device
                  format) and restored into one device on the card bit for
-                 bit; each rank's launches, every path cuda-kernel
+                 bit; each rank's launches, every path cuda-kernel; then
+                 FSDP (plan fsdp=True: the shard cut to the data rank's
+                 slices) for 2 steps of the same batches: losses and
+                 norms vs one device, the params gathered vs none's
+                 (1e-6 + 1e-4 of a leaf's largest value), one all-gather
+                 a unit a pass and one reduce-scatter a unit, the state's
+                 bytes equal to launch/dryrun.py's lower_pair at
+                 Mesh(1, 2, 2) (arguments less the tokens), the peak
+                 (reset with only the FSDP state on the card) within
+                 DRYRUN_PEAK_RTOL of its predicted peak; cuda-kernel on
+                 the flash_attention and fused_ln_add sites
  14. gemma2      gemma2-27b at full width cut to 2 layers (block 0 local,
                  block 1 global; every layer softcapped): one packed, one
                  padded chunk, one padded decode and one contiguous decode
@@ -5386,6 +5396,10 @@ DP_METHODS = ("none", "int8", "lowrank")
 #: int8's backward wire bytes against "none"'s, at most
 #: (benchmarks/bench_comm.py's gate on the reference)
 DP_INT8_WIRE = 0.3
+#: the FSDP run's params after DP_STEPS against "none"'s, gathered: at most
+#: DP_PARAM_ATOL + DP_PARAM_RTOL x the leaf's largest value (the CPU
+#: tests' gate, tests/test_torch_fsdp.py)
+DP_PARAM_ATOL, DP_PARAM_RTOL = 1e-6, 1e-4
 
 
 def dp_config():
@@ -5495,6 +5509,8 @@ def dp_rank(groups, ckpt_dir):
         if method == "none":     # checkpointed before the next state exists
             out["n_local"] = sum(p.numel() for _, p in
                                  adamw.named_leaves(state["params"]))
+            none_params = adamw.map_tree(lambda t: t.detach().cpu(),
+                                         state["params"])
             peak = torch.cuda.max_memory_allocated(dev)
             out.update(_dp_checkpoint(state, cfg, plan, ocfg, ckpt_dir,
                                       dev))
@@ -5505,10 +5521,68 @@ def dp_rank(groups, ckpt_dir):
     out["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
     out["paths"] = ops.dispatch_paths()
     out["peak"] = max(peak, torch.cuda.max_memory_allocated(dev))
+    out["fsdp"] = _dp_fsdp(groups, cfg, ocfg, shard, mine, none_params, dev)
+    del none_params
     flat = torch.zeros(out["n_local"], device=dev)
     out["dp_all_reduce_ms"] = [_timed(dev, lambda: tp.all_reduce_(
         [flat], groups.dp, "data"))[1] for _ in range(2)]
     del flat
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _dp_fsdp(groups, cfg, ocfg, shard, mine, none_params, dev):
+    """The FSDP run of ``dp_rank``: this rank's TP ``shard`` (host memory)
+    cut to its data rank's FSDP slices, moved to the card, the peak
+    counter reset with only that state there, then DP_STEPS steps of its
+    rows ``mine`` under the FSDP plan.  -> numbers: history, step times,
+    counts, launches and paths, the state's bytes, the peak, the largest
+    param error against ``none_params`` (the "none" run's shard, host
+    memory) as a fraction of its gate, the data group's FSDP layout."""
+    import torch.distributed as dist
+    from repro_torch.core import tp
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as MX
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    plan = ExecutionPlan.from_group(groups.tp, tp="explicit",
+                                    data_group=groups.dp, fsdp=True)
+    slices = MX.shard_fsdp(shard, cfg, plan.dp_rank, plan.dp_size,
+                           plan.tp_size)
+    state = tstep.init_state(0, cfg, ocfg, params=adamw.map_tree(
+        lambda t: t.to(dev, copy=True), slices))
+    del slices
+    out = {"state_bytes": sum(
+        t.numel() * t.element_size() for _, t in adamw.named_leaves(
+            {"params": state["params"], "m": state["opt"]["m"],
+             "v": state["opt"]["v"]})),
+           "n_sliced": len(MX.fsdp_layout(cfg, plan.tp_size, plan.dp_size)),
+           "hist": [], "step_ms": [], "counts": []}
+    torch.cuda.empty_cache()
+    dist.barrier()
+    ops.reset_launches()
+    ops.reset_dispatch_paths()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = tstep.make_train_step(cfg, ocfg, plan)
+    for b in mine:
+        tp.reset_collectives()
+        (state, m), t = _timed(dev, lambda: step(state, b))
+        out["counts"].append(tp.collective_counts())
+        out["hist"].append((float(m["loss"]), float(m["grad_norm"])))
+        out["step_ms"].append(t)
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    out["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    out["paths"] = ops.dispatch_paths()
+    got = dict(adamw.named_leaves(MX.gather_fsdp_over_group(
+        state["params"], cfg, groups.dp, plan.tp_size)))
+    err = 0.0
+    for path, want in adamw.named_leaves(none_params):
+        tol = DP_PARAM_ATOL + DP_PARAM_RTOL * float(want.abs().max())
+        err = max(err, float((got[path].cpu() - want).abs().max()) / tol)
+    out["param_err"] = err
+    del state, step, got
     torch.cuda.empty_cache()
     dist.barrier()
     return out
@@ -5594,7 +5668,78 @@ def dp_phase(smi):
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     print(f"  {world} ranks done in {secs:.1f} s on "
           f"{[r['device'] for r in ranks]}", flush=True)
-    return dp_report(ranks, smi)
+    launches, summary = dp_report(ranks, smi)
+    fsdp_launches, summary["fsdp"] = dp_fsdp_report(ranks, smi)
+    return launches, fsdp_launches, summary
+
+
+def dp_fsdp_report(ranks, smi):
+    """Print and gate the FSDP run of the DP ranks against one device, the
+    "none" run and ``launch/dryrun.py``'s ``lower_pair`` at Mesh(1,
+    DP_SIZE, DP_TP) with the phase's overrides (run here, on ``meta``).
+    Returns (rank 0's launches, a summary)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import tp
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as DR
+    L, gib = DP_LAYERS, 2 ** 30
+    info = DR.lower_pair(
+        "llama3.2-3b", ShapeConfig("dp_phase", DP_SEQ, DP_BATCH, "train"),
+        DR.Mesh(1, DP_SIZE, DP_TP), microbatches=1,
+        extra_overrides=dict(n_layers=DP_LAYERS, vocab=DP_VOCAB,
+                             dtype="float32", remat=True))
+    mem = info["memory"]
+    tokens = info["rows"] * DP_SEQ * 4
+    one = ranks[0]["one_device"]["hist"]
+    print(f"  FSDP dry run (meta, Mesh(1, {DP_SIZE}, {DP_TP})): arguments "
+          f"{mem['argument_bytes']} B ({tokens} B of tokens), peak "
+          f"{mem['peak_bytes']} B ({mem['peak_bytes'] / gib:.3f} GiB), "
+          f"traced in {info['trace_s']} s", flush=True)
+    for r in ranks:
+        f = r["fsdp"]
+        err = (mem["peak_bytes"] - f["peak"]) / f["peak"]
+        print(f"  rank {r['rank']}: fsdp (loss, grad_norm) "
+              f"{[(round(a, 5), round(b, 4)) for a, b in f['hist']]}; step "
+              f"ms {[round(t, 1) for t in f['step_ms']]} (gloo through host "
+              f"memory); params vs none {f['param_err']:.3f} of the gate; "
+              f"state {f['state_bytes']} B ({f['n_sliced']} leaves sliced) "
+              f"vs none's {4 * 3 * r['n_local']} B; peak "
+              f"{f['peak'] / gib:.3f} GiB measured vs "
+              f"{mem['peak_bytes'] / gib:.3f} GiB predicted ({err:+.4f}); "
+              f"launches {f['launches']}; "
+              f"card {smi}", flush=True)
+        for (la, ga), (lb, gb) in zip(f["hist"], one):
+            require(abs(la - lb) <= TP_LOSS_TOL
+                    and abs(ga - gb) <= TP_GNORM_RTOL * gb,
+                    "FSDP training disagrees with one device")
+        require(f["param_err"] <= 1.0, f"FSDP params vs none: "
+                f"{f['param_err']:.3f} of the gate")
+        for c in f["counts"]:
+            require(tp.count(c, "all-gather", "fsdp") == 2 * L
+                    and tp.count(c, "reduce-scatter", "fsdp") == L
+                    and _ar(c, "data") == 1 and _ar(c, "metric") == 1,
+                    f"FSDP collectives a step {c}")
+        require(f["state_bytes"] == mem["argument_bytes"] - tokens,
+                f"FSDP state {f['state_bytes']} B != the dry run's "
+                f"arguments less the tokens {mem['argument_bytes'] - tokens}")
+        require(abs(err) <= DRYRUN_PEAK_RTOL,
+                f"FSDP peak: predicted {mem['peak_bytes']} vs measured "
+                f"{f['peak']}: {err:+.4f}")
+        require(set(f["paths"].values()) == {ops.CUDA}
+                and {"flash_attention", "fused_ln_add"} <= set(f["paths"]),
+                f"rank {r['rank']}: FSDP paths {f['paths']}")
+        want = {"flash_attention": 2 * DP_STEPS * L,
+                "flash_attention.bwd": DP_STEPS * L}
+        got = {k: f["launches"].get(k, 0) for k in want}
+        require(got == want, f"FSDP launches {got} != {want}")
+        for k in ("fused_ln_add", "fused_ln_add.bwd"):
+            require(f["launches"].get(k, 0) > 0, f"rank {r['rank']}: {k} "
+                    f"not launched on the FSDP path")
+    f0 = ranks[0]["fsdp"]
+    return f0["launches"], {
+        "step_ms": statistics.median(f0["step_ms"][1:] or f0["step_ms"]),
+        "state_bytes": f0["state_bytes"], "peak": f0["peak"],
+        "predicted_peak": mem["peak_bytes"]}
 
 
 def _wire(counts, direction):
@@ -7960,7 +8105,7 @@ def main():
     dry = dryrun_phase(train)
     tp_launches, tp_step_ms, tp_serve_launches = tp_phase(smi)
     t_dp = time.perf_counter()
-    dp_launches, dp = dp_phase(smi)
+    dp_launches, fsdp_launches, dp = dp_phase(smi)
     print(f"  data-parallel phase: {time.perf_counter() - t_dp:.1f} s",
           flush=True)
     t_g2 = time.perf_counter()
@@ -8073,6 +8218,9 @@ def main():
         if kname in dp_launches:
             # rank 0's launches on the tp x dp paths (phase 13b)
             entry["dp_launches"] = dp_launches[kname]
+        if kname in fsdp_launches:
+            # of phase 13b, rank 0's on the FSDP steps
+            entry["fsdp_launches"] = fsdp_launches[kname]
         if kname in g2_launches:
             # the gemma2 training path (3 counted steps, 2 layers, remat)
             # and the window / softcap check's error at its shape
@@ -8114,6 +8262,9 @@ def main():
           f"vocab {DP_VOCAB}, fp32, gloo through host memory, 4 ranks on "
           f"the card) {dp['step_ms']:.1f} "
           f"ms/step, DP all-reduce {dp['dp_all_reduce_ms']:.1f} ms, "
+          f"FSDP {dp['fsdp']['step_ms']:.1f} ms/step (peak "
+          f"{dp['fsdp']['peak'] / 2**30:.3f} GiB, predicted "
+          f"{dp['fsdp']['predicted_peak'] / 2**30:.3f} GiB), "
           f"checkpoint save {dp['save_s']:.1f} s / restore "
           f"{dp['restore_s']:.1f} s; batcher {contig['tok_s']:.1f} tok/s, "
           f"{contig['tick_ms_p50']:.2f} ms a tick p50; gemma2 "

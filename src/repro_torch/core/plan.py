@@ -25,6 +25,13 @@ are the tensor-parallel shards.  Plan axes:
   (``train/step.py``).  ``tp='none'`` with a data group is pure data
   parallelism.  ``core.tp.init_groups`` builds both groups from one world,
   TP the inner axis (``rank = dp_rank * tp + tp_rank``).
+* ``fsdp`` -- ZeRO-3 over the data group, the reference's default layout
+  (its ``fsdp_axes``): each data rank holds a slice of every FSDP leaf
+  (``launch/mesh.py::fsdp_specs``) and of its AdamW moments, gathers a
+  unit's leaves when the unit runs and reduce-scatters their gradients
+  (``core.tp.gather_fsdp``).  Requires a data group: the rank's state
+  layout must be known to the step, where the reference carries it in
+  shardings.
 
 Inside the stack the blocks see ``plan.inner()``, on which ``tp_axis`` is
 the process group the partial sums reduce over (None on replicated paths).
@@ -102,6 +109,7 @@ class ExecutionPlan:
     grad_compress: str = "none"            # none | int8 | lowrank
     group: Any = None                      # torch.distributed ProcessGroup
     data_group: Any = None                 # the data-parallel group
+    fsdp: bool = False                     # params sliced over data_group
     local: bool = False                    # set only by inner()
 
     # ------------------------------------------------------------- build --
@@ -115,14 +123,15 @@ class ExecutionPlan:
     def from_group(cls, group, *, tp="explicit", sp: bool = False,
                    phase=Phase.TRAIN, dual_branch: bool = False,
                    grad_compress: str = "none",
-                   data_group=None) -> "ExecutionPlan":
+                   data_group=None, fsdp: bool = False) -> "ExecutionPlan":
         """Plan over the tensor-parallel process ``group`` and the
         data-parallel ``data_group`` (the counterpart of the reference's
-        ``from_mesh`` over ``("data", "model")``); either may be None."""
+        ``from_mesh`` over ``("data", "model")``); either may be None.
+        ``fsdp``: the params are FSDP slices over ``data_group``."""
         return cls(phase=Phase.coerce(phase), tp=TPStyle.coerce(tp),
                    sequence_parallel=bool(sp), group=group,
                    data_group=data_group, dual_branch=bool(dual_branch),
-                   grad_compress=str(grad_compress))
+                   grad_compress=str(grad_compress), fsdp=bool(fsdp))
 
     @classmethod
     def resolve(cls, plan) -> "ExecutionPlan":
@@ -222,6 +231,10 @@ class ExecutionPlan:
                 "compressed collectives wrap the explicit-TP partial-sum "
                 "collectives (models/blocks.py); there is no replicated "
                 "gradient-compression path")
+        if self.fsdp and self.data_group is None:
+            raise ValueError(
+                "fsdp=True requires a data group: the params are sliced "
+                "over it (launch/mesh.py::shard_fsdp)")
         if self.tp is TPStyle.EXPLICIT:
             if self.group is None:
                 raise ValueError("tp='explicit' requires a process group "

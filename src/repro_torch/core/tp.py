@@ -39,7 +39,9 @@ all-to-all) and direction
 (forward, backward; ``step`` for the train step's TP gradient and norm
 sums; ``data`` for its one data-parallel gradient sum, ``metric`` for the
 data-parallel mean of the loss; ``checkpoint`` for gathering a sharded
-state): ``collective_counts()``, ``reset_collectives()``.  These replace
+state; ``fsdp`` for FSDP's per-unit all-gathers and their backward
+reduce-scatters, ``gather_fsdp``): ``collective_counts()``,
+``reset_collectives()``.  These replace
 the reference's HLO parsers (``collective_payload_bytes``'s ring model).
 
 Backends: ``init_tp_group(backend, ...)`` takes ``nccl`` or ``gloo`` and
@@ -312,8 +314,9 @@ def all_reduce_(tensors, group, direction="step"):
     """Sum ``tensors`` (one dtype) over ``group`` in place, as ONE
     all-reduce of their concatenation: the train step's gradient sums
     (``step`` over the TP group, ``data`` over the data-parallel one).
-    Under gloo the concatenation is built in host memory straight from
-    the tensors, so the sum takes no device memory."""
+    The concatenation is reduced in place: one copy of the tensors beside
+    them on the device, none under gloo, where it is built in host memory
+    straight from the tensors."""
     tensors = [t for t in tensors if t is not None]
     if not tensors:
         return
@@ -324,15 +327,111 @@ def all_reduce_(tensors, group, direction="step"):
         for t in tensors:
             flat[i:i + t.numel()].copy_(t.reshape(-1))
             i += t.numel()
-        dist.all_reduce(flat, group=group)
-        _record("all-reduce", direction, flat, group)
     else:
-        flat = all_reduce(torch.cat([t.reshape(-1) for t in tensors]),
-                           group, direction)
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    _record("all-reduce", direction, flat, group)
     i = 0
     for t in tensors:
         t.copy_(flat[i:i + t.numel()].view_as(t))
         i += t.numel()
+
+
+# ------------------------------------------------------------------------- #
+# FSDP: a unit's slices gathered over the data group
+# ------------------------------------------------------------------------- #
+def _fsdp_collective(flat, group, gather):
+    """All-gather of this rank's flat ``flat`` (total,) -> (n, total), or
+    reduce-scatter of a (n, total) ``flat`` -> this rank's (total,) sum;
+    counted under direction ``fsdp``.  Under gloo the one flat buffer is
+    staged through host memory and the result comes back to the device:
+    the device holds the same buffers as on a device backend."""
+    stage = _staged(flat, group)
+    src = flat.cpu() if stage else flat
+    if gather:
+        out = src.new_empty((group.size() * src.numel(),))
+        dist.all_gather_into_tensor(out, src, group=group)
+        out = out.view(group.size(), -1)
+    else:
+        out = src.new_empty((src.shape[1],))
+        dist.reduce_scatter_tensor(out, src.reshape(-1), group=group)
+    _record("all-gather" if gather else "reduce-scatter", "fsdp", out, group)
+    return out.to(flat.device) if stage else out
+
+
+class _GatherFsdp(torch.autograd.Function):
+    """A unit's FSDP slices (one dtype) -> its whole leaves: ONE all-gather
+    of their concatenation, each leaf joined along its dim and its padding
+    dropped; backward: the leaves' gradients zero-padded, laid out rank by
+    rank and reduce-scattered in ONE collective into the slices'
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, group, cuts, *slices):
+        ctx.group, ctx.cuts = group, cuts
+        ctx.shapes = [tuple(s.shape) for s in slices]
+        n = group.size()
+        out = _fsdp_collective(torch.cat([s.detach().reshape(-1)
+                                          for s in slices]), group, True)
+        fulls, off = [], 0
+        for s, (dim, size) in zip(ctx.shapes, cuts):
+            k = int(torch.Size(s).numel())
+            part = out[:, off:off + k].reshape((n,) + s)
+            off += k
+            rows = s[:dim] + (n * s[dim],) + s[dim + 1:]
+            fulls.append(part.movedim(0, dim).reshape(rows).narrow(
+                dim, 0, size))
+        return tuple(fulls)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = ctx.group.size()
+        total = sum(int(torch.Size(s).numel()) for s in ctx.shapes)
+        flat = grads[0].new_empty((n, total))
+        off = 0
+        for g, s, (dim, size) in zip(grads, ctx.shapes, ctx.cuts):
+            k = int(torch.Size(s).numel())
+            if size < n * s[dim]:
+                pad = list(s)
+                pad[dim] = n * s[dim] - size
+                g = torch.cat([g, g.new_zeros(pad)], dim)
+            g = g.reshape(s[:dim] + (n, s[dim]) + s[dim + 1:]).movedim(dim, 0)
+            flat[:, off:off + k].view((n,) + s).copy_(g)
+            off += k
+        out = _fsdp_collective(flat, ctx.group, False)
+        del flat
+        grads_in, off = [], 0
+        for s in ctx.shapes:
+            k = int(torch.Size(s).numel())
+            grads_in.append(out[off:off + k].view(s))
+            off += k
+        return (None, None) + tuple(grads_in)
+
+
+def gather_fsdp(tree, cuts, group):
+    """``tree`` (one unit's params: a block, the head) with the FSDP
+    slices at ``cuts`` ({path in ``tree``: (dim, n)}, ``launch.mesh.
+    fsdp_cuts``) replaced by the whole leaves, gathered over the data
+    ``group``: one all-gather a unit (one a dtype, should a unit mix
+    them), whose backward reduce-scatters the leaves' gradients into the
+    slices' ``.grad``, once a backward pass.  Inside ``_maybe_remat`` the
+    recompute gathers again and only the slices are saved.  The other
+    leaves are as given."""
+    from repro_torch.optim.adamw import map_tree, named_leaves
+    paths = [(p, t) for p, t in named_leaves(tree) if p in cuts]
+    if not paths:
+        return tree
+    out = map_tree(lambda t: t, tree)
+    for dtype in dict.fromkeys(t.dtype for _, t in paths):
+        mine = [(p, t) for p, t in paths if t.dtype == dtype]
+        fulls = _GatherFsdp.apply(group, tuple(cuts[p] for p, _ in mine),
+                                  *[t for _, t in mine])
+        for (p, _), full in zip(mine, fulls):
+            node = out
+            for k in p[:-1]:
+                node = node[k]
+            node[p[-1]] = full
+    return out
 
 
 # ------------------------------------------------------------------------- #

@@ -21,8 +21,12 @@ Meshes: ``single`` is the reference's 256 cards and ``multi`` its 512, as
 data 32 x model 8 and pod 2 x data 32 x model 8 (TP inside an 8-card
 NVLink node; the reference's model 16 does not divide llama's 24 heads).
 The ssm / hybrid / audio families have no explicit-TP stack: they take
-model 1 and every card as data.  The port's TP is always explicit and it
-has no FSDP (``"tp": "explicit", "fsdp": false`` in every JSON).
+model 1 and every card as data.  The port's TP is always explicit.  FSDP
+over the data axes is on for every arch, as the reference's default
+(MaxText's; ``--no-fsdp`` is the ablation): the rank holds its slices
+(``launch/mesh.py::shard_fsdp``), each unit all-gathers them when it runs
+and the train step's backward reduce-scatters their gradients (direction
+``fsdp`` in ``collectives``).
 
 Each pair's JSON holds the reference's fields and, all from the abstract
 run, one rank's ``memory`` (``argument_bytes``: the state and batch, or
@@ -166,15 +170,20 @@ def storage_bytes(tree) -> int:
     return sum(seen.values())
 
 
-def _plans(cfg, mesh, sp):
+def _plans(cfg, mesh, sp, fsdp):
     """(train plan, serving plan) of rank 0: the explicit-TP plan over the
     model axis (train also over the data axes' group), or with model 1 no
-    TP group."""
+    TP group.  With ``fsdp`` (and data ranks) both plans slice the params
+    over the data group; the serving plan then carries it too."""
     groups = tp.split_groups(mesh.model)
     tp_style = "explicit" if mesh.model > 1 else "none"
+    fsdp = fsdp and groups.dp is not None
     train = ExecutionPlan.from_group(groups.tp, tp=tp_style, sp=sp,
-                                     data_group=groups.dp).validate(cfg)
-    serve = ExecutionPlan.from_group(groups.tp, tp=tp_style, sp=sp)
+                                     data_group=groups.dp,
+                                     fsdp=fsdp).validate(cfg)
+    serve = ExecutionPlan.from_group(groups.tp, tp=tp_style, sp=sp,
+                                     data_group=groups.dp if fsdp else None,
+                                     fsdp=fsdp)
     return train, serve
 
 
@@ -182,14 +191,16 @@ def _shape_of(shape):
     return shape if isinstance(shape, ShapeConfig) else INPUT_SHAPES[shape]
 
 
-def lower_pair(arch, shape, mesh, *, connection=None, extra_overrides=None,
-               sp=False, microbatches=None):
+def lower_pair(arch, shape, mesh, *, connection=None, fsdp=True,
+               extra_overrides=None, sp=False, microbatches=None):
     """Run rank 0 of ``mesh`` (a ``Mesh``) through ``shape`` (a name of
     ``INPUT_SHAPES`` or a ``ShapeConfig``) on ``meta`` and return the info
-    dict (``{"skipped": why}`` when the pair does not apply).  ``sp``:
-    sequence-parallel LN regions (train / prefill); ``microbatches``
-    overrides ``num_microbatches`` (the reference's
-    ``REPRO_MICROBATCHES``); ``extra_overrides`` replace config fields."""
+    dict (``{"skipped": why}`` when the pair does not apply).  ``fsdp``:
+    the params sliced over the data axes (the reference's default; with one
+    data rank nothing is sliced); ``sp``: sequence-parallel LN regions
+    (train / prefill); ``microbatches`` overrides ``num_microbatches``
+    (the reference's ``REPRO_MICROBATCHES``); ``extra_overrides`` replace
+    config fields."""
     shape_cfg = _shape_of(shape)
     cfg = SP.dryrun_overrides(get_config(arch), shape_cfg)
     if connection:
@@ -205,21 +216,25 @@ def lower_pair(arch, shape, mesh, *, connection=None, extra_overrides=None,
     dp = mesh.pod * mesh.data
     with fake_world(_world(mesh)):
         try:
-            train_plan, serve_plan = _plans(cfg, mesh, sp)
+            train_plan, serve_plan = _plans(cfg, mesh, sp, fsdp)
         except ValueError as e:               # the plan's own refusal
             return {"skipped": f"{type(e).__name__}: {e}"}
         nmb = SP.num_microbatches(cfg, shape_cfg, dp, microbatches)
+        sliced = train_plan.fsdp
         if shape_cfg.mode == "train":
-            args = SP.train_input_specs(cfg, shape_cfg, mesh.model, dp)
+            args = SP.train_input_specs(cfg, shape_cfg, mesh.model, dp,
+                                        fsdp=sliced)
             step = tstep.make_train_step(cfg, SP.opt_cfg_for(cfg),
                                          train_plan, nmb)
         elif shape_cfg.mode == "prefill":
             params, _, _, _ = SP.decode_input_specs(cfg, shape_cfg,
-                                                    mesh.model, dp)
+                                                    mesh.model, dp,
+                                                    fsdp=sliced)
             args = (params, SP.batch_struct(cfg, shape_cfg, dp))
             step = _prefill(cfg, serve_plan.with_phase(Phase.PREFILL))
         else:
-            args = SP.decode_input_specs(cfg, shape_cfg, mesh.model, dp)
+            args = SP.decode_input_specs(cfg, shape_cfg, mesh.model, dp,
+                                         fsdp=sliced)
             step = make_serve_step(cfg, serve_plan)
         tracker = StorageTracker()
         arg_bytes = tracker.track(args)
@@ -234,7 +249,7 @@ def lower_pair(arch, shape, mesh, *, connection=None, extra_overrides=None,
         info = {
             "arch": arch, "shape": shape_cfg.name,
             "mesh": dict(mesh._asdict()), "connection": cfg.connection,
-            "fsdp": False, "tp": "explicit" if mesh.model > 1 else "none",
+            "fsdp": bool(fsdp), "tp": "explicit" if mesh.model > 1 else "none",
             "sp": bool(sp), "trace_s": round(trace_s, 2),
             "rows": SP.batch_rows(shape_cfg.global_batch, dp),
             "num_microbatches": nmb,
@@ -264,7 +279,8 @@ def _prefill(cfg, plan):
 
 
 def run_one(arch, shape, mesh_kind, out_dir=None, connection=None,
-            extra_overrides=None, tag_suffix="", sp=False, microbatches=None):
+            fsdp=True, extra_overrides=None, tag_suffix="", sp=False,
+            microbatches=None):
     """``lower_pair`` on ``production_mesh(mesh_kind)``, errors caught into
     the info dict; writes ``<arch>_<shape>_<mesh>[...].json`` to
     ``out_dir`` for a pair that ran.  Returns the info dict."""
@@ -272,7 +288,7 @@ def run_one(arch, shape, mesh_kind, out_dir=None, connection=None,
     mesh = production_mesh(mesh_kind, cfg)
     try:
         info = lower_pair(arch, shape, mesh, connection=connection,
-                          extra_overrides=extra_overrides, sp=sp,
+                          fsdp=fsdp, extra_overrides=extra_overrides, sp=sp,
                           microbatches=microbatches)
     except Exception as e:  # noqa: BLE001 - reported as FAIL
         info = {"arch": arch, "shape": shape, "mesh": dict(mesh._asdict()),
@@ -286,6 +302,8 @@ def run_one(arch, shape, mesh_kind, out_dir=None, connection=None,
             tag += f"_{connection}"
         if sp:
             tag += "_sp"
+        if not fsdp:
+            tag += "_nofsdp"
         if tag_suffix:
             tag += f"_{tag_suffix}"
         with open(os.path.join(out_dir, tag + ".json"), "w") as f:
@@ -318,6 +336,9 @@ def main(argv=None):
                     choices=["single", "multi", "both"])
     ap.add_argument("--connection", default=None)
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--no-fsdp", action="store_true",
+                    help="params replicated over the data axes (the "
+                         "ablation; FSDP is the default)")
     ap.add_argument("--sp", action="store_true",
                     help="sequence-parallel LN regions (activations sharded "
                          "over the model axis; reduce-scatter / all-gather "
@@ -354,6 +375,7 @@ def main(argv=None):
             for mk in meshes:
                 info = run_one(arch, shape, mk, args.out,
                                connection=args.connection,
+                               fsdp=not args.no_fsdp,
                                extra_overrides=overrides or None,
                                tag_suffix="_".join(
                                    f"{k}-{v}" for k, v in

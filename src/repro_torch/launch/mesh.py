@@ -21,8 +21,25 @@ Megatron's layout over the block weights:
 
 With ``kv_replicated`` (``n_kv_heads < tp``) wk / wv stay whole on every
 rank and each rank slices its KV group (``attention._kv_group_slice``).
+
+FSDP (ZeRO-3 over the data group, reference ``:79-153``; ``fsdp_specs``):
+on top of its TP shard, each data rank holds a slice of every FSDP leaf
+along the leaf's largest dim that the REFERENCE's TP spec (``_BASE`` /
+``_MOE``) leaves unsharded, if that dim is at least ``FSDP_MIN_DIM``;
+``emb``, positions, norms, the SSM scalars and conv, and a generic ``w``
+outside the ``head`` are never sliced, nor are wk / wv under
+``kv_replicated``.  The rule reads the global shape (a TP shard gives the
+same answer: its TP dims are never candidates), without the reference's
+leading stack axis (the port's blocks are a list).  An uneven dim is cut as
+GSPMD cuts it: every rank holds ``ceil(n / dp)`` rows and the last rank's
+are zero-padded (``shard_fsdp``).  A slice keeps its leaf's rank, so
+AdamW's decay mask judges it as the whole leaf.  ``fsdp_layout`` gives each
+FSDP leaf's (dim, n) by path, the table the model's per-unit gathers
+(``core.tp.gather_fsdp``), the train step and the checkpoints read.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -146,3 +163,174 @@ def gather_over_group(shard, cfg, group, kv_replicated=None):
         parts = tp.gather_rows(t, group, "checkpoint", host=True)
         return torch.cat(parts.unbind(0), dim=spec)
     return _apply(shard, specs, join)
+
+
+# ------------------------------------------------------------------------- #
+# FSDP over the data group (reference ``_add_fsdp`` / ``_leaf_spec``)
+# ------------------------------------------------------------------------- #
+#: dims below this are never FSDP-sliced (reference ``_FSDP_MIN_DIM``)
+FSDP_MIN_DIM = 1024
+
+#: the reference's TP spec of a leaf key (``_BASE``): (base rank, the dims
+#: it shards over ``model``); FSDP never takes a TP dim, even where the
+#: port keeps the leaf whole (emb, the head) or the model axis has one rank
+_REF_TP = {"emb": (2, (0,)), "wq": (2, (1,)), "wk": (2, (1,)),
+           "wv": (2, (1,)), "wo": (2, (0,)), "w_dq": (2, ()),
+           "w_dkv": (2, ()), "w_kr": (2, ()), "w_uq": (2, (1,)),
+           "w_uk": (2, (1,)), "w_uv": (2, (1,)), "wi": (2, (1,)),
+           "wg": (2, (1,)), "in_proj": (2, ()), "out_proj": (2, ())}
+#: a MoE FFN's keys (``_MOE``): experts over ``model`` on dim 0
+_REF_MOE_TP = {"router": (2, ()), "wi": (3, (0,)), "wg": (3, (0,)),
+               "wo": (3, (0,))}
+#: keys the reference never FSDP-slices (``_leaf_spec``'s exceptions)
+_NO_FSDP = frozenset({"scale", "bias", "a_log", "D", "dt_bias", "conv_b",
+                      "conv_w", "pos_emb", "enc_pos", "emb"})
+
+
+def _fsdp_dim(key, shape, in_moe, parent):
+    """The reference's FSDP dim of one leaf, or None."""
+    if key == "w":
+        if parent != "head":
+            return None
+        base, tp_dims = 2, (1,)
+    elif key in _NO_FSDP:
+        return None
+    else:
+        table = _REF_MOE_TP if in_moe and key in _REF_MOE_TP else _REF_TP
+        if key not in table:
+            return None
+        base, tp_dims = table[key]
+    extra = len(shape) - base
+    if extra < 0:
+        return None
+    cands = [i for i, n in enumerate(shape)
+             if i - extra not in tp_dims and n >= FSDP_MIN_DIM]
+    return max(cands, key=lambda i: shape[i]) if cands else None
+
+
+def fsdp_specs(params, cfg, tp_size, dp_size, kv_replicated=None):
+    """The params' tree (or AdamW's ``m`` / ``v``, of the same structure)
+    with each leaf replaced by the dim its FSDP slice is cut along, or None
+    (whole on every data rank; every leaf when ``dp_size`` is 1).  Computed
+    on the global shapes or on a TP shard's, which give the same answer."""
+    if dp_size == 1:
+        return map_tree(lambda _: None, params)
+    kv_rep = _kv_replicated(cfg, tp_size) if kv_replicated is None \
+        else kv_replicated
+
+    def walk(node, key=None, in_moe=False, parent=None):
+        if isinstance(node, dict):
+            here = "router" in node
+            # the shared expert is a dense MLP: no expert axis
+            return {k: walk(v, k, (in_moe or here) and k != "shared", key)
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, key, in_moe, parent) for v in node]
+        if kv_rep and key in ("wk", "wv"):
+            return None
+        return _fsdp_dim(key, tuple(node.shape), in_moe, parent)
+    return walk(params)
+
+
+@functools.lru_cache(maxsize=32)
+def _layout(cfg, tp_size, dp_size, min_dim):
+    from repro_torch.models import model as M
+    full = M.init_params(cfg, device="meta")
+    specs = dict(named_leaves(fsdp_specs(full, cfg, tp_size, dp_size)))
+    return {p: (specs[p], t.shape[specs[p]]) for p, t in named_leaves(full)
+            if specs[p] is not None}
+
+
+def fsdp_layout(cfg, tp_size, dp_size) -> dict:
+    """{path (``adamw.named_leaves``): (dim, n)} of every FSDP leaf of the
+    config's params: the dim its slices are cut along and the dim's global
+    length (the slices hold ``ceil(n / dp_size)`` rows each).  Cached; do
+    not mutate."""
+    return _layout(cfg, tp_size, dp_size, FSDP_MIN_DIM)
+
+
+def fsdp_cuts(cfg, tp_size, dp_size, prefix) -> dict:
+    """``fsdp_layout``'s entries under ``prefix``, keyed by the rest of
+    their path: one unit's (a block's, the head's) table.  Cached; do not
+    mutate."""
+    return _cuts(cfg, tp_size, dp_size, tuple(prefix), FSDP_MIN_DIM)
+
+
+@functools.lru_cache(maxsize=4096)
+def _cuts(cfg, tp_size, dp_size, prefix, min_dim):
+    n = len(prefix)
+    return {p[n:]: c for p, c in _layout(cfg, tp_size, dp_size,
+                                         min_dim).items()
+            if p[:n] == prefix}
+
+
+def fsdp_rows(n, dp_size) -> int:
+    """Rows of one slice of a dim of ``n`` over ``dp_size`` data ranks."""
+    return -(-n // dp_size)
+
+
+def fsdp_slice(t, dim, rank, dp_size):
+    """Data rank ``rank``'s slice of ``t`` along ``dim``: ``ceil(n / dp)``
+    rows, zero-padded past the end (the last rank's), as a contiguous
+    copy."""
+    n = t.shape[dim]
+    k = fsdp_rows(n, dp_size)
+    lo, hi = min(rank * k, n), min((rank + 1) * k, n)
+    part = t.detach().narrow(dim, lo, hi - lo)
+    if hi - lo == k:
+        return part.clone(memory_format=torch.contiguous_format)
+    shape = list(t.shape)
+    shape[dim] = k
+    out = part.new_zeros(shape)
+    out.narrow(dim, 0, hi - lo).copy_(part)
+    return out
+
+
+def shard_fsdp(params, cfg, rank, dp_size, tp_size=1):
+    """Data rank ``rank``'s FSDP slices of ``params`` (the whole tree or
+    this rank's TP shard, ``shard_params``; or a tree of its structure):
+    each FSDP leaf cut along its dim by ``fsdp_slice``, the other leaves
+    the same tensors as given."""
+    specs = fsdp_specs(params, cfg, tp_size, dp_size)
+
+    def cut(path, dim):
+        t = _leaf(params, path)
+        return t if dim is None else fsdp_slice(t, dim, rank, dp_size)
+    return _apply(params, specs, cut)
+
+
+def gather_fsdp(slices, cfg, tp_size=1):
+    """The inverse of ``shard_fsdp``: the per-data-rank trees (by rank) ->
+    the tree they were cut from, padding dropped; the other leaves from
+    rank 0."""
+    dp = len(slices)
+    layout = fsdp_layout(cfg, tp_size, dp)
+
+    def join(path, _):
+        parts = [_leaf(s, path) for s in slices]
+        if path not in layout:
+            return parts[0]
+        dim, n = layout[path]
+        return torch.cat([p.detach() for p in parts], dim=dim).narrow(
+            dim, 0, n).contiguous()
+    return _apply(slices[0], map_tree(lambda _: None, slices[0]), join)
+
+
+def gather_fsdp_over_group(shard, cfg, group, tp_size=1, host=True):
+    """``gather_fsdp`` over the data ``group``, collectively: each FSDP
+    leaf of this rank's ``shard`` (params or an AdamW moment) is
+    all-gathered (direction ``checkpoint``), joined along its dim and
+    trimmed; into host memory with ``host``, else on the leaf's device.
+    The other leaves are this rank's, as given."""
+    from repro_torch.core import tp
+    layout = fsdp_layout(cfg, tp_size, group.size())
+
+    def join(path, _):
+        t = _leaf(shard, path)
+        if path not in layout:
+            return t
+        dim, n = layout[path]
+        parts = tp.gather_rows(t, group, "checkpoint", host=host)
+        return torch.cat(parts.unbind(0), dim=dim).narrow(dim, 0,
+                                                          n).contiguous()
+    return _apply(shard, map_tree(lambda _: None, shard), join)

@@ -5,9 +5,12 @@ what the dry run (``launch/dryrun.py``) runs a step against.
 Port of ``repro/launch/specs.py:26-108``.  The reference builds
 ``ShapeDtypeStruct``s of the GLOBAL arrays with shardings over a mesh; here
 a rank is a process, so each function returns that rank's own tensors:
-its shard of the blocks (``launch/mesh.py`` ``shard_params``), its rows of
-the batch and a cache of its ``local_kv_heads``.  ``tp`` is the model
-axis's size and ``dp`` the data axes' (pod x data).
+its shard of the blocks (``launch/mesh.py`` ``shard_params``) and, with
+``fsdp`` (the reference's default ``fsdp_axes``), its FSDP slices of them
+(``shard_fsdp``), its rows of the batch and a cache of its
+``local_kv_heads``.  ``tp`` is the model axis's size and ``dp`` the data
+axes' (pod x data); every rank's slices have one size (the last rank's
+are padded), so rank 0 stands for all.
 """
 from __future__ import annotations
 
@@ -84,34 +87,38 @@ def batch_struct(cfg, shape_cfg, dp):
     return out
 
 
-def _params(cfg, tp, tp_rank):
+def _params(cfg, tp, tp_rank, dp=1, fsdp=False):
     """The rank's parameters in ``cfg.param_dtype``: the whole tree, or
-    under TP (a decoder family, tp > 1) its shard of the blocks."""
+    under TP (a decoder family, tp > 1) its shard of the blocks; with
+    ``fsdp`` its data rank 0's FSDP slices of those over ``dp`` ranks."""
     params = M.init_params(cfg, device=META, dtype=cfg.param_dtype)
     if tp > 1:
         if cfg.family not in EXPLICIT_TP_FAMILIES:
             raise ValueError(f"family '{cfg.family}' has no TP shard")
         params = MX.shard_params(params, cfg, tp_rank, tp)
+    if fsdp:
+        params = MX.shard_fsdp(params, cfg, 0, dp, tp)
     return params
 
 
-def train_input_specs(cfg, shape_cfg, tp=1, dp=1, tp_rank=0):
+def train_input_specs(cfg, shape_cfg, tp=1, dp=1, tp_rank=0, fsdp=False):
     """(state, batch) of one rank for ``make_train_step`` (reference
-    ``:77-86``): the params' shard with AdamW's moments
-    (``opt_cfg_for``), and the rank's batch rows."""
+    ``:77-86``): the params' shard (with ``fsdp``, its slices) with
+    AdamW's moments (``opt_cfg_for``) of the same shapes, and the rank's
+    batch rows."""
     state = tstep.init_state(0, cfg, opt_cfg_for(cfg),
-                             params=_params(cfg, tp, tp_rank))
+                             params=_params(cfg, tp, tp_rank, dp, fsdp))
     return state, batch_struct(cfg, shape_cfg, dp)
 
 
-def decode_input_specs(cfg, shape_cfg, tp=1, dp=1, tp_rank=0):
+def decode_input_specs(cfg, shape_cfg, tp=1, dp=1, tp_rank=0, fsdp=False):
     """(params, cache, tokens, pos) of one rank for ``make_serve_step``
     (reference ``:89-108``): the params' shard (in ``cfg.param_dtype``, as
-    the reference lowers them), a bf16 contiguous cache of the rank's rows
-    and KV heads (``init_cache(..., tp_size=)``), and int32 tokens (rows,
-    1) and positions (rows,)."""
+    the reference lowers them; with ``fsdp``, its slices), a bf16
+    contiguous cache of the rank's rows and KV heads (``init_cache(...,
+    tp_size=)``), and int32 tokens (rows, 1) and positions (rows,)."""
     B = batch_rows(shape_cfg.global_batch, dp)
-    params = _params(cfg, tp, tp_rank)
+    params = _params(cfg, tp, tp_rank, dp, fsdp)
     cache = M.init_cache(cfg, B, shape_cfg.seq_len, "bfloat16", device=META,
                          tp_size=tp)
     tokens = torch.empty((B, 1), dtype=torch.int32, device=META)

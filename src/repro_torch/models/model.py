@@ -43,6 +43,18 @@ whole on every rank and are not summed.  The serving ticks, contiguous
 and paged, run the same blocks under such a plan (``serving_plan``):
 each rank holds its shard and its KV heads' caches, in lockstep.
 
+FSDP (``plan.fsdp``, ZeRO-3 over the data group; the reference's default
+layout): the params hold this data rank's slices (``launch/mesh.py::
+shard_fsdp``).  Each unit (block 0, every later block, the head, the MTP
+head, every mamba layer, every invocation of zamba's shared block with its
+``in_proj`` row, every whisper block) gathers its leaves first thing inside
+its ``_maybe_remat`` (``_gather``): the recompute gathers again, only the
+slices are saved, and the gather's backward reduce-scatters the unit's
+gradients into the slices' ``.grad``.  The embedding, positions and norms
+are never sliced, so what runs outside the units (the embedding, block 0's
+``ln_a`` in ``fal.first_attention_signal``) reads the slices' tree as it
+is.  The contiguous decode tick takes an FSDP plan too (``serving_plan``).
+
 Parameters are a dict tree in the reference's layout, except that the
 stacked ``blocks_dense`` and ``blocks_moe`` leaves (leading layer axis)
 become one list of per-layer dicts under ``"blocks"``, in depth order (the
@@ -88,6 +100,7 @@ from repro_torch.core import tp
 from repro_torch.core.plan import (EXPLICIT_TP_FAMILIES, ExecutionPlan,
                                    Phase, kv_replicated, local_kv_heads)
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as MX
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as BL
 from repro_torch.models import layers as L
@@ -237,11 +250,27 @@ def _splice_image(cfg, batch, x, positions):
     return torch.where((positions < cfg.n_image_tokens)[..., None], img, x)
 
 
-def _logits(p, cfg, x):
+def _gather(tree, cfg, plan, prefix, cuts=None):
+    """One unit's params (a block, the head, the MTP head, a mamba layer)
+    with their FSDP slices gathered over the data group under
+    ``plan.fsdp`` (``tp.gather_fsdp``: one all-gather, its backward one
+    reduce-scatter), called first thing inside the unit's
+    ``_maybe_remat``; ``tree`` as given otherwise.  ``prefix``: the
+    unit's path in the params, whose entries of ``launch.mesh.
+    fsdp_layout`` are the unit's ``cuts`` unless these are given."""
+    if plan is None or not plan.fsdp:
+        return tree
+    if cuts is None:
+        cuts = MX.fsdp_cuts(cfg, plan.tp_size, plan.dp_size, prefix)
+    return tp.gather_fsdp(tree, cuts, plan.data_group)
+
+
+def _logits(p, cfg, x, plan=None):
     x = L.norm_apply(p["final_norm"], x, cfg.norm)
     if cfg.tie_embeddings:
         return L.unembed_apply(p["embed"], x, cfg.final_softcap)
-    return L.softcap(L.dense_apply(p["head"]["w"], x), cfg.final_softcap)
+    head = _gather(p["head"], cfg, plan, ("head",))
+    return L.softcap(L.dense_apply(head["w"], x), cfg.final_softcap)
 
 
 def lm_head(params, cfg, x):
@@ -290,21 +319,25 @@ def _run_decoder_blocks(p, cfg, x, positions, plan):
     kinds = layer_kinds(cfg)
 
     def block0(pb, h):
+        pb = _gather(pb, cfg, plan, ("block0",))
         return BL.block_apply(pb, cfg, h, None, kind=kinds[0],
                               is_block0=True, plan=plan, positions=positions,
                               window=wsched[0])
 
-    def block(pb, h, a1_sig, window, kind):
+    def block(pb, h, a1_sig, window, kind, i):
+        pb = _gather(pb, cfg, plan, ("blocks", i))
         out, _, aux = BL.block_apply(pb, cfg, h, a1_sig, kind=kind,
                                      plan=plan, positions=positions,
                                      window=window)
         return out, aux
 
     x, a1_raw, aux = _maybe_remat(block0, cfg)(p["block0"], x)
+    # ln_a is never FSDP-sliced: the slices' tree serves here
     a1_sig = fal.first_attention_signal(cfg, p["block0"], a1_raw)
-    for pb, w, kind in zip(p["blocks"], wsched[1:], kinds[1:]):
-        x, aux_i = _maybe_remat(functools.partial(block, kind=kind), cfg)(
-            pb, x, a1_sig, w)
+    for i, (pb, w, kind) in enumerate(zip(p["blocks"], wsched[1:],
+                                          kinds[1:])):
+        x, aux_i = _maybe_remat(functools.partial(block, kind=kind, i=i),
+                                cfg)(pb, x, a1_sig, w)
         aux = BL.add_aux(aux, aux_i)
     return x, _aux_total(aux, x.device)
 
@@ -357,12 +390,14 @@ def decoder_stack_tp(p, cfg, x, positions, plan):
     kinds = layer_kinds(cfg)
 
     def block0(pb, h):
+        pb = _gather(pb, cfg, plan, ("block0",))
         h, _, sig, aux = BL.block_apply_tp(
             pb, cfg, h, None, kind=kinds[0], is_block0=True, plan=inner,
             positions=positions, window=wsched[0])
         return h, sig, aux
 
-    def block(pb, h, a1_sig, window, kind):
+    def block(pb, h, a1_sig, window, kind, i):
+        pb = _gather(pb, cfg, plan, ("blocks", i))
         out, _, _, aux = BL.block_apply_tp(
             pb, cfg, h, a1_sig, kind=kind, plan=inner, positions=positions,
             window=window)
@@ -371,9 +406,10 @@ def decoder_stack_tp(p, cfg, x, positions, plan):
     if sp:
         x = tp.split_seq(x, plan.group)
     x, a1_sig, aux = _maybe_remat(block0, cfg)(p["block0"], x)
-    for pb, w, kind in zip(p["blocks"], wsched[1:], kinds[1:]):
-        x, aux_i = _maybe_remat(functools.partial(block, kind=kind), cfg)(
-            pb, x, a1_sig, w)
+    for i, (pb, w, kind) in enumerate(zip(p["blocks"], wsched[1:],
+                                          kinds[1:])):
+        x, aux_i = _maybe_remat(functools.partial(block, kind=kind, i=i),
+                                cfg)(pb, x, a1_sig, w)
         aux = BL.add_aux(aux, aux_i)
     if sp:
         x = tp.unsplit_seq(x, plan.group)
@@ -389,7 +425,11 @@ def tp_sync_grads(params, cfg, plan):
     rank holds as a partial sum of a replicated leaf
     (``blocks.tp_partial_leaves``); afterwards every replicated leaf's
     gradient is whole and equal on every rank.  Call after the backward
-    (and after the last microbatch)."""
+    (and after the last microbatch).  Under FSDP a listed leaf that is
+    also sliced (a MoE router, MLA's down-projections) holds its slice's
+    gradient, already reduce-scattered over the data group: the TP sum
+    acts on the slice (both sums are linear, so either order gives the
+    one device's gradient)."""
     kv_rep = kv_replicated(cfg, plan.tp_size)
     grads = []
     for pb, is0 in [(params["block0"], True)] + [
@@ -417,7 +457,7 @@ def _decoder_forward(p, cfg, batch, plan, want="logits"):
         x, aux = _run_decoder_blocks(p, cfg, x, positions, plan)
     if want == "hidden":
         return None, aux, {"hidden": x}
-    return _logits(p, cfg, x), aux, {}
+    return _logits(p, cfg, x, plan), aux, {}
 
 
 def forward(params, cfg, batch, plan=None, want="logits"):
@@ -436,12 +476,12 @@ def forward(params, cfg, batch, plan=None, want="logits"):
     return fn(params, cfg, batch, plan, want=want)
 
 
-def _ce_tail(p, cfg, hidden, tokens):
-    logits = _logits(p, cfg, hidden)
+def _ce_tail(p, cfg, hidden, tokens, plan=None):
+    logits = _logits(p, cfg, hidden, plan)
     return cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 
-def _mtp_loss(p, cfg, batch, hidden):
+def _mtp_loss(p, cfg, batch, hidden, plan=None):
     """DeepSeek-V3's multi-token prediction (reference ``:1086-1100``):
     predict token t + 2 from the final hidden state h_t and the embedding
     of token t + 1, through ``proj`` and the preln MTP block (full
@@ -449,7 +489,7 @@ def _mtp_loss(p, cfg, batch, hidden):
     the whole hidden states, its weights whole on every rank), then the
     model's head."""
     tokens = batch["tokens"]
-    mtp = p["mtp"]
+    mtp = _gather(p["mtp"], cfg, plan, ("mtp",))
     emb_next = L.embed_apply(p["embed"], tokens[:, 1:], _dtype(cfg.dtype))
     z = torch.cat([L.norm_apply(mtp["norm_h"], hidden[:, :-1], cfg.norm),
                    L.norm_apply(mtp["norm_e"], emb_next, cfg.norm)], -1)
@@ -458,7 +498,7 @@ def _mtp_loss(p, cfg, batch, hidden):
     positions = torch.arange(S1, device=z.device)[None].expand(B, S1)
     z, _, _ = BL.block_apply(mtp["block"], _mtp_cfg(cfg), z, None,
                              kind="dense", positions=positions)
-    logits = _logits(p, cfg, z)                               # (B, S-1, V)
+    logits = _logits(p, cfg, z, plan)                         # (B, S-1, V)
     return cross_entropy(logits[:, :-1], tokens[:, 2:])
 
 
@@ -471,12 +511,14 @@ def loss_fn(params, cfg, batch, plan=None):
     cross entropy, under ``_maybe_remat`` too, and metrics carry "mtp"."""
     plan = ExecutionPlan.resolve(plan)
     _, aux, extras = forward(params, cfg, batch, plan, want="hidden")
-    tail = _maybe_remat(functools.partial(_ce_tail, cfg=cfg), cfg)
+    tail = _maybe_remat(functools.partial(_ce_tail, cfg=cfg, plan=plan),
+                        cfg)
     ce = tail(params, hidden=extras["hidden"], tokens=batch["tokens"])
     loss = ce + cfg.router_aux_coef * aux
     metrics = {"ce": ce, "aux": aux}
     if cfg.mtp_depth and "mtp" in params:
-        mtp_fn = _maybe_remat(functools.partial(_mtp_loss, cfg=cfg), cfg)
+        mtp_fn = _maybe_remat(functools.partial(_mtp_loss, cfg=cfg,
+                                                plan=plan), cfg)
         mtp = mtp_fn(params, batch=batch, hidden=extras["hidden"])
         loss = loss + 0.3 * mtp
         metrics["mtp"] = mtp
@@ -532,7 +574,7 @@ def _decoder_decode(p, cfg, batch, cache, plan):
                                  pos=pos)
     x = _decoder_layer_stack(p, cfg, x, a1_sig, pos, cache["blocks"], plan,
                              block_tables=None)
-    return _logits(p, cfg, x), cache
+    return _logits(p, cfg, x, plan), cache
 
 
 def decode_step(params, cfg, batch, cache, plan=None):
@@ -599,15 +641,16 @@ def _serve_block0(p, cfg, x, plan, **kw):
     (``parallel``, whose ticks never read it).  ``kw``: the tick's cache
     arguments."""
     kind, window = _layer_kind(cfg, 0), BL.window_schedule(cfg)[0]
+    pb = _gather(p["block0"], cfg, plan, ("block0",))
     if plan.use_explicit_tp:
         x, a_raw, sig, _ = BL.block_apply_tp(
-            p["block0"], cfg, x, None, kind=kind, is_block0=True,
+            pb, cfg, x, None, kind=kind, is_block0=True,
             plan=plan.inner(), window=window, **kw)
         return x, a_raw, sig
-    x, a_raw, _ = BL.block_apply(p["block0"], cfg, x, None, kind=kind,
+    x, a_raw, _ = BL.block_apply(pb, cfg, x, None, kind=kind,
                                  is_block0=True, plan=plan, window=window,
                                  **kw)
-    return x, a_raw, fal.first_attention_signal(cfg, p["block0"], a_raw)
+    return x, a_raw, fal.first_attention_signal(cfg, pb, a_raw)
 
 
 def _decoder_layer_stack(p, cfg, x, a1_sig, pos, blocks_cache, plan, *,
@@ -631,6 +674,7 @@ def _decoder_layer_stack(p, cfg, x, a1_sig, pos, blocks_cache, plan, *,
         plan = plan.inner()
     for i, pb in enumerate(p["blocks"][:limit]):
         layer_cache = {k: v[i] for k, v in blocks_cache.items()}
+        pb = _gather(pb, cfg, plan, ("blocks", i))
         x, _, _ = BL.block_apply(pb, cfg, x, a1_sig, kind=kinds[i],
                                  plan=plan, cache=layer_cache,
                                  block_tables=block_tables, pos=pos,
@@ -680,7 +724,7 @@ def _decoder_paged_decode(p, cfg, batch, cache, plan, want="logits"):
                              block_tables=bt, n_valid=n_valid)
     if want == "hidden":
         return x, cache
-    return _logits(p, cfg, x), cache
+    return _logits(p, cfg, x, plan), cache
 
 
 def _decoder_paged_packed(p, cfg, batch, cache, plan, want="logits"):
@@ -711,7 +755,7 @@ def _decoder_paged_packed(p, cfg, batch, cache, plan, want="logits"):
                              tok_pos=tok_pos)
     if want == "hidden":
         return x, cache
-    return _logits(p, cfg, x), cache
+    return _logits(p, cfg, x, plan), cache
 
 
 def _decoder_paged_packed_draft(p, cfg, batch, cache, plan, draft_blocks):
@@ -748,8 +792,11 @@ def serving_plan(params, cfg, plan, phase):
     """The plan of a serving tick, pinned to ``phase`` and validated.  A
     plan over a process group serves only under ``tp='explicit'`` and only
     the decoder families (``EXPLICIT_TP_FAMILIES``); ``params`` must then
-    be this rank's shard (``_check_shards``).  A data group raises: a data
-    replica is an engine of its own.
+    be this rank's shard (``_check_shards``).  A data group raises (a data
+    replica is an engine of its own) except under ``plan.fsdp`` in the
+    contiguous decode tick, where every data rank serves its own rows in
+    lockstep and gathers each block's slices over the group as the
+    forward does.
 
     Under explicit TP every rank runs the same tick on the same replicated
     batch in lockstep: the embedding, the head, ``a1_sig`` and the image
@@ -761,11 +808,13 @@ def serving_plan(params, cfg, plan, phase):
     all-reduce of its rows' K / V amax (``attention._scatter_kv``), so
     every rank quantizes with the one-device scale."""
     plan = ExecutionPlan.resolve(plan).with_phase(phase)
-    if plan.data_group is not None:
+    if plan.data_group is not None and not (plan.fsdp
+                                            and phase is Phase.DECODE):
         raise ValueError(
             "a data-parallel group in a serving tick: a data replica is a "
             "separate engine (one per rank), and a tick never reduces over "
-            "replicas")
+            "replicas (only an FSDP plan's contiguous decode tick gathers "
+            "its weights over one)")
     if plan.is_sharded:
         _refuse_tp_family(cfg, plan.tp_size)
         if not plan.use_explicit_tp:
@@ -872,17 +921,20 @@ def _mamba_init(gen, cfg, dt, device):
     }
 
 
-def _mamba_layer(pb, h, cfg):
+def _mamba_layer(pb, h, cfg, plan=None, prefix=()):
+    pb = _gather(pb, cfg, plan, prefix)
     y, _ = S.mamba_apply(pb["mixer"], cfg, L.norm_apply(pb["ln"], h,
                                                         cfg.norm))
     return h + y
 
 
-def _mamba_seg(blocks, cfg, x):
-    """Mamba layers over the full sequence, each under ``_maybe_remat``."""
-    layer = _maybe_remat(functools.partial(_mamba_layer, cfg=cfg), cfg)
-    for pb in blocks:
-        x = layer(pb, x)
+def _mamba_seg(blocks, cfg, x, plan=None, prefix=()):
+    """Mamba layers over the full sequence, each under ``_maybe_remat``;
+    layer i's params sit at ``prefix + (i,)`` (its FSDP unit)."""
+    for i, pb in enumerate(blocks):
+        layer = functools.partial(_mamba_layer, cfg=cfg, plan=plan,
+                                  prefix=prefix + (i,))
+        x = _maybe_remat(layer, cfg)(pb, x)
     return x
 
 
@@ -893,10 +945,10 @@ def _zero_aux(x):
 def _mamba_forward(p, cfg, batch, plan, want="logits"):
     """Reference ``:599-617``."""
     x = L.embed_apply(p["embed"], batch["tokens"], _dtype(cfg.dtype))
-    x = _mamba_seg(p["blocks"], cfg, x)
+    x = _mamba_seg(p["blocks"], cfg, x, plan, ("blocks",))
     if want == "hidden":
         return None, _zero_aux(x), {"hidden": x}
-    return _logits(p, cfg, x), _zero_aux(x), {}
+    return _logits(p, cfg, x, plan), _zero_aux(x), {}
 
 
 def _layers_of(cache, n):
@@ -916,10 +968,11 @@ def _mamba_init_cache(cfg, batch, seq, dtype, device):
                                                     device), cfg.n_layers)}
 
 
-def _mamba_decode_seg(blocks, cfg, x, cache):
+def _mamba_decode_seg(blocks, cfg, x, cache, plan=None, prefix=()):
     """One token through mamba layers, each layer's {"state", "conv"}
     (views of the stacked cache) written in place."""
-    for pb, c in zip(blocks, _layers_of(cache, len(blocks))):
+    for i, (pb, c) in enumerate(zip(blocks, _layers_of(cache, len(blocks)))):
+        pb = _gather(pb, cfg, plan, prefix + (i,))
         y, new = S.mamba_decode(pb["mixer"], cfg,
                                 L.norm_apply(pb["ln"], x, cfg.norm), c)
         x = x + y
@@ -932,8 +985,9 @@ def _mamba_decode(p, cfg, batch, cache, plan):
     """Reference ``:626-639``: tokens (B, 1) -> (logits (B, 1, V), cache
     updated in place).  ``pos`` is not read: the state is the history."""
     x = L.embed_apply(p["embed"], batch["tokens"], _dtype(cfg.dtype))
-    x = _mamba_decode_seg(p["blocks"], cfg, x, cache["blocks"])
-    return _logits(p, cfg, x), cache
+    x = _mamba_decode_seg(p["blocks"], cfg, x, cache["blocks"], plan,
+                          ("blocks",))
+    return _logits(p, cfg, x, plan), cache
 
 
 # ------------------------------------------------------------------------- #
@@ -970,12 +1024,31 @@ def _zamba_init(gen, cfg, dt, device):
     return p
 
 
+def _zamba_shared_cuts(cfg, plan):
+    """The FSDP cuts of one invocation's unit {"shared", "in_proj"}: the
+    shared block's, and its group's row of ``in_proj`` (the (n_groups, 2d,
+    d) leaf's dim less the group axis)."""
+    cuts = {("shared",) + k: c for k, c in MX.fsdp_cuts(
+        cfg, plan.tp_size, plan.dp_size, ("shared",)).items()}
+    whole = MX.fsdp_cuts(cfg, plan.tp_size, plan.dp_size, ("in_proj",))
+    if () in whole:
+        dim, n = whole[()]
+        cuts[("in_proj",)] = (dim - 1, n)
+    return cuts
+
+
 def _zamba_shared_block(p, cfg, x, x0, in_proj, a1_sig, positions, *,
                         first, plan, cache=None, pos=None):
     """One invocation of the weight-shared attention block (reference
     ``:674-686``): its input is ``[x, x0] @ in_proj``, and only its delta
     ``out - h_in`` joins the backbone's residual stream.  Returns (x, the
-    block's attention output)."""
+    block's attention output).  Under FSDP each invocation gathers the
+    shared block and its ``in_proj`` row; the shared leaves' gradient is
+    the sum of the invocations' reduce-scatters."""
+    if plan.fsdp:
+        unit = _gather({"shared": p["shared"], "in_proj": in_proj}, cfg,
+                       plan, None, _zamba_shared_cuts(cfg, plan))
+        p, in_proj = dict(p, shared=unit["shared"]), unit["in_proj"]
     h_in = torch.cat([x, x0], dim=-1) @ in_proj.to(x.dtype)
     shared = dict(p["shared"])
     if "shared_ln_fal" in p:
@@ -995,21 +1068,21 @@ def _zamba_forward(p, cfg, batch, plan, want="logits"):
     positions = torch.arange(Sq, device=tokens.device)[None].expand(B, Sq)
     x0 = L.embed_apply(p["embed"], tokens, _dtype(cfg.dtype))
 
-    def group(pm, in_proj, h, a1_sig, first):
-        h = _mamba_seg(pm, cfg, h)
+    def group(pm, in_proj, h, a1_sig, first, g):
+        h = _mamba_seg(pm, cfg, h, plan, ("mamba", g))
         return _zamba_shared_block(p, cfg, h, x0, in_proj, a1_sig, positions,
                                    first=first, plan=plan)
 
     x, a1_raw = _maybe_remat(group, cfg)(p["mamba"][0], p["in_proj"][0], x0,
-                                         None, True)
+                                         None, True, 0)
     a1_sig = fal.first_attention_signal(cfg, p["shared"], a1_raw)
     for g in range(1, len(p["mamba"])):
         x, _ = _maybe_remat(group, cfg)(p["mamba"][g], p["in_proj"][g], x,
-                                        a1_sig, False)
-    x = _mamba_seg(p.get("mamba_tail", []), cfg, x)
+                                        a1_sig, False, g)
+    x = _mamba_seg(p.get("mamba_tail", []), cfg, x, plan, ("mamba_tail",))
     if want == "hidden":
         return None, _zero_aux(x), {"hidden": x}
-    return _logits(p, cfg, x), _zero_aux(x), {}
+    return _logits(p, cfg, x, plan), _zero_aux(x), {}
 
 
 def _zamba_init_cache(cfg, batch, seq, dtype, device):
@@ -1036,15 +1109,16 @@ def _zamba_decode(p, cfg, batch, cache, plan):
     attn = _layers_of(cache["attn"], len(p["mamba"]))
     for g, pm in enumerate(p["mamba"]):
         mc = {k: v[g] for k, v in cache["mamba"].items()}
-        x = _mamba_decode_seg(pm, cfg, x, mc)
+        x = _mamba_decode_seg(pm, cfg, x, mc, plan, ("mamba", g))
         x, a_raw = _zamba_shared_block(p, cfg, x, x0, p["in_proj"][g],
                                        a1_sig, None, first=g == 0, plan=plan,
                                        cache=attn[g], pos=pos)
         if g == 0:
             a1_sig = fal.first_attention_signal(cfg, p["shared"], a_raw)
     if "mamba_tail" in p:
-        x = _mamba_decode_seg(p["mamba_tail"], cfg, x, cache["mamba_tail"])
-    return _logits(p, cfg, x), cache
+        x = _mamba_decode_seg(p["mamba_tail"], cfg, x, cache["mamba_tail"],
+                              plan, ("mamba_tail",))
+    return _logits(p, cfg, x, plan), cache
 
 
 # ------------------------------------------------------------------------- #
@@ -1076,22 +1150,32 @@ def _whisper_init(gen, cfg, dt, device):
     }
 
 
-def _stack_apply(p, cfg, blocks, x, a1_sig, plan, **kw):
+def _stack_apply(p, cfg, blocks, x, a1_sig, plan, prefixes, **kw):
     """Block 0 (``blocks[0]``, exporting the first-attention signal) and
-    the later blocks, each under ``_maybe_remat`` -> x.  ``kw``: the
-    blocks' shared keywords (positions, causal, enc_out)."""
+    the later blocks, each under ``_maybe_remat`` -> x; ``prefixes``: each
+    block's path in the params (its FSDP unit).  ``kw``: the blocks'
+    shared keywords (positions, causal, enc_out)."""
     def block0(pb, h):
+        pb = _gather(pb, cfg, plan, prefixes[0])
         return BL.block_apply(pb, cfg, h, None, is_block0=True, plan=plan,
                               **kw)[:2]
 
-    def block(pb, h, sig):
+    def block(pb, h, sig, prefix):
+        pb = _gather(pb, cfg, plan, prefix)
         return BL.block_apply(pb, cfg, h, sig, plan=plan, **kw)[0]
 
     x, a1_raw = _maybe_remat(block0, cfg)(blocks[0], x)
     a1_sig = fal.first_attention_signal(cfg, blocks[0], a1_raw)
-    for pb in blocks[1:]:
-        x = _maybe_remat(block, cfg)(pb, x, a1_sig)
+    for pb, prefix in zip(blocks[1:], prefixes[1:]):
+        x = _maybe_remat(functools.partial(block, prefix=prefix), cfg)(
+            pb, x, a1_sig)
     return x
+
+
+def _stack_prefixes(p, first, rest):
+    """The paths of a whisper stack's blocks: ``(first,)``, then ``(rest,
+    i)`` for each of ``p[rest]``."""
+    return [(first,)] + [(rest, i) for i in range(len(p[rest]))]
 
 
 def whisper_encode(p, cfg, frames, plan=None):
@@ -1102,7 +1186,8 @@ def whisper_encode(p, cfg, frames, plan=None):
     dt = _dtype(cfg.dtype)
     x = frames.to(dt) + p["enc_pos"].to(dt)[None, :frames.shape[1]]
     x = _stack_apply(p, cfg, [p["enc_block0"]] + p["enc_blocks"], x, None,
-                     plan, causal=False)
+                     plan, _stack_prefixes(p, "enc_block0", "enc_blocks"),
+                     causal=False)
     return L.norm_apply(p["enc_norm"], x, cfg.norm)
 
 
@@ -1118,10 +1203,11 @@ def _whisper_forward(p, cfg, batch, plan, want="logits"):
     x = L.embed_apply(p["embed"], tokens, dt) \
         + p["pos_emb"].to(dt)[None, :Sq]
     x = _stack_apply(p, cfg, [p["dec_block0"]] + p["dec_blocks"], x, None,
-                     plan, positions=positions, enc_out=enc_out)
+                     plan, _stack_prefixes(p, "dec_block0", "dec_blocks"),
+                     positions=positions, enc_out=enc_out)
     if want == "hidden":
         return None, _zero_aux(x), {"hidden": x}
-    return _logits(p, cfg, x), _zero_aux(x), {}
+    return _logits(p, cfg, x, plan), _zero_aux(x), {}
 
 
 def _whisper_init_cache(cfg, batch, seq, dtype, device):
@@ -1143,12 +1229,14 @@ def _whisper_decode(p, cfg, batch, cache, plan):
     enc_out = cache["enc_out"].to(dt)
     x = L.embed_apply(p["embed"], tokens, dt) \
         + p["pos_emb"].to(dt)[pos.long()][:, None]
-    x, a1_raw, _ = BL.block_apply(p["dec_block0"], cfg, x, None,
+    pb0 = _gather(p["dec_block0"], cfg, plan, ("dec_block0",))
+    x, a1_raw, _ = BL.block_apply(pb0, cfg, x, None,
                                   is_block0=True, plan=plan, enc_out=enc_out,
                                   cache=cache["block0"], pos=pos)
-    a1_sig = fal.first_attention_signal(cfg, p["dec_block0"], a1_raw)
-    for pb, c in zip(p["dec_blocks"], _layers_of(cache["blocks"],
-                                                 len(p["dec_blocks"]))):
+    a1_sig = fal.first_attention_signal(cfg, pb0, a1_raw)
+    for i, (pb, c) in enumerate(zip(p["dec_blocks"], _layers_of(
+            cache["blocks"], len(p["dec_blocks"])))):
+        pb = _gather(pb, cfg, plan, ("dec_blocks", i))
         x, _, _ = BL.block_apply(pb, cfg, x, a1_sig, plan=plan,
                                  enc_out=enc_out, cache=c, pos=pos)
-    return _logits(p, cfg, x), cache
+    return _logits(p, cfg, x, plan), cache

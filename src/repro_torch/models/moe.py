@@ -255,6 +255,22 @@ def moe_apply_partial(p, cfg, x, group):
 # ------------------------------------------------------------------------- #
 # expert parallelism over a process group
 # ------------------------------------------------------------------------- #
+def fsdp_gathered(p, cfg, data_group):
+    """A MoE FFN's params ``p`` (the router, this rank's experts, the
+    shared expert) with their FSDP slices (``launch.mesh.fsdp_specs``: the
+    experts' and the router's ``d``) gathered over ``data_group`` before
+    dispatch (``core.tp.gather_fsdp``: one all-gather, its backward one
+    reduce-scatter); ``p`` as given without a group.  Inside the model a
+    MoE block's unit gathers them with the block's other leaves."""
+    if data_group is None:
+        return p
+    from repro_torch.launch import mesh as MX
+    i = cfg.first_dense_layers
+    prefix = ("block0", "ffn") if i == 0 else ("blocks", i - 1, "ffn")
+    return tp.gather_fsdp(p, MX.fsdp_cuts(cfg, 1, data_group.size(), prefix),
+                          data_group)
+
+
 def _ep_inputs(p, group):
     """The replicated leaves entered through *f*: their gradients, partial
     sums over each rank's tokens, come back summed over the group."""
@@ -271,7 +287,7 @@ def _mean_over(aux, group):
     return tp.assemble(aux, group) / group.size()
 
 
-def moe_apply_sharded(p, cfg, x, group):
+def moe_apply_sharded(p, cfg, x, group, data_group=None):
     """Expert parallelism with two all-to-alls a call (reference ``:170``).
 
     ``x`` (b, S/M, d) is this rank's token shard, ``p["wi"]`` / ``"wg"`` /
@@ -281,7 +297,9 @@ def moe_apply_sharded(p, cfg, x, group):
     owner its (E/M, C, d) rows, runs its experts over all sources' rows,
     and sends the outputs back.  Returns (y (b, S/M, d), aux): aux is the
     group's mean.  Equal to ``moe_apply`` over the whole batch only where
-    no pair drops (capacity is per source shard)."""
+    no pair drops (capacity is per source shard).  With ``data_group``
+    ``p`` holds FSDP slices over it, gathered first (``fsdp_gathered``)."""
+    p = fsdp_gathered(p, cfg, data_group)
     M, E = group.size(), cfg.n_experts
     if E % M:
         raise ValueError(f"n_experts={E} is not divisible by {M} ranks")
@@ -306,7 +324,7 @@ def moe_apply_sharded(p, cfg, x, group):
     return y.reshape(b, S, d), _mean_over(aux, group)
 
 
-def moe_apply_shard_slot(p, cfg, x, group):
+def moe_apply_shard_slot(p, cfg, x, group, data_group=None):
     """Expert parallelism with one wire crossing per (token, destination
     rank) instead of one per (token, expert) (reference ``:227``).
 
@@ -315,9 +333,10 @@ def moe_apply_shard_slot(p, cfg, x, group):
     into per-rank slots (M, Cs, d), exchanged once with their (local
     expert, weight) metadata, dispatched to the local experts on the
     receiving rank (capacity C2), weighted there, and the per-rank partial
-    sums come back in a fourth all-to-all.  Shapes and the returned aux as
-    ``moe_apply_sharded``'s; equal to ``moe_apply`` only where nothing
-    drops."""
+    sums come back in a fourth all-to-all.  Shapes, the returned aux and
+    ``data_group`` as ``moe_apply_sharded``'s; equal to ``moe_apply`` only
+    where nothing drops."""
+    p = fsdp_gathered(p, cfg, data_group)
     M, E = group.size(), cfg.n_experts
     if E % M:
         raise ValueError(f"n_experts={E} is not divisible by {M} ranks")

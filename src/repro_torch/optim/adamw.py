@@ -78,7 +78,8 @@ def init_opt_state(params, ocfg: AdamWConfig):
             "count": 0}
 
 
-def global_norm(tree, group=None, sharded=frozenset()):
+def global_norm(tree, group=None, sharded=frozenset(), data_group=None,
+                fsdp=frozenset()):
     """sqrt of the sum of squares of every leaf, in fp32, as a 0-d tensor
     (no sync with the host).  ``square().sum()``, the reference's formula:
     ``torch.linalg.vector_norm`` on the CPU loses about 1% on a leaf of
@@ -87,34 +88,49 @@ def global_norm(tree, group=None, sharded=frozenset()):
     Under explicit TP (``group``) the leaves at ``sharded`` paths
     (``launch.mesh.sharded_paths``) are this rank's shards: their squares
     are summed over the group in one all-reduce of a scalar, and the
-    replicated leaves, equal on every rank, count once."""
+    replicated leaves, equal on every rank, count once.  Under FSDP
+    (``data_group``) the leaves at ``fsdp`` paths are this rank's slices
+    (their padding is zero): their squares are summed over the data group
+    in one all-reduce, before the TP sum where a slice is also a TP
+    shard."""
     sq = {path: x.float().square().sum() for path, x in named_leaves(tree)}
-    if group is None:
+    if group is None and data_group is None:
         return torch.sqrt(torch.stack(list(sq.values())).sum())
     from repro_torch.core import tp
     zero = next(iter(sq.values())).new_zeros(())
-    shards = sum((v for p, v in sq.items() if p in sharded), zero)
-    rest = sum((v for p, v in sq.items() if p not in sharded), zero)
-    shards = shards.reshape(1)
-    tp.all_reduce_([shards], group)
-    return torch.sqrt(rest + shards[0])
+
+    def part(tp_sharded, sliced):
+        return sum((v for p, v in sq.items() if (p in sharded) == tp_sharded
+                    and (p in fsdp) == sliced), zero)
+    rest, shards = part(False, False), part(True, False)
+    if data_group is not None:
+        both = torch.stack([part(False, True), part(True, True)])
+        tp.all_reduce_([both], data_group)
+        rest, shards = rest + both[0], shards + both[1]
+    if group is not None:
+        shards = shards.reshape(1)
+        tp.all_reduce_([shards], group)
+        shards = shards[0]
+    return torch.sqrt(rest + shards)
 
 
 @torch.no_grad()
 def adamw_update(params, grads, opt_state, ocfg: AdamWConfig, *, group=None,
-                 sharded=frozenset()):
+                 sharded=frozenset(), data_group=None, fsdp=frozenset()):
     """One AdamW step, in place: ``params``, ``opt_state`` and ``grads``
     (clipped) are updated; returns (params, opt_state, grad_norm) with the
     pre-clip global norm as a 0-d fp32 tensor.  The learning rate
     ``ocfg.lr(count)`` and the bias corrections are computed on the host in
     fp32, as the reference computes them in ``jnp.float32``.  Under
-    explicit TP (``group``, ``sharded``: see ``global_norm``) each rank
-    updates its shards and the replicated leaves; the clip is the global
-    norm of the whole model's gradient."""
+    explicit TP (``group``, ``sharded``) and FSDP (``data_group``,
+    ``fsdp``: see ``global_norm``) each rank updates its shards and slices
+    and the replicated leaves; the clip is the global norm of the whole
+    model's gradient.  A slice's zero padding has zero gradient and
+    moments, so its update is zero and it stays zero."""
     count = opt_state["count"] + 1
     lr = ocfg.lr(count) if callable(ocfg.lr) else ocfg.lr
     lr = float(np.float32(lr))
-    gnorm = global_norm(grads, group, sharded)
+    gnorm = global_norm(grads, group, sharded, data_group, fsdp)
     scale = torch.clamp(ocfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     bc1 = float(np.float32(1) - np.float32(ocfg.b1) ** np.float32(count))

@@ -39,6 +39,9 @@ TP group gathers the params and both AdamW moments into host memory
 (``launch.mesh.gather_over_group``), its rank 0 writes them, and every
 rank waits at a barrier; restoring reads the whole file on each rank's
 host and cuts that rank's shard (``launch.mesh.shard_params``' layout).
+Under FSDP every rank first gathers its slices over the data group
+(``launch.mesh.gather_fsdp_over_group``), and restoring cuts the FSDP dim
+after the TP one (``launch.mesh.fsdp_slice``, padding included).
 """
 from __future__ import annotations
 
@@ -153,23 +156,31 @@ def _state_specs(state, cfg, tp_size):
             if s is not None}
 
 
+def _over(state, fn):
+    """``state`` with ``fn`` applied to the params and both moments."""
+    opt = state["opt"]
+    return {"params": fn(state["params"]),
+            "opt": {"m": fn(opt["m"]), "v": fn(opt["v"]),
+                    "count": opt["count"]}}
+
+
 def save_distributed(path, state, cfg, plan, step=0, meta=None):
     """``save`` of a state held under ``plan``'s TP and data groups, in
-    the one-device format: data rank 0's TP ranks gather the params and
-    moments (one all-gather a sharded leaf, direction ``checkpoint``), the
-    rank that is TP and data rank 0 writes, and every rank waits at a
-    barrier of the whole world.  Returns the gathered state (sharded
-    leaves in host memory) on data rank 0's ranks, None on the others."""
+    the one-device format: under FSDP every rank first gathers its slices
+    over the data group (on the device when TP follows, else into host
+    memory); then data rank 0's TP ranks gather the params and moments
+    (one all-gather a sharded leaf, direction ``checkpoint``), the rank
+    that is TP and data rank 0 writes, and every rank waits at a barrier
+    of the whole world.  Returns the gathered state (sharded leaves in
+    host memory) on data rank 0's ranks, None on the others."""
+    if plan.fsdp:
+        state = _over(state, lambda t: MX.gather_fsdp_over_group(
+            t, cfg, plan.data_group, plan.tp_size,
+            host=plan.group is None))
     if plan.dp_rank == 0:
         if plan.group is not None:
-            opt = state["opt"]
-            state = {"params": MX.gather_over_group(state["params"], cfg,
-                                                    plan.group),
-                     "opt": {"m": MX.gather_over_group(opt["m"], cfg,
-                                                       plan.group),
-                             "v": MX.gather_over_group(opt["v"], cfg,
-                                                       plan.group),
-                             "count": opt["count"]}}
+            state = _over(state, lambda t: MX.gather_over_group(
+                t, cfg, plan.group))
         if plan.tp_rank == 0:
             save(path, state, step=step, meta=meta)
     dist.barrier()
@@ -177,24 +188,41 @@ def save_distributed(path, state, cfg, plan, step=0, meta=None):
 
 
 def restore_sharded(path, like, cfg, plan, step=None):
-    """``restore`` into ``like``, this TP rank's state under ``plan``: the
-    whole file is read on the host and each sharded leaf cut to this
-    rank's part before it reaches ``like``'s device."""
+    """``restore`` into ``like``, this rank's state under ``plan``: the
+    whole file is read on the host and each sharded leaf cut to this TP
+    rank's part, then under FSDP to this data rank's slice (zero-padded as
+    ``shard_fsdp`` pads), before it reaches ``like``'s device."""
     specs = _state_specs(like, cfg, plan.tp_size)
     n, r = plan.tp_size, plan.tp_rank
+    layout = (MX.fsdp_layout(cfg, plan.tp_size, plan.dp_size)
+              if plan.fsdp else {})
 
     def cut(p, arr):
         s = specs.get(p)
-        if s is None:
-            return arr
-        k = arr.shape[s] // n
-        index = [slice(None)] * arr.ndim
-        index[s] = slice(r * k, (r + 1) * k)
-        return arr[tuple(index)]
+        if s is not None:
+            k = arr.shape[s] // n
+            index = [slice(None)] * arr.ndim
+            index[s] = slice(r * k, (r + 1) * k)
+            arr = arr[tuple(index)]
+        leaf = p[1:] if p[0] == "params" else p[2:]
+        if leaf in layout:
+            dim = layout[leaf][0]
+            arr = _fsdp_cut(arr, dim, plan.dp_rank, plan.dp_size)
+        return arr
 
     step = latest_step(path) if step is None else step
     with np.load(os.path.join(path, f"ckpt_{step}.npz")) as data:
         return _rebuild(data, like, cut)
+
+
+def _fsdp_cut(arr, dim, rank, dp_size):
+    """``launch.mesh.fsdp_slice`` of a host array (a raw ``|V2`` bf16 one
+    too): its view through torch, cut, back to numpy."""
+    if arr.dtype.kind == "V":
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
+        return MX.fsdp_slice(t, dim, rank, dp_size).numpy().view(arr.dtype)
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    return MX.fsdp_slice(t, dim, rank, dp_size).numpy()
 
 
 def latest_step(path):

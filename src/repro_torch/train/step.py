@@ -17,6 +17,14 @@ summed over the data group in ONE flat all-reduce (direction ``data``)
 and divided by its size, exactly: ``grad_compress`` does not touch it, as
 in the reference.  The reported loss (and ce / aux) is the data group's
 mean (one small all-reduce, direction ``metric``): the global batch's.
+
+Under ``plan.fsdp`` the params and AdamW's moments are this rank's FSDP
+slices (``launch/mesh.py::shard_fsdp``, after ``shard_params`` under TP):
+each unit gathers its leaves when it runs and its backward reduce-scatters
+their gradients into the slices' ``.grad``, once a microbatch (the
+reference's ``grad_shardings`` pin), so the flat data all-reduce covers
+only the leaves FSDP leaves whole; the global norm sums the slices'
+squares over the data group and AdamW updates the slices.
 """
 from __future__ import annotations
 
@@ -53,6 +61,8 @@ def make_grad_fn(cfg, plan=None, num_microbatches: int = 1):
     plan.validate(cfg)
     loss_fn = make_loss_fn(cfg, plan)
     dgroup, dp = plan.data_group, plan.dp_size
+    # leaves whose gradient the FSDP reduce-scatter already summed
+    fsdp = fsdp_paths(cfg, plan)
 
     def grad_fn(params, batch):
         leaves = _leaves(params)
@@ -78,10 +88,12 @@ def make_grad_fn(cfg, plan=None, num_microbatches: int = 1):
         if plan.use_explicit_tp:
             M.tp_sync_grads(params, cfg, plan)
         if dgroup is not None:
-            grads = [p.grad for p in leaves if p.grad is not None]
+            grads = [p.grad for path, p in adamw.named_leaves(params)
+                     if p.grad is not None and path not in fsdp]
             tp.all_reduce_(grads, dgroup, "data")
-            for g in grads:
-                g.div_(dp)
+            for p in leaves:
+                if p.grad is not None:
+                    p.grad.div_(dp)
             names = sorted(metrics)
             vals = torch.stack([loss.float()] + [metrics[k].float()
                                                  for k in names])
@@ -91,6 +103,14 @@ def make_grad_fn(cfg, plan=None, num_microbatches: int = 1):
         return loss, metrics
 
     return grad_fn
+
+
+def fsdp_paths(cfg, plan) -> frozenset:
+    """Paths of the leaves ``plan`` holds as FSDP slices (none without
+    ``plan.fsdp``)."""
+    if not plan.fsdp:
+        return frozenset()
+    return frozenset(MX.fsdp_layout(cfg, plan.tp_size, plan.dp_size))
 
 
 def make_train_step(cfg, ocfg: adamw.AdamWConfig, plan=None,
@@ -110,13 +130,16 @@ def make_train_step(cfg, ocfg: adamw.AdamWConfig, plan=None,
     shards' squares over it (one scalar all-reduce), so clipping and every
     update equal the single device's.  Under a data group see the module's
     docstring: the gradients are averaged over it before the norm, which
-    then needs no sum over it.  ``on_grads(params)``, when given, is called
-    with the final gradients in ``.grad``, before the clip and the update
-    (to read them: the update clips them in place)."""
+    then needs no sum over it, except of FSDP slices (one scalar
+    all-reduce over the data group).  ``on_grads(params)``, when given, is
+    called with the final gradients in ``.grad``, before the clip and the
+    update (to read them: the update clips them in place)."""
     plan = ExecutionPlan.resolve(plan).with_phase(Phase.TRAIN)
     plan.validate(cfg)
     grad_fn = make_grad_fn(cfg, plan, num_microbatches)
     group = plan.group if plan.use_explicit_tp else None
+    fsdp = fsdp_paths(cfg, plan)
+    dgroup = plan.data_group if fsdp else None
 
     def train_step(state, batch):
         params = state["params"]
@@ -129,7 +152,8 @@ def make_train_step(cfg, ocfg: adamw.AdamWConfig, plan=None,
         leaves = _leaves(params)
         grads = adamw.map_tree(lambda p: p.grad, params)
         _, _, gnorm = adamw.adamw_update(params, grads, state["opt"], ocfg,
-                                         group=group, sharded=sharded)
+                                         group=group, sharded=sharded,
+                                         data_group=dgroup, fsdp=fsdp)
         for p in leaves:
             p.grad = None
         return state, dict(metrics, loss=loss, grad_norm=gnorm)

@@ -19,8 +19,9 @@ state of the same structure, then ``step.make_train_step``.
 Under a distributed ``plan`` (``ExecutionPlan.from_group``: explicit TP,
 a data group, or both) every rank runs ``train`` with the same arguments.
 Under TP the weights (drawn from ``seed`` or given whole in ``params``)
-are cut to this rank's shard (``launch.mesh.shard_params``) and the
-returned state holds the shard.  Every rank draws the same GLOBAL batch of
+are cut to this rank's shard (``launch.mesh.shard_params``), under
+FSDP then to this data rank's slices (``launch.mesh.shard_fsdp``), and
+the returned state holds them.  Every rank draws the same GLOBAL batch of
 ``batch`` rows (``SyntheticMarkov(..., host_id=0, num_hosts=1)``, as the
 reference's jitted trainer does) and trains on its data rank's rows
 (``data.pipeline.shard_rows``), so a run of a seed over any tp x dp
@@ -67,6 +68,12 @@ def train(cfg, *, steps=200, batch=8, seq_len=128, lr=3e-4, seed=0,
             params = M.init_params(cfg, seed=seed, device=device,
                                    dtype=cfg.param_dtype)
         params = MX.shard_params(params, cfg, plan.tp_rank, plan.tp_size)
+    if plan.fsdp:
+        if params is None:
+            params = M.init_params(cfg, seed=seed, device=device,
+                                   dtype=cfg.param_dtype)
+        params = MX.shard_fsdp(params, cfg, plan.dp_rank, plan.dp_size,
+                               plan.tp_size)
     reg = metrics if metrics is not None else MetricsRegistry()
     c_steps = reg.counter("train_steps_total", unit="steps", site=_SITE)
     c_tokens = reg.counter("train_tokens_total", unit="tokens", site=_SITE)

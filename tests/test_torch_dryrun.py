@@ -19,7 +19,10 @@ kernels' meta route (``kernels/meta.py``) against their CPU route.
   8 pays L + 1 forward all-reduces under fal and 2 L under preln.
 * The meta route gives the CPU route's shapes and dtypes at all seven sites
   and records ``meta-shape``; the storage tracker is exact on a known
-  chain; one full-size ``run_one`` reports OK.
+  chain; one full-size ``run_one`` reports OK, with FSDP on by default.
+* Under FSDP a rank's argument bytes are exactly its padded slices, its
+  whole leaves and its batch (an uneven dim at data 256 included); with
+  ``fsdp=False`` three pairs give the replicated layout's bytes.
 """
 import collections
 import functools
@@ -40,6 +43,7 @@ from repro.train import step as RT  # noqa: E402
 from repro_torch.configs import base as TB  # noqa: E402
 from repro_torch.core.plan import (EXPLICIT_TP_FAMILIES,  # noqa: E402
                                    ExecutionPlan, kv_replicated)
+from repro_torch.core.tp import count as tp_count  # noqa: E402
 from repro_torch.kernels import meta, ops  # noqa: E402
 from repro_torch.launch import dryrun as D  # noqa: E402
 from repro_torch.launch import mesh as MX  # noqa: E402
@@ -332,10 +336,78 @@ def test_run_one_full_size_reports_ok(tmp_path):
                      out_dir=str(tmp_path))
     line = D.report("llama3.2-3b", "train_4k", "single", info)
     assert line.startswith("OK"), line
-    assert info["tp"] == "explicit" and info["fsdp"] is False
+    assert info["tp"] == "explicit" and info["fsdp"] is True
+    assert tp_count(info["collectives"], "reduce-scatter", "fsdp") > 0
     assert info["mesh"] == {"pod": 1, "data": 32, "model": 8}
     mem = info["memory"]
     assert mem["peak_bytes"] >= mem["argument_bytes"] > 0
     assert info["cost"]["flops"] > info["cost"]["kernel_flops"] > 0
     assert (tmp_path / "llama3.2-3b_train_4k_single.json").exists()
     assert not dist.is_initialized()
+    off = D.lower_pair("llama3.2-3b", "decode_32k", D.MESHES["single"],
+                       fsdp=False)
+    assert off["fsdp"] is False and "all-gather" not in off["collectives"]
+
+
+# -------------------------------------------------------------------- FSDP --
+def _expected_arguments(cfg, mesh, rows, seq):
+    """A train pair's argument bytes under FSDP, from the layout alone: each
+    leaf of the rank's TP shard, an FSDP leaf at ceil(n / dp) rows along
+    its dim, in the params' dtype and twice in the moments', plus the
+    int32 tokens."""
+    dp, tp_size = mesh.pod * mesh.data, mesh.model
+    full = TM.init_params(cfg, device="meta", dtype=cfg.param_dtype)
+    if tp_size > 1:
+        full = MX.shard_params(full, cfg, 0, tp_size)
+    layout = MX.fsdp_layout(cfg, tp_size, dp)
+    moment = torch.empty((), dtype=getattr(
+        torch, SP.opt_cfg_for(cfg).state_dtype)).element_size()
+    total = rows * seq * 4
+    for path, t in named_leaves(full):
+        n = t.numel()
+        if path in layout:
+            dim, size = layout[path]
+            n = n // size * MX.fsdp_rows(size, dp)
+        total += n * (t.element_size() + 2 * moment)
+    return total
+
+
+@pytest.mark.parametrize("arch,mesh", [("llama3.2-3b", D.Mesh(1, 32, 8)),
+                                       ("qwen3-moe-30b-a3b", D.Mesh(2, 32, 8)),
+                                       ("mamba2-370m", D.Mesh(1, 256, 1))])
+def test_fsdp_argument_bytes_are_the_padded_slices(arch, mesh):
+    """mamba2's in_proj output (4384) is uneven over 256 data ranks: every
+    rank holds 18 of its rows, the last one zero-padded."""
+    shape = TB.ShapeConfig("short", 128, 2 * mesh.pod * mesh.data, "train")
+    info = D.lower_pair(arch, shape, mesh, microbatches=1)
+    cfg = SP.dryrun_overrides(TB.get_config(arch), shape)
+    want = _expected_arguments(cfg, mesh, info["rows"], 128)
+    assert info["fsdp"] is True
+    assert info["memory"]["argument_bytes"] == want
+    off = D.lower_pair(arch, shape, mesh, microbatches=1, fsdp=False)
+    assert off["memory"]["argument_bytes"] > want
+    c = info["collectives"]
+    assert tp_count(c, "all-gather", "fsdp") > 0
+    assert tp_count(c, "reduce-scatter", "fsdp") > 0
+    if arch == "mamba2-370m":
+        dim, n = MX.fsdp_layout(cfg, 1, 256)[("blocks", 0, "mixer",
+                                              "in_proj")]
+        assert (dim, n, MX.fsdp_rows(n, 256)) == (1, 4384, 18)
+
+
+#: argument bytes of three pairs with the params replicated over the data
+#: axes, as the dry run reported them before it had FSDP
+NO_FSDP_ARGUMENT_BYTES = {
+    ("llava-next-mistral-7b", "prefill_32k", "single"): 4563042304,
+    ("qwen3-4b", "decode_32k", "single"): 5789196320,
+    ("zamba2-1.2b", "long_500k", "multi"): 30431698952}
+
+
+@pytest.mark.parametrize("pair", NO_FSDP_ARGUMENT_BYTES)
+def test_no_fsdp_keeps_the_replicated_layouts_bytes(pair):
+    arch, shape, kind = pair
+    info = D.run_one(arch, shape, kind, fsdp=False)
+    assert info["fsdp"] is False
+    assert info["memory"]["argument_bytes"] == NO_FSDP_ARGUMENT_BYTES[pair]
+    on = D.run_one(arch, shape, kind)
+    assert on["memory"]["argument_bytes"] < NO_FSDP_ARGUMENT_BYTES[pair]
