@@ -170,12 +170,30 @@ script exits non-zero:
                  Mesh(1, 2, 2) (arguments less the tokens), the peak
                  (reset with only the FSDP state on the card) within
                  DRYRUN_PEAK_RTOL of its predicted peak; cuda-kernel on
-                 the flash_attention and fused_ln_add sites
+                 the flash_attention and fused_ln_add sites; then the
+                 reference's decode-cache layout (launch/mesh.py
+                 cache_specs, the KV sequence cut over ranks): llama3.2-3b
+                 at full width, 4 layers, fp32, one row over a 32,768-
+                 position cache (the sequence over data 2, the KV heads
+                 over model 2), 16 greedy ticks from a seeded history
+                 (the first in data rank 0's half, the last two past the
+                 end); deepseek-v3-671b's three dense layers at full
+                 width, bf16, over an 8,192-position latent cut over
+                 model 2 at batch 2 (rows over data) and over data x
+                 model at batch 1, 8 ticks each: every rank's tokens and
+                 logits vs one device on the card (fp32: tokens equal,
+                 logits within TP_SERVE_FP32_TOL; bf16: tokens equal or
+                 the first divergence reported, logits up to it within
+                 TP_LOGIT_TOL), ranks serving the same rows bit-equal,
+                 each rank's cache bytes equal to
+                 specs.decode_input_specs' at tp 2 x dp 2, the seq
+                 collectives a tick exact, one fused_ln_add launch a
+                 layer a tick
  14. gemma2      gemma2-27b at full width cut to 2 layers (block 0 local,
                  block 1 global; every layer softcapped): one packed, one
                  padded chunk, one padded decode and one contiguous decode
                  tick and one train step
-                 (fp32, window 128, B=1, S=320) on the card against the
+                 (fp32, window 128, B=1, S=192) on the card against the
                  CPU; trainer.train (fp32 masters, bf16 compute, remat,
                  B=1, S=6144: 1 warm-up, 3 counted, 1 profiled step) with a
                  checkpoint, which is restored on the card and stepped
@@ -219,7 +237,7 @@ script exits non-zero:
                  frames, T = 64): logits, loss, gradient norm and 16
                  decode_step ticks; (b) bf16 serving at full depth: mamba
                  (48 layers) and zamba (38, also dual-branch) through
-                 ContinuousBatcher (8 slots, 16 requests of 64 + 64, slots
+                 ContinuousBatcher (8 slots, 16 requests of 32 + 32, slots
                  reused), decode == forward within FAMILY_FWD_BOUND;
                  whisper (12 + 12) encoding 8 x 1,500 frames and
                  generating 64 tokens, decode == forward; (c) training at
@@ -5522,7 +5540,9 @@ def dp_rank(groups, ckpt_dir):
     out["paths"] = ops.dispatch_paths()
     out["peak"] = max(peak, torch.cuda.max_memory_allocated(dev))
     out["fsdp"] = _dp_fsdp(groups, cfg, ocfg, shard, mine, none_params, dev)
-    del none_params
+    del none_params, shard
+    torch.cuda.empty_cache()
+    out["seq"] = _dp_seq_decode(groups, dev)
     flat = torch.zeros(out["n_local"], device=dev)
     out["dp_all_reduce_ms"] = [_timed(dev, lambda: tp.all_reduce_(
         [flat], groups.dp, "data"))[1] for _ in range(2)]
@@ -5586,6 +5606,197 @@ def _dp_fsdp(groups, cfg, ocfg, shard, mine, none_params, dev):
     torch.cuda.empty_cache()
     dist.barrier()
     return out
+
+
+#: the sequence-cut decode check of ``dp_rank`` (the reference's decode
+#: cache layout, launch/mesh.py ``cache_specs``): case -> (config
+#: overrides of the arch, batch, cache positions, tick positions of lane 0
+#: (lane b three behind), weights' and cache's dtype).  llama3.2-3b: one
+#: row, the sequence over data 2 and the KV heads over model 2; the first
+#: tick in data rank 0's half (every data rank 1 fully masked), the last
+#: two past the end (their rows clamp to S - 1).  deepseek-v3-671b's three
+#: dense layers (no MoE, no MTP): its latent over model 2 at batch 2 (rows
+#: over data 2) and over data x model at batch 1.  Bytes a rank: llama
+#: full params 3.2 GB + the whole fp32 cache 1.07 GB while its slice
+#: (0.27 GB) and TP shard (2.4 GB, the embedding shared) are cut, ~5.4 GB
+#: at the peak; deepseek full params 7.2 GB bf16 + its shard's 1.75 GB of
+#: copies, ~9 GB; four ranks ~36 GB of the card at once
+SEQ_CASES = {
+    "llama3.2-3b": ("llama3.2-3b", dict(n_layers=4, dtype="float32"), 1,
+                    32768,
+                    (1000,) + tuple(range(32755, 32770)), "float32"),
+    "deepseek-v3 rows": ("deepseek-v3-671b", dict(n_layers=3, mtp_depth=0),
+                         2, 8192, (100,) + tuple(range(8187, 8194)),
+                         "bfloat16"),
+    "deepseek-v3 batch 1": ("deepseek-v3-671b",
+                            dict(n_layers=3, mtp_depth=0), 1, 8192,
+                            (100,) + tuple(range(8187, 8194)), "bfloat16")}
+
+
+def seq_case_config(name):
+    from repro_torch.configs.base import get_config
+    arch, over, *_ = SEQ_CASES[name]
+    return get_config(arch).replace(**over)
+
+
+def _greedy_ticks(step, params, cache, tok, ticks):
+    """Greedy ticks of ``step`` from ``tok`` at the positions ``ticks`` (T,
+    B) -> (logits (T, B, V) fp32 in host memory, tokens (T, B))."""
+    logits, toks = [], []
+    for pos in ticks:
+        tok, lg, cache = step(params, cache, tok[:, None], pos)
+        logits.append(lg[:, 0].float().cpu())
+        toks.append(tok.cpu())
+    return torch.stack(logits), torch.stack(toks)
+
+
+def _dp_seq_decode(groups, dev):
+    """The sequence-cut decode of ``dp_rank`` (SEQ_CASES): each rank builds
+    the whole weights and a seeded history, rank 0 decodes it on one
+    device (the reference), then every rank cuts its TP shard and its
+    slice of the cache (``launch.mesh.slice_cache``) and, with the launch
+    and collective counters zeroed, runs the same greedy ticks under the
+    plan of the reference's layout.  -> numbers by case."""
+    import torch.distributed as dist
+    from repro_torch.core import tp
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as MX
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import make_serve_step
+    rank = dist.get_rank()
+    ts, tr = groups.tp.size(), groups.tp.rank()
+    ds, dr = groups.dp.size(), groups.dp.rank()
+    out, t0 = {}, time.perf_counter()
+    for name, (_, _, B, S, pos0, dtype) in SEQ_CASES.items():
+        cfg = seq_case_config(name)
+        full = M.init_params(cfg, seed=5, device=dev, dtype=dtype)
+        one = M.init_cache(cfg, B, S, dtype, device=dev)
+        g = torch.Generator(device=dev).manual_seed(6)
+        for part in one.values():
+            for leaf in part.values():
+                leaf.copy_(torch.randn(leaf.shape, generator=g, device=dev))
+        mine = MX.slice_cache(one, cfg, ts, ds, B, tr, dr)
+        ticks = (torch.tensor(pos0, dtype=torch.int32)[:, None]
+                 - 3 * torch.arange(B, dtype=torch.int32)[None]).to(dev)
+        tok0 = torch.randint(0, cfg.vocab, (B,), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(7))
+        res = {}
+        if rank == 0:
+            with torch.no_grad():
+                res["ref"] = _greedy_ticks(make_serve_step(cfg), full, one,
+                                           tok0.to(dev), ticks)
+        del one
+        shard = MX.shard_params(full, cfg, tr, ts)
+        del full
+        torch.cuda.empty_cache()
+        axes = MX.seq_axes(cfg, ts, ds, B)
+        plan = ExecutionPlan.from_group(
+            groups.tp, tp="explicit",
+            data_group=groups.dp if "data" in axes else None
+        ).with_cache_layout(cfg, B)
+        part = MX.rank_slice(cfg, ts, ds, B, S, tr, dr)
+        lo, hi = part["rows"]
+        step = make_serve_step(cfg, plan)
+        dist.barrier()        # every rank's shard and slice are cut
+        ops.reset_launches()
+        ops.reset_dispatch_paths()
+        counts, logits, toks = [], [], []
+        tok = tok0[lo:hi].to(dev)
+        with torch.no_grad():
+            for pos in ticks:
+                tp.reset_collectives()
+                tok, lg, mine = step(shard, mine, tok[:, None], pos[lo:hi])
+                counts.append({k: v["seq"]["calls"] for k, v in
+                               tp.collective_counts().items() if "seq" in v})
+                logits.append(lg[:, 0].float().cpu())
+                toks.append(tok.cpu())
+        torch.cuda.synchronize(dev)
+        res.update(logits=torch.stack(logits), tokens=torch.stack(toks),
+                   counts=counts, rows=part["rows"],
+                   positions=part["positions"], seq_axes=plan.seq_axes,
+                   cache_bytes=sum(t.numel() * t.element_size()
+                                   for p in mine.values()
+                                   for t in p.values()),
+                   launches={k: v for k, v in ops.launch_counts().items()
+                             if v},
+                   paths=ops.dispatch_paths())
+        out[name] = res
+        del shard, mine
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def dp_seq_report(ranks, smi):
+    """Print and gate the sequence-cut decode of the DP ranks against rank
+    0's one device, the dry run's cache bytes at tp 2 x dp 2
+    (``specs.decode_input_specs`` on ``meta``) and the combine's counts.
+    Returns rank 0's fused_ln_add launches over the cases."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import specs as SP
+    launches = 0
+    for name, (_, _, B, S, pos0, dtype) in SEQ_CASES.items():
+        cfg = seq_case_config(name)
+        ref_logits, ref_tokens = ranks[0]["seq"][name]["ref"]
+        want_bytes = DR.storage_bytes(SP.decode_input_specs(
+            cfg, ShapeConfig("seq_cut", S, B, "decode"), DP_TP, DP_SIZE,
+            cache_dtype=dtype)[1])
+        n = cfg.n_layers
+        by_rows = {}
+        for r in ranks:
+            g = r["seq"][name]
+            lo, hi = g["rows"]
+            want, toks = ref_logits[:, lo:hi], ref_tokens[:, lo:hi]
+            same = (g["tokens"] == toks).all(dim=1)
+            first = int((~same).nonzero()[0, 0]) if not same.all() \
+                else len(pos0)
+            upto = min(first + 1, len(pos0))
+            err = (g["logits"][:upto] - want[:upto]).abs().max().item()
+            top = want.abs().max().item()
+            tol = (TP_SERVE_FP32_TOL * max(1.0, top) if dtype == "float32"
+                   else TP_LOGIT_TOL)
+            axes = g["seq_axes"]
+            want_counts = {"all-reduce-max": n * len(axes),
+                           "all-reduce": n * len(axes)}
+            if "model" in axes:
+                want_counts["all-gather"] = n
+            held = ("throughout" if first == len(pos0)
+                    else f"to tick {first}")
+            print(f"  sequence-cut decode, {name} (rank {r['rank']}: tp "
+                  f"{r['tp_rank']}, dp {r['dp_rank']}; rows {g['rows']}, "
+                  f"positions {g['positions']} of {S}, cut over {axes}): "
+                  f"{len(pos0)} greedy ticks, tokens equal to one device "
+                  f"{held}; max |logit diff| {err:.4g} through tick "
+                  f"{upto - 1} (|logit| {top:.3f}, tol {tol:.3g}); cache "
+                  f"{g['cache_bytes']} B (dry run {want_bytes} B); seq "
+                  f"collectives a tick {g['counts'][0]}; launches "
+                  f"{g['launches']}; card {smi}", flush=True)
+            require(first == len(pos0) or dtype != "float32",
+                    f"{name}: fp32 tokens differ from one device at tick "
+                    f"{first}")
+            require(err <= tol, f"{name}: logits {err:.4g} from one device")
+            require(g["cache_bytes"] == want_bytes,
+                    f"{name}: cache {g['cache_bytes']} B != the dry run's "
+                    f"{want_bytes} B")
+            require(all(c == want_counts for c in g["counts"]),
+                    f"{name}: seq collectives {g['counts']} != "
+                    f"{want_counts} a tick")
+            require(g["launches"] == {"fused_ln_add": len(pos0) * n}
+                    and g["paths"] == {"fused_ln_add": ops.CUDA},
+                    f"{name}: launches {g['launches']} paths {g['paths']}")
+            by_rows.setdefault((lo, hi), []).append(g["logits"])
+        for same_rows in by_rows.values():
+            require(all(torch.equal(x, same_rows[0]) for x in same_rows),
+                    f"{name}: ranks serving the same rows differ")
+        launches += ranks[0]["seq"][name]["launches"].get("fused_ln_add", 0)
+    print(f"  sequence-cut decode: {ranks[0]['seq']['seconds']:.1f} s of "
+          f"the spawn (weights, histories, the one-device references and "
+          f"the ticks of {len(SEQ_CASES)} cases); card {smi}", flush=True)
+    return launches
 
 
 def _dp_checkpoint(state, cfg, plan, ocfg, ckpt_dir, dev):
@@ -5670,6 +5881,7 @@ def dp_phase(smi):
           f"{[r['device'] for r in ranks]}", flush=True)
     launches, summary = dp_report(ranks, smi)
     fsdp_launches, summary["fsdp"] = dp_fsdp_report(ranks, smi)
+    summary["seq_launches"] = dp_seq_report(ranks, smi)
     return launches, fsdp_launches, summary
 
 
@@ -5840,6 +6052,11 @@ def dp_report(ranks, smi):
 #: the window of the card-vs-CPU ticks (the config's 4096 replaced), so that
 #: it binds on lanes of ~300 tokens
 G2_TICK_WINDOW = 128
+#: the card-vs-CPU train step's sequence: past the window, so that it
+#: binds on the local layer (320 until the sequence-cut decode check
+#: joined phase 13b; the CPU side's fp32 step over 2.3 B parameters set
+#: the gemma2 phases' time)
+G2_TICK_TRAIN_S = 192
 #: gemma2 training: B x S tokens (S past the local layers' 4096 window)
 G2_TRAIN_B, G2_TRAIN_S = 1, 6144
 
@@ -5854,7 +6071,8 @@ def gemma2_config(**kw):
 def gemma2_tick_phase():
     """gemma2-27b at full width (2 layers, fp32, window 128): one packed
     tick, one padded chunk tick, one padded decode tick and one contiguous
-    decode tick over a random history, then one train step (B=1, S=320),
+    decode tick over a random history, then one train step (B=1,
+    S=G2_TICK_TRAIN_S),
     each on the card against the CPU.  Every layer takes the gather branch
     (the softcap is on in all of them): the card's only kernel on the
     serving ticks is the LN-add."""
@@ -5887,8 +6105,8 @@ def gemma2_tick_phase():
                            G2_CONTIG_S, 1, plans=("sequential",),
                            scaled_tol=True)
     phase("gemma2-27b: one train step at full width, 2 layers, fp32, B=1, "
-          f"S=320, window {G2_TICK_WINDOW}: card vs CPU")
-    train_tick(cfg, 1, 320, params=params)
+          f"S={G2_TICK_TRAIN_S}, window {G2_TICK_WINDOW}: card vs CPU")
+    train_tick(cfg, 1, G2_TICK_TRAIN_S, params=params)
     print(f"  gemma2 tick phases: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -7487,9 +7705,11 @@ FAMILY_DECODE_TICKS = 16
 FAMILY_LOSS_TOL, FAMILY_GNORM_RTOL = 1e-4, 1e-4
 #: (b) serving in bf16 at full depth: the batcher's slots, requests and each
 #: request's prompt and new tokens (16 requests through 8 slots: every
-#: slot is taken twice, so the recurrent-state reset runs); decode ==
-#: forward over FAMILY_FWD_B lanes of FAMILY_FWD_S tokens
-FAMILY_SLOTS, FAMILY_REQS, FAMILY_PROMPT, FAMILY_NEW = 8, 16, 64, 64
+#: slot is taken twice, so the recurrent-state reset runs; 32 + 32 tokens
+#: since the sequence-cut decode check joined phase 13b, 64 + 64 before:
+#: the host-bound ticks halve); decode == forward over FAMILY_FWD_B lanes
+#: of FAMILY_FWD_S tokens
+FAMILY_SLOTS, FAMILY_REQS, FAMILY_PROMPT, FAMILY_NEW = 8, 16, 32, 32
 FAMILY_FWD_B, FAMILY_FWD_S = 4, 64
 #: bound on |logit| differences between decode_step and forward in bf16 at
 #: full depth, over every logit.  The two compute the same function in
@@ -8194,6 +8414,7 @@ def main():
                          contiguous_decode_launches=contig_launches[
                              "decode_step"],
                          batcher_launches=contig_launches["batcher"],
+                         seq_decode_launches=dp["seq_launches"],
                          moe_engine_launches=moe_eng["ln_launches"],
                          mla_engine_launches=mla_eng["ln_launches"],
                          vlm_launches=vlm["ln_launches"])

@@ -32,6 +32,17 @@ are the tensor-parallel shards.  Plan axes:
   (``core.tp.gather_fsdp``).  Requires a data group: the rank's state
   layout must be known to the step, where the reference carries it in
   shardings.
+* ``seq_axes`` -- the contiguous decode tick's cache layout (reference
+  ``launch/mesh.py::cache_specs``, port ``launch/mesh.py``): the axes,
+  ``"data"`` and / or ``"model"``, over which the KV sequence (MLA: the
+  latent's) is cut, set by ``with_cache_layout(cfg, batch)``.  Each rank
+  then holds the positions [lo, hi) of its part, writes a new row only
+  where it falls in them, and the attention combines the ranks' partial
+  softmaxes over those groups (``models/attention.py::seq_combine``).
+  Over ``data`` every data rank serves the same rows in lockstep, like
+  TP ranks; over ``model`` every rank attends all heads over its
+  positions.  None until a decode plan is pinned (``serving_plan`` then
+  takes the layout of a batch that divides the data ranks).
 
 Inside the stack the blocks see ``plan.inner()``, on which ``tp_axis`` is
 the process group the partial sums reduce over (None on replicated paths).
@@ -110,6 +121,7 @@ class ExecutionPlan:
     group: Any = None                      # torch.distributed ProcessGroup
     data_group: Any = None                 # the data-parallel group
     fsdp: bool = False                     # params sliced over data_group
+    seq_axes: Any = None                   # the decode cache's cut axes
     local: bool = False                    # set only by inner()
 
     # ------------------------------------------------------------- build --
@@ -159,6 +171,16 @@ class ExecutionPlan:
         """Same plan with compressed backward TP collectives selected."""
         return dataclasses.replace(self, grad_compress=str(method))
 
+    def with_cache_layout(self, cfg, batch=None) -> "ExecutionPlan":
+        """Same plan with the decode cache's layout of ``cfg`` at this
+        plan's TP and data sizes and the global ``batch`` (None: a batch
+        that divides the data ranks, each serving its own rows):
+        ``seq_axes`` from ``launch/mesh.py::seq_axes``."""
+        from repro_torch.launch import mesh as MX
+        b = self.dp_size if batch is None else batch
+        return dataclasses.replace(self, seq_axes=MX.seq_axes(
+            cfg, self.tp_size, self.dp_size, b))
+
     def inner(self) -> "ExecutionPlan":
         """The plan the blocks inside the explicit-TP stack see:
         ``tp_axis`` set, ``use_explicit_tp`` off."""
@@ -179,6 +201,24 @@ class ExecutionPlan:
     @property
     def dp_rank(self) -> int:
         return 0 if self.data_group is None else self.data_group.rank()
+
+    @property
+    def seq_groups(self) -> tuple:
+        """The process groups that cut the decode cache's sequence, in
+        the order the softmax combines over them: model (inner), then
+        data."""
+        axes = self.seq_axes or ()
+        return tuple(g for a, g in (("model", self.group),
+                                    ("data", self.data_group))
+                     if a in axes)
+
+    @property
+    def seq_part(self) -> tuple:
+        """(index, count): this rank's part of the decode cache's
+        sequence, data outer and model inner."""
+        from repro_torch.launch import mesh as MX
+        return MX.axes_part(self.seq_axes or (), self.tp_rank, self.dp_rank,
+                            self.tp_size, self.dp_size)
 
     @property
     def tp_axis(self):
@@ -235,6 +275,11 @@ class ExecutionPlan:
             raise ValueError(
                 "fsdp=True requires a data group: the params are sliced "
                 "over it (launch/mesh.py::shard_fsdp)")
+        for axis in self.seq_axes or ():
+            if (self.group if axis == "model" else self.data_group) is None:
+                raise ValueError(
+                    f"seq_axes={self.seq_axes}: the KV sequence is cut over "
+                    f"'{axis}' but the plan has no such group")
         if self.tp is TPStyle.EXPLICIT:
             if self.group is None:
                 raise ValueError("tp='explicit' requires a process group "
@@ -303,8 +348,11 @@ class ExecutionPlan:
 
 
 def local_kv_heads(cfg, tp_size: int) -> int:
-    """KV heads a rank holds: ``n_kv_heads / tp``, or 1 when the KV heads
-    are replicated (``n_kv_heads < tp``)."""
+    """KV heads a rank's paged pools hold: ``n_kv_heads / tp``, or 1 when
+    the KV heads are replicated (``n_kv_heads < tp``).  The contiguous
+    decode cache follows the reference's layout instead
+    (``launch/mesh.py::cache_specs``: every KV head over a part of the
+    sequence when they do not divide the ranks)."""
     return cfg.n_kv_heads // tp_size if cfg.n_kv_heads % tp_size == 0 else 1
 
 

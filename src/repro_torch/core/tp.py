@@ -40,7 +40,11 @@ all-to-all) and direction
 sums; ``data`` for its one data-parallel gradient sum, ``metric`` for the
 data-parallel mean of the loss; ``checkpoint`` for gathering a sharded
 state; ``fsdp`` for FSDP's per-unit all-gathers and their backward
-reduce-scatters, ``gather_fsdp``): ``collective_counts()``,
+reduce-scatters, ``gather_fsdp``; ``seq`` for the decode tick's
+partial-softmax combine over a sequence-cut cache, a MAX and a SUM
+all-reduce a cutting group a layer and, over a model cut, the query
+heads' all-gather, ``models/attention.py::seq_combine``):
+``collective_counts()``,
 ``reset_collectives()``.  These replace
 the reference's HLO parsers (``collective_payload_bytes``'s ring model).
 

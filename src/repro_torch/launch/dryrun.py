@@ -15,7 +15,11 @@ counted (``core/tp.py``) and moves nothing:
            ``specs.num_microbatches``, under the explicit-TP plan
   prefill  ``models.model.forward`` at ``Phase.PREFILL``, no gradients
   decode   one ``serve.decode.make_serve_step`` tick over the contiguous
-           cache
+           cache in the reference's layout (``launch/mesh.py::
+           cache_specs``): the KV sequence cut over the data axes where
+           the batch does not divide them and over the model axis where
+           the KV heads do not (MLA's latent always); the partial-softmax
+           combine's collectives count under direction ``seq``
 
 Meshes: ``single`` is the reference's 256 cards and ``multi`` its 512, as
 data 32 x model 8 and pod 2 x data 32 x model 8 (TP inside an 8-card
@@ -66,6 +70,7 @@ from repro_torch.configs.base import (ARCH_IDS, INPUT_SHAPES, ShapeConfig,
 from repro_torch.core import tp
 from repro_torch.core.plan import EXPLICIT_TP_FAMILIES, ExecutionPlan, Phase
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as MX
 from repro_torch.launch import specs as SP
 from repro_torch.models import model as M
 from repro_torch.serve.decode import make_serve_step
@@ -170,20 +175,27 @@ def storage_bytes(tree) -> int:
     return sum(seen.values())
 
 
-def _plans(cfg, mesh, sp, fsdp):
+def _plans(cfg, mesh, sp, fsdp, decode_batch=None):
     """(train plan, serving plan) of rank 0: the explicit-TP plan over the
     model axis (train also over the data axes' group), or with model 1 no
     TP group.  With ``fsdp`` (and data ranks) both plans slice the params
-    over the data group; the serving plan then carries it too."""
+    over the data group; the serving plan then carries it too.  For a
+    decode pair (``decode_batch``, the global batch) the serving plan
+    carries the reference's cache layout (``with_cache_layout``) and the
+    data group whenever that layout cuts the KV sequence over it."""
     groups = tp.split_groups(mesh.model)
     tp_style = "explicit" if mesh.model > 1 else "none"
     fsdp = fsdp and groups.dp is not None
     train = ExecutionPlan.from_group(groups.tp, tp=tp_style, sp=sp,
                                      data_group=groups.dp,
                                      fsdp=fsdp).validate(cfg)
+    cut = decode_batch is not None and "data" in MX.seq_axes(
+        cfg, mesh.model, mesh.pod * mesh.data, decode_batch)
     serve = ExecutionPlan.from_group(groups.tp, tp=tp_style, sp=sp,
-                                     data_group=groups.dp if fsdp else None,
-                                     fsdp=fsdp)
+                                     data_group=groups.dp if fsdp or cut
+                                     else None, fsdp=fsdp)
+    if decode_batch is not None:
+        serve = serve.with_cache_layout(cfg, decode_batch)
     return train, serve
 
 
@@ -216,11 +228,18 @@ def lower_pair(arch, shape, mesh, *, connection=None, fsdp=True,
     dp = mesh.pod * mesh.data
     with fake_world(_world(mesh)):
         try:
-            train_plan, serve_plan = _plans(cfg, mesh, sp, fsdp)
+            train_plan, serve_plan = _plans(
+                cfg, mesh, sp, fsdp, shape_cfg.global_batch
+                if shape_cfg.mode == "decode" else None)
         except ValueError as e:               # the plan's own refusal
             return {"skipped": f"{type(e).__name__}: {e}"}
         nmb = SP.num_microbatches(cfg, shape_cfg, dp, microbatches)
         sliced = train_plan.fsdp
+        if sliced:
+            # the layout table (a meta init, cached) is set-up, not the
+            # step's memory: built here, it is warm for every mode, as a
+            # train step's constructor leaves it
+            MX.fsdp_layout(cfg, mesh.model, dp)
         if shape_cfg.mode == "train":
             args = SP.train_input_specs(cfg, shape_cfg, mesh.model, dp,
                                         fsdp=sliced)
@@ -251,7 +270,8 @@ def lower_pair(arch, shape, mesh, *, connection=None, fsdp=True,
             "mesh": dict(mesh._asdict()), "connection": cfg.connection,
             "fsdp": bool(fsdp), "tp": "explicit" if mesh.model > 1 else "none",
             "sp": bool(sp), "trace_s": round(trace_s, 2),
-            "rows": SP.batch_rows(shape_cfg.global_batch, dp),
+            "rows": (SP.decode_rows if shape_cfg.mode == "decode"
+                     else SP.batch_rows)(shape_cfg.global_batch, dp),
             "num_microbatches": nmb,
             "memory": {"argument_bytes": arg_bytes,
                        "output_bytes": storage_bytes(out),

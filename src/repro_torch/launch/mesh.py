@@ -1,4 +1,5 @@
-"""Tensor-parallel layout of the decoder's parameters.
+"""Tensor-parallel layout of the decoder's parameters, and the decode
+cache's layout.
 
 Port of ``repro/launch/mesh.py:47-147`` (``_BASE``, ``_MOE``, ``param_specs``,
 ``kv_replicated``) for the explicit-TP stack, where each rank holds its
@@ -36,6 +37,12 @@ are zero-padded (``shard_fsdp``).  A slice keeps its leaf's rank, so
 AdamW's decay mask judges it as the whole leaf.  ``fsdp_layout`` gives each
 FSDP leaf's (dim, n) by path, the table the model's per-unit gathers
 (``core.tp.gather_fsdp``), the train step and the checkpoints read.
+
+The decode cache (reference ``:164-204``, ``cache_specs``): which dims of
+each contiguous-cache leaf are cut over the data and model ranks, rule
+for rule the reference's, with ``rank_slice`` / ``leaf_ranges`` /
+``slice_cache`` giving a rank's rows, heads and positions and
+``seq_axes`` the groups the decode tick's softmax combines over.
 """
 from __future__ import annotations
 
@@ -334,3 +341,110 @@ def gather_fsdp_over_group(shard, cfg, group, tp_size=1, host=True):
         return torch.cat(parts.unbind(0), dim=dim).narrow(dim, 0,
                                                           n).contiguous()
     return _apply(shard, map_tree(lambda _: None, shard), join)
+
+
+# ------------------------------------------------------------------------- #
+# the decode cache's layout (reference ``cache_specs``, ``:164-204``)
+# ------------------------------------------------------------------------- #
+#: the port's two mesh axes: ``data`` is the reference's data axes together
+#: (pod x data), ``model`` its model axis
+DATA, MODEL = "data", "model"
+
+
+def cache_specs(cfg, tp, dp, batch) -> dict:
+    """The reference's decode-cache layout at ``tp`` model ranks, ``dp``
+    data ranks and a global ``batch``: {leaf key: spec}, a spec giving for
+    each of the leaf's own dims (without stacking axes, which stay whole)
+    the axes it is cut over, data outer and model inner: ``()`` whole,
+    ``(DATA,)``, ``(MODEL,)`` or ``(DATA, MODEL)``.  Rule for rule:
+
+      * the batch is cut over the data axes when it divides them, else the
+        KV sequence takes them (long_500k's batch of 1);
+      * K / V (B, S, Hkv, Dh): the heads over ``model`` when they divide
+        it, else the sequence takes ``model`` too (after the data axes);
+      * MLA's latent ``c`` / ``kr`` (B, S, R), which has no head dim,
+        always has its sequence over ``model`` (after the data axes);
+      * the mamba ``state`` (B, H, P, N) / ``conv`` (B, K-1, C) and
+        whisper's ``enc_out`` (B, F, d) by batch only: whole on every rank
+        where the batch does not divide the data axes.
+
+    An axis of one rank cuts nothing; ``seq_axes`` drops it."""
+    b = (DATA,) if batch % dp == 0 else ()
+    s_data = () if b else (DATA,)
+    heads = cfg.n_kv_heads % tp == 0
+    kv = (b, s_data if heads else s_data + (MODEL,),
+          (MODEL,) if heads else (), ())
+    lat = (b, s_data + (MODEL,), ())
+    return {"k": kv, "v": kv, "c": lat, "kr": lat,
+            "state": (b, (), (), ()), "conv": (b, (), ()),
+            "enc_out": (b, (), ())}
+
+
+def axes_part(axes, tp_rank, dp_rank, tp, dp):
+    """(index, count): which of ``count`` equal parts a dim cut over
+    ``axes`` (data outer, model inner) is this rank's."""
+    i, n = 0, 1
+    for a in axes:
+        r, s = (dp_rank, dp) if a == DATA else (tp_rank, tp)
+        i, n = i * s + r, n * s
+    return i, n
+
+
+def part_range(length, axes, tp_rank, dp_rank, tp, dp):
+    """[lo, hi) of a dim of ``length`` cut over ``axes`` on this rank.
+    Raises when the axes do not divide it: the layout never pads."""
+    i, n = axes_part(axes, tp_rank, dp_rank, tp, dp)
+    if length % n:
+        raise ValueError(f"a dim of {length} does not divide over {axes} "
+                         f"({n} ranks); the decode cache is not padded")
+    k = length // n
+    return i * k, (i + 1) * k
+
+
+def leaf_ranges(spec, shape, tp_rank, dp_rank, tp, dp):
+    """[lo, hi) of each dim of a cache leaf of ``shape`` on this rank:
+    ``spec`` (``cache_specs``) covers the trailing dims, the leading
+    stacking dims stay whole."""
+    lead = len(shape) - len(spec)
+    return tuple((0, n) for n in shape[:lead]) + tuple(
+        part_range(n, axes, tp_rank, dp_rank, tp, dp)
+        for n, axes in zip(shape[lead:], spec))
+
+
+def rank_slice(cfg, tp, dp, batch, seq, tp_rank=0, dp_rank=0) -> dict:
+    """A rank's slice of the decode cache: ``rows`` its batch rows and
+    ``positions`` its KV sequence positions (MLA: of the latent), each
+    [lo, hi) of the global batch and ``seq``."""
+    specs = cache_specs(cfg, tp, dp, batch)
+    b, s = specs["c" if cfg.use_mla else "k"][:2]
+    return {"rows": part_range(batch, b, tp_rank, dp_rank, tp, dp),
+            "positions": part_range(seq, s, tp_rank, dp_rank, tp, dp)}
+
+
+def seq_axes(cfg, tp, dp, batch) -> tuple:
+    """The axes of more than one rank that cut the attention cache's
+    sequence (MLA's latent, else K / V): what the decode tick's softmax
+    combines over.  ``()`` for the SSM family (no attention cache)."""
+    if cfg.family == "ssm":
+        return ()
+    s = cache_specs(cfg, tp, dp, batch)["c" if cfg.use_mla else "k"][1]
+    sizes = {DATA: dp, MODEL: tp}
+    return tuple(a for a in s if sizes[a] > 1)
+
+
+def slice_cache(cache, cfg, tp, dp, batch, tp_rank=0, dp_rank=0):
+    """A rank's slice of a whole cache (the one-device ``init_cache``
+    tree): every leaf cut by ``cache_specs``, contiguous copies; leaves
+    outside the table whole."""
+    specs = cache_specs(cfg, tp, dp, batch)
+
+    def cut(node, key=None):
+        if isinstance(node, dict):
+            return {k: cut(v, k) for k, v in node.items()}
+        if key not in specs:
+            return node.clone()
+        for dim, (lo, hi) in enumerate(leaf_ranges(
+                specs[key], node.shape, tp_rank, dp_rank, tp, dp)):
+            node = node.narrow(dim, lo, hi - lo)
+        return node.clone(memory_format=torch.contiguous_format)
+    return cut(cache)

@@ -7,10 +7,15 @@ Port of ``repro/launch/specs.py:26-108``.  The reference builds
 a rank is a process, so each function returns that rank's own tensors:
 its shard of the blocks (``launch/mesh.py`` ``shard_params``) and, with
 ``fsdp`` (the reference's default ``fsdp_axes``), its FSDP slices of them
-(``shard_fsdp``), its rows of the batch and a cache of its
-``local_kv_heads``.  ``tp`` is the model axis's size and ``dp`` the data
-axes' (pod x data); every rank's slices have one size (the last rank's
-are padded), so rank 0 stands for all.
+(``shard_fsdp``), its rows of the batch and its slice of the decode cache
+by the reference's ``cache_specs`` (``launch/mesh.py``): its rows, KV
+heads and positions, with tokens and positions cut over the data axes
+only where the batch divides them (the reference's ``bspec``; long_500k's
+batch of 1 never does, and decode_32k's 128 rows do not divide the 256 or
+512 data ranks of the families without a TP stack).  ``tp`` is the model
+axis's size and ``dp`` the data axes' (pod x data); every rank's slices
+have one size (the last rank's FSDP slices are padded; the cache is never
+cut unevenly), so rank 0 stands for all.
 """
 from __future__ import annotations
 
@@ -63,11 +68,21 @@ def num_microbatches(cfg, shape_cfg, dp, override=None):
 
 
 def batch_rows(global_batch, dp):
-    """A rank's rows: the global batch split over the ``dp`` data ranks,
-    ceil(B / dp) of them (a batch smaller than the data axes gives its
-    first B ranks one row each and leaves the rest idle; the reference's
-    meshes always divide it)."""
+    """A rank's rows of a train or prefill batch: the global batch split
+    over the ``dp`` data ranks, ceil(B / dp) of them (a batch smaller than
+    the data axes, as at 256 or 512 data ranks of the families without a
+    TP stack, gives its first B ranks one row each and leaves the rest
+    idle, where the reference cuts the batch over the data axes all the
+    same).  A decode batch follows the cache: ``decode_rows``."""
     return -(-global_batch // dp)
+
+
+def decode_rows(global_batch, dp):
+    """A rank's rows of a decode batch (the reference's ``bspec``,
+    ``specs.py:101-107``): B / dp when the batch divides the data ranks,
+    else the whole batch on every rank, whose KV sequence is then cut over
+    the data ranks (``launch/mesh.py::cache_specs``)."""
+    return global_batch // dp if global_batch % dp == 0 else global_batch
 
 
 def batch_struct(cfg, shape_cfg, dp):
@@ -111,16 +126,19 @@ def train_input_specs(cfg, shape_cfg, tp=1, dp=1, tp_rank=0, fsdp=False):
     return state, batch_struct(cfg, shape_cfg, dp)
 
 
-def decode_input_specs(cfg, shape_cfg, tp=1, dp=1, tp_rank=0, fsdp=False):
+def decode_input_specs(cfg, shape_cfg, tp=1, dp=1, tp_rank=0, fsdp=False,
+                       cache_dtype="bfloat16"):
     """(params, cache, tokens, pos) of one rank for ``make_serve_step``
     (reference ``:89-108``): the params' shard (in ``cfg.param_dtype``, as
-    the reference lowers them; with ``fsdp``, its slices), a bf16
-    contiguous cache of the rank's rows and KV heads (``init_cache(...,
-    tp_size=)``), and int32 tokens (rows, 1) and positions (rows,)."""
-    B = batch_rows(shape_cfg.global_batch, dp)
+    the reference lowers them; with ``fsdp``, its slices), its slice of a
+    contiguous cache in ``cache_dtype`` (bf16, as the reference's) by
+    ``cache_specs`` at the global batch (``init_cache(..., tp_size=,
+    dp_size=)``), and int32 tokens (rows, 1) and positions (rows,) of its
+    ``decode_rows``."""
+    B = decode_rows(shape_cfg.global_batch, dp)
     params = _params(cfg, tp, tp_rank, dp, fsdp)
-    cache = M.init_cache(cfg, B, shape_cfg.seq_len, "bfloat16", device=META,
-                         tp_size=tp)
+    cache = M.init_cache(cfg, shape_cfg.global_batch, shape_cfg.seq_len,
+                         cache_dtype, device=META, tp_size=tp, dp_size=dp)
     tokens = torch.empty((B, 1), dtype=torch.int32, device=META)
     pos = torch.empty((B,), dtype=torch.int32, device=META)
     return params, cache, tokens, pos

@@ -26,6 +26,14 @@ latent cache (c, kr): ``mla_init_cache`` / ``mla_decode``,
 ``mla_init_paged_cache``, ``mla_paged_apply`` and ``mla_packed_apply``,
 PyTorch ops as the reference's are jnp (no paged kernel reads latents).
 
+The contiguous decode tick also runs over the reference's decode-cache
+layout (``launch/mesh.py::cache_specs``), whose KV sequence is cut over
+the data and / or model groups (``plan.seq_axes``): each rank holds a
+slice of positions, writes a new row only where it falls in it, attends
+over its slice (``chunk_attention_partial``, the absorbed MLA scores) and
+``seq_combine`` joins the ranks' partial softmaxes, where the reference
+leaves the combine to GSPMD (its ``mesh.py:164-169``).
+
 The paged layouts have two branches, as in the reference: full attention
 runs the block-table kernels; a layer with a sliding window or a logit
 softcap (gemma2: every layer, the softcap is on in all of them) runs the
@@ -85,7 +93,9 @@ def _kv_group_slice(k, v, cfg, plan):
     """Megatron's GQA fallback for ``n_kv_heads < tp`` inside the
     explicit-TP stack: wk / wv are replicated (``launch.mesh``), every rank
     computes all KV heads and keeps the one its query heads attend to
-    (``tp / n_kv_heads`` ranks share each KV head)."""
+    (``tp / n_kv_heads`` ranks share each KV head).  Not on the contiguous
+    decode tick, whose cache then cuts the sequence over the model group
+    and holds every KV head (``_gqa_decode_cut``)."""
     if plan is None or plan.tp_axis is None:
         return k, v
     tp = plan.tp_size
@@ -187,9 +197,12 @@ def gqa_decode(p, cfg, x, cache, pos, *, window=0, plan=None):
     the cache's dtype and meets ``wo`` in the promoted dtype of the two, as
     the reference's ``o @ wo.astype(x.dtype)`` does.  Under explicit TP
     (``plan``) the cache holds this rank's KV heads and the output is its
-    partial sum."""
+    partial sum.  Under a sequence-cut layout (``plan.seq_axes``) the
+    cache holds this rank's positions: ``_gqa_decode_cut``."""
     B = x.shape[0]
     q, k, v = gqa_qkv(p, cfg, x, pos[:, None])
+    if plan is not None and plan.seq_axes:
+        return _gqa_decode_cut(p, cfg, x, q, k, v, cache, pos, window, plan)
     k, v = _kv_group_slice(k, v, cfg, plan)
     rows = pos.long().clamp(0, cache["k"].shape[1] - 1)
     lanes = torch.arange(B, device=x.device)
@@ -197,6 +210,37 @@ def gqa_decode(p, cfg, x, cache, pos, *, window=0, plan=None):
     cache["v"][lanes, rows] = v[:, 0].to(cache["v"].dtype)
     o = decode_attention(q, cache["k"], cache["v"], pos, window=window,
                          cap=cfg.attn_softcap)
+    dt = torch.promote_types(o.dtype, x.dtype)
+    return o.reshape(B, 1, -1).to(dt) @ p["wo"].to(x.dtype).to(dt), cache
+
+
+def _gqa_decode_cut(p, cfg, x, q, k, v, cache, pos, window, plan):
+    """``gqa_decode`` over a cache whose sequence is cut over
+    ``plan.seq_axes`` (``launch/mesh.py::cache_specs``): the new K / V
+    row is written only on the rank holding it, the rank attends over its
+    positions (global positions in the masks, softcap before them), and
+    ``seq_combine`` joins the partials.  When the sequence is cut over
+    ``model`` (KV heads that do not divide the TP ranks) the rank holds
+    every KV head: ``wk`` / ``wv`` are whole (``kv_replicated``), so no
+    KV group is sliced away, the tick's query heads are all-gathered over
+    the model group, all heads attend, and after the combine the rank
+    keeps its own, whose row-parallel ``wo`` gives the block its partial
+    sum."""
+    B, Hq = x.shape[0], q.shape[2]
+    model = "model" in plan.seq_axes
+    if not model:
+        k, v = _kv_group_slice(k, v, cfg, plan)
+    lo, S = _seq_window(plan, cache["k"].shape[1])
+    _write_row(cache["k"], k[:, 0], pos, lo, S)
+    _write_row(cache["v"], v[:, 0], pos, lo, S)
+    if model:
+        q = _gather_heads(q, plan.group)
+    o = seq_combine(*chunk_attention_partial(
+        q, cache["k"], cache["v"], pos[:, None], k_lo=lo, window=window,
+        cap=cfg.attn_softcap), plan)
+    if model:
+        o = o[:, :, plan.tp_rank * Hq:(plan.tp_rank + 1) * Hq]
+    o = o.to(cache["v"].dtype)
     dt = torch.promote_types(o.dtype, x.dtype)
     return o.reshape(B, 1, -1).to(dt) @ p["wo"].to(x.dtype).to(dt), cache
 
@@ -318,13 +362,13 @@ def _gather_dequant(pages, scale_pages, block_tables):
     return g.float() * s[..., None, None]
 
 
-def chunk_attention(q, k, v, q_pos, *, window=0, cap=0.0, scale=None):
-    """Multi-token attention against a gathered cache with per-token
-    positions: q (B, C, H, Dh), k and v (B, Sk, Hkv, D*), q_pos (B, C) the
-    position of each query.  Key j is visible iff j <= q_pos and, when
-    window > 0, j > q_pos - window.  fp32 scores, softcapped, masked at
-    -1e30, softmaxed in fp32; ``p`` in v's dtype for P.V.  Returns
-    (B, C, H, Dv) in v's dtype."""
+def _masked_scores(q, k, q_pos, window, cap, scale, k_lo=0):
+    """q (B, C, H, Dh) against k (B, Sk, Hkv, Dh) whose key j sits at
+    position ``k_lo + j`` -> (B, Hkv, G, C, Sk) fp32 scores, softcapped,
+    then masked at -1e30 where a key is past its query's position or, with
+    ``window`` > 0, at or before ``q_pos - window``.  The mask stays finite,
+    so a fully masked row softmaxes uniformly and a fully masked partial
+    adds ``e^(-1e30 - M)`` = 0 in ``seq_combine``."""
     B, C, H, Dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -332,16 +376,100 @@ def chunk_attention(q, k, v, q_pos, *, window=0, cap=0.0, scale=None):
     qg = q.float().reshape(B, C, Hkv, G, Dh)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
     s = L.softcap(s, cap)
-    k_pos = torch.arange(Sk, device=q.device)[None, None]          # (1,1,Sk)
+    k_pos = torch.arange(k_lo, k_lo + Sk, device=q.device)[None, None]
     qp = q_pos[:, :, None]
     mask = k_pos <= qp
     if window > 0:
         mask = mask & (k_pos > qp - window)
-    s = torch.where(mask[:, None, None], s,
-                    torch.full((), -1e30, device=q.device))
+    return torch.where(mask[:, None, None], s,
+                       torch.full((), -1e30, device=q.device))
+
+
+def chunk_attention(q, k, v, q_pos, *, window=0, cap=0.0, scale=None):
+    """Multi-token attention against a gathered cache with per-token
+    positions: q (B, C, H, Dh), k and v (B, Sk, Hkv, D*), q_pos (B, C) the
+    position of each query.  Key j is visible iff j <= q_pos and, when
+    window > 0, j > q_pos - window.  fp32 scores, softcapped, masked at
+    -1e30, softmaxed in fp32; ``p`` in v's dtype for P.V.  Returns
+    (B, C, H, Dv) in v's dtype."""
+    B, C, H = q.shape[:3]
+    s = _masked_scores(q, k, q_pos, window, cap, scale)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
     return o.reshape(B, C, H, v.shape[-1])
+
+
+def chunk_attention_partial(q, k, v, q_pos, *, k_lo, window=0, cap=0.0,
+                            scale=None):
+    """``chunk_attention`` over one rank's part of a sequence-cut cache,
+    key j at global position ``k_lo + j`` (the masks read global
+    positions) -> the partial softmax (o (B, C, H, Dv) fp32, unnormalised,
+    m (B, C, H) fp32 row max, l (B, C, H) fp32 sum of ``e^(s - m)``), for
+    ``seq_combine``.  ``e^(s - m)`` meets v in v's dtype, as ``p`` does in
+    ``chunk_attention``."""
+    B, C, H = q.shape[:3]
+    s = _masked_scores(q, k, q_pos, window, cap, scale, k_lo)
+    m = s.amax(dim=-1)                                     # (B, Hkv, G, C)
+    e = torch.exp(s - m[..., None])
+    o = torch.einsum("bhgqk,bkhd->bqhgd", e.to(v.dtype), v).float()
+
+    def rows(t):                                           # -> (B, C, H)
+        return t.permute(0, 3, 1, 2).reshape(B, C, H)
+    return o.reshape(B, C, H, v.shape[-1]), rows(m), rows(e.sum(dim=-1))
+
+
+def seq_combine(o, m, l, plan):
+    """The ranks' partial softmaxes (``chunk_attention_partial``: o (...,
+    D), m and l (...), fp32) -> the normalised output over the whole
+    sequence (fp32), the same on every rank.  For each group that cuts the
+    sequence (``plan.seq_groups``: model, then data): one MAX all-reduce of
+    m, then one SUM all-reduce of ``o e^(m - M)`` and ``l e^(m - M)`` in one
+    buffer; two collectives a group, direction ``seq``.  A rank whose keys
+    are all masked has m = -1e30 and adds exactly zero (``e^(-1e30 - M)``
+    underflows to 0) unless every rank's are, when each weight is 1 and the
+    result is the one device's uniform softmax.  The sums are collectives,
+    so every rank of a group reads the same bytes and the streams stay in
+    lockstep."""
+    for group in plan.seq_groups:
+        mx = tp.all_reduce(m, group, "seq", kind="all-reduce-max")
+        w = torch.exp(m - mx)
+        n = o.numel()
+        tot = tp.all_reduce(torch.cat([(o * w[..., None]).reshape(-1),
+                                       (l * w).reshape(-1)]), group, "seq")
+        o, l, m = tot[:n].view(o.shape), tot[n:].view(l.shape), mx
+    return o / l[..., None]
+
+
+def _seq_window(plan, s_local):
+    """(lo, S): this rank's first key position and the global sequence
+    length of a cache holding ``s_local`` positions a rank."""
+    i, n = plan.seq_part
+    return i * s_local, n * s_local
+
+
+def _write_row(leaf, vals, pos, lo, S):
+    """Write each lane's ``vals`` (B, ...) at global row ``clamp(pos, 0,
+    S - 1)`` of a sequence-cut cache ``leaf`` (B, S_local, ...) in place,
+    on the rank whose positions [lo, lo + S_local) hold it (the
+    reference's ``dynamic_update_slice`` clamps over the global S); the
+    other ranks' rows keep their bytes."""
+    B, s_local = leaf.shape[:2]
+    row = pos.long().clamp(0, S - 1) - lo
+    mine = ((row >= 0) & (row < s_local)).view((B,) + (1,) * (vals.dim() - 1))
+    idx = row.clamp(0, s_local - 1)
+    lanes = torch.arange(B, device=leaf.device)
+    leaf[lanes, idx] = torch.where(mine, vals.to(leaf.dtype),
+                                   leaf[lanes, idx])
+
+
+def _gather_heads(q, group):
+    """All-gather the tick's query heads (B, 1, Hq, D) over the model group
+    (one collective, direction ``seq``) -> (B, 1, n Hq, D), rank r's heads
+    at [r Hq, (r + 1) Hq), as the column shards of the query weights
+    order them."""
+    g = tp.gather_rows(q, group, "seq")                   # (n, B, 1, Hq, D)
+    n, B, M, Hq, D = g.shape
+    return g.permute(1, 2, 0, 3, 4).reshape(B, M, n * Hq, D)
 
 
 def _gathered(cfg, window) -> bool:
@@ -583,6 +711,40 @@ def mla_init_cache(cfg, batch, seq, dtype, device):
                               dtype=dtype, device=device)}
 
 
+def _mla_q_lat(p, cfg, q_nope, x_dtype):
+    """q_nope (N, M, H, dn) -> q_lat = q_nope W_uk^T per head (N, M, H,
+    rkv) in x's dtype."""
+    rkv, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    w_uk = p["w_uk"].to(x_dtype).reshape(rkv, q_nope.shape[2], dn)
+    return torch.einsum("nmhd,rhd->nmhr", q_nope, w_uk)
+
+
+def _mla_scores(cfg, q_lat, q_rope, cc, krc, mask):
+    """fp32 scores of q_lat (N, M, H, rkv) and q_rope (N, M, H, dr)
+    against a latent cache cc (N, Sk, rkv) and rope keys krc (N, Sk, dr)
+    (the reference's ``preferred_element_type``): latent part plus rope
+    part, scaled, masked at -1e30 by mask (N, M, Sk) -> (N, M, H, Sk)."""
+    N, M, H, rkv = q_lat.shape
+    s = q_lat.reshape(N, M * H, rkv).float() @ cc.float().transpose(1, 2)
+    s = s + q_rope.reshape(N, M * H, -1).float() @ krc.float().transpose(
+        1, 2)
+    s = s.reshape(N, M, H, -1) * (
+        cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    return torch.where(mask[:, :, None, :], s,
+                       torch.full((), -1e30, device=s.device))
+
+
+def _mla_out(p, cfg, o_lat, x_dtype):
+    """o_lat (N, M, H, rkv) through W_uv in the promoted dtype of the two
+    -> (N, M, H * dv)."""
+    rkv, dv = cfg.kv_lora_rank, cfg.v_head_dim
+    N, M, H = o_lat.shape[:3]
+    dt = torch.promote_types(o_lat.dtype, x_dtype)
+    w_uv = p["w_uv"].to(x_dtype).reshape(rkv, H, dv).to(dt)
+    o = torch.einsum("nmhr,rhd->nmhd", o_lat.to(dt), w_uv)
+    return o.reshape(N, M, H * dv)
+
+
 def _mla_absorbed(p, cfg, q_nope, q_rope, cc, krc, mask, x_dtype):
     """Attention in the latent space (the reference's absorbed matrices):
     q_nope (N, M, H, dn) and q_rope (N, M, H, dr), the M queries of each of
@@ -592,34 +754,30 @@ def _mla_absorbed(p, cfg, q_nope, q_rope, cc, krc, mask, x_dtype):
     latent part plus rope part, scaled, masked at -1e30, softmaxed in fp32;
     p in the cache's dtype for P.cc; W_uv in the promoted dtype of the
     two.  Returns (N, M, H * dv)."""
-    rkv, dn, dv = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.v_head_dim
     N, M, H = q_nope.shape[:3]
-    w_uk = p["w_uk"].to(x_dtype).reshape(rkv, H, dn)
-    q_lat = torch.einsum("nmhd,rhd->nmhr", q_nope, w_uk)
-    s = q_lat.reshape(N, M * H, rkv).float() @ cc.float().transpose(1, 2)
-    s = s + q_rope.reshape(N, M * H, -1).float() @ krc.float().transpose(
-        1, 2)
-    s = s.reshape(N, M, H, -1) * (dn + cfg.qk_rope_head_dim) ** -0.5
-    s = torch.where(mask[:, :, None, :], s,
-                    torch.full((), -1e30, device=s.device))
+    q_lat = _mla_q_lat(p, cfg, q_nope, x_dtype)
+    s = _mla_scores(cfg, q_lat, q_rope, cc, krc, mask)
     pattn = torch.softmax(s, dim=-1).to(cc.dtype)
-    o_lat = (pattn.reshape(N, M * H, -1) @ cc).reshape(N, M, H, rkv)
-    dt = torch.promote_types(o_lat.dtype, x_dtype)
-    w_uv = p["w_uv"].to(x_dtype).reshape(rkv, H, dv).to(dt)
-    o = torch.einsum("nmhr,rhd->nmhd", o_lat.to(dt), w_uv)
-    return o.reshape(N, M, H * dv)
+    o_lat = (pattn.reshape(N, M * H, -1) @ cc).reshape(N, M, H,
+                                                       cfg.kv_lora_rank)
+    return _mla_out(p, cfg, o_lat, x_dtype)
 
 
-def mla_decode(p, cfg, x, cache, pos):
+def mla_decode(p, cfg, x, cache, pos, plan=None):
     """Absorbed-matrix MLA decode (reference ``:611``): x (B, 1, D), pos
     (B,).  Writes each lane's latent and rope key at row ``pos[b]`` of the
     contiguous cache in place (clamped into the cache, as
     ``dynamic_update_slice`` does), then attends in the latent space over
-    keys <= pos.  Returns (out (B, 1, D), cache)."""
+    keys <= pos.  Under a sequence-cut layout (``plan.seq_axes``) the
+    cache holds this rank's positions: ``_mla_decode_cut``.  Returns (out
+    (B, 1, D), cache)."""
     B = x.shape[0]
     positions = pos[:, None]
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c, kr = _mla_ckv(p, cfg, x, positions)
+    if plan is not None and plan.seq_axes:
+        return _mla_decode_cut(p, cfg, x, q_nope, q_rope, c, kr, cache, pos,
+                               plan)
     rows = pos.long().clamp(0, cache["c"].shape[1] - 1)
     lanes = torch.arange(B, device=x.device)
     cache["c"][lanes, rows] = c[:, 0].to(cache["c"].dtype)
@@ -628,6 +786,40 @@ def mla_decode(p, cfg, x, cache, pos):
     mask = (torch.arange(Sk, device=x.device)[None] <= pos[:, None])
     o = _mla_absorbed(p, cfg, q_nope, q_rope, cache["c"], cache["kr"],
                       mask[:, None], x.dtype)                  # (B, 1, H dv)
+    return o @ p["wo"].to(x.dtype).to(o.dtype), cache
+
+
+def _mla_decode_cut(p, cfg, x, q_nope, q_rope, c, kr, cache, pos, plan):
+    """``mla_decode`` over a latent cache whose sequence is cut over
+    ``plan.seq_axes`` (always ``model`` under TP: the latent has no head
+    dim to shard).  The new latent row is written only on the rank holding
+    it; the rank's q_lat and q_rope (its H / tp heads) are all-gathered
+    over the model group in one buffer, every head attends over the rank's
+    positions, ``seq_combine`` joins the partials and the rank keeps its
+    own heads' o_lat for its W_uv and row-parallel ``wo``."""
+    B, Hq, rkv = x.shape[0], q_nope.shape[2], cfg.kv_lora_rank
+    cc, krc = cache["c"], cache["kr"]
+    lo, S = _seq_window(plan, cc.shape[1])
+    _write_row(cc, c[:, 0], pos, lo, S)
+    _write_row(krc, kr[:, 0], pos, lo, S)
+    q_lat = _mla_q_lat(p, cfg, q_nope, x.dtype)
+    model = "model" in plan.seq_axes
+    if model:
+        qq = _gather_heads(torch.cat([q_lat, q_rope.to(q_lat.dtype)], -1),
+                           plan.group)
+        q_lat, q_rope = qq[..., :rkv], qq[..., rkv:]
+    H = q_lat.shape[2]
+    k_pos = torch.arange(lo, lo + cc.shape[1], device=x.device)
+    mask = (k_pos[None] <= pos[:, None])[:, None]              # (B, 1, Sk)
+    s = _mla_scores(cfg, q_lat, q_rope, cc, krc, mask)        # (B, 1, H, Sk)
+    m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None])
+    o_lat = (e.to(cc.dtype).reshape(B, H, -1) @ cc).float().reshape(
+        B, 1, H, rkv)
+    o_lat = seq_combine(o_lat, m, e.sum(dim=-1), plan)
+    if model:
+        o_lat = o_lat[:, :, plan.tp_rank * Hq:(plan.tp_rank + 1) * Hq]
+    o = _mla_out(p, cfg, o_lat.to(cc.dtype), x.dtype)        # (B, 1, Hq dv)
     return o @ p["wo"].to(x.dtype).to(o.dtype), cache
 
 

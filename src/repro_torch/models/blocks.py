@@ -111,7 +111,7 @@ def _cached_attention(p, cfg, h, cache, block_tables, pos, n_valid,
     over the latent caches."""
     if cfg.use_mla:
         if plan.phase is Phase.DECODE:
-            return A.mla_decode(p["attn"], cfg, h, cache, pos)
+            return A.mla_decode(p["attn"], cfg, h, cache, pos, plan=plan)
         if tok_slot is not None:
             return A.mla_packed_apply(p["attn"], cfg, h, cache,
                                       block_tables, tok_slot, tok_pos)

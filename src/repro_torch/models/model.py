@@ -41,7 +41,13 @@ gradients after the backward.  The MTP head runs outside the stack on the
 whole hidden states (reference ``:1097``), so its leaves' gradients are
 whole on every rank and are not summed.  The serving ticks, contiguous
 and paged, run the same blocks under such a plan (``serving_plan``):
-each rank holds its shard and its KV heads' caches, in lockstep.
+each rank holds its shard and its KV heads' caches, in lockstep.  The
+contiguous decode tick's cache takes the reference's layout
+(``launch/mesh.py::cache_specs``): its KV sequence cut over the data
+ranks where the batch does not divide them and over the model ranks where
+the KV heads do not (MLA's latents always), each rank attending over its
+positions and combining the partial softmaxes over those groups
+(``attention.seq_combine``).
 
 FSDP (``plan.fsdp``, ZeRO-3 over the data group; the reference's default
 layout): the params hold this data rank's slices (``launch/mesh.py::
@@ -534,33 +540,59 @@ def _stacked(cfg, c0):
     return {"block0": c0, "blocks": _stacked_n(c0, cfg.n_layers - 1)}
 
 
-def _decoder_init_cache(cfg, batch, seq, dtype, device, tp_size=1):
+def _cache_dims(cfg, key, dims, tp_size, dp_size):
+    """A rank's lengths of a cache leaf's leading dims ``dims`` (the global
+    batch first) under the reference's layout (``launch/mesh.py::
+    cache_specs``); every rank's slice has these lengths."""
+    spec = MX.cache_specs(cfg, tp_size, dp_size, dims[0])[key]
+    return tuple(hi - lo for lo, hi in (
+        MX.part_range(n, axes, 0, 0, tp_size, dp_size)
+        for n, axes in zip(dims, spec)))
+
+
+def _decoder_init_cache(cfg, batch, seq, dtype, device, tp_size=1,
+                        dp_size=1):
     if cfg.use_mla:
-        return _stacked(cfg, A.mla_init_cache(cfg, batch, seq, dtype, device))
-    return _stacked(cfg, A.gqa_init_cache(
-        cfg, batch, seq, dtype, device,
-        n_kv_heads=local_kv_heads(cfg, tp_size)))
+        b, s = _cache_dims(cfg, "c", (batch, seq), tp_size, dp_size)
+        return _stacked(cfg, A.mla_init_cache(cfg, b, s, dtype, device))
+    b, s, h = _cache_dims(cfg, "k", (batch, seq, cfg.n_kv_heads), tp_size,
+                          dp_size)
+    return _stacked(cfg, A.gqa_init_cache(cfg, b, s, dtype, device,
+                                          n_kv_heads=h))
 
 
-def init_cache(cfg, batch, seq, dtype="bfloat16", device=None, tp_size=1):
+def init_cache(cfg, batch, seq, dtype="bfloat16", device=None, tp_size=1,
+               dp_size=1):
     """Contiguous KV cache for ``decode_step``: block 0's (B, S, Hkv, Dh)
     K and V, and one (n_layers - 1, B, S, Hkv, Dh) tensor per K and per V
     for the other layers (the paged cache's stacking), zeros in
     ``dtype``; under MLA the latent ``c`` (B, S, rkv) and rope key ``kr``
-    (B, S, dr) stacked likewise.  ``tp_size``: the ranks of an explicit-TP
-    plan; each rank's cache holds its ``local_kv_heads`` (MLA's latents
-    stay whole on every rank).  The other families' caches are the
+    (B, S, dr) stacked likewise.  The other families' caches are the
     reference's: ``_mamba_init_cache``, ``_zamba_init_cache``,
-    ``_whisper_init_cache``; they have no TP cache."""
+    ``_whisper_init_cache``.
+
+    ``tp_size`` / ``dp_size``: a rank's slice of the cache of the global
+    ``batch`` and ``seq`` over that many model and data ranks, by the
+    reference's layout (``launch/mesh.py::cache_specs``): its rows (the
+    batch over the data ranks when it divides them), its KV heads (over
+    the model ranks when they divide them) and its positions (the
+    sequence over the data ranks when the batch does not divide them, and
+    over the model ranks when the KV heads do not, or always for MLA's
+    latents); mamba's state / conv and whisper's ``enc_out`` by batch
+    only, whole where it does not divide.  Every rank's slice has one
+    shape (no cut is padded: a dim that does not divide raises), so the
+    zeros do not depend on the rank; the decode plan carries which
+    positions are whose (``ExecutionPlan.with_cache_layout``).  The
+    ssm / hybrid / audio families take no ``tp_size``."""
     check_supported(cfg)
     device = resolve_device(device)
     if cfg.family in PAGED_FAMILIES:
         return _decoder_init_cache(cfg, batch, seq, _dtype(dtype), device,
-                                   tp_size)
+                                   tp_size, dp_size)
     _refuse_tp_family(cfg, tp_size)
     fn = {"ssm": _mamba_init_cache, "hybrid": _zamba_init_cache,
           "audio": _whisper_init_cache}[cfg.family]
-    return fn(cfg, batch, seq, _dtype(dtype), device)
+    return fn(cfg, batch, seq, _dtype(dtype), device, dp_size)
 
 
 def _decoder_decode(p, cfg, batch, cache, plan):
@@ -792,11 +824,19 @@ def serving_plan(params, cfg, plan, phase):
     """The plan of a serving tick, pinned to ``phase`` and validated.  A
     plan over a process group serves only under ``tp='explicit'`` and only
     the decoder families (``EXPLICIT_TP_FAMILIES``); ``params`` must then
-    be this rank's shard (``_check_shards``).  A data group raises (a data
-    replica is an engine of its own) except under ``plan.fsdp`` in the
-    contiguous decode tick, where every data rank serves its own rows in
-    lockstep and gathers each block's slices over the group as the
-    forward does.
+    be this rank's shard (``_check_shards``).  A decode plan carries its
+    cache layout (``seq_axes``; when unset, that of a batch that divides
+    the data ranks).  A data group raises (a data replica is an engine of
+    its own) except in the contiguous decode tick, where either the
+    layout cuts the KV sequence over it (``ExecutionPlan.
+    with_cache_layout`` of a batch the data ranks do not divide, such as
+    long_500k's one row): every data rank then serves the same rows in
+    lockstep, like TP ranks, and combines its partial softmax over the
+    group; or the plan is FSDP's, where every data rank serves its own
+    rows in lockstep.  Either way an FSDP plan gathers each block's slices
+    over the group as the forward does; without FSDP the weights are
+    whole on each data rank.  The paged ticks take no sequence-cut
+    layout.
 
     Under explicit TP every rank runs the same tick on the same replicated
     batch in lockstep: the embedding, the head, ``a1_sig`` and the image
@@ -808,13 +848,22 @@ def serving_plan(params, cfg, plan, phase):
     all-reduce of its rows' K / V amax (``attention._scatter_kv``), so
     every rank quantizes with the one-device scale."""
     plan = ExecutionPlan.resolve(plan).with_phase(phase)
-    if plan.data_group is not None and not (plan.fsdp
-                                            and phase is Phase.DECODE):
+    decode = plan.phase is Phase.DECODE
+    if decode and plan.seq_axes is None:
+        plan = plan.with_cache_layout(cfg)
+    elif not decode and plan.seq_axes:
+        raise ValueError(
+            f"a sequence-cut cache layout (seq_axes={plan.seq_axes}) in a "
+            f"{plan.phase.value} tick: only the contiguous decode tick's "
+            f"cache is cut by sequence; the paged pools are not")
+    if plan.data_group is not None and not (
+            decode and (plan.fsdp or "data" in plan.seq_axes)):
         raise ValueError(
             "a data-parallel group in a serving tick: a data replica is a "
             "separate engine (one per rank), and a tick never reduces over "
-            "replicas (only an FSDP plan's contiguous decode tick gathers "
-            "its weights over one)")
+            "replicas (only the contiguous decode tick takes one: with its "
+            "KV sequence cut over the group, ExecutionPlan."
+            "with_cache_layout, or under FSDP)")
     if plan.is_sharded:
         _refuse_tp_family(cfg, plan.tp_size)
         if not plan.use_explicit_tp:
@@ -961,11 +1010,12 @@ def _stacked_n(c, n):
     return {k: v[None].repeat((n,) + (1,) * v.dim()) for k, v in c.items()}
 
 
-def _mamba_init_cache(cfg, batch, seq, dtype, device):
+def _mamba_init_cache(cfg, batch, seq, dtype, device, dp_size=1):
     """{"blocks": {"state" (L, B, H, P, N) fp32, "conv" (L, B, K-1,
-    conv_dim)}} (reference ``:620-623``)."""
-    return {"blocks": _stacked_n(S.mamba_init_cache(cfg, batch, dtype,
-                                                    device), cfg.n_layers)}
+    conv_dim)}} (reference ``:620-623``); a data rank's rows of them."""
+    b, = _cache_dims(cfg, "state", (batch,), 1, dp_size)
+    return {"blocks": _stacked_n(S.mamba_init_cache(cfg, b, dtype, device),
+                                 cfg.n_layers)}
 
 
 def _mamba_decode_seg(blocks, cfg, x, cache, plan=None, prefix=()):
@@ -1085,15 +1135,18 @@ def _zamba_forward(p, cfg, batch, plan, want="logits"):
     return _logits(p, cfg, x, plan), _zero_aux(x), {}
 
 
-def _zamba_init_cache(cfg, batch, seq, dtype, device):
+def _zamba_init_cache(cfg, batch, seq, dtype, device, dp_size=1):
     """Reference ``:735-745``: ``mamba`` {"state", "conv"} stacked
     (n_groups, attn_every, ...), ``attn`` the shared block's K / V a group
-    (n_groups, B, S, Hkv, Dh), ``mamba_tail`` stacked (trailing, ...)."""
+    (n_groups, B, S, Hkv, Dh), ``mamba_tail`` stacked (trailing, ...); a
+    data rank's slice of them."""
     n_groups, trailing = _zamba_counts(cfg)
-    mc = S.mamba_init_cache(cfg, batch, dtype, device)
+    b, = _cache_dims(cfg, "state", (batch,), 1, dp_size)
+    mc = S.mamba_init_cache(cfg, b, dtype, device)
+    b, s = _cache_dims(cfg, "k", (batch, seq), 1, dp_size)
     cache = {"mamba": _stacked_n(_stacked_n(mc, cfg.attn_every), n_groups),
-             "attn": _stacked_n(A.gqa_init_cache(cfg, batch, seq, dtype,
-                                                 device), n_groups)}
+             "attn": _stacked_n(A.gqa_init_cache(cfg, b, s, dtype, device),
+                                n_groups)}
     if trailing:
         cache["mamba_tail"] = _stacked_n(mc, trailing)
     return cache
@@ -1210,12 +1263,14 @@ def _whisper_forward(p, cfg, batch, plan, want="logits"):
     return _logits(p, cfg, x, plan), _zero_aux(x), {}
 
 
-def _whisper_init_cache(cfg, batch, seq, dtype, device):
+def _whisper_init_cache(cfg, batch, seq, dtype, device, dp_size=1):
     """Reference ``:873-882``: the decoder's K / V (block 0, the stacked
     rest) and ``enc_out`` (B, n_enc_frames, d), which the caller fills with
-    ``whisper_encode``'s output."""
-    cache = _stacked(cfg, A.gqa_init_cache(cfg, batch, seq, dtype, device))
-    cache["enc_out"] = torch.zeros((batch, cfg.n_enc_frames, cfg.d_model),
+    ``whisper_encode``'s output; a data rank's slice of them."""
+    b, s = _cache_dims(cfg, "k", (batch, seq), 1, dp_size)
+    cache = _stacked(cfg, A.gqa_init_cache(cfg, b, s, dtype, device))
+    b, = _cache_dims(cfg, "enc_out", (batch,), 1, dp_size)
+    cache["enc_out"] = torch.zeros((b, cfg.n_enc_frames, cfg.d_model),
                                    dtype=dtype, device=device)
     return cache
 

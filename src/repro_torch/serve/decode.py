@@ -61,8 +61,10 @@ def make_serve_step(cfg, plan=None, dual_branch=False):
     (B,) int32, logits (B, 1, V), cache updated in place): greedy argmax.
 
     ``plan``'s phase is pinned to decode; an explicit-TP plan runs the
-    sharded blocks (``models.model.serving_plan``; ``params`` and ``cache``
-    this rank's).  ``dual_branch=True`` (or a plan with ``dual_branch``
+    sharded blocks, a plan from ``with_cache_layout`` the sequence-cut
+    cache's partial softmaxes and their combine
+    (``models.model.serving_plan``; ``params`` and ``cache`` this
+    rank's).  ``dual_branch=True`` (or a plan with ``dual_branch``
     set) runs the blocks after block 0 as MHA || MLP,
     valid only for connections whose MLP input does not read the block's
     own attention (``plan.validate`` rejects the rest)."""
@@ -85,7 +87,10 @@ def make_prefill_then_decode(cfg, plan=None):
     """generate(params, prompts (B, P) int array, max_new, cache) ->
     (tokens (B, max_new) int32 numpy, cache): the prompt teacher-forced
     into the cache one decode step a token, then greedy decode.  Runs on
-    the cache's device."""
+    the cache's device.  Under a sequence-cut layout (``plan`` from
+    ``with_cache_layout``, ``cache`` the rank's slice) every prompt row is
+    a decode step's write, so each rank keeps the prompt's K / V at its
+    own positions."""
     serve_step = make_serve_step(cfg, plan)
 
     def generate(params, prompts: np.ndarray, max_new: int, cache):
@@ -128,11 +133,16 @@ class ContinuousBatcher:
     cache.
 
     ``device``: where the cache lives and the params must be; None means
-    ``cuda`` and raises without one.  ``plan``: None or an explicit-TP
-    plan (``ExecutionPlan.from_group(group, tp="explicit")``) with
-    ``params`` this rank's shard: one batcher a rank, fed the same
-    requests, in lockstep; its cache holds this rank's KV heads and the
-    greedy ids are the same on every rank.  ``metrics``: a ``MetricsRegistry``
+    ``cuda`` and raises without one.  ``plan``: None or a plan over
+    process groups, an explicit-TP group (``ExecutionPlan.from_group(
+    group, tp="explicit")``, ``params`` this rank's shard) and / or a data
+    group: one batcher a rank, fed the same requests, in lockstep; its
+    cache is this rank's slice of the reference's layout at
+    ``batch_slots`` (``launch/mesh.py::cache_specs``: its KV heads, and
+    its positions where the sequence is cut) and the greedy ids are the
+    same on every rank.  A data group must cut the KV sequence, so the
+    slots must not divide its ranks (a data replica whose rows are its
+    own is an engine of its own).  ``metrics``: a ``MetricsRegistry``
     (one per batcher when omitted) holding ``batcher_ticks_total``,
     ``batcher_dispatches_total`` and ``batcher_occupancy``."""
 
@@ -141,14 +151,25 @@ class ContinuousBatcher:
                  metrics: Optional[MetricsRegistry] = None, device=None):
         self.cfg, self.params = cfg, params
         self.device = M.resolve_device(device)
-        self.plan = ExecutionPlan.resolve(plan).with_phase(Phase.DECODE)
+        self.plan = ExecutionPlan.resolve(plan).with_phase(
+            Phase.DECODE).with_cache_layout(cfg, batch_slots)
         if dual_branch:
             self.plan = self.plan.with_dual_branch()
+        if self.plan.data_group is not None \
+                and "data" not in self.plan.seq_axes:
+            raise ValueError(
+                f"ContinuousBatcher over a data group of "
+                f"{self.plan.dp_size} ranks with {batch_slots} slots: the "
+                f"slots divide the ranks, so each would serve rows of its "
+                f"own; every rank here serves the same requests, with the "
+                f"KV sequence cut over the group (slots that do not divide "
+                f"the data ranks)")
         self.B = batch_slots
         self.max_seq = max_seq
         self.cache = M.init_cache(cfg, batch_slots, max_seq, cache_dtype,
                                   device=self.device,
-                                  tp_size=self.plan.tp_size)
+                                  tp_size=self.plan.tp_size,
+                                  dp_size=self.plan.dp_size)
         self.serve_step = make_serve_step(cfg, self.plan)
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self.queue: List[Request] = []

@@ -39,6 +39,7 @@ from torch_threads import one_intra_op_thread  # noqa: E402,F401
 from repro.configs import base as RB  # noqa: E402
 from repro.launch import mesh as RMX  # noqa: E402
 from repro.launch import specs as RSP  # noqa: E402
+from repro.models import model as RM  # noqa: E402
 from repro.train import step as RT  # noqa: E402
 from repro_torch.configs import base as TB  # noqa: E402
 from repro_torch.core.plan import (EXPLICIT_TP_FAMILIES,  # noqa: E402
@@ -396,11 +397,19 @@ def test_fsdp_argument_bytes_are_the_padded_slices(arch, mesh):
 
 
 #: argument bytes of three pairs with the params replicated over the data
-#: axes, as the dry run reported them before it had FSDP
+#: axes, as the dry run reported them before it had FSDP.  zamba2-1.2b's
+#: long_500k on the multi mesh (512 data ranks, batch 1) held 30,431,698,952
+#: B then, the shared block's whole K / V among them: 6 invocations x 2 x
+#: 524288 x 32 heads x 64 x 2 bytes = 25,769,803,776 B.  The reference's
+#: decode-cache layout (``cache_specs``) cuts that sequence over the 512
+#: data ranks: a rank keeps 1 / 512 of it, 25,769,803,776 x 511 / 512 =
+#: 25,719,472,128 B less (its one row of mamba state stays whole)
+ZAMBA_KV_BYTES = 6 * 2 * 524288 * 32 * 64 * 2
 NO_FSDP_ARGUMENT_BYTES = {
     ("llava-next-mistral-7b", "prefill_32k", "single"): 4563042304,
     ("qwen3-4b", "decode_32k", "single"): 5789196320,
-    ("zamba2-1.2b", "long_500k", "multi"): 30431698952}
+    ("zamba2-1.2b", "long_500k", "multi"):
+        30431698952 - ZAMBA_KV_BYTES * 511 // 512}
 
 
 @pytest.mark.parametrize("pair", NO_FSDP_ARGUMENT_BYTES)
@@ -411,3 +420,59 @@ def test_no_fsdp_keeps_the_replicated_layouts_bytes(pair):
     assert info["memory"]["argument_bytes"] == NO_FSDP_ARGUMENT_BYTES[pair]
     on = D.run_one(arch, shape, kind)
     assert on["memory"]["argument_bytes"] < NO_FSDP_ARGUMENT_BYTES[pair]
+
+
+# -------------------------------------------------- the decode cache layout --
+def _ref_rank_bytes(cfg, shape_cfg, mesh):
+    """One rank's decode-cache bytes by the reference's own arithmetic:
+    ``repro.launch.mesh.cache_specs`` on a stand-in of the mesh (it reads
+    only ``axis_names`` and ``shape``) over ``jax.eval_shape`` of its
+    ``init_cache``, each dim divided by its axes' sizes."""
+    names = ("pod", "data", "model") if mesh.pod > 1 else ("data", "model")
+    sizes = {"pod": mesh.pod, "data": mesh.data, "model": mesh.model}
+    stand = types.SimpleNamespace(axis_names=names,
+                                  shape={a: sizes[a] for a in names})
+    B, S = shape_cfg.global_batch, shape_cfg.seq_len
+    rcfg = RSP.dryrun_overrides(RB.get_config(cfg.arch_id), shape_cfg)
+    cache = jax.eval_shape(lambda: RM.init_cache(rcfg, B, S, "bfloat16"))
+    specs = RMX.cache_specs(rcfg, stand, B)(cache)
+    total = 0
+    for leaf, spec in zip(jax.tree.leaves(cache), jax.tree.leaves(
+            specs, is_leaf=lambda x: isinstance(x, RMX.P))):
+        n = leaf.dtype.itemsize
+        for d, e in zip(leaf.shape, spec):
+            for a in ((e,) if isinstance(e, str) else (e or ())):
+                d //= stand.shape[a]
+            n *= d
+        total += n
+    return total
+
+
+DECODE_PAIRS = [(a, s, k) for a in TB.ARCH_IDS if not a.startswith("gpt2")
+                for s in ("decode_32k", "long_500k")
+                for k in ("single", "multi")
+                if TB.shape_applicable(TB.get_config(a), TB.INPUT_SHAPES[s])[0]
+                and TB.get_config(a).n_heads % D.production_mesh(
+                    k, TB.get_config(a)).model == 0]
+
+
+@pytest.mark.parametrize("arch", sorted({a for a, _, _ in DECODE_PAIRS}))
+def test_decode_pairs_cache_bytes_match_reference_arithmetic(arch):
+    """Every decode pair of the dry run (``specs.decode_input_specs`` at
+    ``production_mesh``, rank 0): the cache bytes a rank equal the
+    reference's layout's, and the tokens and positions are the whole
+    batch where it does not divide the data ranks (the reference's
+    ``bspec``), else the rank's rows."""
+    for _, shape, kind in [p for p in DECODE_PAIRS if p[0] == arch]:
+        shape_cfg = TB.INPUT_SHAPES[shape]
+        cfg = SP.dryrun_overrides(TB.get_config(arch), shape_cfg)
+        mesh = D.production_mesh(kind, cfg)
+        dp = mesh.pod * mesh.data
+        _, cache, tokens, pos = SP.decode_input_specs(cfg, shape_cfg,
+                                                      mesh.model, dp,
+                                                      fsdp=True)
+        assert D.storage_bytes(cache) == _ref_rank_bytes(cfg, shape_cfg,
+                                                         mesh), (shape, kind)
+        B = shape_cfg.global_batch
+        rows = B // dp if B % dp == 0 else B
+        assert tokens.shape == (rows, 1) and pos.shape == (rows,)

@@ -426,8 +426,10 @@ def test_quantized_scatter_is_the_one_device_bytes(run, kv):
 
 
 def test_plans_and_caches_are_per_rank():
-    """``init_paged_cache`` / ``init_cache`` hold ``local_kv_heads``; a
-    serving plan over a group needs the shard (``_check_shards``)."""
+    """``init_paged_cache`` holds ``local_kv_heads``; ``init_cache`` the
+    reference's layout (``cache_specs``): with ``n_kv_heads`` < tp every
+    KV head over half the positions; a serving plan over a group needs the
+    shard (``_check_shards``)."""
     import types
     cfg = R.tp_config("fal")
     c = TM.init_paged_cache(cfg, 4, 4, 2, "float32", kv_dtype="int8",
@@ -438,7 +440,7 @@ def test_plans_and_caches_are_per_rank():
                          tp_size=2)["block0"]["v"].shape == (2, 8, 1, 32)
     kv1 = dataclasses.replace(cfg, n_kv_heads=1)
     assert TM.init_cache(kv1, 2, 8, "float32", device="cpu",
-                         tp_size=2)["block0"]["k"].shape == (2, 8, 1, 32)
+                         tp_size=2)["block0"]["k"].shape == (2, 4, 1, 32)
     group = types.SimpleNamespace(size=lambda: 2, rank=lambda: 0)
     plan = TM.ExecutionPlan.from_group(group, tp="explicit")
     full = TM.init_params(cfg, seed=0, device="cpu")
