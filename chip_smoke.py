@@ -88,10 +88,10 @@ script exits non-zero:
   9. prefix      the repeated-prefix workload cold and hot through
                  EngineConfig(prefix_cache=True), on bf16 and int8 pages
  10. quantized   the profile workload on int8 and on fp8 pages, the model
-                 cut to its first 7 layers (QUANT_LAYERS), read against
+                 cut to its first 4 layers (QUANT_LAYERS), read against
                  the bf16 engine's streams at that depth
  11. padded      padded (B, C) generation at full width and depth: chunk
-                 prefill ticks, then 32 greedy C == 1 ticks sequentially and
+                 prefill ticks, then 16 greedy C == 1 ticks sequentially and
                  again under the dual-branch plan from the same cache; the
                  prefill again under torch.profiler from the empty cache
                  (device ms/tick, the tensor-core chunk kernel by name);
@@ -107,15 +107,15 @@ script exits non-zero:
                  forward at full depth in bf16 (B=4, S=128, every logit
                  within CONTIG_FWD_BOUND); ContinuousBatcher (8 slots,
                  bf16, 28 layers) serving 16 greedy requests of 32..128 +
-                 32 tokens in one dispatch a tick (tok/s, ms a tick, 3
+                 16 tokens in one dispatch a tick (tok/s, ms a tick, 3
                  ticks profiled); obs.run_metadata naming the card
  12. train tick  one train step at llama3.2-3b full width (2 layers, fp32,
-                 B=2, S=256) on the card against the CPU
+                 B=1, S=256) on the card against the CPU
  13. train       trainer.train at llama3.2-3b full width and depth (fal,
                  fp32 masters, bf16 compute, remat, B=1, S=2048): one
                  warm-up step, 5 counted steps, one profiled step
  13a. tp         explicit tensor parallelism (core/tp.py) at llama3.2-3b
-                 full width cut to 4 layers, B=1, S=2048: two ranks
+                 full width cut to 4 layers, B=1, S=1024: two ranks
                  spawned on this card over gloo (named, printed; CUDA
                  tensors staged through host memory), and over NCCL too
                  where there are two cards (else init_tp_group('nccl')
@@ -140,14 +140,21 @@ script exits non-zero:
                  only at a one-device top-2 gap <= TP_LOGIT_TOL); one
                  int8-page tick (pools gathered over heads vs one device)
                  and the int8 scatter of the same rows (byte for byte, one
-                 MAX all-reduce).  flash_attention (and
-                 .bwd), fused_ln_add (and .bwd), paged_decode_attention
-                 and fused_dual_branch_decode must launch in every rank;
-                 a failing rank fails the run
+                 MAX all-reduce); then the ssm, hybrid and audio families
+                 at full width in fp32 (whisper-small 2 + 2 layers over
+                 1,500 frames, zamba2-1.2b 13 layers, mamba2-370m 2
+                 layers): forward logits and one train step vs the
+                 one-device run of the seed (TP_SERVE_FP32_TOL), 16 greedy
+                 decode ticks' tokens equal to one device's, all-reduce
+                 counts and the flash / LN-add launches (forward and
+                 backward) exact, every path cuda-kernel.  flash_attention
+                 (and .bwd), fused_ln_add (and .bwd),
+                 paged_decode_attention and fused_dual_branch_decode must
+                 launch in every rank; a failing rank fails the run
  13b. dp         tp 2 x dp 2: four gloo ranks on this card
                  (core.tp.run_ranks(..., tp_size=2); init_tp_group('nccl')
                  must refuse four ranks on one card), llama3.2-3b's
-                 widths, 2 layers and a 32768-token vocabulary (gloo
+                 widths, 2 layers and a 16384-token vocabulary (gloo
                  measures no NCCL time), fp32 compute (the reference's int8 gate
                  is against an fp32 all-reduce), remat, a global batch of
                  2 x 1024 (one row a data rank): rank 0 first trains 2
@@ -193,7 +200,7 @@ script exits non-zero:
                  block 1 global; every layer softcapped): one packed, one
                  padded chunk, one padded decode and one contiguous decode
                  tick and one train step
-                 (fp32, window 128, B=1, S=192) on the card against the
+                 (fp32, window 128, B=1, S=144) on the card against the
                  CPU; trainer.train (fp32 masters, bf16 compute, remat,
                  B=1, S=6144: 1 warm-up, 3 counted, 1 profiled step) with a
                  checkpoint, which is restored on the card and stepped
@@ -208,19 +215,19 @@ script exits non-zero:
                  at full width, 2 layers, fp32, one packed, one padded
                  chunk, one padded C == 1 tick under the dual-branch plan
                  (MoE blocks take the unfused route: no fused launch), 4
-                 contiguous decode ticks and one train step (B=1, S=256),
+                 contiguous decode ticks and one train step (B=1, S=128),
                  card vs CPU with the routing compared (a token may choose
                  other experts only at a near tie, MOE_GAP_EPS, and its
                  sequence is then left out of the gate); the engine at
                  full width and depth (48 layers, bf16, 60.4 GB) serving
-                 16 greedy requests of 64..512 + 32 (packed and LN-add
+                 16 greedy requests of 64..512 + 16 (packed and LN-add
                  launches = ticks x 48, no fused dual-branch launch), 2
                  prefill ticks profiled with the share of dropped (token,
                  expert) pairs, and again under dual_branch (the same
                  streams); trainer.train at 2 layers (1.56 B parameters,
                  fp32 masters, bf16 compute, remat, B=1, S=2048: 1 warm-up,
                  3 counted, 1 profiled step); then two gloo ranks: explicit
-                 TP in fp32 (2 layers, S=1024, 64 experts a rank: logits
+                 TP in fp32 (2 layers, S=512, 64 experts a rank: logits
                  and one trainer step vs one device, fal's L + 1
                  all-reduces), and expert parallelism on bf16 layers
                  against moe_apply on one device (a qwen3-moe layer through
@@ -237,13 +244,14 @@ script exits non-zero:
                  frames, T = 64): logits, loss, gradient norm and 16
                  decode_step ticks; (b) bf16 serving at full depth: mamba
                  (48 layers) and zamba (38, also dual-branch) through
-                 ContinuousBatcher (8 slots, 16 requests of 32 + 32, slots
+                 ContinuousBatcher (8 slots, 16 requests of 16 + 16, slots
                  reused), decode == forward within FAMILY_FWD_BOUND;
                  whisper (12 + 12) encoding 8 x 1,500 frames and
                  generating 64 tokens, decode == forward; (c) training at
                  full depth (fp32 masters, bf16 compute, remat): mamba
-                 and zamba at S = 2048, whisper with 1,500 frames and
-                 T = 448; step ms, tokens/s, peak memory, busy share.
+                 (B = 4) and zamba (B = 2) at S = 1024, whisper with
+                 1,500 frames and T = 448; step ms, tokens/s, peak
+                 memory, busy share.
                  Phase 3 also holds the flash kernels at whisper's shapes
                  (1500 x 1500 non-causal, 448 x 1500 and 1 x 1500 cross)
                  to their plain versions, and phase 4 times them
@@ -2713,11 +2721,12 @@ def prefix_engine_phase(cfg, params, ecfg, kv=""):
 
 
 #: layers of the quantized engine phases and of the int8 / fp8 padded
-#: generations: a quarter of llama3.2-3b's 28, to keep the script inside
-#: its time limit beside the MoE and MLA phases (their profiled repeats
+#: generations: a seventh of llama3.2-3b's 28, to keep the script inside
+#: its time limit beside the MoE, MLA and TP phases (their profiled repeats
 #: cost ~60 s each at full depth, most of it the profiler's ~3,500 events
-#: a tick; 34.5 s each at 14 layers)
-QUANT_LAYERS = 7
+#: a tick; 34.5 s each at 14 layers, ~17 s at 7 until the ssm / hybrid /
+#: audio families' TP part joined phase 13a)
+QUANT_LAYERS = 4
 
 
 def quantized_depth(cfg, params, ecfg, prompts):
@@ -2889,6 +2898,11 @@ def clone_cache(c):
             for k, v in c.items()}
 
 
+#: greedy C == 1 ticks of the bf16 padded generation at full depth (32
+#: until the ssm / hybrid / audio families' TP part joined phase 13a)
+PADDED_NEW = 16
+
+
 def padded_generation_phase(params, kv="", n_new=32,
                             order=("sequential", "dual", "dual",
                                    "sequential"), cfg=None):
@@ -3042,7 +3056,9 @@ CONTIG_FWD_B, CONTIG_FWD_S = 4, 128
 CONTIG_FWD_BOUND = 0.25
 #: the batcher's workload: slots, max_seq, requests, prompt tokens, new
 BATCHER_SLOTS, BATCHER_MAX_SEQ, BATCHER_REQS = 8, 512, 16
-BATCHER_PROMPT, BATCHER_NEW = (32, 128), 32
+#: (16 new tokens since the ssm / hybrid / audio families' TP part joined
+#: phase 13a; 32 before)
+BATCHER_PROMPT, BATCHER_NEW = (32, 128), 16
 BATCHER_PROFILED_TICKS = 3
 
 
@@ -4209,13 +4225,14 @@ LN_BWD_BEFORE_MS = {("rmsnorm", 2048, 3072): "0.0460",
 
 
 def train_tick_phase():
-    """One train step at llama3.2-3b full width (2 layers, fp32, B=2,
-    S=256, fal, remat) on the card (kernels) against the CPU (plain
+    """One train step at llama3.2-3b full width (2 layers, fp32, B=1,
+    S=256, fal, remat; B=2 until the ssm / hybrid / audio families' TP
+    part joined phase 13a) on the card (kernels) against the CPU (plain
     versions) from the same weights and batch."""
     from repro_torch.configs.base import get_config
     phase("one train step at full width, 2 layers, fp32: card vs CPU")
     train_tick(get_config("llama3.2-3b").replace(n_layers=2,
-                                                 dtype="float32"), 2, 256)
+                                                 dtype="float32"), 1, 256)
 
 
 def train_tick(cfg, B, S, params=None, moe=False):
@@ -4557,8 +4574,9 @@ def examples_phase():
 # tensor parallelism over torch.distributed
 # --------------------------------------------------------------------------- #
 #: llama3.2-3b at full width cut to 4 layers: the two ranks share one card,
-#: and fal pays (L + 1) / (2 L) = 5/8 of preln's all-reduce bytes
-TP_LAYERS, TP_SEQ, TP_STEPS, TP_SIZE = 4, 2048, 3, 2
+#: and fal pays (L + 1) / (2 L) = 5/8 of preln's all-reduce bytes (S = 1024
+#: since the ssm / hybrid / audio families joined the spawn; 2048 before)
+TP_LAYERS, TP_SEQ, TP_STEPS, TP_SIZE = 4, 1024, 3, 2
 #: padded decode tick of one steady-state block: (pos, n_valid) a lane and
 #: Tb = 64 pages of 16 (the fused route needs F / tp % (Hkv / tp * Tb) == 0)
 TP_TICK_LANES = ((0, 1), (15, 1), (16, 1), (300, 1), (511, 1), (100, 0),
@@ -4687,6 +4705,7 @@ def tp_rank(group, backend):
                                                              dual))[0]
     serve_cases, serve_ref = tp_serve_refs(dev, rank)
     torch.cuda.empty_cache()
+    fam_refs = tp_family_refs(dev, rank, size)
     marks = []
 
     def mark(i, state, metrics):
@@ -4799,6 +4818,8 @@ def tp_rank(group, backend):
         times.append((time.perf_counter() - t0) * 1e3)
     out["all_reduce_ms"] = statistics.median(times[1:])
     out["all_reduce_bytes"] = act.numel() * act.element_size()
+    del act
+    out["family"] = tp_family_parts(group, dev, fam_refs)
     return out
 
 
@@ -5241,7 +5262,8 @@ def tp_phase(smi):
     through host memory); NCCL too where there are two cards.  Returns
     ({kernel: launches in the TP paths of rank 0}, rank 0's median TP
     train step in ms, {kernel: rank 0's launches on the TP serving
-    paths}), all over gloo."""
+    paths}, {arch: {part: rank 0's launches on the families' TP parts}}),
+    all over gloo."""
     from repro_torch.core import tp
     n_cards = torch.cuda.device_count()
     backends = ["gloo"] + (["nccl"] if n_cards >= TP_SIZE else [])
@@ -5253,7 +5275,7 @@ def tp_phase(smi):
             print(f"  nccl: not run ({n_cards} card(s)); init_tp_group "
                   f"refuses it: {e}", flush=True)
     torch.cuda.empty_cache()
-    tp_launches, step_ms, serve_launches = None, None, None
+    tp_launches, step_ms, serve_launches, fam = None, None, None, None
     for backend in backends:
         phase(f"tensor parallelism: backend {backend}, world size "
               f"{TP_SIZE}, llama3.2-3b full width, {TP_LAYERS} layers, "
@@ -5265,10 +5287,11 @@ def tp_phase(smi):
               f"on {[r['device'] for r in ranks]}", flush=True)
         launches = tp_report(ranks, backend, smi)
         serve = tp_serve_report(ranks)
+        family = tp_family_report(ranks)
         if backend == "gloo":
-            tp_launches, serve_launches = launches, serve
+            tp_launches, serve_launches, fam = launches, serve, family
             step_ms = statistics.median(ranks[0]["train"]["step_ms"])
-    return tp_launches, step_ms, serve_launches
+    return tp_launches, step_ms, serve_launches, fam
 
 
 def _ar(counts, direction="forward", what="calls", kind="all-reduce"):
@@ -5407,9 +5430,11 @@ def tp_report(ranks, backend, smi):
 #: time, so the phase checks counts, bytes, gradients and the checkpoint,
 #: and its size buys nothing: 2 layers and a 32768-token vocabulary (the
 #: tied embedding was two thirds of the 4-layer model) cut the all-reduced
-#: gradient and the checkpoint to about a third; 2 steps a method
+#: gradient and the checkpoint to about a third, 16384 tokens (since the
+#: ssm / hybrid / audio families' TP part joined phase 13a) by a quarter
+#: more; 2 steps a method
 DP_TP, DP_SIZE, DP_STEPS, DP_BATCH, DP_SEQ = 2, 2, 2, 2, 1024
-DP_LAYERS, DP_VOCAB = 2, 32768
+DP_LAYERS, DP_VOCAB = 2, 16384
 DP_METHODS = ("none", "int8", "lowrank")
 #: int8's backward wire bytes against "none"'s, at most
 #: (benchmarks/bench_comm.py's gate on the reference)
@@ -6054,9 +6079,10 @@ def dp_report(ranks, smi):
 G2_TICK_WINDOW = 128
 #: the card-vs-CPU train step's sequence: past the window, so that it
 #: binds on the local layer (320 until the sequence-cut decode check
-#: joined phase 13b; the CPU side's fp32 step over 2.3 B parameters set
+#: joined phase 13b, 192 until the ssm / hybrid / audio families' TP part
+#: joined phase 13a; the CPU side's fp32 step over 2.3 B parameters set
 #: the gemma2 phases' time)
-G2_TICK_TRAIN_S = 192
+G2_TICK_TRAIN_S = 144
 #: gemma2 training: B x S tokens (S past the local layers' 4096 window)
 G2_TRAIN_B, G2_TRAIN_S = 1, 6144
 
@@ -6652,11 +6678,17 @@ def spec_engine_phase(cfg, params, ecfg):
 MOE_ARCH = "qwen3-moe-30b-a3b"
 #: the engine serves the whole model: 48 layers, 60.4 GB of bf16 weights
 MOE_ENGINE_LAYERS = 48
-MOE_ENGINE_REQS, MOE_ENGINE_PROMPT, MOE_ENGINE_NEW = 16, (64, 512), 32
+#: (16 new tokens a request since the ssm / hybrid / audio families' TP
+#: part joined phase 13a; 32 before)
+MOE_ENGINE_REQS, MOE_ENGINE_PROMPT, MOE_ENGINE_NEW = 16, (64, 512), 16
 MOE_PROFILED_TICKS = 2
 MOE_CONTIG_TICKS = 4
 MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 1, 2048, 4
-MOE_TP_SEQ = 1024
+#: the card-vs-CPU train step's and the TP / EP spawn's sequences (256 and
+#: 1024 until the ssm / hybrid / audio families' TP part joined phase 13a:
+#: the CPU side's fp32 experts and the gloo ranks' steps set their time)
+MOE_TICK_TRAIN_S = 128
+MOE_TP_SEQ = 512
 #: the ticks' lanes (llama3.2-3b's, tick_phase): (pos, n_valid)
 MOE_CHUNK_LANES = ((0, 128), (128, 128), (256, 37), (300, 0), (0, 1),
                    (64, 128), (200, 90), (500, 128))
@@ -6731,8 +6763,8 @@ def moe_tick_phase():
                            f"layers, fp32", CONTIG_LANES, CONTIG_S,
                            MOE_CONTIG_TICKS, scaled_tol=True, moe=True)
     phase(f"{MOE_ARCH}: one train step at full width, {L} layers, fp32, "
-          f"B=1, S=256: card vs CPU")
-    train_tick(cfg, 1, 256, params=params, moe=True)
+          f"B=1, S={MOE_TICK_TRAIN_S}: card vs CPU")
+    train_tick(cfg, 1, MOE_TICK_TRAIN_S, params=params, moe=True)
     del params
     print(f"  MoE tick phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -7694,10 +7726,11 @@ FAMILIES = (SSM_ARCH, HYBRID_ARCH, AUDIO_ARCH)
 #: runs; zamba: 13 layers, two groups of 6 and a trailing layer, so group
 #: 0, a later group and the tail all run, at one chunk (its CPU side's
 #: fp32 GEMMs set this phase's time); whisper: 2 + 2 layers over its
-#: 1,500 frames
-FAMILY_TICKS = {SSM_ARCH: (dict(n_layers=2), 2, 512),
-                HYBRID_ARCH: (dict(n_layers=13), 1, 256),
-                AUDIO_ARCH: (dict(n_layers=2, n_enc_layers=2), 2, 64)}
+#: 1,500 frames.  One row each and zamba at S = 128 since the families' TP
+#: part joined phase 13a (mamba and whisper B = 2, zamba S = 256 before)
+FAMILY_TICKS = {SSM_ARCH: (dict(n_layers=2), 1, 512),
+                HYBRID_ARCH: (dict(n_layers=13), 1, 128),
+                AUDIO_ARCH: (dict(n_layers=2, n_enc_layers=2), 1, 64)}
 FAMILY_DECODE_TICKS = 16
 #: card vs CPU bounds (fp32 sums in other orders, TF32 off): logits within
 #: TICK_TOLS[""] x max(1, the largest |logit|); loss 1e-4 and the gradient
@@ -7705,12 +7738,13 @@ FAMILY_DECODE_TICKS = 16
 FAMILY_LOSS_TOL, FAMILY_GNORM_RTOL = 1e-4, 1e-4
 #: (b) serving in bf16 at full depth: the batcher's slots, requests and each
 #: request's prompt and new tokens (16 requests through 8 slots: every
-#: slot is taken twice, so the recurrent-state reset runs; 32 + 32 tokens
-#: since the sequence-cut decode check joined phase 13b, 64 + 64 before:
+#: slot is taken twice, so the recurrent-state reset runs; 16 + 16 tokens
+#: since the families' TP part joined phase 13a, 32 + 32 since the
+#: sequence-cut decode check joined phase 13b, 64 + 64 before: each time
 #: the host-bound ticks halve); decode == forward over FAMILY_FWD_B lanes
-#: of FAMILY_FWD_S tokens
-FAMILY_SLOTS, FAMILY_REQS, FAMILY_PROMPT, FAMILY_NEW = 8, 16, 32, 32
-FAMILY_FWD_B, FAMILY_FWD_S = 4, 64
+#: of FAMILY_FWD_S tokens (32 since that TP part, 64 before)
+FAMILY_SLOTS, FAMILY_REQS, FAMILY_PROMPT, FAMILY_NEW = 8, 16, 16, 16
+FAMILY_FWD_B, FAMILY_FWD_S = 4, 32
 #: bound on |logit| differences between decode_step and forward in bf16 at
 #: full depth, over every logit.  The two compute the same function in
 #: other orders with other bf16 rounding points: mamba's chunked SSD
@@ -7724,12 +7758,267 @@ FAMILY_FWD_B, FAMILY_FWD_S = 4, 64
 FAMILY_FWD_BOUND = 0.5
 WHISPER_SERVE_B, WHISPER_NEW = 8, 64
 #: (c) training at full depth: (batch, sequence).  SSD's largest tensor is
-#: the (B, S / 256, H, 256, 256) decay matrix, 0.54 GB in fp32 for mamba2
-#: (H = 32) at B = 8 and for zamba2 (H = 64) at B = 4; whisper's sequence is
-#: the decoder's (its encoder reads 1,500 frames)
-FAMILY_TRAIN = {SSM_ARCH: (8, 2048), HYBRID_ARCH: (4, 2048),
+#: the (B, S / 256, H, 256, 256) decay matrix, 0.27 GB in fp32 for mamba2
+#: (H = 32) at B = 4 and for zamba2 (H = 64) at B = 2 at S = 2048 (B = 8
+#: and 4 at S = 2048 until the families' TP part joined phase 13a, S = 1024
+#: since); whisper's sequence is the decoder's (its encoder reads 1,500
+#: frames)
+FAMILY_TRAIN = {SSM_ARCH: (4, 1024), HYBRID_ARCH: (2, 1024),
                 AUDIO_ARCH: (8, 448)}
 FAMILY_TRAIN_STEPS = 3
+
+
+#: tensor parallelism of the three families (phase 13a, inside tp_rank's
+#: two-rank spawn): each at full width in fp32, remat off, cut in depth
+#: (whisper 2 + 2 layers over its 1,500 frames; zamba2 13 layers: two
+#: groups of 6, so invocation 0's export, a later fused invocation and the
+#: tail all run; mamba2 2 layers), (config cut, B, S); every rank checks
+#: its forward logits and one train step against the one-device run of the
+#: same seed on its card, TP_FAMILY_TICKS greedy decode ticks' tokens, the
+#: all-reduce counts and the kernels' launches
+TP_FAMILY = {AUDIO_ARCH: (dict(n_layers=2, n_enc_layers=2), 1, 64),
+             HYBRID_ARCH: (dict(n_layers=13), 1, 128),
+             SSM_ARCH: (dict(n_layers=2), 1, 256)}
+TP_FAMILY_TICKS = 16
+
+
+def tp_family_config(arch):
+    return family_config(arch, dtype="float32", remat=False,
+                         **TP_FAMILY[arch][0])
+
+
+def tp_family_inputs(arch, dev):
+    """(cfg, full fp32 params from seed 0 on ``dev``, batch)."""
+    from repro_torch.models import model as M
+    cfg = tp_family_config(arch)
+    _, B, S = TP_FAMILY[arch]
+    params = M.init_params(cfg, seed=0, device=dev, dtype="float32")
+    batch = family_batch(cfg, B, S, torch.Generator(device=dev).manual_seed(
+        43), dev)
+    return cfg, params, batch
+
+
+def tp_family_decode(cfg, params, batch, plan=None):
+    """TP_FAMILY_TICKS greedy ``make_serve_step`` ticks from each lane's
+    first token at position 0 (whisper: ``enc_out`` from
+    ``whisper_encode`` first) -> tokens (B, ticks) on the host."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import make_serve_step
+    tokens = batch["tokens"]
+    B, dev = tokens.shape[0], tokens.device
+    size = 1 if plan is None else plan.tp_size
+    cache = M.init_cache(cfg, B, TP_FAMILY_TICKS + 1, "float32", device=dev,
+                         tp_size=size)
+    if cfg.family == "audio":
+        with torch.no_grad():
+            cache["enc_out"].copy_(M.whisper_encode(params, cfg,
+                                                    batch["frames"], plan))
+    step = make_serve_step(cfg, plan)
+    tok, out = tokens[:, :1], []
+    for t in range(TP_FAMILY_TICKS):
+        nxt, _, cache = step(params, cache, tok, torch.full(
+            (B,), t, dtype=torch.int32, device=dev))
+        tok = nxt[:, None]
+        out.append(nxt)
+    return torch.stack(out, 1).cpu()
+
+
+def tp_family_step(cfg, params, batch, plan=None):
+    """One AdamW step (``make_train_step``) -> (state, loss, grad norm)."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    ocfg = adamw.AdamWConfig(lr=3e-4)
+    state = tstep.init_state(0, cfg, ocfg, params=params)
+    state, m = tstep.make_train_step(cfg, ocfg, plan)(state, batch)
+    return state, float(m["loss"]), float(m["grad_norm"])
+
+
+def tp_family_refs(dev, rank, size):
+    """The one-device side on this rank's card: each family's logits, its
+    greedy tokens, and after one train step its loss, grad norm and this
+    rank's shard of the updated params."""
+    from repro_torch.launch import mesh as MX
+    from repro_torch.models import model as M
+    refs = {}
+    for arch in TP_FAMILY:
+        cfg, params, batch = tp_family_inputs(arch, dev)
+        with torch.no_grad():
+            logits = M.forward(params, cfg, batch)[0]
+        tokens = tp_family_decode(cfg, params, batch)
+        state, loss, gnorm = tp_family_step(cfg, params, batch)
+        refs[arch] = {"logits": logits, "tokens": tokens, "loss": loss,
+                      "grad_norm": gnorm, "params": MX.shard_params(
+                          state["params"], cfg, rank, size)}
+        del params, state
+        torch.cuda.empty_cache()
+    return refs
+
+
+def tp_family_expected(cfg):
+    """{part: (forward all-reduces, backward ones, the kernels' launches)}
+    of the family's TP parts (remat off): whisper's encoder blocks take the
+    decoders' paths (fal: L_enc + 1) and each decoder block assembles its
+    self-attention, its cross-attention and its FFN (3 L_dec), plus one *f*
+    on the encoder's output in the backward; zamba2's shared block pays
+    n_groups + 1 under fal (invocation 0's attention and FFN, each later
+    invocation one); mamba2 none.  Launches: whisper a flash call per
+    encoder block and two per decoder block (self, cross; at decode the
+    cross one), an LN-add per block (fal); zamba2 one of each per
+    invocation; at decode the encoder once and every tick's share."""
+    n = TP_FAMILY_TICKS
+    if cfg.family == "ssm":
+        return {"forward": (0, 0, {}), "train": (0, 0, {}),
+                "decode": (0, 0, {})}
+    if cfg.family == "hybrid":
+        g = cfg.n_layers // cfg.attn_every
+        ar, fa, ln, tick_ar, tick_fa, tick_ln = g + 1, g, g, g + 1, 0, g
+        enc_ar = enc_fa = enc_ln = back = 0
+    else:
+        ar = cfg.n_enc_layers + 1 + 3 * cfg.n_layers
+        fa = cfg.n_enc_layers + 2 * cfg.n_layers
+        ln = cfg.n_enc_layers + cfg.n_layers
+        tick_ar, tick_fa, tick_ln = 3 * cfg.n_layers, cfg.n_layers, \
+            cfg.n_layers
+        enc_ar, enc_fa, enc_ln, back = cfg.n_enc_layers + 1, \
+            cfg.n_enc_layers, cfg.n_enc_layers, 1
+    parts = {"forward": (ar, 0, {"flash_attention": fa,
+                                 "fused_ln_add": ln}),
+             "train": (ar, ar + back, {
+                 "flash_attention": fa, "flash_attention.bwd": fa,
+                 "fused_ln_add": ln, "fused_ln_add.bwd": ln}),
+             "decode": (enc_ar + n * tick_ar, 0, {
+                 "flash_attention": enc_fa + n * tick_fa,
+                 "fused_ln_add": enc_ln + n * tick_ln})}
+    return {k: (f, b, nonzero(launches))
+            for k, (f, b, launches) in parts.items()}
+
+
+def tp_family_parts(group, dev, refs):
+    """The families' TP parts on this rank (after the other parts), each
+    with the launch, path and collective counters zeroed just before and
+    read just after: the forward, one train step and the greedy decode
+    against ``refs`` -> {arch: {part: numbers}}."""
+    from repro_torch.core import tp
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as MX
+    from repro_torch.optim import adamw
+    rank, size = group.rank(), group.size()
+    plan = ExecutionPlan.from_group(group, tp="explicit")
+    out = {}
+    for arch in TP_FAMILY:
+        ref = refs[arch]
+        cfg, full, batch = tp_family_inputs(arch, dev)
+        shard = MX.shard_params(full, cfg, rank, size)
+        del full
+        res = {}
+
+        def part(name, fn):
+            ops.reset_launches()
+            ops.reset_dispatch_paths()
+            tp.reset_collectives()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize(dev)
+            res[name] = dict(r, ms=(time.perf_counter() - t0) * 1e3,
+                             counts=tp.collective_counts(),
+                             launches=nonzero(ops.launch_counts()),
+                             paths=ops.dispatch_paths())
+
+        def forward():
+            from repro_torch.models import model as M
+            with torch.no_grad():
+                logits = M.forward(shard, cfg, batch, plan)[0]
+            return {"err": max_err(logits, ref["logits"]),
+                    "top": ref["logits"].abs().max().item(),
+                    "sum": logits.sum().item()}
+
+        def decode():
+            tokens = tp_family_decode(cfg, shard, batch, plan)
+            return {"tokens": tokens.tolist(), "equal": bool(torch.equal(
+                tokens, ref["tokens"]))}
+
+        def train():
+            state, loss, gnorm = tp_family_step(cfg, shard, batch, plan)
+            got = dict(adamw.named_leaves(state["params"]))
+            err = max(max_err(t, got[p]) for p, t in
+                      adamw.named_leaves(ref["params"]))
+            return {"loss": loss, "grad_norm": gnorm, "param_err": err,
+                    "loss_ref": ref["loss"], "grad_norm_ref":
+                    ref["grad_norm"]}
+
+        part("forward", forward)
+        part("decode", decode)
+        part("train", train)
+        out[arch] = res
+        del shard
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_family_report(ranks):
+    """Print and gate the families' TP parts; returns rank 0's launches by
+    arch and part."""
+    from repro_torch.kernels import ops
+    for arch in TP_FAMILY:
+        cfg = tp_family_config(arch)
+        want = tp_family_expected(cfg)
+        _, B, S = TP_FAMILY[arch]
+        for r in ranks:
+            res = r["family"][arch]
+            f, d, t = res["forward"], res["decode"], res["train"]
+            tol = TP_SERVE_FP32_TOL * max(1.0, f["top"])
+            print(f"  rank {r['rank']}: TP {arch} (full width, "
+                  f"{TP_FAMILY[arch][0]}, fp32, B={B}, S={S}): forward "
+                  f"logits vs one device max |diff| {f['err']:.3e} (max "
+                  f"|logit| {f['top']:.3f}; tol {tol:.3g}); one train step "
+                  f"loss {t['loss']:.6f} / {t['loss_ref']:.6f}, grad norm "
+                  f"{t['grad_norm']:.5f} / {t['grad_norm_ref']:.5f}, params "
+                  f"max |diff| {t['param_err']:.3e} (tol "
+                  f"{TP_SERVE_FP32_TOL:g}, relative for the loss and norm); "
+                  f"{TP_FAMILY_TICKS} greedy ticks equal to one device: "
+                  f"{d['equal']}; ms forward {f['ms']:.1f} / step "
+                  f"{t['ms']:.1f} / decode {d['ms']:.1f}", flush=True)
+            require(f["err"] <= tol, f"{arch}: TP logits disagree with one "
+                    f"device")
+            require(abs(t["loss"] - t["loss_ref"]) <= TP_SERVE_FP32_TOL
+                    * max(1.0, t["loss_ref"]) and abs(
+                        t["grad_norm"] - t["grad_norm_ref"])
+                    <= TP_SERVE_FP32_TOL * t["grad_norm_ref"]
+                    and t["param_err"] <= TP_SERVE_FP32_TOL,
+                    f"{arch}: the TP train step disagrees with one device")
+            require(d["equal"], f"{arch}: TP greedy tokens differ from one "
+                    f"device's")
+            for name in ("forward", "train", "decode"):
+                ar, back, launches = want[name]
+                got = res[name]
+                c = got["counts"]
+                c_ar = _ar(c)
+                paths = {k: ops.CUDA for k in launches
+                         if not k.endswith(".bwd")}
+                print(f"    {name}: all-reduces forward {c_ar} (want {ar}), "
+                      f"backward {_ar(c, 'backward')} (want {back}), step "
+                      f"{_ar(c, 'step')}; launches {got['launches']} (want "
+                      f"{launches}); paths {got['paths']}", flush=True)
+                # the train step's sums over the group: the partial
+                # gradients (fal's fused blocks' norms) and the norm
+                step = int(name == "train") * (1 + int(
+                    cfg.connection == "fal" and cfg.family != "ssm"))
+                require(c_ar == ar and _ar(c, "backward") == back
+                        and _ar(c, "step") == step,
+                        f"{arch} {name}: TP all-reduce counts")
+                require(got["launches"] == launches,
+                        f"{arch} {name}: launches {got['launches']} != "
+                        f"{launches}")
+                require(got["paths"] == paths,
+                        f"{arch} {name}: paths {got['paths']}")
+        require(len({r["family"][arch]["forward"]["sum"] for r in ranks}) == 1
+                and len({str(r["family"][arch]["decode"]["tokens"])
+                         for r in ranks}) == 1,
+                f"{arch}: TP ranks disagree")
+    return {a: {k: v["launches"] for k, v in ranks[0]["family"][a].items()}
+            for a in TP_FAMILY}
 
 
 def family_config(arch, **kw):
@@ -8311,7 +8600,7 @@ def main():
     for kv in KV_NARROW:
         launches[f"paged_packed_attention.{kv}"] = quantized_engine_phase(
             qcfg, qparams, ecfg, prompts, qstreams, kv)
-    launches.update(padded_generation_phase(params))
+    launches.update(padded_generation_phase(params, n_new=PADDED_NEW))
     for kv in KV_NARROW:
         launches.update(padded_generation_phase(
             qparams, kv, n_new=8, order=("sequential", "dual"), cfg=qcfg))
@@ -8323,7 +8612,8 @@ def main():
     train_launches, train = train_phase()
     launches.update(train_launches)
     dry = dryrun_phase(train)
-    tp_launches, tp_step_ms, tp_serve_launches = tp_phase(smi)
+    tp_launches, tp_step_ms, tp_serve_launches, tp_fam_launches = \
+        tp_phase(smi)
     t_dp = time.perf_counter()
     dp_launches, fsdp_launches, dp = dp_phase(smi)
     print(f"  data-parallel phase: {time.perf_counter() - t_dp:.1f} s",
@@ -8458,6 +8748,11 @@ def main():
                 for a, r in fam_serve.items()}
             if f"{kname}.whisper" in errs:
                 entry["whisper_max_abs_err"] = errs[f"{kname}.whisper"]
+            # phase 13a: rank 0's launches on each family's TP forward,
+            # train step and greedy decode
+            entry["tp_family_launches"] = {
+                a: sum(n.get(kname, 0) for n in parts.values())
+                for a, parts in tp_fam_launches.items()}
         # the example twins' runs at their defaults (phase 19)
         entry["example_launches"] = {
             name: n.get(kname, 0) for name, n in example_launches.items()}

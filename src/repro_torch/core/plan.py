@@ -6,12 +6,14 @@ a process group in its place (``ExecutionPlan.from_group``), whose ranks
 are the tensor-parallel shards.  Plan axes:
 
 * ``phase``  -- train | eval | prefill | decode | paged.
-* ``tp``     -- none | gspmd | explicit.  ``explicit`` runs the decoder
-  (dense or MoE) through the explicit partial-sum stack
-  (``models/model.py::decoder_stack_tp``): each rank holds its shard of the
-  block weights (``launch/mesh.py::shard_params``) and the blocks pay the
-  paper's per-block collectives (``core/tp.py``).  ``gspmd`` has no PyTorch
-  counterpart and raises.
+* ``tp``     -- none | gspmd | explicit.  ``explicit`` runs every family's
+  blocks through the explicit partial-sum paths: the decoder (dense, MoE,
+  VLM) through ``models/model.py::decoder_stack_tp``, whisper's encoder
+  and decoder blocks, zamba2's shared block and mamba2 (whose mixers stay
+  whole on every rank, no collective) in their own forwards.  Each rank
+  holds its shard of the block weights (``launch/mesh.py::shard_params``)
+  and the blocks pay the paper's per-block collectives (``core/tp.py``).
+  ``gspmd`` has no PyTorch counterpart and raises.
 * ``sequence_parallel`` -- Megatron-SP LN regions under explicit TP: the
   residual stream between blocks is sharded along the sequence and every
   per-block all-reduce becomes a reduce-scatter behind an all-gather.
@@ -98,8 +100,17 @@ class TPStyle(enum.Enum):
                 f"{[t.value for t in cls]}") from None
 
 
-#: families with an explicit partial-sum TP stack in the port
-EXPLICIT_TP_FAMILIES = ("dense", "moe", "vlm")
+#: families with an explicit partial-sum TP stack in the port: the decoder
+#: families, and mamba2 (mixers replicated), zamba2 (its shared block
+#: sharded) and whisper (encoder and decoder blocks sharded), the layouts
+#: of the reference's ``param_specs``
+EXPLICIT_TP_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
+
+#: families with forwards of their own (not the decoder's stack): they have
+#: no sequence-parallel layout (mamba layers have none; cross-attention and
+#: bidirectional encoders consume the assembled attention, reference
+#: ``models/blocks.py:131-139``) and shard only under ``tp='explicit'``
+OWN_FORWARD_FAMILIES = ("ssm", "hybrid", "audio")
 
 #: families whose decode path runs FAL transformer blocks
 DUAL_BRANCH_FAMILIES = ("dense", "moe", "vlm", "hybrid")
@@ -280,6 +291,18 @@ class ExecutionPlan:
                 raise ValueError(
                     f"seq_axes={self.seq_axes}: the KV sequence is cut over "
                     f"'{axis}' but the plan has no such group")
+        if self.sequence_parallel and cfg.family in OWN_FORWARD_FAMILIES:
+            raise NotImplementedError(
+                f"sequence_parallel=True: family '{cfg.family}' has no "
+                f"sequence-parallel layout (mamba layers have none; "
+                f"cross-attention and bidirectional encoders consume the "
+                f"assembled attention)")
+        if self.group is not None and self.tp is not TPStyle.EXPLICIT \
+                and cfg.family in OWN_FORWARD_FAMILIES:
+            raise ValueError(
+                f"family '{cfg.family}' over a process group needs "
+                f"tp='explicit' (got tp='{self.tp.value}'): its blocks shard "
+                f"only through the explicit partial-sum paths")
         if self.tp is TPStyle.EXPLICIT:
             if self.group is None:
                 raise ValueError("tp='explicit' requires a process group "
@@ -287,9 +310,15 @@ class ExecutionPlan:
             if cfg.family not in EXPLICIT_TP_FAMILIES:
                 raise ValueError(
                     f"tp='explicit': family '{cfg.family}' has no "
-                    f"explicit-TP stack (decoder family only: "
-                    f"{EXPLICIT_TP_FAMILIES}) — running it would silently "
-                    f"fall back and mislabel any numbers")
+                    f"explicit-TP stack ({EXPLICIT_TP_FAMILIES}) — running "
+                    f"it would silently fall back and mislabel any numbers")
+            if cfg.family == "hybrid" and cfg.connection == "ablation2":
+                raise NotImplementedError(
+                    "tp='explicit': zamba2's shared block under ablation2 "
+                    "assembles its attention at invocation 0 (preln) and "
+                    "fuses it later, so its ln1 / ln2 gradients would be "
+                    "whole at one invocation and partial at the others; "
+                    "one sum over the group cannot join them")
             self._check_divisibility(cfg)
         return self
 
@@ -323,8 +352,12 @@ class ExecutionPlan:
 
     def _check_divisibility(self, cfg):
         """Explicit TP shards heads, the FFN hidden and the experts
-        evenly: fail loudly when the config does not divide."""
+        evenly: fail loudly when the config does not divide.  An
+        attention-free config (mamba2: its mixers stay whole) divides every
+        group."""
         tp_size = self.tp_size
+        if cfg.family == "ssm" or not cfg.n_heads:
+            return
 
         def div(n, what):
             if n % tp_size:

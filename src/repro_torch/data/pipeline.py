@@ -21,6 +21,11 @@ Data parallelism in the port draws the GLOBAL batch on every rank
 (``host_id=0, num_hosts=1``, as the reference's jitted trainer does) and
 keeps this data rank's rows (``shard_rows``), so a run over any number of
 data ranks trains on the batches a one-device run of the seed does.
+
+whisper's mel / conv front end is a stub in both packages: its inputs are
+frame embeddings, which neither token source makes.  ``stub_frames`` draws
+a step's (B, n_enc_frames, d) from ``(seed, step)`` for the trainer, the
+same on every rank.
 """
 from __future__ import annotations
 
@@ -98,6 +103,15 @@ class MemmapTokens:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def stub_frames(cfg, batch, seed, step):
+    """whisper's stubbed front end: (batch, n_enc_frames, d_model) fp32
+    standard normal frame embeddings, a pure function of ``(seed,
+    step)``."""
+    rng = np.random.default_rng((seed, step))
+    return rng.standard_normal((batch, cfg.n_enc_frames, cfg.d_model),
+                               dtype=np.float32)
 
 
 def shard_rows(batch, rank, n):

@@ -24,8 +24,11 @@ counted (``core/tp.py``) and moves nothing:
 Meshes: ``single`` is the reference's 256 cards and ``multi`` its 512, as
 data 32 x model 8 and pod 2 x data 32 x model 8 (TP inside an 8-card
 NVLink node; the reference's model 16 does not divide llama's 24 heads).
-The ssm / hybrid / audio families have no explicit-TP stack: they take
-model 1 and every card as data.  The port's TP is always explicit.  FSDP
+A hybrid or audio config whose heads model 8 does not divide takes the
+largest power of two that does, the same cards over more data ranks
+(whisper-small's 12 heads: data 64 x model 4); mamba2 takes model 8 with
+its mixers whole on every model rank and its batch over the data axes
+only (the reference's layout).  The port's TP is always explicit.  FSDP
 over the data axes is on for every arch, as the reference's default
 (MaxText's; ``--no-fsdp`` is the ablation): the rank holds its slices
 (``launch/mesh.py::shard_fsdp``), each unit all-gathers them when it runs
@@ -68,7 +71,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs.base import (ARCH_IDS, INPUT_SHAPES, ShapeConfig,
                                       get_config, shape_applicable)
 from repro_torch.core import tp
-from repro_torch.core.plan import EXPLICIT_TP_FAMILIES, ExecutionPlan, Phase
+from repro_torch.core.plan import ExecutionPlan, Phase
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as MX
 from repro_torch.launch import specs as SP
@@ -90,12 +93,16 @@ _NO_TRAFFIC = {torch.ops.aten.empty.memory_format,
 
 
 def production_mesh(kind, cfg) -> Mesh:
-    """The mesh of ``kind`` for ``cfg``: ``MESHES[kind]``, or for a family
-    without an explicit-TP stack the same cards with model 1."""
+    """The mesh of ``kind`` for ``cfg``: ``MESHES[kind]``; for the hybrid
+    and audio families its model axis halved (and its data axis doubled)
+    until it divides the heads.  mamba2 keeps model 8 (its mixers whole);
+    a decoder whose heads model 8 does not divide is refused by its plan,
+    as before."""
     m = MESHES[kind]
-    if cfg.family not in EXPLICIT_TP_FAMILIES:
-        return Mesh(m.pod, m.data * m.model, 1)
-    return m
+    model = m.model
+    while cfg.family in ("hybrid", "audio") and cfg.n_heads % model:
+        model //= 2
+    return Mesh(m.pod, m.data * m.model // model, model)
 
 
 def _world(mesh):
@@ -285,9 +292,10 @@ def lower_pair(arch, shape, mesh, *, connection=None, fsdp=True,
             "collectives": tp.collective_counts(),
             "kernels": kernels, "dispatch_paths": ops.dispatch_paths(),
         }
-    if cfg.family not in EXPLICIT_TP_FAMILIES:
-        info["note"] = (f"family '{cfg.family}' has no explicit-TP stack: "
-                        f"model 1, every card data-parallel")
+    if cfg.family == "ssm" and mesh.model > 1:
+        info["note"] = (f"mamba mixers whole on each of the {mesh.model} "
+                        f"model ranks (the reference's layout): the batch "
+                        f"is cut over the data axes only")
     return info
 
 

@@ -15,10 +15,21 @@ Megatron's layout over the block weights:
   MoE FFN    the experts' wi / wg / wo by experts (dim 0), the router
              replicated, the shared expert like a dense FFN (``_MOE``,
              reference ``:71-76``)
+  cross-attention (whisper's decoder, ``xattn``) as the self-attention:
+             wq / wk / wv by columns, wo by rows
   the rest   replicated: norms, qk-norms, and outside the blocks the
              embedding, positions, final norm, head and the MTP head (the
              stack shards only the blocks, reference ``model.py:180-185``;
              the MTP head runs outside it, ``:101-104``)
+
+The blocks are the transformer blocks of every family (``BLOCK_KEYS``):
+the decoder's ``block0`` / ``blocks``, whisper's ``enc_block0`` /
+``enc_blocks`` / ``dec_block0`` / ``dec_blocks`` and zamba2's weight-shared
+``shared`` block.  Every mamba layer stays whole (``in_proj``,
+``out_proj``, ``conv_*``, ``a_log``, ``D``, ``dt_bias``: the reference's
+``_BASE`` replicates the mixers over ``model``, ``:4-12``), and so do
+zamba2's top-level ``in_proj`` (n_groups, 2d, d), whisper's ``pos_emb`` /
+``enc_pos`` and the norms.
 
 With ``kv_replicated`` (``n_kv_heads < tp``) wk / wv stay whole on every
 rank and each rank slices its KV group (``attention._kv_group_slice``).
@@ -58,8 +69,14 @@ from repro_torch.optim.adamw import map_tree, named_leaves
 _BLOCK = {("attn", "wq"): 1, ("attn", "wk"): 1, ("attn", "wv"): 1,
           ("attn", "wo"): 0, ("attn", "w_uq"): 1, ("attn", "w_uk"): 1,
           ("attn", "w_uv"): 1, ("ffn", "wi"): 1, ("ffn", "wg"): 1,
-          ("ffn", "wo"): 0}
-_KV = (("attn", "wk"), ("attn", "wv"))
+          ("ffn", "wo"): 0, ("xattn", "wq"): 1, ("xattn", "wk"): 1,
+          ("xattn", "wv"): 1, ("xattn", "wo"): 0}
+_KV = (("attn", "wk"), ("attn", "wv"), ("xattn", "wk"), ("xattn", "wv"))
+#: the params' keys that hold transformer blocks (one, or a list of them):
+#: the decoder's, whisper's encoder and decoder stacks, zamba2's shared
+#: block; mamba layers (no ``attn``) under ``blocks`` stay whole
+BLOCK_KEYS = ("block0", "blocks", "enc_block0", "enc_blocks", "dec_block0",
+              "dec_blocks", "shared")
 #: a MoE FFN's leaves: (E, d, f) / (E, f, d) experts split by experts, the
 #: shared expert's swiglu MLP as a dense FFN; the router is replicated
 _MOE = {("ffn", "wi"): 0, ("ffn", "wg"): 0, ("ffn", "wo"): 0,
@@ -67,6 +84,8 @@ _MOE = {("ffn", "wi"): 0, ("ffn", "wg"): 0, ("ffn", "wo"): 0,
 
 
 def _block_specs(block, kv_rep):
+    if "attn" not in block:                       # a mamba layer: whole
+        return _tree_of(block, lambda path: None)
     moe = is_moe(block)
 
     def spec(path):
@@ -95,8 +114,12 @@ def param_specs(params, cfg, tp_size, kv_replicated=None):
     if "attn" in params:                                   # one block
         return _block_specs(params, kv_rep)
     specs = map_tree(lambda _: None, params)
-    specs["block0"] = _block_specs(params["block0"], kv_rep)
-    specs["blocks"] = [_block_specs(b, kv_rep) for b in params["blocks"]]
+    for key in BLOCK_KEYS:
+        node = params.get(key)
+        if isinstance(node, dict):
+            specs[key] = _block_specs(node, kv_rep)
+        elif node is not None:
+            specs[key] = [_block_specs(b, kv_rep) for b in node]
     return specs
 
 

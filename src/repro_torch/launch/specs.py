@@ -11,8 +11,7 @@ its shard of the blocks (``launch/mesh.py`` ``shard_params``) and, with
 by the reference's ``cache_specs`` (``launch/mesh.py``): its rows, KV
 heads and positions, with tokens and positions cut over the data axes
 only where the batch divides them (the reference's ``bspec``; long_500k's
-batch of 1 never does, and decode_32k's 128 rows do not divide the 256 or
-512 data ranks of the families without a TP stack).  ``tp`` is the model
+batch of 1 never does).  ``tp`` is the model
 axis's size and ``dp`` the data axes' (pod x data); every rank's slices
 have one size (the last rank's FSDP slices are padded; the cache is never
 cut unevenly), so rank 0 stands for all.
@@ -21,7 +20,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.plan import EXPLICIT_TP_FAMILIES
 from repro_torch.launch import mesh as MX
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
@@ -70,9 +68,9 @@ def num_microbatches(cfg, shape_cfg, dp, override=None):
 def batch_rows(global_batch, dp):
     """A rank's rows of a train or prefill batch: the global batch split
     over the ``dp`` data ranks, ceil(B / dp) of them (a batch smaller than
-    the data axes, as at 256 or 512 data ranks of the families without a
-    TP stack, gives its first B ranks one row each and leaves the rest
-    idle, where the reference cuts the batch over the data axes all the
+    the data axes, as prefill_32k's 32 rows at whisper's 64 or 128 data
+    ranks, gives its first B ranks one row each and leaves the rest idle,
+    where the reference cuts the batch over the data axes all the
     same).  A decode batch follows the cache: ``decode_rows``."""
     return -(-global_batch // dp)
 
@@ -104,12 +102,10 @@ def batch_struct(cfg, shape_cfg, dp):
 
 def _params(cfg, tp, tp_rank, dp=1, fsdp=False):
     """The rank's parameters in ``cfg.param_dtype``: the whole tree, or
-    under TP (a decoder family, tp > 1) its shard of the blocks; with
-    ``fsdp`` its data rank 0's FSDP slices of those over ``dp`` ranks."""
+    under TP (tp > 1) its shard of the blocks; with ``fsdp`` its data
+    rank 0's FSDP slices of those over ``dp`` ranks."""
     params = M.init_params(cfg, device=META, dtype=cfg.param_dtype)
     if tp > 1:
-        if cfg.family not in EXPLICIT_TP_FAMILIES:
-            raise ValueError(f"family '{cfg.family}' has no TP shard")
         params = MX.shard_params(params, cfg, tp_rank, tp)
     if fsdp:
         params = MX.shard_fsdp(params, cfg, 0, dp, tp)

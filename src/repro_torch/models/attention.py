@@ -119,13 +119,16 @@ def gqa_apply(p, cfg, x, positions, *, window=0, causal=True, plan=None):
     return o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
 
 
-def gqa_cross_apply(p, cfg, x, enc_out):
+def gqa_cross_apply(p, cfg, x, enc_out, plan=None):
     """Cross-attention (the whisper decoder, reference ``:505-511``): x
     (B, Sq, D) attends to every row of ``enc_out`` (B, Sk, D), no mask, no
     rope, through ``ops.flash_attention(causal=False)``.  K / V are
     projected from ``enc_out`` at every call, as the reference keeps no
-    cross-attention cache."""
+    cross-attention cache.  With the explicit-TP shards of the weights
+    (``plan.tp_axis`` set) the result is this rank's partial sum over its
+    heads."""
     q, k, v = gqa_qkv(p, cfg, x, None, kv_x=enc_out, rope=False)
+    k, v = _kv_group_slice(k, v, cfg, plan)
     o = ops.flash_attention(q, k, v, causal=False, cap=0.0,
                             block_q=cfg.attn_block_q)
     B, S = x.shape[:2]

@@ -25,8 +25,12 @@ attention is GQA or, under ``cfg.use_mla``, DeepSeek-V3's latent attention
 MLA blocks take the unfused dual-branch route, as in the reference.  The
 whisper decoder's blocks (``block_init(cross=True)``) add cross-attention
 to the encoder's output after the residual (``:197-203``), and its
-encoder's blocks attend bidirectionally (``causal=False``); neither has a
-dual-branch or an explicit-TP path.
+encoder's blocks attend bidirectionally (``causal=False``).  Neither has a
+dual-branch or a sequence-parallel path.  Under explicit TP an encoder
+block takes the decoders' paths, and a cross-attention block always
+assembles (``_block_apply_cross_tp``): the cross-attention's query reads
+``x + a``, and the MLP input reads the assembled cross-attention, so the
+block pays three all-reduces under every connection.
 """
 from __future__ import annotations
 
@@ -161,18 +165,11 @@ def block_apply(p, cfg, x, a1_sig, *, kind="dense", is_block0=False,
                                  block_tables=block_tables, n_valid=n_valid,
                                  tok_slot=tok_slot, tok_pos=tok_pos)
     if plan.tp_axis is not None:
-        if "xattn" in p or not causal:
-            # the reference's SP refusal (``:133-139``); the port's
-            # explicit-TP stacks run only the decoder families
-            raise NotImplementedError(
-                "explicit-TP and sequence-parallel blocks support causal "
-                "self-attention only (no cross-attention / bidirectional "
-                "encoders)")
         x, a, _, aux = block_apply_tp(
             p, cfg, x, a1_sig, kind=kind, is_block0=is_block0, plan=plan,
             cache=cache, block_tables=block_tables, pos=pos, n_valid=n_valid,
             tok_slot=tok_slot, tok_pos=tok_pos, window=window,
-            positions=positions)
+            positions=positions, enc_out=enc_out, causal=causal)
         return x, a, aux
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     if plan.full_sequence:
@@ -188,7 +185,7 @@ def block_apply(p, cfg, x, a1_sig, *, kind="dense", is_block0=False,
         # x, so the FAL MLP input sees it but not this block's attention
         cx = A.gqa_cross_apply(p["xattn"], cfg,
                                L.norm_apply(p["ln_x"], resid, cfg.norm),
-                               enc_out)
+                               enc_out, plan)
         resid = resid + cx
         x = x + cx
     if is_block0:
@@ -254,7 +251,8 @@ def _fused(cfg, is_block0) -> bool:
     """Whether a TP block adds its MHA and MLP partials locally before one
     reduction: the MLP input must not need the block's assembled attention
     (``fal.attention_must_assemble``), and post-norms normalise that
-    attention."""
+    attention.  (A cross-attention block never does:
+    ``_block_apply_cross_tp``.)"""
     return not cfg.post_norms and not fal.attention_must_assemble(
         cfg.connection, is_block0)
 
@@ -263,14 +261,14 @@ def _shared_signal(cfg) -> bool:
     """Under explicit TP FAL's signal enters every later block's sharded MLP
     through one *f* on the export (``tp.enter``) when those blocks take the
     fused path; with post-norms they assemble and their MLP inputs enter
-    whole instead."""
+    whole instead, as in a stack of cross-attention blocks."""
     return cfg.connection == "fal" and not cfg.post_norms
 
 
 def block_apply_tp(p, cfg, x, a1_sig, *, kind="dense", is_block0=False,
                    plan, cache=None, block_tables=None, pos=None,
                    n_valid=None, tok_slot=None, tok_pos=None, window=0,
-                   positions=None):
+                   positions=None, enc_out=None, causal=True):
     """One block under explicit TP (reference ``:174-214``) over this
     rank's weight shards -> (x_out, a_raw, a1_export, aux).  A MoE FFN
     holds this rank's experts (``moe.moe_apply_partial``): its partial sum
@@ -292,20 +290,31 @@ def block_apply_tp(p, cfg, x, a1_sig, *, kind="dense", is_block0=False,
     Under ``plan.sequence_parallel`` x is this rank's sequence shard
     (``_block_apply_sp``).  Under ``plan.grad_compress`` each *f*'s
     backward all-reduce runs the compressed exchange
-    (``optim/grad_compress.py``)."""
+    (``optim/grad_compress.py``).  ``causal=False`` (the whisper encoder)
+    attends bidirectionally on the same paths; a block with
+    cross-attention takes ``_block_apply_cross_tp``."""
     group, gc = plan.tp_axis, plan.grad_compress
     if plan.sequence_parallel:
+        if "xattn" in p or not causal:
+            # the reference's SP refusal (``:131-139``)
+            raise NotImplementedError(
+                "sequence-parallel blocks support causal self-attention "
+                "only (no cross-attention / bidirectional encoders)")
         return _block_apply_sp(p, cfg, x, a1_sig, positions, window,
                                kind=kind, is_block0=is_block0, plan=plan)
 
     def attend(h):
         if plan.full_sequence:
-            return _attend(p, cfg, h, positions, window, plan)
+            return _attend(p, cfg, h, positions, window, plan, causal)
         return _cached_attention(p, cfg, h, cache, block_tables, pos,
                                  n_valid, tok_slot, tok_pos, window, plan)[0]
 
     def ffn(h):
         return _ffn_apply(p, cfg, h, kind, plan)
+
+    if "xattn" in p:
+        return _block_apply_cross_tp(p, cfg, x, a1_sig, attend, ffn,
+                                     enc_out, is_block0=is_block0, plan=plan)
 
     if _fused(cfg, is_block0):
         x_in = tp.enter(x, group, gc)
@@ -337,6 +346,41 @@ def block_apply_tp(p, cfg, x, a1_sig, *, kind="dense", is_block0=False,
         y = L.norm_apply(p["post_ffn"], y, cfg.norm)
     sig = fal.first_attention_signal(cfg, p, a) if is_block0 else None
     return (x + a) + y, a, sig, aux
+
+
+def _block_apply_cross_tp(p, cfg, x, a1_sig, attend, ffn, enc_out, *,
+                          is_block0, plan):
+    """A whisper decoder block under explicit TP -> (x_out, a_raw,
+    a1_export, aux).  Its cross-attention's query reads ``ln_x(x + a)``,
+    so the self-attention is assembled first (all-reduce 1); the
+    cross-attention's column-split heads over ``enc_out`` (which the model
+    enters once through an *f*, ``tp.enter``, so that its backward
+    all-reduce returns the encoder's whole gradient) give a row-split
+    ``wo`` partial, assembled before the MLP input ``ln2(x + cx) (+
+    a1_sig)`` is formed (2), then the FFN partial (3).  Three all-reduces
+    under every connection; each sharded branch's input (``ln1(x)``,
+    ``ln_x(x + a)``, the MLP input) enters behind its own *f*, so no
+    replicated leaf's gradient is partial.  FAL's block 0 exports
+    ``ln_a(a)`` whole: the later blocks' MLP inputs enter whole too."""
+    group, gc = plan.tp_axis, plan.grad_compress
+    a = tp.assemble(attend(tp.enter(L.norm_apply(p["ln1"], x, cfg.norm),
+                                    group, gc)), group)
+    if cfg.post_norms:
+        a = L.norm_apply(p["post_attn"], a, cfg.norm)
+    resid = x + a
+    q_in = tp.enter(L.norm_apply(p["ln_x"], resid, cfg.norm), group, gc)
+    cx = tp.assemble(A.gqa_cross_apply(p["xattn"], cfg, q_in, enc_out,
+                                       plan), group)
+    resid = resid + cx
+    x = x + cx
+    mlp_in = (fal.block0_mlp_input(cfg, p, x, a) if is_block0
+              else fal.mlp_input(cfg, p, x, a, a1_sig))
+    y, aux = ffn(tp.enter(mlp_in, group, gc))
+    y = tp.assemble(y, group)
+    if cfg.post_norms:
+        y = L.norm_apply(p["post_ffn"], y, cfg.norm)
+    sig = fal.first_attention_signal(cfg, p, a) if is_block0 else None
+    return resid + y, a, sig, aux
 
 
 def _block_apply_sp(p, cfg, x_s, a1_sig, positions, window, *, kind,
@@ -410,7 +454,8 @@ def _block_apply_sp(p, cfg, x_s, a1_sig, positions, window, *, kind,
 MLA_REPLICATED = ("w_dq", "q_norm", "w_dkv", "kv_norm", "w_kr")
 
 
-def tp_partial_leaves(cfg, plan, *, is_block0, kv_rep, moe=False):
+def tp_partial_leaves(cfg, plan, *, is_block0, kv_rep, moe=False,
+                      cross=False):
     """Keys (paths into one block's params) of the replicated leaves whose
     gradient each rank holds as a partial sum under ``plan``'s placement of
     the collectives above: leaves used between an *f* (or a sequence
@@ -423,8 +468,17 @@ def tp_partial_leaves(cfg, plan, *, is_block0, kv_rep, moe=False):
     experts, so its gradient is a partial sum too; so are MLA's replicated
     down-projections, their norms and the rope key's projection
     (``MLA_REPLICATED``), which feed only this rank's heads.  The MTP head
-    runs outside the stack, whole on every rank, and is never listed."""
+    runs outside the stack, whole on every rank, and is never listed.  A
+    cross-attention block (``cross``, ``_block_apply_cross_tp``) enters
+    every sharded branch behind its own *f*: only its qk-norms (and its
+    replicated wk / wv) are partial, in both attentions."""
     keys = [("attn", "qnorm"), ("attn", "knorm")]
+    if cross:
+        keys += [("xattn", "qnorm"), ("xattn", "knorm")]
+        if kv_rep:
+            keys += [("attn", "wk"), ("attn", "wv"), ("xattn", "wk"),
+                     ("xattn", "wv")]
+        return keys
     if cfg.use_mla:
         keys += [("attn", k) for k in MLA_REPLICATED]
     if moe:

@@ -88,6 +88,11 @@ with cross-attention; ``"enc_blocks"`` / ``"dec_blocks"`` lists).  Their
 caches are contiguous only: the paged entry points refuse them with the
 reference's error (``PAGED_FAMILIES``).  The recurrent leaves of a cache
 (mamba's ``state`` and ``conv``) are written in place like the KV rows.
+Under an explicit-TP plan each runs as the reference's ``param_specs``
+lay it out: mamba2's layers whole on every rank (no collective),
+zamba2's shared block and whisper's encoder and decoder blocks on this
+rank's shard through ``blocks.block_apply_tp`` (``_apply_block0`` for a
+stack's block 0, whose export is the signal).
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when there is none.  Pass ``device="cpu"`` to run the plain versions of
@@ -103,8 +108,8 @@ import torch.utils.checkpoint
 
 from repro_torch.core import fal
 from repro_torch.core import tp
-from repro_torch.core.plan import (EXPLICIT_TP_FAMILIES, ExecutionPlan,
-                                   Phase, kv_replicated, local_kv_heads)
+from repro_torch.core.plan import (ExecutionPlan, Phase, kv_replicated,
+                                   local_kv_heads)
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as MX
 from repro_torch.models import attention as A
@@ -348,16 +353,29 @@ def _run_decoder_blocks(p, cfg, x, positions, plan):
     return x, _aux_total(aux, x.device)
 
 
+def _first_tp_block(p):
+    """A block of the params whose attention explicit TP shards: the
+    decoder's ``block0``, whisper's ``enc_block0``, zamba2's ``shared``;
+    None for mamba2, whose layers stay whole on every rank."""
+    for key in ("block0", "enc_block0", "shared"):
+        if key in p:
+            return p[key]
+    return None
+
+
 def _check_shards(p, cfg, tp_size):
     """The explicit-TP stack runs on this rank's shard of the blocks
     (``launch.mesh.shard_params``); full weights would compute tp times
     the attention and FFN and sum them."""
+    block = _first_tp_block(p)
+    if block is None:
+        return
     if cfg.use_mla:
         name = "w_uq"
         width = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
     else:
         name, width = "wq", cfg.resolved_head_dim
-    got = p["block0"]["attn"][name].shape[-1]
+    got = block["attn"][name].shape[-1]
     if got * tp_size != cfg.n_heads * width:
         raise ValueError(
             f"explicit TP over {tp_size} ranks: {name} has {got} columns, "
@@ -426,6 +444,26 @@ def decoder_stack_tp(p, cfg, x, positions, plan):
     return x, aux
 
 
+def _tp_blocks(params, cfg):
+    """(block, is_block0, cross) of every transformer block the explicit-TP
+    paths run: the decoder's ``block0`` and ``blocks``; whisper's encoder
+    stack and its decoder stack (cross-attention); zamba2's shared block
+    once (``plan.validate`` holds every invocation to the same partial
+    leaves, so its one gradient, summed over the invocations, is partial
+    throughout or whole throughout); none for mamba2."""
+    if cfg.family == "ssm":
+        return []
+    if cfg.family == "hybrid":
+        return [(params["shared"], True, False)]
+    if cfg.family == "audio":
+        return ([(params["enc_block0"], True, False)]
+                + [(b, False, False) for b in params["enc_blocks"]]
+                + [(params["dec_block0"], True, True)]
+                + [(b, False, True) for b in params["dec_blocks"]])
+    return [(params["block0"], True, False)] + [
+        (b, False, False) for b in params["blocks"]]
+
+
 def tp_sync_grads(params, cfg, plan):
     """Sum over the TP group, in ONE all-reduce, the gradients that each
     rank holds as a partial sum of a replicated leaf
@@ -435,13 +473,16 @@ def tp_sync_grads(params, cfg, plan):
     also sliced (a MoE router, MLA's down-projections) holds its slice's
     gradient, already reduce-scattered over the data group: the TP sum
     acts on the slice (both sums are linear, so either order gives the
-    one device's gradient)."""
+    one device's gradient).  Every family's blocks (``_tp_blocks``):
+    zamba2's shared block's listed leaves hold the sum of all its
+    invocations' partial gradients, summed over the group once; mamba2
+    lists none (no collective)."""
     kv_rep = kv_replicated(cfg, plan.tp_size)
     grads = []
-    for pb, is0 in [(params["block0"], True)] + [
-            (b, False) for b in params["blocks"]]:
+    for pb, is0, cross in _tp_blocks(params, cfg):
         for key in BL.tp_partial_leaves(cfg, plan, is_block0=is0,
-                                        kv_rep=kv_rep, moe=BL.is_moe(pb)):
+                                        kv_rep=kv_rep, moe=BL.is_moe(pb),
+                                        cross=cross):
             node = pb
             for k in key:
                 node = node.get(k) if isinstance(node, dict) else None
@@ -478,7 +519,11 @@ def forward(params, cfg, batch, plan=None, want="logits"):
                          f"full-sequence phase; use decode_step / "
                          f"paged_decode_step")
     fn = {"ssm": _mamba_forward, "hybrid": _zamba_forward,
-          "audio": _whisper_forward}.get(cfg.family, _decoder_forward)
+          "audio": _whisper_forward}.get(cfg.family)
+    if fn is None:
+        return _decoder_forward(params, cfg, batch, plan, want=want)
+    if plan.use_explicit_tp:
+        _check_shards(params, cfg, plan.tp_size)
     return fn(params, cfg, batch, plan, want=want)
 
 
@@ -579,20 +624,16 @@ def init_cache(cfg, batch, seq, dtype="bfloat16", device=None, tp_size=1,
     sequence over the data ranks when the batch does not divide them, and
     over the model ranks when the KV heads do not, or always for MLA's
     latents); mamba's state / conv and whisper's ``enc_out`` by batch
-    only, whole where it does not divide.  Every rank's slice has one
-    shape (no cut is padded: a dim that does not divide raises), so the
-    zeros do not depend on the rank; the decode plan carries which
-    positions are whose (``ExecutionPlan.with_cache_layout``).  The
-    ssm / hybrid / audio families take no ``tp_size``."""
+    only, whole over the model ranks and where the batch does not divide
+    the data ranks.  Every rank's slice has one shape (no cut is padded:
+    a dim that does not divide raises), so the zeros do not depend on the
+    rank; the decode plan carries which positions are whose
+    (``ExecutionPlan.with_cache_layout``)."""
     check_supported(cfg)
     device = resolve_device(device)
-    if cfg.family in PAGED_FAMILIES:
-        return _decoder_init_cache(cfg, batch, seq, _dtype(dtype), device,
-                                   tp_size, dp_size)
-    _refuse_tp_family(cfg, tp_size)
     fn = {"ssm": _mamba_init_cache, "hybrid": _zamba_init_cache,
-          "audio": _whisper_init_cache}[cfg.family]
-    return fn(cfg, batch, seq, _dtype(dtype), device, dp_size)
+          "audio": _whisper_init_cache}.get(cfg.family, _decoder_init_cache)
+    return fn(cfg, batch, seq, _dtype(dtype), device, tp_size, dp_size)
 
 
 def _decoder_decode(p, cfg, batch, cache, plan):
@@ -613,9 +654,9 @@ def decode_step(params, cfg, batch, cache, plan=None):
     """One token a lane against the contiguous cache (``init_cache``):
     batch {"tokens" (B, 1), "pos" (B,)} -> (logits (B, 1, V), cache updated
     in place).  ``plan`` may carry ``dual_branch`` (fal / parallel /
-    ablation2 only), and, for the decoder families, an explicit-TP group:
-    ``params`` is then this rank's shard and ``cache`` this rank's
-    (``init_cache(..., tp_size=)``); see ``serving_plan``."""
+    ablation2 only), and an explicit-TP group (every family): ``params``
+    is then this rank's shard and ``cache`` this rank's (``init_cache(...,
+    tp_size=)``); see ``serving_plan``."""
     check_supported(cfg)
     plan = serving_plan(params, cfg, plan, Phase.DECODE)
     fn = {"ssm": _mamba_decode, "hybrid": _zamba_decode,
@@ -663,26 +704,32 @@ def init_paged_cache(cfg, num_pages, page_size, slots, dtype="bfloat16",
                                   device=device)}
 
 
-def _serve_block0(p, cfg, x, plan, **kw):
-    """Block 0 of a serving tick -> (x, a_raw, a1_sig): its output, its MHA
-    output and the first-attention signal the later blocks take (None for
-    the modes without one).  Under an explicit-TP plan it is
-    ``blocks.block_apply_tp`` over this rank's shard, whose export is the
-    signal, exactly as in ``decoder_stack_tp``; ``a_raw`` is then this
+def _apply_block0(pb, cfg, x, plan, **kw):
+    """A stack's block 0 (``pb``, gathered) -> (x, a_raw, a1_sig): its
+    output, its MHA output and the first-attention signal the later blocks
+    take (None for the modes without one).  Under an explicit-TP plan it
+    is ``blocks.block_apply_tp`` over this rank's shard, whose export is
+    the signal, exactly as in ``decoder_stack_tp``; ``a_raw`` is then this
     rank's partial sum where block 0 does not assemble its attention
-    (``parallel``, whose ticks never read it).  ``kw``: the tick's cache
-    arguments."""
-    kind, window = _layer_kind(cfg, 0), BL.window_schedule(cfg)[0]
-    pb = _gather(p["block0"], cfg, plan, ("block0",))
+    (``parallel``, which never reads it).  ``kw``: ``block_apply``'s
+    keywords (kind, window, cache arguments, positions, causal,
+    enc_out)."""
     if plan.use_explicit_tp:
-        x, a_raw, sig, _ = BL.block_apply_tp(
-            pb, cfg, x, None, kind=kind, is_block0=True,
-            plan=plan.inner(), window=window, **kw)
+        x, a_raw, sig, _ = BL.block_apply_tp(pb, cfg, x, None, is_block0=True,
+                                             plan=plan.inner(), **kw)
         return x, a_raw, sig
-    x, a_raw, _ = BL.block_apply(pb, cfg, x, None, kind=kind,
-                                 is_block0=True, plan=plan, window=window,
+    x, a_raw, _ = BL.block_apply(pb, cfg, x, None, is_block0=True, plan=plan,
                                  **kw)
     return x, a_raw, fal.first_attention_signal(cfg, pb, a_raw)
+
+
+def _serve_block0(p, cfg, x, plan, **kw):
+    """Block 0 of a serving tick -> (x, a_raw, a1_sig) (``_apply_block0``
+    on this rank's gathered block 0).  ``kw``: the tick's cache
+    arguments."""
+    pb = _gather(p["block0"], cfg, plan, ("block0",))
+    return _apply_block0(pb, cfg, x, plan, kind=_layer_kind(cfg, 0),
+                         window=BL.window_schedule(cfg)[0], **kw)
 
 
 def _decoder_layer_stack(p, cfg, x, a1_sig, pos, blocks_cache, plan, *,
@@ -812,19 +859,11 @@ def _decoder_paged_packed_draft(p, cfg, batch, cache, plan, draft_blocks):
     return x, cache
 
 
-def _refuse_tp_family(cfg, tp_size):
-    if tp_size > 1 and cfg.family not in EXPLICIT_TP_FAMILIES:
-        raise NotImplementedError(
-            f"family '{cfg.family}' under a tensor-parallel group: it has "
-            f"no explicit-TP stack (decoder families only: "
-            f"{EXPLICIT_TP_FAMILIES}; ROADMAP.md)")
-
-
 def serving_plan(params, cfg, plan, phase):
     """The plan of a serving tick, pinned to ``phase`` and validated.  A
-    plan over a process group serves only under ``tp='explicit'`` and only
-    the decoder families (``EXPLICIT_TP_FAMILIES``); ``params`` must then
-    be this rank's shard (``_check_shards``).  A decode plan carries its
+    plan over a process group serves only under ``tp='explicit'``, every
+    family (``EXPLICIT_TP_FAMILIES``); ``params`` must then be this
+    rank's shard (``_check_shards``).  A decode plan carries its
     cache layout (``seq_axes``; when unset, that of a batch that divides
     the data ranks).  A data group raises (a data replica is an engine of
     its own) except in the contiguous decode tick, where either the
@@ -865,7 +904,6 @@ def serving_plan(params, cfg, plan, phase):
             "KV sequence cut over the group, ExecutionPlan."
             "with_cache_layout, or under FSDP)")
     if plan.is_sharded:
-        _refuse_tp_family(cfg, plan.tp_size)
         if not plan.use_explicit_tp:
             raise NotImplementedError(
                 f"a serving tick over a process group needs tp='explicit' "
@@ -1010,9 +1048,11 @@ def _stacked_n(c, n):
     return {k: v[None].repeat((n,) + (1,) * v.dim()) for k, v in c.items()}
 
 
-def _mamba_init_cache(cfg, batch, seq, dtype, device, dp_size=1):
+def _mamba_init_cache(cfg, batch, seq, dtype, device, tp_size=1,
+                      dp_size=1):
     """{"blocks": {"state" (L, B, H, P, N) fp32, "conv" (L, B, K-1,
-    conv_dim)}} (reference ``:620-623``); a data rank's rows of them."""
+    conv_dim)}} (reference ``:620-623``); a data rank's rows of them,
+    whole over the model ranks."""
     b, = _cache_dims(cfg, "state", (batch,), 1, dp_size)
     return {"blocks": _stacked_n(S.mamba_init_cache(cfg, b, dtype, device),
                                  cfg.n_layers)}
@@ -1092,9 +1132,15 @@ def _zamba_shared_block(p, cfg, x, x0, in_proj, a1_sig, positions, *,
     """One invocation of the weight-shared attention block (reference
     ``:674-686``): its input is ``[x, x0] @ in_proj``, and only its delta
     ``out - h_in`` joins the backbone's residual stream.  Returns (x, the
-    block's attention output).  Under FSDP each invocation gathers the
-    shared block and its ``in_proj`` row; the shared leaves' gradient is
-    the sum of the invocations' reduce-scatters."""
+    first-attention signal: invocation 0's export, None after it).  Under
+    FSDP each invocation gathers the shared block and its ``in_proj``
+    row; the shared leaves' gradient is the sum of the invocations'
+    reduce-scatters.  Under explicit TP ``in_proj`` is whole on every rank
+    and the block runs on this rank's shard: invocation 0 as a TP block 0
+    (``_apply_block0``: under fal its attention and FFN all-reduces and
+    the signal's one *f*), the later ones on ``plan.inner()`` (under fal
+    the fused path, one all-reduce each; under a dual-branch decode plan
+    the MHA || MLP block, one too)."""
     if plan.fsdp:
         unit = _gather({"shared": p["shared"], "in_proj": in_proj}, cfg,
                        plan, None, _zamba_shared_cuts(cfg, plan))
@@ -1103,16 +1149,23 @@ def _zamba_shared_block(p, cfg, x, x0, in_proj, a1_sig, positions, *,
     shared = dict(p["shared"])
     if "shared_ln_fal" in p:
         shared["ln_fal"] = p["shared_ln_fal"]
-    out, a_raw, _ = BL.block_apply(shared, cfg, h_in, a1_sig, kind="dense",
-                                   is_block0=first, plan=plan, cache=cache,
-                                   pos=pos, positions=positions)
-    return x + (out - h_in), a_raw
+    kw = dict(kind="dense", cache=cache, pos=pos, positions=positions)
+    if first:
+        out, _, sig = _apply_block0(shared, cfg, h_in, plan, **kw)
+    else:
+        inner = plan.inner() if plan.use_explicit_tp else plan
+        out, _, _ = BL.block_apply(shared, cfg, h_in, a1_sig, plan=inner,
+                                   **kw)
+        sig = None
+    return x + (out - h_in), sig
 
 
 def _zamba_forward(p, cfg, batch, plan, want="logits"):
     """Reference ``:689-732``: group 0 (under one ``_maybe_remat``, its
     layers each under their own) exports the first-attention signal, then
-    the later groups (each under ``_maybe_remat``), then the tail."""
+    the later groups (each under ``_maybe_remat``), then the tail.  Under
+    explicit TP the mamba layers run whole on every rank (no collective)
+    and the shared block on this rank's shard (``_zamba_shared_block``)."""
     tokens = batch["tokens"]
     B, Sq = tokens.shape
     positions = torch.arange(Sq, device=tokens.device)[None].expand(B, Sq)
@@ -1123,9 +1176,8 @@ def _zamba_forward(p, cfg, batch, plan, want="logits"):
         return _zamba_shared_block(p, cfg, h, x0, in_proj, a1_sig, positions,
                                    first=first, plan=plan)
 
-    x, a1_raw = _maybe_remat(group, cfg)(p["mamba"][0], p["in_proj"][0], x0,
-                                         None, True, 0)
-    a1_sig = fal.first_attention_signal(cfg, p["shared"], a1_raw)
+    x, a1_sig = _maybe_remat(group, cfg)(p["mamba"][0], p["in_proj"][0],
+                                         x0, None, True, 0)
     for g in range(1, len(p["mamba"])):
         x, _ = _maybe_remat(group, cfg)(p["mamba"][g], p["in_proj"][g], x,
                                         a1_sig, False, g)
@@ -1135,18 +1187,21 @@ def _zamba_forward(p, cfg, batch, plan, want="logits"):
     return _logits(p, cfg, x, plan), _zero_aux(x), {}
 
 
-def _zamba_init_cache(cfg, batch, seq, dtype, device, dp_size=1):
+def _zamba_init_cache(cfg, batch, seq, dtype, device, tp_size=1,
+                      dp_size=1):
     """Reference ``:735-745``: ``mamba`` {"state", "conv"} stacked
     (n_groups, attn_every, ...), ``attn`` the shared block's K / V a group
     (n_groups, B, S, Hkv, Dh), ``mamba_tail`` stacked (trailing, ...); a
-    data rank's slice of them."""
+    rank's slice of them (the K / V heads over the model ranks, the
+    recurrent leaves whole over them)."""
     n_groups, trailing = _zamba_counts(cfg)
-    b, = _cache_dims(cfg, "state", (batch,), 1, dp_size)
+    b, = _cache_dims(cfg, "state", (batch,), tp_size, dp_size)
     mc = S.mamba_init_cache(cfg, b, dtype, device)
-    b, s = _cache_dims(cfg, "k", (batch, seq), 1, dp_size)
+    b, s, h = _cache_dims(cfg, "k", (batch, seq, cfg.n_kv_heads), tp_size,
+                          dp_size)
     cache = {"mamba": _stacked_n(_stacked_n(mc, cfg.attn_every), n_groups),
-             "attn": _stacked_n(A.gqa_init_cache(cfg, b, s, dtype, device),
-                                n_groups)}
+             "attn": _stacked_n(A.gqa_init_cache(cfg, b, s, dtype, device,
+                                                 n_kv_heads=h), n_groups)}
     if trailing:
         cache["mamba_tail"] = _stacked_n(mc, trailing)
     return cache
@@ -1163,11 +1218,11 @@ def _zamba_decode(p, cfg, batch, cache, plan):
     for g, pm in enumerate(p["mamba"]):
         mc = {k: v[g] for k, v in cache["mamba"].items()}
         x = _mamba_decode_seg(pm, cfg, x, mc, plan, ("mamba", g))
-        x, a_raw = _zamba_shared_block(p, cfg, x, x0, p["in_proj"][g],
-                                       a1_sig, None, first=g == 0, plan=plan,
-                                       cache=attn[g], pos=pos)
+        x, sig = _zamba_shared_block(p, cfg, x, x0, p["in_proj"][g], a1_sig,
+                                     None, first=g == 0, plan=plan,
+                                     cache=attn[g], pos=pos)
         if g == 0:
-            a1_sig = fal.first_attention_signal(cfg, p["shared"], a_raw)
+            a1_sig = sig
     if "mamba_tail" in p:
         x = _mamba_decode_seg(p["mamba_tail"], cfg, x, cache["mamba_tail"],
                               plan, ("mamba_tail",))
@@ -1203,22 +1258,26 @@ def _whisper_init(gen, cfg, dt, device):
     }
 
 
-def _stack_apply(p, cfg, blocks, x, a1_sig, plan, prefixes, **kw):
+def _stack_apply(p, cfg, blocks, x, plan, prefixes, **kw):
     """Block 0 (``blocks[0]``, exporting the first-attention signal) and
     the later blocks, each under ``_maybe_remat`` -> x; ``prefixes``: each
     block's path in the params (its FSDP unit).  ``kw``: the blocks'
-    shared keywords (positions, causal, enc_out)."""
+    shared keywords (positions, causal, enc_out).  Under explicit TP the
+    blocks run on this rank's shard (``blocks.block_apply_tp``): the
+    encoder's on the decoders' paths, the decoder's cross-attention
+    blocks assembled."""
+    inner = plan.inner() if plan.use_explicit_tp else plan
+
     def block0(pb, h):
         pb = _gather(pb, cfg, plan, prefixes[0])
-        return BL.block_apply(pb, cfg, h, None, is_block0=True, plan=plan,
-                              **kw)[:2]
+        h, _, sig = _apply_block0(pb, cfg, h, plan, **kw)
+        return h, sig
 
     def block(pb, h, sig, prefix):
         pb = _gather(pb, cfg, plan, prefix)
-        return BL.block_apply(pb, cfg, h, sig, plan=plan, **kw)[0]
+        return BL.block_apply(pb, cfg, h, sig, plan=inner, **kw)[0]
 
-    x, a1_raw = _maybe_remat(block0, cfg)(blocks[0], x)
-    a1_sig = fal.first_attention_signal(cfg, blocks[0], a1_raw)
+    x, a1_sig = _maybe_remat(block0, cfg)(blocks[0], x)
     for pb, prefix in zip(blocks[1:], prefixes[1:]):
         x = _maybe_remat(functools.partial(block, prefix=prefix), cfg)(
             pb, x, a1_sig)
@@ -1234,12 +1293,14 @@ def _stack_prefixes(p, first, rest):
 def whisper_encode(p, cfg, frames, plan=None):
     """The encoder (reference ``:825-844``): frames (B, F, d) stubbed frame
     embeddings plus ``enc_pos``, bidirectional blocks (no rope, no mask)
-    with their own block-0 signal, then ``enc_norm`` -> (B, F, d)."""
+    with their own block-0 signal, then ``enc_norm`` -> (B, F, d), whole
+    on every rank under explicit TP (the blocks' all-reduces assemble
+    it)."""
     plan = ExecutionPlan.resolve(plan).with_phase(Phase.PREFILL)
     dt = _dtype(cfg.dtype)
     x = frames.to(dt) + p["enc_pos"].to(dt)[None, :frames.shape[1]]
-    x = _stack_apply(p, cfg, [p["enc_block0"]] + p["enc_blocks"], x, None,
-                     plan, _stack_prefixes(p, "enc_block0", "enc_blocks"),
+    x = _stack_apply(p, cfg, [p["enc_block0"]] + p["enc_blocks"], x, plan,
+                     _stack_prefixes(p, "enc_block0", "enc_blocks"),
                      causal=False)
     return L.norm_apply(p["enc_norm"], x, cfg.norm)
 
@@ -1247,29 +1308,38 @@ def whisper_encode(p, cfg, frames, plan=None):
 def _whisper_forward(p, cfg, batch, plan, want="logits"):
     """Reference ``:847-870``: the encoder over ``batch["frames"]``, then
     the decoder over the tokens plus the learned ``pos_emb``, each block
-    cross-attending to the encoder's output."""
+    cross-attending to the encoder's output.  Under explicit TP the
+    encoder's output enters the decoder's column-split cross K / V through
+    one *f* (``tp.enter``), whose backward all-reduce sums the decoder
+    blocks' partial gradients into the encoder's whole one."""
     enc_out = whisper_encode(p, cfg, batch["frames"], plan)
+    if plan.use_explicit_tp:
+        enc_out = tp.enter(enc_out, plan.group, plan.grad_compress)
     tokens = batch["tokens"]
     B, Sq = tokens.shape
     positions = torch.arange(Sq, device=tokens.device)[None].expand(B, Sq)
     dt = _dtype(cfg.dtype)
     x = L.embed_apply(p["embed"], tokens, dt) \
         + p["pos_emb"].to(dt)[None, :Sq]
-    x = _stack_apply(p, cfg, [p["dec_block0"]] + p["dec_blocks"], x, None,
-                     plan, _stack_prefixes(p, "dec_block0", "dec_blocks"),
+    x = _stack_apply(p, cfg, [p["dec_block0"]] + p["dec_blocks"], x, plan,
+                     _stack_prefixes(p, "dec_block0", "dec_blocks"),
                      positions=positions, enc_out=enc_out)
     if want == "hidden":
         return None, _zero_aux(x), {"hidden": x}
     return _logits(p, cfg, x, plan), _zero_aux(x), {}
 
 
-def _whisper_init_cache(cfg, batch, seq, dtype, device, dp_size=1):
+def _whisper_init_cache(cfg, batch, seq, dtype, device, tp_size=1,
+                        dp_size=1):
     """Reference ``:873-882``: the decoder's K / V (block 0, the stacked
     rest) and ``enc_out`` (B, n_enc_frames, d), which the caller fills with
-    ``whisper_encode``'s output; a data rank's slice of them."""
-    b, s = _cache_dims(cfg, "k", (batch, seq), 1, dp_size)
-    cache = _stacked(cfg, A.gqa_init_cache(cfg, b, s, dtype, device))
-    b, = _cache_dims(cfg, "enc_out", (batch,), 1, dp_size)
+    ``whisper_encode``'s output; a rank's slice of them (the K / V heads
+    over the model ranks, ``enc_out`` whole over them)."""
+    b, s, h = _cache_dims(cfg, "k", (batch, seq, cfg.n_kv_heads), tp_size,
+                          dp_size)
+    cache = _stacked(cfg, A.gqa_init_cache(cfg, b, s, dtype, device,
+                                           n_kv_heads=h))
+    b, = _cache_dims(cfg, "enc_out", (batch,), tp_size, dp_size)
     cache["enc_out"] = torch.zeros((b, cfg.n_enc_frames, cfg.d_model),
                                    dtype=dtype, device=device)
     return cache
@@ -1278,20 +1348,21 @@ def _whisper_init_cache(cfg, batch, seq, dtype, device, dp_size=1):
 def _whisper_decode(p, cfg, batch, cache, plan):
     """Reference ``:885-908``: the token plus ``pos_emb[pos]``, each block
     cross-attending to ``cache["enc_out"]`` (cast to ``cfg.dtype``; its K /
-    V are recomputed every step, as the reference keeps no cross cache)."""
+    V are recomputed every step, as the reference keeps no cross cache).
+    Under explicit TP each block runs on this rank's shard and its K / V
+    heads (three all-reduces a block)."""
     tokens, pos = batch["tokens"], batch["pos"]
     dt = _dtype(cfg.dtype)
     enc_out = cache["enc_out"].to(dt)
     x = L.embed_apply(p["embed"], tokens, dt) \
         + p["pos_emb"].to(dt)[pos.long()][:, None]
     pb0 = _gather(p["dec_block0"], cfg, plan, ("dec_block0",))
-    x, a1_raw, _ = BL.block_apply(pb0, cfg, x, None,
-                                  is_block0=True, plan=plan, enc_out=enc_out,
-                                  cache=cache["block0"], pos=pos)
-    a1_sig = fal.first_attention_signal(cfg, pb0, a1_raw)
+    x, _, a1_sig = _apply_block0(pb0, cfg, x, plan, enc_out=enc_out,
+                                 cache=cache["block0"], pos=pos)
+    inner = plan.inner() if plan.use_explicit_tp else plan
     for i, (pb, c) in enumerate(zip(p["dec_blocks"], _layers_of(
             cache["blocks"], len(p["dec_blocks"])))):
         pb = _gather(pb, cfg, plan, ("dec_blocks", i))
-        x, _, _ = BL.block_apply(pb, cfg, x, a1_sig, plan=plan,
+        x, _, _ = BL.block_apply(pb, cfg, x, a1_sig, plan=inner,
                                  enc_out=enc_out, cache=c, pos=pos)
     return _logits(p, cfg, x, plan), cache

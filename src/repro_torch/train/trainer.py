@@ -28,7 +28,9 @@ reference's jitted trainer does) and trains on its data rank's rows
 layout trains on the batches a one-device run of that seed does;
 ``batch`` must divide by ``dp_size * num_microbatches``.  ``ckpt_dir``
 writes the one-device format from the gathered state
-(``checkpoint.save_distributed``).
+(``checkpoint.save_distributed``).  Every family trains here; whisper's
+batches carry its stubbed frame embeddings
+(``data.pipeline.stub_frames`` of the seed and step) beside the tokens.
 """
 from __future__ import annotations
 
@@ -38,7 +40,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.plan import ExecutionPlan
-from repro_torch.data.pipeline import SyntheticMarkov, shard_rows
+from repro_torch.data.pipeline import (SyntheticMarkov, shard_rows,
+                                       stub_frames)
 from repro_torch.launch import mesh as MX
 from repro_torch.models import model as M
 from repro_torch.models.model import resolve_device
@@ -88,11 +91,18 @@ def train(cfg, *, steps=200, batch=8, seq_len=128, lr=3e-4, seed=0,
     if data is None:
         data = SyntheticMarkov(cfg.vocab, seq_len, batch, seed=seed)
     it = iter(data)
+
+    def with_frames(glob, step):
+        if cfg.family != "audio" or "frames" in glob:
+            return glob
+        rows = np.shape(glob["tokens"])[0]
+        return dict(glob, frames=stub_frames(cfg, rows, seed, step))
+
     history = []
     t0 = time.time()
     t_prev = time.perf_counter()
     for i in range(steps):
-        glob = next(it)
+        glob = with_frames(next(it), i)
         b = {k: torch.from_numpy(np.asarray(v)).to(device)
              for k, v in shard_rows(glob, plan.dp_rank, dp).items()}
         state, metrics_out = step_fn(state, b)
@@ -116,7 +126,8 @@ def train(cfg, *, steps=200, batch=8, seq_len=128, lr=3e-4, seed=0,
         if eval_every and i and i % eval_every == 0:
             # the whole global eval batch on every rank: one perplexity
             eb = {k: torch.from_numpy(np.asarray(v)).to(device)
-                  for k, v in data.batch_at(10**6 + i).items()}
+                  for k, v in with_frames(data.batch_at(10**6 + i),
+                                          10**6 + i).items()}
             em = eval_fn(state["params"], eb)
             reg.gauge("train_eval_ppl", site=_SITE).set(float(em["ppl"]))
             print(f"  eval ppl {float(em['ppl']):.3f}", flush=True)

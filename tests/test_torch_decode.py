@@ -166,10 +166,12 @@ def test_dual_branch_bit_exact_contiguous_decode(connection):
 
 def test_sharded_plan_refused():
     """The serving ticks run under an explicit-TP plan
-    (``test_torch_tp_serving.py``); what still raises: a process group
-    without ``tp='explicit'``, a data-parallel group (a data replica is an
-    engine of its own) and the families without an explicit-TP stack
-    (ssm / hybrid / audio) under a group."""
+    (``test_torch_tp_serving.py``, and for the ssm / hybrid / audio
+    families ``test_torch_family_tp.py``); what still raises: a process
+    group without ``tp='explicit'``, a data-parallel group (a data replica
+    is an engine of its own), and sequence parallelism for those families
+    (mamba layers have no SP layout; cross-attention and bidirectional
+    encoders consume the assembled attention)."""
     import types
     _, _, tcfg, tparams = _models("llama3.2-3b", "fal")
     group = types.SimpleNamespace(size=lambda: 2, rank=lambda: 0)
@@ -185,12 +187,24 @@ def test_sharded_plan_refused():
     with pytest.raises(ValueError, match="separate engine"):
         TM.decode_step(tparams, tcfg, batch, cache, dp)
     ssm = get_config("mamba2-370m").reduced()
-    for tp_style in ("none", "explicit"):
-        with pytest.raises(NotImplementedError, match="no explicit-TP"):
-            TM.decode_step(None, ssm, batch, None,
-                           TPlan.from_group(group, tp=tp_style))
-    with pytest.raises(NotImplementedError, match="no explicit-TP"):
-        TM.init_cache(ssm, B, S, "float32", device="cpu", tp_size=2)
+    with pytest.raises(NotImplementedError, match="tp='explicit'"):
+        TM.decode_step(None, ssm, batch, None,
+                       TPlan.from_group(group, tp="none"))
+    for arch in ("mamba2-370m", "zamba2-1.2b", "whisper-small"):
+        with pytest.raises(NotImplementedError, match="sequence-parallel"):
+            TPlan.from_group(group, tp="explicit", sp=True).validate(
+                get_config(arch).reduced())
+        with pytest.raises(ValueError, match="needs tp='explicit'"):
+            TPlan.from_group(group, tp="none").validate(
+                get_config(arch).reduced())
+    # mamba2's mixers stay whole on every rank: its rank cache is the
+    # one-device cache, and the explicit plan serves it
+    shard = TM.init_cache(ssm, B, S, "float32", device="cpu", tp_size=2)
+    whole = TM.init_cache(ssm, B, S, "float32", device="cpu")
+    assert {k: v.shape for k, v in shard["blocks"].items()} == \
+        {k: v.shape for k, v in whole["blocks"].items()}
+    plan = TPlan.from_group(group, tp="explicit")
+    assert TM.serving_plan({}, ssm, plan, "decode").use_explicit_tp
 
 
 def test_prefill_then_decode_matches_reference():

@@ -170,6 +170,15 @@ def _divides(cfg, tp_size):
     return True
 
 
+def _in_blocks(path):
+    """Whether a leaf (by path, either package's tree) sits in the blocks
+    explicit TP cuts or keeps whole by rule: the decoder's, whisper's
+    encoder and decoder stacks, zamba2's shared block and mamba2's
+    layers (``launch/mesh.py::BLOCK_KEYS``; reference ``blocks_dense`` /
+    ``blocks_moe`` / ``blocks``)."""
+    return path[0].startswith("block") or path[0] in MX.BLOCK_KEYS
+
+
 @pytest.mark.parametrize(
     "arch", [a for a in TB.ARCH_IDS
              if TB.get_config(a).family in EXPLICIT_TP_FAMILIES])
@@ -191,21 +200,23 @@ def test_tp_shard_elements_match_param_specs(arch):
         for (path, leaf), spec in zip(_ref_leaves(rst["params"]), specs):
             n = int(np.prod(leaf.shape))
             split = RMX.MODEL in tuple(spec)
-            if path[0].startswith("block"):
+            if _in_blocks(path):
                 ref_blocks += n // tp_size if split else n
             elif split:
                 ref_sharded_out.add(path[0])
         shard = MX.shard_params(full, cfg, 0, tp_size, kv_rep)
         port_blocks = sum(t.numel() for p, t in named_leaves(shard)
-                          if p[0].startswith("block"))
+                          if _in_blocks(p))
         assert port_blocks == ref_blocks, (arch, tp_size)
         assert ref_sharded_out <= PORT_REPLICATED
-        outside = [t for p, t in named_leaves(shard)
-                   if not p[0].startswith("block")]
+        outside = [t for p, t in named_leaves(shard) if not _in_blocks(p)]
         assert all(any(t is u for _, u in named_leaves(full))
                    for t in outside)            # replicated: the same tensor
-    if arch in ("llama3.2-3b", "qwen3-moe-30b-a3b", "deepseek-v3-671b"):
+    if arch in ("llama3.2-3b", "qwen3-moe-30b-a3b", "deepseek-v3-671b",
+                "mamba2-370m", "zamba2-1.2b"):
         assert checked >= 3
+    if arch == "whisper-small":
+        assert checked == 2                      # 12 heads: tp 2 and 4
 
 
 # ------------------------------------------------------------ collectives --
@@ -398,18 +409,25 @@ def test_fsdp_argument_bytes_are_the_padded_slices(arch, mesh):
 
 #: argument bytes of three pairs with the params replicated over the data
 #: axes, as the dry run reported them before it had FSDP.  zamba2-1.2b's
-#: long_500k on the multi mesh (512 data ranks, batch 1) held 30,431,698,952
-#: B then, the shared block's whole K / V among them: 6 invocations x 2 x
-#: 524288 x 32 heads x 64 x 2 bytes = 25,769,803,776 B.  The reference's
-#: decode-cache layout (``cache_specs``) cuts that sequence over the 512
-#: data ranks: a rank keeps 1 / 512 of it, 25,769,803,776 x 511 / 512 =
-#: 25,719,472,128 B less (its one row of mamba state stays whole)
+#: long_500k on the multi mesh (then 512 data ranks x model 1, batch 1)
+#: held 30,431,698,952 B, the shared block's whole K / V among them: 6
+#: invocations x 2 x 524288 x 32 heads x 64 x 2 bytes = 25,769,803,776 B.
+#: Its mesh is now pod 2 x data 32 x model 8.  The reference's
+#: decode-cache layout (``cache_specs``) cuts that sequence over the 64
+#: data ranks and the 32 heads over the 8 model ranks: a rank keeps 1 / 512
+#: of it (its one row of mamba state stays whole).  And its ``param_specs``
+#: cut the shared block's seven matmul weights over the model ranks (4 x
+#: 2048 x 2048 attention, 3 x 2048 x 8192 FFN elements in fp32): a rank
+#: keeps 1 / 8 of their 268,435,456 B, the mamba layers and the
+#: top-level ``in_proj`` whole
 ZAMBA_KV_BYTES = 6 * 2 * 524288 * 32 * 64 * 2
+ZAMBA_SHARED_BYTES = (4 * 2048 * 2048 + 3 * 2048 * 8192) * 4
 NO_FSDP_ARGUMENT_BYTES = {
     ("llava-next-mistral-7b", "prefill_32k", "single"): 4563042304,
     ("qwen3-4b", "decode_32k", "single"): 5789196320,
     ("zamba2-1.2b", "long_500k", "multi"):
-        30431698952 - ZAMBA_KV_BYTES * 511 // 512}
+        30431698952 - ZAMBA_KV_BYTES * 511 // 512
+        - ZAMBA_SHARED_BYTES * 7 // 8}
 
 
 @pytest.mark.parametrize("pair", NO_FSDP_ARGUMENT_BYTES)
